@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""Smoke run of image_stitcher_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. environment: torch/CUDA versions, card name and power limit;
+  2. build: the CUDA kernels, compiled from csrc/ with nvcc;
+  3. kernel vs plain: every kernel against its plain PyTorch version on
+     seeded batches at the main-path shapes (byte-equal), with both
+     times from CUDA events;
+  4. slice parity: a 3x3 x 3-channel 2048^2 acquisition stitched on the
+     card and on the CPU must decode to equal OME-Zarr trees;
+  5. main path: a 10x10 x 3-channel 2048^2 uint16 acquisition (~205 px
+     overlap, registration + flatfield, raw OME-Zarr v2) stitched end to
+     end through ``image_stitcher_tpu_torch.stitch``, with stage times
+     and tiles/s.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
+without the package beside this file, the script exits non-zero and
+prints no result. The acquisitions are written to a temporary directory
+and removed at the end.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+KERNEL_SOURCE = 'image_stitcher_tpu_torch/csrc/fuse_overwrite.cu'
+KERNEL_REPLACES = 'image_stitcher_tpu/ops/pallas_fuse.py:492'
+TILE = 2048
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------------ 1, 2
+
+def phase_environment() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
+                         "this script needs a CUDA card")
+    card = card_line()
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, numpy {np.__version__}")
+    log(f"card: {card}")
+    return card
+
+
+def phase_build() -> None:
+    from image_stitcher_tpu_torch import native
+    t0 = time.perf_counter()
+    native.load('fuse_overwrite')
+    info = native.BUILDS['fuse_overwrite']
+    log(f"build: {info['path']} ({'cached' if info['cached'] else 'nvcc'}"
+        f" {info['seconds']:.1f}s, load {time.perf_counter() - t0:.1f}s)")
+    log("build: nvcc " + " ".join(native.NVCC_FLAGS))
+    for line in info['log'].splitlines():
+        if 'registers' in line or 'spill' in line:
+            log("  ptxas: " + line.strip())
+
+
+# --------------------------------------------------------------------- 3
+
+def kernel_batch(rng, n, th, tw, canvas_hw, num_c, overlap=205):
+    """A fusion batch like the band fuser's: tiles on a grid with
+    ~``overlap`` px overlaps and jitter, nonzero crops, one tile placed
+    twice (full overlap), and the last two entries invalid padding."""
+    hp, wp = canvas_hw
+    step_y, step_x = th - overlap, tw - overlap
+    cols = max(1, min(5, (wp - tw) // step_x + 1))
+    tiles = rng.integers(0, 65536, (n, th, tw)).astype(np.uint16)
+    info = np.zeros((n, 4), np.int32)
+    crops = np.zeros((n, 4), np.int32)
+    valid = np.ones(n, bool)
+    for k in range(n):
+        r, c = divmod(k, cols)
+        y = min(r * step_y + int(rng.integers(0, 24)), hp - th)
+        x = min(c * step_x + int(rng.integers(0, 24)), wp - tw)
+        info[k] = (k % num_c, 0, y, x)
+        crops[k] = [overlap // 2 if int(rng.integers(0, 4)) else 0
+                    for _ in range(4)]
+    info[1] = info[0]          # exact duplicate: the later one must win
+    valid[-2:] = False
+    info[-2:] = 0              # padding entries, as the loader pins them
+    return tiles, info, crops, valid
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` (after a warm-up)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def phase_kernels(reps: int = 10):
+    """fuse_overwrite on the card vs its plain version, byte for byte."""
+    from image_stitcher_tpu_torch.ops import cuda_fuse, fuse as plain
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(1234)
+    # the main path's band canvas: (1, 1, th + band + th, width + tw) for
+    # a 10x10 grid of 2048^2 tiles (width 18635, band 8192), N = 10
+    band_canvas = (1, 1, TILE + 8192 + TILE, 18635 + TILE)
+    cases = []
+    for dtype in (torch.uint16, torch.uint8):
+        for with_ff in (True, False):
+            cases.append(('band', dtype, with_ff, band_canvas, 10, TILE,
+                          TILE))
+    # an unaligned camera into a 3-channel canvas (ff picked per channel)
+    cases.append(('1920x1200', torch.uint16, True, (3, 1, 5000, 9000), 10,
+                  1200, 1920))
+    max_err = 0
+    headline = None
+    for name, dtype, with_ff, cshape, n, th, tw in cases:
+        tiles, info, crops, valid = kernel_batch(
+            rng, n, th, tw, cshape[2:], cshape[0])
+        if dtype == torch.uint8:
+            tiles = (tiles >> 8).astype(np.uint8)
+        d_tiles = torch.from_numpy(tiles).to(dev)
+        t_info = torch.from_numpy(info)
+        t_crops = torch.from_numpy(crops)
+        t_valid = torch.from_numpy(valid)
+        ff = None
+        if with_ff:
+            ff = torch.from_numpy(
+                (1.0 / rng.uniform(0.6, 1.4, (cshape[0], th, tw)))
+                .astype(np.float32)).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        base = torch.randint(0, 256 if dtype == torch.uint8 else 65536,
+                             cshape, generator=gen, device=dev,
+                             dtype=torch.int32).to(dtype)
+        got = base.clone()
+        want = base.clone()
+        cuda_fuse.fuse_overwrite(got, d_tiles, t_info, t_crops, t_valid, ff)
+        torch.cuda.synchronize()
+        plain.fuse_overwrite(want, d_tiles, t_info, t_crops, t_valid, ff)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        changed = int((got.to(torch.int32) != base.to(torch.int32)).sum())
+        max_err = max(max_err, err)
+        ms_k = cuda_ms(lambda: cuda_fuse.fuse_overwrite(
+            got, d_tiles, t_info, t_crops, t_valid, ff), reps)
+        ms_p = cuda_ms(lambda: plain.fuse_overwrite(
+            want, d_tiles, t_info, t_crops, t_valid, ff), reps)
+        label = (f"{name} {str(dtype).split('.')[-1]} "
+                 f"{'ff' if with_ff else 'noff'} N={n} {th}x{tw}")
+        log(f"kernel fuse_overwrite {label}: max_abs_err={err} "
+            f"(pixels written {changed}), kernel {ms_k:.3f} ms, "
+            f"plain {ms_p:.3f} ms")
+        if err != 0:
+            raise SystemExit(f"fuse_overwrite disagrees with its plain "
+                             f"version on {label}: max_abs_err {err}")
+        if name == 'band' and dtype == torch.uint16 and with_ff:
+            headline = (ms_k, ms_p)
+        del got, want, base, d_tiles, ff
+    torch.cuda.empty_cache()
+    return {'max_abs_err': max_err, 'ms': headline[0],
+            'plain_ms': headline[1]}
+
+
+# ------------------------------------------------------------ 4, 5: data
+
+CHANNELS = ["Fluorescence 405 nm Ex", "Fluorescence 488 nm Ex",
+            "Fluorescence 561 nm Ex"]
+ACQ_PARAMS = {
+    "dx(mm)": 0.1, "dy(mm)": 0.1, "dz(um)": 1.5, "Nz": 1, "Nt": 1,
+    "objective": {"magnification": 10, "tube_lens_f_mm": 180,
+                  "name": "10x"},
+    "sensor_pixel_size_um": 10.0, "tube_lens_mm": 180,   # 1.0 um / px
+    "pixel_binning": 2,
+}
+
+
+def tiff_bytes_header(h: int, w: int) -> bytes:
+    """Classic little-endian TIFF header + IFD for one uncompressed
+    uint16 strip of (h, w) whose pixels follow at byte 160."""
+    import struct
+    data_off = 160
+    entries = [(256, 4, w), (257, 4, h), (258, 3, 16), (259, 3, 1),
+               (262, 3, 1), (273, 4, data_off), (277, 3, 1), (278, 4, h),
+               (279, 4, h * w * 2), (284, 3, 1), (339, 3, 1)]
+    out = bytearray(b'II' + struct.pack('<HI', 42, 8))
+    out += struct.pack('<H', len(entries))
+    for tag, typ, val in entries:
+        payload = (struct.pack('<HH', val, 0) if typ == 3
+                   else struct.pack('<I', val))
+        out += struct.pack('<HHI', tag, typ, 1) + payload
+    out += struct.pack('<I', 0)
+    return bytes(out.ljust(data_off, b'\0'))
+
+
+def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
+                      seed: int):
+    """A Squid acquisition: grid x grid tiles of ``tile``^2 uint16 cut at
+    ``overlap`` px overlap from one seeded full-entropy texture, written
+    as uncompressed TIFF for every channel, plus coordinates.csv and
+    'acquisition parameters.json' (the layout of the JAX package's test
+    fixtures). Returns (texture, {fov: (y0, x0)})."""
+    import csv
+    step = tile - overlap
+    margin = 8
+    side = step * (grid - 1) + tile + 2 * margin
+    rng = np.random.default_rng(seed)
+    gt = rng.integers(6553, 58982, (side, side), dtype=np.uint16)
+    tdir = os.path.join(folder, '0')
+    os.makedirs(tdir)
+    with open(os.path.join(folder, 'acquisition parameters.json'), 'w') as f:
+        json.dump(dict(ACQ_PARAMS, Nx=grid, Ny=grid), f, indent=2)
+    header = tiff_bytes_header(tile, tile)
+    origins = {}
+    rows = []
+    for r in range(grid):
+        for c in range(grid):
+            fov = r * grid + c
+            y0, x0 = margin + r * step, margin + c * step
+            origins[fov] = (y0, x0)
+            rows.append({"region": "A1", "fov": fov, "z_level": 0,
+                         "x (mm)": round(c * step / 1000.0, 6),
+                         "y (mm)": round(r * step / 1000.0, 6),
+                         "z (um)": 0.0})
+            body = np.ascontiguousarray(gt[y0:y0 + tile, x0:x0 + tile])
+            for ch in CHANNELS:
+                name = f"A1_{fov}_0_{ch.replace(' ', '_')}.tiff"
+                with open(os.path.join(tdir, name), 'wb') as f:
+                    f.write(header)
+                    body.tofile(f)
+    with open(os.path.join(tdir, 'coordinates.csv'), 'w', newline='') as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    return gt, origins
+
+
+def smoke_options(out: str):
+    from image_stitcher_tpu_torch import EngineOptions
+    # the JAX package's benchmark options for this path
+    return EngineOptions(fusion_batch=10, reader_threads=8,
+                         compressor_cname='auto', output_folder=out)
+
+
+def read_tree(root: str):
+    """{relative path: decoded level array or parsed JSON} of a tree."""
+    from image_stitcher_tpu_torch.io.zarr_store import read_array
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        rel = os.path.relpath(dirpath, root)
+        if '.zarray' in files:
+            out[rel] = read_array(dirpath)
+        for name in files:
+            if name in ('.zarray', '.zattrs', '.zgroup'):
+                with open(os.path.join(dirpath, name)) as f:
+                    out[os.path.join(rel, name)] = json.load(f)
+    return out
+
+
+# --------------------------------------------------------------------- 4
+
+def phase_slice_parity(work: str, grid: int = 3, tile: int = TILE,
+                       devices=('cuda', 'cpu')) -> None:
+    """The same acquisition stitched on the card and on the CPU must
+    decode to equal OME-Zarr trees, and the card run must launch the
+    kernel."""
+    from image_stitcher_tpu_torch import stitch
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    acq = os.path.join(work, f'parity_{grid}x{grid}')
+    write_acquisition(acq, grid, tile, overlap=205 * tile // TILE, seed=11)
+    trees = {}
+    for run, dev in enumerate(devices):
+        cuda_fuse.fuse_overwrite.launches = 0
+        out = os.path.join(work, f'parity_out_{run}')
+        t0 = time.perf_counter()
+        pipe = stitch(acq, use_registration=True, apply_flatfield=True,
+                      device=torch.device(dev), options=smoke_options(out))
+        launches = cuda_fuse.fuse_overwrite.launches
+        log(f"slice parity: {grid}x{grid}x{len(CHANNELS)}ch {tile}^2 on "
+            f"{dev}: {time.perf_counter() - t0:.2f}s, shifts "
+            f"h={pipe.shifts.h_shift} v={pipe.shifts.v_shift}, "
+            f"kernel launches {launches}")
+        if dev == 'cuda' and launches == 0:
+            raise SystemExit("slice parity: the card run never launched "
+                             "the fuse_overwrite kernel")
+        trees[run] = read_tree(out)
+    a, b = trees[0], trees[1]
+    if sorted(a) != sorted(b):
+        raise SystemExit(f"slice parity: trees differ in layout: "
+                         f"{sorted(set(a) ^ set(b))}")
+    for key in sorted(a):
+        same = (np.array_equal(a[key], b[key])
+                if isinstance(a[key], np.ndarray) else a[key] == b[key])
+        if not same:
+            raise SystemExit(f"slice parity: {key} differs between the "
+                             f"card and the CPU run")
+    levels = sum(isinstance(v, np.ndarray) for v in a.values())
+    log(f"slice parity: card and CPU trees equal ({len(a)} entries, "
+        f"{levels} level arrays)")
+
+
+# --------------------------------------------------------------------- 5
+
+def reference_plane(pipe, gt, origins, channel: int, height: int,
+                    width: int) -> np.ndarray:
+    """Level 0 of one channel, fused in plain NumPy from the texture the
+    acquisition was cut from: each job's crop window, flatfield-corrected
+    (trunc(clip(tile * recip))), written in plan order."""
+    recip = pipe._flatfield_recip_np()[channel]
+    tile = pipe.acq.input_height
+    out = np.zeros((height, width), np.uint16)
+    for job in pipe._build_jobs(0, 'A1'):
+        if job.channel_idx != channel:
+            continue
+        fov = int(os.path.basename(job.filepath).split('_')[1])
+        y0, x0 = origins[fov]
+        t = gt[y0:y0 + tile, x0:x0 + tile].astype(np.float32) * recip
+        t = np.clip(t, 0, 65535).astype(np.uint16)
+        top, bottom, left, right = job.crops
+        r1 = min(tile - bottom, height - job.y)
+        s1 = min(tile - right, width - job.x)
+        out[job.y + top:job.y + r1, job.x + left:job.x + s1] = \
+            t[top:r1, left:s1]
+    return out
+
+
+def phase_main_path(work: str, card: str, grid: int = 10,
+                    tile: int = TILE, device: str = 'cuda') -> dict:
+    from image_stitcher_tpu_torch import stitch
+    from image_stitcher_tpu_torch.io.omezarr import level_shapes
+    from image_stitcher_tpu_torch.io.zarr_store import read_array
+    from image_stitcher_tpu_torch.models.streaming import (
+        band_rows_for, partition_jobs_by_band)
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    acq = os.path.join(work, f'main_{grid}x{grid}')
+    t0 = time.perf_counter()
+    gt, origins = write_acquisition(acq, grid, tile,
+                                    overlap=205 * tile // TILE, seed=5)
+    log(f"main path: wrote {grid}x{grid}x{len(CHANNELS)} {tile}^2 uint16 "
+        f"tiles in {time.perf_counter() - t0:.1f}s")
+    out = os.path.join(work, 'main_out')
+    dev = torch.device(device)
+    cuda_fuse.fuse_overwrite.launches = 0
+    t0 = time.perf_counter()
+    pipe = stitch(acq, use_registration=True, apply_flatfield=True,
+                  device=dev, options=smoke_options(out))
+    e2e = time.perf_counter() - t0
+    launches = cuda_fuse.fuse_overwrite.launches
+    n_tiles = grid * grid * len(CHANNELS)
+
+    acq_rec = pipe.acq
+    width, height = pipe._region_dimensions(0, 'A1')
+    opts = pipe.options
+    band = band_rows_for(opts.write_band_rows() * opts.device_band_multiple,
+                         pipe.num_pyramid_levels)
+    tasks, _ = partition_jobs_by_band(pipe._build_jobs(0, 'A1'), tile,
+                                      height, band)
+    batches = sum(-(-len(v) // opts.fusion_batch) for v in tasks.values())
+    stats = pipe.fuse_stats['A1_t0']
+    log(f"main path: shifts h={pipe.shifts.h_shift} v={pipe.shifts.v_shift}"
+        f", canvas {len(CHANNELS)}x{height}x{width}, "
+        f"{pipe.num_pyramid_levels} levels, band {band} rows, "
+        f"{len(tasks)} bands, {batches} batches, kernel launches "
+        f"{launches}")
+    if (launches != (batches if dev.type == 'cuda' else 0)
+            or stats['batches'] != batches):
+        raise SystemExit(f"main path: {launches} kernel launches and "
+                         f"{stats['batches']} fused batches for {batches} "
+                         f"batches planned")
+    zarr = os.path.join(out, '0_stitched', 'A1_stitched.ome.zarr')
+    want = level_shapes((1, len(CHANNELS), 1, height, width),
+                        pipe.num_pyramid_levels)
+    for lv, shape in enumerate(want):
+        with open(os.path.join(zarr, str(lv), '.zarray')) as f:
+            got = tuple(json.load(f)['shape'])
+        if got != shape:
+            raise SystemExit(f"main path: level {lv} is {got}, not {shape}")
+    level0 = read_array(os.path.join(zarr, '0'))
+    ref = reference_plane(pipe, gt, origins, 0, height, width)
+    if not np.array_equal(level0[0, 0, 0], ref):
+        bad = int((level0[0, 0, 0] != ref).sum())
+        raise SystemExit(f"main path: channel 0 level 0 differs from the "
+                         f"NumPy reference in {bad} pixels")
+    if pipe.num_pyramid_levels > 1:
+        level1 = read_array(os.path.join(zarr, '1'))
+        if not np.array_equal(level1[0, :, 0],
+                              level0[0, :, 0, :height // 2 * 2:2,
+                                     :width // 2 * 2:2]):
+            raise SystemExit("main path: level 1 is not level 0 subsampled")
+        del level1
+    del level0, ref, gt
+    banned = [m for m in ('jax', 'jaxlib', 'pandas', 'tensorstore', 'cv2',
+                          'image_stitcher_tpu') if m in sys.modules]
+    if banned:
+        raise SystemExit(f"main path: loaded {banned}")
+    t = pipe.timers.as_dict()
+    log(f"main path on {card}: e2e {e2e:.3f}s = {n_tiles / e2e:.2f} "
+        f"tiles/s ({n_tiles} tiles); stages scan={t.get('scan', 0):.3f}s "
+        f"flatfield_fit={t.get('flatfield_fit', 0):.3f}s "
+        f"registration={t.get('registration', 0):.3f}s (overlapped with "
+        f"the fit) fuse+write={t.get('stream_fuse_save', 0):.3f}s; band "
+        f"fuser: fuse={stats['fuse']:.3f}s readback_wait="
+        f"{stats['readback_wait']:.3f}s write={stats['write']:.3f}s; "
+        f"channel 0 level 0 equals the NumPy reference")
+    return {'launches': launches, 'e2e_s': e2e,
+            'tiles_per_s': n_tiles / e2e}
+
+
+# ------------------------------------------------------------------ main
+
+def main() -> int:
+    card = phase_environment()
+    phase_build()
+    kern = phase_kernels()
+    work = tempfile.mkdtemp(prefix='chip_smoke_')
+    try:
+        phase_slice_parity(work)
+        main_run = phase_main_path(work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"card: {card}")
+    log(json.dumps({"kernels": [{
+        "name": "fuse_overwrite", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES, "launches": main_run['launches'],
+        "max_abs_err": kern['max_abs_err'], "ms": kern['ms'],
+        "plain_ms": kern['plain_ms']}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,69 @@
+"""The CUDA kernel against its plain PyTorch version, on the card.
+
+Marked ``cuda``: the kernel has no CPU mode, so these skip without a
+card. The file imports neither jax nor the JAX package, so it also runs
+on a CUDA host that has neither:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from image_stitcher_tpu_torch.ops import cuda_fuse
+from image_stitcher_tpu_torch.ops import fuse as plain
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device('cuda')
+
+
+def _batch(seed, dtype, th, tw, n=12, C=2, Z=2, H=300, W=340):
+    """Overlapping tiles, crops (some past half the tile, some negative),
+    a duplicate placement and invalid entries."""
+    rng = np.random.default_rng(seed)
+    hi = np.iinfo(dtype).max
+    tiles = rng.integers(0, hi + 1, (n, th, tw)).astype(dtype)
+    info = np.stack([rng.integers(0, C, n), rng.integers(0, Z, n),
+                     rng.integers(0, H, n), rng.integers(0, W, n)],
+                    axis=1).astype(np.int32)
+    info[3] = info[2]
+    crops = rng.integers(-2, max(th, tw) // 2 + 3, (n, 4)).astype(np.int32)
+    valid = rng.random(n) > 0.25
+    valid[[2, 3]] = True
+    ff = (1.0 / rng.uniform(0.5, 1.5, (C, th, tw))).astype(np.float32)
+    canvas = rng.integers(0, hi + 1, plain.padded_canvas_shape(
+        C, Z, H, W, th, tw)).astype(dtype)
+    return [torch.from_numpy(a) for a in (canvas, tiles, info, crops,
+                                          valid, ff)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("with_ff", [False, True])
+@pytest.mark.parametrize("shape", [(100, 120), (37, 1100)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_kernel_matches_plain(cuda_device, dtype, with_ff, shape):
+    canvas, tiles, info, crops, valid, ff = _batch(6, dtype, *shape)
+    before = cuda_fuse.fuse_overwrite.launches
+    got = cuda_fuse.fuse_overwrite(
+        canvas.to(cuda_device), tiles.to(cuda_device), info, crops, valid,
+        ff_recip=ff.to(cuda_device) if with_ff else None)
+    torch.cuda.synchronize()
+    assert cuda_fuse.fuse_overwrite.launches == before + 1
+    want = plain.fuse_overwrite(canvas, tiles, info, crops, valid,
+                                ff_recip=ff if with_ff else None)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_tile_outside_the_canvas(cuda_device):
+    canvas, tiles, info, crops, valid, ff = _batch(7, np.uint16, 32, 32)
+    info[2, 3] = canvas.shape[3] - 16
+    with pytest.raises(ValueError):
+        cuda_fuse.fuse_overwrite(canvas.to(cuda_device),
+                                 tiles.to(cuda_device), info, crops, valid)
