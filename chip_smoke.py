@@ -5,16 +5,25 @@
 
 Phases, each fatal on failure:
   1. environment: torch/CUDA versions, card name and power limit;
-  2. build: the CUDA kernels, compiled from csrc/ with nvcc;
+  2. build: the CUDA kernels, compiled from csrc/ with nvcc (one nvcc per
+     source, started together);
   3. kernel vs plain: every kernel against its plain PyTorch version on
-     seeded batches at the main-path shapes (byte-equal), with both
-     times from CUDA events;
-  4. slice parity: a 3x3 x 3-channel 2048^2 acquisition stitched on the
-     card and on the CPU must decode to equal OME-Zarr trees;
+     seeded batches at the main-path shapes (overwrite canvas byte-equal,
+     feather acc/wsum bit-equal, finalize byte-equal), with both times
+     from CUDA events; the batched device phase correlation against the
+     host f64 twin on 180 main-path strip pairs (within 0.1 px);
+  4. slice parity: 3x3 x 3-channel 2048^2 acquisitions stitched on the
+     card and on the CPU must decode to equal OME-Zarr trees: the main
+     path, and the maximum-quality path with the card run's registration
+     carried into the CPU run;
   5. main path: a 10x10 x 3-channel 2048^2 uint16 acquisition (~205 px
-     overlap, registration + flatfield, raw OME-Zarr v2) stitched end to
-     end through ``image_stitcher_tpu_torch.stitch``, with stage times
-     and tiles/s.
+     overlap, center registration + flatfield, overwrite, raw OME-Zarr
+     v2) stitched end to end through ``image_stitcher_tpu_torch.stitch``,
+     with stage times and tiles/s;
+  6. maximum-quality path: the same grid with +-3 px integer stage
+     jitter, all-pairs registration on the card, the global position
+     solve, subpixel placement and feathered blending; a 4096-row window
+     of channel 0 is held against a NumPy reference.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -32,13 +41,19 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-KERNEL_SOURCE = 'image_stitcher_tpu_torch/csrc/fuse_overwrite.cu'
-KERNEL_REPLACES = 'image_stitcher_tpu/ops/pallas_fuse.py:492'
+KERNELS = {
+    'fuse_overwrite': ('image_stitcher_tpu_torch/csrc/fuse_overwrite.cu',
+                       'image_stitcher_tpu/ops/pallas_fuse.py:492'),
+    'fuse_feather': ('image_stitcher_tpu_torch/csrc/fuse_feather.cu',
+                     'image_stitcher_tpu/ops/pallas_fuse.py:407'),
+}
 TILE = 2048
+BLEND = 64
 
 
 def log(msg: str) -> None:
@@ -69,14 +84,17 @@ def phase_environment() -> str:
 def phase_build() -> None:
     from image_stitcher_tpu_torch import native
     t0 = time.perf_counter()
-    native.load('fuse_overwrite')
-    info = native.BUILDS['fuse_overwrite']
-    log(f"build: {info['path']} ({'cached' if info['cached'] else 'nvcc'}"
-        f" {info['seconds']:.1f}s, load {time.perf_counter() - t0:.1f}s)")
-    log("build: nvcc " + " ".join(native.NVCC_FLAGS))
-    for line in info['log'].splitlines():
-        if 'registers' in line or 'spill' in line:
-            log("  ptxas: " + line.strip())
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(native.load, KERNELS))
+    log(f"build: {len(KERNELS)} sources in {time.perf_counter() - t0:.1f}s;"
+        " nvcc " + " ".join(native.NVCC_FLAGS))
+    for name in KERNELS:
+        info = native.BUILDS[name]
+        log(f"build: {info['path']} ({'cached' if info['cached'] else 'nvcc'}"
+            f" {info['seconds']:.1f}s)")
+        for line in info['log'].splitlines():
+            if 'registers' in line or 'spill' in line or 'Compiling' in line:
+                log("  ptxas: " + line.strip())
 
 
 # --------------------------------------------------------------------- 3
@@ -121,24 +139,36 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def phase_kernels(reps: int = 10):
+    """Every kernel on the card vs its plain version; returns
+    {kernel: {'max_abs_err', 'ms', 'plain_ms'}} at the headline case."""
+    out = {'fuse_overwrite': kernel_overwrite(reps)}
+    out['fuse_feather'] = kernel_feather(reps)
+    pcc_check()
+    return out
+
+
+def kernel_cases():
+    """(name, dtype, with_ff, canvas shape, N, th, tw) at the main-path
+    shapes: the band canvas (1, 1, th + band + th, width + tw) of a 10x10
+    grid of 2048^2 tiles (width 18635, band 8192) with N = 10, and an
+    unaligned camera into a 3-channel canvas (ff picked per channel)."""
+    band_canvas = (1, 1, TILE + 8192 + TILE, 18635 + TILE)
+    cases = [('band', dtype, with_ff, band_canvas, 10, TILE, TILE)
+             for dtype in (torch.uint16, torch.uint8)
+             for with_ff in (True, False)]
+    cases.append(('1920x1200', torch.uint16, True, (3, 1, 5000, 9000), 10,
+                  1200, 1920))
+    return cases
+
+
+def kernel_overwrite(reps: int):
     """fuse_overwrite on the card vs its plain version, byte for byte."""
     from image_stitcher_tpu_torch.ops import cuda_fuse, fuse as plain
     dev = torch.device('cuda')
     rng = np.random.default_rng(1234)
-    # the main path's band canvas: (1, 1, th + band + th, width + tw) for
-    # a 10x10 grid of 2048^2 tiles (width 18635, band 8192), N = 10
-    band_canvas = (1, 1, TILE + 8192 + TILE, 18635 + TILE)
-    cases = []
-    for dtype in (torch.uint16, torch.uint8):
-        for with_ff in (True, False):
-            cases.append(('band', dtype, with_ff, band_canvas, 10, TILE,
-                          TILE))
-    # an unaligned camera into a 3-channel canvas (ff picked per channel)
-    cases.append(('1920x1200', torch.uint16, True, (3, 1, 5000, 9000), 10,
-                  1200, 1920))
     max_err = 0
     headline = None
-    for name, dtype, with_ff, cshape, n, th, tw in cases:
+    for name, dtype, with_ff, cshape, n, th, tw in kernel_cases():
         tiles, info, crops, valid = kernel_batch(
             rng, n, th, tw, cshape[2:], cshape[0])
         if dtype == torch.uint8:
@@ -185,6 +215,125 @@ def phase_kernels(reps: int = 10):
             'plain_ms': headline[1]}
 
 
+def kernel_feather(reps: int):
+    """fuse_feather (acc, wsum bit-equal) and finalize_feather (byte-equal)
+    on the card vs their plain versions, at the band canvas."""
+    from image_stitcher_tpu_torch.ops import cuda_fuse, fuse as plain
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(4321)
+    max_err = 0.0
+    headline = finalize = None
+    for name, dtype, with_ff, cshape, n, th, tw in kernel_cases():
+        tiles, info, crops, valid = kernel_batch(
+            rng, n, th, tw, cshape[2:], cshape[0])
+        if dtype == torch.uint8:
+            tiles = (tiles >> 8).astype(np.uint8)
+        d_tiles = torch.from_numpy(tiles).to(dev)
+        meta = (torch.from_numpy(info), torch.from_numpy(crops),
+                torch.from_numpy(valid))
+        ff = None
+        if with_ff:
+            ff = torch.from_numpy(
+                (1.0 / rng.uniform(0.6, 1.4, (cshape[0], th, tw)))
+                .astype(np.float32)).to(dev)
+        # start from an earlier batch's sums, as a band's later batches do
+        gen = torch.Generator(device=dev).manual_seed(8)
+        acc0 = torch.rand(cshape, generator=gen, device=dev) * 65535
+        wsum0 = torch.rand(cshape, generator=gen, device=dev)
+        got = (acc0.clone(), wsum0.clone())
+        want = (acc0.clone(), wsum0.clone())
+        cuda_fuse.fuse_feather(*got, d_tiles, *meta, ff_recip=ff,
+                               blend_px=BLEND)
+        torch.cuda.synchronize()
+        plain.fuse_feather(*want, d_tiles, *meta, ff_recip=ff,
+                           blend_px=BLEND)
+        torch.cuda.synchronize()
+        err = max(float((got[k] - want[k]).abs().max()) for k in (0, 1))
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        changed = int((got[1] != wsum0).sum())
+        max_err = max(max_err, err)
+        label = (f"{name} {str(dtype).split('.')[-1]} "
+                 f"{'ff' if with_ff else 'noff'} N={n} {th}x{tw}")
+        if not same:
+            raise SystemExit(f"fuse_feather disagrees with its plain version "
+                             f"on {label}: max_abs_err {err}")
+        if name == 'band':
+            # the band's real rows, as the band fuser finalizes them
+            window = ((th, th + 8192), (0, 18635))
+            f_got = cuda_fuse.finalize_feather(*got, dtype, *window)
+            f_want = plain.finalize_feather(
+                got[0][..., th:th + 8192, :18635],
+                got[1][..., th:th + 8192, :18635], dtype)
+            torch.cuda.synchronize()
+            f_err = int((f_got.to(torch.int32)
+                         - f_want.to(torch.int32)).abs().max())
+            if f_err != 0:
+                raise SystemExit(f"finalize_feather disagrees with its "
+                                 f"plain version on {label}: {f_err}")
+        ms_k = cuda_ms(lambda: cuda_fuse.fuse_feather(
+            *got, d_tiles, *meta, ff_recip=ff, blend_px=BLEND), reps)
+        ms_p = cuda_ms(lambda: plain.fuse_feather(
+            *want, d_tiles, *meta, ff_recip=ff, blend_px=BLEND), reps)
+        line = (f"kernel fuse_feather {label}: acc/wsum bit-equal "
+                f"(pixels weighted {changed}), kernel {ms_k:.3f} ms, "
+                f"plain {ms_p:.3f} ms")
+        if name == 'band':
+            fk = cuda_ms(lambda: cuda_fuse.finalize_feather(
+                *got, dtype, *window), reps)
+            fp = cuda_ms(lambda: plain.finalize_feather(
+                got[0][..., th:th + 8192, :18635],
+                got[1][..., th:th + 8192, :18635], dtype), reps)
+            line += (f"; finalize 8192x18635 byte-equal, kernel {fk:.3f} ms,"
+                     f" plain {fp:.3f} ms")
+            if dtype == torch.uint16 and with_ff:
+                headline = (ms_k, ms_p)
+                finalize = {'max_abs_err': f_err, 'ms': fk, 'plain_ms': fp}
+            del f_got, f_want
+        log(line)
+        del got, want, acc0, wsum0, d_tiles, ff
+        torch.cuda.empty_cache()
+    return {'max_abs_err': max_err, 'ms': headline[0],
+            'plain_ms': headline[1], 'finalize': finalize}
+
+
+def pcc_check(n: int = 90, tol: float = 0.1) -> None:
+    """The batched phase correlation on the card (cuFFT + complex64
+    matmuls) against the host f64 twin on ``n`` seeded horizontal and
+    ``n`` vertical main-path strip pairs (1024 x 214 and 214 x 1024,
+    known integer offsets up to the fixture's jitter)."""
+    from image_stitcher_tpu_torch.ops.phasecorr import (
+        phase_cross_correlation_conf_batch, phase_cross_correlation_conf_np)
+    rng = np.random.default_rng(99)
+    pad = 8
+    worst = 0.0
+    for sh, sw in ((1024, 214), (214, 1024)):
+        tex = rng.integers(6553, 58982, (sh + 2 * pad, sw + 2 * pad),
+                           dtype=np.uint16)
+        d = rng.integers(-6, 7, (n, 2))
+        a = np.broadcast_to(tex[pad:pad + sh, pad:pad + sw], (n, sh, sw))
+        b = np.stack([tex[pad + dy:pad + dy + sh, pad + dx:pad + dx + sw]
+                      for dy, dx in d])
+        a = np.ascontiguousarray(a)
+        t0 = time.perf_counter()
+        shifts, peaks = phase_cross_correlation_conf_batch(
+            torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(), 10)
+        shifts = shifts.cpu().numpy()
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = np.stack([phase_cross_correlation_conf_np(a[i], b[i], 10)[0]
+                         for i in range(n)])
+        t_host = time.perf_counter() - t0
+        err = float(np.abs(shifts - host).max())
+        worst = max(worst, err)
+        log(f"pcc {n} pairs {sh}x{sw}: device batch {t_dev * 1e3:.1f} ms "
+            f"(first call, incl. upload and cuFFT plans), host f64 twin "
+            f"{t_host * 1e3:.1f} ms; max |device - host| {err:.4f} px, "
+            f"max |device - truth| {float(np.abs(shifts - d).max()):.4f} px")
+        if err > tol:
+            raise SystemExit(f"pcc: the device batch is {err} px from the "
+                             f"host twin on {sh}x{sw} strips")
+
+
 # ------------------------------------------------------------ 4, 5: data
 
 CHANNELS = ["Fluorescence 405 nm Ex", "Fluorescence 488 nm Ex",
@@ -217,18 +366,21 @@ def tiff_bytes_header(h: int, w: int) -> bytes:
 
 
 def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
-                      seed: int):
+                      seed: int, jitter: int = 0):
     """A Squid acquisition: grid x grid tiles of ``tile``^2 uint16 cut at
-    ``overlap`` px overlap from one seeded full-entropy texture, written
-    as uncompressed TIFF for every channel, plus coordinates.csv and
-    'acquisition parameters.json' (the layout of the JAX package's test
-    fixtures). Returns (texture, {fov: (y0, x0)})."""
+    ``overlap`` px overlap from one seeded full-entropy texture, each
+    tile's window moved by up to +-``jitter`` px (stage error; the
+    coordinates claim the ideal grid), written as uncompressed TIFF for
+    every channel, plus coordinates.csv and 'acquisition
+    parameters.json' (the layout of the JAX package's test fixtures).
+    Returns (texture, {fov: (y0, x0)})."""
     import csv
     step = tile - overlap
     margin = 8
     side = step * (grid - 1) + tile + 2 * margin
     rng = np.random.default_rng(seed)
     gt = rng.integers(6553, 58982, (side, side), dtype=np.uint16)
+    shake = rng.integers(-jitter, jitter + 1, (grid * grid, 2))
     tdir = os.path.join(folder, '0')
     os.makedirs(tdir)
     with open(os.path.join(folder, 'acquisition parameters.json'), 'w') as f:
@@ -239,7 +391,8 @@ def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
     for r in range(grid):
         for c in range(grid):
             fov = r * grid + c
-            y0, x0 = margin + r * step, margin + c * step
+            y0 = margin + r * step + int(shake[fov, 0])
+            x0 = margin + c * step + int(shake[fov, 1])
             origins[fov] = (y0, x0)
             rows.append({"region": "A1", "fov": fov, "z_level": 0,
                          "x (mm)": round(c * step / 1000.0, 6),
@@ -258,11 +411,14 @@ def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
     return gt, origins
 
 
-def smoke_options(out: str):
+def smoke_options(out: str, quality: bool = False):
     from image_stitcher_tpu_torch import EngineOptions
-    # the JAX package's benchmark options for this path
+    # the JAX package's benchmark options for this path; the maximum-
+    # quality variant is bench.py's 'global+subpixel+feather'
+    extra = (dict(registration_scope='global', subpixel_placement=True,
+                  blend_method='feather') if quality else {})
     return EngineOptions(fusion_batch=10, reader_threads=8,
-                         compressor_cname='auto', output_folder=out)
+                         compressor_cname='auto', output_folder=out, **extra)
 
 
 def read_tree(root: str):
@@ -283,43 +439,58 @@ def read_tree(root: str):
 # --------------------------------------------------------------------- 4
 
 def phase_slice_parity(work: str, grid: int = 3, tile: int = TILE,
-                       devices=('cuda', 'cpu')) -> None:
+                       quality: bool = False) -> None:
     """The same acquisition stitched on the card and on the CPU must
     decode to equal OME-Zarr trees, and the card run must launch the
-    kernel."""
-    from image_stitcher_tpu_torch import stitch
+    path's kernels. On the maximum-quality path the card run's
+    flatfields, shifts and positions are carried into the CPU run (the
+    two FFT libraries may measure a pair a hair apart)."""
+    from image_stitcher_tpu_torch import CarriedState, stitch
     from image_stitcher_tpu_torch.ops import cuda_fuse
-    acq = os.path.join(work, f'parity_{grid}x{grid}')
-    write_acquisition(acq, grid, tile, overlap=205 * tile // TILE, seed=11)
+    name = 'quality' if quality else 'main'
+    counted = ((cuda_fuse.fuse_feather, cuda_fuse.finalize_feather)
+               if quality else (cuda_fuse.fuse_overwrite,))
+    acq = os.path.join(work, f'parity_{name}_{grid}x{grid}')
+    write_acquisition(acq, grid, tile, overlap=205 * tile // TILE, seed=11,
+                      jitter=3 if quality else 0)
     trees = {}
-    for run, dev in enumerate(devices):
-        cuda_fuse.fuse_overwrite.launches = 0
-        out = os.path.join(work, f'parity_out_{run}')
+    state = None
+    for run, dev in enumerate(('cuda', 'cpu')):
+        for fn in counted:
+            fn.launches = 0
+        out = os.path.join(work, f'parity_{name}_out_{run}')
         t0 = time.perf_counter()
         pipe = stitch(acq, use_registration=True, apply_flatfield=True,
-                      device=torch.device(dev), options=smoke_options(out))
-        launches = cuda_fuse.fuse_overwrite.launches
-        log(f"slice parity: {grid}x{grid}x{len(CHANNELS)}ch {tile}^2 on "
-            f"{dev}: {time.perf_counter() - t0:.2f}s, shifts "
-            f"h={pipe.shifts.h_shift} v={pipe.shifts.v_shift}, "
-            f"kernel launches {launches}")
-        if dev == 'cuda' and launches == 0:
-            raise SystemExit("slice parity: the card run never launched "
-                             "the fuse_overwrite kernel")
+                      device=torch.device(dev), state=state,
+                      options=smoke_options(out, quality))
+        launches = [fn.launches for fn in counted]
+        log(f"slice parity ({name}): {grid}x{grid}x{len(CHANNELS)}ch "
+            f"{tile}^2 on {dev}: {time.perf_counter() - t0:.2f}s, shifts "
+            f"h={pipe.shifts.h_shift} v={pipe.shifts.v_shift}, kernel "
+            f"launches {launches}")
+        if dev == 'cuda':
+            if min(launches) == 0:
+                raise SystemExit(f"slice parity ({name}): the card run "
+                                 f"launched {launches} of its kernels")
+            if quality:
+                state = CarriedState(
+                    flatfields=pipe.flatfields, shifts=pipe.shifts,
+                    global_positions=pipe.global_positions,
+                    global_positions_float=pipe.global_positions_float)
         trees[run] = read_tree(out)
     a, b = trees[0], trees[1]
     if sorted(a) != sorted(b):
-        raise SystemExit(f"slice parity: trees differ in layout: "
+        raise SystemExit(f"slice parity ({name}): trees differ in layout: "
                          f"{sorted(set(a) ^ set(b))}")
     for key in sorted(a):
         same = (np.array_equal(a[key], b[key])
                 if isinstance(a[key], np.ndarray) else a[key] == b[key])
         if not same:
-            raise SystemExit(f"slice parity: {key} differs between the "
-                             f"card and the CPU run")
+            raise SystemExit(f"slice parity ({name}): {key} differs between "
+                             f"the card and the CPU run")
     levels = sum(isinstance(v, np.ndarray) for v in a.values())
-    log(f"slice parity: card and CPU trees equal ({len(a)} entries, "
-        f"{levels} level arrays)")
+    log(f"slice parity ({name}): card and CPU trees equal ({len(a)} "
+        f"entries, {levels} level arrays)")
 
 
 # --------------------------------------------------------------------- 5
@@ -371,7 +542,6 @@ def phase_main_path(work: str, card: str, grid: int = 10,
     launches = cuda_fuse.fuse_overwrite.launches
     n_tiles = grid * grid * len(CHANNELS)
 
-    acq_rec = pipe.acq
     width, height = pipe._region_dimensions(0, 'A1')
     opts = pipe.options
     band = band_rows_for(opts.write_band_rows() * opts.device_band_multiple,
@@ -429,6 +599,148 @@ def phase_main_path(work: str, card: str, grid: int = 10,
             'tiles_per_s': n_tiles / e2e}
 
 
+# --------------------------------------------------------------------- 6
+
+def quality_reference(pipe, gt, origins, channel: int, rows, width: int,
+                      blend_px: int = BLEND) -> np.ndarray:
+    """Rows [r0, r1) of one channel's level 0 on the maximum-quality
+    path, fused in plain NumPy from the texture the acquisition was cut
+    from, with the pipeline's own positions and subpixel warp: each job's
+    tile shifted by its residual, flatfield-corrected and quantized,
+    weighted by its ramp and accumulated in plan order (an f32 product,
+    then an f32 sum), then divided, rounded half to even and cast."""
+    from image_stitcher_tpu_torch.io.readers import subpixel_shift
+    recip = pipe._flatfield_recip_np()[channel]
+    th, tw = pipe.acq.input_height, pipe.acq.input_width
+    r0, r1 = rows
+    acc = np.zeros((r1 - r0, width), np.float32)
+    wsum = np.zeros((r1 - r0, width), np.float32)
+    for job in pipe._build_jobs(0, 'A1'):
+        top, bottom, left, right = job.crops
+        a0 = max(job.y + max(top, 0), r0)
+        a1 = min(job.y + min(th - bottom, th), r1)
+        s0, s1 = max(left, 0), min(tw - right, tw, width - job.x)
+        if job.channel_idx != channel or a1 <= a0 or s1 <= s0:
+            continue
+        fov = int(os.path.basename(job.filepath).split('_')[1])
+        y0, x0 = origins[fov]
+        t = gt[y0:y0 + th, x0:x0 + tw]
+        if job.fy or job.fx:
+            t = subpixel_shift(t, job.fy, job.fx)
+        rr = np.arange(a0 - job.y, a1 - job.y)[:, None]
+        ss = np.arange(s0, s1)[None, :]
+        v = t[rr, ss].astype(np.float32) * recip[rr, ss]
+        v = np.trunc(np.clip(v, 0, 65535)).astype(np.float32)
+        d = np.minimum(np.minimum(rr - top + 1, th - bottom - rr),
+                       np.minimum(ss - left + 1, tw - right - ss))
+        ramp = np.clip(d.astype(np.float32) / np.float32(blend_px),
+                       0, 1).astype(np.float32)
+        win = (slice(a0 - r0, a1 - r0), slice(job.x + s0, job.x + s1))
+        acc[win] += ramp * v
+        wsum[win] += ramp
+    out = acc / np.maximum(wsum, np.float32(1e-6))
+    out = np.where(wsum > 0, out, np.float32(0))
+    return np.clip(np.rint(out), 0, 65535).astype(np.uint16)
+
+
+def phase_quality_path(work: str, card: str, grid: int = 10,
+                       tile: int = TILE, jitter: int = 3) -> dict:
+    """The maximum-quality path at full width: all-pairs registration on
+    the card, global solve, subpixel placement, feathered blending."""
+    from image_stitcher_tpu_torch import stitch
+    from image_stitcher_tpu_torch.io.zarr_store import read_array
+    from image_stitcher_tpu_torch.models.streaming import (
+        band_rows_for, partition_jobs_by_band)
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    acq = os.path.join(work, f'quality_{grid}x{grid}')
+    t0 = time.perf_counter()
+    gt, origins = write_acquisition(acq, grid, tile,
+                                    overlap=205 * tile // TILE, seed=6,
+                                    jitter=jitter)
+    log(f"quality path: wrote {grid}x{grid}x{len(CHANNELS)} {tile}^2 "
+        f"uint16 tiles (+-{jitter} px jitter) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    out = os.path.join(work, 'quality_out')
+    cuda_fuse.fuse_feather.launches = 0
+    cuda_fuse.finalize_feather.launches = 0
+    t0 = time.perf_counter()
+    pipe = stitch(acq, use_registration=True, apply_flatfield=True,
+                  device=torch.device('cuda'),
+                  options=smoke_options(out, quality=True))
+    e2e = time.perf_counter() - t0
+    launches = cuda_fuse.fuse_feather.launches
+    fin_launches = cuda_fuse.finalize_feather.launches
+    n_tiles = grid * grid * len(CHANNELS)
+
+    fpos = pipe.global_positions_float.get('A1', {})
+    if len(fpos) != grid * grid or 'A1' in pipe._global_rejected:
+        raise SystemExit(f"quality path: the global solve placed "
+                         f"{len(fpos)} of {grid * grid} tiles")
+    # solved positions against the fixture's, the free translation removed
+    keys = sorted(fpos)
+    solved = np.array([fpos[k] for k in keys])
+    truth = np.array([origins[r * grid + c] for r, c in keys], np.float64)
+    delta = solved - truth
+    pos_err = float(np.abs(delta - np.median(delta, axis=0)).max())
+    if pos_err > 0.5:
+        raise SystemExit(f"quality path: solved positions are {pos_err} px "
+                         f"from the fixture's")
+    width, height = pipe._region_dimensions(0, 'A1')
+    opts = pipe.options
+    band = band_rows_for(opts.write_band_rows() * opts.device_band_multiple,
+                         pipe.num_pyramid_levels)
+    jobs = pipe._build_jobs(0, 'A1')
+    tasks, _ = partition_jobs_by_band(jobs, tile, height, band)
+    batches = sum(-(-len(v) // opts.fusion_batch) for v in tasks.values())
+    stats = pipe.fuse_stats['A1_t0']
+    warped = sum(1 for j in jobs if j.fy or j.fx)
+    log(f"quality path: {pipe.device_pairs} pairs measured on the card, "
+        f"{len(fpos)} tiles solved (max {pos_err:.3f} px from the fixture),"
+        f" {warped} of {len(jobs)} jobs shifted by a residual; canvas "
+        f"{len(CHANNELS)}x{height}x{width}, band {band} rows, {len(tasks)} "
+        f"bands, {batches} batches, fuse_feather launches {launches}, "
+        f"finalize_feather launches {fin_launches}")
+    if pipe.device_pairs == 0:
+        raise SystemExit("quality path: no pair went through the device "
+                         "phase correlation")
+    if (launches != batches or stats['batches'] != batches
+            or fin_launches != len(tasks)):
+        raise SystemExit(f"quality path: {launches} accumulate and "
+                         f"{fin_launches} finalize launches for {batches} "
+                         f"batches and {len(tasks)} bands planned")
+    zarr = os.path.join(out, '0_stitched', 'A1_stitched.ome.zarr')
+    level0 = read_array(os.path.join(zarr, '0'))
+    if level0.shape != (1, len(CHANNELS), 1, height, width):
+        raise SystemExit(f"quality path: level 0 is {level0.shape}")
+    rows = (max(0, band - 2048), min(height, band + 2048))  # straddles
+    t0 = time.perf_counter()
+    ref = quality_reference(pipe, gt, origins, 0, rows, width)
+    t_ref = time.perf_counter() - t0
+    got = level0[0, 0, 0, rows[0]:rows[1]]
+    if not np.array_equal(got, ref):
+        bad = int((got != ref).sum())
+        raise SystemExit(f"quality path: channel 0 rows {rows} differ from "
+                         f"the NumPy reference in {bad} pixels (max "
+                         f"{int(np.abs(got.astype(int) - ref).max())})")
+    del level0, got, ref, gt
+    banned = [m for m in ('jax', 'jaxlib', 'pandas', 'tensorstore', 'cv2',
+                          'image_stitcher_tpu') if m in sys.modules]
+    if banned:
+        raise SystemExit(f"quality path: loaded {banned}")
+    t = pipe.timers.as_dict()
+    log(f"quality path on {card}: e2e {e2e:.3f}s = {n_tiles / e2e:.2f} "
+        f"tiles/s ({n_tiles} tiles); stages scan={t.get('scan', 0):.3f}s "
+        f"flatfield_fit={t.get('flatfield_fit', 0):.3f}s "
+        f"registration={t.get('registration', 0):.3f}s (overlapped with "
+        f"the fit) fuse+write={t.get('stream_fuse_save', 0):.3f}s; band "
+        f"fuser: fuse={stats['fuse']:.3f}s readback_wait="
+        f"{stats['readback_wait']:.3f}s write={stats['write']:.3f}s; "
+        f"channel 0 rows {rows[0]}-{rows[1]} equal the NumPy reference "
+        f"({t_ref:.1f}s to build)")
+    return {'launches': launches, 'finalize_launches': fin_launches,
+            'e2e_s': e2e, 'tiles_per_s': n_tiles / e2e}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -438,15 +750,27 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix='chip_smoke_')
     try:
         phase_slice_parity(work)
+        phase_slice_parity(work, quality=True)
         main_run = phase_main_path(work, card)
+        quality_run = phase_quality_path(work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    launches = {'fuse_overwrite': main_run['launches'],
+                'fuse_feather': quality_run['launches']}
+    entries = []
+    for name, (source, replaces) in KERNELS.items():
+        k = kern[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": k['max_abs_err'], "ms": k['ms'],
+            "plain_ms": k['plain_ms']})
+    # the finalize epilogue lives in the same source as fuse_feather
+    entries[-1]["epilogue"] = dict(
+        name="finalize_feather", launches=quality_run['finalize_launches'],
+        **kern['fuse_feather']['finalize'])
     log(f"card: {card}")
-    log(json.dumps({"kernels": [{
-        "name": "fuse_overwrite", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": main_run['launches'],
-        "max_abs_err": kern['max_abs_err'], "ms": kern['ms'],
-        "plain_ms": kern['plain_ms']}]}))
+    log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

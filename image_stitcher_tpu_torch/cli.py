@@ -3,6 +3,8 @@
 
 Usage:
     python -m image_stitcher_tpu_torch.cli -i /path/to/acquisition [-r] [-ff]
+        [--registration-scope {center,all-pairs,global}]
+        [--blend-method {overwrite,feather}]
 """
 
 from __future__ import annotations
@@ -26,12 +28,30 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Channel to use for registration (default: first available channel)")
     parser.add_argument('--registration-z-level', '-rz', type=int, default=0,
                         help="Z-level to use for registration (default: 0)")
+    parser.add_argument('--dynamic-registration', action='store_true',
+                        help="Use dynamic registration for improved accuracy "
+                             "(selects the all-pairs scope unless "
+                             "--registration-scope is given)")
     parser.add_argument('--scan-pattern', '-s',
                         choices=['Unidirectional', 'S-Pattern'],
                         default='Unidirectional',
                         help="Microscope scanning pattern (default: Unidirectional)")
     parser.add_argument('--params-json',
                         help="Path to a JSON file containing stitching parameters (overrides other arguments)")
+    parser.add_argument('--blend-method', choices=['overwrite', 'feather'],
+                        default='overwrite',
+                        help="Fusion semantics: reference-parity overwrite or "
+                             "feathered blending")
+    parser.add_argument('--registration-scope',
+                        choices=['center', 'all-pairs', 'global'],
+                        default=None,
+                        help="Shift measurement scope: reference-parity "
+                             "center pair, robust all-pairs median, or the "
+                             "global per-tile position solve")
+    parser.add_argument('--subpixel-placement', action='store_true',
+                        help="With the global scope: place tiles at their "
+                             "solved float positions (bilinear shift at "
+                             "load time)")
     parser.add_argument('--chunk-size', type=int, default=2048,
                         help="Output zarr chunk edge in px (default: 2048)")
     parser.add_argument('--fusion-batch', type=int, default=8,
@@ -51,12 +71,20 @@ def create_params(args: argparse.Namespace) -> StitchingParameters:
         'registration_channel': args.registration_channel or '',
         'registration_z_level': args.registration_z_level,
         'scan_pattern': args.scan_pattern,
+        'dynamic_registration': args.dynamic_registration,
     })
 
 
 def create_options(args: argparse.Namespace) -> EngineOptions:
-    return EngineOptions(chunks=(1, 1, 1, args.chunk_size, args.chunk_size),
-                         fusion_batch=args.fusion_batch)
+    return EngineOptions(
+        chunks=(1, 1, 1, args.chunk_size, args.chunk_size),
+        fusion_batch=args.fusion_batch, blend_method=args.blend_method,
+        # an explicit --registration-scope wins; otherwise the reference's
+        # dynamic_registration flag selects the all-pairs scope
+        registration_scope=(args.registration_scope
+                             or ('all-pairs' if args.dynamic_registration
+                                 else 'center')),
+        subpixel_placement=args.subpixel_placement)
 
 
 def main(argv=None) -> int:

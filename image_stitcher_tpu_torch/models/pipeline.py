@@ -1,13 +1,15 @@
-"""StitchPipeline: the port's stitching engine for the main path.
+"""StitchPipeline: the port's stitching engine.
 
-The counterpart of the JAX package's ``models/pipeline.py``, for the path
-it runs on a device with a canvas over the streaming threshold: scan the
-acquisition, fit flatfields on the host, measure the center-pair
-registration shifts on the host, then fuse every (timepoint, region)
-through :class:`~image_stitcher_tpu_torch.models.streaming.
-DeviceStreamingFuser` straight into raw OME-Zarr v2. Every canvas takes
-the streaming path; the in-RAM path, merges, resume and the run manifest
-are later items of the port.
+The counterpart of the JAX package's ``models/pipeline.py``, for the
+paths it runs on a device with a canvas over the streaming threshold:
+scan the acquisition, fit flatfields on the host, measure registration
+(the center pair on the host; or every adjacent pair, in batches on the
+device, aggregated by median ('all-pairs') or solved for per-tile
+positions ('global', optionally subpixel)), then fuse every (timepoint,
+region) through :class:`~image_stitcher_tpu_torch.models.streaming.
+DeviceStreamingFuser`, by overwrite or feathered blending, straight into
+raw OME-Zarr v2. Every canvas takes the streaming path; the in-RAM path,
+merges, resume and the run manifest are later items of the port.
 
 Output tree: ``{out}/{t}_stitched/{region}_stitched.ome.zarr``, with the
 same sampling, geometry and metadata as the JAX package, so the two
@@ -34,6 +36,8 @@ from ..io.omezarr import MultiscaleWriter
 from ..io.readers import TileJob, expand_tile_jobs
 from ..ops.phasecorr import (horizontal_shift_from_pcc,
                              normalize_to_dtype_range_np,
+                             phase_cross_correlation_conf_batch,
+                             phase_cross_correlation_conf_np,
                              phase_cross_correlation_np,
                              vertical_shift_from_pcc)
 from ..params import EngineOptions, StitchingParameters, _not_ported
@@ -94,6 +98,13 @@ class StitchPipeline:
         self.shifts = geo.RegistrationShifts(scan_pattern=params.scan_pattern)
         self.num_pyramid_levels = 1
         self.registration_channel = params.registration_channel
+        #: per-region solved tile positions {region: {(row, col): (y, x)}}
+        #: ('global' scope), integer and float
+        self.global_positions: Dict = {}
+        self.global_positions_float: Dict = {}
+        self._global_rejected: set = set()  # regions whose solve failed
+        #: pairs measured on the device in the last all-pairs run
+        self.device_pairs = 0
         self.saved_paths: List[str] = []
         self.timers = StageTimers()
         #: per-region band-fuser stats of the last run (batches, stage s)
@@ -295,12 +306,281 @@ class StitchPipeline:
             h_shift_rev_odd=h_shift_rev_odd,
             scan_pattern=self.params.scan_pattern)
 
+    def calculate_shifts_all_pairs(self, t, region: str):
+        """Every adjacent pair of the grid measured, then aggregated.
+
+        Raw overlap strips of the registration channel stream through
+        bounded batches of ``registration_batch_pairs`` pairs (phase
+        correlation whitens the spectrum, so no normalization is
+        needed); pairs touching a truncated tile are dropped. A batch of
+        at most ``registration_device_threshold`` pairs runs the host
+        twin, a larger one the batched version on ``self.device``. The
+        grid shifts are the medians (parity-split rows for S-Pattern).
+        With ``registration_scope='global'`` the pairs also feed a
+        weighted least-squares solve for per-tile positions, clamped to
+        the stage extent by dropping outlier constraints; a region whose
+        solve stays outside falls back to the grid model."""
+        from ..ops.globalopt import (grid_pairs_from_shifts,
+                                     positions_to_int, solve_positions)
+        self._check_stop()
+        acq = self.acq
+        if (not self.registration_channel
+                or self.registration_channel not in acq.channel_names):
+            self.registration_channel = acq.channel_names[0]
+        ch = self.registration_channel
+        z_level = self.params.registration_z_level
+        opts = self.options
+
+        xs, ys = acq.region_positions(int(t), region)
+        n_cols, n_rows = len(xs), len(ys)
+        dx_px = (xs[1] - xs[0]) * 1000 / acq.pixel_size_um if n_cols > 1 else 0.0
+        dy_px = (ys[1] - ys[0]) * 1000 / acq.pixel_size_um if n_rows > 1 else 0.0
+        ox = geo.overlap_estimate(acq.input_width, dx_px, acq.pixel_binning,
+                                  opts.overlap_fudge)
+        oy = geo.overlap_estimate(acq.input_height, dy_px, acq.pixel_binning,
+                                  opts.overlap_fudge)
+        my = int(acq.input_height * opts.registration_margin)
+        mx = int(acq.input_width * opts.registration_margin)
+
+        recs = {(r, c): acq.find_tile(t, region, xs[c], ys[r], ch, z_level)
+                for r in range(n_rows) for c in range(n_cols)}
+        h_keys = ([(r, c) for r in range(n_rows) for c in range(n_cols - 1)
+                   if recs[(r, c)] and recs[(r, c + 1)]] if ox else [])
+        v_keys = ([(r, c) for r in range(n_rows - 1) for c in range(n_cols)
+                   if recs[(r, c)] and recs[(r + 1, c)]] if oy else [])
+        sh_h = max(acq.input_height - 2 * my, 1)
+        sw_v = max(acq.input_width - 2 * mx, 1)
+        batch_pairs = max(1, opts.registration_batch_pairs)
+        self.device_pairs = 0
+
+        def fill(dst, src) -> bool:
+            """Copy src into dst's top-left; True if src underfills it (a
+            truncated tile: its zero remainder would feed the correlator
+            a confident-looking wrong answer)."""
+            s0 = min(dst.shape[0], src.shape[0])
+            s1 = min(dst.shape[1], src.shape[1])
+            dst[:s0, :s1] = src[:s0, :s1]
+            return s0 < dst.shape[0] or s1 < dst.shape[1]
+
+        def batch_measure(a, b):
+            """(n, sh, sw) strip batches -> (shifts, confidences)."""
+            n = len(a)
+            if n <= opts.registration_device_threshold:
+                out = [phase_cross_correlation_conf_np(
+                    a[i], b[i], opts.upsample_factor) for i in range(n)]
+                return ([np.asarray(s_) for s_, _ in out],
+                        [float(c_) for _, c_ in out])
+            shifts, peaks = phase_cross_correlation_conf_batch(
+                torch.from_numpy(a).to(self.device),
+                torch.from_numpy(b).to(self.device), opts.upsample_factor)
+            self.device_pairs += n
+            return (list(shifts.cpu().numpy()),
+                    [float(c_) for c_ in peaks.cpu().tolist()])
+
+        def measure_streamed(keys, kind):
+            """Stream ``keys`` through bounded batches; returns (kept
+            keys, shifts, confidences, pairs dropped). Memory held at
+            any moment: two (batch, sh, sw) strip arrays."""
+            shape = (sh_h, ox) if kind == 'h' else (oy, sw_v)
+            kept, shifts, confs = [], [], []
+            dropped = 0
+            for start in range(0, len(keys), batch_pairs):
+                chunk = list(keys[start:start + batch_pairs])
+                n = len(chunk)
+                a = np.zeros((n,) + shape, acq.dtype)
+                b = np.zeros((n,) + shape, acq.dtype)
+                partial = np.zeros(n, bool)
+                # tile -> [(slot, side)]: each batch reads each tile once
+                needs: Dict = {}
+                for i, (r, c) in enumerate(chunk):
+                    other = (r, c + 1) if kind == 'h' else (r + 1, c)
+                    needs.setdefault((r, c), []).append((i, 'a'))
+                    needs.setdefault(other, []).append((i, 'b'))
+
+                def load(rc):
+                    self._check_stop()
+                    # whole-file readahead only for the h pass, whose
+                    # column strips touch nearly every page
+                    img = read_image(recs[rc].filepath, prefer_mmap=True,
+                                     prefetch=(kind == 'h'))
+                    if img.ndim == 3:
+                        img = img[..., 0]
+                    h_img, w_img = img.shape
+                    for i, side in needs[rc]:
+                        if kind == 'h':
+                            src = (img[my:h_img - my, -ox:] if side == 'a'
+                                   else img[my:h_img - my, :ox])
+                        else:
+                            src = (img[-oy:, mx:w_img - mx] if side == 'a'
+                                   else img[:oy, mx:w_img - mx])
+                        # store-only-True: both sides of a pair may run on
+                        # different threads
+                        if fill((a if side == 'a' else b)[i], src):
+                            partial[i] = True
+
+                with ThreadPoolExecutor(opts.resolved_reader_threads()) as pool:
+                    list(pool.map(load, list(needs)))
+                if partial.any():
+                    dropped += int(partial.sum())
+                    keep = ~partial
+                    a, b = a[keep], b[keep]
+                    chunk = [k for k, kp in zip(chunk, keep) if kp]
+                if not chunk:
+                    continue
+                self._check_stop()
+                s_, c_ = batch_measure(a, b)
+                kept.extend(chunk)
+                shifts.extend(s_)
+                confs.extend(c_)
+            return kept, shifts, confs, dropped
+
+        h_keys, h_shifts, h_conf, dropped_h = measure_streamed(h_keys, 'h')
+        v_keys, v_shifts, v_conf, dropped_v = measure_streamed(v_keys, 'v')
+        if dropped_h or dropped_v:
+            self.reporter.status(
+                f"registration: dropping {dropped_h} horizontal"
+                f" + {dropped_v} vertical pair(s) touching truncated tiles",
+                False)
+
+        def agg_h(shifts):
+            if not shifts:
+                return (0, 0)
+            med = np.median(np.stack(shifts), axis=0)
+            return (round(float(med[0])), round(float(med[1]) - ox))
+
+        def agg_v(shifts):
+            if not shifts:
+                return (0, 0)
+            med = np.median(np.stack(shifts), axis=0)
+            return (round(float(med[0]) - oy), round(float(med[1])))
+
+        if self.params.scan_pattern == 'S-Pattern' and h_shifts:
+            even = [s_ for s_, (r, _) in zip(h_shifts, h_keys) if r % 2 == 0]
+            odd = [s_ for s_, (r, _) in zip(h_shifts, h_keys) if r % 2 == 1]
+            h_shift = agg_h(even) if even else (0, 0)
+            h_shift_rev = agg_h(odd) if odd else h_shift
+            h_shift_rev_odd = 1
+        else:
+            h_shift = agg_h(h_shifts)
+            h_shift_rev = (0, 0)
+            h_shift_rev_odd = 0
+        self.shifts = geo.RegistrationShifts(
+            h_shift=h_shift, v_shift=agg_v(v_shifts),
+            h_shift_rev=h_shift_rev, h_shift_rev_odd=h_shift_rev_odd,
+            scan_pattern=self.params.scan_pattern)
+        if opts.registration_scope != 'global':
+            return
+
+        pairs = grid_pairs_from_shifts(
+            {k: tuple(map(float, s_)) for k, s_ in zip(h_keys, h_shifts)},
+            {k: tuple(map(float, s_)) for k, s_ in zip(v_keys, v_shifts)},
+            n_rows, n_cols, acq.input_width, acq.input_height, ox, oy,
+            h_weights={k: float(c_) for k, c_ in zip(h_keys, h_conf)},
+            v_weights={k: float(c_) for k, c_ in zip(v_keys, v_conf)})
+        # Sanity clamp: solved positions must stay within the grid model's
+        # extent plus slack, so one confidently wrong pair chain cannot
+        # balloon the canvas. On a violation, drop the worst constraint
+        # (a bounded number of times) and solve again; if the violation
+        # survives the drop budget, the region uses the grid model.
+        slack_y, slack_x = 2 * acq.input_height, 2 * acq.input_width
+        exp = np.zeros((n_rows * n_cols, 2), np.float64)
+        for r_ in range(n_rows):
+            for c_ in range(n_cols):
+                ex, ey = geo.tile_position_registered(
+                    c_, r_, n_cols, n_rows, acq.input_width,
+                    acq.input_height, self.shifts)
+                exp[r_ * n_cols + c_] = (ey, ex)
+
+        def violating_tiles(p, connected):
+            """Tiles deviating from the grid model by more than the slack,
+            modulo the solve's free translation (the median deviation)."""
+            idx = sorted(connected)
+            delta = p[idx].astype(np.float64) - exp[idx]
+            dev = np.abs(delta - np.median(delta, axis=0))
+            return {idx[k] for k in np.nonzero(
+                (dev[:, 0] > slack_y) | (dev[:, 1] > slack_x))[0]}
+
+        active = list(pairs)
+        dropped_pairs = []
+        max_drop = max(3, len(pairs) // 10)
+        while True:
+            pos_f = solve_positions(active, n_rows * n_cols)
+            pos = positions_to_int(pos_f)
+            # disconnected tiles sit at the solver's null position and
+            # fall back to the grid model in _build_jobs
+            connected = {i for p_ in active for i in (p_[0], p_[1])}
+            bad = violating_tiles(pos, connected) if connected else set()
+            if not bad:
+                break
+            incident = [k for k, (i, j, *_r) in enumerate(active)
+                        if i in bad or j in bad]
+            if not incident or len(dropped_pairs) >= max_drop:
+                self.reporter.status(
+                    f"global solve for region {region} exceeds the stage "
+                    f"extent (+{slack_y}/{slack_x} px slack) even after "
+                    f"dropping {len(dropped_pairs)} constraint(s); falling "
+                    "back to the grid shift model", False)
+                self._global_rejected.add(region)
+                return
+            res = np.array([
+                np.hypot(pos_f[j, 0] - pos_f[i, 0] - dy,
+                         pos_f[j, 1] - pos_f[i, 1] - dx)
+                for i, j, dy, dx, _ in active])
+            if res[incident].max() > 3 * 3.0:
+                # the flying tile's constraints disagree: drop the worst
+                drop = [incident[int(res[incident].argmax())]]
+            else:
+                # self-consistent corruption: disconnect the tile so it,
+                # not the region, falls back to the grid model
+                drop = incident
+            if len(dropped_pairs) + len(drop) > max_drop:
+                drop = drop[:max_drop - len(dropped_pairs)]
+            for k in sorted(drop, reverse=True):
+                dropped_pairs.append(active.pop(k))
+        if dropped_pairs:
+            self.reporter.status(
+                f"global solve for region {region}: dropped "
+                f"{len(dropped_pairs)} outlier pair constraint(s) to stay "
+                "within the stage extent", False)
+        constrained = {i for p_ in active for i in (p_[0], p_[1])}
+        self.global_positions[region] = {
+            (r, c): (int(pos[r * n_cols + c, 0]), int(pos[r * n_cols + c, 1]))
+            for r in range(n_rows) for c in range(n_cols)
+            if r * n_cols + c in constrained}
+        self.global_positions_float[region] = {
+            (r, c): (float(pos_f[r * n_cols + c, 0]),
+                     float(pos_f[r * n_cols + c, 1]))
+            for r in range(n_rows) for c in range(n_cols)
+            if r * n_cols + c in constrained}
+
+    def _ensure_global_positions(self, t, region: str):
+        """Per-region global solve: each region's stage error is its own
+        (solved the first time a region is stitched)."""
+        if (self.options.registration_scope == 'global'
+                and self.params.use_registration
+                and region not in self.global_positions
+                and region not in self._global_rejected):
+            with self.timers.time('registration'):
+                self.calculate_shifts_all_pairs(int(t), region)
+
     # -------------------------------------------------------------- stitching
 
     def _region_dimensions(self, t, region: str) -> Tuple[int, int]:
         acq = self.acq
         xs, ys = acq.region_positions(int(t), region)
-        if self.params.use_registration:
+        self._ensure_global_positions(t, region)
+        region_pos = self.global_positions.get(region)
+        if self.params.use_registration and region_pos:
+            w = max(p[1] for p in region_pos.values()) + acq.input_width
+            h = max(p[0] for p in region_pos.values()) + acq.input_height
+            # unconstrained tiles fall back to the grid model; the canvas
+            # must cover them too
+            if len(region_pos) < len(xs) * len(ys):
+                gw, gh = geo.output_dimensions_registered(
+                    len(xs), len(ys), acq.input_width, acq.input_height,
+                    self.shifts)
+                w, h = max(w, gw), max(h, gh)
+        elif self.params.use_registration:
             w, h = geo.output_dimensions_registered(
                 len(xs), len(ys), acq.input_width, acq.input_height, self.shifts)
         else:
@@ -319,14 +599,30 @@ class StitchPipeline:
         xs, ys = acq.region_positions(int(t), region)
         x_min, y_min = min(xs), min(ys)
         triples = []
+        region_pos = self.global_positions.get(region, {})
         for rec in acq.region_tiles(int(t), region).values():
             if self.params.use_registration:
                 col = xs.index(rec.x)
                 row = ys.index(rec.y)
-                pos = geo.tile_position_registered(
-                    col, row, len(xs), len(ys),
-                    acq.input_width, acq.input_height, self.shifts)
-                crops = geo.tile_crops(col, row, len(xs), len(ys), self.shifts)
+                if (row, col) in region_pos:
+                    y_px, x_px = region_pos[(row, col)]
+                    pos = (x_px, y_px)
+                    if self.options.subpixel_placement:
+                        fpos = self.global_positions_float[region][(row, col)]
+                        y_px = int(np.floor(fpos[0]))
+                        x_px = int(np.floor(fpos[1]))
+                        # the content shifts by the fractional residual
+                        # at load time (io/readers.py::load_tile_plane)
+                        pos = (x_px, y_px, fpos[1] - x_px, fpos[0] - y_px)
+                    # per-tile positions express stage jitter: keep whole
+                    # tiles and let the blend resolve the overlaps
+                    crops = (0, 0, 0, 0)
+                else:
+                    pos = geo.tile_position_registered(
+                        col, row, len(xs), len(ys),
+                        acq.input_width, acq.input_height, self.shifts)
+                    crops = geo.tile_crops(col, row, len(xs), len(ys),
+                                           self.shifts)
             else:
                 pos = geo.tile_position_coordinate(
                     rec.x, rec.y, x_min, y_min, acq.pixel_size_um)
@@ -359,7 +655,8 @@ class StitchPipeline:
             chunk_rows=opts.write_band_rows() * opts.device_band_multiple,
             batch_size=opts.fusion_batch,
             reader_threads=opts.resolved_reader_threads(),
-            ff_recip=ff, device=self.device)
+            ff_recip=ff, blend_method=opts.blend_method,
+            blend_px=opts.feather_px, device=self.device)
         fuser.run(jobs, progress_cb=self.reporter.update_progress,
                   stop_check=self._check_stop)
         self.fuse_stats[f"{region}_t{t}"] = dict(fuser.stats,
@@ -373,19 +670,28 @@ class StitchPipeline:
     # ------------------------------------------------------------------- run
 
     def _prepare(self):
-        """Flatfields and registration shifts: carried over from
-        ``state`` where given, else fitted and measured here (the fit on
-        a worker thread, overlapped with the registration measurement:
-        they read disjoint data and share no state)."""
+        """Flatfields and registration: carried over from ``state`` where
+        given, else fitted and measured here (the fit on a worker thread,
+        overlapped with the registration measurement: they read disjoint
+        data and share no state). The 'global' scope also needs carried
+        positions to skip its measurement; regions without them are
+        solved when they are stitched."""
         state = self.state
+        scope = self.options.registration_scope
         fit = (self.params.apply_flatfield
                and not (state is not None and state.flatfields is not None))
-        measure = (self.params.use_registration
-                   and not (state is not None and state.shifts is not None))
+        carried = (state is not None and state.shifts is not None
+                   and (scope != 'global'
+                        or state.global_positions is not None))
+        measure = self.params.use_registration and not carried
         if self.params.apply_flatfield and not fit:
             self.flatfields = dict(state.flatfields)
         if self.params.use_registration and not measure:
             self.shifts = state.shifts
+            if scope == 'global':
+                self.global_positions = dict(state.global_positions)
+                self.global_positions_float = dict(
+                    state.global_positions_float or {})
 
         def fit_flatfields():
             with self.timers.time('flatfield_fit'):
@@ -393,8 +699,12 @@ class StitchPipeline:
 
         def measure_shifts():
             with self.timers.time('registration'):
-                self.calculate_shifts(self.acq.timepoints[0],
-                                      self.acq.regions[0])
+                if scope in ('all-pairs', 'global'):
+                    self.calculate_shifts_all_pairs(
+                        int(self.acq.timepoints[0]), self.acq.regions[0])
+                else:
+                    self.calculate_shifts(self.acq.timepoints[0],
+                                          self.acq.regions[0])
 
         if fit and measure and self.options.overlap_prep:
             # import scipy.fft once here: a first import from two threads

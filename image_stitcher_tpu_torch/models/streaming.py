@@ -4,17 +4,19 @@ The counterpart of the JAX package's ``models/streaming.py`` (its
 ``DeviceStreamingFuser`` and the helpers it shares with the host fuser).
 Each (channel, z) plane is fused in horizontal bands sized to the chunk
 grid. A band canvas lives on the device; tile batches are uploaded from
-pinned host memory and placed by the CUDA kernel
-(``ops/cuda_fuse.fuse_overwrite``, with the flatfield fused in). A
-finished band is copied back to pinned host memory on a side stream and
-handed to one writer thread, which folds it into every pyramid level and
-writes the chunk files, while the next band fuses.
+pinned host memory and placed by a CUDA kernel, with the flatfield fused
+in: ``ops/cuda_fuse.fuse_overwrite`` into one storage-dtype canvas, or
+for feathered blending ``ops/cuda_fuse.fuse_feather`` into a float32
+(acc, wsum) pair that ``finalize_feather`` turns into the band's pixels
+on the device. A finished band is copied back to pinned host memory on a
+side stream and handed to one writer thread, which folds it into every
+pyramid level and writes the chunk files, while the next band fuses.
 
 Placement parity: each band canvas carries a one-tile apron above
 (tiles straddling the band's top edge keep their whole pre-crop extent
-in bounds) and one tile below and to the right, as the JAX package's
-non-Pallas band canvas does, so band output is byte-identical to an
-unbanded canvas.
+in bounds, and so their ramps from the whole crop window) and one tile
+below and to the right, as the JAX package's non-Pallas band canvas
+does, so band output is identical to an unbanded canvas.
 """
 
 from __future__ import annotations
@@ -106,7 +108,10 @@ class DeviceStreamingFuser:
                  chunk_rows: int = 2048, batch_size: int = 8,
                  reader_threads: int = 4,
                  ff_recip: Optional[np.ndarray] = None,
+                 blend_method: str = 'overwrite', blend_px: int = 64,
                  device: torch.device = torch.device('cuda')):
+        if blend_method not in ('overwrite', 'feather'):
+            raise ValueError(f"unknown blend_method {blend_method!r}")
         self.writer = writer
         self.height, self.width = height, width
         self.tile_h, self.tile_w = tile_h, tile_w
@@ -118,11 +123,13 @@ class DeviceStreamingFuser:
         self.batch_size = batch_size
         self.reader_threads = reader_threads
         self.ff_recip = ff_recip
+        self.blend = blend_method
+        self.blend_px = blend_px
         self.device = torch.device(device)
         self._ff_device: Optional[torch.Tensor] = None  # one upload per run
         self._side = (torch.cuda.Stream(self.device)
                       if self.device.type == 'cuda' else None)
-        #: batches placed (one kernel launch each on CUDA)
+        #: batches placed (one placement kernel launch each on CUDA)
         self.batches = 0
         #: wall seconds: 'fuse' (main thread, loads + uploads + launches),
         #: 'readback_wait' and 'write' (writer thread)
@@ -132,8 +139,12 @@ class DeviceStreamingFuser:
                    progress_cb=None, stop_check=None):
         th, tw = self.tile_h, self.tile_w
         rows = min(self.band, self.height - band0)
-        canvas = torch.zeros((1, 1, th + self.band + th, self.width + tw),
-                             dtype=self.tdtype, device=self.device)
+        shape = (1, 1, th + self.band + th, self.width + tw)
+        if self.blend == 'feather':
+            acc = torch.zeros(shape, dtype=torch.float32, device=self.device)
+            wsum = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        else:
+            canvas = torch.zeros(shape, dtype=self.tdtype, device=self.device)
         if self._ff_device is None and self.ff_recip is not None:
             self._ff_device = torch.from_numpy(
                 np.ascontiguousarray(self.ff_recip, np.float32)
@@ -157,16 +168,27 @@ class DeviceStreamingFuser:
             dinfo = np.zeros_like(batch.info)
             dinfo[:, 2] = np.where(batch.valid, batch.info[:, 2] - band0 + th, 0)
             dinfo[:, 3] = np.where(batch.valid, batch.info[:, 3], 0)
-            cuda_fuse.fuse_overwrite(
-                canvas, tiles, torch.from_numpy(dinfo),
-                torch.from_numpy(batch.crops), torch.from_numpy(batch.valid),
-                ff_recip=ff_band)
+            meta = (torch.from_numpy(dinfo), torch.from_numpy(batch.crops),
+                    torch.from_numpy(batch.valid))
+            if self.blend == 'feather':
+                cuda_fuse.fuse_feather(acc, wsum, tiles, *meta,
+                                       ff_recip=ff_band,
+                                       blend_px=self.blend_px)
+            else:
+                cuda_fuse.fuse_overwrite(canvas, tiles, *meta,
+                                         ff_recip=ff_band)
             self.batches += 1
             if progress_cb is not None:
                 for p in primaries[consumed:consumed + batch.count]:
                     if p:
                         progress_cb()
             consumed += batch.count
+        if self.blend == 'feather':
+            # finalize the real rows on the device; only they come back
+            out = cuda_fuse.finalize_feather(acc, wsum, self.tdtype,
+                                             (th, th + rows),
+                                             (0, self.width))[0, 0]
+            return self._readback(out, out)
         return self._readback(canvas, canvas[0, 0, th:th + rows, :self.width])
 
     def _readback(self, canvas: torch.Tensor, out: torch.Tensor):

@@ -33,6 +33,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: name -> {'path', 'seconds', 'cached', 'log'} of the build that loaded it
 BUILDS: Dict[str, Dict] = {}
@@ -82,11 +83,14 @@ def _build(name: str) -> Dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library built from ``csrc/<name>.cu``, built on first use."""
+    """The library built from ``csrc/<name>.cu``, built on first use.
+    Two sources can build at once from two threads (one lock per name)."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
     with _LOCK:
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:
         if name not in _LIBS:
             info = _build(name)
             _LIBS[name] = ctypes.CDLL(info['path'])

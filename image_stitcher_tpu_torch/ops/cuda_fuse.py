@@ -1,28 +1,33 @@
-"""Overwrite placement: the hand-written CUDA kernel and its dispatch.
+"""Fusion kernels written by hand in CUDA, and their dispatch.
 
-Replaces the TPU kernel ``image_stitcher_tpu/ops/pallas_fuse.py::
-fuse_overwrite_pallas`` (Pallas body ``_fuse_kernel``), with and without
-the fused flatfield. The kernel is ``csrc/fuse_overwrite.cu``; its plain
-PyTorch version is :func:`image_stitcher_tpu_torch.ops.fuse.fuse_overwrite`.
+- :func:`fuse_overwrite` replaces the TPU kernel ``image_stitcher_tpu/
+  ops/pallas_fuse.py::fuse_overwrite_pallas`` (Pallas body
+  ``_fuse_kernel``), with and without the fused flatfield; kernel
+  ``csrc/fuse_overwrite.cu``. Bound: memory. With the flatfield a pixel
+  moves about 8 B (2 B of u16 tile, 4 B of f32 reciprocal, 2 B written),
+  about 34 MB per 2048^2 tile. The kernel reads each tile pixel at most
+  once and writes each canvas pixel at most once per batch: a pixel that
+  a later tile of the batch covers is neither read nor written, which is
+  how it keeps later-tile-wins without ordering its blocks.
+- :func:`fuse_feather` replaces ``fuse_feather_pallas`` (Pallas body
+  ``_feather_kernel``), and :func:`finalize_feather` is its epilogue;
+  kernels ``csrc/fuse_feather.cu``. Bound: memory, 16 B per covered
+  canvas pixel and 6 B per tile pixel. One thread per canvas pixel walks
+  the batch in order, so the float sums are the plain version's, bit for
+  bit.
 
-Bound: memory. With the flatfield a pixel moves about 8 B (2 B of u16
-tile, 4 B of f32 reciprocal, 2 B written), about 34 MB per 2048^2 tile;
-there is no arithmetic to speak of. The kernel reads each tile pixel at
-most once and writes each canvas pixel at most once per batch: a pixel
-that a later tile of the batch covers is neither read nor written, which
-is how the kernel keeps later-tile-wins without ordering its blocks (see
-the source note in the .cu file).
-
-Dispatch is by the canvas's device, and only by it: a CPU tensor takes
-the plain version; a CUDA tensor launches the kernel or raises (a build
-or launch failure is never answered by falling back to the plain
-version).
+The plain PyTorch versions are the functions of the same names in
+:mod:`image_stitcher_tpu_torch.ops.fuse`; the source notes in the .cu
+files give each design. Dispatch is by the device, and only by it: CPU
+tensors take the plain version; CUDA tensors launch the kernel or raise
+(a build or launch failure is never answered by falling back to the
+plain version).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -95,3 +100,128 @@ def fuse_overwrite(canvas: torch.Tensor, tiles: torch.Tensor,
 
 #: kernel launches since the count was last set to 0 (CUDA path only)
 fuse_overwrite.launches = 0
+
+
+def _feather_kernel():
+    lib = native.load('fuse_feather')
+    fn = lib.fuse_feather_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_I, _I, _P, _P, _I, _I, _I, _P, _I, _I, _I,
+                       _P, _P, _P, _P, _I, _P]
+        fn.restype = _I
+        fin = lib.finalize_feather_launch
+        fin.argtypes = [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+        fin.restype = _I
+        lib.fuse_feather_error_string.argtypes = [_I]
+        lib.fuse_feather_error_string.restype = ctypes.c_char_p
+        lib.fuse_feather_max_batch.argtypes = []
+        lib.fuse_feather_max_batch.restype = _I
+    return lib
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return (t.device.index if t.device.index is not None
+            else torch.cuda.current_device())
+
+
+def fuse_feather(acc: torch.Tensor, wsum: torch.Tensor, tiles: torch.Tensor,
+                 info: torch.Tensor, crops: torch.Tensor, valid: torch.Tensor,
+                 ff_recip: Optional[torch.Tensor] = None,
+                 blend_px: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Accumulate a batch of tiles into ``acc``/``wsum`` in place:
+    acc += ramp * tile, wsum += ramp over each valid tile's crop window,
+    in batch order; returns (acc, wsum).
+
+    acc, wsum (C, Z, Hp, Wp) float32, padded as
+    :func:`~image_stitcher_tpu_torch.ops.fuse.padded_canvas_shape`;
+    tiles (N, th, tw) uint8/uint16 on their device; info, crops, valid
+    and ff_recip as for :func:`fuse_overwrite`, ``blend_px`` the ramp
+    length. On CUDA the launch goes on the current stream, does not
+    synchronize and allocates nothing on the device; a batch without a
+    valid, non-empty window launches nothing."""
+    if acc.device.type == 'cpu':
+        return plain.fuse_feather(acc, wsum, tiles, info, crops, valid,
+                                  ff_recip, blend_px)
+    if acc.device.type != 'cuda':
+        raise ValueError(f"no fusion kernel for device {acc.device}")
+    plain.check_feather_batch(acc, wsum, tiles, info, crops, valid, ff_recip,
+                              blend_px)
+    lib = _feather_kernel()
+    n, th, tw = tiles.shape
+    if n > lib.fuse_feather_max_batch():
+        raise ValueError(f"batch of {n} tiles exceeds the kernel's "
+                         f"{lib.fuse_feather_max_batch()}")
+    info_h = info.contiguous()
+    crops_h = crops.contiguous()
+    windows = [plain.crop_window(c, th, tw) for c in crops_h.tolist()]
+    if not any(ok and r1 > r0 and s1 > s0
+               for ok, (r0, r1, s0, s1) in zip(valid.tolist(), windows)):
+        return acc, wsum
+    valid_h = valid.to(torch.uint8).contiguous()
+    _, Z, Hp, Wp = acc.shape
+    rc = lib.fuse_feather_launch(
+        _device_index(acc), tiles.element_size(), acc.data_ptr(),
+        wsum.data_ptr(), Z, Hp, Wp, tiles.data_ptr(), n, th, tw,
+        info_h.data_ptr(), crops_h.data_ptr(), valid_h.data_ptr(),
+        ff_recip.data_ptr() if ff_recip is not None else None, blend_px,
+        torch.cuda.current_stream(acc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            "fuse_feather kernel launch failed: "
+            f"{lib.fuse_feather_error_string(rc).decode()} (cudaError {rc})")
+    fuse_feather.launches += 1
+    return acc, wsum
+
+
+#: kernel launches since the count was last set to 0 (CUDA path only)
+fuse_feather.launches = 0
+
+
+def finalize_feather(acc: torch.Tensor, wsum: torch.Tensor,
+                     out_dtype: torch.dtype,
+                     rows: Optional[Tuple[int, int]] = None,
+                     cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """round(acc / wsum) as ``out_dtype`` over the window [rows) x [cols)
+    of the last two axes (the whole plane where None): a new dense
+    (C, Z, r1 - r0, s1 - s0) tensor on the canvases' device.
+
+    On CUDA the launch goes on the current stream and does not
+    synchronize; the output is allocated with ``torch.empty``."""
+    if acc.dim() != 4 or acc.shape != wsum.shape:
+        raise ValueError(f"acc and wsum must be one (C, Z, Hp, Wp) shape, "
+                         f"got {tuple(acc.shape)} and {tuple(wsum.shape)}")
+    C, Z, Hp, Wp = acc.shape
+    r0, r1 = rows if rows is not None else (0, Hp)
+    s0, s1 = cols if cols is not None else (0, Wp)
+    if not (0 <= r0 <= r1 <= Hp and 0 <= s0 <= s1 <= Wp):
+        raise ValueError(f"window rows {(r0, r1)} x cols {(s0, s1)} is not "
+                         f"inside the canvas {tuple(acc.shape)}")
+    if out_dtype not in plain.DTYPE_RANGE:
+        raise TypeError(f"finalize writes uint8 or uint16, not {out_dtype}")
+    if acc.device.type == 'cpu':
+        return plain.finalize_feather(acc[..., r0:r1, s0:s1],
+                                      wsum[..., r0:r1, s0:s1], out_dtype)
+    if acc.device.type != 'cuda':
+        raise ValueError(f"no finalize kernel for device {acc.device}")
+    if (acc.dtype != torch.float32 or wsum.dtype != torch.float32
+            or acc.device != wsum.device or not acc.is_contiguous()
+            or not wsum.is_contiguous()):
+        raise ValueError("acc and wsum must be contiguous float32 on one "
+                         "device")
+    lib = _feather_kernel()
+    out = torch.empty((C, Z, r1 - r0, s1 - s0), dtype=out_dtype,
+                      device=acc.device)
+    rc = lib.finalize_feather_launch(
+        _device_index(acc), out.element_size(), acc.data_ptr(),
+        wsum.data_ptr(), out.data_ptr(), C * Z, Hp, Wp, r0, r1 - r0, s0,
+        s1 - s0, torch.cuda.current_stream(acc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            "finalize_feather kernel launch failed: "
+            f"{lib.fuse_feather_error_string(rc).decode()} (cudaError {rc})")
+    finalize_feather.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0 (CUDA path only)
+finalize_feather.launches = 0

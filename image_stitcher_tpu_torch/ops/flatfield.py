@@ -154,11 +154,24 @@ def _resize_area_upscale_2d(img: np.ndarray, dh: int, dw: int) -> np.ndarray:
     return hor[r0] * (one - fy)[:, None] + hor[r1] * fy[:, None]
 
 
-def _fma32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
-    """round_f32(a*b + c) with one rounding: the f32 product is exact in
-    f64, as a fused multiply-add computes it."""
-    return (a.astype(np.float64) * b.astype(np.float64)
-            + c.astype(np.float64)).astype(np.float32)
+def fma32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """round_f32(a*b + c) with one rounding, as a fused multiply-add
+    computes it, for float32 inputs. The f32 product is exact in f64; the
+    f64 sum rounds once more, which can only mislead the final cast where
+    it lands exactly on a midpoint between two f32 values: there the sum's
+    own rounding error (TwoSum) nudges it one f64 ulp toward the exact
+    value, so the cast rounds as the exact sum would."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = c.astype(np.float64)
+    s = p + c
+    mid = (s.view(np.int64) & 0x1FFFFFFF) == 0x10000000
+    if mid.any():
+        pm, cm, sm = p[mid], c[mid], s[mid]
+        t = sm - pm
+        err = (pm - (sm - t)) + (cm - t)
+        s[mid] = np.where(err == 0, sm,
+                          np.nextafter(sm, np.copysign(np.inf, err)))
+    return s.astype(np.float32)
 
 
 def _linear_taps(ssize: int, dsize: int):
@@ -186,9 +199,9 @@ def _resize_linear_2d(img: np.ndarray, dh: int, dw: int) -> np.ndarray:
     x1 = np.minimum(sx + 1, w - 1)
     y1 = np.minimum(sy + 1, h - 1)
     d = img[:, x1] - img[:, sx]
-    hor = _fma32(d, np.broadcast_to(fx, d.shape), img[:, sx])
+    hor = fma32(d, np.broadcast_to(fx, d.shape), img[:, sx])
     d = hor[y1] - hor[sy]
-    return _fma32(d, np.broadcast_to(fy[:, None], d.shape), hor[sy])
+    return fma32(d, np.broadcast_to(fy[:, None], d.shape), hor[sy])
 
 
 def _resize_area_2d(img: np.ndarray, dh: int, dw: int,

@@ -3,9 +3,10 @@
 ``StitchingParameters`` and ``EngineOptions`` keep the field names,
 defaults and JSON round-trip of ``image_stitcher_tpu/params.py``, so a
 ``--params-json`` file written for either package works with both. What
-differs is what the port runs: it carries the main stitching path
-(center registration, flatfield, overwrite fusion on CUDA through band
-streaming, raw OME-Zarr v2). Every option outside that path raises
+differs is what the port runs: flatfield, registration (center pair,
+all pairs, or the global position solve with optional subpixel
+placement), overwrite or feathered fusion on CUDA through band
+streaming, raw OME-Zarr v2. Every option outside those paths raises
 ``NotImplementedError`` naming the ROADMAP item that will bring it,
 instead of running something else in its place.
 
@@ -186,14 +187,12 @@ class EngineOptions:
             raise ValueError("device_band_multiple must be >= 1")
         if not 1 <= self.fusion_batch <= 64:
             raise ValueError("fusion_batch must be in [1, 64]")
+        if self.subpixel_placement and self.registration_scope != 'global':
+            raise ValueError(
+                "subpixel_placement requires registration_scope='global'")
+        if self.feather_px < 1:
+            raise ValueError("feather_px must be >= 1")
         unported = [
-            (self.blend_method == 'feather', "feather blending",
-             "item 'feather slice'"),
-            (self.registration_scope != 'center',
-             f"registration_scope={self.registration_scope!r}",
-             "item 'device registration'"),
-            (self.subpixel_placement, "subpixel placement",
-             "item 'device registration'"),
             (self.flatfield_device == 'device', "the device flatfield solver",
              "item 'device flatfield solver'"),
             (self.fusion_device == 'host', "the host fuser",
@@ -209,9 +208,9 @@ class EngineOptions:
             (self.work_shard is not None, "work sharding",
              "item 'multi-GPU'"),
             (self.registration_report, "registration reports",
-             "item 'device registration'"),
+             "item 'registration reports and debug images'"),
             (self.debug_visuals, "registration debug images",
-             "item 'device registration'"),
+             "item 'registration reports and debug images'"),
             (self.validate_plan, "plan validation", "item 'host fuser'"),
         ]
         for hit, what, item in unported:

@@ -1,7 +1,8 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
-Marked ``cuda``: the kernel has no CPU mode, so these skip without a
-card. The file imports neither jax nor the JAX package, so it also runs
+Marked ``cuda``: the kernels have no CPU mode, so these skip without a
+card. Feathered sums must be bit-equal: the kernel keeps the plain
+version's order and rounding. The file imports neither jax nor the JAX package, so it also runs
 on a CUDA host that has neither:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -67,3 +68,49 @@ def test_kernel_refuses_a_tile_outside_the_canvas(cuda_device):
     with pytest.raises(ValueError):
         cuda_fuse.fuse_overwrite(canvas.to(cuda_device),
                                  tiles.to(cuda_device), info, crops, valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("with_ff", [False, True])
+@pytest.mark.parametrize("shape", [(100, 120), (37, 1100)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_feather_kernel_matches_plain(cuda_device, dtype, with_ff, shape):
+    _, tiles, info, crops, valid, ff = _batch(8, dtype, *shape)
+    # keep most windows non-empty on the short tile
+    crops[:, :2] = torch.clamp(crops[:, :2], max=shape[0] // 3)
+    C, Z, Hp, Wp = plain.padded_canvas_shape(2, 2, 300, 340, *shape)
+    gen = torch.Generator().manual_seed(9)
+    acc = torch.rand((C, Z, Hp, Wp), generator=gen) * 1000
+    wsum = torch.rand((C, Z, Hp, Wp), generator=gen)
+    before = cuda_fuse.fuse_feather.launches
+    got = cuda_fuse.fuse_feather(
+        acc.to(cuda_device), wsum.to(cuda_device), tiles.to(cuda_device),
+        info, crops, valid, ff_recip=ff.to(cuda_device) if with_ff else None,
+        blend_px=24)
+    torch.cuda.synchronize()
+    assert cuda_fuse.fuse_feather.launches == before + 1
+    want = plain.fuse_feather(acc, wsum, tiles, info, crops, valid,
+                              ff_recip=ff if with_ff else None, blend_px=24)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16])
+def test_finalize_kernel_matches_plain(cuda_device, dtype):
+    gen = torch.Generator().manual_seed(10)
+    acc = torch.rand((2, 1, 90, 130), generator=gen) * 70000
+    wsum = torch.rand((2, 1, 90, 130), generator=gen) * 2 - 0.5
+    acc[0, 0, :3] = 0.5 * torch.arange(130)   # ties round half to even
+    wsum[0, 0, :3] = 1.0
+    before = cuda_fuse.finalize_feather.launches
+    got = cuda_fuse.finalize_feather(acc.to(cuda_device),
+                                     wsum.to(cuda_device), dtype,
+                                     (7, 80), (11, 129))
+    torch.cuda.synchronize()
+    assert cuda_fuse.finalize_feather.launches == before + 1
+    want = plain.finalize_feather(acc[..., 7:80, 11:129],
+                                  wsum[..., 7:80, 11:129], dtype)
+    assert got.shape == (2, 1, 73, 118)
+    assert torch.equal(got.cpu(), want)

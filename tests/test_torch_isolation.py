@@ -1,6 +1,7 @@
-"""The port stands alone: it loads and runs with jax, pandas, tensorstore,
-OpenCV, imageio and the JAX package all unimportable, as on a CUDA host
-that has none of them."""
+"""The port stands alone: it loads and runs, the main path and the
+maximum-quality path (global registration, subpixel placement,
+feathering), with jax, pandas, tensorstore, OpenCV, imageio and the JAX
+package all unimportable, as on a CUDA host that has none of them."""
 
 import ast
 import os
@@ -40,6 +41,23 @@ CHILD = textwrap.dedent("""
     loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
     print('ISOLATED-OK', pipe.shifts.h_shift, pipe.shifts.v_shift)
+    # the maximum-quality path: all pairs through the batched phase
+    # correlation, the global solve, the subpixel warp and feathering
+    pipe = port.stitch({acq!r}, use_registration=True, apply_flatfield=True,
+                       device=torch.device('cpu'),
+                       options=port.EngineOptions(
+                           chunks=(1, 1, 1, 32, 32),
+                           output_folder={out!r} + '_quality',
+                           registration_scope='global',
+                           subpixel_placement=True, blend_method='feather',
+                           registration_device_threshold=1))
+    level0 = read_array({out!r} + '_quality/0_stitched/A1_stitched.ome.zarr/0')
+    assert level0.shape[:3] == (1, 1, 1) and level0.any(), level0.shape
+    assert pipe.device_pairs > 0 and pipe.global_positions_float['A1']
+    assert any(j.fy or j.fx for j in pipe._build_jobs(0, 'A1'))
+    loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+    assert not loaded, loaded
+    print('QUALITY-OK', len(pipe.global_positions['A1']))
 """)
 
 
@@ -55,6 +73,7 @@ def test_port_runs_without_jax_pandas_tensorstore_cv2(tmp_path):
                           text=True, timeout=300, env=env, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ISOLATED-OK (0, -16) (-16, 0)" in proc.stdout
+    assert "QUALITY-OK 4" in proc.stdout
 
 
 def test_package_sources_import_none_of_the_blocked_modules():

@@ -148,12 +148,16 @@ def test_cli_runs_the_slice_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    dict(blend_method='feather'), dict(registration_scope='global'),
+    # feather and the global scope run; with an unported companion
+    # option they still raise, naming it
+    dict(blend_method='feather', streaming='off'),
+    dict(registration_scope='global', registration_report=True),
     dict(flatfield_device='device'), dict(fusion_device='host'),
     dict(zarr_format=3), dict(compressor_cname='lz4'),
     dict(streaming='off'), dict(mesh_shape=(1, 2)),
     dict(work_shard=(0, 2), output_folder='/nonexistent'),
-    dict(registration_report=True)], ids=lambda d: next(iter(d)))
+    dict(registration_report=True), dict(debug_visuals=True)],
+    ids=lambda d: next(iter(d)))
 def test_unported_options_raise(tmp_path, option):
     acq = str(tmp_path / "acq")
     write_synthetic_acquisition(acq, grid_cols=2, grid_rows=1, tile_w=32,
