@@ -9,9 +9,16 @@ Phases, each fatal on failure:
      source, started together);
   3. kernel vs plain: every kernel against its plain PyTorch version on
      seeded batches at the main-path shapes (overwrite canvas byte-equal,
-     feather acc/wsum bit-equal, finalize byte-equal), with both times
-     from CUDA events; the batched device phase correlation against the
-     host f64 twin on 180 main-path strip pairs (within 0.1 px);
+     feather acc/wsum bit-equal, finalize byte-equal): the band canvas at
+     its padded and at an odd pitch, tile x origins at every residue
+     mod 8, u16 and u8, cameras whose rows are not 16-byte aligned. Per
+     case: the kernel's time on the card (CUDA events, calls queued
+     behind a spinning kernel so the host's enqueue is hidden), one call
+     with the host's enqueue, the plain version's call, and the bound
+     (bytes each input read once and each output written once, at
+     3.35 TB/s) with the kernel's share of it; then the batched device
+     phase correlation against the host f64 twin on 180 main-path strip
+     pairs (within 0.1 px);
   4. slice parity: 3x3 x 3-channel 2048^2 acquisitions stitched on the
      card and on the CPU must decode to equal OME-Zarr trees: the main
      path, and the maximum-quality path with the card run's registration
@@ -46,12 +53,20 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+#: kernel -> (library, source, what it replaces in the JAX package)
 KERNELS = {
-    'fuse_overwrite': ('image_stitcher_tpu_torch/csrc/fuse_overwrite.cu',
+    'fuse_overwrite': ('fuse_overwrite',
+                       'image_stitcher_tpu_torch/csrc/fuse_overwrite.cu',
                        'image_stitcher_tpu/ops/pallas_fuse.py:492'),
-    'fuse_feather': ('image_stitcher_tpu_torch/csrc/fuse_feather.cu',
+    'fuse_feather': ('fuse_feather',
+                     'image_stitcher_tpu_torch/csrc/fuse_feather.cu',
                      'image_stitcher_tpu/ops/pallas_fuse.py:407'),
+    # the epilogue of the feathered path: XLA in the JAX package
+    'finalize_feather': ('fuse_feather',
+                         'image_stitcher_tpu_torch/csrc/fuse_feather.cu',
+                         'image_stitcher_tpu/ops/fuse.py:121'),
 }
+LIBRARIES = sorted({lib for lib, _, _ in KERNELS.values()})
 TILE = 2048
 BLEND = 64
 
@@ -84,11 +99,11 @@ def phase_environment() -> str:
 def phase_build() -> None:
     from image_stitcher_tpu_torch import native
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(native.load, KERNELS))
-    log(f"build: {len(KERNELS)} sources in {time.perf_counter() - t0:.1f}s;"
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(native.load, LIBRARIES))
+    log(f"build: {len(LIBRARIES)} sources in {time.perf_counter() - t0:.1f}s;"
         " nvcc " + " ".join(native.NVCC_FLAGS))
-    for name in KERNELS:
+    for name in LIBRARIES:
         info = native.BUILDS[name]
         log(f"build: {info['path']} ({'cached' if info['cached'] else 'nvcc'}"
             f" {info['seconds']:.1f}s)")
@@ -99,10 +114,24 @@ def phase_build() -> None:
 
 # --------------------------------------------------------------------- 3
 
+#: the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
+#: memory bytes/s, and f32 operations/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+BAND_W = 18635     # the main path's canvas width (10x10 grid of 2048^2)
+BAND_ROWS = 8192   # its band height
+#: the band canvas as models/streaming.py::band_canvas_shape makes it:
+#: one-tile aprons, the row padded to a multiple of 8 elements
+BAND_CANVAS = (1, 1, TILE + BAND_ROWS + TILE, -(-(BAND_W + TILE) // 8) * 8)
+#: the same canvas at the unpadded, odd pitch
+ODD_CANVAS = BAND_CANVAS[:3] + (BAND_W + TILE,)
+
+
 def kernel_batch(rng, n, th, tw, canvas_hw, num_c, overlap=205):
     """A fusion batch like the band fuser's: tiles on a grid with
-    ~``overlap`` px overlaps and jitter, nonzero crops, one tile placed
-    twice (full overlap), and the last two entries invalid padding."""
+    ~``overlap`` px overlaps and jitter, x origins at every residue mod 8
+    (tile k at k % 8), nonzero crops, one tile placed twice (full
+    overlap), and the last two entries invalid padding."""
     hp, wp = canvas_hw
     step_y, step_x = th - overlap, tw - overlap
     cols = max(1, min(5, (wp - tw) // step_x + 1))
@@ -114,7 +143,8 @@ def kernel_batch(rng, n, th, tw, canvas_hw, num_c, overlap=205):
         r, c = divmod(k, cols)
         y = min(r * step_y + int(rng.integers(0, 24)), hp - th)
         x = min(c * step_x + int(rng.integers(0, 24)), wp - tw)
-        info[k] = (k % num_c, 0, y, x)
+        x = x - x % 8 + k % 8
+        info[k] = (k % num_c, 0, y, x if x <= wp - tw else x - 8)
         crops[k] = [overlap // 2 if int(rng.integers(0, 4)) else 0
                     for _ in range(4)]
     info[1] = info[0]          # exact duplicate: the later one must win
@@ -123,8 +153,10 @@ def kernel_batch(rng, n, th, tw, canvas_hw, num_c, overlap=205):
     return tiles, info, crops, valid
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` (after a warm-up)."""
+def call_ms(fn, reps: int = 10) -> float:
+    """Median of ``reps`` CUDA-event timings around one call of ``fn``
+    (after a warm-up), the host's enqueue included: the card idles while
+    the wrapper's Python runs."""
     fn()
     times = []
     for _ in range(reps):
@@ -138,162 +170,248 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def phase_kernels(reps: int = 10):
-    """Every kernel on the card vs its plain version; returns
-    {kernel: {'max_abs_err', 'ms', 'plain_ms'}} at the headline case."""
-    out = {'fuse_overwrite': kernel_overwrite(reps)}
-    out['fuse_feather'] = kernel_feather(reps)
+def _sleep_cycles_per_ms() -> float:
+    """The rate of the card's spinning kernel (torch.cuda._sleep)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10 ** 7)
+    b.record()
+    b.synchronize()
+    return 10 ** 7 / a.elapsed_time(b)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """The card's time for one call of ``fn``: the median gap between CUDA
+    events around each of ``reps`` back-to-back calls, all queued behind a
+    spinning kernel, so the host's time to enqueue them (the wrapper's
+    checks and its ctypes call) is hidden. Fails if the queue ran dry."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    hold = 5.0 + 3 * reps * host_ms
+    cycles_per_ms = _sleep_cycles_per_ms()
+    for _ in range(3):
+        torch.cuda._sleep(int(hold * cycles_per_ms))  # the card spins
+        held = torch.cuda.Event()
+        held.record()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        ev[0].record()
+        for k in range(reps):
+            fn()
+            ev[k + 1].record()
+        ran_dry = held.query()
+        torch.cuda.synchronize()
+        if not ran_dry:
+            return float(np.median([ev[k].elapsed_time(ev[k + 1])
+                                    for k in range(reps)]))
+        hold *= 4
+    raise SystemExit("device_ms: the host could not keep the card's queue "
+                     "ahead of the calls")
+
+
+def bound_ms(nbytes: float, ops: float):
+    """(least ms, 'bytes' or 'operations'): the larger of the bytes over
+    the memory rate and the f32 operations over the f32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def phase_kernels(reps: int = 20):
+    """Every kernel on the card vs its plain version, at every case of
+    :func:`kernel_cases`; returns {kernel: numbers at the headline case}."""
+    rng = np.random.default_rng(1234)
+    over = [overwrite_case(rng, case, reps) for case in kernel_cases()]
+    rng = np.random.default_rng(4321)
+    feath = [feather_case(rng, case, reps) for case in kernel_cases()]
     pcc_check()
+    out = {'fuse_overwrite': dict(over[0]),
+           'fuse_feather': dict(feath[0]),
+           'finalize_feather': dict(feath[0]['finalize'])}
+    del out['fuse_feather']['finalize']
+    out['fuse_overwrite']['max_abs_err'] = max(c['max_abs_err'] for c in over)
+    out['fuse_feather']['max_abs_err'] = max(c['max_abs_err'] for c in feath)
+    out['finalize_feather']['max_abs_err'] = max(
+        c['finalize']['max_abs_err'] for c in feath if c.get('finalize'))
     return out
 
 
 def kernel_cases():
-    """(name, dtype, with_ff, canvas shape, N, th, tw) at the main-path
-    shapes: the band canvas (1, 1, th + band + th, width + tw) of a 10x10
-    grid of 2048^2 tiles (width 18635, band 8192) with N = 10, and an
-    unaligned camera into a 3-channel canvas (ff picked per channel)."""
-    band_canvas = (1, 1, TILE + 8192 + TILE, 18635 + TILE)
-    cases = [('band', dtype, with_ff, band_canvas, 10, TILE, TILE)
+    """(name, dtype, with_ff, canvas shape, N, th, tw): the main path's
+    band canvas (a 10x10 grid of 2048^2 tiles, N = 10) at its padded pitch
+    (the first case is the headline) and at the odd unpadded pitch, u16
+    and u8, with and without the field; cameras into a 3-channel canvas
+    (ff picked per channel): 1920x1200, and rows of 1100 and 1201 pixels,
+    which are not 16-byte aligned."""
+    cases = [('band', dtype, with_ff, BAND_CANVAS, 10, TILE, TILE)
              for dtype in (torch.uint16, torch.uint8)
              for with_ff in (True, False)]
-    cases.append(('1920x1200', torch.uint16, True, (3, 1, 5000, 9000), 10,
-                  1200, 1920))
+    cases += [('band-odd-pitch', torch.uint16, True, ODD_CANVAS, 10, TILE,
+               TILE),
+              ('band-odd-pitch', torch.uint8, False, ODD_CANVAS, 10, TILE,
+               TILE),
+              ('camera', torch.uint16, True, (3, 1, 5000, 9000), 10, 1200,
+               1920),
+              ('camera', torch.uint16, True, (3, 1, 5000, 9000), 10, 1200,
+               1100),
+              ('camera', torch.uint8, False, (3, 1, 5000, 9001), 10, 1201,
+               1201)]
     return cases
 
 
-def kernel_overwrite(reps: int):
-    """fuse_overwrite on the card vs its plain version, byte for byte."""
-    from image_stitcher_tpu_torch.ops import cuda_fuse, fuse as plain
+def case_inputs(rng, case):
+    """Device inputs of one case, and what its data needs: canvas pixels
+    inside some valid window, the windows' summed area, and the bytes of
+    the fields that its valid tiles use (each read once)."""
+    name, dtype, with_ff, cshape, n, th, tw = case
     dev = torch.device('cuda')
-    rng = np.random.default_rng(1234)
-    max_err = 0
-    headline = None
-    for name, dtype, with_ff, cshape, n, th, tw in kernel_cases():
-        tiles, info, crops, valid = kernel_batch(
-            rng, n, th, tw, cshape[2:], cshape[0])
-        if dtype == torch.uint8:
-            tiles = (tiles >> 8).astype(np.uint8)
-        d_tiles = torch.from_numpy(tiles).to(dev)
-        t_info = torch.from_numpy(info)
-        t_crops = torch.from_numpy(crops)
-        t_valid = torch.from_numpy(valid)
-        ff = None
-        if with_ff:
-            ff = torch.from_numpy(
-                (1.0 / rng.uniform(0.6, 1.4, (cshape[0], th, tw)))
-                .astype(np.float32)).to(dev)
-        gen = torch.Generator(device=dev).manual_seed(7)
-        base = torch.randint(0, 256 if dtype == torch.uint8 else 65536,
-                             cshape, generator=gen, device=dev,
-                             dtype=torch.int32).to(dtype)
-        got = base.clone()
-        want = base.clone()
-        cuda_fuse.fuse_overwrite(got, d_tiles, t_info, t_crops, t_valid, ff)
+    tiles, info, crops, valid = kernel_batch(rng, n, th, tw, cshape[2:],
+                                             cshape[0])
+    if dtype == torch.uint8:
+        tiles = (tiles >> 8).astype(np.uint8)
+    ff = None
+    if with_ff:
+        ff = torch.from_numpy(
+            (1.0 / rng.uniform(0.6, 1.4, (cshape[0], th, tw)))
+            .astype(np.float32)).to(dev)
+    mask = torch.zeros(cshape, dtype=torch.bool, device=dev)
+    area = 0
+    for k in np.flatnonzero(valid):
+        c, z, y, x = (int(v) for v in info[k])
+        top, bottom, left, right = (int(v) for v in crops[k])
+        r0, r1 = max(top, 0), min(th - bottom, th)
+        s0, s1 = max(left, 0), min(tw - right, tw)
+        if r1 > r0 and s1 > s0:
+            mask[c, z, y + r0:y + r1, x + s0:x + s1] = True
+            area += (r1 - r0) * (s1 - s0)
+    ff_bytes = (len(set(info[valid, 0].tolist())) * th * tw * 4
+                if with_ff else 0)
+    label = (f"{name} {str(dtype).split('.')[-1]} "
+             f"{'ff' if with_ff else 'noff'} N={n} {th}x{tw} into "
+             f"{'x'.join(map(str, cshape))}")
+    meta = (torch.from_numpy(info), torch.from_numpy(crops),
+            torch.from_numpy(valid))
+    return (torch.from_numpy(tiles).to(dev), meta, ff, int(mask.sum()),
+            area, ff_bytes, label)
+
+
+def timings(kernel, plain_fn, nbytes, ops, reps):
+    ms = device_ms(kernel, reps)
+    bound, by = bound_ms(nbytes, ops)
+    return {'ms': ms, 'call_ms': call_ms(kernel), 'plain_ms': call_ms(
+        plain_fn), 'bound_ms': bound, 'bound_by': by,
+        'bound_share': bound / ms, 'library_ms': None}
+
+
+def overwrite_case(rng, case, reps: int):
+    """fuse_overwrite on the card vs its plain version, byte for byte; the
+    bound counts each written pixel's tile read and canvas write, and
+    each used field once."""
+    from image_stitcher_tpu_torch.ops import cuda_fuse, fuse as plain
+    _, dtype, with_ff, cshape, *_ = case
+    d_tiles, meta, ff, written, _, ff_bytes, label = case_inputs(rng, case)
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    base = torch.randint(0, 256 if dtype == torch.uint8 else 65536, cshape,
+                         generator=gen, device='cuda',
+                         dtype=torch.int32).to(dtype)
+    got = base.clone()
+    want = base.clone()
+    cuda_fuse.fuse_overwrite(got, d_tiles, *meta, ff)
+    torch.cuda.synchronize()
+    plain.fuse_overwrite(want, d_tiles, *meta, ff)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+    if err != 0:
+        raise SystemExit(f"fuse_overwrite disagrees with its plain version "
+                         f"on {label}: max_abs_err {err}")
+    item = got.element_size()
+    out = timings(lambda: cuda_fuse.fuse_overwrite(got, d_tiles, *meta, ff),
+                  lambda: plain.fuse_overwrite(want, d_tiles, *meta, ff),
+                  2 * item * written + ff_bytes, written if with_ff else 0,
+                  reps)
+    out['max_abs_err'] = err
+    log(f"kernel fuse_overwrite {label}: byte-equal, {written} px written; "
+        f"kernel {out['ms']:.4f} ms (one call with the host's enqueue "
+        f"{out['call_ms']:.4f}), plain {out['plain_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}), "
+        f"{out['bound_share']:.1%} of the bound")
+    return out
+
+
+def feather_case(rng, case, reps: int):
+    """fuse_feather (acc, wsum bit-equal) on the card vs its plain version,
+    and on the band canvases finalize_feather (byte-equal) over the band's
+    real rows; the bounds count each weighted pixel's acc and wsum read
+    and written, each window's tile pixels and each used field once, and
+    the finalize's reads and writes."""
+    from image_stitcher_tpu_torch.ops import cuda_fuse, fuse as plain
+    name, dtype, with_ff, cshape, _, th, _ = case
+    d_tiles, meta, ff, weighted, area, ff_bytes, label = case_inputs(rng,
+                                                                     case)
+    # start from an earlier batch's sums, as a band's later batches do
+    gen = torch.Generator(device='cuda').manual_seed(8)
+    acc0 = torch.rand(cshape, generator=gen, device='cuda') * 65535
+    wsum0 = torch.rand(cshape, generator=gen, device='cuda')
+    got = (acc0.clone(), wsum0.clone())
+    want = (acc0.clone(), wsum0.clone())
+    del acc0, wsum0
+    cuda_fuse.fuse_feather(*got, d_tiles, *meta, ff_recip=ff, blend_px=BLEND)
+    torch.cuda.synchronize()
+    plain.fuse_feather(*want, d_tiles, *meta, ff_recip=ff, blend_px=BLEND)
+    torch.cuda.synchronize()
+    err = max(float((got[k] - want[k]).abs().max()) for k in (0, 1))
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise SystemExit(f"fuse_feather disagrees with its plain version on "
+                         f"{label}: max_abs_err {err}")
+    item = d_tiles.element_size()
+    out = timings(
+        lambda: cuda_fuse.fuse_feather(*got, d_tiles, *meta, ff_recip=ff,
+                                       blend_px=BLEND),
+        lambda: plain.fuse_feather(*want, d_tiles, *meta, ff_recip=ff,
+                                   blend_px=BLEND),
+        16 * weighted + item * area + ff_bytes,
+        area * (4 if with_ff else 3), reps)
+    out['max_abs_err'] = err
+    log(f"kernel fuse_feather {label}: acc/wsum bit-equal, {weighted} px "
+        f"weighted; kernel {out['ms']:.4f} ms (one call with the host's "
+        f"enqueue {out['call_ms']:.4f}), plain {out['plain_ms']:.4f} ms, "
+        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}), "
+        f"{out['bound_share']:.1%} of the bound")
+    if name.startswith('band'):
+        # the band's real rows, as the band fuser finalizes them
+        window = ((th, th + BAND_ROWS), (0, BAND_W))
+        real = (slice(th, th + BAND_ROWS), slice(0, BAND_W))
+        f_got = cuda_fuse.finalize_feather(*got, dtype, *window)
+        f_want = plain.finalize_feather(got[0][..., real[0], real[1]],
+                                        got[1][..., real[0], real[1]], dtype)
         torch.cuda.synchronize()
-        plain.fuse_overwrite(want, d_tiles, t_info, t_crops, t_valid, ff)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-        changed = int((got.to(torch.int32) != base.to(torch.int32)).sum())
-        max_err = max(max_err, err)
-        ms_k = cuda_ms(lambda: cuda_fuse.fuse_overwrite(
-            got, d_tiles, t_info, t_crops, t_valid, ff), reps)
-        ms_p = cuda_ms(lambda: plain.fuse_overwrite(
-            want, d_tiles, t_info, t_crops, t_valid, ff), reps)
-        label = (f"{name} {str(dtype).split('.')[-1]} "
-                 f"{'ff' if with_ff else 'noff'} N={n} {th}x{tw}")
-        log(f"kernel fuse_overwrite {label}: max_abs_err={err} "
-            f"(pixels written {changed}), kernel {ms_k:.3f} ms, "
-            f"plain {ms_p:.3f} ms")
-        if err != 0:
-            raise SystemExit(f"fuse_overwrite disagrees with its plain "
-                             f"version on {label}: max_abs_err {err}")
-        if name == 'band' and dtype == torch.uint16 and with_ff:
-            headline = (ms_k, ms_p)
-        del got, want, base, d_tiles, ff
+        f_err = int((f_got.to(torch.int32)
+                     - f_want.to(torch.int32)).abs().max())
+        if f_err != 0:
+            raise SystemExit(f"finalize_feather disagrees with its plain "
+                             f"version on {label}: {f_err}")
+        px = BAND_ROWS * BAND_W
+        fin = timings(
+            lambda: cuda_fuse.finalize_feather(*got, dtype, *window),
+            lambda: plain.finalize_feather(got[0][..., real[0], real[1]],
+                                           got[1][..., real[0], real[1]],
+                                           dtype),
+            px * (8 + f_got.element_size()), px, reps)
+        fin['max_abs_err'] = f_err
+        out['finalize'] = fin
+        log(f"kernel finalize_feather {BAND_ROWS}x{BAND_W} of {label}: "
+            f"byte-equal; kernel {fin['ms']:.4f} ms (one call with the "
+            f"host's enqueue {fin['call_ms']:.4f}), plain "
+            f"{fin['plain_ms']:.4f} ms, bound {fin['bound_ms']:.4f} ms "
+            f"({fin['bound_by']}), {fin['bound_share']:.1%} of the bound")
+        del f_got, f_want
+    del got, want, d_tiles, ff
     torch.cuda.empty_cache()
-    return {'max_abs_err': max_err, 'ms': headline[0],
-            'plain_ms': headline[1]}
-
-
-def kernel_feather(reps: int):
-    """fuse_feather (acc, wsum bit-equal) and finalize_feather (byte-equal)
-    on the card vs their plain versions, at the band canvas."""
-    from image_stitcher_tpu_torch.ops import cuda_fuse, fuse as plain
-    dev = torch.device('cuda')
-    rng = np.random.default_rng(4321)
-    max_err = 0.0
-    headline = finalize = None
-    for name, dtype, with_ff, cshape, n, th, tw in kernel_cases():
-        tiles, info, crops, valid = kernel_batch(
-            rng, n, th, tw, cshape[2:], cshape[0])
-        if dtype == torch.uint8:
-            tiles = (tiles >> 8).astype(np.uint8)
-        d_tiles = torch.from_numpy(tiles).to(dev)
-        meta = (torch.from_numpy(info), torch.from_numpy(crops),
-                torch.from_numpy(valid))
-        ff = None
-        if with_ff:
-            ff = torch.from_numpy(
-                (1.0 / rng.uniform(0.6, 1.4, (cshape[0], th, tw)))
-                .astype(np.float32)).to(dev)
-        # start from an earlier batch's sums, as a band's later batches do
-        gen = torch.Generator(device=dev).manual_seed(8)
-        acc0 = torch.rand(cshape, generator=gen, device=dev) * 65535
-        wsum0 = torch.rand(cshape, generator=gen, device=dev)
-        got = (acc0.clone(), wsum0.clone())
-        want = (acc0.clone(), wsum0.clone())
-        cuda_fuse.fuse_feather(*got, d_tiles, *meta, ff_recip=ff,
-                               blend_px=BLEND)
-        torch.cuda.synchronize()
-        plain.fuse_feather(*want, d_tiles, *meta, ff_recip=ff,
-                           blend_px=BLEND)
-        torch.cuda.synchronize()
-        err = max(float((got[k] - want[k]).abs().max()) for k in (0, 1))
-        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        changed = int((got[1] != wsum0).sum())
-        max_err = max(max_err, err)
-        label = (f"{name} {str(dtype).split('.')[-1]} "
-                 f"{'ff' if with_ff else 'noff'} N={n} {th}x{tw}")
-        if not same:
-            raise SystemExit(f"fuse_feather disagrees with its plain version "
-                             f"on {label}: max_abs_err {err}")
-        if name == 'band':
-            # the band's real rows, as the band fuser finalizes them
-            window = ((th, th + 8192), (0, 18635))
-            f_got = cuda_fuse.finalize_feather(*got, dtype, *window)
-            f_want = plain.finalize_feather(
-                got[0][..., th:th + 8192, :18635],
-                got[1][..., th:th + 8192, :18635], dtype)
-            torch.cuda.synchronize()
-            f_err = int((f_got.to(torch.int32)
-                         - f_want.to(torch.int32)).abs().max())
-            if f_err != 0:
-                raise SystemExit(f"finalize_feather disagrees with its "
-                                 f"plain version on {label}: {f_err}")
-        ms_k = cuda_ms(lambda: cuda_fuse.fuse_feather(
-            *got, d_tiles, *meta, ff_recip=ff, blend_px=BLEND), reps)
-        ms_p = cuda_ms(lambda: plain.fuse_feather(
-            *want, d_tiles, *meta, ff_recip=ff, blend_px=BLEND), reps)
-        line = (f"kernel fuse_feather {label}: acc/wsum bit-equal "
-                f"(pixels weighted {changed}), kernel {ms_k:.3f} ms, "
-                f"plain {ms_p:.3f} ms")
-        if name == 'band':
-            fk = cuda_ms(lambda: cuda_fuse.finalize_feather(
-                *got, dtype, *window), reps)
-            fp = cuda_ms(lambda: plain.finalize_feather(
-                got[0][..., th:th + 8192, :18635],
-                got[1][..., th:th + 8192, :18635], dtype), reps)
-            line += (f"; finalize 8192x18635 byte-equal, kernel {fk:.3f} ms,"
-                     f" plain {fp:.3f} ms")
-            if dtype == torch.uint16 and with_ff:
-                headline = (ms_k, ms_p)
-                finalize = {'max_abs_err': f_err, 'ms': fk, 'plain_ms': fp}
-            del f_got, f_want
-        log(line)
-        del got, want, acc0, wsum0, d_tiles, ff
-        torch.cuda.empty_cache()
-    return {'max_abs_err': max_err, 'ms': headline[0],
-            'plain_ms': headline[1], 'finalize': finalize}
+    return out
 
 
 def pcc_check(n: int = 90, tol: float = 0.1) -> None:
@@ -524,7 +642,7 @@ def phase_main_path(work: str, card: str, grid: int = 10,
     from image_stitcher_tpu_torch.io.omezarr import level_shapes
     from image_stitcher_tpu_torch.io.zarr_store import read_array
     from image_stitcher_tpu_torch.models.streaming import (
-        band_rows_for, partition_jobs_by_band)
+        band_canvas_shape, band_rows_for, partition_jobs_by_band)
     from image_stitcher_tpu_torch.ops import cuda_fuse
     acq = os.path.join(work, f'main_{grid}x{grid}')
     t0 = time.perf_counter()
@@ -550,6 +668,12 @@ def phase_main_path(work: str, card: str, grid: int = 10,
                                       height, band)
     batches = sum(-(-len(v) // opts.fusion_batch) for v in tasks.values())
     stats = pipe.fuse_stats['A1_t0']
+    canvas = band_canvas_shape(tile, tile, band, width)
+    if (band, width, tile) == (BAND_ROWS, BAND_W, TILE) \
+            and canvas != BAND_CANVAS:
+        raise SystemExit(f"main path: band canvas {canvas}, phase 3 timed "
+                         f"{BAND_CANVAS}")
+    log(f"main path: band canvas {canvas}")
     log(f"main path: shifts h={pipe.shifts.h_shift} v={pipe.shifts.v_shift}"
         f", canvas {len(CHANNELS)}x{height}x{width}, "
         f"{pipe.num_pyramid_levels} levels, band {band} rows, "
@@ -756,19 +880,18 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches = {'fuse_overwrite': main_run['launches'],
-                'fuse_feather': quality_run['launches']}
+                'fuse_feather': quality_run['launches'],
+                'finalize_feather': quality_run['finalize_launches']}
     entries = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (_, source, replaces) in KERNELS.items():
         k = kern[name]
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": k['max_abs_err'], "ms": k['ms'],
-            "plain_ms": k['plain_ms']})
-    # the finalize epilogue lives in the same source as fuse_feather
-    entries[-1]["epilogue"] = dict(
-        name="finalize_feather", launches=quality_run['finalize_launches'],
-        **kern['fuse_feather']['finalize'])
+            "plain_ms": k['plain_ms'], "bound_ms": k['bound_ms'],
+            "bound_by": k['bound_by'], "bound_share": k['bound_share'],
+            "library_ms": k['library_ms']})
     log(f"card: {card}")
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,10 @@ Placement parity: each band canvas carries a one-tile apron above
 (tiles straddling the band's top edge keep their whole pre-crop extent
 in bounds, and so their ramps from the whole crop window) and one tile
 below and to the right, as the JAX package's non-Pallas band canvas
-does, so band output is identical to an unbanded canvas.
+does, so band output is identical to an unbanded canvas. Its rows are
+padded to a multiple of 8 elements (:func:`band_canvas_shape`), so the
+kernels' canvas rows start 16-byte aligned; the padding is never read
+back.
 """
 
 from __future__ import annotations
@@ -73,6 +76,16 @@ def write_band_levels(writer: MultiscaleWriter, c: int, z: int, band0: int,
         sel = (slice(0, 1), slice(c, c + 1), slice(z, z + 1),
                slice(b_lv, b_lv + h_lv), slice(0, w_lv))
         writer.write_level(lv, level[None, None, None], sel=sel)
+
+
+def band_canvas_shape(tile_h: int, tile_w: int, band: int,
+                      width: int) -> Tuple[int, int, int, int]:
+    """(1, 1, rows, cols) of a band canvas: a one-tile apron above and
+    below the band and one tile to the right of the width, the row length
+    rounded up to a multiple of 8 elements, so every canvas row starts
+    16-byte aligned in uint16 (32 in float32) and the kernels store whole
+    16-byte vectors. The padding columns are never read back."""
+    return (1, 1, tile_h + band + tile_h, -(-(width + tile_w) // 8) * 8)
 
 
 def partition_jobs_by_band(jobs: Sequence, tile_h: int, height: int,
@@ -139,7 +152,7 @@ class DeviceStreamingFuser:
                    progress_cb=None, stop_check=None):
         th, tw = self.tile_h, self.tile_w
         rows = min(self.band, self.height - band0)
-        shape = (1, 1, th + self.band + th, self.width + tw)
+        shape = band_canvas_shape(th, tw, self.band, self.width)
         if self.blend == 'feather':
             acc = torch.zeros(shape, dtype=torch.float32, device=self.device)
             wsum = torch.zeros(shape, dtype=torch.float32, device=self.device)

@@ -114,3 +114,119 @@ def test_finalize_kernel_matches_plain(cuda_device, dtype):
                                   wsum[..., 7:80, 11:129], dtype)
     assert got.shape == (2, 1, 73, 118)
     assert torch.equal(got.cpu(), want)
+
+
+def _residue_batch(seed, dtype, th, tw, pitch_residue, n=16, C=2, H=120,
+                   W=260):
+    """A batch that walks every residue mod 8: tile k has its x origin at
+    8m + k % 8 and crops of (k + side) % 8 (+ 8 on some tiles) on each
+    side; the canvas row length is 8j + ``pitch_residue`` elements (the
+    one-tile apron, then padded). One entry is invalid padding."""
+    rng = np.random.default_rng(seed)
+    hi = np.iinfo(dtype).max
+    tiles = rng.integers(0, hi + 1, (n, th, tw)).astype(dtype)
+    k = np.arange(n)
+    x = 8 * rng.integers(0, W // 8, n) + k % 8
+    info = np.stack([k % C, np.zeros(n, int), rng.integers(0, H, n), x],
+                    axis=1).astype(np.int32)
+    crops = np.stack([(k + side) % 8 + 8 * (k % 3 == side % 3)
+                      for side in range(4)], axis=1).astype(np.int32)
+    valid = np.ones(n, bool)
+    valid[5] = False
+    ff = (1.0 / rng.uniform(0.5, 1.5, (C, th, tw))).astype(np.float32)
+    _, _, Hp, Wp = plain.padded_canvas_shape(C, 1, H, W, th, tw)
+    Wp = -(-Wp // 8) * 8 + pitch_residue
+    canvas = rng.integers(0, hi + 1, (C, 1, Hp, Wp)).astype(dtype)
+    return [torch.from_numpy(a) for a in (canvas, tiles, info, crops, valid,
+                                          ff)]
+
+
+def _split_batch(dtype, th=24, tw=200):
+    """Tile 0 is cut into three spans on its middle rows by two later
+    windows (tiles 1 and 2); tile 3 is placed exactly on tile 4 (the
+    later one wins everywhere)."""
+    rng = np.random.default_rng(21)
+    hi = np.iinfo(dtype).max
+    tiles = rng.integers(0, hi + 1, (5, th, tw)).astype(dtype)
+    info = np.array([[0, 0, 10, 13], [0, 0, 16, 53], [0, 0, 4, 101],
+                     [0, 0, 40, 7], [0, 0, 40, 7]], np.int32)
+    # tiles 1 and 2: windows 40 and 33 columns wide, inside tile 0's rows
+    crops = np.array([[1, 2, 3, 5], [0, 8, 0, tw - 40], [6, 0, 2, tw - 35],
+                      [0, 0, 0, 0], [1, 1, 1, 1]], np.int32)
+    valid = np.ones(5, bool)
+    ff = (1.0 / rng.uniform(0.5, 1.5, (1, th, tw))).astype(np.float32)
+    canvas = rng.integers(0, hi + 1, plain.padded_canvas_shape(
+        1, 1, 80, 320, th, tw)).astype(dtype)
+    return [torch.from_numpy(a) for a in (canvas, tiles, info, crops, valid,
+                                          ff)]
+
+
+def _overwrite_equal(dev, canvas, tiles, info, crops, valid, ff):
+    got = cuda_fuse.fuse_overwrite(canvas.to(dev), tiles.to(dev), info,
+                                   crops, valid,
+                                   None if ff is None else ff.to(dev))
+    torch.cuda.synchronize()
+    want = plain.fuse_overwrite(canvas.clone(), tiles, info, crops, valid, ff)
+    assert torch.equal(got.cpu(), want)
+
+
+def _feather_equal(dev, shape, tiles, info, crops, valid, ff, blend_px):
+    gen = torch.Generator().manual_seed(12)
+    acc = torch.rand(shape, generator=gen) * 1000
+    wsum = torch.rand(shape, generator=gen)
+    got = cuda_fuse.fuse_feather(acc.to(dev), wsum.to(dev), tiles.to(dev),
+                                 info, crops, valid,
+                                 None if ff is None else ff.to(dev), blend_px)
+    torch.cuda.synchronize()
+    want = plain.fuse_feather(acc, wsum, tiles, info, crops, valid, ff,
+                              blend_px)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pitch_residue", range(8))
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("tw", [72, 70, 77], ids=lambda w: f"tw{w}")
+def test_kernel_every_pitch_origin_and_crop_residue(cuda_device,
+                                                    pitch_residue, dtype,
+                                                    tw):
+    canvas, tiles, info, crops, valid, ff = _residue_batch(
+        30 + pitch_residue, dtype, 40, tw, pitch_residue)
+    assert canvas.shape[3] % 8 == pitch_residue
+    _overwrite_equal(cuda_device, canvas, tiles, info, crops, valid,
+                     ff if pitch_residue % 2 == 0 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("with_ff", [False, True])
+def test_kernel_split_spans_and_duplicate(cuda_device, dtype, with_ff):
+    canvas, tiles, info, crops, valid, ff = _split_batch(dtype)
+    _overwrite_equal(cuda_device, canvas, tiles, info, crops, valid,
+                     ff if with_ff else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pitch_residue", range(8))
+@pytest.mark.parametrize("blend_px", [1, 24, 64, 3000])
+@pytest.mark.parametrize("tw", [72, 70, 77], ids=lambda w: f"tw{w}")
+def test_feather_kernel_every_pitch_origin_and_crop_residue(
+        cuda_device, pitch_residue, blend_px, tw):
+    # 3000 is longer than half of every window and than the ramp table
+    dtype = np.uint16 if pitch_residue < 4 else np.uint8
+    canvas, tiles, info, crops, valid, ff = _residue_batch(
+        40 + pitch_residue, dtype, 40, tw, pitch_residue)
+    _feather_equal(cuda_device, canvas.shape, tiles, info, crops, valid,
+                   ff if pitch_residue % 2 == 0 else None, blend_px)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("blend_px", [1, 24, 64, 150])
+def test_feather_kernel_split_windows_and_duplicate(cuda_device, dtype,
+                                                    blend_px):
+    # 150 is longer than half of every window here
+    canvas, tiles, info, crops, valid, ff = _split_batch(dtype)
+    _feather_equal(cuda_device, canvas.shape, tiles, info, crops, valid, ff,
+                   blend_px)

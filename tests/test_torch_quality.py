@@ -28,6 +28,9 @@ from image_stitcher_tpu import stitch as jax_stitch
 from image_stitcher_tpu.io.zarr_store import open_zarr_array
 import image_stitcher_tpu_torch as port
 from image_stitcher_tpu_torch.io.zarr_store import read_array
+from image_stitcher_tpu_torch.models.streaming import (band_canvas_shape,
+                                                       band_rows_for)
+from image_stitcher_tpu_torch.ops import cuda_fuse
 
 CPU = torch.device('cpu')
 CHANNELS = ["Fluorescence 488 nm Ex", "Fluorescence 561 nm Ex"]
@@ -109,6 +112,10 @@ def test_carried_state_within_one_lsb(jax_run, tmp_path):
     # (the solve of integer jitter leaves residuals near 0 and near 1)
     jobs = pipe._build_jobs(0, sorted(pipe.global_positions)[0])
     assert any(job.fy or job.fx for job in jobs)
+    _assert_trees_within_one_lsb(jax_out, out)
+
+
+def _assert_trees_within_one_lsb(jax_out, out):
     jdirs, pdirs = _zarr_dirs(jax_out), _zarr_dirs(out)
     assert [os.path.relpath(p, out) for p in pdirs] == \
         [os.path.relpath(p, jax_out) for p in jdirs]
@@ -125,6 +132,34 @@ def test_carried_state_within_one_lsb(jax_run, tmp_path):
                     read_array(os.path.join(pd_, key)), got[key])
             else:
                 assert got[key] == want[key], key
+
+
+def test_padded_band_pitch_within_one_lsb(jax_run, tmp_path, monkeypatch):
+    """The feathered band fuser accumulates into (acc, wsum) canvases whose
+    rows are padded to a multiple of 8 floats; its tree stays within
+    1 LSB of the JAX package's."""
+    acq, jax_out, jpipe = jax_run
+    shapes = []
+    accumulate = cuda_fuse.fuse_feather
+
+    def spy(acc, wsum, *args, **kwargs):
+        shapes.append((tuple(acc.shape), tuple(wsum.shape)))
+        return accumulate(acc, wsum, *args, **kwargs)
+
+    monkeypatch.setattr(cuda_fuse, 'fuse_feather', spy)
+    out = str(tmp_path / "port")
+    pipe = _port_run(acq, out, port.state_from_reference(
+        jpipe.flatfields, jpipe.shifts, jpipe.global_positions,
+        jpipe.global_positions_float))
+    th, tw = pipe.acq.input_height, pipe.acq.input_width
+    band = band_rows_for(pipe.options.write_band_rows()
+                         * pipe.options.device_band_multiple,
+                         pipe.num_pyramid_levels)
+    want = {band_canvas_shape(th, tw, band, pipe._region_dimensions(0, r)[0])
+            for r in pipe.acq.regions}
+    assert shapes and {a for a, _ in shapes} <= want
+    assert all(a == w and a[3] % 8 == 0 for a, w in shapes)
+    _assert_trees_within_one_lsb(jax_out, out)
 
 
 def test_own_registration_positions_within_a_tenth(jax_run, tmp_path):

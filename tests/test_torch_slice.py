@@ -25,6 +25,9 @@ from image_stitcher_tpu import stitch as jax_stitch
 from image_stitcher_tpu.io.zarr_store import open_zarr_array
 import image_stitcher_tpu_torch as port
 from image_stitcher_tpu_torch.io.zarr_store import read_array
+from image_stitcher_tpu_torch.models.streaming import (band_canvas_shape,
+                                                       band_rows_for)
+from image_stitcher_tpu_torch.ops import cuda_fuse
 
 CPU = torch.device('cpu')
 CHANNELS = ["Fluorescence 405 nm Ex", "Fluorescence 488 nm Ex",
@@ -99,6 +102,10 @@ def test_carried_state_tree_identical(jax_run, tmp_path):
         jpipe.flatfields, jpipe.shifts))
     assert pipe.shifts == port.state_from_reference(
         shifts=jpipe.shifts).shifts
+    _assert_trees_identical(jax_out, out)
+
+
+def _assert_trees_identical(jax_out, out):
     jdirs, pdirs = _zarr_dirs(jax_out), _zarr_dirs(out)
     assert [os.path.relpath(p, out) for p in pdirs] == \
         [os.path.relpath(p, jax_out) for p in jdirs]
@@ -113,6 +120,44 @@ def test_carried_state_tree_identical(jax_run, tmp_path):
                     read_array(os.path.join(pd_, key)), want[key], key)
             else:
                 assert got[key] == want[key], key
+
+
+def test_padded_band_pitch_tree_identical(jax_run, tmp_path, monkeypatch):
+    """The band fuser hands the kernel canvases whose rows are padded to
+    a multiple of 8 elements; the tree stays identical to the JAX
+    package's."""
+    acq, jax_out, jpipe, opts = jax_run
+    shapes = []
+    place = cuda_fuse.fuse_overwrite
+
+    def spy(canvas, *args, **kwargs):
+        shapes.append(tuple(canvas.shape))
+        return place(canvas, *args, **kwargs)
+
+    monkeypatch.setattr(cuda_fuse, 'fuse_overwrite', spy)
+    out = str(tmp_path / "port")
+    pipe = _port_run(acq, out, opts, port.state_from_reference(
+        jpipe.flatfields, jpipe.shifts))
+    th, tw = pipe.acq.input_height, pipe.acq.input_width
+    band = band_rows_for(pipe.options.write_band_rows()
+                         * pipe.options.device_band_multiple,
+                         pipe.num_pyramid_levels)
+    want = {band_canvas_shape(th, tw, band, pipe._region_dimensions(0, r)[0])
+            for r in pipe.acq.regions}
+    assert shapes and set(shapes) <= want
+    assert all(s[3] % 8 == 0 for s in shapes)
+    _assert_trees_identical(jax_out, out)
+
+
+@pytest.mark.parametrize("width, tile_w", [(18635, 2048), (340, 120),
+                                           (1, 1), (96, 32), (1100, 1100)])
+def test_band_canvas_shape_pads_rows_to_eight(width, tile_w):
+    shape = band_canvas_shape(100, tile_w, 64, width)
+    assert shape[:3] == (1, 1, 100 + 64 + 100)
+    assert shape[3] % 8 == 0
+    assert width + tile_w <= shape[3] < width + tile_w + 8
+    if width == 18635:   # the main path's band: 20683 padded to 20688
+        assert shape[3] == 20688
 
 
 def test_own_fit_within_one_lsb(jax_run, tmp_path):
