@@ -11,18 +11,22 @@ Phases, each fatal on failure:
      seeded batches at the main-path shapes (overwrite canvas byte-equal,
      feather acc/wsum bit-equal, finalize byte-equal): the band canvas at
      its padded and at an odd pitch, tile x origins at every residue
-     mod 8, u16 and u8, cameras whose rows are not 16-byte aligned. Per
-     case: the kernel's time on the card (CUDA events, calls queued
-     behind a spinning kernel so the host's enqueue is hidden), one call
-     with the host's enqueue, the plain version's call, and the bound
-     (bytes each input read once and each output written once, at
-     3.35 TB/s) with the kernel's share of it; then the batched device
+     mod 8, u16 and u8, cameras whose rows are not 16-byte aligned, and
+     one HCS well's whole (3, 2, Hp, Wp) in-RAM canvas with a 3-plane
+     field (channel and z indices both used; the feather case finalizes
+     every plane). Per case: the kernel's time on the card (CUDA events,
+     calls queued behind a spinning kernel so the host's enqueue is
+     hidden), one call with the host's enqueue, the plain version's
+     call, and the bound (bytes each input read once and each output
+     written once, at 3.35 TB/s) with the kernel's share of it; then the
+     batched device
      phase correlation against the host f64 twin on 180 main-path strip
      pairs (within 0.1 px);
   4. slice parity: 3x3 x 3-channel 2048^2 acquisitions stitched on the
-     card and on the CPU must decode to equal OME-Zarr trees: the main
-     path, and the maximum-quality path with the card run's registration
-     carried into the CPU run;
+     card and on the CPU through the band fuser (streaming='on') must
+     decode to equal OME-Zarr trees: the main path, and the maximum-
+     quality path with the card run's registration carried into the CPU
+     run;
   5. main path: a 10x10 x 3-channel 2048^2 uint16 acquisition (~205 px
      overlap, center registration + flatfield, overwrite, raw OME-Zarr
      v2) stitched end to end through ``image_stitcher_tpu_torch.stitch``,
@@ -30,7 +34,16 @@ Phases, each fatal on failure:
   6. maximum-quality path: the same grid with +-3 px integer stage
      jitter, all-pairs registration on the card, the global position
      solve, subpixel placement and feathered blending; a 4096-row window
-     of channel 0 is held against a NumPy reference.
+     of channel 0 is held against a NumPy reference;
+  7. HCS plate: 8 wells (A1-H1) x 3x3 FOVs x 3 channels x 2048^2 uint16,
+     each well's canvas under the streaming threshold, so the default
+     'auto' fuses every well whole on the card and builds its pyramid
+     there (the in-RAM path), with the device flatfield solver, the
+     registration report and debug images; the same plate streamed in
+     bands (streaming='on', the first run's fields and shifts carried)
+     must write byte-equal trees; one well's channel 0 is held against a
+     NumPy reference at levels 0 and 1, the device fields against the
+     host solver, the report and PNGs checked.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -125,13 +138,19 @@ BAND_ROWS = 8192   # its band height
 BAND_CANVAS = (1, 1, TILE + BAND_ROWS + TILE, -(-(BAND_W + TILE) // 8) * 8)
 #: the same canvas at the unpadded, odd pitch
 ODD_CANVAS = BAND_CANVAS[:3] + (BAND_W + TILE,)
+#: one HCS well (3x3 FOVs of 2048^2 at ~205 px overlap) as the in-RAM
+#: path fuses it: 3 channels, 2 z levels, the registered height, a
+#: one-tile apron below and right, the row padded to 8 elements
+WELL_H, WELL_W = 6554, 5734
+WELL_CANVAS = (3, 2, WELL_H + TILE, -(-(WELL_W + TILE) // 8) * 8)
 
 
-def kernel_batch(rng, n, th, tw, canvas_hw, num_c, overlap=205):
+def kernel_batch(rng, n, th, tw, canvas_hw, num_c, num_z=1, overlap=205):
     """A fusion batch like the band fuser's: tiles on a grid with
     ~``overlap`` px overlaps and jitter, x origins at every residue mod 8
     (tile k at k % 8), nonzero crops, one tile placed twice (full
-    overlap), and the last two entries invalid padding."""
+    overlap), and the last two entries invalid padding. Tile k goes to
+    channel k % num_c and z level (k // num_c) % num_z."""
     hp, wp = canvas_hw
     step_y, step_x = th - overlap, tw - overlap
     cols = max(1, min(5, (wp - tw) // step_x + 1))
@@ -144,7 +163,8 @@ def kernel_batch(rng, n, th, tw, canvas_hw, num_c, overlap=205):
         y = min(r * step_y + int(rng.integers(0, 24)), hp - th)
         x = min(c * step_x + int(rng.integers(0, 24)), wp - tw)
         x = x - x % 8 + k % 8
-        info[k] = (k % num_c, 0, y, x if x <= wp - tw else x - 8)
+        info[k] = (k % num_c, (k // num_c) % num_z, y,
+                   x if x <= wp - tw else x - 8)
         crops[k] = [overlap // 2 if int(rng.integers(0, 4)) else 0
                     for _ in range(4)]
     info[1] = info[0]          # exact duplicate: the later one must win
@@ -259,7 +279,8 @@ def kernel_cases():
               ('camera', torch.uint16, True, (3, 1, 5000, 9000), 10, 1200,
                1100),
               ('camera', torch.uint8, False, (3, 1, 5000, 9001), 10, 1201,
-               1201)]
+               1201),
+              ('well', torch.uint16, True, WELL_CANVAS, 10, TILE, TILE)]
     return cases
 
 
@@ -270,7 +291,7 @@ def case_inputs(rng, case):
     name, dtype, with_ff, cshape, n, th, tw = case
     dev = torch.device('cuda')
     tiles, info, crops, valid = kernel_batch(rng, n, th, tw, cshape[2:],
-                                             cshape[0])
+                                             cshape[0], cshape[1])
     if dtype == torch.uint8:
         tiles = (tiles >> 8).astype(np.uint8)
     ff = None
@@ -344,10 +365,11 @@ def overwrite_case(rng, case, reps: int):
 
 def feather_case(rng, case, reps: int):
     """fuse_feather (acc, wsum bit-equal) on the card vs its plain version,
-    and on the band canvases finalize_feather (byte-equal) over the band's
-    real rows; the bounds count each weighted pixel's acc and wsum read
-    and written, each window's tile pixels and each used field once, and
-    the finalize's reads and writes."""
+    and on the band and well canvases finalize_feather (byte-equal) over
+    the band's real rows or every plane of the well; the bounds count
+    each weighted pixel's acc and wsum read and written, each window's
+    tile pixels and each used field once, and the finalize's reads and
+    writes."""
     from image_stitcher_tpu_torch.ops import cuda_fuse, fuse as plain
     name, dtype, with_ff, cshape, _, th, _ = case
     d_tiles, meta, ff, weighted, area, ff_bytes, label = case_inputs(rng,
@@ -381,10 +403,13 @@ def feather_case(rng, case, reps: int):
         f"enqueue {out['call_ms']:.4f}), plain {out['plain_ms']:.4f} ms, "
         f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}), "
         f"{out['bound_share']:.1%} of the bound")
-    if name.startswith('band'):
-        # the band's real rows, as the band fuser finalizes them
-        window = ((th, th + BAND_ROWS), (0, BAND_W))
-        real = (slice(th, th + BAND_ROWS), slice(0, BAND_W))
+    if name.startswith(('band', 'well')):
+        # the band's real rows, as the band fuser finalizes them, or every
+        # plane of the well's real canvas, as the in-RAM path does
+        rows, width = ((th, th + BAND_ROWS), BAND_W) if name != 'well' \
+            else ((0, WELL_H), WELL_W)
+        window = (rows, (0, width))
+        real = (slice(*rows), slice(0, width))
         f_got = cuda_fuse.finalize_feather(*got, dtype, *window)
         f_want = plain.finalize_feather(got[0][..., real[0], real[1]],
                                         got[1][..., real[0], real[1]], dtype)
@@ -394,7 +419,7 @@ def feather_case(rng, case, reps: int):
         if f_err != 0:
             raise SystemExit(f"finalize_feather disagrees with its plain "
                              f"version on {label}: {f_err}")
-        px = BAND_ROWS * BAND_W
+        px = cshape[0] * cshape[1] * (rows[1] - rows[0]) * width
         fin = timings(
             lambda: cuda_fuse.finalize_feather(*got, dtype, *window),
             lambda: plain.finalize_feather(got[0][..., real[0], real[1]],
@@ -403,9 +428,9 @@ def feather_case(rng, case, reps: int):
             px * (8 + f_got.element_size()), px, reps)
         fin['max_abs_err'] = f_err
         out['finalize'] = fin
-        log(f"kernel finalize_feather {BAND_ROWS}x{BAND_W} of {label}: "
-            f"byte-equal; kernel {fin['ms']:.4f} ms (one call with the "
-            f"host's enqueue {fin['call_ms']:.4f}), plain "
+        log(f"kernel finalize_feather {rows[1] - rows[0]}x{width} of "
+            f"{label}: byte-equal; kernel {fin['ms']:.4f} ms (one call "
+            f"with the host's enqueue {fin['call_ms']:.4f}), plain "
             f"{fin['plain_ms']:.4f} ms, bound {fin['bound_ms']:.4f} ms "
             f"({fin['bound_by']}), {fin['bound_share']:.1%} of the bound")
         del f_got, f_want
@@ -484,57 +509,64 @@ def tiff_bytes_header(h: int, w: int) -> bytes:
 
 
 def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
-                      seed: int, jitter: int = 0):
-    """A Squid acquisition: grid x grid tiles of ``tile``^2 uint16 cut at
-    ``overlap`` px overlap from one seeded full-entropy texture, each
+                      seed: int, jitter: int = 0, regions=('A1',)):
+    """A Squid acquisition: per region (an HCS well; wells 20 mm apart on
+    the stage), grid x grid tiles of ``tile``^2 uint16 cut at ``overlap``
+    px overlap from one seeded full-entropy texture of its own, each
     tile's window moved by up to +-``jitter`` px (stage error; the
     coordinates claim the ideal grid), written as uncompressed TIFF for
     every channel, plus coordinates.csv and 'acquisition
     parameters.json' (the layout of the JAX package's test fixtures).
-    Returns (texture, {fov: (y0, x0)})."""
+    Returns (texture, {fov: (y0, x0)}) of the first region."""
     import csv
     step = tile - overlap
     margin = 8
     side = step * (grid - 1) + tile + 2 * margin
     rng = np.random.default_rng(seed)
-    gt = rng.integers(6553, 58982, (side, side), dtype=np.uint16)
-    shake = rng.integers(-jitter, jitter + 1, (grid * grid, 2))
     tdir = os.path.join(folder, '0')
     os.makedirs(tdir)
     with open(os.path.join(folder, 'acquisition parameters.json'), 'w') as f:
         json.dump(dict(ACQ_PARAMS, Nx=grid, Ny=grid), f, indent=2)
     header = tiff_bytes_header(tile, tile)
-    origins = {}
     rows = []
-    for r in range(grid):
-        for c in range(grid):
-            fov = r * grid + c
-            y0 = margin + r * step + int(shake[fov, 0])
-            x0 = margin + c * step + int(shake[fov, 1])
-            origins[fov] = (y0, x0)
-            rows.append({"region": "A1", "fov": fov, "z_level": 0,
-                         "x (mm)": round(c * step / 1000.0, 6),
-                         "y (mm)": round(r * step / 1000.0, 6),
-                         "z (um)": 0.0})
-            body = np.ascontiguousarray(gt[y0:y0 + tile, x0:x0 + tile])
-            for ch in CHANNELS:
-                name = f"A1_{fov}_0_{ch.replace(' ', '_')}.tiff"
-                with open(os.path.join(tdir, name), 'wb') as f:
-                    f.write(header)
-                    body.tofile(f)
+    first = None
+    for well, region in enumerate(regions):
+        gt = rng.integers(6553, 58982, (side, side), dtype=np.uint16)
+        shake = rng.integers(-jitter, jitter + 1, (grid * grid, 2))
+        origins = {}
+        for r in range(grid):
+            for c in range(grid):
+                fov = r * grid + c
+                y0 = margin + r * step + int(shake[fov, 0])
+                x0 = margin + c * step + int(shake[fov, 1])
+                origins[fov] = (y0, x0)
+                rows.append({"region": region, "fov": fov, "z_level": 0,
+                             "x (mm)": round(c * step / 1000.0, 6),
+                             "y (mm)": round(20.0 * well + r * step / 1000.0,
+                                             6),
+                             "z (um)": 0.0})
+                body = np.ascontiguousarray(gt[y0:y0 + tile, x0:x0 + tile])
+                for ch in CHANNELS:
+                    name = f"{region}_{fov}_0_{ch.replace(' ', '_')}.tiff"
+                    with open(os.path.join(tdir, name), 'wb') as f:
+                        f.write(header)
+                        body.tofile(f)
+        if first is None:
+            first = (gt, origins)
     with open(os.path.join(tdir, 'coordinates.csv'), 'w', newline='') as f:
         w = csv.DictWriter(f, fieldnames=list(rows[0]))
         w.writeheader()
         w.writerows(rows)
-    return gt, origins
+    return first
 
 
-def smoke_options(out: str, quality: bool = False):
+def smoke_options(out: str, quality: bool = False, **extra):
     from image_stitcher_tpu_torch import EngineOptions
     # the JAX package's benchmark options for this path; the maximum-
     # quality variant is bench.py's 'global+subpixel+feather'
-    extra = (dict(registration_scope='global', subpixel_placement=True,
-                  blend_method='feather') if quality else {})
+    if quality:
+        extra.update(registration_scope='global', subpixel_placement=True,
+                     blend_method='feather')
     return EngineOptions(fusion_batch=10, reader_threads=8,
                          compressor_cname='auto', output_folder=out, **extra)
 
@@ -578,9 +610,10 @@ def phase_slice_parity(work: str, grid: int = 3, tile: int = TILE,
             fn.launches = 0
         out = os.path.join(work, f'parity_{name}_out_{run}')
         t0 = time.perf_counter()
+        # the band fuser: these canvases are under the streaming threshold
         pipe = stitch(acq, use_registration=True, apply_flatfield=True,
                       device=torch.device(dev), state=state,
-                      options=smoke_options(out, quality))
+                      options=smoke_options(out, quality, streaming='on'))
         launches = [fn.launches for fn in counted]
         log(f"slice parity ({name}): {grid}x{grid}x{len(CHANNELS)}ch "
             f"{tile}^2 on {dev}: {time.perf_counter() - t0:.2f}s, shifts "
@@ -614,14 +647,14 @@ def phase_slice_parity(work: str, grid: int = 3, tile: int = TILE,
 # --------------------------------------------------------------------- 5
 
 def reference_plane(pipe, gt, origins, channel: int, height: int,
-                    width: int) -> np.ndarray:
+                    width: int, region: str = 'A1') -> np.ndarray:
     """Level 0 of one channel, fused in plain NumPy from the texture the
     acquisition was cut from: each job's crop window, flatfield-corrected
     (trunc(clip(tile * recip))), written in plan order."""
     recip = pipe._flatfield_recip_np()[channel]
     tile = pipe.acq.input_height
     out = np.zeros((height, width), np.uint16)
-    for job in pipe._build_jobs(0, 'A1'):
+    for job in pipe._build_jobs(0, region):
         if job.channel_idx != channel:
             continue
         fov = int(os.path.basename(job.filepath).split('_')[1])
@@ -661,6 +694,12 @@ def phase_main_path(work: str, card: str, grid: int = 10,
     n_tiles = grid * grid * len(CHANNELS)
 
     width, height = pipe._region_dimensions(0, 'A1')
+    streamed = pipe._should_stream(0, 'A1')
+    log(f"main path: _should_stream(A1) = {streamed} (canvas "
+        f"{len(CHANNELS) * height * width * 2} B, threshold "
+        f"{pipe.options.streaming_threshold_bytes} B)")
+    if not streamed or 'stream_fuse_save' not in pipe.timers.as_dict():
+        raise SystemExit("main path: the canvas did not stream in bands")
     opts = pipe.options
     band = band_rows_for(opts.write_band_rows() * opts.device_band_multiple,
                          pipe.num_pyramid_levels)
@@ -865,6 +904,229 @@ def phase_quality_path(work: str, card: str, grid: int = 10,
             'e2e_s': e2e, 'tiles_per_s': n_tiles / e2e}
 
 
+# --------------------------------------------------------------------- 7
+
+WELLS = [f"{row}1" for row in "ABCDEFGH"]
+
+
+def read_png_gray8(path: str) -> np.ndarray:
+    """Decode an 8-bit grayscale PNG whose rows all use filter type 0 (as
+    the port writes them); anything else fails the phase."""
+    import struct
+    import zlib
+    with open(path, 'rb') as f:
+        data = f.read()
+    if data[:8] != b'\x89PNG\r\n\x1a\n':
+        raise SystemExit(f"{path}: not a PNG")
+    pos, idat, shape = 8, b'', None
+    while pos < len(data):
+        n, kind = struct.unpack('>I4s', data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if zlib.crc32(kind + body) != struct.unpack(
+                '>I', data[pos + 8 + n:pos + 12 + n])[0]:
+            raise SystemExit(f"{path}: bad CRC in {kind!r}")
+        if kind == b'IHDR':
+            w, h, depth, color, _, _, lace = struct.unpack('>IIBBBBB', body)
+            if (depth, color, lace) != (8, 0, 0):
+                raise SystemExit(f"{path}: not 8-bit grayscale")
+            shape = (h, w)
+        elif kind == b'IDAT':
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        shape[0], shape[1] + 1)
+    if rows[:, 0].any():
+        raise SystemExit(f"{path}: a row uses a PNG filter")
+    return rows[:, 1:]
+
+
+def compare_well_trees(a_root: str, b_root: str) -> int:
+    """Byte-equal OME-Zarr trees, well by well (one well's levels in
+    memory at a time); returns the number of level arrays compared."""
+    levels = 0
+    for well in WELLS:
+        rel = os.path.join('0_stitched', f'{well}_stitched.ome.zarr')
+        a = read_tree(os.path.join(a_root, rel))
+        b = read_tree(os.path.join(b_root, rel))
+        if not a or sorted(a) != sorted(b):
+            raise SystemExit(f"plate: {well} trees differ in layout: "
+                             f"{sorted(set(a) ^ set(b))}")
+        for key in sorted(a):
+            same = (np.array_equal(a[key], b[key])
+                    if isinstance(a[key], np.ndarray) else a[key] == b[key])
+            if not same:
+                raise SystemExit(f"plate: {well}/{key} differs between the "
+                                 f"in-RAM and the streamed run")
+            levels += isinstance(a[key], np.ndarray)
+    return levels
+
+
+def phase_plate(work: str, card: str, grid: int = 3,
+                tile: int = TILE) -> None:
+    """An HCS plate through the in-RAM path, held against the same plate
+    streamed in bands, a NumPy reference and the host flatfield solver.
+    Cut from the 96-well plate of the JAX package's BASELINE.md to 8
+    wells, to keep the script within its time limit."""
+    from image_stitcher_tpu_torch import CarriedState, stitch
+    from image_stitcher_tpu_torch.core import geometry as geo
+    from image_stitcher_tpu_torch.io.zarr_store import read_array
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    from image_stitcher_tpu_torch.ops.flatfield import (
+        fit_flatfield_stack, fit_flatfield_stack_np)
+    from image_stitcher_tpu_torch.ops.pyramid import iter_levels
+    acq = os.path.join(work, 'plate')
+    t0 = time.perf_counter()
+    gt, origins = write_acquisition(acq, grid, tile,
+                                    overlap=205 * tile // TILE, seed=7,
+                                    regions=WELLS)
+    n_tiles = len(WELLS) * grid * grid * len(CHANNELS)
+    log(f"plate: wrote {len(WELLS)} wells x {grid}x{grid} x "
+        f"{len(CHANNELS)}ch {tile}^2 uint16 tiles in "
+        f"{time.perf_counter() - t0:.1f}s")
+    runs = {}
+    state = None
+    for name, extra in (
+            ('in-RAM', dict(streaming='auto', flatfield_device='device',
+                            registration_report=True, debug_visuals=True)),
+            ('streamed', dict(streaming='on'))):
+        out = os.path.join(work, f'plate_{name}')
+        cuda_fuse.fuse_overwrite.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = stitch(acq, use_registration=True, apply_flatfield=True,
+                      device=torch.device('cuda'), state=state,
+                      options=smoke_options(out, **extra))
+        e2e = time.perf_counter() - t0
+        launches = cuda_fuse.fuse_overwrite.launches
+        peak = torch.cuda.max_memory_allocated()
+        streams = {w: pipe._should_stream(0, w) for w in WELLS}
+        batches = sum(s['batches'] for s in pipe.fuse_stats.values())
+        t = pipe.timers.as_dict()
+        log(f"plate ({name}) on {card}: e2e {e2e:.3f}s = "
+            f"{n_tiles / e2e:.2f} tiles/s ({n_tiles} tiles); stages "
+            f"flatfield_fit={t.get('flatfield_fit', 0):.3f}s "
+            f"registration={t.get('registration', 0):.3f}s "
+            f"fuse={t.get('fuse', 0):.3f}s save={t.get('save', 0):.3f}s "
+            f"(the saver thread, overlapped with the next well's fuse) "
+            f"stream_fuse_save={t.get('stream_fuse_save', 0):.3f}s; "
+            f"max_memory_allocated {peak} B ({peak / 2 ** 30:.2f} GiB); "
+            f"fuse_overwrite launches {launches} for {batches} batches; "
+            f"_should_stream {streams}")
+        want_stream = name == 'streamed'
+        if any(v != want_stream for v in streams.values()):
+            raise SystemExit(f"plate ({name}): wells took the wrong path: "
+                             f"_should_stream {streams}")
+        if ('stream_fuse_save' in t) != want_stream or launches == 0 \
+                or launches != batches:
+            raise SystemExit(f"plate ({name}): {launches} kernel launches "
+                             f"for {batches} batches, stages {sorted(t)}")
+        runs[name] = (pipe, out)
+        if state is None:
+            state = CarriedState(flatfields=pipe.flatfields,
+                                 shifts=pipe.shifts)
+    pipe, out = runs['in-RAM']
+
+    # 1. the in-RAM tree is the streamed tree, byte for byte
+    t0 = time.perf_counter()
+    levels = compare_well_trees(out, runs['streamed'][1])
+    log(f"plate: in-RAM and streamed trees byte-equal ({len(WELLS)} wells, "
+        f"{levels} level arrays, {pipe.num_pyramid_levels} levels; "
+        f"{time.perf_counter() - t0:.1f}s to compare)")
+
+    # 2. one well's channel 0 against a NumPy reference, levels 0 and 1
+    width, height = pipe._region_dimensions(0, WELLS[0])
+    zarr = os.path.join(out, '0_stitched', f'{WELLS[0]}_stitched.ome.zarr')
+    level0 = read_array(os.path.join(zarr, '0'))[0, 0, 0]
+    level1 = read_array(os.path.join(zarr, '1'))[0, 0, 0]
+    ref = reference_plane(pipe, gt, origins, 0, height, width, WELLS[0])
+    if not np.array_equal(level0, ref):
+        raise SystemExit(f"plate: {WELLS[0]} channel 0 level 0 differs from "
+                         f"the NumPy reference in "
+                         f"{int((level0 != ref).sum())} pixels")
+    if not np.array_equal(level1, ref[:height // 2 * 2:2,
+                                      :width // 2 * 2:2]):
+        raise SystemExit(f"plate: {WELLS[0]} channel 0 level 1 is not the "
+                         f"reference subsampled")
+    log(f"plate: {WELLS[0]} channel 0 levels 0 ({height}x{width}) and 1 "
+        f"equal the NumPy reference")
+    del level0, level1, ref, gt
+
+    # where one well's save goes: the pyramid built on the card with one
+    # copy of each level to pinned host memory, then the chunk writes
+    canvas = pipe.stitch_region(0, WELLS[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for level in iter_levels(canvas, pipe.num_pyramid_levels,
+                             pipe.options.pyramid_downsample):
+        torch.empty(tuple(level.shape), dtype=level.dtype,
+                    pin_memory=True).copy_(level)
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe.save_region(0, WELLS[0], canvas)
+    t_save = time.perf_counter() - t0
+    log(f"plate: one well's save alone on {card}: {t_save:.3f}s, of which "
+        f"the pyramid on the card and the level copies to pinned host "
+        f"memory {t_dev:.3f}s and the chunk writes ~{t_save - t_dev:.3f}s "
+        f"({canvas.numel() * canvas.element_size() * 4 / 3 / 2 ** 20:.0f} "
+        f"MiB of levels)")
+    del canvas
+
+    # 3. the device fields against the host solver on the same stacks
+    worst = 0.0
+    for idx, stack in pipe.flatfield_stacks():
+        d_stack = torch.from_numpy(stack).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = fit_flatfield_stack(d_stack).cpu().numpy()
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = fit_flatfield_stack_np(stack)
+        t_host = time.perf_counter() - t0
+        err = float(np.abs(dev - host).max())
+        worst = max(worst, err)
+        log(f"plate: flatfield channel {idx}, stack {tuple(stack.shape)}: "
+            f"device fit {t_dev:.4f}s, host fit {t_host:.4f}s, max "
+            f"|device - host| {err:.2e} at 96^2")
+    if worst > 1e-4:
+        raise SystemExit(f"plate: device flatfields are {worst} from the "
+                         f"host solver's")
+
+    # 4. the registration report and the debug images
+    with open(os.path.join(out, 'registration_report.json')) as f:
+        report = json.load(f)
+    center = report['regions'][WELLS[0]]
+    if (center['scope'] != 'center'
+            or center['aggregated']['h_shift'] != list(pipe.shifts.h_shift)
+            or center['aggregated']['v_shift'] != list(pipe.shifts.v_shift)):
+        raise SystemExit(f"plate: the report's center pairs {center} do not "
+                         f"give the run's shifts {pipe.shifts}")
+    acqd = pipe.acq
+    xs, ys = acqd.region_positions(0, WELLS[0])
+    ox = geo.overlap_estimate(acqd.input_width, (xs[1] - xs[0]) * 1000
+                              / acqd.pixel_size_um, acqd.pixel_binning,
+                              pipe.options.overlap_fudge)
+    oy = geo.overlap_estimate(acqd.input_height, (ys[1] - ys[0]) * 1000
+                              / acqd.pixel_size_um, acqd.pixel_binning,
+                              pipe.options.overlap_fudge)
+    my = int(acqd.input_height * pipe.options.registration_margin)
+    mx = int(acqd.input_width * pipe.options.registration_margin)
+    want = {'horizontal.png': (acqd.input_height - 2 * my, 2 * ox),
+            'vertical.png': (2 * oy, acqd.input_width - 2 * mx)}
+    for name, shape in want.items():
+        img = read_png_gray8(os.path.join(out, name))
+        if img.shape != shape or not img.any():
+            raise SystemExit(f"plate: {name} is {img.shape}, not {shape}")
+    log(f"plate: registration_report.json gives the center pairs' shifts "
+        f"h={center['aggregated']['h_shift']} "
+        f"v={center['aggregated']['v_shift']}; debug images "
+        + ", ".join(f"{n} {s[0]}x{s[1]}" for n, s in want.items()))
+    banned = [m for m in ('jax', 'jaxlib', 'pandas', 'tensorstore', 'cv2',
+                          'image_stitcher_tpu') if m in sys.modules]
+    if banned:
+        raise SystemExit(f"plate: loaded {banned}")
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -877,6 +1139,9 @@ def main() -> int:
         phase_slice_parity(work, quality=True)
         main_run = phase_main_path(work, card)
         quality_run = phase_quality_path(work, card)
+        shutil.rmtree(work, ignore_errors=True)   # the plate needs the room
+        os.makedirs(work)
+        phase_plate(work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches = {'fuse_overwrite': main_run['launches'],

@@ -4,7 +4,9 @@
 Usage:
     python -m image_stitcher_tpu_torch.cli -i /path/to/acquisition [-r] [-ff]
         [--registration-scope {center,all-pairs,global}]
-        [--blend-method {overwrite,feather}]
+        [--blend-method {overwrite,feather}] [--streaming {auto,on,off}]
+        [--flatfield-device {host,device}] [--registration-report]
+        [--continue-on-error]
 """
 
 from __future__ import annotations
@@ -52,6 +54,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="With the global scope: place tiles at their "
                              "solved float positions (bilinear shift at "
                              "load time)")
+    parser.add_argument('--flatfield-device', choices=['host', 'device'],
+                        default='host',
+                        help="Where the flatfield ADMM solve runs")
+    parser.add_argument('--streaming', choices=['auto', 'on', 'off'],
+                        default='auto',
+                        help="Bounded-memory band-streaming fusion "
+                             "(default: auto above the canvas threshold)")
+    parser.add_argument('--continue-on-error', action='store_true',
+                        help="Log-and-continue on per-region failures")
+    parser.add_argument('--registration-report', action='store_true',
+                        help="Write registration_report.json (per-pair "
+                             "shifts + confidences, solve residuals)")
     parser.add_argument('--chunk-size', type=int, default=2048,
                         help="Output zarr chunk edge in px (default: 2048)")
     parser.add_argument('--fusion-batch', type=int, default=8,
@@ -84,7 +98,10 @@ def create_options(args: argparse.Namespace) -> EngineOptions:
         registration_scope=(args.registration_scope
                              or ('all-pairs' if args.dynamic_registration
                                  else 'center')),
-        subpixel_placement=args.subpixel_placement)
+        subpixel_placement=args.subpixel_placement,
+        flatfield_device=args.flatfield_device, streaming=args.streaming,
+        continue_on_error=args.continue_on_error,
+        registration_report=args.registration_report)
 
 
 def main(argv=None) -> int:

@@ -98,7 +98,8 @@ class MultiscaleWriter:
     Construct (writes the group metadata and every level's ``.zarray``),
     then ``write_level(level, data, sel)`` per slab, then ``close()``.
     Slabs are (1, 1, 1, h, w) planes starting at column 0, as the band
-    fusers produce them."""
+    fusers produce them, or whole levels, as the in-RAM path saves
+    them."""
 
     def __init__(self, path: str, base_shape: Sequence[int],
                  num_levels: int, dtype, chunks: Sequence[int],
@@ -118,13 +119,19 @@ class MultiscaleWriter:
 
     def write_level(self, level: int, data: np.ndarray,
                     sel: Optional[Tuple[slice, ...]] = None) -> None:
-        """Write a (1, 1, 1, h, w) slab at ``sel`` (t, c, z, y, x slices;
-        None = the whole level, which must then be one plane)."""
+        """Write a (1, 1, 1, h, w) slab at ``sel`` (t, c, z, y, x slices),
+        or with ``sel`` None the whole level, a (T, C, Z, H, W) array of
+        the level's shape, plane by plane."""
         data = np.asarray(data)
+        if sel is None:
+            if data.shape != self.shapes[level]:
+                raise ValueError(f"level {level} is {self.shapes[level]}, "
+                                 f"got {data.shape}")
+            for t, c, z in np.ndindex(*data.shape[:3]):
+                self.arrays[level].write_plane_rows(t, c, z, 0, data[t, c, z])
+            return
         if data.ndim != 5 or data.shape[:3] != (1, 1, 1):
             raise ValueError(f"slabs are (1, 1, 1, h, w), got {data.shape}")
-        if sel is None:
-            sel = tuple(slice(0, s) for s in self.shapes[level])
         t, c, z, ys, xs = (s.start or 0 for s in sel)
         if xs != 0:
             raise ValueError("slabs start at column 0")

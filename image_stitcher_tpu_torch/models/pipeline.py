@@ -1,15 +1,23 @@
 """StitchPipeline: the port's stitching engine.
 
 The counterpart of the JAX package's ``models/pipeline.py``, for the
-paths it runs on a device with a canvas over the streaming threshold:
-scan the acquisition, fit flatfields on the host, measure registration
-(the center pair on the host; or every adjacent pair, in batches on the
-device, aggregated by median ('all-pairs') or solved for per-tile
-positions ('global', optionally subpixel)), then fuse every (timepoint,
-region) through :class:`~image_stitcher_tpu_torch.models.streaming.
-DeviceStreamingFuser`, by overwrite or feathered blending, straight into
-raw OME-Zarr v2. Every canvas takes the streaming path; the in-RAM path,
-merges, resume and the run manifest are later items of the port.
+paths it runs on one device: scan the acquisition, fit flatfields (on
+the host, or with ``flatfield_device='device'`` on the device), measure
+registration (the center pair on the host; or every adjacent pair, in
+batches on the device, aggregated by median ('all-pairs') or solved for
+per-tile positions ('global', optionally subpixel)), then fuse every
+(timepoint, region) by overwrite or feathered blending into raw OME-Zarr
+v2. A canvas over ``streaming_threshold_bytes`` (or any canvas with
+``streaming='on'``) streams through :class:`~image_stitcher_tpu_torch.
+models.streaming.DeviceStreamingFuser` in bands; a smaller one (every
+well of an HCS plate) is fused whole on the device
+(:meth:`StitchPipeline.stitch_region`) and saved with its pyramid built
+on the device (:meth:`StitchPipeline.save_region`), region N saving on a
+background thread while region N+1 fuses. With ``registration_report``
+the per-pair measurements and solve statistics land in
+``registration_report.json``; ``debug_visuals`` writes the center
+pairs' overlap strips as PNGs. Merges, resume and the run manifest are
+later items of the port.
 
 Output tree: ``{out}/{t}_stitched/{region}_stitched.ome.zarr``, with the
 same sampling, geometry and metadata as the JAX package, so the two
@@ -21,11 +29,13 @@ moves to another device by itself: without CUDA, a CUDA pipeline raises.
 
 from __future__ import annotations
 
+import contextlib
+import json
 import os
 import random
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +43,10 @@ import torch
 from ..core import geometry as geo
 from ..io.acquisition import Acquisition, read_image, scan_acquisition
 from ..io.omezarr import MultiscaleWriter
-from ..io.readers import TileJob, expand_tile_jobs
+from ..io.readers import (TileBatchLoader, TileJob, expand_tile_jobs,
+                          torch_dtype)
+from ..ops import cuda_fuse
+from ..ops.fuse import padded_canvas_shape
 from ..ops.phasecorr import (horizontal_shift_from_pcc,
                              normalize_to_dtype_range_np,
                              phase_cross_correlation_conf_batch,
@@ -94,6 +107,7 @@ class StitchPipeline:
         self.acq: Optional[Acquisition] = None
         self.flatfields: Dict[int, np.ndarray] = {}
         self._ff_recip_np_cache: Optional[np.ndarray] = None
+        self._ff_recip_dev_cache: Optional[torch.Tensor] = None
         self._compressor_checked = False
         self.shifts = geo.RegistrationShifts(scan_pattern=params.scan_pattern)
         self.num_pyramid_levels = 1
@@ -105,9 +119,12 @@ class StitchPipeline:
         self._global_rejected: set = set()  # regions whose solve failed
         #: pairs measured on the device in the last all-pairs run
         self.device_pairs = 0
+        #: per-region registration reports ('registration_report')
+        self.registration_reports: Dict[str, Dict] = {}
         self.saved_paths: List[str] = []
         self.timers = StageTimers()
-        #: per-region band-fuser stats of the last run (batches, stage s)
+        #: per-region fusion stats of the last run: batches placed, and on
+        #: the band path the band fuser's stage seconds
         self.fuse_stats: Dict[str, Dict] = {}
 
     # ------------------------------------------------------------------ util
@@ -122,23 +139,23 @@ class StitchPipeline:
 
     # ----------------------------------------------------------- flatfields
 
-    def compute_flatfields(self):
-        """Sample tiles per channel and fit their flatfields on the host.
+    def flatfield_stacks(self) -> Iterator[Tuple[int, np.ndarray]]:
+        """Yield (monochrome channel index, (N, 96, 96) float32 sample
+        stack) per channel, the samples every fit path uses.
 
         The sampling budget of the JAX package: per timepoint, up to
         ``flatfield_tiles_per_timepoint`` tiles shuffled by one
         ``random.Random(0)`` in tile-index order, stopping once more than
         ``flatfield_max_tiles`` are collected; samples are read
-        decimated to the 96^2 working size."""
-        from ..ops.flatfield import (finalize_flatfield,
-                                     fit_flatfield_stack_np,
-                                     load_sample_small)
+        decimated to the 96^2 working size. With
+        ``flatfield_device='device'`` each stack is padded by cycling to
+        ``flatfield_max_tiles + flatfield_tiles_per_timepoint``, as the
+        JAX package pads it for its device solver."""
+        from ..ops.flatfield import load_sample_small, pad_stack_cycled
         acq = self.acq
         opts = self.options
-        self.reporter.getting_flatfields()
-        self._ff_recip_np_cache = None
+        target = opts.flatfield_max_tiles + opts.flatfield_tiles_per_timepoint
         rnd = random.Random(0)
-        out_hw = (acq.input_height, acq.input_width)
         with ThreadPoolExecutor(opts.resolved_reader_threads()) as pool:
             for channel in acq.channel_names:
                 self._check_stop()
@@ -156,21 +173,41 @@ class StitchPipeline:
                         break
                 if not paths:
                     continue
-                paths = paths[:opts.flatfield_max_tiles
-                              + opts.flatfield_tiles_per_timepoint]
-                small = np.stack(list(pool.map(load_sample_small, paths)))
+                small = np.stack(list(pool.map(load_sample_small,
+                                               paths[:target])))
+                if opts.flatfield_device == 'device':
+                    small = pad_stack_cycled(small, target)
                 if small.ndim == 4 and small.shape[-1] == 3:
                     base = channel.split('_')[0]
-                    planes = [(acq.monochrome_channels.index(f"{base}_{s}"),
-                               small[..., k]) for k, s in enumerate('RGB')]
+                    for k, s in enumerate('RGB'):
+                        yield (acq.monochrome_channels.index(f"{base}_{s}"),
+                               small[..., k])
                 else:
-                    planes = [(acq.monochrome_channels.index(channel), small)]
-                for idx, stack in planes:
-                    self._check_stop()
-                    self.flatfields[idx] = finalize_flatfield(
-                        fit_flatfield_stack_np(stack), out_hw)
-                    self.reporter.update_progress(len(self.flatfields),
-                                                  acq.num_c)
+                    yield acq.monochrome_channels.index(channel), small
+
+    def compute_flatfields(self):
+        """Fit every channel's flatfield from :meth:`flatfield_stacks`:
+        with the NumPy solver on the host, or with
+        ``flatfield_device='device'`` with the torch solver on the
+        pipeline's device, channel by channel; the field is stretched
+        back to tile size on the host either way."""
+        from ..ops.flatfield import (finalize_flatfield, fit_flatfield_stack,
+                                     fit_flatfield_stack_np)
+        acq = self.acq
+        self.reporter.getting_flatfields()
+        self._ff_recip_np_cache = None
+        self._ff_recip_dev_cache = None
+        on_device = self.options.flatfield_device == 'device'
+        out_hw = (acq.input_height, acq.input_width)
+        for idx, stack in self.flatfield_stacks():
+            self._check_stop()
+            if on_device:
+                field = fit_flatfield_stack(
+                    torch.from_numpy(stack).to(self.device)).cpu().numpy()
+            else:
+                field = fit_flatfield_stack_np(stack)
+            self.flatfields[idx] = finalize_flatfield(field, out_hw)
+            self.reporter.update_progress(len(self.flatfields), acq.num_c)
 
     def _flatfield_recip_np(self) -> np.ndarray:
         """(C, th, tw) f32 RECIPROCAL flatfield stack, ones where no field
@@ -184,6 +221,14 @@ class StitchPipeline:
                 ff[idx] = 1.0 / field
             self._ff_recip_np_cache = ff
         return self._ff_recip_np_cache
+
+    def _flatfield_recip(self) -> torch.Tensor:
+        """:meth:`_flatfield_recip_np` on the pipeline's device (one
+        upload per run)."""
+        if self._ff_recip_dev_cache is None:
+            self._ff_recip_dev_cache = torch.from_numpy(
+                self._flatfield_recip_np()).to(self.device)
+        return self._ff_recip_dev_cache
 
     def _check_compressor(self) -> None:
         """The port writes raw chunks only. 'auto' stores raw chunks when
@@ -223,9 +268,10 @@ class StitchPipeline:
         return img
 
     def _measure_pair(self, img_a: np.ndarray, img_b: np.ndarray,
-                      axis: str, max_overlap: int):
+                      axis: str, max_overlap: int, debug_name: str = ''):
         """Normalize, crop the overlap strips (25% margin on the other
-        axis), phase-correlate on the host."""
+        axis), phase-correlate on the host; with ``debug_visuals`` the
+        strips are written as ``{debug_name or axis}.png``."""
         dmax = self._dtype_max()
         a = normalize_to_dtype_range_np(img_a, dmax)
         b = normalize_to_dtype_range_np(img_b, dmax)
@@ -240,9 +286,26 @@ class StitchPipeline:
             lo, hi = margin, a.shape[1] - margin
             strip_a = a[-max_overlap:, lo:hi]
             strip_b = b[:max_overlap, lo:hi]
+        if self.options.debug_visuals:
+            self._visualize_strips(strip_a, strip_b, debug_name or axis)
         shift = phase_cross_correlation_np(
             strip_a, strip_b, upsample_factor=self.options.upsample_factor)
         return np.asarray(shift), strip_a.shape
+
+    def _visualize_strips(self, s1: np.ndarray, s2: np.ndarray, title: str):
+        """The two strips side by side ('horizontal*') or stacked, scaled
+        to 8 bits as the JAX package scales them, as
+        ``{output_folder}/{title}.png``. A debug image is best effort: a
+        failure is reported and the run goes on, as in the JAX package."""
+        from ..io.png import write_gray8
+        combined = (np.hstack((s1, s2)) if title.startswith('horizontal')
+                    else np.vstack((s1, s2)))
+        img8 = (combined / self._dtype_max() * 255).astype(np.uint8)
+        try:
+            os.makedirs(self.output_folder, exist_ok=True)
+            write_gray8(os.path.join(self.output_folder, f"{title}.png"), img8)
+        except OSError as e:
+            self.reporter.error(f"debug image {title}.png not written: {e}")
 
     def calculate_shifts(self, t, region: str):
         """Measure h/v (and S-Pattern reverse-h) shifts at the grid center."""
@@ -297,7 +360,8 @@ class StitchPipeline:
             b = self._get_tile_image(t, region, right_x, bottom_y, ch, z_level)
             if a is not None and b is not None:
                 shift, (_, sw) = self._measure_pair(a, b, 'horizontal',
-                                                    max_x_overlap)
+                                                    max_x_overlap,
+                                                    'horizontal_rev')
                 h_shift_rev = horizontal_shift_from_pcc(shift, sw)
                 h_shift_rev_odd = int(cy % 2 == 0)
 
@@ -305,6 +369,16 @@ class StitchPipeline:
             h_shift=h_shift, v_shift=v_shift, h_shift_rev=h_shift_rev,
             h_shift_rev_odd=h_shift_rev_odd,
             scan_pattern=self.params.scan_pattern)
+        if self.options.registration_report:
+            self.registration_reports[str(region)] = {
+                'scope': 'center',
+                'channel': self.registration_channel,
+                'z_level': z_level,
+                'aggregated': {'h_shift': list(h_shift),
+                               'v_shift': list(v_shift),
+                               'h_shift_rev': list(h_shift_rev),
+                               'h_shift_rev_odd': h_shift_rev_odd},
+            }
 
     def calculate_shifts_all_pairs(self, t, region: str):
         """Every adjacent pair of the grid measured, then aggregated.
@@ -468,6 +542,28 @@ class StitchPipeline:
             h_shift=h_shift, v_shift=agg_v(v_shifts),
             h_shift_rev=h_shift_rev, h_shift_rev_odd=h_shift_rev_odd,
             scan_pattern=self.params.scan_pattern)
+        report = None
+        if opts.registration_report:
+            def pair_records(keys, shifts, confs, direction, d_rc):
+                return [{'a': [r, c], 'b': [r + d_rc[0], c + d_rc[1]],
+                         'direction': direction,
+                         'dy': float(s_[0]), 'dx': float(s_[1]),
+                         'confidence': float(cf)}
+                        for (r, c), s_, cf in zip(keys, shifts, confs)]
+            report = {
+                'scope': opts.registration_scope,
+                'channel': ch, 'z_level': z_level,
+                'strip_overlap': {'horizontal': int(ox), 'vertical': int(oy)},
+                'pairs_dropped_truncated': dropped_h + dropped_v,
+                'aggregated': {'h_shift': list(self.shifts.h_shift),
+                               'v_shift': list(self.shifts.v_shift),
+                               'h_shift_rev': list(self.shifts.h_shift_rev),
+                               'h_shift_rev_odd': h_shift_rev_odd},
+                'pairs': pair_records(h_keys, h_shifts, h_conf,
+                                      'horizontal', (0, 1))
+                + pair_records(v_keys, v_shifts, v_conf, 'vertical', (1, 0)),
+            }
+            self.registration_reports[str(region)] = report
         if opts.registration_scope != 'global':
             return
 
@@ -500,6 +596,10 @@ class StitchPipeline:
             return {idx[k] for k in np.nonzero(
                 (dev[:, 0] > slack_y) | (dev[:, 1] > slack_x))[0]}
 
+        def dropped_records(dropped):
+            return [{'i': int(i), 'j': int(j), 'dy': float(dy),
+                     'dx': float(dx)} for i, j, dy, dx, _ in dropped]
+
         active = list(pairs)
         dropped_pairs = []
         max_drop = max(3, len(pairs) // 10)
@@ -521,6 +621,14 @@ class StitchPipeline:
                     f"dropping {len(dropped_pairs)} constraint(s); falling "
                     "back to the grid shift model", False)
                 self._global_rejected.add(region)
+                if report is not None:
+                    report['global'] = {
+                        'rejected': True,
+                        'pairs_dropped': dropped_records(dropped_pairs),
+                        'reason': 'solved positions exceed stage extent '
+                                  f'(+{slack_y}/{slack_x} px slack) '
+                                  f'after {len(dropped_pairs)} drops; '
+                                  'grid shift model used instead'}
                 return
             res = np.array([
                 np.hypot(pos_f[j, 0] - pos_f[i, 0] - dy,
@@ -552,6 +660,21 @@ class StitchPipeline:
                      float(pos_f[r * n_cols + c, 1]))
             for r in range(n_rows) for c in range(n_cols)
             if r * n_cols + c in constrained}
+        if report is not None:
+            res = np.array([(pos_f[j, 0] - pos_f[i, 0] - dy,
+                             pos_f[j, 1] - pos_f[i, 1] - dx)
+                            for i, j, dy, dx, _ in active])
+            report['global'] = {
+                'rejected': False,
+                'pairs_dropped': dropped_records(dropped_pairs),
+                'tiles_solved': len(constrained),
+                'tiles_total': n_rows * n_cols,
+                # no pairs (a 1x1 region, or all truncated): no residuals
+                'residual_rms_px': (float(np.sqrt((res ** 2).mean()))
+                                    if res.size else None),
+                'residual_max_px': (float(np.abs(res).max())
+                                    if res.size else None),
+            }
 
     def _ensure_global_positions(self, t, region: str):
         """Per-region global solve: each region's stage error is its own
@@ -631,6 +754,76 @@ class StitchPipeline:
         return expand_tile_jobs(acq.monochrome_channels, acq.rgb_channels,
                                 triples)
 
+    def stitch_region(self, t, region: str) -> torch.Tensor:
+        """Fuse all tiles of one (timepoint, region) into one canvas on
+        the pipeline's device; returns the cropped (C, Z, H, W) canvas.
+
+        The canvas carries a one-tile apron on the bottom and right
+        (:func:`~image_stitcher_tpu_torch.ops.fuse.padded_canvas_shape`),
+        its rows rounded up to a multiple of 8 elements as the band
+        canvases' are, so the kernels store whole 16-byte vectors; it has
+        no apron on top, and needs none: tiles start at y >= 0 and keep
+        their ramps from their whole crop windows. Batches come from
+        pinned host memory and go to ``cuda_fuse.fuse_overwrite``, or
+        ``fuse_feather`` and then ``finalize_feather``, with the
+        (C, th, tw) reciprocal flatfield fused in."""
+        acq = self.acq
+        opts = self.options
+        width, height = self._region_dimensions(t, region)
+        th, tw = acq.input_height, acq.input_width
+        jobs = self._build_jobs(t, region)
+        total = len(jobs)
+        shape = list(padded_canvas_shape(acq.num_c, acq.num_z, height, width,
+                                         th, tw))
+        shape[3] = -(-shape[3] // 8) * 8
+        ff = self._flatfield_recip() if self.flatfields else None
+        feather = opts.blend_method == 'feather'
+        if feather:
+            acc = torch.zeros(shape, dtype=torch.float32, device=self.device)
+            wsum = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        else:
+            canvas = torch.zeros(shape, dtype=torch_dtype(acq.dtype),
+                                 device=self.device)
+        loader = TileBatchLoader(jobs, opts.fusion_batch, th, tw, acq.dtype,
+                                 num_threads=opts.resolved_reader_threads(),
+                                 pin_memory=self.device.type == 'cuda')
+        processed = batches = 0
+        for batch in loader:
+            self._check_stop()
+            tiles = batch.tiles.to(self.device, non_blocking=True)
+            meta = (torch.from_numpy(batch.info),
+                    torch.from_numpy(batch.crops),
+                    torch.from_numpy(batch.valid))
+            if feather:
+                cuda_fuse.fuse_feather(acc, wsum, tiles, *meta, ff_recip=ff,
+                                       blend_px=opts.feather_px)
+            else:
+                cuda_fuse.fuse_overwrite(canvas, tiles, *meta, ff_recip=ff)
+            batches += 1
+            processed += batch.count
+            self.reporter.update_progress(processed, total)
+        self.fuse_stats[f"{region}_t{t}"] = {'batches': batches}
+        if feather:
+            out = cuda_fuse.finalize_feather(acc, wsum,
+                                             torch_dtype(acq.dtype),
+                                             (0, height), (0, width))
+            del acc, wsum   # the stream orders their reuse after finalize
+            return out
+        return canvas[:, :, :height, :width]
+
+    def _should_stream(self, t, region: str) -> bool:
+        """Band streaming for canvases over ``streaming_threshold_bytes``
+        (unpadded (C, Z, H, W) bytes) under 'auto'; always under 'on';
+        never under 'off'."""
+        opts = self.options
+        if opts.streaming != 'auto':
+            return opts.streaming == 'on'
+        acq = self.acq
+        width, height = self._region_dimensions(t, region)
+        canvas_bytes = (acq.num_c * acq.num_z * height * width
+                        * acq.dtype.itemsize)
+        return canvas_bytes > opts.streaming_threshold_bytes
+
     def _stitch_and_save_streaming(self, t, region: str) -> str:
         """Fuse + write one (timepoint, region) in device-resident bands."""
         from .streaming import DeviceStreamingFuser
@@ -641,7 +834,6 @@ class StitchPipeline:
         output_path = self.per_timepoint_region_output_template.format(
             timepoint=t, region=region)
         os.makedirs(os.path.dirname(output_path), exist_ok=True)
-        self._check_compressor()
         writer = MultiscaleWriter(
             output_path, (1, acq.num_c, acq.num_z, height, width),
             self.num_pyramid_levels, acq.dtype, opts.chunks,
@@ -665,6 +857,56 @@ class StitchPipeline:
             "stream stages: " + " ".join(
                 f"{k}={v:.2f}s" for k, v in fuser.stats.items())
             + f" batches={fuser.batches}", False)
+        return output_path
+
+    # ------------------------------------------------------------------ save
+
+    def save_region(self, t, region: str, canvas: torch.Tensor,
+                    num_levels: Optional[int] = None,
+                    ready: Optional[torch.cuda.Event] = None) -> str:
+        """Write the multiscale OME-Zarr of one (timepoint, region) from
+        its (C, Z, H, W) canvas: the pyramid is built on the canvas's
+        device, level from level, and each level is copied to the host
+        once (pinned memory for a CUDA canvas) and written.
+
+        ``num_levels`` is passed by the pipelined save, so a background
+        save is immune to the next region recomputing
+        ``self.num_pyramid_levels``. A CUDA canvas is read on a side
+        stream of this thread, after ``ready`` (an event recorded where
+        the canvas was finished; the current stream when None), and
+        recorded on that stream, so the caching allocator cannot hand its
+        memory to the next region before the save has read it."""
+        from ..ops.pyramid import iter_levels
+        acq = self.acq
+        opts = self.options
+        if num_levels is None:
+            num_levels = self.num_pyramid_levels
+        output_path = self.per_timepoint_region_output_template.format(
+            timepoint=t, region=region)
+        os.makedirs(os.path.dirname(output_path), exist_ok=True)
+        c, z, h, w = canvas.shape
+        writer = MultiscaleWriter(
+            output_path, (1, c, z, h, w), num_levels, acq.dtype, opts.chunks,
+            f"{region}_t{t}", acq.dz_um, acq.pixel_size_um,
+            acq.monochrome_channels, acq.monochrome_colors)
+        on_cuda = canvas.device.type == 'cuda'
+        scope = contextlib.nullcontext()
+        if on_cuda:
+            side = torch.cuda.Stream(canvas.device)
+            if ready is not None:
+                side.wait_event(ready)
+            else:
+                side.wait_stream(torch.cuda.current_stream(canvas.device))
+            canvas.record_stream(side)
+            scope = torch.cuda.stream(side)
+        with scope:
+            for lv, level in enumerate(iter_levels(canvas, num_levels,
+                                                   opts.pyramid_downsample)):
+                host = torch.empty(tuple(level.shape), dtype=level.dtype,
+                                   pin_memory=on_cuda)
+                host.copy_(level)   # waits for the copy: host is read next
+                writer.write_level(lv, host.numpy()[None])
+        writer.close()
         return output_path
 
     # ------------------------------------------------------------------- run
@@ -722,15 +964,47 @@ class StitchPipeline:
         if measure:
             measure_shifts()
 
-    def run(self) -> str:
-        """Execute the full pipeline; returns the last saved path."""
-        t0 = time.time()
+    def _process_regions(self) -> str:
+        """Fuse and save every (timepoint, region): canvases that
+        :meth:`_should_stream` streams in bands, the others fused whole
+        and saved, with ``pipelined_save`` on one background saver while
+        the next region fuses (at most one canvas in flight). With
+        ``continue_on_error`` a failed region, fuse or save, is reported
+        and skipped; cancellation always propagates."""
+        final_path = ''
+        pending = None  # (future, timepoint, region)
+        executor = (ThreadPoolExecutor(max_workers=1,
+                                       thread_name_prefix='region-saver')
+                    if self.options.pipelined_save else None)
+
+        def do_save(timepoint, region, canvas, num_levels, ready):
+            with self.timers.time('save'):
+                return self.save_region(timepoint, region, canvas,
+                                        num_levels=num_levels, ready=ready)
+
+        def failed(region, timepoint, e: Exception) -> None:
+            if not self.options.continue_on_error:
+                raise e
+            self.reporter.error(f"region {region} t{timepoint} failed: {e}")
+
+        def completed(path, timepoint, region) -> None:
+            nonlocal final_path
+            final_path = path
+            self.saved_paths.append(path)
+            self.reporter.status(f"Completed region {region} t{timepoint}",
+                                 False)
+
+        def reap(entry) -> None:
+            """Wait for a background save; its failure surfaces here."""
+            future, timepoint, region = entry
+            try:
+                path = future.result()
+            except Exception as e:
+                failed(region, timepoint, e)
+                return
+            completed(path, timepoint, region)
+
         try:
-            with self.timers.time('scan'):
-                self.acq = scan_acquisition(self.input_folder)
-            os.makedirs(self.output_folder, exist_ok=True)
-            self._prepare()
-            final_path = ''
             for timepoint in self.acq.timepoints:
                 timepoint = int(timepoint)
                 os.makedirs(os.path.join(self.output_folder,
@@ -740,21 +1014,79 @@ class StitchPipeline:
                     self._check_stop()
                     self.reporter.starting_stitching()
                     try:
-                        with self.timers.time('stream_fuse_save'):
-                            path = self._stitch_and_save_streaming(timepoint,
-                                                                   region)
+                        self._check_compressor()
+                        stream = self._should_stream(timepoint, region)
+                        if stream:
+                            with self.timers.time('stream_fuse_save'):
+                                path = self._stitch_and_save_streaming(
+                                    timepoint, region)
+                        else:
+                            with self.timers.time('fuse'):
+                                canvas = self.stitch_region(timepoint, region)
                     except StitchCancelled:
                         raise
                     except Exception as e:
-                        if not self.options.continue_on_error:
-                            raise
-                        self.reporter.error(
-                            f"region {region} t{timepoint} failed: {e}")
+                        failed(region, timepoint, e)
                         continue
-                    final_path = path
-                    self.saved_paths.append(path)
-                    self.reporter.status(
-                        f"Completed region {region} t{timepoint}", False)
+                    if stream:
+                        completed(path, timepoint, region)
+                        continue
+                    self.reporter.starting_saving(False)
+                    ready = None
+                    if canvas.device.type == 'cuda':
+                        ready = torch.cuda.Event()
+                        ready.record(torch.cuda.current_stream(canvas.device))
+                    levels = self.num_pyramid_levels
+                    if executor is not None:
+                        if pending is not None:
+                            reap(pending)  # bound in-flight canvases to 1
+                        pending = (executor.submit(do_save, timepoint, region,
+                                                   canvas, levels, ready),
+                                   timepoint, region)
+                        canvas = None
+                        continue
+                    try:
+                        path = do_save(timepoint, region, canvas, levels,
+                                       ready)
+                    except Exception as e:
+                        failed(region, timepoint, e)
+                        continue
+                    finally:
+                        canvas = None
+                    completed(path, timepoint, region)
+            if pending is not None:
+                reap(pending)
+        finally:
+            if executor is not None:
+                executor.shutdown(wait=True)
+        return final_path
+
+    def _write_registration_report(self) -> None:
+        """Write the per-region pair measurements and solve statistics to
+        ``registration_report.json`` in the output folder (atomically: a
+        temporary file, then a rename)."""
+        if not (self.options.registration_report
+                and self.registration_reports):
+            return
+        path = os.path.join(self.output_folder, "registration_report.json")
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"registration_channel": self.registration_channel,
+                       "upsample_factor": self.options.upsample_factor,
+                       "regions": self.registration_reports}, f, indent=2)
+        os.replace(tmp, path)
+        self.reporter.status(f"Registration report: {path}", False)
+
+    def run(self) -> str:
+        """Execute the full pipeline; returns the last saved path."""
+        t0 = time.time()
+        try:
+            with self.timers.time('scan'):
+                self.acq = scan_acquisition(self.input_folder)
+            os.makedirs(self.output_folder, exist_ok=True)
+            self._prepare()
+            final_path = self._process_regions()
+            self._write_registration_report()
             self.reporter.finished_saving(final_path, self.acq.dtype)
             for line in self.timers.summary():
                 self.reporter.status(line, False)

@@ -35,29 +35,13 @@ import torch
 from ..io.omezarr import MultiscaleWriter
 from ..io.readers import TileBatchLoader, torch_dtype
 from ..ops import cuda_fuse
+from ..ops.pyramid import host_downsample
 
 
 def band_rows_for(chunk_rows: int, num_levels: int) -> int:
     """Band height: >= one chunk row, multiple of 2^(num_levels-1)."""
     align = 1 << max(0, num_levels - 1)
     return max(chunk_rows, ((chunk_rows + align - 1) // align) * align)
-
-
-def host_downsample(x: np.ndarray, mode: str) -> np.ndarray:
-    """One pyramid step over the last two axes, odd extents floored:
-    'nearest' picks every other pixel, 'mean' is the 2x2 mean in f32
-    truncated back to the integer dtype."""
-    h2, w2 = (x.shape[-2] // 2) * 2, (x.shape[-1] // 2) * 2
-    if mode == 'nearest':
-        return np.ascontiguousarray(x[..., :h2:2, :w2:2])
-    if mode != 'mean':
-        raise ValueError(f"Unknown pyramid downsample mode: {mode}")
-    t = x[..., :h2, :w2].astype(np.float32)
-    lead = t.shape[:-2]
-    m = t.reshape(lead + (h2 // 2, 2, w2 // 2, 2)).mean(axis=(-3, -1))
-    if np.issubdtype(x.dtype, np.integer):
-        m = np.trunc(m)
-    return m.astype(x.dtype)
 
 
 def write_band_levels(writer: MultiscaleWriter, c: int, z: int, band0: int,

@@ -22,10 +22,14 @@
   version's, bit for bit.
 
 The kernels take any canvas pitch and tile width; 16-byte canvas traffic
-needs rows that start 16-byte aligned, which the band fuser gives them
-(``models/streaming.py::band_canvas_shape`` pads the row to a multiple of
-8 elements). Other pitches take the same kernels with scalar loads or
-stores where a vector would straddle an alignment.
+needs rows that start 16-byte aligned, which both callers give them (the
+band fuser's single-plane bands, ``models/streaming.py::
+band_canvas_shape``, and the in-RAM path's whole (C, Z, Hp, Wp) canvases,
+``models/pipeline.py::StitchPipeline.stitch_region``, pad the row to a
+multiple of 8 elements). Other pitches take the same kernels with scalar
+loads or stores where a vector would straddle an alignment. Element
+offsets are 64-bit; extents are C ints, and :func:`check_extents` refuses
+a canvas beyond what a kernel's grid covers.
 
 The plain PyTorch versions are the functions of the same names in
 :mod:`image_stitcher_tpu_torch.ops.fuse`; the source notes in the .cu
@@ -47,6 +51,23 @@ from . import fuse as plain
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+#: what the kernels index: extents are C ints (element offsets are 64-bit),
+#: the feather grid's y dimension covers at most 65535 blocks of 16 rows,
+#: and the finalize grid's z dimension 65535 (c, z) planes
+INT_MAX = 2 ** 31 - 1
+FEATHER_MAX_ROWS = 65535 * 16
+MAX_PLANES = 65535
+
+
+def check_extents(shape, max_rows: int = INT_MAX,
+                  max_planes: int = INT_MAX) -> None:
+    """Raise if a (C, Z, Hp, Wp) canvas exceeds what a kernel indexes."""
+    C, Z, Hp, Wp = (int(v) for v in shape)
+    if max(C, Z, Wp) > INT_MAX or Hp > max_rows or C * Z > max_planes:
+        raise ValueError(f"canvas {tuple(shape)} exceeds the kernel's "
+                         f"extents: at most {max_planes} (c, z) planes, "
+                         f"{max_rows} rows and {INT_MAX} columns")
 
 
 def _kernel():
@@ -84,6 +105,7 @@ def fuse_overwrite(canvas: torch.Tensor, tiles: torch.Tensor,
     if canvas.device.type != 'cuda':
         raise ValueError(f"no fusion kernel for device {canvas.device}")
     plain.check_batch(canvas, tiles, info, crops, valid, ff_recip)
+    check_extents(canvas.shape)
     lib = _kernel()
     n, th, tw = tiles.shape
     if n > lib.fuse_overwrite_max_batch():
@@ -157,6 +179,7 @@ def fuse_feather(acc: torch.Tensor, wsum: torch.Tensor, tiles: torch.Tensor,
         raise ValueError(f"no fusion kernel for device {acc.device}")
     plain.check_feather_batch(acc, wsum, tiles, info, crops, valid, ff_recip,
                               blend_px)
+    check_extents(acc.shape, max_rows=FEATHER_MAX_ROWS)
     lib = _feather_kernel()
     n, th, tw = tiles.shape
     if n > lib.fuse_feather_max_batch():
@@ -219,6 +242,7 @@ def finalize_feather(acc: torch.Tensor, wsum: torch.Tensor,
             or not wsum.is_contiguous()):
         raise ValueError("acc and wsum must be contiguous float32 on one "
                          "device")
+    check_extents(acc.shape, max_planes=MAX_PLANES)
     lib = _feather_kernel()
     out = torch.empty((C, Z, r1 - r0, s1 - s0), dtype=out_dtype,
                       device=acc.device)

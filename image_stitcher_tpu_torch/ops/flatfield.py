@@ -1,8 +1,13 @@
-"""BaSiC-style flatfield estimation on the host (NumPy + SciPy).
+"""BaSiC-style flatfield estimation (NumPy + SciPy on the host, torch on
+a device).
 
-The counterpart of the JAX package's ``ops/flatfield.py`` host path:
+The counterpart of the JAX package's ``ops/flatfield.py``:
 - :func:`fit_flatfield_stack_np` is a copy of the NumPy ADMM twin, so on
   the same stack the fields agree bit for bit;
+- :func:`fit_flatfield_stack` is the device solver (the JAX package's
+  jitted one): the same iteration in torch on a tensor on any device,
+  for ``flatfield_device='device'``, with :func:`pad_stack_cycled`
+  giving it the JAX package's fixed stack size;
 - the two OpenCV resamples the JAX package uses around the fit are
   written out in NumPy: :func:`resize_area` (``cv2.INTER_AREA``, for the
   decimation to the 96^2 working size) and :func:`resize_linear`
@@ -19,6 +24,7 @@ import math
 from typing import Tuple
 
 import numpy as np
+import torch
 
 WORKING_SIZE = 96
 # ADMM penalty schedule (see the JAX package for its derivation)
@@ -77,6 +83,88 @@ def fit_flatfield_stack_np(images: np.ndarray, smoothness: float = 1.0,
         mu = mu_new
     s = np.maximum(s, 1e-3)
     return (s / s.mean()).astype(np.float32)
+
+
+def dct_matrix(n: int) -> np.ndarray:
+    """Orthonormal DCT-II matrix (C @ x == dct(x, norm='ortho'))."""
+    k = np.arange(n)[:, None]
+    i = np.arange(n)[None, :]
+    c = np.cos(np.pi * (2 * i + 1) * k / (2 * n)) * np.sqrt(2.0 / n)
+    c[0] /= np.sqrt(2.0)
+    return c.astype(np.float32)
+
+
+def _soft(x: torch.Tensor, thresh) -> torch.Tensor:
+    return torch.sign(x) * torch.relu(torch.abs(x) - thresh)
+
+
+def fit_flatfield_stack(images: torch.Tensor, smoothness: float = 1.0,
+                        max_iters: int = DEFAULT_MAX_ITERS) -> torch.Tensor:
+    """Fit the flatfield S (mean 1) of a (N, h, w) stack on its device:
+    the JAX package's jitted ADMM, step for step, in float32.
+
+    Same model and iteration as :func:`fit_flatfield_stack_np` (scaled
+    multipliers z = y/mu, the shared term w = d + z), with the DCT prox
+    as two products with the orthonormal DCT-II matrix,
+    ``C_h @ s @ C_w.T``. Those products run in float64 and are rounded
+    back to float32, so no TF32 setting of the process can reach them;
+    on a 96^2 field they cost nothing. Returns an (h, w) float32 tensor
+    on the stack's device. Each iteration is a few dozen small launches
+    and no host synchronization."""
+    n, h, w = images.shape
+    dev = images.device
+    d = images.to(torch.float32)
+    d = d / torch.clamp(d.mean(dim=(1, 2), keepdim=True), min=1e-6)
+    c_h = torch.from_numpy(dct_matrix(h)).to(dev, torch.float64)
+    c_w = torch.from_numpy(dct_matrix(w)).to(dev, torch.float64)
+
+    def dct2(x):
+        return (c_h @ x.to(torch.float64) @ c_w.T).to(torch.float32)
+
+    def idct2(x):
+        return (c_h.T @ x.to(torch.float64) @ c_w).to(torch.float32)
+
+    lam = smoothness
+    s = d.mean(dim=0)
+    e = torch.zeros_like(d)
+    b = torch.ones((n, 1, 1), dtype=torch.float32, device=dev)
+    z = torch.zeros_like(d)
+    mu = np.float32(MU0)
+    for _ in range(max_iters):
+        w_ = d + z
+        # S: least squares, then the DCT-L1 prox (exact: orthonormal DCT)
+        bsq = (b * b).sum() + 1e-6
+        s_ls = (b * (w_ - e)).sum(dim=0) / bsq
+        s = idct2(_soft(dct2(s_ls), lam / (float(mu) * bsq)))
+        # E: elementwise soft threshold
+        e = _soft(w_ - b * s, float(np.float32(1.0) / mu))
+        # B: per-image projection onto S, non-negative
+        v = w_ - e
+        ssq = (s * s).sum() + 1e-6
+        b = torch.relu((v * s).sum(dim=(1, 2), keepdim=True) / ssq)
+        # multiplier and penalty
+        mu_new = np.float32(min(mu * np.float32(MU_RHO), np.float32(1e6)))
+        z = float(mu / mu_new) * (v - b * s)
+        mu = mu_new
+    s = torch.clamp(s, min=1e-3)
+    return s / s.mean()
+
+
+def pad_stack_cycled(stack: np.ndarray, target: int) -> np.ndarray:
+    """Pad a sample stack to ``target`` by whole cycles plus an evenly
+    strided remainder, so no sample is over-weighted by more than one
+    extra copy (the JAX package's device solver wants one static shape;
+    the port keeps its stacks so the two fit the same samples)."""
+    n = len(stack)
+    if n >= target:
+        return stack[:target]
+    reps = target // n
+    rem = target - reps * n
+    parts = [stack] * reps
+    if rem:
+        idx = np.linspace(0, n - 1, rem).round().astype(int)
+        parts.append(stack[idx])
+    return np.concatenate(parts)
 
 
 # ---------------------------------------------------------------- resampling

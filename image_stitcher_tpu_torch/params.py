@@ -3,10 +3,11 @@
 ``StitchingParameters`` and ``EngineOptions`` keep the field names,
 defaults and JSON round-trip of ``image_stitcher_tpu/params.py``, so a
 ``--params-json`` file written for either package works with both. What
-differs is what the port runs: flatfield, registration (center pair,
-all pairs, or the global position solve with optional subpixel
-placement), overwrite or feathered fusion on CUDA through band
-streaming, raw OME-Zarr v2. Every option outside those paths raises
+differs is what the port runs: flatfield (fitted on the host or the
+device), registration (center pair, all pairs, or the global position
+solve with optional subpixel placement; reports and debug images),
+overwrite or feathered fusion on CUDA, in bands or whole canvases, raw
+OME-Zarr v2. Every option outside those paths raises
 ``NotImplementedError`` naming the ROADMAP item that will bring it,
 instead of running something else in its place.
 
@@ -135,7 +136,8 @@ class EngineOptions:
     registration_report: bool = False
     mesh_shape: Optional[Tuple[int, int]] = None
     merge_barrier_timeout_s: float = 600.0
-    # the port streams every canvas in bands ('auto' and 'on' alike)
+    # 'auto' streams canvases over the threshold in bands, 'on' every
+    # canvas, 'off' none (each is fused whole on the device)
     streaming: str = 'auto'
     streaming_threshold_bytes: int = 256 << 20
     device_band_multiple: int = 4
@@ -193,24 +195,16 @@ class EngineOptions:
         if self.feather_px < 1:
             raise ValueError("feather_px must be >= 1")
         unported = [
-            (self.flatfield_device == 'device', "the device flatfield solver",
-             "item 'device flatfield solver'"),
             (self.fusion_device == 'host', "the host fuser",
              "item 'host fuser'"),
             (self.zarr_format == 3, "zarr v3 output", "item 'zarr v3'"),
             (self.compressor_cname not in (None, 'auto'),
              f"compressed chunks ({self.compressor_cname!r})",
              "item 'blosc-lz4 chunks'"),
-            (self.streaming == 'off', "the in-RAM (unstreamed) path",
-             "item 'device pyramid and in-RAM path'"),
             (self.mesh_shape is not None, "multi-device meshes",
              "item 'multi-GPU'"),
             (self.work_shard is not None, "work sharding",
              "item 'multi-GPU'"),
-            (self.registration_report, "registration reports",
-             "item 'registration reports and debug images'"),
-            (self.debug_visuals, "registration debug images",
-             "item 'registration reports and debug images'"),
             (self.validate_plan, "plan validation", "item 'host fuser'"),
         ]
         for hit, what, item in unported:

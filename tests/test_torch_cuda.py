@@ -230,3 +230,95 @@ def test_feather_kernel_split_windows_and_duplicate(cuda_device, dtype,
     canvas, tiles, info, crops, valid, ff = _split_batch(dtype)
     _feather_equal(cuda_device, canvas.shape, tiles, info, crops, valid, ff,
                    blend_px)
+
+
+def _well_batches(seed, dtype, tile=256, grid=3, overlap=26, C=3, Z=2,
+                  batch=10):
+    """A well as the in-RAM path fuses it: grid x grid tiles of every
+    (c, z) plane on one (C, Z, Hp, Wp) canvas (one-tile apron below and
+    right, rows padded to 8), crops halving each overlap, jobs in a
+    seeded order cut into batches of ``batch`` with a padded tail."""
+    rng = np.random.default_rng(seed)
+    hi = np.iinfo(dtype).max
+    step = tile - overlap
+    side = step * (grid - 1) + tile
+    shape = (C, Z, side + tile, -(-(side + tile) // 8) * 8)
+    jobs = []
+    for c in range(C):
+        for z in range(Z):
+            for r in range(grid):
+                for q in range(grid):
+                    crops = [overlap // 2 if r else 0,
+                             overlap // 2 if r < grid - 1 else 0,
+                             overlap // 2 if q else 0,
+                             overlap // 2 if q < grid - 1 else 0]
+                    jobs.append(([c, z, r * step, q * step], crops))
+    order = rng.permutation(len(jobs))
+    out = []
+    for b0 in range(0, len(jobs), batch):
+        chunk = [jobs[k] for k in order[b0:b0 + batch]]
+        n = len(chunk)
+        info = np.zeros((batch, 4), np.int32)
+        crops = np.zeros((batch, 4), np.int32)
+        valid = np.zeros(batch, bool)
+        info[:n] = [j[0] for j in chunk]
+        crops[:n] = [j[1] for j in chunk]
+        valid[:n] = True
+        tiles = rng.integers(0, hi + 1, (batch, tile, tile)).astype(dtype)
+        out.append([torch.from_numpy(a) for a in (tiles, info, crops,
+                                                  valid)])
+    ff = torch.from_numpy((1.0 / rng.uniform(0.6, 1.4, (C, tile, tile)))
+                          .astype(np.float32))
+    return shape, out, ff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_kernels_on_a_well_canvas(cuda_device, dtype):
+    """Every kernel on a whole (3, 2, Hp, Wp) well canvas with a 3-plane
+    field, real channel and z indices, against the plain versions: the
+    overwrite canvas and the finalized feather canvas byte-equal, the
+    feather sums bit-equal."""
+    shape, batches, ff = _well_batches(50, dtype)
+    tdtype = torch.from_numpy(np.zeros(1, dtype)).dtype
+    got = torch.zeros(shape, dtype=tdtype, device=cuda_device)
+    want = torch.zeros(shape, dtype=tdtype)
+    acc = torch.zeros(shape, device=cuda_device)
+    wsum = torch.zeros(shape, device=cuda_device)
+    acc_p = torch.zeros(shape)
+    wsum_p = torch.zeros(shape)
+    d_ff = ff.to(cuda_device)
+    for tiles, info, crops, valid in batches:
+        d_tiles = tiles.to(cuda_device)
+        cuda_fuse.fuse_overwrite(got, d_tiles, info, crops, valid, d_ff)
+        plain.fuse_overwrite(want, tiles, info, crops, valid, ff)
+        cuda_fuse.fuse_feather(acc, wsum, d_tiles, info, crops, valid, d_ff,
+                               blend_px=64)
+        plain.fuse_feather(acc_p, wsum_p, tiles, info, crops, valid, ff,
+                           blend_px=64)
+    h, w = shape[2] - 256, shape[3] - 256 - (shape[3] - 256) % 8
+    fin = cuda_fuse.finalize_feather(acc, wsum, tdtype, (0, h), (0, w))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(acc.cpu(), acc_p) and torch.equal(wsum.cpu(), wsum_p)
+    assert torch.equal(fin.cpu(), plain.finalize_feather(
+        acc_p[..., :h, :w], wsum_p[..., :h, :w], tdtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 80])
+def test_device_flatfield_solver_matches_host(cuda_device, n):
+    """The ADMM solver on the card against the NumPy solver on the same
+    padded stack, within 1e-4: its DCT products must not run in TF32."""
+    from image_stitcher_tpu_torch.ops import flatfield as ff_ops
+    rng = np.random.default_rng(n)
+    yy, xx = np.mgrid[0:96, 0:96] / 95.0
+    vignette = 1.0 - 0.3 * ((yy - 0.5) ** 2 + (xx - 0.5) ** 2)
+    stack = (rng.uniform(500, 4000, (n, 96, 96)) * vignette).astype(
+        np.float32)
+    stack = ff_ops.pad_stack_cycled(stack, 80)
+    got = ff_ops.fit_flatfield_stack(torch.from_numpy(stack).to(cuda_device))
+    assert got.device.type == 'cuda' and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               ff_ops.fit_flatfield_stack_np(stack),
+                               rtol=0, atol=1e-4)

@@ -67,3 +67,46 @@ def test_sampling_and_finalize_match_jax(shape):
     field = (rng.random((96, 96)) * 0.4 + 0.8).astype(np.float32)
     np.testing.assert_array_equal(tff.finalize_flatfield(field, shape),
                                   jff.finalize_flatfield(field, shape))
+
+
+def _vignetted_stack(seed, n, size=96):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / (size - 1.0)
+    vignette = 1.0 - 0.3 * ((yy - 0.5) ** 2 + (xx - 0.5) ** 2)
+    stack = rng.uniform(500, 4000, (n, size, size)) * vignette
+    # foreground objects: the sparse residual E the model absorbs
+    stack[:, 30:40, 50:70] += rng.uniform(0, 20000, (n, 1, 1))
+    return stack.astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [5, 32, 80])
+def test_device_solver_matches_jax(n):
+    """The torch solver (here on the CPU) against the JAX package's
+    jitted solver on the same padded stack, within the JAX package's own
+    bar between its solvers (1e-4); and against the NumPy twin."""
+    import jax.numpy as jnp
+    import torch
+    stack = tff.pad_stack_cycled(_vignetted_stack(n, n), 80)
+    got = tff.fit_flatfield_stack(torch.from_numpy(stack))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (96, 96)
+    want = np.asarray(jff.fit_flatfield_stack(jnp.asarray(stack)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), tff.fit_flatfield_stack_np(stack),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("n, target", [(5, 80), (32, 80), (33, 80), (80, 80),
+                                       (90, 80), (1, 7)])
+def test_pad_stack_cycled_identical(n, target):
+    stack = _vignetted_stack(n + target, n, size=8)
+    got = tff.pad_stack_cycled(stack, target)
+    assert got.shape == (target, 8, 8)
+    np.testing.assert_array_equal(got, jff.pad_stack_cycled(stack, target))
+    rgb = np.stack([stack] * 3, axis=-1)   # RGB samples pad along axis 0
+    np.testing.assert_array_equal(tff.pad_stack_cycled(rgb, target),
+                                  jff.pad_stack_cycled(rgb, target))
+
+
+@pytest.mark.parametrize("size", [8, 96, 128])
+def test_dct_matrix_identical(size):
+    np.testing.assert_array_equal(tff.dct_matrix(size), jff.dct_matrix(size))

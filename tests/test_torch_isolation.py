@@ -1,7 +1,9 @@
-"""The port stands alone: it loads and runs, the main path and the
+"""The port stands alone: it loads and runs, the main path, the
 maximum-quality path (global registration, subpixel placement,
-feathering), with jax, pandas, tensorstore, OpenCV, imageio and the JAX
-package all unimportable, as on a CUDA host that has none of them."""
+feathering) and the in-RAM path (whole canvases, the device flatfield
+solver, the registration report and debug images), with jax, pandas,
+tensorstore, OpenCV, imageio and the JAX package all unimportable, as on
+a CUDA host that has none of them."""
 
 import ast
 import os
@@ -58,6 +60,26 @@ CHILD = textwrap.dedent("""
     loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
     print('QUALITY-OK', len(pipe.global_positions['A1']))
+    # the in-RAM path: whole canvases, the pyramid built from them, the
+    # device flatfield solver, the report and the debug PNGs
+    import json, os
+    out = {out!r} + '_inram'
+    pipe = port.stitch({acq!r}, use_registration=True, apply_flatfield=True,
+                       device=torch.device('cpu'),
+                       options=port.EngineOptions(
+                           chunks=(1, 1, 1, 32, 32), output_folder=out,
+                           streaming='off', flatfield_device='device',
+                           registration_report=True, debug_visuals=True))
+    level0 = read_array(out + '/0_stitched/A1_stitched.ome.zarr/0')
+    assert level0.shape[:3] == (1, 1, 1) and level0.any(), level0.shape
+    assert 'fuse' in pipe.timers.as_dict(), pipe.timers.as_dict()
+    with open(out + '/registration_report.json') as f:
+        assert json.load(f)['regions']['A1']['scope'] == 'center'
+    pngs = sorted(n for n in os.listdir(out) if n.endswith('.png'))
+    assert pngs == ['horizontal.png', 'vertical.png'], pngs
+    loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+    assert not loaded, loaded
+    print('INRAM-OK', pipe.shifts.h_shift, pipe.shifts.v_shift)
 """)
 
 
@@ -74,6 +96,7 @@ def test_port_runs_without_jax_pandas_tensorstore_cv2(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ISOLATED-OK (0, -16) (-16, 0)" in proc.stdout
     assert "QUALITY-OK 4" in proc.stdout
+    assert "INRAM-OK (0, -16) (-16, 0)" in proc.stdout
 
 
 def test_package_sources_import_none_of_the_blocked_modules():

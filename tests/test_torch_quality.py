@@ -5,7 +5,9 @@ of the phase correlation; torch on the CPU here), the global per-tile
 position solve, subpixel placement (a bilinear shift at load time) and
 feathered blending in device bands. The JAX side runs
 ``fusion_device='device', streaming='on'`` on the CPU, on jittered
-fixtures (``jitter=3``). Three checks per configuration:
+fixtures (``jitter=3``). The port runs its band fuser
+(``streaming='on'``), and for the carried-state check also its in-RAM
+path (``streaming='off'``). Three checks per configuration:
 - with the JAX run's flatfields, shifts and global positions carried in
   (``state_from_reference``): level arrays within 1 LSB (feather sums:
   XLA may contract a multiply-add) and every metadata file equal;
@@ -93,11 +95,12 @@ def jax_run(request, tmp_path_factory):
     return acq, out, pipe
 
 
-def _port_run(acq, out, state=None, **opts):
-    opts = dict(COMMON, **QUALITY, **opts)
+def _port_run(acq, out, state=None, streaming='on'):
     return port.stitch(acq, use_registration=True, apply_flatfield=True,
                        device=CPU, state=state,
-                       options=port.EngineOptions(output_folder=out, **opts))
+                       options=port.EngineOptions(output_folder=out,
+                                                  streaming=streaming,
+                                                  **COMMON, **QUALITY))
 
 
 def test_carried_state_within_one_lsb(jax_run, tmp_path):
@@ -112,6 +115,20 @@ def test_carried_state_within_one_lsb(jax_run, tmp_path):
     # (the solve of integer jitter leaves residuals near 0 and near 1)
     jobs = pipe._build_jobs(0, sorted(pipe.global_positions)[0])
     assert any(job.fy or job.fx for job in jobs)
+    _assert_trees_within_one_lsb(jax_out, out)
+
+
+def test_in_ram_carried_state_within_one_lsb(jax_run, tmp_path):
+    """Feathered fusion of whole canvases (no top apron: tiles at y = 0
+    keep their ramps from the whole crop window) stays within 1 LSB of
+    the JAX package's band streamer."""
+    acq, jax_out, jpipe = jax_run
+    out = str(tmp_path / "port")
+    pipe = _port_run(acq, out, port.state_from_reference(
+        jpipe.flatfields, jpipe.shifts, jpipe.global_positions,
+        jpipe.global_positions_float), streaming='off')
+    assert 'stream_fuse_save' not in pipe.timers.as_dict()
+    assert all(s_['batches'] > 0 for s_ in pipe.fuse_stats.values())
     _assert_trees_within_one_lsb(jax_out, out)
 
 
@@ -192,7 +209,8 @@ def test_all_pairs_shifts_equal(tmp_path, index):
                                           **opts))
     pipe = port.stitch(acq, use_registration=True, device=CPU,
                        options=port.EngineOptions(
-                           output_folder=str(tmp_path / "port"), **opts))
+                           output_folder=str(tmp_path / "port"),
+                           streaming='on', **opts))
     assert pipe.device_pairs > 0
     assert pipe.shifts == port.state_from_reference(
         shifts=jpipe.shifts).shifts

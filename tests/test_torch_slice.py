@@ -3,7 +3,10 @@
 The JAX side runs its device band-streaming path on the CPU
 (fusion_device='device', streaming='on', raw chunks); the port runs the
 same acquisition on torch.device('cpu'), where its fusion wrapper takes
-the plain PyTorch version. Two cases per configuration:
+the plain PyTorch version, through its band fuser (streaming='on') and,
+for the carried-state case, also through its in-RAM path
+(streaming='off'), which must write the same tree. Two cases per
+configuration:
 - with the JAX run's flatfields and shifts carried in
   (state_from_reference): every level array and every metadata file of
   the output tree must be identical;
@@ -83,10 +86,12 @@ def jax_run(request, tmp_path_factory):
     return acq, out, pipe, opts
 
 
-def _port_run(acq, out, opts, state=None):
+def _port_run(acq, out, opts, state=None, streaming='on'):
     return port.stitch(acq, use_registration=True, apply_flatfield=True,
                        device=CPU, state=state,
-                       options=port.EngineOptions(output_folder=out, **opts))
+                       options=port.EngineOptions(output_folder=out,
+                                                  streaming=streaming,
+                                                  **opts))
 
 
 def _zarr_dirs(out):
@@ -149,6 +154,36 @@ def test_padded_band_pitch_tree_identical(jax_run, tmp_path, monkeypatch):
     _assert_trees_identical(jax_out, out)
 
 
+def test_in_ram_tree_identical(jax_run, tmp_path, monkeypatch):
+    """The in-RAM path (one whole canvas per region, pyramid built from
+    it) writes the tree the JAX package's band streamer writes; the
+    kernel gets the whole (C, Z, Hp, Wp) canvas, rows padded to 8."""
+    acq, jax_out, jpipe, opts = jax_run
+    shapes = []
+    place = cuda_fuse.fuse_overwrite
+
+    def spy(canvas, *args, **kwargs):
+        shapes.append(tuple(canvas.shape))
+        return place(canvas, *args, **kwargs)
+
+    monkeypatch.setattr(cuda_fuse, 'fuse_overwrite', spy)
+    out = str(tmp_path / "port")
+    pipe = _port_run(acq, out, opts, port.state_from_reference(
+        jpipe.flatfields, jpipe.shifts), streaming='off')
+    acqd = pipe.acq
+    want = set()
+    for r in acqd.regions:
+        w, h = pipe._region_dimensions(0, r)
+        want.add((acqd.num_c, acqd.num_z, h + acqd.input_height,
+                  -(-(w + acqd.input_width) // 8) * 8))
+        jobs = len(pipe._build_jobs(0, r))
+        assert pipe.fuse_stats[f"{r}_t0"] == {
+            'batches': -(-jobs // pipe.options.fusion_batch)}
+    assert set(shapes) == want
+    assert 'stream_fuse_save' not in pipe.timers.as_dict()
+    _assert_trees_identical(jax_out, out)
+
+
 @pytest.mark.parametrize("width, tile_w", [(18635, 2048), (340, 120),
                                            (1, 1), (96, 32), (1100, 1100)])
 def test_band_canvas_shape_pads_rows_to_eight(width, tile_w):
@@ -195,13 +230,12 @@ def test_cli_runs_the_slice_on_cpu(tmp_path):
 @pytest.mark.parametrize("option", [
     # feather and the global scope run; with an unported companion
     # option they still raise, naming it
-    dict(blend_method='feather', streaming='off'),
-    dict(registration_scope='global', registration_report=True),
-    dict(flatfield_device='device'), dict(fusion_device='host'),
+    dict(blend_method='feather', zarr_format=3),
+    dict(registration_scope='global', fusion_device='host'),
+    dict(fusion_device='host'),
     dict(zarr_format=3), dict(compressor_cname='lz4'),
-    dict(streaming='off'), dict(mesh_shape=(1, 2)),
-    dict(work_shard=(0, 2), output_folder='/nonexistent'),
-    dict(registration_report=True), dict(debug_visuals=True)],
+    dict(mesh_shape=(1, 2)),
+    dict(work_shard=(0, 2), output_folder='/nonexistent')],
     ids=lambda d: next(iter(d)))
 def test_unported_options_raise(tmp_path, option):
     acq = str(tmp_path / "acq")
