@@ -5,8 +5,9 @@
 
 Phases, each fatal on failure:
   1. environment: torch/CUDA versions, card name and power limit;
-  2. build: the CUDA kernels, compiled from csrc/ with nvcc (one nvcc per
-     source, started together);
+  2. build: the CUDA kernels, compiled from csrc/ with nvcc, and the host
+     chunk codec with the C compiler (one compiler per source, started
+     together);
   3. kernel vs plain: every kernel against its plain PyTorch version on
      seeded batches at the main-path shapes (overwrite canvas byte-equal,
      feather acc/wsum bit-equal, finalize byte-equal): the band canvas at
@@ -43,7 +44,20 @@ Phases, each fatal on failure:
      bands (streaming='on', the first run's fields and shifts carried)
      must write byte-equal trees; one well's channel 0 is held against a
      NumPy reference at levels 0 and 1, the device fields against the
-     host solver, the report and PNGs checked.
+     host solver, the report and PNGs checked;
+  8. output layer: the blosc-lz4 codec (C, built with the system
+     compiler) against its plain version, byte-equal frames and round
+     trips on seeded 2048^2 and edge chunks (full entropy, compressible,
+     all zero; u16 and u8); its MB/s on one thread and on the encode
+     pool; the main path's grid on the JAX package's compressible
+     benchmark content (bench.py's BENCH_CONTENT=compressible: a dark,
+     gamma-3 texture with its 6 low bits zeroed, made on the card)
+     with the default compressor (blosc-lz4), its tree decoded equal to
+     a raw run's, with e2e, the writer's seconds, the bytes written and
+     the ratio; the 'auto' compressor's decision and the disk probe's
+     buffered and direct MB/s; a 3x3 raw run with direct_io='on'
+     byte-equal to 'off'; a 3x3 zarr v3 (sharded) lz4 run decoded equal
+     to the v2 run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -80,7 +94,12 @@ KERNELS = {
                          'image_stitcher_tpu/ops/fuse.py:121'),
 }
 LIBRARIES = sorted({lib for lib, _, _ in KERNELS.values()})
+#: the host chunk codec (csrc/blosc_lz4.c), built with the C compiler
+CODEC = 'blosc_lz4'
 TILE = 2048
+#: modules the card's host lacks; the port must load none of them
+BANNED = ('jax', 'jaxlib', 'pandas', 'tensorstore', 'numcodecs', 'blosc',
+          'cv2', 'image_stitcher_tpu')
 BLEND = 64
 
 
@@ -111,15 +130,18 @@ def phase_environment() -> str:
 
 def phase_build() -> None:
     from image_stitcher_tpu_torch import native
+    libraries = LIBRARIES + [CODEC]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        list(pool.map(native.load, LIBRARIES))
-    log(f"build: {len(LIBRARIES)} sources in {time.perf_counter() - t0:.1f}s;"
-        " nvcc " + " ".join(native.NVCC_FLAGS))
-    for name in LIBRARIES:
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        list(pool.map(native.load, libraries))
+    log(f"build: {len(libraries)} sources in {time.perf_counter() - t0:.1f}s;"
+        " nvcc " + " ".join(native.NVCC_FLAGS) + "; the chunk codec "
+        + os.path.basename(native.find_cc()) + " " + " ".join(native.CC_FLAGS))
+    for name in libraries:
         info = native.BUILDS[name]
-        log(f"build: {info['path']} ({'cached' if info['cached'] else 'nvcc'}"
-            f" {info['seconds']:.1f}s)")
+        how = ('cached' if info['cached'] else
+               'cc' if name == CODEC else 'nvcc')
+        log(f"build: {info['path']} ({how} {info['seconds']:.1f}s)")
         for line in info['log'].splitlines():
             if 'registers' in line or 'spill' in line or 'Compiling' in line:
                 log("  ptxas: " + line.strip())
@@ -509,10 +531,12 @@ def tiff_bytes_header(h: int, w: int) -> bytes:
 
 
 def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
-                      seed: int, jitter: int = 0, regions=('A1',)):
+                      seed: int, jitter: int = 0, regions=('A1',),
+                      texture=None):
     """A Squid acquisition: per region (an HCS well; wells 20 mm apart on
     the stage), grid x grid tiles of ``tile``^2 uint16 cut at ``overlap``
-    px overlap from one seeded full-entropy texture of its own, each
+    px overlap from one seeded texture of its own (full entropy, or
+    ``texture(rng, side)``), each
     tile's window moved by up to +-``jitter`` px (stage error; the
     coordinates claim the ideal grid), written as uncompressed TIFF for
     every channel, plus coordinates.csv and 'acquisition
@@ -531,7 +555,8 @@ def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
     rows = []
     first = None
     for well, region in enumerate(regions):
-        gt = rng.integers(6553, 58982, (side, side), dtype=np.uint16)
+        gt = (texture(rng, side) if texture is not None else
+              rng.integers(6553, 58982, (side, side), dtype=np.uint16))
         shake = rng.integers(-jitter, jitter + 1, (grid * grid, 2))
         origins = {}
         for r in range(grid):
@@ -572,17 +597,20 @@ def smoke_options(out: str, quality: bool = False, **extra):
 
 
 def read_tree(root: str):
-    """{relative path: decoded level array or parsed JSON} of a tree."""
+    """{relative path: decoded level array or parsed JSON} of a tree: zarr
+    v2 or v3 (sharded), raw or blosc-lz4 chunks, read by the port's
+    ``read_array``."""
     from image_stitcher_tpu_torch.io.zarr_store import read_array
     out = {}
     for dirpath, _, files in os.walk(root):
         rel = os.path.relpath(dirpath, root)
-        if '.zarray' in files:
-            out[rel] = read_array(dirpath)
         for name in files:
-            if name in ('.zarray', '.zattrs', '.zgroup'):
+            if name in ('.zarray', '.zattrs', '.zgroup', 'zarr.json'):
                 with open(os.path.join(dirpath, name)) as f:
-                    out[os.path.join(rel, name)] = json.load(f)
+                    meta = out[os.path.join(rel, name)] = json.load(f)
+                if name == '.zarray' or (name == 'zarr.json' and
+                                         meta.get('node_type') == 'array'):
+                    out[rel] = read_array(dirpath)
     return out
 
 
@@ -745,8 +773,7 @@ def phase_main_path(work: str, card: str, grid: int = 10,
             raise SystemExit("main path: level 1 is not level 0 subsampled")
         del level1
     del level0, ref, gt
-    banned = [m for m in ('jax', 'jaxlib', 'pandas', 'tensorstore', 'cv2',
-                          'image_stitcher_tpu') if m in sys.modules]
+    banned = [m for m in BANNED if m in sys.modules]
     if banned:
         raise SystemExit(f"main path: loaded {banned}")
     t = pipe.timers.as_dict()
@@ -886,8 +913,7 @@ def phase_quality_path(work: str, card: str, grid: int = 10,
                          f"the NumPy reference in {bad} pixels (max "
                          f"{int(np.abs(got.astype(int) - ref).max())})")
     del level0, got, ref, gt
-    banned = [m for m in ('jax', 'jaxlib', 'pandas', 'tensorstore', 'cv2',
-                          'image_stitcher_tpu') if m in sys.modules]
+    banned = [m for m in BANNED if m in sys.modules]
     if banned:
         raise SystemExit(f"quality path: loaded {banned}")
     t = pipe.timers.as_dict()
@@ -1121,10 +1147,353 @@ def phase_plate(work: str, card: str, grid: int = 3,
         f"h={center['aggregated']['h_shift']} "
         f"v={center['aggregated']['v_shift']}; debug images "
         + ", ".join(f"{n} {s[0]}x{s[1]}" for n, s in want.items()))
-    banned = [m for m in ('jax', 'jaxlib', 'pandas', 'tensorstore', 'cv2',
-                          'image_stitcher_tpu') if m in sys.modules]
+    banned = [m for m in BANNED if m in sys.modules]
     if banned:
         raise SystemExit(f"plate: loaded {banned}")
+
+
+# --------------------------------------------------------------------- 8
+
+def _gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """OpenCV's ``GaussianBlur(img, (0, 0), sigma)`` of a float32 plane:
+    a separable kernel of ``round(8 sigma + 1) | 1`` taps, reflect-101
+    borders."""
+    import torch.nn.functional as F
+    taps = int(round(8 * sigma + 1)) | 1
+    x = torch.arange(taps, device=img.device, dtype=torch.float32)
+    x -= taps // 2
+    kern = torch.exp(-x * x / (2 * sigma * sigma))
+    kern /= kern.sum()
+    r = taps // 2
+    out = img[None, None]
+    out = F.conv2d(F.pad(out, (r, r, 0, 0), mode='reflect'),
+                   kern.view(1, 1, 1, taps))
+    out = F.conv2d(F.pad(out, (0, 0, r, r), mode='reflect'),
+                   kern.view(1, 1, taps, 1))
+    return out[0, 0]
+
+
+def compressible(rng, side: int) -> np.ndarray:
+    """A (side, side) uint16 texture with the JAX package's benchmark
+    content for the compressed write path (bench.py with
+    BENCH_CONTENT=compressible: ``tests/fixtures.py::make_ground_truth``
+    at gamma 3.0, 6 low bits zeroed): uniform noise plus its Gaussian
+    blurs at sigma 3, 9 and 27 (weights 3, 9, 27; the noise 0.3),
+    normalised to [0, 1], cubed (a dark background under sparse bright
+    structure), scaled to 10-90 % of the range, the 6 low bits zeroed.
+    Made on the card (the CPU without one) with exact blurs, where the
+    fixture blurs wide canvases at reduced resolution."""
+    dev = torch.device('cuda' if torch.cuda.is_available() else 'cpu')
+    gen = torch.Generator(dev).manual_seed(int(rng.integers(1 << 62)))
+    img = torch.rand((side, side), generator=gen, device=dev)
+    acc = 0.3 * img
+    for k in (3, 9, 27):
+        acc += k * _gaussian_blur(img, k)
+    del img
+    acc -= acc.min()
+    acc /= acc.max().clamp_min(1e-9)
+    acc = acc ** 3
+    out = (acc * (65535 * 0.8) + 65535 * 0.1).to(torch.int32)
+    return (out & ~63).cpu().numpy().astype(np.uint16)
+
+
+def codec_chunks(rng):
+    """{label: (chunk, typesize)}: 2048^2 chunks and the main path's right
+    edge chunk (203 columns of data, zero past the array, as the writer
+    pads it), full entropy, compressible (:func:`compressible`; its high
+    byte for u8) and all zero, u16 and u8."""
+    edge = BAND_W - (BAND_W // TILE) * TILE
+    out = {}
+    for dtype in (np.uint16, np.uint8):
+        tex = compressible(rng, TILE)
+        contents = {
+            'full-entropy': rng.integers(0, np.iinfo(dtype).max + 1,
+                                         (TILE, TILE), dtype=dtype),
+            'compressible': (tex if dtype == np.uint16 else
+                             (tex >> 8).astype(np.uint8)),
+            'zero': np.zeros((TILE, TILE), dtype)}
+        name = np.dtype(dtype).name
+        for what, full in contents.items():
+            out[f"{name} {what} {TILE}^2"] = (full, full.itemsize)
+            part = np.zeros_like(full)
+            part[:, :edge] = full[:, :edge]
+            out[f"{name} {what} edge {edge} cols"] = (part, full.itemsize)
+    return out
+
+
+def codec_check(rng) -> None:
+    """The C codec against its plain version: byte-equal frames, and both
+    decoders give the input back."""
+    from image_stitcher_tpu_torch.io import blosc
+    t0 = time.perf_counter()
+    for label, (chunk, ts) in codec_chunks(rng).items():
+        frame = bytes(blosc.compress(chunk, ts))
+        plain = blosc.compress_plain(chunk, ts)
+        raw = chunk.tobytes()
+        if frame != plain:
+            raise SystemExit(f"codec: the C frame of {label} differs from "
+                             f"the plain version's ({len(frame)} vs "
+                             f"{len(plain)} bytes)")
+        if (blosc.decompress(frame).tobytes() != raw
+                or blosc.decompress_plain(frame) != raw):
+            raise SystemExit(f"codec: {label} does not decode to its input")
+        log(f"codec {label}: C and plain frames byte-equal, {len(frame)} "
+            f"bytes ({len(frame) / len(raw):.4f} of {len(raw)}"
+            f"{', memcpyed' if frame[2] & 0x02 else ''}); round trips exact")
+    log(f"codec: checked in {time.perf_counter() - t0:.1f}s")
+
+
+def codec_rates(rng, card: str) -> dict:
+    """MB/s (input bytes) of the C encoder and decoder on distinct
+    2048^2 u16 chunks: one thread, then a pool of one thread per CPU this
+    process may run on (the writers' pool)."""
+    from image_stitcher_tpu_torch.io import blosc
+    from image_stitcher_tpu_torch.params import _available_cpus
+    ncpu = _available_cpus()
+    n = max(16, 2 * ncpu)
+    rates = {}
+    for what in ('compressible', 'full-entropy'):
+        chunks = [compressible(rng, TILE) if what == 'compressible'
+                  else rng.integers(0, 65536, (TILE, TILE), dtype=np.uint16)
+                  for _ in range(n)]
+        nbytes = sum(c.nbytes for c in chunks)
+        frames = [blosc.compress(c, 2) for c in chunks]   # warm
+        ratio = sum(len(f) for f in frames) / nbytes
+        row = {'ratio': ratio}
+        for threads in (1, ncpu):
+            with ThreadPoolExecutor(threads) as pool:
+                t0 = time.perf_counter()
+                frames = list(pool.map(lambda c: blosc.compress(c, 2),
+                                       chunks))
+                enc = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                list(pool.map(blosc.decompress, frames))
+                dec = time.perf_counter() - t0
+            row[threads] = (nbytes / enc / 1e6, nbytes / dec / 1e6)
+        rates[what] = row
+        log(f"codec MB/s on {card}, {what} 2048^2 u16 chunks (ratio "
+            f"{ratio:.4f}, {n} chunks): encode {row[1][0]:.0f} on one "
+            f"thread, {row[ncpu][0]:.0f} on {ncpu}; decode "
+            f"{row[1][1]:.0f} / {row[ncpu][1]:.0f} (os.cpu_count() "
+            f"{os.cpu_count()}, affinity {ncpu})")
+    return rates
+
+
+def tree_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, n))
+               for d, _, names in os.walk(root) for n in names)
+
+
+def compare_trees(a: dict, b: dict, what: str, arrays_only=False) -> int:
+    """Equal decoded arrays (and, unless ``arrays_only``, equal JSON apart
+    from the chunks' compressor); returns the number of arrays."""
+    if not arrays_only and sorted(a) != sorted(b):
+        raise SystemExit(f"{what}: trees differ in layout: "
+                         f"{sorted(set(a) ^ set(b))}")
+    arrays = sorted(k for k, v in a.items() if isinstance(v, np.ndarray))
+    if not arrays or arrays != sorted(k for k, v in b.items()
+                                      if isinstance(v, np.ndarray)):
+        raise SystemExit(f"{what}: the trees hold different arrays")
+    for key in arrays:
+        if not np.array_equal(a[key], b[key]):
+            raise SystemExit(f"{what}: {key} decodes differently")
+    for key in ([] if arrays_only else sorted(a)):
+        if isinstance(a[key], dict):
+            strip = [{k: v for k, v in m.items() if k != 'compressor'}
+                     for m in (a[key], b[key])]
+            if strip[0] != strip[1]:
+                raise SystemExit(f"{what}: {key} differs")
+    return len(arrays)
+
+
+def output_options(out: str, **extra):
+    """The main path's options with the JAX package's default compressor
+    (blosc-lz4), or what ``extra`` sets."""
+    from image_stitcher_tpu_torch import EngineOptions
+    return EngineOptions(fusion_batch=10, reader_threads=8,
+                         output_folder=out, **extra)
+
+
+def phase_output_layer(work: str, card: str, grid: int = 10,
+                       tile: int = TILE, device: str = 'cuda') -> dict:
+    """The OME-Zarr output layer on the card's host: codec, lz4 main path
+    against its raw twin, 'auto', O_DIRECT, zarr v3."""
+    import zlib
+    from image_stitcher_tpu_torch import (StitchingParameters,
+                                          scan_acquisition, stitch)
+    from image_stitcher_tpu_torch.io.directio import probe_direct_io
+    from image_stitcher_tpu_torch.models.pipeline import StitchPipeline
+    from image_stitcher_tpu_torch.models.streaming import (
+        band_rows_for, partition_jobs_by_band)
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    from image_stitcher_tpu_torch.params import _available_cpus
+    dev = torch.device(device)
+    rng = np.random.default_rng(8)
+    codec_check(rng)
+    rates = codec_rates(rng, card)
+
+    # the main path's grid, compressible, default compressor
+    acq = os.path.join(work, f'comp_{grid}x{grid}')
+    t0 = time.perf_counter()
+    write_acquisition(acq, grid, tile, overlap=205 * tile // TILE, seed=9,
+                      texture=compressible)
+    scan = scan_acquisition(acq)
+    keys = sorted(scan.tiles)
+    ratios = []
+    for i in sorted({0, len(keys) // 2, len(keys) - 1}):
+        with open(scan.tiles[keys[i]].filepath, 'rb') as f:
+            body = f.read()[160:160 + (1 << 20)]
+        ratios.append(len(zlib.compress(body, 1)) / len(body))
+    probe_ratio = float(np.median(ratios))
+    log(f"output layer: wrote {grid}x{grid}x{len(CHANNELS)} {tile}^2 "
+        f"compressible uint16 tiles (gamma 3, 6 low bits zeroed) in "
+        f"{time.perf_counter() - t0:.1f}s; zlib-1 probe ratio "
+        f"{probe_ratio:.4f} ({'within' if probe_ratio <= 0.6 else 'over'} "
+        f"the 'auto' gate's 0.6)")
+    runs = {}
+    tree = None
+    for name, extra in (('lz4', {}), ('raw', dict(compressor_cname=None))):
+        out = os.path.join(work, f'comp_out_{name}')
+        cuda_fuse.fuse_overwrite.launches = 0
+        t0 = time.perf_counter()
+        pipe = stitch(acq, use_registration=True, apply_flatfield=True,
+                      device=dev,
+                      options=output_options(out, **extra))
+        e2e = time.perf_counter() - t0
+        launches = cuda_fuse.fuse_overwrite.launches
+        width, height = pipe._region_dimensions(0, 'A1')
+        opts = pipe.options
+        band = band_rows_for(opts.write_band_rows()
+                             * opts.device_band_multiple,
+                             pipe.num_pyramid_levels)
+        tasks, _ = partition_jobs_by_band(pipe._build_jobs(0, 'A1'), tile,
+                                          height, band)
+        batches = sum(-(-len(v) // opts.fusion_batch)
+                      for v in tasks.values())
+        if (not pipe._should_stream(0, 'A1')
+                or launches != (batches if dev.type == 'cuda' else 0)):
+            raise SystemExit(f"output layer ({name}): {launches} kernel "
+                             f"launches for {batches} batches, streamed "
+                             f"{pipe._should_stream(0, 'A1')}")
+        stats = pipe.fuse_stats['A1_t0']
+        written = tree_bytes(out)
+        t_read = time.perf_counter()
+        got = read_tree(out)
+        t_read = time.perf_counter() - t_read
+        level_bytes = sum(v.nbytes for v in got.values()
+                          if isinstance(v, np.ndarray))
+        with open(os.path.join(out, '0_stitched', 'A1_stitched.ome.zarr',
+                               '0', '.zarray')) as f:
+            compressor = json.load(f)['compressor']
+        if (compressor is None) != (name == 'raw'):
+            raise SystemExit(f"output layer ({name}): chunks written with "
+                             f"compressor {compressor}")
+        t = pipe.timers.as_dict()
+        n_tiles = grid * grid * len(CHANNELS)
+        runs[name] = {'e2e_s': e2e, 'tiles_per_s': n_tiles / e2e,
+                      'writer_s': stats['write'] + stats['close'],
+                      'bytes': written, 'ratio': written / level_bytes,
+                      'launches': launches}
+        log(f"output layer ({name}) on {card}: e2e {e2e:.3f}s = "
+            f"{n_tiles / e2e:.2f} tiles/s; fit={t.get('flatfield_fit', 0):.3f}"
+            f"s registration={t.get('registration', 0):.3f}s fuse+write="
+            f"{t.get('stream_fuse_save', 0):.3f}s; band fuser: fuse="
+            f"{stats['fuse']:.3f}s readback_wait={stats['readback_wait']:.3f}"
+            f"s write={stats['write']:.3f}s close={stats['close']:.3f}s "
+            f"(writer {runs[name]['writer_s']:.3f}s); {written} bytes "
+            f"written for {level_bytes} bytes of levels (ratio "
+            f"{written / level_bytes:.4f}); fuse_overwrite launches "
+            f"{launches} for {batches} batches; tree read back in "
+            f"{t_read:.1f}s")
+        shutil.rmtree(out)
+        if tree is None:
+            tree = got
+        else:
+            arrays = compare_trees(tree, got, 'output layer (lz4 vs raw)')
+            log(f"output layer: the lz4 tree decodes equal to the raw "
+                f"tree ({arrays} level arrays; JSON equal but for the "
+                f"compressor)")
+        del got
+    del tree
+
+    # 'auto' on this acquisition and this host's disk
+    out = os.path.join(work, 'auto_out')
+    pipe = StitchPipeline(StitchingParameters(input_folder=acq),
+                          output_options(out, compressor_cname='auto'),
+                          device=dev)
+    pipe.acq = scan
+    choice = pipe.resolved_compressor()
+    entry = probe_direct_io(os.path.dirname(out))
+    ncpu = _available_cpus()
+    log(f"output layer: disk probe of {os.path.dirname(out)} on the card's "
+        f"host: {entry}; 'auto' chooses {choice} (lz4 needs a zlib-1 ratio "
+        f"<= 0.6, here {probe_ratio:.3f}, and a disk under 300 MB/s x "
+        f"{ncpu} cores = {300 * ncpu} MB/s)")
+    shutil.rmtree(acq)
+
+    # 3x3: O_DIRECT on against off (raw), and zarr v3 against v2 (lz4)
+    acq = os.path.join(work, 'comp_3x3')
+    write_acquisition(acq, 3, tile, overlap=205 * tile // TILE, seed=10,
+                      texture=compressible)
+    try:
+        fd = os.open(os.path.join(work, '.odirect'),
+                     os.O_WRONLY | os.O_CREAT | os.O_DIRECT, 0o644)
+        os.close(fd)
+        direct_ok = True
+    except OSError:
+        direct_ok = False
+    files = {}
+    for mode in ('off', 'on'):
+        out = os.path.join(work, f'direct_{mode}')
+        stitch(acq, use_registration=True, apply_flatfield=True,
+               device=dev,
+               options=output_options(out, compressor_cname=None,
+                                      direct_io=mode))
+        files[mode] = {}
+        for d, _, names in os.walk(out):
+            for n in names:
+                with open(os.path.join(d, n), 'rb') as f:
+                    files[mode][os.path.relpath(os.path.join(d, n),
+                                                out)] = f.read()
+        shutil.rmtree(out)
+    if not files['on'] or files['on'] != files['off']:
+        raise SystemExit("output layer: direct_io='on' and 'off' wrote "
+                         "different files")
+    log(f"output layer: 3x3 raw run with direct_io='on' byte-equal to 'off' "
+        f"({len(files['on'])} files, "
+        f"{sum(map(len, files['on'].values()))} bytes; O_DIRECT opens "
+        f"{'accepted' if direct_ok else 'refused, buffered fallback'} in "
+        f"{work})")
+    del files
+    trees = {}
+    for fmt in (2, 3):
+        out = os.path.join(work, f'v{fmt}_out')
+        cuda_fuse.fuse_overwrite.launches = 0
+        t0 = time.perf_counter()
+        stitch(acq, use_registration=True, apply_flatfield=True,
+               device=dev,
+               options=output_options(out, zarr_format=fmt))
+        e2e = time.perf_counter() - t0
+        if dev.type == 'cuda' and cuda_fuse.fuse_overwrite.launches == 0:
+            raise SystemExit(f"output layer: the zarr v{fmt} run launched "
+                             f"no kernel")
+        trees[fmt] = read_tree(out)
+        log(f"output layer: 3x3 lz4 zarr v{fmt} run: e2e {e2e:.3f}s, "
+            f"{tree_bytes(out)} bytes written")
+        shutil.rmtree(out)
+    arrays = compare_trees(trees[2], trees[3], 'output layer (v3 vs v2)',
+                           arrays_only=True)
+    meta = trees[3][os.path.join('0_stitched', 'A1_stitched.ome.zarr',
+                                 'zarr.json')]
+    if meta['attributes']['ome']['version'] != '0.5':
+        raise SystemExit(f"output layer: the v3 group is {meta}")
+    log(f"output layer: the zarr v3 (sharded, NGFF 0.5) lz4 tree decodes "
+        f"equal to the v2 tree ({arrays} level arrays)")
+    shutil.rmtree(acq)
+    banned = [m for m in BANNED if m in sys.modules]
+    if banned:
+        raise SystemExit(f"output layer: loaded {banned}")
+    return {'rates': rates, 'runs': runs, 'auto': choice, 'probe': entry}
 
 
 # ------------------------------------------------------------------ main
@@ -1142,6 +1511,9 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)   # the plate needs the room
         os.makedirs(work)
         phase_plate(work, card)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        phase_output_layer(work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches = {'fuse_overwrite': main_run['launches'],

@@ -5,7 +5,9 @@ main stitching path end to end: scan a Squid acquisition, fit BaSiC
 flatfields and measure center-pair registration shifts on the host,
 place flatfield-corrected tiles into device-resident canvas bands with a
 hand-written CUDA kernel (``csrc/fuse_overwrite.cu``), and stream the
-bands into raw OME-Zarr v2 with their pyramid.
+bands into OME-Zarr (v2, or v3 with shards) with their pyramid, its
+chunks blosc-lz4 by default (a hand-written C codec, ``csrc/blosc_lz4.c``)
+or raw.
 
 It imports torch and never jax, and nothing of ``image_stitcher_tpu``:
 its host layer uses only the standard library, numpy, scipy and torch.

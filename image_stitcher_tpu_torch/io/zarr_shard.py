@@ -1,0 +1,319 @@
+"""Zarr v3 arrays with the ``sharding_indexed`` codec, without tensorstore.
+
+The counterpart of the JAX package's ``io/zarr_store.py::
+create_zarr3_sharded_array`` (tensorstore's zarr3 store) and
+``io/raw_zarr.py::RawV3ShardWriter``. A shard file holds its inner
+chunks' encoded bodies, then an index of one (offset, nbytes) u64 LE pair
+per inner chunk of the shard's nominal grid, (2^64-1, 2^64-1) for a chunk
+that is not stored, then the CRC-32C of the index. Shards are one chunk
+row tall and ``shard_multiple`` chunks wide (the JAX package's Y-thin
+layout, which band writes cover whole), at ``c/t/c/z/sy/sx``.
+
+- :class:`RawShardArray` (inner codecs ``bytes``): the JAX raw shard
+  writer's layout byte for byte: a shard is created sparse at its full
+  size, every inner chunk inside the array present at its C-order
+  ordinal, the index written once, and band rows land at known offsets
+  (O_DIRECT where ``io/directio.py`` decides so).
+- :class:`BloscShardArray` (inner codecs ``bytes`` + ``blosc`` lz4):
+  rows are gathered per chunk row (``zarr_store.ChunkRowBuffer``), each
+  chunk is encoded once on an ``EncodePool`` thread, and the last of a
+  shard's chunks to finish writes the shard: the bodies of the chunks
+  that differ from the fill value, in C order; a shard with none is not
+  written, as tensorstore writes none.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from . import blosc
+from .zarr_store import (ChunkRowBuffer, EncodePool, _RawWriter,
+                         _fresh_array_dir, _write_file, _write_json_atomic,
+                         clamp_chunks)
+
+MISSING = 0xFFFFFFFFFFFFFFFF
+_CRC32C_TABLE: Optional[List[int]] = None
+
+
+def crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli), the zarr v3 index checksum."""
+    global _CRC32C_TABLE
+    if _CRC32C_TABLE is None:
+        tbl = []
+        for n in range(256):
+            c = n
+            for _ in range(8):
+                c = (c >> 1) ^ (0x82F63B78 if c & 1 else 0)
+            tbl.append(c)
+        _CRC32C_TABLE = tbl
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc = (crc >> 8) ^ _CRC32C_TABLE[(crc ^ b) & 0xFF]
+    return crc ^ 0xFFFFFFFF
+
+
+def compute_shard_shape(shape: Sequence[int], chunks: Sequence[int],
+                        shard_multiple: int = 16):
+    """(clamped inner chunk shape, shard shape): shards are one chunk row
+    tall and ``shard_multiple`` chunks wide, clipped to the array and
+    kept a multiple of the chunk (the JAX package's rule)."""
+    chunks = list(clamp_chunks(chunks, shape))
+    shard = list(chunks)
+    shard[-1] = min(int(shape[-1]), chunks[-1] * shard_multiple)
+    shard[-1] -= shard[-1] % chunks[-1]
+    shard[-1] = max(shard[-1], chunks[-1])
+    return tuple(chunks), tuple(shard)
+
+
+def zarr3_array_meta(shape: Sequence[int], chunks: Sequence[int],
+                     shard: Sequence[int], dtype,
+                     blosc_config: Optional[Dict] = None) -> Dict:
+    """The ``zarr.json`` of a sharded array, as tensorstore writes it."""
+    dtype = np.dtype(dtype)
+    bytes_codec: Dict = {'name': 'bytes'}
+    if dtype.itemsize > 1:
+        bytes_codec['configuration'] = {'endian': 'little'}
+    inner = [bytes_codec]
+    if blosc_config is not None:
+        inner.append({'configuration': dict(blosc_config,
+                                            typesize=dtype.itemsize),
+                      'name': 'blosc'})
+    return {
+        'chunk_grid': {'configuration': {'chunk_shape': list(shard)},
+                       'name': 'regular'},
+        'chunk_key_encoding': {'name': 'default'},
+        'codecs': [{
+            'configuration': {
+                'chunk_shape': list(chunks),
+                'codecs': inner,
+                'index_codecs': [
+                    {'configuration': {'endian': 'little'}, 'name': 'bytes'},
+                    {'name': 'crc32c'}],
+            },
+            'name': 'sharding_indexed'}],
+        'data_type': dtype.name,
+        'fill_value': 0,
+        'node_type': 'array',
+        'shape': [int(s) for s in shape],
+        'zarr_format': 3,
+    }
+
+
+def index_bytes(entries: Sequence[Tuple[int, int]]) -> bytes:
+    """A shard index: (offset, nbytes) pairs, then their CRC-32C."""
+    raw = b''.join(struct.pack('<QQ', off, n) for off, n in entries)
+    return raw + struct.pack('<I', crc32c(raw))
+
+
+def read_shard(data: bytes, config: Dict, shard_shape: Sequence[int],
+               dtype, fill_value=0) -> np.ndarray:
+    """Decode one shard file (index at the end, bytes + crc32c index
+    codecs) into a (shard_shape) array."""
+    from .zarr_store import _decode_chunk
+    if config.get('index_location', 'end') != 'end':
+        raise NotImplementedError("shard index at the start")
+    names = [c['name'] for c in config['index_codecs']]
+    if names != ['bytes', 'crc32c']:
+        raise NotImplementedError(f"shard index codecs {names}")
+    chunks = tuple(config['chunk_shape'])
+    inner = [-(-s // c) for s, c in zip(shard_shape, chunks)]
+    n = int(np.prod(inner))
+    idx = data[len(data) - 16 * n - 4:]
+    if len(data) < 16 * n + 4 or struct.unpack(
+            '<I', idx[-4:])[0] != crc32c(idx[:-4]):
+        raise ValueError("shard index is truncated or fails its CRC-32C")
+    out = np.full(tuple(i * c for i, c in zip(inner, chunks)), fill_value,
+                  dtype)
+    for lin, pos in enumerate(np.ndindex(*inner)):
+        off, nbytes = struct.unpack_from('<QQ', idx, 16 * lin)
+        if off == MISSING and nbytes == MISSING:
+            continue
+        body = data[off:off + nbytes]
+        sel = tuple(slice(p * c, (p + 1) * c) for p, c in zip(pos, chunks))
+        out[sel] = _decode_chunk(body, config['codecs'], chunks, dtype)
+    return out[tuple(slice(0, s) for s in shard_shape)]
+
+
+class _ShardGrid:
+    """A (T, C, Z, Y, X) sharded array's directory, metadata and grid."""
+
+    def _init_grid(self, path: str, shape: Sequence[int],
+                   chunks: Sequence[int], dtype, shard_multiple: int,
+                   blosc_config: Optional[Dict]) -> None:
+        self.path = path
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = np.dtype(dtype)
+        self.chunks, self.shard = compute_shard_shape(self.shape, chunks,
+                                                      shard_multiple)
+        if len(self.shape) != 5 or self.chunks[:3] != (1, 1, 1):
+            raise ValueError("zarr arrays are (T, C, Z, Y, X) with one "
+                             "plane per chunk")
+        self.per_shard = self.shard[4] // self.chunks[4]
+        self.chunk_nbytes = (self.chunks[3] * self.chunks[4]
+                             * self.dtype.itemsize)
+        _fresh_array_dir(path)
+        _write_json_atomic(os.path.join(path, 'zarr.json'),
+                           zarr3_array_meta(self.shape, self.chunks,
+                                            self.shard, self.dtype,
+                                            blosc_config), indent=None)
+        self._made_dirs = set()
+
+    def _shard_file(self, t: int, c: int, z: int, sy: int, sx: int) -> str:
+        d = os.path.join(self.path, 'c', str(t), str(c), str(z), str(sy))
+        if d not in self._made_dirs:
+            os.makedirs(d, exist_ok=True)
+            self._made_dirs.add(d)
+        return os.path.join(d, str(sx))
+
+    def _chunks_in_array(self, sx: int) -> int:
+        """How many of shard column ``sx``'s inner chunks start inside
+        the array."""
+        x0 = sx * self.shard[4]
+        return min(self.per_shard, -(-(self.shape[4] - x0) // self.chunks[4]))
+
+
+class RawShardArray(_ShardGrid, _RawWriter):
+    """A raw (inner codecs ``bytes``) sharded zarr v3 array, written by
+    plane slabs straight into its shard files."""
+
+    def __init__(self, path: str, shape: Sequence[int],
+                 chunks: Sequence[int], dtype, shard_multiple: int = 16,
+                 direct_io: str = 'auto'):
+        self._init_grid(path, shape, chunks, dtype, shard_multiple, None)
+        # body offsets are ordinal * chunk_nbytes + k * pitch
+        self._init_direct(direct_io, self.chunks[4] * self.dtype.itemsize,
+                          self.chunk_nbytes)
+
+    def _ensure_shard(self, fd: int, present: int) -> None:
+        """Size a new shard and write its index: ``present`` bodies, the
+        rest of the nominal grid missing."""
+        index_offset = present * self.chunk_nbytes
+        total = index_offset + 16 * self.per_shard + 4
+        if os.fstat(fd).st_size >= total:
+            return
+        os.ftruncate(fd, total)
+        idx = index_bytes([(k * self.chunk_nbytes, self.chunk_nbytes)
+                           if k < present else (MISSING, MISSING)
+                           for k in range(self.per_shard)])
+        done = 0
+        while done < len(idx):
+            done += os.pwrite(fd, idx[done:], index_offset + done)
+
+    def write_plane_rows(self, t: int, c: int, z: int, y0: int,
+                         plane: np.ndarray) -> None:
+        """Write ``plane`` (h, w) at rows [y0, y0+h), columns [0, w) of
+        plane (t, c, z); the inner chunks that [0, w) touches are written
+        over their full width (zeros past ``w``)."""
+        h, w = plane.shape
+        if h == 0 or w == 0:
+            return
+        if (plane.dtype != self.dtype or y0 < 0 or y0 + h > self.shape[3]
+                or w > self.shape[4]):
+            raise ValueError(f"slab {plane.shape} {plane.dtype} at row {y0} "
+                             f"does not fit {self.shape} {self.dtype}")
+        cy, cx = self.chunks[3], self.chunks[4]
+        pitch = cx * self.dtype.itemsize
+        for sy in range(y0 // cy, (y0 + h - 1) // cy + 1):
+            ry0, ry1 = max(y0, sy * cy), min(y0 + h, (sy + 1) * cy)
+            for sx in range((w - 1) // self.shard[4] + 1):
+                fpath = self._shard_file(t, c, z, sy, sx)
+                present = self._chunks_in_array(sx)
+                if self.direct:
+                    # the index is byte-grained: size the shard and write
+                    # it through a plain fd, the bodies then go direct
+                    pfd = os.open(fpath, os.O_WRONLY | os.O_CREAT, 0o644)
+                    try:
+                        self._ensure_shard(pfd, present)
+                    finally:
+                        os.close(pfd)
+                fd, is_direct = self._open(fpath)
+                try:
+                    if not is_direct:
+                        self._ensure_shard(fd, present)
+                    for k in range(present):
+                        gx0 = sx * self.shard[4] + k * cx
+                        if gx0 >= w:
+                            break
+                        self._pwrite_rows(
+                            fd, is_direct, plane, ry0 - y0, gx0, ry1 - ry0,
+                            min(w, gx0 + cx) - gx0, cx,
+                            k * self.chunk_nbytes + (ry0 - sy * cy) * pitch)
+                finally:
+                    os.close(fd)
+
+
+class BloscShardArray(_ShardGrid):
+    """A blosc-lz4 sharded zarr v3 array, written by plane slabs through
+    a ``ChunkRowBuffer``, its chunks encoded on ``pool``."""
+
+    def __init__(self, path: str, shape: Sequence[int],
+                 chunks: Sequence[int], dtype, pool: EncodePool,
+                 shard_multiple: int = 16, clevel: int = 5):
+        blosc.lib()   # build the codec now: a missing compiler raises here
+        self.clevel = int(clevel)
+        self._init_grid(path, shape, chunks, dtype, shard_multiple,
+                        {'blocksize': 0, 'clevel': self.clevel,
+                         'cname': 'lz4', 'shuffle': 'shuffle'})
+        self.pool = pool
+        self.rows = ChunkRowBuffer(self.shape, self.chunks, self.dtype,
+                                   self._store_row)
+
+    def write_plane_rows(self, t: int, c: int, z: int, y0: int,
+                         plane: np.ndarray) -> None:
+        self.rows.write(t, c, z, y0, plane)
+
+    def flush(self) -> None:
+        self.rows.flush()
+
+    def _store_row(self, key, row: np.ndarray) -> None:
+        t, c, z, sy = key
+        for sx in range(-(-self.shape[4] // self.shard[4])):
+            present = self._chunks_in_array(sx)
+            k0 = sx * self.per_shard
+            shard = _PendingShard(
+                os.path.join(self.path, 'c', str(t), str(c), str(z), str(sy),
+                             str(sx)), self.per_shard, present)
+            for k in range(present):
+                self.pool.submit(row[k0 + k].nbytes, self._encode, shard, k,
+                                 row[k0 + k])
+
+    def _encode(self, shard: '_PendingShard', k: int,
+                chunk: np.ndarray) -> None:
+        frame = (None if blosc.all_zero(chunk) else
+                 blosc.compress(chunk, self.dtype.itemsize, self.clevel, 1))
+        shard.done(k, frame)
+
+
+class _PendingShard:
+    """A shard whose chunks are being encoded on several threads; the
+    thread that delivers the last one writes the file."""
+
+    def __init__(self, fpath: str, nominal: int, present: int):
+        self.fpath = fpath
+        self.frames: List = [None] * nominal
+        self.left = present
+        self._lock = threading.Lock()
+
+    def done(self, k: int, frame) -> None:
+        with self._lock:
+            self.frames[k] = frame
+            self.left -= 1
+            if self.left:
+                return
+        entries, off = [], 0
+        for frame in self.frames:
+            if frame is None:
+                entries.append((MISSING, MISSING))
+            else:
+                entries.append((off, len(frame)))
+                off += len(frame)
+        if off == 0:
+            return   # every chunk equals the fill value: no shard file
+        body = b''.join(bytes(f) for f in self.frames if f is not None)
+        os.makedirs(os.path.dirname(self.fpath), exist_ok=True)
+        _write_file(self.fpath, body + index_bytes(entries))

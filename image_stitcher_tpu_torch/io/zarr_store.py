@@ -1,26 +1,41 @@
-"""Zarr v2 storage without tensorstore: metadata JSON and raw chunk files.
+"""Zarr storage without tensorstore: metadata, chunk writers, a reader.
 
-The counterpart of the JAX package's ``io/zarr_store.py`` (metadata) and
-``io/raw_zarr.py::RawV2SlabWriter`` (chunk bodies), for the one layout the
-port writes: uncompressed (``compressor: null``) zarr v2 arrays with
-``/``-separated chunk keys and fill value 0. ``.zarray`` carries the same
-fields tensorstore writes for ``create_zarr_array(..., cname=None)``, so
-either package's output opens with either reader.
+The counterpart of the JAX package's ``io/zarr_store.py`` (tensorstore's
+zarr v2 store) and ``io/raw_zarr.py::RawV2SlabWriter``: zarr v2 arrays
+with ``/``-separated chunk keys and fill value 0, their chunks either
+raw (``compressor: null``) or blosc-lz4 (``io/blosc.py``). ``.zarray``
+carries the fields tensorstore writes, so either package's output opens
+with either reader. The zarr v3 shard writers are in ``io/zarr_shard.py``.
 
-A chunk body is the C-order bytes of a full chunk; edge chunks are
-zero-padded to the full chunk size, and rows a write never touches stay
-sparse file zeros, which read as the fill value.
+- :class:`RawZarrArray`: a raw chunk body is the C-order bytes of a full
+  chunk; edge chunks are zero-padded to the full chunk size, and rows a
+  write never touches stay sparse file zeros, which read as the fill
+  value. Writes are synchronous ``pwrite`` calls from the caller's
+  thread, O_DIRECT where ``io/directio.py`` decides so (same bytes).
+- :class:`BloscZarrArray`: rows are copied into a buffer per (t, c, z,
+  chunk row), so the caller's slab may change as soon as the call
+  returns; when every row of a chunk row is in (or a later chunk row of
+  the plane is written, or the array is flushed), each of its chunks is
+  encoded once on an :class:`EncodePool` thread and written as one file.
+  A chunk equal to the fill value is not stored, as tensorstore stores
+  none.
+
+:func:`read_array` decodes raw and blosc-lz4 arrays of either format.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import shutil
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Optional, Sequence, Set, Tuple
 
 import numpy as np
+
+from . import blosc
 
 _DTYPE_TO_ZARR = {
     np.dtype('uint8'): '|u1', np.dtype('int8'): '|i1',
@@ -30,6 +45,9 @@ _DTYPE_TO_ZARR = {
     np.dtype('float32'): '<f4', np.dtype('float64'): '<f8',
 }
 _ZARR_TO_DTYPE = {v: k for k, v in _DTYPE_TO_ZARR.items()}
+
+#: the JAX writer's backpressure window for asynchronous chunk writes
+DEFAULT_MAX_PENDING_BYTES = 512 << 20
 
 
 def zarr_dtype_str(dtype) -> str:
@@ -42,11 +60,19 @@ def clamp_chunks(chunks: Sequence[int], shape: Sequence[int]) -> Tuple[int, ...]
                  for c, s in zip(chunks, shape))
 
 
-def zarray_meta(shape: Sequence[int], chunks: Sequence[int], dtype) -> Dict:
-    """The ``.zarray`` of a raw zarr v2 array."""
+def blosc_meta(cname: str, clevel: int, shuffle: int) -> Dict:
+    """The zarr v2 ``compressor`` of a blosc array, as tensorstore
+    writes it."""
+    return {'blocksize': 0, 'clevel': int(clevel), 'cname': cname,
+            'id': 'blosc', 'shuffle': int(shuffle)}
+
+
+def zarray_meta(shape: Sequence[int], chunks: Sequence[int], dtype,
+                compressor: Optional[Dict] = None) -> Dict:
+    """The ``.zarray`` of a zarr v2 array."""
     return {
         'chunks': list(clamp_chunks(chunks, shape)),
-        'compressor': None,
+        'compressor': compressor,
         'dimension_separator': '/',
         'dtype': zarr_dtype_str(dtype),
         'fill_value': 0,
@@ -75,20 +101,149 @@ def _write_json_atomic(path: str, obj, indent: Optional[int] = 4) -> None:
         raise
 
 
-def write_group(path: str, attrs: Optional[Dict] = None) -> None:
-    """Make ``path`` a zarr v2 group (.zgroup, and .zattrs if given)."""
+def write_group(path: str, attrs: Optional[Dict] = None,
+                zarr_format: int = 2) -> None:
+    """Make ``path`` a zarr group: v2 (.zgroup, and .zattrs if given) or
+    v3 (zarr.json, node_type group, the attributes inline)."""
     os.makedirs(path, exist_ok=True)
+    if zarr_format == 3:
+        meta: Dict = {'zarr_format': 3, 'node_type': 'group'}
+        if attrs is not None:
+            meta['attributes'] = attrs
+        _write_json_atomic(os.path.join(path, 'zarr.json'), meta)
+        return
     _write_json_atomic(os.path.join(path, '.zgroup'), {'zarr_format': 2})
     if attrs is not None:
         _write_json_atomic(os.path.join(path, '.zattrs'), attrs)
 
 
-class RawZarrArray:
+def _fresh_array_dir(path: str) -> None:
+    """Replace any previous array at ``path`` by an empty directory."""
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+
+
+def _write_file(path: str, data) -> None:
+    with open(path, 'wb') as f:
+        f.write(data)
+
+
+class EncodePool:
+    """Threads that encode and write chunks, with the JAX writer's
+    backpressure: once ``max_pending_bytes`` of raw chunk bytes are in
+    flight, :meth:`submit` waits for the oldest tasks. A failed task
+    raises from the :meth:`submit` that waits for it, or from
+    :meth:`close`, which waits for every task and re-raises the first
+    failure; :meth:`abort` stops it on a failed run. Sized as
+    tensorstore sizes its own pool: one thread per CPU this process may
+    run on."""
+
+    def __init__(self, max_pending_bytes: int = DEFAULT_MAX_PENDING_BYTES,
+                 workers: Optional[int] = None):
+        from ..params import _available_cpus
+        self.workers = workers or _available_cpus()
+        self._pool = ThreadPoolExecutor(self.workers,
+                                        thread_name_prefix='zarr-encode')
+        self._max = max_pending_bytes
+        self._pending: collections.deque = collections.deque()
+        self._pending_bytes = 0
+        self._lock = threading.Lock()
+
+    def submit(self, nbytes: int, fn: Callable, *args) -> None:
+        fut = self._pool.submit(fn, *args)
+        drain = []
+        with self._lock:
+            self._pending.append((fut, nbytes))
+            self._pending_bytes += nbytes
+            while self._pending_bytes > self._max and self._pending:
+                old, n = self._pending.popleft()
+                self._pending_bytes -= n
+                drain.append(old)
+        for old in drain:
+            old.result()
+
+    def close(self) -> None:
+        with self._lock:
+            pending = [f for f, _ in self._pending]
+            self._pending.clear()
+            self._pending_bytes = 0
+        first = None
+        for fut in pending:
+            try:
+                fut.result()
+            except Exception as e:  # every task ends before the first raises
+                first = first or e
+        self._pool.shutdown(wait=True)
+        if first is not None:
+            raise first
+
+    def abort(self) -> None:
+        """Drop the tasks not yet started, wait for those running and stop
+        the threads, raising none of their failures: nothing is written
+        once this returns. Safe after :meth:`close` and twice."""
+        with self._lock:
+            self._pending.clear()
+            self._pending_bytes = 0
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+
+class _RawWriter:
+    """Raw chunk bodies written from a plane's rows, buffered or O_DIRECT
+    (shared by the v2 chunk writer and the v3 shard writer)."""
+
+    path: str
+    dtype: np.dtype
+    direct: bool
+
+    def _init_direct(self, direct_io: str, *aligned_sizes: int) -> None:
+        """O_DIRECT when ``io/directio.use_direct_io`` says so for this
+        array's directory and every offset and length this writer
+        produces is block-aligned (all are multiples of the sizes)."""
+        from .directio import ALIGN, AlignedStaging, use_direct_io
+        self.direct = (all(s > 0 and s % ALIGN == 0 for s in aligned_sizes)
+                       and use_direct_io(os.path.dirname(self.path) or '.',
+                                         direct_io))
+        self._staging = (AlignedStaging(max(aligned_sizes))
+                         if self.direct else None)
+
+    def _open(self, fpath: str) -> Tuple[int, bool]:
+        """(fd, is_direct): O_DIRECT when enabled; a filesystem that
+        refuses it (tmpfs) turns it off for good."""
+        if self.direct:
+            try:
+                return os.open(fpath, os.O_WRONLY | os.O_CREAT | os.O_DIRECT,
+                               0o644), True
+            except OSError:
+                self.direct = False
+        return os.open(fpath, os.O_WRONLY | os.O_CREAT, 0o644), False
+
+    def _pwrite_rows(self, fd: int, is_direct: bool, plane: np.ndarray,
+                     row0: int, col0: int, nrows: int, cols: int,
+                     pitch_elems: int, off: int) -> None:
+        """Write ``nrows`` rows of ``plane`` from (row0, col0), ``cols``
+        wide and zero-padded to ``pitch_elems``, as one contiguous
+        region at byte ``off``."""
+        if is_direct:
+            from .directio import pwrite_direct
+            item = self.dtype.itemsize
+            pwrite_direct(fd, self._staging, plane, self.dtype, row0, col0,
+                          nrows, cols * item, pitch_elems * item, off)
+            return
+        body = np.zeros((nrows, pitch_elems), self.dtype)
+        body[:, :cols] = plane[row0:row0 + nrows, col0:col0 + cols]
+        data = memoryview(body).cast('B')
+        done = 0
+        while done < len(data):
+            done += os.pwrite(fd, data[done:], off + done)
+
+
+class RawZarrArray(_RawWriter):
     """A raw zarr v2 array, created on construction (any previous array
     at ``path`` is replaced), written by plane slabs."""
 
     def __init__(self, path: str, shape: Sequence[int],
-                 chunks: Sequence[int], dtype):
+                 chunks: Sequence[int], dtype, direct_io: str = 'auto'):
         self.path = path
         self.shape = tuple(int(s) for s in shape)
         self.chunks = clamp_chunks(chunks, self.shape)
@@ -96,14 +251,15 @@ class RawZarrArray:
         if len(self.shape) != 5 or self.chunks[:3] != (1, 1, 1):
             raise ValueError("raw zarr arrays are (T, C, Z, Y, X) with one "
                              "plane per chunk")
-        if os.path.isdir(path):
-            shutil.rmtree(path)
-        os.makedirs(path)
+        _fresh_array_dir(path)
         _write_json_atomic(os.path.join(path, '.zarray'),
                            zarray_meta(self.shape, self.chunks, self.dtype),
                            indent=None)
         self.chunk_bytes = self.chunks[3] * self.chunks[4] * self.dtype.itemsize
         self._made_dirs = set()
+        # every write offset and length is a multiple of the row pitch
+        self._init_direct(direct_io, self.chunks[4] * self.dtype.itemsize,
+                          self.chunk_bytes)
 
     def _chunk_file(self, t: int, c: int, z: int, cyi: int, cxi: int) -> str:
         d = os.path.join(self.path, str(t), str(c), str(z), str(cyi))
@@ -132,40 +288,217 @@ class RawZarrArray:
             full_rows = ry1 - ry0 == cy
             for cxi in range((w - 1) // cx + 1):
                 x0, x1 = cxi * cx, min(w, (cxi + 1) * cx)
-                body = np.zeros((ry1 - ry0, cx), self.dtype)
-                body[:, :x1 - x0] = plane[ry0 - y0:ry1 - y0, x0:x1]
-                fpath = self._chunk_file(t, c, z, cyi, cxi)
-                fd = os.open(fpath, os.O_WRONLY | os.O_CREAT, 0o644)
+                fd, is_direct = self._open(self._chunk_file(t, c, z, cyi,
+                                                            cxi))
                 try:
                     if not full_rows and os.fstat(fd).st_size < self.chunk_bytes:
                         os.ftruncate(fd, self.chunk_bytes)
-                    data = memoryview(body).cast('B')
-                    off = (ry0 - cyi * cy) * pitch
-                    done = 0
-                    while done < len(data):
-                        done += os.pwrite(fd, data[done:], off + done)
+                    self._pwrite_rows(fd, is_direct, plane, ry0 - y0, x0,
+                                      ry1 - ry0, x1 - x0, cx,
+                                      (ry0 - cyi * cy) * pitch)
                 finally:
                     os.close(fd)
 
 
-def read_array(path: str) -> np.ndarray:
-    """Decode a raw zarr v2 array (any chunking, '/' or '.' keys)."""
-    with open(os.path.join(path, '.zarray')) as f:
-        meta = json.load(f)
-    if meta.get('compressor') is not None or meta.get('filters'):
-        raise NotImplementedError(f"{path}: only raw zarr v2 arrays are read")
+class ChunkRowBuffer:
+    """Plane rows gathered per (t, c, z, chunk row) until each chunk row
+    can be encoded whole; ``store(key, row)`` gets ``key`` = (t, c, z,
+    cyi) and ``row``, an owned (ncx, cy, cx) array whose row-major
+    chunks are C-contiguous (zero where nothing was written).
+
+    A chunk row goes to ``store`` when all its rows inside the array are
+    written, when a write reaches a later chunk row of the same plane, or
+    at :meth:`flush`; at most one chunk row per plane is held. Rows
+    written again after their chunk row was stored raise: each chunk is
+    encoded once (no read-modify-write)."""
+
+    def __init__(self, shape: Sequence[int], chunks: Sequence[int], dtype,
+                 store: Callable):
+        self.shape = tuple(shape)
+        self.cy, self.cx = chunks[3], chunks[4]
+        self.ncx = -(-self.shape[4] // self.cx)
+        self.dtype = np.dtype(dtype)
+        self._store = store
+        self._open: Dict[Tuple[int, int, int], Tuple[int, np.ndarray,
+                                                     np.ndarray]] = {}
+        self._stored: Dict[Tuple[int, int, int], Set[int]] = {}
+
+    def write(self, t: int, c: int, z: int, y0: int,
+              plane: np.ndarray) -> None:
+        h, w = plane.shape
+        if h == 0 or w == 0:
+            return
+        if (plane.dtype != self.dtype or y0 < 0 or y0 + h > self.shape[3]
+                or w > self.shape[4]):
+            raise ValueError(f"slab {plane.shape} {plane.dtype} at row {y0} "
+                             f"does not fit {self.shape} {self.dtype}")
+        cy, cx = self.cy, self.cx
+        pkey = (t, c, z)
+        stored = self._stored.setdefault(pkey, set())
+        for cyi in range(y0 // cy, (y0 + h - 1) // cy + 1):
+            if cyi in stored:
+                raise ValueError(f"rows of chunk row {cyi} of plane {pkey} "
+                                 "written after it was encoded")
+            cur = self._open.get(pkey)
+            if cur is not None and cur[0] != cyi:
+                self._emit(pkey)
+                cur = None
+            if cur is None:
+                need = min(cy, self.shape[3] - cyi * cy)
+                cur = (cyi, np.zeros((self.ncx, cy, cx), self.dtype),
+                       np.zeros(need, bool))
+                self._open[pkey] = cur
+            _, row, covered = cur
+            ry0, ry1 = max(y0, cyi * cy), min(y0 + h, (cyi + 1) * cy)
+            for cxi in range((w - 1) // cx + 1):
+                x0, x1 = cxi * cx, min(w, (cxi + 1) * cx)
+                row[cxi, ry0 - cyi * cy:ry1 - cyi * cy, :x1 - x0] = \
+                    plane[ry0 - y0:ry1 - y0, x0:x1]
+            covered[ry0 - cyi * cy:ry1 - cyi * cy] = True
+            if covered.all():
+                self._emit(pkey)
+
+    def _emit(self, pkey) -> None:
+        cyi, row, _ = self._open.pop(pkey)
+        self._stored[pkey].add(cyi)
+        self._store(pkey + (cyi,), row)
+
+    def flush(self) -> None:
+        for pkey in sorted(self._open):
+            self._emit(pkey)
+
+
+class BloscZarrArray:
+    """A blosc-lz4 zarr v2 array, created on construction (any previous
+    array at ``path`` is replaced), written by plane slabs through a
+    :class:`ChunkRowBuffer`; each chunk is encoded and written on
+    ``pool``. :meth:`flush` hands over what is buffered; the owner closes
+    the pool."""
+
+    def __init__(self, path: str, shape: Sequence[int],
+                 chunks: Sequence[int], dtype, pool: EncodePool,
+                 clevel: int = 5, shuffle: int = 1):
+        self.path = path
+        self.shape = tuple(int(s) for s in shape)
+        self.chunks = clamp_chunks(chunks, self.shape)
+        self.dtype = np.dtype(dtype)
+        if len(self.shape) != 5 or self.chunks[:3] != (1, 1, 1):
+            raise ValueError("zarr arrays are (T, C, Z, Y, X) with one "
+                             "plane per chunk")
+        self.clevel, self.shuffle = int(clevel), int(shuffle)
+        self.pool = pool
+        blosc.lib()   # build the codec now: a missing compiler raises here
+        _fresh_array_dir(path)
+        _write_json_atomic(
+            os.path.join(path, '.zarray'),
+            zarray_meta(self.shape, self.chunks, self.dtype,
+                        blosc_meta('lz4', self.clevel, self.shuffle)),
+            indent=None)
+        self.rows = ChunkRowBuffer(self.shape, self.chunks, self.dtype,
+                                   self._store_row)
+
+    def write_plane_rows(self, t: int, c: int, z: int, y0: int,
+                         plane: np.ndarray) -> None:
+        self.rows.write(t, c, z, y0, plane)
+
+    def flush(self) -> None:
+        self.rows.flush()
+
+    def _store_row(self, key, row: np.ndarray) -> None:
+        t, c, z, cyi = key
+        d = os.path.join(self.path, str(t), str(c), str(z), str(cyi))
+        for cxi in range(row.shape[0]):
+            self.pool.submit(row[cxi].nbytes, self._store_chunk,
+                             os.path.join(d, str(cxi)), row[cxi])
+
+    def _store_chunk(self, fpath: str, chunk: np.ndarray) -> None:
+        if blosc.all_zero(chunk):
+            return   # equal to the fill value: not stored
+        frame = blosc.compress(chunk, self.dtype.itemsize, self.clevel,
+                               self.shuffle)
+        os.makedirs(os.path.dirname(fpath), exist_ok=True)
+        _write_file(fpath, frame)
+
+
+# ------------------------------------------------------------------ reading
+
+def _decode_chunk(body, codecs, chunk_shape, dtype) -> np.ndarray:
+    """One chunk's bytes through a v3 codec chain (bytes [+ blosc])."""
+    out = np.empty(chunk_shape, dtype)
+    names = [c['name'] for c in codecs]
+    if names == ['bytes']:
+        raw = np.frombuffer(body, np.uint8)
+        if raw.size != out.nbytes:
+            raise ValueError(f"raw chunk of {raw.size} bytes, "
+                             f"expected {out.nbytes}")
+        out.reshape(-1).view(np.uint8)[:] = raw
+    elif names == ['bytes', 'blosc']:
+        blosc.decompress(body, out.reshape(-1).view(np.uint8))
+    else:
+        raise NotImplementedError(f"zarr v3 codecs {names} are not read")
+    return out
+
+
+def _read_v2(path: str, meta: Dict) -> np.ndarray:
+    comp = meta.get('compressor')
+    if meta.get('filters') or (comp is not None and comp.get('id') != 'blosc'):
+        raise NotImplementedError(f"{path}: only raw and blosc zarr v2 "
+                                  "arrays are read")
     shape = tuple(meta['shape'])
     chunks = tuple(meta['chunks'])
     dtype = _ZARR_TO_DTYPE[meta['dtype']]
     sep = meta.get('dimension_separator', '.')
     out = np.full(shape, meta.get('fill_value') or 0, dtype)
-    grid = [range(-(-s // c)) for s, c in zip(shape, chunks)]
-    for idx in np.ndindex(*[len(g) for g in grid]):
+    grid = [-(-s // c) for s, c in zip(shape, chunks)]
+    for idx in np.ndindex(*grid):
         fpath = os.path.join(path, sep.join(str(i) for i in idx))
         if not os.path.exists(fpath):
             continue
-        body = np.fromfile(fpath, dtype).reshape(chunks)
+        if comp is None:
+            body = np.fromfile(fpath, dtype).reshape(chunks)
+        else:
+            with open(fpath, 'rb') as f:
+                body = np.empty(chunks, dtype)
+                blosc.decompress(f.read(), body.reshape(-1).view(np.uint8))
         sel = tuple(slice(i * c, min((i + 1) * c, s))
                     for i, c, s in zip(idx, chunks, shape))
         out[sel] = body[tuple(slice(0, s.stop - s.start) for s in sel)]
     return out
+
+
+def _read_v3(path: str, meta: Dict) -> np.ndarray:
+    from .zarr_shard import read_shard
+    shape = tuple(meta['shape'])
+    dtype = np.dtype(meta['data_type'])
+    grid_shape = tuple(meta['chunk_grid']['configuration']['chunk_shape'])
+    if meta.get('chunk_key_encoding', {}).get('name', 'default') != 'default':
+        raise NotImplementedError(f"{path}: chunk key encoding")
+    codecs = meta['codecs']
+    out = np.full(shape, meta.get('fill_value') or 0, dtype)
+    grid = [-(-s // c) for s, c in zip(shape, grid_shape)]
+    for idx in np.ndindex(*grid):
+        fpath = os.path.join(path, 'c', *(str(i) for i in idx))
+        if not os.path.exists(fpath):
+            continue
+        with open(fpath, 'rb') as f:
+            data = f.read()
+        if codecs[0]['name'] == 'sharding_indexed':
+            block = read_shard(data, codecs[0]['configuration'], grid_shape,
+                               dtype, meta.get('fill_value') or 0)
+        else:
+            block = _decode_chunk(data, codecs, grid_shape, dtype)
+        sel = tuple(slice(i * c, min((i + 1) * c, s))
+                    for i, c, s in zip(idx, grid_shape, shape))
+        out[sel] = block[tuple(slice(0, s.stop - s.start) for s in sel)]
+    return out
+
+
+def read_array(path: str) -> np.ndarray:
+    """Decode a zarr array: v2 (raw or blosc, any chunking, '/' or '.'
+    keys) or v3 (raw or blosc chunks, sharded or not)."""
+    v3 = os.path.join(path, 'zarr.json')
+    if os.path.exists(v3):
+        with open(v3) as f:
+            return _read_v3(path, json.load(f))
+    with open(os.path.join(path, '.zarray')) as f:
+        return _read_v2(path, json.load(f))

@@ -6,8 +6,9 @@ the host, or with ``flatfield_device='device'`` on the device), measure
 registration (the center pair on the host; or every adjacent pair, in
 batches on the device, aggregated by median ('all-pairs') or solved for
 per-tile positions ('global', optionally subpixel)), then fuse every
-(timepoint, region) by overwrite or feathered blending into raw OME-Zarr
-v2. A canvas over ``streaming_threshold_bytes`` (or any canvas with
+(timepoint, region) by overwrite or feathered blending into OME-Zarr
+(v2, or v3 with shards; blosc-lz4 chunks, or raw, or 'auto'
+(:meth:`StitchPipeline.resolved_compressor`)). A canvas over ``streaming_threshold_bytes`` (or any canvas with
 ``streaming='on'``) streams through :class:`~image_stitcher_tpu_torch.
 models.streaming.DeviceStreamingFuser` in bands; a smaller one (every
 well of an HCS plate) is fused whole on the device
@@ -33,6 +34,7 @@ import contextlib
 import json
 import os
 import random
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -108,7 +110,9 @@ class StitchPipeline:
         self.flatfields: Dict[int, np.ndarray] = {}
         self._ff_recip_np_cache: Optional[np.ndarray] = None
         self._ff_recip_dev_cache: Optional[torch.Tensor] = None
-        self._compressor_checked = False
+        self._compressor_choice: Optional[Tuple[Optional[str], int, int]] \
+            = None
+        self._compressor_lock = threading.Lock()
         self.shifts = geo.RegistrationShifts(scan_pattern=params.scan_pattern)
         self.num_pyramid_levels = 1
         self.registration_channel = params.registration_channel
@@ -230,31 +234,82 @@ class StitchPipeline:
                 self._flatfield_recip_np()).to(self.device)
         return self._ff_recip_dev_cache
 
-    def _check_compressor(self) -> None:
-        """The port writes raw chunks only. 'auto' stores raw chunks when
-        the content does not compress (median zlib-1 ratio of the first,
-        center and last tiles above 0.6); on compressible content it
-        would choose blosc-lz4, which the port cannot write yet: raise."""
-        if self.options.compressor_cname is None or self._compressor_checked:
-            return
+    def resolved_compressor(self) -> Tuple[Optional[str], int, int]:
+        """(cname, clevel, shuffle) for the zarr writers. 'auto' stores
+        raw chunks unless both gates pass: the median zlib-1 ratio of the
+        first, center and last tiles is at most 0.6 (the content
+        compresses; zlib-1 under-reports blosc's ratio), and the output
+        device's probed write rate is under 300 MB/s per core (the disk,
+        not the CPU, is the bottleneck); then blosc-lz4, clevel 5,
+        shuffled. Decided once per run, under a lock, so every writer
+        agrees (the JAX package's rule)."""
+        opts = self.options
+        if opts.compressor_cname != 'auto':
+            return (opts.compressor_cname, opts.compressor_clevel,
+                    opts.compressor_shuffle)
+        with self._compressor_lock:
+            if self._compressor_choice is None:
+                self._compressor_choice = self._choose_compressor()
+            return self._compressor_choice
+
+    def _choose_compressor(self) -> Tuple[Optional[str], int, int]:
         import zlib
+        from ..params import _available_cpus
         keys = sorted(self.acq.tiles.keys())
-        ratios = []
+        ratios, probed = [], []
         for i in sorted({0, len(keys) // 2, len(keys) - 1}):
-            flat = np.ravel(read_image(self.acq.tiles[keys[i]].filepath))
+            rec = self.acq.tiles[keys[i]]
+            flat = np.ravel(read_image(rec.filepath))
             raw = np.ascontiguousarray(
                 flat[:(1 << 20) // flat.itemsize]).tobytes()
             ratios.append(len(zlib.compress(raw, 1)) / max(1, len(raw)))
+            probed.append(os.path.basename(rec.filepath))
         ratio = float(np.median(ratios))
-        if ratio <= 0.6:
-            raise _not_ported(
-                f"compressor 'auto' on compressible content (median zlib "
-                f"ratio {ratio:.2f}), which selects blosc-lz4",
-                "item 'blosc-lz4 chunks'")
+        detail = ", ".join(f"{n}={r:.2f}" for n, r in zip(probed, ratios))
+        reason = None
+        if ratio > 0.6:
+            reason = "content doesn't compress enough"
+        else:
+            disk = self._probed_disk_mbps()
+            ncores = _available_cpus()
+            if disk is not None and disk >= 300.0 * ncores:
+                reason = f"disk {disk:.0f} MB/s outruns {ncores}-core lz4"
+        if reason is not None:
+            self.reporter.status(
+                f"compressor auto: median ratio {ratio:.2f} ({detail}) — "
+                f"storing raw chunks ({reason})", False)
+            return (None, 0, 0)
         self.reporter.status(
-            f"compressor auto: median ratio {ratio:.2f} — storing raw "
-            "chunks", False)
-        self._compressor_checked = True
+            f"compressor auto: median ratio {ratio:.2f} ({detail}) — "
+            "blosc-lz4-5", False)
+        return ('lz4', 5, 1)
+
+    def _probed_disk_mbps(self) -> Optional[float]:
+        """The output device's measured write rate (the better of the
+        probe's buffered and direct arms), or None without a real
+        measurement (O_DIRECT unsupported: 0.0 rates), so the decision
+        falls back to the ratio gate alone."""
+        from ..io.directio import probe_direct_io
+        entry = probe_direct_io(os.path.dirname(self.output_folder) or '.')
+        if entry:
+            best = max(float(entry.get('buffered_mbps', 0.0)),
+                       float(entry.get('direct_mbps', 0.0)))
+            if best > 0.0:
+                return best
+        return None
+
+    def _writer(self, output_path: str, shape, num_levels: int,
+                name: str) -> MultiscaleWriter:
+        """The OME-Zarr writer of one (timepoint, region) output."""
+        acq = self.acq
+        opts = self.options
+        cname, clevel, shuffle = self.resolved_compressor()
+        return MultiscaleWriter(
+            output_path, shape, num_levels, acq.dtype, opts.chunks, name,
+            acq.dz_um, acq.pixel_size_um, acq.monochrome_channels,
+            acq.monochrome_colors, cname=cname, clevel=clevel,
+            shuffle=shuffle, zarr_format=opts.zarr_format,
+            direct_io=opts.direct_io)
 
     # ---------------------------------------------------------- registration
 
@@ -834,21 +889,24 @@ class StitchPipeline:
         output_path = self.per_timepoint_region_output_template.format(
             timepoint=t, region=region)
         os.makedirs(os.path.dirname(output_path), exist_ok=True)
-        writer = MultiscaleWriter(
-            output_path, (1, acq.num_c, acq.num_z, height, width),
-            self.num_pyramid_levels, acq.dtype, opts.chunks,
-            f"{region}_t{t}", acq.dz_um, acq.pixel_size_um,
-            acq.monochrome_channels, acq.monochrome_colors)
+        writer = self._writer(output_path,
+                              (1, acq.num_c, acq.num_z, height, width),
+                              self.num_pyramid_levels, f"{region}_t{t}")
         ff = self._flatfield_recip_np() if self.flatfields else None
-        fuser = DeviceStreamingFuser(
-            writer, height, width,
-            acq.input_height, acq.input_width, acq.dtype,
-            self.num_pyramid_levels, opts.pyramid_downsample,
-            chunk_rows=opts.write_band_rows() * opts.device_band_multiple,
-            batch_size=opts.fusion_batch,
-            reader_threads=opts.resolved_reader_threads(),
-            ff_recip=ff, blend_method=opts.blend_method,
-            blend_px=opts.feather_px, device=self.device)
+        try:
+            fuser = DeviceStreamingFuser(
+                writer, height, width,
+                acq.input_height, acq.input_width, acq.dtype,
+                self.num_pyramid_levels, opts.pyramid_downsample,
+                chunk_rows=opts.write_band_rows() * opts.device_band_multiple,
+                batch_size=opts.fusion_batch,
+                reader_threads=opts.resolved_reader_threads(),
+                ff_recip=ff, blend_method=opts.blend_method,
+                blend_px=opts.feather_px, device=self.device)
+        except BaseException:
+            writer.abort()
+            raise
+        # run() closes the writer, or aborts it when the region fails
         fuser.run(jobs, progress_cb=self.reporter.update_progress,
                   stop_check=self._check_stop)
         self.fuse_stats[f"{region}_t{t}"] = dict(fuser.stats,
@@ -885,27 +943,29 @@ class StitchPipeline:
             timepoint=t, region=region)
         os.makedirs(os.path.dirname(output_path), exist_ok=True)
         c, z, h, w = canvas.shape
-        writer = MultiscaleWriter(
-            output_path, (1, c, z, h, w), num_levels, acq.dtype, opts.chunks,
-            f"{region}_t{t}", acq.dz_um, acq.pixel_size_um,
-            acq.monochrome_channels, acq.monochrome_colors)
+        writer = self._writer(output_path, (1, c, z, h, w), num_levels,
+                              f"{region}_t{t}")
         on_cuda = canvas.device.type == 'cuda'
         scope = contextlib.nullcontext()
-        if on_cuda:
-            side = torch.cuda.Stream(canvas.device)
-            if ready is not None:
-                side.wait_event(ready)
-            else:
-                side.wait_stream(torch.cuda.current_stream(canvas.device))
-            canvas.record_stream(side)
-            scope = torch.cuda.stream(side)
-        with scope:
-            for lv, level in enumerate(iter_levels(canvas, num_levels,
-                                                   opts.pyramid_downsample)):
-                host = torch.empty(tuple(level.shape), dtype=level.dtype,
-                                   pin_memory=on_cuda)
-                host.copy_(level)   # waits for the copy: host is read next
-                writer.write_level(lv, host.numpy()[None])
+        try:
+            if on_cuda:
+                side = torch.cuda.Stream(canvas.device)
+                if ready is not None:
+                    side.wait_event(ready)
+                else:
+                    side.wait_stream(torch.cuda.current_stream(canvas.device))
+                canvas.record_stream(side)
+                scope = torch.cuda.stream(side)
+            with scope:
+                for lv, level in enumerate(iter_levels(
+                        canvas, num_levels, opts.pyramid_downsample)):
+                    host = torch.empty(tuple(level.shape), dtype=level.dtype,
+                                       pin_memory=on_cuda)
+                    host.copy_(level)   # waits for the copy: host is read next
+                    writer.write_level(lv, host.numpy()[None])
+        except BaseException:
+            writer.abort()   # queued chunks must not land after the error
+            raise
         writer.close()
         return output_path
 
@@ -1014,7 +1074,6 @@ class StitchPipeline:
                     self._check_stop()
                     self.reporter.starting_stitching()
                     try:
-                        self._check_compressor()
                         stream = self._should_stream(timepoint, region)
                         if stream:
                             with self.timers.time('stream_fuse_save'):

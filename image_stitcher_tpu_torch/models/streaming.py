@@ -129,8 +129,10 @@ class DeviceStreamingFuser:
         #: batches placed (one placement kernel launch each on CUDA)
         self.batches = 0
         #: wall seconds: 'fuse' (main thread, loads + uploads + launches),
-        #: 'readback_wait' and 'write' (writer thread)
-        self.stats = {'fuse': 0.0, 'readback_wait': 0.0, 'write': 0.0}
+        #: 'readback_wait' and 'write' (writer thread), 'close' (the
+        #: writer's last chunks encoded and written after the last band)
+        self.stats = {'fuse': 0.0, 'readback_wait': 0.0, 'write': 0.0,
+                      'close': 0.0}
 
     def _fuse_band(self, band_c: int, band0: int, band_jobs: Sequence,
                    progress_cb=None, stop_check=None):
@@ -282,8 +284,11 @@ class DeviceStreamingFuser:
             except queue.Full:
                 continue
         wt.join()
-        if fuse_exc is not None:
-            raise fuse_exc
-        if write_err:
-            raise write_err[0]
+        if fuse_exc is not None or write_err:
+            # chunks still queued for encoding would land in the tree
+            # after the error is reported
+            self.writer.abort()
+            raise fuse_exc if fuse_exc is not None else write_err[0]
+        t0 = time.perf_counter()
         self.writer.close()
+        self.stats['close'] = time.perf_counter() - t0

@@ -6,14 +6,10 @@ defaults and JSON round-trip of ``image_stitcher_tpu/params.py``, so a
 differs is what the port runs: flatfield (fitted on the host or the
 device), registration (center pair, all pairs, or the global position
 solve with optional subpixel placement; reports and debug images),
-overwrite or feathered fusion on CUDA, in bands or whole canvases, raw
-OME-Zarr v2. Every option outside those paths raises
-``NotImplementedError`` naming the ROADMAP item that will bring it,
-instead of running something else in its place.
-
-One default differs: ``compressor_cname`` is ``None`` (raw chunks). The
-JAX package's 'lz4' needs a blosc codec that the CUDA host lacks, so it
-raises here; 'auto' works when the probe stores raw chunks.
+overwrite or feathered fusion on CUDA, in bands or whole canvases,
+OME-Zarr v2 or v3 with raw or blosc-lz4 chunks. Every option outside
+those paths raises ``NotImplementedError`` naming the ROADMAP item that
+will bring it, instead of running something else in its place.
 """
 
 from __future__ import annotations
@@ -110,8 +106,10 @@ class EngineOptions:
     upsample_factor: int = 10
     flatfield_tiles_per_timepoint: int = 32
     flatfield_max_tiles: int = 48
-    # None = raw chunks; 'auto' = raw when the content does not compress
-    compressor_cname: Optional[str] = None
+    # blosc-lz4 clevel 5 with byte shuffle (the JAX package's default);
+    # None = raw chunks; 'auto' = lz4 only when the content compresses
+    # and the output disk is slower than the cores' lz4
+    compressor_cname: Optional[str] = 'lz4'
     compressor_clevel: int = 5
     compressor_shuffle: int = 1
     direct_io: str = 'auto'
@@ -197,10 +195,9 @@ class EngineOptions:
         unported = [
             (self.fusion_device == 'host', "the host fuser",
              "item 'host fuser'"),
-            (self.zarr_format == 3, "zarr v3 output", "item 'zarr v3'"),
-            (self.compressor_cname not in (None, 'auto'),
-             f"compressed chunks ({self.compressor_cname!r})",
-             "item 'blosc-lz4 chunks'"),
+            (self.compressor_cname not in (None, 'auto', 'lz4'),
+             f"blosc {self.compressor_cname!r} chunks",
+             "item 'other blosc codecs'"),
             (self.mesh_shape is not None, "multi-device meshes",
              "item 'multi-GPU'"),
             (self.work_shard is not None, "work sharding",

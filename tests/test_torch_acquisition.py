@@ -11,6 +11,7 @@ import pandas as pd
 import pytest
 
 from fixtures import DEFAULT_ACQ_PARAMS, write_synthetic_acquisition
+from torch_helpers import small_disk_probe  # noqa: F401
 from image_stitcher_tpu.io.acquisition import scan_acquisition as jscan
 from image_stitcher_tpu.io.omezarr import MultiscaleWriter as JWriter
 from image_stitcher_tpu.io.zarr_store import open_zarr_array

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from fixtures import write_synthetic_acquisition
+from torch_helpers import small_disk_probe  # noqa: F401
 from image_stitcher_tpu.ops import fuse as jfuse
 from image_stitcher_tpu.ops.pallas_fuse import (fuse_feather_pallas,
                                                 pallas_padded_canvas_shape)

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from fixtures import write_synthetic_acquisition
+from torch_helpers import small_disk_probe  # noqa: F401
 from image_stitcher_tpu import EngineOptions as JaxOptions
 from image_stitcher_tpu import stitch as jax_stitch
 from image_stitcher_tpu.io.zarr_store import open_zarr_array
@@ -117,6 +118,7 @@ def _port_run(acq, out, opts, state=None, **extra):
                        device=CPU, state=state,
                        options=port.EngineOptions(output_folder=out,
                                                   streaming='off',
+                                                  compressor_cname=None,
                                                   **dict(opts, **extra)))
 
 
@@ -260,7 +262,7 @@ def test_device_flatfield_matches_jax(tmp_path):
     pipe = port.stitch(acq, apply_flatfield=True, device=CPU,
                        options=port.EngineOptions(
                            output_folder=str(tmp_path / "port"),
-                           streaming='off', **opts))
+                           streaming='off', compressor_cname=None, **opts))
     assert sorted(pipe.flatfields) == sorted(jpipe.flatfields) == [0, 1]
     for idx, field in jpipe.flatfields.items():
         np.testing.assert_allclose(pipe.flatfields[idx], np.asarray(field),

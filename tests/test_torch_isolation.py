@@ -1,9 +1,10 @@
-"""The port stands alone: it loads and runs, the main path, the
-maximum-quality path (global registration, subpixel placement,
-feathering) and the in-RAM path (whole canvases, the device flatfield
-solver, the registration report and debug images), with jax, pandas,
-tensorstore, OpenCV, imageio and the JAX package all unimportable, as on
-a CUDA host that has none of them."""
+"""The port stands alone: it loads and runs, the main path at default
+options (blosc-lz4 chunks through its own C codec, read back by its own
+reader), the maximum-quality path (global registration, subpixel
+placement, feathering) and the in-RAM path (whole canvases, the device
+flatfield solver, the registration report and debug images), with jax,
+pandas, tensorstore, numcodecs, blosc, OpenCV, imageio and the JAX
+package all unimportable, as on a CUDA host that has none of them."""
 
 import ast
 import os
@@ -16,8 +17,8 @@ from fixtures import write_synthetic_acquisition
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "image_stitcher_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "pandas", "tensorstore", "cv2", "imageio",
-           "image_stitcher_tpu")
+BLOCKED = ("jax", "jaxlib", "pandas", "tensorstore", "numcodecs", "blosc",
+           "cv2", "imageio", "image_stitcher_tpu")
 
 CHILD = textwrap.dedent("""
     import importlib.abc, sys
@@ -38,7 +39,13 @@ CHILD = textwrap.dedent("""
                        device=torch.device('cpu'),
                        options=port.EngineOptions(chunks=(1, 1, 1, 32, 32),
                                                   output_folder={out!r}))
-    level0 = read_array({out!r} + '/0_stitched/A1_stitched.ome.zarr/0')
+    import json
+    level0 = {out!r} + '/0_stitched/A1_stitched.ome.zarr/0'
+    with open(level0 + '/.zarray') as f:
+        compressor = json.load(f)['compressor']
+    assert compressor['id'] == 'blosc' and compressor['cname'] == 'lz4', \
+        compressor
+    level0 = read_array(level0)
     assert level0.shape[:3] == (1, 1, 1) and level0.any(), level0.shape
     loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded

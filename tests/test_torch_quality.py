@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from fixtures import write_synthetic_acquisition
+from torch_helpers import small_disk_probe  # noqa: F401
 from image_stitcher_tpu import EngineOptions as JaxOptions
 from image_stitcher_tpu import stitch as jax_stitch
 from image_stitcher_tpu.io.zarr_store import open_zarr_array
@@ -100,6 +101,7 @@ def _port_run(acq, out, state=None, streaming='on'):
                        device=CPU, state=state,
                        options=port.EngineOptions(output_folder=out,
                                                   streaming=streaming,
+                                                  compressor_cname=None,
                                                   **COMMON, **QUALITY))
 
 
@@ -210,7 +212,7 @@ def test_all_pairs_shifts_equal(tmp_path, index):
     pipe = port.stitch(acq, use_registration=True, device=CPU,
                        options=port.EngineOptions(
                            output_folder=str(tmp_path / "port"),
-                           streaming='on', **opts))
+                           streaming='on', compressor_cname=None, **opts))
     assert pipe.device_pairs > 0
     assert pipe.shifts == port.state_from_reference(
         shifts=jpipe.shifts).shifts

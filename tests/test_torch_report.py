@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from fixtures import write_synthetic_acquisition
+from torch_helpers import small_disk_probe  # noqa: F401
 from image_stitcher_tpu import EngineOptions as JaxOptions
 from image_stitcher_tpu import stitch as jax_stitch
 from image_stitcher_tpu.ops import globalopt as jax_globalopt
@@ -62,7 +63,8 @@ def _run_both(tmp_path, acq, options, **params):
                        options=port.EngineOptions(
                            output_folder=str(tmp_path / "port"),
                            streaming='off', registration_report=True,
-                           **CHUNKS, **options), **params)
+                           compressor_cname=None, **CHUNKS, **options),
+                       **params)
     reports = []
     for out in (tmp_path / "port", tmp_path / "jax"):
         with open(out / "registration_report.json") as f:

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from fixtures import write_synthetic_acquisition
+from torch_helpers import small_disk_probe  # noqa: F401
 from image_stitcher_tpu import EngineOptions as JaxOptions
 from image_stitcher_tpu import stitch as jax_stitch
 from image_stitcher_tpu.io.zarr_store import open_zarr_array
@@ -91,6 +92,7 @@ def _port_run(acq, out, opts, state=None, streaming='on'):
                        device=CPU, state=state,
                        options=port.EngineOptions(output_folder=out,
                                                   streaming=streaming,
+                                                  compressor_cname=None,
                                                   **opts))
 
 
@@ -228,12 +230,13 @@ def test_cli_runs_the_slice_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    # feather and the global scope run; with an unported companion
-    # option they still raise, naming it
-    dict(blend_method='feather', zarr_format=3),
+    # feather, the global scope, zarr v3 and blosc-lz4 run; with an
+    # unported companion option they still raise, naming it
+    dict(blend_method='feather', compressor_cname='lz4hc'),
     dict(registration_scope='global', fusion_device='host'),
     dict(fusion_device='host'),
-    dict(zarr_format=3), dict(compressor_cname='lz4'),
+    dict(zarr_format=3, compressor_cname='blosclz'),
+    dict(compressor_cname='zstd'),
     dict(mesh_shape=(1, 2)),
     dict(work_shard=(0, 2), output_folder='/nonexistent')],
     ids=lambda d: next(iter(d)))
@@ -272,20 +275,33 @@ def test_cuda_by_default_and_never_a_silent_cpu_run(tmp_path):
 
 
 @pytest.mark.parametrize("compressible", [False, True])
-def test_compressor_auto_stores_raw_or_refuses(tmp_path, compressible):
+def test_compressor_auto_stores_raw_or_refuses(tmp_path, monkeypatch,
+                                               compressible):
     """'auto' stores raw chunks for content that does not compress, and
-    refuses (blosc-lz4 is not ported) for content that does."""
+    blosc-lz4 chunks for content that does when the probed disk is
+    slower than the cores' lz4 (here: 10 MB/s); both decode to the tree
+    a raw run writes."""
+    from image_stitcher_tpu_torch.io import directio
+    monkeypatch.setattr(directio, "probe_direct_io", lambda d: {
+        "ts": 0.0, "buffered_mbps": 10.0, "direct_mbps": 5.0})
     acq = str(tmp_path / "acq")
     write_synthetic_acquisition(acq, grid_cols=2, grid_rows=1, tile_w=64,
                                 tile_h=64, overlap=16,
                                 gt_quantize_bits=12 if compressible else 0)
-    options = port.EngineOptions(compressor_cname='auto',
-                                 output_folder=str(tmp_path / "out"))
+    trees = {}
+    for cname in ('auto', None):
+        out = tmp_path / f"out_{cname}"
+        pipe = port.stitch(acq, device=CPU, options=port.EngineOptions(
+            compressor_cname=cname, output_folder=str(out)))
+        level0 = out / "0_stitched" / "A1_stitched.ome.zarr" / "0"
+        with open(level0 / ".zarray") as f:
+            trees[cname] = (json.load(f)["compressor"],
+                            read_array(str(level0)))
+    assert pipe.resolved_compressor() == (None, 5, 1)
+    compressor, got = trees['auto']
     if compressible:
-        with pytest.raises(NotImplementedError, match="blosc-lz4"):
-            port.stitch(acq, device=CPU, options=options)
-        return
-    port.stitch(acq, device=CPU, options=options)
-    with open(tmp_path / "out" / "0_stitched" / "A1_stitched.ome.zarr" / "0"
-              / ".zarray") as f:
-        assert json.load(f)["compressor"] is None
+        assert compressor == {"blocksize": 0, "clevel": 5, "cname": "lz4",
+                              "id": "blosc", "shuffle": 1}
+    else:
+        assert compressor is None
+    np.testing.assert_array_equal(got, trees[None][1])
