@@ -6,8 +6,8 @@
 Phases, each fatal on failure:
   1. environment: torch/CUDA versions, card name and power limit;
   2. build: the CUDA kernels, compiled from csrc/ with nvcc, and the host
-     chunk codec with the C compiler (one compiler per source, started
-     together);
+     chunk codec and tile decoders with the C compiler (one compiler per
+     source, started together);
   3. kernel vs plain: every kernel against its plain PyTorch version on
      seeded batches at the main-path shapes (overwrite canvas byte-equal,
      feather acc/wsum bit-equal, finalize byte-equal): the band canvas at
@@ -57,7 +57,20 @@ Phases, each fatal on failure:
      the ratio; the 'auto' compressor's decision and the disk probe's
      buffered and direct MB/s; a 3x3 raw run with direct_io='on'
      byte-equal to 'off'; a 3x3 zarr v3 (sharded) lz4 run decoded equal
-     to the v2 run.
+     to the v2 run;
+  9. tile input without OpenCV: (a) the C tile decoders (TIFF LZW,
+     PackBits, the horizontal predictor, PNG row unfiltering) against
+     their plain versions and their sources, BMP row layouts, and each
+     routine's MB/s on 2048^2 u16 tiles on one thread and on the 8-thread
+     reader pool; (b) the main path's grid and options (as phase 5) on the
+     bench's compressible content, stored as uncompressed TIFF, as 16-bit
+     PNG with the row filters cycling and as deflate + predictor TIFF in
+     2-row strips: the PNG and deflate trees decode equal to the
+     uncompressed one, with e2e, tiles/s, the loader's and the writer's
+     seconds, decode seconds a tile and decodes a file; (c) 3x3 grids: a
+     u8 mono BMP acquisition (gray palette, bottom-up rows) equal to its
+     uncompressed-TIFF twin, and a u8 RGB PNG acquisition on the in-RAM
+     path, the card's tree equal to a CPU run's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -68,12 +81,14 @@ and removed at the end.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -94,12 +109,13 @@ KERNELS = {
                          'image_stitcher_tpu/ops/fuse.py:121'),
 }
 LIBRARIES = sorted({lib for lib, _, _ in KERNELS.values()})
-#: the host chunk codec (csrc/blosc_lz4.c), built with the C compiler
-CODEC = 'blosc_lz4'
+#: the host C sources, built with the C compiler: the chunk codec
+#: (csrc/blosc_lz4.c) and the tile decoders (csrc/tile_decode.c)
+HOST_LIBRARIES = ['blosc_lz4', 'tile_decode']
 TILE = 2048
 #: modules the card's host lacks; the port must load none of them
 BANNED = ('jax', 'jaxlib', 'pandas', 'tensorstore', 'numcodecs', 'blosc',
-          'cv2', 'image_stitcher_tpu')
+          'cv2', 'PIL', 'imageio', 'image_stitcher_tpu')
 BLEND = 64
 
 
@@ -130,17 +146,18 @@ def phase_environment() -> str:
 
 def phase_build() -> None:
     from image_stitcher_tpu_torch import native
-    libraries = LIBRARIES + [CODEC]
+    libraries = LIBRARIES + HOST_LIBRARIES
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(native.load, libraries))
     log(f"build: {len(libraries)} sources in {time.perf_counter() - t0:.1f}s;"
-        " nvcc " + " ".join(native.NVCC_FLAGS) + "; the chunk codec "
-        + os.path.basename(native.find_cc()) + " " + " ".join(native.CC_FLAGS))
+        " nvcc " + " ".join(native.NVCC_FLAGS) + "; the codec and the tile "
+        "decoders " + os.path.basename(native.find_cc()) + " "
+        + " ".join(native.CC_FLAGS))
     for name in libraries:
         info = native.BUILDS[name]
         how = ('cached' if info['cached'] else
-               'cc' if name == CODEC else 'nvcc')
+               'cc' if name in HOST_LIBRARIES else 'nvcc')
         log(f"build: {info['path']} ({how} {info['seconds']:.1f}s)")
         for line in info['log'].splitlines():
             if 'registers' in line or 'spill' in line or 'Compiling' in line:
@@ -532,14 +549,17 @@ def tiff_bytes_header(h: int, w: int) -> bytes:
 
 def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
                       seed: int, jitter: int = 0, regions=('A1',),
-                      texture=None):
+                      texture=None, encode=None, suffix='tiff',
+                      channels=CHANNELS):
     """A Squid acquisition: per region (an HCS well; wells 20 mm apart on
     the stage), grid x grid tiles of ``tile``^2 uint16 cut at ``overlap``
     px overlap from one seeded texture of its own (full entropy, or
-    ``texture(rng, side)``), each
-    tile's window moved by up to +-``jitter`` px (stage error; the
+    ``texture(rng, side)``, which may be uint8 or (side, side, 3) RGB),
+    each tile's window moved by up to +-``jitter`` px (stage error; the
     coordinates claim the ideal grid), written as uncompressed TIFF for
-    every channel, plus coordinates.csv and 'acquisition
+    every channel, or as the file bytes ``encode(tile)`` gives (one
+    encode a tile on a thread pool, its bytes written for every channel,
+    named ``*.{suffix}``), plus coordinates.csv and 'acquisition
     parameters.json' (the layout of the JAX package's test fixtures).
     Returns (texture, {fov: (y0, x0)}) of the first region."""
     import csv
@@ -554,6 +574,16 @@ def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
     header = tiff_bytes_header(tile, tile)
     rows = []
     first = None
+    pending = []
+
+    def write_encoded(item):
+        region, fov, body = item
+        data = encode(body)
+        for ch in channels:
+            name = f"{region}_{fov}_0_{ch.replace(' ', '_')}.{suffix}"
+            with open(os.path.join(tdir, name), 'wb') as f:
+                f.write(data)
+
     for well, region in enumerate(regions):
         gt = (texture(rng, side) if texture is not None else
               rng.integers(6553, 58982, (side, side), dtype=np.uint16))
@@ -571,11 +601,17 @@ def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
                                              6),
                              "z (um)": 0.0})
                 body = np.ascontiguousarray(gt[y0:y0 + tile, x0:x0 + tile])
-                for ch in CHANNELS:
+                if encode is not None:
+                    pending.append((region, fov, body))
+                    continue
+                for ch in channels:
                     name = f"{region}_{fov}_0_{ch.replace(' ', '_')}.tiff"
                     with open(os.path.join(tdir, name), 'wb') as f:
                         f.write(header)
                         body.tofile(f)
+        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+            list(pool.map(write_encoded, pending))
+        pending = []
         if first is None:
             first = (gt, origins)
     with open(os.path.join(tdir, 'coordinates.csv'), 'w', newline='') as f:
@@ -1496,6 +1532,369 @@ def phase_output_layer(work: str, card: str, grid: int = 10,
     return {'rates': rates, 'runs': runs, 'auto': choice, 'probe': entry}
 
 
+# --------------------------------------------------------------------- 9
+
+#: the reader pool of the main path (``reader_threads=8``)
+READERS = 8
+GRAY_PALETTE = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+
+
+def tile_files():
+    """``tests/torch_tile_files.py``: plain encoders (TIFF LZW, PackBits,
+    the predictor, PNG filters) and TIFF/PNG/BMP writers in NumPy and the
+    standard library; the card's host has no OpenCV to write tiles."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests')
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_tile_files
+    return torch_tile_files
+
+
+def textures(rng, side: int, planes: int, dtype=np.uint16) -> np.ndarray:
+    """(side, side) or (side, side, planes) of :func:`compressible`
+    content (its high byte for uint8)."""
+    out = [compressible(rng, side) for _ in range(planes)]
+    if dtype == np.uint8:
+        out = [(p >> 8).astype(np.uint8) for p in out]
+    return out[0] if planes == 1 else np.stack(out, axis=-1)
+
+
+def decoder_check(rng) -> None:
+    """9a: each C decoder against its plain version and the data it was
+    made from: LZW, PackBits and the predictor on u8 and u16 with 1 and 3
+    samples a pixel (512^2 px: the plain LZW runs in Python); the PNG
+    unfilter with the five filters cycling over the rows at 1-8 bytes a
+    pixel (the C routine at 2048^2 against the source, the plain one on
+    the first 16 rows); BMP row layouts, a 2048^2 deflate + predictor TIFF
+    in 2-row strips and a 2048^2 16-bit PNG against their sources."""
+    from image_stitcher_tpu_torch.io import tile_decode as td
+    from image_stitcher_tpu_torch.io.bmp import decode_bmp
+    from image_stitcher_tpu_torch.io.png import decode_png
+    from image_stitcher_tpu_torch.io.tiff import decode_tiff
+    tf = tile_files()
+    t0 = time.perf_counter()
+    side = 512
+    for dtype in (np.uint8, np.uint16):
+        for spp in (1, 3):
+            img = textures(rng, side, spp, dtype).reshape(side, side * spp)
+            diff = tf.apply_predictor(img, spp)
+            raw = diff.tobytes()
+            for codec, enc, fast, plain in (
+                    ('LZW', tf.lzw_encode, td.lzw_decode,
+                     td.lzw_decode_plain),
+                    ('PackBits', tf.packbits_encode, td.packbits_decode,
+                     td.packbits_decode_plain)):
+                data = enc(raw)
+                if (fast(data, len(raw)).tobytes() != raw
+                        or plain(data, len(raw)).tobytes() != raw):
+                    raise SystemExit(f"tile input: {codec} of "
+                                     f"{np.dtype(dtype).name} x{spp} does "
+                                     f"not decode to its source")
+                log(f"tile input: {codec} {np.dtype(dtype).name} x{spp} "
+                    f"{side}^2: C and plain decode byte-equal to the source "
+                    f"({len(data)} bytes for {len(raw)})")
+            if not (np.array_equal(td.undo_predictor(diff.copy(), spp), img)
+                    and np.array_equal(td.undo_predictor_plain(diff.copy(),
+                                                               spp), img)):
+                raise SystemExit(f"tile input: the predictor of "
+                                 f"{np.dtype(dtype).name} x{spp} differs")
+    log("tile input: predictor undone byte-equal (C, plain) for u8/u16 "
+        "x 1/3 samples")
+    for bpp in (1, 2, 3, 4, 6, 8):
+        rows = textures(rng, TILE, 1, np.uint8)
+        rows = np.tile(rows, (1, bpp))
+        data = tf.png_filter(rows, bpp, [r % 5 for r in range(TILE)])
+        if not np.array_equal(td.png_unfilter(data, TILE, TILE * bpp, bpp),
+                              rows):
+            raise SystemExit(f"tile input: PNG unfilter at {bpp} bytes a "
+                             f"pixel differs from the source")
+        head = data[:16 * (TILE * bpp + 1)]
+        if not np.array_equal(td.png_unfilter_plain(head, 16, TILE * bpp,
+                                                    bpp), rows[:16]):
+            raise SystemExit(f"tile input: plain PNG unfilter at {bpp} "
+                             f"bytes a pixel differs")
+    log(f"tile input: PNG unfilter, filters 0-4 cycling, 1/2/3/4/6/8 bytes "
+        f"a pixel: C byte-equal to the source at {TILE}^2, plain equal on "
+        f"16 rows")
+    for width in (TILE - 1, TILE):
+        idx = textures(rng, TILE, 1, np.uint8)[:, :width]
+        color = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+        rgb = textures(rng, TILE, 3, np.uint8)[:, :width]
+        rgba = np.concatenate([rgb, idx[..., None]], axis=2)
+        for name, data, want in (
+                ('8-bit gray', tf.bmp_bytes(idx, 8, GRAY_PALETTE), idx),
+                ('8-bit gray top-down', tf.bmp_bytes(idx, 8, GRAY_PALETTE,
+                                                     top_down=True), idx),
+                ('8-bit colour', tf.bmp_bytes(idx, 8, color), color[idx]),
+                ('24-bit', tf.bmp_bytes(rgb, 24), rgb),
+                ('32-bit bitfields', tf.bmp_bytes(rgba, 32, compression=3,
+                                                  header=124), rgb)):
+            if not np.array_equal(decode_bmp(data), want):
+                raise SystemExit(f"tile input: BMP {name} {width} wide "
+                                 f"differs from its source")
+    log(f"tile input: BMP rows (8-bit gray/colour palettes, bottom-up and "
+        f"top-down, 24- and 32-bit, {TILE - 1} and {TILE} wide) equal "
+        f"their sources")
+    img = textures(rng, TILE, 1)
+    if not np.array_equal(decode_tiff(tf.tiff_bytes(img, 8, 2,
+                                                    rows_per_strip=2)), img):
+        raise SystemExit("tile input: the deflate TIFF differs")
+    if not np.array_equal(decode_png(tf.png_bytes(
+            img, 0, 16, filters=range(5), level=1)), img):
+        raise SystemExit("tile input: the 16-bit PNG differs")
+    log(f"tile input: {TILE}^2 u16 deflate + predictor TIFF (2-row strips) "
+        f"and 16-bit PNG (filters cycling) decode equal to their sources; "
+        f"9a in {time.perf_counter() - t0:.1f}s")
+
+
+def decoder_rates(rng, card: str) -> dict:
+    """MB/s of output of each C routine, and of whole-tile decodes, on
+    2048^2 u16 tiles: one thread, then the 8-thread reader pool (16
+    tiles). LZW and PackBits tiles are 4 strips of 512 rows, each the
+    same encoded strip (the Python encoders are slow)."""
+    from image_stitcher_tpu_torch.io import tile_decode as td
+    from image_stitcher_tpu_torch.io.png import decode_png
+    from image_stitcher_tpu_torch.io.tiff import decode_tiff
+    tf = tile_files()
+    img = textures(rng, TILE, 1)
+    diff = tf.apply_predictor(img, 1)
+    strip = diff[:TILE // 4].tobytes()
+    lzw, pb = tf.lzw_encode(strip), tf.packbits_encode(strip)
+    rows = img.astype('>u2').view(np.uint8).reshape(TILE, 2 * TILE)
+    filtered = tf.png_filter(rows, 2, [r % 5 for r in range(TILE)])
+    png = tf.png_bytes(img, 0, 16, filters=range(5), level=1)
+    tiff = tf.tiff_bytes(img, 8, 2, rows_per_strip=2)
+    work = {
+        'LZW (C)': lambda _: [td.lzw_decode(lzw, len(strip))
+                              for _ in range(4)],
+        'PackBits (C)': lambda _: [td.packbits_decode(pb, len(strip))
+                                   for _ in range(4)],
+        'predictor (C)': lambda buf: td.undo_predictor(buf, 1),
+        'PNG unfilter (C)': lambda _: td.png_unfilter(filtered, TILE,
+                                                      2 * TILE, 2),
+        'PNG tile (zlib + C)': lambda _: decode_png(png),
+        'deflate TIFF tile (zlib + C)': lambda _: decode_tiff(tiff),
+    }
+    n = 2 * READERS
+    out_mb = n * img.nbytes / 1e6
+    rates = {}
+    for name, fn in work.items():
+        bufs = [diff.copy() for _ in range(n)]
+        fn(bufs[0])                                        # warm
+        row = []
+        for threads in (1, READERS):
+            with ThreadPoolExecutor(threads) as pool:
+                t0 = time.perf_counter()
+                list(pool.map(fn, bufs))
+                row.append(out_mb / (time.perf_counter() - t0))
+        rates[name] = row
+        log(f"tile input MB/s on {card}: {name} on {TILE}^2 u16 tiles: "
+            f"{row[0]:.0f} on one thread, {row[1]:.0f} on {READERS} "
+            f"({n} tiles, {out_mb:.0f} MB out)")
+    log(f"tile input: sizes {len(png)} B (PNG), {len(tiff)} B (deflate "
+        f"TIFF), {len(lzw) * 4} B (LZW) for {img.nbytes} B of pixels")
+    return rates
+
+
+class DecodeCounter:
+    """Wraps the readers' whole-file decode (``io/acquisition.py::
+    _decode``): decodes per file and seconds summed over threads."""
+
+    def __init__(self):
+        from image_stitcher_tpu_torch.io import acquisition
+        self.module = acquisition
+        self.inner = acquisition._decode
+        self.lock = threading.Lock()
+        self.calls = collections.Counter()
+        self.seconds = 0.0
+
+    def __call__(self, data, filepath):
+        t0 = time.perf_counter()
+        try:
+            return self.inner(data, filepath)
+        finally:
+            dt = time.perf_counter() - t0
+            with self.lock:
+                self.calls[filepath] += 1
+                self.seconds += dt
+
+    def __enter__(self):
+        self.module._decode = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module._decode = self.inner
+
+
+def stitch_input(acq: str, out: str, dev, card: str, label: str) -> dict:
+    """The main path's stitch of ``acq`` (phase 5's options), its kernel
+    launches checked against the plan, its stage and decode seconds."""
+    from image_stitcher_tpu_torch import stitch
+    from image_stitcher_tpu_torch.models.streaming import (
+        band_rows_for, partition_jobs_by_band)
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    cuda_fuse.fuse_overwrite.launches = 0
+    with DecodeCounter() as counter:
+        t0 = time.perf_counter()
+        pipe = stitch(acq, use_registration=True, apply_flatfield=True,
+                      device=dev, options=smoke_options(out))
+        e2e = time.perf_counter() - t0
+    launches = cuda_fuse.fuse_overwrite.launches
+    width, height = pipe._region_dimensions(0, 'A1')
+    opts = pipe.options
+    jobs = pipe._build_jobs(0, 'A1')
+    tile = pipe.acq.input_height
+    streamed = pipe._should_stream(0, 'A1')
+    if streamed:
+        band = band_rows_for(opts.write_band_rows()
+                             * opts.device_band_multiple,
+                             pipe.num_pyramid_levels)
+        tasks, _ = partition_jobs_by_band(jobs, tile, height, band)
+        batches = sum(-(-len(v) // opts.fusion_batch)
+                      for v in tasks.values())
+        touches = collections.Counter(j.filepath for v in tasks.values()
+                                      for j, _ in v)
+    else:
+        batches = pipe.fuse_stats['A1_t0']['batches']
+        touches = collections.Counter(j.filepath for j in jobs)
+    if dev.type == 'cuda' and (launches != batches or not launches):
+        raise SystemExit(f"tile input ({label}): {launches} kernel "
+                         f"launches for {batches} batches")
+    n_tiles = len(pipe.acq.tiles)
+    decodes = sum(counter.calls.values())
+    t = pipe.timers.as_dict()
+    stats = pipe.fuse_stats['A1_t0']
+    per_file = collections.Counter(counter.calls.values())
+    planned = collections.Counter(touches.values())
+    log(f"tile input ({label}) on {card}: e2e {e2e:.3f}s = "
+        f"{n_tiles / e2e:.2f} tiles/s ({n_tiles} tiles, "
+        f"{'bands' if streamed else 'in RAM'}); fit="
+        f"{t.get('flatfield_fit', 0):.3f}s registration="
+        f"{t.get('registration', 0):.3f}s "
+        + (f"fuse+write={t.get('stream_fuse_save', 0):.3f}s; loader (main "
+           f"thread: loads, uploads, launches)={stats.get('fuse', 0):.3f}s "
+           f"writer={stats.get('write', 0) + stats.get('close', 0):.3f}s"
+           if streamed else f"fuse={t.get('fuse', 0):.3f}s "
+           f"save={t.get('save', 0):.3f}s")
+        + f"; {decodes} whole-file decodes, "
+        f"{counter.seconds:.3f}s summed over threads = "
+        f"{counter.seconds / max(decodes, 1) * 1e3:.1f} ms a decode; "
+        f"decodes a file {dict(sorted(per_file.items()))} (scan, fit and "
+        f"registration reads included); fusion reads a file "
+        f"{dict(sorted(planned.items()))}; launches {launches}")
+    return {'e2e_s': e2e, 'tiles_per_s': n_tiles / e2e, 'launches': launches,
+            'decodes': decodes, 'decode_s': counter.seconds,
+            'streamed': streamed, 'pipe': pipe}
+
+
+def phase_tile_input(work: str, card: str, grid: int = 10,
+                     tile: int = TILE, device: str = 'cuda') -> dict:
+    """9: tile input without OpenCV. 9a the C decoders; 9b the main path's
+    grid stored as 16-bit PNG (filters cycling) and as deflate +
+    predictor TIFF in 2-row strips, each stitched on the card to the tree
+    of an uncompressed-TIFF twin; 9c 3x3 grids: u8 mono BMP against its
+    uncompressed-TIFF twin, u8 RGB PNG on the card against the CPU."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(12)
+    decoder_check(rng)
+    rates = decoder_rates(rng, card)
+    tf = tile_files()
+
+    # 9b: the main path's grid and options, three encodings of one texture
+    overlap = 205 * tile // TILE
+    cache = {}
+
+    def texture(r, side):
+        if side not in cache:
+            cache[side] = compressible(r, side)
+        return cache[side]
+
+    formats = (
+        ('tiff', None, 'tiff'),
+        ('png', lambda b: tf.png_bytes(b, 0, 16, filters=range(5), level=1),
+         'png'),
+        ('deflate', lambda b: tf.tiff_bytes(b, 8, 2, rows_per_strip=2),
+         'tiff'))
+    runs, twin = {}, None
+    for name, encode, suffix in formats:
+        acq = os.path.join(work, f'input_{name}')
+        t0 = time.perf_counter()
+        write_acquisition(acq, grid, tile, overlap, seed=13, texture=texture,
+                          encode=encode, suffix=suffix)
+        nbytes = tree_bytes(acq)
+        log(f"tile input ({name}): wrote {grid}x{grid}x{len(CHANNELS)} "
+            f"{tile}^2 u16 tiles, {nbytes} bytes, in "
+            f"{time.perf_counter() - t0:.1f}s")
+        out = os.path.join(work, f'input_out_{name}')
+        run = stitch_input(acq, out, dev, card, name)
+        if not run.pop('streamed'):
+            raise SystemExit(f"tile input ({name}): the canvas did not "
+                             f"stream in bands")
+        run.pop('pipe')
+        run['file_bytes'] = nbytes
+        runs[name] = run
+        tree = read_tree(out)
+        shutil.rmtree(out)
+        shutil.rmtree(acq)
+        if twin is None:
+            twin = tree
+            continue
+        arrays = compare_trees(twin, tree, f'tile input ({name} vs tiff)')
+        log(f"tile input ({name}): tree decodes equal to the uncompressed-"
+            f"TIFF twin's ({arrays} level arrays, JSON equal)")
+        del tree
+    del twin, cache
+
+    # 9c: 3x3 grids, u8 mono BMP against its uncompressed-TIFF twin; u8
+    # RGB PNG on the card against the CPU
+    trees = {}
+    for name, encode, suffix in (
+            ('tiff-u8', lambda b: tf.tiff_bytes(b), 'tiff'),
+            ('bmp-u8', lambda b: tf.bmp_bytes(b, 8, GRAY_PALETTE), 'bmp')):
+        acq = os.path.join(work, f'input_{name}')
+        write_acquisition(acq, 3, tile, overlap, seed=14,
+                          texture=lambda r, side: textures(r, side, 1,
+                                                           np.uint8),
+                          encode=encode, suffix=suffix)
+        out = os.path.join(work, f'input_out_{name}')
+        stitch_input(acq, out, dev, card, name)
+        trees[name] = read_tree(out)
+        shutil.rmtree(out)
+        shutil.rmtree(acq)
+    arrays = compare_trees(trees['tiff-u8'], trees['bmp-u8'],
+                           'tile input (bmp vs tiff, u8)')
+    log(f"tile input (bmp-u8): 3x3 tree decodes equal to the uncompressed-"
+        f"TIFF twin's ({arrays} level arrays)")
+    trees = {}
+    acq = os.path.join(work, 'input_rgb_png')
+    write_acquisition(acq, 3, tile, overlap, seed=15,
+                      texture=lambda r, side: textures(r, side, 3, np.uint8),
+                      encode=lambda b: tf.png_bytes(b, 2, 8,
+                                                    filters=range(5),
+                                                    level=1),
+                      suffix='png', channels=["BF LED matrix full"])
+    for run_dev in (dev, torch.device('cpu')):
+        out = os.path.join(work, f'input_out_rgb_{run_dev.type}')
+        run = stitch_input(acq, out, run_dev, card, f'rgb-png-u8 on '
+                           f'{run_dev.type}')
+        planes = run['pipe'].acq.monochrome_channels
+        if run['streamed'] or planes != [f"BF LED matrix full_{c}"
+                                         for c in 'RGB']:
+            raise SystemExit(f"tile input (rgb-png-u8): streamed "
+                             f"{run['streamed']}, planes {planes}")
+        trees[run_dev.type] = read_tree(out)
+        shutil.rmtree(out)
+    shutil.rmtree(acq)
+    arrays = compare_trees(trees[dev.type], trees['cpu'],
+                           'tile input (rgb png, card vs cpu)')
+    log(f"tile input (rgb-png-u8): 3x3 in-RAM card tree equals the CPU "
+        f"run's ({arrays} level arrays)")
+    banned = [m for m in BANNED if m in sys.modules]
+    if banned:
+        raise SystemExit(f"tile input: loaded {banned}")
+    return {'rates': rates, 'runs': runs}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1514,6 +1913,9 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         phase_output_layer(work, card)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        phase_tile_input(work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches = {'fuse_overwrite': main_run['launches'],

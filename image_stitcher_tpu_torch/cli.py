@@ -1,12 +1,20 @@
 #!/usr/bin/env python3
-"""Stitching CLI of the port: the JAX package's flags that the port runs.
+"""Stitching CLI of the port: every flag of the JAX package's CLI, with
+its choices and defaults, plus ``--subpixel-placement`` and ``--device``.
 
 Usage:
     python -m image_stitcher_tpu_torch.cli -i /path/to/acquisition [-r] [-ff]
         [--registration-scope {center,all-pairs,global}]
         [--blend-method {overwrite,feather}] [--streaming {auto,on,off}]
-        [--flatfield-device {host,device}] [--registration-report]
-        [--continue-on-error]
+        [--flatfield-device {host,device}] [--zarr-format {2,3}]
+        [--registration-report] [--continue-on-error] [--device cpu]
+
+Flags for options the port does not run yet (``-f .ome.tiff``, ``-mt``,
+``-mw``, ``--fusion-device host``, ``--resume``) are accepted and passed
+on; the run then stops with ``NotImplementedError`` naming the ROADMAP
+item that will bring the option. ``--tiff-compression`` and
+``--tiff-jpeg-quality`` are checked as the JAX CLI checks them and act
+only on OME-TIFF output.
 """
 
 from __future__ import annotations
@@ -22,6 +30,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         description="Microscopy Image Stitching CLI (PyTorch + CUDA)")
     parser.add_argument('--input-folder', '-i', required=True,
                         help="Input folder containing images to stitch")
+    parser.add_argument('--output-format', '-f',
+                        choices=['.ome.zarr', '.ome.tiff'], default='.ome.zarr',
+                        help="Output format for stitched data (default: .ome.zarr)")
     parser.add_argument('--apply-flatfield', '-ff', action='store_true',
                         help="Apply flatfield correction")
     parser.add_argument('--use-registration', '-r', action='store_true',
@@ -38,6 +49,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         choices=['Unidirectional', 'S-Pattern'],
                         default='Unidirectional',
                         help="Microscope scanning pattern (default: Unidirectional)")
+    parser.add_argument('--merge-timepoints', '-mt', action='store_true',
+                        help="Merge all timepoints into a single dataset")
+    parser.add_argument('--merge-hcs-regions', '-mw', action='store_true',
+                        help="Merge all high-content screening regions (wells)")
     parser.add_argument('--params-json',
                         help="Path to a JSON file containing stitching parameters (overrides other arguments)")
     parser.add_argument('--blend-method', choices=['overwrite', 'feather'],
@@ -57,10 +72,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--flatfield-device', choices=['host', 'device'],
                         default='host',
                         help="Where the flatfield ADMM solve runs")
+    parser.add_argument('--fusion-device', choices=['auto', 'device', 'host'],
+                        default='auto',
+                        help="Where fusion runs (default: auto = the "
+                             "device; 'host' is not ported yet)")
+    parser.add_argument('--zarr-format', type=int, choices=[2, 3], default=2,
+                        help="2 = zarr v2 + OME-NGFF 0.4 (reference-"
+                             "compatible); 3 = zarr v3 sharded + NGFF 0.5 "
+                             "(~10x fewer files at scale)")
     parser.add_argument('--streaming', choices=['auto', 'on', 'off'],
                         default='auto',
                         help="Bounded-memory band-streaming fusion "
                              "(default: auto above the canvas threshold)")
+    parser.add_argument('--tiff-compression',
+                        choices=['deflate', 'raw', 'jpeg'], default='deflate',
+                        help=".ome.tiff tile codec: deflate (lossless, "
+                             "default), raw, or jpeg (lossy, uint8 only)")
+    parser.add_argument('--tiff-jpeg-quality', type=int, default=85,
+                        help="JPEG quality 1-100 for --tiff-compression "
+                             "jpeg (default 85)")
+    parser.add_argument('--resume', action='store_true',
+                        help="Continue the most recent interrupted run for this acquisition")
     parser.add_argument('--continue-on-error', action='store_true',
                         help="Log-and-continue on per-region failures")
     parser.add_argument('--registration-report', action='store_true',
@@ -80,11 +112,14 @@ def create_params(args: argparse.Namespace) -> StitchingParameters:
         return StitchingParameters.from_json(args.params_json)
     return StitchingParameters.from_dict({
         'input_folder': args.input_folder,
+        'output_format': args.output_format,
         'apply_flatfield': args.apply_flatfield,
         'use_registration': args.use_registration,
         'registration_channel': args.registration_channel or '',
         'registration_z_level': args.registration_z_level,
         'scan_pattern': args.scan_pattern,
+        'merge_timepoints': args.merge_timepoints,
+        'merge_hcs_regions': args.merge_hcs_regions,
         'dynamic_registration': args.dynamic_registration,
     })
 
@@ -100,8 +135,11 @@ def create_options(args: argparse.Namespace) -> EngineOptions:
                                  else 'center')),
         subpixel_placement=args.subpixel_placement,
         flatfield_device=args.flatfield_device, streaming=args.streaming,
+        fusion_device=args.fusion_device, zarr_format=args.zarr_format,
         continue_on_error=args.continue_on_error,
-        registration_report=args.registration_report)
+        registration_report=args.registration_report,
+        tiff_compression=args.tiff_compression,
+        tiff_jpeg_quality=args.tiff_jpeg_quality)
 
 
 def main(argv=None) -> int:
@@ -117,7 +155,7 @@ def main(argv=None) -> int:
             finished_saving=lambda path, dtype: print(f"\nSaved: {path}"),
         )
         pipeline = StitchPipeline(params, create_options(args), reporter,
-                                  device=args.device)
+                                  resume=args.resume, device=args.device)
         print(f"Input folder: {params.input_folder}")
         print(f"Apply flatfield: {params.apply_flatfield}")
         print(f"Use registration: {params.use_registration}")

@@ -17,6 +17,11 @@ Layout expected on disk:
         {region}_{fov}_{z}_{channel}.{bmp|tiff|tif|jpg|jpeg|png}
       1/
         ...
+
+Tiles are decoded without OpenCV (:func:`read_image`): uncompressed
+TIFF through the zero-copy fast path, compressed TIFF, PNG and BMP
+through the port's own readers (C for LZW, PackBits, the TIFF predictor
+and PNG filters; zlib for deflate). JPEG tiles are not read yet.
 """
 
 from __future__ import annotations
@@ -31,6 +36,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..utils.colors import get_channel_color
+from .bmp import decode_bmp
+from .fast_tiff import read_tiff_fast
+from .png import decode_png
+from .tiff import decode_tiff
+from .tile_decode import DecodeError
 
 # the bare 'tif' entry makes any filename *ending* in "tif" match, with
 # or without a dot (as in the JAX package and its reference)
@@ -164,25 +174,64 @@ def parse_tile_filename(filename: str) -> Optional[Tuple[str, int, int, str]]:
     return region, fov, z_level, channel
 
 
+#: the signatures :func:`read_image` dispatches on (cv2 picks its
+#: decoder by signature too, whatever the file's suffix)
+_TIFF_MAGIC = (b'II*\0', b'MM\0*', b'II+\0', b'MM\0+')
+_PNG_MAGIC = b'\x89PNG\r\n\x1a\n'
+_BMP_MAGIC = b'BM'
+_JPEG_MAGIC = b'\xff\xd8\xff'
+
+
 def read_image(filepath: str, prefer_mmap: bool = False,
                prefetch: bool = False) -> np.ndarray:
-    """Read a tile as (H, W) or (H, W, 3).
+    """Read a tile as (H, W) or (H, W, 3) RGB, the array the JAX
+    package's ``read_image`` returns for the same file.
 
-    Only uncompressed TIFFs are read (the Squid default); anything else
-    raises, since the port carries no general decoder yet."""
-    from .fast_tiff import read_tiff_fast
+    ``.tif``/``.tiff`` files first take the uncompressed fast path
+    (``io/fast_tiff.py``), whose ``prefer_mmap`` array is paged lazily
+    (``prefetch`` starts the kernel's readahead). Every other file, and a
+    TIFF the fast path declines, is read whole and decoded by its
+    signature, not its suffix: TIFF (``io/tiff.py``: LZW, deflate,
+    PackBits, predictor, strips or tiles), PNG (``io/png.py``) or BMP
+    (``io/bmp.py``); a compressed tile cannot be paged lazily, so
+    ``prefer_mmap`` and ``prefetch`` do not apply to it. Colour comes
+    back in RGB order, and a 4-channel image drops its alpha, as the JAX
+    package's BGR(A) -> RGB conversion of ``cv2.imread`` gives it.
+
+    JPEG raises :class:`NotImplementedError` (ROADMAP.md, item 19). A file
+    no decoder recognises raises :class:`ValueError` naming it: the JAX
+    package hands such files to imageio, which the card's host lacks."""
     img = None
     if filepath.endswith(('.tif', '.tiff')):
         img = read_tiff_fast(filepath, use_mmap=prefer_mmap,
                              prefetch=prefetch)
     if img is None:
-        raise NotImplementedError(
-            f"{filepath}: image_stitcher_tpu_torch reads uncompressed TIFF "
-            "tiles only; compressed TIFF and other formats are not ported "
-            "yet (ROADMAP.md, item 'compressed-TIFF input')")
+        with open(filepath, 'rb') as f:
+            data = f.read()
+        img = _decode(data, filepath)
     if img.ndim == 3 and img.shape[2] == 4:
         img = img[:, :, :3]  # RGBA -> RGB (drop alpha)
     return img
+
+
+def _decode(data: bytes, filepath: str) -> np.ndarray:
+    """A whole image file's pixels, by its signature."""
+    head = data[:8]
+    if head.startswith(_JPEG_MAGIC):
+        raise NotImplementedError(
+            f"{filepath}: JPEG tiles are not ported to "
+            "image_stitcher_tpu_torch yet (ROADMAP.md, item 19, 'JPEG')")
+    try:
+        if head[:4] in _TIFF_MAGIC:
+            return decode_tiff(data)
+        if head == _PNG_MAGIC:
+            return decode_png(data)
+        if head.startswith(_BMP_MAGIC):
+            return decode_bmp(data)
+    except DecodeError as e:
+        raise DecodeError(f"{filepath}: {e}") from None
+    raise ValueError(f"{filepath}: not a TIFF, PNG or BMP image (the "
+                     "port reads no other tile format)")
 
 
 def _num(cell: str) -> float:

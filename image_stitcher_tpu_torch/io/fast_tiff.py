@@ -4,8 +4,9 @@ package's ``io/fast_tiff.py``).
 Squid acquisitions store tiles as plain uncompressed strip TIFFs. This
 reader handles exactly that case (classic or BigTIFF, uncompressed,
 contiguous samples) with a header parse and ``np.frombuffer``, and
-returns None for anything else. The port has no other decoder yet, so
-its ``read_image`` raises on None (see ``io/acquisition.py``).
+returns None for anything else, which ``read_image`` then decodes with
+the port's general readers (``io/tiff.py`` for compressed or tiled
+TIFF; see ``io/acquisition.py``).
 """
 
 from __future__ import annotations

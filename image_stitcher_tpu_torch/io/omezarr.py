@@ -141,7 +141,7 @@ class MultiscaleWriter:
         if cname not in (None, 'lz4'):
             from ..params import _not_ported
             raise _not_ported(f"blosc {cname!r} chunks",
-                              "item 'other blosc codecs'")
+                              "item 15, 'other blosc codecs'")
         self.path = path
         self.num_levels = num_levels
         self.shapes = level_shapes(tuple(base_shape), num_levels)

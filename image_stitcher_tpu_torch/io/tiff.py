@@ -1,0 +1,212 @@
+"""General TIFF reader for the tiles the fast path declines.
+
+``io/fast_tiff.py`` maps uncompressed strip TIFFs straight into memory;
+everything else it returns None for comes here, where the JAX package
+decodes it with OpenCV (libtiff). This reader takes the first IFD only
+(``cv2.imread`` reads page 0) of a classic or BigTIFF file in either
+byte order (``II``, ``MM``), in strips (any RowsPerStrip, a short last
+strip) or tiles (edge tiles cropped), with:
+
+- compression 1 (none), 5 (LZW), 8 and 32946 (deflate), 32773 (PackBits);
+- Predictor 1 or 2 (horizontal, undone per sample after the bytes are
+  swapped to native order, as libtiff does); libtiff applies it to LZW
+  and deflate only, and so does this reader;
+- 8- or 16-bit unsigned samples; 1 sample (MinIsBlack) or 3 / 4 samples
+  (RGB, RGB + alpha); PlanarConfiguration 1 (contiguous), or 2 (one plane
+  per sample) for 8-bit samples (OpenCV 5.0 misreads 16-bit planes as
+  if they were contiguous, so those raise).
+
+It returns (H, W) or (H, W, spp) in the file's sample order (R, G, B[,
+A]), in native byte order. An 8-bit RGBA image whose alpha is declared
+unassociated (ExtraSamples 2) comes back premultiplied,
+``(v * alpha + 127) // 255``, as OpenCV reads it through libtiff's RGBA
+interface. Other layouts, sample types and codecs raise
+:class:`NotImplementedError` naming the ROADMAP item that will bring
+them (JPEG: item 19); a file that does not hold what its tags declare
+raises :class:`~image_stitcher_tpu_torch.io.tile_decode.DecodeError`.
+LZW, PackBits and the predictor run in C (``io/tile_decode.py``),
+deflate through the stdlib's zlib.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Dict, Tuple
+
+import numpy as np
+
+from . import tile_decode
+from .fast_tiff import _read_values
+from .tile_decode import DecodeError
+
+# tag ids
+_WIDTH, _LENGTH, _BITS, _COMP, _PHOTO, _FILL = 256, 257, 258, 259, 262, 266
+_STRIP_OFFSETS, _SPP, _ROWS_PER_STRIP, _STRIP_COUNTS = 273, 277, 278, 279
+_PLANAR, _PREDICTOR = 284, 317
+_TILE_W, _TILE_H, _TILE_OFFSETS, _TILE_COUNTS = 322, 323, 324, 325
+_EXTRA_SAMPLES, _SAMPLE_FORMAT = 338, 339
+_TAGS = (_WIDTH, _LENGTH, _BITS, _COMP, _PHOTO, _FILL, _STRIP_OFFSETS, _SPP,
+         _ROWS_PER_STRIP, _STRIP_COUNTS, _PLANAR, _PREDICTOR, _TILE_W,
+         _TILE_H, _TILE_OFFSETS, _TILE_COUNTS, _EXTRA_SAMPLES,
+         _SAMPLE_FORMAT)
+
+_DEFLATE = (8, 32946)
+_CODECS = (1, 5, 32773) + _DEFLATE
+#: the codecs libtiff runs the Predictor tag with
+_PREDICTED = (5,) + _DEFLATE
+_UNASSOCIATED_ALPHA = 2
+
+
+def _not_ported(what: str, item: str = "item 6, 'tile input without "
+                "OpenCV'") -> NotImplementedError:
+    return NotImplementedError(
+        f"TIFF tiles with {what} are not ported to image_stitcher_tpu_torch "
+        f"yet (ROADMAP.md, {item})")
+
+
+def read_ifd(data) -> Tuple[str, Dict[int, tuple]]:
+    """The byte order ('<' or '>') and the tags of the first IFD that
+    this reader uses, {tag: values}."""
+    mv = memoryview(data)
+    if len(mv) < 16 or bytes(mv[:2]) not in (b'II', b'MM'):
+        raise DecodeError("not a TIFF file")
+    bo = '<' if bytes(mv[:2]) == b'II' else '>'
+    version = struct.unpack_from(bo + 'H', mv, 2)[0]
+    if version == 42:
+        ifd = struct.unpack_from(bo + 'I', mv, 4)[0]
+        head, size, inline, cfmt = 2, 12, 4, 'I'
+    elif version == 43:
+        ifd = struct.unpack_from(bo + 'Q', mv, 8)[0]
+        head, size, inline, cfmt = 8, 20, 8, 'Q'
+    else:
+        raise DecodeError(f"TIFF version {version}")
+    try:
+        n = struct.unpack_from(bo + ('H' if head == 2 else 'Q'), mv, ifd)[0]
+        tags = {}
+        for i in range(n):
+            off = ifd + head + i * size
+            tag, ty = struct.unpack_from(bo + 'HH', mv, off)
+            if tag not in _TAGS:
+                continue
+            count = struct.unpack_from(bo + cfmt, mv, off + 4)[0]
+            vals = _read_values(mv, bo, ty, count,
+                                mv[off + size - inline:off + size], inline)
+            if vals is None or len(vals) != count:
+                raise DecodeError(f"TIFF tag {tag}: type {ty}")
+            tags[tag] = vals
+    except struct.error as e:
+        raise DecodeError(f"truncated TIFF directory: {e}") from None
+    return bo, tags
+
+
+def _segment(data, comp: int, off: int, count: int, size: int):
+    """One strip or tile decoded to exactly ``size`` bytes."""
+    raw = data[off:off + count]
+    if len(raw) != count:
+        raise DecodeError(f"TIFF segment at {off} runs past the file's end")
+    if comp == 1:
+        out = raw
+    elif comp == 5:
+        out = tile_decode.lzw_decode(raw, size)
+    elif comp == 32773:
+        out = tile_decode.packbits_decode(raw, size)
+    else:
+        try:
+            out = zlib.decompress(raw)
+        except zlib.error as e:
+            raise DecodeError(f"TIFF deflate segment at {off}: {e}") from None
+    if len(out) < size:
+        raise DecodeError(f"TIFF segment at {off} holds {len(out)} bytes, "
+                          f"its rows need {size}")
+    return out
+
+
+def decode_tiff(data) -> np.ndarray:
+    """Decode the first image of a TIFF file (bytes-like)."""
+    mv = memoryview(data)
+    bo, tags = read_ifd(mv)
+
+    def tag(t, default):
+        return tags[t][0] if t in tags else default
+
+    if _WIDTH not in tags or _LENGTH not in tags:
+        raise DecodeError("TIFF without ImageWidth/ImageLength")
+    w, h = tags[_WIDTH][0], tags[_LENGTH][0]
+    spp = tag(_SPP, 1)
+    comp = tag(_COMP, 1)
+    bits = set(tags.get(_BITS, (1,)))
+    if comp in (6, 7):
+        raise _not_ported("JPEG compression", "item 19, 'JPEG'")
+    if comp not in _CODECS:
+        raise _not_ported(f"compression {comp}")
+    if len(bits) != 1 or next(iter(bits)) not in (8, 16):
+        raise _not_ported(f"{sorted(bits)}-bit samples")
+    if set(tags.get(_SAMPLE_FORMAT, (1,))) != {1}:
+        raise _not_ported("signed or floating-point samples")
+    photo = tag(_PHOTO, 1 if spp == 1 else 2)
+    if (photo, spp) not in ((1, 1), (2, 3), (2, 4)):
+        raise _not_ported(f"photometric {photo} with {spp} samples a pixel")
+    if tag(_FILL, 1) != 1:
+        raise _not_ported("FillOrder 2")
+    planar = tag(_PLANAR, 1)
+    predictor = tag(_PREDICTOR, 1)
+    itemsize = next(iter(bits)) // 8
+    if (planar not in (1, 2) or predictor not in (1, 2)
+            or (planar == 2 and itemsize > 1 and spp > 1)):
+        raise _not_ported(f"PlanarConfiguration {planar}, Predictor "
+                          f"{predictor}, {8 * itemsize}-bit samples")
+    sspp = spp if planar == 1 else 1     # samples a pixel in a segment
+    planes = 1 if planar == 1 else spp
+
+    if _TILE_OFFSETS in tags:
+        tw, tl = tag(_TILE_W, 0), tag(_TILE_H, 0)
+        if tw < 1 or tl < 1:
+            raise DecodeError("TIFF tiles without TileWidth/TileLength")
+        across, down = -(-w // tw), -(-h // tl)
+        offsets, counts = tags[_TILE_OFFSETS], tags.get(_TILE_COUNTS)
+        seg_rows = [tl] * (across * down)
+        seg_cols = tw
+    else:
+        rps = min(tag(_ROWS_PER_STRIP, h) or h, h)
+        strips = -(-h // rps)
+        offsets, counts = tags.get(_STRIP_OFFSETS), tags.get(_STRIP_COUNTS)
+        if offsets is None:
+            raise DecodeError("TIFF without StripOffsets")
+        seg_rows = [min(rps, h - s * rps) for s in range(strips)]
+        seg_cols = w
+    nseg = planes * len(seg_rows)
+    row_bytes = seg_cols * sspp * itemsize
+    if counts is None and comp == 1:
+        counts = [r * row_bytes for r in seg_rows] * planes
+    if counts is None or len(offsets) < nseg or len(counts) < nseg:
+        raise DecodeError(f"TIFF lists {len(offsets)} segments, the image "
+                          f"needs {nseg}")
+    sizes = [r * row_bytes for r in seg_rows] * planes
+    buf = np.empty(sum(sizes), np.uint8)
+    pos = 0
+    for off, count, size in zip(offsets, counts, sizes):
+        seg = _segment(mv, comp, off, count, size)
+        buf[pos:pos + size] = np.frombuffer(seg, np.uint8, count=size)
+        pos += size
+    samples = buf.view(np.dtype(f'=u{itemsize}'))
+    if bo == '>' and itemsize > 1:
+        samples.byteswap(inplace=True)
+    if predictor == 2 and comp in _PREDICTED:
+        tile_decode.undo_predictor(samples.reshape(-1, seg_cols * sspp), sspp)
+
+    if _TILE_OFFSETS in tags:
+        grid = samples.reshape(planes, down, across, tl, tw, sspp)
+        img = grid.transpose(0, 1, 3, 2, 4, 5).reshape(
+            planes, down * tl, across * tw, sspp)[:, :h, :w]
+    else:
+        img = samples.reshape(planes, h, w, sspp)
+    img = img[0] if planes == 1 else np.moveaxis(img[..., 0], 0, -1)
+    img = np.ascontiguousarray(img)
+    if spp == 1:
+        return img[:, :, 0]
+    if (spp == 4 and itemsize == 1
+            and tag(_EXTRA_SAMPLES, 0) == _UNASSOCIATED_ALPHA):
+        alpha = img[:, :, 3:].astype(np.uint32)
+        img[:, :, :3] = (img[:, :, :3] * alpha + 127) // 255
+    return img

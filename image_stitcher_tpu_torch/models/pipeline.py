@@ -86,7 +86,7 @@ class StitchPipeline:
                  stop_event=None, resume: bool = False, device=None,
                  state: Optional[CarriedState] = None):
         if resume:
-            raise _not_ported("resuming a run", "item 'resume and run "
+            raise _not_ported("resuming a run", "item 12, 'resume and run "
                               "manifest'")
         params.validate()
         self.params = params
@@ -828,6 +828,9 @@ class StitchPipeline:
         th, tw = acq.input_height, acq.input_width
         jobs = self._build_jobs(t, region)
         total = len(jobs)
+        if opts.validate_plan:
+            from ..utils.plan_check import summarize_plan
+            self.reporter.status(summarize_plan(jobs, th, tw), False)
         shape = list(padded_canvas_shape(acq.num_c, acq.num_z, height, width,
                                          th, tw))
         shape[3] = -(-shape[3] // 8) * 8

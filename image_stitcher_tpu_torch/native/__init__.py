@@ -4,17 +4,18 @@ The counterpart of the JAX package's ``native/`` loader, which builds
 ``hostops.c`` with the system C compiler: each ``csrc/<name>.cu`` has a
 plain C interface and is compiled at first use with ``nvcc`` into a
 shared library, then loaded with :mod:`ctypes`; each host source
-``csrc/<name>.c`` (the blosc-lz4 codec) is compiled the same way with
-the system C compiler (``$CC``, else ``cc``, ``gcc``, ``clang``). The
-library lands in ``build/torch_kernels/<hash>/`` at the root of the
+``csrc/<name>.c`` (the blosc-lz4 codec, the tile decoders) is compiled
+the same way with the system C compiler (``$CC``, else ``cc``, ``gcc``,
+``clang``). The library lands in ``build/torch_kernels/<hash>/`` at the root of the
 checkout, where the hash covers the source and the compiler flags (and
 for host code the CPU's instruction set, since it is built for the host
 it runs on), so an edited source is rebuilt and an unchanged one is
 loaded as it is.
 
 There is no fallback: a missing compiler or a failed build raises, and
-the caller (a wrapper about to launch on a CUDA tensor, or a zarr writer
-asked for blosc-lz4 chunks) raises with it. Nothing here runs when a
+the caller (a wrapper about to launch on a CUDA tensor, a zarr writer
+asked for blosc-lz4 chunks, a reader given a compressed tile) raises
+with it. Nothing here runs when a
 module is imported.
 """
 
@@ -74,8 +75,9 @@ def find_cc() -> str:
         if found:
             return found
     raise RuntimeError(
-        "no C compiler found ($CC, cc, gcc, clang): the blosc-lz4 codec of "
-        "image_stitcher_tpu_torch is built from source at first use")
+        "no C compiler found ($CC, cc, gcc, clang): the host C code of "
+        "image_stitcher_tpu_torch (the blosc-lz4 codec, the tile decoders) "
+        "is built from source at first use")
 
 
 def _cpu_tag() -> bytes:

@@ -52,6 +52,9 @@ from . import fuse as plain
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+#: tiles one launch takes (``kMaxBatch`` in both .cu files)
+MAX_BATCH = 64
+
 #: what the kernels index: extents are C ints (element offsets are 64-bit),
 #: the feather grid's y dimension covers at most 65535 blocks of 16 rows,
 #: and the finalize grid's z dimension 65535 (c, z) planes
@@ -84,6 +87,11 @@ def _kernel():
     return lib
 
 
+def _spans(n: int):
+    """[lo, hi) runs of at most MAX_BATCH tiles covering a batch of n."""
+    return [(lo, min(n, lo + MAX_BATCH)) for lo in range(0, n, MAX_BATCH)]
+
+
 def fuse_overwrite(canvas: torch.Tensor, tiles: torch.Tensor,
                    info: torch.Tensor, crops: torch.Tensor,
                    valid: torch.Tensor,
@@ -97,8 +105,18 @@ def fuse_overwrite(canvas: torch.Tensor, tiles: torch.Tensor,
     valid (N,) bool on the host; ff_recip (C_ff, th, tw) float32
     reciprocal flatfields on the canvas device, indexed by info[:, 0].
 
-    On CUDA the launch goes on the current stream, does not synchronize
-    and allocates nothing on the device."""
+    A batch of more than MAX_BATCH tiles is placed by consecutive calls
+    of at most MAX_BATCH tiles in batch order: a later call overwrites
+    what an earlier one wrote, so later tiles still win, byte for byte
+    as in one call. On CUDA each launch goes on the current stream, does
+    not synchronize and allocates nothing on the device."""
+    for lo, hi in _spans(tiles.shape[0]):
+        _fuse_overwrite(canvas, tiles[lo:hi], info[lo:hi], crops[lo:hi],
+                        valid[lo:hi], ff_recip)
+    return canvas
+
+
+def _fuse_overwrite(canvas, tiles, info, crops, valid, ff_recip):
     if canvas.device.type == 'cpu':
         return plain.fuse_overwrite(canvas, tiles, info, crops, valid,
                                     ff_recip)
@@ -169,9 +187,19 @@ def fuse_feather(acc: torch.Tensor, wsum: torch.Tensor, tiles: torch.Tensor,
     :func:`~image_stitcher_tpu_torch.ops.fuse.padded_canvas_shape`;
     tiles (N, th, tw) uint8/uint16 on their device; info, crops, valid
     and ff_recip as for :func:`fuse_overwrite`, ``blend_px`` the ramp
-    length. On CUDA the launch goes on the current stream, does not
-    synchronize and allocates nothing on the device; a batch without a
-    valid, non-empty window launches nothing."""
+    length. A batch of more than MAX_BATCH tiles is accumulated by
+    consecutive calls of at most MAX_BATCH tiles in batch order, so each
+    pixel adds its tiles in the order of one call, bit for bit. On CUDA
+    each launch goes on the current stream, does not synchronize and
+    allocates nothing on the device; a run of tiles without a valid,
+    non-empty window launches nothing."""
+    for lo, hi in _spans(tiles.shape[0]):
+        _fuse_feather(acc, wsum, tiles[lo:hi], info[lo:hi], crops[lo:hi],
+                      valid[lo:hi], ff_recip, blend_px)
+    return acc, wsum
+
+
+def _fuse_feather(acc, wsum, tiles, info, crops, valid, ff_recip, blend_px):
     if acc.device.type == 'cpu':
         return plain.fuse_feather(acc, wsum, tiles, info, crops, valid,
                                   ff_recip, blend_px)

@@ -67,9 +67,9 @@ class StitchingParameters:
         if self.use_registration and self.registration_z_level < 0:
             raise ValueError("Registration Z-level must be non-negative")
         if self.output_format == '.ome.tiff':
-            raise _not_ported("OME-TIFF output", "item 'OME-TIFF'")
+            raise _not_ported("OME-TIFF output", "item 10, 'OME-TIFF'")
         if self.merge_timepoints or self.merge_hcs_regions:
-            raise _not_ported("timepoint and HCS merges", "item 'merges'")
+            raise _not_ported("timepoint and HCS merges", "item 11, 'merges'")
 
     @property
     def stitched_folder(self) -> str:
@@ -180,29 +180,33 @@ class EngineOptions:
             raise ValueError("streaming must be 'auto', 'on' or 'off'")
         if len(self.chunks) != 5:
             raise ValueError("chunks must be a 5-tuple (T,C,Z,Y,X)")
-        if tuple(self.chunks[:3]) != (1, 1, 1):
-            raise ValueError("chunks must be (1, 1, 1, Y, X): one plane per "
-                             "chunk file")
         if self.device_band_multiple < 1:
             raise ValueError("device_band_multiple must be >= 1")
-        if not 1 <= self.fusion_batch <= 64:
-            raise ValueError("fusion_batch must be in [1, 64]")
+        if self.fusion_batch < 1:
+            raise ValueError("fusion_batch must be >= 1")
         if self.subpixel_placement and self.registration_scope != 'global':
             raise ValueError(
                 "subpixel_placement requires registration_scope='global'")
         if self.feather_px < 1:
             raise ValueError("feather_px must be >= 1")
+        if self.tiff_compression not in ('deflate', 'raw', 'jpeg'):
+            raise ValueError(
+                "tiff_compression must be 'deflate', 'raw' or 'jpeg'")
+        if not 1 <= self.tiff_jpeg_quality <= 100:
+            raise ValueError("tiff_jpeg_quality must be in [1, 100]")
         unported = [
             (self.fusion_device == 'host', "the host fuser",
-             "item 'host fuser'"),
+             "item 8, 'host fuser'"),
             (self.compressor_cname not in (None, 'auto', 'lz4'),
              f"blosc {self.compressor_cname!r} chunks",
-             "item 'other blosc codecs'"),
+             "item 15, 'other blosc codecs'"),
             (self.mesh_shape is not None, "multi-device meshes",
-             "item 'multi-GPU'"),
+             "item 14, 'multi-GPU'"),
             (self.work_shard is not None, "work sharding",
-             "item 'multi-GPU'"),
-            (self.validate_plan, "plan validation", "item 'host fuser'"),
+             "item 14, 'multi-GPU'"),
+            (tuple(self.chunks[:3]) != (1, 1, 1),
+             f"chunks {tuple(self.chunks)} spanning several planes",
+             "item 20, 'chunks over several planes'"),
         ]
         for hit, what, item in unported:
             if hit:

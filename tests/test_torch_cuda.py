@@ -62,6 +62,37 @@ def test_kernel_matches_plain(cuda_device, dtype, with_ff, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [65, 128])
+def test_batches_over_64_tiles_launch_in_order(cuda_device, n):
+    """A batch larger than kMaxBatch launches in runs of at most 64 tiles,
+    in order: byte-equal (overwrite) and bit-equal (feather) to the plain
+    version over the whole batch."""
+    canvas, tiles, info, crops, valid, ff = _batch(20 + n, np.uint16, 24, 20,
+                                                   n=n, H=60, W=50)
+    before = cuda_fuse.fuse_overwrite.launches
+    got = cuda_fuse.fuse_overwrite(canvas.to(cuda_device),
+                                   tiles.to(cuda_device), info, crops, valid,
+                                   ff_recip=ff.to(cuda_device))
+    torch.cuda.synchronize()
+    assert cuda_fuse.fuse_overwrite.launches == before + -(-n // 64)
+    want = plain.fuse_overwrite(canvas.clone(), tiles, info, crops, valid,
+                                ff_recip=ff)
+    assert torch.equal(got.cpu(), want)
+    shape = plain.padded_canvas_shape(2, 2, 60, 50, 24, 20)
+    gen = torch.Generator().manual_seed(n)
+    acc = torch.rand(shape, generator=gen) * 1000
+    wsum = torch.rand(shape, generator=gen)
+    got = cuda_fuse.fuse_feather(acc.to(cuda_device), wsum.to(cuda_device),
+                                 tiles.to(cuda_device), info, crops, valid,
+                                 ff_recip=ff.to(cuda_device), blend_px=6)
+    torch.cuda.synchronize()
+    want = plain.fuse_feather(acc, wsum, tiles, info, crops, valid,
+                              ff_recip=ff, blend_px=6)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_a_tile_outside_the_canvas(cuda_device):
     canvas, tiles, info, crops, valid, ff = _batch(7, np.uint16, 32, 32)
     info[2, 3] = canvas.shape[3] - 16

@@ -106,6 +106,39 @@ def test_cpu_tensors_take_the_plain_version():
     assert cuda_fuse.fuse_overwrite.launches == before
 
 
+@pytest.mark.parametrize("n", [65, 128])
+@pytest.mark.parametrize("mode", ["overwrite", "feather"])
+def test_batches_over_64_tiles_split_in_order(n, mode):
+    """A batch larger than one launch takes (64 tiles) is placed in runs
+    of at most 64 in batch order: equal to one plain call over the whole
+    batch, byte for byte (overwrite; and to the JAX op) or bit for bit
+    (feather). The tiles crowd a small canvas, so runs overlap."""
+    canvas, tiles, info, crops, valid, ff = _batch(10 + n, np.uint16, 24, 20,
+                                                   n=n, H=60, W=50)
+    a = _t(canvas, tiles, info, crops, valid, ff)
+    b = _t(canvas.copy(), tiles, info, crops, valid, ff)
+    if mode == "overwrite":
+        got = cuda_fuse.fuse_overwrite(a[0], *a[1:5], ff_recip=a[5])
+        want = tfuse.fuse_overwrite(b[0], *b[1:5], ff_recip=b[5])
+        assert torch.equal(got, want)
+        jax_want = np.asarray(jfuse.fuse_overwrite(
+            jnp.asarray(canvas), jnp.asarray(tiles), jnp.asarray(info),
+            jnp.asarray(crops), jnp.asarray(valid)))
+        c = _t(canvas.copy())[0]
+        np.testing.assert_array_equal(
+            cuda_fuse.fuse_overwrite(c, *a[1:5]).numpy(), jax_want)
+        return
+    shape = tfuse.padded_canvas_shape(2, 2, 60, 50, 24, 20)
+    gen = torch.Generator().manual_seed(n)
+    acc = torch.rand(shape, generator=gen) * 1000
+    wsum = torch.rand(shape, generator=gen)
+    got = cuda_fuse.fuse_feather(acc.clone(), wsum.clone(), *a[1:5],
+                                 ff_recip=a[5], blend_px=6)
+    want = tfuse.fuse_feather(acc.clone(), wsum.clone(), *b[1:5],
+                              ff_recip=b[5], blend_px=6)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("bad", ["outside", "dtype", "meta_dtype", "ff_shape",
                                  "ff_channel"])
 def test_batches_the_kernel_does_not_take_raise(bad):

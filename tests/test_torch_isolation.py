@@ -1,10 +1,12 @@
 """The port stands alone: it loads and runs, the main path at default
 options (blosc-lz4 chunks through its own C codec, read back by its own
 reader), the maximum-quality path (global registration, subpixel
-placement, feathering) and the in-RAM path (whole canvases, the device
-flatfield solver, the registration report and debug images), with jax,
-pandas, tensorstore, numcodecs, blosc, OpenCV, imageio and the JAX
-package all unimportable, as on a CUDA host that has none of them."""
+placement, feathering), the in-RAM path (whole canvases, the device
+flatfield solver, the registration report and debug images) and
+acquisitions stored as PNG and as LZW-compressed TIFF (its own
+decoders), with jax, pandas, tensorstore, numcodecs, blosc, OpenCV, PIL,
+imageio and the JAX package all unimportable, as on a CUDA host that has
+none of them."""
 
 import ast
 import os
@@ -13,12 +15,14 @@ import subprocess
 import sys
 import textwrap
 
+import cv2
+
 from fixtures import write_synthetic_acquisition
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "image_stitcher_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "pandas", "tensorstore", "numcodecs", "blosc",
-           "cv2", "imageio", "image_stitcher_tpu")
+           "cv2", "PIL", "imageio", "image_stitcher_tpu")
 
 CHILD = textwrap.dedent("""
     import importlib.abc, sys
@@ -87,14 +91,34 @@ CHILD = textwrap.dedent("""
     loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
     print('INRAM-OK', pipe.shifts.h_shift, pipe.shifts.v_shift)
+    # tiles stored as PNG and as LZW + predictor TIFF, decoded in C
+    for fmt, folder in (('png', {acq!r} + '_png'), ('lzw', {acq!r} + '_lzw')):
+        pipe = port.stitch(folder, use_registration=True,
+                           device=torch.device('cpu'),
+                           options=port.EngineOptions(
+                               chunks=(1, 1, 1, 32, 32),
+                               output_folder={out!r} + '_' + fmt))
+        level0 = read_array({out!r} + '_' + fmt
+                            + '/0_stitched/A1_stitched.ome.zarr/0')
+        assert level0.shape[:3] == (1, 1, 1) and level0.any(), level0.shape
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+        assert not loaded, loaded
+        print('INPUT-OK', fmt, pipe.shifts.h_shift, pipe.shifts.v_shift)
 """)
 
 
 def test_port_runs_without_jax_pandas_tensorstore_cv2(tmp_path):
     acq = str(tmp_path / "acq")
-    write_synthetic_acquisition(acq, grid_cols=2, grid_rows=2, tile_w=64,
-                                tile_h=64, overlap=16, seed=2,
-                                acq_params_overrides={"pixel_binning": 2})
+    kw = dict(grid_cols=2, grid_rows=2, tile_w=64, tile_h=64, overlap=16,
+              seed=2, acq_params_overrides={"pixel_binning": 2})
+    write_synthetic_acquisition(acq, **kw)
+    write_synthetic_acquisition(acq + '_png', ext='png', **kw)
+    write_synthetic_acquisition(acq + '_lzw', **kw)
+    tdir = os.path.join(acq + '_lzw', '0')
+    for name in os.listdir(tdir):      # OpenCV's default: LZW, Predictor 2
+        if name.endswith('.tiff'):
+            path = os.path.join(tdir, name)
+            assert cv2.imwrite(path, cv2.imread(path, cv2.IMREAD_UNCHANGED))
     code = CHILD.format(blocked=BLOCKED, repo=str(REPO), acq=acq,
                         out=str(tmp_path / "out"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -104,6 +128,8 @@ def test_port_runs_without_jax_pandas_tensorstore_cv2(tmp_path):
     assert "ISOLATED-OK (0, -16) (-16, 0)" in proc.stdout
     assert "QUALITY-OK 4" in proc.stdout
     assert "INRAM-OK (0, -16) (-16, 0)" in proc.stdout
+    assert "INPUT-OK png (0, -16) (-16, 0)" in proc.stdout
+    assert "INPUT-OK lzw (0, -16) (-16, 0)" in proc.stdout
 
 
 def test_package_sources_import_none_of_the_blocked_modules():

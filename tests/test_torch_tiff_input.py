@@ -1,0 +1,202 @@
+"""The port's ``read_image`` against the JAX package's (OpenCV) on TIFF
+tiles: equal shape, dtype and every sample.
+
+OpenCV writes most layouts itself (compression 1, 5, 8, 32946, 32773;
+Predictor 1 and 2; RowsPerStrip 1, 2, odd and whole; u8 and u16; 1, 3
+and 4 samples). Tiles, big-endian files, BigTIFF, PlanarConfiguration 2
+and declared alpha are built with ``torch_tile_files`` and read back by
+OpenCV as the oracle. PlanarConfiguration 2 is taken for 8-bit samples:
+OpenCV 5.0 reads those, and reads 16-bit planes as if they were
+interleaved, so the port raises there instead.
+"""
+
+import cv2
+import numpy as np
+import pytest
+
+from torch_tile_files import tiff_bytes
+from image_stitcher_tpu.io.acquisition import read_image as jax_read_image
+from image_stitcher_tpu_torch.io.acquisition import read_image
+
+COMPRESSIONS = [1, 5, 8, 32946, 32773]
+
+
+def _pred(comp):
+    """Predictor 2 where libtiff applies it (LZW, deflate), else 1."""
+    return 2 if comp in (5, 8, 32946) else 1
+
+
+def _image(seed, dtype, spp, h=37, w=53):
+    rng = np.random.default_rng(seed)
+    shape = (h, w) if spp == 1 else (h, w, spp)
+    return rng.integers(0, np.iinfo(dtype).max, shape,
+                        dtype=np.uint32).astype(dtype)
+
+
+def _assert_same(path):
+    want = jax_read_image(path)
+    got = read_image(path)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+def _write(tmp_path, data, name="A1_0_0_ch.tiff"):
+    path = str(tmp_path / name)
+    with open(path, 'wb') as f:
+        f.write(data)
+    return path
+
+
+@pytest.mark.parametrize("comp", COMPRESSIONS)
+@pytest.mark.parametrize("predictor", [1, 2])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16], ids=['u8', 'u16'])
+@pytest.mark.parametrize("spp", [1, 3, 4])
+def test_opencv_written_tiff(tmp_path, comp, predictor, dtype, spp):
+    img = _image(comp + spp, dtype, spp)
+    path = str(tmp_path / "A1_0_0_ch.tiff")
+    assert cv2.imwrite(path, img, [
+        int(cv2.IMWRITE_TIFF_COMPRESSION), comp,
+        int(cv2.IMWRITE_TIFF_PREDICTOR), predictor,
+        int(cv2.IMWRITE_TIFF_ROWSPERSTRIP), 5])
+    if comp == 1 and spp == 4:
+        # the JAX fast path keeps the alpha plane of an uncompressed RGBA
+        # tile (a reference fault, ROADMAP section 3); the port drops it
+        want = jax_read_image(path)
+        np.testing.assert_array_equal(read_image(path), want[:, :, :3])
+        return
+    got = _assert_same(path)
+    assert got.shape[:2] == img.shape[:2]
+
+
+@pytest.mark.parametrize("rows_per_strip", [1, 2, 7, 37, 1000],
+                         ids=['1', '2', 'odd', 'whole', 'past_end'])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16], ids=['u8', 'u16'])
+def test_rows_per_strip(tmp_path, rows_per_strip, dtype):
+    img = _image(rows_per_strip, dtype, 1)
+    path = str(tmp_path / "t.tiff")
+    assert cv2.imwrite(path, img, [int(cv2.IMWRITE_TIFF_ROWSPERSTRIP),
+                                   rows_per_strip])     # LZW + predictor
+    np.testing.assert_array_equal(_assert_same(path), img)
+
+
+def test_opencv_default_writer_is_lzw_with_predictor(tmp_path):
+    """What ``cv2.imwrite('x.tiff', u16)`` writes (Compression 5,
+    Predictor 2, 2-row strips at 2048 wide) decodes equal."""
+    img = _image(9, np.uint16, 1, h=64, w=2048)
+    path = str(tmp_path / "t.tiff")
+    assert cv2.imwrite(path, img)
+    from image_stitcher_tpu_torch.io.tiff import read_ifd
+    with open(path, 'rb') as f:
+        _, tags = read_ifd(f.read())
+    assert tags[259] == (5,) and tags[317] == (2,) and tags[278] == (2,)
+    np.testing.assert_array_equal(_assert_same(path), img)
+
+
+@pytest.mark.parametrize("comp", [1, 5, 8, 32773])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16], ids=['u8', 'u16'])
+@pytest.mark.parametrize("spp", [1, 3, 4])
+def test_tiled(tmp_path, comp, dtype, spp):
+    """Tiles overhanging the right and bottom edges are cropped."""
+    img = _image(comp * spp, dtype, spp, h=45, w=70)
+    path = _write(tmp_path, tiff_bytes(img, comp, _pred(comp),
+                                       tile=(32, 16)))
+    got = _assert_same(path)
+    np.testing.assert_array_equal(got, img[..., :3] if spp == 4 else img)
+
+
+@pytest.mark.parametrize("byteorder", ['<', '>'], ids=['II', 'MM'])
+@pytest.mark.parametrize("bigtiff", [False, True], ids=['classic', 'big'])
+@pytest.mark.parametrize("comp", [1, 5, 8, 32773])
+@pytest.mark.parametrize("layout", ['strips', 'tiles'])
+def test_byte_order_and_bigtiff(tmp_path, byteorder, bigtiff, comp, layout):
+    img = _image(3, np.uint16, 3, h=40, w=48)
+    kw = dict(tile=(16, 16)) if layout == 'tiles' else dict(rows_per_strip=3)
+    path = _write(tmp_path, tiff_bytes(img, comp, _pred(comp),
+                                       byteorder=byteorder, bigtiff=bigtiff,
+                                       **kw))
+    np.testing.assert_array_equal(_assert_same(path), img)
+
+
+@pytest.mark.parametrize("comp", [1, 5, 8])
+@pytest.mark.parametrize("spp", [3, 4])
+@pytest.mark.parametrize("layout", ['strips', 'tiles'])
+def test_planar_separate_8bit(tmp_path, comp, spp, layout):
+    img = _image(spp, np.uint8, spp, h=33, w=40)
+    kw = dict(tile=(16, 16)) if layout == 'tiles' else dict(rows_per_strip=4)
+    path = _write(tmp_path, tiff_bytes(img, comp, _pred(comp), planar=2,
+                                       **kw))
+    np.testing.assert_array_equal(_assert_same(path), img[..., :3])
+
+
+def test_planar_separate_16bit_is_refused(tmp_path):
+    """OpenCV 5.0 reads 16-bit planes as if they were interleaved (a wrong
+    array); the port raises instead. One plane (spp 1) is unaffected."""
+    img = _image(4, np.uint16, 3)
+    path = _write(tmp_path, tiff_bytes(img, 5, 1, planar=2))
+    assert not np.array_equal(jax_read_image(path), img)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        read_image(path)
+    gray = _image(4, np.uint16, 1)
+    path = _write(tmp_path, tiff_bytes(gray, 5, 1, planar=2), "g.tiff")
+    np.testing.assert_array_equal(_assert_same(path), gray)
+
+
+@pytest.mark.parametrize("extra", [0, 1, 2],
+                         ids=['unspecified', 'associated', 'unassociated'])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16], ids=['u8', 'u16'])
+def test_declared_alpha(tmp_path, extra, dtype):
+    """OpenCV premultiplies unassociated 8-bit alpha (libtiff's RGBA
+    reader) and reads the rest as stored; the port gives what it gives."""
+    img = _image(extra, dtype, 4)
+    path = _write(tmp_path, tiff_bytes(img, 5, 2, rows_per_strip=8,
+                                       extra_samples=[extra]))
+    _assert_same(path)
+
+
+def test_magic_bytes_not_suffix(tmp_path):
+    """A TIFF whose name does not say so is read as TIFF; a name ending in
+    'tif' without a dot takes no fast path but decodes the same."""
+    img = _image(5, np.uint16, 1)
+    data = tiff_bytes(img, 5, 2, rows_per_strip=4)
+    for name in ("A1_0_0_ch.png", "A1_0_0_chtif", "A1_0_0_ch.bmp"):
+        np.testing.assert_array_equal(
+            _assert_same(_write(tmp_path, data, name)), img)
+
+
+@pytest.mark.parametrize("what", ['jpeg', 'float', 'old_lzw', 'palette',
+                                  'bits12'])
+def test_out_of_scope_raises_naming_an_item(tmp_path, what):
+    img = _image(6, np.uint8, 1, h=16, w=16)
+    if what == 'jpeg':
+        path = str(tmp_path / "t.tiff")
+        assert cv2.imwrite(path, img, [int(cv2.IMWRITE_TIFF_COMPRESSION), 7])
+        item = "item 19"
+    else:
+        # LZW: the fast path (which reads raw samples whatever the tags
+        # say, as the JAX one does) declines the file
+        data = bytearray(tiff_bytes(img, 5, 1))
+        if what == 'old_lzw':
+            data[8:8 + 2] = b'\x00\x01'     # the strip: LSB-first ClearCode
+        else:
+            tag, value = {'float': (339, 3), 'palette': (262, 3),
+                          'bits12': (258, 12)}[what]
+            ifd = int.from_bytes(data[4:8], 'little')
+            n = int.from_bytes(data[ifd:ifd + 2], 'little')
+            for i in range(n):
+                e = ifd + 2 + 12 * i
+                if int.from_bytes(data[e:e + 2], 'little') == tag:
+                    data[e + 8:e + 10] = value.to_bytes(2, 'little')
+        path = _write(tmp_path, bytes(data), "t.tif")
+        item = "item 6"
+    with pytest.raises(NotImplementedError, match=item):
+        read_image(path)
+
+
+def test_corrupt_file_raises_value_error_naming_it(tmp_path):
+    img = _image(7, np.uint16, 1)
+    data = bytearray(tiff_bytes(img, 8, 2, rows_per_strip=8))
+    data[20:60] = bytes(40)          # inside the first deflate strip
+    path = _write(tmp_path, bytes(data), "bad.tiff")
+    with pytest.raises(ValueError, match="bad.tiff"):
+        read_image(path)
