@@ -70,7 +70,19 @@ Phases, each fatal on failure:
      seconds, decode seconds a tile and decodes a file; (c) 3x3 grids: a
      u8 mono BMP acquisition (gray palette, bottom-up rows) equal to its
      uncompressed-TIFF twin, and a u8 RGB PNG acquisition on the in-RAM
-     path, the card's tree equal to a CPU run's.
+     path, the card's tree equal to a CPU run's;
+ 10. merges and resume: phase 7's 8-well plate at two timepoints (each
+     its own seed; cut from 96 wells), stitched with both merges on the
+     card, stopped after its 5th unit and resumed: the resumed run skips
+     those units, loads the fields from the sidecar (no fit) and writes
+     the complete plate, its tree byte-equal to an uninterrupted run's;
+     each merge pass (complete plate, per-timepoint plates, time series)
+     timed on the finished stores with its bytes, MB/s and the split into
+     band reads, the fold on the card (CUDA events) and chunk writes; the
+     merged level 0 is each region's zero-padded, each merged level the
+     2x2 mean (sum >> 2) of the one above, the plate and well metadata
+     as plate_attrs/well_attrs give them, and a 3x3 two-well merge on the
+     card byte-equal to the CPU pipeline's merge of the same stores.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -550,74 +562,82 @@ def tiff_bytes_header(h: int, w: int) -> bytes:
 def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
                       seed: int, jitter: int = 0, regions=('A1',),
                       texture=None, encode=None, suffix='tiff',
-                      channels=CHANNELS):
-    """A Squid acquisition: per region (an HCS well; wells 20 mm apart on
-    the stage), grid x grid tiles of ``tile``^2 uint16 cut at ``overlap``
-    px overlap from one seeded texture of its own (full entropy, or
-    ``texture(rng, side)``, which may be uint8 or (side, side, 3) RGB),
-    each tile's window moved by up to +-``jitter`` px (stage error; the
-    coordinates claim the ideal grid), written as uncompressed TIFF for
-    every channel, or as the file bytes ``encode(tile)`` gives (one
-    encode a tile on a thread pool, its bytes written for every channel,
-    named ``*.{suffix}``), plus coordinates.csv and 'acquisition
-    parameters.json' (the layout of the JAX package's test fixtures).
-    Returns (texture, {fov: (y0, x0)}) of the first region."""
+                      channels=CHANNELS, timepoints: int = 1):
+    """A Squid acquisition: per timepoint and region (an HCS well; wells
+    20 mm apart on the stage), grid x grid tiles of ``tile``^2 uint16 cut
+    at ``overlap`` px overlap from one seeded texture of its own (full
+    entropy, or ``texture(rng, side)``, which may be uint8 or (side,
+    side, 3) RGB), each tile's window moved by up to +-``jitter`` px
+    (stage error; the coordinates claim the ideal grid), written as
+    uncompressed TIFF for every channel, or as the file bytes
+    ``encode(tile)`` gives (one encode a tile on a thread pool, its bytes
+    written for every channel, named ``*.{suffix}``), plus each
+    timepoint's coordinates.csv and 'acquisition parameters.json' (the
+    layout of the JAX package's test fixtures). Timepoint t > 0 draws
+    from its own seed, (seed, t). Returns (texture, {fov: (y0, x0)}) of
+    timepoint 0's first region."""
     import csv
     step = tile - overlap
     margin = 8
     side = step * (grid - 1) + tile + 2 * margin
-    rng = np.random.default_rng(seed)
-    tdir = os.path.join(folder, '0')
-    os.makedirs(tdir)
+    os.makedirs(folder, exist_ok=True)
     with open(os.path.join(folder, 'acquisition parameters.json'), 'w') as f:
-        json.dump(dict(ACQ_PARAMS, Nx=grid, Ny=grid), f, indent=2)
+        json.dump(dict(ACQ_PARAMS, Nx=grid, Ny=grid, Nt=timepoints), f,
+                  indent=2)
     header = tiff_bytes_header(tile, tile)
-    rows = []
     first = None
-    pending = []
 
-    def write_encoded(item):
-        region, fov, body = item
-        data = encode(body)
-        for ch in channels:
-            name = f"{region}_{fov}_0_{ch.replace(' ', '_')}.{suffix}"
-            with open(os.path.join(tdir, name), 'wb') as f:
-                f.write(data)
-
-    for well, region in enumerate(regions):
-        gt = (texture(rng, side) if texture is not None else
-              rng.integers(6553, 58982, (side, side), dtype=np.uint16))
-        shake = rng.integers(-jitter, jitter + 1, (grid * grid, 2))
-        origins = {}
-        for r in range(grid):
-            for c in range(grid):
-                fov = r * grid + c
-                y0 = margin + r * step + int(shake[fov, 0])
-                x0 = margin + c * step + int(shake[fov, 1])
-                origins[fov] = (y0, x0)
-                rows.append({"region": region, "fov": fov, "z_level": 0,
-                             "x (mm)": round(c * step / 1000.0, 6),
-                             "y (mm)": round(20.0 * well + r * step / 1000.0,
-                                             6),
-                             "z (um)": 0.0})
-                body = np.ascontiguousarray(gt[y0:y0 + tile, x0:x0 + tile])
-                if encode is not None:
-                    pending.append((region, fov, body))
-                    continue
-                for ch in channels:
-                    name = f"{region}_{fov}_0_{ch.replace(' ', '_')}.tiff"
-                    with open(os.path.join(tdir, name), 'wb') as f:
-                        f.write(header)
-                        body.tofile(f)
-        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
-            list(pool.map(write_encoded, pending))
+    for t in range(timepoints):
+        rng = np.random.default_rng(seed if t == 0 else [seed, t])
+        tdir = os.path.join(folder, str(t))
+        os.makedirs(tdir)
+        rows = []
         pending = []
-        if first is None:
-            first = (gt, origins)
-    with open(os.path.join(tdir, 'coordinates.csv'), 'w', newline='') as f:
-        w = csv.DictWriter(f, fieldnames=list(rows[0]))
-        w.writeheader()
-        w.writerows(rows)
+
+        def write_encoded(item, tdir=tdir):
+            region, fov, body = item
+            data = encode(body)
+            for ch in channels:
+                name = f"{region}_{fov}_0_{ch.replace(' ', '_')}.{suffix}"
+                with open(os.path.join(tdir, name), 'wb') as f:
+                    f.write(data)
+
+        for well, region in enumerate(regions):
+            gt = (texture(rng, side) if texture is not None else
+                  rng.integers(6553, 58982, (side, side), dtype=np.uint16))
+            shake = rng.integers(-jitter, jitter + 1, (grid * grid, 2))
+            origins = {}
+            for r in range(grid):
+                for c in range(grid):
+                    fov = r * grid + c
+                    y0 = margin + r * step + int(shake[fov, 0])
+                    x0 = margin + c * step + int(shake[fov, 1])
+                    origins[fov] = (y0, x0)
+                    rows.append({"region": region, "fov": fov, "z_level": 0,
+                                 "x (mm)": round(c * step / 1000.0, 6),
+                                 "y (mm)": round(20.0 * well
+                                                 + r * step / 1000.0, 6),
+                                 "z (um)": 0.0})
+                    body = np.ascontiguousarray(gt[y0:y0 + tile,
+                                                   x0:x0 + tile])
+                    if encode is not None:
+                        pending.append((region, fov, body))
+                        continue
+                    for ch in channels:
+                        name = f"{region}_{fov}_0_{ch.replace(' ', '_')}.tiff"
+                        with open(os.path.join(tdir, name), 'wb') as f:
+                            f.write(header)
+                            body.tofile(f)
+            with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+                list(pool.map(write_encoded, pending))
+            pending = []
+            if first is None:
+                first = (gt, origins)
+        with open(os.path.join(tdir, 'coordinates.csv'), 'w',
+                  newline='') as f:
+            w = csv.DictWriter(f, fieldnames=list(rows[0]))
+            w.writeheader()
+            w.writerows(rows)
     return first
 
 
@@ -1895,6 +1915,256 @@ def phase_tile_input(work: str, card: str, grid: int = 10,
     return {'rates': rates, 'runs': runs}
 
 
+# -------------------------------------------------------------------- 10
+
+def files_equal(a_root: str, b_root: str, what: str, skip=()) -> int:
+    """The same files under two roots, byte for byte (names in ``skip``
+    aside); returns the bytes compared."""
+    def listing(root):
+        return sorted(os.path.relpath(os.path.join(d, n), root)
+                      for d, _, names in os.walk(root) for n in names
+                      if n not in skip)
+    names = listing(a_root)
+    if not names or names != listing(b_root):
+        raise SystemExit(f"{what}: the trees hold different files: "
+                         f"{sorted(set(names) ^ set(listing(b_root)))[:8]}")
+    total = 0
+    for rel in names:
+        with open(os.path.join(a_root, rel), 'rb') as fa, \
+                open(os.path.join(b_root, rel), 'rb') as fb:
+            while True:
+                x, y = fa.read(1 << 24), fb.read(1 << 24)
+                if x != y:
+                    raise SystemExit(f"{what}: {rel} differs")
+                if not x:
+                    break
+                total += len(x)
+    return total
+
+
+def merge_split(stats: dict) -> str:
+    return (f"band reads {stats['read_s']:.3f}s, card upload "
+            f"{stats['h2d_ms']:.1f} ms + fold {stats['fold_ms']:.1f} ms + "
+            f"copies back {stats['d2h_ms']:.1f} ms (CUDA events), chunk "
+            f"writes {stats['write_s']:.3f}s + final drain "
+            f"{stats['close_s']:.3f}s ({stats['units']} units, "
+            f"{stats['bands']} bands; summed over the workers)")
+
+
+def phase_merges(work: str, card: str, grid: int = 3,
+                 tile: int = TILE) -> None:
+    """Merges and resume on the card: phase 7's plate at two timepoints
+    (each its own seed), cut from the 96-well plate of the JAX package's
+    BASELINE.md to 8 wells for the script's time limit. (a) A run with
+    both merges stopped after its 5th unit and resumed: the resumed run
+    skips the 5 units, loads the fields from the sidecar (no fit), fuses
+    the rest and writes the complete plate; its tree is byte-equal to an
+    uninterrupted run's. (b) Each merge pass timed on the finished
+    stores, with its bytes and the read / fold / write split. (c) Merged
+    level 0 at [t] is region t's level 0 zero-padded, each merged level
+    the 2x2 mean (sum >> 2) of the one above (channel 0, two wells), the
+    plate and well metadata as plate_attrs/well_attrs give them, and a
+    3x3 two-well card merge equal to the CPU pipeline's."""
+    from image_stitcher_tpu_torch import (CarriedState, ProgressReporter,
+                                          StitchCancelled, list_outputs,
+                                          open_stitched, stitch)
+    from image_stitcher_tpu_torch.io.omezarr import plate_attrs, well_attrs
+    from image_stitcher_tpu_torch.io.zarr_store import open_array, read_attrs
+    from image_stitcher_tpu_torch.models import merge
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    from image_stitcher_tpu_torch.utils.manifest import RunManifest
+    acq = os.path.join(work, 'timelapse')
+    t0 = time.perf_counter()
+    write_acquisition(acq, grid, tile, overlap=205 * tile // TILE, seed=21,
+                      regions=WELLS, timepoints=2)
+    n_tiles = 2 * len(WELLS) * grid * grid * len(CHANNELS)
+    log(f"merges: wrote 2 timepoints x {len(WELLS)} wells x {grid}x{grid} x "
+        f"{len(CHANNELS)}ch {tile}^2 uint16 tiles ({n_tiles}) in "
+        f"{time.perf_counter() - t0:.1f}s; disk free "
+        f"{shutil.disk_usage(work).free / 2 ** 30:.0f} GiB")
+    cuda = torch.device('cuda')
+    kw = dict(use_registration=True, apply_flatfield=True,
+              merge_timepoints=True, merge_hcs_regions=True)
+    extra = dict(flatfield_device='device')
+
+    # 10a: stopped after the 5th completed unit, then resumed
+    out = os.path.join(work, 'merge_resumed')
+    stop = threading.Event()
+    done = []
+
+    def on_status(msg, is_saving=False):
+        if msg.startswith('Completed region'):
+            done.append(msg)
+            if len(done) == 5:
+                stop.set()
+
+    cuda_fuse.fuse_overwrite.launches = 0
+    t0 = time.perf_counter()
+    try:
+        stitch(acq, device=cuda, reporter=ProgressReporter(status=on_status),
+               stop_event=stop, options=smoke_options(out, **extra), **kw)
+        raise SystemExit("merges: the run was not stopped")
+    except StitchCancelled:
+        pass
+    t_stopped = time.perf_counter() - t0
+    launches_stopped = cuda_fuse.fuse_overwrite.launches
+    completed = RunManifest.load(out).data['completed']
+    if len(completed) != 5 or os.path.exists(os.path.join(out,
+                                                          'hcs_timepoints')):
+        raise SystemExit(f"merges: the stopped run completed {completed}")
+    msgs = []
+    cuda_fuse.fuse_overwrite.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = stitch(acq, device=cuda, resume=True,
+                  reporter=ProgressReporter(
+                      status=lambda m, s=False: msgs.append(m)),
+                  options=smoke_options(out, **extra), **kw)
+    e2e = time.perf_counter() - t0
+    launches = cuda_fuse.fuse_overwrite.launches
+    timers = pipe.timers.as_dict()
+    skipped = [m for m in msgs if m.startswith('Skipping completed')]
+    log(f"merges (10a) on {card}: stopped after {len(completed)} units in "
+        f"{t_stopped:.3f}s ({launches_stopped} fuse_overwrite launches); "
+        f"resumed in {e2e:.3f}s: skipped {len(skipped)}, fused "
+        f"{2 * len(WELLS) - len(skipped)} ({launches} launches), stages "
+        + " ".join(f"{k}={v:.3f}s" for k, v in sorted(timers.items())))
+    if (not pipe.resumed or len(skipped) != 5 or 'flatfield_fit' in timers
+            or 'registration' in timers or 'merge' not in timers
+            or not launches_stopped or not launches):
+        raise SystemExit(f"merges: the resumed run refitted, re-measured or "
+                         f"re-fused: {skipped}, {sorted(timers)}, launches "
+                         f"{launches_stopped}/{launches}")
+    complete = (timers['merge'], pipe.merge_stats.as_dict())
+    if complete[1]['h2d_ms'] <= 0 or complete[1]['fold_ms'] <= 0:
+        raise SystemExit(f"merges: the fold did not run on the card: "
+                         f"{complete[1]}")
+    whole_out = os.path.join(work, 'merge_whole')
+    t0 = time.perf_counter()
+    stitch(acq, device=cuda, options=smoke_options(whole_out, **extra),
+           state=CarriedState(flatfields=pipe.flatfields, shifts=pipe.shifts),
+           **kw)
+    t_whole = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nbytes = files_equal(out, whole_out, "merges (10a)",
+                         skip=('.stitch_manifest.json', 'flatfields.npz'))
+    log(f"merges (10a): the resumed tree (16 region stores + the complete "
+        f"plate) is byte-equal to an uninterrupted run's ({t_whole:.3f}s, "
+        f"the resumed run's fields and shifts carried): {nbytes} bytes "
+        f"compared in {time.perf_counter() - t0:.1f}s")
+    shutil.rmtree(whole_out)
+
+    # 10b: each merge pass on the finished stores
+    rel = os.path.join('hcs_timepoints', 'complete_hcs.ome.zarr')
+    passes = [('complete plate', complete[0], complete[1],
+               tree_bytes(os.path.join(out, rel)))]
+    for name, fn, rels in (
+            ('per-timepoint plates', merge.create_hcs_ome_zarr_per_timepoint,
+             [os.path.join('hcs_timepoints', f'{t}_hcs.ome.zarr')
+              for t in (0, 1)]),
+            ('time series', merge.merge_timepoints_per_region,
+             ['region_time_series'])):
+        pipe.merge_stats = merge.MergeStats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(pipe)
+        passes.append((name, time.perf_counter() - t0,
+                       pipe.merge_stats.as_dict(),
+                       sum(tree_bytes(os.path.join(out, r)) for r in rels)))
+    workers = merge._merge_worker_count(len(WELLS))
+    for name, secs, stats, written in passes:
+        log(f"merges (10b, {name}) on {card}: {secs:.3f}s, {workers} "
+            f"workers; read {stats['bytes_read']} B = "
+            f"{stats['bytes_read'] / secs / 1e6:.0f} MB/s, wrote {written} B "
+            f"= {written / secs / 1e6:.0f} MB/s; {merge_split(stats)}")
+
+    # 10c: merged level 0 is the regions' level 0, zero-padded; deeper
+    # levels the 2x2 mean of the level above; the plate metadata
+    t0 = time.perf_counter()
+    plate = os.path.join(out, rel)
+    levels = open_stitched(os.path.join(plate, 'A', '1', '0')).num_levels
+    for well in WELLS:
+        m0 = open_array(os.path.join(plate, well[0], well[1:], '0', '0'))
+        for t in (0, 1):
+            src = open_array(os.path.join(out, f'{t}_stitched',
+                                          f'{well}_stitched.ome.zarr', '0'))
+            h, w = src.shape[-2:]
+            got = m0[t]
+            if (not np.array_equal(got[..., :h, :w], src[0])
+                    or got[..., h:, :].any() or got[..., :, w:].any()):
+                raise SystemExit(f"merges: {well} t={t} level 0 is not the "
+                                 f"region's, zero-padded")
+    for well in WELLS[:2]:
+        image = os.path.join(plate, well[0], well[1:], '0')
+        prev = open_array(os.path.join(image, '0'))[:, 0]
+        for k in range(1, levels):
+            cur = open_array(os.path.join(image, str(k)))[:, 0]
+            a = prev.astype(np.uint32)
+            h2, w2 = cur.shape[-2] * 2, cur.shape[-1] * 2
+            want = ((a[..., 0:h2:2, 0:w2:2] + a[..., 0:h2:2, 1:w2:2]
+                     + a[..., 1:h2:2, 0:w2:2] + a[..., 1:h2:2, 1:w2:2])
+                    >> 2).astype(cur.dtype)
+            if not np.array_equal(cur, want):
+                raise SystemExit(f"merges: {well} level {k} channel 0 is not "
+                                 f"the 2x2 mean of level {k - 1}")
+            prev = cur
+    del prev, cur, a, want
+    want_attrs = {rel: plate_attrs(WELLS, "Complete HCS Dataset",
+                                   "Stitched Acquisition")}
+    for t in (0, 1):
+        want_attrs[os.path.join('hcs_timepoints', f'{t}_hcs.ome.zarr')] = \
+            plate_attrs(WELLS, f"HCS Dataset - Timepoint {t}",
+                        f"Timepoint {t} Acquisition")
+    for root, attrs in want_attrs.items():
+        if read_attrs(os.path.join(out, root)) != attrs:
+            raise SystemExit(f"merges: {root} plate metadata")
+        for well in WELLS:
+            if read_attrs(os.path.join(out, root, well[0],
+                                       well[1:])) != well_attrs():
+                raise SystemExit(f"merges: {root}/{well} well metadata")
+    listing = list_outputs(out)
+    if (len(listing['regions']) != 2 * len(WELLS)
+            or len(listing['time_series']) != len(WELLS)
+            or len(listing['hcs']) != 3):
+        raise SystemExit(f"merges: list_outputs gives {listing}")
+    log(f"merges (10c): merged level 0 of {len(WELLS)} wells x 2 timepoints "
+        f"equals the regions' zero-padded; levels 1-{levels - 1} of channel "
+        f"0 (2 wells) equal the 2x2 mean (sum >> 2) of the level above; "
+        f"plate/well metadata and list_outputs as expected "
+        f"({time.perf_counter() - t0:.1f}s)")
+    shutil.rmtree(out)
+
+    # 10c: a 3x3, two-well, two-timepoint card merge against the CPU
+    # pipeline's merge of the same region stores
+    small = os.path.join(work, 'timelapse_small')
+    write_acquisition(small, grid, tile, overlap=205 * tile // TILE, seed=22,
+                      regions=WELLS[:2], timepoints=2)
+    card_out = os.path.join(work, 'small_card')
+    stitch(small, device=cuda, options=smoke_options(card_out, **extra), **kw)
+    cpu_out = os.path.join(work, 'small_cpu')
+    shutil.copytree(card_out, cpu_out,
+                    ignore=shutil.ignore_patterns('hcs_timepoints'))
+    m = RunManifest.load(cpu_out)
+    m.data.update(merges_done=False, finished=False)
+    m.save()
+    t0 = time.perf_counter()
+    cpu_pipe = stitch(small, device=torch.device('cpu'), resume=True,
+                      options=smoke_options(cpu_out, **extra), **kw)
+    t_cpu = time.perf_counter() - t0
+    if cpu_pipe.saved_paths or not cpu_pipe.resumed:
+        raise SystemExit("merges: the CPU run fused again")
+    nbytes = files_equal(os.path.join(card_out, 'hcs_timepoints'),
+                         os.path.join(cpu_out, 'hcs_timepoints'),
+                         "merges (card vs CPU)")
+    log(f"merges (10c): the card's complete plate of {grid}x{grid} x 2 wells "
+        f"x 2 timepoints is byte-equal to the CPU pipeline's merge of the "
+        f"same stores ({nbytes} bytes; the CPU merge took {t_cpu:.3f}s: "
+        f"{merge_split(cpu_pipe.merge_stats.as_dict())})")
+    banned = [m for m in BANNED if m in sys.modules]
+    if banned:
+        raise SystemExit(f"merges: loaded {banned}")
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1916,6 +2186,9 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         phase_tile_input(work, card)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        phase_merges(work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches = {'fuse_overwrite': main_run['launches'],

@@ -7,13 +7,17 @@ place flatfield-corrected tiles into device-resident canvas bands with a
 hand-written CUDA kernel (``csrc/fuse_overwrite.cu``), and stream the
 bands into OME-Zarr (v2, or v3 with shards) with their pyramid, its
 chunks blosc-lz4 by default (a hand-written C codec, ``csrc/blosc_lz4.c``)
-or raw.
+or raw. Every run keeps a manifest it can be resumed from
+(``resume=True``), and can merge its timepoints and HCS wells into
+series and plates, their pyramids folded on the card.
+:func:`open_stitched` and :func:`list_outputs` reopen the results.
 
 It imports torch and never jax, and nothing of ``image_stitcher_tpu``:
 its host layer uses only the standard library, numpy, scipy and torch.
 Options the port does not carry yet raise ``NotImplementedError``.
 """
 
+from .api import StitchedImage, list_outputs, open_stitched
 from .io.acquisition import Acquisition, scan_acquisition
 from .params import EngineOptions, StitchingParameters
 from .state import CarriedState, state_from_reference
@@ -26,9 +30,11 @@ def stitch(input_folder: str, **kwargs):
     """Stitch an acquisition folder; returns the pipeline after the run.
 
     Keyword args are StitchingParameters fields, plus ``options``
-    (EngineOptions), ``reporter``, ``stop_event``, ``resume`` (not
-    ported: raises), ``device`` (a torch.device, CUDA by default) and
-    ``state`` (a CarriedState)."""
+    (EngineOptions), ``reporter``, ``stop_event``, ``resume`` (go on
+    from the newest compatible unfinished run of this acquisition, or
+    from ``options.output_folder``'s manifest), ``device`` (a
+    torch.device, CUDA by default) and ``state`` (a CarriedState; a
+    resumed run's manifest wins over it)."""
     from .models.pipeline import StitchPipeline
     extra = {k: kwargs.pop(k) for k in ('options', 'reporter', 'stop_event',
                                         'resume', 'device', 'state')
@@ -41,6 +47,7 @@ def stitch(input_folder: str, **kwargs):
 
 __all__ = [
     'Acquisition', 'CarriedState', 'EngineOptions', 'ProgressReporter',
-    'StitchCancelled', 'StitchingParameters', 'scan_acquisition',
+    'StitchCancelled', 'StitchedImage', 'StitchingParameters',
+    'list_outputs', 'open_stitched', 'scan_acquisition',
     'state_from_reference', 'stitch',
 ]

@@ -7,12 +7,13 @@ Usage:
         [--registration-scope {center,all-pairs,global}]
         [--blend-method {overwrite,feather}] [--streaming {auto,on,off}]
         [--flatfield-device {host,device}] [--zarr-format {2,3}]
-        [--registration-report] [--continue-on-error] [--device cpu]
+        [--registration-report] [--continue-on-error] [-mt] [-mw]
+        [--resume] [--device cpu]
 
-Flags for options the port does not run yet (``-f .ome.tiff``, ``-mt``,
-``-mw``, ``--fusion-device host``, ``--resume``) are accepted and passed
-on; the run then stops with ``NotImplementedError`` naming the ROADMAP
-item that will bring the option. ``--tiff-compression`` and
+Flags for options the port does not run yet (``-f .ome.tiff``,
+``--fusion-device host``) are accepted and passed on; the run then stops
+with ``NotImplementedError`` naming the ROADMAP item that will bring the
+option. ``--tiff-compression`` and
 ``--tiff-jpeg-quality`` are checked as the JAX CLI checks them and act
 only on OME-TIFF output.
 """

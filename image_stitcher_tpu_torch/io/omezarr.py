@@ -17,8 +17,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .zarr_shard import BloscShardArray, RawShardArray
-from .zarr_store import (BloscZarrArray, EncodePool, RawZarrArray,
-                         write_group)
+# DEFAULT_MAX_PENDING_BYTES is re-exported: the merges split it
+from .zarr_store import (DEFAULT_MAX_PENDING_BYTES, BloscZarrArray,  # noqa: F401
+                         EncodePool, RawZarrArray, write_group)
 
 OME_AXES = [
     {"name": "t", "type": "time", "unit": "second"},
@@ -69,12 +70,17 @@ def multiscales_attrs(name: str, num_levels: int, dz_um: float,
     }
 
 
+def ngff05_wrap(**members) -> Dict:
+    """OME-NGFF 0.5 group attributes (zarr v3): every member under one
+    'ome' key with the group's version."""
+    return {"ome": {"version": "0.5", **members}}
+
+
 def multiscales_attrs_v3(name: str, num_levels: int, dz_um: float,
                          pixel_size_um: float,
                          omero: Optional[Dict] = None) -> Dict:
-    """OME-NGFF 0.5 group attributes (zarr v3): the 0.4 multiscales and
-    OMERO trees under one 'ome' key with the group's version, without
-    their own version keys."""
+    """OME-NGFF 0.5 multiscales: the 0.4 multiscales and OMERO trees
+    under :func:`ngff05_wrap`, without their own version keys."""
     members: Dict = {"multiscales": [{
         "axes": OME_AXES,
         "datasets": dataset_transforms(num_levels, dz_um, pixel_size_um),
@@ -82,7 +88,7 @@ def multiscales_attrs_v3(name: str, num_levels: int, dz_um: float,
     }]}
     if omero is not None:
         members["omero"] = {k: v for k, v in omero.items() if k != 'version'}
-    return {"ome": {"version": "0.5", **members}}
+    return ngff05_wrap(**members)
 
 
 def omero_attrs(name: str, channel_names: Sequence[str],
@@ -112,20 +118,52 @@ def omero_attrs(name: str, channel_names: Sequence[str],
     return omero
 
 
+def plate_attrs(regions: Sequence[str], name: str,
+                acquisition_name: str) -> Dict:
+    """HCS plate metadata: rows are the regions' first letters, columns
+    the rest of their names."""
+    rows = sorted({r[0] for r in regions})
+    columns = sorted({str(r[1:]) for r in regions})
+    wells = [{"path": f"{well[0]}/{well[1:]}",
+              "rowIndex": rows.index(well[0]),
+              "columnIndex": columns.index(str(well[1:]))}
+             for well in sorted(regions)]
+    return {
+        "plate": {
+            "acquisitions": [{"id": 0, "maximumfieldcount": 1,
+                              "name": acquisition_name}],
+            "columns": [{"name": c} for c in columns],
+            "field_count": 1,
+            "name": name,
+            "rows": [{"name": r} for r in rows],
+            "version": "0.4",
+            "wells": wells,
+        }
+    }
+
+
+def well_attrs() -> Dict:
+    """Well group metadata: one image, at path '0'."""
+    return {"well": {"images": [{"path": "0", "acquisition": 0}],
+                     "version": "0.4"}}
+
+
 class MultiscaleWriter:
     """One multiscale OME-Zarr image group, written level by level.
 
     Construct (writes the group metadata and every level's array
     metadata), then ``write_level(level, data, sel)`` per slab, then
-    ``close()``. Slabs are (1, 1, 1, h, w) planes starting at column 0,
-    as the band fusers produce them, or whole levels, as the in-RAM path
-    saves them.
+    ``close()``. Slabs are (t, c, z, h, w) blocks of planes starting at
+    column 0: (1, 1, 1, h, w) planes of a band, as the band fusers
+    produce them, (1, C, Z, h, w) bands of every plane, as the merges
+    write them, or whole levels, as the in-RAM path saves them.
 
     ``cname`` None stores raw chunks (``direct_io`` 'auto', 'on' or
     'off' picks O_DIRECT writes, same bytes); 'lz4' stores blosc-lz4
     chunks (``clevel``; byte ``shuffle`` on v2, always on v3, as the JAX
     package writes them), encoded on a pool of one thread per CPU with
-    at most 512 MiB of chunks in flight; ``close()`` waits for them and
+    at most ``max_pending_bytes`` (512 MiB) of chunks in flight (writers
+    that run at once split it); ``close()`` waits for them and
     raises the first failure, and ``abort()`` ends a failed write without
     writing what is still queued. ``zarr_format`` 3 writes NGFF 0.5 groups
     with sharded levels (shards one chunk row tall and 16 chunks
@@ -137,7 +175,8 @@ class MultiscaleWriter:
                  channel_names: Sequence[str], channel_colors: Sequence[int],
                  cname: Optional[str] = None, clevel: int = 5,
                  shuffle: int = 1, omero_full: bool = True,
-                 zarr_format: int = 2, direct_io: str = 'auto'):
+                 zarr_format: int = 2, direct_io: str = 'auto',
+                 max_pending_bytes: int = DEFAULT_MAX_PENDING_BYTES):
         if cname not in (None, 'lz4'):
             from ..params import _not_ported
             raise _not_ported(f"blosc {cname!r} chunks",
@@ -155,7 +194,8 @@ class MultiscaleWriter:
             attrs = multiscales_attrs(name, num_levels, dz_um, pixel_size_um)
             attrs["omero"] = omero
             write_group(path, attrs)
-        self.pool = EncodePool() if cname is not None else None
+        self.pool = (EncodePool(max_pending_bytes) if cname is not None
+                     else None)
         self.arrays = []
         for level, shape in enumerate(self.shapes):
             lpath = os.path.join(path, str(level))
@@ -175,24 +215,24 @@ class MultiscaleWriter:
 
     def write_level(self, level: int, data: np.ndarray,
                     sel: Optional[Tuple[slice, ...]] = None) -> None:
-        """Write a (1, 1, 1, h, w) slab at ``sel`` (t, c, z, y, x slices),
-        or with ``sel`` None the whole level, a (T, C, Z, H, W) array of
-        the level's shape, plane by plane. The caller may reuse ``data``
-        when the call returns."""
+        """Write a (t, c, z, h, w) slab at ``sel`` (t, c, z, y, x slices;
+        x from column 0), or with ``sel`` None the whole level, plane by
+        plane. The caller may reuse ``data`` when the call returns."""
         data = np.asarray(data)
+        if data.ndim != 5:
+            raise ValueError(f"slabs are (t, c, z, h, w), got {data.shape}")
         if sel is None:
             if data.shape != self.shapes[level]:
                 raise ValueError(f"level {level} is {self.shapes[level]}, "
                                  f"got {data.shape}")
-            for t, c, z in np.ndindex(*data.shape[:3]):
-                self.arrays[level].write_plane_rows(t, c, z, 0, data[t, c, z])
-            return
-        if data.ndim != 5 or data.shape[:3] != (1, 1, 1):
-            raise ValueError(f"slabs are (1, 1, 1, h, w), got {data.shape}")
-        t, c, z, ys, xs = (s.start or 0 for s in sel)
-        if xs != 0:
-            raise ValueError("slabs start at column 0")
-        self.arrays[level].write_plane_rows(t, c, z, ys, data[0, 0, 0])
+            t0 = c0 = z0 = y0 = 0
+        else:
+            t0, c0, z0, y0, x0 = (s.start or 0 for s in sel)
+            if x0 != 0:
+                raise ValueError("slabs start at column 0")
+        for t, c, z in np.ndindex(*data.shape[:3]):
+            self.arrays[level].write_plane_rows(t0 + t, c0 + c, z0 + z, y0,
+                                                data[t, c, z])
 
     def close(self) -> None:
         """Encode what is buffered and wait for every chunk write; raises

@@ -1,11 +1,12 @@
 """PNG files from the standard library (zlib, struct) and the port's C
-row unfilter: an 8-bit grayscale writer and a decoder.
+row unfilter: 8-bit grayscale and RGB writers and a decoder.
 
 The JAX package writes its registration debug images with
 ``cv2.imwrite`` and reads PNG tiles with ``cv2.imread``; the port's host
-has no OpenCV. :func:`encode_gray8` writes one IHDR (bit depth 8, color
-type 0, no interlace), the rows each behind filter byte 0 in one zlib
-IDAT chunk, and IEND; any PNG decoder reads back the array it was given.
+has no OpenCV. :func:`encode_gray8` and :func:`encode_rgb8` write one
+IHDR (bit depth 8, color type 0 or 2, no interlace), the rows each behind
+filter byte 0 in one zlib IDAT chunk, and IEND; any PNG decoder reads
+back the array it was given.
 
 :func:`decode_png` reads what ``cv2.imread(path, IMREAD_UNCHANGED)``
 reads, with the channels in RGB(A) order instead of OpenCV's BGR(A):
@@ -41,27 +42,47 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack('>I', zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def encode_gray8(img: np.ndarray) -> bytes:
-    """The PNG file bytes of a (h, w) uint8 image."""
-    if img.ndim != 2 or img.dtype != np.uint8:
-        raise ValueError(f"encode_gray8 takes a (h, w) uint8 image, got "
-                         f"{img.shape} {img.dtype}")
-    h, w = img.shape
+def _encode8(img: np.ndarray, color: int) -> bytes:
+    """The PNG file bytes of an 8-bit image, every row behind filter
+    byte 0 (None), in one IDAT chunk."""
+    h, w = img.shape[:2]
     if h == 0 or w == 0:
         raise ValueError(f"a PNG has at least one pixel, got {img.shape}")
-    rows = np.zeros((h, w + 1), np.uint8)   # column 0: filter type None
-    rows[:, 1:] = img
-    header = struct.pack('>IIBBBBB', w, h, 8, 0, 0, 0, 0)
+    rows = np.zeros((h, 1 + img[0].size), np.uint8)   # column 0: filter 0
+    rows[:, 1:] = img.reshape(h, -1)
+    header = struct.pack('>IIBBBBB', w, h, 8, color, 0, 0, 0)
     return (_SIGNATURE + _chunk(b'IHDR', header)
             + _chunk(b'IDAT', zlib.compress(rows.tobytes()))
             + _chunk(b'IEND', b''))
 
 
+def encode_gray8(img: np.ndarray) -> bytes:
+    """The PNG file bytes of a (h, w) uint8 image."""
+    if img.ndim != 2 or img.dtype != np.uint8:
+        raise ValueError(f"encode_gray8 takes a (h, w) uint8 image, got "
+                         f"{img.shape} {img.dtype}")
+    return _encode8(img, 0)
+
+
+def encode_rgb8(img: np.ndarray) -> bytes:
+    """The PNG file bytes (color type 2) of an (h, w, 3) uint8 RGB
+    image."""
+    if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+        raise ValueError(f"encode_rgb8 takes an (h, w, 3) uint8 image, got "
+                         f"{img.shape} {img.dtype}")
+    return _encode8(img, 2)
+
+
 def write_gray8(path: str, img: np.ndarray) -> None:
     """Write a (h, w) uint8 image as an 8-bit grayscale PNG."""
-    data = encode_gray8(img)
     with open(path, 'wb') as f:
-        f.write(data)
+        f.write(encode_gray8(img))
+
+
+def write_rgb8(path: str, img: np.ndarray) -> None:
+    """Write an (h, w, 3) uint8 RGB image as an 8-bit RGB PNG."""
+    with open(path, 'wb') as f:
+        f.write(encode_rgb8(img))
 
 
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}

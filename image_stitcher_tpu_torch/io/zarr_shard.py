@@ -20,6 +20,8 @@ layout, which band writes cover whole), at ``c/t/c/z/sy/sx``.
   shard's chunks to finish writes the shard: the bodies of the chunks
   that differ from the fill value, in C order; a shard with none is not
   written, as tensorstore writes none.
+
+``io/zarr_store.py::ZarrArray`` reads both.
 """
 
 from __future__ import annotations
@@ -108,35 +110,6 @@ def index_bytes(entries: Sequence[Tuple[int, int]]) -> bytes:
     """A shard index: (offset, nbytes) pairs, then their CRC-32C."""
     raw = b''.join(struct.pack('<QQ', off, n) for off, n in entries)
     return raw + struct.pack('<I', crc32c(raw))
-
-
-def read_shard(data: bytes, config: Dict, shard_shape: Sequence[int],
-               dtype, fill_value=0) -> np.ndarray:
-    """Decode one shard file (index at the end, bytes + crc32c index
-    codecs) into a (shard_shape) array."""
-    from .zarr_store import _decode_chunk
-    if config.get('index_location', 'end') != 'end':
-        raise NotImplementedError("shard index at the start")
-    names = [c['name'] for c in config['index_codecs']]
-    if names != ['bytes', 'crc32c']:
-        raise NotImplementedError(f"shard index codecs {names}")
-    chunks = tuple(config['chunk_shape'])
-    inner = [-(-s // c) for s, c in zip(shard_shape, chunks)]
-    n = int(np.prod(inner))
-    idx = data[len(data) - 16 * n - 4:]
-    if len(data) < 16 * n + 4 or struct.unpack(
-            '<I', idx[-4:])[0] != crc32c(idx[:-4]):
-        raise ValueError("shard index is truncated or fails its CRC-32C")
-    out = np.full(tuple(i * c for i, c in zip(inner, chunks)), fill_value,
-                  dtype)
-    for lin, pos in enumerate(np.ndindex(*inner)):
-        off, nbytes = struct.unpack_from('<QQ', idx, 16 * lin)
-        if off == MISSING and nbytes == MISSING:
-            continue
-        body = data[off:off + nbytes]
-        sel = tuple(slice(p * c, (p + 1) * c) for p, c in zip(pos, chunks))
-        out[sel] = _decode_chunk(body, config['codecs'], chunks, dtype)
-    return out[tuple(slice(0, s) for s in shard_shape)]
 
 
 class _ShardGrid:

@@ -20,7 +20,9 @@ with either reader. The zarr v3 shard writers are in ``io/zarr_shard.py``.
   A chunk equal to the fill value is not stored, as tensorstore stores
   none.
 
-:func:`read_array` decodes raw and blosc-lz4 arrays of either format.
+:func:`open_array` opens raw and blosc-lz4 arrays of either format for
+windowed reads, which decode only the chunks a window touches;
+:func:`read_array` decodes a whole array.
 """
 
 from __future__ import annotations
@@ -422,83 +424,274 @@ class BloscZarrArray:
 
 # ------------------------------------------------------------------ reading
 
-def _decode_chunk(body, codecs, chunk_shape, dtype) -> np.ndarray:
-    """One chunk's bytes through a v3 codec chain (bytes [+ blosc])."""
-    out = np.empty(chunk_shape, dtype)
-    names = [c['name'] for c in codecs]
-    if names == ['bytes']:
-        raw = np.frombuffer(body, np.uint8)
-        if raw.size != out.nbytes:
-            raise ValueError(f"raw chunk of {raw.size} bytes, "
-                             f"expected {out.nbytes}")
-        out.reshape(-1).view(np.uint8)[:] = raw
-    elif names == ['bytes', 'blosc']:
-        blosc.decompress(body, out.reshape(-1).view(np.uint8))
-    else:
-        raise NotImplementedError(f"zarr v3 codecs {names} are not read")
-    return out
+def _pread_exact(fd: int, n: int, off: int, into: np.ndarray,
+                 fpath: str) -> None:
+    """Fill the uint8 array ``into`` (``n`` bytes) from byte ``off``."""
+    view = memoryview(into).cast('B')
+    done = 0
+    while done < n:
+        got = os.preadv(fd, [view[done:n]], off + done)
+        if got <= 0:
+            raise ValueError(f"{fpath}: {n} bytes expected at {off}, the "
+                             f"file ends after {done}")
+        done += got
 
 
-def _read_v2(path: str, meta: Dict) -> np.ndarray:
-    comp = meta.get('compressor')
-    if meta.get('filters') or (comp is not None and comp.get('id') != 'blosc'):
-        raise NotImplementedError(f"{path}: only raw and blosc zarr v2 "
-                                  "arrays are read")
-    shape = tuple(meta['shape'])
-    chunks = tuple(meta['chunks'])
-    dtype = _ZARR_TO_DTYPE[meta['dtype']]
-    sep = meta.get('dimension_separator', '.')
-    out = np.full(shape, meta.get('fill_value') or 0, dtype)
-    grid = [-(-s // c) for s, c in zip(shape, chunks)]
-    for idx in np.ndindex(*grid):
-        fpath = os.path.join(path, sep.join(str(i) for i in idx))
-        if not os.path.exists(fpath):
-            continue
-        if comp is None:
-            body = np.fromfile(fpath, dtype).reshape(chunks)
+def _raw_window(fpath: str, base: int, chunk_shape, dtype,
+                box: Tuple[slice, ...]) -> np.ndarray:
+    """The ``box`` of one raw C-order chunk stored at byte ``base`` of
+    ``fpath``: only the bytes from the box's first element to its last
+    are read."""
+    first = int(np.ravel_multi_index([s.start for s in box], chunk_shape))
+    last = int(np.ravel_multi_index([s.stop - 1 for s in box], chunk_shape))
+    flat = np.empty(int(np.prod(chunk_shape)), dtype)
+    item = flat.itemsize
+    fd = os.open(fpath, os.O_RDONLY)
+    try:
+        _pread_exact(fd, (last + 1 - first) * item, base + first * item,
+                     flat[first:last + 1].view(np.uint8), fpath)
+    finally:
+        os.close(fd)
+    return flat.reshape(chunk_shape)[box]
+
+
+def _normalize(sel, shape) -> Tuple[Tuple[slice, ...], tuple]:
+    """(bounding box of step-1 slices, index applied to the box after
+    the read) for a basic NumPy selection (ints, slices, Ellipsis)."""
+    if not isinstance(sel, tuple):
+        sel = (sel,)
+    if sum(s is Ellipsis for s in sel) > 1:
+        raise IndexError("an index can only have a single ellipsis")
+    if Ellipsis in sel:
+        k = sel.index(Ellipsis)
+        sel = sel[:k] + (slice(None),) * (len(shape) - len(sel) + 1) \
+            + sel[k + 1:]
+    if len(sel) > len(shape):
+        raise IndexError(f"too many indices for an array of {len(shape)} "
+                         "dimensions")
+    sel = sel + (slice(None),) * (len(shape) - len(sel))
+    box, post = [], []
+    for s, n in zip(sel, shape):
+        if isinstance(s, slice):
+            start, stop, step = s.indices(n)
+            if step < 0:
+                raise IndexError("negative steps are not read")
+            stop = max(start, stop)
+            box.append(slice(start, stop))
+            post.append(slice(0, stop - start, step))
         else:
-            with open(fpath, 'rb') as f:
-                body = np.empty(chunks, dtype)
-                blosc.decompress(f.read(), body.reshape(-1).view(np.uint8))
-        sel = tuple(slice(i * c, min((i + 1) * c, s))
-                    for i, c, s in zip(idx, chunks, shape))
-        out[sel] = body[tuple(slice(0, s.stop - s.start) for s in sel)]
-    return out
+            i = int(s)
+            if not -n <= i < n:
+                raise IndexError(f"index {i} is out of bounds for an axis "
+                                 f"of {n}")
+            i %= n
+            box.append(slice(i, i + 1))
+            post.append(0)
+    return tuple(box), tuple(post)
 
 
-def _read_v3(path: str, meta: Dict) -> np.ndarray:
-    from .zarr_shard import read_shard
-    shape = tuple(meta['shape'])
-    dtype = np.dtype(meta['data_type'])
-    grid_shape = tuple(meta['chunk_grid']['configuration']['chunk_shape'])
-    if meta.get('chunk_key_encoding', {}).get('name', 'default') != 'default':
-        raise NotImplementedError(f"{path}: chunk key encoding")
-    codecs = meta['codecs']
-    out = np.full(shape, meta.get('fill_value') or 0, dtype)
-    grid = [-(-s // c) for s, c in zip(shape, grid_shape)]
-    for idx in np.ndindex(*grid):
-        fpath = os.path.join(path, 'c', *(str(i) for i in idx))
-        if not os.path.exists(fpath):
-            continue
-        with open(fpath, 'rb') as f:
-            data = f.read()
+class ZarrArray:
+    """A zarr array opened for windowed reads: v2 (raw or blosc, '/' or
+    '.' chunk keys) or v3 (raw or blosc chunks, sharded or not).
+    ``arr[sel]`` / :meth:`read` decode only the chunks the selection
+    touches; of a raw chunk only the bytes between the window's first
+    and last element are read; of a shard, its index and then the inner
+    chunks the window touches. A chunk (or shard, or inner chunk) that is
+    not stored reads as the fill value. ``chunks`` is the read chunk:
+    the inner chunk of a sharded array."""
+
+    def __init__(self, path: str):
+        self.path = path
+        v3 = os.path.join(path, 'zarr.json')
+        if os.path.exists(v3):
+            with open(v3) as f:
+                self._init_v3(json.load(f))
+        else:
+            with open(os.path.join(path, '.zarray')) as f:
+                self._init_v2(json.load(f))
+        self.ndim = len(self.shape)
+
+    def _init_v2(self, meta: Dict) -> None:
+        comp = meta.get('compressor')
+        if meta.get('filters') or (comp is not None
+                                   and comp.get('id') != 'blosc'):
+            raise NotImplementedError(f"{self.path}: only raw and blosc zarr "
+                                      "v2 arrays are read")
+        if meta['dtype'] not in _ZARR_TO_DTYPE:
+            raise NotImplementedError(f"{self.path}: dtype {meta['dtype']}")
+        if meta.get('order', 'C') != 'C':
+            raise NotImplementedError(f"{self.path}: Fortran-order chunks")
+        self.zarr_format = 2
+        self.shape = tuple(int(s) for s in meta['shape'])
+        self.chunks = tuple(int(c) for c in meta['chunks'])
+        self.dtype = _ZARR_TO_DTYPE[meta['dtype']]
+        self.fill_value = meta.get('fill_value') or 0
+        self._blosc = comp is not None
+        self._sep = meta.get('dimension_separator') or '.'
+        self._grid = self.chunks
+        self._shard = None
+
+    def _init_v3(self, meta: Dict) -> None:
+        self.zarr_format = 3
+        self.shape = tuple(int(s) for s in meta['shape'])
+        self.dtype = np.dtype(meta['data_type'])
+        self.fill_value = meta.get('fill_value') or 0
+        enc = meta.get('chunk_key_encoding', {'name': 'default'})
+        if enc.get('name', 'default') != 'default':
+            raise NotImplementedError(f"{self.path}: chunk key encoding "
+                                      f"{enc.get('name')}")
+        self._sep = enc.get('configuration', {}).get('separator', '/')
+        self._grid = tuple(int(c) for c in
+                           meta['chunk_grid']['configuration']['chunk_shape'])
+        codecs = meta['codecs']
         if codecs[0]['name'] == 'sharding_indexed':
-            block = read_shard(data, codecs[0]['configuration'], grid_shape,
-                               dtype, meta.get('fill_value') or 0)
+            cfg = codecs[0]['configuration']
+            if cfg.get('index_location', 'end') != 'end':
+                raise NotImplementedError("shard index at the start")
+            names = [c['name'] for c in cfg['index_codecs']]
+            if names != ['bytes', 'crc32c']:
+                raise NotImplementedError(f"shard index codecs {names}")
+            self._shard = cfg
+            self.chunks = tuple(int(c) for c in cfg['chunk_shape'])
+            codecs = cfg['codecs']
         else:
-            block = _decode_chunk(data, codecs, grid_shape, dtype)
-        sel = tuple(slice(i * c, min((i + 1) * c, s))
-                    for i, c, s in zip(idx, grid_shape, shape))
-        out[sel] = block[tuple(slice(0, s.stop - s.start) for s in sel)]
-    return out
+            self._shard = None
+            self.chunks = self._grid
+        names = [c['name'] for c in codecs]
+        if names not in (['bytes'], ['bytes', 'blosc']):
+            raise NotImplementedError(f"zarr v3 codecs {names} are not read")
+        if (self.dtype.itemsize > 1 and codecs[0].get('configuration', {})
+                .get('endian', 'little') != 'little'):
+            raise NotImplementedError(f"{self.path}: big-endian chunks")
+        self._blosc = len(names) == 2
+
+    def __getitem__(self, sel) -> np.ndarray:
+        return self.read(sel)
+
+    def read(self, sel=Ellipsis, out: Optional[np.ndarray] = None
+             ) -> np.ndarray:
+        """The selection (ints, step slices, Ellipsis) as a new array, or
+        written into ``out`` (the window's shape, any strides; integer
+        indices keep their axis there) and returned."""
+        box, post = _normalize(sel, self.shape)
+        want = tuple(s.stop - s.start for s in box)
+        if out is None:
+            buf = np.empty(want, self.dtype)
+        else:
+            if tuple(out.shape) != want or out.dtype != self.dtype:
+                raise ValueError(f"out is {out.shape} {out.dtype}, the "
+                                 f"window {want} {self.dtype}")
+            buf = out
+        if all(want):
+            for idx in np.ndindex(*((s.stop - 1) // g - s.start // g + 1
+                                    for s, g in zip(box, self._grid))):
+                key = tuple(s.start // g + i
+                            for s, g, i in zip(box, self._grid, idx))
+                self._read_grid_cell(key, box, buf)
+        return buf if out is not None else buf[post]
+
+    def _clip(self, origin, size, box):
+        """(window slices inside a block at ``origin`` of ``size``, the
+        same window relative to ``box``), or None when they miss."""
+        inner, dst = [], []
+        for o, n, s in zip(origin, size, box):
+            a, b = max(o, s.start), min(o + n, s.stop)
+            if a >= b:
+                return None
+            inner.append(slice(a - o, b - o))
+            dst.append(slice(a - s.start, b - s.start))
+        return tuple(inner), tuple(dst)
+
+    def _read_grid_cell(self, key, box, buf: np.ndarray) -> None:
+        """Fill the part of ``buf`` that grid cell ``key`` (a chunk, or a
+        shard) covers."""
+        origin = tuple(k * g for k, g in zip(key, self._grid))
+        if self.zarr_format == 2:
+            fpath = os.path.join(self.path, self._sep.join(map(str, key)))
+        else:
+            fpath = os.path.join(self.path, 'c' + self._sep
+                                 + self._sep.join(map(str, key)))
+        if not os.path.exists(fpath):
+            hit = self._clip(origin, self._grid, box)
+            if hit is not None:
+                buf[hit[1]] = self.fill_value
+            return
+        if self._shard is None:
+            self._read_chunk(fpath, 0, None, origin, box, buf)
+        else:
+            self._read_shard(fpath, origin, box, buf)
+
+    def _read_chunk(self, fpath: str, base: int, nbytes: Optional[int],
+                    origin, box, buf: np.ndarray) -> None:
+        """One stored chunk at byte ``base`` of ``fpath`` (``nbytes``
+        long, or the whole file), the part inside ``box``."""
+        hit = self._clip(origin, self.chunks, box)
+        if hit is None:
+            return
+        inner, dst = hit
+        if not self._blosc:
+            buf[dst] = _raw_window(fpath, base, self.chunks, self.dtype,
+                                   inner)
+            return
+        with open(fpath, 'rb') as f:
+            f.seek(base)
+            frame = f.read() if nbytes is None else f.read(nbytes)
+        chunk = np.empty(self.chunks, self.dtype)
+        blosc.decompress(frame, chunk.reshape(-1).view(np.uint8))
+        buf[dst] = chunk[inner]
+
+    def _read_shard(self, fpath: str, origin, box, buf: np.ndarray) -> None:
+        import struct
+        from .zarr_shard import MISSING, crc32c
+        inner_grid = [-(-s // c) for s, c in zip(self._grid, self.chunks)]
+        n = int(np.prod(inner_grid))
+        size = os.path.getsize(fpath)
+        if size < 16 * n + 4:
+            raise ValueError(f"{fpath}: shard index is truncated")
+        idx = np.empty(16 * n + 4, np.uint8)
+        fd = os.open(fpath, os.O_RDONLY)
+        try:
+            _pread_exact(fd, idx.size, size - idx.size, idx, fpath)
+        finally:
+            os.close(fd)
+        raw = idx.tobytes()
+        if struct.unpack('<I', raw[-4:])[0] != crc32c(raw[:-4]):
+            raise ValueError(f"{fpath}: shard index fails its CRC-32C")
+        for lin, pos in enumerate(np.ndindex(*inner_grid)):
+            corner = tuple(o + p * c
+                           for o, p, c in zip(origin, pos, self.chunks))
+            hit = self._clip(corner, self.chunks, box)
+            if hit is None:
+                continue
+            off, nbytes = struct.unpack_from('<QQ', raw, 16 * lin)
+            if off == MISSING and nbytes == MISSING:
+                buf[hit[1]] = self.fill_value
+                continue
+            want = int(np.prod(self.chunks)) * self.dtype.itemsize
+            if not self._blosc and nbytes != want:
+                raise ValueError(f"{fpath}: raw chunk of {nbytes} bytes, "
+                                 f"expected {want}")
+            self._read_chunk(fpath, off, nbytes, corner, box, buf)
+
+
+def open_array(path: str) -> ZarrArray:
+    """Open the zarr array at ``path`` for windowed reads."""
+    return ZarrArray(path)
 
 
 def read_array(path: str) -> np.ndarray:
-    """Decode a zarr array: v2 (raw or blosc, any chunking, '/' or '.'
-    keys) or v3 (raw or blosc chunks, sharded or not)."""
+    """Decode a whole zarr array: v2 (raw or blosc, any chunking, '/' or
+    '.' keys) or v3 (raw or blosc chunks, sharded or not)."""
+    return open_array(path)[...]
+
+
+def read_attrs(path: str) -> Dict:
+    """Group attributes: v2 ``.zattrs``, or v3 ``zarr.json``
+    'attributes'."""
     v3 = os.path.join(path, 'zarr.json')
-    if os.path.exists(v3):
+    if os.path.exists(v3) and not os.path.exists(
+            os.path.join(path, '.zattrs')):
         with open(v3) as f:
-            return _read_v3(path, json.load(f))
-    with open(os.path.join(path, '.zarray')) as f:
-        return _read_v2(path, json.load(f))
+            return json.load(f).get('attributes', {})
+    with open(os.path.join(path, '.zattrs')) as f:
+        return json.load(f)

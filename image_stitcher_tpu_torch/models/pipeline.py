@@ -17,10 +17,13 @@ on the device (:meth:`StitchPipeline.save_region`), region N saving on a
 background thread while region N+1 fuses. With ``registration_report``
 the per-pair measurements and solve statistics land in
 ``registration_report.json``; ``debug_visuals`` writes the center
-pairs' overlap strips as PNGs. Merges, resume and the run manifest are
-later items of the port.
+pairs' overlap strips as PNGs. Every run keeps a manifest
+(``utils/manifest.py``) of its parameters, calibrations and completed
+units, which ``resume=True`` goes on from; ``merge_timepoints`` and
+``merge_hcs_regions`` then merge the region stores (``models/merge.py``).
 
-Output tree: ``{out}/{t}_stitched/{region}_stitched.ome.zarr``, with the
+Output tree: ``{out}/{t}_stitched/{region}_stitched.ome.zarr`` (and the
+merges' ``region_time_series/`` and ``hcs_timepoints/``), with the
 same sampling, geometry and metadata as the JAX package, so the two
 packages write equal trees for the same input (tested).
 
@@ -55,10 +58,12 @@ from ..ops.phasecorr import (horizontal_shift_from_pcc,
                              phase_cross_correlation_conf_np,
                              phase_cross_correlation_np,
                              vertical_shift_from_pcc)
-from ..params import EngineOptions, StitchingParameters, _not_ported
+from ..params import EngineOptions, StitchingParameters
 from ..state import CarriedState
+from ..utils.manifest import RunManifest, find_resumable
 from ..utils.profiling import StageTimers
 from ..utils.progress import ProgressReporter, StitchCancelled
+from .merge import MergeStats, run_merges
 
 
 def resolve_device(device=None) -> torch.device:
@@ -85,9 +90,6 @@ class StitchPipeline:
                  reporter: Optional[ProgressReporter] = None,
                  stop_event=None, resume: bool = False, device=None,
                  state: Optional[CarriedState] = None):
-        if resume:
-            raise _not_ported("resuming a run", "item 12, 'resume and run "
-                              "manifest'")
         params.validate()
         self.params = params
         self.options = options or EngineOptions()
@@ -98,9 +100,32 @@ class StitchPipeline:
         self.state = state
 
         self.input_folder = params.input_folder
-        self.output_folder = (self.options.output_folder
-                              if self.options.output_folder is not None
-                              else params.stitched_folder)  # timestamp once
+        #: True when this run goes on from an earlier run's manifest
+        self.resumed = False
+        if self.options.output_folder is not None:
+            # an explicit folder pins the destination; resuming into it
+            # needs a compatible manifest, or none at all
+            self.output_folder = self.options.output_folder
+            if resume:
+                m = RunManifest.load(self.output_folder)
+                if m is not None and not m.compatible_with(
+                        params.to_dict(), self.options.output_fingerprint()):
+                    raise ValueError(
+                        f"refusing to resume into {self.output_folder}: "
+                        f"its manifest was written with different "
+                        f"parameters or output-affecting options")
+                self.resumed = True
+        elif resume:
+            prior = find_resumable(self.input_folder, params.to_dict(),
+                                   self.options.output_fingerprint())
+            if prior is not None:
+                self.output_folder = prior
+                self.resumed = True
+                self.reporter.status(f"Resuming run in {prior}", False)
+            else:
+                self.output_folder = params.stitched_folder
+        else:
+            self.output_folder = params.stitched_folder  # timestamp once
         self.output_format = params.output_format
         self.per_timepoint_region_output_template = os.path.join(
             self.output_folder, "{timepoint}_stitched",
@@ -130,6 +155,9 @@ class StitchPipeline:
         #: per-region fusion stats of the last run: batches placed, and on
         #: the band path the band fuser's stage seconds
         self.fuse_stats: Dict[str, Dict] = {}
+        #: where the merges' time went (models/merge.py)
+        self.merge_stats = MergeStats()
+        self._manifest: Optional[RunManifest] = None
 
     # ------------------------------------------------------------------ util
 
@@ -733,13 +761,18 @@ class StitchPipeline:
 
     def _ensure_global_positions(self, t, region: str):
         """Per-region global solve: each region's stage error is its own
-        (solved the first time a region is stitched)."""
+        (solved the first time a region is stitched, and kept in the run
+        manifest)."""
         if (self.options.registration_scope == 'global'
                 and self.params.use_registration
                 and region not in self.global_positions
                 and region not in self._global_rejected):
             with self.timers.time('registration'):
                 self.calculate_shifts_all_pairs(int(t), region)
+            if self._manifest is not None:
+                self._manifest.set_global_positions(
+                    self.global_positions, self.global_positions_float)
+                self._manifest.save()
 
     # -------------------------------------------------------------- stitching
 
@@ -974,29 +1007,46 @@ class StitchPipeline:
 
     # ------------------------------------------------------------------- run
 
-    def _prepare(self):
-        """Flatfields and registration: carried over from ``state`` where
-        given, else fitted and measured here (the fit on a worker thread,
-        overlapped with the registration measurement: they read disjoint
-        data and share no state). The 'global' scope also needs carried
-        positions to skip its measurement; regions without them are
-        solved when they are stitched."""
+    def _prepare(self, manifest: RunManifest):
+        """Flatfields and registration: on a resumed run taken from its
+        manifest (the fields from its sidecar, the shifts and global
+        positions from the manifest itself), on a fresh run carried over
+        from ``state`` where given; what is still missing is fitted and
+        measured here (the fit on a worker thread, overlapped with the
+        registration measurement: they read disjoint data and share no
+        state). The 'global' scope also needs positions to skip its
+        measurement; regions without them are solved when they are
+        stitched. The manifest then records the shifts and positions,
+        and the sidecar every field not read from it."""
         state = self.state
         scope = self.options.registration_scope
-        fit = (self.params.apply_flatfield
-               and not (state is not None and state.flatfields is not None))
-        carried = (state is not None and state.shifts is not None
-                   and (scope != 'global'
-                        or state.global_positions is not None))
-        measure = self.params.use_registration and not carried
+        fields = None
+        if self.params.apply_flatfield and self.resumed:
+            fields = manifest.load_flatfields() or None
+        from_sidecar = fields is not None
+        if fields is None and state is not None:
+            fields = state.flatfields
+        shifts = positions = None
+        saved = manifest.get_shifts() if self.resumed else None
+        if saved is not None:
+            shifts = saved
+            ints, floats = manifest.get_global_positions()
+            positions = (ints, floats) if ints else None
+        elif state is not None and state.shifts is not None:
+            shifts = state.shifts
+            if scope == 'global' and state.global_positions is not None:
+                positions = (state.global_positions,
+                             state.global_positions_float or {})
+        fit = self.params.apply_flatfield and fields is None
+        measure = self.params.use_registration and (
+            shifts is None or (scope == 'global' and positions is None))
         if self.params.apply_flatfield and not fit:
-            self.flatfields = dict(state.flatfields)
+            self.flatfields = dict(fields)
         if self.params.use_registration and not measure:
-            self.shifts = state.shifts
-            if scope == 'global':
-                self.global_positions = dict(state.global_positions)
-                self.global_positions_float = dict(
-                    state.global_positions_float or {})
+            self.shifts = shifts
+            if positions is not None:
+                self.global_positions = dict(positions[0])
+                self.global_positions_float = dict(positions[1])
 
         def fit_flatfields():
             with self.timers.time('flatfield_fit'):
@@ -1021,19 +1071,28 @@ class StitchPipeline:
                     measure_shifts()
                 finally:
                     ff_future.result()
-            return
-        if fit:
-            fit_flatfields()
-        if measure:
-            measure_shifts()
+        else:
+            if fit:
+                fit_flatfields()
+            if measure:
+                measure_shifts()
+        if not from_sidecar:
+            manifest.save_flatfields(self.flatfields)
+        if self.params.use_registration:
+            manifest.set_shifts(self.shifts)
+            if self.global_positions:
+                manifest.set_global_positions(self.global_positions,
+                                              self.global_positions_float)
 
-    def _process_regions(self) -> str:
-        """Fuse and save every (timepoint, region): canvases that
-        :meth:`_should_stream` streams in bands, the others fused whole
-        and saved, with ``pipelined_save`` on one background saver while
-        the next region fuses (at most one canvas in flight). With
-        ``continue_on_error`` a failed region, fuse or save, is reported
-        and skipped; cancellation always propagates."""
+    def _process_regions(self, manifest: RunManifest) -> str:
+        """Fuse and save every (timepoint, region) the manifest does not
+        list as completed: canvases that :meth:`_should_stream` streams
+        in bands, the others fused whole and saved, with
+        ``pipelined_save`` on one background saver while the next region
+        fuses (at most one canvas in flight). Each saved unit is marked
+        completed in the manifest. With ``continue_on_error`` a failed
+        region, fuse or save, is reported and skipped (and stays out of
+        the manifest); cancellation always propagates."""
         final_path = ''
         pending = None  # (future, timepoint, region)
         executor = (ThreadPoolExecutor(max_workers=1,
@@ -1054,6 +1113,7 @@ class StitchPipeline:
             nonlocal final_path
             final_path = path
             self.saved_paths.append(path)
+            manifest.mark_completed(timepoint, region)
             self.reporter.status(f"Completed region {region} t{timepoint}",
                                  False)
 
@@ -1075,6 +1135,14 @@ class StitchPipeline:
                             exist_ok=True)
                 for region in self.acq.regions:
                     self._check_stop()
+                    if manifest.is_completed(timepoint, region):
+                        final_path = (self.per_timepoint_region_output_template
+                                      .format(timepoint=timepoint,
+                                              region=region))
+                        self.reporter.status(
+                            f"Skipping completed region {region} "
+                            f"t{timepoint}", False)
+                        continue
                     self.reporter.starting_stitching()
                     try:
                         stream = self._should_stream(timepoint, region)
@@ -1146,9 +1214,31 @@ class StitchPipeline:
             with self.timers.time('scan'):
                 self.acq = scan_acquisition(self.input_folder)
             os.makedirs(self.output_folder, exist_ok=True)
-            self._prepare()
-            final_path = self._process_regions()
+            manifest = ((RunManifest.load(self.output_folder)
+                         if self.resumed else None)
+                        or RunManifest(self.output_folder))
+            manifest.set_params(self.params.to_dict(),
+                                self.options.output_fingerprint())
+            self._prepare(manifest)
+            manifest.save()
+            self._manifest = manifest
+            final_path = self._process_regions(manifest)
+            if self.params.merge_timepoints or self.params.merge_hcs_regions:
+                if self.resumed and manifest.data.get("merges_done"):
+                    self.reporter.status("Merges already complete; skipping",
+                                         False)
+                else:
+                    self.reporter.starting_saving(True)
+                    # a resumed run may have skipped every region: the
+                    # merges' pyramid depth comes from the first region
+                    self._region_dimensions(int(self.acq.timepoints[0]),
+                                            self.acq.regions[0])
+                    with self.timers.time('merge'):
+                        final_path = run_merges(self)
+                    manifest.data["merges_done"] = True
+                    manifest.save()
             self._write_registration_report()
+            manifest.mark_finished()
             self.reporter.finished_saving(final_path, self.acq.dtype)
             for line in self.timers.summary():
                 self.reporter.status(line, False)

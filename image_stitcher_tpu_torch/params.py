@@ -7,7 +7,8 @@ differs is what the port runs: flatfield (fitted on the host or the
 device), registration (center pair, all pairs, or the global position
 solve with optional subpixel placement; reports and debug images),
 overwrite or feathered fusion on CUDA, in bands or whole canvases,
-OME-Zarr v2 or v3 with raw or blosc-lz4 chunks. Every option outside
+OME-Zarr v2 or v3 with raw or blosc-lz4 chunks, the timepoint and HCS
+merges, and resuming a run from its manifest. Every option outside
 those paths raises ``NotImplementedError`` naming the ROADMAP item that
 will bring it, instead of running something else in its place.
 """
@@ -68,8 +69,6 @@ class StitchingParameters:
             raise ValueError("Registration Z-level must be non-negative")
         if self.output_format == '.ome.tiff':
             raise _not_ported("OME-TIFF output", "item 10, 'OME-TIFF'")
-        if self.merge_timepoints or self.merge_hcs_regions:
-            raise _not_ported("timepoint and HCS merges", "item 11, 'merges'")
 
     @property
     def stitched_folder(self) -> str:
@@ -145,6 +144,21 @@ class EngineOptions:
     continue_on_error: bool = False
     output_folder: Optional[str] = None
     work_shard: Optional[Tuple[int, int]] = None
+
+    # the fields that change the OUTPUT (not only its speed): a resumed
+    # run must match them to keep one coherent tree (the JAX package's
+    # list, so a manifest's fingerprint is the same in both packages)
+    OUTPUT_AFFECTING = (
+        'chunks', 'overlap_fudge', 'registration_margin', 'upsample_factor',
+        'flatfield_tiles_per_timepoint', 'flatfield_max_tiles',
+        'compressor_cname', 'compressor_clevel', 'compressor_shuffle',
+        'blend_method', 'pyramid_downsample', 'registration_scope',
+        'feather_px', 'subpixel_placement', 'zarr_format')
+
+    def output_fingerprint(self) -> Dict[str, Any]:
+        return {name: list(v) if isinstance((v := getattr(self, name)), tuple)
+                else v
+                for name in self.OUTPUT_AFFECTING}
 
     def write_band_rows(self) -> int:
         """Row granularity for band-streamed writes: the chunk rows."""

@@ -1,7 +1,7 @@
 """The port's CLI: every flag of the JAX CLI with its choices and
-default, the ones the port runs driven end to end on the CPU, the ones it
-does not run yet raising ``NotImplementedError`` naming their ROADMAP
-item."""
+default, the ones the port runs driven end to end on the CPU (the merge
+and resume flags against the JAX CLI's tree), the ones it does not run
+yet raising ``NotImplementedError`` naming their ROADMAP item."""
 
 import json
 import os
@@ -66,6 +66,10 @@ def test_flags_match_the_jax_cli(flags):
     assert args.resume == jargs.resume
 
 
+#: ROADMAP items the port has since carried: their flags run
+PORTED = ("item 11", "item 12")
+
+
 @pytest.mark.parametrize("flags,item", [
     (['-f', '.ome.tiff'], "item 10"), (['-mt'], "item 11"),
     (['-mw'], "item 11"), (['--fusion-device', 'host'], "item 8"),
@@ -73,6 +77,20 @@ def test_flags_match_the_jax_cli(flags):
     else ' '.join(v))
 def test_unported_flags_raise_naming_their_item(tmp_path, capsys, flags,
                                                 item):
+    """Flags of options still to port fail the run naming their item;
+    those of ported items (merges, 11; resume, 12) run and write the JAX
+    CLI's tree."""
+    if item in PORTED:
+        jax_acq = _acquisition(tmp_path, regions=("A1", "B2"), name="jax")
+        port_acq = _acquisition(tmp_path, regions=("A1", "B2"), name="port")
+        common = ['-r', '--chunk-size', '32', '--fusion-device', 'device']
+        assert jax_main(['-i', jax_acq] + common + flags) == 0
+        assert main(['-i', port_acq, '--device', 'cpu'] + common
+                    + flags) == 0
+        want, got = _output(tmp_path, "jax"), _output(tmp_path, "port")
+        assert sorted(os.listdir(got)) == sorted(os.listdir(want))
+        assert_outputs_equal(str(want), str(got))
+        return
     acq = _acquisition(tmp_path)
     args = parse_args(['-i', acq, '--device', 'cpu'] + flags)
     with pytest.raises(NotImplementedError, match=item):

@@ -353,3 +353,44 @@ def test_device_flatfield_solver_matches_host(cuda_device, n):
     np.testing.assert_allclose(got.cpu().numpy(),
                                ff_ops.fit_flatfield_stack_np(stack),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_merge_fold_on_the_card_equals_the_cpu_fold(cuda_device, tmp_path):
+    """The merges' band copy and fold (models/merge.py) on the card write
+    the arrays the CPU fold writes: level 0 copied, levels 1-3 the 2x2
+    mean, at two T indexes, bands of 128 rows over 8 levels' worth of
+    alignment; the card's upload, fold and copies are timed."""
+    from types import SimpleNamespace
+    from image_stitcher_tpu_torch import EngineOptions
+    from image_stitcher_tpu_torch.io.omezarr import MultiscaleWriter
+    from image_stitcher_tpu_torch.io.zarr_store import open_array, read_array
+    from image_stitcher_tpu_torch.models import merge
+    rng = np.random.default_rng(3)
+    vol = rng.integers(0, 65536, (1, 2, 1, 700, 530), dtype=np.uint16)
+    meta = (1.0, 1.0, ['a', 'b'], [0xFF, 0xFF00])
+    src = MultiscaleWriter(str(tmp_path / 'src'), vol.shape, 1, np.uint16,
+                           (1, 1, 1, 128, 128), 'src', *meta)
+    src.write_level(0, vol)
+    src.close()
+    got = {}
+    for dev in (cuda_device, torch.device('cpu')):
+        pipe = SimpleNamespace(device=dev, merge_stats=merge.MergeStats(),
+                               options=EngineOptions(chunks=(1, 1, 1, 128,
+                                                             128)))
+        out = str(tmp_path / dev.type)
+        writer = MultiscaleWriter(out, (2, 2, 1, 700, 530), 4, np.uint16,
+                                  (1, 1, 1, 128, 128), 'm', *meta,
+                                  cname='lz4')
+        for ti in (0, 1):
+            merge._stream_volume_banded(
+                pipe, writer, open_array(str(tmp_path / 'src' / '0')), ti, 4)
+        writer.close()
+        got[dev.type] = [read_array(f"{out}/{k}") for k in range(4)]
+        if dev.type == 'cuda':
+            stats = pipe.merge_stats.as_dict()
+            assert stats['h2d_ms'] > 0 and stats['fold_ms'] > 0
+            assert stats['bands'] == 12
+    for a, b in zip(got['cuda'], got['cpu']):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got['cuda'][0][1], vol[0])

@@ -2,9 +2,10 @@
 options (blosc-lz4 chunks through its own C codec, read back by its own
 reader), the maximum-quality path (global registration, subpixel
 placement, feathering), the in-RAM path (whole canvases, the device
-flatfield solver, the registration report and debug images) and
+flatfield solver, the registration report and debug images),
 acquisitions stored as PNG and as LZW-compressed TIFF (its own
-decoders), with jax, pandas, tensorstore, numcodecs, blosc, OpenCV, PIL,
+decoders), and a two-well, two-timepoint run stopped, resumed with both
+merges and its plate reopened with ``open_stitched``, with jax, pandas, tensorstore, numcodecs, blosc, OpenCV, PIL,
 imageio and the JAX package all unimportable, as on a CUDA host that has
 none of them."""
 
@@ -104,6 +105,36 @@ CHILD = textwrap.dedent("""
         loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
         assert not loaded, loaded
         print('INPUT-OK', fmt, pipe.shifts.h_shift, pipe.shifts.v_shift)
+    # two wells, two timepoints: a run stopped after its first unit, then
+    # resumed with both merges, the complete plate opened and read
+    import threading
+    stop = threading.Event()
+    rep = port.ProgressReporter(status=lambda m, s=False: stop.set()
+                                if m.startswith('Completed region') else None)
+    out = {out!r} + '_plate'
+    kw = dict(use_registration=True, apply_flatfield=True,
+              merge_timepoints=True, merge_hcs_regions=True,
+              device=torch.device('cpu'))
+    opts = dict(chunks=(1, 1, 1, 32, 32), output_folder=out,
+                pipelined_save=False)
+    try:
+        port.stitch({acq!r} + '_plate', reporter=rep, stop_event=stop,
+                    options=port.EngineOptions(**opts), **kw)
+        raise AssertionError('the run was not stopped')
+    except port.StitchCancelled:
+        pass
+    pipe = port.stitch({acq!r} + '_plate', resume=True,
+                       options=port.EngineOptions(**opts), **kw)
+    assert pipe.resumed and 'flatfield_fit' not in pipe.timers.as_dict()
+    listing = port.list_outputs(out)
+    assert len(listing['regions']) == 4, listing
+    img = port.open_stitched(listing['hcs'][0] + '/B/2/0')
+    plate = img.read(0)
+    assert plate.shape[:3] == (2, 1, 1) and plate.any(), plate.shape
+    assert (img.level(0)[1, 0, 0, 3:9, 5:11] == plate[1, 0, 0, 3:9, 5:11]).all()
+    loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+    assert not loaded, loaded
+    print('MERGE-OK', img.num_levels, plate.shape)
 """)
 
 
@@ -114,6 +145,8 @@ def test_port_runs_without_jax_pandas_tensorstore_cv2(tmp_path):
     write_synthetic_acquisition(acq, **kw)
     write_synthetic_acquisition(acq + '_png', ext='png', **kw)
     write_synthetic_acquisition(acq + '_lzw', **kw)
+    write_synthetic_acquisition(acq + '_plate', regions=['A1', 'B2'],
+                                timepoints=2, **kw)
     tdir = os.path.join(acq + '_lzw', '0')
     for name in os.listdir(tdir):      # OpenCV's default: LZW, Predictor 2
         if name.endswith('.tiff'):
@@ -130,6 +163,7 @@ def test_port_runs_without_jax_pandas_tensorstore_cv2(tmp_path):
     assert "INRAM-OK (0, -16) (-16, 0)" in proc.stdout
     assert "INPUT-OK png (0, -16) (-16, 0)" in proc.stdout
     assert "INPUT-OK lzw (0, -16) (-16, 0)" in proc.stdout
+    assert "MERGE-OK 1 (2, 1, 1, 144, 112)" in proc.stdout
 
 
 def test_package_sources_import_none_of_the_blocked_modules():

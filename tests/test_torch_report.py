@@ -178,7 +178,9 @@ def test_no_report_without_the_option(tmp_path):
                        options=port.EngineOptions(
                            output_folder=str(tmp_path / "port"), **CHUNKS))
     assert not pipe.registration_reports
-    assert sorted(os.listdir(tmp_path / "port")) == ['0_stitched']
+    # the run's folder holds its stores and its manifest, no report
+    assert sorted(os.listdir(tmp_path / "port")) == ['.stitch_manifest.json',
+                                                     '0_stitched']
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (7, 300), (64, 3), (128, 96)],

@@ -248,11 +248,15 @@ def test_unported_options_raise(tmp_path, option):
         port.stitch(acq, device=CPU, options=port.EngineOptions(**option))
 
 
-@pytest.mark.parametrize("param", [dict(output_format='.ome.tiff'),
-                                   dict(merge_timepoints=True),
-                                   dict(merge_hcs_regions=True),
-                                   dict(resume=True)],
-                         ids=lambda d: next(iter(d)))
+@pytest.mark.parametrize("param", [
+    dict(output_format='.ome.tiff'),
+    # merges and resume run; with an unported companion they still raise,
+    # naming it
+    dict(merge_timepoints=True, output_format='.ome.tiff'),
+    dict(merge_hcs_regions=True, output_format='.ome.tiff'),
+    dict(resume=True, options=port.EngineOptions(
+        work_shard=(0, 2), output_folder='/nonexistent'))],
+    ids=lambda d: next(iter(d)))
 def test_unported_parameters_raise(tmp_path, param):
     acq = str(tmp_path / "acq")
     write_synthetic_acquisition(acq, grid_cols=2, grid_rows=1, tile_w=32,

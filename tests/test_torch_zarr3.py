@@ -29,8 +29,8 @@ from image_stitcher_tpu import EngineOptions as JaxOptions
 from image_stitcher_tpu import stitch as jax_stitch
 import image_stitcher_tpu_torch as port
 from image_stitcher_tpu_torch.io.zarr_shard import (MISSING, crc32c,
-                                                    index_bytes, read_shard)
-from image_stitcher_tpu_torch.io.zarr_store import read_array
+                                                    index_bytes)
+from image_stitcher_tpu_torch.io.zarr_store import open_array, read_array
 
 CPU = torch.device('cpu')
 WELLS = ["A1", "B1", "C1", "D1"]
@@ -105,7 +105,20 @@ def test_v3_lz4_decodes_equal_to_v2(tmp_path):
                 read_array(os.path.join(outs[2], g, lv)))
 
 
-def test_shard_index_layout_and_crc():
+def _one_shard_array(root, body: bytes, width: int):
+    """A (1, 1, 1, 1, width) uint8 raw sharded array, inner chunks 10
+    wide, whose one shard file holds ``body``, opened for reading."""
+    import json
+    from image_stitcher_tpu_torch.io.zarr_shard import zarr3_array_meta
+    shape = (1, 1, 1, 1, width)
+    os.makedirs(root / 'c' / '0' / '0' / '0' / '0')
+    (root / 'zarr.json').write_text(json.dumps(zarr3_array_meta(
+        shape, (1, 1, 1, 1, 10), shape, np.uint8)))
+    (root / 'c' / '0' / '0' / '0' / '0' / '0').write_bytes(body)
+    return open_array(str(root))
+
+
+def test_shard_index_layout_and_crc(tmp_path):
     """(offset, nbytes) u64 LE pairs, 2^64-1 for absent chunks, then the
     CRC-32C of the pairs; a flipped index byte fails the check."""
     assert crc32c(b"123456789") == 0xE3069283   # the CRC-32C check value
@@ -113,17 +126,15 @@ def test_shard_index_layout_and_crc():
     idx = index_bytes(entries)
     assert len(idx) == 3 * 16 + 4
     assert struct.unpack('<6Q', idx[:48]) == (0, 10, MISSING, MISSING, 10, 4)
-    config = {'chunk_shape': [1, 10], 'codecs': [{'name': 'bytes'}],
-              'index_codecs': [{'name': 'bytes', 'configuration':
-                                {'endian': 'little'}}, {'name': 'crc32c'}]}
     # a body shorter than a raw chunk
     with pytest.raises(ValueError, match="raw chunk"):
-        read_shard(bytes(range(14)) + idx, config, (1, 30), np.uint8)
+        _one_shard_array(tmp_path / 'a', bytes(range(14)) + idx, 30)[...]
     entries = [(0, 10), (MISSING, MISSING)]
-    got = read_shard(bytes(range(10)) + index_bytes(entries), config,
-                     (1, 20), np.uint8)
-    np.testing.assert_array_equal(got[0], list(range(10)) + [0] * 10)
+    got = _one_shard_array(tmp_path / 'b', bytes(range(10))
+                           + index_bytes(entries), 20)[...]
+    np.testing.assert_array_equal(got[0, 0, 0, 0],
+                                  list(range(10)) + [0] * 10)
     bad = bytearray(bytes(range(10)) + index_bytes(entries))
     bad[-6] ^= 1
     with pytest.raises(ValueError, match="CRC-32C"):
-        read_shard(bytes(bad), config, (1, 20), np.uint8)
+        _one_shard_array(tmp_path / 'c', bytes(bad), 20)[...]
