@@ -82,7 +82,22 @@ Phases, each fatal on failure:
      merged level 0 is each region's zero-padded, each merged level the
      2x2 mean (sum >> 2) of the one above, the plate and well metadata
      as plate_attrs/well_attrs give them, and a 3x3 two-well merge on the
-     card byte-equal to the CPU pipeline's merge of the same stores.
+     card byte-equal to the CPU pipeline's merge of the same stores;
+ 11. OME-TIFF output and the host fuser: (a) 3x3 grids written as
+     ``.ome.tiff`` on the card and on the CPU (the card run's fields and
+     shifts carried) are byte-equal files: u16 mono and u8 RGB (PNG
+     tiles), in RAM and in bands, deflate and raw, overwrite and feather
+     (four cases covering each value twice); (b) phase 5's grid and
+     options written as deflate OME-TIFF: every page's level 0 and SubIFD
+     levels, walked by ``io/tiff.py::read_pages``, decode equal to a zarr
+     tree of the same acquisition, with e2e, tiles/s, the writer's
+     seconds, the file's bytes and deflate ratio and the writer's
+     ``peak_buffer_bytes``; (c) the same grid with
+     ``fusion_device='host'`` (the host band fuser through
+     ``csrc/hostops.c``, the fit gated per channel): its raw tree
+     byte-equal to the device path's, with e2e and when the first band
+     started against the end of the fit; then the same run into the
+     default blosc-lz4 chunks, decoded equal to the device path's tree.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -122,8 +137,9 @@ KERNELS = {
 }
 LIBRARIES = sorted({lib for lib, _, _ in KERNELS.values()})
 #: the host C sources, built with the C compiler: the chunk codec
-#: (csrc/blosc_lz4.c) and the tile decoders (csrc/tile_decode.c)
-HOST_LIBRARIES = ['blosc_lz4', 'tile_decode']
+#: (csrc/blosc_lz4.c), the tile decoders (csrc/tile_decode.c) and the host
+#: fuser's loops and pyramid folds (csrc/hostops.c)
+HOST_LIBRARIES = ['blosc_lz4', 'tile_decode', 'hostops']
 TILE = 2048
 #: modules the card's host lacks; the port must load none of them
 BANNED = ('jax', 'jaxlib', 'pandas', 'tensorstore', 'numcodecs', 'blosc',
@@ -162,10 +178,11 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(native.load, libraries))
+    cc = os.path.basename(native.find_cc())
     log(f"build: {len(libraries)} sources in {time.perf_counter() - t0:.1f}s;"
         " nvcc " + " ".join(native.NVCC_FLAGS) + "; the codec and the tile "
-        "decoders " + os.path.basename(native.find_cc()) + " "
-        + " ".join(native.CC_FLAGS))
+        f"decoders {cc} " + " ".join(native.CC_FLAGS) + f"; hostops {cc} "
+        + " ".join(native.SOURCE_CC_FLAGS['hostops']))
     for name in libraries:
         info = native.BUILDS[name]
         how = ('cached' if info['cached'] else
@@ -2165,6 +2182,352 @@ def phase_merges(work: str, card: str, grid: int = 3,
         raise SystemExit(f"merges: loaded {banned}")
 
 
+# -------------------------------------------------------------------- 11
+
+#: 11a: (label, RGB u8 or mono u16, streaming, tiff_compression, blend);
+#: every value of each axis twice, every dtype with both modes
+TIFF_CASES = (
+    ('u16 mono, in RAM, deflate, overwrite', False, 'off', 'deflate',
+     'overwrite'),
+    ('u16 mono, bands, raw, feather', False, 'on', 'raw', 'feather'),
+    ('u8 RGB, in RAM, raw, feather', True, 'off', 'raw', 'feather'),
+    ('u8 RGB, bands, deflate, overwrite', True, 'on', 'deflate',
+     'overwrite'))
+
+
+def tiff_file(out: str, region: str = 'A1') -> str:
+    return os.path.join(out, '0_stitched', f'{region}_stitched.ome.tiff')
+
+
+class TiffWriterSplit:
+    """Wall seconds of the band writer thread's pieces on an OME-TIFF run:
+    the tile encode (``BigTiffWriter.encode_strip``: zlib on the encode
+    pool), the file appends (``append_tile_data``) and the pyramid fold
+    (``models/streaming.py::host_downsample``), each wrapped while the
+    context is open; the writer's seconds less these is the row parking,
+    the tile blocks' assembly and the lock."""
+
+    def __init__(self):
+        from image_stitcher_tpu_torch.io import tiffwriter
+        from image_stitcher_tpu_torch.models import streaming
+        self.targets = [(tiffwriter.BigTiffWriter, 'encode_strip'),
+                        (tiffwriter.BigTiffWriter, 'append_tile_data'),
+                        (streaming, 'host_downsample')]
+        self.seconds = collections.Counter()
+        self.saved = []
+
+    def _timed(self, name, inner):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+        return timed
+
+    def __enter__(self):
+        for owner, name in self.targets:
+            inner = getattr(owner, name)
+            self.saved.append((owner, name, inner))
+            setattr(owner, name, self._timed(name, inner))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, inner in self.saved:
+            setattr(owner, name, inner)
+
+
+def _pool_width() -> int:
+    from image_stitcher_tpu_torch.io.tiffwriter import _encode_pool_size
+    return _encode_pool_size()
+
+
+def deflate_rates(tile_path: str) -> list:
+    """zlib level 1 MB/s (of input) on the 256^2 blocks of one u16 tile,
+    as the TIFF writer encodes them: one thread, then its encode pool's
+    width (``min(CPUs, 8)`` threads), 4 passes each."""
+    import zlib
+    from image_stitcher_tpu_torch.io.acquisition import read_image
+    img = np.ascontiguousarray(read_image(tile_path))
+    blocks = [np.ascontiguousarray(img[y:y + 256, x:x + 256]).tobytes()
+              for y in range(0, img.shape[0], 256)
+              for x in range(0, img.shape[1], 256)] * 4
+    rates = []
+    for threads in (1, _pool_width()):
+        with ThreadPoolExecutor(threads) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(lambda b: zlib.compress(b, 1), blocks))
+            rates.append(len(blocks) * len(blocks[0]) / 1e6
+                         / (time.perf_counter() - t0))
+    return rates
+
+
+def files_equal_but_zero_chunks(a_root: str, b_root: str, what: str,
+                                skip=()):
+    """:func:`files_equal` for two raw zarr trees of which one may lack
+    chunk files the other holds as all zeros (the fill value: a band
+    fuser writes no chunk for a band no tile touches, and the device
+    fuser's taller bands cover rows the host fuser's do not). Returns
+    (bytes compared, zero chunks held by one tree only)."""
+    def listing(root):
+        return {os.path.relpath(os.path.join(d, n), root)
+                for d, _, names in os.walk(root) for n in names
+                if n not in skip}
+    names_a, names_b = listing(a_root), listing(b_root)
+    only = sorted(names_a ^ names_b)
+    for rel in only:
+        root = a_root if rel in names_a else b_root
+        if rel.endswith(('.zarray', '.zattrs', '.zgroup', 'zarr.json')):
+            raise SystemExit(f"{what}: {rel} is in one tree only")
+        with open(os.path.join(root, rel), 'rb') as f:
+            if np.frombuffer(f.read(), np.uint8).any():
+                raise SystemExit(f"{what}: {rel} (in one tree only) is not "
+                                 f"an all-zero chunk")
+    total = 0
+    for rel in sorted(names_a & names_b):
+        with open(os.path.join(a_root, rel), 'rb') as fa, \
+                open(os.path.join(b_root, rel), 'rb') as fb:
+            x, y = fa.read(), fb.read()
+        if x != y:
+            raise SystemExit(f"{what}: {rel} differs")
+        total += len(x)
+    return total, len(only)
+
+
+def phase_ome_tiff(work: str, card: str, grid: int = 10,
+                   tile: int = TILE, device: str = 'cuda') -> dict:
+    """11: OME-TIFF output and the host fuser. (a) 3x3 grids stitched to
+    ``.ome.tiff`` on the card and on the CPU (the card run's fields and
+    shifts carried) write byte-equal files. (b) Phase 5's grid and options
+    written as deflate OME-TIFF: every page's level 0 and SubIFD levels
+    decode (``io/tiff.py::read_pages``) equal to a zarr tree of the same
+    acquisition; e2e, the writer's seconds, the file's bytes and
+    ``peak_buffer_bytes``. (c) The same grid through
+    ``fusion_device='host'`` (the host band fuser, ``csrc/hostops.c``,
+    the gated fit): its raw tree byte-equal to the device path's, and its
+    lz4 tree decoded equal to it."""
+    from image_stitcher_tpu_torch import CarriedState, stitch
+    from image_stitcher_tpu_torch.io.tiff import read_pages
+    from image_stitcher_tpu_torch.io.zarr_store import read_array
+    from image_stitcher_tpu_torch.models.streaming import (
+        band_rows_for, partition_jobs_by_band)
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    dev, cpu = torch.device(device), torch.device('cpu')
+    overlap = 205 * tile // TILE
+    kernels = (cuda_fuse.fuse_overwrite, cuda_fuse.fuse_feather,
+               cuda_fuse.finalize_feather)
+    tf = tile_files()
+    skip = ('.stitch_manifest.json', 'flatfields.npz')
+
+    # 11a: 3x3 grids, card against CPU
+    acqs = {}
+    for rgb in (False, True):
+        acq = acqs[rgb] = os.path.join(work, 'tiff_3x3_rgb' if rgb
+                                       else 'tiff_3x3_mono')
+        if rgb:
+            write_acquisition(
+                acq, 3, tile, overlap, seed=31,
+                texture=lambda r, side: textures(r, side, 3, np.uint8),
+                encode=lambda b: tf.png_bytes(b, 2, 8, filters=range(5),
+                                              level=1),
+                suffix='png', channels=["BF LED matrix full"])
+        else:
+            write_acquisition(acq, 3, tile, overlap, seed=32)
+    for label, rgb, streaming, compression, blend in TIFF_CASES:
+        extra = dict(streaming=streaming, tiff_compression=compression,
+                     blend_method=blend)
+        outs, state, secs = {}, None, {}
+        for run, run_dev in (('card', dev), ('cpu', cpu)):
+            for fn in kernels:
+                fn.launches = 0
+            out = outs[run] = os.path.join(work, f'tiff_3x3_{run}')
+            t0 = time.perf_counter()
+            pipe = stitch(acqs[rgb], output_format='.ome.tiff',
+                          use_registration=True, apply_flatfield=True,
+                          device=run_dev, state=state,
+                          options=smoke_options(out, **extra))
+            secs[run] = time.perf_counter() - t0
+            launches = [fn.launches for fn in kernels]
+            if run == 'card':
+                card_launches = launches
+                peak = pipe.fuse_stats['A1_t0'].get('peak_buffer_bytes')
+                state = CarriedState(flatfields=pipe.flatfields,
+                                     shifts=pipe.shifts)
+                used = launches[1:] if blend == 'feather' else launches[:1]
+                if run_dev.type == 'cuda' and min(used) == 0:
+                    raise SystemExit(f"ome-tiff (11a, {label}): the card run "
+                                     f"launched {launches}")
+            if (pipe._should_stream(0, 'A1') != (streaming == 'on')
+                    or ('stream_fuse_save' in pipe.timers.as_dict())
+                    != (streaming == 'on')):
+                raise SystemExit(f"ome-tiff (11a, {label}): took the wrong "
+                                 f"path")
+        nbytes = files_equal(outs['card'], outs['cpu'],
+                             f"ome-tiff (11a, {label})", skip=skip)
+        with open(tiff_file(outs['card']), 'rb') as f:
+            pages = read_pages(f.read())
+        first = pages[0][1][0]
+        if first.ndim != (3 if rgb else 2) or not first.any():
+            raise SystemExit(f"ome-tiff (11a, {label}): page 0 is "
+                             f"{first.shape}")
+        log(f"ome-tiff (11a, {label}): 3x3 card file byte-equal to the CPU "
+            f"run's ({nbytes} bytes, {len(pages)} pages, level 0 "
+            f"{first.shape}); card {secs['card']:.3f}s (launches "
+            f"{card_launches}), CPU {secs['cpu']:.3f}s"
+            + (f"; peak_buffer_bytes {peak}" if peak is not None else ""))
+        for out in outs.values():
+            shutil.rmtree(out)
+    for acq in acqs.values():
+        shutil.rmtree(acq)
+
+    # 11b: the main path as deflate OME-TIFF, against its zarr twin
+    acq = os.path.join(work, 'tiff_main')
+    t0 = time.perf_counter()
+    write_acquisition(acq, grid, tile, overlap, seed=5)
+    log(f"ome-tiff: wrote phase 5's {grid}x{grid}x{len(CHANNELS)} {tile}^2 "
+        f"uint16 tiles in {time.perf_counter() - t0:.1f}s")
+    twin = os.path.join(work, 'tiff_zarr_twin')
+    t0 = time.perf_counter()
+    stitch(acq, use_registration=True, apply_flatfield=True, device=dev,
+           options=smoke_options(twin))
+    t_twin = time.perf_counter() - t0
+    out = os.path.join(work, 'tiff_main_out')
+    cuda_fuse.fuse_overwrite.launches = 0
+    with TiffWriterSplit() as split:
+        t0 = time.perf_counter()
+        pipe = stitch(acq, output_format='.ome.tiff', use_registration=True,
+                      apply_flatfield=True, device=dev,
+                      options=smoke_options(out))
+        e2e = time.perf_counter() - t0
+    launches = cuda_fuse.fuse_overwrite.launches
+    n_tiles = grid * grid * len(CHANNELS)
+    width, height = pipe._region_dimensions(0, 'A1')
+    opts = pipe.options
+    band = band_rows_for(opts.write_band_rows() * opts.device_band_multiple,
+                         pipe.num_pyramid_levels)
+    tasks, _ = partition_jobs_by_band(pipe._build_jobs(0, 'A1'), tile,
+                                      height, band)
+    batches = sum(-(-len(v) // opts.fusion_batch) for v in tasks.values())
+    stats = pipe.fuse_stats['A1_t0']
+    if ('stream_fuse_save' not in pipe.timers.as_dict()
+            or launches != (batches if dev.type == 'cuda' else 0)):
+        raise SystemExit(f"ome-tiff (11b): streamed "
+                         f"{'stream_fuse_save' in pipe.timers.as_dict()}, "
+                         f"{launches} launches for {batches} batches")
+    path = tiff_file(out)
+    file_bytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    with open(path, 'rb') as f:
+        pages = read_pages(f.read())
+    t_read = time.perf_counter() - t0
+    zarr = os.path.join(twin, '0_stitched', 'A1_stitched.ome.zarr')
+    if len(pages) != len(CHANNELS) + 1:
+        raise SystemExit(f"ome-tiff (11b): {len(pages)} pages")
+    level_bytes = 0
+    for lv in range(pipe.num_pyramid_levels):
+        want = read_array(os.path.join(zarr, str(lv)))
+        for c in range(len(CHANNELS)):
+            got = pages[c][1][lv]
+            if not np.array_equal(got, want[0, c, 0]):
+                raise SystemExit(f"ome-tiff (11b): channel {c} level {lv} "
+                                 f"differs from the zarr twin")
+            level_bytes += got.nbytes
+        del want
+    thumb = pages[-1][1][0]
+    del pages
+    t = pipe.timers.as_dict()
+    writer_s = stats['write'] + stats['close']
+    parts = split.seconds
+    rates = deflate_rates(pipe.acq.tiles[sorted(pipe.acq.tiles)[0]].filepath)
+    log(f"ome-tiff (11b) on {card}: the writer thread's {writer_s:.3f}s: "
+        f"tile encode (zlib-1 on the pool) {parts['encode_strip']:.3f}s, "
+        f"file appends {parts['append_tile_data']:.3f}s, pyramid fold (C) "
+        f"{parts['host_downsample']:.3f}s, the rest (row parking, tile "
+        f"blocks, lock) {writer_s - sum(parts.values()):.3f}s; zlib-1 on "
+        f"256^2 u16 blocks of a tile: {rates[0]:.0f} MB/s on one thread, "
+        f"{rates[1]:.0f} on the encode pool's {_pool_width()} threads")
+    log(f"ome-tiff (11b) on {card}: e2e {e2e:.3f}s = {n_tiles / e2e:.2f} "
+        f"tiles/s ({n_tiles} tiles; the zarr twin {t_twin:.3f}s); fit="
+        f"{t.get('flatfield_fit', 0):.3f}s registration="
+        f"{t.get('registration', 0):.3f}s fuse+write="
+        f"{t.get('stream_fuse_save', 0):.3f}s; band fuser: fuse="
+        f"{stats['fuse']:.3f}s readback_wait={stats['readback_wait']:.3f}s "
+        f"write={stats['write']:.3f}s close={stats['close']:.3f}s (writer "
+        f"{writer_s:.3f}s); {file_bytes} bytes for {level_bytes} bytes of "
+        f"levels (deflate ratio {file_bytes / level_bytes:.4f}); "
+        f"peak_buffer_bytes {stats['peak_buffer_bytes']}; "
+        f"{len(CHANNELS)} pages x {pipe.num_pyramid_levels} levels decode "
+        f"equal to the zarr twin (read back in {t_read:.1f}s), thumbnail "
+        f"{thumb.shape}; launches {launches}")
+    shutil.rmtree(out)
+    tiff = {'e2e_s': e2e, 'tiles_per_s': n_tiles / e2e, 'writer_s': writer_s,
+            'file_bytes': file_bytes, 'ratio': file_bytes / level_bytes,
+            'peak_buffer_bytes': stats['peak_buffer_bytes'],
+            'encode_s': parts['encode_strip'], 'deflate_mbps': rates}
+
+    # 11c: the host fuser on the same grid, against the device path's tree
+    host_out = os.path.join(work, 'tiff_host_out')
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pipe = stitch(acq, use_registration=True, apply_flatfield=True,
+                  device=dev, options=smoke_options(host_out,
+                                                    fusion_device='host'))
+    e2e_host = time.perf_counter() - t0
+    stats = pipe.fuse_stats['A1_t0']
+    first_band = stats['first_band_at'] - t0
+    fit_done = pipe.fit_done_at - t0
+    if any(fn.launches for fn in kernels) or not stats['bands']:
+        raise SystemExit(f"ome-tiff (11c): the host run launched "
+                         f"{[fn.launches for fn in kernels]}, ran "
+                         f"{stats['bands']} host bands")
+    nbytes, zero_chunks = files_equal_but_zero_chunks(
+        twin, host_out, "ome-tiff (11c, host vs device)", skip=skip)
+    t = pipe.timers.as_dict()
+    log(f"ome-tiff (11c) on {card}: fusion_device='host' e2e "
+        f"{e2e_host:.3f}s = {n_tiles / e2e_host:.2f} tiles/s; fit="
+        f"{t.get('flatfield_fit', 0):.3f}s registration="
+        f"{t.get('registration', 0):.3f}s fuse+write="
+        f"{t.get('stream_fuse_save', 0):.3f}s; the first band started at "
+        f"{first_band:.3f}s, the fit ended at {fit_done:.3f}s (the gate: "
+        f"{fit_done - first_band:.3f}s of overlap); {stats['bands']} bands on "
+        f"{opts.resolved_fusion_threads()} threads, summed: " + " ".join(
+            f"{k}={stats[k]:.3f}s" for k in ('gate', 'decode', 'place',
+                                             'finalize', 'write', 'close'))
+        + f"; its raw tree byte-equal to the device path's ({nbytes} bytes; "
+        f"{zero_chunks} all-zero chunks of bands with no tile written by "
+        f"the device path only, as the JAX package's two fusers do)")
+    shutil.rmtree(host_out)
+    # the host fuser into the JAX package's default codec: 8 band threads
+    # hand each plane's bands to the lz4 writer in row order
+    lz4_out = os.path.join(work, 'tiff_host_lz4_out')
+    t0 = time.perf_counter()
+    pipe = stitch(acq, use_registration=True, apply_flatfield=True,
+                  device=dev, options=output_options(lz4_out,
+                                                     fusion_device='host'))
+    e2e_lz4 = time.perf_counter() - t0
+    lz4_zarr = os.path.join(lz4_out, '0_stitched', 'A1_stitched.ome.zarr')
+    for lv in range(pipe.num_pyramid_levels):
+        if not np.array_equal(read_array(os.path.join(lz4_zarr, str(lv))),
+                              read_array(os.path.join(zarr, str(lv)))):
+            raise SystemExit(f"ome-tiff (11c, host lz4): level {lv} differs "
+                             f"from the device path's raw tree")
+    stats = pipe.fuse_stats['A1_t0']
+    log(f"ome-tiff (11c) on {card}: fusion_device='host' into blosc-lz4 "
+        f"e2e {e2e_lz4:.3f}s = {n_tiles / e2e_lz4:.2f} tiles/s; "
+        f"{stats['bands']} bands, summed write={stats['write']:.3f}s "
+        f"close={stats['close']:.3f}s; {pipe.num_pyramid_levels} levels "
+        f"decode equal to the device path's raw tree")
+    shutil.rmtree(lz4_out)
+    shutil.rmtree(twin)
+    shutil.rmtree(acq)
+    banned = [m for m in BANNED if m in sys.modules]
+    if banned:
+        raise SystemExit(f"ome-tiff: loaded {banned}")
+    return dict(tiff, host_e2e_s=e2e_host, gate_overlap_s=fit_done - first_band,
+                host_lz4_e2e_s=e2e_lz4)
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2189,6 +2552,9 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         phase_merges(work, card)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        phase_ome_tiff(work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches = {'fuse_overwrite': main_run['launches'],

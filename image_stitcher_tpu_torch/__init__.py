@@ -7,7 +7,9 @@ place flatfield-corrected tiles into device-resident canvas bands with a
 hand-written CUDA kernel (``csrc/fuse_overwrite.cu``), and stream the
 bands into OME-Zarr (v2, or v3 with shards) with their pyramid, its
 chunks blosc-lz4 by default (a hand-written C codec, ``csrc/blosc_lz4.c``)
-or raw. Every run keeps a manifest it can be resumed from
+or raw, or into pyramidal OME-TIFF. ``fusion_device='host'`` fuses on
+the CPU through the JAX package's host C (``csrc/hostops.c``). Every run
+keeps a manifest it can be resumed from
 (``resume=True``), and can merge its timepoints and HCS wells into
 series and plates, their pyramids folded on the card.
 :func:`open_stitched` and :func:`list_outputs` reopen the results.

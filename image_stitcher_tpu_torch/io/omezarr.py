@@ -214,10 +214,11 @@ class MultiscaleWriter:
             self.arrays.append(arr)
 
     def write_level(self, level: int, data: np.ndarray,
-                    sel: Optional[Tuple[slice, ...]] = None) -> None:
+                    sel: Optional[Tuple[slice, ...]] = None) -> bool:
         """Write a (t, c, z, h, w) slab at ``sel`` (t, c, z, y, x slices;
         x from column 0), or with ``sel`` None the whole level, plane by
-        plane. The caller may reuse ``data`` when the call returns."""
+        plane. Returns True: the caller may reuse ``data`` when the call
+        returns (the OME-TIFF writer returns False, it keeps views)."""
         data = np.asarray(data)
         if data.ndim != 5:
             raise ValueError(f"slabs are (t, c, z, h, w), got {data.shape}")
@@ -233,6 +234,7 @@ class MultiscaleWriter:
         for t, c, z in np.ndindex(*data.shape[:3]):
             self.arrays[level].write_plane_rows(t0 + t, c0 + c, z0 + z, y0,
                                                 data[t, c, z])
+        return True
 
     def close(self) -> None:
         """Encode what is buffered and wait for every chunk write; raises

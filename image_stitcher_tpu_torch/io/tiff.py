@@ -26,12 +26,17 @@ them (JPEG: item 19); a file that does not hold what its tags declare
 raises :class:`~image_stitcher_tpu_torch.io.tile_decode.DecodeError`.
 LZW, PackBits and the predictor run in C (``io/tile_decode.py``),
 deflate through the stdlib's zlib.
+
+:func:`read_pages` reads back the port's own OME-TIFF output: every page
+of a tiled BigTIFF with its SubIFD pyramid levels.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Tuple
 
 import numpy as np
@@ -120,6 +125,75 @@ def _segment(data, comp: int, off: int, count: int, size: int):
         raise DecodeError(f"TIFF segment at {off} holds {len(out)} bytes, "
                           f"its rows need {size}")
     return out
+
+
+_BIGTIFF_TYPES = {2: (1, 's'), 3: (2, 'H'), 4: (4, 'I'), 16: (8, 'Q'),
+                  18: (8, 'Q')}
+
+
+def _bigtiff_ifd(mv, off: int) -> Tuple[Dict[int, tuple], int]:
+    """The tags of the little-endian BigTIFF IFD at ``off`` ({tag:
+    values}, ASCII as one str) and the next IFD's offset."""
+    n = struct.unpack_from('<Q', mv, off)[0]
+    tags = {}
+    for i in range(n):
+        entry = off + 8 + 20 * i
+        tag, ty, count = struct.unpack_from('<HHQ', mv, entry)
+        if ty not in _BIGTIFF_TYPES:
+            raise DecodeError(f"TIFF tag {tag}: type {ty}")
+        size, fmt = _BIGTIFF_TYPES[ty]
+        where = (entry + 12 if size * count <= 8
+                 else struct.unpack_from('<Q', mv, entry + 12)[0])
+        raw = bytes(mv[where:where + size * count])
+        tags[tag] = ((raw.rstrip(b'\0').decode('utf-8'),) if ty == 2
+                     else struct.unpack(f'<{count}{fmt}', raw))
+    return tags, struct.unpack_from('<Q', mv, off + 8 + 20 * n)[0]
+
+
+def _tiled_image(mv, tags: Dict[int, tuple], pool) -> np.ndarray:
+    w, h = tags[_WIDTH][0], tags[_LENGTH][0]
+    spp = tags.get(_SPP, (1,))[0]
+    comp = tags[_COMP][0]
+    if comp not in (1,) + _DEFLATE:
+        raise _not_ported(f"compression {comp}", "item 19, 'JPEG'"
+                          if comp == 7 else "item 6, 'tile input without "
+                          "OpenCV'")
+    dtype = np.dtype(f'<u{tags[_BITS][0] // 8}')
+    tw, tl = tags[_TILE_W][0], tags[_TILE_H][0]
+    across = -(-w // tw)
+    out = np.zeros((-(-h // tl) * tl, across * tw, spp), dtype)
+    n = tl * tw * spp
+    segments = pool.map(
+        lambda oc: _segment(mv, comp, oc[0], oc[1], n * dtype.itemsize),
+        zip(tags[_TILE_OFFSETS], tags[_TILE_COUNTS]))
+    for i, seg in enumerate(segments):
+        ty, tx = divmod(i, across)
+        out[ty * tl:(ty + 1) * tl, tx * tw:(tx + 1) * tw] = np.frombuffer(
+            seg, dtype, count=n).reshape(tl, tw, spp)
+    out = out[:h, :w]
+    return out[..., 0] if spp == 1 else out
+
+
+def read_pages(data):
+    """Every page of a tiled little-endian BigTIFF, as the port's
+    ``io/tiffwriter.py`` writes them (deflate or raw tiles, one or three
+    samples): [(ImageDescription or None, [page, SubIFD level 1, ...]),
+    ...] along the top-level IFD chain, the thumbnail page last. Tiles
+    inflate on a thread pool (zlib releases the interpreter lock)."""
+    mv = memoryview(data)
+    if bytes(mv[:4]) != b'II+\x00':
+        raise DecodeError("not a little-endian BigTIFF")
+    off = struct.unpack_from('<Q', mv, 8)[0]
+    pages = []
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        while off:
+            tags, off = _bigtiff_ifd(mv, off)
+            levels = [_tiled_image(mv, tags, pool)]
+            for sub in tags.get(330, ()):
+                levels.append(_tiled_image(mv, _bigtiff_ifd(mv, sub)[0],
+                                           pool))
+            pages.append((tags.get(270, (None,))[0], levels))
+    return pages
 
 
 def decode_tiff(data) -> np.ndarray:

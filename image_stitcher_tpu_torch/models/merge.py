@@ -403,8 +403,14 @@ def create_complete_hcs_ome_zarr(pipeline) -> str:
 def run_merges(pipeline) -> str:
     """The merge pass the flags ask for: both flags, the complete plate;
     ``merge_timepoints``, the time series; ``merge_hcs_regions``, a plate
-    per timepoint. Merges are zarr-only, and so is the port's output
-    until OME-TIFF is ported (ROADMAP item 10)."""
+    per timepoint. Merges are zarr-only (the reference's GUIs offer them
+    for zarr output only): with ``.ome.tiff`` output they are reported
+    and skipped, as the JAX package does, and the last saved path is
+    returned."""
+    if not pipeline.output_format.endswith('.zarr'):
+        pipeline.reporter.error(
+            "merge passes require .ome.zarr output; skipping merges")
+        return pipeline.saved_paths[-1] if pipeline.saved_paths else ''
     if pipeline.params.merge_timepoints and pipeline.params.merge_hcs_regions:
         return create_complete_hcs_ome_zarr(pipeline)
     if pipeline.params.merge_timepoints:

@@ -8,13 +8,19 @@ batches on the device, aggregated by median ('all-pairs') or solved for
 per-tile positions ('global', optionally subpixel)), then fuse every
 (timepoint, region) by overwrite or feathered blending into OME-Zarr
 (v2, or v3 with shards; blosc-lz4 chunks, or raw, or 'auto'
-(:meth:`StitchPipeline.resolved_compressor`)). A canvas over ``streaming_threshold_bytes`` (or any canvas with
-``streaming='on'``) streams through :class:`~image_stitcher_tpu_torch.
-models.streaming.DeviceStreamingFuser` in bands; a smaller one (every
-well of an HCS plate) is fused whole on the device
-(:meth:`StitchPipeline.stitch_region`) and saved with its pyramid built
-on the device (:meth:`StitchPipeline.save_region`), region N saving on a
-background thread while region N+1 fuses. With ``registration_report``
+(:meth:`StitchPipeline.resolved_compressor`)) or pyramidal OME-TIFF
+(``output_format='.ome.tiff'``, ``io/tiffwriter.py``). A canvas over
+``streaming_threshold_bytes`` (or any canvas with ``streaming='on'``)
+streams through :class:`~image_stitcher_tpu_torch.models.streaming.
+DeviceStreamingFuser` in bands; a smaller one (every well of an HCS
+plate) is fused whole on the device (:meth:`StitchPipeline.stitch_region`)
+and saved with its pyramid built on the device
+(:meth:`StitchPipeline.save_region`), region N saving on a background
+thread while region N+1 fuses. ``fusion_device='host'`` fuses on the CPU
+instead (``ops/host_fuse.py``'s ``HostCanvas`` whole, ``models/
+streaming.py``'s ``StreamingFuser`` in bands), its bands starting as
+each channel's field is fitted; 'auto' stays on the device. With
+``registration_report``
 the per-pair measurements and solve statistics land in
 ``registration_report.json``; ``debug_visuals`` writes the center
 pairs' overlap strips as PNGs. Every run keeps a manifest
@@ -22,8 +28,9 @@ pairs' overlap strips as PNGs. Every run keeps a manifest
 units, which ``resume=True`` goes on from; ``merge_timepoints`` and
 ``merge_hcs_regions`` then merge the region stores (``models/merge.py``).
 
-Output tree: ``{out}/{t}_stitched/{region}_stitched.ome.zarr`` (and the
-merges' ``region_time_series/`` and ``hcs_timepoints/``), with the
+Output tree: ``{out}/{t}_stitched/{region}_stitched.ome.zarr`` or
+``.ome.tiff`` (and the merges' ``region_time_series/`` and
+``hcs_timepoints/``, zarr only), with the
 same sampling, geometry and metadata as the JAX package, so the two
 packages write equal trees for the same input (tested).
 
@@ -49,7 +56,7 @@ from ..core import geometry as geo
 from ..io.acquisition import Acquisition, read_image, scan_acquisition
 from ..io.omezarr import MultiscaleWriter
 from ..io.readers import (TileBatchLoader, TileJob, expand_tile_jobs,
-                          torch_dtype)
+                          load_tile_plane, torch_dtype)
 from ..ops import cuda_fuse
 from ..ops.fuse import padded_canvas_shape
 from ..ops.phasecorr import (horizontal_shift_from_pcc,
@@ -133,6 +140,12 @@ class StitchPipeline:
 
         self.acq: Optional[Acquisition] = None
         self.flatfields: Dict[int, np.ndarray] = {}
+        #: the host-fused run's fit, still running while fusion starts
+        #: (:meth:`_prepare`), and the gate it publishes each field to
+        self._ff_future = None
+        self._ff_gate = None
+        #: time.perf_counter() when the last flatfield fit finished
+        self.fit_done_at: Optional[float] = None
         self._ff_recip_np_cache: Optional[np.ndarray] = None
         self._ff_recip_dev_cache: Optional[torch.Tensor] = None
         self._compressor_choice: Optional[Tuple[Optional[str], int, int]] \
@@ -239,12 +252,42 @@ class StitchPipeline:
             else:
                 field = fit_flatfield_stack_np(stack)
             self.flatfields[idx] = finalize_flatfield(field, out_hw)
+            if self._ff_gate is not None:
+                self._ff_gate.publish(idx, self.flatfields[idx])
             self.reporter.update_progress(len(self.flatfields), acq.num_c)
+        self.fit_done_at = time.perf_counter()
+
+    def _await_ff(self) -> None:
+        """Join the host-fused run's overlapped fit (no-op when none is in
+        flight) and raise its error. Every reader of the complete field
+        set comes through here; only the gated band fuser reads earlier."""
+        fut = self._ff_future
+        if fut is not None:
+            fut.result()
+            self._ff_future = None
+
+    def _reap_fit(self) -> None:
+        """After a failure: wait for an overlapped fit still running (it
+        stops at its next cancellation check when the run was stopped);
+        its own error is dropped, the run's is the one reported."""
+        fut, self._ff_future = self._ff_future, None
+        if fut is not None:
+            try:
+                fut.result()
+            except Exception:
+                pass
+
+    def _ff_recip_or_none(self) -> Optional[np.ndarray]:
+        """The complete reciprocal stack, or None when no field was
+        fitted (read after the overlapped fit has joined)."""
+        self._await_ff()
+        return self._flatfield_recip_np() if self.flatfields else None
 
     def _flatfield_recip_np(self) -> np.ndarray:
         """(C, th, tw) f32 RECIPROCAL flatfield stack, ones where no field
         was fitted; computed once on the host so every backend multiplies
         the same values."""
+        self._await_ff()
         if self._ff_recip_np_cache is None:
             acq = self.acq
             ff = np.ones((acq.num_c, acq.input_height, acq.input_width),
@@ -326,11 +369,24 @@ class StitchPipeline:
                 return best
         return None
 
-    def _writer(self, output_path: str, shape, num_levels: int,
-                name: str) -> MultiscaleWriter:
-        """The OME-Zarr writer of one (timepoint, region) output."""
+    def _writer(self, t, region: str, output_path: str, shape,
+                num_levels: int):
+        """The band-fed writer of one (timepoint, region) output: OME-Zarr
+        (:class:`MultiscaleWriter`), or for ``.ome.tiff`` the streamed
+        pyramidal OME-TIFF writer with the JAX band path's arguments."""
         acq = self.acq
         opts = self.options
+        name = f"{region}_t{t}"
+        if self.output_format.endswith('.tiff'):
+            from ..io.ometiff import region_position_um, tiff_rgb_mode
+            from ..io.tiffwriter import StreamingTiffWriter
+            return StreamingTiffWriter(
+                output_path, shape, num_levels, acq.dtype, name, acq.dz_um,
+                acq.pixel_size_um, acq.monochrome_channels,
+                acq.monochrome_colors,
+                position_um=region_position_um(acq, t, region),
+                rgb=tiff_rgb_mode(acq), compression=opts.tiff_compression,
+                jpeg_quality=opts.tiff_jpeg_quality)
         cname, clevel, shuffle = self.resolved_compressor()
         return MultiscaleWriter(
             output_path, shape, num_levels, acq.dtype, opts.chunks, name,
@@ -842,9 +898,11 @@ class StitchPipeline:
         return expand_tile_jobs(acq.monochrome_channels, acq.rgb_channels,
                                 triples)
 
-    def stitch_region(self, t, region: str) -> torch.Tensor:
+    def stitch_region(self, t, region: str):
         """Fuse all tiles of one (timepoint, region) into one canvas on
         the pipeline's device; returns the cropped (C, Z, H, W) canvas.
+        With ``fusion_device='host'`` the host fuser
+        (``ops/host_fuse.HostCanvas``) fuses it into a NumPy canvas.
 
         The canvas carries a one-tile apron on the bottom and right
         (:func:`~image_stitcher_tpu_torch.ops.fuse.padded_canvas_shape`),
@@ -864,9 +922,22 @@ class StitchPipeline:
         if opts.validate_plan:
             from ..utils.plan_check import summarize_plan
             self.reporter.status(summarize_plan(jobs, th, tw), False)
+        if opts.fusion_device == 'host':
+            from ..ops.host_fuse import HostCanvas
+            hc = HostCanvas(acq.num_c, acq.num_z, height, width, acq.dtype,
+                            num_threads=opts.resolved_fusion_threads(),
+                            ff_recip=self._ff_recip_or_none(),
+                            blend_method=opts.blend_method,
+                            blend_px=opts.feather_px)
+            hc.fuse_streaming(
+                jobs, load_tile_plane,
+                progress_cb=lambda n: self.reporter.update_progress(n, total),
+                stop_check=self._check_stop)
+            return hc.finalize()
         shape = list(padded_canvas_shape(acq.num_c, acq.num_z, height, width,
                                          th, tw))
         shape[3] = -(-shape[3] // 8) * 8
+        self._await_ff()
         ff = self._flatfield_recip() if self.flatfields else None
         feather = opts.blend_method == 'feather'
         if feather:
@@ -916,8 +987,13 @@ class StitchPipeline:
         return canvas_bytes > opts.streaming_threshold_bytes
 
     def _stitch_and_save_streaming(self, t, region: str) -> str:
-        """Fuse + write one (timepoint, region) in device-resident bands."""
-        from .streaming import DeviceStreamingFuser
+        """Fuse + write one (timepoint, region) in bands: device-resident
+        bands (:class:`~image_stitcher_tpu_torch.models.streaming.
+        DeviceStreamingFuser`), or with ``fusion_device='host'`` host bands
+        on a thread pool (:class:`~image_stitcher_tpu_torch.models.
+        streaming.StreamingFuser`), which start each channel as soon as
+        its field is fitted when the fit still runs."""
+        from .streaming import DeviceStreamingFuser, StreamingFuser
         acq = self.acq
         opts = self.options
         width, height = self._region_dimensions(t, region)
@@ -925,43 +1001,68 @@ class StitchPipeline:
         output_path = self.per_timepoint_region_output_template.format(
             timepoint=t, region=region)
         os.makedirs(os.path.dirname(output_path), exist_ok=True)
-        writer = self._writer(output_path,
+        writer = self._writer(t, region, output_path,
                               (1, acq.num_c, acq.num_z, height, width),
-                              self.num_pyramid_levels, f"{region}_t{t}")
-        ff = self._flatfield_recip_np() if self.flatfields else None
+                              self.num_pyramid_levels)
         try:
-            fuser = DeviceStreamingFuser(
-                writer, height, width,
-                acq.input_height, acq.input_width, acq.dtype,
-                self.num_pyramid_levels, opts.pyramid_downsample,
-                chunk_rows=opts.write_band_rows() * opts.device_band_multiple,
-                batch_size=opts.fusion_batch,
-                reader_threads=opts.resolved_reader_threads(),
-                ff_recip=ff, blend_method=opts.blend_method,
-                blend_px=opts.feather_px, device=self.device)
+            if opts.fusion_device == 'host':
+                gate = self._ff_gate if self._ff_future is not None else None
+                fuser = StreamingFuser(
+                    writer, height, width, acq.input_height,
+                    acq.input_width, acq.dtype, self.num_pyramid_levels,
+                    opts.pyramid_downsample,
+                    chunk_rows=opts.write_band_rows(),
+                    num_threads=opts.resolved_fusion_threads(),
+                    ff_recip=(None if gate is not None
+                              else self._ff_recip_or_none()),
+                    blend_method=opts.blend_method,
+                    blend_px=opts.feather_px, ff_gate=gate)
+            else:
+                fuser = DeviceStreamingFuser(
+                    writer, height, width,
+                    acq.input_height, acq.input_width, acq.dtype,
+                    self.num_pyramid_levels, opts.pyramid_downsample,
+                    chunk_rows=(opts.write_band_rows()
+                                * opts.device_band_multiple),
+                    batch_size=opts.fusion_batch,
+                    reader_threads=opts.resolved_reader_threads(),
+                    ff_recip=self._ff_recip_or_none(),
+                    blend_method=opts.blend_method,
+                    blend_px=opts.feather_px, device=self.device)
         except BaseException:
             writer.abort()
             raise
         # run() closes the writer, or aborts it when the region fails
-        fuser.run(jobs, progress_cb=self.reporter.update_progress,
-                  stop_check=self._check_stop)
-        self.fuse_stats[f"{region}_t{t}"] = dict(fuser.stats,
-                                                 batches=fuser.batches)
+        if opts.fusion_device == 'host':
+            fuser.run(jobs, load_tile_plane,
+                      progress_cb=self.reporter.update_progress,
+                      stop_check=self._check_stop)
+            counts = {'bands': fuser.bands,
+                      'first_band_at': fuser.first_band_at}
+        else:
+            fuser.run(jobs, progress_cb=self.reporter.update_progress,
+                      stop_check=self._check_stop)
+            counts = {'batches': fuser.batches}
+        if hasattr(writer, 'peak_buffer_bytes'):
+            counts['peak_buffer_bytes'] = writer.peak_buffer_bytes
+        self.fuse_stats[f"{region}_t{t}"] = dict(fuser.stats, **counts)
         self.reporter.status(
             "stream stages: " + " ".join(
                 f"{k}={v:.2f}s" for k, v in fuser.stats.items())
-            + f" batches={fuser.batches}", False)
+            + "".join(f" {k}={v}" for k, v in counts.items()), False)
         return output_path
 
     # ------------------------------------------------------------------ save
 
-    def save_region(self, t, region: str, canvas: torch.Tensor,
+    def save_region(self, t, region: str, canvas,
                     num_levels: Optional[int] = None,
                     ready: Optional[torch.cuda.Event] = None) -> str:
-        """Write the multiscale OME-Zarr of one (timepoint, region) from
-        its (C, Z, H, W) canvas: the pyramid is built on the canvas's
-        device, level from level, and each level is copied to the host
-        once (pinned memory for a CUDA canvas) and written.
+        """Write the multiscale OME-Zarr, or for ``.ome.tiff`` the
+        pyramidal OME-TIFF (``io/ometiff.py``), of one (timepoint,
+        region) from its (C, Z, H, W) canvas: the pyramid is built on the
+        canvas's device, level from level (a NumPy canvas of the host
+        fuser: on the host), and each level is copied to the host once
+        (pinned memory for a CUDA canvas) and written.
 
         ``num_levels`` is passed by the pipelined save, so a background
         save is immune to the next region recomputing
@@ -970,35 +1071,36 @@ class StitchPipeline:
         the canvas was finished; the current stream when None), and
         recorded on that stream, so the caching allocator cannot hand its
         memory to the next region before the save has read it."""
-        from ..ops.pyramid import iter_levels
-        acq = self.acq
+        from ..ops.pyramid import iter_host_levels
         opts = self.options
         if num_levels is None:
             num_levels = self.num_pyramid_levels
         output_path = self.per_timepoint_region_output_template.format(
             timepoint=t, region=region)
         os.makedirs(os.path.dirname(output_path), exist_ok=True)
-        c, z, h, w = canvas.shape
-        writer = self._writer(output_path, (1, c, z, h, w), num_levels,
-                              f"{region}_t{t}")
-        on_cuda = canvas.device.type == 'cuda'
+        on_cuda = (isinstance(canvas, torch.Tensor)
+                   and canvas.device.type == 'cuda')
         scope = contextlib.nullcontext()
-        try:
-            if on_cuda:
-                side = torch.cuda.Stream(canvas.device)
-                if ready is not None:
-                    side.wait_event(ready)
-                else:
-                    side.wait_stream(torch.cuda.current_stream(canvas.device))
-                canvas.record_stream(side)
-                scope = torch.cuda.stream(side)
+        if on_cuda:
+            side = torch.cuda.Stream(canvas.device)
+            if ready is not None:
+                side.wait_event(ready)
+            else:
+                side.wait_stream(torch.cuda.current_stream(canvas.device))
+            canvas.record_stream(side)
+            scope = torch.cuda.stream(side)
+        levels = iter_host_levels(canvas, num_levels, opts.pyramid_downsample)
+        if self.output_format.endswith('.tiff'):
+            from ..io.ometiff import write_ome_tiff_region
             with scope:
-                for lv, level in enumerate(iter_levels(
-                        canvas, num_levels, opts.pyramid_downsample)):
-                    host = torch.empty(tuple(level.shape), dtype=level.dtype,
-                                       pin_memory=on_cuda)
-                    host.copy_(level)   # waits for the copy: host is read next
-                    writer.write_level(lv, host.numpy()[None])
+                return write_ome_tiff_region(self, t, region, list(levels),
+                                             output_path)
+        writer = self._writer(t, region, output_path,
+                              (1,) + tuple(canvas.shape), num_levels)
+        try:
+            with scope:
+                for lv, level in enumerate(levels):
+                    writer.write_level(lv, level[None])
         except BaseException:
             writer.abort()   # queued chunks must not land after the error
             raise
@@ -1014,7 +1116,9 @@ class StitchPipeline:
         from ``state`` where given; what is still missing is fitted and
         measured here (the fit on a worker thread, overlapped with the
         registration measurement: they read disjoint data and share no
-        state). The 'global' scope also needs positions to skip its
+        state; a host-fused run's fit runs on into fusion, publishing
+        each channel's field to a ``FlatfieldGate``). The 'global' scope
+        also needs positions to skip its
         measurement; regions without them are solved when they are
         stitched. The manifest then records the shifts and positions,
         and the sidecar every field not read from it."""
@@ -1061,10 +1165,40 @@ class StitchPipeline:
                     self.calculate_shifts(self.acq.timepoints[0],
                                           self.acq.regions[0])
 
-        if fit and measure and self.options.overlap_prep:
+        # a host-fused run's fit also runs on into fusion: its band fuser
+        # starts each channel as the channel's field is published to the
+        # gate, and the fit thread saves the sidecar when it is done
+        gated = (fit and self.options.overlap_prep
+                 and self.options.fusion_device == 'host')
+        if gated or (fit and measure and self.options.overlap_prep):
             # import scipy.fft once here: a first import from two threads
             # at once can observe a partly initialized module
             from scipy import fft as _scipy_fft  # noqa: F401
+        if gated:
+            from .streaming import FlatfieldGate
+            gate = self._ff_gate = FlatfieldGate(
+                self.acq.num_c, (self.acq.input_height,
+                                 self.acq.input_width))
+
+            def gated_fit():
+                try:
+                    fit_flatfields()
+                except BaseException as e:
+                    gate.fail(e)
+                    raise
+                gate.finish()
+                manifest.save_flatfields(self.flatfields)
+
+            pool = ThreadPoolExecutor(1, thread_name_prefix='flatfield-fit')
+            self._ff_future = pool.submit(gated_fit)
+            pool.shutdown(wait=False)
+            if measure:
+                try:
+                    measure_shifts()
+                except BaseException:
+                    self._reap_fit()
+                    raise
+        elif fit and measure and self.options.overlap_prep:
             with ThreadPoolExecutor(1) as pool:
                 ff_future = pool.submit(fit_flatfields)
                 try:
@@ -1076,7 +1210,7 @@ class StitchPipeline:
                 fit_flatfields()
             if measure:
                 measure_shifts()
-        if not from_sidecar:
+        if not from_sidecar and not gated:
             manifest.save_flatfields(self.flatfields)
         if self.params.use_registration:
             manifest.set_shifts(self.shifts)
@@ -1163,7 +1297,8 @@ class StitchPipeline:
                         continue
                     self.reporter.starting_saving(False)
                     ready = None
-                    if canvas.device.type == 'cuda':
+                    if (isinstance(canvas, torch.Tensor)
+                            and canvas.device.type == 'cuda'):
                         ready = torch.cuda.Event()
                         ready.record(torch.cuda.current_stream(canvas.device))
                     levels = self.num_pyramid_levels
@@ -1223,6 +1358,7 @@ class StitchPipeline:
             manifest.save()
             self._manifest = manifest
             final_path = self._process_regions(manifest)
+            self._await_ff()   # a host-fused run's fit: its error surfaces
             if self.params.merge_timepoints or self.params.merge_hcs_regions:
                 if self.resumed and manifest.data.get("merges_done"):
                     self.reporter.status("Merges already complete; skipping",
@@ -1246,8 +1382,10 @@ class StitchPipeline:
                 f"Total processing time: {time.time() - t0:.1f}s", False)
             return final_path
         except StitchCancelled:
+            self._reap_fit()
             self.reporter.status("Stitching cancelled", False)
             raise
         except Exception as e:
+            self._reap_fit()
             self.reporter.error(str(e))
             raise

@@ -1,7 +1,11 @@
-"""Streaming fusion: tiles -> OME-Zarr with bounded memory, on a device.
+"""Streaming fusion: tiles -> OME-Zarr or OME-TIFF with bounded memory.
 
-The counterpart of the JAX package's ``models/streaming.py`` (its
-``DeviceStreamingFuser`` and the helpers it shares with the host fuser).
+The counterpart of the JAX package's ``models/streaming.py``: its
+``DeviceStreamingFuser``, its host ``StreamingFuser`` (for
+``fusion_device='host'``, bands fused by a thread pool through
+``csrc/hostops.c``; see :class:`StreamingFuser`), the ``FlatfieldGate``
+that lets host bands start as each channel's field lands, and the
+helpers they share. On the device path:
 Each (channel, z) plane is fused in horizontal bands sized to the chunk
 grid. A band canvas lives on the device; tile batches are uploaded from
 pinned host memory and placed by a CUDA kernel, with the flatfield fused
@@ -27,6 +31,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,6 +40,7 @@ import torch
 from ..io.omezarr import MultiscaleWriter
 from ..io.readers import TileBatchLoader, torch_dtype
 from ..ops import cuda_fuse
+from ..ops.host_fuse import finalize_feather_host, place_window
 from ..ops.pyramid import host_downsample
 
 
@@ -44,22 +50,36 @@ def band_rows_for(chunk_rows: int, num_levels: int) -> int:
     return max(chunk_rows, ((chunk_rows + align - 1) // align) * align)
 
 
-def write_band_levels(writer: MultiscaleWriter, c: int, z: int, band0: int,
-                      buf: np.ndarray, num_levels: int, mode: str) -> None:
-    """Write one finished (c, z) band to level 0 and fold it into every
-    deeper level (band rows are a multiple of 2^(levels-1), so pooling
-    windows never cross bands). ``band0`` is in level-0 rows."""
+def band_levels(buf: np.ndarray, num_levels: int, mode: str):
+    """Yield a finished band and its pyramid folds, level from level, up
+    to ``num_levels`` levels or the first empty one (band rows are a
+    multiple of 2^(levels-1), so pooling windows never cross bands)."""
     level = buf
     for lv in range(num_levels):
         if lv > 0:
             level = host_downsample(level, mode)
+        if level.shape[0] == 0 or level.shape[1] == 0:
+            return
+        yield level
+
+
+def write_band_levels(writer, c: int, z: int, band0: int, levels) -> bool:
+    """Write one finished (c, z) band's levels (:func:`band_levels`).
+    ``band0`` is in level-0 rows. The writer is a
+    :class:`MultiscaleWriter` or an OME-TIFF ``StreamingTiffWriter``.
+    Returns True when the writer is done with level 0 (the caller may
+    reuse it); the OME-TIFF writer keeps views of the rows until their
+    256-row strips complete."""
+    released = None
+    for lv, level in enumerate(levels):
         h_lv, w_lv = level.shape
-        if h_lv == 0 or w_lv == 0:
-            break
         b_lv = band0 >> lv
         sel = (slice(0, 1), slice(c, c + 1), slice(z, z + 1),
                slice(b_lv, b_lv + h_lv), slice(0, w_lv))
-        writer.write_level(lv, level[None, None, None], sel=sel)
+        r = writer.write_level(lv, level[None, None, None], sel=sel)
+        if lv == 0:
+            released = r
+    return released is True
 
 
 def band_canvas_shape(tile_h: int, tile_w: int, band: int,
@@ -96,8 +116,273 @@ def partition_jobs_by_band(jobs: Sequence, tile_h: int, height: int,
     return tasks, n_jobs
 
 
+class FlatfieldGate:
+    """Per-channel flatfield readiness gate.
+
+    The fit runs channel by channel; fusing channel c needs only channel
+    c's field. The overlapped fit publishes each field as it lands, so
+    the host band fuser starts a channel's bands while later channels are
+    still solving. ``recip`` is the shared (C, th, tw) reciprocal stack;
+    row c is immutable once its event is set, so readers gated on
+    ``wait(c)`` never see a partial row."""
+
+    def __init__(self, num_c: int, tile_hw: Tuple[int, int]):
+        self.recip = np.ones((num_c,) + tuple(tile_hw), np.float32)
+        self._events = [threading.Event() for _ in range(num_c)]
+        self._error: Optional[BaseException] = None
+
+    def publish(self, c: int, field: Optional[np.ndarray]) -> None:
+        """Record channel ``c``'s fitted field (None keeps identity)."""
+        if field is not None:
+            np.divide(1.0, field, out=self.recip[c])
+        self._events[c].set()
+
+    def finish(self) -> None:
+        """All fits done: release channels that never got a field."""
+        for e in self._events:
+            e.set()
+
+    def fail(self, exc: BaseException) -> None:
+        """Unblock every waiter with the fit's error (raised there with
+        its own type, so a cancellation stays a cancellation)."""
+        self._error = exc
+        for e in self._events:
+            e.set()
+
+    def wait(self, c: int) -> np.ndarray:
+        self._events[c].wait()
+        if self._error is not None:
+            raise self._error
+        return self.recip
+
+
+class StreamingFuser:
+    """Host band fusion (``fusion_device='host'``): the twin of
+    :class:`DeviceStreamingFuser` on a thread pool, feeding a
+    MultiscaleWriter or an OME-TIFF ``StreamingTiffWriter``.
+
+    Each (c, z, band) task fills a band buffer with
+    ``ops/host_fuse.place_window`` (the C loops of ``csrc/hostops.c``)
+    in plan order, finalizes a feathered band in C, and writes it with
+    its pyramid folded in C, on the task's own thread. Tasks run in
+    (z, band0, c) order, so all channels of one band row finish close
+    together: the RGB OME-TIFF writer, which interleaves the three
+    channel bands of a page strip, parks at most a few bands. With
+    ``ff_gate`` a band first waits for its channel's field.
+
+    The writers take one plane's rows in order, from one thread at a
+    time: the zarr writers encode a chunk row once a later one of its
+    plane is written, and their buffers hold no lock. So a band's levels
+    reach the writer under one lock, in plane order
+    (:meth:`_write_in_order`): a band done before an earlier band of its
+    plane parks its levels, and the thread that writes the earlier band
+    writes it too.
+
+    A thread's overwrite band buffer is reused for its next band only
+    when the writer released it (``write_band_levels``); a parked band,
+    or one the OME-TIFF writer keeps views of, leaves the thread a fresh
+    buffer."""
+
+    def __init__(self, writer, height: int, width: int, tile_h: int,
+                 tile_w: int, dtype, num_levels: int,
+                 downsample_mode: str = 'nearest', chunk_rows: int = 2048,
+                 num_threads: int = 2, ff_recip: Optional[np.ndarray] = None,
+                 blend_method: str = 'overwrite', blend_px: int = 64,
+                 ff_gate: Optional[FlatfieldGate] = None):
+        if blend_method not in ('overwrite', 'feather'):
+            raise ValueError(f"unknown blend_method {blend_method!r}")
+        self.writer = writer
+        self.height, self.width = height, width
+        self.tile_h, self.tile_w = tile_h, tile_w
+        self.dtype = np.dtype(dtype)
+        self.num_levels = num_levels
+        self.mode = downsample_mode
+        self.band = band_rows_for(chunk_rows, num_levels)
+        self.num_threads = num_threads
+        self.ff_recip = ff_recip
+        self.ff_gate = ff_gate
+        self.blend = blend_method
+        self.blend_px = blend_px
+        #: wall seconds summed over the band threads: 'gate' (waiting for
+        #: a channel's field), 'decode', 'place', 'finalize', 'write'
+        #: (pyramid fold + writer), and 'close' (the writer's close)
+        self.stats = {'gate': 0.0, 'decode': 0.0, 'place': 0.0,
+                      'finalize': 0.0, 'write': 0.0, 'close': 0.0}
+        #: band tasks run; time.perf_counter() when the first one passed
+        #: its gate
+        self.bands = 0
+        self.first_band_at: Optional[float] = None
+        self._lock = threading.Lock()
+        self._tl = threading.local()
+        # plane-order hand-off (set up by run()): each plane's next band
+        # to write, each band's successor in its plane, the parked bands
+        self._write_lock = threading.Lock()
+        self._next: Dict[Tuple[int, int], Optional[int]] = {}
+        self._succ: Dict[Tuple[int, int, int], Optional[int]] = {}
+        self._parked: Dict[Tuple[int, int, int], List[np.ndarray]] = {}
+
+    def _add(self, key: str, t0: float) -> float:
+        t1 = time.perf_counter()
+        with self._lock:
+            self.stats[key] += t1 - t0
+        return t1
+
+    def _place_in_band(self, buf, band0: int, rows: int, job,
+                       tile: np.ndarray) -> None:
+        top, bottom, left, right = job.crops
+        th, tw = tile.shape
+        # the full crop window in tile coordinates, from the loaded shape
+        # (feather ramps measure from its edges), then the canvas and
+        # band clamps of the visible part
+        wy1 = th - bottom if bottom else th
+        wx1 = tw - right if right else tw
+        y0, y1 = top, wy1
+        x0, x1 = left, wx1
+        yy, xx = job.y + top, job.x + left
+        y1 = min(y1, y0 + (self.height - yy))
+        x1 = min(x1, x0 + (self.width - xx))
+        if yy < band0:
+            y0 += band0 - yy
+            yy = band0
+        y1 = min(y1, y0 + (band0 + rows - yy))
+        if y1 <= y0 or x1 <= x0:
+            return
+        c = job.channel_idx
+        ff_c = self.ff_recip[c] if self.ff_recip is not None else None
+        feather = ((top, wy1, left, wx1, 1.0 / float(self.blend_px))
+                   if self.blend == 'feather' else None)
+        place_window(buf, tile, ff_c, y0, y1, x0, x1, yy - band0, xx,
+                     feather=feather)
+
+    def _process_band(self, c: int, z: int, band0: int, jobs: Sequence,
+                      load_fn: Callable, progress_cb=None,
+                      stop_check=None) -> None:
+        t0 = time.perf_counter()
+        if self.ff_gate is not None:
+            # parks until channel c's field lands; the fit publishes the
+            # channels in order, so only later channels' first bands wait
+            self.ff_recip = self.ff_gate.wait(c)
+        t0 = self._add('gate', t0)
+        with self._lock:
+            self.bands += 1
+            if self.first_band_at is None:
+                self.first_band_at = t0
+        rows = min(self.band, self.height - band0)
+        if self.blend == 'feather':
+            # acc/wsum never reach the writer: always reusable
+            pair = getattr(self._tl, 'feather', None)
+            if pair is None:
+                pair = (np.empty((self.band, self.width), np.float32),
+                        np.empty((self.band, self.width), np.float32))
+                self._tl.feather = pair
+            buf = (pair[0][:rows], pair[1][:rows])
+            buf[0].fill(0.0)
+            buf[1].fill(0.0)
+        else:
+            pooled = getattr(self._tl, 'band', None)
+            if pooled is None:
+                pooled = np.empty((self.band, self.width), self.dtype)
+                self._tl.band = pooled
+            buf = pooled[:rows]
+            buf.fill(0)
+        for job, is_primary in jobs:
+            if stop_check is not None:
+                stop_check()
+            t0 = time.perf_counter()
+            tile = load_fn(job)
+            t0 = self._add('decode', t0)
+            self._place_in_band(buf, band0, rows, job, tile)
+            self._add('place', t0)
+            if progress_cb is not None and is_primary:
+                progress_cb()
+        t0 = time.perf_counter()
+        if self.blend == 'feather':
+            buf = finalize_feather_host(buf[0], buf[1], self.dtype)
+        t0 = self._add('finalize', t0)
+        # the folds run on this thread, outside the write lock
+        levels = list(band_levels(buf, self.num_levels, self.mode))
+        released = self._write_in_order(c, z, band0, levels)
+        self._add('write', t0)
+        if not released and self.blend != 'feather':
+            # the band is parked, or the writer keeps views of it: the
+            # thread's next band gets a fresh buffer
+            self._tl.band = None
+
+    def _write_in_order(self, c: int, z: int, band0: int,
+                        levels: List[np.ndarray]) -> bool:
+        """Write a band's levels once every earlier band of its (c, z)
+        plane is written, then the parked later bands that this unblocks;
+        a band whose predecessor is still fusing parks. Returns True when
+        this band was written and the writer released its level 0."""
+        plane = (c, z)
+        with self._write_lock:
+            if self._next[plane] != band0:
+                self._parked[(c, z, band0)] = levels
+                return False
+            released = write_band_levels(self.writer, c, z, band0, levels)
+            nxt = self._succ[(c, z, band0)]
+            while nxt is not None and (c, z, nxt) in self._parked:
+                write_band_levels(self.writer, c, z, nxt,
+                                  self._parked.pop((c, z, nxt)))
+                nxt = self._succ[(c, z, nxt)]
+            self._next[plane] = nxt
+            return released
+
+    def run(self, jobs: Sequence, load_fn: Callable,
+            progress_cb: Optional[Callable[[int, int], None]] = None,
+            stop_check: Optional[Callable] = None) -> None:
+        """Fuse all jobs through band tasks on ``num_threads`` threads,
+        then close the writer; a failed or cancelled run stops the pool,
+        aborts the writer and raises."""
+        tasks, n_jobs = partition_jobs_by_band(jobs, self.tile_h,
+                                               self.height, self.band)
+        done = [0]
+
+        def progress():
+            with self._lock:
+                done[0] += 1
+                n = done[0]
+            if progress_cb is not None:
+                progress_cb(n, n_jobs)
+
+        cancelled = [False]
+
+        def run_task(key):
+            if cancelled[0]:
+                return
+            if stop_check is not None:
+                stop_check()
+            c, z, band0 = key
+            self._process_band(c, z, band0, tasks[key], load_fn, progress,
+                               stop_check=stop_check)
+
+        self._parked.clear()
+        self._next.clear()
+        self._succ.clear()
+        for c, z, band0 in sorted(tasks, reverse=True):
+            self._succ[(c, z, band0)] = self._next.get((c, z))
+            self._next[(c, z)] = band0
+        order = sorted(tasks, key=lambda k: (k[1], k[2], k[0]))
+        pool = ThreadPoolExecutor(self.num_threads,
+                                  thread_name_prefix='host-band')
+        try:
+            list(pool.map(run_task, order))
+        except BaseException:
+            cancelled[0] = True
+            pool.shutdown(wait=True, cancel_futures=True)
+            # chunks or strips still queued must not land after the error
+            self.writer.abort()
+            raise
+        finally:
+            pool.shutdown(wait=True)
+        t0 = time.perf_counter()
+        self.writer.close()
+        self._add('close', t0)
+
+
 class DeviceStreamingFuser:
-    """Device-resident Y-band fusion feeding a MultiscaleWriter."""
+    """Device-resident Y-band fusion feeding a MultiscaleWriter or an
+    OME-TIFF ``StreamingTiffWriter``."""
 
     def __init__(self, writer: MultiscaleWriter,
                  height: int, width: int, tile_h: int, tile_w: int, dtype,
@@ -236,8 +521,9 @@ class DeviceStreamingFuser:
                     if event is not None:
                         event.synchronize()
                     t1 = time.perf_counter()
-                    write_band_levels(self.writer, c, z, band0, host.numpy(),
-                                      self.num_levels, self.mode)
+                    write_band_levels(self.writer, c, z, band0,
+                                      band_levels(host.numpy(),
+                                                  self.num_levels, self.mode))
                     self.stats['readback_wait'] += t1 - t0
                     self.stats['write'] += time.perf_counter() - t1
                 except BaseException as e:  # surfaced on the main thread

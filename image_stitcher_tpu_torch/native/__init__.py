@@ -4,8 +4,9 @@ The counterpart of the JAX package's ``native/`` loader, which builds
 ``hostops.c`` with the system C compiler: each ``csrc/<name>.cu`` has a
 plain C interface and is compiled at first use with ``nvcc`` into a
 shared library, then loaded with :mod:`ctypes`; each host source
-``csrc/<name>.c`` (the blosc-lz4 codec, the tile decoders) is compiled
-the same way with the system C compiler (``$CC``, else ``cc``, ``gcc``,
+``csrc/<name>.c`` (the blosc-lz4 codec, the tile decoders, the host
+fuser's ``hostops.c``) is compiled the same way with the system C
+compiler (``$CC``, else ``cc``, ``gcc``,
 ``clang``). The library lands in ``build/torch_kernels/<hash>/`` at the root of the
 checkout, where the hash covers the source and the compiler flags (and
 for host code the CPU's instruction set, since it is built for the host
@@ -41,6 +42,13 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 #: host C sources: optimized for the CPU they are built on
 CC_FLAGS = ('-O3', '-march=native', '-std=c99', '-shared', '-fPIC')
+
+#: sources built with flags of their own: ``hostops.c`` with the JAX
+#: package's (``image_stitcher_tpu/native/__init__.py``): GNU C, so the
+#: compiler contracts the feather sums ``acc += w * v`` into fused
+#: multiply-adds where the CPU has them, exactly as the JAX build does
+#: (ISO C, ``-std=c99``, turns contraction off and changes the last bit)
+SOURCE_CC_FLAGS = {'hostops': ('-O3', '-march=native', '-shared', '-fPIC')}
 
 _LOCK = threading.Lock()
 _NAME_LOCKS: Dict[str, threading.Lock] = {}
@@ -100,7 +108,7 @@ def _build(name: str) -> Dict:
     src = os.path.join(CSRC, f'{name}.c' if host else f'{name}.cu')
     with open(src, 'rb') as f:
         source = f.read()
-    flags = CC_FLAGS if host else NVCC_FLAGS
+    flags = SOURCE_CC_FLAGS.get(name, CC_FLAGS) if host else NVCC_FLAGS
     key = source + ' '.join(flags).encode() + (_cpu_tag() if host else b'')
     tag = hashlib.sha1(key).hexdigest()[:16]
     out_dir = os.path.join(BUILD_ROOT, tag)
@@ -138,3 +146,32 @@ def load(name: str) -> ctypes.CDLL:
             _LIBS[name] = ctypes.CDLL(info['path'])
             BUILDS[name] = info
         return _LIBS[name]
+
+
+def hostops() -> ctypes.CDLL:
+    """``csrc/hostops.c`` (the host fuser's placement, feather and
+    finalize loops, the 2x pyramid folds and the row writer), built on
+    first use, with its ctypes signatures declared as the JAX package
+    declares them."""
+    lib = load('hostops')
+    if getattr(lib, '_declared', False):
+        return lib
+    pd, ci, vp = ctypes.c_ssize_t, ctypes.c_int, ctypes.c_void_p
+    place = [vp, pd, vp, pd, vp, pd, ci, ci, ci, ci, pd, pd]
+    feather = [vp, vp, pd, vp, pd, vp, pd, ci, ci, ci, ci,
+               ci, ci, ci, ci, pd, pd, ctypes.c_float]
+    fold = [vp, pd, vp, pd, pd, pd]
+    finalize = [vp, vp, pd, vp, pd, pd, pd]
+    for suffix in ('u16', 'u8'):
+        for fn, argtypes in (
+                (f'place_{suffix}', place), (f'feather_{suffix}', feather),
+                (f'downsample2x_{suffix}', fold),
+                (f'downsample2x2_mean_{suffix}', fold),
+                (f'finalize_feather_{suffix}', finalize)):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = None
+    c64 = ctypes.c_longlong
+    lib.write_rows_contig.argtypes = [ci, vp, c64, c64, c64, vp, c64, c64]
+    lib.write_rows_contig.restype = c64
+    lib._declared = True
+    return lib

@@ -5,8 +5,10 @@ device steps) and of the host step it takes from ``ops/host_fuse.py``;
 one module owns both twins:
 - :func:`downsample_nearest` / :func:`downsample_mean` run on torch
   tensors on any device (the in-RAM path runs them on the card);
-- :func:`host_downsample` is the NumPy step the band fuser's writer
-  thread folds each finished band with.
+- :func:`host_downsample` is the host step the band fusers' writers
+  fold each finished band with (and the host fuser's in-RAM canvases):
+  C for uint8/uint16 (``csrc/hostops.c``), its plain NumPy version
+  :func:`host_downsample_plain` otherwise.
 
 Two modes, both flooring odd extents:
 - 'nearest': the stride-2 pick (the JAX package's bitcast trick exists
@@ -64,21 +66,35 @@ def downsample(x: torch.Tensor, mode: str) -> torch.Tensor:
     raise ValueError(f"Unknown pyramid downsample mode: {mode}")
 
 
-def iter_levels(canvas: torch.Tensor, num_levels: int,
-                mode: str) -> Iterator[torch.Tensor]:
-    """Yield pyramid levels level from level (level 0 = the input), on
-    the canvas's device."""
+def iter_levels(canvas, num_levels: int, mode: str) -> Iterator:
+    """Yield pyramid levels level from level (level 0 = the input): a
+    tensor's on its device, a NumPy canvas's (the host fuser's) on the
+    host with :func:`host_downsample`."""
+    step = host_downsample if isinstance(canvas, np.ndarray) else downsample
     level = canvas
     for lv in range(num_levels):
         if lv > 0:
-            level = downsample(level, mode)
+            level = step(level, mode)
         yield level
 
 
-def host_downsample(x: np.ndarray, mode: str) -> np.ndarray:
-    """One pyramid step over the last two axes of a NumPy array, odd
-    extents floored: 'nearest' picks every other pixel, 'mean' is the
-    2x2 mean in f32 truncated back to the integer dtype."""
+def iter_host_levels(canvas, num_levels: int, mode: str) -> Iterator:
+    """:func:`iter_levels` with each level as a NumPy array on the host:
+    a tensor's level copied once (into pinned memory from the card, on
+    the caller's current stream), a NumPy canvas's as it is."""
+    for level in iter_levels(canvas, num_levels, mode):
+        if isinstance(level, torch.Tensor):
+            host = torch.empty(tuple(level.shape), dtype=level.dtype,
+                               pin_memory=level.device.type == 'cuda')
+            host.copy_(level)   # waits for the copy: host is read next
+            level = host.numpy()
+        yield level
+
+
+def host_downsample_plain(x: np.ndarray, mode: str) -> np.ndarray:
+    """The plain version of :func:`host_downsample`, in NumPy: 'nearest'
+    picks every other pixel, 'mean' is the 2x2 mean in f32 truncated
+    back to an integer dtype."""
     h2, w2 = (x.shape[-2] // 2) * 2, (x.shape[-1] // 2) * 2
     if mode == 'nearest':
         return np.ascontiguousarray(x[..., :h2:2, :w2:2])
@@ -90,3 +106,26 @@ def host_downsample(x: np.ndarray, mode: str) -> np.ndarray:
     if np.issubdtype(x.dtype, np.integer):
         m = np.trunc(m)
     return m.astype(x.dtype)
+
+
+def host_downsample(x: np.ndarray, mode: str) -> np.ndarray:
+    """One pyramid step over the last two axes of a NumPy array, odd
+    extents floored. uint8/uint16 fold in C (``csrc/hostops.c``, as the
+    JAX package's band writer folds them; byte-equal to the plain
+    version, the 2x2 mean as ``sum >> 2``); other dtypes run the plain
+    version."""
+    if mode not in ('nearest', 'mean'):
+        raise ValueError(f"Unknown pyramid downsample mode: {mode}")
+    if x.dtype not in (np.dtype(np.uint8), np.dtype(np.uint16)):
+        return host_downsample_plain(x, mode)
+    from .host_fuse import downsample2x_native
+    h2, w2 = x.shape[-2] // 2, x.shape[-1] // 2
+    planes = x.reshape((-1,) + x.shape[-2:])
+    dst = np.empty((planes.shape[0], h2, w2), x.dtype)
+    if h2 and w2:
+        for i in range(planes.shape[0]):
+            src = planes[i]
+            if src.strides[-1] != src.itemsize:
+                src = np.ascontiguousarray(src)
+            downsample2x_native(src, mode, dst[i])
+    return dst.reshape(x.shape[:-2] + (h2, w2))

@@ -6,9 +6,10 @@ defaults and JSON round-trip of ``image_stitcher_tpu/params.py``, so a
 differs is what the port runs: flatfield (fitted on the host or the
 device), registration (center pair, all pairs, or the global position
 solve with optional subpixel placement; reports and debug images),
-overwrite or feathered fusion on CUDA, in bands or whole canvases,
-OME-Zarr v2 or v3 with raw or blosc-lz4 chunks, the timepoint and HCS
-merges, and resuming a run from its manifest. Every option outside
+overwrite or feathered fusion on CUDA or on the host, in bands or whole
+canvases, OME-Zarr v2 or v3 with raw or blosc-lz4 chunks or pyramidal
+OME-TIFF (deflate or raw tiles), the timepoint and HCS merges, and
+resuming a run from its manifest. Every option outside
 those paths raises ``NotImplementedError`` naming the ROADMAP item that
 will bring it, instead of running something else in its place.
 """
@@ -67,8 +68,6 @@ class StitchingParameters:
             raise ValueError("Scan pattern must be either 'Unidirectional' or 'S-Pattern'")
         if self.use_registration and self.registration_z_level < 0:
             raise ValueError("Registration Z-level must be non-negative")
-        if self.output_format == '.ome.tiff':
-            raise _not_ported("OME-TIFF output", "item 10, 'OME-TIFF'")
 
     @property
     def stitched_folder(self) -> str:
@@ -120,7 +119,10 @@ class EngineOptions:
     flatfield_device: str = 'host'
     registration_device_threshold: int = 32
     registration_batch_pairs: int = 128
-    # 'auto' and 'device' fuse on the pipeline's device (CUDA by default)
+    # 'auto' and 'device' fuse on the pipeline's device (CUDA by default);
+    # 'host' fuses on the CPU through csrc/hostops.c. 'auto' never picks
+    # the host (the JAX package asks a link probe; the port runs on the
+    # card unless told otherwise)
     fusion_device: str = 'auto'
     device_fusion_kernel: str = 'auto'
     host_fusion_threads: Optional[int] = None
@@ -169,6 +171,14 @@ class EngineOptions:
             return self.reader_threads
         return max(2, _available_cpus())
 
+    def resolved_fusion_threads(self) -> int:
+        """The host fuser's threads: never fewer than 4, since its band
+        threads spend much of their life in waits that release the
+        interpreter lock (the JAX package's rule)."""
+        if self.host_fusion_threads is not None:
+            return self.host_fusion_threads
+        return max(4, _available_cpus())
+
     def validate(self) -> None:
         """Raise ValueError on invalid options, NotImplementedError on
         valid ones the port does not run yet."""
@@ -209,8 +219,6 @@ class EngineOptions:
         if not 1 <= self.tiff_jpeg_quality <= 100:
             raise ValueError("tiff_jpeg_quality must be in [1, 100]")
         unported = [
-            (self.fusion_device == 'host', "the host fuser",
-             "item 8, 'host fuser'"),
             (self.compressor_cname not in (None, 'auto', 'lz4'),
              f"blosc {self.compressor_cname!r} chunks",
              "item 15, 'other blosc codecs'"),

@@ -1,7 +1,8 @@
 """The port's CLI: every flag of the JAX CLI with its choices and
-default, the ones the port runs driven end to end on the CPU (the merge
-and resume flags against the JAX CLI's tree), the ones it does not run
-yet raising ``NotImplementedError`` naming their ROADMAP item."""
+default, the ones the port runs driven end to end on the CPU (the
+OME-TIFF, host fuser, merge and resume flags against the JAX CLI's
+tree), the ones it does not run yet raising ``NotImplementedError``
+naming their ROADMAP item."""
 
 import json
 import os
@@ -9,7 +10,8 @@ import os
 import pytest
 
 from fixtures import write_synthetic_acquisition
-from torch_helpers import assert_outputs_equal, small_disk_probe  # noqa: F401
+from torch_helpers import (assert_outputs_equal,  # noqa: F401
+                           assert_tiff_outputs_equal, small_disk_probe)
 from image_stitcher_tpu.cli import create_options as jax_create_options
 from image_stitcher_tpu.cli import create_params as jax_create_params
 from image_stitcher_tpu.cli import main as jax_main
@@ -67,7 +69,7 @@ def test_flags_match_the_jax_cli(flags):
 
 
 #: ROADMAP items the port has since carried: their flags run
-PORTED = ("item 11", "item 12")
+PORTED = ("item 11", "item 12", "item 10", "item 8")
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -78,8 +80,8 @@ PORTED = ("item 11", "item 12")
 def test_unported_flags_raise_naming_their_item(tmp_path, capsys, flags,
                                                 item):
     """Flags of options still to port fail the run naming their item;
-    those of ported items (merges, 11; resume, 12) run and write the JAX
-    CLI's tree."""
+    those of ported items (OME-TIFF output, 10; the host fuser, 8;
+    merges, 11; resume, 12) run and write the JAX CLI's tree."""
     if item in PORTED:
         jax_acq = _acquisition(tmp_path, regions=("A1", "B2"), name="jax")
         port_acq = _acquisition(tmp_path, regions=("A1", "B2"), name="port")
@@ -89,7 +91,10 @@ def test_unported_flags_raise_naming_their_item(tmp_path, capsys, flags,
                     + flags) == 0
         want, got = _output(tmp_path, "jax"), _output(tmp_path, "port")
         assert sorted(os.listdir(got)) == sorted(os.listdir(want))
-        assert_outputs_equal(str(want), str(got))
+        if '.ome.tiff' in flags:
+            assert_tiff_outputs_equal(str(want), str(got))
+        else:
+            assert_outputs_equal(str(want), str(got))
         return
     acq = _acquisition(tmp_path)
     args = parse_args(['-i', acq, '--device', 'cpu'] + flags)

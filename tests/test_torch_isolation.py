@@ -2,7 +2,9 @@
 options (blosc-lz4 chunks through its own C codec, read back by its own
 reader), the maximum-quality path (global registration, subpixel
 placement, feathering), the in-RAM path (whole canvases, the device
-flatfield solver, the registration report and debug images),
+flatfield solver, the registration report and debug images), OME-TIFF
+output in bands and in RAM from the host fuser (``io/tiffwriter.py``,
+``io/ometiff.py``, ``ops/host_fuse.py`` and ``csrc/hostops.c``),
 acquisitions stored as PNG and as LZW-compressed TIFF (its own
 decoders), and a two-well, two-timepoint run stopped, resumed with both
 merges and its plate reopened with ``open_stitched``, with jax, pandas, tensorstore, numcodecs, blosc, OpenCV, PIL,
@@ -92,6 +94,27 @@ CHILD = textwrap.dedent("""
     loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
     print('INRAM-OK', pipe.shifts.h_shift, pipe.shifts.v_shift)
+    # OME-TIFF output in bands and in RAM, fused by the host fuser
+    # (csrc/hostops.c) with the gated fit, read back by io/tiff.py
+    from image_stitcher_tpu_torch.io.tiff import read_pages
+    for streaming in ('on', 'off'):
+        out = {out!r} + '_tiff_' + streaming
+        pipe = port.stitch({acq!r}, output_format='.ome.tiff',
+                           use_registration=True, apply_flatfield=True,
+                           device=torch.device('cpu'),
+                           options=port.EngineOptions(
+                               streaming=streaming, fusion_device='host',
+                               output_folder=out))
+        with open(out + '/0_stitched/A1_stitched.ome.tiff', 'rb') as f:
+            pages = read_pages(f.read())
+        assert pages[0][1][0].shape == (144, 112), pages[0][1][0].shape
+        assert pages[0][1][0].any() and 'OME' in pages[0][0]
+    used = [m for m in ('io.tiffwriter', 'io.ometiff', 'ops.host_fuse')
+            if 'image_stitcher_tpu_torch.' + m in sys.modules]
+    assert len(used) == 3, used
+    loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+    assert not loaded, loaded
+    print('TIFF-HOST-OK', len(pages))
     # tiles stored as PNG and as LZW + predictor TIFF, decoded in C
     for fmt, folder in (('png', {acq!r} + '_png'), ('lzw', {acq!r} + '_lzw')):
         pipe = port.stitch(folder, use_registration=True,
@@ -161,6 +184,7 @@ def test_port_runs_without_jax_pandas_tensorstore_cv2(tmp_path):
     assert "ISOLATED-OK (0, -16) (-16, 0)" in proc.stdout
     assert "QUALITY-OK 4" in proc.stdout
     assert "INRAM-OK (0, -16) (-16, 0)" in proc.stdout
+    assert "TIFF-HOST-OK 2" in proc.stdout
     assert "INPUT-OK png (0, -16) (-16, 0)" in proc.stdout
     assert "INPUT-OK lzw (0, -16) (-16, 0)" in proc.stdout
     assert "MERGE-OK 1 (2, 1, 1, 144, 112)" in proc.stdout

@@ -275,10 +275,30 @@ def test_failed_unit_aborts_its_writer_and_the_run_raises(tmp_path,
 
 
 def test_ome_tiff_merges_still_raise_naming_item_10(tmp_path):
+    """OME-TIFF output is ported (item 10); merges stay zarr-only: with
+    ``.ome.tiff`` output both packages report "merge passes require
+    .ome.zarr output; skipping merges" and return the last saved path,
+    and write no merged store."""
     acq = make_acquisition(str(tmp_path / 'acq'))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port.stitch(acq, output_format='.ome.tiff', merge_timepoints=True,
-                    merge_hcs_regions=True, device=CPU)
+    kw = dict(output_format='.ome.tiff', merge_timepoints=True,
+              merge_hcs_regions=True)
+    errors = {'jax': [], 'port': []}
+    jpipe = jax_pkg.stitch(acq, reporter=JaxReporter(
+        error=errors['jax'].append), options=jax_pkg.EngineOptions(
+            fusion_device='device', output_folder=str(tmp_path / 'jax')),
+        **kw)
+    pipe = port.stitch(acq, device=CPU, reporter=ProgressReporter(
+        error=errors['port'].append), options=port.EngineOptions(
+            output_folder=str(tmp_path / 'port')), **kw)
+    assert errors['port'] == errors['jax'] == [
+        "merge passes require .ome.zarr output; skipping merges"]
+    assert merge.run_merges(pipe) == pipe.saved_paths[-1]
+    assert pipe.saved_paths[-1].endswith('1_stitched/B2_stitched.ome.tiff')
+    for out, p in (('jax', jpipe), ('port', pipe)):
+        assert sorted(os.listdir(tmp_path / out)) == [
+            '.stitch_manifest.json', '0_stitched', '1_stitched'], out
+    assert sorted(os.listdir(tmp_path / 'port' / '0_stitched')) == [
+        'A1_stitched.ome.tiff', 'B2_stitched.ome.tiff']
 
 
 def test_merge_fold_raises_on_a_cuda_pipeline_without_cuda(tmp_path):

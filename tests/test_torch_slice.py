@@ -230,11 +230,12 @@ def test_cli_runs_the_slice_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    # feather, the global scope, zarr v3 and blosc-lz4 run; with an
-    # unported companion option they still raise, naming it
+    # feather, the global scope, zarr v3, blosc-lz4 and the host fuser
+    # run; with an unported companion option they still raise, naming it
     dict(blend_method='feather', compressor_cname='lz4hc'),
-    dict(registration_scope='global', fusion_device='host'),
-    dict(fusion_device='host'),
+    dict(registration_scope='global', fusion_device='host',
+         mesh_shape=(1, 2)),
+    dict(fusion_device='host', compressor_cname='zstd'),
     dict(zarr_format=3, compressor_cname='blosclz'),
     dict(compressor_cname='zstd'),
     dict(mesh_shape=(1, 2)),
@@ -249,11 +250,15 @@ def test_unported_options_raise(tmp_path, option):
 
 
 @pytest.mark.parametrize("param", [
-    dict(output_format='.ome.tiff'),
-    # merges and resume run; with an unported companion they still raise,
-    # naming it
-    dict(merge_timepoints=True, output_format='.ome.tiff'),
-    dict(merge_hcs_regions=True, output_format='.ome.tiff'),
+    # OME-TIFF output, merges and resume run; with an unported companion
+    # they still raise, naming it
+    dict(output_format='.ome.tiff',
+         options=port.EngineOptions(compressor_cname='zstd')),
+    dict(merge_timepoints=True, output_format='.ome.tiff',
+         options=port.EngineOptions(mesh_shape=(1, 2))),
+    dict(merge_hcs_regions=True, output_format='.ome.tiff',
+         options=port.EngineOptions(work_shard=(0, 2),
+                                    output_folder='/nonexistent')),
     dict(resume=True, options=port.EngineOptions(
         work_shard=(0, 2), output_folder='/nonexistent'))],
     ids=lambda d: next(iter(d)))

@@ -1,5 +1,5 @@
 """Helpers shared by the port's tests: a small private disk probe, and
-OME-Zarr tree comparisons.
+OME-Zarr tree and OME-TIFF file comparisons.
 
 The port's raw writers (``direct_io='auto'``) and its 'auto' compressor
 measure the output disk once per process (``io/directio.py``), 256 MB per
@@ -59,6 +59,37 @@ def assert_outputs_equal(want_out, got_out):
     for rel in groups:
         assert_trees_equal(os.path.join(want_out, rel),
                            os.path.join(got_out, rel))
+
+
+def tiff_outputs(out):
+    """Relative paths of the ``*.ome.tiff`` files of a run's output."""
+    return sorted(rel for rel in tree_files(out) if rel.endswith('.ome.tiff'))
+
+
+def assert_tiff_outputs_equal(want_out, got_out, lsb=0):
+    """Two runs' outputs hold the same ``*.ome.tiff`` files: byte for
+    byte, or with ``lsb`` > 0 the same pages, descriptions and SubIFD
+    levels, each pixel within ``lsb`` (read with the port's
+    ``io/tiff.py::read_pages``)."""
+    from image_stitcher_tpu_torch.io.tiff import read_pages
+    files = tiff_outputs(want_out)
+    assert files and tiff_outputs(got_out) == files
+    for rel in files:
+        with open(os.path.join(want_out, rel), 'rb') as f:
+            want = f.read()
+        with open(os.path.join(got_out, rel), 'rb') as f:
+            got = f.read()
+        if lsb == 0:
+            assert got == want, rel
+            continue
+        want_pages, got_pages = read_pages(want), read_pages(got)
+        assert len(got_pages) == len(want_pages), rel
+        for (wd, wl), (gd, gl) in zip(want_pages, got_pages):
+            assert gd == wd, rel
+            assert [a.shape for a in gl] == [a.shape for a in wl], rel
+            for a, b in zip(wl, gl):
+                diff = np.abs(a.astype(np.int64) - b.astype(np.int64))
+                assert diff.max(initial=0) <= lsb, rel
 
 
 def assert_trees_equal(want_root, got_root):
