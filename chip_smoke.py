@@ -97,7 +97,20 @@ Phases, each fatal on failure:
      ``csrc/hostops.c``, the fit gated per channel): its raw tree
      byte-equal to the device path's, with e2e and when the first band
      started against the end of the fit; then the same run into the
-     default blosc-lz4 chunks, decoded equal to the device path's tree.
+     default blosc-lz4 chunks, decoded equal to the device path's tree;
+ 12. (run right after phase 8, on its acquisitions and raw trees) the
+     other blosc codecs (zstd, zlib, lz4hc, blosclz, snappy): (a) each
+     codec's C encoder and decoder against its plain version on phase 8's
+     chunks (the C frames of the full chunks decode exactly; the Python
+     versions run on 512^2 cuts, on a pool of processes); (b) each
+     codec's MB/s on one thread and on the encode pool, its ratio beside
+     lz4's; (c) the reference production edition's setting, blosc zstd
+     clevel 1 with byte shuffle, on phase 8's grid and content, decoded
+     equal to a raw run, with e2e, tiles/s, the writer's seconds, the
+     pool's drain, bytes and ratio against phase 8's lz4 run; (d) a 3x3
+     grid for every other cname (snappy bit-shuffled) as zarr v2 and v3,
+     each decoded equal to phase 8's raw 3x3 twin; (e) a 2-well plate with the
+     complete-plate merge in zstd, equal to the same merge in lz4.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -136,14 +149,15 @@ KERNELS = {
                          'image_stitcher_tpu/ops/fuse.py:121'),
 }
 LIBRARIES = sorted({lib for lib, _, _ in KERNELS.values()})
-#: the host C sources, built with the C compiler: the chunk codec
-#: (csrc/blosc_lz4.c), the tile decoders (csrc/tile_decode.c) and the host
-#: fuser's loops and pyramid folds (csrc/hostops.c)
-HOST_LIBRARIES = ['blosc_lz4', 'tile_decode', 'hostops']
+#: the host C sources, built with the C compiler: the chunk codecs
+#: (csrc/blosc.c with the csrc/codec_*.h it includes), the tile decoders
+#: (csrc/tile_decode.c) and the host fuser's loops and pyramid folds
+#: (csrc/hostops.c)
+HOST_LIBRARIES = ['blosc', 'tile_decode', 'hostops']
 TILE = 2048
 #: modules the card's host lacks; the port must load none of them
 BANNED = ('jax', 'jaxlib', 'pandas', 'tensorstore', 'numcodecs', 'blosc',
-          'cv2', 'PIL', 'imageio', 'image_stitcher_tpu')
+          'zstandard', 'cv2', 'PIL', 'imageio', 'image_stitcher_tpu')
 BLEND = 64
 
 
@@ -671,7 +685,7 @@ def smoke_options(out: str, quality: bool = False, **extra):
 
 def read_tree(root: str):
     """{relative path: decoded level array or parsed JSON} of a tree: zarr
-    v2 or v3 (sharded), raw or blosc-lz4 chunks, read by the port's
+    v2 or v3 (sharded), raw or blosc chunks, read by the port's
     ``read_array``."""
     from image_stitcher_tpu_torch.io.zarr_store import read_array
     out = {}
@@ -1390,7 +1404,9 @@ def output_options(out: str, **extra):
 def phase_output_layer(work: str, card: str, grid: int = 10,
                        tile: int = TILE, device: str = 'cuda') -> dict:
     """The OME-Zarr output layer on the card's host: codec, lz4 main path
-    against its raw twin, 'auto', O_DIRECT, zarr v3."""
+    against its raw twin, 'auto', O_DIRECT, zarr v3. The main grid's and
+    the 3x3 grid's acquisitions and raw trees stay in ``work`` for phase
+    12 (their paths in the result)."""
     import zlib
     from image_stitcher_tpu_torch import (StitchingParameters,
                                           scan_acquisition, stitch)
@@ -1478,7 +1494,8 @@ def phase_output_layer(work: str, card: str, grid: int = 10,
             f"{written / level_bytes:.4f}); fuse_overwrite launches "
             f"{launches} for {batches} batches; tree read back in "
             f"{t_read:.1f}s")
-        shutil.rmtree(out)
+        if name != 'raw':
+            shutil.rmtree(out)
         if tree is None:
             tree = got
         else:
@@ -1488,6 +1505,7 @@ def phase_output_layer(work: str, card: str, grid: int = 10,
                 f"compressor)")
         del got
     del tree
+    kept = {'main_acq': acq, 'main_raw': out}
 
     # 'auto' on this acquisition and this host's disk
     out = os.path.join(work, 'auto_out')
@@ -1502,7 +1520,6 @@ def phase_output_layer(work: str, card: str, grid: int = 10,
         f"host: {entry}; 'auto' chooses {choice} (lz4 needs a zlib-1 ratio "
         f"<= 0.6, here {probe_ratio:.3f}, and a disk under 300 MB/s x "
         f"{ncpu} cores = {300 * ncpu} MB/s)")
-    shutil.rmtree(acq)
 
     # 3x3: O_DIRECT on against off (raw), and zarr v3 against v2 (lz4)
     acq = os.path.join(work, 'comp_3x3')
@@ -1528,7 +1545,10 @@ def phase_output_layer(work: str, card: str, grid: int = 10,
                 with open(os.path.join(d, n), 'rb') as f:
                     files[mode][os.path.relpath(os.path.join(d, n),
                                                 out)] = f.read()
-        shutil.rmtree(out)
+        if mode == 'off':
+            kept.update(small_acq=acq, small_raw=out)
+        else:
+            shutil.rmtree(out)
     if not files['on'] or files['on'] != files['off']:
         raise SystemExit("output layer: direct_io='on' and 'off' wrote "
                          "different files")
@@ -1562,11 +1582,11 @@ def phase_output_layer(work: str, card: str, grid: int = 10,
         raise SystemExit(f"output layer: the v3 group is {meta}")
     log(f"output layer: the zarr v3 (sharded, NGFF 0.5) lz4 tree decodes "
         f"equal to the v2 tree ({arrays} level arrays)")
-    shutil.rmtree(acq)
     banned = [m for m in BANNED if m in sys.modules]
     if banned:
         raise SystemExit(f"output layer: loaded {banned}")
-    return {'rates': rates, 'runs': runs, 'auto': choice, 'probe': entry}
+    return {'rates': rates, 'runs': runs, 'auto': choice, 'probe': entry,
+            **kept}
 
 
 # --------------------------------------------------------------------- 9
@@ -2528,6 +2548,314 @@ def phase_ome_tiff(work: str, card: str, grid: int = 10,
                 host_lz4_e2e_s=e2e_lz4)
 
 
+# -------------------------------------------------------------------- 12
+
+#: the codecs beside lz4 (phase 8), each at the setting phase 12 holds it
+#: to: the reference production edition's zstd-1, the others at clevel 5,
+#: snappy bit-shuffled
+OTHER_CODECS = {'zstd': (1, 1), 'zlib': (5, 1), 'lz4hc': (5, 1),
+                'blosclz': (5, 1), 'snappy': (5, 2)}
+#: side of the cuts of ``codec_chunks`` the plain (Python) versions run on
+PLAIN_CUT = 512
+
+
+def _plain_case(args):
+    """One codec's plain version against its C frame on one cut: (cname,
+    label, plain frame equal, both decoders exact, frame bytes)."""
+    from image_stitcher_tpu_torch.io import blosc
+    cname, clevel, shuffle, label, cut, ts = args
+    frame = bytes(blosc.compress(cut, ts, clevel, shuffle, cname))
+    plain = blosc.compress_plain(cut, ts, clevel, shuffle, cname)
+    raw = cut.tobytes()
+    exact = (blosc.decompress(frame).tobytes() == raw
+             and blosc.decompress_plain(frame) == raw)
+    return cname, label, frame == plain, exact, len(frame)
+
+
+def _c_case(args):
+    """One codec's C frame of one full chunk and its round trip."""
+    from image_stitcher_tpu_torch.io import blosc
+    cname, clevel, shuffle, label, chunk, ts = args
+    frame = blosc.compress(chunk, ts, clevel, shuffle, cname)
+    exact = blosc.decompress(frame).tobytes() == chunk.tobytes()
+    return (cname, clevel, shuffle, label, chunk.nbytes, len(frame),
+            bool(frame[2] & 0x02), exact)
+
+
+def other_codec_check(rng) -> None:
+    """12a: each codec's C encoder and decoder against its plain version
+    on ``codec_chunks``: the C frames of the full chunks decode exactly
+    (on a pool of threads); the plain versions (Python) run on the
+    chunks' top-left PLAIN_CUT^2 cuts on a pool of processes meanwhile,
+    byte-equal to the C frames of the cuts, with exact round trips
+    through both decoders."""
+    import multiprocessing
+    t0 = time.perf_counter()
+    chunks = codec_chunks(rng)
+    full, cuts = [], []
+    for cname, (clevel, shuffle) in OTHER_CODECS.items():
+        for label, (chunk, ts) in chunks.items():
+            full.append((cname, clevel, shuffle, label, chunk, ts))
+            cuts.append((cname, clevel, shuffle, label, np.ascontiguousarray(
+                chunk[:PLAIN_CUT, :PLAIN_CUT]), ts))
+    ctx = multiprocessing.get_context('spawn')
+    with ctx.Pool(os.cpu_count() or 1) as pool:
+        plain = pool.map_async(_plain_case, cuts, chunksize=1)
+        with ThreadPoolExecutor(os.cpu_count() or 1) as threads:
+            for cname, clevel, shuffle, label, nbytes, size, memcpyed, \
+                    exact in threads.map(_c_case, full):
+                if not exact:
+                    raise SystemExit(f"codecs: {cname} does not decode "
+                                     f"{label}")
+                log(f"codecs {cname}-{clevel} shuffle {shuffle} {label}: C "
+                    f"frame {size} bytes ({size / nbytes:.4f}"
+                    f"{', memcpyed' if memcpyed else ''}); C round trip "
+                    "exact")
+        results = plain.get(timeout=600)
+    for cname, label, equal, exact, size in results:
+        if not equal or not exact:
+            raise SystemExit(f"codecs: {cname} on the {PLAIN_CUT}^2 cut of "
+                             f"{label}: plain frame equal {equal}, round "
+                             f"trips exact {exact}")
+    log(f"codecs: the plain versions of {sorted(OTHER_CODECS)} on the "
+        f"{PLAIN_CUT}^2 cuts of {len(chunks)} chunks ({len(results)} cases, "
+        f"cut because the Python versions take seconds per chunk): frames "
+        f"byte-equal to C, round trips exact through both decoders; "
+        f"{time.perf_counter() - t0:.1f}s with the C checks")
+
+
+def other_codec_rates(rng, card: str) -> dict:
+    """12b: MB/s (input bytes) of every codec's C encoder and decoder on
+    distinct 2048^2 compressible u16 chunks, on one thread and on a pool
+    of one thread per CPU (the writers' pool), with its ratio beside
+    lz4's."""
+    from image_stitcher_tpu_torch.io import blosc
+    from image_stitcher_tpu_torch.params import _available_cpus
+    ncpu = _available_cpus()
+    chunks = [compressible(rng, TILE) for _ in range(max(8, ncpu))]
+    nbytes = sum(c.nbytes for c in chunks)
+    rates = {}
+    for cname, (clevel, shuffle) in [('lz4', (5, 1))] + list(
+            OTHER_CODECS.items()):
+        def enc(c, cname=cname, clevel=clevel, shuffle=shuffle):
+            return blosc.compress(c, 2, clevel, shuffle, cname)
+        frames = [enc(c) for c in chunks[:2]]          # warm
+        row = {}
+        for threads in (1, ncpu):
+            with ThreadPoolExecutor(threads) as pool:
+                t0 = time.perf_counter()
+                frames = list(pool.map(enc, chunks))
+                t_enc = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                list(pool.map(blosc.decompress, frames))
+                t_dec = time.perf_counter() - t0
+            row[threads] = (nbytes / t_enc / 1e6, nbytes / t_dec / 1e6)
+        row['ratio'] = sum(len(f) for f in frames) / nbytes
+        rates[cname] = row
+        lz4 = rates['lz4']['ratio']
+        log(f"codec MB/s on {card}, {cname}-{clevel} shuffle {shuffle}, "
+            f"{len(chunks)} compressible 2048^2 u16 chunks: ratio "
+            f"{row['ratio']:.4f} (lz4-5 {lz4:.4f}); encode {row[1][0]:.1f} "
+            f"on one thread, {row[ncpu][0]:.1f} on {ncpu}; decode "
+            f"{row[1][1]:.1f} / {row[ncpu][1]:.1f}")
+    return rates
+
+
+def compare_trees_banded(a_root: str, b_root: str, what: str,
+                         arrays_only: bool = False, rows: int = TILE) -> int:
+    """Equal decoded arrays (read in bands of ``rows`` rows on a pool of
+    threads, the C decoders releasing the interpreter lock) and, unless
+    ``arrays_only`` (a v2 tree against a v3 one), equal JSON but for the
+    chunks' codec; returns the number of arrays."""
+    from image_stitcher_tpu_torch.io.zarr_store import open_array
+    from image_stitcher_tpu_torch.params import _available_cpus
+
+    def walk(root):
+        arrays, meta = [], {}
+        for d, _, names in os.walk(root):
+            rel = os.path.relpath(d, root)
+            for n in names:
+                if n in ('.zarray', '.zattrs', '.zgroup', 'zarr.json'):
+                    with open(os.path.join(d, n)) as f:
+                        m = json.load(f)
+                    if n == '.zarray':
+                        m.pop('compressor')
+                    elif n == 'zarr.json' and m.get('node_type') == 'array':
+                        m.pop('codecs')
+                    meta[os.path.join(rel, n)] = m
+                    if n == '.zarray' or (n == 'zarr.json' and m.get(
+                            'node_type') == 'array'):
+                        arrays.append(rel)
+        return sorted(arrays), meta
+
+    arrays, meta = walk(a_root)
+    b_arrays, b_meta = walk(b_root)
+    if not arrays or arrays != b_arrays:
+        raise SystemExit(f"{what}: the trees hold different arrays")
+    if not arrays_only and meta != b_meta:
+        raise SystemExit(f"{what}: the trees' metadata differ: "
+                         f"{[k for k in meta if meta[k] != b_meta.get(k)]}")
+    tasks = []
+    for rel in arrays:
+        a, b = open_array(os.path.join(a_root, rel)), \
+            open_array(os.path.join(b_root, rel))
+        if a.shape != b.shape:
+            raise SystemExit(f"{what}: {rel} is {a.shape} and {b.shape}")
+        for y0 in range(0, a.shape[3], rows):
+            tasks.append((rel, a, b, y0))
+
+    def same(task):
+        rel, a, b, y0 = task
+        sel = (Ellipsis, slice(y0, y0 + rows), slice(None))
+        return np.array_equal(a[sel], b[sel]), rel, y0
+
+    with ThreadPoolExecutor(_available_cpus()) as pool:
+        for ok, rel, y0 in pool.map(same, tasks):
+            if not ok:
+                raise SystemExit(f"{what}: {rel} rows {y0}.. decode "
+                                 "differently")
+    return len(arrays)
+
+
+def phase_other_codecs(work: str, card: str, output_layer: dict,
+                       grid: int = 10, tile: int = TILE,
+                       device: str = 'cuda') -> dict:
+    """12: the other blosc codecs. (a) C against plain; (b) MB/s; (c) the
+    reference production setting (zstd, clevel 1, byte shuffle) on phase
+    8's grid and content, decoded equal to a raw run, with e2e, tiles/s,
+    the writer's seconds, the encode pool's drain, bytes and ratio against
+    phase 8's lz4 run; (d) a 3x3 grid for every other cname, v2 and v3,
+    each decoded equal to its raw twin; (e) a 2-well plate with the
+    complete-plate merge in zstd, equal to the same merge in lz4.
+    ``output_layer`` is phase 8's result: its lz4 run, and the
+    acquisitions and raw trees (c) and (d) reuse, which this phase
+    removes."""
+    from image_stitcher_tpu_torch import CarriedState, list_outputs, stitch
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12)
+    other_codec_check(rng)
+    rates = other_codec_rates(rng, card)
+    overlap = 205 * tile // TILE
+
+    # 12c: the main path's grid in zstd-1, against phase 8's raw twin
+    lz4_run = output_layer['runs']['lz4']
+    out = os.path.join(work, 'zstd_out')
+    cuda_fuse.fuse_overwrite.launches = 0
+    t0 = time.perf_counter()
+    # streamed in bands as phase 8's runs ('auto' streams this canvas)
+    pipe = stitch(output_layer['main_acq'], use_registration=True,
+                  apply_flatfield=True, device=dev, options=output_options(
+                      out, streaming='on', compressor_cname='zstd',
+                      compressor_clevel=1))
+    e2e = time.perf_counter() - t0
+    launches = cuda_fuse.fuse_overwrite.launches
+    if dev.type == 'cuda' and launches == 0:
+        raise SystemExit("codecs (zstd-1): no kernel launch")
+    stats = pipe.fuse_stats['A1_t0']
+    with open(os.path.join(out, '0_stitched', 'A1_stitched.ome.zarr', '0',
+                           '.zarray')) as f:
+        comp = json.load(f)['compressor']
+    if comp['cname'] != 'zstd' or comp['clevel'] != 1:
+        raise SystemExit(f"codecs (zstd-1): chunks written as {comp}")
+    written = tree_bytes(out)
+    level_bytes = 0
+    for d, _, names in os.walk(out):
+        if '.zarray' in names:
+            with open(os.path.join(d, '.zarray')) as f:
+                level_bytes += 2 * int(np.prod(json.load(f)['shape']))
+    n_tiles = grid * grid * len(CHANNELS)
+    run = {'e2e_s': e2e, 'tiles_per_s': n_tiles / e2e,
+           'writer_s': stats['write'] + stats['close'],
+           'close_s': stats['close'], 'bytes': written,
+           'ratio': written / level_bytes, 'launches': launches}
+    log(f"codecs (zstd-1) main path on {card}: e2e {e2e:.3f}s = "
+        f"{n_tiles / e2e:.2f} tiles/s; band fuser: fuse={stats['fuse']:.3f}s "
+        f"write={stats['write']:.3f}s close={stats['close']:.3f}s (writer "
+        f"{run['writer_s']:.3f}s); {written} bytes for {level_bytes} bytes "
+        f"of levels (ratio {written / level_bytes:.4f}); fuse_overwrite "
+        f"launches {launches}")
+    t0 = time.perf_counter()
+    arrays = compare_trees_banded(output_layer['main_raw'], out,
+                                  'codecs (zstd-1 vs raw)')
+    log(f"codecs: the zstd-1 tree decodes equal to phase 8's raw tree "
+        f"({arrays} level arrays, compared in {time.perf_counter() - t0:.1f}"
+        f"s); zstd-1 e2e {e2e:.3f}s, ratio {run['ratio']:.4f} against "
+        f"phase 8's lz4 e2e {lz4_run['e2e_s']:.3f}s, ratio "
+        f"{lz4_run['ratio']:.4f} (same acquisition, this call)")
+    for path in (out, output_layer['main_raw'], output_layer['main_acq']):
+        shutil.rmtree(path)
+
+    # 12d: 3x3 grids, every other cname, v2 and v3, against a raw twin
+    acq, raw_out = output_layer['small_acq'], output_layer['small_raw']
+    small = {}
+    for cname, (clevel, shuffle) in OTHER_CODECS.items():
+        for fmt in (2, 3):
+            out = os.path.join(work, f'codecs_3x3_{cname}_v{fmt}')
+            cuda_fuse.fuse_overwrite.launches = 0
+            t0 = time.perf_counter()
+            stitch(acq, use_registration=True, apply_flatfield=True,
+                   device=dev, options=output_options(
+                       out, compressor_cname=cname, compressor_clevel=clevel,
+                       compressor_shuffle=shuffle, zarr_format=fmt))
+            e2e = time.perf_counter() - t0
+            if dev.type == 'cuda' and cuda_fuse.fuse_overwrite.launches == 0:
+                raise SystemExit(f"codecs: the 3x3 {cname} v{fmt} run "
+                                 "launched no kernel")
+            arrays = compare_trees_banded(raw_out, out,
+                                          f"codecs (3x3 {cname} v{fmt})",
+                                          arrays_only=fmt == 3)
+            small[f'{cname} v{fmt}'] = (e2e, tree_bytes(out))
+            shutil.rmtree(out)
+        log(f"codecs: 3x3 {cname}-{clevel} shuffle {shuffle} (v3: byte "
+            f"shuffle) v2 e2e {small[f'{cname} v2'][0]:.3f}s "
+            f"{small[f'{cname} v2'][1]} bytes, v3 e2e "
+            f"{small[f'{cname} v3'][0]:.3f}s {small[f'{cname} v3'][1]} "
+            f"bytes; both decode equal to the raw twin ({arrays} arrays)")
+    shutil.rmtree(raw_out)
+    shutil.rmtree(acq)
+
+    # 12e: a 2-well plate, the complete-plate merge in zstd against lz4
+    acq = os.path.join(work, 'codecs_plate')
+    write_acquisition(acq, 3, tile, overlap=overlap, seed=11,
+                      regions=WELLS[:2], texture=compressible)
+    plates = {}
+    state = None
+    for cname in ('lz4', 'zstd'):
+        out = os.path.join(work, f'codecs_plate_{cname}')
+        t0 = time.perf_counter()
+        pipe = stitch(acq, use_registration=True, apply_flatfield=True,
+                      device=dev, merge_hcs_regions=True, state=state,
+                      options=output_options(
+                          out, compressor_cname=cname,
+                          compressor_clevel=1 if cname == 'zstd' else 5))
+        state = state or CarriedState(flatfields=pipe.flatfields,
+                                      shifts=pipe.shifts)
+        e2e = time.perf_counter() - t0
+        hcs = list_outputs(out)['hcs']
+        if len(hcs) != 1:
+            raise SystemExit(f"codecs: the {cname} plate wrote {hcs}")
+        plates[cname] = (hcs[0], e2e, pipe.timers.as_dict().get('merge', 0),
+                         out)
+    arrays = compare_trees_banded(plates['lz4'][0], plates['zstd'][0],
+                                  'codecs (plate merge zstd vs lz4)')
+    for plate in plates.values():
+        shutil.rmtree(plate[3])
+    log(f"codecs: 2-well plate with the complete-plate merge: zstd-1 e2e "
+        f"{plates['zstd'][1]:.3f}s (merge {plates['zstd'][2]:.3f}s), lz4 "
+        f"e2e {plates['lz4'][1]:.3f}s (merge {plates['lz4'][2]:.3f}s); the "
+        f"zstd plate decodes equal to the lz4 plate ({arrays} arrays)")
+    shutil.rmtree(acq)
+    banned = [m for m in BANNED if m in sys.modules]
+    if banned:
+        raise SystemExit(f"codecs: loaded {banned}")
+    seconds = time.perf_counter() - t_phase
+    log(f"codecs: phase 12 in {seconds:.1f}s")
+    return {'rates': rates, 'zstd_main': run, 'small': small,
+            'seconds': seconds}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2545,7 +2873,10 @@ def main() -> int:
         phase_plate(work, card)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        phase_output_layer(work, card)
+        output_layer = phase_output_layer(work, card)
+        phase_other_codecs(work, card, output_layer)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         phase_tile_input(work, card)

@@ -6,8 +6,8 @@ flatfields and measure center-pair registration shifts on the host,
 place flatfield-corrected tiles into device-resident canvas bands with a
 hand-written CUDA kernel (``csrc/fuse_overwrite.cu``), and stream the
 bands into OME-Zarr (v2, or v3 with shards) with their pyramid, its
-chunks blosc-lz4 by default (a hand-written C codec, ``csrc/blosc_lz4.c``)
-or raw, or into pyramidal OME-TIFF. ``fusion_device='host'`` fuses on
+chunks blosc-lz4 by default, or any other blosc codec (zstd, zlib, lz4hc,
+blosclz, snappy; hand-written C, ``csrc/blosc.c``), or raw, or into pyramidal OME-TIFF. ``fusion_device='host'`` fuses on
 the CPU through the JAX package's host C (``csrc/hostops.c``). Every run
 keeps a manifest it can be resumed from
 (``resume=True``), and can merge its timepoints and HCS wells into

@@ -3,10 +3,10 @@
 The counterpart of the JAX package's ``io/omezarr.py``: the same
 ``.zattrs`` (or ``zarr.json`` attributes) multiscales and OMERO trees,
 the same level shapes, and level arrays with the same chunk grid, raw or
-blosc-lz4 (``io/zarr_store.py``, ``io/zarr_shard.py``). Raw chunks are
-written synchronously from the caller's thread, bytes equal to the JAX
-package's raw writer's; compressed chunks are encoded and written on a
-pool of threads while the caller goes on.
+blosc of any codec (``io/zarr_store.py``, ``io/zarr_shard.py``). Raw
+chunks are written synchronously from the caller's thread, bytes equal
+to the JAX package's raw writer's; compressed chunks are encoded and
+written on a pool of threads while the caller goes on.
 """
 
 from __future__ import annotations
@@ -159,11 +159,13 @@ class MultiscaleWriter:
     write them, or whole levels, as the in-RAM path saves them.
 
     ``cname`` None stores raw chunks (``direct_io`` 'auto', 'on' or
-    'off' picks O_DIRECT writes, same bytes); 'lz4' stores blosc-lz4
-    chunks (``clevel``; byte ``shuffle`` on v2, always on v3, as the JAX
-    package writes them), encoded on a pool of one thread per CPU with
-    at most ``max_pending_bytes`` (512 MiB) of chunks in flight (writers
-    that run at once split it); ``close()`` waits for them and
+    'off' picks O_DIRECT writes, same bytes); a blosc cname ('lz4',
+    'zstd', ... :data:`~image_stitcher_tpu_torch.io.blosc.CNAMES`) stores
+    blosc chunks of that codec (``clevel``; ``shuffle`` on v2, always byte
+    shuffle on v3, as the JAX package writes them), encoded on a pool of
+    one thread per CPU with at most ``max_pending_bytes`` (512 MiB) of
+    chunks in flight (writers that run at once split it); ``close()``
+    waits for them and
     raises the first failure, and ``abort()`` ends a failed write without
     writing what is still queued. ``zarr_format`` 3 writes NGFF 0.5 groups
     with sharded levels (shards one chunk row tall and 16 chunks
@@ -177,10 +179,6 @@ class MultiscaleWriter:
                  shuffle: int = 1, omero_full: bool = True,
                  zarr_format: int = 2, direct_io: str = 'auto',
                  max_pending_bytes: int = DEFAULT_MAX_PENDING_BYTES):
-        if cname not in (None, 'lz4'):
-            from ..params import _not_ported
-            raise _not_ported(f"blosc {cname!r} chunks",
-                              "item 15, 'other blosc codecs'")
         self.path = path
         self.num_levels = num_levels
         self.shapes = level_shapes(tuple(base_shape), num_levels)
@@ -207,10 +205,10 @@ class MultiscaleWriter:
                                    direct_io=direct_io)
             elif zarr_format == 3:
                 arr = BloscShardArray(lpath, shape, chunks, dtype, self.pool,
-                                      clevel=clevel)
+                                      clevel=clevel, cname=cname)
             else:
                 arr = BloscZarrArray(lpath, shape, chunks, dtype, self.pool,
-                                     clevel, shuffle)
+                                     clevel, shuffle, cname)
             self.arrays.append(arr)
 
     def write_level(self, level: int, data: np.ndarray,

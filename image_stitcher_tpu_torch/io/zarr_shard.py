@@ -14,7 +14,8 @@ layout, which band writes cover whole), at ``c/t/c/z/sy/sx``.
   size, every inner chunk inside the array present at its C-order
   ordinal, the index written once, and band rows land at known offsets
   (O_DIRECT where ``io/directio.py`` decides so).
-- :class:`BloscShardArray` (inner codecs ``bytes`` + ``blosc`` lz4):
+- :class:`BloscShardArray` (inner codecs ``bytes`` + ``blosc`` of any
+  cname, always byte-shuffled as the JAX package writes them):
   rows are gathered per chunk row (``zarr_store.ChunkRowBuffer``), each
   chunk is encoded once on an ``EncodePool`` thread, and the last of a
   shard's chunks to finish writes the shard: the bodies of the chunks
@@ -221,17 +222,22 @@ class RawShardArray(_ShardGrid, _RawWriter):
 
 
 class BloscShardArray(_ShardGrid):
-    """A blosc-lz4 sharded zarr v3 array, written by plane slabs through
-    a ``ChunkRowBuffer``, its chunks encoded on ``pool``."""
+    """A blosc sharded zarr v3 array (codec ``cname``, ``clevel``), written
+    by plane slabs through a ``ChunkRowBuffer``, its chunks encoded on
+    ``pool``. The chunks are byte-shuffled whatever the run's
+    ``compressor_shuffle``: the JAX package's v3 metadata always says
+    ``'shuffle': 'shuffle'``."""
 
     def __init__(self, path: str, shape: Sequence[int],
                  chunks: Sequence[int], dtype, pool: EncodePool,
-                 shard_multiple: int = 16, clevel: int = 5):
-        blosc.lib()   # build the codec now: a missing compiler raises here
-        self.clevel = int(clevel)
+                 shard_multiple: int = 16, clevel: int = 5,
+                 cname: str = 'lz4'):
+        blosc.check_settings(cname, clevel, 1)
+        blosc.lib()   # build the codecs now: a missing compiler raises here
+        self.cname, self.clevel = cname, int(clevel)
         self._init_grid(path, shape, chunks, dtype, shard_multiple,
                         {'blocksize': 0, 'clevel': self.clevel,
-                         'cname': 'lz4', 'shuffle': 'shuffle'})
+                         'cname': cname, 'shuffle': 'shuffle'})
         self.pool = pool
         self.rows = ChunkRowBuffer(self.shape, self.chunks, self.dtype,
                                    self._store_row)
@@ -258,7 +264,8 @@ class BloscShardArray(_ShardGrid):
     def _encode(self, shard: '_PendingShard', k: int,
                 chunk: np.ndarray) -> None:
         frame = (None if blosc.all_zero(chunk) else
-                 blosc.compress(chunk, self.dtype.itemsize, self.clevel, 1))
+                 blosc.compress(chunk, self.dtype.itemsize, self.clevel, 1,
+                                self.cname))
         shard.done(k, frame)
 
 

@@ -3,26 +3,28 @@
 The counterpart of the JAX package's ``io/zarr_store.py`` (tensorstore's
 zarr v2 store) and ``io/raw_zarr.py::RawV2SlabWriter``: zarr v2 arrays
 with ``/``-separated chunk keys and fill value 0, their chunks either
-raw (``compressor: null``) or blosc-lz4 (``io/blosc.py``). ``.zarray``
-carries the fields tensorstore writes, so either package's output opens
-with either reader. The zarr v3 shard writers are in ``io/zarr_shard.py``.
+raw (``compressor: null``) or blosc of any codec (``io/blosc.py``).
+``.zarray`` carries the fields tensorstore writes, so either package's
+output opens with either reader. The zarr v3 shard writers are in
+``io/zarr_shard.py``.
 
 - :class:`RawZarrArray`: a raw chunk body is the C-order bytes of a full
   chunk; edge chunks are zero-padded to the full chunk size, and rows a
   write never touches stay sparse file zeros, which read as the fill
   value. Writes are synchronous ``pwrite`` calls from the caller's
   thread, O_DIRECT where ``io/directio.py`` decides so (same bytes).
-- :class:`BloscZarrArray`: rows are copied into a buffer per (t, c, z,
-  chunk row), so the caller's slab may change as soon as the call
+- :class:`BloscZarrArray` (blosc chunks of any cname, clevel and
+  shuffle): rows are copied into a buffer per (t, c, z, chunk row), so
+  the caller's slab may change as soon as the call
   returns; when every row of a chunk row is in (or a later chunk row of
   the plane is written, or the array is flushed), each of its chunks is
   encoded once on an :class:`EncodePool` thread and written as one file.
   A chunk equal to the fill value is not stored, as tensorstore stores
   none.
 
-:func:`open_array` opens raw and blosc-lz4 arrays of either format for
-windowed reads, which decode only the chunks a window touches;
-:func:`read_array` decodes a whole array.
+:func:`open_array` opens raw and blosc arrays (every codec, byte or bit
+shuffle) of either format for windowed reads, which decode only the
+chunks a window touches; :func:`read_array` decodes a whole array.
 """
 
 from __future__ import annotations
@@ -371,15 +373,15 @@ class ChunkRowBuffer:
 
 
 class BloscZarrArray:
-    """A blosc-lz4 zarr v2 array, created on construction (any previous
-    array at ``path`` is replaced), written by plane slabs through a
-    :class:`ChunkRowBuffer`; each chunk is encoded and written on
-    ``pool``. :meth:`flush` hands over what is buffered; the owner closes
-    the pool."""
+    """A blosc zarr v2 array (codec ``cname``, ``clevel``, ``shuffle``),
+    created on construction (any previous array at ``path`` is replaced),
+    written by plane slabs through a :class:`ChunkRowBuffer`; each chunk
+    is encoded and written on ``pool``. :meth:`flush` hands over what is
+    buffered; the owner closes the pool."""
 
     def __init__(self, path: str, shape: Sequence[int],
                  chunks: Sequence[int], dtype, pool: EncodePool,
-                 clevel: int = 5, shuffle: int = 1):
+                 clevel: int = 5, shuffle: int = 1, cname: str = 'lz4'):
         self.path = path
         self.shape = tuple(int(s) for s in shape)
         self.chunks = clamp_chunks(chunks, self.shape)
@@ -387,14 +389,15 @@ class BloscZarrArray:
         if len(self.shape) != 5 or self.chunks[:3] != (1, 1, 1):
             raise ValueError("zarr arrays are (T, C, Z, Y, X) with one "
                              "plane per chunk")
-        self.clevel, self.shuffle = int(clevel), int(shuffle)
+        blosc.check_settings(cname, clevel, shuffle)
+        self.cname, self.clevel, self.shuffle = cname, int(clevel), int(shuffle)
         self.pool = pool
-        blosc.lib()   # build the codec now: a missing compiler raises here
+        blosc.lib()   # build the codecs now: a missing compiler raises here
         _fresh_array_dir(path)
         _write_json_atomic(
             os.path.join(path, '.zarray'),
             zarray_meta(self.shape, self.chunks, self.dtype,
-                        blosc_meta('lz4', self.clevel, self.shuffle)),
+                        blosc_meta(self.cname, self.clevel, self.shuffle)),
             indent=None)
         self.rows = ChunkRowBuffer(self.shape, self.chunks, self.dtype,
                                    self._store_row)
@@ -417,7 +420,7 @@ class BloscZarrArray:
         if blosc.all_zero(chunk):
             return   # equal to the fill value: not stored
         frame = blosc.compress(chunk, self.dtype.itemsize, self.clevel,
-                               self.shuffle)
+                               self.shuffle, self.cname)
         os.makedirs(os.path.dirname(fpath), exist_ok=True)
         _write_file(fpath, frame)
 

@@ -7,7 +7,8 @@ registration (the center pair on the host; or every adjacent pair, in
 batches on the device, aggregated by median ('all-pairs') or solved for
 per-tile positions ('global', optionally subpixel)), then fuse every
 (timepoint, region) by overwrite or feathered blending into OME-Zarr
-(v2, or v3 with shards; blosc-lz4 chunks, or raw, or 'auto'
+(v2, or v3 with shards; blosc chunks of any codec, lz4 by default, or
+raw, or 'auto'
 (:meth:`StitchPipeline.resolved_compressor`)) or pyramidal OME-TIFF
 (``output_format='.ome.tiff'``, ``io/tiffwriter.py``). A canvas over
 ``streaming_threshold_bytes`` (or any canvas with ``streaming='on'``)

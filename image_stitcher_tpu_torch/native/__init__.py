@@ -4,18 +4,19 @@ The counterpart of the JAX package's ``native/`` loader, which builds
 ``hostops.c`` with the system C compiler: each ``csrc/<name>.cu`` has a
 plain C interface and is compiled at first use with ``nvcc`` into a
 shared library, then loaded with :mod:`ctypes`; each host source
-``csrc/<name>.c`` (the blosc-lz4 codec, the tile decoders, the host
+``csrc/<name>.c`` (the blosc codecs, the tile decoders, the host
 fuser's ``hostops.c``) is compiled the same way with the system C
 compiler (``$CC``, else ``cc``, ``gcc``,
 ``clang``). The library lands in ``build/torch_kernels/<hash>/`` at the root of the
-checkout, where the hash covers the source and the compiler flags (and
+checkout, where the hash covers the source, the ``csrc/`` files it
+``#include``s, and the compiler flags (and
 for host code the CPU's instruction set, since it is built for the host
 it runs on), so an edited source is rebuilt and an unchanged one is
 loaded as it is.
 
 There is no fallback: a missing compiler or a failed build raises, and
 the caller (a wrapper about to launch on a CUDA tensor, a zarr writer
-asked for blosc-lz4 chunks, a reader given a compressed tile) raises
+asked for blosc chunks, a reader given a compressed tile) raises
 with it. Nothing here runs when a
 module is imported.
 """
@@ -26,6 +27,7 @@ import ctypes
 import hashlib
 import os
 import platform
+import re
 import shutil
 import subprocess
 import threading
@@ -84,7 +86,7 @@ def find_cc() -> str:
             return found
     raise RuntimeError(
         "no C compiler found ($CC, cc, gcc, clang): the host C code of "
-        "image_stitcher_tpu_torch (the blosc-lz4 codec, the tile decoders) "
+        "image_stitcher_tpu_torch (the blosc codecs, the tile decoders) "
         "is built from source at first use")
 
 
@@ -103,11 +105,28 @@ def _cpu_tag() -> bytes:
     return ident.encode()
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _source_text(path: str, seen=None) -> bytes:
+    """The source at ``path`` and, recursively, every ``#include "..."``
+    file of csrc/ it names: what the build hash must cover, so an edited
+    included file rebuilds the library too."""
+    seen = set() if seen is None else seen
+    seen.add(path)
+    with open(path, 'rb') as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        dep = os.path.join(os.path.dirname(path), inc.decode())
+        if dep not in seen and os.path.isfile(dep):
+            text += b'\0' + inc + b'\0' + _source_text(dep, seen)
+    return text
+
+
 def _build(name: str) -> Dict:
     host = os.path.exists(os.path.join(CSRC, f'{name}.c'))
     src = os.path.join(CSRC, f'{name}.c' if host else f'{name}.cu')
-    with open(src, 'rb') as f:
-        source = f.read()
+    source = _source_text(src)
     flags = SOURCE_CC_FLAGS.get(name, CC_FLAGS) if host else NVCC_FLAGS
     key = source + ' '.join(flags).encode() + (_cpu_tag() if host else b'')
     tag = hashlib.sha1(key).hexdigest()[:16]

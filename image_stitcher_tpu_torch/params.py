@@ -7,7 +7,7 @@ differs is what the port runs: flatfield (fitted on the host or the
 device), registration (center pair, all pairs, or the global position
 solve with optional subpixel placement; reports and debug images),
 overwrite or feathered fusion on CUDA or on the host, in bands or whole
-canvases, OME-Zarr v2 or v3 with raw or blosc-lz4 chunks or pyramidal
+canvases, OME-Zarr v2 or v3 with raw or blosc chunks or pyramidal
 OME-TIFF (deflate or raw tiles), the timepoint and HCS merges, and
 resuming a run from its manifest. Every option outside
 those paths raises ``NotImplementedError`` naming the ROADMAP item that
@@ -105,8 +105,10 @@ class EngineOptions:
     flatfield_tiles_per_timepoint: int = 32
     flatfield_max_tiles: int = 48
     # blosc-lz4 clevel 5 with byte shuffle (the JAX package's default);
-    # None = raw chunks; 'auto' = lz4 only when the content compresses
-    # and the output disk is slower than the cores' lz4
+    # any cname of io/blosc.py's CNAMES (the production edition's zstd-1
+    # among them), clevel 0-9, shuffle 0 none, 1 byte, 2 bit, -1 bit for
+    # 1-byte types; None = raw chunks; 'auto' = lz4 only when the content
+    # compresses and the output disk is slower than the cores' lz4
     compressor_cname: Optional[str] = 'lz4'
     compressor_clevel: int = 5
     compressor_shuffle: int = 1
@@ -218,10 +220,11 @@ class EngineOptions:
                 "tiff_compression must be 'deflate', 'raw' or 'jpeg'")
         if not 1 <= self.tiff_jpeg_quality <= 100:
             raise ValueError("tiff_jpeg_quality must be in [1, 100]")
+        if self.compressor_cname not in (None, 'auto'):
+            from .io.blosc import check_settings
+            check_settings(self.compressor_cname, self.compressor_clevel,
+                           self.compressor_shuffle)
         unported = [
-            (self.compressor_cname not in (None, 'auto', 'lz4'),
-             f"blosc {self.compressor_cname!r} chunks",
-             "item 15, 'other blosc codecs'"),
             (self.mesh_shape is not None, "multi-device meshes",
              "item 14, 'multi-GPU'"),
             (self.work_shard is not None, "work sharding",

@@ -1,6 +1,7 @@
-"""The port's blosc-lz4 codec (``csrc/blosc_lz4.c`` through
-``io/blosc.py``) against its plain version and against tensorstore's
-c-blosc.
+"""The port's blosc codec (``csrc/blosc.c`` through ``io/blosc.py``) at
+its default, blosc-lz4, against its plain version and against
+tensorstore's c-blosc (the other codecs: ``test_torch_blosc_codecs.py``
+and ``test_torch_blosc_ts_*.py``).
 
 - The C encoder and the plain encoder write byte-equal frames, and both
   decoders restore the input, on seeded inputs that take every branch
@@ -11,8 +12,8 @@ c-blosc.
 - tensorstore decodes chunks the port wrote, and the port decodes chunks
   tensorstore wrote (split and unsplit streams, shuffled or not, several
   clevels and chunk shapes).
-- A frame the codec cannot decode, and a codec that cannot be built,
-  raise.
+- A bit-shuffled frame decodes; a frame the codec cannot decode, and a
+  codec that cannot be built, raise.
 """
 
 import json
@@ -243,15 +244,28 @@ def test_port_reads_tensorstore_chunks(tmp_path, clevel, shuffle, dtype):
 
 
 def test_unsupported_and_corrupt_frames_raise(tmp_path):
+    """A bit-shuffled store tensorstore wrote decodes (C and plain); a
+    frame whose compressor code (5-7) names no codec raises, naming it;
+    corrupt and truncated frames raise."""
     rng = np.random.default_rng(5)
     data = _fluorescence(rng, (1, 1, 1, 64, 64))
     path = str(tmp_path / "bit")
     a = create_zarr_array(path, data.shape, data.shape, np.uint16,
                           cname='lz4', clevel=5, shuffle=2)   # bit shuffle
     a.write(data).result()
-    with pytest.raises(blosc.CodecError, match="unsupported"):
-        read_array(path)
+    np.testing.assert_array_equal(read_array(path), data)
+    with open(os.path.join(path, *'00000'), 'rb') as f:
+        bit = f.read()
+    assert bit[2] & 0x04 and not bit[2] & 0x03
+    assert blosc.decompress_plain(bit) == data.tobytes()
     frame = bytearray(blosc.compress(data, 2))
+    for code in (5, 6, 7):
+        other = bytearray(frame)
+        other[2] = (other[2] & 0x1F) | code << 5
+        for decode in (blosc.decompress, blosc.decompress_plain):
+            with pytest.raises(blosc.CodecError,
+                               match=f"compressor code {code}"):
+                decode(bytes(other))
     frame[-40:] = bytes(40)
     for decode in (blosc.decompress, blosc.decompress_plain):
         with pytest.raises(blosc.CodecError):
@@ -261,8 +275,8 @@ def test_unsupported_and_corrupt_frames_raise(tmp_path):
 
 
 def test_missing_compiler_raises(tmp_path, monkeypatch):
-    """No C compiler: asking for blosc-lz4 chunks raises; nothing writes
-    raw chunks or runs the plain codec instead."""
+    """No C compiler: asking for blosc chunks raises; nothing writes raw
+    chunks or runs the plain codec instead."""
     from image_stitcher_tpu_torch import native
     monkeypatch.setattr(native, 'BUILD_ROOT', str(tmp_path / "build"))
     monkeypatch.setattr(native, '_LIBS', {})

@@ -7,9 +7,11 @@ output in bands and in RAM from the host fuser (``io/tiffwriter.py``,
 ``io/ometiff.py``, ``ops/host_fuse.py`` and ``csrc/hostops.c``),
 acquisitions stored as PNG and as LZW-compressed TIFF (its own
 decoders), and a two-well, two-timepoint run stopped, resumed with both
-merges and its plate reopened with ``open_stitched``, with jax, pandas, tensorstore, numcodecs, blosc, OpenCV, PIL,
-imageio and the JAX package all unimportable, as on a CUDA host that has
-none of them."""
+merges and its plate reopened with ``open_stitched``, and zstd and zlib
+chunks (bit-shuffled, zarr v3) written and read back, with jax, pandas,
+tensorstore, numcodecs, blosc, zstandard, OpenCV, PIL, imageio and the JAX
+package all unimportable, as on a CUDA host that has none of them. No C
+source includes a compression library's header or links one."""
 
 import ast
 import os
@@ -25,7 +27,7 @@ from fixtures import write_synthetic_acquisition
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "image_stitcher_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "pandas", "tensorstore", "numcodecs", "blosc",
-           "cv2", "PIL", "imageio", "image_stitcher_tpu")
+           "zstandard", "cv2", "PIL", "imageio", "image_stitcher_tpu")
 
 CHILD = textwrap.dedent("""
     import importlib.abc, sys
@@ -158,6 +160,21 @@ CHILD = textwrap.dedent("""
     loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
     print('MERGE-OK', img.num_levels, plate.shape)
+    # the other blosc codecs: zstd-1 (the reference's production setting)
+    # and zlib with bit shuffle, v2 and v3, written and read back
+    for cname, shuffle, fmt in (('zstd', 1, 2), ('zlib', 2, 3)):
+        out = {out!r} + '_' + cname
+        port.stitch({acq!r}, use_registration=True,
+                    device=torch.device('cpu'),
+                    options=port.EngineOptions(
+                        chunks=(1, 1, 1, 32, 32), output_folder=out,
+                        compressor_cname=cname, compressor_clevel=1,
+                        compressor_shuffle=shuffle, zarr_format=fmt))
+        level0 = read_array(out + '/0_stitched/A1_stitched.ome.zarr/0')
+        assert level0.shape[:3] == (1, 1, 1) and level0.any(), level0.shape
+    loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+    assert not loaded, loaded
+    print('CODECS-OK')
 """)
 
 
@@ -188,6 +205,7 @@ def test_port_runs_without_jax_pandas_tensorstore_cv2(tmp_path):
     assert "INPUT-OK png (0, -16) (-16, 0)" in proc.stdout
     assert "INPUT-OK lzw (0, -16) (-16, 0)" in proc.stdout
     assert "MERGE-OK 1 (2, 1, 1, 144, 112)" in proc.stdout
+    assert "CODECS-OK" in proc.stdout
 
 
 def test_package_sources_import_none_of_the_blocked_modules():
@@ -202,3 +220,18 @@ def test_package_sources_import_none_of_the_blocked_modules():
                 continue
             for name in names:
                 assert name.split(".")[0] not in BLOCKED, (path, name)
+
+
+def test_no_compression_library_is_included_or_linked():
+    """The codecs are the repo's own C and the stdlib's zlib module: no
+    source in csrc/ includes zlib's or zstd's header, and the native
+    builder links neither library."""
+    import re
+    include = re.compile(r'#\s*include\s*[<"](zlib|zstd)\.h[>"]')
+    link = re.compile(r"(?<![\w-])-l(z|zstd)\b")
+    texts = [p.read_text() for p in (PACKAGE / "csrc").iterdir()]
+    texts.append((PACKAGE / "native" / "__init__.py").read_text())
+    assert len(texts) > 5
+    assert include.search('#include <zstd.h>') and link.search("'-lz'")
+    for text in texts:
+        assert not include.search(text) and not link.search(text)

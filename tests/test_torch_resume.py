@@ -312,6 +312,51 @@ def test_port_reads_a_jax_run_folder(tmp_path):
     assert RunManifest.load(jp.output_folder).data["finished"]
 
 
+@pytest.mark.parametrize("shuffle", [1, 2], ids=['zstd1', 'zstd1_bit'])
+def test_port_resumes_a_jax_zstd_run_folder(tmp_path, shuffle):
+    """A JAX run written with the reference's production compressor
+    (blosc zstd, clevel 1; byte or bit shuffle), stopped after its first
+    region: the port resumes it in place, skips that region, and the
+    finished folder holds the tree of an uninterrupted JAX run."""
+    acq = make_acq(tmp_path, regions=("A1", "A2"), timepoints=1)
+    from image_stitcher_tpu.models.pipeline import \
+        StitchPipeline as JaxPipeline
+    from image_stitcher_tpu.utils.progress import \
+        ProgressReporter as JaxRep
+    from image_stitcher_tpu.utils.progress import \
+        StitchCancelled as JaxCancelled
+    opts = dict(compressor_cname='zstd', compressor_clevel=1,
+                compressor_shuffle=shuffle, chunks=(1, 1, 1, 32, 32),
+                pipelined_save=False)
+    whole = jax_pkg.stitch(acq, use_registration=True, apply_flatfield=True,
+                           options=jax_pkg.EngineOptions(
+                               output_folder=str(tmp_path / 'whole'),
+                               **opts))
+    stop = threading.Event()
+    rep = JaxRep(status=lambda m, s=False: stop.set()
+                 if m.startswith("Completed region") else None)
+    jp = JaxPipeline(jax_pkg.StitchingParameters(
+        input_folder=acq, use_registration=True, apply_flatfield=True),
+        jax_pkg.EngineOptions(output_folder=str(tmp_path / 'resumed'),
+                              **opts), rep, stop_event=stop)
+    with pytest.raises(JaxCancelled):
+        jp.run()
+    skipped = []
+    pipe = port.stitch(acq, use_registration=True, apply_flatfield=True,
+                       device=CPU, resume=True,
+                       reporter=ProgressReporter(
+                           status=lambda msg, s=False: skipped.append(msg)
+                           if msg.startswith("Skipping") else None),
+                       options=EngineOptions(
+                           output_folder=str(tmp_path / 'resumed'), **opts))
+    assert pipe.resumed and skipped == ["Skipping completed region A1 t0"]
+    groups = zarr_groups(whole.output_folder)
+    assert len(groups) == 2 and zarr_groups(pipe.output_folder) == groups
+    for rel in groups:
+        assert_trees_equal(os.path.join(whole.output_folder, rel),
+                           os.path.join(pipe.output_folder, rel))
+
+
 @pytest.mark.parametrize("streaming", ['on', 'off'],
                          ids=['band', 'inram'])
 def test_resumed_run_writes_the_uninterrupted_tree(tmp_path, streaming):

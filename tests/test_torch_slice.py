@@ -230,14 +230,15 @@ def test_cli_runs_the_slice_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    # feather, the global scope, zarr v3, blosc-lz4 and the host fuser
-    # run; with an unported companion option they still raise, naming it
-    dict(blend_method='feather', compressor_cname='lz4hc'),
+    # feather, the global scope, zarr v3, every blosc codec and the host
+    # fuser run; with an unported companion option they still raise,
+    # naming it
+    dict(blend_method='feather', chunks=(1, 2, 1, 2048, 2048)),
     dict(registration_scope='global', fusion_device='host',
          mesh_shape=(1, 2)),
-    dict(fusion_device='host', compressor_cname='zstd'),
-    dict(zarr_format=3, compressor_cname='blosclz'),
-    dict(compressor_cname='zstd'),
+    dict(fusion_device='host', chunks=(1, 2, 1, 2048, 2048)),
+    dict(zarr_format=3, mesh_shape=(1, 2)),
+    dict(compressor_cname='zstd', chunks=(1, 2, 1, 2048, 2048)),
     dict(mesh_shape=(1, 2)),
     dict(work_shard=(0, 2), output_folder='/nonexistent')],
     ids=lambda d: next(iter(d)))
@@ -253,7 +254,7 @@ def test_unported_options_raise(tmp_path, option):
     # OME-TIFF output, merges and resume run; with an unported companion
     # they still raise, naming it
     dict(output_format='.ome.tiff',
-         options=port.EngineOptions(compressor_cname='zstd')),
+         options=port.EngineOptions(chunks=(1, 2, 1, 2048, 2048))),
     dict(merge_timepoints=True, output_format='.ome.tiff',
          options=port.EngineOptions(mesh_shape=(1, 2))),
     dict(merge_hcs_regions=True, output_format='.ome.tiff',
