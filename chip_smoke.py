@@ -6,8 +6,8 @@
 Phases, each fatal on failure:
   1. environment: torch/CUDA versions, card name and power limit;
   2. build: the CUDA kernels, compiled from csrc/ with nvcc, and the host
-     chunk codec and tile decoders with the C compiler (one compiler per
-     source, started together);
+     chunk codec, tile decoders, host fuser and JPEG codec with the C
+     compiler (one compiler per source, started together);
   3. kernel vs plain: every kernel against its plain PyTorch version on
      seeded batches at the main-path shapes (overwrite canvas byte-equal,
      feather acc/wsum bit-equal, finalize byte-equal): the band canvas at
@@ -46,7 +46,8 @@ Phases, each fatal on failure:
      NumPy reference at levels 0 and 1, the device fields against the
      host solver, the report and PNGs checked;
   8. output layer: the blosc-lz4 codec (C, built with the system
-     compiler) against its plain version, byte-equal frames and round
+     compiler; liblz4's LZ4_compress_fast rules, so its frames are
+     c-blosc's) against its plain version, byte-equal frames and round
      trips on seeded 2048^2 and edge chunks (full entropy, compressible,
      all zero; u16 and u8); its MB/s on one thread and on the encode
      pool; the main path's grid on the JAX package's compressible
@@ -110,7 +111,25 @@ Phases, each fatal on failure:
      pool's drain, bytes and ratio against phase 8's lz4 run; (d) a 3x3
      grid for every other cname (snappy bit-shuffled) as zarr v2 and v3,
      each decoded equal to phase 8's raw 3x3 twin; (e) a 2-well plate with the
-     complete-plate merge in zstd, equal to the same merge in lz4.
+     complete-plate merge in zstd, equal to the same merge in lz4;
+ 13. (run right after phase 9, beside its PNG rates) JPEG through the
+     port's C codec (csrc/jpeg.c): (a) its encoder and decoder against
+     the plain versions (io/jpeg_plain.py, on a pool of processes) on
+     seeded cases: grey and RGB 4:4:4, 4:2:2, 4:2:0 and 4:4:0, quality
+     50 / 85 / 95, odd sizes, restart intervals, a 2048^2 grey and a
+     2048^2 RGB tile, byte-equal streams and pixels, round trips through
+     both decoders; (b) decode and encode MB/s of 2048^2 u8 tiles, grey
+     q95 and RGB 4:2:0 q85, on one thread and on the 8-thread reader
+     pool; (c) phase 5's grid and options on grey u8 JPEG tiles (q95,
+     OpenCV's imwrite default, Squid's tiles), written by the port's
+     encoder, stitched on the card: its tree equal to an
+     uncompressed-TIFF twin holding the C decoder's pixels, with e2e,
+     tiles/s and the loaders' decode seconds beside the twin's e2e; (d)
+     3x3 grey and RGB JPEG acquisitions written as JPEG ``.ome.tiff``
+     (RGB pages 4:2:0, Photometric 6) on the card and on the CPU,
+     byte-equal files; (c)'s acquisition as JPEG q85 ``.ome.tiff``,
+     timed, every page and SubIFD level within PSNR 30 dB of (c)'s zarr
+     levels.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -151,9 +170,9 @@ KERNELS = {
 LIBRARIES = sorted({lib for lib, _, _ in KERNELS.values()})
 #: the host C sources, built with the C compiler: the chunk codecs
 #: (csrc/blosc.c with the csrc/codec_*.h it includes), the tile decoders
-#: (csrc/tile_decode.c) and the host fuser's loops and pyramid folds
-#: (csrc/hostops.c)
-HOST_LIBRARIES = ['blosc', 'tile_decode', 'hostops']
+#: (csrc/tile_decode.c), the host fuser's loops and pyramid folds
+#: (csrc/hostops.c) and the JPEG codec (csrc/jpeg.c)
+HOST_LIBRARIES = ['blosc', 'tile_decode', 'hostops', 'jpeg']
 TILE = 2048
 #: modules the card's host lacks; the port must load none of them
 BANNED = ('jax', 'jaxlib', 'pandas', 'tensorstore', 'numcodecs', 'blosc',
@@ -194,9 +213,9 @@ def phase_build() -> None:
         list(pool.map(native.load, libraries))
     cc = os.path.basename(native.find_cc())
     log(f"build: {len(libraries)} sources in {time.perf_counter() - t0:.1f}s;"
-        " nvcc " + " ".join(native.NVCC_FLAGS) + "; the codec and the tile "
-        f"decoders {cc} " + " ".join(native.CC_FLAGS) + f"; hostops {cc} "
-        + " ".join(native.SOURCE_CC_FLAGS['hostops']))
+        " nvcc " + " ".join(native.NVCC_FLAGS) + "; the codecs, the tile "
+        f"decoders and JPEG {cc} " + " ".join(native.CC_FLAGS)
+        + f"; hostops {cc} " + " ".join(native.SOURCE_CC_FLAGS['hostops']))
     for name in libraries:
         info = native.BUILDS[name]
         how = ('cached' if info['cached'] else
@@ -2856,6 +2875,286 @@ def phase_other_codecs(work: str, card: str, output_layer: dict,
             'seconds': seconds}
 
 
+# -------------------------------------------------------------------- 13
+
+#: 13a: seeded JPEG cases, (label, height, width, RGB, luma sampling,
+#: quality, restart interval): grey and RGB, 4:4:4, 4:2:2, 4:2:0 and
+#: 4:4:0, quality 50 / 85 / 95, odd sizes, restart intervals, and whole
+#: 2048^2 tiles
+JPEG_CASES = (
+    ('grey 37x53 q50', 37, 53, False, (1, 1), 50, 0),
+    ('grey 131x77 q85 restart 5', 131, 77, False, (1, 1), 85, 5),
+    ('grey 255x257 q95', 255, 257, False, (1, 1), 95, 0),
+    ('RGB 4:4:4 61x45 q50', 61, 45, True, (1, 1), 50, 0),
+    ('RGB 4:2:2 99x131 q85', 99, 131, True, (2, 1), 85, 0),
+    ('RGB 4:2:0 129x203 q95 restart 3', 129, 203, True, (2, 2), 95, 3),
+    ('RGB 4:2:0 257x255 q85', 257, 255, True, (2, 2), 85, 0),
+    ('RGB 4:4:0 45x77 q95', 45, 77, True, (1, 2), 95, 0),
+    ('grey 2048^2 tile q95', TILE, TILE, False, (1, 1), 95, 0),
+    ('RGB 4:2:0 2048^2 tile q85', TILE, TILE, True, (2, 2), 85, 0))
+#: quality of the JPEG tiles (OpenCV's imwrite default, Squid's tiles) and
+#: of the JPEG OME-TIFF tiles (the JAX package's tiff_jpeg_quality)
+TILE_QUALITY, TIFF_QUALITY = 95, 85
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float('inf') if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def _jpeg_case(args):
+    """One 13a case, in a worker process: the C stream against the plain
+    encoder's (``part`` 'encode'), or both decoders of it against each
+    other (``part`` 'decode'); (label, part, equal, stream bytes, PSNR of
+    the decoded pixels against the input)."""
+    from image_stitcher_tpu_torch.io import jpeg, jpeg_plain
+    label, img, sampling, quality, restart, part = args
+    stream = jpeg.encode(img, quality, sampling, restart)
+    if part == 'encode':
+        equal = jpeg_plain.encode(img, quality, sampling, restart) == stream
+        return label, part, equal, len(stream), None
+    pixels = jpeg.decode(stream)
+    equal = np.array_equal(jpeg_plain.decode(stream), pixels)
+    return label, part, equal, len(stream), psnr(pixels, img)
+
+
+def jpeg_check(rng) -> None:
+    """13a: the C encoder and decoder against the plain versions on
+    ``JPEG_CASES`` (the content: :func:`textures` in u8), byte-equal
+    streams and pixels, the round trip through both decoders; the plain
+    (Python) halves run on a pool of processes."""
+    import multiprocessing
+    t0 = time.perf_counter()
+    tasks = []
+    for label, h, w, rgb, sampling, quality, restart in JPEG_CASES:
+        side = max(h, w, 256)     # the texture's widest blur
+        img = np.ascontiguousarray(
+            textures(rng, side, 3 if rgb else 1, np.uint8)[:h, :w])
+        for part in ('encode', 'decode'):
+            tasks.append((label, img, sampling, quality, restart, part))
+    # the whole tiles first: they take longest
+    tasks.sort(key=lambda t: -t[1].size)
+    ctx = multiprocessing.get_context('spawn')
+    with ctx.Pool(min(len(tasks), os.cpu_count() or 1)) as pool:
+        results = pool.map(_jpeg_case, tasks, chunksize=1)
+    for label, part, equal, size, quality in sorted(results):
+        if not equal:
+            raise SystemExit(f"jpeg: {label}: the C {part}r differs from "
+                             f"the plain version")
+        if part == 'decode' and not quality > 20:
+            raise SystemExit(f"jpeg: {label}: the round trip's PSNR is "
+                             f"{quality:.1f} dB")
+        if part == 'decode':
+            log(f"jpeg {label}: C and plain streams byte-equal ({size} "
+                f"bytes), both decoders' pixels equal, round trip PSNR "
+                f"{quality:.2f} dB")
+    log(f"jpeg: {len(JPEG_CASES)} cases, C equal to plain; 13a in "
+        f"{time.perf_counter() - t0:.1f}s (plain halves on a process pool)")
+
+
+def jpeg_rates(rng, card: str, png_rates) -> dict:
+    """13b: MB/s (pixel bytes) of the C encoder and decoder on 2048^2 u8
+    tiles, grey at the tiles' quality and RGB 4:2:0 at the OME-TIFF
+    quality: one thread, then the reader pool's 8 (``READERS`` tiles a
+    pass); beside phase 9's 16-bit PNG tile decode."""
+    from image_stitcher_tpu_torch.io import jpeg
+    rates = {}
+    for label, planes, sampling, quality in (
+            ('grey u8', 1, (1, 1), TILE_QUALITY),
+            ('RGB u8 4:2:0', 3, (2, 2), TIFF_QUALITY)):
+        imgs = [textures(rng, TILE, planes, np.uint8)
+                for _ in range(2)] * (READERS // 2)
+        streams = [jpeg.encode(img, quality, sampling) for img in imgs]
+        jpeg.decode(streams[0])                                # warm
+        nbytes = sum(img.nbytes for img in imgs)
+        row = {'ratio': sum(map(len, streams)) / nbytes}
+        for threads in (1, READERS):
+            with ThreadPoolExecutor(threads) as pool:
+                t0 = time.perf_counter()
+                list(pool.map(lambda i: jpeg.encode(i, quality, sampling),
+                              imgs))
+                enc = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                list(pool.map(jpeg.decode, streams))
+                dec = time.perf_counter() - t0
+            row[threads] = (nbytes / enc / 1e6, nbytes / dec / 1e6)
+        rates[label] = row
+        png = png_rates.get('PNG tile (zlib + C)', (0.0, 0.0))
+        log(f"jpeg MB/s on {card}: {label} 2048^2 q{quality} (ratio "
+            f"{row['ratio']:.4f}): decode {row[1][1]:.0f} on one thread, "
+            f"{row[READERS][1]:.0f} on {READERS}; encode {row[1][0]:.0f} / "
+            f"{row[READERS][0]:.0f} (phase 9's 16-bit PNG tile decode: "
+            f"{png[0]:.0f} / {png[1]:.0f})")
+    return rates
+
+
+def phase_jpeg(work: str, card: str, png_rates=None, grid: int = 10,
+               tile: int = TILE, device: str = 'cuda') -> dict:
+    """13: JPEG. (a) the C codec against its plain version; (b) its MB/s;
+    (c) the main path's grid and options on grey u8 JPEG tiles (quality
+    95, written by the port's encoder) stitched on the card, its tree
+    equal to an uncompressed-TIFF twin holding the C decoder's pixels;
+    (d) 3x3 grey and RGB JPEG acquisitions written as JPEG ``.ome.tiff``
+    on the card and on the CPU, byte-equal files; (c)'s acquisition as
+    JPEG ``.ome.tiff``, every page and SubIFD level within PSNR 30 dB of
+    (c)'s zarr levels."""
+    from image_stitcher_tpu_torch import CarriedState, stitch
+    from image_stitcher_tpu_torch.io import jpeg
+    from image_stitcher_tpu_torch.io.tiff import read_pages
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    t_phase = time.perf_counter()
+    dev, cpu = torch.device(device), torch.device('cpu')
+    rng = np.random.default_rng(13)
+    jpeg_check(rng)
+    rates = jpeg_rates(rng, card, png_rates or {})
+    tf = tile_files()
+    overlap = 205 * tile // TILE
+    skip = ('.stitch_manifest.json', 'flatfields.npz')
+    cache = {}
+
+    def gray(r, side):
+        if side not in cache:
+            cache[side] = textures(r, side, 1, np.uint8)
+        return cache[side]
+
+    # 13c: the main path on JPEG tiles, against its uncompressed twin
+    acq, twin_acq = (os.path.join(work, 'jpeg_main'),
+                     os.path.join(work, 'jpeg_twin'))
+    t0 = time.perf_counter()
+    write_acquisition(acq, grid, tile, overlap, seed=41, texture=gray,
+                      encode=lambda b: jpeg.encode(b, TILE_QUALITY),
+                      suffix='jpg')
+    nbytes = tree_bytes(acq)
+    t_write = time.perf_counter() - t0
+    write_acquisition(twin_acq, grid, tile, overlap, seed=41, texture=gray,
+                      encode=lambda b: tf.tiff_bytes(jpeg.decode(
+                          jpeg.encode(b, TILE_QUALITY))))
+    del cache
+    n_tiles = grid * grid * len(CHANNELS)
+    log(f"jpeg (13c): wrote {grid}x{grid}x{len(CHANNELS)} {tile}^2 grey u8 "
+        f"q{TILE_QUALITY} tiles with the port's encoder in {t_write:.1f}s, "
+        f"{nbytes} bytes for {n_tiles * tile * tile} of pixels")
+    runs, trees = {}, {}
+    for name, folder in (('jpeg', acq), ('tiff twin', twin_acq)):
+        out = os.path.join(work, f'jpeg_out_{name.split()[-1]}')
+        run = runs[name] = stitch_input(folder, out, dev, card,
+                                        f'13c {name}')
+        if not run.pop('streamed'):
+            raise SystemExit(f"jpeg (13c {name}): the canvas did not "
+                             f"stream in bands")
+        run.pop('pipe')
+        trees[name] = read_tree(out)
+        shutil.rmtree(out)
+    shutil.rmtree(twin_acq)
+    arrays = compare_trees(trees['tiff twin'], trees['jpeg'],
+                           'jpeg (13c, jpeg vs tiff twin)')
+    tree = trees['jpeg']
+    del trees
+    log(f"jpeg (13c): the JPEG-tile tree decodes equal to the uncompressed "
+        f"twin's ({arrays} level arrays); e2e {runs['jpeg']['e2e_s']:.3f}s "
+        f"= {runs['jpeg']['tiles_per_s']:.2f} tiles/s against the twin's "
+        f"{runs['tiff twin']['e2e_s']:.3f}s; loaders' decode "
+        f"{runs['jpeg']['decode_s']:.3f}s summed over threads")
+
+    # 13d: 3x3 grey and RGB JPEG acquisitions to JPEG .ome.tiff, card
+    # against CPU
+    small = {}
+    for rgb in (False, True):
+        folder = small[rgb] = os.path.join(work, f'jpeg_3x3_{int(rgb)}')
+        write_acquisition(
+            folder, 3, tile, overlap, seed=43 + rgb,
+            texture=lambda r, side, p=3 if rgb else 1: textures(
+                r, side, p, np.uint8),
+            encode=lambda b: jpeg.encode(b, TILE_QUALITY),
+            suffix='jpg',
+            channels=["BF LED matrix full"] if rgb else CHANNELS)
+    for rgb, folder in small.items():
+        label = 'RGB' if rgb else 'grey'
+        outs, state, secs = {}, None, {}
+        for run, run_dev in (('card', dev), ('cpu', cpu)):
+            cuda_fuse.fuse_overwrite.launches = 0
+            out = outs[run] = os.path.join(work, f'jpeg_tiff_{run}')
+            t0 = time.perf_counter()
+            pipe = stitch(folder, output_format='.ome.tiff',
+                          use_registration=True, apply_flatfield=True,
+                          device=run_dev, state=state,
+                          options=smoke_options(
+                              out, tiff_compression='jpeg'))
+            secs[run] = time.perf_counter() - t0
+            if run == 'card':
+                launches = cuda_fuse.fuse_overwrite.launches
+                if run_dev.type == 'cuda' and not launches:
+                    raise SystemExit(f"jpeg (13d, {label}): no launches")
+                state = CarriedState(flatfields=pipe.flatfields,
+                                     shifts=pipe.shifts)
+        nb = files_equal(outs['card'], outs['cpu'],
+                         f"jpeg (13d, {label})", skip=skip)
+        with open(tiff_file(outs['card']), 'rb') as f:
+            pages = read_pages(f.read())
+        first = pages[0][1][0]
+        if first.ndim != (3 if rgb else 2) or not first.any():
+            raise SystemExit(f"jpeg (13d, {label}): page 0 is "
+                             f"{first.shape}")
+        log(f"jpeg (13d, {label}): 3x3 JPEG .ome.tiff from the card "
+            f"byte-equal to the CPU run's ({nb} bytes, {len(pages)} pages, "
+            f"level 0 {first.shape}); card {secs['card']:.3f}s (launches "
+            f"{launches}), CPU {secs['cpu']:.3f}s")
+        for out in outs.values():
+            shutil.rmtree(out)
+        shutil.rmtree(folder)
+
+    # 13d: (c)'s acquisition as JPEG .ome.tiff, against (c)'s zarr levels
+    out = os.path.join(work, 'jpeg_tiff_main')
+    cuda_fuse.fuse_overwrite.launches = 0
+    t0 = time.perf_counter()
+    pipe = stitch(acq, output_format='.ome.tiff', use_registration=True,
+                  apply_flatfield=True, device=dev,
+                  options=smoke_options(out, tiff_compression='jpeg',
+                                        tiff_jpeg_quality=TIFF_QUALITY))
+    e2e = time.perf_counter() - t0
+    launches = cuda_fuse.fuse_overwrite.launches
+    stats = pipe.fuse_stats['A1_t0']
+    path = tiff_file(out)
+    file_bytes = os.path.getsize(path)
+    with open(path, 'rb') as f:
+        pages = read_pages(f.read())
+    if len(pages) != len(CHANNELS) + 1 or (dev.type == 'cuda'
+                                           and not launches):
+        raise SystemExit(f"jpeg (13d): {len(pages)} pages, {launches} "
+                         f"launches")
+    zarr = '0_stitched/A1_stitched.ome.zarr'
+    worst, level_bytes = float('inf'), 0
+    for lv in range(pipe.num_pyramid_levels):
+        want = tree[os.path.join(zarr, str(lv))]
+        for c in range(len(CHANNELS)):
+            got = pages[c][1][lv]
+            if got.shape != want[0, c, 0].shape:
+                raise SystemExit(f"jpeg (13d): channel {c} level {lv} is "
+                                 f"{got.shape}")
+            quality = psnr(got, want[0, c, 0])
+            worst = min(worst, quality)
+            level_bytes += got.nbytes
+            if not quality > 30:
+                raise SystemExit(f"jpeg (13d): channel {c} level {lv} at "
+                                 f"PSNR {quality:.2f} dB")
+    del pages, tree
+    shutil.rmtree(out)
+    shutil.rmtree(acq)
+    seconds = time.perf_counter() - t_phase
+    log(f"jpeg (13d) on {card}: (c)'s acquisition as JPEG q{TIFF_QUALITY} "
+        f".ome.tiff: e2e {e2e:.3f}s = {n_tiles / e2e:.2f} tiles/s, writer "
+        f"{stats['write'] + stats['close']:.3f}s, launches {launches}; "
+        f"{file_bytes} bytes for {level_bytes} of levels (ratio "
+        f"{file_bytes / level_bytes:.4f}); {len(CHANNELS)} pages x "
+        f"{pipe.num_pyramid_levels} levels, worst PSNR {worst:.2f} dB "
+        f"against the zarr levels; phase 13 in {seconds:.1f}s")
+    banned = [m for m in BANNED if m in sys.modules]
+    if banned:
+        raise SystemExit(f"jpeg: loaded {banned}")
+    return {'rates': rates, 'runs': runs, 'tiff_e2e_s': e2e,
+            'seconds': seconds}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2879,7 +3178,10 @@ def main() -> int:
         os.makedirs(work)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        phase_tile_input(work, card)
+        tile_input = phase_tile_input(work, card)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        phase_jpeg(work, card, tile_input['rates'])
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         phase_merges(work, card)

@@ -1,22 +1,33 @@
 /* LZ4 blocks for blosc code 1 ('lz4' and 'lz4hc'), included by blosc.c.
  *
  * io/blosc.py holds the plain version of both matchers; the C and the
- * plain encoders write byte-equal blocks. Rules shared by both matchers
- * (the LZ4 block format leaves them free):
- *   - a position may start a match only if ip <= n - 12 (and never in
- *     a block shorter than 13 bytes); a match extends while bytes agree,
- *     up to n - 5, so the last 5 bytes are always literals;
- *   - a candidate is taken when its 4 bytes equal ip's and ip - ref is at
- *     most 65535; no backward extension.
- * 'lz4' (the fast matcher):
- *   - a 4-byte little-endian sequence at ip hashes to
- *     (seq * 2654435761 mod 2^32) >> 20, a 4096-entry table of the last
- *     position with that hash, empty (-1) at the start of each block;
- *   - after a miss ip advances by (search >> 6), search += 1, where
- *     search starts at accel << 6 and is reset after every match;
- *     accel = 10 - clevel (at least 1), as c-blosc sets it for LZ4;
- *   - after a match of length L ending at e, position e - 2 is entered
- *     in the table, and the search goes on at e.
+ * plain encoders write byte-equal blocks.
+ * 'lz4' is liblz4 1.9's LZ4_compress_fast with a bounded output, as
+ * c-blosc calls it (acceleration accel = max(1, 10 - clevel), the output
+ * bounded by the stream's length), so the blocks are byte-equal to
+ * c-blosc's:
+ *   - a block under 13 bytes is all literals; a match extends while the
+ *     bytes agree, up to n - 5;
+ *   - a stream of at least 65547 bytes hashes the 8-byte little-endian
+ *     word v at a position to ((v << 24) * 889523592379 mod 2^64) >> 52
+ *     (4096 entries) and skips candidates more than 65535 bytes back; a
+ *     shorter one hashes the u32 to (u32 * 2654435761 mod 2^32) >> 19
+ *     (8192 entries), with no distance check;
+ *   - the table starts all zero (every hash names position 0); position
+ *     0 is entered and the search starts at 1;
+ *   - each search starts with step 1 and n = accel << 6: take the
+ *     candidate of ip's hash, next = ip + step, step = n++ >> 6; stop
+ *     with the last literals when next > len - 11; hash next, enter ip;
+ *     accept when the 4 bytes at the candidate equal ip's;
+ *   - the match is extended backwards while ip is past the last
+ *     sequence's end, the candidate past 0 and the bytes before agree;
+ *   - after a match ending at e (stop if e >= len - 11), e - 2 is
+ *     entered, then e is looked up and entered: a hit emits a sequence
+ *     with no literals and repeats, a miss searches on from e + 1;
+ *   - liblz4's output bounds: 0 (stored as it is) when the literals
+ *     would leave less than 8 + litlen / 255 bytes, the match less than
+ *     6 + (matchcode + 240) / 255, or the last literals less than
+ *     1 + (run + 240) / 255 after them.
  * 'lz4hc' (the hash-chain matcher):
  *   - the hash is (seq * 2654435761 mod 2^32) >> 17, a 32768-entry table
  *     of the last position with that hash; each position p also records
@@ -38,11 +49,6 @@
 #define LASTLITERALS 5
 #define SKIP_TRIGGER 6
 #define LZ4_MAX_DISTANCE 65535
-
-static uint32_t hash4(uint32_t seq)
-{
-    return (seq * 2654435761u) >> (32 - HASH_LOG);
-}
 
 static int64_t length_bytes(int64_t len)
 {
@@ -87,49 +93,113 @@ static uint8_t *emit(uint8_t *op, const uint8_t *oend, const uint8_t *lit,
     return op;
 }
 
+#define LZ4_64K_LIMIT (65536 + MFLIMIT - 1)
+
+static uint32_t lz4_hash(const uint8_t *p, int big)
+{
+    if (big) {
+        uint64_t v;
+        memcpy(&v, p, 8);
+        return (uint32_t)(((v << 24) * 889523592379ull) >> 52);
+    }
+    return (read32(p) * 2654435761u) >> 19;
+}
+
 /* An LZ4 block of src[0, n) into dst with the fast matcher; its size, or
- * 0 when it would exceed cap bytes. */
+ * 0 when liblz4 would not fit it in cap bytes. */
 int64_t lz4_compress_block(const uint8_t *src, int64_t n, uint8_t *dst,
                            int64_t cap, int clevel)
 {
-    int32_t table[1 << HASH_LOG];
+    uint32_t table[1 << (HASH_LOG + 1)];
     uint8_t *op = dst;
-    const uint8_t *oend = dst + cap;
-    int64_t anchor = 0, ip = 0;
-    int accel = 10 - clevel;
-    if (accel < 1)
-        accel = 1;
+    const uint8_t *olimit = dst + cap;
+    const int big = n >= LZ4_64K_LIMIT;
+    const int64_t accel = clevel < 9 ? 10 - clevel : 1;
+    int64_t anchor = 0;
     if (n >= MFLIMIT + 1) {
-        const int64_t mflimit = n - MFLIMIT;
+        const int64_t limit = n - MFLIMIT + 1;
         const uint8_t *matchlimit = src + n - LASTLITERALS;
-        uint32_t search = (uint32_t)accel << SKIP_TRIGGER;
-        for (int i = 0; i < (1 << HASH_LOG); ++i)
-            table[i] = -1;
-        while (ip <= mflimit) {
-            uint32_t seq = read32(src + ip);
-            uint32_t h = hash4(seq);
-            int64_t ref = table[h];
-            table[h] = (int32_t)ip;
-            if (ref >= 0 && ip - ref <= LZ4_MAX_DISTANCE
-                    && read32(src + ref) == seq) {
-                int64_t len = MINMATCH + common_len(src + ip + MINMATCH,
-                                                    src + ref + MINMATCH,
-                                                    matchlimit);
-                op = emit(op, oend, src + anchor, ip - anchor, ip - ref, len);
-                if (op == NULL)
-                    return 0;
-                ip += len;
-                anchor = ip;
-                table[hash4(read32(src + ip - 2))] = (int32_t)(ip - 2);
-                search = (uint32_t)accel << SKIP_TRIGGER;
-            } else {
-                ip += search++ >> SKIP_TRIGGER;
+        memset(table, 0, sizeof(table));
+        int64_t ip = 1, match;
+        uint32_t fwdh = lz4_hash(src + 1, big);
+        table[lz4_hash(src, big)] = 0;
+        for (;;) {
+            int64_t fwd = ip, step = 1, search = accel << SKIP_TRIGGER;
+            for (;;) {
+                uint32_t h = fwdh;
+                int64_t cur = fwd;
+                match = table[h];
+                ip = fwd;
+                fwd += step;
+                step = search++ >> SKIP_TRIGGER;
+                if (fwd > limit)
+                    goto last_literals;
+                fwdh = lz4_hash(src + fwd, big);
+                table[h] = (uint32_t)cur;
+                if (big && match + LZ4_MAX_DISTANCE < cur)
+                    continue;
+                if (read32(src + match) == read32(src + ip))
+                    break;
             }
+            while (ip > anchor && match > 0 && src[ip - 1] == src[match - 1]) {
+                --ip;
+                --match;
+            }
+            int64_t litlen = ip - anchor;
+            uint8_t *token = op++;
+            if (op + litlen + 8 + litlen / 255 > olimit)
+                return 0;
+            if (litlen >= 15) {
+                *token = 15 << 4;
+                op = put_length(op, litlen);
+            } else {
+                *token = (uint8_t)(litlen << 4);
+            }
+            memcpy(op, src + anchor, (size_t)litlen);
+            op += litlen;
+            for (;;) {
+                int64_t off = ip - match;
+                *op++ = (uint8_t)(off & 0xff);
+                *op++ = (uint8_t)(off >> 8);
+                int64_t code = common_len(src + ip + MINMATCH,
+                                          src + match + MINMATCH, matchlimit);
+                ip += code + MINMATCH;
+                if (op + 6 + (code + 240) / 255 > olimit)
+                    return 0;
+                if (code >= 15) {
+                    *token += 15;
+                    op = put_length(op, code);
+                } else {
+                    *token += (uint8_t)code;
+                }
+                anchor = ip;
+                if (ip >= limit)
+                    goto last_literals;
+                table[lz4_hash(src + ip - 2, big)] = (uint32_t)(ip - 2);
+                uint32_t h = lz4_hash(src + ip, big);
+                match = table[h];
+                table[h] = (uint32_t)ip;
+                if ((big && match + LZ4_MAX_DISTANCE < ip)
+                        || read32(src + match) != read32(src + ip))
+                    break;
+                token = op++;
+                *token = 0;
+            }
+            fwdh = lz4_hash(src + ++ip, big);
         }
     }
-    op = emit(op, oend, src + anchor, n - anchor, 0, 0);
-    if (op == NULL)
+last_literals:;
+    int64_t run = n - anchor;
+    if (op + run + 1 + (run + 240) / 255 > olimit)
         return 0;
+    if (run >= 15) {
+        *op++ = 15 << 4;
+        op = put_length(op, run);
+    } else {
+        *op++ = (uint8_t)(run << 4);
+    }
+    memcpy(op, src + anchor, (size_t)run);
+    op += run;
     return op - dst;
 }
 

@@ -21,7 +21,8 @@ Layout expected on disk:
 Tiles are decoded without OpenCV (:func:`read_image`): uncompressed
 TIFF through the zero-copy fast path, compressed TIFF, PNG and BMP
 through the port's own readers (C for LZW, PackBits, the TIFF predictor
-and PNG filters; zlib for deflate). JPEG tiles are not read yet.
+and PNG filters; zlib for deflate), baseline JPEG through the port's own
+C codec (``io/jpeg.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import numpy as np
 from ..utils.colors import get_channel_color
 from .bmp import decode_bmp
 from .fast_tiff import read_tiff_fast
+from .jpeg import decode as decode_jpeg
 from .png import decode_png
 from .tiff import decode_tiff
 from .tile_decode import DecodeError
@@ -192,14 +194,18 @@ def read_image(filepath: str, prefer_mmap: bool = False,
     (``prefetch`` starts the kernel's readahead). Every other file, and a
     TIFF the fast path declines, is read whole and decoded by its
     signature, not its suffix: TIFF (``io/tiff.py``: LZW, deflate,
-    PackBits, predictor, strips or tiles), PNG (``io/png.py``) or BMP
-    (``io/bmp.py``); a compressed tile cannot be paged lazily, so
+    PackBits, predictor, strips or tiles), PNG (``io/png.py``), BMP
+    (``io/bmp.py``) or baseline JPEG (``io/jpeg.py``: the pixels of
+    ``cv2.imread``, libjpeg-turbo's arithmetic, EXIF orientation ignored
+    as ``IMREAD_UNCHANGED`` ignores it; progressive, arithmetic-coded,
+    12-bit, lossless and CMYK/Adobe streams raise
+    :class:`NotImplementedError` naming ROADMAP item 19 (remainder)); a
+    compressed tile cannot be paged lazily, so
     ``prefer_mmap`` and ``prefetch`` do not apply to it. Colour comes
     back in RGB order, and a 4-channel image drops its alpha, as the JAX
     package's BGR(A) -> RGB conversion of ``cv2.imread`` gives it.
 
-    JPEG raises :class:`NotImplementedError` (ROADMAP.md, item 19). A file
-    no decoder recognises raises :class:`ValueError` naming it: the JAX
+    A file no decoder recognises raises :class:`ValueError` naming it: the JAX
     package hands such files to imageio, which the card's host lacks."""
     img = None
     if filepath.endswith(('.tif', '.tiff')):
@@ -217,11 +223,9 @@ def read_image(filepath: str, prefer_mmap: bool = False,
 def _decode(data: bytes, filepath: str) -> np.ndarray:
     """A whole image file's pixels, by its signature."""
     head = data[:8]
-    if head.startswith(_JPEG_MAGIC):
-        raise NotImplementedError(
-            f"{filepath}: JPEG tiles are not ported to "
-            "image_stitcher_tpu_torch yet (ROADMAP.md, item 19, 'JPEG')")
     try:
+        if head.startswith(_JPEG_MAGIC):
+            return decode_jpeg(data)
         if head[:4] in _TIFF_MAGIC:
             return decode_tiff(data)
         if head == _PNG_MAGIC:
@@ -230,7 +234,7 @@ def _decode(data: bytes, filepath: str) -> np.ndarray:
             return decode_bmp(data)
     except DecodeError as e:
         raise DecodeError(f"{filepath}: {e}") from None
-    raise ValueError(f"{filepath}: not a TIFF, PNG or BMP image (the "
+    raise ValueError(f"{filepath}: not a TIFF, PNG, BMP or JPEG image (the "
                      "port reads no other tile format)")
 
 

@@ -54,26 +54,35 @@ blosclz (``blosclz_plain``), raw snappy (``snappy_plain``), zlib
 whoever wrote it; a compressor code 5-7 raises :class:`CodecError`
 naming it.
 
-The LZ4 matchers (the same in C and here; the format leaves them free, so
-these rules are what makes the two byte-equal):
-- positions p <= n - 12 may start a match (a block under 13 bytes is
-  all literals), which extends while the bytes agree, up to n - 5 (the
-  last 5 bytes are always literals); a candidate is taken when its 4
-  bytes equal p's and p - candidate <= 65535; no backward extension;
-- 'lz4': the 4 bytes at p, read as a little-endian u32 ``seq``, hash to
-  ``(seq * 2654435761 mod 2**32) >> 20``: a 4096-entry table holds the
-  last position seen with each hash, empty (-1) at each block start; the
-  table entry is read, then set to p; after a miss p advances by
-  ``search >> 6``, then ``search += 1``; ``search`` starts at ``accel <<
-  6`` and is reset after each match, with ``accel = max(1, 10 -
-  clevel)`` (c-blosc's LZ4 acceleration); after a match ending at e,
-  position e - 2 is entered in the table and the search goes on at e;
-- 'lz4hc': the hash is ``>> 17`` (32768 entries); each position also
-  records its distance to the previous position with its hash (0 when
-  none within 65535 bytes); before the search at p every position below
-  p is entered; the search walks at most ``2 ** (clevel - 1)``
-  candidates from the newest and keeps the longest match (the nearest of
-  equal length); p advances by one after a miss.
+The LZ4 matchers (the same in C and here, byte for byte):
+- 'lz4' is liblz4 1.9's ``LZ4_compress_fast``, as c-blosc calls it
+  (``accel = max(1, 10 - clevel)``, the output bounded by the stream's
+  length), so its streams are byte-equal to c-blosc's: for a stream of
+  at least 65547 bytes the 8-byte LE word v at a position hashes to
+  ``((v << 24) * 889523592379 mod 2**64) >> 52`` (4096 entries) and
+  candidates more than 65535 bytes back are skipped; a shorter stream
+  hashes its u32 to ``(u32 * 2654435761 mod 2**32) >> 19`` (8192
+  entries) with no distance check. The table starts all zero, position
+  0 is entered and the search starts at 1; each search takes the
+  candidate of p's hash, moves on by ``step`` (1, then ``n >> 6`` with
+  ``n`` counting up from ``accel << 6``), stops with the last literals
+  once the next position passes n - 11, and accepts equal 4 bytes; a
+  match is extended backwards, and forwards up to n - 5; after a match
+  ending at e (the end when e >= n - 11), e - 2 is entered and e looked
+  up and entered, a hit there giving a sequence with no literals. The
+  encoder gives up (the stream is stored) where liblz4's output bounds
+  say so (:func:`lz4_compress_block_plain`);
+- 'lz4hc' (rules of its own: its streams decode equal to c-blosc's but
+  are not byte-equal): positions p <= n - 12 may start a match, which
+  extends up to n - 5; a candidate is taken when its 4 bytes equal p's
+  and p - candidate <= 65535; no backward extension; the 4 bytes at p,
+  read as a little-endian u32, hash to ``(seq * 2654435761 mod 2**32)
+  >> 17`` (32768 entries); each position also records its distance to
+  the previous position with its hash (0 when none within 65535 bytes);
+  before the search at p every position below p is entered; the search
+  walks at most ``2 ** (clevel - 1)`` candidates from the newest and
+  keeps the longest match (the nearest of equal length); p advances by
+  one after a miss.
 Sequences are encoded as the LZ4 block format says (token nibbles,
 255-continued lengths, u16 LE offsets); the decoders read any valid LZ4
 block, including overlapping matches and the block-splitting choices of
@@ -433,34 +442,95 @@ def _emit(out: bytearray, src: bytes, anchor: int, litlen: int,
             _put_length(out, m)
 
 
-def lz4_compress_block_plain(src: bytes, clevel: int = 5) -> bytes:
-    """One LZ4 block of ``src``: the fast matcher of the module
-    docstring."""
+def _hashes8(src: bytes) -> list:
+    """liblz4's hash of the 8-byte little-endian word at every position
+    that has one (streams of at least 65547 bytes)."""
+    a = np.frombuffer(src, np.uint8)
+    w = np.zeros(len(src) - 7, np.uint64)
+    for k in range(8):
+        w |= a[k:len(src) - 7 + k].astype(np.uint64) << np.uint64(8 * k)
+    return (((w << np.uint64(24)) * np.uint64(889523592379))
+            >> np.uint64(52)).tolist()
+
+
+def lz4_compress_block_plain(src: bytes, clevel: int = 5,
+                             cap: Optional[int] = None) -> bytes:
+    """One LZ4 block of ``src``: liblz4's ``LZ4_compress_fast`` with the
+    output bounded by ``cap`` bytes (none by default), the fast matcher of
+    the module docstring; ``b''`` where liblz4 gives up on the bound."""
     n = len(src)
+    cap = 2 * n + 16 if cap is None else cap
     out = bytearray()
-    anchor = ip = 0
+    anchor = 0
     if n >= 13:
         a = np.frombuffer(src, np.uint8)
-        seq, hashes = _hashes(src, _HASH_LOG)
-        table = [-1] * (1 << _HASH_LOG)
-        mflimit, matchlimit = n - 12, n - 5
-        start = _accel(clevel) << 6
-        search = start
-        while ip <= mflimit:
-            h = hashes[ip]
-            ref = table[h]
-            table[h] = ip
-            if ref >= 0 and ip - ref <= 65535 and seq[ref] == seq[ip]:
-                length = 4 + _common(a, ip + 4, ref + 4, matchlimit)
-                _emit(out, src, anchor, ip - anchor, ip - ref, length)
-                ip += length
-                anchor = ip
-                table[hashes[ip - 2]] = ip - 2
-                search = start
-            else:
-                ip += search >> 6
+        big = n >= 65547
+        seq, hashes = _hashes(src, _HASH_LOG + 1)
+        if big:
+            hashes = _hashes8(src)
+        table = [0] * (1 << (_HASH_LOG + 1))
+        limit, matchlimit = n - 11, n - 5
+        table[hashes[0]] = 0
+        ip = 1
+        while True:
+            fwd, step, search = ip, 1, _accel(clevel) << 6
+            while True:
+                h, cur = hashes[fwd], fwd
+                match = table[h]
+                ip = fwd
+                fwd += step
+                step = search >> 6
                 search += 1
-    _emit(out, src, anchor, n - anchor, 0, 0)
+                if fwd > limit:
+                    break
+                table[h] = cur
+                if big and match + 65535 < cur:
+                    continue
+                if seq[match] == seq[ip]:
+                    break
+            if fwd > limit:
+                break
+            while ip > anchor and match > 0 and a[ip - 1] == a[match - 1]:
+                ip -= 1
+                match -= 1
+            litlen = ip - anchor
+            token = len(out)
+            out.append(min(litlen, 15) << 4)
+            if len(out) + litlen + 8 + litlen // 255 > cap:
+                return b''
+            if litlen >= 15:
+                _put_length(out, litlen)
+            out += src[anchor:ip]
+            while True:
+                out += struct.pack('<H', ip - match)
+                code = _common(a, ip + 4, match + 4, matchlimit)
+                ip += code + 4
+                if len(out) + 6 + (code + 240) // 255 > cap:
+                    return b''
+                out[token] += min(code, 15)
+                if code >= 15:
+                    _put_length(out, code)
+                anchor = ip
+                if ip >= limit:
+                    break
+                table[hashes[ip - 2]] = ip - 2
+                h = hashes[ip]
+                match = table[h]
+                table[h] = ip
+                if (big and match + 65535 < ip) or seq[match] != seq[ip]:
+                    break
+                token = len(out)
+                out.append(0)
+            if ip >= limit:
+                break
+            ip += 1
+    run = n - anchor
+    if len(out) + run + 1 + (run + 240) // 255 > cap:
+        return b''
+    out.append(min(run, 15) << 4)
+    if run >= 15:
+        _put_length(out, run)
+    out += src[anchor:]
     return bytes(out)
 
 
@@ -624,12 +694,11 @@ def _finish_plain(flags: int, typesize: int, block: bytes) -> bytes:
 
 
 def _assemble(src: bytes, blocks: bytes, typesize: int, clevel: int,
-              cname: str, flags: int, bs: int, split: bool,
-              encode: Optional[Callable] = None) -> bytes:
+              cname: str, flags: int, bs: int, split: bool) -> bytes:
     """The frame of ``src`` from its blocks as the codec sees them
-    (``blocks``: block j shuffled at j * bs) and the stream encoder
-    ``encode(stream, clevel)`` (the cname's plain one by default)."""
-    encode = encode or _stream_plain(cname)
+    (``blocks``: block j shuffled at j * bs), through the cname's plain
+    stream encoder."""
+    encode = _stream_plain(cname)
     nbytes = len(src)
     nblocks, leftover = (divmod(nbytes, bs) if bs > 0 else (0, 0))
     nblocks += bool(leftover)
@@ -653,8 +722,9 @@ def _assemble(src: bytes, blocks: bytes, typesize: int, clevel: int,
                 ok = False
                 break
             stream = block[s * neblock:(s + 1) * neblock]
-            c = encode(stream, clevel)
-            if len(c) > maxout or len(c) == neblock:
+            c = (lz4_compress_block_plain(stream, clevel, maxout)
+                 if cname == 'lz4' else encode(stream, clevel))
+            if not c or len(c) > maxout or len(c) == neblock:
                 if pos + neblock > maxbytes:
                     ok = False
                     break

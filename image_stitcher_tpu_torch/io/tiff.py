@@ -22,13 +22,16 @@ unassociated (ExtraSamples 2) comes back premultiplied,
 ``(v * alpha + 127) // 255``, as OpenCV reads it through libtiff's RGBA
 interface. Other layouts, sample types and codecs raise
 :class:`NotImplementedError` naming the ROADMAP item that will bring
-them (JPEG: item 19); a file that does not hold what its tags declare
-raises :class:`~image_stitcher_tpu_torch.io.tile_decode.DecodeError`.
+them (JPEG-in-TIFF: item 19, remainder); a file that does not hold what
+its tags declare raises
+:class:`~image_stitcher_tpu_torch.io.tile_decode.DecodeError`.
 LZW, PackBits and the predictor run in C (``io/tile_decode.py``),
 deflate through the stdlib's zlib.
 
 :func:`read_pages` reads back the port's own OME-TIFF output: every page
-of a tiled BigTIFF with its SubIFD pyramid levels.
+of a tiled BigTIFF with its SubIFD pyramid levels, raw, deflate or JPEG
+tiles (Compression 7, each tile a whole JFIF stream, decoded by the
+port's C codec, ``io/jpeg.py``).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from . import tile_decode
+from . import jpeg, tile_decode
 from .fast_tiff import _read_values
 from .tile_decode import DecodeError
 
@@ -51,6 +54,7 @@ _STRIP_OFFSETS, _SPP, _ROWS_PER_STRIP, _STRIP_COUNTS = 273, 277, 278, 279
 _PLANAR, _PREDICTOR = 284, 317
 _TILE_W, _TILE_H, _TILE_OFFSETS, _TILE_COUNTS = 322, 323, 324, 325
 _EXTRA_SAMPLES, _SAMPLE_FORMAT = 338, 339
+_YCBCR_SUBSAMPLING = 530
 _TAGS = (_WIDTH, _LENGTH, _BITS, _COMP, _PHOTO, _FILL, _STRIP_OFFSETS, _SPP,
          _ROWS_PER_STRIP, _STRIP_COUNTS, _PLANAR, _PREDICTOR, _TILE_W,
          _TILE_H, _TILE_OFFSETS, _TILE_COUNTS, _EXTRA_SAMPLES,
@@ -154,18 +158,33 @@ def _tiled_image(mv, tags: Dict[int, tuple], pool) -> np.ndarray:
     w, h = tags[_WIDTH][0], tags[_LENGTH][0]
     spp = tags.get(_SPP, (1,))[0]
     comp = tags[_COMP][0]
-    if comp not in (1,) + _DEFLATE:
-        raise _not_ported(f"compression {comp}", "item 19, 'JPEG'"
-                          if comp == 7 else "item 6, 'tile input without "
-                          "OpenCV'")
+    if comp not in (1, 7) + _DEFLATE:
+        raise _not_ported(f"compression {comp}")
     dtype = np.dtype(f'<u{tags[_BITS][0] // 8}')
     tw, tl = tags[_TILE_W][0], tags[_TILE_H][0]
     across = -(-w // tw)
     out = np.zeros((-(-h // tl) * tl, across * tw, spp), dtype)
     n = tl * tw * spp
-    segments = pool.map(
-        lambda oc: _segment(mv, comp, oc[0], oc[1], n * dtype.itemsize),
-        zip(tags[_TILE_OFFSETS], tags[_TILE_COUNTS]))
+    if comp == 7:
+        # the port's JPEG tiles: grey (Photometric 1) or 4:2:0 YCbCr
+        # (Photometric 6, YCbCrSubSampling 2 2), decoded to RGB
+        photo = tags.get(_PHOTO, (1,))[0]
+        if (dtype.itemsize, photo, spp) not in ((1, 1, 1), (1, 6, 3)) or (
+                spp == 3 and tags.get(_YCBCR_SUBSAMPLING) != (2, 2)):
+            raise _not_ported(f"JPEG tiles of photometric {photo}, {spp} "
+                              "samples", "item 19 (remainder), 'JPEG'")
+
+        def unpack(oc):
+            tile = jpeg.decode(mv[oc[0]:oc[0] + oc[1]])
+            if tile.shape[:2] != (tl, tw):
+                raise DecodeError(f"JPEG tile at {oc[0]} is {tile.shape}, "
+                                  f"not {tl}x{tw}")
+            return tile.tobytes()
+    else:
+        def unpack(oc):
+            return _segment(mv, comp, oc[0], oc[1], n * dtype.itemsize)
+    segments = pool.map(unpack, zip(tags[_TILE_OFFSETS],
+                                    tags[_TILE_COUNTS]))
     for i, seg in enumerate(segments):
         ty, tx = divmod(i, across)
         out[ty * tl:(ty + 1) * tl, tx * tw:(tx + 1) * tw] = np.frombuffer(
@@ -176,10 +195,11 @@ def _tiled_image(mv, tags: Dict[int, tuple], pool) -> np.ndarray:
 
 def read_pages(data):
     """Every page of a tiled little-endian BigTIFF, as the port's
-    ``io/tiffwriter.py`` writes them (deflate or raw tiles, one or three
-    samples): [(ImageDescription or None, [page, SubIFD level 1, ...]),
+    ``io/tiffwriter.py`` writes them (deflate, JPEG or raw tiles, one or
+    three samples): [(ImageDescription or None, [page, SubIFD level 1, ...]),
     ...] along the top-level IFD chain, the thumbnail page last. Tiles
-    inflate on a thread pool (zlib releases the interpreter lock)."""
+    decode on a thread pool (zlib and the JPEG codec release the
+    interpreter lock)."""
     mv = memoryview(data)
     if bytes(mv[:4]) != b'II+\x00':
         raise DecodeError("not a little-endian BigTIFF")
@@ -211,7 +231,8 @@ def decode_tiff(data) -> np.ndarray:
     comp = tag(_COMP, 1)
     bits = set(tags.get(_BITS, (1,)))
     if comp in (6, 7):
-        raise _not_ported("JPEG compression", "item 19, 'JPEG'")
+        raise _not_ported("JPEG compression",
+                          "item 19 (remainder), 'JPEG-in-TIFF tile input'")
     if comp not in _CODECS:
         raise _not_ported(f"compression {comp}")
     if len(bits) != 1 or next(iter(bits)) not in (8, 16):

@@ -2,19 +2,17 @@
 
 The port's copy of the JAX package's ``io/tiffwriter.py``, so both
 packages write the same bytes: BigTIFF (version 43, 8-byte offsets),
-256^2 tiled pages, Deflate (the stdlib's zlib) or raw tiles, OME-XML in
-ImageDescription, and reduced-resolution pyramid levels attached via
-SubIFDs (the layout the reference produced through tifffile's
-``subifds=`` API, stitcher_process.py:1344-1427).
+256^2 tiled pages, Deflate (the stdlib's zlib), JPEG (the port's C
+codec, ``io/jpeg.py``: the bytes of the JAX package's ``cv2.imencode``)
+or raw tiles, OME-XML in ImageDescription, and reduced-resolution
+pyramid levels attached via SubIFDs (the layout the reference produced
+through tifffile's ``subifds=`` API, stitcher_process.py:1344-1427).
 
 Layout: one top-level IFD per (C, Z) plane of level 0, chained; each
 carries SubIFDs pointing to its own pyramid levels (NewSubfileType=1).
 
-Two differences from the JAX writer: JPEG tiles (``compression='jpeg'``,
-encoded with ``cv2.imencode`` there) raise ``NotImplementedError`` for
-uint8 data where the JAX writer would encode them (ROADMAP item 19), and
-both writers have ``abort()``, which ends a failed write without writing
-its IFDs.
+One difference from the JAX writer: both writers have ``abort()``,
+which ends a failed write without writing its IFDs.
 """
 
 from __future__ import annotations
@@ -25,6 +23,8 @@ import zlib
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import jpeg
 
 # TIFF tag ids
 T_NEWSUBFILETYPE = 254
@@ -59,25 +59,30 @@ TILE_SIZE = 256
 
 
 def _encode_jpeg(block: np.ndarray, quality: int) -> bytes:
-    """One tile as a JFIF stream: 8-bit only, the limitation the
-    reference inherits from pyvips/libtiff (its production path hands
-    uint16 to ``tiffsave(compression='jpeg')``,
-    stitcher_process.py:1502-1549, which libvips rejects for >8-bit
-    data). The JAX package encodes uint8 tiles with ``cv2.imencode``;
-    the port has no JPEG encoder yet."""
+    """One tile as a complete JFIF stream (new-style TIFF/JPEG,
+    Compression=7: every tile carries its own tables, so no JPEGTables
+    tag is needed and tiles stay independently decodable), the bytes the
+    JAX package's ``cv2.imencode('.jpg')`` writes, through the port's C
+    codec (``io/jpeg.py``).
+
+    8-bit only — the same limitation the reference inherits from
+    pyvips/libtiff (its production path hands uint16 to
+    ``tiffsave(compression='jpeg')``, stitcher_process.py:1502-1549,
+    which libvips rejects for >8-bit data). RGB tiles are encoded
+    4:2:0 YCbCr, libvips' default for this path.
+    """
     if block.dtype != np.uint8:
         raise ValueError(
             f"jpeg compression supports uint8 only, got {block.dtype} "
             "(libtiff/pyvips limitation; convert or use 'deflate')")
-    from ..params import _not_ported
-    raise _not_ported("JPEG-compressed OME-TIFF tiles", "item 19, 'JPEG'")
+    return jpeg.encode(block, quality, (2, 2))
 
 
 def _encode_tile(block: np.ndarray, compression: str, level: int,
                  quality: int) -> bytes:
     """One padded tile block -> its on-disk bytes. Pure function of the
-    block, so independent tiles encode in parallel (zlib and cv2 both
-    release the GIL)."""
+    block, so independent tiles encode in parallel (zlib and the JPEG
+    codec both release the GIL)."""
     if compression == 'jpeg':
         return _encode_jpeg(block, quality)
     if compression == 'deflate':

@@ -4,9 +4,9 @@ The counterpart of the JAX package's ``native/`` loader, which builds
 ``hostops.c`` with the system C compiler: each ``csrc/<name>.cu`` has a
 plain C interface and is compiled at first use with ``nvcc`` into a
 shared library, then loaded with :mod:`ctypes`; each host source
-``csrc/<name>.c`` (the blosc codecs, the tile decoders, the host
-fuser's ``hostops.c``) is compiled the same way with the system C
-compiler (``$CC``, else ``cc``, ``gcc``,
+``csrc/<name>.c`` (the blosc codecs, the tile decoders, the JPEG
+codec, the host fuser's ``hostops.c``) is compiled the same way with the
+system C compiler (``$CC``, else ``cc``, ``gcc``,
 ``clang``). The library lands in ``build/torch_kernels/<hash>/`` at the root of the
 checkout, where the hash covers the source, the ``csrc/`` files it
 ``#include``s, and the compiler flags (and
@@ -16,7 +16,8 @@ loaded as it is.
 
 There is no fallback: a missing compiler or a failed build raises, and
 the caller (a wrapper about to launch on a CUDA tensor, a zarr writer
-asked for blosc chunks, a reader given a compressed tile) raises
+asked for blosc chunks, a reader given a compressed tile, a JPEG
+OME-TIFF writer) raises
 with it. Nothing here runs when a
 module is imported.
 """

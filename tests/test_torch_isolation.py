@@ -7,11 +7,13 @@ output in bands and in RAM from the host fuser (``io/tiffwriter.py``,
 ``io/ometiff.py``, ``ops/host_fuse.py`` and ``csrc/hostops.c``),
 acquisitions stored as PNG and as LZW-compressed TIFF (its own
 decoders), and a two-well, two-timepoint run stopped, resumed with both
-merges and its plate reopened with ``open_stitched``, and zstd and zlib
-chunks (bit-shuffled, zarr v3) written and read back, with jax, pandas,
+merges and its plate reopened with ``open_stitched``, zstd and zlib
+chunks (bit-shuffled, zarr v3) written and read back, and JPEG tiles read
+and JPEG OME-TIFF tiles written (its own codec), with jax, pandas,
 tensorstore, numcodecs, blosc, zstandard, OpenCV, PIL, imageio and the JAX
 package all unimportable, as on a CUDA host that has none of them. No C
-source includes a compression library's header or links one."""
+source includes a compression library's header (zlib, zstd, libjpeg) or
+links one."""
 
 import ast
 import os
@@ -21,6 +23,7 @@ import sys
 import textwrap
 
 import cv2
+import numpy as np
 
 from fixtures import write_synthetic_acquisition
 
@@ -175,6 +178,21 @@ CHILD = textwrap.dedent("""
     loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
     assert not loaded, loaded
     print('CODECS-OK')
+    # JPEG tiles (OpenCV's .jpg) read through the port's C codec, written
+    # as JPEG OME-TIFF tiles and read back
+    out = {out!r} + '_jpeg'
+    port.stitch({acq!r} + '_jpg', output_format='.ome.tiff',
+                use_registration=True, device=torch.device('cpu'),
+                options=port.EngineOptions(output_folder=out,
+                                           tiff_compression='jpeg'))
+    with open(out + '/0_stitched/A1_stitched.ome.tiff', 'rb') as f:
+        pages = read_pages(f.read())
+    assert pages[0][1][0].shape == (144, 112), pages[0][1][0].shape
+    assert pages[0][1][0].any()
+    assert 'image_stitcher_tpu_torch.io.jpeg' in sys.modules
+    loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+    assert not loaded, loaded
+    print('JPEG-OK', len(pages))
 """)
 
 
@@ -187,6 +205,8 @@ def test_port_runs_without_jax_pandas_tensorstore_cv2(tmp_path):
     write_synthetic_acquisition(acq + '_lzw', **kw)
     write_synthetic_acquisition(acq + '_plate', regions=['A1', 'B2'],
                                 timepoints=2, **kw)
+    write_synthetic_acquisition(acq + '_jpg', ext='jpg', dtype=np.uint8,
+                                **kw)
     tdir = os.path.join(acq + '_lzw', '0')
     for name in os.listdir(tdir):      # OpenCV's default: LZW, Predictor 2
         if name.endswith('.tiff'):
@@ -206,6 +226,7 @@ def test_port_runs_without_jax_pandas_tensorstore_cv2(tmp_path):
     assert "INPUT-OK lzw (0, -16) (-16, 0)" in proc.stdout
     assert "MERGE-OK 1 (2, 1, 1, 144, 112)" in proc.stdout
     assert "CODECS-OK" in proc.stdout
+    assert "JPEG-OK 2" in proc.stdout
 
 
 def test_package_sources_import_none_of_the_blocked_modules():
@@ -224,14 +245,16 @@ def test_package_sources_import_none_of_the_blocked_modules():
 
 def test_no_compression_library_is_included_or_linked():
     """The codecs are the repo's own C and the stdlib's zlib module: no
-    source in csrc/ includes zlib's or zstd's header, and the native
-    builder links neither library."""
+    source in csrc/ includes zlib's, zstd's or libjpeg's header, and the
+    native builder links none of those libraries."""
     import re
-    include = re.compile(r'#\s*include\s*[<"](zlib|zstd)\.h[>"]')
-    link = re.compile(r"(?<![\w-])-l(z|zstd)\b")
+    include = re.compile(r'#\s*include\s*[<"](zlib|zstd|jpeglib|turbojpeg)'
+                         r'\.h[>"]')
+    link = re.compile(r"(?<![\w-])-l(z|zstd|jpeg|turbojpeg)\b")
     texts = [p.read_text() for p in (PACKAGE / "csrc").iterdir()]
     texts.append((PACKAGE / "native" / "__init__.py").read_text())
     assert len(texts) > 5
     assert include.search('#include <zstd.h>') and link.search("'-lz'")
+    assert include.search('#include <jpeglib.h>') and link.search("-ljpeg")
     for text in texts:
         assert not include.search(text) and not link.search(text)

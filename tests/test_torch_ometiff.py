@@ -10,9 +10,10 @@ the same peak of buffered bytes, the same error for missing rows), and
 whole ``stitch(..., output_format='.ome.tiff')`` runs: in RAM and in
 bands, monochrome and RGB, deflate and raw, with flatfield and
 registration, overwrite byte-equal and feather within 1 LSB. JPEG tiles
-raise the JAX package's ``ValueError`` on uint16 and name ROADMAP item 19
-on uint8; a resumed run skips its completed units and leaves their files
-untouched. Both packages run in one interpreter, so their deflate bytes
+raise the JAX package's ``ValueError`` on uint16 and are byte-identical
+to the JAX package's (``cv2.imencode``) on uint8, grey and RGB, from the
+writers and from whole runs in RAM and in bands; a resumed run skips
+its completed units and leaves their files untouched. Both packages run in one interpreter, so their deflate bytes
 come from one zlib.
 """
 
@@ -265,6 +266,10 @@ def test_stitch_equals_jax(tmp_path, streaming, rgb, compression, blend):
 
 
 def test_jpeg_raises_as_jax_on_u16_and_names_item_19_on_u8(tmp_path):
+    """JPEG tiles: uint16 raises the JAX package's ``ValueError`` in both
+    writers; uint8 (the part that named item 19 before the port had a
+    JPEG codec) writes the JAX package's bytes, grey and RGB (4:2:0,
+    Photometric 6), and reads back through ``read_pages``."""
     rng = np.random.default_rng(5)
     u16 = pyramid(rng, (1, 1, 300, 300), np.uint16, 2)
     u8 = pyramid(rng, (3, 1, 300, 300), np.uint8, 2)
@@ -286,9 +291,21 @@ def test_jpeg_raises_as_jax_on_u16_and_names_item_19_on_u8(tmp_path):
     assert str(got.value) == str(want.value)
     before = set(threading.enumerate())
     for rgb in (False, True):
-        with pytest.raises(NotImplementedError, match="item 19"):
-            ptw.write_ome_tiff_pyramid(str(tmp_path / 'p3.tif'), u8,
-                                       rgb=rgb, **kw)
+        for quality in (40, 85):
+            jpath = str(tmp_path / f'j3_{rgb}_{quality}.tif')
+            ppath = str(tmp_path / f'p3_{rgb}_{quality}.tif')
+            jtw.write_ome_tiff_pyramid(jpath, u8, rgb=rgb,
+                                       jpeg_quality=quality, **kw)
+            ptw.write_ome_tiff_pyramid(ppath, u8, rgb=rgb,
+                                       jpeg_quality=quality, **kw)
+            assert read(ppath) == read(jpath)
+            pages = read_pages(read(ppath))
+            top = pages[0][1][0]
+            assert top.shape == ((300, 300, 3) if rgb else (300, 300))
+            want_top = (np.moveaxis(u8[0][:, 0], 0, -1) if rgb
+                        else u8[0][0, 0]).astype(np.float64)
+            mse = np.mean((top.astype(np.float64) - want_top) ** 2)
+            assert mse > 0      # lossy, but a picture of the input
     assert not [t for t in set(threading.enumerate()) - before
                 if t.name.startswith('tiff-encode')]
 
@@ -296,6 +313,11 @@ def test_jpeg_raises_as_jax_on_u16_and_names_item_19_on_u8(tmp_path):
 @pytest.mark.parametrize("streaming", ['off', 'on'], ids=['inram', 'band'])
 def test_jpeg_runs_fail_as_jax_on_u16_and_name_item_19_on_u8(tmp_path,
                                                             streaming):
+    """Whole ``tiff_compression='jpeg'`` runs, in RAM and in bands: a
+    uint16 acquisition fails with the JAX package's ``ValueError``; uint8
+    grey and RGB acquisitions (which named item 19 before the port had a
+    JPEG codec) write the JAX package's ``.ome.tiff`` files, byte for
+    byte."""
     mono = mono_acquisition(str(tmp_path / 'mono'))
     opts = dict(streaming=streaming, chunks=(1, 1, 1, 64, 64),
                 tiff_compression='jpeg')
@@ -309,11 +331,15 @@ def test_jpeg_runs_fail_as_jax_on_u16_and_name_item_19_on_u8(tmp_path,
                     options=port.EngineOptions(
                         output_folder=str(tmp_path / 'port'), **opts))
     assert str(got.value) == str(want.value)
-    rgb = write_rgb_acquisition(str(tmp_path / 'rgb'))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        port.stitch(rgb, output_format='.ome.tiff', device=CPU,
-                    options=port.EngineOptions(
-                        output_folder=str(tmp_path / 'port_rgb'), **opts))
+    for name, acq in (
+            ('u8', mono_acquisition(str(tmp_path / 'mono8'), np.uint8)),
+            ('rgb', write_rgb_acquisition(str(tmp_path / 'rgb')))):
+        jax_out, port_out = run_both(acq, tmp_path / name, **opts)
+        assert tiff_outputs(port_out) == ['0_stitched/A1_stitched.ome.tiff']
+        assert_tiff_outputs_equal(jax_out, port_out)
+        pages = read_pages(read(os.path.join(port_out,
+                                             tiff_outputs(port_out)[0])))
+        assert pages[0][1][0].ndim == (3 if name == 'rgb' else 2)
 
 
 def test_resume_skips_completed_tiff(tmp_path):

@@ -219,10 +219,21 @@ def test_dispatch_by_signature_not_suffix(tmp_path):
 
 
 def test_jpeg_raises_naming_item_19(tmp_path):
+    """JPEG tiles, which named item 19 before the port had a JPEG codec,
+    read as the JAX package reads them, by signature (the ``.tiff`` file
+    holds a JPEG); a progressive one still names item 19 (remainder)."""
     path = str(tmp_path / "A1_0_0_ch.jpg")
     assert cv2.imwrite(path, _samples(7, (16, 16), 8))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        read_image(path)
+    _assert_same(path)
+    rgb = str(tmp_path / "A1_0_0_rgb.tiff")
+    with open(rgb, 'wb') as f:
+        f.write(cv2.imencode('.jpg', _samples(8, (16, 24, 3), 8))[1])
+    assert _assert_same(rgb).shape == (16, 24, 3)
+    prog = str(tmp_path / "A1_0_0_prog.jpg")
+    assert cv2.imwrite(prog, _samples(9, (16, 16), 8),
+                       [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(NotImplementedError, match=r"item 19 \(remainder\)"):
+        read_image(prog)
 
 
 def test_unknown_file_raises_value_error_naming_it(tmp_path):

@@ -200,3 +200,73 @@ def test_corrupt_file_raises_value_error_naming_it(tmp_path):
     path = _write(tmp_path, bytes(data), "bad.tiff")
     with pytest.raises(ValueError, match="bad.tiff"):
         read_image(path)
+
+
+# ------------------------------------------------------------------ JPEG
+
+@pytest.mark.parametrize("writer,sampling", [
+    ('cv2', None), ('cv2', cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420),
+    ('cv2', cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422),
+    ('cv2', cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444),
+    ('cv2', cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440), ('pil', None),
+    ('pil', 2), ('pil', 1), ('pil', 0)],
+    ids=['cv2-grey', 'cv2-420', 'cv2-422', 'cv2-444', 'cv2-440',
+         'pil-grey', 'pil-420', 'pil-422', 'pil-444'])
+@pytest.mark.parametrize("suffix", ['jpg', 'jpeg'])
+def test_jpeg_tiles_read_as_jax(tmp_path, writer, sampling, suffix):
+    """``.jpg``/``.jpeg`` tiles (Squid's suffixes), written by OpenCV
+    (the JAX package's writer and reader) and by PIL: the port's
+    ``read_image`` equals the JAX package's."""
+    from PIL import Image
+    rng = np.random.default_rng(sampling or 0)
+    y, x = np.mgrid[:45, :67]
+    base = 120 + 70 * np.sin(x / 6.0) * np.cos(y / 9.0)
+    img = np.clip(base[..., None] + rng.normal(0, 15, (45, 67, 3)), 0,
+                  255).astype(np.uint8)
+    if sampling is None:
+        img = img[..., 0]
+    path = str(tmp_path / f"A1_0_0_ch.{suffix}")
+    if writer == 'cv2':
+        params = [cv2.IMWRITE_JPEG_QUALITY, 90]
+        if sampling is not None:
+            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling]
+        assert cv2.imwrite(path, img, params)
+    else:
+        kw = {} if sampling is None else dict(subsampling=sampling)
+        Image.fromarray(img).save(path, 'JPEG', quality=90, **kw)
+    got = _assert_same(path)
+    assert got.shape == img.shape
+
+
+@pytest.mark.parametrize("streaming", ['off', 'on'], ids=['inram', 'band'])
+def test_jpeg_acquisition_stitches_as_jax(tmp_path, streaming):
+    """A 3x3 acquisition of OpenCV ``.jpg`` tiles (uint8, quality 95, as
+    Squid's ``cv2.imwrite`` stores them), stitched with registration and
+    flatfield by both packages: the same shifts and the same OME-Zarr
+    trees (blosc-lz4 chunks byte for byte)."""
+    import torch
+    from fixtures import write_synthetic_acquisition
+    from torch_helpers import assert_outputs_equal
+    from image_stitcher_tpu import EngineOptions as JaxOptions
+    from image_stitcher_tpu import stitch as jax_stitch
+    import image_stitcher_tpu_torch as port
+    acq = str(tmp_path / "acq")
+    write_synthetic_acquisition(
+        acq, grid_cols=3, grid_rows=3, tile_w=72, tile_h=64, overlap=16,
+        seed=19, ext='jpg', dtype=np.uint8,
+        channels=["Fluorescence 488 nm Ex", "Fluorescence 561 nm Ex"],
+        acq_params_overrides={"pixel_binning": 2})
+    opts = dict(streaming=streaming, chunks=(1, 1, 1, 64, 64))
+    jpipe = jax_stitch(acq, use_registration=True, apply_flatfield=True,
+                       options=JaxOptions(fusion_device='device',
+                                          output_folder=str(tmp_path / "jax"),
+                                          **opts))
+    pipe = port.stitch(acq, use_registration=True, apply_flatfield=True,
+                       device=torch.device('cpu'),
+                       state=port.state_from_reference(
+                           flatfields=jpipe.flatfields),
+                       options=port.EngineOptions(
+                           output_folder=str(tmp_path / "port"), **opts))
+    assert pipe.shifts.h_shift == jpipe.shifts.h_shift
+    assert pipe.shifts.v_shift == jpipe.shifts.v_shift
+    assert_outputs_equal(str(tmp_path / "jax"), str(tmp_path / "port"))

@@ -14,7 +14,10 @@ dtype of u8/u16:
 - on a small array with odd chunks (block sizes under 32 KiB, a tail
   of elements not a multiple of 8 under bit shuffle): the same, and the
   plain decoder reads tensorstore's frames and the port's, and the C
-  frames are byte-equal to the plain version's.
+  frames are byte-equal to the plain version's;
+- for lz4 (liblz4's ``LZ4_compress_fast`` rules), each whole frame is
+  byte-equal to tensorstore's, and the C frame of a 256-row cut of the
+  plane (streams of liblz4's larger hash) to the plain version's.
 """
 
 import functools
@@ -118,6 +121,17 @@ def check(root, cname, clevel, shuffle, dtype):
             assert struct.unpack_from('<ii', frame, 4) == \
                 struct.unpack_from('<ii', ts_frame, 4), rel
             raw = _chunk(data, rel, chunks)
+            if cname == 'lz4':
+                # liblz4's own rules: whole frames byte-equal
+                assert frame == ts_frame, rel
+                if name == 'plane':
+                    # streams of at least 64 KiB + 11 (liblz4's larger
+                    # hash) through the plain version
+                    cut = np.frombuffer(raw, dtype)[:256 * TILE]
+                    assert blosc.compress_plain(
+                        cut, data.itemsize, clevel, shuffle, cname) == \
+                        blosc.compress(cut, data.itemsize, clevel, shuffle,
+                                       cname), rel
             assert blosc.decompress(ts_frame).tobytes() == raw, rel
             if name == 'small':
                 assert blosc.decompress_plain(ts_frame) == raw, rel

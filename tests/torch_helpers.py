@@ -92,11 +92,22 @@ def assert_tiff_outputs_equal(want_out, got_out, lsb=0):
                 assert diff.max(initial=0) <= lsb, rel
 
 
+def _lz4_v2(array_dir):
+    """Whether a zarr v2 array's chunks are blosc-lz4 frames."""
+    path = os.path.join(array_dir, '.zarray')
+    if not os.path.exists(path):
+        return False
+    with open(path) as f:
+        comp = json.load(f).get('compressor') or {}
+    return comp.get('id') == 'blosc' and comp.get('cname') == 'lz4'
+
+
 def assert_trees_equal(want_root, got_root):
     """Two OME-Zarr groups (JAX package's, port's) hold the same files,
     the same parsed JSON metadata, and arrays that decode equal with
     either package's reader (tensorstore and the port's
-    ``read_array``)."""
+    ``read_array``); zarr v2 blosc-lz4 arrays hold byte-equal chunk
+    files (the port's lz4 follows liblz4's rules)."""
     from image_stitcher_tpu.io.zarr_store import open_zarr_array
     from image_stitcher_tpu_torch.io.zarr_store import read_array
     files = tree_files(want_root)
@@ -110,6 +121,13 @@ def assert_trees_equal(want_root, got_root):
     arrays = array_dirs(want_root)
     assert arrays and array_dirs(got_root) == arrays
     for rel in arrays:
+        if _lz4_v2(os.path.join(want_root, rel)):
+            for name in tree_files(os.path.join(want_root, rel)):
+                if name in JSON_FILES:
+                    continue
+                with open(os.path.join(want_root, rel, name), 'rb') as f, \
+                        open(os.path.join(got_root, rel, name), 'rb') as g:
+                    assert g.read() == f.read(), (rel, name)
         want = np.asarray(open_zarr_array(os.path.join(want_root, rel))
                           .read().result())
         for decoded in (
