@@ -95,10 +95,14 @@ Phases, each fatal on failure:
      seconds, the file's bytes and deflate ratio and the writer's
      ``peak_buffer_bytes``; (c) the same grid with
      ``fusion_device='host'`` (the host band fuser through
-     ``csrc/hostops.c``, the fit gated per channel): its raw tree
-     byte-equal to the device path's, with e2e and when the first band
-     started against the end of the fit; then the same run into the
-     default blosc-lz4 chunks, decoded equal to the device path's tree;
+     ``csrc/hostops.c``, the fit gated per channel; raw level-0 chunks
+     written as chunk-column blocks from the band threads, bands the
+     tiles cover left unfilled): its raw tree byte-equal to the device
+     path's, with e2e, when the first band started against the end of
+     the fit, the blocks written, the fills skipped and the stage sums
+     over the threads, wall and on-core; then the same run into the
+     default blosc-lz4 chunks (rows, no blocks), decoded equal to the
+     device path's tree;
  12. (run right after phase 8, on its acquisitions and raw trees) the
      other blosc codecs (zstd, zlib, lz4hc, blosclz, snappy): (a) each
      codec's C encoder and decoder against its plain version on phase 8's
@@ -129,7 +133,18 @@ Phases, each fatal on failure:
      (RGB pages 4:2:0, Photometric 6) on the card and on the CPU,
      byte-equal files; (c)'s acquisition as JPEG q85 ``.ome.tiff``,
      timed, every page and SubIFD level within PSNR 30 dB of (c)'s zarr
-     levels.
+     levels;
+ 14. (run right after phase 11, on 11a's mono 3x3 acquisition) the
+     editions and front ends on the card: (a) the child-process edition
+     (``models/editions.StitcherProcess``) on its default device, the
+     spawned child fusing on the card, its queue messages (progress to
+     the total, 'Stitching...', 'Saving...', one 'complete') and its tree
+     byte-equal to an in-process card ``stitch()``, with both e2e; (b)
+     ``python -m image_stitcher_tpu_torch.process_cli`` and ``.zarr_cli``
+     with default flags as subprocesses, exit 0, trees byte-equal to
+     (a)'s; (c) ``python -m image_stitcher_tpu_torch.tools.doctor``, exit
+     0, its Device section naming this card and its power limit, with the
+     pinned H2D and D2H rates.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -176,7 +191,8 @@ HOST_LIBRARIES = ['blosc', 'tile_decode', 'hostops', 'jpeg']
 TILE = 2048
 #: modules the card's host lacks; the port must load none of them
 BANNED = ('jax', 'jaxlib', 'pandas', 'tensorstore', 'numcodecs', 'blosc',
-          'zstandard', 'cv2', 'PIL', 'imageio', 'image_stitcher_tpu')
+          'zstandard', 'cv2', 'PIL', 'imageio', 'image_stitcher_tpu',
+          'PyQt5', 'napari')
 BLEND = 64
 
 
@@ -2333,6 +2349,19 @@ def files_equal_but_zero_chunks(a_root: str, b_root: str, what: str,
     return total, len(only)
 
 
+HOST_STAGES = ('gate', 'fill', 'decode', 'place', 'finalize', 'pyramid',
+               'write', 'close')
+
+
+def host_stage_sums(stats: dict) -> str:
+    """The host fuser's stage sums over its threads: wall seconds, then
+    on-core seconds (``time.thread_time``)."""
+    return ("summed wall: " + " ".join(f"{k}={stats[k]:.3f}s"
+                                       for k in HOST_STAGES)
+            + "; summed on-core: " + " ".join(
+                f"{k}={stats['cpu'].get(k, 0.0):.3f}s" for k in HOST_STAGES))
+
+
 def phase_ome_tiff(work: str, card: str, grid: int = 10,
                    tile: int = TILE, device: str = 'cuda') -> dict:
     """11: OME-TIFF output and the host fuser. (a) 3x3 grids stitched to
@@ -2343,8 +2372,12 @@ def phase_ome_tiff(work: str, card: str, grid: int = 10,
     acquisition; e2e, the writer's seconds, the file's bytes and
     ``peak_buffer_bytes``. (c) The same grid through
     ``fusion_device='host'`` (the host band fuser, ``csrc/hostops.c``,
-    the gated fit): its raw tree byte-equal to the device path's, and its
-    lz4 tree decoded equal to it."""
+    the gated fit; raw chunks as chunk-column blocks written from the
+    band threads, covered bands unfilled): its raw tree byte-equal to the
+    device path's, and its lz4 tree decoded equal to it; the blocks
+    written, the fills skipped and the stage sums, wall and on-core.
+    Returns (b)'s numbers and (a)'s mono 3x3 acquisition, kept for phase
+    14."""
     from image_stitcher_tpu_torch import CarriedState, stitch
     from image_stitcher_tpu_torch.io.tiff import read_pages
     from image_stitcher_tpu_torch.io.zarr_store import read_array
@@ -2416,8 +2449,8 @@ def phase_ome_tiff(work: str, card: str, grid: int = 10,
             + (f"; peak_buffer_bytes {peak}" if peak is not None else ""))
         for out in outs.values():
             shutil.rmtree(out)
-    for acq in acqs.values():
-        shutil.rmtree(acq)
+    # phase 14 drives the editions and front ends on the mono grid
+    shutil.rmtree(acqs[True])
 
     # 11b: the main path as deflate OME-TIFF, against its zarr twin
     acq = os.path.join(work, 'tiff_main')
@@ -2522,6 +2555,16 @@ def phase_ome_tiff(work: str, card: str, grid: int = 10,
                          f"{stats['bands']} host bands")
     nbytes, zero_chunks = files_equal_but_zero_chunks(
         twin, host_out, "ome-tiff (11c, host vs device)", skip=skip)
+    # every band's every level-0 chunk column taken whole by the raw
+    # writer: a refused block goes out as rows and would be counted apart
+    if (not stats['block_cols'] or stats['block_refusals']
+            or stats['blocks'] != stats['bands'] * stats['block_cols']
+            or not stats['fill_skips']):
+        raise SystemExit(f"ome-tiff (11c): the raw host run wrote "
+                         f"{stats['blocks']} level-0 blocks for "
+                         f"{stats['bands']} bands x {stats['block_cols']} "
+                         f"chunk columns, {stats['block_refusals']} refused, "
+                         f"and skipped {stats['fill_skips']} fills")
     t = pipe.timers.as_dict()
     log(f"ome-tiff (11c) on {card}: fusion_device='host' e2e "
         f"{e2e_host:.3f}s = {n_tiles / e2e_host:.2f} tiles/s; fit="
@@ -2530,9 +2573,12 @@ def phase_ome_tiff(work: str, card: str, grid: int = 10,
         f"{t.get('stream_fuse_save', 0):.3f}s; the first band started at "
         f"{first_band:.3f}s, the fit ended at {fit_done:.3f}s (the gate: "
         f"{fit_done - first_band:.3f}s of overlap); {stats['bands']} bands on "
-        f"{opts.resolved_fusion_threads()} threads, summed: " + " ".join(
-            f"{k}={stats[k]:.3f}s" for k in ('gate', 'decode', 'place',
-                                             'finalize', 'write', 'close'))
+        f"{opts.resolved_fusion_threads()} threads; {stats['blocks']} "
+        f"level-0 chunk-column blocks ({stats['bands']} bands x "
+        f"{stats['block_cols']} chunk columns) taken whole by the raw "
+        f"writer from the band threads, {stats['block_refusals']} refused; "
+        f"{stats['fill_skips']} of {stats['bands']} bands skipped their "
+        f"fill; " + host_stage_sums(stats)
         + f"; its raw tree byte-equal to the device path's ({nbytes} bytes; "
         f"{zero_chunks} all-zero chunks of bands with no tile written by "
         f"the device path only, as the JAX package's two fusers do)")
@@ -2552,10 +2598,16 @@ def phase_ome_tiff(work: str, card: str, grid: int = 10,
             raise SystemExit(f"ome-tiff (11c, host lz4): level {lv} differs "
                              f"from the device path's raw tree")
     stats = pipe.fuse_stats['A1_t0']
+    if (stats['blocks'] or stats['block_refusals'] or stats['block_cols']
+            or not stats['fill_skips']):
+        raise SystemExit(f"ome-tiff (11c, host lz4): {stats['blocks']} "
+                         f"blocks, {stats['block_refusals']} refused (lz4 "
+                         f"takes rows), {stats['fill_skips']} fills skipped")
     log(f"ome-tiff (11c) on {card}: fusion_device='host' into blosc-lz4 "
         f"e2e {e2e_lz4:.3f}s = {n_tiles / e2e_lz4:.2f} tiles/s; "
-        f"{stats['bands']} bands, summed write={stats['write']:.3f}s "
-        f"close={stats['close']:.3f}s; {pipe.num_pyramid_levels} levels "
+        f"{stats['bands']} bands (rows: lz4 takes no blocks), "
+        f"{stats['fill_skips']} skipped their fill; "
+        + host_stage_sums(stats) + f"; {pipe.num_pyramid_levels} levels "
         f"decode equal to the device path's raw tree")
     shutil.rmtree(lz4_out)
     shutil.rmtree(twin)
@@ -2564,7 +2616,7 @@ def phase_ome_tiff(work: str, card: str, grid: int = 10,
     if banned:
         raise SystemExit(f"ome-tiff: loaded {banned}")
     return dict(tiff, host_e2e_s=e2e_host, gate_overlap_s=fit_done - first_band,
-                host_lz4_e2e_s=e2e_lz4)
+                host_lz4_e2e_s=e2e_lz4, grid_3x3=acqs[False])
 
 
 # -------------------------------------------------------------------- 12
@@ -3155,6 +3207,160 @@ def phase_jpeg(work: str, card: str, png_rates=None, grid: int = 10,
             'seconds': seconds}
 
 
+# -------------------------------------------------------------------- 14
+
+def _drain_child(proc, timeout: float = 300.0):
+    """Every message of a child edition's three queues until it exits
+    and they stay empty: ({queue: [messages]}, exit code)."""
+    import queue as queue_mod
+    msgs = {'progress': [], 'status': [], 'complete': []}
+    queues = {'progress': proc.progress_queue, 'status': proc.status_queue,
+              'complete': proc.complete_queue}
+    deadline = time.time() + timeout
+    quiet = 0
+    while quiet < 5:
+        if time.time() > deadline:
+            proc.terminate()
+            raise SystemExit("editions (14a): the child did not finish")
+        got = False
+        for name, q in queues.items():
+            try:
+                while True:
+                    msgs[name].append(q.get(timeout=0.05))
+                    got = True
+            except queue_mod.Empty:
+                pass
+        quiet = 0 if got or proc.is_alive() else quiet + 1
+    proc.join()
+    return msgs, proc.exitcode
+
+
+def _cli_output(acq: str, label: str) -> str:
+    """The one run folder a CLI wrote beside ``acq``, renamed to
+    ``{acq}_{label}`` so the next CLI's timestamped folder cannot meet
+    it."""
+    parent = os.path.dirname(acq)
+    outs = [d for d in os.listdir(parent)
+            if d.startswith(os.path.basename(acq) + '_stitched_')]
+    if len(outs) != 1:
+        raise SystemExit(f"editions (14b, {label}): run folders {outs}")
+    dst = f"{acq}_{label}"
+    os.rename(os.path.join(parent, outs[0]), dst)
+    return dst
+
+
+def phase_editions(work: str, card: str, acq: str) -> dict:
+    """14: the editions, their CLIs and the doctor on the card, on phase
+    11a's mono 3x3 acquisition. (a) ``StitcherProcess`` on its default
+    device: the spawned child fuses on the card and speaks the queue
+    protocol (progress up to its total, 'Stitching...', 'Saving...', one
+    'complete'); its tree byte-equal to an in-process card ``stitch()`` of
+    the same folder and options, which launches ``fuse_overwrite``. (b)
+    ``python -m image_stitcher_tpu_torch.process_cli`` and ``.zarr_cli``
+    with default flags, as subprocesses: exit 0, trees byte-equal to (a).
+    (c) ``python -m image_stitcher_tpu_torch.tools.doctor``: exit 0, its
+    Device section names this card and its power limit and gives the
+    pinned link rates."""
+    import re
+    from image_stitcher_tpu_torch import (EngineOptions, StitchingParameters,
+                                          stitch)
+    from image_stitcher_tpu_torch.models.editions import StitcherProcess
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    skip = ('.stitch_manifest.json', 'flatfields.npz')
+    t0 = time.perf_counter()
+    inproc = os.path.join(work, 'editions_inproc')
+    cuda_fuse.fuse_overwrite.launches = 0
+    stitch(acq, device=torch.device('cuda'),
+           options=EngineOptions(output_folder=inproc))
+    e2e_inproc = time.perf_counter() - t0
+    launches = cuda_fuse.fuse_overwrite.launches
+    if not launches:
+        raise SystemExit("editions (14a): the in-process card run launched "
+                         "no fuse_overwrite")
+    # (a) the child-process edition, default device: the card
+    child_out = os.path.join(work, 'editions_child')
+    proc = StitcherProcess(StitchingParameters(input_folder=acq),
+                           options=EngineOptions(output_folder=child_out))
+    if proc.device != 'cuda':
+        raise SystemExit(f"editions (14a): default device {proc.device}")
+    t0 = time.perf_counter()
+    proc.start()
+    msgs, code = _drain_child(proc)
+    e2e_child = time.perf_counter() - t0
+    errors = [m for m in msgs['status'] if m[0] == 'error']
+    statuses = [m[1][0] for m in msgs['status'] if m[0] == 'status']
+    progress = [m[1] for m in msgs['progress']]
+    complete = msgs['complete']
+    if code != 0 or errors:
+        raise SystemExit(f"editions (14a): child exit {code}, {errors}")
+    want_order = ['Stitching...', 'Saving...']
+    if ([s for s in statuses if s in want_order] != want_order
+            or not progress or progress[-1][0] != progress[-1][1]
+            or len(complete) != 1 or complete[0][1][1] != 'uint16'):
+        raise SystemExit(f"editions (14a): protocol {progress[-3:]} "
+                         f"{statuses} {complete}")
+    nbytes = files_equal(inproc, child_out, "editions (14a, child vs "
+                         "in-process)", skip=skip)
+    log(f"editions (14a) on {card}: StitcherProcess on its default device "
+        f"(cuda, spawned child) e2e {e2e_child:.3f}s from start() to exit "
+        f"(spawn, imports and CUDA start-up included) against the "
+        f"in-process card stitch() {e2e_inproc:.3f}s ({launches} "
+        f"fuse_overwrite launches); {len(progress)} progress messages up "
+        f"to {progress[-1]}, statuses {[s for s in statuses if s in want_order]}"
+        f", complete {os.path.relpath(complete[0][1][0], child_out)}; "
+        f"trees byte-equal ({nbytes} bytes)")
+    # (b) the CLIs as a user runs them, default flags
+    env = dict(os.environ)
+    env['PYTHONPATH'] = os.pathsep.join(
+        p for p in (os.path.dirname(os.path.abspath(__file__)),
+                    env.get('PYTHONPATH')) if p)
+    cli_s = {}
+    for module in ('process_cli', 'zarr_cli'):
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, '-m', f'image_stitcher_tpu_torch.{module}',
+             '-i', acq], capture_output=True, text=True, timeout=300,
+            env=env)
+        cli_s[module] = time.perf_counter() - t0
+        if run.returncode != 0 or 'Complete:' not in run.stdout:
+            raise SystemExit(f"editions (14b, {module}): exit "
+                             f"{run.returncode}\n{run.stdout[-2000:]}\n"
+                             f"{run.stderr[-2000:]}")
+        out = _cli_output(acq, module)
+        nbytes = files_equal(child_out, out, f"editions (14b, {module})",
+                             skip=skip)
+        log(f"editions (14b) on {card}: python -m "
+            f"image_stitcher_tpu_torch.{module} -i <3x3>: exit 0 in "
+            f"{cli_s[module]:.3f}s (process start-up included), tree "
+            f"byte-equal to (a)'s ({nbytes} bytes)")
+        shutil.rmtree(out)
+    # (c) the doctor
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, '-m', 'image_stitcher_tpu_torch.tools.doctor',
+         '--output-dir', work], capture_output=True, text=True, timeout=300,
+        env=env)
+    doctor_s = time.perf_counter() - t0
+    device = run.stdout.split('[Placement]')[0]
+    rates = re.search(r'H2D ([0-9.]+) GB/s, D2H ([0-9.]+) GB/s', device)
+    if (run.returncode != 0 or card not in device or rates is None
+            or 'FAILED' in device):
+        raise SystemExit(f"editions (14c, doctor): exit {run.returncode}\n"
+                         f"{run.stdout[-3000:]}\n{run.stderr[-2000:]}")
+    for line in run.stdout.splitlines():
+        log(f"editions (14c) doctor | {line}")
+    h2d, d2h = float(rates.group(1)), float(rates.group(2))
+    log(f"editions (14c) on {card}: the doctor exit 0 in {doctor_s:.3f}s; "
+        f"pinned H2D {h2d} GB/s, D2H {d2h} GB/s (256 MB, CUDA events)")
+    for out in (inproc, child_out):
+        shutil.rmtree(out)
+    banned = [m for m in BANNED if m in sys.modules]
+    if banned:
+        raise SystemExit(f"editions: loaded {banned}")
+    return {'child_e2e_s': e2e_child, 'inproc_e2e_s': e2e_inproc,
+            'h2d_gbps': h2d, 'd2h_gbps': d2h}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -3187,7 +3393,8 @@ def main() -> int:
         phase_merges(work, card)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        phase_ome_tiff(work, card)
+        ome_tiff = phase_ome_tiff(work, card)
+        phase_editions(work, card, ome_tiff['grid_3x3'])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches = {'fuse_overwrite': main_run['launches'],

@@ -10,12 +10,12 @@ Usage:
         [--registration-report] [--continue-on-error] [-mt] [-mw]
         [--resume] [--device cpu]
 
-Flags for options the port does not run yet (``-f .ome.tiff``,
-``--fusion-device host``) are accepted and passed on; the run then stops
-with ``NotImplementedError`` naming the ROADMAP item that will bring the
-option. ``--tiff-compression`` and
+Every flag runs: ``-f .ome.tiff`` writes pyramidal OME-TIFF, and
+``--fusion-device host`` fuses on the CPU's threads through the host C
+loops (``auto`` stays on the device). ``--tiff-compression`` and
 ``--tiff-jpeg-quality`` are checked as the JAX CLI checks them and act
-only on OME-TIFF output.
+only on OME-TIFF output. The child-process edition of this CLI is
+``process_cli.py``; the reduced worker-tuned one ``zarr_cli.py``.
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--fusion-device', choices=['auto', 'device', 'host'],
                         default='auto',
                         help="Where fusion runs (default: auto = the "
-                             "device; 'host' is not ported yet)")
+                             "device; 'host' = the CPU's threads)")
     parser.add_argument('--zarr-format', type=int, choices=[2, 3], default=2,
                         help="2 = zarr v2 + OME-NGFF 0.4 (reference-"
                              "compatible); 3 = zarr v3 sharded + NGFF 0.5 "

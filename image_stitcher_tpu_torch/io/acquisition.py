@@ -239,36 +239,31 @@ def _decode(data: bytes, filepath: str) -> np.ndarray:
 
 
 def _num(cell: str) -> float:
-    """A numeric csv cell as pandas reads it: blank -> NaN."""
-    return float(cell) if cell.strip() else math.nan
+    """A numeric csv cell as pandas reads it: an NA string (blank
+    included) -> NaN, else pandas' C parser's double
+    (``utils/csvtable.pandas_float``)."""
+    from ..utils.csvtable import NA_VALUES, pandas_float
+    return math.nan if cell.strip() == '' or cell in NA_VALUES \
+        else pandas_float(cell)
 
 
 def _region_names(cells: Sequence[str]) -> List[Optional[str]]:
     """Region cells as the strings the JAX scan compares against file
-    names. pandas types the column: all-integer cells become int64
-    ('05' -> '5'), numeric cells with a blank become float64 (integral
-    values render as ints), anything else stays text; a blank is NaN and
-    its rows are skipped (None here)."""
-    filled = [c for c in cells if c.strip()]
-    for cast in (int, float):
-        try:
-            vals = [cast(c) for c in filled]
-        except ValueError:
-            continue
-        if cast is int and len(filled) < len(cells):
-            cast = float  # a blank turns an int column to float64
-        out: List[Optional[str]] = []
-        for c in cells:
-            if not c.strip():
-                out.append(None)
-                continue
-            v = cast(c)
-            if isinstance(v, float) and v.is_integer():
-                v = int(v)
+    names. pandas types the column (``utils/csvtable.typed_column``):
+    all-integer cells become int64 ('05' -> '5'), numeric cells with a
+    blank become float64 (integral values render as ints), anything else
+    stays text; a blank is NaN and its rows are skipped (None here)."""
+    from ..utils.csvtable import is_missing, typed_column
+    _, values = typed_column(cells)
+    out: List[Optional[str]] = []
+    for v in values:
+        if is_missing(v):
+            out.append(None)
+        elif isinstance(v, float) and v.is_integer():
+            out.append(str(int(v)))
+        else:
             out.append(str(v))
-        del vals
-        return out
-    return [c if c != '' else None for c in cells]
+    return out
 
 
 def _read_coordinates(path: str) -> Dict[Tuple[str, int, int], Dict]:

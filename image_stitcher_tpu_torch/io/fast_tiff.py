@@ -170,3 +170,30 @@ def read_tiff_fast(path: str,
         return arr
     except Exception:
         return None
+
+
+def write_tiff_fast(path: str, img: np.ndarray) -> None:
+    """Write a mono uint8/uint16 plane as the tiles this reader takes: a
+    classic little-endian TIFF of one uncompressed strip, the pixels
+    after the header (a raw camera tile, as Squid saves it)."""
+    img = np.ascontiguousarray(img)
+    if img.ndim != 2 or img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"a mono uint8/uint16 plane, got {img.shape} "
+                         f"{img.dtype}")
+    h, w = img.shape
+    data_off = 160
+    entries = [(_WIDTH, 4, w), (_LENGTH, 4, h),
+               (_BITS, 3, img.dtype.itemsize * 8), (_COMP, 3, 1),
+               (_PHOTO, 3, 1), (_STRIP_OFFSETS, 4, data_off), (_SPP, 3, 1),
+               (_ROWS_PER_STRIP, 4, h), (_STRIP_COUNTS, 4, img.nbytes),
+               (_PLANAR, 3, 1), (_SAMPLE_FORMAT, 3, 1)]
+    head = bytearray(b'II' + struct.pack('<HI', 42, 8))
+    head += struct.pack('<H', len(entries))
+    for tag, typ, val in entries:
+        payload = (struct.pack('<HH', val, 0) if typ == 3
+                   else struct.pack('<I', val))
+        head += struct.pack('<HHI', tag, typ, 1) + payload
+    head += struct.pack('<I', 0)
+    with open(path, 'wb') as f:
+        f.write(bytes(head.ljust(data_off, b'\0')))
+        img.astype(img.dtype.newbyteorder('<'), copy=False).tofile(f)

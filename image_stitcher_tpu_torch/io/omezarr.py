@@ -5,8 +5,10 @@ The counterpart of the JAX package's ``io/omezarr.py``: the same
 the same level shapes, and level arrays with the same chunk grid, raw or
 blosc of any codec (``io/zarr_store.py``, ``io/zarr_shard.py``). Raw
 chunks are written synchronously from the caller's thread, bytes equal
-to the JAX package's raw writer's; compressed chunks are encoded and
-written on a pool of threads while the caller goes on.
+to the JAX package's raw writer's, by plane rows or, for a band fuser
+laid out in chunk columns, by whole chunk-column blocks
+(``block_spec``, ``write_level_block``); compressed chunks are encoded
+and written on a pool of threads while the caller goes on.
 """
 
 from __future__ import annotations
@@ -233,6 +235,36 @@ class MultiscaleWriter:
             self.arrays[level].write_plane_rows(t0 + t, c0 + c, z0 + z, y0,
                                                 data[t, c, z])
         return True
+
+    def block_spec(self, level: int = 0) -> Optional[Tuple[int, int]]:
+        """(chunk_rows, chunk_cols) when ``level`` takes chunk-column
+        block writes (raw chunks, v2 or v3), else None: a band fuser that
+        lays its band out as chunk-column blocks then writes each chunk
+        file with one contiguous write (:meth:`write_level_block`)."""
+        spec = getattr(self.arrays[level], 'block_spec', None)
+        return spec() if spec is not None else None
+
+    def write_level_block(self, level: int, c: int, z: int, y0: int,
+                          cxi: int, block: np.ndarray) -> bool:
+        """Write one chunk-column block of plane (0, c, z): ``block`` is
+        (rows, chunk_cols), canvas rows [y0, y0+rows) of chunk column
+        ``cxi``, its columns past the level's width zero (see
+        ``RawZarrArray.try_write_block``). A block the raw writer refuses
+        is written by its in-canvas columns through the level's
+        ``write_plane_rows``. Returns True when the raw writer took the
+        block whole, False when it went out as rows; either way the
+        write is done and the caller may reuse ``block``. A level
+        without block writes raises."""
+        arr = self.arrays[level]
+        if getattr(arr, 'try_write_block', None) is None:
+            raise ValueError(f"level {level} of {self.path} "
+                             f"({type(arr).__name__}) takes no block writes")
+        if arr.try_write_block(0, c, z, y0, cxi, block):
+            return True
+        x0 = cxi * block.shape[1]
+        x1 = min(x0 + block.shape[1], self.shapes[level][4])
+        arr.write_plane_rows(0, c, z, y0, block[:, :x1 - x0], x0=x0)
+        return False
 
     def close(self) -> None:
         """Encode what is buffered and wait for every chunk write; raises

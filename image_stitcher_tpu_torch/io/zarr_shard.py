@@ -35,9 +35,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from . import blosc
-from .zarr_store import (ChunkRowBuffer, EncodePool, _RawWriter,
-                         _fresh_array_dir, _write_file, _write_json_atomic,
-                         clamp_chunks)
+from .zarr_store import (ChunkRowBuffer, EncodePool, _pwrite_all,
+                         _RawWriter, _fresh_array_dir, _write_file,
+                         _write_json_atomic, clamp_chunks)
 
 MISSING = 0xFFFFFFFFFFFFFFFF
 _CRC32C_TABLE: Optional[List[int]] = None
@@ -153,15 +153,18 @@ class _ShardGrid:
 
 class RawShardArray(_ShardGrid, _RawWriter):
     """A raw (inner codecs ``bytes``) sharded zarr v3 array, written by
-    plane slabs straight into its shard files."""
+    plane slabs or chunk-column blocks straight into its shard files."""
 
     def __init__(self, path: str, shape: Sequence[int],
                  chunks: Sequence[int], dtype, shard_multiple: int = 16,
                  direct_io: str = 'auto'):
-        self._init_grid(path, shape, chunks, dtype, shard_multiple, None)
+        self.path = path
+        self.dtype = np.dtype(dtype)
+        chunks = clamp_chunks(chunks, shape)
         # body offsets are ordinal * chunk_nbytes + k * pitch
-        self._init_direct(direct_io, self.chunks[4] * self.dtype.itemsize,
-                          self.chunk_nbytes)
+        self._init_rows(direct_io, chunks[4] * self.dtype.itemsize,
+                        chunks[3] * chunks[4] * self.dtype.itemsize)
+        self._init_grid(path, shape, chunks, dtype, shard_multiple, None)
 
     def _ensure_shard(self, fd: int, present: int) -> None:
         """Size a new shard and write its index: ``present`` bodies, the
@@ -174,51 +177,84 @@ class RawShardArray(_ShardGrid, _RawWriter):
         idx = index_bytes([(k * self.chunk_nbytes, self.chunk_nbytes)
                            if k < present else (MISSING, MISSING)
                            for k in range(self.per_shard)])
-        done = 0
-        while done < len(idx):
-            done += os.pwrite(fd, idx[done:], index_offset + done)
+        _pwrite_all(fd, idx, index_offset)
+
+    def _open_shard(self, t: int, c: int, z: int, sy: int,
+                    sx: int) -> Tuple[int, bool, str]:
+        """(fd, is_direct, path) of a shard, sized with its index written
+        (through a plain fd when the bodies go O_DIRECT: the index is
+        byte-grained)."""
+        fpath = self._shard_file(t, c, z, sy, sx)
+        present = self._chunks_in_array(sx)
+        if self.direct:
+            pfd = os.open(fpath, os.O_WRONLY | os.O_CREAT, 0o644)
+            try:
+                self._ensure_shard(pfd, present)
+            finally:
+                os.close(pfd)
+        fd, is_direct = self._open(fpath)
+        if not is_direct:
+            try:
+                self._ensure_shard(fd, present)
+            except BaseException:
+                os.close(fd)
+                raise
+        return fd, is_direct, fpath
 
     def write_plane_rows(self, t: int, c: int, z: int, y0: int,
-                         plane: np.ndarray) -> None:
-        """Write ``plane`` (h, w) at rows [y0, y0+h), columns [0, w) of
-        plane (t, c, z); the inner chunks that [0, w) touches are written
-        over their full width (zeros past ``w``)."""
+                         plane: np.ndarray, x0: int = 0) -> None:
+        """Write ``plane`` (h, w) at rows [y0, y0+h), columns [x0, x0+w)
+        of plane (t, c, z), ``x0`` on a chunk column; the inner chunks
+        that it touches are written over their full width (zeros past
+        its last column)."""
         h, w = plane.shape
         if h == 0 or w == 0:
             return
-        if (plane.dtype != self.dtype or y0 < 0 or y0 + h > self.shape[3]
-                or w > self.shape[4]):
-            raise ValueError(f"slab {plane.shape} {plane.dtype} at row {y0} "
-                             f"does not fit {self.shape} {self.dtype}")
+        plane = self._check_slab(y0, x0, plane)
         cy, cx = self.chunks[3], self.chunks[4]
         pitch = cx * self.dtype.itemsize
         for sy in range(y0 // cy, (y0 + h - 1) // cy + 1):
             ry0, ry1 = max(y0, sy * cy), min(y0 + h, (sy + 1) * cy)
-            for sx in range((w - 1) // self.shard[4] + 1):
-                fpath = self._shard_file(t, c, z, sy, sx)
-                present = self._chunks_in_array(sx)
-                if self.direct:
-                    # the index is byte-grained: size the shard and write
-                    # it through a plain fd, the bodies then go direct
-                    pfd = os.open(fpath, os.O_WRONLY | os.O_CREAT, 0o644)
-                    try:
-                        self._ensure_shard(pfd, present)
-                    finally:
-                        os.close(pfd)
-                fd, is_direct = self._open(fpath)
+            for sx in range(x0 // self.shard[4],
+                            (x0 + w - 1) // self.shard[4] + 1):
+                fd, is_direct, fpath = self._open_shard(t, c, z, sy, sx)
                 try:
-                    if not is_direct:
-                        self._ensure_shard(fd, present)
-                    for k in range(present):
+                    for k in range(self._chunks_in_array(sx)):
                         gx0 = sx * self.shard[4] + k * cx
-                        if gx0 >= w:
+                        if gx0 < x0:
+                            continue
+                        if gx0 >= x0 + w:
                             break
                         self._pwrite_rows(
-                            fd, is_direct, plane, ry0 - y0, gx0, ry1 - ry0,
-                            min(w, gx0 + cx) - gx0, cx,
-                            k * self.chunk_nbytes + (ry0 - sy * cy) * pitch)
+                            fd, is_direct, plane, ry0 - y0, gx0 - x0,
+                            ry1 - ry0, min(x0 + w, gx0 + cx) - gx0, cx,
+                            k * self.chunk_nbytes + (ry0 - sy * cy) * pitch,
+                            fpath)
                 finally:
                     os.close(fd)
+
+    def try_write_block(self, t: int, c: int, z: int, y0: int, cxi: int,
+                        block: np.ndarray) -> bool:
+        """The v3 twin of ``RawZarrArray.try_write_block`` (same contract
+        and refusals): each chunk row of the block lands as one
+        contiguous write at its inner chunk's ordinal in its shard, the
+        shard sized and its index written as the row path writes them."""
+        if not self._block_fits(y0, cxi, block):
+            return False
+        cy = self.chunks[3]
+        sx, k = divmod(cxi, self.per_shard)
+        rows = block.shape[0]
+        flat = block.reshape(-1).view(np.uint8).data
+        pitch = self.chunks[4] * self.dtype.itemsize
+        for ry0 in range(0, rows, cy):
+            nrows = min(cy, rows - ry0)
+            fd, _, _ = self._open_shard(t, c, z, (y0 + ry0) // cy, sx)
+            try:
+                _pwrite_all(fd, flat[ry0 * pitch:(ry0 + nrows) * pitch],
+                            k * self.chunk_nbytes)
+            finally:
+                os.close(fd)
+        return True
 
 
 class BloscShardArray(_ShardGrid):

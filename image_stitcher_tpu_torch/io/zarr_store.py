@@ -11,8 +11,12 @@ output opens with either reader. The zarr v3 shard writers are in
 - :class:`RawZarrArray`: a raw chunk body is the C-order bytes of a full
   chunk; edge chunks are zero-padded to the full chunk size, and rows a
   write never touches stay sparse file zeros, which read as the fill
-  value. Writes are synchronous ``pwrite`` calls from the caller's
-  thread, O_DIRECT where ``io/directio.py`` decides so (same bytes).
+  value. Writes are synchronous, from the caller's thread: a slab's rows
+  as one ``pwritev`` of the strided rows and a shared zero pad
+  (``csrc/hostops.c::write_rows_contig``, as the JAX raw writer), or
+  packed and written O_DIRECT where ``io/directio.py`` decides so (same
+  bytes); a chunk-column block (``try_write_block``) as one contiguous
+  ``pwrite`` a chunk file, from any thread.
 - :class:`BloscZarrArray` (blosc chunks of any cname, clevel and
   shuffle): rows are copied into a buffer per (t, c, z, chunk row), so
   the caller's slab may change as soon as the call
@@ -194,22 +198,40 @@ class EncodePool:
 
 class _RawWriter:
     """Raw chunk bodies written from a plane's rows, buffered or O_DIRECT
-    (shared by the v2 chunk writer and the v3 shard writer)."""
+    (shared by the v2 chunk writer and the v3 shard writer), and whole
+    chunk-column blocks written as one contiguous ``pwrite`` each.
+
+    Buffered rows go out through ``csrc/hostops.c::write_rows_contig``:
+    one ``pwritev`` of the strided rows, each followed by a shared zero
+    pad up to the chunk pitch, so no chunk body is assembled in memory.
+    The library is built when the writer is made; a failed build raises
+    (no plain fallback)."""
 
     path: str
+    shape: Tuple[int, ...]
+    chunks: Tuple[int, ...]
     dtype: np.dtype
     direct: bool
 
-    def _init_direct(self, direct_io: str, *aligned_sizes: int) -> None:
-        """O_DIRECT when ``io/directio.use_direct_io`` says so for this
-        array's directory and every offset and length this writer
-        produces is block-aligned (all are multiples of the sizes)."""
+    def _init_rows(self, direct_io: str, pitch: int, chunk_bytes: int) -> None:
+        """The row writer: ``csrc/hostops.c`` and a zero pad of one row
+        ``pitch``; O_DIRECT when ``io/directio.use_direct_io`` says so for
+        this array's directory and every offset and length this writer
+        produces is block-aligned (all are multiples of ``pitch`` or
+        ``chunk_bytes``)."""
+        from ..native import hostops
         from .directio import ALIGN, AlignedStaging, use_direct_io
-        self.direct = (all(s > 0 and s % ALIGN == 0 for s in aligned_sizes)
+        self._lib = hostops()
+        self._pad = np.zeros(pitch, np.uint8)
+        self.direct = (all(s > 0 and s % ALIGN == 0
+                           for s in (pitch, chunk_bytes))
                        and use_direct_io(os.path.dirname(self.path) or '.',
                                          direct_io))
-        self._staging = (AlignedStaging(max(aligned_sizes))
+        self._staging = (AlignedStaging(max(pitch, chunk_bytes))
                          if self.direct else None)
+        # band threads write level-0 blocks at once; a block the O_DIRECT
+        # path refuses falls back to the rows, which share the staging
+        self._staging_lock = threading.Lock()
 
     def _open(self, fpath: str) -> Tuple[int, bool]:
         """(fd, is_direct): O_DIRECT when enabled; a filesystem that
@@ -224,27 +246,71 @@ class _RawWriter:
 
     def _pwrite_rows(self, fd: int, is_direct: bool, plane: np.ndarray,
                      row0: int, col0: int, nrows: int, cols: int,
-                     pitch_elems: int, off: int) -> None:
-        """Write ``nrows`` rows of ``plane`` from (row0, col0), ``cols``
-        wide and zero-padded to ``pitch_elems``, as one contiguous
-        region at byte ``off``."""
+                     pitch_elems: int, off: int, fpath: str) -> None:
+        """Write ``nrows`` rows of ``plane`` (unit-stride columns) from
+        (row0, col0), ``cols`` wide and zero-padded to ``pitch_elems``,
+        as one contiguous region at byte ``off``."""
+        item = self.dtype.itemsize
         if is_direct:
+            # packed, then one contiguous pwrite: the JAX package measured
+            # a gather straight from strided rows 15-20 % slower on
+            # O_DIRECT (the kernel pins and splits every 4 KiB segment)
             from .directio import pwrite_direct
-            item = self.dtype.itemsize
-            pwrite_direct(fd, self._staging, plane, self.dtype, row0, col0,
-                          nrows, cols * item, pitch_elems * item, off)
+            with self._staging_lock:
+                pwrite_direct(fd, self._staging, plane, self.dtype, row0,
+                              col0, nrows, cols * item, pitch_elems * item,
+                              off)
             return
-        body = np.zeros((nrows, pitch_elems), self.dtype)
-        body[:, :cols] = plane[row0:row0 + nrows, col0:col0 + cols]
-        data = memoryview(body).cast('B')
-        done = 0
-        while done < len(data):
-            done += os.pwrite(fd, data[done:], off + done)
+        pad = (pitch_elems - cols) * item
+        rc = self._lib.write_rows_contig(
+            fd, plane.ctypes.data + row0 * plane.strides[0] + col0 * item,
+            plane.strides[0], nrows, cols * item,
+            self._pad.ctypes.data if pad else None, pad, off)
+        if rc < 0:
+            raise OSError(int(-rc), os.strerror(int(-rc)), fpath)
+
+    def _check_slab(self, y0: int, x0: int, plane: np.ndarray) -> np.ndarray:
+        """``plane`` with unit-stride columns, or ValueError when it does
+        not fit at (y0, x0), or x0 is not on a chunk column."""
+        h, w = plane.shape
+        if (plane.dtype != self.dtype or y0 < 0 or y0 + h > self.shape[3]
+                or x0 < 0 or x0 % self.chunks[4] or x0 + w > self.shape[4]):
+            raise ValueError(f"slab {plane.shape} {plane.dtype} at ({y0}, "
+                             f"{x0}) does not fit {self.shape} {self.dtype}")
+        if plane.strides[1] != plane.itemsize:
+            plane = np.ascontiguousarray(plane)
+        return plane
+
+    def block_spec(self) -> Tuple[int, int]:
+        """(chunk_rows, chunk_cols): this writer takes chunk-column blocks
+        (:meth:`try_write_block`), each chunk file one contiguous write."""
+        return self.chunks[3], self.chunks[4]
+
+    def _block_fits(self, y0: int, cxi: int, block: np.ndarray) -> bool:
+        """The block contract of the JAX raw writers
+        (``try_write_block``): a C-contiguous (rows, chunk_cols) block of
+        the array's dtype, ``y0`` on a chunk row, inside the array's rows
+        and chunk columns; page-aligned when the writer is O_DIRECT."""
+        cy, cx = self.chunks[3], self.chunks[4]
+        rows = block.shape[0] if block.ndim else 0
+        if (block.dtype != self.dtype or block.ndim != 2
+                or block.shape[1] != cx or not block.flags.c_contiguous
+                or y0 % cy != 0 or rows <= 0 or y0 + rows > self.shape[3]
+                or cxi < 0 or cxi >= -(-self.shape[4] // cx)):
+            return False
+        return not (self.direct and block.ctypes.data % 4096 != 0)
+
+
+def _pwrite_all(fd: int, data, off: int) -> None:
+    done = 0
+    while done < len(data):
+        done += os.pwrite(fd, data[done:], off + done)
 
 
 class RawZarrArray(_RawWriter):
     """A raw zarr v2 array, created on construction (any previous array
-    at ``path`` is replaced), written by plane slabs."""
+    at ``path`` is replaced), written by plane slabs or chunk-column
+    blocks."""
 
     def __init__(self, path: str, shape: Sequence[int],
                  chunks: Sequence[int], dtype, direct_io: str = 'auto'):
@@ -255,15 +321,15 @@ class RawZarrArray(_RawWriter):
         if len(self.shape) != 5 or self.chunks[:3] != (1, 1, 1):
             raise ValueError("raw zarr arrays are (T, C, Z, Y, X) with one "
                              "plane per chunk")
+        self.chunk_bytes = self.chunks[3] * self.chunks[4] * self.dtype.itemsize
+        # every write offset and length is a multiple of the row pitch
+        self._init_rows(direct_io, self.chunks[4] * self.dtype.itemsize,
+                        self.chunk_bytes)
         _fresh_array_dir(path)
         _write_json_atomic(os.path.join(path, '.zarray'),
                            zarray_meta(self.shape, self.chunks, self.dtype),
                            indent=None)
-        self.chunk_bytes = self.chunks[3] * self.chunks[4] * self.dtype.itemsize
         self._made_dirs = set()
-        # every write offset and length is a multiple of the row pitch
-        self._init_direct(direct_io, self.chunks[4] * self.dtype.itemsize,
-                          self.chunk_bytes)
 
     def _chunk_file(self, t: int, c: int, z: int, cyi: int, cxi: int) -> str:
         d = os.path.join(self.path, str(t), str(c), str(z), str(cyi))
@@ -273,35 +339,60 @@ class RawZarrArray(_RawWriter):
         return os.path.join(d, str(cxi))
 
     def write_plane_rows(self, t: int, c: int, z: int, y0: int,
-                         plane: np.ndarray) -> None:
-        """Write ``plane`` (h, w) at rows [y0, y0+h), columns [0, w) of
-        plane (t, c, z). The chunk columns that [0, w) touches are written
-        over their full width (zeros past ``w``); chunks are written whole
-        where the rows cover them and are sparse-extended otherwise."""
+                         plane: np.ndarray, x0: int = 0) -> None:
+        """Write ``plane`` (h, w) at rows [y0, y0+h), columns [x0, x0+w)
+        of plane (t, c, z), ``x0`` on a chunk column. The chunk columns
+        that it touches are written over their full width (zeros past
+        its last column); chunks are written whole where the rows cover
+        them and are sparse-extended otherwise."""
         h, w = plane.shape
         if h == 0 or w == 0:
             return
-        if (plane.dtype != self.dtype or y0 < 0 or y0 + h > self.shape[3]
-                or w > self.shape[4]):
-            raise ValueError(f"slab {plane.shape} {plane.dtype} at row {y0} "
-                             f"does not fit {self.shape} {self.dtype}")
+        plane = self._check_slab(y0, x0, plane)
         cy, cx = self.chunks[3], self.chunks[4]
         pitch = cx * self.dtype.itemsize
         for cyi in range(y0 // cy, (y0 + h - 1) // cy + 1):
             ry0, ry1 = max(y0, cyi * cy), min(y0 + h, (cyi + 1) * cy)
             full_rows = ry1 - ry0 == cy
-            for cxi in range((w - 1) // cx + 1):
-                x0, x1 = cxi * cx, min(w, (cxi + 1) * cx)
-                fd, is_direct = self._open(self._chunk_file(t, c, z, cyi,
-                                                            cxi))
+            for cxi in range(x0 // cx, (x0 + w - 1) // cx + 1):
+                gx0, gx1 = cxi * cx, min(x0 + w, (cxi + 1) * cx)
+                fpath = self._chunk_file(t, c, z, cyi, cxi)
+                fd, is_direct = self._open(fpath)
                 try:
                     if not full_rows and os.fstat(fd).st_size < self.chunk_bytes:
                         os.ftruncate(fd, self.chunk_bytes)
-                    self._pwrite_rows(fd, is_direct, plane, ry0 - y0, x0,
-                                      ry1 - ry0, x1 - x0, cx,
-                                      (ry0 - cyi * cy) * pitch)
+                    self._pwrite_rows(fd, is_direct, plane, ry0 - y0,
+                                      gx0 - x0, ry1 - ry0, gx1 - gx0, cx,
+                                      (ry0 - cyi * cy) * pitch, fpath)
                 finally:
                     os.close(fd)
+
+    def try_write_block(self, t: int, c: int, z: int, y0: int, cxi: int,
+                        block: np.ndarray) -> bool:
+        """Write one chunk-column block: ``block`` is (rows, chunk_cols)
+        C-contiguous, canvas rows [y0, y0+rows) of chunk column ``cxi``,
+        its columns past the array's width already zero (the bytes a
+        chunk file stores). ``y0`` sits on a chunk row; each chunk row of
+        the block is contiguous, so each chunk file gets one ``pwrite``,
+        and a bottom chunk row the block leaves short is sparse-extended.
+        Returns False, writing nothing, for a block outside that contract
+        (:meth:`_block_fits`)."""
+        if not self._block_fits(y0, cxi, block):
+            return False
+        cy = self.chunks[3]
+        pitch = self.chunks[4] * self.dtype.itemsize
+        rows = block.shape[0]
+        flat = block.reshape(-1).view(np.uint8).data
+        for j, ry0 in enumerate(range(0, rows, cy)):
+            nrows = min(cy, rows - ry0)
+            fd, _ = self._open(self._chunk_file(t, c, z, y0 // cy + j, cxi))
+            try:
+                if nrows < cy and os.fstat(fd).st_size < self.chunk_bytes:
+                    os.ftruncate(fd, self.chunk_bytes)
+                _pwrite_all(fd, flat[ry0 * pitch:(ry0 + nrows) * pitch], 0)
+            finally:
+                os.close(fd)
+        return True
 
 
 class ChunkRowBuffer:

@@ -1039,7 +1039,11 @@ class StitchPipeline:
                       progress_cb=self.reporter.update_progress,
                       stop_check=self._check_stop)
             counts = {'bands': fuser.bands,
-                      'first_band_at': fuser.first_band_at}
+                      'first_band_at': fuser.first_band_at,
+                      'blocks': fuser.blocks,
+                      'block_refusals': fuser.block_refusals,
+                      'block_cols': fuser.block_cols,
+                      'fill_skips': fuser.fill_skips}
         else:
             fuser.run(jobs, progress_cb=self.reporter.update_progress,
                       stop_check=self._check_stop)
@@ -1051,6 +1055,12 @@ class StitchPipeline:
             "stream stages: " + " ".join(
                 f"{k}={v:.2f}s" for k, v in fuser.stats.items())
             + "".join(f" {k}={v}" for k, v in counts.items()), False)
+        if getattr(fuser, 'cpu', None):
+            # the host fuser's on-core sums beside its wall sums
+            self.fuse_stats[f"{region}_t{t}"]['cpu'] = dict(fuser.cpu)
+            self.reporter.status(
+                "stream cpu: " + " ".join(
+                    f"{k}={v:.2f}s" for k, v in fuser.cpu.items()), False)
         return output_path
 
     # ------------------------------------------------------------------ save

@@ -28,6 +28,7 @@ back.
 
 from __future__ import annotations
 
+import mmap
 import queue
 import threading
 import time
@@ -40,7 +41,8 @@ import torch
 from ..io.omezarr import MultiscaleWriter
 from ..io.readers import TileBatchLoader, torch_dtype
 from ..ops import cuda_fuse
-from ..ops.host_fuse import finalize_feather_host, place_window
+from ..ops.host_fuse import (downsample2x_native, finalize_feather_host,
+                             place_window)
 from ..ops.pyramid import host_downsample
 
 
@@ -63,21 +65,24 @@ def band_levels(buf: np.ndarray, num_levels: int, mode: str):
         yield level
 
 
-def write_band_levels(writer, c: int, z: int, band0: int, levels) -> bool:
-    """Write one finished (c, z) band's levels (:func:`band_levels`).
-    ``band0`` is in level-0 rows. The writer is a
-    :class:`MultiscaleWriter` or an OME-TIFF ``StreamingTiffWriter``.
-    Returns True when the writer is done with level 0 (the caller may
-    reuse it); the OME-TIFF writer keeps views of the rows until their
-    256-row strips complete."""
+def write_band_levels(writer, c: int, z: int, band0: int, levels,
+                      first_level: int = 0) -> bool:
+    """Write one finished (c, z) band's levels (:func:`band_levels`),
+    the first of them at level ``first_level`` (1 when level 0 went out
+    as chunk-column blocks). ``band0`` is in level-0 rows. The writer is
+    a :class:`MultiscaleWriter` or an OME-TIFF ``StreamingTiffWriter``.
+    Returns True when the writer is done with the first level (the
+    caller may reuse it); the OME-TIFF writer keeps views of the rows
+    until their 256-row strips complete."""
     released = None
-    for lv, level in enumerate(levels):
+    for i, level in enumerate(levels):
+        lv = first_level + i
         h_lv, w_lv = level.shape
         b_lv = band0 >> lv
         sel = (slice(0, 1), slice(c, c + 1), slice(z, z + 1),
                slice(b_lv, b_lv + h_lv), slice(0, w_lv))
         r = writer.write_level(lv, level[None, None, None], sel=sel)
-        if lv == 0:
+        if i == 0:
             released = r
     return released is True
 
@@ -170,18 +175,35 @@ class StreamingFuser:
     channel bands of a page strip, parks at most a few bands. With
     ``ff_gate`` a band first waits for its channel's field.
 
-    The writers take one plane's rows in order, from one thread at a
-    time: the zarr writers encode a chunk row once a later one of its
-    plane is written, and their buffers hold no lock. So a band's levels
-    reach the writer under one lock, in plane order
-    (:meth:`_write_in_order`): a band done before an earlier band of its
-    plane parks its levels, and the thread that writes the earlier band
-    writes it too.
+    Chunk-column block mode (the JAX package's): for overwrite blending
+    into a writer whose level 0 takes block writes (raw chunks, v2 or
+    v3; ``writer.block_spec``), with a band a whole number of chunk rows,
+    an even chunk width and a uint8/uint16 canvas (the C fold's), the
+    band lives as (ncx, band, cx)
+    chunk-shaped blocks in a page-aligned pool, and each level-0 chunk
+    file is one contiguous write straight from it, made from the band's
+    own thread: a band's level-0 chunk files belong to it alone. Level 1
+    is folded block by block into one strided array.
+
+    The fill skip: an overwrite band whose tiles' nominal windows cover
+    it whole (:meth:`_band_covered`) is not zeroed first. A loaded tile
+    smaller than the nominal one breaks that proof: the band is zeroed
+    and its placements replayed, and every later band is zeroed up
+    front.
+
+    Every other level, and every write of a writer without blocks (blosc
+    chunks, OME-TIFF), goes through one hand-off: those writers take one
+    plane's rows in order, from one thread at a time (the zarr writers
+    encode a chunk row once a later one of its plane is written, and
+    their buffers hold no lock). So a band's levels reach the writer
+    under one lock, in plane order (:meth:`_write_in_order`): a band done
+    before an earlier band of its plane parks its levels, and the thread
+    that writes the earlier band writes it too.
 
     A thread's overwrite band buffer is reused for its next band only
     when the writer released it (``write_band_levels``); a parked band,
     or one the OME-TIFF writer keeps views of, leaves the thread a fresh
-    buffer."""
+    buffer. A block-mode band parks only its freshly folded levels."""
 
     def __init__(self, writer, height: int, width: int, tile_h: int,
                  tile_w: int, dtype, num_levels: int,
@@ -204,28 +226,75 @@ class StreamingFuser:
         self.blend = blend_method
         self.blend_px = blend_px
         #: wall seconds summed over the band threads: 'gate' (waiting for
-        #: a channel's field), 'decode', 'place', 'finalize', 'write'
-        #: (pyramid fold + writer), and 'close' (the writer's close)
-        self.stats = {'gate': 0.0, 'decode': 0.0, 'place': 0.0,
-                      'finalize': 0.0, 'write': 0.0, 'close': 0.0}
+        #: a channel's field), 'fill' (the band buffer zeroed), 'decode',
+        #: 'place', 'finalize', 'pyramid' (the folds), 'write' (the
+        #: writer, the hand-off's waits included), and 'close' (the
+        #: writer's close)
+        self.stats = {'gate': 0.0, 'fill': 0.0, 'decode': 0.0, 'place': 0.0,
+                      'finalize': 0.0, 'pyramid': 0.0, 'write': 0.0,
+                      'close': 0.0}
+        #: the same stages in on-core seconds (``time.thread_time``): on a
+        #: busy host the wall sums bill waits to whatever stage held the
+        #: thread; these bound a run with every core to itself
+        self.cpu: Dict[str, float] = {}
         #: band tasks run; time.perf_counter() when the first one passed
-        #: its gate
+        #: its gate; level-0 chunk-column blocks the raw writer took
+        #: whole, and those it refused (written as rows instead); bands
+        #: whose fill was skipped (covered, and not replayed)
         self.bands = 0
         self.first_band_at: Optional[float] = None
+        self.blocks = 0
+        self.block_refusals = 0
+        self.fill_skips = 0
         self._lock = threading.Lock()
         self._tl = threading.local()
+        # the fill skip's coverage proofs rest on the nominal tile dims;
+        # False once a loaded tile contradicted them
+        self._nominal_dims_ok = True
+        self._block_cx = 0
+        spec = getattr(writer, 'block_spec', None)
+        bs = spec(0) if spec is not None and blend_method == 'overwrite' \
+            else None
+        # an EVEN chunk width: level 1 is folded block by block, and no
+        # 2-column window may straddle two blocks; the fold is the C one
+        if (bs and bs[0] > 0 and self.band % bs[0] == 0 and bs[1] % 2 == 0
+                and self.dtype in (np.dtype(np.uint8), np.dtype(np.uint16))
+                and downsample_mode in ('nearest', 'mean')):
+            self._block_cx = int(bs[1])
+        #: chunk-column blocks a band writes at level 0 (0: no block mode)
+        self.block_cols = -(-width // self._block_cx) if self._block_cx else 0
         # plane-order hand-off (set up by run()): each plane's next band
         # to write, each band's successor in its plane, the parked bands
         self._write_lock = threading.Lock()
         self._next: Dict[Tuple[int, int], Optional[int]] = {}
         self._succ: Dict[Tuple[int, int, int], Optional[int]] = {}
-        self._parked: Dict[Tuple[int, int, int], List[np.ndarray]] = {}
+        self._parked: Dict[Tuple[int, int, int], Tuple[List, int]] = {}
 
-    def _add(self, key: str, t0: float) -> float:
+    def _tick(self, key: str, t0: float) -> float:
+        """Add the wall time since ``t0`` and this thread's on-core time
+        since its last tick (or :meth:`_cpu_mark`) to stage ``key``."""
         t1 = time.perf_counter()
+        c1 = time.thread_time()
+        c0 = getattr(self._tl, 'cpu0', c1)
         with self._lock:
             self.stats[key] += t1 - t0
+            self.cpu[key] = self.cpu.get(key, 0.0) + (c1 - c0)
+        self._tl.cpu0 = c1
         return t1
+
+    def _cpu_mark(self) -> None:
+        """Start an on-core segment on this thread, so the first tick
+        after a gap that no stage owns (the pool's scheduling) does not
+        absorb it."""
+        self._tl.cpu0 = time.thread_time()
+
+    @staticmethod
+    def _pool(shape: Tuple[int, ...], dtype: np.dtype) -> np.ndarray:
+        """A zeroed buffer on an anonymous mmap: page-aligned, as
+        O_DIRECT block writes need."""
+        n = int(np.prod(shape))
+        mm = mmap.mmap(-1, max(n * dtype.itemsize, mmap.PAGESIZE))
+        return np.frombuffer(mm, dtype, count=n).reshape(shape)
 
     def _place_in_band(self, buf, band0: int, rows: int, job,
                        tile: np.ndarray) -> None:
@@ -249,25 +318,67 @@ class StreamingFuser:
             return
         c = job.channel_idx
         ff_c = self.ff_recip[c] if self.ff_recip is not None else None
+        if self._block_cx:
+            # chunk-column blocks: the window split at chunk columns, each
+            # segment placed into its block
+            cx = self._block_cx
+            for cxi in range(xx // cx, (xx + (x1 - x0) - 1) // cx + 1):
+                gx0 = max(xx, cxi * cx)
+                gx1 = min(xx + (x1 - x0), (cxi + 1) * cx)
+                tx0 = x0 + (gx0 - xx)
+                place_window(buf[cxi], tile, ff_c, y0, y1, tx0,
+                             tx0 + (gx1 - gx0), yy - band0, gx0 - cxi * cx)
+            return
         feather = ((top, wy1, left, wx1, 1.0 / float(self.blend_px))
                    if self.blend == 'feather' else None)
         place_window(buf, tile, ff_c, y0, y1, x0, x1, yy - band0, xx,
                      feather=feather)
 
-    def _process_band(self, c: int, z: int, band0: int, jobs: Sequence,
-                      load_fn: Callable, progress_cb=None,
-                      stop_check=None) -> None:
-        t0 = time.perf_counter()
-        if self.ff_gate is not None:
-            # parks until channel c's field lands; the fit publishes the
-            # channels in order, so only later channels' first bands wait
-            self.ff_recip = self.ff_gate.wait(c)
-        t0 = self._add('gate', t0)
-        with self._lock:
-            self.bands += 1
-            if self.first_band_at is None:
-                self.first_band_at = t0
-        rows = min(self.band, self.height - band0)
+    def _band_covered(self, jobs: Sequence, band0: int, rows: int) -> bool:
+        """True iff the jobs' nominal visible rects tile the whole band
+        (the JAX package's test, as it is): an overwrite band then skips
+        its zero fill, every pixel being written anyway. The rects use
+        the NOMINAL tile dims; :meth:`_process_band` checks each loaded
+        tile against them and replays a zeroed band on a mismatch, so
+        the output never rests on this estimate. A y-sweep over the
+        rects' row boundaries: each slab's x intervals must span
+        [0, width)."""
+        if not self._nominal_dims_ok:
+            return False
+        th, tw = self.tile_h, self.tile_w
+        b_lo, b_hi = band0, band0 + rows
+        rects = []
+        for job, _ in jobs:
+            top, bottom, left, right = job.crops
+            y0 = max(job.y + top, b_lo)
+            y1 = min(job.y + (th - bottom if bottom else th),
+                     self.height, b_hi)
+            x0 = job.x + left
+            x1 = min(job.x + (tw - right if right else tw), self.width)
+            if y1 > y0 and x1 > x0 and y0 >= 0 and x0 >= 0:
+                rects.append((y0, y1, x0, x1))
+        if not rects:
+            return rows <= 0
+        rects.sort(key=lambda r: r[2])
+        ys = sorted({v for r in rects for v in r[:2]} | {b_lo, b_hi})
+        for ya, yb in zip(ys, ys[1:]):
+            if yb <= b_lo or ya >= b_hi:
+                continue
+            reach = 0
+            for y0, y1, x0, x1 in rects:
+                if y0 <= ya and y1 >= yb:
+                    if x0 > reach:
+                        return False
+                    reach = max(reach, x1)
+            if reach < self.width:
+                return False
+        return True
+
+    def _band_buffer(self, jobs: Sequence, band0: int, rows: int):
+        """(buffer, filled) for a band: the thread's pooled feather pair,
+        chunk-column blocks or row-major band, zeroed unless the band is
+        covered (the blocks' pad columns past the width are zeroed even
+        then: they land in the level-0 chunk files)."""
         if self.blend == 'feather':
             # acc/wsum never reach the writer: always reusable
             pair = getattr(self._tl, 'feather', None)
@@ -278,52 +389,145 @@ class StreamingFuser:
             buf = (pair[0][:rows], pair[1][:rows])
             buf[0].fill(0.0)
             buf[1].fill(0.0)
+            return buf, True
+        if self._block_cx:
+            cx = self._block_cx
+            pooled = getattr(self._tl, 'blocks', None)
+            if pooled is None:
+                pooled = self._tl.blocks = self._pool(
+                    (self.block_cols, self.band, cx), self.dtype)
+            buf = pooled[:, :rows]
         else:
             pooled = getattr(self._tl, 'band', None)
             if pooled is None:
-                pooled = np.empty((self.band, self.width), self.dtype)
-                self._tl.band = pooled
+                pooled = self._tl.band = self._pool((self.band, self.width),
+                                                    self.dtype)
             buf = pooled[:rows]
+        if not self._band_covered(jobs, band0, rows):
             buf.fill(0)
-        for job, is_primary in jobs:
+            return buf, True
+        if self._block_cx:
+            tail0 = self.width - (buf.shape[0] - 1) * self._block_cx
+            if tail0 < self._block_cx:
+                buf[-1][:, tail0:] = 0
+        return buf, False
+
+    def _process_band(self, c: int, z: int, band0: int, jobs: Sequence,
+                      load_fn: Callable, progress_cb=None,
+                      stop_check=None) -> None:
+        t0 = time.perf_counter()
+        self._cpu_mark()
+        if self.ff_gate is not None:
+            # parks until channel c's field lands; the fit publishes the
+            # channels in order, so only later channels' first bands wait
+            self.ff_recip = self.ff_gate.wait(c)
+        t0 = self._tick('gate', t0)
+        with self._lock:
+            self.bands += 1
+            if self.first_band_at is None:
+                self.first_band_at = t0
+        rows = min(self.band, self.height - band0)
+        buf, filled = self._band_buffer(jobs, band0, rows)
+        self._tick('fill', t0)
+        nominal = (self.tile_h, self.tile_w)
+        reported = -1   # the last job whose progress fired
+        i = 0
+        while i < len(jobs):
+            job, is_primary = jobs[i]
             if stop_check is not None:
                 stop_check()
             t0 = time.perf_counter()
             tile = load_fn(job)
-            t0 = self._add('decode', t0)
+            t0 = self._tick('decode', t0)
+            if not filled and tile.shape[-2:] != nominal:
+                # a tile unlike its nominal rect breaks the coverage proof
+                # the skipped fill rested on: zero the band and replay its
+                # placements (progress does not fire twice); later bands
+                # fill up front rather than each paying a replay
+                self._nominal_dims_ok = False
+                buf.fill(0)
+                filled = True
+                i = 0
+                continue
             self._place_in_band(buf, band0, rows, job, tile)
-            self._add('place', t0)
-            if progress_cb is not None and is_primary:
+            self._tick('place', t0)
+            if progress_cb is not None and is_primary and i > reported:
+                reported = i
                 progress_cb()
+            i += 1
+        if not filled:
+            with self._lock:
+                self.fill_skips += 1
         t0 = time.perf_counter()
+        if self._block_cx:
+            self._tick('finalize', t0)
+            self._write_blocks(c, z, band0, buf)
+            return
         if self.blend == 'feather':
             buf = finalize_feather_host(buf[0], buf[1], self.dtype)
-        t0 = self._add('finalize', t0)
+        t0 = self._tick('finalize', t0)
         # the folds run on this thread, outside the write lock
         levels = list(band_levels(buf, self.num_levels, self.mode))
+        t0 = self._tick('pyramid', t0)
         released = self._write_in_order(c, z, band0, levels)
-        self._add('write', t0)
+        self._tick('write', t0)
         if not released and self.blend != 'feather':
             # the band is parked, or the writer keeps views of it: the
             # thread's next band gets a fresh buffer
             self._tl.band = None
 
+    def _write_blocks(self, c: int, z: int, band0: int,
+                      blocks: np.ndarray) -> None:
+        """Block-mode output: level 0 chunk by chunk straight from the
+        pool (one contiguous write a chunk file, no lock: these chunk
+        files are the band's alone), level 1 folded block by block into
+        one strided array (chunk widths are even, so no 2x2 window
+        straddles two blocks: the row-major band's fold, byte for byte),
+        the deeper levels folded from it; levels >= 1 through the plane
+        -order hand-off. The writer releases every block (raw writes are
+        synchronous), so the pool is reused."""
+        ncx, rows, cx = blocks.shape
+        t0 = time.perf_counter()
+        taken = sum(self.writer.write_level_block(0, c, z, band0, cxi,
+                                                  blocks[cxi])
+                    for cxi in range(ncx))
+        with self._lock:
+            self.blocks += taken
+            self.block_refusals += ncx - taken
+        t0 = self._tick('write', t0)
+        w1, h1, cw1 = self.width // 2, rows // 2, cx // 2
+        levels: List[np.ndarray] = []
+        if self.num_levels > 1 and h1 and w1:
+            level1 = np.empty((h1, ncx * cw1), self.dtype)
+            for i in range(ncx):
+                downsample2x_native(blocks[i], self.mode,
+                                    level1[:, i * cw1:(i + 1) * cw1])
+            levels = list(band_levels(level1[:, :w1], self.num_levels - 1,
+                                      self.mode))
+        t0 = self._tick('pyramid', t0)
+        # every band of a plane takes its turn, with or without levels
+        self._write_in_order(c, z, band0, levels, 1)
+        self._tick('write', t0)
+
     def _write_in_order(self, c: int, z: int, band0: int,
-                        levels: List[np.ndarray]) -> bool:
-        """Write a band's levels once every earlier band of its (c, z)
-        plane is written, then the parked later bands that this unblocks;
-        a band whose predecessor is still fusing parks. Returns True when
-        this band was written and the writer released its level 0."""
+                        levels: List[np.ndarray],
+                        first_level: int = 0) -> bool:
+        """Write a band's levels (the first at ``first_level``) once every
+        earlier band of its (c, z) plane is written, then the parked
+        later bands that this unblocks; a band whose predecessor is still
+        fusing parks. Returns True when this band was written and the
+        writer released its first level."""
         plane = (c, z)
         with self._write_lock:
             if self._next[plane] != band0:
-                self._parked[(c, z, band0)] = levels
+                self._parked[(c, z, band0)] = (levels, first_level)
                 return False
-            released = write_band_levels(self.writer, c, z, band0, levels)
+            released = write_band_levels(self.writer, c, z, band0, levels,
+                                         first_level)
             nxt = self._succ[(c, z, band0)]
             while nxt is not None and (c, z, nxt) in self._parked:
                 write_band_levels(self.writer, c, z, nxt,
-                                  self._parked.pop((c, z, nxt)))
+                                  *self._parked.pop((c, z, nxt)))
                 nxt = self._succ[(c, z, nxt)]
             self._next[plane] = nxt
             return released
@@ -376,8 +580,9 @@ class StreamingFuser:
         finally:
             pool.shutdown(wait=True)
         t0 = time.perf_counter()
+        self._cpu_mark()
         self.writer.close()
-        self._add('close', t0)
+        self._tick('close', t0)
 
 
 class DeviceStreamingFuser:

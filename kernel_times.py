@@ -26,7 +26,12 @@ forward then backward (A B B A for two), so a drift of the host weighs on
 both sides alike. Every run prints its e2e seconds, the fit's, and the
 band fuser's main-thread and writer-thread seconds; the last lines give
 each root's medians. Each process builds its checkout's kernels and host
-C before its timer starts.
+C before its timer starts. With ``--fusion-device host`` the runs fuse
+on the host (chip_smoke.py phase 11c's run) and print the host fuser's
+summed fold + write seconds over its threads (and their on-core sum
+where the checkout keeps one) instead of the band fuser's.
+
+    python3 kernel_times.py --main-path [--fusion-device host] ROOT ...
 """
 
 from __future__ import annotations
@@ -82,7 +87,8 @@ def one_root(root: str, reps: int) -> dict:
     return {'root': root, 'cases': out}
 
 
-def main_path_one(root: str, acq: str, out: str) -> dict:
+def main_path_one(root: str, acq: str, out: str,
+                  fusion_device: str = 'auto') -> dict:
     """One stitch of the main path with ``root``'s package and options."""
     import time
     import torch
@@ -90,20 +96,30 @@ def main_path_one(root: str, acq: str, out: str) -> dict:
     from image_stitcher_tpu_torch import native
     smoke = _smoke(root)
     for name in sorted(os.listdir(native.CSRC)):
-        native.load(os.path.splitext(name)[0])
+        stem, ext = os.path.splitext(name)
+        if ext in ('.c', '.cu'):    # the headers build with their source
+            native.load(stem)
     t0 = time.perf_counter()
     pipe = port.stitch(acq, use_registration=True, apply_flatfield=True,
                        device=torch.device('cuda'),
-                       options=smoke.smoke_options(out))
+                       options=smoke.smoke_options(
+                           out, fusion_device=fusion_device))
     e2e = time.perf_counter() - t0
     stats = pipe.fuse_stats['A1_t0']
-    return {'e2e_s': e2e,
-            'fit_s': pipe.timers.as_dict().get('flatfield_fit', 0.0),
-            'fuse_s': stats['fuse'],
-            'writer_s': stats['write'] + stats['close']}
+    rec = {'e2e_s': e2e,
+           'fit_s': pipe.timers.as_dict().get('flatfield_fit', 0.0)}
+    if fusion_device != 'host':
+        return dict(rec, fuse_s=stats['fuse'],
+                    writer_s=stats['write'] + stats['close'])
+    # the host fuser: fold + writes summed over its threads
+    rec['fold_write_s'] = stats['write'] + stats.get('pyramid', 0.0)
+    if 'cpu' in stats:
+        rec['fold_write_cpu_s'] = (stats['cpu'].get('write', 0.0)
+                                   + stats['cpu'].get('pyramid', 0.0))
+    return rec
 
 
-def main_path(roots, rounds: int) -> int:
+def main_path(roots, rounds: int, fusion_device: str = 'auto') -> int:
     smoke = _smoke()
     _import_port(HERE)
     smoke.phase_environment()
@@ -119,7 +135,8 @@ def main_path(roots, rounds: int) -> int:
                 out = os.path.join(work, 'out')
                 proc = subprocess.run(
                     [sys.executable, os.path.abspath(__file__), '--one',
-                     '--main-path', '--acq', acq, '--out', out, root],
+                     '--main-path', '--acq', acq, '--out', out,
+                     '--fusion-device', fusion_device, root],
                     capture_output=True, text=True, cwd=root, timeout=600)
                 shutil.rmtree(out, ignore_errors=True)
                 if proc.returncode != 0:
@@ -130,9 +147,10 @@ def main_path(roots, rounds: int) -> int:
                 print(f"{root}: " + " ".join(
                     f"{k}={v:.3f}" for k, v in rec.items()), flush=True)
         for root, recs in runs.items():
+            keys = [k for k in recs[0] if all(k in r for r in recs)]
             print(f"{root}: medians of {len(recs)} runs: " + " ".join(
                 f"{k}={statistics.median(r[k] for r in recs):.3f}"
-                for k in recs[0]))
+                for k in keys))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0
@@ -145,18 +163,22 @@ def main() -> int:
     ap.add_argument('--main-path', action='store_true',
                     help='time the main path end to end instead')
     ap.add_argument('--rounds', type=int, default=2)
+    ap.add_argument('--fusion-device', default='auto',
+                    choices=['auto', 'device', 'host'],
+                    help='with --main-path: where the runs fuse')
     ap.add_argument('--one', action='store_true', help=argparse.SUPPRESS)
     ap.add_argument('--acq', help=argparse.SUPPRESS)
     ap.add_argument('--out', help=argparse.SUPPRESS)
     args = ap.parse_args()
     roots = [os.path.abspath(r) for r in args.roots]
     if args.one:
-        rec = (main_path_one(roots[0], args.acq, args.out) if args.main_path
+        rec = (main_path_one(roots[0], args.acq, args.out,
+                             args.fusion_device) if args.main_path
                else one_root(roots[0], args.reps))
         print(json.dumps(rec), flush=True)
         return 0
     if args.main_path:
-        return main_path(roots, args.rounds)
+        return main_path(roots, args.rounds, args.fusion_device)
     print(_smoke().card_line(), flush=True)
     for root in roots:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),

@@ -180,3 +180,22 @@ def test_continue_on_error_flag(tmp_path, keep_going):
         assert 'A1_stitched.ome.zarr' in written
         assert not os.path.exists(_output(tmp_path) / '0_stitched'
                                   / 'B2_stitched.ome.zarr' / '0' / '.zarray')
+
+
+@pytest.mark.parametrize("front", ['cli', 'process_cli', 'zarr_cli'])
+def test_help_names_no_option_as_unported(front, capsys, monkeypatch):
+    """Neither a CLI's help nor its module text calls an option the port
+    runs (every flag of the JAX CLI, ``.ome.tiff`` and the host fuser
+    included) unported or not run yet."""
+    import importlib
+    mod = importlib.import_module(f'image_stitcher_tpu_torch.{front}')
+    monkeypatch.setenv('COLUMNS', '1000')
+    with pytest.raises(SystemExit):
+        mod.parse_args(['-h'])
+    text = (capsys.readouterr().out + mod.__doc__).lower()
+    for phrase in ('not ported', 'not run yet', 'not yet', 'unported',
+                   'notimplementederror'):
+        assert phrase not in text, phrase
+    if front != 'zarr_cli':
+        assert "'host' = the cpu's threads" in text
+        assert '.ome.tiff' in text

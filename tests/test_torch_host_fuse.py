@@ -527,3 +527,205 @@ def test_auto_fuses_on_the_device(tmp_path):
         .resolved_fusion_threads() >= 4
     assert port.EngineOptions(host_fusion_threads=3) \
         .resolved_fusion_threads() == 3
+
+
+# ------------------------------------------ block writes and the fill skip
+
+def _chunk_bytes(root):
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            if not n.startswith('.') and n != 'zarr.json':
+                p = os.path.join(d, n)
+                with open(p, 'rb') as f:
+                    out[os.path.relpath(p, root)] = f.read()
+    return out
+
+
+def _random_jobs(rng, height, width, th, tw):
+    """A grid of tiles with random pitch, jitter and crops, some outside
+    the canvas's top-left and some past its bottom-right, and sometimes a
+    tile left out."""
+    step_y = int(rng.integers(th // 2, th + 8))
+    step_x = int(rng.integers(tw // 2, tw + 8))
+    jobs = []
+    for y in range(-int(rng.integers(0, 6)), height, step_y):
+        for x in range(-int(rng.integers(0, 6)), width, step_x):
+            if rng.random() < 0.05:
+                continue
+            crops = tuple(int(v) for v in rng.integers(0, 5, 4))
+            jobs.append((_Job(0, 0, y + int(rng.integers(-2, 3)),
+                              x + int(rng.integers(-2, 3)), crops, None),
+                         True))
+    return jobs
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_band_covered_equals_jax(seed):
+    """``_band_covered`` gives the JAX fuser's answer for every band of
+    seeded random job sets (crops, gaps, tiles over the canvas's edges)."""
+    from image_stitcher_tpu.models.streaming import StreamingFuser as JaxSF
+    from image_stitcher_tpu_torch.models.streaming import StreamingFuser
+    rng = np.random.default_rng(seed)
+    seen = set()
+    for _ in range(40):
+        h, w = int(rng.integers(40, 200)), int(rng.integers(40, 200))
+        th, tw = int(rng.integers(16, 60)), int(rng.integers(16, 60))
+        band = int(rng.choice([8, 16, 32]))
+        port_sf = StreamingFuser(object(), h, w, th, tw, np.uint16, 1,
+                                 chunk_rows=band)
+        jax_sf = JaxSF(object(), 1, 1, h, w, th, tw, np.uint16, 1,
+                       chunk_rows=band)
+        jobs = _random_jobs(rng, h, w, th, tw)
+        for band0 in range(0, h, band):
+            rows = min(band, h - band0)
+            got = port_sf._band_covered(jobs, band0, rows)
+            assert got == jax_sf._band_covered(jobs, band0, rows)
+            seen.add(got)
+    assert seen == {True, False}
+
+
+def _covering_jobs(rng, h, w, th, tw, overlap, dtype=np.uint16):
+    """Tiles of a grid whose crop windows tile the canvas, in plan
+    order, each with a seeded tile."""
+    jobs = []
+    step_y, step_x = th - overlap, tw - overlap
+    for y in range(0, h - overlap, step_y):
+        for x in range(0, w - overlap, step_x):
+            top = overlap // 2 if y else 0
+            left = overlap // 2 if x else 0
+            tile = rng.integers(1, np.iinfo(dtype).max, (th, tw),
+                                endpoint=True).astype(dtype)
+            jobs.append(_Job(0, 0, y, x, (top, 0, left, 0), tile))
+    return jobs
+
+
+def _fuse_both(tmp_path, jobs, h, w, th, tw, cname, chunks, num_levels=3):
+    """The port's and the JAX host band fusers over the same jobs into
+    their own writers; returns (port fuser, JAX fuser, progress calls)."""
+    from image_stitcher_tpu.io.omezarr import MultiscaleWriter as JaxMW
+    from image_stitcher_tpu.models.streaming import StreamingFuser as JaxSF
+    from image_stitcher_tpu_torch.io.omezarr import MultiscaleWriter
+    from image_stitcher_tpu_torch.models.streaming import StreamingFuser
+    common = ((1, 1, 1, h, w), num_levels, np.uint16,
+              (1, 1, 1, chunks, chunks), 'A1_t0', 1.0, 1.0, ['c0'],
+              [0xFFFFFF])
+    pw = MultiscaleWriter(str(tmp_path / 'port.ome.zarr'), *common,
+                          cname=cname, direct_io='off')
+    jw = JaxMW(str(tmp_path / 'jax.ome.zarr'), *common, cname=cname,
+               clevel=5, direct_io='off')
+    port_sf = StreamingFuser(pw, h, w, th, tw, np.uint16, num_levels,
+                             chunk_rows=chunks, num_threads=3)
+    jax_sf = JaxSF(jw, 1, 1, h, w, th, tw, np.uint16, num_levels,
+                   chunk_rows=chunks, num_threads=3)
+    calls = []
+    port_sf.run(jobs, lambda j: j.load(),
+                progress_cb=lambda n, total: calls.append((n, total)))
+    jax_sf.run(jobs, lambda j: j.load())
+    return port_sf, jax_sf, calls
+
+
+@pytest.mark.parametrize("undersized", [False, True],
+                         ids=['covered', 'undersized'])
+@pytest.mark.parametrize("cname", [None, 'lz4'], ids=['raw', 'lz4'])
+def test_fill_skip_and_replay_equal_jax(tmp_path, cname, undersized):
+    """Bands the tiles cover skip their fill (counted); with one tile
+    loaded smaller than the nominal size the band is zeroed and replayed,
+    every later band fills up front, and progress fires once a tile. The
+    tree equals the JAX fuser's (raw: block mode, chunk files byte-equal;
+    lz4: the row-major band)."""
+    rng = np.random.default_rng(11)
+    th, tw, overlap, h, w = 40, 48, 8, 136, 200
+    jobs = _covering_jobs(rng, h, w, th, tw, overlap)
+    for j in jobs:
+        j.load = (lambda j=j: j.tile)
+    if undersized:
+        short = jobs[len(jobs) // 2]
+        short.load = lambda j=short: j.tile[:th - 6, :tw - 5]
+    port_sf, jax_sf, calls = _fuse_both(tmp_path, jobs, h, w, th, tw, cname,
+                                        16)
+    assert [n for n, _ in calls] == list(range(1, len(jobs) + 1))
+    assert port_sf.block_cols == (0 if cname else -(-w // 16))
+    assert port_sf.blocks == port_sf.bands * port_sf.block_cols
+    assert port_sf.block_refusals == 0
+    assert bool(port_sf._block_cx) == (cname is None) \
+        == bool(jax_sf._block_cx)
+    assert port_sf._nominal_dims_ok == jax_sf._nominal_dims_ok \
+        == (not undersized)
+    if undersized:   # the bands before the short tile's skipped
+        assert 0 < port_sf.fill_skips < port_sf.bands
+    else:
+        assert port_sf.fill_skips == port_sf.bands
+    assert_trees_equal(str(tmp_path / 'jax.ome.zarr'),
+                       str(tmp_path / 'port.ome.zarr'))
+    if cname is None:
+        assert _chunk_bytes(str(tmp_path / 'jax.ome.zarr')) \
+            == _chunk_bytes(str(tmp_path / 'port.ome.zarr'))
+
+
+def test_refused_blocks_are_counted_apart(tmp_path, monkeypatch):
+    """A level-0 block the raw writer refuses goes out as rows and is
+    counted as a refusal, not as a block; the tree still equals the JAX
+    fuser's, chunk files byte for byte."""
+    from image_stitcher_tpu_torch.io.zarr_store import RawZarrArray
+    monkeypatch.setattr(RawZarrArray, 'try_write_block',
+                        lambda self, *a: False)
+    rng = np.random.default_rng(13)
+    th, tw, overlap, h, w = 40, 48, 8, 136, 200
+    jobs = _covering_jobs(rng, h, w, th, tw, overlap)
+    for j in jobs:
+        j.load = (lambda j=j: j.tile)
+    port_sf, _, _ = _fuse_both(tmp_path, jobs, h, w, th, tw, None, 16)
+    assert port_sf.block_cols == -(-w // 16)
+    assert port_sf.blocks == 0
+    assert port_sf.block_refusals == port_sf.bands * port_sf.block_cols
+    assert _chunk_bytes(str(tmp_path / 'jax.ome.zarr')) \
+        == _chunk_bytes(str(tmp_path / 'port.ome.zarr'))
+
+
+def test_fuser_cpu_has_the_jax_keys(tmp_path):
+    """The on-core sums carry the JAX fuser's stage keys, plus the
+    port's 'gate'; every wall stage has its on-core twin."""
+    rng = np.random.default_rng(12)
+    jobs = _covering_jobs(rng, 100, 120, 40, 48, 8)
+    for j in jobs:
+        j.load = (lambda j=j: j.tile)
+    port_sf, jax_sf, _ = _fuse_both(tmp_path, jobs, 100, 120, 40, 48, None,
+                                    16)
+    assert set(port_sf.cpu) == set(jax_sf.cpu) | {'gate'}
+    assert set(port_sf.cpu) == set(port_sf.stats)
+    assert all(v >= 0 for v in port_sf.cpu.values())
+
+
+@pytest.mark.parametrize("fmt,cname", [(2, None), (3, None), (2, 'lz4')],
+                         ids=['raw_v2', 'raw_v3', 'lz4'])
+def test_host_blocks_and_fill_skip_equal_jax_host_stitch(tmp_path, fmt,
+                                                         cname):
+    """Whole host stitches in bands: raw v2 and v3 take block mode (the
+    level-0 chunk files written as blocks from the band threads), lz4 the
+    rows; covered bands skip their fill. The trees equal the JAX host
+    stitch's, raw chunk files byte for byte."""
+    acq = str(tmp_path / 'acq')
+    host_acquisition(acq)
+    opts = dict(streaming='on', fusion_device='host', zarr_format=fmt,
+                chunks=(1, 1, 1, 16, 16), compressor_cname=cname,
+                host_fusion_threads=4)
+    kw = dict(apply_flatfield=True, use_registration=True)
+    jpipe = jax_pkg.stitch(acq, options=jax_pkg.EngineOptions(
+        output_folder=str(tmp_path / 'jax'), **opts), **kw)
+    state = port.state_from_reference(flatfields=jpipe.flatfields,
+                                      shifts=jpipe.shifts)
+    pipe = port.stitch(acq, device=CPU, state=state,
+                       options=port.EngineOptions(
+                           output_folder=str(tmp_path / 'port'), **opts),
+                       **kw)
+    stats = pipe.fuse_stats['A1_t0']
+    assert (stats['block_cols'] > 0) == (cname is None)
+    assert stats['blocks'] == stats['bands'] * stats['block_cols']
+    assert stats['block_refusals'] == 0
+    assert 0 < stats['fill_skips'] < stats['bands']
+    assert set(stats['cpu']) >= {'fill', 'decode', 'place', 'write'}
+    assert_outputs_equal(str(tmp_path / 'jax'), str(tmp_path / 'port'))
+    if cname is None:
+        assert _chunk_bytes(str(tmp_path / 'jax')) \
+            == _chunk_bytes(str(tmp_path / 'port'))

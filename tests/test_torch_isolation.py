@@ -11,9 +11,14 @@ merges and its plate reopened with ``open_stitched``, zstd and zlib
 chunks (bit-shuffled, zarr v3) written and read back, and JPEG tiles read
 and JPEG OME-TIFF tiles written (its own codec), with jax, pandas,
 tensorstore, numcodecs, blosc, zstandard, OpenCV, PIL, imageio and the JAX
-package all unimportable, as on a CUDA host that has none of them. No C
-source includes a compression library's header (zlib, zstd, libjpeg) or
-links one."""
+package all unimportable, as on a CUDA host that has none of them. The
+editions, their CLIs, the GUI and the tools import and run with PyQt5 and
+napari unimportable too, in every process they start (a
+``sitecustomize`` installs the refusal): the thread and process
+editions, the GUI through its stand-ins, ``process_cli``, ``zarr_cli``
+and the doctor as subprocesses, the coordinate tools, the ASHLAR export
+and both benches. No C source includes a compression library's header
+(zlib, zstd, libjpeg) or links one."""
 
 import ast
 import os
@@ -258,3 +263,143 @@ def test_no_compression_library_is_included_or_linked():
     assert include.search('#include <jpeglib.h>') and link.search("-ljpeg")
     for text in texts:
         assert not include.search(text) and not link.search(text)
+
+
+#: the front ends' optional modules, absent on the card's host too
+FRONT_BLOCKED = BLOCKED + ("PyQt5", "napari")
+
+SITECUSTOMIZE = textwrap.dedent("""
+    import importlib.abc, sys
+    BLOCKED = {blocked!r}
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split('.')[0] in BLOCKED:
+                raise ImportError(f"{{name}} is not available here")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+""")
+
+FRONT_CHILD = textwrap.dedent("""
+    import os, queue, sys, time
+    sys.path.insert(0, {repo!r})
+    BLOCKED = {blocked!r}
+    import image_stitcher_tpu_torch as port
+    from image_stitcher_tpu_torch import gui, process_cli, qt_compat, zarr_cli
+    from image_stitcher_tpu_torch.models import editions
+    from image_stitcher_tpu_torch.tools import (
+        ashlar_export, config_bench, convert_to_coordinate_acquisition,
+        doctor, save_bench, update_coordinates)
+    from image_stitcher_tpu_torch.utils import csvtable
+    assert not qt_compat.HAVE_QT
+    acq = {acq!r}
+    params = port.StitchingParameters(input_folder=acq, use_registration=True)
+    thread = editions.StitcherThread(
+        params, port.EngineOptions(output_folder=acq + '_thread'),
+        device='cpu')
+    thread.start(); thread.join(120)
+    assert thread.error is None and os.path.isdir(thread.result_path)
+    proc = editions.StitcherProcess(
+        params, options=port.EngineOptions(output_folder=acq + '_proc'),
+        device='cpu')
+    proc.start(); proc.join(120)
+    assert proc.exitcode == 0, proc.exitcode
+    kind, (path, dtype) = proc.complete_queue.get(timeout=10)
+    assert kind == 'complete' and os.path.isdir(path), path
+    window = gui.StitchingGUI(device='cpu')
+    window.input_folder = acq
+    window.start_stitching()
+    t0 = time.time()
+    while window.stitcher.is_alive() and time.time() - t0 < 120:
+        window.poll_queues(); time.sleep(0.05)
+    window.poll_queues()
+    assert 'Complete' in window.status_label.text(), window.status_label.text()
+    assert gui.main() == 1
+    print('EDITIONS-OK')
+    # the tools: coordinates rewritten, a grid acquisition converted, an
+    # ASHLAR export, both benches at a tiny size
+    old = acq + '_old_format/0'
+    os.makedirs(old)
+    from image_stitcher_tpu_torch.io.fast_tiff import write_tiff_fast
+    import numpy as np
+    for k in range(2):
+        write_tiff_fast(os.path.join(old, f'R_{{k}}_0_ch.tiff'),
+                        np.zeros((4, 4), np.uint16))
+    with open(os.path.join(old, 'coordinates.csv'), 'w') as f:
+        f.write('x (mm),y (mm)\\n1.5,2\\n3.25,4\\n')
+    update_coordinates.process_folder(old)
+    assert open(os.path.join(old, 'coordinates.csv')).read().startswith(
+        'region,fov,x (mm),y (mm)')
+    grid = acq + '_grid'
+    os.makedirs(grid + '/0')
+    write_tiff_fast(grid + '/0/B3_0_1_0_ch.tiff', np.ones((4, 4), np.uint16))
+    with open(grid + '/0/coordinates.csv', 'w') as f:
+        f.write('i,j,z_level,x (mm),y (mm),z (um)\\n0,1,0,0.9,0,0\\n')
+    assert convert_to_coordinate_acquisition.convert(grid) == 1
+    assert os.listdir(grid + '/0') != [] and os.path.isdir(grid + '_old')
+    out = ashlar_export.AshlarConverter(acq).run(acq + '_ashlar')
+    assert len(os.listdir(out)) == 4
+    rows = save_bench.measure(64, 1, 1, [64], list(save_bench.WRITERS))
+    assert len(rows) == len(save_bench.WRITERS), rows
+    z20 = config_bench.bench_z20(acq + '_bench', 1, tile=64, num_z=2,
+                                 device='cpu')
+    assert z20['seconds'] > 0
+    loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+    assert not loaded, loaded
+    print('TOOLS-OK', len(rows))
+""")
+
+
+def _seed_probe_cache(home, folder):
+    """A fresh disk-probe entry for ``folder``'s device in ``home``, so no
+    process of the test writes the probe's files."""
+    import json
+    import time
+    cache = os.path.join(home, '.cache', 'image_stitcher_tpu_torch')
+    os.makedirs(cache, exist_ok=True)
+    key = f"dev{os.stat(folder).st_dev}-cpu{os.cpu_count()}"
+    with open(os.path.join(cache, 'directio.json'), 'w') as f:
+        json.dump({key: {"ts": time.time(), "buffered_mbps": 500.0,
+                         "direct_mbps": 100.0}}, f)
+
+
+def test_front_ends_and_tools_run_without_pyqt5_napari_jax(tmp_path):
+    acq = str(tmp_path / "acq")
+    kw = dict(grid_cols=2, grid_rows=2, tile_w=64, tile_h=64, overlap=16,
+              seed=2, acq_params_overrides={"pixel_binning": 2})
+    write_synthetic_acquisition(acq, **kw)
+    write_synthetic_acquisition(acq + '_cli', **kw)
+    write_synthetic_acquisition(acq + '_zcli', **kw)
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(
+        SITECUSTOMIZE.format(blocked=FRONT_BLOCKED))
+    home = str(tmp_path / "home")
+    _seed_probe_cache(home, str(tmp_path))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=f"{site}{os.pathsep}{REPO}", HOME=home,
+               TMPDIR=str(tmp_path))
+    code = FRONT_CHILD.format(blocked=FRONT_BLOCKED, repo=str(REPO), acq=acq)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600, env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "EDITIONS-OK" in proc.stdout
+    assert "TOOLS-OK 10" in proc.stdout
+    for module, argv, want in (
+            ("process_cli", ["-i", acq + '_cli', "-r", "--device", "cpu"],
+             "Complete:"),
+            ("zarr_cli", ["-i", acq + '_zcli', "--device", "cpu"],
+             "Complete:"),
+            ("tools.doctor", ["--output-dir", str(tmp_path)],
+             "[Device]")):
+        run = subprocess.run(
+            [sys.executable, "-m", f"image_stitcher_tpu_torch.{module}",
+             *argv], capture_output=True, text=True, timeout=300, env=env,
+            cwd=str(tmp_path))
+        assert run.returncode == 0, (module, run.stderr[-3000:])
+        assert want in run.stdout, (module, run.stdout[-2000:])
+        if module == "tools.doctor":
+            assert "torch.cuda: NOT AVAILABLE" in run.stdout
+            assert run.stdout.index("[Caches]") > run.stdout.index("[Disk]")
+    assert [d for d in os.listdir(tmp_path) if d.startswith('acq_cli_stitched_')]
