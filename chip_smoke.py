@@ -64,10 +64,11 @@ Phases, each fatal on failure:
      their plain versions and their sources, BMP row layouts, and each
      routine's MB/s on 2048^2 u16 tiles on one thread and on the 8-thread
      reader pool; (b) the main path's grid and options (as phase 5) on the
-     bench's compressible content, stored as uncompressed TIFF, as 16-bit
-     PNG with the row filters cycling and as deflate + predictor TIFF in
-     2-row strips: the PNG and deflate trees decode equal to the
-     uncompressed one, with e2e, tiles/s, the loader's and the writer's
+     bench's compressible content, stored as uncompressed TIFF and as
+     16-bit PNG with the row filters cycling, and a 4x4 grid of it as
+     uncompressed TIFF and as deflate + predictor TIFF in 2-row strips:
+     the PNG and deflate trees decode equal to the uncompressed one of
+     their grid, with e2e, tiles/s, the loader's and the writer's
      seconds, decode seconds a tile and decodes a file; (c) 3x3 grids: a
      u8 mono BMP acquisition (gray palette, bottom-up rows) equal to its
      uncompressed-TIFF twin, and a u8 RGB PNG acquisition on the in-RAM
@@ -134,6 +135,25 @@ Phases, each fatal on failure:
      byte-equal files; (c)'s acquisition as JPEG q85 ``.ome.tiff``,
      timed, every page and SubIFD level within PSNR 30 dB of (c)'s zarr
      levels;
+ 15. (run right after phase 10, on the acquisitions and trees of phases 5
+     and 10) the mesh and the work shards: (b) phase 5's acquisition and
+     options with ``mesh_shape=(1, n)`` (n = the cards when the host has
+     two or more, else two bands on cuda:0), its tree byte-equal to
+     phase 5's (SHA-256 of every file), with e2e and tiles/s against
+     phase 5's, each band's device fuse ms, read-back wait and write
+     seconds, each card's peak memory and the peak of the host's live
+     band pieces, held under the whole canvas; (a), run after (b) on its
+     canvas and bands, ``parallel/sharded_fuse.ShardedCanvas`` over
+     (1, n) against the plain version at the main-path shapes (ten u16
+     2048^2 tiles with the field, a grid row straddling the first band
+     edge): overwrite byte-equal, feather acc/wsum bit-equal on every
+     band, finalize byte-equal; (c) phase 10's plate in two ranks spawned
+     together in one group (``parallel/distributed.py``), each on the
+     card (device tensors over gloo when the ranks share one card, over
+     NCCL when each has its own), each stitching its work shard through
+     ``stitch_distributed``, rank 0 running both merges after the
+     barrier: the tree byte-equal to phase 10's uninterrupted one, with
+     the plate's e2e, each rank's start-up (apart) and barrier wait;
  14. (run right after phase 11, on 11a's mono 3x3 acquisition) the
      editions and front ends on the card: (a) the child-process edition
      (``models/editions.StitcherProcess``) on its default device, the
@@ -820,14 +840,18 @@ def reference_plane(pipe, gt, origins, channel: int, height: int,
 
 
 def phase_main_path(work: str, card: str, grid: int = 10,
-                    tile: int = TILE, device: str = 'cuda') -> dict:
+                    tile: int = TILE, device: str = 'cuda',
+                    keep: str = None) -> dict:
+    """5: the main path. With ``keep``, the acquisition is written there
+    (it outlives ``work``, for phase 15b) and the result carries the
+    tree's digest."""
     from image_stitcher_tpu_torch import stitch
     from image_stitcher_tpu_torch.io.omezarr import level_shapes
     from image_stitcher_tpu_torch.io.zarr_store import read_array
     from image_stitcher_tpu_torch.models.streaming import (
         band_canvas_shape, band_rows_for, partition_jobs_by_band)
     from image_stitcher_tpu_torch.ops import cuda_fuse
-    acq = os.path.join(work, f'main_{grid}x{grid}')
+    acq = os.path.join(keep or work, f'main_{grid}x{grid}')
     t0 = time.perf_counter()
     gt, origins = write_acquisition(acq, grid, tile,
                                     overlap=205 * tile // TILE, seed=5)
@@ -908,7 +932,8 @@ def phase_main_path(work: str, card: str, grid: int = 10,
         f"{stats['readback_wait']:.3f}s write={stats['write']:.3f}s; "
         f"channel 0 level 0 equals the NumPy reference")
     return {'launches': launches, 'e2e_s': e2e,
-            'tiles_per_s': n_tiles / e2e}
+            'tiles_per_s': n_tiles / e2e, 'acq': acq,
+            'digest': tree_digest(out) if keep else None}
 
 
 # --------------------------------------------------------------------- 6
@@ -1882,9 +1907,10 @@ def stitch_input(acq: str, out: str, dev, card: str, label: str) -> dict:
 def phase_tile_input(work: str, card: str, grid: int = 10,
                      tile: int = TILE, device: str = 'cuda') -> dict:
     """9: tile input without OpenCV. 9a the C decoders; 9b the main path's
-    grid stored as 16-bit PNG (filters cycling) and as deflate +
-    predictor TIFF in 2-row strips, each stitched on the card to the tree
-    of an uncompressed-TIFF twin; 9c 3x3 grids: u8 mono BMP against its
+    grid stored as 16-bit PNG (filters cycling), and a 4x4 grid as deflate
+    + predictor TIFF in 2-row strips, each stitched on the card to the
+    tree of an uncompressed-TIFF twin of its grid; 9c 3x3 grids: u8 mono
+    BMP against its
     uncompressed-TIFF twin, u8 RGB PNG on the card against the CPU."""
     dev = torch.device(device)
     rng = np.random.default_rng(12)
@@ -1901,20 +1927,25 @@ def phase_tile_input(work: str, card: str, grid: int = 10,
             cache[side] = compressible(r, side)
         return cache[side]
 
+    # the deflate run is cut to a 4x4 grid (the smallest that streams in
+    # bands), held to an uncompressed twin of its own: its cost is the
+    # strip decodes, which a 4x4 grid still measures per tile
+    small = 4
     formats = (
-        ('tiff', None, 'tiff'),
+        ('tiff', None, 'tiff', grid),
         ('png', lambda b: tf.png_bytes(b, 0, 16, filters=range(5), level=1),
-         'png'),
+         'png', grid),
+        (f'tiff-{small}x{small}', None, 'tiff', small),
         ('deflate', lambda b: tf.tiff_bytes(b, 8, 2, rows_per_strip=2),
-         'tiff'))
-    runs, twin = {}, None
-    for name, encode, suffix in formats:
+         'tiff', small))
+    runs, twins = {}, {}
+    for name, encode, suffix, g in formats:
         acq = os.path.join(work, f'input_{name}')
         t0 = time.perf_counter()
-        write_acquisition(acq, grid, tile, overlap, seed=13, texture=texture,
+        write_acquisition(acq, g, tile, overlap, seed=13, texture=texture,
                           encode=encode, suffix=suffix)
         nbytes = tree_bytes(acq)
-        log(f"tile input ({name}): wrote {grid}x{grid}x{len(CHANNELS)} "
+        log(f"tile input ({name}): wrote {g}x{g}x{len(CHANNELS)} "
             f"{tile}^2 u16 tiles, {nbytes} bytes, in "
             f"{time.perf_counter() - t0:.1f}s")
         out = os.path.join(work, f'input_out_{name}')
@@ -1928,14 +1959,14 @@ def phase_tile_input(work: str, card: str, grid: int = 10,
         tree = read_tree(out)
         shutil.rmtree(out)
         shutil.rmtree(acq)
-        if twin is None:
-            twin = tree
+        if g not in twins:
+            twins[g] = tree
             continue
-        arrays = compare_trees(twin, tree, f'tile input ({name} vs tiff)')
+        arrays = compare_trees(twins[g], tree, f'tile input ({name} vs tiff)')
         log(f"tile input ({name}): tree decodes equal to the uncompressed-"
-            f"TIFF twin's ({arrays} level arrays, JSON equal)")
+            f"TIFF twin's ({g}x{g}; {arrays} level arrays, JSON equal)")
         del tree
-    del twin, cache
+    del twins, cache
 
     # 9c: 3x3 grids, u8 mono BMP against its uncompressed-TIFF twin; u8
     # RGB PNG on the card against the CPU
@@ -2024,7 +2055,7 @@ def merge_split(stats: dict) -> str:
 
 
 def phase_merges(work: str, card: str, grid: int = 3,
-                 tile: int = TILE) -> None:
+                 tile: int = TILE) -> dict:
     """Merges and resume on the card: phase 7's plate at two timepoints
     (each its own seed), cut from the 96-well plate of the JAX package's
     BASELINE.md to 8 wells for the script's time limit. (a) A run with
@@ -2120,6 +2151,10 @@ def phase_merges(work: str, card: str, grid: int = 3,
     t0 = time.perf_counter()
     nbytes = files_equal(out, whole_out, "merges (10a)",
                          skip=('.stitch_manifest.json', 'flatfields.npz'))
+    # phase 15c holds the work-sharded plate to this tree
+    result = {'acq': acq, 'digest': tree_digest(whole_out),
+              'e2e_whole_s': t_whole, 'flatfields': pipe.flatfields,
+              'shifts': pipe.shifts, 'kw': kw, 'extra': extra}
     log(f"merges (10a): the resumed tree (16 region stores + the complete "
         f"plate) is byte-equal to an uninterrupted run's ({t_whole:.3f}s, "
         f"the resumed run's fields and shifts carried): {nbytes} bytes "
@@ -2235,6 +2270,7 @@ def phase_merges(work: str, card: str, grid: int = 3,
     banned = [m for m in BANNED if m in sys.modules]
     if banned:
         raise SystemExit(f"merges: loaded {banned}")
+    return result
 
 
 # -------------------------------------------------------------------- 11
@@ -3361,6 +3397,325 @@ def phase_editions(work: str, card: str, acq: str) -> dict:
             'h2d_gbps': h2d, 'd2h_gbps': d2h}
 
 
+# -------------------------------------------------------------------- 15
+
+def tree_digest(root: str) -> dict:
+    """{relative path: SHA-256} of every file of a run's tree but its
+    manifests and field sidecar (which record how the run went, not what
+    it wrote), hashed on a thread pool."""
+    import hashlib
+    rels = sorted(os.path.relpath(os.path.join(d, n), root)
+                  for d, _, names in os.walk(root) for n in names
+                  if not n.startswith(('.stitch_manifest.json',
+                                       'flatfields.npz')))
+
+    def digest(rel):
+        h = hashlib.sha256()
+        with open(os.path.join(root, rel), 'rb') as f:
+            while chunk := f.read(1 << 24):
+                h.update(chunk)
+        return h.hexdigest()
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip(rels, pool.map(digest, rels)))
+
+
+def digests_equal(want: dict, got: dict, what: str) -> int:
+    if want != got:
+        diff = sorted(k for k in set(want) | set(got)
+                      if want.get(k) != got.get(k))
+        raise SystemExit(f"{what}: {len(diff)} files differ, e.g. "
+                         f"{diff[:6]}")
+    return len(want)
+
+
+def mesh_devices():
+    """The mesh of phase 15: every card when the host has two or more,
+    else two bands on cuda:0 (a repeated device)."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [torch.device('cuda', i) for i in range(n)]
+    return [torch.device('cuda', 0)] * 2
+
+
+def sharded_check(card: str, devices, H: int, W: int, band: int) -> None:
+    """15a: ShardedCanvas over (1, len(devices)) against the plain version
+    at the main-path shapes: ten u16 2048^2 tiles with the field, in two
+    grid rows whose second straddles the first band edge, on phase 15b's
+    canvas (the main path's height and width) cut into 15b's bands.
+    Overwrite byte-equal; feather acc/wsum bit-equal on every band's real
+    rows, its finalize byte-equal."""
+    from image_stitcher_tpu_torch.ops import fuse as plain
+    from image_stitcher_tpu_torch.parallel.mesh import make_mesh
+    from image_stitcher_tpu_torch.parallel.sharded_fuse import ShardedCanvas
+    rng = np.random.default_rng(1515)
+    n = len(devices)
+    tiles, info, crops, valid = kernel_batch(rng, 10, TILE, TILE,
+                                             (2 * TILE, W), 1)
+    # the two grid rows moved down: the second straddles row ``band``
+    info[valid, 2] += band - TILE // 2 - (TILE - 205)
+    ff = (1.0 / rng.uniform(0.6, 1.4, (1, TILE, TILE))).astype(np.float32)
+    host = torch.from_numpy(tiles).pin_memory()
+    dev0 = devices[0]
+    d_tiles = host.to(dev0)
+    d_ff = torch.from_numpy(ff).to(dev0)
+    meta = (torch.from_numpy(info), torch.from_numpy(crops),
+            torch.from_numpy(valid))
+    shape = (1, 1, H + TILE, -(-(W + TILE) // 8) * 8)
+    for blend in ('overwrite', 'feather'):
+        canvas = ShardedCanvas(make_mesh((1, n), devices), 1, 1, H, W, TILE,
+                               TILE, np.uint16, blend_method=blend,
+                               blend_px=BLEND, ff_recip=ff, band=band)
+        straddle = sum(int(y) < b.start < int(y) + TILE
+                       for b in canvas.bands for y, ok in
+                       zip(info[:, 2], valid) if ok)
+        canvas.fuse_batch(host, info, crops, valid)
+        if blend == 'feather':
+            acc = torch.zeros(shape, device=dev0)
+            wsum = torch.zeros(shape, device=dev0)
+            plain.fuse_feather(acc, wsum, d_tiles, *meta, ff_recip=d_ff,
+                               blend_px=BLEND)
+            for b in canvas.bands:
+                rows = slice(TILE, TILE + b.rows)
+                want = slice(b.start, b.start + b.rows)
+                for got_t, want_t in ((b.acc, acc), (b.wsum, wsum)):
+                    if not torch.equal(got_t[..., rows, :W].to(dev0),
+                                       want_t[..., want, :W]):
+                        raise SystemExit(f"sharded (15a): band {b.index}'s "
+                                         f"feather sums differ")
+            want = plain.finalize_feather(acc, wsum, torch.uint16)
+        else:
+            want = plain.fuse_overwrite(
+                torch.zeros(shape, dtype=torch.uint16, device=dev0),
+                d_tiles, *meta, ff_recip=d_ff)
+        got = canvas.finalize()
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32)
+                   - want[..., :H, :W].to(torch.int32)).abs().max())
+        if err:
+            raise SystemExit(f"sharded (15a): {blend} finalize differs from "
+                             f"the plain version by {err}")
+        ms = call_ms(lambda: canvas.fuse_batch(host, info, crops, valid),
+                     reps=5)
+        log(f"sharded (15a) {blend} on {card}: (1, {n}) over "
+            f"{[str(d) for d in devices]}, bands of {canvas.band} rows, "
+            f"{straddle} tiles straddle a band edge; "
+            f"{'acc/wsum bit-equal, ' if blend == 'feather' else ''}"
+            f"finalize byte-equal to the plain version; fuse_batch "
+            f"{ms:.3f} ms (one upload a card, a launch a band, host "
+            f"enqueue included), launches per band "
+            f"{[b['launches'] for b in canvas.band_stats()]}")
+        del canvas, got, want
+        torch.cuda.empty_cache()
+
+
+def mesh_main_path(work: str, card: str, devices, main_run: dict) -> dict:
+    """15b: phase 5's acquisition and options with mesh_shape=(1, n): the
+    tree byte-equal to phase 5's, e2e against phase 5's, per-band device
+    fuse ms, read-back waits and writes, each card's peak memory."""
+    from image_stitcher_tpu_torch import stitch
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    n = len(devices)
+    out = os.path.join(work, 'mesh_out')
+    distinct = list(dict.fromkeys(devices))
+    for d in distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    cuda_fuse.fuse_overwrite.launches = 0
+    t0 = time.perf_counter()
+    pipe = stitch(main_run['acq'], use_registration=True,
+                  apply_flatfield=True, device=devices,
+                  options=smoke_options(out, mesh_shape=(1, n)))
+    e2e = time.perf_counter() - t0
+    launches = cuda_fuse.fuse_overwrite.launches
+    peaks = {str(d): torch.cuda.max_memory_allocated(d) for d in distinct}
+    stats = pipe.fuse_stats['A1_t0']
+    bands = stats['bands']
+    width, height = pipe._region_dimensions(0, 'A1')
+    canvas_bytes = pipe.acq.num_c * height * width * 2
+    peak_host = stats['peak_host_bytes']
+    if launches == 0 or launches != sum(b['launches'] for b in bands):
+        raise SystemExit(f"mesh (15b): {launches} fuse_overwrite launches "
+                         f"for bands {bands}")
+    if not 0 < peak_host < canvas_bytes:
+        raise SystemExit(f"mesh (15b): the host held {peak_host} B of "
+                         f"pieces at once, the whole canvas is "
+                         f"{canvas_bytes} B")
+    t_cmp = time.perf_counter()
+    files = digests_equal(main_run['digest'], tree_digest(out),
+                          "mesh (15b) against phase 5's tree")
+    n_tiles = len(pipe._build_jobs(0, 'A1'))
+    log(f"mesh (15b) on {card}: (1, {n}) over {[str(d) for d in devices]}: "
+        f"tree byte-equal to phase 5's ({files} files, SHA-256, "
+        f"{time.perf_counter() - t_cmp:.1f}s); e2e {e2e:.3f}s = "
+        f"{n_tiles / e2e:.2f} tiles/s against phase 5's "
+        f"{main_run['e2e_s']:.3f}s = {main_run['tiles_per_s']:.2f} tiles/s "
+        f"in this call; fuse_overwrite launches {launches}")
+    for b, waited, wrote in zip(bands, stats['readback_wait'],
+                                stats['write']):
+        log(f"mesh (15b) band {b['band']} on {b['device']}: rows "
+            f"{b['start']}-{b['start'] + b['rows']}, {b['launches']} "
+            f"launches, fuse {b['fuse_ms']:.3f} ms on the card (CUDA "
+            f"events), read-back wait {waited:.3f}s, write {wrote:.3f}s")
+    log(f"mesh (15b): loads + uploads + launches {stats['fuse']:.3f}s, "
+        f"writer close {stats['close']:.3f}s; peak device memory "
+        + ", ".join(f"{d} {v / 2 ** 30:.3f} GiB" for d, v in peaks.items())
+        + f" (a repeated device holds each of its bands); the whole canvas "
+        f"{canvas_bytes / 2 ** 30:.3f} GiB, the peak of the host's live "
+        f"pieces {peak_host / 2 ** 30:.3f} GiB")
+    shutil.rmtree(out)
+    return {'e2e_s': e2e, 'tiles_per_s': n_tiles / e2e,
+            'launches': launches, 'peaks': peaks, 'height': height,
+            'width': width, 'band_rows': stats['band_rows']}
+
+
+#: one rank of phase 15c: joins the group, warms its card, then stitches
+#: its work shard of the plate with stitch_distributed (argv: rank, ranks,
+#: port, the parent's clock at the spawn, the config file)
+RANK_SCRIPT = r"""
+import json, sys, time
+rank, ranks, port, t_spawn, cfg = (int(sys.argv[1]), int(sys.argv[2]),
+                                   int(sys.argv[3]), float(sys.argv[4]),
+                                   sys.argv[5])
+import numpy as np, torch
+from image_stitcher_tpu_torch import (CarriedState, EngineOptions,
+                                      StitchingParameters)
+from image_stitcher_tpu_torch.core.geometry import RegistrationShifts
+from image_stitcher_tpu_torch.parallel import distributed as dist
+c = dist.initialize(f"localhost:{port}", num_processes=ranks, process_id=rank)
+torch.zeros(1, device=c.device)
+if c.device.type == 'cuda':
+    torch.cuda.synchronize(c.device)
+startup = time.time() - t_spawn
+with open(cfg) as f:
+    cfg = json.load(f)
+with np.load(cfg['flatfields']) as z:
+    fields = {int(k): z[k] for k in z.files}
+shifts = {k: tuple(v) if isinstance(v, list) else v
+          for k, v in cfg['shifts'].items()}
+state = CarriedState(flatfields=fields, shifts=RegistrationShifts(**shifts))
+params = StitchingParameters(input_folder=cfg['acq'], **cfg['kw'])
+opts = EngineOptions(output_folder=cfg['out'], **{
+    k: tuple(v) if isinstance(v, list) else v for k, v in cfg['opts'].items()})
+torch.distributed.barrier()
+t0 = time.perf_counter()
+pipe = dist.stitch_distributed(params, opts, state=state)
+e2e = time.perf_counter() - t0
+t = pipe.timers.as_dict()
+print("RANK-RESULT " + json.dumps({
+    "rank": rank, "startup_s": startup, "e2e_s": e2e,
+    "units": len(pipe.saved_paths), "shard": list(pipe.options.work_shard),
+    "barrier_s": t.get('shard_barrier', 0.0), "merge_s": t.get('merge', 0.0),
+    "device": str(pipe.device), "backend": c.device_backend}), flush=True)
+dist.shutdown()
+"""
+
+
+def sharded_plate(work: str, card: str, merges: dict, ranks: int = 2) -> dict:
+    """15c: phase 10's plate (both timepoints, every well) in ``ranks``
+    processes spawned together, one group on this host; each stitches
+    its work shard, rank 0 runs both merges after the barrier. The tree
+    is byte-equal to phase 10's uninterrupted one (its fields and shifts
+    carried into every rank)."""
+    import dataclasses
+    import socket
+    out = os.path.join(work, 'plate_sharded')
+    fields = os.path.join(work, 'plate_fields.npz')
+    np.savez(fields, **{str(k): v for k, v in merges['flatfields'].items()})
+    opts = dataclasses.asdict(smoke_options(out, **merges['extra']))
+    del opts['output_folder']
+    cfg = os.path.join(work, 'plate_ranks.json')
+    with open(cfg, 'w') as f:
+        json.dump({'acq': merges['acq'], 'out': out, 'flatfields': fields,
+                   'shifts': dataclasses.asdict(merges['shifts']),
+                   'kw': merges['kw'], 'opts': opts}, f)
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_spawn = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, '-c', RANK_SCRIPT, str(r), str(ranks), str(port),
+         repr(t_spawn), cfg], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, cwd=root)
+        for r in range(ranks)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        line = [x for x in text.splitlines() if x.startswith('RANK-RESULT ')]
+        if p.returncode != 0 or not line:
+            raise SystemExit(f"sharded plate (15c): rank {r} exited "
+                             f"{p.returncode}:\n{text[-3000:]}")
+        results.append(json.loads(line[-1].split(' ', 1)[1]))
+        for x in text.splitlines():
+            if x.startswith('distributed:'):
+                log(f"sharded plate (15c) rank {r}: {x}")
+    # every rank on a card; ranks that share a card pass device tensors
+    # over gloo, ranks with a card each over NCCL
+    backend = 'nccl' if torch.cuda.device_count() >= ranks else 'gloo'
+    for r in results:
+        if not r['device'].startswith('cuda:') or r['backend'] != backend:
+            raise SystemExit(f"sharded plate (15c): rank {r['rank']} on "
+                             f"{r['device']} over {r['backend']}, not a card "
+                             f"over {backend}")
+    units = 2 * len(WELLS)
+    share = sorted(units // ranks + (k < units % ranks) for k in range(ranks))
+    if sorted(r['units'] for r in results) != share \
+            or results[0]['merge_s'] <= 0 \
+            or any(r['merge_s'] for r in results[1:]):
+        raise SystemExit(f"sharded plate (15c): units or merges {results}")
+    files = digests_equal(merges['digest'], tree_digest(out),
+                          "sharded plate (15c) against phase 10's tree")
+    e2e = max(r['e2e_s'] for r in results)
+    log(f"sharded plate (15c) on {card}: {ranks} ranks on "
+        f"{sorted({r['device'] for r in results})}, device tensors over "
+        f"{results[0]['backend']}; tree byte-equal to phase 10's "
+        f"uninterrupted one ({files} files); e2e {e2e:.3f}s (the slower "
+        f"rank, from a barrier after start-up) against phase 10's "
+        f"single-process {merges['e2e_whole_s']:.3f}s in this call")
+    for r in results:
+        log(f"sharded plate (15c) rank {r['rank']}: shard {r['shard']}, "
+            f"{r['units']} units, start-up {r['startup_s']:.3f}s (spawn, "
+            f"imports, the group, the card), e2e {r['e2e_s']:.3f}s, barrier "
+            f"wait {r['barrier_s']:.3f}s, merges {r['merge_s']:.3f}s")
+    shutil.rmtree(out)
+    return {'e2e_s': e2e, 'ranks': results}
+
+
+def phase_mesh(work: str, card: str, main_run: dict, merges: dict) -> dict:
+    """15: the mesh and the work shards on the card (run after phase 10,
+    on the acquisitions and trees of phases 5 and 10)."""
+    t_phase = time.perf_counter()
+    devices = mesh_devices()
+    run = mesh_main_path(work, card, devices, main_run)
+    sharded_check(card, devices, run['height'], run['width'], run['band_rows'])
+    if torch.cuda.device_count() >= 2:
+        # one process a card: device tensors over NCCL
+        from image_stitcher_tpu_torch.parallel import distributed
+        t0 = time.perf_counter()
+        distributed.run_localhost_validation(
+            num_processes=torch.cuda.device_count(), devices_per_process=1,
+            timeout=300, platform='cuda')
+        log(f"mesh (15a): the localhost validation over "
+            f"{torch.cuda.device_count()} processes, one card each, passed "
+            f"in {time.perf_counter() - t0:.1f}s")
+    plate = sharded_plate(work, card, merges)
+    banned = [m for m in BANNED if m in sys.modules]
+    if banned:
+        raise SystemExit(f"mesh: loaded {banned}")
+    if torch.cuda.current_device() != 0:
+        raise SystemExit("mesh: a launch left another card current")
+    log(f"mesh: phase 15 in {time.perf_counter() - t_phase:.1f}s")
+    return {'run': run, 'plate': plate}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -3368,10 +3723,12 @@ def main() -> int:
     phase_build()
     kern = phase_kernels()
     work = tempfile.mkdtemp(prefix='chip_smoke_')
+    # phase 5's acquisition, kept for phase 15
+    keep = tempfile.mkdtemp(prefix='chip_smoke_keep_')
     try:
         phase_slice_parity(work)
         phase_slice_parity(work, quality=True)
-        main_run = phase_main_path(work, card)
+        main_run = phase_main_path(work, card, keep=keep)
         quality_run = phase_quality_path(work, card)
         shutil.rmtree(work, ignore_errors=True)   # the plate needs the room
         os.makedirs(work)
@@ -3382,21 +3739,22 @@ def main() -> int:
         phase_other_codecs(work, card, output_layer)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        shutil.rmtree(work, ignore_errors=True)
-        os.makedirs(work)
         tile_input = phase_tile_input(work, card)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         phase_jpeg(work, card, tile_input['rates'])
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        phase_merges(work, card)
+        merges = phase_merges(work, card)
+        phase_mesh(work, card, main_run, merges)
+        shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         ome_tiff = phase_ome_tiff(work, card)
         phase_editions(work, card, ome_tiff['grid_3x3'])
     finally:
         shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(keep, ignore_errors=True)
     launches = {'fuse_overwrite': main_run['launches'],
                 'fuse_feather': quality_run['launches'],
                 'finalize_feather': quality_run['finalize_launches']}

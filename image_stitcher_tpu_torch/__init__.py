@@ -11,7 +11,10 @@ blosclz, snappy; hand-written C, ``csrc/blosc.c``), or raw, or into pyramidal OM
 the CPU through the JAX package's host C (``csrc/hostops.c``). Every run
 keeps a manifest it can be resumed from
 (``resume=True``), and can merge its timepoints and HCS wells into
-series and plates, their pyramids folded on the card.
+series and plates, their pyramids folded on the card. With
+``mesh_shape`` a canvas is banded over several devices and streamed to
+the writer band by band; with ``work_shard`` (``parallel/distributed.py``
+over ``torch.distributed``) several processes share one run.
 :func:`open_stitched` and :func:`list_outputs` reopen the results.
 
 It imports torch and never jax, and nothing of ``image_stitcher_tpu``:
@@ -35,8 +38,9 @@ def stitch(input_folder: str, **kwargs):
     (EngineOptions), ``reporter``, ``stop_event``, ``resume`` (go on
     from the newest compatible unfinished run of this acquisition, or
     from ``options.output_folder``'s manifest), ``device`` (a
-    torch.device, CUDA by default) and ``state`` (a CarriedState; a
-    resumed run's manifest wins over it)."""
+    torch.device, CUDA by default, or a sequence of them: the devices a
+    ``mesh_shape`` run bands its canvases over) and ``state`` (a
+    CarriedState; a resumed run's manifest wins over it)."""
     from .models.pipeline import StitchPipeline
     extra = {k: kwargs.pop(k) for k in ('options', 'reporter', 'stop_event',
                                         'resume', 'device', 'state')

@@ -64,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.h"
+
 namespace {
 
 constexpr int kMaxBatch = 64;
@@ -402,7 +404,8 @@ int fuse_feather_launch(int device, int itemsize, float* acc, float* wsum,
   if (n < 0 || n > kMaxBatch || th <= 0 || tw <= 0 || blend_px < 1 ||
       (itemsize != 1 && itemsize != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   Batch b;
   b.n = 0;
@@ -473,7 +476,8 @@ int finalize_feather_launch(int device, int itemsize, const float* acc,
       s0 < 0 || r0 + rows > canvas_h || s0 + cols > canvas_w ||
       (itemsize != 1 && itemsize != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (planes == 0 || rows == 0 || cols == 0) return 0;
   dim3 grid((cols + kFinalizeThreads - 1) / kFinalizeThreads,

@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.h"
+
 namespace {
 
 constexpr int kMaxBatch = 64;
@@ -312,7 +314,8 @@ int fuse_overwrite_launch(int device, int itemsize, void* canvas, int num_z,
       (th + kStripRows - 1) / kStripRows > 65535 ||
       (itemsize != 1 && itemsize != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;
   Batch b;

@@ -21,6 +21,12 @@ thread while region N+1 fuses. ``fusion_device='host'`` fuses on the CPU
 instead (``ops/host_fuse.py``'s ``HostCanvas`` whole, ``models/
 streaming.py``'s ``StreamingFuser`` in bands), its bands starting as
 each channel's field is fitted; 'auto' stays on the device. With
+``mesh_shape`` every canvas is cut into Y bands over a mesh of devices
+(``parallel/sharded_fuse.py``) and written band by band
+(:meth:`StitchPipeline._stitch_and_save_sharded`); with ``work_shard``
+several processes share one output folder, each stitching its units,
+the coordinator merging after a bounded barrier
+(``parallel/distributed.py``). With
 ``registration_report``
 the per-pair measurements and solve statistics land in
 ``registration_report.json``; ``debug_visuals`` writes the center
@@ -35,8 +41,10 @@ Output tree: ``{out}/{t}_stitched/{region}_stitched.ome.zarr`` or
 same sampling, geometry and metadata as the JAX package, so the two
 packages write equal trees for the same input (tested).
 
-The pipeline runs on an explicit ``device``, CUDA by default. It never
-moves to another device by itself: without CUDA, a CUDA pipeline raises.
+The pipeline runs on an explicit ``device``, CUDA by default, or on a
+sequence of devices, which a ``mesh_shape`` run bands its canvases over
+(the first runs everything else). It never moves to another device by
+itself: without CUDA, a CUDA pipeline raises.
 """
 
 from __future__ import annotations
@@ -102,6 +110,14 @@ class StitchPipeline:
         self.params = params
         self.options = options or EngineOptions()
         self.options.validate()
+        #: the devices of a ``mesh_shape`` run: ``device`` as a sequence,
+        #: or None (every CUDA card, ``parallel/mesh.py::make_mesh``)
+        self.mesh_devices = None
+        if isinstance(device, (list, tuple)):
+            self.mesh_devices = [resolve_device(d) for d in device]
+            if not self.mesh_devices:
+                raise ValueError("device: an empty sequence of devices")
+            device = self.mesh_devices[0]
         self.device = resolve_device(device)
         self.reporter = reporter or ProgressReporter()
         self.stop_event = stop_event
@@ -115,7 +131,10 @@ class StitchPipeline:
             # needs a compatible manifest, or none at all
             self.output_folder = self.options.output_folder
             if resume:
-                m = RunManifest.load(self.output_folder)
+                # a finished manifest is fine here: a work shard re-run
+                # with resume skips every unit it completed
+                m = RunManifest.load(self.output_folder,
+                                     suffix=self._shard_suffix())
                 if m is not None and not m.compatible_with(
                         params.to_dict(), self.options.output_fingerprint()):
                     raise ValueError(
@@ -178,6 +197,47 @@ class StitchPipeline:
     def _check_stop(self):
         if self.stop_event is not None and self.stop_event.is_set():
             raise StitchCancelled("stitching cancelled")
+
+    def _shard_suffix(self) -> str:
+        """'.shard{i}' for work shard i: the manifest and registration
+        report of each shard sharing an output folder; '' otherwise."""
+        shard = self.options.work_shard
+        return f".shard{shard[0]}" if shard is not None else ""
+
+    def _shard_barrier(self) -> None:
+        """Wait for every cooperating process before the merges; a no-op
+        without a process group of more than one process (sequential
+        shards).
+
+        Bounded: the wait is gloo's ``monitored_barrier`` with
+        ``merge_barrier_timeout_s``, so a shard that died before the
+        merge point FAILS this process with recovery guidance instead of
+        deadlocking it; a timeout of 0 takes the untimed ``barrier``."""
+        import datetime
+
+        import torch.distributed as tdist
+        if not (tdist.is_available() and tdist.is_initialized()
+                and tdist.get_world_size() > 1):
+            return
+        from ..parallel.distributed import control_group
+        group = control_group()
+        timeout_s = self.options.merge_barrier_timeout_s
+        try:
+            if timeout_s:
+                tdist.monitored_barrier(
+                    group=group,
+                    timeout=datetime.timedelta(seconds=timeout_s))
+            else:
+                tdist.barrier(group=group)
+        except Exception as e:
+            raise RuntimeError(
+                "pre-merge shard barrier failed (timeout "
+                f"{timeout_s:.0f}s) — a cooperating shard likely died "
+                "before reaching the merge point. Recovery: re-run the "
+                "dead shard with --resume into the same output folder "
+                "(it skips its completed units), then re-run the "
+                "coordinator shard with --resume to complete the "
+                f"merges. (cause: {e})") from e
 
     def _dtype_max(self) -> float:
         dt = self.acq.dtype
@@ -1063,6 +1123,127 @@ class StitchPipeline:
                     f"{k}={v:.2f}s" for k, v in fuser.cpu.items()), False)
         return output_path
 
+    def _stitch_and_save_sharded(self, t, region: str) -> str:
+        """Fuse one (timepoint, region) over a device mesh and write it
+        band by band (``parallel/sharded_fuse.ShardedCanvas``): the
+        canvas is cut into one Y band per device of the canvas axis, each
+        band a multiple of the writer's band rows
+        (``models/streaming.py::band_rows_for``), so no pyramid window
+        crosses two bands, and a device whose band would start past the
+        canvas holds nothing. After the last batch the bands go to the
+        host piece by piece (:meth:`ShardedCanvas.iter_bands`): one (c, z)
+        plane's rows of one band, cut again at the band path's band
+        height, each copied on a side stream of its device only when the
+        writer's hand-off has room. One writer thread writes each piece's
+        rows and pyramid levels in row order, as the band path does. At
+        most three pieces are alive on the host (one being written, one in
+        the hand-off, one being copied; ``fuse_stats[...]
+        ['peak_host_bytes']`` is their peak), so no device and no host
+        buffer ever holds the whole canvas. Any writer of :meth:`_writer`
+        takes them.
+
+        The tree is the band path's: rows of a (c, z) plane that no tile
+        reaches within one of the band path's bands
+        (``DeviceStreamingFuser``'s band height) are not written, and
+        read as the fill value, as the band path leaves them."""
+        from ..parallel.mesh import make_mesh
+        from ..parallel.sharded_fuse import ShardedCanvas
+        from .streaming import (band_levels, band_rows_for,
+                                partition_jobs_by_band, write_band_levels,
+                                write_behind)
+        acq = self.acq
+        opts = self.options
+        width, height = self._region_dimensions(t, region)
+        th, tw = acq.input_height, acq.input_width
+        levels = self.num_pyramid_levels
+        jobs = self._build_jobs(t, region)
+        total = len(jobs)
+        if opts.validate_plan:
+            from ..utils.plan_check import summarize_plan
+            self.reporter.status(summarize_plan(jobs, th, tw), False)
+        mesh = make_mesh(opts.mesh_shape, self.mesh_devices)
+        n_bands = opts.mesh_shape[1]
+        align = band_rows_for(opts.write_band_rows(), levels)
+        band = -(-(-(-height // n_bands)) // align) * align
+        # the band path's bands, and which (c, z, band start) it writes
+        path_band = band_rows_for(
+            opts.write_band_rows() * opts.device_band_multiple, levels)
+        written = set(partition_jobs_by_band(jobs, th, height,
+                                             path_band)[0])
+        self._await_ff()
+        canvas = ShardedCanvas(mesh, acq.num_c, acq.num_z, height, width,
+                               th, tw, acq.dtype,
+                               blend_method=opts.blend_method,
+                               blend_px=opts.feather_px,
+                               ff_recip=self._ff_recip_or_none(), band=band)
+        on_cuda = any(d.type == 'cuda' for d in canvas.devices)
+        loader = TileBatchLoader(jobs, opts.fusion_batch, th, tw, acq.dtype,
+                                 num_threads=opts.resolved_reader_threads(),
+                                 pin_memory=on_cuda)
+        # per band: its pieces' read-back waits and writes (seconds)
+        stats = {'fuse': 0.0, 'readback_wait': [0.0] * len(canvas.bands),
+                 'write': [0.0] * len(canvas.bands), 'close': 0.0,
+                 'peak_host_bytes': 0}
+        t0 = time.perf_counter()
+        processed = batches = 0
+        for batch in loader:
+            self._check_stop()
+            canvas.fuse_batch(batch.tiles, batch.info, batch.crops,
+                              batch.valid)
+            batches += 1
+            processed += batch.count
+            self.reporter.update_progress(processed, total)
+        stats['fuse'] = time.perf_counter() - t0
+        output_path = self.per_timepoint_region_output_template.format(
+            timepoint=t, region=region)
+        os.makedirs(os.path.dirname(output_path), exist_ok=True)
+        writer = self._writer(t, region, output_path,
+                              (1, acq.num_c, acq.num_z, height, width),
+                              levels)
+        live = [0]        # host bytes of the pieces not yet written
+        lock = threading.Lock()
+
+        def pieces():
+            for item in canvas.iter_bands(
+                    piece_rows=path_band,
+                    keep=lambda c, z, r0: (c, z, r0 // path_band
+                                           * path_band) in written):
+                with lock:
+                    live[0] += item[3].nbytes
+                    stats['peak_host_bytes'] = max(stats['peak_host_bytes'],
+                                                   live[0])
+                yield item
+                item = None
+
+        def write(item):
+            c, z, r0, host, event = item
+            t1 = time.perf_counter()
+            if event is not None:
+                event.synchronize()
+            t2 = time.perf_counter()
+            write_band_levels(writer, c, z, r0, band_levels(
+                host.numpy(), levels, opts.pyramid_downsample))
+            stats['readback_wait'][r0 // band] += t2 - t1
+            stats['write'][r0 // band] += time.perf_counter() - t2
+            with lock:
+                live[0] -= host.nbytes
+
+        write_behind(pieces(), write, writer)
+        t0 = time.perf_counter()
+        writer.close()
+        stats['close'] = time.perf_counter() - t0
+        self.fuse_stats[f"{region}_t{t}"] = dict(
+            stats, batches=batches, band_rows=band,
+            bands=canvas.band_stats())
+        self.reporter.status(
+            f"mesh {opts.mesh_shape}: {len(canvas.bands)} bands of {band} "
+            f"rows on {[str(d) for d in canvas.devices]}; fuse "
+            f"{stats['fuse']:.2f}s, read-back waits "
+            f"{sum(stats['readback_wait']):.2f}s, writes "
+            f"{sum(stats['write']):.2f}s, close {stats['close']:.2f}s",
+            False)
+        return output_path
+
     # ------------------------------------------------------------------ save
 
     def save_region(self, t, region: str, canvas,
@@ -1272,6 +1453,8 @@ class StitchPipeline:
                 return
             completed(path, timepoint, region)
 
+        shard = self.options.work_shard
+        unit_idx = -1
         try:
             for timepoint in self.acq.timepoints:
                 timepoint = int(timepoint)
@@ -1280,6 +1463,11 @@ class StitchPipeline:
                             exist_ok=True)
                 for region in self.acq.regions:
                     self._check_stop()
+                    unit_idx += 1
+                    if shard is not None and unit_idx % shard[1] != shard[0]:
+                        # another shard owns this unit (deterministic
+                        # round robin over the (t, region) enumeration)
+                        continue
                     if manifest.is_completed(timepoint, region):
                         final_path = (self.per_timepoint_region_output_template
                                       .format(timepoint=timepoint,
@@ -1290,8 +1478,16 @@ class StitchPipeline:
                         continue
                     self.reporter.starting_stitching()
                     try:
-                        stream = self._should_stream(timepoint, region)
-                        if stream:
+                        # an explicit mesh overrides backend selection:
+                        # bands over its devices, streamed to the writer
+                        sharded = self.options.mesh_shape is not None
+                        stream = sharded or self._should_stream(timepoint,
+                                                                region)
+                        if sharded:
+                            with self.timers.time('sharded_fuse_save'):
+                                path = self._stitch_and_save_sharded(
+                                    timepoint, region)
+                        elif stream:
                             with self.timers.time('stream_fuse_save'):
                                 path = self._stitch_and_save_streaming(
                                     timepoint, region)
@@ -1344,7 +1540,8 @@ class StitchPipeline:
         if not (self.options.registration_report
                 and self.registration_reports):
             return
-        path = os.path.join(self.output_folder, "registration_report.json")
+        path = os.path.join(self.output_folder, "registration_report"
+                            + self._shard_suffix() + ".json")
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
             json.dump({"registration_channel": self.registration_channel,
@@ -1360,9 +1557,10 @@ class StitchPipeline:
             with self.timers.time('scan'):
                 self.acq = scan_acquisition(self.input_folder)
             os.makedirs(self.output_folder, exist_ok=True)
-            manifest = ((RunManifest.load(self.output_folder)
+            suffix = self._shard_suffix()
+            manifest = ((RunManifest.load(self.output_folder, suffix=suffix)
                          if self.resumed else None)
-                        or RunManifest(self.output_folder))
+                        or RunManifest(self.output_folder, suffix=suffix))
             manifest.set_params(self.params.to_dict(),
                                 self.options.output_fingerprint())
             self._prepare(manifest)
@@ -1370,7 +1568,19 @@ class StitchPipeline:
             self._manifest = manifest
             final_path = self._process_regions(manifest)
             self._await_ff()   # a host-fused run's fit: its error surfaces
-            if self.params.merge_timepoints or self.params.merge_hcs_regions:
+            shard = self.options.work_shard
+            do_merge = (self.params.merge_timepoints
+                        or self.params.merge_hcs_regions)
+            if do_merge and shard is not None:
+                # the merges read every shard's region outputs: every
+                # process meets here first
+                with self.timers.time('shard_barrier'):
+                    self._shard_barrier()
+            if do_merge and shard is not None and shard[0] != 0:
+                self.reporter.status(
+                    "merges are the coordinator shard's job; skipping on "
+                    f"shard {shard[0]}", False)
+            elif do_merge:
                 if self.resumed and manifest.data.get("merges_done"):
                     self.reporter.status("Merges already complete; skipping",
                                          False)

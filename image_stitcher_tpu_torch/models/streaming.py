@@ -33,7 +33,7 @@ import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,6 +85,62 @@ def write_band_levels(writer, c: int, z: int, band0: int, levels,
         if i == 0:
             released = r
     return released is True
+
+
+def write_behind(items: Iterable, write: Callable, writer) -> None:
+    """Call ``write(item)`` for each item of ``items`` on one writer
+    thread, behind a hand-off that holds one item, while the caller's
+    thread produces the next. An error on either side stops both: a band
+    still waiting in the hand-off is dropped, ``writer`` is aborted (its
+    queued chunks must not land after the error is reported) and the
+    error is raised here. On success the caller closes the writer."""
+    handoff: "queue.Queue" = queue.Queue(maxsize=1)
+    write_err: List[BaseException] = []
+
+    def writer_loop():
+        while True:
+            item = handoff.get()
+            if item is None:
+                return
+            try:
+                write(item)
+            except BaseException as e:  # surfaced on the caller's thread
+                write_err.append(e)
+                return
+            del item       # written: not kept alive while the next waits
+
+    wt = threading.Thread(target=writer_loop, name='band-writer',
+                          daemon=True)
+    wt.start()
+    failure = None
+    try:
+        for item in items:
+            while not write_err:
+                try:
+                    handoff.put(item, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+            item = None
+            if write_err:
+                break
+    except BaseException as e:
+        failure = e
+    while wt.is_alive():
+        if failure is not None:
+            try:
+                handoff.get_nowait()
+            except queue.Empty:
+                pass
+        try:
+            handoff.put(None, timeout=0.5)
+            break
+        except queue.Full:
+            continue
+    wt.join()
+    if failure is not None or write_err:
+        writer.abort()
+        raise failure if failure is not None else write_err[0]
 
 
 def band_canvas_shape(tile_h: int, tile_w: int, band: int,
@@ -712,74 +768,33 @@ class DeviceStreamingFuser:
             if progress_cb is not None:
                 progress_cb(done[0], n_jobs)
 
-        handoff: "queue.Queue" = queue.Queue(maxsize=1)
-        write_err: List[BaseException] = []
-
-        def writer_loop():
-            while True:
-                item = handoff.get()
-                if item is None:
-                    return
-                c, z, band0, host, event = item
-                try:
-                    t0 = time.perf_counter()
-                    if event is not None:
-                        event.synchronize()
-                    t1 = time.perf_counter()
-                    write_band_levels(self.writer, c, z, band0,
-                                      band_levels(host.numpy(),
-                                                  self.num_levels, self.mode))
-                    self.stats['readback_wait'] += t1 - t0
-                    self.stats['write'] += time.perf_counter() - t1
-                except BaseException as e:  # surfaced on the main thread
-                    write_err.append(e)
-                    return
-
-        wt = threading.Thread(target=writer_loop, name='band-writer',
-                              daemon=True)
-        wt.start()
-        fuse_exc = None
-        try:
+        def fused():
             # (z, band0, c) order: all channels of one band row finish
             # close together
             for key in sorted(tasks.keys(), key=lambda k: (k[1], k[2], k[0])):
                 if stop_check is not None:
                     stop_check()
-                if write_err:
-                    break
                 c, z, band0 = key
                 t0 = time.perf_counter()
                 host, event = self._fuse_band(c, band0, tasks[key], progress,
                                               stop_check=stop_check)
                 self.stats['fuse'] += time.perf_counter() - t0
-                while not write_err:
-                    try:
-                        handoff.put((c, z, band0, host, event), timeout=0.5)
-                        break
-                    except queue.Full:
-                        continue
-                host = event = None
-        except BaseException as e:
-            fuse_exc = e
-        # stop the writer; on an error, drop a band still waiting in the
-        # hand-off rather than write it for a run being abandoned
-        while wt.is_alive():
-            if fuse_exc is not None:
-                try:
-                    handoff.get_nowait()
-                except queue.Empty:
-                    pass
-            try:
-                handoff.put(None, timeout=0.5)
-                break
-            except queue.Full:
-                continue
-        wt.join()
-        if fuse_exc is not None or write_err:
-            # chunks still queued for encoding would land in the tree
-            # after the error is reported
-            self.writer.abort()
-            raise fuse_exc if fuse_exc is not None else write_err[0]
+                yield c, z, band0, host, event
+                host = event = None     # the writer holds the band now
+
+        def write(item):
+            c, z, band0, host, event = item
+            t0 = time.perf_counter()
+            if event is not None:
+                event.synchronize()
+            t1 = time.perf_counter()
+            write_band_levels(self.writer, c, z, band0,
+                              band_levels(host.numpy(), self.num_levels,
+                                          self.mode))
+            self.stats['readback_wait'] += t1 - t0
+            self.stats['write'] += time.perf_counter() - t1
+
+        write_behind(fused(), write, self.writer)
         t0 = time.perf_counter()
         self.writer.close()
         self.stats['close'] = time.perf_counter() - t0

@@ -7,9 +7,11 @@ differs is what the port runs: flatfield (fitted on the host or the
 device), registration (center pair, all pairs, or the global position
 solve with optional subpixel placement; reports and debug images),
 overwrite or feathered fusion on CUDA or on the host, in bands or whole
-canvases, OME-Zarr v2 or v3 with raw or blosc chunks or pyramidal
-OME-TIFF (deflate or raw tiles), the timepoint and HCS merges, and
-resuming a run from its manifest. Every option outside
+canvases or banded over a mesh of devices (``mesh_shape``), OME-Zarr
+v2 or v3 with raw or blosc chunks or pyramidal OME-TIFF (deflate or raw
+tiles), the timepoint and HCS merges, resuming a run from its manifest,
+and work shards (``work_shard``) cooperating on one output folder. Every
+option outside
 those paths raises ``NotImplementedError`` naming the ROADMAP item that
 will bring it, instead of running something else in its place.
 """
@@ -224,15 +226,15 @@ class EngineOptions:
             from .io.blosc import check_settings
             check_settings(self.compressor_cname, self.compressor_clevel,
                            self.compressor_shuffle)
-        unported = [
-            (self.mesh_shape is not None, "multi-device meshes",
-             "item 14, 'multi-GPU'"),
-            (self.work_shard is not None, "work sharding",
-             "item 14, 'multi-GPU'"),
-            (tuple(self.chunks[:3]) != (1, 1, 1),
-             f"chunks {tuple(self.chunks)} spanning several planes",
-             "item 20, 'chunks over several planes'"),
-        ]
-        for hit, what, item in unported:
-            if hit:
-                raise _not_ported(what, item)
+        if self.work_shard is not None:
+            idx, count = self.work_shard
+            if not (count >= 1 and 0 <= idx < count):
+                raise ValueError("work_shard must be (index, count) with "
+                                 "0 <= index < count")
+            if self.output_folder is None:
+                raise ValueError("work_shard requires an explicit "
+                                 "output_folder shared by all shards")
+        if tuple(self.chunks[:3]) != (1, 1, 1):
+            raise _not_ported(
+                f"chunks {tuple(self.chunks)} spanning several planes",
+                "item 20, 'chunks over several planes'")

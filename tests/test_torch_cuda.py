@@ -394,3 +394,70 @@ def test_merge_fold_on_the_card_equals_the_cpu_fold(cuda_device, tmp_path):
     for a, b in zip(got['cuda'], got['cpu']):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(got['cuda'][0][1], vol[0])
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: a launch on cuda:1 from a thread "
+                    "on cuda:0 cannot be made on one card")
+    return torch.device('cuda', 0), torch.device('cuda', 1)
+
+
+@pytest.mark.cuda
+def test_launches_on_another_card_leave_the_current_device(two_cards):
+    """Every launch wrapper gives the calling thread its device back: a
+    launch on a band of cuda:1 from a thread on cuda:0 leaves cuda:0
+    current (an allocation on torch.device('cuda') lands there)."""
+    here, there = two_cards
+    canvas, tiles, info, crops, valid, ff = _batch(30, np.uint16, 24, 20,
+                                                   H=60, W=50)
+    shape = plain.padded_canvas_shape(2, 2, 60, 50, 24, 20)
+    with torch.cuda.device(here):
+        cuda_fuse.fuse_overwrite(canvas.to(there), tiles.to(there), info,
+                                 crops, valid, ff_recip=ff.to(there))
+        assert torch.cuda.current_device() == here.index
+        acc = torch.zeros(shape, device=there)
+        wsum = torch.zeros(shape, device=there)
+        cuda_fuse.fuse_feather(acc, wsum, tiles.to(there), info, crops,
+                               valid, ff_recip=ff.to(there), blend_px=6)
+        assert torch.cuda.current_device() == here.index
+        cuda_fuse.finalize_feather(acc, wsum, torch.uint16)
+        assert torch.cuda.current_device() == here.index
+        assert torch.empty(1, device='cuda').device == here
+        torch.cuda.synchronize(there)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blend", ['overwrite', 'feather'])
+def test_sharded_canvas_on_the_card_matches_plain(cuda_device, blend):
+    """A ShardedCanvas over two bands of the card (a repeated device, or
+    two cards where the host has them), straddling tiles, the field fused
+    in: its bands stream back equal to one plain unbanded canvas."""
+    from image_stitcher_tpu_torch.parallel.mesh import make_mesh
+    from image_stitcher_tpu_torch.parallel.sharded_fuse import ShardedCanvas
+    n_cards = torch.cuda.device_count()
+    devices = ([torch.device('cuda', 0), torch.device('cuda', 1)]
+               if n_cards >= 2 else [torch.device('cuda', 0)] * 2)
+    C, Z, H, W, th, tw = 2, 2, 300, 340, 64, 48
+    _, tiles, info, crops, valid, ff = _batch(31, np.uint16, th, tw, n=24,
+                                              H=H - th, W=W - tw)
+    canvas = ShardedCanvas(make_mesh((1, 2), devices), C, Z, H, W, th, tw,
+                           np.uint16, blend_method=blend, blend_px=12,
+                           ff_recip=ff.numpy())
+    canvas.fuse_batch(tiles.pin_memory(), info, crops, valid)
+    got = torch.ones((C, Z, H, W), dtype=torch.uint16)
+    for c, z, r0, host, event in canvas.iter_bands(piece_rows=64):
+        event.synchronize()
+        got[c, z, r0:r0 + host.shape[0]] = host
+    shape = plain.padded_canvas_shape(C, Z, H, W, th, tw)
+    if blend == 'feather':
+        acc, wsum = plain.fuse_feather(torch.zeros(shape), torch.zeros(shape),
+                                       tiles, info, crops, valid, ff_recip=ff,
+                                       blend_px=12)
+        want = plain.finalize_feather(acc, wsum, torch.uint16)
+    else:
+        want = plain.fuse_overwrite(torch.zeros(shape, dtype=torch.uint16),
+                                    tiles, info, crops, valid, ff_recip=ff)
+    assert torch.equal(got, want[:, :, :H, :W])
+    assert all(b['launches'] == 1 for b in canvas.band_stats())

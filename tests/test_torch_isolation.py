@@ -17,7 +17,8 @@ napari unimportable too, in every process they start (a
 ``sitecustomize`` installs the refusal): the thread and process
 editions, the GUI through its stand-ins, ``process_cli``, ``zarr_cli``
 and the doctor as subprocesses, the coordinate tools, the ASHLAR export
-and both benches. No C source includes a compression library's header
+and both benches; the parallel modules, a mesh run and a two-process
+gloo group. No C source includes a compression library's header
 (zlib, zstd, libjpeg) or links one."""
 
 import ast
@@ -403,3 +404,60 @@ def test_front_ends_and_tools_run_without_pyqt5_napari_jax(tmp_path):
             assert "torch.cuda: NOT AVAILABLE" in run.stdout
             assert run.stdout.index("[Caches]") > run.stdout.index("[Disk]")
     assert [d for d in os.listdir(tmp_path) if d.startswith('acq_cli_stitched_')]
+
+
+PARALLEL_CHILD = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, {repo!r})
+    BLOCKED = {blocked!r}
+    import torch
+    import image_stitcher_tpu_torch as port
+    from image_stitcher_tpu_torch.io.zarr_store import read_array
+    from image_stitcher_tpu_torch.parallel import (distributed, mesh,
+                                                   sharded_fuse, sharded_ops)
+    cpu = torch.device('cpu')
+    pipe = port.stitch({acq!r}, use_registration=True, device=[cpu] * 4,
+                       options=port.EngineOptions(
+                           mesh_shape=(2, 2), chunks=(1, 1, 1, 32, 32),
+                           output_folder={out!r}))
+    level0 = read_array({out!r} + '/0_stitched/A1_stitched.ome.zarr/0')
+    assert level0.shape[:3] == (1, 1, 1) and level0.any(), level0.shape
+    assert len(pipe.fuse_stats['A1_t0']['bands']) == 2
+    shifts = sharded_ops.sharded_phase_cross_correlation(
+        mesh.make_mesh((2, 1), [cpu] * 2), torch.rand(4, 16, 16),
+        torch.rand(4, 16, 16))
+    assert shifts.shape == (4, 2)
+    # two processes in one gloo group: a sum over them, a ShardedCanvas
+    # over the pod mesh gathered and held to the plain fuse_overwrite
+    distributed.run_localhost_validation(num_processes=2,
+                                         devices_per_process=2, timeout=120,
+                                         platform='cpu')
+    loaded = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+    assert not loaded, loaded
+    print('PARALLEL-OK', tuple(level0.shape))
+""")
+
+
+def test_parallel_runs_without_jax(tmp_path):
+    """The parallel modules, a mesh run and a two-process gloo run, with
+    jax and the JAX package unimportable in every process (the workers
+    inherit the ``sitecustomize`` refusal)."""
+    acq = str(tmp_path / "acq")
+    write_synthetic_acquisition(acq, grid_cols=2, grid_rows=2, tile_w=64,
+                                tile_h=64, overlap=16, seed=2,
+                                acq_params_overrides={"pixel_binning": 2})
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(
+        SITECUSTOMIZE.format(blocked=BLOCKED))
+    home = str(tmp_path / "home")
+    _seed_probe_cache(home, str(tmp_path))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=f"{site}{os.pathsep}{REPO}", HOME=home,
+               TMPDIR=str(tmp_path))
+    code = PARALLEL_CHILD.format(repo=str(REPO), blocked=BLOCKED, acq=acq,
+                                 out=str(tmp_path / "out"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-3000:])
+    assert "PARALLEL-OK (1, 1, 1, 144, 112)" in proc.stdout

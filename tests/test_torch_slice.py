@@ -230,17 +230,18 @@ def test_cli_runs_the_slice_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    # feather, the global scope, zarr v3, every blosc codec and the host
-    # fuser run; with an unported companion option they still raise,
-    # naming it
+    # feather, the global scope, zarr v3, every blosc codec, the host
+    # fuser, meshes and work shards run; with an unported companion
+    # option they still raise, naming it
     dict(blend_method='feather', chunks=(1, 2, 1, 2048, 2048)),
     dict(registration_scope='global', fusion_device='host',
-         mesh_shape=(1, 2)),
+         chunks=(1, 2, 1, 2048, 2048)),
     dict(fusion_device='host', chunks=(1, 2, 1, 2048, 2048)),
-    dict(zarr_format=3, mesh_shape=(1, 2)),
+    dict(zarr_format=3, chunks=(1, 1, 2, 2048, 2048)),
     dict(compressor_cname='zstd', chunks=(1, 2, 1, 2048, 2048)),
-    dict(mesh_shape=(1, 2)),
-    dict(work_shard=(0, 2), output_folder='/nonexistent')],
+    dict(mesh_shape=(1, 2), chunks=(2, 1, 1, 2048, 2048)),
+    dict(work_shard=(0, 2), output_folder='/nonexistent',
+         chunks=(1, 2, 1, 2048, 2048))],
     ids=lambda d: next(iter(d)))
 def test_unported_options_raise(tmp_path, option):
     acq = str(tmp_path / "acq")
@@ -251,17 +252,20 @@ def test_unported_options_raise(tmp_path, option):
 
 
 @pytest.mark.parametrize("param", [
-    # OME-TIFF output, merges and resume run; with an unported companion
-    # they still raise, naming it
+    # OME-TIFF output, merges, resume, meshes and work shards run; with an
+    # unported companion they still raise, naming it
     dict(output_format='.ome.tiff',
          options=port.EngineOptions(chunks=(1, 2, 1, 2048, 2048))),
     dict(merge_timepoints=True, output_format='.ome.tiff',
-         options=port.EngineOptions(mesh_shape=(1, 2))),
+         options=port.EngineOptions(mesh_shape=(1, 2),
+                                    chunks=(1, 2, 1, 2048, 2048))),
     dict(merge_hcs_regions=True, output_format='.ome.tiff',
          options=port.EngineOptions(work_shard=(0, 2),
-                                    output_folder='/nonexistent')),
+                                    output_folder='/nonexistent',
+                                    chunks=(1, 1, 2, 2048, 2048))),
     dict(resume=True, options=port.EngineOptions(
-        work_shard=(0, 2), output_folder='/nonexistent'))],
+        work_shard=(0, 2), output_folder='/nonexistent',
+        chunks=(2, 1, 1, 2048, 2048)))],
     ids=lambda d: next(iter(d)))
 def test_unported_parameters_raise(tmp_path, param):
     acq = str(tmp_path / "acq")
