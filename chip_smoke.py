@@ -31,7 +31,8 @@ Phases, each fatal on failure:
   5. main path: a 10x10 x 3-channel 2048^2 uint16 acquisition (~205 px
      overlap, center registration + flatfield, overwrite, raw OME-Zarr
      v2) stitched end to end through ``image_stitcher_tpu_torch.stitch``,
-     with stage times and tiles/s;
+     with stage times and tiles/s (the acquisition and tree are kept for
+     phases 15 and 16);
   6. maximum-quality path: the same grid with +-3 px integer stage
      jitter, all-pairs registration on the card, the global position
      solve, subpixel placement and feathered blending; a 4096-row window
@@ -89,12 +90,13 @@ Phases, each fatal on failure:
      ``.ome.tiff`` on the card and on the CPU (the card run's fields and
      shifts carried) are byte-equal files: u16 mono and u8 RGB (PNG
      tiles), in RAM and in bands, deflate and raw, overwrite and feather
-     (four cases covering each value twice); (b) phase 5's grid and
-     options written as deflate OME-TIFF: every page's level 0 and SubIFD
+     (four cases covering each value twice); (b) phase 5's options on a
+     6x6 cut of its grid (cut for the script's time limit)
+     written as deflate OME-TIFF: every page's level 0 and SubIFD
      levels, walked by ``io/tiff.py::read_pages``, decode equal to a zarr
      tree of the same acquisition, with e2e, tiles/s, the writer's
      seconds, the file's bytes and deflate ratio and the writer's
-     ``peak_buffer_bytes``; (c) the same grid with
+     ``peak_buffer_bytes``; (c) the same 6x6 grid with
      ``fusion_device='host'`` (the host band fuser through
      ``csrc/hostops.c``, the fit gated per channel; raw level-0 chunks
      written as chunk-column blocks from the band threads, bands the
@@ -123,10 +125,18 @@ Phases, each fatal on failure:
      seeded cases: grey and RGB 4:4:4, 4:2:2, 4:2:0 and 4:4:0, quality
      50 / 85 / 95, odd sizes, restart intervals, a 2048^2 grey and a
      2048^2 RGB tile, byte-equal streams and pixels, round trips through
-     both decoders; (b) decode and encode MB/s of 2048^2 u8 tiles, grey
-     q95 and RGB 4:2:0 q85, on one thread and on the 8-thread reader
-     pool; (c) phase 5's grid and options on grey u8 JPEG tiles (q95,
-     OpenCV's imwrite default, Squid's tiles), written by the port's
+     both decoders; then OpenCV's streams kept in
+     ``tests/torch_jpeg_streams.npz`` (progressive grey and RGB 4:4:4 to
+     4:1:1, optimised tables, restart intervals; baseline 4:1:1; two
+     2048^2 progressive tiles), decoded by C to OpenCV's pixels (their
+     SHA-256) and, but the tiles, by the plain version to C's; (b) decode
+     and encode MB/s of 2048^2 u8 tiles, grey q95 and RGB 4:2:0 q85, on
+     one thread and on the 8-thread reader pool, and the decode MB/s of
+     the kept 2048^2 progressive tiles (grey, RGB 4:2:0, q85, smooth
+     content) beside the port's baseline streams of their pixels; (c)
+     phase 5's options on a 6x6 cut of its grid (cut for the
+     script's time limit) on grey u8 JPEG tiles (q95, OpenCV's imwrite
+     default, Squid's tiles), written by the port's
      encoder, stitched on the card: its tree equal to an
      uncompressed-TIFF twin holding the C decoder's pixels, with e2e,
      tiles/s and the loaders' decode seconds beside the twin's e2e; (d)
@@ -154,6 +164,18 @@ Phases, each fatal on failure:
      ``stitch_distributed``, rank 0 running both merges after the
      barrier: the tree byte-equal to phase 10's uninterrupted one, with
      the plate's e2e, each rank's start-up (apart) and barrier wait;
+ 16. (run right after phase 15, on phase 5's kept acquisition and tree)
+     chunks over several planes: (a) phase 5's options with chunks (1, 3,
+     1, 2048, 2048), raw, on the band path: levels decoded equal to phase
+     5's tree, every all-zero chunk absent (the registered canvas's
+     tile-less foot) and every other one stored, with e2e, tiles/s, the
+     writer's seconds and the chunk-row buffer's peak host bytes; (b) the
+     same on the mesh (1, n), its tree byte-equal to (a)'s; (c) a 3x3 x 3
+     channel x Z=3 acquisition with chunks (1, 1, 2, 2048, 2048) in lz4
+     on the band path, in RAM and through the host fuser, byte-equal
+     trees decoded equal to a (1, 1, 1) run; (d) a 2-well, 2-timepoint
+     plate merged (the complete plate) with chunks (2, 3, 1, 2048, 2048)
+     in lz4, decoded equal to its (1, 1, 1) twin;
  14. (run right after phase 11, on 11a's mono 3x3 acquisition) the
      editions and front ends on the card: (a) the child-process edition
      (``models/editions.StitcherProcess``) on its default device, the
@@ -648,7 +670,8 @@ def tiff_bytes_header(h: int, w: int) -> bytes:
 def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
                       seed: int, jitter: int = 0, regions=('A1',),
                       texture=None, encode=None, suffix='tiff',
-                      channels=CHANNELS, timepoints: int = 1):
+                      channels=CHANNELS, timepoints: int = 1,
+                      num_z: int = 1):
     """A Squid acquisition: per timepoint and region (an HCS well; wells
     20 mm apart on the stage), grid x grid tiles of ``tile``^2 uint16 cut
     at ``overlap`` px overlap from one seeded texture of its own (full
@@ -660,16 +683,19 @@ def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
     written for every channel, named ``*.{suffix}``), plus each
     timepoint's coordinates.csv and 'acquisition parameters.json' (the
     layout of the JAX package's test fixtures). Timepoint t > 0 draws
-    from its own seed, (seed, t). Returns (texture, {fov: (y0, x0)}) of
-    timepoint 0's first region."""
+    from its own seed, (seed, t). With ``num_z`` planes, plane z of a
+    tile is its window moved z px right (uncompressed TIFF only).
+    Returns (texture, {fov: (y0, x0)}) of timepoint 0's first region."""
     import csv
+    if encode is not None and num_z != 1:
+        raise ValueError("encoded tiles are written for one z plane")
     step = tile - overlap
     margin = 8
     side = step * (grid - 1) + tile + 2 * margin
     os.makedirs(folder, exist_ok=True)
     with open(os.path.join(folder, 'acquisition parameters.json'), 'w') as f:
-        json.dump(dict(ACQ_PARAMS, Nx=grid, Ny=grid, Nt=timepoints), f,
-                  indent=2)
+        json.dump(dict(ACQ_PARAMS, Nx=grid, Ny=grid, Nt=timepoints,
+                       Nz=num_z), f, indent=2)
     header = tiff_bytes_header(tile, tile)
     first = None
 
@@ -699,21 +725,26 @@ def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
                     y0 = margin + r * step + int(shake[fov, 0])
                     x0 = margin + c * step + int(shake[fov, 1])
                     origins[fov] = (y0, x0)
-                    rows.append({"region": region, "fov": fov, "z_level": 0,
-                                 "x (mm)": round(c * step / 1000.0, 6),
-                                 "y (mm)": round(20.0 * well
-                                                 + r * step / 1000.0, 6),
-                                 "z (um)": 0.0})
-                    body = np.ascontiguousarray(gt[y0:y0 + tile,
-                                                   x0:x0 + tile])
+                    for z in range(num_z):
+                        rows.append({"region": region, "fov": fov,
+                                     "z_level": z,
+                                     "x (mm)": round(c * step / 1000.0, 6),
+                                     "y (mm)": round(20.0 * well
+                                                     + r * step / 1000.0, 6),
+                                     "z (um)": z * ACQ_PARAMS['dz(um)']})
                     if encode is not None:
-                        pending.append((region, fov, body))
+                        pending.append((region, fov, np.ascontiguousarray(
+                            gt[y0:y0 + tile, x0:x0 + tile])))
                         continue
-                    for ch in channels:
-                        name = f"{region}_{fov}_0_{ch.replace(' ', '_')}.tiff"
-                        with open(os.path.join(tdir, name), 'wb') as f:
-                            f.write(header)
-                            body.tofile(f)
+                    for z in range(num_z):
+                        body = np.ascontiguousarray(
+                            gt[y0:y0 + tile, x0 + z:x0 + z + tile])
+                        for ch in channels:
+                            name = (f"{region}_{fov}_{z}_"
+                                    f"{ch.replace(' ', '_')}.tiff")
+                            with open(os.path.join(tdir, name), 'wb') as f:
+                                f.write(header)
+                                body.tofile(f)
             with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
                 list(pool.map(write_encoded, pending))
             pending = []
@@ -842,9 +873,9 @@ def reference_plane(pipe, gt, origins, channel: int, height: int,
 def phase_main_path(work: str, card: str, grid: int = 10,
                     tile: int = TILE, device: str = 'cuda',
                     keep: str = None) -> dict:
-    """5: the main path. With ``keep``, the acquisition is written there
-    (it outlives ``work``, for phase 15b) and the result carries the
-    tree's digest."""
+    """5: the main path. With ``keep``, the acquisition and the tree are
+    written there (they outlive ``work``, for phases 15b and 16a) and the
+    result carries the tree's digest."""
     from image_stitcher_tpu_torch import stitch
     from image_stitcher_tpu_torch.io.omezarr import level_shapes
     from image_stitcher_tpu_torch.io.zarr_store import read_array
@@ -857,7 +888,7 @@ def phase_main_path(work: str, card: str, grid: int = 10,
                                     overlap=205 * tile // TILE, seed=5)
     log(f"main path: wrote {grid}x{grid}x{len(CHANNELS)} {tile}^2 uint16 "
         f"tiles in {time.perf_counter() - t0:.1f}s")
-    out = os.path.join(work, 'main_out')
+    out = os.path.join(keep or work, 'main_out')
     dev = torch.device(device)
     cuda_fuse.fuse_overwrite.launches = 0
     t0 = time.perf_counter()
@@ -932,7 +963,7 @@ def phase_main_path(work: str, card: str, grid: int = 10,
         f"{stats['readback_wait']:.3f}s write={stats['write']:.3f}s; "
         f"channel 0 level 0 equals the NumPy reference")
     return {'launches': launches, 'e2e_s': e2e,
-            'tiles_per_s': n_tiles / e2e, 'acq': acq,
+            'tiles_per_s': n_tiles / e2e, 'acq': acq, 'out': out,
             'digest': tree_digest(out) if keep else None}
 
 
@@ -3006,11 +3037,40 @@ def _jpeg_case(args):
     return label, part, equal, len(stream), psnr(pixels, img)
 
 
+def jpeg_streams():
+    """``tests/torch_jpeg_streams.py``: progressive and 4:1:1 streams
+    written by OpenCV on the CPU test host (the port's encoder writes
+    baseline only, and this host has no OpenCV), each with the SHA-256
+    of OpenCV's pixels."""
+    tile_files()      # puts tests/ on the path
+    import torch_jpeg_streams
+    return torch_jpeg_streams
+
+
+def _kept_case(name):
+    """One 13a case of a kept OpenCV stream, in a worker process: the C
+    decoder's pixels against OpenCV's digest and (but for the 2048^2
+    tiles) the plain decoder's pixels; (label, part, equal, stream bytes,
+    None)."""
+    from image_stitcher_tpu_torch.io import jpeg, jpeg_plain
+    streams = jpeg_streams()
+    data, digest = streams.load()[name]
+    pixels = jpeg.decode(data)
+    equal = streams.pixel_digest(pixels) == digest and (
+        name.startswith('tile') or np.array_equal(jpeg_plain.decode(data),
+                                                  pixels))
+    return name, 'kept', equal, len(data), None
+
+
 def jpeg_check(rng) -> None:
     """13a: the C encoder and decoder against the plain versions on
     ``JPEG_CASES`` (the content: :func:`textures` in u8), byte-equal
-    streams and pixels, the round trip through both decoders; the plain
-    (Python) halves run on a pool of processes."""
+    streams and pixels, the round trip through both decoders; then the
+    kept OpenCV streams (progressive grey and RGB 4:4:4 to 4:1:1 with
+    optimised tables and restart intervals, baseline 4:1:1), each
+    decoded by C to OpenCV's pixels (their SHA-256) and, but the 2048^2
+    tiles, by the plain version to the C decoder's. The plain (Python)
+    halves run on a pool of processes."""
     import multiprocessing
     t0 = time.perf_counter()
     tasks = []
@@ -3022,10 +3082,22 @@ def jpeg_check(rng) -> None:
             tasks.append((label, img, sampling, quality, restart, part))
     # the whole tiles first: they take longest
     tasks.sort(key=lambda t: -t[1].size)
+    kept = [c[0] for c in jpeg_streams().CASES]
     ctx = multiprocessing.get_context('spawn')
     with ctx.Pool(min(len(tasks), os.cpu_count() or 1)) as pool:
+        pending = pool.map_async(_kept_case, kept, chunksize=1)
         results = pool.map(_jpeg_case, tasks, chunksize=1)
+        results += pending.get()
     for label, part, equal, size, quality in sorted(results):
+        if part == 'kept':
+            if not equal:
+                raise SystemExit(f"jpeg: kept stream {label}: the decoders "
+                                 "differ from OpenCV's pixels or each other")
+            log(f"jpeg {label}: OpenCV's stream ({size} bytes) decoded by C "
+                f"to OpenCV's pixels (SHA-256)"
+                + ("" if label.startswith('tile') else
+                   ", the plain decoder's equal"))
+            continue
         if not equal:
             raise SystemExit(f"jpeg: {label}: the C {part}r differs from "
                              f"the plain version")
@@ -3036,7 +3108,8 @@ def jpeg_check(rng) -> None:
             log(f"jpeg {label}: C and plain streams byte-equal ({size} "
                 f"bytes), both decoders' pixels equal, round trip PSNR "
                 f"{quality:.2f} dB")
-    log(f"jpeg: {len(JPEG_CASES)} cases, C equal to plain; 13a in "
+    log(f"jpeg: {len(JPEG_CASES)} cases, C equal to plain, and "
+        f"{len(kept)} kept OpenCV streams equal to OpenCV's pixels; 13a in "
         f"{time.perf_counter() - t0:.1f}s (plain halves on a process pool)")
 
 
@@ -3073,6 +3146,35 @@ def jpeg_rates(rng, card: str, png_rates) -> dict:
             f"{row[READERS][1]:.0f} on {READERS}; encode {row[1][0]:.0f} / "
             f"{row[READERS][0]:.0f} (phase 9's 16-bit PNG tile decode: "
             f"{png[0]:.0f} / {png[1]:.0f})")
+    # progressive tiles: OpenCV's q85 streams of smooth content, beside
+    # the port's baseline streams of the same pixels at the same quality
+    kept = jpeg_streams().load()
+    for label, name, sampling in (('grey u8 progressive', 'tile-prog-grey',
+                                   (1, 1)),
+                                  ('RGB u8 4:2:0 progressive',
+                                   'tile-prog-420', (2, 2))):
+        prog = kept[name][0]
+        pixels = jpeg.decode(prog)
+        base = jpeg.encode(pixels, 85, sampling)
+        row = {'ratio': len(prog) / pixels.nbytes,
+               'baseline_ratio': len(base) / pixels.nbytes}
+        for kind, stream in (('progressive', prog), ('baseline', base)):
+            streams = [stream] * READERS
+            nbytes = pixels.nbytes * READERS
+            for threads in (1, READERS):
+                with ThreadPoolExecutor(threads) as pool:
+                    t0 = time.perf_counter()
+                    list(pool.map(jpeg.decode, streams))
+                    row[kind, threads] = nbytes / (time.perf_counter()
+                                                   - t0) / 1e6
+        rates[label] = row
+        log(f"jpeg MB/s on {card}: {label} 2048^2 q85 (OpenCV's stream, "
+            f"ratio {row['ratio']:.4f}): decode "
+            f"{row['progressive', 1]:.0f} on one thread, "
+            f"{row['progressive', READERS]:.0f} on {READERS}; the port's "
+            f"baseline stream of its pixels (ratio "
+            f"{row['baseline_ratio']:.4f}): {row['baseline', 1]:.0f} / "
+            f"{row['baseline', READERS]:.0f}")
     return rates
 
 
@@ -3718,6 +3820,225 @@ def phase_mesh(work: str, card: str, main_run: dict, merges: dict) -> dict:
 
 # ------------------------------------------------------------------ main
 
+# -------------------------------------------------------------------- 16
+
+def zero_chunks_absent(root: str, what: str):
+    """In every level array of a raw zarr v2 tree under ``root``, a chunk
+    file is there exactly when its decoded block is not all zero (the
+    tensorstore rule for chunks over several planes), each chunk row
+    read on a thread pool; returns (chunks stored, chunks absent)."""
+    from image_stitcher_tpu_torch.io.zarr_store import open_array
+    from image_stitcher_tpu_torch.params import _available_cpus
+    tasks = []
+    for d, _, names in os.walk(root):
+        if '.zarray' not in names:
+            continue
+        arr = open_array(d)
+        ct, cc, cz, cy, cx = arr.chunks
+        for key in np.ndindex(*(-(-n // k) for n, k in
+                                zip(arr.shape[:4], arr.chunks[:4]))):
+            tasks.append((d, arr, key))
+
+    def check(task):
+        d, arr, (ti, ci, zi, yi) = task
+        ct, cc, cz, cy, cx = arr.chunks
+        band = arr[ti * ct:(ti + 1) * ct, ci * cc:(ci + 1) * cc,
+                   zi * cz:(zi + 1) * cz, yi * cy:(yi + 1) * cy]
+        out = [0, 0]
+        for xi in range(-(-arr.shape[4] // cx)):
+            full = bool(band[..., xi * cx:(xi + 1) * cx].any())
+            there = os.path.exists(os.path.join(
+                d, str(ti), str(ci), str(zi), str(yi), str(xi)))
+            if full != there:
+                return f"{d} chunk {(ti, ci, zi, yi, xi)}: stored {there}, " \
+                    f"not all zero {full}"
+            out[not there] += 1
+        return out
+
+    stored = absent = 0
+    with ThreadPoolExecutor(_available_cpus()) as pool:
+        for res in pool.map(check, tasks):
+            if isinstance(res, str):
+                raise SystemExit(f"{what}: {res}")
+            stored, absent = stored + res[0], absent + res[1]
+    return stored, absent
+
+
+def chunk_options(out: str, chunks, **extra):
+    """Phase 5's options (``smoke_options``) with ``chunks`` and the
+    compressor ``extra`` names (raw unless it names one)."""
+    from image_stitcher_tpu_torch import EngineOptions
+    extra.setdefault('compressor_cname', None)
+    return EngineOptions(fusion_batch=10, reader_threads=8,
+                         output_folder=out, chunks=chunks, **extra)
+
+
+def phase_chunks(work: str, card: str, main_run: dict, tile: int = TILE,
+                 device: str = 'cuda') -> dict:
+    """16: chunks over several planes. (a) Phase 5's acquisition and
+    options with chunks (1, 3, 1, 2048, 2048), raw, on the band path: its
+    levels decoded equal to phase 5's tree, and every chunk that is all
+    zero absent (the registered canvas's tile-less foot); e2e, tiles/s,
+    the writer's seconds, the chunk-row buffer's peak host bytes. (b) The
+    same on the mesh (1, n), its tree byte-equal to (a)'s. (c) A 3x3 x 3
+    channel x Z=3 acquisition with chunks (1, 1, 2, 2048, 2048) in lz4 on
+    the band path, in RAM and through the host fuser: byte-equal trees,
+    decoded equal to a (1, 1, 1) run. (d) A 2-well, 2-timepoint plate
+    merged (the complete plate) with chunks (2, 3, 1, 2048, 2048) in lz4,
+    decoded equal to its (1, 1, 1) twin."""
+    from image_stitcher_tpu_torch import CarriedState, stitch
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    dev = torch.device(device)
+    on_cuda = dev.type == 'cuda'
+    overlap = 205 * tile // TILE
+    skip = ('.stitch_manifest.json', 'flatfields.npz')
+    whole = (tile, tile)
+    zarr_of = lambda out: os.path.join(out, '0_stitched',     # noqa: E731
+                                       'A1_stitched.ome.zarr')
+    res = {}
+
+    # 16a: the main path, a chunk the three channels deep
+    out = os.path.join(work, 'chunks_a')
+    cuda_fuse.fuse_overwrite.launches = 0
+    t0 = time.perf_counter()
+    pipe = stitch(main_run['acq'], use_registration=True,
+                  apply_flatfield=True, device=dev,
+                  options=chunk_options(out, (1, 3, 1) + whole))
+    e2e = time.perf_counter() - t0
+    launches = cuda_fuse.fuse_overwrite.launches
+    stats = pipe.fuse_stats['A1_t0']
+    n_tiles = len(pipe._build_jobs(0, 'A1'))
+    if not stats['batches'] or launches != (stats['batches'] if on_cuda
+                                            else 0):
+        raise SystemExit(f"chunks (16a): {launches} launches for "
+                         f"{stats['batches']} batches")
+    t1 = time.perf_counter()
+    arrays = compare_trees_banded(zarr_of(main_run['out']), zarr_of(out),
+                                  "chunks (16a) against phase 5's tree",
+                                  arrays_only=True)
+    stored, absent = zero_chunks_absent(zarr_of(out), "chunks (16a)")
+    if not absent:
+        raise SystemExit("chunks (16a): no all-zero chunk, though the "
+                         "registered canvas's foot holds no tile")
+    digest = tree_digest(out)
+    writer_s = stats['write'] + stats['close']
+    res['a'] = dict(e2e_s=e2e, tiles_per_s=n_tiles / e2e, writer_s=writer_s,
+                    peak_buffer_bytes=stats['peak_buffer_bytes'])
+    log(f"chunks (16a) on {card}: chunks (1, 3, 1, {tile}, {tile}) raw on "
+        f"the band path: e2e {e2e:.3f}s = {n_tiles / e2e:.2f} tiles/s "
+        f"(phase 5: {main_run['e2e_s']:.3f}s in this call); fuse "
+        f"{stats['fuse']:.3f}s, writer {stats['write']:.3f}s + close "
+        f"{stats['close']:.3f}s; the chunk-row buffer's peak "
+        f"{stats['peak_buffer_bytes'] / 2 ** 20:.1f} MiB; {launches} "
+        f"launches; {arrays} levels decoded equal to phase 5's tree; "
+        f"{stored} chunks stored, {absent} all-zero chunks absent "
+        f"(checked in {time.perf_counter() - t1:.1f}s)")
+    shutil.rmtree(out)
+
+    # 16b: the same on the mesh
+    devices = mesh_devices() if on_cuda else [dev] * 2
+    out = os.path.join(work, 'chunks_b')
+    t0 = time.perf_counter()
+    pipe = stitch(main_run['acq'], use_registration=True,
+                  apply_flatfield=True, device=devices,
+                  options=chunk_options(out, (1, 3, 1) + whole,
+                                        mesh_shape=(1, len(devices))))
+    e2e = time.perf_counter() - t0
+    stats = pipe.fuse_stats['A1_t0']
+    files = digests_equal(digest, tree_digest(out),
+                          "chunks (16b, mesh) against 16a")
+    res['b'] = dict(e2e_s=e2e, peak_buffer_bytes=stats['peak_buffer_bytes'],
+                    peak_host_bytes=stats['peak_host_bytes'])
+    log(f"chunks (16b) on {card}: the mesh (1, {len(devices)}) over "
+        f"{[str(d) for d in devices]}: tree byte-equal to 16a's ({files} "
+        f"files, SHA-256); e2e {e2e:.3f}s = {n_tiles / e2e:.2f} tiles/s; "
+        f"host pieces' peak {stats['peak_host_bytes'] / 2 ** 30:.3f} GiB, "
+        f"the chunk-row buffer's {stats['peak_buffer_bytes'] / 2 ** 20:.1f}"
+        f" MiB")
+    shutil.rmtree(out)
+
+    # 16c: z planes two a chunk, on three paths, in lz4
+    acq = os.path.join(work, 'chunks_z3')
+    write_acquisition(acq, 3, tile, overlap, seed=61, num_z=3)
+    runs, state = {}, None
+    for name, key, extra in (
+            ('band', 'band', dict(streaming='on')),
+            ('in RAM', 'inram', dict(streaming='off')),
+            ('host', 'host', dict(streaming='on', fusion_device='host')),
+            ('(1, 1, 1) twin', 'twin', dict(streaming='on'))):
+        chunks = ((1, 1, 1) if key == 'twin' else (1, 1, 2)) + whole
+        out = os.path.join(work, 'chunks_c_' + key)
+        cuda_fuse.fuse_overwrite.launches = 0
+        t0 = time.perf_counter()
+        pipe = stitch(acq, use_registration=True, apply_flatfield=True,
+                      device=dev, state=state, options=chunk_options(
+                          out, chunks, compressor_cname='lz4', **extra))
+        e2e = time.perf_counter() - t0
+        state = state or CarriedState(flatfields=pipe.flatfields,
+                                      shifts=pipe.shifts)
+        launches = cuda_fuse.fuse_overwrite.launches
+        if on_cuda and (key == 'host') != (launches == 0):
+            raise SystemExit(f"chunks (16c, {name}): {launches} launches")
+        peak = pipe.fuse_stats.get('A1_t0', {}).get('peak_buffer_bytes')
+        runs[name] = (out, e2e)
+        log(f"chunks (16c) on {card}: 3x3 x {len(CHANNELS)} ch x 3 z "
+            f"{tile}^2, chunks {chunks} lz4, {name}: e2e {e2e:.3f}s = "
+            f"{81 / e2e:.2f} tiles/s, {launches} launches"
+            + (f", the chunk-row buffer's peak {peak / 2 ** 20:.1f} MiB"
+               if peak is not None else ""))
+    band = runs['band'][0]
+    nbytes = 0
+    for name in ('in RAM', 'host'):
+        nbytes = files_equal(band, runs[name][0],
+                             f"chunks (16c, {name} against the band path)",
+                             skip=skip)
+    arrays = compare_trees_banded(zarr_of(runs['(1, 1, 1) twin'][0]),
+                                  zarr_of(band), "chunks (16c, against the "
+                                  "(1, 1, 1) twin)", arrays_only=True)
+    log(f"chunks (16c): band path, in RAM and host fuser trees byte-equal "
+        f"({nbytes} bytes); {arrays} levels decoded equal to the (1, 1, 1) "
+        f"twin's")
+    res['c'] = {name: e2e for name, (_, e2e) in runs.items()}
+    for out, _ in runs.values():
+        shutil.rmtree(out)
+    shutil.rmtree(acq)
+
+    # 16d: a plate merged with two timepoints a chunk
+    acq = os.path.join(work, 'chunks_plate')
+    write_acquisition(acq, 3, tile, overlap, seed=71, regions=('A1', 'B1'),
+                      timepoints=2)
+    plates = {}
+    for chunks in ((2, 3, 1) + whole, (1, 1, 1) + whole):
+        out = os.path.join(work, f'chunks_d_{chunks[0]}')
+        t0 = time.perf_counter()
+        pipe = stitch(acq, use_registration=True, apply_flatfield=True,
+                      merge_timepoints=True, merge_hcs_regions=True,
+                      device=dev, options=chunk_options(
+                          out, chunks, compressor_cname='lz4'))
+        e2e = time.perf_counter() - t0
+        merge_s = pipe.timers.as_dict().get('merge', 0.0)
+        plates[chunks[0]] = out
+        log(f"chunks (16d) on {card}: 2 wells x 2 timepoints x 3x3 x "
+            f"{len(CHANNELS)} ch {tile}^2, chunks {chunks} lz4, the "
+            f"complete plate: e2e {e2e:.3f}s, merge {merge_s:.3f}s ("
+            + merge_split(pipe.merge_stats.as_dict()) + ")")
+        res.setdefault('d', {})[chunks[0]] = (e2e, merge_s)
+    plate = os.path.join('hcs_timepoints', 'complete_hcs.ome.zarr')
+    arrays = compare_trees_banded(os.path.join(plates[1], plate),
+                                  os.path.join(plates[2], plate),
+                                  "chunks (16d, against the (1, 1, 1) twin)",
+                                  arrays_only=True)
+    log(f"chunks (16d): the complete plate's {arrays} arrays decoded equal "
+        f"to the (1, 1, 1) twin's")
+    for out in plates.values():
+        shutil.rmtree(out)
+    shutil.rmtree(acq)
+    banned = [m for m in BANNED if m in sys.modules]
+    if banned:
+        raise SystemExit(f"chunks: loaded {banned}")
+    return res
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
@@ -3742,15 +4063,17 @@ def main() -> int:
         tile_input = phase_tile_input(work, card)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        phase_jpeg(work, card, tile_input['rates'])
+        # 13c and 11b/11c on 6x6 cuts of the main grid: the script's time
+        phase_jpeg(work, card, tile_input['rates'], grid=6)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         merges = phase_merges(work, card)
         phase_mesh(work, card, main_run, merges)
+        phase_chunks(work, card, main_run)
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        ome_tiff = phase_ome_tiff(work, card)
+        ome_tiff = phase_ome_tiff(work, card, grid=6)
         phase_editions(work, card, ome_tiff['grid_3x3'])
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -1,5 +1,7 @@
-/* Baseline JPEG written by hand: the decoder of .jpg tiles and the
- * encoder of JPEG OME-TIFF tiles.
+/* JPEG written by hand: the decoder of .jpg tiles (baseline, extended
+ * and progressive Huffman frames; 1, 3 or 4 components; any integral
+ * sampling; YCbCr, RGB, CMYK and YCCK) and the baseline encoder of JPEG
+ * OME-TIFF tiles.
  *
  * The port's host-side counterpart of the libjpeg-turbo that OpenCV links
  * for the JAX package's cv2.imread and cv2.imencode('.jpg'). Built at
@@ -17,7 +19,9 @@
  *
  * Decoding is bound by the Huffman decoder's serial dependency (a 9-bit
  * lookup per symbol, a canonical search for longer codes); the IDCT,
- * upsampling and colour conversion are a few operations a sample.
+ * upsampling and colour conversion are a few operations a sample. A
+ * progressive frame's scans refine the whole frame's coefficients,
+ * which are kept until its last scan.
  */
 
 #include <stdint.h>
@@ -29,16 +33,17 @@
 #define ERR_NOMEM -4
 #define ERR_SPACE -5
 /* streams outside the scope (io/jpeg.py names each) */
-#define ERR_PROGRESSIVE -10
+#define ERR_SMOOTHING -10   /* progressive, libjpeg-turbo would smooth */
 #define ERR_ARITHMETIC -11
 #define ERR_LOSSLESS -12
 #define ERR_HIERARCHICAL -13
 #define ERR_PRECISION -14
 #define ERR_COMPONENTS -15
-#define ERR_SAMPLING -16
-#define ERR_ADOBE -17
-#define ERR_RGB_IDS -18
 #define ERR_COEF_RANGE -19
+
+#define MAX_COMPS 4
+#define MAX_BLOCKS_IN_MCU 10   /* jdhuff.c's limit for interleaved scans */
+#define SMOOTHING_COEFS 10     /* jdcoefct.c's SAVED_COEFS */
 
 static const uint8_t ZIGZAG[64] = {
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
@@ -386,6 +391,16 @@ static inline int32_t extend(uint64_t w, int s)
     return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
 
+/* the next n (0..16) bits at *pos, as an unsigned number */
+static inline int32_t get_bits(const uint8_t *buf, int64_t *pos, int n)
+{
+    if (n == 0)
+        return 0;
+    int32_t v = (int32_t)(peek(buf, *pos) >> (64 - n));
+    *pos += n;
+    return v;
+}
+
 /* ------------------------------------------------------------ decoder */
 
 typedef struct {
@@ -399,59 +414,65 @@ typedef struct {
     uint16_t quant[4][64];
     int qdef[4];
     htable dc[4], ac[4];
-    int restart, jfif, adobe, ncomp;
+    int restart, jfif, ncomp, progressive;
+    int adobe;             /* the APP14 transform flag; -1: no APP14 */
     int64_t height, width;
     int hmax, vmax;
     int64_t mcux, mcuy;
-    comp_t comp[3];
+    comp_t comp[MAX_COMPS];
+    /* per component and zigzag index: the successive-approximation bit
+     * last coded, -1 before any scan (cinfo->coef_bits) */
+    int coef_bits[MAX_COMPS][64];
 } frame_t;
 
 static int parse_sof(frame_t *f, int marker, const uint8_t *b, int64_t n)
 {
-    if (marker == 0xC2 || marker == 0xC6 || marker == 0xCA
-            || marker == 0xCE)
-        return ERR_PROGRESSIVE;
-    if (marker == 0xC9 || marker == 0xCB || marker == 0xCD
-            || marker == 0xCF)
+    if (marker == 0xC9 || marker == 0xCA || marker == 0xCB || marker == 0xCD
+            || marker == 0xCE || marker == 0xCF)
         return ERR_ARITHMETIC;
-    if (marker == 0xC3 || marker == 0xC7)
-        return ERR_LOSSLESS;
-    if (marker == 0xC5)
+    if (marker == 0xC5 || marker == 0xC6 || marker == 0xC7)
         return ERR_HIERARCHICAL;
+    if (marker == 0xC3)
+        return ERR_LOSSLESS;
     if (f->ncomp)
         return ERR_CORRUPT;
     if (n < 6)
         return ERR_CORRUPT;
+    f->progressive = marker == 0xC2;
     if (b[0] != 8)
         return ERR_PRECISION;
     f->height = b[1] << 8 | b[2];
     f->width = b[3] << 8 | b[4];
     int nc = b[5];
-    if (nc != 1 && nc != 3)
+    if (nc != 1 && nc != 3 && nc != 4)
         return ERR_COMPONENTS;
     if (f->height == 0 || f->width == 0 || n < 6 + 3 * nc)
         return ERR_CORRUPT;
+    f->hmax = f->vmax = 1;
     for (int k = 0; k < nc; ++k) {
         comp_t *c = &f->comp[k];
         c->id = b[6 + 3 * k];
         c->h = b[7 + 3 * k] >> 4;
         c->v = b[7 + 3 * k] & 15;
         c->tq = b[8 + 3 * k];
+        if (c->h < 1 || c->h > 4 || c->v < 1 || c->v > 4)
+            return ERR_CORRUPT;
+        f->hmax = c->h > f->hmax ? c->h : f->hmax;
+        f->vmax = c->v > f->vmax ? c->v : f->vmax;
     }
-    if (f->comp[0].h < 1 || f->comp[0].h > 2 || f->comp[0].v < 1
-            || f->comp[0].v > 2)
-        return ERR_SAMPLING;
-    for (int k = 1; k < nc; ++k)
-        if (f->comp[k].h != 1 || f->comp[k].v != 1)
-            return ERR_SAMPLING;
+    /* jdsample.c: fractional sampling is not implemented (cv2 reads
+     * nothing) */
+    for (int k = 0; k < nc; ++k)
+        if (f->hmax % f->comp[k].h || f->vmax % f->comp[k].v)
+            return ERR_CORRUPT;
     f->ncomp = nc;
-    f->hmax = f->comp[0].h;
-    f->vmax = f->comp[0].v;
     f->mcux = (f->width + 8 * f->hmax - 1) / (8 * f->hmax);
     f->mcuy = (f->height + 8 * f->vmax - 1) / (8 * f->vmax);
     for (int k = 0; k < nc; ++k) {
         f->comp[k].bw = f->mcux * f->comp[k].h;
         f->comp[k].bh = f->mcuy * f->comp[k].v;
+        for (int i = 0; i < 64; ++i)
+            f->coef_bits[k][i] = -1;
     }
     return 0;
 }
@@ -530,9 +551,11 @@ static int64_t entropy_end(const uint8_t *d, int64_t n, int64_t pos)
     }
 }
 
+#define PAD_BYTES 16
+
 /* copy one segment's entropy-coded bytes into buf without the stuffed
- * zeros, 16 zero bytes after them; their count, or ERR_CORRUPT for a
- * marker inside */
+ * zeros, PAD_BYTES zero bytes after them; their count, or ERR_CORRUPT
+ * for a marker inside */
 static int64_t destuff(const uint8_t *s, int64_t n, uint8_t *buf)
 {
     int64_t o = 0;
@@ -544,7 +567,7 @@ static int64_t destuff(const uint8_t *s, int64_t n, uint8_t *buf)
             ++i;
         }
     }
-    memset(buf + o, 0, 16);
+    memset(buf + o, 0, PAD_BYTES);
     return o;
 }
 
@@ -603,6 +626,130 @@ static int decode_block(const htable *dct, const htable *act,
     return *pos > limit ? ERR_CORRUPT : 0;
 }
 
+/* Progressive scans (jdphuff.c). Every read is checked against limit
+ * as it is made, so a corrupt segment never reads past its padding. */
+
+/* a DC first scan's block: the difference, the prediction shifted by al */
+static int decode_dc_first(const htable *dct, const uint8_t *buf,
+                           int64_t limit, int64_t *pos, int32_t *pred,
+                           int al, int16_t *out)
+{
+    uint64_t w;
+    int s = huff_decode(dct, buf, pos, &w);
+    if (s < 0)
+        return ERR_CORRUPT;
+    if (s) {
+        *pred += extend(w, s);
+        *pos += s;
+    }
+    out[0] = (int16_t)(int32_t)((uint32_t)*pred << al);
+    return *pos > limit ? ERR_CORRUPT : 0;
+}
+
+/* a DC refinement scan's block: one bit */
+static int decode_dc_refine(const uint8_t *buf, int64_t limit,
+                            int64_t *pos, int al, int16_t *out)
+{
+    if (get_bits(buf, pos, 1))
+        out[0] = (int16_t)(out[0] | (1 << al));
+    return *pos > limit ? ERR_CORRUPT : 0;
+}
+
+/* an AC first scan's block: band [ss, se], coefficients shifted by al;
+ * *eobrun counts the blocks an end-of-band run still covers */
+static int decode_ac_first(const htable *act, const uint8_t *buf,
+                           int64_t limit, int64_t *pos, int ss, int se,
+                           int al, int32_t *eobrun, int16_t *out)
+{
+    if (*eobrun > 0) {
+        --*eobrun;
+        return 0;
+    }
+    uint64_t w;
+    for (int k = ss; k <= se; ++k) {
+        int e = huff_decode(act, buf, pos, &w);
+        if (e < 0)
+            return ERR_CORRUPT;
+        int r = e >> 4, s = e & 15;
+        if (s) {
+            k += r;
+            if (k > 63)
+                return ERR_CORRUPT;
+            out[ZIGZAG[k]] = (int16_t)(int32_t)((uint32_t)extend(w, s) << al);
+            *pos += s;
+        } else if (r == 15) {
+            k += 15;
+        } else {
+            *eobrun = (1 << r) + get_bits(buf, pos, r) - 1;
+            break;
+        }
+        if (*pos > limit)
+            return ERR_CORRUPT;
+    }
+    return *pos > limit ? ERR_CORRUPT : 0;
+}
+
+/* one correction bit for the nonzero coefficient *c at bit al */
+static inline void correct(const uint8_t *buf, int64_t *pos, int16_t *c,
+                           int al)
+{
+    int p1 = 1 << al;
+    if (get_bits(buf, pos, 1) && (*c & p1) == 0)
+        *c = (int16_t)(*c >= 0 ? *c + p1 : *c - p1);
+}
+
+/* an AC refinement scan's block (decode_mcu_AC_refine): the correction
+ * bits of band [ss, se]'s nonzero coefficients, and its newly nonzero
+ * ones (+-1 << al) */
+static int decode_ac_refine(const htable *act, const uint8_t *buf,
+                            int64_t limit, int64_t *pos, int ss, int se,
+                            int al, int32_t *eobrun, int16_t *out)
+{
+    int k = ss;
+    uint64_t w;
+    if (*eobrun == 0) {
+        for (; k <= se; ++k) {
+            int e = huff_decode(act, buf, pos, &w);
+            if (e < 0)
+                return ERR_CORRUPT;
+            int r = e >> 4, s = e & 15;
+            if (s) {
+                s = get_bits(buf, pos, 1) ? 1 : -1;
+            } else if (r != 15) {
+                *eobrun = (1 << r) + get_bits(buf, pos, r);
+                break;
+            }
+            for (; k <= se; ++k) {
+                int16_t *c = out + ZIGZAG[k];
+                if (*c != 0)
+                    correct(buf, pos, c, al);
+                else if (--r < 0)
+                    break;
+                if (*pos > limit)
+                    return ERR_CORRUPT;
+            }
+            if (s) {
+                if (k > 63)
+                    return ERR_CORRUPT;
+                out[ZIGZAG[k]] = (int16_t)(s * (1 << al));
+            }
+            if (*pos > limit)
+                return ERR_CORRUPT;
+        }
+    }
+    if (*eobrun > 0) {
+        for (; k <= se; ++k) {
+            int16_t *c = out + ZIGZAG[k];
+            if (*c != 0)
+                correct(buf, pos, c, al);
+            if (*pos > limit)
+                return ERR_CORRUPT;
+        }
+        --*eobrun;
+    }
+    return *pos > limit ? ERR_CORRUPT : 0;
+}
+
 static int decode_scan(frame_t *f, const uint8_t *b, int64_t n,
                        const uint8_t *d, int64_t dn, int64_t *pos)
 {
@@ -611,36 +758,55 @@ static int decode_scan(frame_t *f, const uint8_t *b, int64_t n,
     int ns = b[0];
     if (ns < 1 || ns > f->ncomp || n < 4 + 2 * ns)
         return ERR_CORRUPT;
-    int sc[3];
-    const htable *dct[3], *act[3];
+    int ss = b[1 + 2 * ns], se = b[2 + 2 * ns];
+    int ah = b[3 + 2 * ns] >> 4, al = b[3 + 2 * ns] & 15;
+    if (f->progressive) {
+        int dc = ss == 0;
+        if ((dc && se != 0) || (!dc && (ss > se || se > 63 || ns != 1))
+                || (ah && al != ah - 1) || al > 13)
+            return ERR_CORRUPT;     /* jdphuff.c: bad progression */
+    } else if (ss != 0 || se != 63 || ah != 0 || al != 0) {
+        return ERR_CORRUPT;
+    }
+    int need_dc = !f->progressive || (ss == 0 && ah == 0);
+    int need_ac = !f->progressive || ss > 0;
+    int sc[MAX_COMPS];
+    const htable *dct[MAX_COMPS], *act[MAX_COMPS];
     for (int k = 0; k < ns; ++k) {
         int cid = b[1 + 2 * k], t = b[2 + 2 * k], ci = -1;
         for (int j = 0; j < f->ncomp; ++j)
             if (f->comp[j].id == cid && ci < 0)
                 ci = j;
         if (ci < 0 || (t >> 4) > 3 || (t & 15) > 3
-                || !f->dc[t >> 4].defined || !f->ac[t & 15].defined)
+                || (need_dc && !f->dc[t >> 4].defined)
+                || (need_ac && !f->ac[t & 15].defined))
             return ERR_CORRUPT;
         sc[k] = ci;
         dct[k] = &f->dc[t >> 4];
         act[k] = &f->ac[t & 15];
     }
-    if (b[1 + 2 * ns] != 0 || b[2 + 2 * ns] != 63 || b[3 + 2 * ns] != 0)
-        return ERR_CORRUPT;
     int64_t nx, ny;
     if (ns == 1) {
         comp_t *c = &f->comp[sc[0]];
         nx = (f->width * c->h + f->hmax * 8 - 1) / (f->hmax * 8);
         ny = (f->height * c->v + f->vmax * 8 - 1) / (f->vmax * 8);
     } else {
+        int blocks = 0;
+        for (int k = 0; k < ns; ++k)
+            blocks += f->comp[sc[k]].h * f->comp[sc[k]].v;
+        if (blocks > MAX_BLOCKS_IN_MCU)
+            return ERR_CORRUPT;
         nx = f->mcux;
         ny = f->mcuy;
     }
+    for (int k = 0; k < ns; ++k)
+        for (int i = ss; i <= se; ++i)
+            f->coef_bits[sc[k]][i] = al;
     int64_t end = entropy_end(d, dn, *pos);
     if (end < 0)
         return ERR_CORRUPT;
     int64_t nmcu = nx * ny, per = f->restart ? f->restart : nmcu;
-    uint8_t *buf = (uint8_t *)malloc((size_t)(end - *pos + 16));
+    uint8_t *buf = (uint8_t *)malloc((size_t)(end - *pos + PAD_BYTES));
     if (buf == NULL)
         return ERR_NOMEM;
     int64_t start = *pos, m = 0;
@@ -661,7 +827,8 @@ static int decode_scan(frame_t *f, const uint8_t *b, int64_t n,
             rc = (int)len;
             break;
         }
-        int64_t bp = 0;
+        int64_t bp = 0, limit = len * 8;
+        int32_t eobrun = 0;
         for (int k = 0; k < ns; ++k)
             f->comp[sc[k]].pred = 0;
         for (int64_t i = 0; i < per && m < nmcu && rc == 0; ++i, ++m) {
@@ -672,9 +839,21 @@ static int decode_scan(frame_t *f, const uint8_t *b, int64_t n,
                 for (int y = 0; y < vv && rc == 0; ++y)
                     for (int x = 0; x < hh && rc == 0; ++x) {
                         int64_t by = my * vv + y, bx = mx * hh + x;
-                        rc = decode_block(dct[k], act[k], buf, len * 8,
-                                          &bp, &c->pred,
-                                          c->coef + (by * c->bw + bx) * 64);
+                        int16_t *out = c->coef + (by * c->bw + bx) * 64;
+                        if (!f->progressive)
+                            rc = decode_block(dct[k], act[k], buf, limit,
+                                              &bp, &c->pred, out);
+                        else if (ss == 0 && ah == 0)
+                            rc = decode_dc_first(dct[k], buf, limit, &bp,
+                                                 &c->pred, al, out);
+                        else if (ss == 0)
+                            rc = decode_dc_refine(buf, limit, &bp, al, out);
+                        else if (ah == 0)
+                            rc = decode_ac_first(act[k], buf, limit, &bp, ss,
+                                                 se, al, &eobrun, out);
+                        else
+                            rc = decode_ac_refine(act[k], buf, limit, &bp,
+                                                  ss, se, al, &eobrun, out);
                     }
             }
         }
@@ -693,11 +872,16 @@ static int decode_scan(frame_t *f, const uint8_t *b, int64_t n,
     return rc;
 }
 
-/* fancy (or, for h2 planes at most 2 wide, box) upsampling of the
- * (dh, dw) plane p (pitch pp) by (fh, fv) into the (H, W) plane out */
+/* upsampling of the (dh, dw) plane p (pitch pp) by the integral ratio
+ * (fh, fv) into the (H, W) plane out, as jdsample.c's jinit_upsampler
+ * picks it: a copy for (1, 1); fancy for (2, 1), (2, 2) and (1, 2) (box
+ * for the h2 ratios of a plane at most 2 wide); box replication
+ * (int_upsample) for any other ratio */
 static void upsample(const uint8_t *p, int64_t pp, int64_t dh, int64_t dw,
                      int fh, int fv, uint8_t *out, int64_t H, int64_t W)
 {
+    int fancy = ((fh == 2 && (fv == 1 || fv == 2)) || (fh == 1 && fv == 2))
+                && !(fh == 2 && dw <= 2);
     for (int64_t y = 0; y < H; ++y) {
         uint8_t *o = out + y * W;
         int64_t r = y / fv;
@@ -706,9 +890,9 @@ static void upsample(const uint8_t *p, int64_t pp, int64_t dh, int64_t dw,
             memcpy(o, near, (size_t)W);
             continue;
         }
-        if (fh == 2 && dw <= 2) {
+        if (!fancy) {
             for (int64_t x = 0; x < W; ++x)
-                o[x] = near[x / 2];
+                o[x] = near[x / fh];
             continue;
         }
         if (fv == 1) {
@@ -747,19 +931,55 @@ static uint8_t clamp255(int64_t v)
     return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
 }
 
+/* whether libjpeg-turbo would smooth this progressive frame's blocks
+ * (jdcoefct.c's smoothing_ok): every component has its table with nonzero
+ * values where the smoothing reads them and its DC sent, and some
+ * component has one of its first SMOOTHING_COEFS zigzag coefficients not
+ * refined to the last bit */
+static int smoothed(const frame_t *f)
+{
+    static const int at[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    int useful = 0;
+    if (!f->progressive)
+        return 0;
+    for (int k = 0; k < f->ncomp; ++k) {
+        const comp_t *c = &f->comp[k];
+        if (c->tq > 3 || !f->qdef[c->tq] || f->coef_bits[k][0] < 0)
+            return 0;
+        for (int i = 0; i < 10; ++i)
+            if (f->quant[c->tq][at[i]] == 0)
+                return 0;
+        for (int i = 1; i < SMOOTHING_COEFS; ++i)
+            useful |= f->coef_bits[k][i] != 0;
+    }
+    return useful;
+}
+
+/* the colour space jdapimin.c's default_decompress_parms guesses */
+enum { GREY, YCC, RGB, CMYK, YCCK };
+
+static int colour_space(const frame_t *f)
+{
+    if (f->ncomp == 1)
+        return GREY;
+    if (f->ncomp == 4)
+        return f->adobe > 0 ? YCCK : CMYK;
+    if (f->jfif)
+        return YCC;
+    if (f->adobe >= 0)
+        return f->adobe == 0 ? RGB : YCC;
+    return f->comp[0].id == 82 && f->comp[1].id == 71 && f->comp[2].id == 66
+           ? RGB : YCC;
+}
+
 static int output(frame_t *f, uint8_t *dst)
 {
     int nc = f->ncomp;
     int64_t H = f->height, W = f->width;
-    uint8_t *up[3] = {NULL, NULL, NULL};
+    uint8_t *up[MAX_COMPS] = {NULL, NULL, NULL, NULL};
     int rc = 0;
-    if (nc == 3) {
-        if (f->adobe)
-            return ERR_ADOBE;
-        if (!f->jfif && f->comp[0].id == 82 && f->comp[1].id == 71
-                && f->comp[2].id == 66)
-            return ERR_RGB_IDS;
-    }
+    if (smoothed(f))
+        return ERR_SMOOTHING;
     for (int k = 0; k < nc && rc == 0; ++k) {
         comp_t *c = &f->comp[k];
         if (c->tq > 3 || !f->qdef[c->tq]) {
@@ -785,24 +1005,45 @@ static int output(frame_t *f, uint8_t *dst)
                  H, W);
         free(plane);
     }
-    if (rc == 0 && nc == 3) {
-        for (int64_t i = 0; i < H * W; ++i) {
-            int64_t y = up[0][i], cb = up[1][i] - 128, cr = up[2][i] - 128;
-            dst[3 * i] = clamp255(y + ((91881 * cr + 32768) >> 16));
-            dst[3 * i + 1] = clamp255(
-                y + ((-22554 * cb + 32768 - 46802 * cr) >> 16));
-            dst[3 * i + 2] = clamp255(y + ((116130 * cb + 32768) >> 16));
+    int space = colour_space(f);
+    for (int64_t i = 0; rc == 0 && nc > 1 && i < H * W; ++i) {
+        int64_t v[3];
+        if (space == RGB) {
+            for (int k = 0; k < 3; ++k)
+                dst[3 * i + k] = up[k][i];
+            continue;
         }
-    }
-    if (nc == 3)
+        if (space == YCC || space == YCCK) {
+            int64_t y = up[0][i], cb = up[1][i] - 128, cr = up[2][i] - 128;
+            v[0] = y + ((91881 * cr + 32768) >> 16);
+            v[1] = y + ((-22554 * cb + 32768 - 46802 * cr) >> 16);
+            v[2] = y + ((116130 * cb + 32768) >> 16);
+            if (space == YCC) {
+                for (int k = 0; k < 3; ++k)
+                    dst[3 * i + k] = clamp255(v[k]);
+                continue;
+            }
+            /* jdcolor.c's ycck_cmyk_convert: C, M, Y = 255 - RGB */
+            for (int k = 0; k < 3; ++k)
+                v[k] = clamp255(255 - v[k]);
+        } else {
+            for (int k = 0; k < 3; ++k)
+                v[k] = up[k][i];
+        }
+        /* OpenCV's CMYK -> BGR (icvCvt_CMYK2BGR_8u_C4C3R), as RGB */
+        int64_t kk = up[3][i];
         for (int k = 0; k < 3; ++k)
+            dst[3 * i + k] = (uint8_t)(kk - (((255 - v[k]) * kk) >> 8));
+    }
+    if (nc > 1)
+        for (int k = 0; k < nc; ++k)
             free(up[k]);
     return rc;
 }
 
 static void free_frame(frame_t *f)
 {
-    for (int k = 0; k < 3; ++k)
+    for (int k = 0; k < MAX_COMPS; ++k)
         free(f->comp[k].coef);
 }
 
@@ -814,6 +1055,7 @@ static int64_t run(const uint8_t *d, int64_t n, int64_t *info, uint8_t *dst,
     frame_t *f = (frame_t *)calloc(1, sizeof(frame_t));
     if (f == NULL)
         return ERR_NOMEM;
+    f->adobe = -1;
     int64_t rc = 0, pos = 2;
     int scanned = 0;
     if (n < 2 || d[0] != 0xFF || d[1] != 0xD8)
@@ -869,10 +1111,10 @@ static int64_t run(const uint8_t *d, int64_t n, int64_t *info, uint8_t *dst,
             else
                 rc = decode_scan(f, b, bn, d, n, &pos);
             scanned = 1;
-        } else if (marker == 0xE0 && bn >= 5 && !memcmp(b, "JFIF", 5)) {
-            f->jfif = 1;
-        } else if (marker == 0xEE && bn >= 5 && !memcmp(b, "Adobe", 5)) {
-            f->adobe = 1;
+        } else if (marker == 0xE0 && bn >= 14 && !memcmp(b, "JFIF", 5)) {
+            f->jfif = 1;       /* jdmarker.c reads APP0 of 14 bytes on */
+        } else if (marker == 0xEE && bn >= 12 && !memcmp(b, "Adobe", 5)) {
+            f->adobe = b[11];  /* the transform flag */
         } else if (marker == 0xDC) {
             rc = ERR_CORRUPT;
         }
@@ -880,11 +1122,12 @@ static int64_t run(const uint8_t *d, int64_t n, int64_t *info, uint8_t *dst,
     if (rc == 0 && !scanned)
         rc = ERR_CORRUPT;
     if (rc == 0) {
+        int channels = f->ncomp == 1 ? 1 : 3;
         info[0] = f->height;
         info[1] = f->width;
-        info[2] = f->ncomp;
+        info[2] = channels;
         if (dst != NULL) {
-            if (dstsize < f->height * f->width * f->ncomp)
+            if (dstsize < f->height * f->width * channels)
                 rc = ERR_SPACE;
             else
                 rc = output(f, dst);
@@ -895,8 +1138,9 @@ static int64_t run(const uint8_t *d, int64_t n, int64_t *info, uint8_t *dst,
     return rc;
 }
 
-/* The height, width and component count of a JPEG stream from its frame
- * header (info[0..2]); 0, or a negative error. */
+/* The height, width and channels of a JPEG stream's decoded pixels from
+ * its frame header (info[0..2]: 1 grey, 3 RGB); 0, or a negative
+ * error. */
 int64_t jpeg_info(const uint8_t *src, int64_t n, int64_t *info)
 {
     if (src == NULL || n < 0 || info == NULL)
@@ -904,8 +1148,9 @@ int64_t jpeg_info(const uint8_t *src, int64_t n, int64_t *info)
     return run(src, n, info, NULL, 0);
 }
 
-/* Decode a JPEG stream into dst: (H, W) grey or (H, W, 3) RGB uint8;
- * the bytes written, or a negative error. */
+/* Decode a JPEG stream into dst: (H, W) grey or (H, W, 3) RGB uint8, the
+ * pixels of cv2.imread (BGR flipped); the bytes written, or a negative
+ * error. */
 int64_t jpeg_decode(const uint8_t *src, int64_t n, uint8_t *dst,
                     int64_t dstsize)
 {

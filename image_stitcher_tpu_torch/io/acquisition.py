@@ -195,11 +195,12 @@ def read_image(filepath: str, prefer_mmap: bool = False,
     TIFF the fast path declines, is read whole and decoded by its
     signature, not its suffix: TIFF (``io/tiff.py``: LZW, deflate,
     PackBits, predictor, strips or tiles), PNG (``io/png.py``), BMP
-    (``io/bmp.py``) or baseline JPEG (``io/jpeg.py``: the pixels of
-    ``cv2.imread``, libjpeg-turbo's arithmetic, EXIF orientation ignored
-    as ``IMREAD_UNCHANGED`` ignores it; progressive, arithmetic-coded,
-    12-bit, lossless and CMYK/Adobe streams raise
-    :class:`NotImplementedError` naming ROADMAP item 19 (remainder)); a
+    (``io/bmp.py``) or JPEG (``io/jpeg.py``: baseline and progressive,
+    grey, YCbCr, RGB, CMYK or YCCK, the pixels of ``cv2.imread``,
+    libjpeg-turbo's arithmetic, EXIF orientation ignored as
+    ``IMREAD_UNCHANGED`` ignores it; arithmetic-coded, 12-bit, lossless
+    and hierarchical streams raise :class:`NotImplementedError` naming
+    ROADMAP item 19 (remainder)); a
     compressed tile cannot be paged lazily, so
     ``prefer_mmap`` and ``prefetch`` do not apply to it. Colour comes
     back in RGB order, and a 4-channel image drops its alpha, as the JAX

@@ -1,5 +1,6 @@
-"""Baseline JPEG through the hand-written C codec: ``.jpg`` tiles read
-and JPEG OME-TIFF tiles written.
+"""JPEG through the hand-written C codec: ``.jpg`` tiles read
+(baseline, extended and progressive Huffman frames) and JPEG OME-TIFF
+tiles written.
 
 The C library (``csrc/jpeg.c``, built at first use with the system C
 compiler by :func:`image_stitcher_tpu_torch.native.load`) is what the
@@ -26,11 +27,10 @@ from .tile_decode import DecodeError
 
 _LIB: Optional[ctypes.CDLL] = None
 
-_NOT_PORTED = {-10: "progressive", -11: "arithmetic-coded",
-               -12: "lossless", -13: "hierarchical",
-               -14: "other than 8-bit", -15: "2- or 4-component",
-               -16: "sampling", -17: "Adobe-transform (APP14)",
-               -18: "RGB (component ids 'R', 'G', 'B')"}
+_NOT_PORTED = {-10: "progressive, with coefficients left unrefined "
+                    "(libjpeg-turbo's block smoothing),",
+               -11: "arithmetic-coded", -12: "lossless", -13: "hierarchical",
+               -14: "other than 8-bit", -15: "2-component"}
 
 
 def lib() -> ctypes.CDLL:
@@ -67,7 +67,9 @@ def _check(rc: int, what: str) -> int:
 
 
 def info(data) -> Tuple[int, int, int]:
-    """(height, width, components) of a JPEG stream's frame header."""
+    """(height, width, channels) of a JPEG stream's decoded pixels, from
+    its frame header: 1 for grey, 3 for colour (RGB, YCbCr, CMYK and
+    YCCK streams all decode to RGB)."""
     src = np.frombuffer(data, np.uint8)
     out = np.zeros(3, np.int64)
     _check(lib().jpeg_info(src.ctypes.data, src.size, out.ctypes.data),

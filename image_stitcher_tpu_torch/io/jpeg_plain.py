@@ -1,5 +1,5 @@
-"""Baseline JPEG, the plain version: the specification ``csrc/jpeg.c``
-follows, in Python and NumPy integer arithmetic.
+"""JPEG, the plain version: the specification ``csrc/jpeg.c`` follows,
+in Python and NumPy integer arithmetic.
 
 The JAX package reads ``.jpg`` tiles with ``cv2.imread(IMREAD_UNCHANGED)``
 (then BGR -> RGB) and encodes JPEG OME-TIFF tiles with
@@ -7,29 +7,47 @@ The JAX package reads ``.jpg`` tiles with ``cv2.imread(IMREAD_UNCHANGED)``
 codec reproduces libjpeg-turbo's integer arithmetic, so its pixels equal
 ``cv2.imread``'s and its streams ``cv2.imencode``'s, byte for byte:
 
-Decoding (``decode``): baseline (SOF0) and extended-sequential 8-bit
-Huffman (SOF1) frames of 1 or 3 components, luma sampling (h, v) in
-{1, 2}^2 with chroma 1x1, any number of sequential scans (interleaved or
-one component each), restart intervals; APPn and COM segments are
-skipped (an EXIF orientation is ignored, as ``IMREAD_UNCHANGED`` ignores
-it). Then, as libjpeg-turbo's defaults give it:
+Decoding (``decode``): baseline (SOF0), extended-sequential (SOF1) and
+progressive (SOF2) 8-bit Huffman frames of 1, 3 or 4 components, any
+sampling factors 1..4 whose ratios to the largest are integral, any
+number of scans (interleaved, or one component each; Huffman tables
+defined or redefined between them), restart intervals. Progressive
+scans (``jdphuff.c``): DC first (the difference, shifted by Al) and
+refinement (one bit), AC first (a spectral band, with end-of-band runs)
+and refinement (correction bits, newly nonzero coefficients of +-1 <<
+Al). APPn and COM segments are skipped (an EXIF orientation is ignored,
+as ``IMREAD_UNCHANGED`` ignores it), but for JFIF (APP0 of 14 bytes or
+more) and Adobe (APP14 of 12 or more, its transform flag). Then, as
+libjpeg-turbo's defaults give it:
 - the ``islow`` inverse DCT (``jidctint.c``): two passes of the LL&M
   butterfly with 13-bit constants, pass 1 (columns, dequantised) descaled
   by 11 bits, pass 2 (rows) by 18, the result plus 128 taken through the
   range-limit table of ``jdmaster.c`` (the value masked to 10 bits, then
-  clamped to 0..255 for -384..511);
-- "fancy" chroma upsampling (``jdsample.c``): h2v1 as (3 near + far + 1
-  or 2) >> 2, h2v2 as (3 (3 near + far rows) + the far column's + 8 or
-  7) >> 4, h1v2 as (3 near + far + 1 or 2) >> 2, edges replicated; a
-  chroma plane at most 2 samples wide is box-upsampled for h2v1 and h2v2
-  (libjpeg-turbo's rule);
-- YCbCr -> RGB through ``jdcolor.c``'s 16-bit fixed-point tables.
-A stream that is not a JPEG this scope covers raises
-:class:`NotImplementedError` naming ROADMAP item 19 (remainder):
-progressive, arithmetic-coded, lossless or hierarchical frames, other
-than 8-bit samples, 2 or 4 components, an Adobe APP14 marker, RGB
-component ids without JFIF, or other sampling factors. A stream that
-does not decode raises :class:`DecodeError`.
+  clamped to 0..255 for -384..511); no IDCT scaling (this libjpeg-turbo
+  scales chroma in the IDCT only when the output is scaled);
+- upsampling as ``jdsample.c::jinit_upsampler`` picks it: "fancy" for
+  the ratios (2, 1), (2, 2) and (1, 2): h2v1 as (3 near + far + 1 or 2)
+  >> 2, h2v2 as (3 (3 near + far rows) + the far column's + 8 or 7) >>
+  4, h1v2 as (3 near + far + 1 or 2) >> 2, edges replicated (box for
+  the h2 ratios of a plane at most 2 samples wide); box replication
+  (``int_upsample``) for any other integral ratio, such as 4:1:1's
+  (4, 1);
+- the colour space of ``jdapimin.c::default_decompress_parms``: 3
+  components are YCbCr after a JFIF marker; else RGB under an Adobe
+  transform 0 and YCbCr under any other; else RGB for component ids
+  'R', 'G', 'B' and YCbCr otherwise. YCbCr -> RGB goes through
+  ``jdcolor.c``'s 16-bit fixed-point tables. 4 components are CMYK, or
+  YCCK under a nonzero Adobe transform (``ycck_cmyk_convert``: C, M, Y =
+  255 - the YCbCr's RGB), then OpenCV's CMYK -> BGR (each of C, M, Y as
+  k - ((255 - v) k >> 8)), given as RGB.
+A stream libjpeg-turbo does not read (sampling factors over 4,
+fractional ratios, interleaved MCUs of more than 10 blocks) or that does
+not decode raises :class:`DecodeError`. A stream outside this scope
+raises :class:`NotImplementedError` naming ROADMAP item 19 (remainder):
+arithmetic-coded, lossless or hierarchical frames, other than 8-bit
+samples, 2 components, or a progressive frame whose scans leave one of
+the first 10 zigzag coefficients unrefined, which libjpeg-turbo would
+smooth (``jdcoefct.c::decompress_smooth_data``).
 
 Encoding (``encode``), as libjpeg-turbo writes with ``jpeg_set_defaults``
 and ``jpeg_set_quality(q, force_baseline=TRUE)``, OpenCV's settings:
@@ -66,6 +84,7 @@ ZIGZAG = np.array([
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+ZIGZAG_LIST = ZIGZAG.tolist()
 
 #: Annex K quantisation tables, natural order
 STD_QUANT = (np.array([
@@ -243,8 +262,10 @@ def rgb_to_ycc(rgb: np.ndarray) -> np.ndarray:
     return np.stack([y, cb, cr]).astype(np.uint8)
 
 
-def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
-    """Y, Cb, Cr planes -> (H, W, 3) uint8 RGB (``jdcolor.c``)."""
+def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+               clamp: bool = True) -> np.ndarray:
+    """Y, Cb, Cr planes -> (H, W, 3) uint8 RGB (``jdcolor.c``); with
+    ``clamp`` False the int64 sums before the range limit."""
     y = y.astype(np.int64)
     cb = cb.astype(np.int64) - 128
     cr = cr.astype(np.int64) - 128
@@ -252,7 +273,8 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     r = y + ((91881 * cr + half) >> 16)
     g = y + ((-22554 * cb + half - 46802 * cr) >> 16)
     b = y + ((116130 * cb + half) >> 16)
-    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+    rgb = np.stack([r, g, b], axis=-1)
+    return np.clip(rgb, 0, 255).astype(np.uint8) if clamp else rgb
 
 
 # ----------------------------------------------------------------- encoder
@@ -515,35 +537,49 @@ def _lookup(bits: bytes, vals: bytes) -> List[int]:
     return table.tolist()
 
 
+#: jdhuff.c's limit on the blocks of an interleaved scan's MCU
+MAX_BLOCKS_IN_MCU = 10
+#: the zigzag coefficients whose refinement state decides libjpeg-turbo's
+#: progressive block smoothing (``jdcoefct.c``, SAVED_COEFS)
+SMOOTHING_COEFS = 10
+
+
 class _Frame:
     def __init__(self):
         self.quant: Dict[int, np.ndarray] = {}
         self.dc: Dict[int, List[int]] = {}
         self.ac: Dict[int, List[int]] = {}
         self.restart = 0
-        self.jfif = self.adobe = False
+        self.jfif = False
+        self.adobe = None        # the APP14 transform flag, when one was seen
+        self.progressive = False
         self.height = self.width = 0
         self.comps: List[dict] = []
-        self.coef: List[np.ndarray] = []
+        #: per component: its blocks' coefficients, flat, natural order
+        self.coef: List[List[int]] = []
+        #: per component: (block rows, block columns) of the MCU grid
+        self.grid: List[Tuple[int, int]] = []
+        #: per component and zigzag index: the successive approximation
+        #: bit last coded, -1 before any scan (``cinfo->coef_bits``)
+        self.coef_bits: List[List[int]] = []
 
 
 def _parse_sof(f: _Frame, marker: int, body: bytes) -> None:
-    if marker in (0xC2, 0xC6, 0xCA, 0xCE):
-        raise not_ported("progressive")
     if marker in (0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF):
         raise not_ported("arithmetic-coded")
-    if marker in (0xC3, 0xC7, 0xCB, 0xCF):
-        raise not_ported("lossless")
     if marker in (0xC5, 0xC6, 0xC7):
         raise not_ported("hierarchical")
+    if marker == 0xC3:
+        raise not_ported("lossless")
     if f.comps:
         raise DecodeError("JPEG: a second frame header")
     if len(body) < 6:
         raise DecodeError("JPEG: short frame header")
+    f.progressive = marker == 0xC2
     prec, f.height, f.width, nc = struct.unpack_from('>BHHB', body)
     if prec != 8:
         raise not_ported(f"{prec}-bit")
-    if nc not in (1, 3):
+    if nc not in (1, 3, 4):
         raise not_ported(f"{nc}-component")
     if f.height == 0 or f.width == 0:
         raise DecodeError("JPEG: zero height or width (DNL is not read)")
@@ -553,9 +589,12 @@ def _parse_sof(f: _Frame, marker: int, body: bytes) -> None:
         cid, hv, tq = body[6 + 3 * k:9 + 3 * k]
         f.comps.append({'id': cid, 'h': hv >> 4, 'v': hv & 15, 'tq': tq})
     hv = [(c['h'], c['v']) for c in f.comps]
-    if hv[0] not in ((1, 1), (2, 1), (1, 2), (2, 2)) or any(
-            s != (1, 1) for s in hv[1:]):
-        raise not_ported(f"sampling {hv}")
+    if any(not (1 <= h <= 4 and 1 <= v <= 4) for h, v in hv):
+        raise DecodeError(f"JPEG: bad sampling factors {hv}")
+    hmax, vmax, _, _ = _sampling(f)
+    if any(hmax % h or vmax % v for h, v in hv):
+        # jdsample.c: "Fractional sampling not implemented yet"
+        raise DecodeError(f"JPEG: fractional sampling {hv}")
 
 
 def _sampling(f: _Frame):
@@ -581,36 +620,201 @@ def _entropy_end(data: bytes, pos: int) -> int:
         return pos
 
 
+class _Bits:
+    """An entropy-coded segment, destuffed, read MSB first."""
+
+    def __init__(self, seg: bytes):
+        raw = np.frombuffer(seg, np.uint8)
+        ff = np.flatnonzero(raw == 0xFF)
+        if ff.size and (ff[-1] + 1 == raw.size or np.any(raw[ff + 1] != 0)):
+            raise DecodeError("JPEG: a marker inside the scan data")
+        raw = np.delete(raw, ff + 1)
+        ext = np.concatenate([raw, np.zeros(16, np.uint8)]).astype(np.int64)
+        self.words = ((ext[:-3] << 24) | (ext[1:-2] << 16) | (ext[2:-1] << 8)
+                      | ext[3:]).tolist()
+        self.nbits = raw.size * 8
+        self.pos = 0
+
+    def huff(self, table: List[int]) -> int:
+        w = self.words[self.pos >> 3]
+        e = table[(w >> (16 - (self.pos & 7))) & 0xFFFF]
+        if e < 0:
+            raise DecodeError("JPEG: bad Huffman code")
+        self.pos += e & 255
+        return e >> 8
+
+    def get(self, s: int) -> int:
+        """The next ``s`` bits (0 <= s <= 16) as an unsigned number."""
+        if s == 0:
+            return 0
+        w = self.words[self.pos >> 3]
+        v = (w >> (32 - (self.pos & 7) - s)) & ((1 << s) - 1)
+        self.pos += s
+        return v
+
+    def extend(self, s: int) -> int:
+        """The next ``s`` bits as a coefficient of magnitude category s."""
+        v = self.get(s)
+        return v - (1 << s) + 1 if s and v < 1 << (s - 1) else v
+
+    def check(self) -> None:
+        if self.pos > self.nbits:
+            raise DecodeError("JPEG: scan data ends early")
+
+
+def _decode_sequential(bits: _Bits, dct, act, out: List[int], base: int,
+                       pred: List[int]) -> None:
+    """One block of a sequential scan: the DC difference and 63 ACs."""
+    pred[0] += bits.extend(bits.huff(dct))
+    bits.check()
+    out[base] = pred[0]
+    k = 1
+    while k < 64:
+        e = bits.huff(act)
+        r, s = e >> 4, e & 15
+        if s:
+            k += r
+            if k > 63:
+                raise DecodeError("JPEG: coefficient past 63")
+            out[base + ZIGZAG_LIST[k]] = bits.extend(s)
+            k += 1
+        elif r == 15:
+            k += 16
+        else:
+            break
+        bits.check()
+    if k > 64:
+        raise DecodeError("JPEG: corrupt block")
+    bits.check()
+
+
+def _decode_dc_first(bits: _Bits, dct, out: List[int], base: int,
+                     pred: List[int], al: int) -> None:
+    pred[0] += bits.extend(bits.huff(dct))
+    bits.check()
+    out[base] = pred[0] << al
+
+
+def _decode_dc_refine(bits: _Bits, out: List[int], base: int,
+                      al: int) -> None:
+    if bits.get(1):
+        out[base] |= 1 << al
+    bits.check()
+
+
+def _decode_ac_first(bits: _Bits, act, out: List[int], base: int,
+                     ss: int, se: int, al: int, eobrun: List[int]) -> None:
+    """``jdphuff.c::decode_mcu_AC_first``: one block's band [ss, se]."""
+    if eobrun[0] > 0:
+        eobrun[0] -= 1
+        return
+    k = ss
+    while k <= se:
+        e = bits.huff(act)
+        r, s = e >> 4, e & 15
+        if s:
+            k += r
+            if k > 63:
+                raise DecodeError("JPEG: coefficient past 63")
+            out[base + ZIGZAG_LIST[k]] = bits.extend(s) << al
+        elif r == 15:
+            k += 15
+        else:
+            eobrun[0] = (1 << r) + bits.get(r) - 1
+            break
+        k += 1
+    bits.check()
+
+
+def _decode_ac_refine(bits: _Bits, act, out: List[int], base: int,
+                      ss: int, se: int, al: int, eobrun: List[int]) -> None:
+    """``jdphuff.c::decode_mcu_AC_refine``: one block's correction bits
+    for band [ss, se] and its newly nonzero coefficients."""
+    p1, m1 = 1 << al, -1 << al
+    k = ss
+
+    def correct(pos: int) -> None:
+        if bits.get(1) and out[pos] & p1 == 0:
+            out[pos] += p1 if out[pos] >= 0 else m1
+
+    if eobrun[0] == 0:
+        while k <= se:
+            e = bits.huff(act)
+            r, s = e >> 4, e & 15
+            if s:
+                # the size of a newly nonzero coefficient is 1
+                s = p1 if bits.get(1) else m1
+            elif r != 15:
+                eobrun[0] = (1 << r) + bits.get(r)
+                break
+            while k <= se:
+                pos = base + ZIGZAG_LIST[k]
+                if out[pos] != 0:
+                    correct(pos)
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+            if s:
+                if k > 63:
+                    raise DecodeError("JPEG: coefficient past 63")
+                out[base + ZIGZAG_LIST[k]] = s
+            k += 1
+            bits.check()
+    if eobrun[0] > 0:
+        while k <= se:
+            pos = base + ZIGZAG_LIST[k]
+            if out[pos] != 0:
+                correct(pos)
+            k += 1
+        eobrun[0] -= 1
+    bits.check()
+
+
 def _decode_scan(f: _Frame, body: bytes, data: bytes, pos: int) -> int:
-    ns = body[0]
-    if ns < 1 or len(body) < 4 + 2 * ns:
+    ns = body[0] if body else 0
+    if ns < 1 or ns > len(f.comps) or len(body) < 4 + 2 * ns:
         raise DecodeError("JPEG: bad scan header")
+    ss, se, ahal = body[1 + 2 * ns:4 + 2 * ns]
+    ah, al = ahal >> 4, ahal & 15
+    if f.progressive:
+        dc = ss == 0
+        if ((dc and se != 0) or (not dc and (ss > se or se > 63 or ns != 1))
+                or (ah and al != ah - 1) or al > 13):
+            raise DecodeError("JPEG: bad progression parameters")
+    elif ss != 0 or se != 63 or ahal != 0:
+        raise DecodeError("JPEG: a sequential scan must cover 0..63")
     ids = [c['id'] for c in f.comps]
     scomps = []
     for k in range(ns):
         cid, t = body[1 + 2 * k:3 + 2 * k]
         if cid not in ids:
             raise DecodeError(f"JPEG: scan names component {cid}")
-        ci = ids.index(cid)
-        if (t >> 4) not in f.dc or (t & 15) not in f.ac:
+        need_dc = not f.progressive or (ss == 0 and ah == 0)
+        need_ac = not f.progressive or ss > 0
+        if ((need_dc and (t >> 4) not in f.dc)
+                or (need_ac and (t & 15) not in f.ac)):
             raise DecodeError("JPEG: scan uses an undefined Huffman table")
-        scomps.append((ci, f.dc[t >> 4], f.ac[t & 15]))
-    ss, se, ahal = body[1 + 2 * ns:4 + 2 * ns]
-    if ss != 0 or se != 63 or ahal != 0:
-        raise DecodeError("JPEG: a sequential scan must cover 0..63")
+        scomps.append((ids.index(cid), f.dc.get(t >> 4), f.ac.get(t & 15)))
     hmax, vmax, mcux, mcuy = _sampling(f)
     if ns == 1:
         c = f.comps[scomps[0][0]]
-        bw = -(-f.width * c['h'] // (hmax * 8))
-        bh = -(-f.height * c['v'] // (vmax * 8))
-        units = [[(scomps[0], 0, 0)]]
-        nx, ny = bw, bh
+        nx = -(-f.width * c['h'] // (hmax * 8))
+        ny = -(-f.height * c['v'] // (vmax * 8))
+        mcu = [(scomps[0], 0, 0)]
+        one = True
     else:
-        units = [[(sc, y, x) for sc in scomps
-                  for y in range(f.comps[sc[0]]['v'])
-                  for x in range(f.comps[sc[0]]['h'])]]
+        mcu = [(sc, y, x) for sc in scomps
+               for y in range(f.comps[sc[0]]['v'])
+               for x in range(f.comps[sc[0]]['h'])]
+        if len(mcu) > MAX_BLOCKS_IN_MCU:
+            raise DecodeError("JPEG: an MCU of more than 10 blocks")
         nx, ny = mcux, mcuy
-    mcu = units[0]
+        one = False
+    for ci, _, _ in scomps:
+        for k in range(ss, se + 1):
+            f.coef_bits[ci][k] = al
     end = _entropy_end(data, pos)
     segments = [data[pos:end]]
     if f.restart:
@@ -627,91 +831,68 @@ def _decode_scan(f: _Frame, body: bytes, data: bytes, pos: int) -> int:
     per = f.restart or nmcu
     if len(segments) != -(-nmcu // per):
         raise DecodeError("JPEG: restart markers do not match the interval")
-    coefs = {ci: [0] * (f.coef[ci].size) for ci, _, _ in scomps}
-    zz = ZIGZAG.tolist()
     m = 0
     for seg in segments:
-        raw = np.frombuffer(seg, np.uint8)
-        ff = np.flatnonzero(raw == 0xFF)
-        if ff.size and (ff[-1] + 1 == raw.size or np.any(raw[ff + 1] != 0)):
-            raise DecodeError("JPEG: a marker inside the scan data")
-        raw = np.delete(raw, ff + 1)
-        ext = np.concatenate([raw, np.zeros(16, np.uint8)]).astype(np.int64)
-        words = ((ext[:-3] << 24) | (ext[1:-2] << 16) | (ext[2:-1] << 8)
-                 | ext[3:]).tolist()
-        nbits = raw.size * 8
-        bp = 0
-        preds = {ci: 0 for ci, _, _ in scomps}
+        bits = _Bits(seg)
+        preds = {ci: [0] for ci, _, _ in scomps}
+        eobrun = [0]
         for _ in range(min(per, nmcu - m)):
             my, mx = divmod(m, nx)
             for (ci, dct, act), y, x in mcu:
                 c = f.comps[ci]
-                if ns == 1:
+                if one:
                     by, bx = my, mx
                 else:
                     by, bx = my * c['v'] + y, mx * c['h'] + x
-                cols = f.coef[ci].shape[1]
-                base = (by * cols + bx) * 64
-                out = coefs[ci]
-                w = words[bp >> 3]
-                e = dct[(w >> (16 - (bp & 7))) & 0xFFFF]
-                if e < 0:
-                    raise DecodeError("JPEG: bad Huffman code")
-                bp += e & 255
-                s = e >> 8
-                v = 0
-                if s:
-                    w = words[bp >> 3]
-                    v = (w >> (32 - (bp & 7) - s)) & ((1 << s) - 1)
-                    bp += s
-                    if v < 1 << (s - 1):
-                        v -= (1 << s) - 1
-                if bp > nbits:
-                    raise DecodeError("JPEG: scan data ends early")
-                preds[ci] += v
-                out[base] = preds[ci]
-                k = 1
-                while k < 64:
-                    w = words[bp >> 3]
-                    e = act[(w >> (16 - (bp & 7))) & 0xFFFF]
-                    if e < 0:
-                        raise DecodeError("JPEG: bad Huffman code")
-                    bp += e & 255
-                    r, s = e >> 12, (e >> 8) & 15
-                    if s:
-                        k += r
-                        if k > 63:
-                            raise DecodeError("JPEG: coefficient past 63")
-                        w = words[bp >> 3]
-                        v = (w >> (32 - (bp & 7) - s)) & ((1 << s) - 1)
-                        bp += s
-                        if v < 1 << (s - 1):
-                            v -= (1 << s) - 1
-                        out[base + zz[k]] = v
-                        k += 1
-                    elif r == 15:
-                        k += 16
-                    else:
-                        break
-                    if bp > nbits:
-                        raise DecodeError("JPEG: scan data ends early")
-                if k > 64 or bp > nbits:
-                    raise DecodeError("JPEG: corrupt block")
+                out = f.coef[ci]
+                base = (by * f.grid[ci][1] + bx) * 64
+                if not f.progressive:
+                    _decode_sequential(bits, dct, act, out, base, preds[ci])
+                elif ss == 0 and ah == 0:
+                    _decode_dc_first(bits, dct, out, base, preds[ci], al)
+                elif ss == 0:
+                    _decode_dc_refine(bits, out, base, al)
+                elif ah == 0:
+                    _decode_ac_first(bits, act, out, base, ss, se, al, eobrun)
+                else:
+                    _decode_ac_refine(bits, act, out, base, ss, se, al,
+                                      eobrun)
             m += 1
-    for ci, vals in coefs.items():
-        # JCOEF is 16-bit, as in libjpeg
-        f.coef[ci] = np.array(vals, np.int64).astype(np.int16).astype(
-            np.int64).reshape(f.coef[ci].shape)
     return end
 
 
+def _smoothed(f: _Frame) -> bool:
+    """Whether libjpeg-turbo would smooth this progressive frame's blocks
+    (``jdcoefct.c::smoothing_ok``): every component has its quantisation
+    table with nonzero values at the smoothed positions and its DC sent,
+    and some component has one of its first ``SMOOTHING_COEFS`` zigzag
+    coefficients not refined to the last bit."""
+    if not f.progressive:
+        return False
+    useful = False
+    for ci, c in enumerate(f.comps):
+        q = f.quant.get(c['tq'])
+        if q is None or any(q[i] == 0 for i in (0, 1, 8, 16, 9, 2, 3, 10,
+                                                17, 24)):
+            return False
+        bits = f.coef_bits[ci]
+        if bits[0] < 0:
+            return False
+        useful |= any(b != 0 for b in bits[1:SMOOTHING_COEFS])
+    return useful
+
+
 def _upsample(p: np.ndarray, fh: int, fv: int) -> np.ndarray:
-    """libjpeg-turbo's upsampling of a (dh, dw) chroma plane by (fh, fv)
-    in {1, 2}^2 ("fancy"; box for h2 planes at most 2 samples wide)."""
+    """libjpeg-turbo's upsampling of a (dh, dw) plane by integral (fh, fv)
+    (``jdsample.c::jinit_upsampler``): none for (1, 1); "fancy" for (2, 1),
+    (2, 2) and (1, 2) (box for the h2 ratios of a plane at most 2 samples
+    wide); box replication (``int_upsample``) for any other ratio, such as
+    4:1:1's (4, 1)."""
     p = p.astype(np.int64)
     if fh == 1 and fv == 1:
         return p
-    if fh == 2 and p.shape[1] <= 2:
+    if (fh, fv) not in ((2, 1), (2, 2), (1, 2)) or (
+            fh == 2 and p.shape[1] <= 2):
         return np.repeat(np.repeat(p, fh, axis=1), fv, axis=0)
     if fh == 2 and fv == 1:
         left = np.concatenate([p[:, :1], p[:, :-1]], axis=1)
@@ -767,8 +948,9 @@ def decode(data) -> np.ndarray:
         if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
             _parse_sof(f, marker, body)
             _, _, mcux, mcuy = _sampling(f)
-            f.coef = [np.zeros((mcuy * c['v'], mcux * c['h'], 64), np.int64)
-                      for c in f.comps]
+            f.grid = [(mcuy * c['v'], mcux * c['h']) for c in f.comps]
+            f.coef = [[0] * (r * c * 64) for r, c in f.grid]
+            f.coef_bits = [[-1] * 64 for _ in f.comps]
         elif marker == 0xCC:
             raise not_ported("arithmetic-coded")
         elif marker == 0xDB:
@@ -784,10 +966,12 @@ def decode(data) -> np.ndarray:
                 raise DecodeError("JPEG: scan before the frame header")
             pos = _decode_scan(f, body, data, pos)
             scanned = True
-        elif marker == 0xE0 and body.startswith(b'JFIF\0'):
-            f.jfif = True
-        elif marker == 0xEE and body.startswith(b'Adobe'):
-            f.adobe = True
+        elif marker == 0xE0 and len(body) >= 14 and body.startswith(
+                b'JFIF\0'):
+            f.jfif = True     # jdmarker.c reads APP0 of 14 bytes or more
+        elif marker == 0xEE and len(body) >= 12 and body.startswith(
+                b'Adobe'):
+            f.adobe = body[11]     # the transform flag
         elif marker == 0xDC:
             raise DecodeError("JPEG: DNL is not read")
     if not scanned:
@@ -831,26 +1015,59 @@ def _parse_dht(f: _Frame, body: bytes) -> None:
         k += 17 + count
 
 
+def _colour_space(f: _Frame) -> str:
+    """The stream's colour space as ``jdapimin.c::default_decompress_
+    parms`` guesses it: 'grey', 'ycc', 'rgb', 'cmyk' or 'ycck'."""
+    nc = len(f.comps)
+    if nc == 1:
+        return 'grey'
+    if nc == 4:
+        return 'ycck' if f.adobe not in (None, 0) else 'cmyk'
+    if f.jfif:
+        return 'ycc'
+    if f.adobe is not None:
+        return 'rgb' if f.adobe == 0 else 'ycc'
+    ids = [c['id'] for c in f.comps]
+    return 'rgb' if ids == [82, 71, 66] else 'ycc'
+
+
+def cmyk_to_rgb(c, m, y, k) -> np.ndarray:
+    """OpenCV's CMYK -> BGR of a 4-component JPEG (``icvCvt_CMYK2BGR_8u_
+    C4C3R``: each of C, M, Y as k - ((255 - v) k >> 8)), as RGB."""
+    k = k.astype(np.int64)
+    return np.stack([k - (((255 - v.astype(np.int64)) * k) >> 8)
+                     for v in (c, m, y)], axis=-1).astype(np.uint8)
+
+
 def _output(f: _Frame) -> np.ndarray:
     hmax, vmax, _, _ = _sampling(f)
-    if len(f.comps) == 3:
-        ids = [c['id'] for c in f.comps]
-        if f.adobe:
-            raise not_ported("Adobe-transform (APP14)")
-        if not f.jfif and ids == [82, 71, 66]:
-            raise not_ported("RGB (component ids 'R', 'G', 'B')")
+    if _smoothed(f):
+        raise not_ported("progressive, with coefficients left unrefined "
+                         "(libjpeg-turbo's block smoothing),")
     planes = []
     for ci, c in enumerate(f.comps):
         if c['tq'] not in f.quant:
             raise DecodeError("JPEG: component uses an undefined table")
-        rows, cols = f.coef[ci].shape[:2]
-        px = idct_islow(f.coef[ci].reshape(-1, 64), f.quant[c['tq']])
+        rows, cols = f.grid[ci]
+        # JCOEF is 16-bit, as in libjpeg
+        coef = np.array(f.coef[ci], np.int64).astype(np.int16)
+        px = idct_islow(coef.astype(np.int64).reshape(-1, 64),
+                        f.quant[c['tq']])
         plane = px.reshape(rows, cols, 8, 8).transpose(0, 2, 1, 3).reshape(
             rows * 8, cols * 8)
         dh = -(-f.height * c['v'] // vmax)
         dw = -(-f.width * c['h'] // hmax)
         up = _upsample(plane[:dh, :dw], hmax // c['h'], vmax // c['v'])
         planes.append(up[:f.height, :f.width])
-    if len(planes) == 1:
+    space = _colour_space(f)
+    if space == 'grey':
         return planes[0].astype(np.uint8)
-    return ycc_to_rgb(*planes)
+    if space == 'rgb':
+        return np.stack(planes, axis=-1).astype(np.uint8)
+    if space == 'ycc':
+        return ycc_to_rgb(*planes)
+    if space == 'ycck':
+        # jdcolor.c::ycck_cmyk_convert: C, M, Y = 255 - the YCbCr's RGB
+        rgb = ycc_to_rgb(*planes[:3], clamp=False)
+        planes[:3] = [np.clip(255 - rgb[..., k], 0, 255) for k in range(3)]
+    return cmyk_to_rgb(*planes)

@@ -21,7 +21,8 @@ import numpy as np
 from .zarr_shard import BloscShardArray, RawShardArray
 # DEFAULT_MAX_PENDING_BYTES is re-exported: the merges split it
 from .zarr_store import (DEFAULT_MAX_PENDING_BYTES, BloscZarrArray,  # noqa: F401
-                         EncodePool, RawZarrArray, write_group)
+                         BufferMeter, EncodePool, RawZarrArray, clamp_chunks,
+                         write_group)
 
 OME_AXES = [
     {"name": "t", "type": "time", "unit": "second"},
@@ -161,7 +162,11 @@ class MultiscaleWriter:
     write them, or whole levels, as the in-RAM path saves them.
 
     ``cname`` None stores raw chunks (``direct_io`` 'auto', 'on' or
-    'off' picks O_DIRECT writes, same bytes); a blosc cname ('lz4',
+    'off' picks O_DIRECT writes, same bytes); chunks that span several
+    planes (``chunks[:3]`` other than (1, 1, 1) once clamped to the
+    level) are gathered whole before they are written, raw ones too
+    (buffered writes, no block writes), and a chunk equal to the fill
+    value is then not stored, as tensorstore stores none; a blosc cname ('lz4',
     'zstd', ... :data:`~image_stitcher_tpu_torch.io.blosc.CNAMES`) stores
     blosc chunks of that codec (``clevel``; ``shuffle`` on v2, always byte
     shuffle on v3, as the JAX package writes them), encoded on a pool of
@@ -194,31 +199,44 @@ class MultiscaleWriter:
             attrs = multiscales_attrs(name, num_levels, dz_um, pixel_size_um)
             attrs["omero"] = omero
             write_group(path, attrs)
-        self.pool = (EncodePool(max_pending_bytes) if cname is not None
-                     else None)
+        #: chunks over several planes are gathered whole, raw ones too
+        self.gathers = tuple(clamp_chunks(chunks, base_shape)[:3]) != (1, 1, 1)
+        self.pool = (EncodePool(max_pending_bytes)
+                     if cname is not None or self.gathers else None)
+        #: the host bytes the chunk-row buffers hold (``peak_buffer_bytes``)
+        self.meter = BufferMeter()
         self.arrays = []
         for level, shape in enumerate(self.shapes):
             lpath = os.path.join(path, str(level))
-            if cname is None and zarr_format == 3:
+            if cname is None and not self.gathers and zarr_format == 3:
                 arr = RawShardArray(lpath, shape, chunks, dtype,
                                     direct_io=direct_io)
-            elif cname is None:
+            elif cname is None and not self.gathers:
                 arr = RawZarrArray(lpath, shape, chunks, dtype,
                                    direct_io=direct_io)
             elif zarr_format == 3:
                 arr = BloscShardArray(lpath, shape, chunks, dtype, self.pool,
-                                      clevel=clevel, cname=cname)
+                                      clevel=clevel, cname=cname,
+                                      meter=self.meter)
             else:
                 arr = BloscZarrArray(lpath, shape, chunks, dtype, self.pool,
-                                     clevel, shuffle, cname)
+                                     clevel, shuffle, cname, self.meter)
             self.arrays.append(arr)
+
+    @property
+    def peak_buffer_bytes(self) -> int:
+        """The most host bytes the chunk-row buffers held at once."""
+        return self.meter.peak
 
     def write_level(self, level: int, data: np.ndarray,
                     sel: Optional[Tuple[slice, ...]] = None) -> bool:
         """Write a (t, c, z, h, w) slab at ``sel`` (t, c, z, y, x slices;
         x from column 0), or with ``sel`` None the whole level, plane by
-        plane. Returns True: the caller may reuse ``data`` when the call
-        returns (the OME-TIFF writer returns False, it keeps views)."""
+        plane; where chunks span several planes, chunk row by chunk row
+        and within one every plane, so each chunk group's rows arrive in
+        order (``ChunkRowBuffer``). Returns True: the caller may reuse
+        ``data`` when the call returns (the OME-TIFF writer returns False,
+        it keeps views)."""
         data = np.asarray(data)
         if data.ndim != 5:
             raise ValueError(f"slabs are (t, c, z, h, w), got {data.shape}")
@@ -231,10 +249,28 @@ class MultiscaleWriter:
             t0, c0, z0, y0, x0 = (s.start or 0 for s in sel)
             if x0 != 0:
                 raise ValueError("slabs start at column 0")
-        for t, c, z in np.ndindex(*data.shape[:3]):
-            self.arrays[level].write_plane_rows(t0 + t, c0 + c, z0 + z, y0,
-                                                data[t, c, z])
+        arr = self.arrays[level]
+        h = data.shape[3]
+        cuts = [y0, y0 + h]
+        if self.gathers:
+            cy = arr.chunks[3]
+            cuts[1:1] = range((y0 // cy + 1) * cy, y0 + h, cy)
+        for r0, r1 in zip(cuts, cuts[1:]):
+            for t, c, z in np.ndindex(*data.shape[:3]):
+                arr.write_plane_rows(t0 + t, c0 + c, z0 + z, r0,
+                                     data[t, c, z, r0 - y0:r1 - y0])
         return True
+
+    def finish_group(self, t: int, z: Optional[int] = None) -> None:
+        """Every row of the chunk groups holding T index ``t`` (and, when
+        given, plane ``z``; every channel) is written: encode their
+        buffered chunk rows now, not at :meth:`close`. Rows that nothing
+        writes (a band without tiles) would otherwise hold a chunk row
+        back; nothing to do for one-plane raw chunks."""
+        for arr in self.arrays:
+            rows = getattr(arr, 'rows', None)
+            if rows is not None:
+                rows.flush(t, z)
 
     def block_spec(self, level: int = 0) -> Optional[Tuple[int, int]]:
         """(chunk_rows, chunk_cols) when ``level`` takes chunk-column
@@ -268,7 +304,8 @@ class MultiscaleWriter:
 
     def close(self) -> None:
         """Encode what is buffered and wait for every chunk write; raises
-        the first failure. Raw writes are synchronous: nothing waits."""
+        the first failure. Raw writes of one-plane chunks are synchronous:
+        nothing waits."""
         if self.pool is None:
             return
         try:

@@ -7,7 +7,8 @@ chunks' encoded bodies, then an index of one (offset, nbytes) u64 LE pair
 per inner chunk of the shard's nominal grid, (2^64-1, 2^64-1) for a chunk
 that is not stored, then the CRC-32C of the index. Shards are one chunk
 row tall and ``shard_multiple`` chunks wide (the JAX package's Y-thin
-layout, which band writes cover whole), at ``c/t/c/z/sy/sx``.
+layout, which band writes cover whole), as deep as the chunk in T, C
+and Z, at ``c/t/c/z/sy/sx`` (chunk-grid indices).
 
 - :class:`RawShardArray` (inner codecs ``bytes``): the JAX raw shard
   writer's layout byte for byte: a shard is created sparse at its full
@@ -15,8 +16,9 @@ layout, which band writes cover whole), at ``c/t/c/z/sy/sx``.
   ordinal, the index written once, and band rows land at known offsets
   (O_DIRECT where ``io/directio.py`` decides so).
 - :class:`BloscShardArray` (inner codecs ``bytes`` + ``blosc`` of any
-  cname, always byte-shuffled as the JAX package writes them):
-  rows are gathered per chunk row (``zarr_store.ChunkRowBuffer``), each
+  cname, always byte-shuffled as the JAX package writes them, or raw
+  inner chunks that span several planes): rows are gathered per chunk
+  row of a chunk group (``zarr_store.ChunkRowBuffer``), each
   chunk is encoded once on an ``EncodePool`` thread, and the last of a
   shard's chunks to finish writes the shard: the bodies of the chunks
   that differ from the fill value, in C order; a shard with none is not
@@ -35,9 +37,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from . import blosc
-from .zarr_store import (ChunkRowBuffer, EncodePool, _pwrite_all,
-                         _RawWriter, _fresh_array_dir, _write_file,
-                         _write_json_atomic, clamp_chunks)
+from .zarr_store import (BufferMeter, ChunkRowBuffer, EncodePool,
+                         _pwrite_all, _RawWriter, _fresh_array_dir,
+                         _write_file, _write_json_atomic, clamp_chunks)
 
 MISSING = 0xFFFFFFFFFFFFFFFF
 _CRC32C_TABLE: Optional[List[int]] = None
@@ -124,9 +126,8 @@ class _ShardGrid:
         self.dtype = np.dtype(dtype)
         self.chunks, self.shard = compute_shard_shape(self.shape, chunks,
                                                       shard_multiple)
-        if len(self.shape) != 5 or self.chunks[:3] != (1, 1, 1):
-            raise ValueError("zarr arrays are (T, C, Z, Y, X) with one "
-                             "plane per chunk")
+        if len(self.shape) != 5:
+            raise ValueError("zarr arrays are (T, C, Z, Y, X)")
         self.per_shard = self.shard[4] // self.chunks[4]
         self.chunk_nbytes = (self.chunks[3] * self.chunks[4]
                              * self.dtype.itemsize)
@@ -161,6 +162,10 @@ class RawShardArray(_ShardGrid, _RawWriter):
         self.path = path
         self.dtype = np.dtype(dtype)
         chunks = clamp_chunks(chunks, shape)
+        if tuple(chunks[:3]) != (1, 1, 1):
+            raise ValueError("raw shards written by rows hold one plane per "
+                             "chunk (chunks over several planes: "
+                             "BloscShardArray, cname None)")
         # body offsets are ordinal * chunk_nbytes + k * pitch
         self._init_rows(direct_io, chunks[4] * self.dtype.itemsize,
                         chunks[3] * chunks[4] * self.dtype.itemsize)
@@ -258,25 +263,30 @@ class RawShardArray(_ShardGrid, _RawWriter):
 
 
 class BloscShardArray(_ShardGrid):
-    """A blosc sharded zarr v3 array (codec ``cname``, ``clevel``), written
-    by plane slabs through a ``ChunkRowBuffer``, its chunks encoded on
-    ``pool``. The chunks are byte-shuffled whatever the run's
-    ``compressor_shuffle``: the JAX package's v3 metadata always says
-    ``'shuffle': 'shuffle'``."""
+    """A sharded zarr v3 array whose inner chunks are gathered whole and
+    then encoded once: blosc (codec ``cname``, ``clevel``), or with
+    ``cname`` None raw (inner codecs ``bytes``; raw arrays take this path
+    when a chunk spans several planes). Written by plane slabs through a
+    ``ChunkRowBuffer``, its chunks encoded on ``pool``. Blosc chunks are
+    byte-shuffled whatever the run's ``compressor_shuffle``: the JAX
+    package's v3 metadata always says ``'shuffle': 'shuffle'``."""
 
     def __init__(self, path: str, shape: Sequence[int],
                  chunks: Sequence[int], dtype, pool: EncodePool,
                  shard_multiple: int = 16, clevel: int = 5,
-                 cname: str = 'lz4'):
-        blosc.check_settings(cname, clevel, 1)
+                 cname: Optional[str] = 'lz4',
+                 meter: Optional[BufferMeter] = None):
+        config = None
+        if cname is not None:
+            blosc.check_settings(cname, clevel, 1)
+            config = {'blocksize': 0, 'clevel': int(clevel), 'cname': cname,
+                      'shuffle': 'shuffle'}
         blosc.lib()   # build the codecs now: a missing compiler raises here
         self.cname, self.clevel = cname, int(clevel)
-        self._init_grid(path, shape, chunks, dtype, shard_multiple,
-                        {'blocksize': 0, 'clevel': self.clevel,
-                         'cname': cname, 'shuffle': 'shuffle'})
+        self._init_grid(path, shape, chunks, dtype, shard_multiple, config)
         self.pool = pool
         self.rows = ChunkRowBuffer(self.shape, self.chunks, self.dtype,
-                                   self._store_row)
+                                   self._store_row, meter)
 
     def write_plane_rows(self, t: int, c: int, z: int, y0: int,
                          plane: np.ndarray) -> None:
@@ -286,22 +296,25 @@ class BloscShardArray(_ShardGrid):
         self.rows.flush()
 
     def _store_row(self, key, row: np.ndarray) -> None:
-        t, c, z, sy = key
         for sx in range(-(-self.shape[4] // self.shard[4])):
             present = self._chunks_in_array(sx)
             k0 = sx * self.per_shard
             shard = _PendingShard(
-                os.path.join(self.path, 'c', str(t), str(c), str(z), str(sy),
-                             str(sx)), self.per_shard, present)
+                os.path.join(self.path, 'c', *map(str, key), str(sx)),
+                self.per_shard, present)
             for k in range(present):
                 self.pool.submit(row[k0 + k].nbytes, self._encode, shard, k,
                                  row[k0 + k])
 
     def _encode(self, shard: '_PendingShard', k: int,
                 chunk: np.ndarray) -> None:
-        frame = (None if blosc.all_zero(chunk) else
-                 blosc.compress(chunk, self.dtype.itemsize, self.clevel, 1,
-                                self.cname))
+        if blosc.all_zero(chunk):
+            frame = None
+        elif self.cname is None:
+            frame = chunk.reshape(-1).view(np.uint8).data
+        else:
+            frame = blosc.compress(chunk, self.dtype.itemsize, self.clevel, 1,
+                                   self.cname)
         shard.done(k, frame)
 
 

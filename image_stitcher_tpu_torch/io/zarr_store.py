@@ -18,13 +18,14 @@ output opens with either reader. The zarr v3 shard writers are in
   bytes); a chunk-column block (``try_write_block``) as one contiguous
   ``pwrite`` a chunk file, from any thread.
 - :class:`BloscZarrArray` (blosc chunks of any cname, clevel and
-  shuffle): rows are copied into a buffer per (t, c, z, chunk row), so
-  the caller's slab may change as soon as the call
-  returns; when every row of a chunk row is in (or a later chunk row of
-  the plane is written, or the array is flushed), each of its chunks is
-  encoded once on an :class:`EncodePool` thread and written as one file.
-  A chunk equal to the fill value is not stored, as tensorstore stores
-  none.
+  shuffle, or raw chunks that span several planes): rows are copied into
+  a buffer per chunk row of a chunk group (:class:`ChunkRowBuffer`; a
+  group is the planes that share chunk files), so the caller's slab may
+  change as soon as the call returns; once every plane of the group has
+  written or passed each row of a chunk row (or the array is flushed),
+  each of its chunks is encoded once on an :class:`EncodePool` thread and
+  written as one file. A chunk equal to the fill value is not stored, as
+  tensorstore stores none.
 
 :func:`open_array` opens raw and blosc arrays (every codec, byte or bit
 shuffle) of either format for windowed reads, which decode only the
@@ -319,8 +320,9 @@ class RawZarrArray(_RawWriter):
         self.chunks = clamp_chunks(chunks, self.shape)
         self.dtype = np.dtype(dtype)
         if len(self.shape) != 5 or self.chunks[:3] != (1, 1, 1):
-            raise ValueError("raw zarr arrays are (T, C, Z, Y, X) with one "
-                             "plane per chunk")
+            raise ValueError("raw zarr arrays written by rows are (T, C, Z, "
+                             "Y, X) with one plane per chunk (chunks over "
+                             "several planes: BloscZarrArray, cname None)")
         self.chunk_bytes = self.chunks[3] * self.chunks[4] * self.dtype.itemsize
         # every write offset and length is a multiple of the row pitch
         self._init_rows(direct_io, self.chunks[4] * self.dtype.itemsize,
@@ -395,28 +397,69 @@ class RawZarrArray(_RawWriter):
         return True
 
 
-class ChunkRowBuffer:
-    """Plane rows gathered per (t, c, z, chunk row) until each chunk row
-    can be encoded whole; ``store(key, row)`` gets ``key`` = (t, c, z,
-    cyi) and ``row``, an owned (ncx, cy, cx) array whose row-major
-    chunks are C-contiguous (zero where nothing was written).
+class BufferMeter:
+    """The host bytes that a writer's :class:`ChunkRowBuffer` s hold, and
+    their peak (one meter shared by every level of a writer)."""
 
-    A chunk row goes to ``store`` when all its rows inside the array are
-    written, when a write reaches a later chunk row of the same plane, or
-    at :meth:`flush`; at most one chunk row per plane is held. Rows
-    written again after their chunk row was stored raise: each chunk is
-    encoded once (no read-modify-write)."""
+    def __init__(self):
+        self.held = 0
+        self.peak = 0
+        self._lock = threading.Lock()
+
+    def add(self, nbytes: int) -> None:
+        with self._lock:
+            self.held += nbytes
+            self.peak = max(self.peak, self.held)
+
+
+class ChunkRowBuffer:
+    """Plane rows gathered per chunk row of a chunk group until each chunk
+    row can be encoded whole. A chunk group is the planes that share
+    chunk files: (t // ct, c // cc, z // cz) for chunks (ct, cc, cz, cy,
+    cx). ``store(key, row)`` gets ``key`` = (t // ct, c // cc, z // cz,
+    cyi), the chunk-grid index of the row's chunks, and ``row``, an owned
+    (ncx, ct, cc, cz, cy, cx) array whose chunks are C-contiguous, zero
+    where nothing was written (planes and rows past the array's edge
+    too, as tensorstore pads edge chunks with the fill value).
+
+    Each plane's rows arrive in order (a write may skip rows): a write
+    starting at row y0 settles the plane's rows above y0, written or
+    not. A group's chunk row goes to ``store`` once every row of it is
+    settled in every plane of the group that lies inside the array (a
+    single-plane group: once its rows are written or a write starts
+    below it), or at :meth:`flush`. Rows written again after their chunk
+    row was stored raise: each chunk is encoded once (no
+    read-modify-write). ``meter`` counts the bytes held."""
 
     def __init__(self, shape: Sequence[int], chunks: Sequence[int], dtype,
-                 store: Callable):
+                 store: Callable, meter: Optional[BufferMeter] = None):
         self.shape = tuple(shape)
-        self.cy, self.cx = chunks[3], chunks[4]
+        self.ct, self.cc, self.cz, self.cy, self.cx = chunks
         self.ncx = -(-self.shape[4] // self.cx)
         self.dtype = np.dtype(dtype)
         self._store = store
-        self._open: Dict[Tuple[int, int, int], Tuple[int, np.ndarray,
-                                                     np.ndarray]] = {}
+        self.meter = meter or BufferMeter()
+        # group -> {chunk row: (row, settled (ct, cc, cz, rows))}
+        self._open: Dict[Tuple[int, int, int],
+                         Dict[int, Tuple[np.ndarray, np.ndarray]]] = {}
         self._stored: Dict[Tuple[int, int, int], Set[int]] = {}
+        # group -> the first row of each plane's latest write
+        self._start: Dict[Tuple[int, int, int], np.ndarray] = {}
+
+    def _new_row(self, group, cyi: int) -> Tuple[np.ndarray, np.ndarray]:
+        ct, cc, cz, cy = self.ct, self.cc, self.cz, self.cy
+        row = np.zeros((self.ncx, ct, cc, cz, cy, self.cx), self.dtype)
+        settled = np.zeros((ct, cc, cz, min(cy, self.shape[3] - cyi * cy)),
+                           bool)
+        # planes past the array's edge are never written: they stay zero
+        settled[max(0, self.shape[0] - group[0] * ct):] = True
+        settled[:, max(0, self.shape[1] - group[1] * cc):] = True
+        settled[:, :, max(0, self.shape[2] - group[2] * cz):] = True
+        start = self._start[group]
+        for plane in zip(*np.nonzero(start > cyi * cy)):
+            settled[plane][:start[plane] - cyi * cy] = True
+        self.meter.add(row.nbytes)
+        return row, settled
 
     def write(self, t: int, c: int, z: int, y0: int,
               plane: np.ndarray) -> None:
@@ -428,70 +471,94 @@ class ChunkRowBuffer:
             raise ValueError(f"slab {plane.shape} {plane.dtype} at row {y0} "
                              f"does not fit {self.shape} {self.dtype}")
         cy, cx = self.cy, self.cx
-        pkey = (t, c, z)
-        stored = self._stored.setdefault(pkey, set())
+        group = (t // self.ct, c // self.cc, z // self.cz)
+        local = (t % self.ct, c % self.cc, z % self.cz)
+        rows = self._open.setdefault(group, {})
+        stored = self._stored.setdefault(group, set())
+        start = self._start.setdefault(
+            group, np.zeros((self.ct, self.cc, self.cz), np.int64))
+        start[local] = max(start[local], y0)
+        # this plane's rows above y0 are settled
+        for cyi in sorted(rows):
+            settled = rows[cyi][1][local]
+            settled[:max(0, start[local] - cyi * cy)] = True
+            if rows[cyi][1].all():
+                self._emit(group, cyi)
         for cyi in range(y0 // cy, (y0 + h - 1) // cy + 1):
             if cyi in stored:
-                raise ValueError(f"rows of chunk row {cyi} of plane {pkey} "
-                                 "written after it was encoded")
-            cur = self._open.get(pkey)
-            if cur is not None and cur[0] != cyi:
-                self._emit(pkey)
-                cur = None
-            if cur is None:
-                need = min(cy, self.shape[3] - cyi * cy)
-                cur = (cyi, np.zeros((self.ncx, cy, cx), self.dtype),
-                       np.zeros(need, bool))
-                self._open[pkey] = cur
-            _, row, covered = cur
+                raise ValueError(f"rows of chunk row {cyi} of plane "
+                                 f"{(t, c, z)} written after it was encoded")
+            if cyi not in rows:
+                rows[cyi] = self._new_row(group, cyi)
+            row, settled = rows[cyi]
             ry0, ry1 = max(y0, cyi * cy), min(y0 + h, (cyi + 1) * cy)
             for cxi in range((w - 1) // cx + 1):
                 x0, x1 = cxi * cx, min(w, (cxi + 1) * cx)
-                row[cxi, ry0 - cyi * cy:ry1 - cyi * cy, :x1 - x0] = \
+                row[(cxi,) + local + (slice(ry0 - cyi * cy, ry1 - cyi * cy),
+                                      slice(0, x1 - x0))] = \
                     plane[ry0 - y0:ry1 - y0, x0:x1]
-            covered[ry0 - cyi * cy:ry1 - cyi * cy] = True
-            if covered.all():
-                self._emit(pkey)
+            settled[local][ry0 - cyi * cy:ry1 - cyi * cy] = True
+            if settled.all():
+                self._emit(group, cyi)
 
-    def _emit(self, pkey) -> None:
-        cyi, row, _ = self._open.pop(pkey)
-        self._stored[pkey].add(cyi)
-        self._store(pkey + (cyi,), row)
+    def _emit(self, group, cyi: int) -> None:
+        row, _ = self._open[group].pop(cyi)
+        self._stored[group].add(cyi)
+        self.meter.add(-row.nbytes)
+        self._store(group + (cyi,), row)
 
-    def flush(self) -> None:
-        for pkey in sorted(self._open):
-            self._emit(pkey)
+    def flush(self, t: Optional[int] = None, z: Optional[int] = None
+              ) -> None:
+        """Store every open chunk row, or with ``t`` (and ``z``) given
+        those of the chunk groups that hold T index ``t`` (and plane
+        ``z``): the caller has written every row it will write there."""
+        for group in sorted(self._open):
+            if ((t is None or group[0] == t // self.ct)
+                    and (z is None or group[2] == z // self.cz)):
+                for cyi in sorted(self._open[group]):
+                    self._emit(group, cyi)
 
 
 class BloscZarrArray:
-    """A blosc zarr v2 array (codec ``cname``, ``clevel``, ``shuffle``),
-    created on construction (any previous array at ``path`` is replaced),
-    written by plane slabs through a :class:`ChunkRowBuffer`; each chunk
-    is encoded and written on ``pool``. :meth:`flush` hands over what is
-    buffered; the owner closes the pool."""
+    """A zarr v2 array whose chunks are gathered whole and then encoded
+    once: blosc (codec ``cname``, ``clevel``, ``shuffle``), or with
+    ``cname`` None raw (the C-order bytes of the chunk). Created on
+    construction (any previous array at ``path`` is replaced), written by
+    plane slabs through a :class:`ChunkRowBuffer`; each chunk is encoded
+    and written on ``pool``, and a chunk equal to the fill value is not
+    stored, as tensorstore stores none. Raw arrays take this path when a
+    chunk spans several planes (:class:`RawZarrArray` writes one-plane
+    chunks from the rows); their files are written buffered, never
+    O_DIRECT. :meth:`flush` hands over what is buffered; the owner closes
+    the pool."""
 
     def __init__(self, path: str, shape: Sequence[int],
                  chunks: Sequence[int], dtype, pool: EncodePool,
-                 clevel: int = 5, shuffle: int = 1, cname: str = 'lz4'):
+                 clevel: int = 5, shuffle: int = 1,
+                 cname: Optional[str] = 'lz4',
+                 meter: Optional[BufferMeter] = None):
         self.path = path
         self.shape = tuple(int(s) for s in shape)
         self.chunks = clamp_chunks(chunks, self.shape)
         self.dtype = np.dtype(dtype)
-        if len(self.shape) != 5 or self.chunks[:3] != (1, 1, 1):
-            raise ValueError("zarr arrays are (T, C, Z, Y, X) with one "
-                             "plane per chunk")
-        blosc.check_settings(cname, clevel, shuffle)
+        if len(self.shape) != 5:
+            raise ValueError("zarr arrays are (T, C, Z, Y, X)")
+        compressor = None
+        if cname is not None:
+            blosc.check_settings(cname, clevel, shuffle)
+            compressor = blosc_meta(cname, clevel, shuffle)
+        # build the codecs (and the zero test) now: a missing compiler
+        # raises here
+        blosc.lib()
         self.cname, self.clevel, self.shuffle = cname, int(clevel), int(shuffle)
         self.pool = pool
-        blosc.lib()   # build the codecs now: a missing compiler raises here
         _fresh_array_dir(path)
         _write_json_atomic(
             os.path.join(path, '.zarray'),
-            zarray_meta(self.shape, self.chunks, self.dtype,
-                        blosc_meta(self.cname, self.clevel, self.shuffle)),
+            zarray_meta(self.shape, self.chunks, self.dtype, compressor),
             indent=None)
         self.rows = ChunkRowBuffer(self.shape, self.chunks, self.dtype,
-                                   self._store_row)
+                                   self._store_row, meter)
 
     def write_plane_rows(self, t: int, c: int, z: int, y0: int,
                          plane: np.ndarray) -> None:
@@ -501,8 +568,7 @@ class BloscZarrArray:
         self.rows.flush()
 
     def _store_row(self, key, row: np.ndarray) -> None:
-        t, c, z, cyi = key
-        d = os.path.join(self.path, str(t), str(c), str(z), str(cyi))
+        d = os.path.join(self.path, *map(str, key))
         for cxi in range(row.shape[0]):
             self.pool.submit(row[cxi].nbytes, self._store_chunk,
                              os.path.join(d, str(cxi)), row[cxi])
@@ -510,8 +576,9 @@ class BloscZarrArray:
     def _store_chunk(self, fpath: str, chunk: np.ndarray) -> None:
         if blosc.all_zero(chunk):
             return   # equal to the fill value: not stored
-        frame = blosc.compress(chunk, self.dtype.itemsize, self.clevel,
-                               self.shuffle, self.cname)
+        frame = (chunk.reshape(-1).view(np.uint8).data if self.cname is None
+                 else blosc.compress(chunk, self.dtype.itemsize, self.clevel,
+                                     self.shuffle, self.cname))
         os.makedirs(os.path.dirname(fpath), exist_ok=True)
         _write_file(fpath, frame)
 

@@ -18,7 +18,11 @@ mean (:func:`~image_stitcher_tpu_torch.ops.pyramid.downsample_mean`, on
 the pipeline's device: the card, or the CPU for a CPU pipeline), copied
 back on the worker's own CUDA stream and written. Merges always fold
 with the mean, whatever ``pyramid_downsample`` says. Peak memory is one
-band a worker, whatever the volume. A (timepoint, region) is merged only
+band a worker, whatever the volume, and the rows the writer gathers for
+chunks over several planes: with ``chunks[0]`` timepoints a chunk, the
+time series and the complete plate copy those timepoints band by band
+together, so each chunk is encoded once and the writer holds one band
+of each. A (timepoint, region) is merged only
 when the run manifests list it as completed and its level 0 is on disk.
 """
 
@@ -152,18 +156,24 @@ def _max_region_shape(pipeline, region: str) -> Tuple[int, ...]:
     return tuple(max(s) for s in zip(*shapes))
 
 
-def _stream_volume_banded(pipeline, writer: MultiscaleWriter, src, ti: int,
+def _stream_volume_banded(pipeline, writer: MultiscaleWriter, sources,
                           num_levels: int) -> None:
-    """Copy one timepoint's volume into T index ``ti`` of ``writer``
-    band by band, folding each band into every pyramid level on the
-    pipeline's device (bands are a multiple of 2^(levels-1) rows, so
-    pooling windows never cross them)."""
+    """Copy timepoint volumes, ``sources`` a list of (T index of
+    ``writer``, level-0 array), band by band: each band of every source
+    in turn, then the next band, each folded into every pyramid level on
+    the pipeline's device (bands are a multiple of 2^(levels-1) rows, so
+    pooling windows never cross them). The sources of one call are the
+    timepoints that share chunk files (``chunks[0]`` of them), so each
+    chunk row is complete, and encoded once, when its band has passed
+    through every source; one band's staging serves them all."""
     stats: MergeStats = pipeline.merge_stats
-    _, c, z, h, w = src.shape
+    _, c, z = sources[0][1].shape[:3]
+    h = max(src.shape[3] for _, src in sources)
+    w = max(src.shape[4] for _, src in sources)
     band = band_rows_for(pipeline.options.write_band_rows(), num_levels)
     dev = pipeline.device
     on_cuda = dev.type == 'cuda'
-    tdt = torch_dtype(src.dtype)
+    tdt = torch_dtype(sources[0][1].dtype)
     # pinned staging for a band's level 0 and its deeper levels
     staging = torch.empty(c * z * min(band, h) * w, dtype=tdt,
                           pin_memory=on_cuda)
@@ -172,66 +182,87 @@ def _stream_volume_banded(pipeline, writer: MultiscaleWriter, src, ti: int,
                   for lv in range(1, num_levels)]
     stream = torch.cuda.Stream(dev) if on_cuda else None
     for band0 in range(0, h, band):
-        rows = min(band, h - band0)
-        host = staging[:c * z * rows * w].view(1, c, z, rows, w)
-        t0 = time.perf_counter()
-        src.read((0, slice(None), slice(None), slice(band0, band0 + rows)),
-                 out=host.numpy())
-        t1 = time.perf_counter()
-        with (torch.cuda.stream(stream) if on_cuda
-              else contextlib.nullcontext()):
-            if on_cuda:
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-                ev[0].record()
-            level = host[0].to(dev, non_blocking=True)
-            if on_cuda:
-                ev[1].record()
-            levels = []
-            for _ in range(1, num_levels):
-                level = downsample_mean(level)
-                if level.shape[-2] == 0 or level.shape[-1] == 0:
-                    break
-                levels.append(level)
-            t2 = time.perf_counter()
-            if on_cuda:
-                ev[2].record()
-            back = []
-            for lv, level in enumerate(levels, 1):
-                dst = lv_staging[lv - 1][:level.numel()].view(level.shape)
-                dst.copy_(level, non_blocking=on_cuda)
-                back.append(dst)
-            if on_cuda:
-                ev[3].record()
-        # level 0 is written from the staging while the card folds
-        t3 = time.perf_counter()
-        writer.write_level(0, host.numpy(), sel=(
-            slice(ti, ti + 1), slice(None), slice(None),
-            slice(band0, band0 + rows), slice(0, w)))
-        write_s = time.perf_counter() - t3
+        for ti, src in sources:
+            if band0 < src.shape[3]:
+                _copy_band(writer, src, ti, band0, band, num_levels, staging,
+                           lv_staging, stream, dev, stats)
+    # rows past a smaller timepoint's edge are never written
+    writer.finish_group(sources[0][0])
+
+
+def _copy_band(writer: MultiscaleWriter, src, ti: int, band0: int,
+               band: int, num_levels: int, staging, lv_staging, stream, dev,
+               stats: MergeStats) -> None:
+    """One band of ``src`` into T index ``ti``: read into the staging,
+    written as level 0 while the device folds it, its levels written."""
+    _, c, z, h, w = src.shape
+    on_cuda = stream is not None
+    rows = min(band, h - band0)
+    host = staging[:c * z * rows * w].view(1, c, z, rows, w)
+    t0 = time.perf_counter()
+    src.read((0, slice(None), slice(None), slice(band0, band0 + rows)),
+             out=host.numpy())
+    t1 = time.perf_counter()
+    with (torch.cuda.stream(stream) if on_cuda
+          else contextlib.nullcontext()):
         if on_cuda:
-            stream.synchronize()
-            times = dict(h2d_ms=ev[0].elapsed_time(ev[1]),
-                         fold_ms=ev[1].elapsed_time(ev[2]),
-                         d2h_ms=ev[2].elapsed_time(ev[3]))
-        else:
-            times = dict(fold_ms=(t2 - t1) * 1e3)
-        t4 = time.perf_counter()
-        for lv, dst in enumerate(back, 1):
-            b_lv = band0 >> lv
-            writer.write_level(lv, dst.numpy()[None], sel=(
-                slice(ti, ti + 1), slice(None), slice(None),
-                slice(b_lv, b_lv + dst.shape[-2]), slice(0, dst.shape[-1])))
-        stats.add(read_s=t1 - t0, write_s=write_s + time.perf_counter() - t4,
-                  bytes_read=host.numel() * host.element_size(), bands=1,
-                  **times)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+        level = host[0].to(dev, non_blocking=True)
+        if on_cuda:
+            ev[1].record()
+        levels = []
+        for _ in range(1, num_levels):
+            level = downsample_mean(level)
+            if level.shape[-2] == 0 or level.shape[-1] == 0:
+                break
+            levels.append(level)
+        t2 = time.perf_counter()
+        if on_cuda:
+            ev[2].record()
+        back = []
+        for lv, level in enumerate(levels, 1):
+            dst = lv_staging[lv - 1][:level.numel()].view(level.shape)
+            dst.copy_(level, non_blocking=on_cuda)
+            back.append(dst)
+        if on_cuda:
+            ev[3].record()
+    # level 0 is written from the staging while the card folds
+    t3 = time.perf_counter()
+    writer.write_level(0, host.numpy(), sel=(
+        slice(ti, ti + 1), slice(None), slice(None),
+        slice(band0, band0 + rows), slice(0, w)))
+    write_s = time.perf_counter() - t3
+    if on_cuda:
+        stream.synchronize()
+        times = dict(h2d_ms=ev[0].elapsed_time(ev[1]),
+                     fold_ms=ev[1].elapsed_time(ev[2]),
+                     d2h_ms=ev[2].elapsed_time(ev[3]))
+    else:
+        times = dict(fold_ms=(t2 - t1) * 1e3)
+    t4 = time.perf_counter()
+    for lv, dst in enumerate(back, 1):
+        b_lv = band0 >> lv
+        writer.write_level(lv, dst.numpy()[None], sel=(
+            slice(ti, ti + 1), slice(None), slice(None),
+            slice(b_lv, b_lv + dst.shape[-2]), slice(0, dst.shape[-1])))
+    stats.add(read_s=t1 - t0, write_s=write_s + time.perf_counter() - t4,
+              bytes_read=host.numel() * host.element_size(), bands=1,
+              **times)
 
 
 def _stream_timepoints(pipeline, writer: MultiscaleWriter, region: str,
                        num_levels: int) -> None:
-    """Write each timepoint's pyramid into a T-stacked store."""
-    for ti, t in enumerate(pipeline.acq.timepoints):
-        src = _open_region_level0(pipeline, int(t), region)
-        _stream_volume_banded(pipeline, writer, src, ti, num_levels)
+    """Write each timepoint's pyramid into a T-stacked store, the
+    timepoints that share chunk files (``chunks[0]``) band by band
+    together."""
+    timepoints = list(enumerate(pipeline.acq.timepoints))
+    per = max(1, int(pipeline.options.chunks[0]))
+    for k in range(0, len(timepoints), per):
+        _stream_volume_banded(
+            pipeline, writer,
+            [(ti, _open_region_level0(pipeline, int(t), region))
+             for ti, t in timepoints[k:k + per]], num_levels)
 
 
 def _make_image_writer(pipeline, path: str, base_shape, name: str,
@@ -363,7 +394,7 @@ def create_hcs_ome_zarr_per_timepoint(pipeline) -> str:
             _write_well_tree(
                 pipeline, output_path, region, f"Well_{region}_t{t}",
                 src.shape, lambda writer: _stream_volume_banded(
-                    pipeline, writer, src, 0, pipeline.num_pyramid_levels),
+                    pipeline, writer, [(0, src)], pipeline.num_pyramid_levels),
                 n_concurrent)
 
         _map_merge_units(pipeline, regions, well_one)

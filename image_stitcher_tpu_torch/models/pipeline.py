@@ -1034,6 +1034,14 @@ class StitchPipeline:
             return out
         return canvas[:, :, :height, :width]
 
+    def _chunk_planes(self) -> Tuple[int, int]:
+        """(channels, z planes) one output chunk spans: the band writers
+        hand bands over chunk group by chunk group (``models/streaming.py::
+        band_order``). (1, 1) for OME-TIFF, which has no chunks."""
+        if self.output_format.endswith('.tiff'):
+            return 1, 1
+        return int(self.options.chunks[1]), int(self.options.chunks[2])
+
     def _should_stream(self, t, region: str) -> bool:
         """Band streaming for canvases over ``streaming_threshold_bytes``
         (unpadded (C, Z, H, W) bytes) under 'auto'; always under 'on';
@@ -1077,7 +1085,8 @@ class StitchPipeline:
                     ff_recip=(None if gate is not None
                               else self._ff_recip_or_none()),
                     blend_method=opts.blend_method,
-                    blend_px=opts.feather_px, ff_gate=gate)
+                    blend_px=opts.feather_px, ff_gate=gate,
+                    chunk_planes=self._chunk_planes())
             else:
                 fuser = DeviceStreamingFuser(
                     writer, height, width,
@@ -1089,7 +1098,8 @@ class StitchPipeline:
                     reader_threads=opts.resolved_reader_threads(),
                     ff_recip=self._ff_recip_or_none(),
                     blend_method=opts.blend_method,
-                    blend_px=opts.feather_px, device=self.device)
+                    blend_px=opts.feather_px, device=self.device,
+                    chunk_z=self._chunk_planes()[1])
         except BaseException:
             writer.abort()
             raise
@@ -1135,12 +1145,14 @@ class StitchPipeline:
         plane's rows of one band, cut again at the band path's band
         height, each copied on a side stream of its device only when the
         writer's hand-off has room. One writer thread writes each piece's
-        rows and pyramid levels in row order, as the band path does. At
-        most three pieces are alive on the host (one being written, one in
-        the hand-off, one being copied; ``fuse_stats[...]
-        ['peak_host_bytes']`` is their peak), so no device and no host
-        buffer ever holds the whole canvas. Any writer of :meth:`_writer`
-        takes them.
+        rows and pyramid levels in the band path's order (chunk group by
+        chunk group, ``models/streaming.py::band_order``). At most three
+        pieces are alive on the host (one being written, one in the
+        hand-off, one being copied; ``fuse_stats[...]['peak_host_bytes']``
+        is their peak), besides the rows the writer gathers for chunks over
+        several planes (``peak_buffer_bytes``: at most one piece's rows of
+        every plane of a z group), so no device and no host buffer ever
+        holds the whole canvas. Any writer of :meth:`_writer` takes them.
 
         The tree is the band path's: rows of a (c, z) plane that no tile
         reaches within one of the band path's bands
@@ -1207,7 +1219,8 @@ class StitchPipeline:
             for item in canvas.iter_bands(
                     piece_rows=path_band,
                     keep=lambda c, z, r0: (c, z, r0 // path_band
-                                           * path_band) in written):
+                                           * path_band) in written,
+                    z_group=self._chunk_planes()[1]):
                 with lock:
                     live[0] += item[3].nbytes
                     stats['peak_host_bytes'] = max(stats['peak_host_bytes'],
@@ -1232,6 +1245,8 @@ class StitchPipeline:
         t0 = time.perf_counter()
         writer.close()
         stats['close'] = time.perf_counter() - t0
+        if hasattr(writer, 'peak_buffer_bytes'):
+            stats['peak_buffer_bytes'] = writer.peak_buffer_bytes
         self.fuse_stats[f"{region}_t{t}"] = dict(
             stats, batches=batches, band_rows=band,
             bands=canvas.band_stats())

@@ -177,6 +177,17 @@ def partition_jobs_by_band(jobs: Sequence, tile_h: int, height: int,
     return tasks, n_jobs
 
 
+def band_order(keys, chunk_z: int = 1) -> List[Tuple[int, int, int]]:
+    """(c, z, band0) band keys in write order: (z // chunk_z, band0, z, c).
+    With one-plane chunks that is (z, band0, c), the JAX package's order,
+    in which all channels of a band row finish close together; with
+    chunks ``chunk_z`` planes deep, every plane of a chunk's z group
+    finishes a band row before any plane starts the next, so a chunk row
+    is complete once its last plane's band is written and the writer's
+    buffer holds at most one band row of one z group."""
+    return sorted(keys, key=lambda k: (k[1] // chunk_z, k[2], k[1], k[0]))
+
+
 class FlatfieldGate:
     """Per-channel flatfield readiness gate.
 
@@ -226,10 +237,12 @@ class StreamingFuser:
     ``ops/host_fuse.place_window`` (the C loops of ``csrc/hostops.c``)
     in plan order, finalizes a feathered band in C, and writes it with
     its pyramid folded in C, on the task's own thread. Tasks run in
-    (z, band0, c) order, so all channels of one band row finish close
-    together: the RGB OME-TIFF writer, which interleaves the three
-    channel bands of a page strip, parks at most a few bands. With
-    ``ff_gate`` a band first waits for its channel's field.
+    :func:`band_order` ((z, band0, c) for one-plane chunks), so all
+    channels of one band row finish close together: the RGB OME-TIFF
+    writer, which interleaves the three channel bands of a page strip,
+    parks at most a few bands. ``chunk_planes`` is (channels, z planes)
+    a chunk spans. With ``ff_gate`` a band first waits for its channel's
+    field.
 
     Chunk-column block mode (the JAX package's): for overwrite blending
     into a writer whose level 0 takes block writes (raw chunks, v2 or
@@ -248,12 +261,15 @@ class StreamingFuser:
     front.
 
     Every other level, and every write of a writer without blocks (blosc
-    chunks, OME-TIFF), goes through one hand-off: those writers take one
-    plane's rows in order, from one thread at a time (the zarr writers
-    encode a chunk row once a later one of its plane is written, and
-    their buffers hold no lock). So a band's levels reach the writer
-    under one lock, in plane order (:meth:`_write_in_order`): a band done
-    before an earlier band of its plane parks its levels, and the thread
+    chunks, chunks over several planes, OME-TIFF), goes through one
+    hand-off: those writers take one chunk group's rows in order, from
+    one thread at a time (the zarr writers encode a chunk row once every
+    plane of its group has written or passed it, and their buffers hold
+    no lock).
+    So a band's levels reach the writer under one lock, in the task order
+    within its chunk group (:meth:`_write_in_order`; a group is the planes
+    that share chunk files, one plane for one-plane chunks): a band done
+    before an earlier band of its group parks its levels, and the thread
     that writes the earlier band writes it too.
 
     A thread's overwrite band buffer is reused for its next band only
@@ -266,7 +282,8 @@ class StreamingFuser:
                  downsample_mode: str = 'nearest', chunk_rows: int = 2048,
                  num_threads: int = 2, ff_recip: Optional[np.ndarray] = None,
                  blend_method: str = 'overwrite', blend_px: int = 64,
-                 ff_gate: Optional[FlatfieldGate] = None):
+                 ff_gate: Optional[FlatfieldGate] = None,
+                 chunk_planes: Tuple[int, int] = (1, 1)):
         if blend_method not in ('overwrite', 'feather'):
             raise ValueError(f"unknown blend_method {blend_method!r}")
         self.writer = writer
@@ -281,6 +298,7 @@ class StreamingFuser:
         self.ff_gate = ff_gate
         self.blend = blend_method
         self.blend_px = blend_px
+        self.chunk_c, self.chunk_z = chunk_planes
         #: wall seconds summed over the band threads: 'gate' (waiting for
         #: a channel's field), 'fill' (the band buffer zeroed), 'decode',
         #: 'place', 'finalize', 'pyramid' (the folds), 'write' (the
@@ -319,12 +337,14 @@ class StreamingFuser:
             self._block_cx = int(bs[1])
         #: chunk-column blocks a band writes at level 0 (0: no block mode)
         self.block_cols = -(-width // self._block_cx) if self._block_cx else 0
-        # plane-order hand-off (set up by run()): each plane's next band
-        # to write, each band's successor in its plane, the parked bands
+        # group-order hand-off (set up by run()): each chunk group's next
+        # band to write, each band's successor in its group, the parked
+        # bands; a band is its (c, z, band0) key
         self._write_lock = threading.Lock()
-        self._next: Dict[Tuple[int, int], Optional[int]] = {}
-        self._succ: Dict[Tuple[int, int, int], Optional[int]] = {}
+        self._next: Dict[Tuple[int, int], Optional[Tuple]] = {}
+        self._succ: Dict[Tuple[int, int, int], Optional[Tuple]] = {}
         self._parked: Dict[Tuple[int, int, int], Tuple[List, int]] = {}
+        self._left: Dict[int, int] = {}   # bands of a z group not written
 
     def _tick(self, key: str, t0: float) -> float:
         """Add the wall time since ``t0`` and this thread's on-core time
@@ -569,24 +589,36 @@ class StreamingFuser:
                         levels: List[np.ndarray],
                         first_level: int = 0) -> bool:
         """Write a band's levels (the first at ``first_level``) once every
-        earlier band of its (c, z) plane is written, then the parked
-        later bands that this unblocks; a band whose predecessor is still
-        fusing parks. Returns True when this band was written and the
-        writer released its first level."""
-        plane = (c, z)
+        band before it in its chunk group's order is written, then the
+        parked later bands that this unblocks; a band whose predecessor is
+        still fusing parks. Returns True when this band was written and
+        the writer released its first level."""
+        key = (c, z, band0)
+        group = (c // self.chunk_c, z // self.chunk_z)
         with self._write_lock:
-            if self._next[plane] != band0:
-                self._parked[(c, z, band0)] = (levels, first_level)
+            if self._next[group] != key:
+                self._parked[key] = (levels, first_level)
                 return False
             released = write_band_levels(self.writer, c, z, band0, levels,
                                          first_level)
-            nxt = self._succ[(c, z, band0)]
-            while nxt is not None and (c, z, nxt) in self._parked:
-                write_band_levels(self.writer, c, z, nxt,
-                                  *self._parked.pop((c, z, nxt)))
-                nxt = self._succ[(c, z, nxt)]
-            self._next[plane] = nxt
+            self._written(key)
+            nxt = self._succ[key]
+            while nxt is not None and nxt in self._parked:
+                write_band_levels(self.writer, *nxt,
+                                  *self._parked.pop(nxt))
+                self._written(nxt)
+                nxt = self._succ[nxt]
+            self._next[group] = nxt
             return released
+
+    def _written(self, key: Tuple[int, int, int]) -> None:
+        """Count a band written (under the write lock); after the last
+        band of a z group, the writer encodes that group's chunk rows."""
+        zg = key[1] // self.chunk_z
+        self._left[zg] -= 1
+        finish = getattr(self.writer, 'finish_group', None)
+        if not self._left[zg] and finish is not None:
+            finish(0, key[1])
 
     def run(self, jobs: Sequence, load_fn: Callable,
             progress_cb: Optional[Callable[[int, int], None]] = None,
@@ -619,10 +651,13 @@ class StreamingFuser:
         self._parked.clear()
         self._next.clear()
         self._succ.clear()
-        for c, z, band0 in sorted(tasks, reverse=True):
-            self._succ[(c, z, band0)] = self._next.get((c, z))
-            self._next[(c, z)] = band0
-        order = sorted(tasks, key=lambda k: (k[1], k[2], k[0]))
+        self._left.clear()
+        order = band_order(tasks, self.chunk_z)
+        for key in reversed(order):
+            group = (key[0] // self.chunk_c, key[1] // self.chunk_z)
+            self._succ[key] = self._next.get(group)
+            self._next[group] = key
+            self._left[group[1]] = self._left.get(group[1], 0) + 1
         pool = ThreadPoolExecutor(self.num_threads,
                                   thread_name_prefix='host-band')
         try:
@@ -643,7 +678,9 @@ class StreamingFuser:
 
 class DeviceStreamingFuser:
     """Device-resident Y-band fusion feeding a MultiscaleWriter or an
-    OME-TIFF ``StreamingTiffWriter``."""
+    OME-TIFF ``StreamingTiffWriter``, band by band in :func:`band_order`
+    (``chunk_z``: the z planes a chunk spans). The band contents do not
+    depend on the order, only when each reaches the writer."""
 
     def __init__(self, writer: MultiscaleWriter,
                  height: int, width: int, tile_h: int, tile_w: int, dtype,
@@ -652,7 +689,8 @@ class DeviceStreamingFuser:
                  reader_threads: int = 4,
                  ff_recip: Optional[np.ndarray] = None,
                  blend_method: str = 'overwrite', blend_px: int = 64,
-                 device: torch.device = torch.device('cuda')):
+                 device: torch.device = torch.device('cuda'),
+                 chunk_z: int = 1):
         if blend_method not in ('overwrite', 'feather'):
             raise ValueError(f"unknown blend_method {blend_method!r}")
         self.writer = writer
@@ -669,6 +707,7 @@ class DeviceStreamingFuser:
         self.blend = blend_method
         self.blend_px = blend_px
         self.device = torch.device(device)
+        self.chunk_z = chunk_z
         self._ff_device: Optional[torch.Tensor] = None  # one upload per run
         self._side = (torch.cuda.Stream(self.device)
                       if self.device.type == 'cuda' else None)
@@ -768,10 +807,11 @@ class DeviceStreamingFuser:
             if progress_cb is not None:
                 progress_cb(done[0], n_jobs)
 
+        order = band_order(tasks, self.chunk_z)
+        finish = getattr(self.writer, 'finish_group', None)
+
         def fused():
-            # (z, band0, c) order: all channels of one band row finish
-            # close together
-            for key in sorted(tasks.keys(), key=lambda k: (k[1], k[2], k[0])):
+            for i, key in enumerate(order):
                 if stop_check is not None:
                     stop_check()
                 c, z, band0 = key
@@ -779,11 +819,14 @@ class DeviceStreamingFuser:
                 host, event = self._fuse_band(c, band0, tasks[key], progress,
                                               stop_check=stop_check)
                 self.stats['fuse'] += time.perf_counter() - t0
-                yield c, z, band0, host, event
+                # the z group's last band: its chunk rows can be encoded
+                last = (i + 1 == len(order) or order[i + 1][1] // self.chunk_z
+                        != z // self.chunk_z)
+                yield c, z, band0, host, event, last
                 host = event = None     # the writer holds the band now
 
         def write(item):
-            c, z, band0, host, event = item
+            c, z, band0, host, event, last = item
             t0 = time.perf_counter()
             if event is not None:
                 event.synchronize()
@@ -791,6 +834,8 @@ class DeviceStreamingFuser:
             write_band_levels(self.writer, c, z, band0,
                               band_levels(host.numpy(), self.num_levels,
                                           self.mode))
+            if last and finish is not None:
+                finish(0, z)
             self.stats['readback_wait'] += t1 - t0
             self.stats['write'] += time.perf_counter() - t1
 

@@ -30,6 +30,8 @@ on every row, with the same output.
 
 from __future__ import annotations
 
+import itertools
+
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -202,13 +204,16 @@ class ShardedCanvas:
         return torch.cat([self._core(b).to(first) for b in self.bands],
                          dim=2)
 
-    def iter_bands(self, piece_rows: Optional[int] = None, keep=None
+    def iter_bands(self, piece_rows: Optional[int] = None, keep=None,
+                   z_group: int = 1
                    ) -> Iterator[Tuple[int, int, int, torch.Tensor,
                                        Optional[torch.cuda.Event]]]:
         """Yield (c, z, first row, (rows, W) host copy, event or None) for
         the canvas's core rows, band by band in row order and within a
-        band by z, row and c: one piece a (c, z) plane, cut again at every
-        multiple of ``piece_rows`` when it is given. ``keep(c, z, row)``
+        band by z // ``z_group``, row, z and c (for ``z_group`` 1: z, row
+        and c), the band writers' order for chunks ``z_group`` planes deep
+        (``models/streaming.py::band_order``): one piece a (c, z) plane,
+        cut again at every multiple of ``piece_rows`` when it is given. ``keep(c, z, row)``
         (default: every piece) picks the pieces to copy. A CUDA piece's
         copy goes to pinned memory on a side stream of the band's device,
         after the band's fusion on its current stream; wait on the event
@@ -230,25 +235,26 @@ class ShardedCanvas:
             if band.device.type == 'cuda':
                 side = torch.cuda.Stream(band.device)
                 side.wait_stream(torch.cuda.current_stream(band.device))
-            for z in range(self.num_z):
-                for r0, r1 in zip(cuts, cuts[1:]):
-                    for c in range(self.num_c):
-                        if keep is not None and not keep(c, z, r0):
-                            continue
-                        piece = core[c, z, r0 - b0:r1 - b0]
-                        if side is None:
-                            host, done = piece.clone(), None
-                        else:
-                            host = torch.empty(tuple(piece.shape),
-                                               dtype=piece.dtype,
-                                               pin_memory=True)
-                            with torch.cuda.stream(side):
-                                host.copy_(piece, non_blocking=True)
-                                done = torch.cuda.Event()
-                                done.record(side)
-                        del piece
-                        yield c, z, r0, host, done
-                        host = done = None   # the caller holds the copy
+            for zg in range(0, self.num_z, z_group):
+                zs = range(zg, min(zg + z_group, self.num_z))
+                for (r0, r1), z, c in itertools.product(
+                        zip(cuts, cuts[1:]), zs, range(self.num_c)):
+                    if keep is not None and not keep(c, z, r0):
+                        continue
+                    piece = core[c, z, r0 - b0:r1 - b0]
+                    if side is None:
+                        host, done = piece.clone(), None
+                    else:
+                        host = torch.empty(tuple(piece.shape),
+                                           dtype=piece.dtype,
+                                           pin_memory=True)
+                        with torch.cuda.stream(side):
+                            host.copy_(piece, non_blocking=True)
+                            done = torch.cuda.Event()
+                            done.record(side)
+                    del piece
+                    yield c, z, r0, host, done
+                    host = done = None   # the caller holds the copy
             if side is not None:
                 core.record_stream(side)
             band.canvas = band.acc = band.wsum = None

@@ -8,12 +8,13 @@ device), registration (center pair, all pairs, or the global position
 solve with optional subpixel placement; reports and debug images),
 overwrite or feathered fusion on CUDA or on the host, in bands or whole
 canvases or banded over a mesh of devices (``mesh_shape``), OME-Zarr
-v2 or v3 with raw or blosc chunks or pyramidal OME-TIFF (deflate or raw
-tiles), the timepoint and HCS merges, resuming a run from its manifest,
-and work shards (``work_shard``) cooperating on one output folder. Every
-option outside
-those paths raises ``NotImplementedError`` naming the ROADMAP item that
-will bring it, instead of running something else in its place.
+v2 or v3 with raw or blosc chunks of any (T, C, Z, Y, X) extent or
+pyramidal OME-TIFF (deflate, raw or JPEG tiles), the timepoint and HCS
+merges, resuming a run from its manifest, and work shards
+(``work_shard``) cooperating on one output folder: every option of the
+JAX package's schema but its TPU kernel choice. What the port still refuses is tile input (some
+TIFF, BMP and JPEG streams), which raises ``NotImplementedError`` naming
+its ROADMAP item, instead of running something else in its place.
 """
 
 from __future__ import annotations
@@ -33,12 +34,6 @@ def _available_cpus() -> int:
         return len(os.sched_getaffinity(0))
     except AttributeError:  # non-Linux
         return os.cpu_count() or 1
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to image_stitcher_tpu_torch yet "
-        f"(ROADMAP.md, {item}); use image_stitcher_tpu for it")
 
 
 @dataclass
@@ -234,7 +229,3 @@ class EngineOptions:
             if self.output_folder is None:
                 raise ValueError("work_shard requires an explicit "
                                  "output_folder shared by all shards")
-        if tuple(self.chunks[:3]) != (1, 1, 1):
-            raise _not_ported(
-                f"chunks {tuple(self.chunks)} spanning several planes",
-                "item 20, 'chunks over several planes'")

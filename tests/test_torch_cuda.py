@@ -384,7 +384,8 @@ def test_merge_fold_on_the_card_equals_the_cpu_fold(cuda_device, tmp_path):
                                   cname='lz4')
         for ti in (0, 1):
             merge._stream_volume_banded(
-                pipe, writer, open_array(str(tmp_path / 'src' / '0')), ti, 4)
+                pipe, writer, [(ti, open_array(str(tmp_path / 'src' / '0')))],
+                4)
         writer.close()
         got[dev.type] = [read_array(f"{out}/{k}") for k in range(4)]
         if dev.type == 'cuda':

@@ -255,10 +255,10 @@ def test_failed_unit_aborts_its_writer_and_the_run_raises(tmp_path,
     import json
     real = merge._stream_volume_banded
 
-    def failing(pipeline, writer, src, ti, num_levels):
-        if ti == 1:
+    def failing(pipeline, writer, sources, num_levels):
+        if any(ti == 1 for ti, _ in sources):
             raise RuntimeError("band read failed")
-        return real(pipeline, writer, src, ti, num_levels)
+        return real(pipeline, writer, sources, num_levels)
 
     monkeypatch.setattr(merge, '_stream_volume_banded', failing)
     acq = make_acquisition(str(tmp_path / 'acq'))

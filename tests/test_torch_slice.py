@@ -229,10 +229,26 @@ def test_cli_runs_the_slice_on_cpu(tmp_path):
     assert read_array(str(zarr)).shape == (1, 1, 1, 144, 112)
 
 
+def _refused_tiles(acq):
+    """Make every tile of ``acq`` an RLE8 BMP, a tile format the port
+    does not read yet (ROADMAP item 6): the companion that still raises
+    now that every option runs."""
+    from torch_tile_files import bmp_bytes
+    palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+    data = bytearray(bmp_bytes(np.zeros((32, 32), np.uint8), 8, palette))
+    data[30] = 1     # BI_RLE8
+    for d, _, names in os.walk(acq):
+        for n in names:
+            if n.endswith('.tiff'):
+                with open(os.path.join(d, n), 'wb') as f:
+                    f.write(bytes(data))
+
+
 @pytest.mark.parametrize("option", [
     # feather, the global scope, zarr v3, every blosc codec, the host
-    # fuser, meshes and work shards run; with an unported companion
-    # option they still raise, naming it
+    # fuser, meshes, work shards and chunks over several planes run; with
+    # an unported companion (tiles of a format still refused) they still
+    # raise, naming it
     dict(blend_method='feather', chunks=(1, 2, 1, 2048, 2048)),
     dict(registration_scope='global', fusion_device='host',
          chunks=(1, 2, 1, 2048, 2048)),
@@ -240,38 +256,44 @@ def test_cli_runs_the_slice_on_cpu(tmp_path):
     dict(zarr_format=3, chunks=(1, 1, 2, 2048, 2048)),
     dict(compressor_cname='zstd', chunks=(1, 2, 1, 2048, 2048)),
     dict(mesh_shape=(1, 2), chunks=(2, 1, 1, 2048, 2048)),
-    dict(work_shard=(0, 2), output_folder='/nonexistent',
+    dict(work_shard=(0, 2), output_folder='out',
          chunks=(1, 2, 1, 2048, 2048))],
     ids=lambda d: next(iter(d)))
 def test_unported_options_raise(tmp_path, option):
     acq = str(tmp_path / "acq")
     write_synthetic_acquisition(acq, grid_cols=2, grid_rows=1, tile_w=32,
                                 tile_h=32, overlap=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    _refused_tiles(acq)
+    if 'output_folder' in option:
+        option = dict(option, output_folder=str(tmp_path / "out"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
         port.stitch(acq, device=CPU, options=port.EngineOptions(**option))
 
 
 @pytest.mark.parametrize("param", [
-    # OME-TIFF output, merges, resume, meshes and work shards run; with an
-    # unported companion they still raise, naming it
+    # OME-TIFF output, merges, resume, meshes, work shards and chunks over
+    # several planes run; with an unported companion (tiles of a format
+    # still refused) they still raise, naming it
     dict(output_format='.ome.tiff',
-         options=port.EngineOptions(chunks=(1, 2, 1, 2048, 2048))),
+         options=dict(chunks=(1, 2, 1, 2048, 2048))),
     dict(merge_timepoints=True, output_format='.ome.tiff',
-         options=port.EngineOptions(mesh_shape=(1, 2),
-                                    chunks=(1, 2, 1, 2048, 2048))),
+         options=dict(mesh_shape=(1, 2), chunks=(1, 2, 1, 2048, 2048))),
     dict(merge_hcs_regions=True, output_format='.ome.tiff',
-         options=port.EngineOptions(work_shard=(0, 2),
-                                    output_folder='/nonexistent',
-                                    chunks=(1, 1, 2, 2048, 2048))),
-    dict(resume=True, options=port.EngineOptions(
-        work_shard=(0, 2), output_folder='/nonexistent',
-        chunks=(2, 1, 1, 2048, 2048)))],
+         options=dict(work_shard=(0, 2), output_folder='out',
+                      chunks=(1, 1, 2, 2048, 2048))),
+    dict(resume=True, options=dict(work_shard=(0, 2), output_folder='out',
+                                   chunks=(2, 1, 1, 2048, 2048)))],
     ids=lambda d: next(iter(d)))
 def test_unported_parameters_raise(tmp_path, param):
     acq = str(tmp_path / "acq")
     write_synthetic_acquisition(acq, grid_cols=2, grid_rows=1, tile_w=32,
                                 tile_h=32, overlap=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    _refused_tiles(acq)
+    opts = dict(param['options'])
+    if 'output_folder' in opts:
+        opts['output_folder'] = str(tmp_path / "out")
+    param = dict(param, options=port.EngineOptions(**opts))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
         port.stitch(acq, device=CPU, **param)
 
 

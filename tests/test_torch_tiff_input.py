@@ -209,14 +209,22 @@ def test_corrupt_file_raises_value_error_naming_it(tmp_path):
     ('cv2', cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422),
     ('cv2', cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444),
     ('cv2', cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440), ('pil', None),
-    ('pil', 2), ('pil', 1), ('pil', 0)],
+    ('pil', 2), ('pil', 1), ('pil', 0),
+    ('cv2', cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411),
+    ('cv2-progressive', None),
+    ('cv2-progressive', cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420),
+    ('cv2-progressive', cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411),
+    ('pil-progressive', 2), ('pil-cmyk', 0)],
     ids=['cv2-grey', 'cv2-420', 'cv2-422', 'cv2-444', 'cv2-440',
-         'pil-grey', 'pil-420', 'pil-422', 'pil-444'])
+         'pil-grey', 'pil-420', 'pil-422', 'pil-444', 'cv2-411',
+         'cv2-progressive-grey', 'cv2-progressive-420',
+         'cv2-progressive-411', 'pil-progressive-420', 'pil-cmyk'])
 @pytest.mark.parametrize("suffix", ['jpg', 'jpeg'])
 def test_jpeg_tiles_read_as_jax(tmp_path, writer, sampling, suffix):
     """``.jpg``/``.jpeg`` tiles (Squid's suffixes), written by OpenCV
-    (the JAX package's writer and reader) and by PIL: the port's
-    ``read_image`` equals the JAX package's."""
+    (the JAX package's writer and reader) and by PIL, baseline and
+    progressive, CMYK too: the port's ``read_image`` equals the JAX
+    package's."""
     from PIL import Image
     rng = np.random.default_rng(sampling or 0)
     y, x = np.mgrid[:45, :67]
@@ -226,14 +234,19 @@ def test_jpeg_tiles_read_as_jax(tmp_path, writer, sampling, suffix):
     if sampling is None:
         img = img[..., 0]
     path = str(tmp_path / f"A1_0_0_ch.{suffix}")
-    if writer == 'cv2':
-        params = [cv2.IMWRITE_JPEG_QUALITY, 90]
+    if writer.startswith('cv2'):
+        params = [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_PROGRESSIVE,
+                  int(writer.endswith('progressive'))]
         if sampling is not None:
             params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling]
         assert cv2.imwrite(path, img, params)
     else:
         kw = {} if sampling is None else dict(subsampling=sampling)
-        Image.fromarray(img).save(path, 'JPEG', quality=90, **kw)
+        im = Image.fromarray(img)
+        if writer == 'pil-cmyk':
+            im, kw = im.convert('CMYK'), {}
+        im.save(path, 'JPEG', quality=90,
+                progressive=writer == 'pil-progressive', **kw)
     got = _assert_same(path)
     assert got.shape == img.shape
 
