@@ -15,14 +15,15 @@ Phases, each fatal on failure:
      mod 8, u16 and u8, cameras whose rows are not 16-byte aligned, and
      one HCS well's whole (3, 2, Hp, Wp) in-RAM canvas with a 3-plane
      field (channel and z indices both used; the feather case finalizes
-     every plane). Per case: the kernel's time on the card (CUDA events,
-     calls queued behind a spinning kernel so the host's enqueue is
-     hidden), one call with the host's enqueue, the plain version's
-     call, and the bound (bytes each input read once and each output
-     written once, at 3.35 TB/s) with the kernel's share of it; then the
-     batched device
-     phase correlation against the host f64 twin on 180 main-path strip
-     pairs (within 0.1 px);
+     every plane); the band canvas in float32 and int16 with and without
+     the field, and a small canvas in int8, int32 and uint32
+     (no field, no feathering for uint32). Per case: the kernel's time
+     on the card (CUDA events, calls queued behind a spinning kernel so
+     the host's enqueue is hidden), one call with the host's enqueue,
+     the plain version's call, and the bound (bytes each input read once
+     and each output written once, at 3.35 TB/s) with the kernel's share
+     of it; then the batched device phase correlation against the host
+     f64 twin on 180 main-path strip pairs (within 0.1 px);
   4. slice parity: 3x3 x 3-channel 2048^2 acquisitions stitched on the
      card and on the CPU through the band fuser (streaming='on') must
      decode to equal OME-Zarr trees: the main path, and the maximum-
@@ -187,6 +188,17 @@ Phases, each fatal on failure:
      (a)'s; (c) ``python -m image_stitcher_tpu_torch.tools.doctor``, exit
      0, its Device section naming this card and its power limit, with the
      pinned H2D and D2H rates.
+ 17. (run right after phase 16, on phase 5's kept acquisition) tile
+     sample types: (a) phase 5's tiles rewritten as float32 (same
+     values, 4.8 GB) and stitched with phase 5's options: '<f4' levels,
+     OMERO window 0..1, channel 0 at full size equal to the NumPy
+     reference (u16 values * ff_recip in f32), e2e and tiles/s; without
+     the field the float32 tree decoded equal to a uint16 run's cast to
+     float32; (b) int16 tiles 4x4 in RAM and in bands and (c) the
+     feathered quality path in float32 at 4x4, each card tree equal to
+     a CPU run's; (d) OpenCV's LZW/deflate, Predictor 2/3 tiles of every
+     sample type (``tests/torch_tiff_samples.npz``) decoded by the C
+     decoders to OpenCV's pixels, the plain versions to the same bytes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
@@ -406,7 +418,9 @@ def phase_kernels(reps: int = 20):
     rng = np.random.default_rng(1234)
     over = [overwrite_case(rng, case, reps) for case in kernel_cases()]
     rng = np.random.default_rng(4321)
-    feath = [feather_case(rng, case, reps) for case in kernel_cases()]
+    # uint32 takes no feathering (the JAX package's clip bound overflows)
+    feath = [feather_case(rng, case, reps) for case in kernel_cases()
+             if case[1] != torch.uint32]
     pcc_check()
     out = {'fuse_overwrite': dict(over[0]),
            'fuse_feather': dict(feath[0]),
@@ -425,7 +439,13 @@ def kernel_cases():
     (the first case is the headline) and at the odd unpadded pitch, u16
     and u8, with and without the field; cameras into a 3-channel canvas
     (ff picked per channel): 1920x1200, and rows of 1100 and 1201 pixels,
-    which are not 16-byte aligned."""
+    which are not 16-byte aligned; the band canvas in float32 and int16,
+    with and without the field (phase 17's sample types); and a small
+    2-channel canvas for each other sample type the kernels take (int8
+    and int32 with and without the field, uint32 without: the JAX
+    package gives it no field or feathering; float64 tiles reach the
+    kernels as float32), rows of 1000 elements, not 16-byte aligned in
+    int8."""
     cases = [('band', dtype, with_ff, BAND_CANVAS, 10, TILE, TILE)
              for dtype in (torch.uint16, torch.uint8)
              for with_ff in (True, False)]
@@ -440,7 +460,36 @@ def kernel_cases():
               ('camera', torch.uint8, False, (3, 1, 5000, 9001), 10, 1201,
                1201),
               ('well', torch.uint16, True, WELL_CANVAS, 10, TILE, TILE)]
+    cases += [('band', dtype, with_ff, BAND_CANVAS, 10, TILE, TILE)
+              for dtype in (torch.float32, torch.int16)
+              for with_ff in (True, False)]
+    cases += [('small', dtype, with_ff, (2, 1, 2400, 4200), 8, 1000, 1000)
+              for dtype in (torch.int8, torch.int32, torch.uint32)
+              for with_ff in ((False,) if dtype == torch.uint32
+                              else (True, False))]
     return cases
+
+
+def sample_tiles(tiles: np.ndarray, dtype) -> np.ndarray:
+    """The uint16 ``tiles`` of :func:`kernel_batch` as ``dtype``: uint8 the
+    high byte, int8 and int16 shifted to signed, 32-bit integers spread
+    over their range (so the field's product clips at both bounds), float32
+    with fractions."""
+    name = str(dtype).split('.')[-1]
+    wide = tiles.astype(np.int64)
+    if name == 'uint8':
+        return (tiles >> 8).astype(np.uint8)
+    if name == 'int8':
+        return ((wide >> 8) - 128).astype(np.int8)
+    if name == 'int16':
+        return (wide - 32768).astype(np.int16)
+    if name == 'int32':
+        return ((wide - 32768) * 65537).astype(np.int32)
+    if name == 'uint32':
+        return (wide * 65537).astype(np.uint32)
+    if name == 'float32':
+        return tiles.astype(np.float32) / np.float32(65.536)
+    return tiles
 
 
 def case_inputs(rng, case):
@@ -451,8 +500,7 @@ def case_inputs(rng, case):
     dev = torch.device('cuda')
     tiles, info, crops, valid = kernel_batch(rng, n, th, tw, cshape[2:],
                                              cshape[0], cshape[1])
-    if dtype == torch.uint8:
-        tiles = (tiles >> 8).astype(np.uint8)
+    tiles = sample_tiles(tiles, dtype)
     ff = None
     if with_ff:
         ff = torch.from_numpy(
@@ -477,6 +525,12 @@ def case_inputs(rng, case):
             torch.from_numpy(valid))
     return (torch.from_numpy(tiles).to(dev), meta, ff, int(mask.sum()),
             area, ff_bytes, label)
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over two tensors of one dtype, compared in float64
+    (exact for every sample type; 0 only where they are equal)."""
+    return float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
 
 
 def timings(kernel, plain_fn, nbytes, ops, reps):
@@ -504,7 +558,7 @@ def overwrite_case(rng, case, reps: int):
     torch.cuda.synchronize()
     plain.fuse_overwrite(want, d_tiles, *meta, ff)
     torch.cuda.synchronize()
-    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+    err = max_abs_err(got, want)
     if err != 0:
         raise SystemExit(f"fuse_overwrite disagrees with its plain version "
                          f"on {label}: max_abs_err {err}")
@@ -562,19 +616,20 @@ def feather_case(rng, case, reps: int):
         f"enqueue {out['call_ms']:.4f}), plain {out['plain_ms']:.4f} ms, "
         f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}), "
         f"{out['bound_share']:.1%} of the bound")
-    if name.startswith(('band', 'well')):
+    if name.startswith(('band', 'well', 'small')):
         # the band's real rows, as the band fuser finalizes them, or every
-        # plane of the well's real canvas, as the in-RAM path does
-        rows, width = ((th, th + BAND_ROWS), BAND_W) if name != 'well' \
-            else ((0, WELL_H), WELL_W)
+        # plane of the well's real canvas, as the in-RAM path does (the
+        # small canvas whole)
+        rows, width = {'well': ((0, WELL_H), WELL_W),
+                       'small': ((0, cshape[2]), cshape[3])}.get(
+            name, ((th, th + BAND_ROWS), BAND_W))
         window = (rows, (0, width))
         real = (slice(*rows), slice(0, width))
         f_got = cuda_fuse.finalize_feather(*got, dtype, *window)
         f_want = plain.finalize_feather(got[0][..., real[0], real[1]],
                                         got[1][..., real[0], real[1]], dtype)
         torch.cuda.synchronize()
-        f_err = int((f_got.to(torch.int32)
-                     - f_want.to(torch.int32)).abs().max())
+        f_err = max_abs_err(f_got, f_want)
         if f_err != 0:
             raise SystemExit(f"finalize_feather disagrees with its plain "
                              f"version on {label}: {f_err}")
@@ -649,14 +704,17 @@ ACQ_PARAMS = {
 }
 
 
-def tiff_bytes_header(h: int, w: int) -> bytes:
-    """Classic little-endian TIFF header + IFD for one uncompressed
-    uint16 strip of (h, w) whose pixels follow at byte 160."""
+def tiff_bytes_header(h: int, w: int, dtype=np.uint16) -> bytes:
+    """Classic little-endian TIFF header + IFD for one uncompressed strip
+    of (h, w) ``dtype`` samples (SampleFormat by its kind) whose pixels
+    follow at byte 160."""
     import struct
     data_off = 160
-    entries = [(256, 4, w), (257, 4, h), (258, 3, 16), (259, 3, 1),
-               (262, 3, 1), (273, 4, data_off), (277, 3, 1), (278, 4, h),
-               (279, 4, h * w * 2), (284, 3, 1), (339, 3, 1)]
+    dt = np.dtype(dtype)
+    entries = [(256, 4, w), (257, 4, h), (258, 3, 8 * dt.itemsize),
+               (259, 3, 1), (262, 3, 1), (273, 4, data_off), (277, 3, 1),
+               (278, 4, h), (279, 4, h * w * dt.itemsize), (284, 3, 1),
+               (339, 3, {'u': 1, 'i': 2, 'f': 3}[dt.kind])]
     out = bytearray(b'II' + struct.pack('<HI', 42, 8))
     out += struct.pack('<H', len(entries))
     for tag, typ, val in entries:
@@ -671,9 +729,10 @@ def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
                       seed: int, jitter: int = 0, regions=('A1',),
                       texture=None, encode=None, suffix='tiff',
                       channels=CHANNELS, timepoints: int = 1,
-                      num_z: int = 1):
+                      num_z: int = 1, dtype=np.uint16):
     """A Squid acquisition: per timepoint and region (an HCS well; wells
-    20 mm apart on the stage), grid x grid tiles of ``tile``^2 uint16 cut
+    20 mm apart on the stage), grid x grid tiles of ``tile``^2 uint16 (or
+    ``dtype``, which ``texture`` then gives) cut
     at ``overlap`` px overlap from one seeded texture of its own (full
     entropy, or ``texture(rng, side)``, which may be uint8 or (side,
     side, 3) RGB), each tile's window moved by up to +-``jitter`` px
@@ -696,7 +755,7 @@ def write_acquisition(folder: str, grid: int, tile: int, overlap: int,
     with open(os.path.join(folder, 'acquisition parameters.json'), 'w') as f:
         json.dump(dict(ACQ_PARAMS, Nx=grid, Ny=grid, Nt=timepoints,
                        Nz=num_z), f, indent=2)
-    header = tiff_bytes_header(tile, tile)
+    header = tiff_bytes_header(tile, tile, dtype)
     first = None
 
     for t in range(timepoints):
@@ -848,20 +907,31 @@ def phase_slice_parity(work: str, grid: int = 3, tile: int = TILE,
 # --------------------------------------------------------------------- 5
 
 def reference_plane(pipe, gt, origins, channel: int, height: int,
-                    width: int, region: str = 'A1') -> np.ndarray:
+                    width: int, region: str = 'A1', dtype=np.uint16,
+                    copy: tuple = None) -> np.ndarray:
     """Level 0 of one channel, fused in plain NumPy from the texture the
-    acquisition was cut from: each job's crop window, flatfield-corrected
-    (trunc(clip(tile * recip))), written in plan order."""
+    acquisition was cut from (``gt`` None: from the tile files of another
+    copy of it, ``copy`` = (this acquisition's folder, the copy's), at
+    each job's path): each job's crop window, flatfield-corrected (tile *
+    recip in f32; for uint16 trunc(clip(.)), for float32 as it is),
+    written in plan order."""
+    from image_stitcher_tpu_torch.io.acquisition import read_image
     recip = pipe._flatfield_recip_np()[channel]
     tile = pipe.acq.input_height
-    out = np.zeros((height, width), np.uint16)
+    out = np.zeros((height, width), dtype)
     for job in pipe._build_jobs(0, region):
         if job.channel_idx != channel:
             continue
-        fov = int(os.path.basename(job.filepath).split('_')[1])
-        y0, x0 = origins[fov]
-        t = gt[y0:y0 + tile, x0:x0 + tile].astype(np.float32) * recip
-        t = np.clip(t, 0, 65535).astype(np.uint16)
+        if gt is None:
+            path = os.path.join(copy[1], os.path.relpath(job.filepath,
+                                                         copy[0]))
+            t = read_image(path).astype(np.float32) * recip
+        else:
+            fov = int(os.path.basename(job.filepath).split('_')[1])
+            y0, x0 = origins[fov]
+            t = gt[y0:y0 + tile, x0:x0 + tile].astype(np.float32) * recip
+        if dtype == np.uint16:
+            t = np.clip(t, 0, 65535).astype(np.uint16)
         top, bottom, left, right = job.crops
         r1 = min(tile - bottom, height - job.y)
         s1 = min(tile - right, width - job.x)
@@ -4039,6 +4109,217 @@ def phase_chunks(work: str, card: str, main_run: dict, tile: int = TILE,
     return res
 
 
+# -------------------------------------------------------------------- 17
+
+def retype_acquisition(src: str, dst: str, dtype) -> int:
+    """Phase 5's acquisition at ``src`` (uncompressed uint16 tiles) with
+    every tile rewritten as ``dtype`` holding the same values, through the
+    port's ``io/fast_tiff.py::write_tiff_fast``, on a thread pool; the
+    coordinates and parameters copied. Returns the tiles written."""
+    from image_stitcher_tpu_torch.io.acquisition import read_image
+    from image_stitcher_tpu_torch.io.fast_tiff import write_tiff_fast
+    jobs = []
+    for dirpath, _, names in os.walk(src):
+        out_dir = os.path.join(dst, os.path.relpath(dirpath, src))
+        os.makedirs(out_dir, exist_ok=True)
+        for name in names:
+            if name.endswith('.tiff'):
+                jobs.append((os.path.join(dirpath, name),
+                             os.path.join(out_dir, name)))
+            else:
+                shutil.copy(os.path.join(dirpath, name), out_dir)
+
+    def rewrite(job):
+        write_tiff_fast(job[1], read_image(job[0]).astype(dtype))
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(rewrite, jobs))
+    return len(jobs)
+
+
+def card_and_cpu(acq: str, work: str, label: str, quality: bool = False,
+                 **extra) -> int:
+    """One acquisition stitched on the card and on the CPU (the card
+    run's fields, shifts and positions carried into the CPU run): their
+    trees decode equal and the card run launched its path's kernels.
+    Returns the card run's launches of each of the path's kernels."""
+    from image_stitcher_tpu_torch import CarriedState, stitch
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    counted = ((cuda_fuse.fuse_feather, cuda_fuse.finalize_feather)
+               if quality else (cuda_fuse.fuse_overwrite,))
+    trees, state, launches = [], None, []
+    for dev in ('cuda', 'cpu'):
+        for fn in counted:
+            fn.launches = 0
+        out = os.path.join(work, f'{label}_{dev}')
+        t0 = time.perf_counter()
+        pipe = stitch(acq, use_registration=True, apply_flatfield=True,
+                      device=torch.device(dev), state=state,
+                      options=smoke_options(out, quality, **extra))
+        seconds = time.perf_counter() - t0
+        if dev == 'cuda':
+            launches = [fn.launches for fn in counted]
+            if min(launches) == 0:
+                raise SystemExit(f"sample types ({label}): the card run "
+                                 f"launched {launches}")
+            state = CarriedState(
+                flatfields=pipe.flatfields, shifts=pipe.shifts,
+                global_positions=pipe.global_positions,
+                global_positions_float=pipe.global_positions_float)
+            card_s = seconds
+        trees.append(read_tree(out))
+        shutil.rmtree(out)
+    a, b = trees
+    if sorted(a) != sorted(b) or any(
+            not (np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray)
+                 else a[k] == b[k]) for k in a):
+        raise SystemExit(f"sample types ({label}): the card's tree differs "
+                         f"from the CPU's")
+    dtypes = {v.dtype.str for v in a.values() if isinstance(v, np.ndarray)}
+    log(f"sample types ({label}): card {card_s:.2f}s, CPU {seconds:.2f}s, "
+        f"trees equal ({sorted(dtypes)}), launches "
+        f"{dict(zip((fn.__name__ for fn in counted), launches))}")
+    return launches
+
+
+def kept_tiff_check() -> int:
+    """17d: the OpenCV-written tiles of every sample type kept in
+    ``tests/torch_tiff_samples.npz`` decoded by the C decoders to
+    OpenCV's pixels (their SHA-256), and by the plain versions to the
+    same bytes."""
+    from image_stitcher_tpu_torch.io.tiff import decode_tiff
+    tile_files()      # puts tests/ on the path
+    import torch_tiff_samples
+    kept = torch_tiff_samples.load()
+    names = [c[0] for c in torch_tiff_samples.cases()]
+    for name in names:
+        got = decode_tiff(kept[name])
+        if torch_tiff_samples.pixel_digest(got) != str(kept[name + ':sha256']):
+            raise SystemExit(f"sample types (17d): {name} does not decode to "
+                             f"OpenCV's pixels")
+        if decode_tiff(kept[name], plain=True).tobytes() != got.tobytes():
+            raise SystemExit(f"sample types (17d): {name}: the plain "
+                             f"decoders differ from the C ones")
+    return len(names)
+
+
+def phase_sample_types(work: str, card: str, main_run: dict,
+                       tile: int = TILE, small: int = 4) -> dict:
+    """17: tiles of other sample types. (a) Phase 5's kept acquisition
+    rewritten as uncompressed float32 TIFFs of the same values (300
+    tiles, 4.8 GB) stitched with phase 5's options: the levels '<f4',
+    the OMERO window 0..1, channel 0 at full size equal to the NumPy
+    reference (u16 values * ff_recip in f32, nothing truncated); e2e and
+    tiles/s against phase 5's. Then without the field: the float32 tree
+    decoded equal to a uint16 run's (no field) cast to float32. (b) int16
+    tiles (``small`` x ``small``, one channel, values below and above 0)
+    in RAM and in bands, and (c) the feathered maximum-quality path in
+    float32 (``small`` x ``small``, one channel, +-3 px jitter), each
+    card tree equal to a CPU run's. (d) :func:`kept_tiff_check`."""
+    from image_stitcher_tpu_torch import stitch
+    from image_stitcher_tpu_torch.io.zarr_store import open_array
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    t_phase = time.perf_counter()
+    res = {}
+    zarr_of = lambda out: os.path.join(out, '0_stitched',     # noqa: E731
+                                       'A1_stitched.ome.zarr')
+
+    # 17a: the main path in float32
+    acq = os.path.join(work, 'main_f32')
+    t0 = time.perf_counter()
+    n_files = retype_acquisition(main_run['acq'], acq, np.float32)
+    log(f"sample types (17a): rewrote phase 5's {n_files} tiles as float32 "
+        f"in {time.perf_counter() - t0:.1f}s")
+    out = os.path.join(work, 'f32_out')
+    cuda_fuse.fuse_overwrite.launches = 0
+    t0 = time.perf_counter()
+    pipe = stitch(acq, use_registration=True, apply_flatfield=True,
+                  device=torch.device('cuda'), options=smoke_options(out))
+    e2e = time.perf_counter() - t0
+    launches = cuda_fuse.fuse_overwrite.launches
+    stats = pipe.fuse_stats['A1_t0']
+    if launches == 0 or launches != stats['batches']:
+        raise SystemExit(f"sample types (17a): {launches} launches for "
+                         f"{stats['batches']} batches")
+    zarr = zarr_of(out)
+    for lv in range(pipe.num_pyramid_levels):
+        with open(os.path.join(zarr, str(lv), '.zarray')) as f:
+            if json.load(f)['dtype'] != '<f4':
+                raise SystemExit(f"sample types (17a): level {lv} is not <f4")
+    with open(os.path.join(zarr, '.zattrs')) as f:
+        windows = [c['window'] for c in json.load(f)['omero']['channels']]
+    if any((w['min'], w['max'], w['start'], w['end']) != (0, 1, 0, 1)
+           for w in windows):
+        raise SystemExit(f"sample types (17a): OMERO windows {windows}")
+    width, height = pipe._region_dimensions(0, 'A1')
+    t1 = time.perf_counter()
+    level0 = open_array(os.path.join(zarr, '0'))[0, 0, 0]
+    # from phase 5's uint16 tiles: not through the float32 write and read
+    ref = reference_plane(pipe, None, None, 0, height, width,
+                          dtype=np.float32, copy=(acq, main_run['acq']))
+    if not np.array_equal(level0, ref):
+        raise SystemExit(f"sample types (17a): channel 0 level 0 differs "
+                         f"from the NumPy reference in "
+                         f"{int((level0 != ref).sum())} pixels")
+    fractions = float(np.mean(ref != np.trunc(ref)))
+    del level0, ref
+    n_tiles = len(pipe._build_jobs(0, 'A1'))
+    res['a'] = dict(e2e_s=e2e, tiles_per_s=n_tiles / e2e)
+    log(f"sample types (17a) on {card}: float32 main path e2e {e2e:.3f}s "
+        f"= {n_tiles / e2e:.2f} tiles/s (phase 5's uint16: "
+        f"{main_run['e2e_s']:.3f}s in this call); fuse {stats['fuse']:.3f}s "
+        f"readback_wait {stats['readback_wait']:.3f}s write "
+        f"{stats['write']:.3f}s; {launches} launches; levels <f4, OMERO "
+        f"window 0..1; channel 0 level 0 equals the NumPy reference "
+        f"({fractions:.1%} of its pixels not whole; checked in "
+        f"{time.perf_counter() - t1:.1f}s)")
+    shutil.rmtree(out)
+    outs = {}
+    for name, src in (('u16', main_run['acq']), ('f32', acq)):
+        outs[name] = os.path.join(work, f'{name}_noff')
+        t0 = time.perf_counter()
+        stitch(src, use_registration=True, device=torch.device('cuda'),
+               options=smoke_options(outs[name]))
+        res[f'noff_{name}_s'] = time.perf_counter() - t0
+    arrays = compare_trees_banded(zarr_of(outs['u16']), zarr_of(outs['f32']),
+                                  "sample types (17a) without the field",
+                                  arrays_only=True)
+    log(f"sample types (17a): without the field the float32 tree "
+        f"({res['noff_f32_s']:.3f}s) decodes equal to the uint16 tree "
+        f"({res['noff_u16_s']:.3f}s) cast to float32 ({arrays} levels)")
+    for path in (acq, *outs.values()):
+        shutil.rmtree(path)
+
+    # 17b, 17c: int16 in RAM and in bands, the float32 quality path
+    overlap = 205 * tile // TILE
+    acq = os.path.join(work, f'i16_{small}x{small}')
+    write_acquisition(acq, small, tile, overlap, seed=21,
+                      channels=CHANNELS[:1], dtype=np.int16,
+                      texture=lambda rng, side: (rng.integers(
+                          -20000, 20000, (side, side))).astype(np.int16))
+    for streaming in ('off', 'on'):
+        card_and_cpu(acq, work, f'17b int16 streaming={streaming}',
+                     streaming=streaming)
+    shutil.rmtree(acq)
+    acq = os.path.join(work, f'f32q_{small}x{small}')
+    write_acquisition(acq, small, tile, overlap, seed=22, jitter=3,
+                      channels=CHANNELS[:1], dtype=np.float32,
+                      texture=lambda rng, side: rng.uniform(
+                          100.0, 900.0, (side, side)).astype(np.float32))
+    card_and_cpu(acq, work, '17c float32 quality', quality=True)
+    shutil.rmtree(acq)
+
+    # 17d: OpenCV's tiles of every sample type
+    t0 = time.perf_counter()
+    n = kept_tiff_check()
+    log(f"sample types (17d): {n} OpenCV-written LZW/deflate, Predictor "
+        f"2/3 TIFFs of every sample type decode to OpenCV's pixels (C) and "
+        f"the same bytes (plain) in {time.perf_counter() - t0:.1f}s")
+    res['seconds'] = time.perf_counter() - t_phase
+    log(f"sample types: phase 17 in {res['seconds']:.1f}s")
+    return res
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
@@ -4070,6 +4351,9 @@ def main() -> int:
         merges = phase_merges(work, card)
         phase_mesh(work, card, main_run, merges)
         phase_chunks(work, card, main_run)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        phase_sample_types(work, card, main_run)
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)

@@ -10,11 +10,18 @@
 // where ramp = clip(d / blend_px, 0, 1) for d > 0 and 0 elsewhere, d the
 // 1-based distance to the nearest crop-window edge, min(r - top + 1,
 // th - bottom - r, s - left + 1, tw - right - s), and v the tile as f32,
-// or with ff_recip trunc(clip(tile * ff_recip[c], dtype range)) as f32
+// or with ff_recip tile * ff_recip[c] stored as the tile's type
+// (sample_types.h: trunc(clip(.)) for an integer type) and then as f32
 // (quantized to the storage dtype BEFORE it is weighted).
 // The second kernel is ops/fuse.py::finalize_feather on a window of the
-// canvases: round_half_even(acc / max(wsum, 1e-6)), 0 where wsum <= 0,
-// clipped to the dtype range and cast, written as a dense u8/u16 array.
+// canvases: acc / max(wsum, 1e-6), 0 where wsum <= 0, rounded half to
+// even, clipped to the dtype range and cast for an integer type, cast for
+// a float one, written as a dense array of the tile's type.
+//
+// Sample types: the tiles of every dtype of ops/fuse.py::FUSE_DTYPES but
+// uint32 (which the JAX package refuses to feather or correct:
+// OverflowError on its clip bounds) are weighted as f32; each dtype has
+// its instantiation, so each loads its own width.
 //
 // What bounds them: memory. Each canvas pixel that the batch weights has
 // its acc and wsum read and written once (16 B); each tile pixel inside
@@ -65,6 +72,7 @@
 #include <stdint.h>
 
 #include "device_guard.h"
+#include "sample_types.h"
 
 namespace {
 
@@ -101,15 +109,17 @@ struct TileView {
   int top, dy1, left, dx1; // distances: r - top + 1, dy1 - r, ...
 };
 
-template <typename T> struct Quad;  // four elements in one load
-template <> struct Quad<uint8_t> { using type = unsigned; };
-template <> struct Quad<uint16_t> { using type = uint2; };
+// four elements in one load
+template <int kBytes> struct QuadOf;
+template <> struct QuadOf<1> { using type = unsigned; };
+template <> struct QuadOf<2> { using type = uint2; };
+template <> struct QuadOf<4> { using type = uint4; };
+template <typename T> using Quad = QuadOf<sizeof(T)>;
 
 template <typename T, bool kWithFF>
-__device__ __forceinline__ float value(T v, float f, float hi) {
-  if (!kWithFF) return static_cast<float>(v);
-  const float g = __fmul_rn(static_cast<float>(v), f);
-  return static_cast<float>(static_cast<int>(fminf(fmaxf(g, 0.0f), hi)));
+__device__ __forceinline__ float value(T v, float f) {
+  if constexpr (!kWithFF) return to_float<T>(v);
+  else return to_float<T>(from_float<T>(__fmul_rn(to_float<T>(v), f)));
 }
 
 __device__ __forceinline__ float ramp_of(int d, const float* tab, int bp,
@@ -126,7 +136,7 @@ __device__ __forceinline__ float ramp_of(int d, const float* tab, int bp,
 template <typename T, bool kWithFF, int SH>
 __device__ __forceinline__ void load_vec(const TileView& t, int tw,
                                          const int (&rows)[kRows], int t0,
-                                         float hi, float (&v)[kRows][kCols]) {
+                                         float (&v)[kRows][kCols]) {
   using Q = typename Quad<T>::type;
 #pragma unroll
   for (int m = 0; m < kRows; ++m) {
@@ -143,11 +153,11 @@ __device__ __forceinline__ void load_vec(const TileView& t, int tw,
       if (SH != 0) g.q[1] = fp[1];
 #pragma unroll
       for (int e = 0; e < kCols; ++e)
-        v[m][e] = value<T, true>(s.e[SH + e], g.e[SH + e], hi);
+        v[m][e] = value<T, true>(s.e[SH + e], g.e[SH + e]);
     } else {
 #pragma unroll
       for (int e = 0; e < kCols; ++e)
-        v[m][e] = value<T, false>(s.e[SH + e], 0.0f, hi);
+        v[m][e] = value<T, false>(s.e[SH + e], 0.0f);
     }
   }
 }
@@ -155,13 +165,12 @@ __device__ __forceinline__ void load_vec(const TileView& t, int tw,
 template <typename T, bool kWithFF, int SH = 0>
 __device__ __forceinline__ void load_vec_at(int sh, const TileView& t, int tw,
                                             const int (&rows)[kRows], int t0,
-                                            float hi,
                                             float (&v)[kRows][kCols]) {
   if constexpr (SH < kCols) {
     if (sh == SH)
-      load_vec<T, kWithFF, SH>(t, tw, rows, t0, hi, v);
+      load_vec<T, kWithFF, SH>(t, tw, rows, t0, v);
     else
-      load_vec_at<T, kWithFF, SH + 1>(sh, t, tw, rows, t0, hi, v);
+      load_vec_at<T, kWithFF, SH + 1>(sh, t, tw, rows, t0, v);
   }
 }
 
@@ -170,7 +179,7 @@ __global__ void __launch_bounds__(kThreads)
 fuse_feather_kernel(float* __restrict__ acc, float* __restrict__ wsum,
                     long long plane_elems, int num_z, int canvas_w,
                     const T* __restrict__ tiles, int th, int tw,
-                    const float* __restrict__ ff, float hi, int blend_px,
+                    const float* __restrict__ ff, int blend_px,
                     bool vec_src, bool vec_canvas, Batch b) {
   const int p = blockIdx.z;
   // the block's canvas rectangle [ya, ya + kBlockH) x [xa, xa + kBlockW)
@@ -277,7 +286,7 @@ fuse_feather_kernel(float* __restrict__ acc, float* __restrict__ wsum,
     const int t0 = gx - t.x;  // tile column of the thread's column 0
     float v[kRows][kCols];
     if (vec_src && lo == 0 && up == kCols) {
-      load_vec_at<T, kWithFF>(t0 & 3, t, tw, rows, t0, hi, v);
+      load_vec_at<T, kWithFF>(t0 & 3, t, tw, rows, t0, v);
     } else {  // a ragged window edge, or tile rows not 4-element aligned
       const T* src = static_cast<const T*>(t.src);
 #pragma unroll
@@ -286,7 +295,7 @@ fuse_feather_kernel(float* __restrict__ acc, float* __restrict__ wsum,
         for (int e = 0; e < kCols; ++e) {
           if (rows[m] < 0 || e < lo || e >= up) continue;
           const size_t off = static_cast<size_t>(rows[m]) * tw + t0 + e;
-          v[m][e] = value<T, kWithFF>(src[off], kWithFF ? t.ff[off] : 0.0f, hi);
+          v[m][e] = value<T, kWithFF>(src[off], kWithFF ? t.ff[off] : 0.0f);
         }
       }
     }
@@ -336,7 +345,7 @@ __global__ void __launch_bounds__(kFinalizeThreads)
 finalize_feather_kernel(const float* __restrict__ acc,
                         const float* __restrict__ wsum, T* __restrict__ out,
                         int canvas_h, int canvas_w, int r0, int rows, int s0,
-                        int cols, float hi) {
+                        int cols) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= cols) return;
   const long long plane = blockIdx.z;
@@ -345,8 +354,8 @@ finalize_feather_kernel(const float* __restrict__ acc,
     const float w = wsum[src];
     float o = __fdiv_rn(acc[src], fmaxf(w, 1e-6f));
     o = w > 0.0f ? o : 0.0f;
-    o = fminf(fmaxf(rintf(o), 0.0f), hi);  // round half to even, clip
-    out[(plane * rows + r) * cols + s] = static_cast<T>(static_cast<int>(o));
+    if constexpr (Sample<T>::kInt) o = rintf(o);  // round half to even
+    out[(plane * rows + r) * cols + s] = from_float<T>(o);  // clip, cast
   }
 }
 
@@ -355,7 +364,6 @@ cudaError_t launch_fuse(float* acc, float* wsum, long long plane_elems,
                         int num_z, int canvas_w, const void* tiles, int th,
                         int tw, const float* ff, int blend_px, int box_h,
                         int box_w, const Batch& b, cudaStream_t stream) {
-  const float hi = sizeof(T) == 1 ? 255.0f : 65535.0f;
   auto aligned16 = [](const void* ptr) {
     return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
   };
@@ -370,12 +378,22 @@ cudaError_t launch_fuse(float* acc, float* wsum, long long plane_elems,
   if (ff != nullptr) {
     fuse_feather_kernel<T, true><<<grid, block, 0, stream>>>(
         acc, wsum, plane_elems, num_z, canvas_w, static_cast<const T*>(tiles),
-        th, tw, ff, hi, blend_px, vec_src, vec_canvas, b);
+        th, tw, ff, blend_px, vec_src, vec_canvas, b);
   } else {
     fuse_feather_kernel<T, false><<<grid, block, 0, stream>>>(
         acc, wsum, plane_elems, num_z, canvas_w, static_cast<const T*>(tiles),
-        th, tw, nullptr, hi, blend_px, vec_src, vec_canvas, b);
+        th, tw, nullptr, blend_px, vec_src, vec_canvas, b);
   }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_finalize(const float* acc, const float* wsum, void* out,
+                            dim3 grid, int canvas_h, int canvas_w, int r0,
+                            int rows, int s0, int cols, cudaStream_t s) {
+  finalize_feather_kernel<T><<<grid, kFinalizeThreads, 0, s>>>(
+      acc, wsum, static_cast<T*>(out), canvas_h, canvas_w, r0, rows, s0,
+      cols);
   return cudaGetLastError();
 }
 
@@ -391,18 +409,19 @@ const char* fuse_feather_error_string(int code) {
 
 // Accumulate one batch on `stream`. `info`, `crops` (n x 4 int32) and
 // `valid` (n bytes) are HOST arrays; `acc`, `wsum`, `tiles` and `ff`
-// (nullable) are device pointers. `itemsize` is 1 (uint8) or 2 (uint16).
+// (nullable) are device pointers. `dtype` is a DType code
+// (sample_types.h), not uint32.
 // The caller has checked that every valid tile lies inside the canvases
 // and that at least one valid tile has a non-empty crop window. Returns a
 // cudaError_t, 0 on success.
-int fuse_feather_launch(int device, int itemsize, float* acc, float* wsum,
+int fuse_feather_launch(int device, int dtype, float* acc, float* wsum,
                         int num_z, int canvas_h, int canvas_w,
                         const void* tiles, int n, int th, int tw,
                         const int* info, const int* crops,
                         const unsigned char* valid, const float* ff,
                         int blend_px, void* stream) {
   if (n < 0 || n > kMaxBatch || th <= 0 || tw <= 0 || blend_px < 1 ||
-      (itemsize != 1 && itemsize != 2))
+      !dtype_valid(dtype) || dtype == kU32)
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceGuard guard(device);
   cudaError_t err = guard.error();
@@ -455,26 +474,31 @@ int fuse_feather_launch(int device, int itemsize, float* acc, float* wsum,
   }
   const long long plane_elems = static_cast<long long>(canvas_h) * canvas_w;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = itemsize == 1
-            ? launch_fuse<uint8_t>(acc, wsum, plane_elems, num_z, canvas_w,
-                                   tiles, th, tw, ff, blend_px, box_h, box_w,
-                                   b, s)
-            : launch_fuse<uint16_t>(acc, wsum, plane_elems, num_z, canvas_w,
-                                    tiles, th, tw, ff, blend_px, box_h, box_w,
-                                    b, s);
+#define ARGS acc, wsum, plane_elems, num_z, canvas_w, tiles, th, tw, ff, \
+             blend_px, box_h, box_w, b, s
+  switch (dtype) {
+    case kU8: err = launch_fuse<uint8_t>(ARGS); break;
+    case kI8: err = launch_fuse<int8_t>(ARGS); break;
+    case kU16: err = launch_fuse<uint16_t>(ARGS); break;
+    case kI16: err = launch_fuse<int16_t>(ARGS); break;
+    case kI32: err = launch_fuse<int32_t>(ARGS); break;
+    default: err = launch_fuse<float>(ARGS); break;
+  }
+#undef ARGS
   return static_cast<int>(err);
 }
 
 // Finalize the window [r0, r0 + rows) x [s0, s0 + cols) of every plane of
 // the (planes, canvas_h, canvas_w) f32 pair into `out`, a dense
-// (planes, rows, cols) u8/u16 array, on `stream`. Returns a cudaError_t.
-int finalize_feather_launch(int device, int itemsize, const float* acc,
+// (planes, rows, cols) array of the DType code `dtype` (not uint32), on
+// `stream`. Returns a cudaError_t.
+int finalize_feather_launch(int device, int dtype, const float* acc,
                             const float* wsum, void* out, int planes,
                             int canvas_h, int canvas_w, int r0, int rows,
                             int s0, int cols, void* stream) {
   if (planes < 0 || planes > 65535 || rows < 0 || cols < 0 || r0 < 0 ||
       s0 < 0 || r0 + rows > canvas_h || s0 + cols > canvas_w ||
-      (itemsize != 1 && itemsize != 2))
+      !dtype_valid(dtype) || dtype == kU32)
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceGuard guard(device);
   cudaError_t err = guard.error();
@@ -483,16 +507,17 @@ int finalize_feather_launch(int device, int itemsize, const float* acc,
   dim3 grid((cols + kFinalizeThreads - 1) / kFinalizeThreads,
             rows < 65535 ? rows : 65535, planes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (itemsize == 1) {
-    finalize_feather_kernel<uint8_t><<<grid, kFinalizeThreads, 0, s>>>(
-        acc, wsum, static_cast<uint8_t*>(out), canvas_h, canvas_w, r0, rows,
-        s0, cols, 255.0f);
-  } else {
-    finalize_feather_kernel<uint16_t><<<grid, kFinalizeThreads, 0, s>>>(
-        acc, wsum, static_cast<uint16_t*>(out), canvas_h, canvas_w, r0, rows,
-        s0, cols, 65535.0f);
+#define ARGS acc, wsum, out, grid, canvas_h, canvas_w, r0, rows, s0, cols, s
+  switch (dtype) {
+    case kU8: err = launch_finalize<uint8_t>(ARGS); break;
+    case kI8: err = launch_finalize<int8_t>(ARGS); break;
+    case kU16: err = launch_finalize<uint16_t>(ARGS); break;
+    case kI16: err = launch_finalize<int16_t>(ARGS); break;
+    case kI32: err = launch_finalize<int32_t>(ARGS); break;
+    default: err = launch_finalize<float>(ARGS); break;
   }
-  return static_cast<int>(cudaGetLastError());
+#undef ARGS
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -7,7 +7,15 @@
 // valid tile writes its crop window [top, th-bottom) x [left, tw-right)
 // into canvas[c, z, y:, x:], a later tile wins, and pixels outside every
 // window keep the canvas value. With ff_recip every written pixel is
-// trunc(clip(tile * ff_recip[c], dtype min, dtype max)).
+// tile * ff_recip[c] in f32 stored as the tile's type: trunc(clip(., dtype
+// min, dtype max)) for an integer type, a cast for a float one
+// (sample_types.h).
+//
+// Sample types: without the field the copy depends only on the itemsize,
+// so one instantiation each for 1, 2 and 4 bytes serves every dtype
+// (uint8/int8, uint16/int16, int32/uint32/float32). With the
+// field there is one per dtype but uint32, which the JAX package refuses
+// (OverflowError on its clip bounds).
 //
 // What bounds it: memory. Each canvas pixel that the batch writes costs
 // one tile pixel read and one canvas pixel written; the reciprocal field
@@ -51,6 +59,7 @@
 #include <stdint.h>
 
 #include "device_guard.h"
+#include "sample_types.h"
 
 namespace {
 
@@ -70,10 +79,8 @@ struct Batch {
 };
 
 template <typename T>
-__device__ __forceinline__ T correct(T v, float f, float hi) {
-  float g = __fmul_rn(static_cast<float>(v), f);
-  g = fminf(fmaxf(g, 0.0f), hi);
-  return static_cast<T>(static_cast<int>(g));  // truncating, like XLA
+__device__ __forceinline__ T correct(T v, float f) {
+  return from_float<T>(__fmul_rn(to_float<T>(v), f));  // truncating, like XLA
 }
 
 // The 16-byte vectors [begin, begin + nvec * V) of a span (tile columns;
@@ -84,8 +91,7 @@ template <typename T, bool kWithFF, int SH>
 __device__ __forceinline__ void copy_vectors(T* __restrict__ dst,
                                              const T* __restrict__ src,
                                              const float* __restrict__ ff,
-                                             int begin, int nvec, float hi,
-                                             int lane) {
+                                             int begin, int nvec, int lane) {
   constexpr int V = 16 / sizeof(T);
   constexpr int F = SH % 4;  // the same start within the field's float4s
 #pragma unroll 4
@@ -96,14 +102,14 @@ __device__ __forceinline__ void copy_vectors(T* __restrict__ dst,
     s.q[0] = sp[0];
     if (SH != 0) s.q[1] = sp[1];
     union { uint4 q; T e[V]; } o;
-    if (kWithFF) {
+    if constexpr (kWithFF) {
       union { float4 q[V / 4 + 1]; float e[V + 4]; } g;
       const float4* fp = reinterpret_cast<const float4*>(ff + (t0 - F));
 #pragma unroll
       for (int m = 0; m < V / 4; ++m) g.q[m] = fp[m];
       if (F != 0) g.q[V / 4] = fp[V / 4];
 #pragma unroll
-      for (int e = 0; e < V; ++e) o.e[e] = correct<T>(s.e[SH + e], g.e[F + e], hi);
+      for (int e = 0; e < V; ++e) o.e[e] = correct<T>(s.e[SH + e], g.e[F + e]);
     } else {
 #pragma unroll
       for (int e = 0; e < V; ++e) o.e[e] = s.e[SH + e];
@@ -116,12 +122,12 @@ __device__ __forceinline__ void copy_vectors(T* __restrict__ dst,
 template <typename T, bool kWithFF, int SH = 0>
 __device__ __forceinline__ void copy_vectors_at(int sh, T* dst, const T* src,
                                                 const float* ff, int begin,
-                                                int nvec, float hi, int lane) {
+                                                int nvec, int lane) {
   if constexpr (SH < static_cast<int>(16 / sizeof(T))) {
     if (sh == SH)
-      copy_vectors<T, kWithFF, SH>(dst, src, ff, begin, nvec, hi, lane);
+      copy_vectors<T, kWithFF, SH>(dst, src, ff, begin, nvec, lane);
     else
-      copy_vectors_at<T, kWithFF, SH + 1>(sh, dst, src, ff, begin, nvec, hi,
+      copy_vectors_at<T, kWithFF, SH + 1>(sh, dst, src, ff, begin, nvec,
                                           lane);
   }
 }
@@ -132,7 +138,7 @@ template <typename T, bool kWithFF>
 __device__ __forceinline__ void copy_span(T* __restrict__ dst,
                                           const T* __restrict__ src,
                                           const float* __restrict__ ff,
-                                          int p, int q, bool vec_src, float hi,
+                                          int p, int q, bool vec_src,
                                           int lane) {
   constexpr int V = 16 / sizeof(T);
   const int misalign =
@@ -144,20 +150,26 @@ __device__ __forceinline__ void copy_span(T* __restrict__ dst,
   // head [p, begin) and tail [end, q): fewer than V elements each
   const int t = lane < V ? p + lane : end + lane - V;
   if ((lane < V && t < begin) || (lane >= V && t < q)) {
-    T v = src[t];
-    dst[t] = kWithFF ? correct<T>(v, ff[t], hi) : v;
+    if constexpr (kWithFF)
+      dst[t] = correct<T>(src[t], ff[t]);
+    else
+      dst[t] = src[t];
   }
   if (nvec == 0) return;
   if (vec_src) {
-    copy_vectors_at<T, kWithFF>(begin % V, dst, src, ff, begin, nvec, hi, lane);
+    copy_vectors_at<T, kWithFF>(begin % V, dst, src, ff, begin, nvec, lane);
     return;
   }
   for (int v = lane; v < nvec; v += 32) {  // tile rows not 16-byte aligned
     const int t0 = begin + v * V;
     union { uint4 q; T e[V]; } o;
 #pragma unroll
-    for (int e = 0; e < V; ++e)
-      o.e[e] = kWithFF ? correct<T>(src[t0 + e], ff[t0 + e], hi) : src[t0 + e];
+    for (int e = 0; e < V; ++e) {
+      if constexpr (kWithFF)
+        o.e[e] = correct<T>(src[t0 + e], ff[t0 + e]);
+      else
+        o.e[e] = src[t0 + e];
+    }
     *reinterpret_cast<uint4*>(dst + t0) = o.q;
   }
 }
@@ -170,7 +182,7 @@ __device__ __forceinline__ void copy_row(
     T* __restrict__ dst, const T* __restrict__ src,
     const float* __restrict__ ff_row, int r, int s0, int s1, int cnt,
     const int* s_wy0, const int* s_wy1, const int* s_wa, const int* s_we,
-    bool vec_src, float hi, int lane) {
+    bool vec_src, int lane) {
   // Uncovered spans of [s0, s1) on row r. Candidate L = 0 starts at s0,
   // candidate L > 0 at the right edge of window L - 1 if it covers the
   // row; a candidate inside a covering window, or equal to an earlier
@@ -200,7 +212,7 @@ __device__ __forceinline__ void copy_row(
       spans &= spans - 1;
       const int sp = __shfl_sync(kAll, p, from);
       const int sq = __shfl_sync(kAll, q, from);
-      copy_span<T, kWithFF>(dst, src, ff_row, sp, sq, vec_src, hi, lane);
+      copy_span<T, kWithFF>(dst, src, ff_row, sp, sq, vec_src, lane);
     }
   }
 }
@@ -209,8 +221,7 @@ template <typename T, bool kWithFF>
 __global__ void __launch_bounds__(kThreads)
 fuse_overwrite_kernel(T* __restrict__ canvas, long long plane_elems, int num_z,
                       int canvas_w, const T* __restrict__ tiles, int th, int tw,
-                      const float* __restrict__ ff, bool vec_src, float hi,
-                      Batch b) {
+                      const float* __restrict__ ff, bool vec_src, Batch b) {
   const int i = blockIdx.x;  // the grid's fastest index
   const int ra = max(b.r0[i], static_cast<int>(blockIdx.y) * kStripRows);
   const int rb = min(b.r1[i], static_cast<int>(blockIdx.y + 1) * kStripRows);
@@ -264,30 +275,50 @@ fuse_overwrite_kernel(T* __restrict__ canvas, long long plane_elems, int num_z,
                          kWithFF ? ff_tile + static_cast<size_t>(r) * tw
                                  : nullptr,
                          r, s0, s1, cnt, s_wy0, s_wy1, s_wa, s_we, vec_src,
-                         hi, lane);
+                         lane);
 }
 
-template <typename T>
+// kWithFF: whether this instantiation takes the field (the launch with
+// no field copies through the itemsize's unsigned type).
+template <typename T, bool kWithFF>
 cudaError_t launch(void* canvas, long long plane_elems, int num_z, int canvas_w,
                    const void* tiles, int th, int tw, const float* ff,
                    const Batch& b, cudaStream_t stream) {
-  const float hi = sizeof(T) == 1 ? 255.0f : 65535.0f;
   // 16-byte loads need 16-byte aligned tile rows (and field rows)
   const bool vec_src =
       (reinterpret_cast<uintptr_t>(tiles) & 15) == 0 &&
       (static_cast<size_t>(tw) * sizeof(T)) % 16 == 0 &&
       (ff == nullptr || (reinterpret_cast<uintptr_t>(ff) & 15) == 0);
   dim3 grid(b.n, (th + kStripRows - 1) / kStripRows);
-  if (ff != nullptr) {
-    fuse_overwrite_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        static_cast<T*>(canvas), plane_elems, num_z, canvas_w,
-        static_cast<const T*>(tiles), th, tw, ff, vec_src, hi, b);
-  } else {
-    fuse_overwrite_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        static_cast<T*>(canvas), plane_elems, num_z, canvas_w,
-        static_cast<const T*>(tiles), th, tw, nullptr, vec_src, hi, b);
-  }
+  fuse_overwrite_kernel<T, kWithFF><<<grid, kThreads, 0, stream>>>(
+      static_cast<T*>(canvas), plane_elems, num_z, canvas_w,
+      static_cast<const T*>(tiles), th, tw, kWithFF ? ff : nullptr, vec_src,
+      b);
   return cudaGetLastError();
+}
+
+cudaError_t dispatch(int dtype, void* canvas, long long plane_elems,
+                     int num_z, int canvas_w, const void* tiles, int th,
+                     int tw, const float* ff, const Batch& b,
+                     cudaStream_t s) {
+#define ARGS canvas, plane_elems, num_z, canvas_w, tiles, th, tw, ff, b, s
+  if (ff == nullptr) {
+    switch (dtype_size(dtype)) {
+      case 1: return launch<uint8_t, false>(ARGS);
+      case 2: return launch<uint16_t, false>(ARGS);
+      default: return launch<uint32_t, false>(ARGS);
+    }
+  }
+  switch (dtype) {
+    case kU8: return launch<uint8_t, true>(ARGS);
+    case kI8: return launch<int8_t, true>(ARGS);
+    case kU16: return launch<uint16_t, true>(ARGS);
+    case kI16: return launch<int16_t, true>(ARGS);
+    case kI32: return launch<int32_t, true>(ARGS);
+    case kF32: return launch<float, true>(ARGS);
+    default: return cudaErrorInvalidValue;  // uint32 takes no field
+  }
+#undef ARGS
 }
 
 }  // namespace
@@ -302,17 +333,17 @@ const char* fuse_overwrite_error_string(int code) {
 
 // Launch one batch on `stream`. `info`, `crops` (n x 4 int32) and `valid`
 // (n bytes) are HOST arrays; `canvas`, `tiles` and `ff` (nullable) are
-// device pointers. `itemsize` is 1 (uint8) or 2 (uint16). The caller has
+// device pointers. `dtype` is a DType code (sample_types.h). The caller has
 // checked that every valid tile lies inside the canvas. Returns a
 // cudaError_t, 0 on success.
-int fuse_overwrite_launch(int device, int itemsize, void* canvas, int num_z,
+int fuse_overwrite_launch(int device, int dtype, void* canvas, int num_z,
                           int canvas_h, int canvas_w, const void* tiles, int n,
                           int th, int tw, const int* info, const int* crops,
                           const unsigned char* valid, const float* ff,
                           void* stream) {
   if (n < 0 || n > kMaxBatch || th <= 0 || tw <= 0 ||
       (th + kStripRows - 1) / kStripRows > 65535 ||
-      (itemsize != 1 && itemsize != 2))
+      !dtype_valid(dtype) || (dtype == kU32 && ff != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const DeviceGuard guard(device);
   cudaError_t err = guard.error();
@@ -335,12 +366,8 @@ int fuse_overwrite_launch(int device, int itemsize, void* canvas, int num_z,
   }
   const long long plane_elems = static_cast<long long>(canvas_h) * canvas_w;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = itemsize == 1
-            ? launch<uint8_t>(canvas, plane_elems, num_z, canvas_w, tiles, th,
-                              tw, ff, b, s)
-            : launch<uint16_t>(canvas, plane_elems, num_z, canvas_w, tiles, th,
-                               tw, ff, b, s);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(dtype, canvas, plane_elems, num_z,
+                                   canvas_w, tiles, th, tw, ff, b, s));
 }
 
 }  // extern "C"

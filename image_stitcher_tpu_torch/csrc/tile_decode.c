@@ -27,8 +27,15 @@
  *     run cut by the end of the input or of the destination is cut.
  *   - the horizontal predictor (Predictor 2) adds each sample to the
  *     same sample of the pixel before it in the row, modulo 2^bits, for
- *     8-, 16- and 32-bit samples in native byte order, as libtiff does
- *     after it swaps the bytes of a big-endian file.
+ *     8-, 16-, 32- and 64-bit samples in native byte order, as libtiff
+ *     does after it swaps the bytes of a big-endian file (its horAcc8 to
+ *     horAcc64; a signed or float sample is added as its unsigned bits).
+ *   - the floating-point predictor (Predictor 3) is libtiff's fpAcc, row
+ *     by row on the decoded bytes: each byte adds the byte spp before it
+ *     in the row (modulo 256), then the row, which holds the samples'
+ *     bytes as planes, most significant byte's plane first, is put back
+ *     as samples in native byte order (libtiff swaps no bytes after it,
+ *     whatever the file's byte order).
  *   - PNG filters 0-4 (None, Sub, Up, Average, Paeth) undone row by row
  *     with bpp = bytes per complete pixel (1 for bit depths under 8);
  *     the row above the first is zeros; a filter type over 4 is corrupt.
@@ -169,7 +176,7 @@ int64_t packbits_decode(const uint8_t *src, int64_t n, uint8_t *dst,
     }
 
 /* Undo the TIFF horizontal predictor in place over rows of row_samples
- * samples (pixels x spp) of sample_bytes each (1, 2 or 4), native byte
+ * samples (pixels x spp) of sample_bytes each (1, 2, 4 or 8), native byte
  * order. Returns 0, or ERR_ARGS. */
 int tiff_predictor_undo(void *data, int64_t rows, int64_t row_samples,
                         int spp, int sample_bytes)
@@ -183,9 +190,45 @@ int tiff_predictor_undo(void *data, int64_t rows, int64_t row_samples,
         UNDO_PREDICTOR(uint16_t)
     } else if (sample_bytes == 4) {
         UNDO_PREDICTOR(uint32_t)
+    } else if (sample_bytes == 8) {
+        UNDO_PREDICTOR(uint64_t)
     } else {
         return ERR_ARGS;
     }
+    return 0;
+}
+
+/* Undo the TIFF floating-point predictor (libtiff's fpAcc) in place over
+ * rows of row_bytes bytes, each row_bytes / sample_bytes samples of
+ * sample_bytes each (4 or 8), spp samples a pixel. Returns 0, ERR_ARGS or
+ * ERR_NOMEM. */
+int tiff_fp_predictor_undo(uint8_t *data, int64_t rows, int64_t row_bytes,
+                           int spp, int sample_bytes)
+{
+    if (rows < 0 || row_bytes < 0 || spp < 1
+            || (sample_bytes != 4 && sample_bytes != 8)
+            || row_bytes % sample_bytes != 0
+            || (rows > 0 && row_bytes > 0 && !data))
+        return ERR_ARGS;
+    if (rows == 0 || row_bytes == 0)
+        return 0;
+    uint8_t *tmp = (uint8_t *)malloc((size_t)row_bytes);
+    if (!tmp)
+        return ERR_NOMEM;
+    const uint16_t probe = 1;
+    const int little = *(const uint8_t *)&probe == 1;
+    const int64_t wc = row_bytes / sample_bytes;
+    for (int64_t r = 0; r < rows; r++) {
+        uint8_t *cp = data + r * row_bytes;
+        for (int64_t k = spp; k < row_bytes; k++)
+            cp[k] = (uint8_t)(cp[k] + cp[k - spp]);
+        memcpy(tmp, cp, (size_t)row_bytes);
+        for (int64_t i = 0; i < wc; i++)
+            for (int b = 0; b < sample_bytes; b++)
+                cp[sample_bytes * i + b] =
+                    tmp[(little ? sample_bytes - b - 1 : b) * wc + i];
+    }
+    free(tmp);
     return 0;
 }
 

@@ -114,7 +114,7 @@ def read_tiff_fast(path: str,
         if tags.get(_PLANAR, (1,))[0] != 1:
             return None
         bits = tags.get(_BITS, (8,))[0]
-        if bits not in (8, 16, 32):
+        if bits not in (8, 16, 32, 64):
             return None
         sfmt = tags.get(_SAMPLE_FORMAT, (1,))[0]
         base = {1: 'u', 2: 'i', 3: 'f'}.get(sfmt)
@@ -173,20 +173,24 @@ def read_tiff_fast(path: str,
 
 
 def write_tiff_fast(path: str, img: np.ndarray) -> None:
-    """Write a mono uint8/uint16 plane as the tiles this reader takes: a
-    classic little-endian TIFF of one uncompressed strip, the pixels
-    after the header (a raw camera tile, as Squid saves it)."""
+    """Write a mono plane of 8- to 64-bit unsigned, signed or float
+    samples as the tiles this reader takes: a classic little-endian TIFF
+    of one uncompressed strip, the pixels after the header (a raw camera
+    tile, as Squid saves it), SampleFormat 1, 2 or 3 by the dtype."""
     img = np.ascontiguousarray(img)
-    if img.ndim != 2 or img.dtype not in (np.uint8, np.uint16):
-        raise ValueError(f"a mono uint8/uint16 plane, got {img.shape} "
-                         f"{img.dtype}")
+    sample_format = {'u': 1, 'i': 2, 'f': 3}.get(img.dtype.kind)
+    if (img.ndim != 2 or sample_format is None
+            or img.dtype.itemsize not in (1, 2, 4, 8)
+            or (sample_format == 3 and img.dtype.itemsize < 4)):
+        raise ValueError(f"a mono plane of 8- to 64-bit integer or 32-/64-"
+                         f"bit float samples, got {img.shape} {img.dtype}")
     h, w = img.shape
     data_off = 160
     entries = [(_WIDTH, 4, w), (_LENGTH, 4, h),
                (_BITS, 3, img.dtype.itemsize * 8), (_COMP, 3, 1),
                (_PHOTO, 3, 1), (_STRIP_OFFSETS, 4, data_off), (_SPP, 3, 1),
                (_ROWS_PER_STRIP, 4, h), (_STRIP_COUNTS, 4, img.nbytes),
-               (_PLANAR, 3, 1), (_SAMPLE_FORMAT, 3, 1)]
+               (_PLANAR, 3, 1), (_SAMPLE_FORMAT, 3, sample_format)]
     head = bytearray(b'II' + struct.pack('<HI', 42, 8))
     head += struct.pack('<H', len(entries))
     for tag, typ, val in entries:

@@ -176,7 +176,14 @@ class MultiscaleWriter:
     raises the first failure, and ``abort()`` ends a failed write without
     writing what is still queued. ``zarr_format`` 3 writes NGFF 0.5 groups
     with sharded levels (shards one chunk row tall and 16 chunks
-    wide)."""
+    wide).
+
+    ``slab_dtypes``, one per level, are the dtypes of the slabs the
+    caller hands in (``dtype`` where None). A level whose slabs differ
+    (the device paths' float32 slabs of float64 tiles) casts them, and
+    is gathered: the JAX package hands such slabs to tensorstore, its
+    raw writers refusing them, so no chunk equal to the fill value is
+    stored."""
 
     def __init__(self, path: str, base_shape: Sequence[int],
                  num_levels: int, dtype, chunks: Sequence[int],
@@ -185,7 +192,8 @@ class MultiscaleWriter:
                  cname: Optional[str] = None, clevel: int = 5,
                  shuffle: int = 1, omero_full: bool = True,
                  zarr_format: int = 2, direct_io: str = 'auto',
-                 max_pending_bytes: int = DEFAULT_MAX_PENDING_BYTES):
+                 max_pending_bytes: int = DEFAULT_MAX_PENDING_BYTES,
+                 slab_dtypes: Optional[Sequence] = None):
         self.path = path
         self.num_levels = num_levels
         self.shapes = level_shapes(tuple(base_shape), num_levels)
@@ -201,17 +209,22 @@ class MultiscaleWriter:
             write_group(path, attrs)
         #: chunks over several planes are gathered whole, raw ones too
         self.gathers = tuple(clamp_chunks(chunks, base_shape)[:3]) != (1, 1, 1)
+        self.dtype = np.dtype(dtype)
+        casts = [np.dtype(d) != self.dtype
+                 for d in (slab_dtypes or [dtype] * num_levels)]
         self.pool = (EncodePool(max_pending_bytes)
-                     if cname is not None or self.gathers else None)
+                     if cname is not None or self.gathers or any(casts)
+                     else None)
         #: the host bytes the chunk-row buffers hold (``peak_buffer_bytes``)
         self.meter = BufferMeter()
         self.arrays = []
         for level, shape in enumerate(self.shapes):
             lpath = os.path.join(path, str(level))
-            if cname is None and not self.gathers and zarr_format == 3:
+            raw = cname is None and not (self.gathers or casts[level])
+            if raw and zarr_format == 3:
                 arr = RawShardArray(lpath, shape, chunks, dtype,
                                     direct_io=direct_io)
-            elif cname is None and not self.gathers:
+            elif raw:
                 arr = RawZarrArray(lpath, shape, chunks, dtype,
                                    direct_io=direct_io)
             elif zarr_format == 3:
@@ -240,6 +253,8 @@ class MultiscaleWriter:
         data = np.asarray(data)
         if data.ndim != 5:
             raise ValueError(f"slabs are (t, c, z, h, w), got {data.shape}")
+        if data.dtype != self.dtype:
+            data = data.astype(self.dtype)
         if sel is None:
             if data.shape != self.shapes[level]:
                 raise ValueError(f"level {level} is {self.shapes[level]}, "

@@ -39,20 +39,29 @@ def load_tile_plane(job: "TileJob") -> np.ndarray:
 
 
 def subpixel_shift(img: np.ndarray, fy: float, fx: float) -> np.ndarray:
-    """Shift a (h, w) integer plane by (fy, fx) px with bilinear
-    interpolation and replicated borders: out(y, x) = img(y - fy, x - fx).
+    """Shift a (h, w) plane by (fy, fx) px with bilinear interpolation
+    and replicated borders: out(y, x) = img(y - fy, x - fx).
 
     The JAX package calls ``cv2.warpAffine(img, [[1, 0, fx], [0, 1, fy]],
     INTER_LINEAR, BORDER_REPLICATE)``; this is that call as OpenCV 5.0
-    computes it (its float warp kernels, not the older 1/32-px fixed-point
-    tables): the source coordinate x + f32(-fx) in f32, its floor and
-    fraction a, taps clamped to the plane, each pass p0 + a*(p1 - p0) as
-    one fused multiply-add in f32 (horizontal, then vertical), rounded
-    half to even and saturated to the dtype. Equal to cv2 byte for byte on
-    the tested shapes."""
+    computes it, byte for byte on the tested shapes. OpenCV 5.0 has two
+    routes, by sample type:
+    - uint8, uint16 and float32 take its float warp kernels: the source
+      coordinate x + f32(-fx) in f32, its floor and fraction a, taps
+      clamped to the plane, each pass p0 + a*(p1 - p0) as one fused
+      multiply-add in f32 (horizontal, then vertical); integers rounded
+      half to even and saturated;
+    - int16 and float64 take its remap with fixed-point coordinates
+      (:func:`_remap_bilinear`);
+    - int8, int32 and uint32 have no route there: OpenCV raises, and so
+      does this."""
+    if img.dtype in (np.int16, np.float64):
+        return _remap_bilinear(img, fy, fx)
+    if img.dtype not in (np.uint8, np.uint16, np.float32):
+        raise TypeError(f"subpixel placement shifts uint8, uint16, int16, "
+                        f"float32 and float64 tiles, not {img.dtype}: the "
+                        f"JAX package's cv2.warpAffine takes no other")
     from ..ops.flatfield import fma32
-    h, w = img.shape
-    info = np.iinfo(img.dtype)
 
     def taps(n: int, shift: float):
         pos = np.arange(n, dtype=np.float32) + np.float32(-shift)
@@ -61,6 +70,7 @@ def subpixel_shift(img: np.ndarray, fy: float, fx: float) -> np.ndarray:
         i0 = base.astype(np.intp)
         return (np.clip(i0, 0, n - 1), np.clip(i0 + 1, 0, n - 1), frac)
 
+    h, w = img.shape
     x0, x1, ax = taps(w, fx)
     y0, y1, ay = taps(h, fy)
     src = img.astype(np.float32)
@@ -68,6 +78,44 @@ def subpixel_shift(img: np.ndarray, fy: float, fx: float) -> np.ndarray:
     hor = fma32(np.broadcast_to(ax, left.shape), src[:, x1] - left, left)
     top = hor[y0]
     out = fma32(np.broadcast_to(ay[:, None], top.shape), hor[y1] - top, top)
+    if img.dtype == np.float32:
+        return out
+    info = np.iinfo(img.dtype)
+    return np.clip(np.rint(out), info.min, info.max).astype(img.dtype)
+
+
+def _remap_bilinear(img: np.ndarray, fy: float, fx: float) -> np.ndarray:
+    """OpenCV 5.0's ``warpAffine`` through its bilinear remap (int16 and
+    float64 planes): source coordinates in 1/32 px, (round(-shift*1024) +
+    x*1024 + 16) >> 5, split into the tap and its fraction index a; the
+    four taps (clamped to the plane) weighted by the f32 table products
+    (1 - a/32 or a/32 in y) * (1 - a/32 or a/32 in x), summed in order in
+    f32 for int16 (rounded half to even, saturated) or in f64 for
+    float64."""
+    h, w = img.shape
+
+    def coord(n: int, shift: float):
+        xs = (int(np.rint(-shift * 1024.0)) + np.arange(n) * 1024 + 16) >> 5
+        return xs >> 5, xs & 31
+
+    sx, ax = coord(w, fx)
+    sy, ay = coord(h, fy)
+    t = np.arange(32, dtype=np.float32) * np.float32(1.0 / 32)
+    c0, c1 = np.float32(1) - t, t
+    wy0, wy1 = c0[ay][:, None], c1[ay][:, None]
+    wx0, wx1 = c0[ax][None, :], c1[ax][None, :]
+    xa, xb = np.clip(sx, 0, w - 1), np.clip(sx + 1, 0, w - 1)
+    ya, yb = np.clip(sy, 0, h - 1), np.clip(sy + 1, 0, h - 1)
+    wt = np.float64 if img.dtype == np.float64 else np.float32
+    src = img.astype(wt)
+    top, bot = src[ya], src[yb]
+    out = (((top[:, xa] * (wy0 * wx0).astype(wt)
+             + top[:, xb] * (wy0 * wx1).astype(wt))
+            + bot[:, xa] * (wy1 * wx0).astype(wt))
+           + bot[:, xb] * (wy1 * wx1).astype(wt))
+    if img.dtype == np.float64:
+        return out
+    info = np.iinfo(img.dtype)
     return np.clip(np.rint(out), info.min, info.max).astype(img.dtype)
 
 
@@ -97,8 +145,10 @@ class TileBatch:
 class TileBatchLoader:
     """Iterates fixed-size TileBatches with background prefetch.
 
-    Batches have a static shape (batch_size, tile_h, tile_w); the
-    trailing batch is padded with valid=False entries."""
+    Batches have a static shape (batch_size, tile_h, tile_w) and the
+    dtype the tiles have on the device (:func:`device_dtype`: float64
+    tiles are rounded to float32 as they are loaded); the trailing batch
+    is padded with valid=False entries."""
 
     def __init__(self, jobs: Sequence[TileJob], batch_size: int,
                  tile_h: int, tile_w: int, dtype,
@@ -130,7 +180,7 @@ class TileBatchLoader:
                      pool: ThreadPoolExecutor) -> TileBatch:
         n = self.batch_size
         tiles = torch.empty((n, self.tile_h, self.tile_w),
-                            dtype=torch_dtype(self.dtype),
+                            dtype=device_dtype(self.dtype),
                             pin_memory=self.pin_memory)
         view = tiles.numpy()
         info = np.zeros((n, 4), np.int32)
@@ -195,17 +245,34 @@ class TileBatchLoader:
             abandoned.set()
 
 
-_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
-                 np.dtype(np.uint16): torch.uint16}
+_TORCH_DTYPES = {np.dtype(n): getattr(torch, n) for n in (
+    'uint8', 'int8', 'uint16', 'int16', 'int32', 'uint32', 'float32',
+    'float64')}
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """The torch storage dtype of a tile dtype (uint8/uint16 only)."""
+    """The torch storage dtype of a tile dtype the port stitches; any
+    other raises ``TypeError``."""
     try:
         return _TORCH_DTYPES[np.dtype(dtype)]
     except KeyError:
-        raise TypeError(f"image_stitcher_tpu_torch fuses uint8 and uint16 "
-                        f"tiles, not {np.dtype(dtype)}") from None
+        names = ', '.join(d.name for d in _TORCH_DTYPES)
+        raise TypeError(f"image_stitcher_tpu_torch stitches tiles of "
+                        f"{names}, not {np.dtype(dtype)}") from None
+
+
+def device_np_dtype(dtype) -> np.dtype:
+    """The dtype a tile's values have on the device paths (the band and
+    in-RAM fusers, the mesh, the merges' folds), as a NumPy dtype: the
+    tile's, but float32 for float64 tiles, as the JAX package's device
+    arrays are float32 with 64-bit types off."""
+    dtype = np.dtype(dtype)
+    return np.dtype(np.float32) if dtype == np.float64 else dtype
+
+
+def device_dtype(dtype) -> torch.dtype:
+    """:func:`device_np_dtype` as a torch dtype."""
+    return torch_dtype(device_np_dtype(dtype))
 
 
 def expand_tile_jobs(monochrome_channels: Sequence[str],

@@ -8,10 +8,13 @@ byte order (``II``, ``MM``), in strips (any RowsPerStrip, a short last
 strip) or tiles (edge tiles cropped), with:
 
 - compression 1 (none), 5 (LZW), 8 and 32946 (deflate), 32773 (PackBits);
-- Predictor 1 or 2 (horizontal, undone per sample after the bytes are
-  swapped to native order, as libtiff does); libtiff applies it to LZW
-  and deflate only, and so does this reader;
-- 8- or 16-bit unsigned samples; 1 sample (MinIsBlack) or 3 / 4 samples
+- Predictor 1, 2 (horizontal, undone per sample after the bytes are
+  swapped to native order, as libtiff does) or 3 (floating point,
+  libtiff's fpAcc, whose output is in native order already); libtiff
+  applies them to LZW and deflate only, and so does this reader;
+- 8-, 16-, 32- or 64-bit samples, unsigned, signed (SampleFormat 2) or
+  floating point (SampleFormat 3: 32 or 64 bits; Predictor 3 takes no
+  other); 1 sample (MinIsBlack) or 3 / 4 samples
   (RGB, RGB + alpha); PlanarConfiguration 1 (contiguous), or 2 (one plane
   per sample) for 8-bit samples (OpenCV 5.0 misreads 16-bit planes as
   if they were contiguous, so those raise).
@@ -109,17 +112,21 @@ def read_ifd(data) -> Tuple[str, Dict[int, tuple]]:
     return bo, tags
 
 
-def _segment(data, comp: int, off: int, count: int, size: int):
-    """One strip or tile decoded to exactly ``size`` bytes."""
+def _segment(data, comp: int, off: int, count: int, size: int,
+             plain: bool = False):
+    """One strip or tile decoded to exactly ``size`` bytes (``plain``:
+    by the plain versions of the C decoders)."""
     raw = data[off:off + count]
     if len(raw) != count:
         raise DecodeError(f"TIFF segment at {off} runs past the file's end")
     if comp == 1:
         out = raw
     elif comp == 5:
-        out = tile_decode.lzw_decode(raw, size)
+        out = (tile_decode.lzw_decode_plain if plain
+               else tile_decode.lzw_decode)(raw, size)
     elif comp == 32773:
-        out = tile_decode.packbits_decode(raw, size)
+        out = (tile_decode.packbits_decode_plain if plain
+               else tile_decode.packbits_decode)(raw, size)
     else:
         try:
             out = zlib.decompress(raw)
@@ -160,7 +167,8 @@ def _tiled_image(mv, tags: Dict[int, tuple], pool) -> np.ndarray:
     comp = tags[_COMP][0]
     if comp not in (1, 7) + _DEFLATE:
         raise _not_ported(f"compression {comp}")
-    dtype = np.dtype(f'<u{tags[_BITS][0] // 8}')
+    kind = {1: 'u', 2: 'i', 3: 'f'}[tags.get(_SAMPLE_FORMAT, (1,))[0]]
+    dtype = np.dtype(f'<{kind}{tags[_BITS][0] // 8}')
     tw, tl = tags[_TILE_W][0], tags[_TILE_H][0]
     across = -(-w // tw)
     out = np.zeros((-(-h // tl) * tl, across * tw, spp), dtype)
@@ -196,7 +204,8 @@ def _tiled_image(mv, tags: Dict[int, tuple], pool) -> np.ndarray:
 def read_pages(data):
     """Every page of a tiled little-endian BigTIFF, as the port's
     ``io/tiffwriter.py`` writes them (deflate, JPEG or raw tiles, one or
-    three samples): [(ImageDescription or None, [page, SubIFD level 1, ...]),
+    three samples, of the sample type SampleFormat and BitsPerSample
+    give): [(ImageDescription or None, [page, SubIFD level 1, ...]),
     ...] along the top-level IFD chain, the thumbnail page last. Tiles
     decode on a thread pool (zlib and the JPEG codec release the
     interpreter lock)."""
@@ -216,8 +225,10 @@ def read_pages(data):
     return pages
 
 
-def decode_tiff(data) -> np.ndarray:
-    """Decode the first image of a TIFF file (bytes-like)."""
+def decode_tiff(data, plain: bool = False) -> np.ndarray:
+    """Decode the first image of a TIFF file (bytes-like); ``plain`` runs
+    the plain versions of the C decoders (LZW, PackBits, the predictors),
+    which the tests and ``chip_smoke.py`` hold the C ones to."""
     mv = memoryview(data)
     bo, tags = read_ifd(mv)
 
@@ -235,10 +246,14 @@ def decode_tiff(data) -> np.ndarray:
                           "item 19 (remainder), 'JPEG-in-TIFF tile input'")
     if comp not in _CODECS:
         raise _not_ported(f"compression {comp}")
-    if len(bits) != 1 or next(iter(bits)) not in (8, 16):
+    if len(bits) != 1 or next(iter(bits)) not in (8, 16, 32, 64):
         raise _not_ported(f"{sorted(bits)}-bit samples")
-    if set(tags.get(_SAMPLE_FORMAT, (1,))) != {1}:
-        raise _not_ported("signed or floating-point samples")
+    formats = sorted(set(tags.get(_SAMPLE_FORMAT, (1,))))
+    kind = ({1: 'u', 2: 'i', 3: 'f'}.get(formats[0]) if len(formats) == 1
+            else None)
+    if kind is None or (kind == 'f' and next(iter(bits)) < 32):
+        raise _not_ported(f"SampleFormat {formats} with {sorted(bits)}-bit "
+                          "samples")
     photo = tag(_PHOTO, 1 if spp == 1 else 2)
     if (photo, spp) not in ((1, 1), (2, 3), (2, 4)):
         raise _not_ported(f"photometric {photo} with {spp} samples a pixel")
@@ -247,10 +262,13 @@ def decode_tiff(data) -> np.ndarray:
     planar = tag(_PLANAR, 1)
     predictor = tag(_PREDICTOR, 1)
     itemsize = next(iter(bits)) // 8
-    if (planar not in (1, 2) or predictor not in (1, 2)
+    if (planar not in (1, 2) or predictor not in (1, 2, 3)
             or (planar == 2 and itemsize > 1 and spp > 1)):
         raise _not_ported(f"PlanarConfiguration {planar}, Predictor "
                           f"{predictor}, {8 * itemsize}-bit samples")
+    if predictor == 3 and kind != 'f':
+        raise DecodeError("TIFF Predictor 3 (floating point) on integer "
+                          "samples")
     sspp = spp if planar == 1 else 1     # samples a pixel in a segment
     planes = 1 if planar == 1 else spp
 
@@ -281,14 +299,22 @@ def decode_tiff(data) -> np.ndarray:
     buf = np.empty(sum(sizes), np.uint8)
     pos = 0
     for off, count, size in zip(offsets, counts, sizes):
-        seg = _segment(mv, comp, off, count, size)
+        seg = _segment(mv, comp, off, count, size, plain)
         buf[pos:pos + size] = np.frombuffer(seg, np.uint8, count=size)
         pos += size
+    predicted = predictor if comp in _PREDICTED else 1
+    if predicted == 3:
+        (tile_decode.undo_fp_predictor_plain if plain
+         else tile_decode.undo_fp_predictor)(buf.reshape(-1, row_bytes),
+                                             sspp, itemsize)
     samples = buf.view(np.dtype(f'=u{itemsize}'))
-    if bo == '>' and itemsize > 1:
+    if bo == '>' and itemsize > 1 and predicted != 3:
         samples.byteswap(inplace=True)
-    if predictor == 2 and comp in _PREDICTED:
-        tile_decode.undo_predictor(samples.reshape(-1, seg_cols * sspp), sspp)
+    if predicted == 2:
+        (tile_decode.undo_predictor_plain if plain
+         else tile_decode.undo_predictor)(
+            samples.reshape(-1, seg_cols * sspp), sspp)
+    samples = samples.view(np.dtype(f'={kind}{itemsize}'))
 
     if _TILE_OFFSETS in tags:
         grid = samples.reshape(planes, down, across, tl, tw, sspp)

@@ -1,5 +1,5 @@
-"""Tile decoders: TIFF LZW, PackBits, the TIFF horizontal predictor and
-PNG row unfiltering.
+"""Tile decoders: TIFF LZW, PackBits, the TIFF horizontal and
+floating-point predictors and PNG row unfiltering.
 
 The C routines (``csrc/tile_decode.c``, built at first use with the
 system C compiler by :func:`image_stitcher_tpu_torch.native.load`) are
@@ -45,6 +45,8 @@ def lib() -> ctypes.CDLL:
         so.packbits_decode.restype = i64
         so.tiff_predictor_undo.argtypes = [vp, i64, i64, ci, ci]
         so.tiff_predictor_undo.restype = ci
+        so.tiff_fp_predictor_undo.argtypes = [vp, i64, i64, ci, ci]
+        so.tiff_fp_predictor_undo.restype = ci
         so.png_unfilter.argtypes = [vp, i64, i64, ci, vp]
         so.png_unfilter.restype = ci
         _LIB = so
@@ -154,9 +156,11 @@ def packbits_decode_plain(data, size: int) -> np.ndarray:
 # ------------------------------------------------------------- predictor
 
 def _predictor_args(arr: np.ndarray, spp: int):
-    if arr.ndim != 2 or arr.dtype.kind != 'u' or arr.itemsize not in (1, 2, 4):
+    if arr.ndim != 2 or arr.dtype.kind != 'u' \
+            or arr.itemsize not in (1, 2, 4, 8):
         raise ValueError(f"the predictor takes (rows, samples) unsigned "
-                         f"8/16/32-bit samples, got {arr.shape} {arr.dtype}")
+                         f"8/16/32/64-bit samples, got {arr.shape} "
+                         f"{arr.dtype}")
     if not arr.dtype.isnative or spp < 1:
         raise ValueError("the predictor takes native byte order and spp >= 1")
 
@@ -186,6 +190,47 @@ def undo_predictor_plain(arr: np.ndarray, spp: int) -> np.ndarray:
     if n % spp:     # a row that is not whole pixels: the tail by hand
         for k in range(px * spp, n):
             arr[:, k] = arr[:, k] + arr[:, k - spp]
+    return arr
+
+
+def _fp_predictor_args(arr: np.ndarray, spp: int, sample_bytes: int):
+    if arr.ndim != 2 or arr.dtype != np.uint8 or sample_bytes not in (4, 8) \
+            or arr.shape[1] % sample_bytes or spp < 1:
+        raise ValueError(f"the floating-point predictor takes (rows, bytes) "
+                         f"uint8 rows of whole 4- or 8-byte samples and "
+                         f"spp >= 1, got {arr.shape} {arr.dtype}, "
+                         f"{sample_bytes}-byte samples, spp {spp}")
+
+
+def undo_fp_predictor(arr: np.ndarray, spp: int,
+                      sample_bytes: int) -> np.ndarray:
+    """Undo the TIFF floating-point predictor (Predictor 3, libtiff's
+    fpAcc) in place, in C, over a C-contiguous (rows, row bytes) uint8
+    array of ``sample_bytes``-byte samples, ``spp`` a pixel: afterwards
+    the rows hold the samples in native byte order. Returns it."""
+    _fp_predictor_args(arr, spp, sample_bytes)
+    if not arr.flags.c_contiguous or not arr.flags.writeable:
+        raise ValueError("the predictor works in place on a writable "
+                         "C-contiguous array")
+    _check(lib().tiff_fp_predictor_undo(arr.ctypes.data, arr.shape[0],
+                                        arr.shape[1], spp, sample_bytes),
+           "TIFF floating-point predictor")
+    return arr
+
+
+def undo_fp_predictor_plain(arr: np.ndarray, spp: int,
+                            sample_bytes: int) -> np.ndarray:
+    """:func:`undo_fp_predictor` in NumPy: a running byte sum along each
+    row with stride ``spp`` (modulo 256), then the row's byte planes (the
+    most significant first) put back as native-order samples."""
+    _fp_predictor_args(arr, spp, sample_bytes)
+    rows, n = arr.shape
+    acc = np.cumsum(arr.reshape(rows, n // spp, spp), axis=1,
+                    dtype=np.uint8).reshape(rows, n)
+    planes = acc.reshape(rows, sample_bytes, n // sample_bytes)
+    if np.little_endian:
+        planes = planes[:, ::-1]
+    arr[...] = planes.transpose(0, 2, 1).reshape(rows, n)
     return arr
 
 

@@ -37,7 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from . import blosc
-from .zarr_store import (BufferMeter, ChunkRowBuffer, EncodePool,
+from .zarr_store import (BufferMeter, ChunkRowBuffer, EncodePool, fill_value,
                          _pwrite_all, _RawWriter, _fresh_array_dir,
                          _write_file, _write_json_atomic, clamp_chunks)
 
@@ -102,7 +102,7 @@ def zarr3_array_meta(shape: Sequence[int], chunks: Sequence[int],
             },
             'name': 'sharding_indexed'}],
         'data_type': dtype.name,
-        'fill_value': 0,
+        'fill_value': fill_value(dtype),
         'node_type': 'array',
         'shape': [int(s) for s in shape],
         'zarr_format': 3,

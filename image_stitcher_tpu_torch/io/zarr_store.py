@@ -63,6 +63,12 @@ def zarr_dtype_str(dtype) -> str:
     return _DTYPE_TO_ZARR[np.dtype(dtype)]
 
 
+def fill_value(dtype):
+    """The fill value 0 as tensorstore records it: 0.0 for a float
+    dtype, 0 otherwise."""
+    return 0.0 if np.dtype(dtype).kind == 'f' else 0
+
+
 def clamp_chunks(chunks: Sequence[int], shape: Sequence[int]) -> Tuple[int, ...]:
     """Chunk shape clipped to the array shape (as tensorstore records it)."""
     return tuple(min(int(c), int(s)) if s > 0 else int(c)
@@ -84,7 +90,7 @@ def zarray_meta(shape: Sequence[int], chunks: Sequence[int], dtype,
         'compressor': compressor,
         'dimension_separator': '/',
         'dtype': zarr_dtype_str(dtype),
-        'fill_value': 0,
+        'fill_value': fill_value(dtype),
         'filters': None,
         'order': 'C',
         'shape': [int(s) for s in shape],

@@ -41,7 +41,7 @@ import torch
 
 from ..io.omezarr import (DEFAULT_MAX_PENDING_BYTES, MultiscaleWriter,
                           ngff05_wrap, plate_attrs, well_attrs)
-from ..io.readers import torch_dtype
+from ..io.readers import device_dtype, device_np_dtype, torch_dtype
 from ..io.zarr_store import open_array, write_group
 from ..ops.pyramid import downsample_mean
 from ..utils.manifest import MANIFEST_NAME
@@ -173,11 +173,13 @@ def _stream_volume_banded(pipeline, writer: MultiscaleWriter, sources,
     band = band_rows_for(pipeline.options.write_band_rows(), num_levels)
     dev = pipeline.device
     on_cuda = dev.type == 'cuda'
-    tdt = torch_dtype(sources[0][1].dtype)
-    # pinned staging for a band's level 0 and its deeper levels
-    staging = torch.empty(c * z * min(band, h) * w, dtype=tdt,
+    # pinned staging for a band's level 0 and its deeper levels, which
+    # the device folds in the device dtype (float32 for float64)
+    staging = torch.empty(c * z * min(band, h) * w,
+                          dtype=torch_dtype(sources[0][1].dtype),
                           pin_memory=on_cuda)
-    lv_staging = [torch.empty(c * z * (band >> lv) * (w >> lv), dtype=tdt,
+    fold_dt = device_dtype(sources[0][1].dtype)
+    lv_staging = [torch.empty(c * z * (band >> lv) * (w >> lv), dtype=fold_dt,
                               pin_memory=on_cuda)
                   for lv in range(1, num_levels)]
     stream = torch.cuda.Stream(dev) if on_cuda else None
@@ -209,6 +211,8 @@ def _copy_band(writer: MultiscaleWriter, src, ti: int, band0: int,
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             ev[0].record()
         level = host[0].to(dev, non_blocking=True)
+        if lv_staging:   # folded in the device dtype (float32 for float64)
+            level = level.to(lv_staging[0].dtype)
         if on_cuda:
             ev[1].record()
         levels = []
@@ -276,6 +280,10 @@ def _make_image_writer(pipeline, path: str, base_shape, name: str,
         acq.monochrome_colors, cname=cname, clevel=clevel, shuffle=shuffle,
         omero_full=False, zarr_format=opts.zarr_format,
         direct_io=opts.direct_io,
+        # level 0 is copied as stored, the deeper levels folded on the
+        # device (float32 for float64 tiles)
+        slab_dtypes=[acq.dtype] + [device_np_dtype(acq.dtype)] * (
+            pipeline.num_pyramid_levels - 1),
         # writers that run at once split the backpressure window, so the
         # merges hold no more pending bytes than one writer would
         max_pending_bytes=DEFAULT_MAX_PENDING_BYTES // max(1, n_concurrent))

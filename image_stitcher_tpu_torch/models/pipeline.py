@@ -65,7 +65,7 @@ from ..core import geometry as geo
 from ..io.acquisition import Acquisition, read_image, scan_acquisition
 from ..io.omezarr import MultiscaleWriter
 from ..io.readers import (TileBatchLoader, TileJob, expand_tile_jobs,
-                          load_tile_plane, torch_dtype)
+                          device_dtype, device_np_dtype, load_tile_plane)
 from ..ops import cuda_fuse
 from ..ops.fuse import padded_canvas_shape
 from ..ops.phasecorr import (horizontal_shift_from_pcc,
@@ -431,10 +431,11 @@ class StitchPipeline:
         return None
 
     def _writer(self, t, region: str, output_path: str, shape,
-                num_levels: int):
+                num_levels: int, slab_dtype):
         """The band-fed writer of one (timepoint, region) output: OME-Zarr
-        (:class:`MultiscaleWriter`), or for ``.ome.tiff`` the streamed
-        pyramidal OME-TIFF writer with the JAX band path's arguments."""
+        (:class:`MultiscaleWriter`, handed slabs of ``slab_dtype``), or
+        for ``.ome.tiff`` the streamed pyramidal OME-TIFF writer with the
+        JAX band path's arguments."""
         acq = self.acq
         opts = self.options
         name = f"{region}_t{t}"
@@ -454,7 +455,7 @@ class StitchPipeline:
             acq.dz_um, acq.pixel_size_um, acq.monochrome_channels,
             acq.monochrome_colors, cname=cname, clevel=clevel,
             shuffle=shuffle, zarr_format=opts.zarr_format,
-            direct_io=opts.direct_io)
+            direct_io=opts.direct_io, slab_dtypes=[slab_dtype] * num_levels)
 
     # ---------------------------------------------------------- registration
 
@@ -1005,7 +1006,7 @@ class StitchPipeline:
             acc = torch.zeros(shape, dtype=torch.float32, device=self.device)
             wsum = torch.zeros(shape, dtype=torch.float32, device=self.device)
         else:
-            canvas = torch.zeros(shape, dtype=torch_dtype(acq.dtype),
+            canvas = torch.zeros(shape, dtype=device_dtype(acq.dtype),
                                  device=self.device)
         loader = TileBatchLoader(jobs, opts.fusion_batch, th, tw, acq.dtype,
                                  num_threads=opts.resolved_reader_threads(),
@@ -1028,7 +1029,7 @@ class StitchPipeline:
         self.fuse_stats[f"{region}_t{t}"] = {'batches': batches}
         if feather:
             out = cuda_fuse.finalize_feather(acc, wsum,
-                                             torch_dtype(acq.dtype),
+                                             device_dtype(acq.dtype),
                                              (0, height), (0, width))
             del acc, wsum   # the stream orders their reuse after finalize
             return out
@@ -1072,7 +1073,9 @@ class StitchPipeline:
         os.makedirs(os.path.dirname(output_path), exist_ok=True)
         writer = self._writer(t, region, output_path,
                               (1, acq.num_c, acq.num_z, height, width),
-                              self.num_pyramid_levels)
+                              self.num_pyramid_levels,
+                              acq.dtype if opts.fusion_device == 'host'
+                              else device_np_dtype(acq.dtype))
         try:
             if opts.fusion_device == 'host':
                 gate = self._ff_gate if self._ff_future is not None else None
@@ -1211,7 +1214,7 @@ class StitchPipeline:
         os.makedirs(os.path.dirname(output_path), exist_ok=True)
         writer = self._writer(t, region, output_path,
                               (1, acq.num_c, acq.num_z, height, width),
-                              levels)
+                              levels, device_np_dtype(acq.dtype))
         live = [0]        # host bytes of the pieces not yet written
         lock = threading.Lock()
 
@@ -1303,7 +1306,9 @@ class StitchPipeline:
                 return write_ome_tiff_region(self, t, region, list(levels),
                                              output_path)
         writer = self._writer(t, region, output_path,
-                              (1,) + tuple(canvas.shape), num_levels)
+                              (1,) + tuple(canvas.shape), num_levels,
+                              canvas.dtype if isinstance(canvas, np.ndarray)
+                              else device_np_dtype(self.acq.dtype))
         try:
             with scope:
                 for lv, level in enumerate(levels):

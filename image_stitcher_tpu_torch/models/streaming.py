@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..io.omezarr import MultiscaleWriter
-from ..io.readers import TileBatchLoader, torch_dtype
+from ..io.readers import TileBatchLoader, device_dtype
 from ..ops import cuda_fuse
 from ..ops.host_fuse import (downsample2x_native, finalize_feather_host,
                              place_window)
@@ -697,7 +697,7 @@ class DeviceStreamingFuser:
         self.height, self.width = height, width
         self.tile_h, self.tile_w = tile_h, tile_w
         self.dtype = np.dtype(dtype)
-        self.tdtype = torch_dtype(dtype)
+        self.tdtype = device_dtype(dtype)
         self.num_levels = num_levels
         self.mode = downsample_mode
         self.band = band_rows_for(chunk_rows, num_levels)

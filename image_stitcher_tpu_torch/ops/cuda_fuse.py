@@ -87,6 +87,12 @@ def _kernel():
     return lib
 
 
+#: the kernels' dtype codes (``DType`` in ``csrc/sample_types.h``)
+DTYPE_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2,
+               torch.int16: 3, torch.int32: 4, torch.uint32: 5,
+               torch.float32: 6}
+
+
 def _spans(n: int):
     """[lo, hi) runs of at most MAX_BATCH tiles covering a batch of n."""
     return [(lo, min(n, lo + MAX_BATCH)) for lo in range(0, n, MAX_BATCH)]
@@ -98,7 +104,7 @@ def fuse_overwrite(canvas: torch.Tensor, tiles: torch.Tensor,
                    ff_recip: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Place a batch of tiles into ``canvas`` in place; returns it.
 
-    canvas (C, Z, Hp, Wp) uint8/uint16, padded as
+    canvas (C, Z, Hp, Wp) of ``ops/fuse.py::FUSE_DTYPES``, padded as
     :func:`~image_stitcher_tpu_torch.ops.fuse.padded_canvas_shape`;
     tiles (N, th, tw) of the same dtype and device; info (N, 4) int32
     [c, z, y, x], crops (N, 4) int32 [top, bottom, left, right] and
@@ -136,7 +142,7 @@ def _fuse_overwrite(canvas, tiles, info, crops, valid, ff_recip):
     rc = lib.fuse_overwrite_launch(
         canvas.device.index if canvas.device.index is not None
         else torch.cuda.current_device(),
-        canvas.element_size(), canvas.data_ptr(), Z, Hp, Wp,
+        DTYPE_CODES[canvas.dtype], canvas.data_ptr(), Z, Hp, Wp,
         tiles.data_ptr(), n, th, tw,
         info_h.data_ptr(), crops_h.data_ptr(), valid_h.data_ptr(),
         ff_recip.data_ptr() if ff_recip is not None else None,
@@ -185,11 +191,12 @@ def fuse_feather(acc: torch.Tensor, wsum: torch.Tensor, tiles: torch.Tensor,
 
     acc, wsum (C, Z, Hp, Wp) float32, padded as
     :func:`~image_stitcher_tpu_torch.ops.fuse.padded_canvas_shape`;
-    tiles (N, th, tw) uint8/uint16 on their device; info, crops, valid
-    and ff_recip as for :func:`fuse_overwrite`, ``blend_px`` the ramp
-    length. A batch of more than MAX_BATCH tiles is accumulated by
-    consecutive calls of at most MAX_BATCH tiles in batch order, so each
-    pixel adds its tiles in the order of one call, bit for bit. On CUDA
+    tiles (N, th, tw) of ``ops/fuse.py::FUSE_DTYPES`` (not uint32) on
+    their device; info, crops, valid and ff_recip as for
+    :func:`fuse_overwrite`, ``blend_px`` the ramp length. A batch of
+    more than MAX_BATCH tiles is accumulated by consecutive calls of at
+    most MAX_BATCH tiles in batch order, so each pixel adds its tiles in
+    the order of one call, bit for bit. On CUDA
     each launch goes on the current stream, does not synchronize and
     allocates nothing on the device; a run of tiles without a valid,
     non-empty window launches nothing."""
@@ -222,7 +229,7 @@ def _fuse_feather(acc, wsum, tiles, info, crops, valid, ff_recip, blend_px):
     valid_h = valid.to(torch.uint8).contiguous()
     _, Z, Hp, Wp = acc.shape
     rc = lib.fuse_feather_launch(
-        _device_index(acc), tiles.element_size(), acc.data_ptr(),
+        _device_index(acc), DTYPE_CODES[tiles.dtype], acc.data_ptr(),
         wsum.data_ptr(), Z, Hp, Wp, tiles.data_ptr(), n, th, tw,
         info_h.data_ptr(), crops_h.data_ptr(), valid_h.data_ptr(),
         ff_recip.data_ptr() if ff_recip is not None else None, blend_px,
@@ -258,8 +265,8 @@ def finalize_feather(acc: torch.Tensor, wsum: torch.Tensor,
     if not (0 <= r0 <= r1 <= Hp and 0 <= s0 <= s1 <= Wp):
         raise ValueError(f"window rows {(r0, r1)} x cols {(s0, s1)} is not "
                          f"inside the canvas {tuple(acc.shape)}")
-    if out_dtype not in plain.DTYPE_RANGE:
-        raise TypeError(f"finalize writes uint8 or uint16, not {out_dtype}")
+    plain.check_dtype(out_dtype)
+    plain.check_clip_bounds(out_dtype)
     if acc.device.type == 'cpu':
         return plain.finalize_feather(acc[..., r0:r1, s0:s1],
                                       wsum[..., r0:r1, s0:s1], out_dtype)
@@ -275,7 +282,7 @@ def finalize_feather(acc: torch.Tensor, wsum: torch.Tensor,
     out = torch.empty((C, Z, r1 - r0, s1 - s0), dtype=out_dtype,
                       device=acc.device)
     rc = lib.finalize_feather_launch(
-        _device_index(acc), out.element_size(), acc.data_ptr(),
+        _device_index(acc), DTYPE_CODES[out_dtype], acc.data_ptr(),
         wsum.data_ptr(), out.data_ptr(), C * Z, Hp, Wp, r0, r1 - r0, s0,
         s1 - s0, torch.cuda.current_stream(acc.device).cuda_stream)
     if rc != 0:

@@ -13,14 +13,22 @@ Semantics, as in the JAX package:
   ``wsum += ramp`` into float32 canvases, tile after tile, with the ramp
   rising from the crop window's edge (:func:`feather_ramp`); the
   finished canvas is ``round(acc / wsum)`` (:func:`finalize_feather`);
-- the flatfield multiplies by a host-computed f32 RECIPROCAL, clips to
-  the dtype range and truncates (never a divide: that is what keeps
-  every backend byte-identical);
+- the flatfield multiplies by a host-computed f32 RECIPROCAL (never a
+  divide: that is what keeps every backend byte-identical); integer
+  dtypes then clip to their range and truncate, float dtypes are cast
+  (:func:`to_storage`);
 - the canvas carries a one-tile apron on the bottom/right
   (:func:`padded_canvas_shape`), so no window needs clamping.
 
-torch has no comparisons, clamp or max on uint16, so the arithmetic runs
-in float32/int32 and uint16 is only stored and sliced.
+torch has almost no arithmetic on uint16 or uint32, so the arithmetic
+runs in float32 (and int64 or float64 for the casts) and those dtypes
+are only stored, copied and viewed.
+
+Tiles of every sample type the JAX package stitches are fused
+(:data:`FUSE_DTYPES`; float16 tiles read as uint8 there). Where the JAX
+package runs with 64-bit types off, a float64 tile is float32 on its
+device: the device paths round float64 tiles through float32
+(``io/readers.py::device_dtype``), so no fusion op takes float64.
 """
 
 from __future__ import annotations
@@ -29,8 +37,44 @@ from typing import Optional, Tuple
 
 import torch
 
-#: storage dtypes the port fuses, with their value range
-DTYPE_RANGE = {torch.uint8: (0, 255), torch.uint16: (0, 65535)}
+#: storage dtypes the fusion ops and kernels take
+FUSE_DTYPES = (torch.uint8, torch.int8, torch.uint16, torch.int16,
+               torch.int32, torch.uint32, torch.float32)
+
+
+def check_dtype(dtype: torch.dtype) -> None:
+    """Raise ``TypeError`` naming a dtype the fusion does not take."""
+    if dtype not in FUSE_DTYPES:
+        names = ', '.join(str(d).split('.')[1] for d in FUSE_DTYPES)
+        why = (" (float64 tiles are fused as float32: "
+               "io/readers.py::device_dtype)" if dtype == torch.float64
+               else "")
+        raise TypeError(f"the fusion takes {names}, not "
+                        f"{str(dtype).split('.')[-1]}{why}")
+
+
+def check_clip_bounds(dtype: torch.dtype) -> None:
+    """The JAX package passes an integer dtype's bounds to its jitted
+    clips as 32-bit weak-typed values: uint32's maximum overflows there
+    (``OverflowError``), so the flatfield and the feathered finish raise
+    for uint32 tiles. The port raises the same error."""
+    if dtype == torch.uint32:
+        raise OverflowError(
+            "uint32 tiles take no flatfield and no feathered blending: the "
+            "JAX package's clip to iinfo(uint32).max overflows its 32-bit "
+            "jit argument (OverflowError), and the port keeps that limit")
+
+
+def to_storage(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Cast float values to a storage dtype as XLA's convert does: an
+    integer dtype takes them clipped to its range, truncated toward zero
+    (so int32 saturates at 2147483647 where the float32 bound rounds to
+    2147483648.0); a float dtype takes them as they are."""
+    if dtype.is_floating_point:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    return (x.to(torch.float64).clamp_(int(info.min), int(info.max))
+            .to(torch.int64).to(dtype))
 
 
 def padded_canvas_shape(num_c: int, num_z: int, height: int, width: int,
@@ -52,17 +96,18 @@ def check_batch(canvas: torch.Tensor, tiles: torch.Tensor,
                 ff_recip: Optional[torch.Tensor] = None) -> None:
     """Raise on anything the fusion does not take.
 
-    canvas (C, Z, Hp, Wp) and tiles (N, th, tw) share a dtype (uint8 or
-    uint16) and a device, and are contiguous; ff_recip, when given, is a
-    contiguous float32 (C_ff, th, tw) on that device. info (N, 4) int32,
+    canvas (C, Z, Hp, Wp) and tiles (N, th, tw) share a dtype (one of
+    :data:`FUSE_DTYPES`; no uint32 with a field) and a device, and are
+    contiguous; ff_recip, when given, is a contiguous float32 (C_ff, th,
+    tw) on that device. info (N, 4) int32,
     crops (N, 4) int32 and valid (N,) bool are HOST tensors. Every valid
     tile's (th, tw) extent must lie inside the canvas (the JAX scan would
     clamp such a tile to the edge and place it elsewhere)."""
-    if canvas.dtype not in DTYPE_RANGE:
-        raise TypeError(f"fusion takes uint8 or uint16 canvases, "
-                        f"not {canvas.dtype}")
+    check_dtype(canvas.dtype)
     if tiles.dtype != canvas.dtype:
         raise TypeError(f"tiles are {tiles.dtype}, canvas is {canvas.dtype}")
+    if ff_recip is not None:
+        check_clip_bounds(canvas.dtype)
     _check_placement(canvas, tiles, info, crops, valid, ff_recip)
 
 
@@ -72,8 +117,8 @@ def check_feather_batch(acc: torch.Tensor, wsum: torch.Tensor,
                         ff_recip: Optional[torch.Tensor] = None,
                         blend_px: int = 64) -> None:
     """:func:`check_batch` for a feather pair: ``acc`` and ``wsum`` are
-    float32 (C, Z, Hp, Wp) of one shape and device; tiles are uint8 or
-    uint16; ``blend_px`` is a positive int."""
+    float32 (C, Z, Hp, Wp) of one shape and device; tiles are of
+    :data:`FUSE_DTYPES` but uint32; ``blend_px`` is a positive int."""
     if acc.dtype != torch.float32 or wsum.dtype != torch.float32:
         raise TypeError(f"feather canvases are float32, got {acc.dtype} "
                         f"and {wsum.dtype}")
@@ -82,9 +127,8 @@ def check_feather_batch(acc: torch.Tensor, wsum: torch.Tensor,
                          f"{tuple(wsum.shape)} on {wsum.device} differ")
     if not wsum.is_contiguous():
         raise ValueError("wsum must be contiguous")
-    if tiles.dtype not in DTYPE_RANGE:
-        raise TypeError(f"fusion takes uint8 or uint16 tiles, "
-                        f"not {tiles.dtype}")
+    check_dtype(tiles.dtype)
+    check_clip_bounds(tiles.dtype)      # feathered uint32 finishes nowhere
     if isinstance(blend_px, bool) or not isinstance(blend_px, int) \
             or blend_px < 1:
         raise ValueError(f"blend_px must be a positive int, got {blend_px!r}")
@@ -136,14 +180,15 @@ def _check_placement(canvas: torch.Tensor, tiles: torch.Tensor,
 def apply_flatfield(tiles: torch.Tensor, ff_recip: torch.Tensor,
                     channel_idx: torch.Tensor,
                     out_dtype: torch.dtype) -> torch.Tensor:
-    """Per-tile flatfield correct-clip-cast: trunc(clip(tile * recip)).
+    """Per-tile flatfield correct-clip-cast: tile * recip in float32,
+    then :func:`to_storage` (trunc(clip(.)) for an integer ``out_dtype``,
+    a cast for a float one).
 
     tiles (N, th, tw); ff_recip (C, th, tw) float32 reciprocal fields
     (ones where absent); channel_idx (N,) selects each tile's field."""
-    lo, hi = DTYPE_RANGE[out_dtype]
+    check_clip_bounds(out_dtype)
     ff = ff_recip.index_select(0, channel_idx.to(ff_recip.device).long())
-    corrected = tiles.to(torch.float32) * ff
-    return corrected.clamp_(lo, hi).to(torch.int32).to(out_dtype)
+    return to_storage(tiles.to(torch.float32) * ff, out_dtype)
 
 
 def fuse_overwrite(canvas: torch.Tensor, tiles: torch.Tensor,
@@ -220,11 +265,14 @@ def fuse_feather(acc: torch.Tensor, wsum: torch.Tensor, tiles: torch.Tensor,
 
 def finalize_feather(acc: torch.Tensor, wsum: torch.Tensor,
                      out_dtype: torch.dtype) -> torch.Tensor:
-    """acc / max(wsum, 1e-6), 0 where wsum <= 0, rounded half to even,
-    clipped to the dtype range and cast (a new tensor)."""
-    lo, hi = DTYPE_RANGE[out_dtype]
+    """acc / max(wsum, 1e-6), 0 where wsum <= 0; for an integer dtype
+    rounded half to even, clipped to its range and cast, for a float
+    dtype cast (a new tensor)."""
+    check_dtype(out_dtype)
+    check_clip_bounds(out_dtype)
     out = acc / torch.clamp(wsum, min=1e-6)
     out = torch.where(wsum > 0, out, torch.zeros((), dtype=out.dtype,
                                                  device=out.device))
-    out = torch.round(out).clamp_(lo, hi)
-    return out.to(torch.int32).to(out_dtype)
+    if not out_dtype.is_floating_point:
+        out = torch.round(out)
+    return to_storage(out, out_dtype)

@@ -8,8 +8,9 @@ crop windows, edge clamp) or feathered accumulation, with the C loops of
 ``hostops.c`` (the JAX package's source, built with its flags). Their
 plain NumPy versions are kept beside them (``*_plain``); the tests hold
 the two byte-equal. A uint8/uint16 tile always takes the C loop, and a
-failed build raises; only layouts the C code does not take (float
-tiles or canvases) run the plain version.
+failed build raises. Tiles of other dtypes take the JAX package's own
+NumPy placement (:func:`place_window_numpy`), as its host fuser does
+for every dtype its C loops lack.
 
 Every path multiplies by the same host-computed RECIPROCAL flatfield,
 so the host, the CUDA kernels and the JAX package agree byte for byte.
@@ -71,6 +72,32 @@ def place_window_plain(dst, tile: np.ndarray, ff_c: Optional[np.ndarray],
     wsum[cy:ye, cx:xe] += wgt
 
 
+def place_window_numpy(dst, tile: np.ndarray, ff_c: Optional[np.ndarray],
+                       y0: int, y1: int, x0: int, x1: int, cy: int, cx: int,
+                       feather: Optional[Tuple] = None) -> None:
+    """:func:`place_window` for tiles other than uint8/uint16, as the JAX
+    package's host fuser places them in NumPy: the tile corrected by
+    :func:`correct_tile` in its dtype; feathered, the ramp is
+    min(dy, dx) / blend_px in f32 clipped to 1 (d the 1-based distance to
+    the nearer edge of the full crop window) and ``acc += w * v`` rounds
+    the product before the sum (no fused multiply-add)."""
+    t = correct_tile(tile, None if ff_c is None else ff_c[None], 0,
+                     tile.dtype)[y0:y1, x0:x1]
+    ye, xe = cy + (y1 - y0), cx + (x1 - x0)
+    if feather is None:
+        dst[cy:ye, cx:xe] = t
+        return
+    acc, wsum = dst
+    wy0, wy1, wx0, wx1, inv_px = feather
+    ys, xs = np.arange(y0, y1), np.arange(x0, x1)
+    dy = np.minimum(ys - wy0 + 1, wy1 - ys)
+    dx = np.minimum(xs - wx0 + 1, wx1 - xs)
+    wgt = (np.minimum.outer(dy, dx).astype(np.float32)
+           / round(1.0 / inv_px)).clip(0, 1)
+    acc[cy:ye, cx:xe] += wgt * t.astype(np.float32)
+    wsum[cy:ye, cx:xe] += wgt
+
+
 def place_window(dst, tile: np.ndarray, ff_c: Optional[np.ndarray],
                  y0: int, y1: int, x0: int, x1: int, cy: int, cx: int,
                  feather: Optional[Tuple] = None) -> None:
@@ -80,9 +107,10 @@ def place_window(dst, tile: np.ndarray, ff_c: Optional[np.ndarray],
     (acc, wsum) float32 pair (``feather`` = (wy0, wy1, wx0, wx1,
     inv_blend_px), the FULL crop window in tile coordinates the ramps
     measure from). uint8/uint16 tiles run the fused C loop of
-    ``hostops.c``; other dtypes the plain version. A window outside the
-    tile, the field or ``dst``, and a layout the C loop does not take (a
-    destination of another dtype, or with strided columns), raise."""
+    ``hostops.c``; other dtypes :func:`place_window_numpy`. A window
+    outside the tile, the field or ``dst``, and a layout the C loop does
+    not take (a destination of another dtype, or with strided columns),
+    raise."""
     suffix = _NATIVE.get(tile.dtype)
     plane = dst[0] if feather is not None else dst
     if not (0 <= y0 <= y1 <= tile.shape[0] and 0 <= x0 <= x1 <= tile.shape[1]
@@ -95,7 +123,7 @@ def place_window(dst, tile: np.ndarray, ff_c: Optional[np.ndarray],
                          f"tile at ({cy}, {cx}) does not fit a "
                          f"{plane.shape} destination")
     if suffix is None:
-        place_window_plain(dst, tile, ff_c, y0, y1, x0, x1, cy, cx, feather)
+        place_window_numpy(dst, tile, ff_c, y0, y1, x0, x1, cy, cx, feather)
         return
     if (feather is None and dst.dtype != tile.dtype) \
             or plane.strides[-1] != plane.itemsize:

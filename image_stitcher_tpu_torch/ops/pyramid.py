@@ -26,6 +26,8 @@ from typing import Iterator, List, Tuple
 import numpy as np
 import torch
 
+from .fuse import to_storage
+
 
 def downsample_nearest(x: torch.Tensor) -> torch.Tensor:
     """Stride-2 pick over the last two axes; output dims floor(n/2)."""
@@ -36,14 +38,18 @@ def downsample_nearest(x: torch.Tensor) -> torch.Tensor:
 def downsample_mean(x: torch.Tensor) -> torch.Tensor:
     """2x2 box mean over the last two axes, excess row/column trimmed:
     ((x00 + x01) + x10) + x11 in float32, divided by 4, truncated toward
-    zero and cast back for integer dtypes (exact for uint8/uint16, whose
-    sums f32 holds exactly; bit-equal to XLA's order for float32)."""
+    zero and cast back for integer dtypes (exact for 8- and 16-bit
+    dtypes, whose sums f32 holds exactly; 32-bit integers are summed as
+    XLA sums them, in f32, and saturate as its convert does; bit-equal to
+    XLA's order for float32)."""
     h2, w2 = (x.shape[-2] // 2) * 2, (x.shape[-1] // 2) * 2
     t = x[..., :h2, :w2].to(torch.float32)
     m = (((t[..., 0::2, 0::2] + t[..., 0::2, 1::2]) + t[..., 1::2, 0::2])
          + t[..., 1::2, 1::2]) / 4.0
     if x.dtype.is_floating_point:
         return m.to(x.dtype)
+    if x.element_size() > 2:     # 32-bit: saturate as XLA's convert does
+        return to_storage(m, x.dtype)
     # torch casts no float to uint16: truncate through int32
     return torch.trunc(m).to(torch.int32).to(x.dtype)
 

@@ -37,7 +37,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..io.readers import torch_dtype
+from ..io.readers import device_dtype
 from ..ops import cuda_fuse
 from .mesh import AXIS_CANVAS, Mesh
 
@@ -96,7 +96,7 @@ class ShardedCanvas:
         self.num_c, self.num_z = num_c, num_z
         self.height, self.width = height, width
         self.tile_h, self.tile_w = tile_h, tile_w
-        self.dtype = torch_dtype(dtype) if not isinstance(
+        self.dtype = device_dtype(dtype) if not isinstance(
             dtype, torch.dtype) else dtype
         self.blend = blend_method
         self.blend_px = blend_px
@@ -144,7 +144,7 @@ class ShardedCanvas:
         return self._ff[device]
 
     def fuse_batch(self, tiles, info, crops, valid) -> None:
-        """Fuse one batch: tiles (N, th, tw) uint8/uint16 on the host
+        """Fuse one batch: tiles (N, th, tw) of the canvas dtype on the host
         (pinned for CUDA bands: each distinct device gets one
         ``non_blocking`` upload on its current stream), info (N, 4)
         [c, z, y, x], crops (N, 4) and valid (N,) on the host (NumPy or

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: the kernels have no CPU mode, so these skip without a
-card. Feathered sums must be bit-equal: the kernel keeps the plain
+card. Every tile dtype the kernels take (uint32 without the field and
+feathering, which the JAX package refuses it; float64 tiles reach them
+as float32). Feathered sums must be bit-equal: the kernel keeps the plain
 version's order and rounding. The file imports neither jax nor the JAX package, so it also runs
 on a CUDA host that has neither:
 
@@ -23,12 +25,36 @@ def cuda_device():
     return torch.device('cuda')
 
 
+#: every tile dtype the kernels take; uint32 takes no field and no
+#: feathering (the JAX package's clip bound overflows for it)
+DTYPES = [np.uint8, np.int8, np.uint16, np.int16, np.int32, np.uint32,
+          np.float32]
+FF_DTYPES = [d for d in DTYPES if d != np.uint32]
+#: the feathered dtypes beyond the main path's uint16 and uint8
+OTHER_FF_DTYPES = [d for d in FF_DTYPES if d not in (np.uint8, np.uint16)]
+
+
+def _values(rng, dtype, shape):
+    """Samples over an integer type's range (the field's product clips at
+    both bounds), floats with fractions and signs."""
+    dtype = np.dtype(dtype)
+    if dtype.kind == 'f':
+        return rng.uniform(-300.0, 70000.0, shape).astype(dtype)
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, int(info.max) + 1, shape).astype(dtype)
+
+
+def _equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal dtype and bits (NumPy compares every dtype torch stores)."""
+    return got.dtype == want.dtype and np.array_equal(got.cpu().numpy(),
+                                                      want.numpy())
+
+
 def _batch(seed, dtype, th, tw, n=12, C=2, Z=2, H=300, W=340):
     """Overlapping tiles, crops (some past half the tile, some negative),
     a duplicate placement and invalid entries."""
     rng = np.random.default_rng(seed)
-    hi = np.iinfo(dtype).max
-    tiles = rng.integers(0, hi + 1, (n, th, tw)).astype(dtype)
+    tiles = _values(rng, dtype, (n, th, tw))
     info = np.stack([rng.integers(0, C, n), rng.integers(0, Z, n),
                      rng.integers(0, H, n), rng.integers(0, W, n)],
                     axis=1).astype(np.int32)
@@ -37,15 +63,16 @@ def _batch(seed, dtype, th, tw, n=12, C=2, Z=2, H=300, W=340):
     valid = rng.random(n) > 0.25
     valid[[2, 3]] = True
     ff = (1.0 / rng.uniform(0.5, 1.5, (C, th, tw))).astype(np.float32)
-    canvas = rng.integers(0, hi + 1, plain.padded_canvas_shape(
-        C, Z, H, W, th, tw)).astype(dtype)
+    canvas = _values(rng, dtype, plain.padded_canvas_shape(
+        C, Z, H, W, th, tw))
     return [torch.from_numpy(a) for a in (canvas, tiles, info, crops,
                                           valid, ff)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
-@pytest.mark.parametrize("with_ff", [False, True])
+@pytest.mark.parametrize("dtype,with_ff",
+                         [(d, False) for d in DTYPES]
+                         + [(d, True) for d in FF_DTYPES])
 @pytest.mark.parametrize("shape", [(100, 120), (37, 1100)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_kernel_matches_plain(cuda_device, dtype, with_ff, shape):
@@ -58,7 +85,7 @@ def test_kernel_matches_plain(cuda_device, dtype, with_ff, shape):
     assert cuda_fuse.fuse_overwrite.launches == before + 1
     want = plain.fuse_overwrite(canvas, tiles, info, crops, valid,
                                 ff_recip=ff if with_ff else None)
-    assert torch.equal(got.cpu(), want)
+    assert _equal(got, want)
 
 
 @pytest.mark.cuda
@@ -102,7 +129,28 @@ def test_kernel_refuses_a_tile_outside_the_canvas(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_kernels_refuse_float64(cuda_device):
+    """float64 tiles reach the kernels as float32: a float64 batch on the
+    card raises and launches nothing."""
+    canvas, tiles, info, crops, valid, _ = _batch(9, np.float32, 32, 32)
+    canvas, tiles = (t.double().to(cuda_device) for t in (canvas, tiles))
+    launches = (cuda_fuse.fuse_overwrite.launches,
+                cuda_fuse.fuse_feather.launches,
+                cuda_fuse.finalize_feather.launches)
+    acc = torch.zeros(canvas.shape, device=cuda_device)
+    with pytest.raises(TypeError, match='float64'):
+        cuda_fuse.fuse_overwrite(canvas, tiles, info, crops, valid)
+    with pytest.raises(TypeError, match='float64'):
+        cuda_fuse.fuse_feather(acc, acc.clone(), tiles, info, crops, valid)
+    with pytest.raises(TypeError, match='float64'):
+        cuda_fuse.finalize_feather(acc, acc.clone(), torch.float64)
+    assert launches == (cuda_fuse.fuse_overwrite.launches,
+                        cuda_fuse.fuse_feather.launches,
+                        cuda_fuse.finalize_feather.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FF_DTYPES)
 @pytest.mark.parametrize("with_ff", [False, True])
 @pytest.mark.parametrize("shape", [(100, 120), (37, 1100)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
@@ -128,10 +176,13 @@ def test_feather_kernel_matches_plain(cuda_device, dtype, with_ff, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8, torch.uint16,
+                                   torch.int16, torch.int32, torch.float32])
 def test_finalize_kernel_matches_plain(cuda_device, dtype):
     gen = torch.Generator().manual_seed(10)
-    acc = torch.rand((2, 1, 90, 130), generator=gen) * 70000
+    # past both bounds of every integer type (int32: 2^31 saturates)
+    acc = (torch.rand((2, 1, 90, 130), generator=gen) * 2 - 0.5) * (
+        2.0 ** 32 if dtype == torch.int32 else 70000)
     wsum = torch.rand((2, 1, 90, 130), generator=gen) * 2 - 0.5
     acc[0, 0, :3] = 0.5 * torch.arange(130)   # ties round half to even
     wsum[0, 0, :3] = 1.0
@@ -144,7 +195,7 @@ def test_finalize_kernel_matches_plain(cuda_device, dtype):
     want = plain.finalize_feather(acc[..., 7:80, 11:129],
                                   wsum[..., 7:80, 11:129], dtype)
     assert got.shape == (2, 1, 73, 118)
-    assert torch.equal(got.cpu(), want)
+    assert _equal(got, want)
 
 
 def _residue_batch(seed, dtype, th, tw, pitch_residue, n=16, C=2, H=120,
@@ -154,8 +205,7 @@ def _residue_batch(seed, dtype, th, tw, pitch_residue, n=16, C=2, H=120,
     side; the canvas row length is 8j + ``pitch_residue`` elements (the
     one-tile apron, then padded). One entry is invalid padding."""
     rng = np.random.default_rng(seed)
-    hi = np.iinfo(dtype).max
-    tiles = rng.integers(0, hi + 1, (n, th, tw)).astype(dtype)
+    tiles = _values(rng, dtype, (n, th, tw))
     k = np.arange(n)
     x = 8 * rng.integers(0, W // 8, n) + k % 8
     info = np.stack([k % C, np.zeros(n, int), rng.integers(0, H, n), x],
@@ -167,7 +217,7 @@ def _residue_batch(seed, dtype, th, tw, pitch_residue, n=16, C=2, H=120,
     ff = (1.0 / rng.uniform(0.5, 1.5, (C, th, tw))).astype(np.float32)
     _, _, Hp, Wp = plain.padded_canvas_shape(C, 1, H, W, th, tw)
     Wp = -(-Wp // 8) * 8 + pitch_residue
-    canvas = rng.integers(0, hi + 1, (C, 1, Hp, Wp)).astype(dtype)
+    canvas = _values(rng, dtype, (C, 1, Hp, Wp))
     return [torch.from_numpy(a) for a in (canvas, tiles, info, crops, valid,
                                           ff)]
 
@@ -177,8 +227,7 @@ def _split_batch(dtype, th=24, tw=200):
     windows (tiles 1 and 2); tile 3 is placed exactly on tile 4 (the
     later one wins everywhere)."""
     rng = np.random.default_rng(21)
-    hi = np.iinfo(dtype).max
-    tiles = rng.integers(0, hi + 1, (5, th, tw)).astype(dtype)
+    tiles = _values(rng, dtype, (5, th, tw))
     info = np.array([[0, 0, 10, 13], [0, 0, 16, 53], [0, 0, 4, 101],
                      [0, 0, 40, 7], [0, 0, 40, 7]], np.int32)
     # tiles 1 and 2: windows 40 and 33 columns wide, inside tile 0's rows
@@ -186,8 +235,8 @@ def _split_batch(dtype, th=24, tw=200):
                       [0, 0, 0, 0], [1, 1, 1, 1]], np.int32)
     valid = np.ones(5, bool)
     ff = (1.0 / rng.uniform(0.5, 1.5, (1, th, tw))).astype(np.float32)
-    canvas = rng.integers(0, hi + 1, plain.padded_canvas_shape(
-        1, 1, 80, 320, th, tw)).astype(dtype)
+    canvas = _values(rng, dtype, plain.padded_canvas_shape(
+        1, 1, 80, 320, th, tw))
     return [torch.from_numpy(a) for a in (canvas, tiles, info, crops, valid,
                                           ff)]
 
@@ -198,7 +247,7 @@ def _overwrite_equal(dev, canvas, tiles, info, crops, valid, ff):
                                    None if ff is None else ff.to(dev))
     torch.cuda.synchronize()
     want = plain.fuse_overwrite(canvas.clone(), tiles, info, crops, valid, ff)
-    assert torch.equal(got.cpu(), want)
+    assert _equal(got, want)
 
 
 def _feather_equal(dev, shape, tiles, info, crops, valid, ff, blend_px):
@@ -217,7 +266,7 @@ def _feather_equal(dev, shape, tiles, info, crops, valid, ff, blend_px):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pitch_residue", range(8))
-@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("tw", [72, 70, 77], ids=lambda w: f"tw{w}")
 def test_kernel_every_pitch_origin_and_crop_residue(cuda_device,
                                                     pitch_residue, dtype,
@@ -225,13 +274,15 @@ def test_kernel_every_pitch_origin_and_crop_residue(cuda_device,
     canvas, tiles, info, crops, valid, ff = _residue_batch(
         30 + pitch_residue, dtype, 40, tw, pitch_residue)
     assert canvas.shape[3] % 8 == pitch_residue
+    with_ff = pitch_residue % 2 == 0 and dtype != np.uint32
     _overwrite_equal(cuda_device, canvas, tiles, info, crops, valid,
-                     ff if pitch_residue % 2 == 0 else None)
+                     ff if with_ff else None)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
-@pytest.mark.parametrize("with_ff", [False, True])
+@pytest.mark.parametrize("dtype,with_ff",
+                         [(d, False) for d in DTYPES]
+                         + [(d, True) for d in FF_DTYPES])
 def test_kernel_split_spans_and_duplicate(cuda_device, dtype, with_ff):
     canvas, tiles, info, crops, valid, ff = _split_batch(dtype)
     _overwrite_equal(cuda_device, canvas, tiles, info, crops, valid,
@@ -242,10 +293,15 @@ def test_kernel_split_spans_and_duplicate(cuda_device, dtype, with_ff):
 @pytest.mark.parametrize("pitch_residue", range(8))
 @pytest.mark.parametrize("blend_px", [1, 24, 64, 3000])
 @pytest.mark.parametrize("tw", [72, 70, 77], ids=lambda w: f"tw{w}")
+@pytest.mark.parametrize("dtype", [None] + OTHER_FF_DTYPES,
+                         ids=lambda d: 'u16_u8' if d is None
+                         else np.dtype(d).name)
 def test_feather_kernel_every_pitch_origin_and_crop_residue(
-        cuda_device, pitch_residue, blend_px, tw):
-    # 3000 is longer than half of every window and than the ramp table
-    dtype = np.uint16 if pitch_residue < 4 else np.uint8
+        cuda_device, pitch_residue, blend_px, tw, dtype):
+    # 3000 is longer than half of every window and than the ramp table;
+    # None: the main path's uint16 at residues 0-3 and uint8 at 4-7
+    if dtype is None:
+        dtype = np.uint16 if pitch_residue < 4 else np.uint8
     canvas, tiles, info, crops, valid, ff = _residue_batch(
         40 + pitch_residue, dtype, 40, tw, pitch_residue)
     _feather_equal(cuda_device, canvas.shape, tiles, info, crops, valid,
@@ -253,7 +309,7 @@ def test_feather_kernel_every_pitch_origin_and_crop_residue(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("dtype", FF_DTYPES)
 @pytest.mark.parametrize("blend_px", [1, 24, 64, 150])
 def test_feather_kernel_split_windows_and_duplicate(cuda_device, dtype,
                                                     blend_px):

@@ -185,8 +185,8 @@ def test_feather_batches_the_kernel_does_not_take_raise(bad):
         blend = 0
     elif bad == "outside":
         info[2, 3] = shape[3] - 16
-    elif bad == "tile_dtype":
-        tiles = tiles.astype(np.int16)
+    elif bad == "tile_dtype":   # float16: no tile dtype the port fuses
+        tiles = tiles.astype(np.float16)
     args = _t(tiles, info, crops, valid)
     with pytest.raises((ValueError, TypeError)):
         cuda_fuse.fuse_feather(acc, wsum, *args, blend_px=blend)

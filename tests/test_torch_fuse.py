@@ -146,9 +146,9 @@ def test_batches_the_kernel_does_not_take_raise(bad):
     if bad == "outside":
         info[2, 2] = canvas.shape[2] - 31       # tile overhangs the apron
         valid[2] = True
-    elif bad == "dtype":
-        canvas = canvas.astype(np.int16)
-        tiles = tiles.astype(np.int16)
+    elif bad == "dtype":     # float16: no tile dtype the port fuses
+        canvas = (canvas >> 6).astype(np.float16)
+        tiles = (tiles >> 6).astype(np.float16)
     elif bad == "meta_dtype":
         info = info.astype(np.int64)
     elif bad == "ff_shape":

@@ -2,21 +2,25 @@
 tiles: equal shape, dtype and every sample.
 
 OpenCV writes most layouts itself (compression 1, 5, 8, 32946, 32773;
-Predictor 1 and 2; RowsPerStrip 1, 2, odd and whole; u8 and u16; 1, 3
-and 4 samples). Tiles, big-endian files, BigTIFF, PlanarConfiguration 2
-and declared alpha are built with ``torch_tile_files`` and read back by
-OpenCV as the oracle. PlanarConfiguration 2 is taken for 8-bit samples:
-OpenCV 5.0 reads those, and reads 16-bit planes as if they were
-interleaved, so the port raises there instead.
+Predictor 1, 2 and 3; RowsPerStrip 1, 2, odd and whole; u8 and u16; 1, 3
+and 4 samples; every sample type the port stitches: int8, int16, int32,
+uint32, float32 and float64). Tiles, big-endian files, BigTIFF,
+PlanarConfiguration 2 and declared alpha are built with
+``torch_tile_files`` and read back by OpenCV as the oracle.
+PlanarConfiguration 2 is taken for 8-bit samples: OpenCV 5.0 reads those,
+and reads 16-bit planes as if they were interleaved, so the port raises
+there instead.
 """
 
 import cv2
 import numpy as np
 import pytest
 
+import torch_tiff_samples
 from torch_tile_files import tiff_bytes
 from image_stitcher_tpu.io.acquisition import read_image as jax_read_image
 from image_stitcher_tpu_torch.io.acquisition import read_image
+from image_stitcher_tpu_torch.io.tiff import decode_tiff
 
 COMPRESSIONS = [1, 5, 8, 32946, 32773]
 
@@ -165,7 +169,7 @@ def test_magic_bytes_not_suffix(tmp_path):
 
 
 @pytest.mark.parametrize("what", ['jpeg', 'float', 'old_lzw', 'palette',
-                                  'bits12'])
+                                  'bits12', 'half'])
 def test_out_of_scope_raises_naming_an_item(tmp_path, what):
     img = _image(6, np.uint8, 1, h=16, w=16)
     if what == 'jpeg':
@@ -175,12 +179,13 @@ def test_out_of_scope_raises_naming_an_item(tmp_path, what):
     else:
         # LZW: the fast path (which reads raw samples whatever the tags
         # say, as the JAX one does) declines the file
-        data = bytearray(tiff_bytes(img, 5, 1))
+        data = bytearray(tiff_bytes(img.astype(np.uint16) if what == 'half'
+                                    else img, 5, 1))
         if what == 'old_lzw':
             data[8:8 + 2] = b'\x00\x01'     # the strip: LSB-first ClearCode
         else:
             tag, value = {'float': (339, 3), 'palette': (262, 3),
-                          'bits12': (258, 12)}[what]
+                          'bits12': (258, 12), 'half': (339, 3)}[what]
             ifd = int.from_bytes(data[4:8], 'little')
             n = int.from_bytes(data[ifd:ifd + 2], 'little')
             for i in range(n):
@@ -199,6 +204,112 @@ def test_corrupt_file_raises_value_error_naming_it(tmp_path):
     data[20:60] = bytes(40)          # inside the first deflate strip
     path = _write(tmp_path, bytes(data), "bad.tiff")
     with pytest.raises(ValueError, match="bad.tiff"):
+        read_image(path)
+
+
+# --------------------------------------------------------- sample types
+
+SAMPLE_TYPES = ['uint8', 'int8', 'uint16', 'int16', 'int32', 'uint32',
+                'float32', 'float64']
+#: (compression, Predictor): what OpenCV 5.0 writes on request. LZW with
+#: Predictor 2 is its default for integers, deflate with Predictor 3 (the
+#: floating-point predictor) is libtiff's for floats; Predictor 3 takes
+#: float samples only.
+CODECS = [(1, 1), (5, 1), (5, 2), (8, 2), (32946, 1), (32773, 1), (5, 3),
+          (8, 3)]
+
+
+def _typed_image(seed, dtype, spp, h=37, w=53):
+    """Values over the whole range of an integer type; floats with
+    fractions, signs, zeros and both infinities."""
+    rng = np.random.default_rng(seed)
+    shape = (h, w) if spp == 1 else (h, w, spp)
+    dtype = np.dtype(dtype)
+    if dtype.kind == 'f':
+        img = (rng.standard_normal(shape) * 1e4).astype(dtype)
+        img.reshape(-1)[:4] = [0.0, -0.0, np.inf, -np.inf]
+        return img
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max, shape, dtype=dtype,
+                        endpoint=True)
+
+
+def _opencv_cases():
+    for dtype in SAMPLE_TYPES:
+        for comp, pred in CODECS:
+            if pred != 3 or dtype.startswith('float'):
+                yield dtype, comp, pred
+
+
+@pytest.mark.parametrize("spp", [1, 3])
+@pytest.mark.parametrize("dtype,comp,pred", list(_opencv_cases()))
+def test_opencv_encoded_sample_types(tmp_path, dtype, comp, pred, spp):
+    """Every sample type and codec OpenCV writes: ``read_image`` equals
+    ``cv2.imdecode`` of the same bytes (and the JAX package's reader), and
+    the plain decoders equal the C ones."""
+    img = _typed_image(comp + pred + spp, dtype, spp)
+    ok, buf = cv2.imencode('.tiff', img, [
+        int(cv2.IMWRITE_TIFF_COMPRESSION), comp,
+        int(cv2.IMWRITE_TIFF_PREDICTOR), pred,
+        int(cv2.IMWRITE_TIFF_ROWSPERSTRIP), 4])
+    assert ok
+    want = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)    # BGR, as written
+    np.testing.assert_array_equal(want, img)
+    got = _assert_same(_write(tmp_path, buf.tobytes()))  # RGB
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want[:, :, ::-1] if spp == 3
+                                  else want)
+    assert decode_tiff(buf, plain=True).tobytes() == \
+        decode_tiff(buf).tobytes()
+
+
+@pytest.mark.parametrize("dtype", SAMPLE_TYPES)
+def test_opencv_default_writer_on_sample_types(tmp_path, dtype):
+    img = _typed_image(9, dtype, 1)
+    path = str(tmp_path / "t.tiff")
+    assert cv2.imwrite(path, img)
+    np.testing.assert_array_equal(_assert_same(path), img)
+
+
+def _layout_cases():
+    for dtype in SAMPLE_TYPES:
+        for comp in (1, 5, 8, 32773):
+            for pred in (1, 2, 3):
+                if (pred == 1 or comp in (5, 8)) and (
+                        pred != 3 or dtype.startswith('float')):
+                    yield dtype, comp, pred
+
+
+@pytest.mark.parametrize("byteorder", ['<', '>'], ids=['II', 'MM'])
+@pytest.mark.parametrize("layout", ['strips', 'tiles'])
+@pytest.mark.parametrize("dtype,comp,pred", list(_layout_cases()))
+def test_sample_types_in_every_layout(tmp_path, dtype, comp, pred, byteorder,
+                                      layout):
+    """Files OpenCV cannot write (big-endian, tiled) of every sample type,
+    codec and predictor: the source's samples, as the JAX package reads
+    them; the plain decoders equal the C ones."""
+    img = _typed_image(comp * pred, dtype, 3, h=40, w=48)
+    kw = dict(tile=(16, 16)) if layout == 'tiles' else dict(rows_per_strip=3)
+    data = tiff_bytes(img, comp, pred, byteorder=byteorder, **kw)
+    np.testing.assert_array_equal(_assert_same(_write(tmp_path, data)), img)
+    assert decode_tiff(data, plain=True).tobytes() == \
+        decode_tiff(data).tobytes()
+
+
+def test_fp_predictor_on_integer_samples_is_corrupt(tmp_path):
+    """libtiff refuses Predictor 3 on integer samples; the port raises
+    ``DecodeError`` (a ``ValueError``) naming the file."""
+    data = bytearray(tiff_bytes(_typed_image(1, 'uint16', 1), 8, 1))
+    ifd = int.from_bytes(data[4:8], 'little')
+    n = int.from_bytes(data[ifd:ifd + 2], 'little')
+    entry = bytes(data[ifd + 2 + 12 * (n - 1):ifd + 2 + 12 * n])
+    assert int.from_bytes(entry[:2], 'little') == 339
+    # a Predictor entry (317 = 3) in place of SampleFormat's, tags sorted
+    data[ifd + 2 + 12 * (n - 1):ifd + 2 + 12 * n] = (
+        (317).to_bytes(2, 'little') + entry[2:8] + (3).to_bytes(2, 'little')
+        + b'\0\0')
+    path = _write(tmp_path, bytes(data), "p3.tiff")
+    with pytest.raises(ValueError, match="p3.tiff"):
         read_image(path)
 
 
@@ -283,3 +394,27 @@ def test_jpeg_acquisition_stitches_as_jax(tmp_path, streaming):
     assert pipe.shifts.h_shift == jpipe.shifts.h_shift
     assert pipe.shifts.v_shift == jpipe.shifts.v_shift
     assert_outputs_equal(str(tmp_path / "jax"), str(tmp_path / "port"))
+
+
+# ------------------------------------------- the card's sample-type file
+
+def test_kept_sample_files_are_what_the_script_writes():
+    """``torch_tiff_samples.npz``, which ``chip_smoke.py`` decodes on the
+    card's host (no OpenCV there), holds what ``torch_tiff_samples.make``
+    writes with this host's OpenCV."""
+    made = torch_tiff_samples.make()
+    kept = torch_tiff_samples.load()
+    assert sorted(kept) == sorted(made)
+    for name in kept:
+        np.testing.assert_array_equal(kept[name], made[name], name)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in torch_tiff_samples.cases()])
+def test_kept_sample_files_decode_to_their_digests(name):
+    """Each kept file decodes, through the C decoders and their plain
+    versions, to the pixels whose SHA-256 it carries: OpenCV's."""
+    kept = torch_tiff_samples.load()
+    data, digest = kept[name], str(kept[name + ':sha256'])
+    got = decode_tiff(data)
+    assert torch_tiff_samples.pixel_digest(got) == digest
+    assert decode_tiff(data, plain=True).tobytes() == got.tobytes()

@@ -1,15 +1,16 @@
 """The C tile decoders (``csrc/tile_decode.c``) against their plain
 versions (``io/tile_decode.py``) and the data they were made from, on
-seeded inputs: TIFF LZW, PackBits, the horizontal predictor at 8, 16 and
-32 bits with 1-4 samples a pixel, and every PNG filter at 1-8 bytes a
-pixel. Exact equality throughout, corrupt inputs included (both raise,
-or both return the same bytes)."""
+seeded inputs: TIFF LZW, PackBits, the horizontal predictor at 8, 16, 32
+and 64 bits with 1-4 samples a pixel, the floating-point predictor at 32
+and 64 bits, and every PNG filter at 1-8 bytes a pixel. Exact equality
+throughout, corrupt inputs included (both raise, or both return the same
+bytes)."""
 
 import numpy as np
 import pytest
 
-from torch_tile_files import (apply_predictor, lzw_encode, packbits_encode,
-                              png_filter)
+from torch_tile_files import (apply_fp_predictor, apply_predictor,
+                              lzw_encode, packbits_encode, png_filter)
 from image_stitcher_tpu_torch.io import tile_decode as td
 
 
@@ -87,7 +88,8 @@ def test_packbits_matches_plain_and_source(kind):
                 == td.packbits_decode_plain(src, size).tobytes())
 
 
-@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32,
+                                   np.uint64])
 @pytest.mark.parametrize("spp", [1, 2, 3, 4])
 def test_predictor_matches_plain_and_source(dtype, spp):
     rng = np.random.default_rng(5 + spp)
@@ -97,6 +99,34 @@ def test_predictor_matches_plain_and_source(dtype, spp):
     got = td.undo_predictor(diff.copy(), spp)
     assert np.array_equal(got, src)
     assert np.array_equal(td.undo_predictor_plain(diff.copy(), spp), src)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("spp", [1, 2, 3, 4])
+def test_fp_predictor_matches_plain_and_source(dtype, spp):
+    """Predictor 3: C and plain give the source's native samples back;
+    on any bytes (not a predicted row) the two agree byte for byte."""
+    rng = np.random.default_rng(11 + spp)
+    src = (rng.standard_normal((17, 29 * spp)) * 1e3).astype(dtype)
+    src[3, :5] = [0.0, -0.0, np.inf, np.nan, 1e-40]
+    diff = apply_fp_predictor(src, spp)
+    size = np.dtype(dtype).itemsize
+    got = td.undo_fp_predictor(diff.copy(), spp, size)
+    assert got.view(dtype).tobytes() == src.tobytes()
+    plain = td.undo_fp_predictor_plain(diff.copy(), spp, size)
+    assert plain.tobytes() == got.tobytes()
+    noise = rng.integers(0, 256, (9, 24 * size), dtype=np.uint8)
+    assert (td.undo_fp_predictor(noise.copy(), spp, size).tobytes()
+            == td.undo_fp_predictor_plain(noise.copy(), spp, size).tobytes())
+
+
+def test_fp_predictor_refuses_what_it_cannot_take():
+    with pytest.raises(ValueError):       # 2-byte samples
+        td.undo_fp_predictor(np.zeros((4, 8), np.uint8), 1, 2)
+    with pytest.raises(ValueError):       # rows not whole samples
+        td.undo_fp_predictor(np.zeros((4, 10), np.uint8), 1, 4)
+    with pytest.raises(ValueError):       # not bytes
+        td.undo_fp_predictor(np.zeros((4, 8), np.float32), 1, 4)
 
 
 def test_predictor_refuses_what_it_cannot_take():

@@ -106,10 +106,28 @@ def packbits_encode(data: bytes) -> bytes:
 
 
 def apply_predictor(arr: np.ndarray, spp: int) -> np.ndarray:
-    """TIFF Predictor 2 on (rows, pixels * spp) unsigned samples: each
-    sample minus the same sample of the pixel before it, wrapping."""
-    out = arr.copy()
-    out[:, spp:] = arr[:, spp:] - arr[:, :-spp]
+    """TIFF Predictor 2 on (rows, pixels * spp) samples: each sample minus
+    the same sample of the pixel before it, wrapping (signed and float
+    samples as their unsigned bits, as libtiff takes them)."""
+    bits = arr.view(np.dtype(f'=u{arr.dtype.itemsize}'))
+    out = bits.copy()
+    out[:, spp:] = bits[:, spp:] - bits[:, :-spp]
+    return out.view(arr.dtype)
+
+
+def apply_fp_predictor(arr: np.ndarray, spp: int, byteorder: str = '<'
+                       ) -> np.ndarray:
+    """TIFF Predictor 3 (libtiff's fpDiff) on (rows, pixels * spp) float
+    samples: each row's samples as byte planes, the most significant
+    byte's first (whatever ``byteorder``), then each byte minus the byte
+    ``spp`` before it, wrapping; (rows, row bytes) uint8."""
+    rows, n = arr.shape
+    size = arr.dtype.itemsize
+    big = np.ascontiguousarray(arr.astype(arr.dtype.newbyteorder('>')))
+    planes = big.view(np.uint8).reshape(rows, n, size).transpose(0, 2, 1)
+    flat = np.ascontiguousarray(planes).reshape(rows, n * size)
+    out = flat.copy()
+    out[:, spp:] = flat[:, spp:] - flat[:, :-spp]
     return out
 
 
@@ -168,9 +186,11 @@ def tiff_bytes(img: np.ndarray, compression: int = 1, predictor: int = 1,
                rows_per_strip=None, tile=None, byteorder: str = '<',
                bigtiff: bool = False, planar: int = 1,
                extra_samples=None) -> bytes:
-    """A TIFF file of a (H, W) or (H, W, spp) uint8/uint16 image in the
-    given compression, predictor, strip or (tile_w, tile_h) tile layout,
-    byte order ('<' or '>'), classic or BigTIFF, PlanarConfiguration."""
+    """A TIFF file of a (H, W) or (H, W, spp) image of 8- to 64-bit
+    unsigned, signed or float samples (SampleFormat 1, 2 or 3) in the
+    given compression, predictor (2, or 3 for floats), strip or (tile_w,
+    tile_h) tile layout, byte order ('<' or '>'), classic or BigTIFF,
+    PlanarConfiguration."""
     bo = byteorder
     h, w = img.shape[:2]
     spp = 1 if img.ndim == 2 else img.shape[2]
@@ -199,6 +219,8 @@ def tiff_bytes(img: np.ndarray, compression: int = 1, predictor: int = 1,
             b = np.ascontiguousarray(b).reshape(b.shape[0], cols * sspp)
             if predictor == 2:
                 b = apply_predictor(b, sspp)
+            if predictor == 3:
+                b = apply_fp_predictor(b, sspp)
             b = b.astype(b.dtype.newbyteorder(bo))
             segs.append(_compress(compression, b, cols * sspp * itemsize))
     head = 16 if bigtiff else 8
@@ -210,7 +232,8 @@ def tiff_bytes(img: np.ndarray, compression: int = 1, predictor: int = 1,
     off_type = 16 if bigtiff else 4
     entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [itemsize * 8] * spp),
                (259, 3, [compression]), (262, 3, [1 if spp == 1 else 2]),
-               (277, 3, [spp]), (284, 3, [planar]), (339, 3, [1] * spp)]
+               (277, 3, [spp]), (284, 3, [planar]),
+               (339, 3, [{'u': 1, 'i': 2, 'f': 3}[img.dtype.kind]] * spp)]
     if predictor != 1:
         entries.append((317, 3, [predictor]))
     if extra_samples is not None:
