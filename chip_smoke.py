@@ -15,8 +15,8 @@ Phases, each fatal on failure:
      mod 8, u16 and u8, cameras whose rows are not 16-byte aligned, and
      one HCS well's whole (3, 2, Hp, Wp) in-RAM canvas with a 3-plane
      field (channel and z indices both used; the feather case finalizes
-     every plane); the band canvas in float32 and int16 with and without
-     the field, and a small canvas in int8, int32 and uint32
+     every plane); the band canvas in float32, int16 and float16 with and
+     without the field, and a small canvas in int8, int32 and uint32
      (no field, no feathering for uint32). Per case: the kernel's time
      on the card (CUDA events, calls queued behind a spinning kernel so
      the host's enqueue is hidden), one call with the host's enqueue,
@@ -66,11 +66,12 @@ Phases, each fatal on failure:
      their plain versions and their sources, BMP row layouts, and each
      routine's MB/s on 2048^2 u16 tiles on one thread and on the 8-thread
      reader pool; (b) the main path's grid and options (as phase 5) on the
-     bench's compressible content, stored as uncompressed TIFF and as
-     16-bit PNG with the row filters cycling, and a 4x4 grid of it as
-     uncompressed TIFF and as deflate + predictor TIFF in 2-row strips:
-     the PNG and deflate trees decode equal to the uncompressed one of
-     their grid, with e2e, tiles/s, the loader's and the writer's
+     bench's compressible content, stored as uncompressed TIFF, a 6x6
+     grid of it as uncompressed TIFF and as 16-bit PNG with the row
+     filters cycling (cut from 10x10 for the script's time), and
+     a 4x4 grid as uncompressed TIFF and as deflate + predictor TIFF in
+     2-row strips: the PNG and deflate trees decode equal to the
+     uncompressed one of their grid, with e2e, tiles/s, the loader's and the writer's
      seconds, decode seconds a tile and decodes a file; (c) 3x3 grids: a
      u8 mono BMP acquisition (gray palette, bottom-up rows) equal to its
      uncompressed-TIFF twin, and a u8 RGB PNG acquisition on the in-RAM
@@ -198,10 +199,19 @@ Phases, each fatal on failure:
      feathered quality path in float32 at 4x4, each card tree equal to
      a CPU run's; (d) OpenCV's LZW/deflate, Predictor 2/3 tiles of every
      sample type (``tests/torch_tiff_samples.npz``) decoded by the C
-     decoders to OpenCV's pixels, the plain versions to the same bytes.
+     decoders to OpenCV's pixels, the plain versions to the same bytes,
+     and float16 tiles of every layout the JAX package reads to the
+     pixels imageio gave on the CPU test host; (e) float16, which the JAX
+     package stitches to ``.ome.tiff`` only: a 4x4 x 1-channel cut of
+     phase 5's grid as float16 deflate + Predictor 3 tiles, stitched to
+     ``.ome.tiff`` in bands with the field, in RAM feathered and through
+     the host band fuser, card files equal to CPU files (byte for byte;
+     decoded pages on the host band path), the kernels' launches counted.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
+The line before the last is a JSON object with one entry per kernel, and
+one per kernel's float16 instantiation (``name[float16]``: phase 3's
+float16 band case with the field, launches from phase 17e); the last
+line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the package beside this file, the script exits non-zero and
 prints no result. The acquisitions are written to a temporary directory
 and removed at the end.
@@ -414,7 +424,9 @@ def bound_ms(nbytes: float, ops: float):
 
 def phase_kernels(reps: int = 20):
     """Every kernel on the card vs its plain version, at every case of
-    :func:`kernel_cases`; returns {kernel: numbers at the headline case}."""
+    :func:`kernel_cases`; returns {kernel: numbers at the headline case}
+    and {kernel + '[float16]': numbers at the float16 band case with the
+    field}."""
     rng = np.random.default_rng(1234)
     over = [overwrite_case(rng, case, reps) for case in kernel_cases()]
     rng = np.random.default_rng(4321)
@@ -430,6 +442,14 @@ def phase_kernels(reps: int = 20):
     out['fuse_feather']['max_abs_err'] = max(c['max_abs_err'] for c in feath)
     out['finalize_feather']['max_abs_err'] = max(
         c['finalize']['max_abs_err'] for c in feath if c.get('finalize'))
+    half = [[c for c in cases if c['dtype'] == torch.float16 and c['with_ff']]
+            for cases in (over, feath)]
+    if not all(len(c) == 1 for c in half):
+        raise SystemExit("kernels: no float16 band case with the field")
+    out['fuse_overwrite[float16]'] = dict(half[0][0])
+    out['fuse_feather[float16]'] = dict(half[1][0])
+    out['finalize_feather[float16]'] = dict(half[1][0]['finalize'])
+    del out['fuse_feather[float16]']['finalize']
     return out
 
 
@@ -440,7 +460,8 @@ def kernel_cases():
     and u8, with and without the field; cameras into a 3-channel canvas
     (ff picked per channel): 1920x1200, and rows of 1100 and 1201 pixels,
     which are not 16-byte aligned; the band canvas in float32 and int16,
-    with and without the field (phase 17's sample types); and a small
+    with and without the field (phase 17's sample types), and in
+    float16 with and without the field (phase 17e); and a small
     2-channel canvas for each other sample type the kernels take (int8
     and int32 with and without the field, uint32 without: the JAX
     package gives it no field or feathering; float64 tiles reach the
@@ -461,7 +482,7 @@ def kernel_cases():
                1201),
               ('well', torch.uint16, True, WELL_CANVAS, 10, TILE, TILE)]
     cases += [('band', dtype, with_ff, BAND_CANVAS, 10, TILE, TILE)
-              for dtype in (torch.float32, torch.int16)
+              for dtype in (torch.float32, torch.int16, torch.float16)
               for with_ff in (True, False)]
     cases += [('small', dtype, with_ff, (2, 1, 2400, 4200), 8, 1000, 1000)
               for dtype in (torch.int8, torch.int32, torch.uint32)
@@ -474,7 +495,8 @@ def sample_tiles(tiles: np.ndarray, dtype) -> np.ndarray:
     """The uint16 ``tiles`` of :func:`kernel_batch` as ``dtype``: uint8 the
     high byte, int8 and int16 shifted to signed, 32-bit integers spread
     over their range (so the field's product clips at both bounds), float32
-    with fractions."""
+    with fractions, float16 the values / 16 (0 to 4096, rounded to
+    float16's spacing)."""
     name = str(dtype).split('.')[-1]
     wide = tiles.astype(np.int64)
     if name == 'uint8':
@@ -489,6 +511,8 @@ def sample_tiles(tiles: np.ndarray, dtype) -> np.ndarray:
         return (wide * 65537).astype(np.uint32)
     if name == 'float32':
         return tiles.astype(np.float32) / np.float32(65.536)
+    if name == 'float16':
+        return (tiles.astype(np.float32) / np.float32(16)).astype(np.float16)
     return tiles
 
 
@@ -529,8 +553,16 @@ def case_inputs(rng, case):
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| over two tensors of one dtype, compared in float64
-    (exact for every sample type; 0 only where they are equal)."""
-    return float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
+    (exact for every sample type; 0 only where they are equal). float16
+    pairs are compared bit for bit: equal bits count 0 (infinities
+    included), other bits their difference (inf where it is not a
+    number, or a zero's sign differs)."""
+    diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    if got.dtype == torch.float16:
+        same = got.view(torch.int16) == want.view(torch.int16)
+        diff = torch.where(same, 0.0,
+                           torch.where(diff > 0, diff, float('inf')))
+    return float(diff.max())
 
 
 def timings(kernel, plain_fn, nbytes, ops, reps):
@@ -549,9 +581,13 @@ def overwrite_case(rng, case, reps: int):
     _, dtype, with_ff, cshape, *_ = case
     d_tiles, meta, ff, written, _, ff_bytes, label = case_inputs(rng, case)
     gen = torch.Generator(device='cuda').manual_seed(7)
-    base = torch.randint(0, 256 if dtype == torch.uint8 else 65536, cshape,
-                         generator=gen, device='cuda',
-                         dtype=torch.int32).to(dtype)
+    if dtype == torch.float16:   # the tiles' range, all finite
+        base = (torch.rand(cshape, generator=gen, device='cuda')
+                * 4096).to(dtype)
+    else:
+        base = torch.randint(0, 256 if dtype == torch.uint8 else 65536,
+                             cshape, generator=gen, device='cuda',
+                             dtype=torch.int32).to(dtype)
     got = base.clone()
     want = base.clone()
     cuda_fuse.fuse_overwrite(got, d_tiles, *meta, ff)
@@ -567,7 +603,7 @@ def overwrite_case(rng, case, reps: int):
                   lambda: plain.fuse_overwrite(want, d_tiles, *meta, ff),
                   2 * item * written + ff_bytes, written if with_ff else 0,
                   reps)
-    out['max_abs_err'] = err
+    out.update(max_abs_err=err, dtype=dtype, with_ff=with_ff)
     log(f"kernel fuse_overwrite {label}: byte-equal, {written} px written; "
         f"kernel {out['ms']:.4f} ms (one call with the host's enqueue "
         f"{out['call_ms']:.4f}), plain {out['plain_ms']:.4f} ms, bound "
@@ -610,7 +646,7 @@ def feather_case(rng, case, reps: int):
                                    blend_px=BLEND),
         16 * weighted + item * area + ff_bytes,
         area * (4 if with_ff else 3), reps)
-    out['max_abs_err'] = err
+    out.update(max_abs_err=err, dtype=dtype, with_ff=with_ff)
     log(f"kernel fuse_feather {label}: acc/wsum bit-equal, {weighted} px "
         f"weighted; kernel {out['ms']:.4f} ms (one call with the host's "
         f"enqueue {out['call_ms']:.4f}), plain {out['plain_ms']:.4f} ms, "
@@ -2008,9 +2044,10 @@ def stitch_input(acq: str, out: str, dev, card: str, label: str) -> dict:
 def phase_tile_input(work: str, card: str, grid: int = 10,
                      tile: int = TILE, device: str = 'cuda') -> dict:
     """9: tile input without OpenCV. 9a the C decoders; 9b the main path's
-    grid stored as 16-bit PNG (filters cycling), and a 4x4 grid as deflate
-    + predictor TIFF in 2-row strips, each stitched on the card to the
-    tree of an uncompressed-TIFF twin of its grid; 9c 3x3 grids: u8 mono
+    grid stored as uncompressed TIFF, a 6x6 grid as 16-bit PNG (filters
+    cycling) and a 4x4 grid as deflate + predictor TIFF in 2-row strips,
+    each stitched on the card, the PNG and deflate trees to the tree of
+    an uncompressed-TIFF twin of their grid; 9c 3x3 grids: u8 mono
     BMP against its
     uncompressed-TIFF twin, u8 RGB PNG on the card against the CPU."""
     dev = torch.device(device)
@@ -2029,13 +2066,16 @@ def phase_tile_input(work: str, card: str, grid: int = 10,
         return cache[side]
 
     # the deflate run is cut to a 4x4 grid (the smallest that streams in
-    # bands), held to an uncompressed twin of its own: its cost is the
-    # strip decodes, which a 4x4 grid still measures per tile
-    small = 4
+    # bands), the PNG run to 6x6 (its tiles take 0.36 s each to write in
+    # Python), each held to an uncompressed twin of its own: their cost
+    # is the decodes, which a cut grid still measures per tile; cut for
+    # the script's time
+    small, mid = 4, 6
     formats = (
         ('tiff', None, 'tiff', grid),
+        (f'tiff-{mid}x{mid}', None, 'tiff', mid),
         ('png', lambda b: tf.png_bytes(b, 0, 16, filters=range(5), level=1),
-         'png', grid),
+         'png', mid),
         (f'tiff-{small}x{small}', None, 'tiff', small),
         ('deflate', lambda b: tf.tiff_bytes(b, 8, 2, rows_per_strip=2),
          'tiff', small))
@@ -4182,11 +4222,12 @@ def card_and_cpu(acq: str, work: str, label: str, quality: bool = False,
     return launches
 
 
-def kept_tiff_check() -> int:
-    """17d: the OpenCV-written tiles of every sample type kept in
-    ``tests/torch_tiff_samples.npz`` decoded by the C decoders to
-    OpenCV's pixels (their SHA-256), and by the plain versions to the
-    same bytes."""
+def kept_tiff_check():
+    """17d: the tiles of every sample type kept in
+    ``tests/torch_tiff_samples.npz`` (OpenCV's, and float16 files of every
+    layout the JAX package reads, whose pixels imageio gave) decoded by
+    the C decoders to those pixels (their SHA-256), and by the plain
+    versions to the same bytes. Returns (files, float16 files)."""
     from image_stitcher_tpu_torch.io.tiff import decode_tiff
     tile_files()      # puts tests/ on the path
     import torch_tiff_samples
@@ -4196,11 +4237,156 @@ def kept_tiff_check() -> int:
         got = decode_tiff(kept[name])
         if torch_tiff_samples.pixel_digest(got) != str(kept[name + ':sha256']):
             raise SystemExit(f"sample types (17d): {name} does not decode to "
-                             f"OpenCV's pixels")
+                             f"its kept pixels")
         if decode_tiff(kept[name], plain=True).tobytes() != got.tobytes():
             raise SystemExit(f"sample types (17d): {name}: the plain "
                              f"decoders differ from the C ones")
-    return len(names)
+    return len(names), sum(name.startswith('float16') for name in names)
+
+
+def cut_acquisition(src: str, dst: str, keep: int, channels,
+                    encode) -> int:
+    """The top-left ``keep`` x ``keep`` FOVs of the square grid at ``src``
+    (one region and timepoint, as phase 5 writes it) in ``channels``,
+    renumbered row by row, each tile rewritten as the file bytes
+    ``encode(pixels)`` on a thread pool; coordinates.csv cut to them, the
+    parameters with Nx = Ny = ``keep``. Returns the tiles written."""
+    import csv
+    from image_stitcher_tpu_torch.io.acquisition import read_image
+    with open(os.path.join(src, 'acquisition parameters.json')) as f:
+        params = json.load(f)
+    grid = int(params['Nx'])
+    os.makedirs(os.path.join(dst, '0'))
+    with open(os.path.join(dst, 'acquisition parameters.json'), 'w') as f:
+        json.dump(dict(params, Nx=keep, Ny=keep), f, indent=2)
+    renumber = {r * grid + c: r * keep + c
+                for r in range(keep) for c in range(keep)}
+    with open(os.path.join(src, '0', 'coordinates.csv'), newline='') as f:
+        rows = list(csv.DictReader(f))
+    with open(os.path.join(dst, '0', 'coordinates.csv'), 'w',
+              newline='') as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(dict(row, fov=renumber[int(row['fov'])]) for row in rows
+                    if int(row['fov']) in renumber)
+    suffixes = tuple(f"_{ch.replace(' ', '_')}.tiff" for ch in channels)
+    jobs = []
+    for name in sorted(os.listdir(os.path.join(src, '0'))):
+        if not name.endswith(suffixes):
+            continue
+        region, fov, rest = name.split('_', 2)
+        if int(fov) in renumber:
+            jobs.append((os.path.join(src, '0', name),
+                         os.path.join(dst, '0', f"{region}_"
+                                      f"{renumber[int(fov)]}_{rest}")))
+
+    def rewrite(job):
+        data = encode(read_image(job[0]))
+        with open(job[1], 'wb') as f:
+            f.write(data)
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(rewrite, jobs))
+    return len(jobs)
+
+
+#: 17e: (label, engine options, the kernels the card run must launch,
+#: whether the files are compared by decoded pages)
+FLOAT16_CASES = (
+    ('bands with the field', dict(streaming='on'), ('fuse_overwrite',),
+     False),
+    ('in RAM, feathered', dict(streaming='off', blend_method='feather'),
+     ('fuse_feather', 'finalize_feather'), False),
+    # the host band fuser lays its tiles' data out in the order its band
+    # threads finish (as the JAX package's does): pages compared decoded
+    ('host-fused bands', dict(streaming='on', fusion_device='host'), (),
+     True))
+
+
+def float16_paths(work: str, card: str, main_run: dict, keep: int = 4,
+                  channels=CHANNELS[:1]) -> dict:
+    """17e: float16 tiles, which the JAX package stitches to ``.ome.tiff``
+    only. A ``keep`` x ``keep`` cut of phase 5's acquisition in
+    ``channels`` (cut for the script's time), its values / 16 rewritten
+    as float16 deflate + Predictor 3 TIFFs in 256-row strips, stitched to
+    deflate ``.ome.tiff`` with registration and the field through each
+    path of :data:`FLOAT16_CASES` on the card and on the CPU (the card
+    run's fields and shifts carried): the files byte-equal, or on the
+    host band path every page, description and SubIFD level equal bit
+    for bit; page 0 float16 and finite. Returns the card runs' launches
+    of each kernel, counted from 0 just before the run that uses it."""
+    from image_stitcher_tpu_torch import CarriedState, stitch
+    from image_stitcher_tpu_torch.io.tiff import read_pages
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    tf = tile_files()
+    kernels = {fn.__name__: fn for fn in (cuda_fuse.fuse_overwrite,
+                                          cuda_fuse.fuse_feather,
+                                          cuda_fuse.finalize_feather)}
+    acq = os.path.join(work, f'f16_{keep}x{keep}')
+    t0 = time.perf_counter()
+    n_files = cut_acquisition(
+        main_run['acq'], acq, keep, channels,
+        lambda img: tf.tiff_bytes((img.astype(np.float32) / np.float32(16))
+                                  .astype(np.float16), 8, 3,
+                                  rows_per_strip=256))
+    log(f"sample types (17e): cut phase 5's grid to {keep}x{keep} x "
+        f"{len(channels)} channel(s), {n_files} tiles rewritten as float16 "
+        f"deflate + Predictor 3 in {time.perf_counter() - t0:.1f}s")
+    launches = {}
+    for label, extra, used, decoded in FLOAT16_CASES:
+        outs, state, secs = {}, None, {}
+        for run in ('cuda', 'cpu'):
+            for fn in kernels.values():
+                fn.launches = 0
+            out = outs[run] = os.path.join(work, f'f16_{run}')
+            t0 = time.perf_counter()
+            pipe = stitch(acq, output_format='.ome.tiff',
+                          use_registration=True, apply_flatfield=True,
+                          device=torch.device(run), state=state,
+                          options=smoke_options(out, **extra))
+            secs[run] = time.perf_counter() - t0
+            if run == 'cuda':
+                counts = {name: fn.launches for name, fn in kernels.items()}
+                if (any(counts[name] == 0 for name in used)
+                        or (not used and any(counts.values()))):
+                    raise SystemExit(f"sample types (17e, {label}): the card "
+                                     f"run launched {counts}")
+                launches.update((name, counts[name]) for name in used)
+                state = CarriedState(flatfields=pipe.flatfields,
+                                     shifts=pipe.shifts)
+        files = []
+        for run in ('cuda', 'cpu'):
+            with open(tiff_file(outs[run]), 'rb') as f:
+                files.append(f.read())
+        pages = [read_pages(data) for data in files]
+        first = pages[0][0][1][0]
+        if (first.dtype != np.float16 or not first.any()
+                or not np.isfinite(first).all()):
+            raise SystemExit(f"sample types (17e, {label}): page 0 is "
+                             f"{first.dtype}, finite "
+                             f"{bool(np.isfinite(first).all())}")
+        if decoded:
+            same = len(pages[0]) == len(pages[1]) and all(
+                da == db and len(la) == len(lb) and all(
+                    a.shape == b.shape and np.array_equal(
+                        a.view(np.uint16), b.view(np.uint16))
+                    for a, b in zip(la, lb))
+                for (da, la), (db, lb) in zip(*pages))
+        else:
+            same = files[0] == files[1]
+        if not same:
+            raise SystemExit(f"sample types (17e, {label}): the card's file "
+                             f"differs from the CPU's")
+        log(f"sample types (17e, float16 .ome.tiff, {label}): card "
+            f"{secs['cuda']:.3f}s, CPU {secs['cpu']:.3f}s, files "
+            f"{'decoded' if decoded else 'byte'}-equal ({len(files[0])} "
+            f"bytes, {len(pages[0])} pages, level 0 {first.shape} "
+            f"{first.dtype}); launches "
+            f"{ {name: launches[name] for name in used} }")
+        for out in outs.values():
+            shutil.rmtree(out)
+    shutil.rmtree(acq)
+    return launches
 
 
 def phase_sample_types(work: str, card: str, main_run: dict,
@@ -4215,7 +4401,9 @@ def phase_sample_types(work: str, card: str, main_run: dict,
     tiles (``small`` x ``small``, one channel, values below and above 0)
     in RAM and in bands, and (c) the feathered maximum-quality path in
     float32 (``small`` x ``small``, one channel, +-3 px jitter), each
-    card tree equal to a CPU run's. (d) :func:`kept_tiff_check`."""
+    card tree equal to a CPU run's. (d) :func:`kept_tiff_check`. (e)
+    :func:`float16_paths`, whose card runs' launches it returns under
+    'f16_launches'."""
     from image_stitcher_tpu_torch import stitch
     from image_stitcher_tpu_torch.io.zarr_store import open_array
     from image_stitcher_tpu_torch.ops import cuda_fuse
@@ -4309,12 +4497,17 @@ def phase_sample_types(work: str, card: str, main_run: dict,
     card_and_cpu(acq, work, '17c float32 quality', quality=True)
     shutil.rmtree(acq)
 
-    # 17d: OpenCV's tiles of every sample type
+    # 17d: OpenCV's tiles of every sample type, imageio's float16 ones
     t0 = time.perf_counter()
-    n = kept_tiff_check()
-    log(f"sample types (17d): {n} OpenCV-written LZW/deflate, Predictor "
-        f"2/3 TIFFs of every sample type decode to OpenCV's pixels (C) and "
-        f"the same bytes (plain) in {time.perf_counter() - t0:.1f}s")
+    n, n_half = kept_tiff_check()
+    log(f"sample types (17d): {n - n_half} OpenCV-written LZW/deflate, "
+        f"Predictor 2/3 TIFFs of every sample type decode to OpenCV's "
+        f"pixels (C) and the same bytes (plain), and {n_half} float16 "
+        f"TIFFs of every layout the JAX package reads to imageio's, in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # 17e: float16 to .ome.tiff on three paths
+    res['f16_launches'] = float16_paths(work, card, main_run)
     res['seconds'] = time.perf_counter() - t_phase
     log(f"sample types: phase 17 in {res['seconds']:.1f}s")
     return res
@@ -4353,7 +4546,7 @@ def main() -> int:
         phase_chunks(work, card, main_run)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        phase_sample_types(work, card, main_run)
+        sample_types = phase_sample_types(work, card, main_run)
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
@@ -4365,8 +4558,12 @@ def main() -> int:
     launches = {'fuse_overwrite': main_run['launches'],
                 'fuse_feather': quality_run['launches'],
                 'finalize_feather': quality_run['finalize_launches']}
+    # the float16 instantiations: launches on 17e's float16 paths
+    launches.update((f'{name}[float16]', n)
+                    for name, n in sample_types['f16_launches'].items())
     entries = []
-    for name, (_, source, replaces) in KERNELS.items():
+    for name in kern:
+        _, source, replaces = KERNELS[name.split('[')[0]]
         k = kern[name]
         entries.append({
             "name": name, "route": "cuda", "source": source,

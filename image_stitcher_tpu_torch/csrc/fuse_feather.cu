@@ -12,16 +12,19 @@
 // th - bottom - r, s - left + 1, tw - right - s), and v the tile as f32,
 // or with ff_recip tile * ff_recip[c] stored as the tile's type
 // (sample_types.h: trunc(clip(.)) for an integer type) and then as f32
-// (quantized to the storage dtype BEFORE it is weighted).
+// (quantized to the storage dtype BEFORE it is weighted; float16 rounded
+// to nearest even).
 // The second kernel is ops/fuse.py::finalize_feather on a window of the
 // canvases: acc / max(wsum, 1e-6), 0 where wsum <= 0, rounded half to
 // even, clipped to the dtype range and cast for an integer type, cast for
-// a float one, written as a dense array of the tile's type.
+// a float one (float16: rounded to nearest even, unclipped), written as
+// a dense array of the tile's type.
 //
 // Sample types: the tiles of every dtype of ops/fuse.py::FUSE_DTYPES but
 // uint32 (which the JAX package refuses to feather or correct:
 // OverflowError on its clip bounds) are weighted as f32; each dtype has
-// its instantiation, so each loads its own width.
+// its instantiation, so each loads its own width (float16 tiles take the
+// 2-byte loads of uint16 and widen each element with __half2float).
 //
 // What bounds them: memory. Each canvas pixel that the batch weights has
 // its acc and wsum read and written once (16 B); each tile pixel inside
@@ -482,6 +485,7 @@ int fuse_feather_launch(int device, int dtype, float* acc, float* wsum,
     case kU16: err = launch_fuse<uint16_t>(ARGS); break;
     case kI16: err = launch_fuse<int16_t>(ARGS); break;
     case kI32: err = launch_fuse<int32_t>(ARGS); break;
+    case kF16: err = launch_fuse<__half>(ARGS); break;
     default: err = launch_fuse<float>(ARGS); break;
   }
 #undef ARGS
@@ -514,6 +518,7 @@ int finalize_feather_launch(int device, int dtype, const float* acc,
     case kU16: err = launch_finalize<uint16_t>(ARGS); break;
     case kI16: err = launch_finalize<int16_t>(ARGS); break;
     case kI32: err = launch_finalize<int32_t>(ARGS); break;
+    case kF16: err = launch_finalize<__half>(ARGS); break;
     default: err = launch_finalize<float>(ARGS); break;
   }
 #undef ARGS

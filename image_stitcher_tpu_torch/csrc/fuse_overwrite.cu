@@ -13,7 +13,7 @@
 //
 // Sample types: without the field the copy depends only on the itemsize,
 // so one instantiation each for 1, 2 and 4 bytes serves every dtype
-// (uint8/int8, uint16/int16, int32/uint32/float32). With the
+// (uint8/int8, uint16/int16/float16, int32/uint32/float32). With the
 // field there is one per dtype but uint32, which the JAX package refuses
 // (OverflowError on its clip bounds).
 //
@@ -316,6 +316,7 @@ cudaError_t dispatch(int dtype, void* canvas, long long plane_elems,
     case kI16: return launch<int16_t, true>(ARGS);
     case kI32: return launch<int32_t, true>(ARGS);
     case kF32: return launch<float, true>(ARGS);
+    case kF16: return launch<__half, true>(ARGS);
     default: return cudaErrorInvalidValue;  // uint32 takes no field
   }
 #undef ARGS

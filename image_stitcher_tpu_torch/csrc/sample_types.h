@@ -9,7 +9,10 @@
 //   2147483648.0f as a float, and __float2int_rz gives 2147483647 there,
 //   as XLA's convert does. No fast-math: every conversion is exact or
 //   rounded to nearest, and the truncations are the _rz intrinsics.
-// - float32 takes its values as they are. No kernel takes float64: the
+// - float32 takes its values as they are. float16 is widened exactly
+//   (__half2float) and a float value is stored as float16 rounded to
+//   nearest even (__float2half_rn), unclipped: past 65504 it is +-inf and
+//   NaN stays NaN, as XLA's convert gives them. No kernel takes float64: the
 //   device paths hold float64 tiles as float32, as the JAX package's
 //   device arrays are float32 with 64-bit types off
 //   (io/readers.py::device_dtype).
@@ -19,19 +22,21 @@
 #ifndef IMAGE_STITCHER_SAMPLE_TYPES_H_
 #define IMAGE_STITCHER_SAMPLE_TYPES_H_
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 enum DType {
-  kU8 = 0, kI8 = 1, kU16 = 2, kI16 = 3, kI32 = 4, kU32 = 5, kF32 = 6
+  kU8 = 0, kI8 = 1, kU16 = 2, kI16 = 3, kI32 = 4, kU32 = 5, kF32 = 6,
+  kF16 = 7
 };
 
-inline bool dtype_valid(int code) { return code >= kU8 && code <= kF32; }
+inline bool dtype_valid(int code) { return code >= kU8 && code <= kF16; }
 
 inline int dtype_size(int code) {
   switch (code) {
     case kU8: case kI8: return 1;
-    case kU16: case kI16: return 2;
+    case kU16: case kI16: case kF16: return 2;
     default: return 4;
   }
 }
@@ -66,6 +71,10 @@ template <> struct Sample<float> {
   static constexpr bool kInt = false;
   static constexpr float kLo = 0.0f, kHi = 0.0f;
 };
+template <> struct Sample<__half> {
+  static constexpr bool kInt = false;
+  static constexpr float kLo = 0.0f, kHi = 0.0f;
+};
 
 // A sample as float: rounded to nearest (exact for 8- and 16-bit types).
 template <typename T>
@@ -88,6 +97,17 @@ __device__ __forceinline__ T from_float(float g) {
   } else {
     return static_cast<T>(g);
   }
+}
+
+// float16: widened exactly; stored rounded to nearest even, unclipped
+template <>
+__device__ __forceinline__ float to_float<__half>(__half v) {
+  return __half2float(v);
+}
+
+template <>
+__device__ __forceinline__ __half from_float<__half>(float g) {
+  return __float2half_rn(g);
 }
 
 #endif  // IMAGE_STITCHER_SAMPLE_TYPES_H_

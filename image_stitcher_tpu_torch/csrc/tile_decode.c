@@ -200,13 +200,13 @@ int tiff_predictor_undo(void *data, int64_t rows, int64_t row_samples,
 
 /* Undo the TIFF floating-point predictor (libtiff's fpAcc) in place over
  * rows of row_bytes bytes, each row_bytes / sample_bytes samples of
- * sample_bytes each (4 or 8), spp samples a pixel. Returns 0, ERR_ARGS or
+ * sample_bytes each (2, 4 or 8), spp samples a pixel. Returns 0, ERR_ARGS or
  * ERR_NOMEM. */
 int tiff_fp_predictor_undo(uint8_t *data, int64_t rows, int64_t row_bytes,
                            int spp, int sample_bytes)
 {
     if (rows < 0 || row_bytes < 0 || spp < 1
-            || (sample_bytes != 4 && sample_bytes != 8)
+            || (sample_bytes != 2 && sample_bytes != 4 && sample_bytes != 8)
             || row_bytes % sample_bytes != 0
             || (rows > 0 && row_bytes > 0 && !data))
         return ERR_ARGS;

@@ -53,8 +53,8 @@ def subpixel_shift(img: np.ndarray, fy: float, fx: float) -> np.ndarray:
       half to even and saturated;
     - int16 and float64 take its remap with fixed-point coordinates
       (:func:`_remap_bilinear`);
-    - int8, int32 and uint32 have no route there: OpenCV raises, and so
-      does this."""
+    - int8, int32, uint32 and float16 have no route there: OpenCV
+      raises, and so does this."""
     if img.dtype in (np.int16, np.float64):
         return _remap_bilinear(img, fy, fx)
     if img.dtype not in (np.uint8, np.uint16, np.float32):
@@ -246,8 +246,8 @@ class TileBatchLoader:
 
 
 _TORCH_DTYPES = {np.dtype(n): getattr(torch, n) for n in (
-    'uint8', 'int8', 'uint16', 'int16', 'int32', 'uint32', 'float32',
-    'float64')}
+    'uint8', 'int8', 'uint16', 'int16', 'int32', 'uint32', 'float16',
+    'float32', 'float64')}
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -264,8 +264,8 @@ def torch_dtype(dtype) -> torch.dtype:
 def device_np_dtype(dtype) -> np.dtype:
     """The dtype a tile's values have on the device paths (the band and
     in-RAM fusers, the mesh, the merges' folds), as a NumPy dtype: the
-    tile's, but float32 for float64 tiles, as the JAX package's device
-    arrays are float32 with 64-bit types off."""
+    tile's (float16 stays float16), but float32 for float64 tiles, as
+    the JAX package's device arrays are float32 with 64-bit types off."""
     dtype = np.dtype(dtype)
     return np.dtype(np.float32) if dtype == np.float64 else dtype
 

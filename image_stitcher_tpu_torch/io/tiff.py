@@ -13,11 +13,17 @@ strip) or tiles (edge tiles cropped), with:
   libtiff's fpAcc, whose output is in native order already); libtiff
   applies them to LZW and deflate only, and so does this reader;
 - 8-, 16-, 32- or 64-bit samples, unsigned, signed (SampleFormat 2) or
-  floating point (SampleFormat 3: 32 or 64 bits; Predictor 3 takes no
-  other); 1 sample (MinIsBlack) or 3 / 4 samples
+  floating point (SampleFormat 3: 16, 32 or 64 bits; Predictor 3 takes
+  no other); 1 sample (MinIsBlack) or 3 / 4 samples
   (RGB, RGB + alpha); PlanarConfiguration 1 (contiguous), or 2 (one plane
   per sample) for 8-bit samples (OpenCV 5.0 misreads 16-bit planes as
   if they were contiguous, so those raise).
+
+float16 files are what OpenCV does not read: the JAX package reads them
+through imageio's tifffile, which the port follows. It undoes Predictor 3
+after every codec in strips, and it gives no pixels for Predictor 2
+(it sums the differences as floats), for Predictor 3 in tiles, or for
+samples beyond 3 a pixel (it keeps the alpha): those raise.
 
 It returns (H, W) or (H, W, spp) in the file's sample order (R, G, B[,
 A]), in native byte order. An 8-bit RGBA image whose alpha is declared
@@ -251,9 +257,10 @@ def decode_tiff(data, plain: bool = False) -> np.ndarray:
     formats = sorted(set(tags.get(_SAMPLE_FORMAT, (1,))))
     kind = ({1: 'u', 2: 'i', 3: 'f'}.get(formats[0]) if len(formats) == 1
             else None)
-    if kind is None or (kind == 'f' and next(iter(bits)) < 32):
+    if kind is None or (kind == 'f' and next(iter(bits)) < 16):
         raise _not_ported(f"SampleFormat {formats} with {sorted(bits)}-bit "
                           "samples")
+    half = kind == 'f' and next(iter(bits)) == 16
     photo = tag(_PHOTO, 1 if spp == 1 else 2)
     if (photo, spp) not in ((1, 1), (2, 3), (2, 4)):
         raise _not_ported(f"photometric {photo} with {spp} samples a pixel")
@@ -269,6 +276,14 @@ def decode_tiff(data, plain: bool = False) -> np.ndarray:
     if predictor == 3 and kind != 'f':
         raise DecodeError("TIFF Predictor 3 (floating point) on integer "
                           "samples")
+    if half and (spp not in (1, 3) or predictor == 2
+                 or (predictor == 3 and _TILE_OFFSETS in tags)):
+        # the JAX package reads float16 through imageio's tifffile, which
+        # sums Predictor 2's differences as floats, has no Predictor 3 for
+        # tiles and keeps an alpha sample: none of them gives the pixels
+        raise _not_ported(f"float16 samples, {spp} a pixel, Predictor "
+                          f"{predictor}, in "
+                          f"{'tiles' if _TILE_OFFSETS in tags else 'strips'}")
     sspp = spp if planar == 1 else 1     # samples a pixel in a segment
     planes = 1 if planar == 1 else spp
 
@@ -302,7 +317,9 @@ def decode_tiff(data, plain: bool = False) -> np.ndarray:
         seg = _segment(mv, comp, off, count, size, plain)
         buf[pos:pos + size] = np.frombuffer(seg, np.uint8, count=size)
         pos += size
-    predicted = predictor if comp in _PREDICTED else 1
+    # imageio (float16) undoes the predictor after any codec, libtiff
+    # after LZW and deflate only
+    predicted = predictor if comp in _PREDICTED or half else 1
     if predicted == 3:
         (tile_decode.undo_fp_predictor_plain if plain
          else tile_decode.undo_fp_predictor)(buf.reshape(-1, row_bytes),

@@ -540,6 +540,10 @@ class StreamingTiffWriter:
     list in RAM (VERDICT r3 #4).
     """
 
+    #: close() refuses a page with rows missing: the band fusers hand
+    #: over every row (``models/streaming.py::writer_planes``)
+    needs_every_row = True
+
     def __init__(self, path: str, base_shape: Sequence[int],
                  num_levels: int, dtype, image_name: str,
                  dz_um: float, pixel_size_um: float,

@@ -194,10 +194,11 @@ def undo_predictor_plain(arr: np.ndarray, spp: int) -> np.ndarray:
 
 
 def _fp_predictor_args(arr: np.ndarray, spp: int, sample_bytes: int):
-    if arr.ndim != 2 or arr.dtype != np.uint8 or sample_bytes not in (4, 8) \
+    if arr.ndim != 2 or arr.dtype != np.uint8 \
+            or sample_bytes not in (2, 4, 8) \
             or arr.shape[1] % sample_bytes or spp < 1:
         raise ValueError(f"the floating-point predictor takes (rows, bytes) "
-                         f"uint8 rows of whole 4- or 8-byte samples and "
+                         f"uint8 rows of whole 2-, 4- or 8-byte samples and "
                          f"spp >= 1, got {arr.shape} {arr.dtype}, "
                          f"{sample_bytes}-byte samples, spp {spp}")
 

@@ -98,6 +98,18 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def check_output_dtype(dtype, output_format: str) -> None:
+    """Raise ``TypeError`` naming a tile dtype that ``output_format``
+    does not store. float16 tiles are written to OME-TIFF only: the JAX
+    package's OME-Zarr writer has no float16 type (``KeyError`` from its
+    ``zarr_dtype_str``, region and merge outputs alike); the port refuses
+    such a run before it loads a tile."""
+    if np.dtype(dtype) == np.float16 and not output_format.endswith('.tiff'):
+        raise TypeError(f"float16 tiles are stitched to .ome.tiff only, not "
+                        f"{output_format}: the JAX package's OME-Zarr "
+                        f"writer has no float16 type")
+
+
 class StitchPipeline:
     """Orchestrates a full stitching run for one acquisition."""
 
@@ -1160,12 +1172,14 @@ class StitchPipeline:
         The tree is the band path's: rows of a (c, z) plane that no tile
         reaches within one of the band path's bands
         (``DeviceStreamingFuser``'s band height) are not written, and
-        read as the fill value, as the band path leaves them."""
+        read as the fill value, as the band path leaves them (an
+        OME-TIFF file gets them as zeros,
+        ``models/streaming.py::writer_planes``)."""
         from ..parallel.mesh import make_mesh
         from ..parallel.sharded_fuse import ShardedCanvas
         from .streaming import (band_levels, band_rows_for,
                                 partition_jobs_by_band, write_band_levels,
-                                write_behind)
+                                write_behind, writer_planes)
         acq = self.acq
         opts = self.options
         width, height = self._region_dimensions(t, region)
@@ -1180,11 +1194,9 @@ class StitchPipeline:
         n_bands = opts.mesh_shape[1]
         align = band_rows_for(opts.write_band_rows(), levels)
         band = -(-(-(-height // n_bands)) // align) * align
-        # the band path's bands, and which (c, z, band start) it writes
+        # the band path's bands
         path_band = band_rows_for(
             opts.write_band_rows() * opts.device_band_multiple, levels)
-        written = set(partition_jobs_by_band(jobs, th, height,
-                                             path_band)[0])
         self._await_ff()
         canvas = ShardedCanvas(mesh, acq.num_c, acq.num_z, height, width,
                                th, tw, acq.dtype,
@@ -1215,6 +1227,9 @@ class StitchPipeline:
         writer = self._writer(t, region, output_path,
                               (1, acq.num_c, acq.num_z, height, width),
                               levels, device_np_dtype(acq.dtype))
+        # which (c, z, band start) the band path writes
+        written = set(partition_jobs_by_band(jobs, th, height, path_band,
+                                             writer_planes(writer))[0])
         live = [0]        # host bytes of the pieces not yet written
         lock = threading.Lock()
 
@@ -1576,6 +1591,7 @@ class StitchPipeline:
         try:
             with self.timers.time('scan'):
                 self.acq = scan_acquisition(self.input_folder)
+            check_output_dtype(self.acq.dtype, self.output_format)
             os.makedirs(self.output_folder, exist_ok=True)
             suffix = self._shard_suffix()
             manifest = ((RunManifest.load(self.output_folder, suffix=suffix)

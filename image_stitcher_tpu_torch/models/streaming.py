@@ -28,6 +28,7 @@ back.
 
 from __future__ import annotations
 
+import itertools
 import mmap
 import queue
 import threading
@@ -154,10 +155,13 @@ def band_canvas_shape(tile_h: int, tile_w: int, band: int,
 
 
 def partition_jobs_by_band(jobs: Sequence, tile_h: int, height: int,
-                           band: int):
+                           band: int,
+                           planes: Optional[Tuple[int, int]] = None):
     """Group jobs by (channel, z, band_start), preserving plan order
     within each band. A job appears in every band its cropped window
-    intersects; ``is_primary`` is True only for its first band.
+    intersects; ``is_primary`` is True only for its first band. With
+    ``planes`` (C, Z), every band of every (c, z) plane is a task, those
+    no tile reaches with no jobs (:func:`writer_planes`).
 
     Returns (tasks dict, n_jobs)."""
     tasks: Dict[Tuple[int, int, int], List] = {}
@@ -174,7 +178,24 @@ def partition_jobs_by_band(jobs: Sequence, tile_h: int, height: int,
             tasks.setdefault((job.channel_idx, job.z_level,
                               b * band), []).append((job, first))
             first = False
+    if planes is not None:
+        for key in itertools.product(range(planes[0]), range(planes[1]),
+                                     range(0, height, band)):
+            tasks.setdefault(key, [])
     return tasks, n_jobs
+
+
+def writer_planes(writer) -> Optional[Tuple[int, int]]:
+    """(C, Z) of a writer that must be handed every row of every plane,
+    else None. The OME-TIFF writer refuses to close a page with rows
+    missing, so the band fusers write the bands no tile reaches as
+    zeros for it (the JAX package's band paths raise there; its in-RAM
+    path and its mesh, which save whole canvases, write those zeros).
+    The zarr writers leave such rows unwritten, as the JAX package's
+    band paths do."""
+    if getattr(writer, 'needs_every_row', False):
+        return writer.num_c, writer.num_z
+    return None
 
 
 def band_order(keys, chunk_z: int = 1) -> List[Tuple[int, int, int]]:
@@ -627,7 +648,8 @@ class StreamingFuser:
         then close the writer; a failed or cancelled run stops the pool,
         aborts the writer and raises."""
         tasks, n_jobs = partition_jobs_by_band(jobs, self.tile_h,
-                                               self.height, self.band)
+                                               self.height, self.band,
+                                               writer_planes(self.writer))
         done = [0]
 
         def progress():
@@ -799,7 +821,8 @@ class DeviceStreamingFuser:
         Bands target disjoint rows, so write order across bands does not
         change the output."""
         tasks, n_jobs = partition_jobs_by_band(jobs, self.tile_h,
-                                               self.height, self.band)
+                                               self.height, self.band,
+                                               writer_planes(self.writer))
         done = [0]
 
         def progress():

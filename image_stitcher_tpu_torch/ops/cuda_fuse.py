@@ -90,7 +90,7 @@ def _kernel():
 #: the kernels' dtype codes (``DType`` in ``csrc/sample_types.h``)
 DTYPE_CODES = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2,
                torch.int16: 3, torch.int32: 4, torch.uint32: 5,
-               torch.float32: 6}
+               torch.float32: 6, torch.float16: 7}
 
 
 def _spans(n: int):
@@ -104,8 +104,9 @@ def fuse_overwrite(canvas: torch.Tensor, tiles: torch.Tensor,
                    ff_recip: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Place a batch of tiles into ``canvas`` in place; returns it.
 
-    canvas (C, Z, Hp, Wp) of ``ops/fuse.py::FUSE_DTYPES``, padded as
-    :func:`~image_stitcher_tpu_torch.ops.fuse.padded_canvas_shape`;
+    canvas (C, Z, Hp, Wp) of ``ops/fuse.py::FUSE_DTYPES`` (8- to
+    32-bit integers, float16 and float32; uint32 takes no field), padded
+    as :func:`~image_stitcher_tpu_torch.ops.fuse.padded_canvas_shape`;
     tiles (N, th, tw) of the same dtype and device; info (N, 4) int32
     [c, z, y, x], crops (N, 4) int32 [top, bottom, left, right] and
     valid (N,) bool on the host; ff_recip (C_ff, th, tw) float32
@@ -191,8 +192,8 @@ def fuse_feather(acc: torch.Tensor, wsum: torch.Tensor, tiles: torch.Tensor,
 
     acc, wsum (C, Z, Hp, Wp) float32, padded as
     :func:`~image_stitcher_tpu_torch.ops.fuse.padded_canvas_shape`;
-    tiles (N, th, tw) of ``ops/fuse.py::FUSE_DTYPES`` (not uint32) on
-    their device; info, crops, valid and ff_recip as for
+    tiles (N, th, tw) of ``ops/fuse.py::FUSE_DTYPES`` but uint32 (float16
+    included: each value is widened to float32 exactly) on their device; info, crops, valid and ff_recip as for
     :func:`fuse_overwrite`, ``blend_px`` the ramp length. A batch of
     more than MAX_BATCH tiles is accumulated by consecutive calls of at
     most MAX_BATCH tiles in batch order, so each pixel adds its tiles in

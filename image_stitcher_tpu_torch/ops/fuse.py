@@ -25,7 +25,10 @@ runs in float32 (and int64 or float64 for the casts) and those dtypes
 are only stored, copied and viewed.
 
 Tiles of every sample type the JAX package stitches are fused
-(:data:`FUSE_DTYPES`; float16 tiles read as uint8 there). Where the JAX
+(:data:`FUSE_DTYPES`): 8- to 32-bit integers, float16 and float32.
+float16 values are widened to float32 exactly, and every result is
+rounded back to float16 to nearest even, unclipped (past 65504 it is
++-inf), as XLA's convert does. Where the JAX
 package runs with 64-bit types off, a float64 tile is float32 on its
 device: the device paths round float64 tiles through float32
 (``io/readers.py::device_dtype``), so no fusion op takes float64.
@@ -39,7 +42,7 @@ import torch
 
 #: storage dtypes the fusion ops and kernels take
 FUSE_DTYPES = (torch.uint8, torch.int8, torch.uint16, torch.int16,
-               torch.int32, torch.uint32, torch.float32)
+               torch.int32, torch.uint32, torch.float16, torch.float32)
 
 
 def check_dtype(dtype: torch.dtype) -> None:
@@ -69,7 +72,8 @@ def to_storage(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Cast float values to a storage dtype as XLA's convert does: an
     integer dtype takes them clipped to its range, truncated toward zero
     (so int32 saturates at 2147483647 where the float32 bound rounds to
-    2147483648.0); a float dtype takes them as they are."""
+    2147483648.0); a float dtype takes them as they are (float16:
+    rounded to nearest even from float32, unclipped)."""
     if dtype.is_floating_point:
         return x.to(dtype)
     info = torch.iinfo(dtype)

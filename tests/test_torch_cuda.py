@@ -28,7 +28,7 @@ def cuda_device():
 #: every tile dtype the kernels take; uint32 takes no field and no
 #: feathering (the JAX package's clip bound overflows for it)
 DTYPES = [np.uint8, np.int8, np.uint16, np.int16, np.int32, np.uint32,
-          np.float32]
+          np.float16, np.float32]
 FF_DTYPES = [d for d in DTYPES if d != np.uint32]
 #: the feathered dtypes beyond the main path's uint16 and uint8
 OTHER_FF_DTYPES = [d for d in FF_DTYPES if d not in (np.uint8, np.uint16)]
@@ -36,7 +36,8 @@ OTHER_FF_DTYPES = [d for d in FF_DTYPES if d not in (np.uint8, np.uint16)]
 
 def _values(rng, dtype, shape):
     """Samples over an integer type's range (the field's product clips at
-    both bounds), floats with fractions and signs."""
+    both bounds), floats with fractions and signs (float16 past 65504
+    too: +inf)."""
     dtype = np.dtype(dtype)
     if dtype.kind == 'f':
         return rng.uniform(-300.0, 70000.0, shape).astype(dtype)
@@ -177,7 +178,8 @@ def test_feather_kernel_matches_plain(cuda_device, dtype, with_ff, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int8, torch.uint16,
-                                   torch.int16, torch.int32, torch.float32])
+                                   torch.int16, torch.int32, torch.float16,
+                                   torch.float32])
 def test_finalize_kernel_matches_plain(cuda_device, dtype):
     gen = torch.Generator().manual_seed(10)
     # past both bounds of every integer type (int32: 2^31 saturates)

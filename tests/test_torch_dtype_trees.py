@@ -22,12 +22,25 @@ fields, shifts and positions carried into the port's. The bars:
   8- and 16-bit integers the final round to an integer hides it, and
   those trees are equal;
 - where the JAX package raises (uint32 with a field or feathering on
-  the device paths, whose jitted clips take no uint32 bound; int8, int32
-  and uint32 with subpixel placement, which OpenCV's warpAffine does not
-  take), the port raises too: ``OverflowError`` for uint32, as the JAX
-  package; ``TypeError`` where the JAX package raises ``cv2.error``. Its
-  host fuser (``fusion_device='host'``) clips in NumPy and takes uint32
-  with a field, in both packages.
+  the device paths, whose jitted clips take no uint32 bound; int8, int32,
+  uint32 and float16 with subpixel placement, which OpenCV's warpAffine
+  does not take; float16 to OME-Zarr, which its writer has no type for),
+  the port raises too: ``OverflowError`` for uint32, as the JAX
+  package; ``TypeError`` where the JAX package raises ``cv2.error`` or
+  ``KeyError``. Its host fuser (``fusion_device='host'``) clips in NumPy
+  and takes uint32 with a field, in both packages.
+
+float16 tiles reach ``.ome.tiff`` only, in both packages: its grid is
+the uint16 grid's values / 16 rewritten as deflate + Predictor 3 TIFFs
+(OpenCV, the fixture's writer, writes no float16), and :data:`TIFF_PATHS`
+stitch it, and the uint16 grid, to ``.ome.tiff`` on every path that
+writes one. Overwrite files are the JAX package's byte for byte, but on
+the host-fused band path, whose tiles' data both packages lay out in the
+order their band threads finish, and on a mesh, whose JAX run saves the
+assembled canvas: there the pages, descriptions and SubIFD levels decode
+equal. Feathered float16 pages are within :data:`FEATHER_F16_ULPS`
+float16 ulp (the FMA's float32 difference can straddle a float16
+rounding boundary).
 """
 
 import glob
@@ -76,16 +89,55 @@ PATHS = {
 }
 FEATHERED = ('feather', 'global_subpixel')
 FEATHER_ULPS = 4
+FEATHER_F16_ULPS = 1
+TIFF = dict(output_format='.ome.tiff')
+#: path -> (stitch keywords, engine options): every path that writes
+#: ``.ome.tiff``
+TIFF_PATHS = {
+    'bands': (dict(REG_FF, **TIFF), dict(streaming='on',
+                                         device_band_multiple=1)),
+    'host': (dict(REG_FF, **TIFF), dict(fusion_device='host',
+                                        streaming='off')),
+    'host_bands': (dict(REG_FF, **TIFF), dict(fusion_device='host',
+                                              streaming='on')),
+    'host_feather': (dict(REG_FF, **TIFF), dict(fusion_device='host',
+                                                blend_method='feather',
+                                                streaming='off')),
+    'feather': (dict(REG_FF, **TIFF), dict(blend_method='feather',
+                                           streaming='on')),
+    'feather_inram': (dict(REG_FF, **TIFF), dict(blend_method='feather',
+                                                 streaming='off')),
+    'mean': (dict(REG_FF, **TIFF), dict(pyramid_downsample='mean',
+                                        streaming='on')),
+    'mean_inram': (dict(REG_FF, **TIFF), dict(pyramid_downsample='mean',
+                                              streaming='off')),
+    'mesh': (dict(REG_FF, **TIFF), dict(mesh_shape=(1, 2))),
+    # both packages skip the merges of an .ome.tiff run
+    'merges': (dict(use_registration=True, merge_timepoints=True,
+                    merge_hcs_regions=True, **TIFF), dict(streaming='on')),
+    'subpixel': (dict(use_registration=True, **TIFF),
+                 dict(registration_scope='global', subpixel_placement=True,
+                      blend_method='feather', streaming='on')),
+}
 
 
 def acquisition(root, dtype, merges: bool) -> str:
     acq = str(root / f"acq_{dtype.name}{'_merge' if merges else ''}")
     if not os.path.exists(acq):
         extra = dict(regions=['A1', 'B1'], timepoints=2) if merges else {}
+        half = dtype == np.float16
         write_synthetic_acquisition(
             acq, grid_cols=3, grid_rows=2, tile_w=128, tile_h=96,
-            overlap=24, channels=CHANNELS, dtype=dtype, seed=5, jitter=2,
+            overlap=24, channels=CHANNELS,
+            dtype=np.uint16 if half else dtype, seed=5, jitter=2,
             acq_params_overrides={"pixel_binning": 2}, **extra)
+        if half:
+            from torch_tile_files import tiff_bytes
+            for path in glob.glob(acq + "/*/*.tiff"):
+                img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+                with open(path, 'wb') as f:
+                    f.write(tiff_bytes((img.astype(np.float32) / 16)
+                                       .astype(np.float16), 8, 3))
     return acq
 
 
@@ -111,13 +163,16 @@ def assert_within_ulps(want_out: str, got_out: str, ulps: int) -> None:
                 assert (diff <= room).all(), lv
 
 
-def refusal(dtype: np.dtype, path: str):
+def refusal(dtype: np.dtype, path: str, paths=PATHS):
     """(the JAX package's exception, the port's, what the port's message
     names) where the JAX package refuses the path for the dtype, else
     None."""
-    kw, opts = PATHS[path]
+    kw, opts = paths[path]
+    tiff = kw.get('output_format') == '.ome.tiff'
+    if dtype.name == 'float16' and not tiff:
+        return KeyError, TypeError, 'float16'
     if opts.get('subpixel_placement') and dtype.name in ('int8', 'int32',
-                                                         'uint32'):
+                                                         'uint32', 'float16'):
         return cv2.error, TypeError, dtype.name
     if (dtype.name == 'uint32' and opts.get('fusion_device') != 'host'
             and (kw.get('apply_flatfield')
@@ -126,17 +181,20 @@ def refusal(dtype: np.dtype, path: str):
     return None
 
 
-def run_path(tmp_path_factory, dtype, path: str) -> None:
-    """Stitch the dtype's grid through ``path`` with both packages and
-    hold the port's output to the JAX package's (see the module's bars)."""
+def run_path(tmp_path_factory, dtype, path: str, paths=PATHS) -> None:
+    """Stitch the dtype's grid through ``paths[path]`` with both packages
+    and hold the port's output to the JAX package's (see the module's
+    bars)."""
     dtype = np.dtype(dtype)
-    kw, opts = PATHS[path]
+    kw, opts = paths[path]
     root = tmp_path_factory.getbasetemp() / f"dtype_trees_{dtype.name}"
     root.mkdir(exist_ok=True)
     acq = acquisition(root, dtype, path == 'merges')
-    jax_out, out = str(root / f"{path}_jax"), str(root / f"{path}_port")
+    tag = 'tiff_' if paths is TIFF_PATHS else ''
+    jax_out = str(root / f"{tag}{path}_jax")
+    out = str(root / f"{tag}{path}_port")
     device = [CPU] * 2 if opts.get('mesh_shape') else CPU
-    refused = refusal(dtype, path)
+    refused = refusal(dtype, path, paths)
     if refused is not None:
         jax_error, error, match = refused
         with pytest.raises(jax_error):
@@ -154,7 +212,14 @@ def run_path(tmp_path_factory, dtype, path: str) -> None:
     port.stitch(acq, device=device, state=state,
                 options=port.EngineOptions(output_folder=out, **opts), **kw)
     if kw.get('output_format') == '.ome.tiff':
-        assert_tiff_outputs_equal(jax_out, out)
+        feathered = opts.get('blend_method') == 'feather'
+        assert_tiff_outputs_equal(
+            jax_out, out,
+            lsb=(FEATHER_F16_ULPS if feathered and dtype.name == 'float16'
+                 else 0),
+            decoded=(opts.get('fusion_device') == 'host'
+                     and opts.get('streaming') == 'on'
+                     or 'mesh_shape' in opts))
     elif path in FEATHERED and dtype.name in ('float32', 'float64', 'int32'):
         assert_within_ulps(jax_out, out, FEATHER_ULPS)
     elif opts.get('mesh_shape'):
@@ -165,6 +230,15 @@ def run_path(tmp_path_factory, dtype, path: str) -> None:
 
 @pytest.mark.parametrize("path", list(PATHS))
 @pytest.mark.parametrize("dtype", ['int8', 'int16', 'int32', 'uint32',
-                                   'float32', 'float64'])
+                                   'float16', 'float32', 'float64'])
 def test_tree_equals_the_jax_package(tmp_path_factory, dtype, path):
     run_path(tmp_path_factory, dtype, path)
+
+
+@pytest.mark.parametrize("path", list(TIFF_PATHS))
+@pytest.mark.parametrize("dtype", ['uint16', 'float16'])
+def test_ome_tiff_equals_the_jax_package(tmp_path_factory, dtype, path):
+    """float16 and uint16 grids to ``.ome.tiff`` on every path that writes
+    it (the host-fused band path by decoded pages: both packages lay its
+    tiles' data out in the order their band threads finish)."""
+    run_path(tmp_path_factory, dtype, path, TIFF_PATHS)

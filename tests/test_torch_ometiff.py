@@ -13,7 +13,9 @@ registration, overwrite byte-equal and feather within 1 LSB. JPEG tiles
 raise the JAX package's ``ValueError`` on uint16 and are byte-identical
 to the JAX package's (``cv2.imencode``) on uint8, grey and RGB, from the
 writers and from whole runs in RAM and in bands; a resumed run skips
-its completed units and leaves their files untouched. Both packages run in one interpreter, so their deflate bytes
+its completed units and leaves their files untouched. Where a band of a
+band path holds no tile, the JAX run raises and the port writes the
+band as zeros (the JAX in-RAM file, decoded). Both packages run in one interpreter, so their deflate bytes
 come from one zlib.
 """
 
@@ -385,3 +387,63 @@ def test_resume_skips_completed_tiff(tmp_path):
     whole = str(tmp_path / 'whole')
     port.stitch(acq, options=port.EngineOptions(output_folder=whole), **kw)
     assert_tiff_outputs_equal(whole, out)
+
+
+#: the band paths: (the port's options, the JAX run whose file the
+#: port's decodes equal to)
+TILE_LESS = {
+    'bands': (dict(streaming='on'), dict(streaming='off')),
+    'host_bands': (dict(streaming='on', fusion_device='host'),
+                   dict(streaming='off', fusion_device='host')),
+    'feather_bands': (dict(streaming='on', blend_method='feather'),
+                      dict(streaming='off', blend_method='feather')),
+    'mesh': (dict(mesh_shape=(1, 2)), dict(mesh_shape=(1, 2))),
+}
+
+
+@pytest.mark.parametrize("dtype", ['uint16', 'float16'])
+@pytest.mark.parametrize("path", list(TILE_LESS))
+def test_band_paths_write_tile_less_bands_as_zeros(tmp_path, path, dtype):
+    """A fault of the reference the port does not copy: the JAX band
+    paths hand the OME-TIFF writer only the bands some tile reaches, and
+    the writer refuses to close with a page's rows missing
+    (``ValueError``), so a run whose canvas has a band no tile reaches
+    (here the registered canvas's empty foot, in bands of 64 rows) fails
+    at its end. The port writes such bands as zeros: its file decodes
+    equal to the JAX package's in-RAM file, or on a mesh to the JAX
+    mesh's (which saves the assembled canvas); feathered within 1 LSB
+    (float16: 1 ulp)."""
+    from torch_tile_files import tiff_bytes
+    from image_stitcher_tpu_torch.io.acquisition import read_image
+    acq = str(tmp_path / 'acq')
+    write_synthetic_acquisition(acq, grid_cols=2, grid_rows=4, tile_w=128,
+                                tile_h=128, overlap=40, seed=3)
+    if dtype == 'float16':
+        for tile in glob.glob(acq + '/0/*.tiff'):
+            img = read_image(tile)
+            with open(tile, 'wb') as f:
+                f.write(tiff_bytes((img / np.float32(16)).astype(np.float16),
+                                   8, 3))
+    opts, jax_opts = TILE_LESS[path]
+    common = dict(chunks=(1, 1, 1, 64, 64), device_band_multiple=1)
+    kw = dict(output_format='.ome.tiff', apply_flatfield=True,
+              use_registration=True)
+    if path != 'mesh':
+        with pytest.raises(ValueError, match='missing rows'):
+            jax_pkg.stitch(acq, options=jax_pkg.EngineOptions(
+                output_folder=str(tmp_path / 'jax_bands'), **common,
+                **opts), **kw)
+    jpipe = jax_pkg.stitch(acq, options=jax_pkg.EngineOptions(
+        output_folder=str(tmp_path / 'jax'), **common, **jax_opts), **kw)
+    port.stitch(acq, device=[CPU] * 2 if path == 'mesh' else CPU,
+                state=port.state_from_reference(flatfields=jpipe.flatfields,
+                                                shifts=jpipe.shifts),
+                options=port.EngineOptions(output_folder=str(tmp_path / 'port'),
+                                           **common, **opts), **kw)
+    assert_tiff_outputs_equal(str(tmp_path / 'jax'), str(tmp_path / 'port'),
+                              lsb=1 if path == 'feather_bands' else 0,
+                              decoded=True)
+    page = read_pages(read(os.path.join(str(tmp_path / 'port'),
+                                        tiff_outputs(str(tmp_path / 'port'))[0]
+                                        )))[0][1][0]
+    assert page.dtype == np.dtype(dtype) and not page[-64:].any()

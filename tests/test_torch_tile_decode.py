@@ -101,14 +101,15 @@ def test_predictor_matches_plain_and_source(dtype, spp):
     assert np.array_equal(td.undo_predictor_plain(diff.copy(), spp), src)
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dtype", [np.float16, np.float32, np.float64])
 @pytest.mark.parametrize("spp", [1, 2, 3, 4])
 def test_fp_predictor_matches_plain_and_source(dtype, spp):
     """Predictor 3: C and plain give the source's native samples back;
     on any bytes (not a predicted row) the two agree byte for byte."""
     rng = np.random.default_rng(11 + spp)
     src = (rng.standard_normal((17, 29 * spp)) * 1e3).astype(dtype)
-    src[3, :5] = [0.0, -0.0, np.inf, np.nan, 1e-40]
+    src[3, :5] = [0.0, -0.0, np.inf, np.nan,
+                  1e-40 if dtype != np.float16 else 1e-6]
     diff = apply_fp_predictor(src, spp)
     size = np.dtype(dtype).itemsize
     got = td.undo_fp_predictor(diff.copy(), spp, size)
@@ -121,8 +122,8 @@ def test_fp_predictor_matches_plain_and_source(dtype, spp):
 
 
 def test_fp_predictor_refuses_what_it_cannot_take():
-    with pytest.raises(ValueError):       # 2-byte samples
-        td.undo_fp_predictor(np.zeros((4, 8), np.uint8), 1, 2)
+    with pytest.raises(ValueError):       # 3-byte samples
+        td.undo_fp_predictor(np.zeros((4, 9), np.uint8), 1, 3)
     with pytest.raises(ValueError):       # rows not whole samples
         td.undo_fp_predictor(np.zeros((4, 10), np.uint8), 1, 4)
     with pytest.raises(ValueError):       # not bytes

@@ -66,11 +66,38 @@ def tiff_outputs(out):
     return sorted(rel for rel in tree_files(out) if rel.endswith('.ome.tiff'))
 
 
-def assert_tiff_outputs_equal(want_out, got_out, lsb=0):
+def ordered_bits(a):
+    """A float array's values as integers in the order of their values:
+    adjacent floats of its width one apart (its ulps), -0 equal to +0."""
+    a = np.asarray(a)
+    width = 8 * a.dtype.itemsize
+    u = a.view(np.dtype(f'u{a.dtype.itemsize}')).astype(np.uint64)
+    mag = (u & np.uint64((1 << (width - 1)) - 1)).astype(np.int64)
+    return np.where((u >> np.uint64(width - 1)) != 0, -mag, mag)
+
+
+def max_lsb(want, got) -> int:
+    """The largest difference of two equal-shaped arrays of one dtype:
+    integers by value, floats by ulps of their own width (a NaN must
+    face a NaN, and counts 0 there)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if want.dtype.kind != 'f':
+        return int(np.abs(want.astype(np.int64) - got.astype(np.int64))
+                   .max(initial=0))
+    nan = np.isnan(want)
+    assert np.array_equal(nan, np.isnan(got))
+    return int(np.abs(ordered_bits(want[~nan]) - ordered_bits(got[~nan]))
+               .max(initial=0))
+
+
+def assert_tiff_outputs_equal(want_out, got_out, lsb=0, decoded=False):
     """Two runs' outputs hold the same ``*.ome.tiff`` files: byte for
-    byte, or with ``lsb`` > 0 the same pages, descriptions and SubIFD
-    levels, each pixel within ``lsb`` (read with the port's
-    ``io/tiff.py::read_pages``)."""
+    byte, or with ``lsb`` > 0 or ``decoded`` the same pages, descriptions
+    and SubIFD levels (read with the port's ``io/tiff.py::read_pages``),
+    each pixel within ``lsb``: integers by value, floats by ulps of their
+    own width (:func:`max_lsb`). ``decoded`` with ``lsb`` 0 holds the
+    pages equal where the files' bytes may differ (the host-fused band
+    path orders its tiles' data by thread timing)."""
     from image_stitcher_tpu_torch.io.tiff import read_pages
     files = tiff_outputs(want_out)
     assert files and tiff_outputs(got_out) == files
@@ -79,7 +106,7 @@ def assert_tiff_outputs_equal(want_out, got_out, lsb=0):
             want = f.read()
         with open(os.path.join(got_out, rel), 'rb') as f:
             got = f.read()
-        if lsb == 0:
+        if lsb == 0 and not decoded:
             assert got == want, rel
             continue
         want_pages, got_pages = read_pages(want), read_pages(got)
@@ -88,8 +115,7 @@ def assert_tiff_outputs_equal(want_out, got_out, lsb=0):
             assert gd == wd, rel
             assert [a.shape for a in gl] == [a.shape for a in wl], rel
             for a, b in zip(wl, gl):
-                diff = np.abs(a.astype(np.int64) - b.astype(np.int64))
-                assert diff.max(initial=0) <= lsb, rel
+                assert max_lsb(a, b) <= lsb, rel
 
 
 def _lz4_v2(array_dir):

@@ -1,16 +1,22 @@
-"""TIFF tiles of every sample type the port stitches, written by OpenCV and
-kept in the repo.
+"""TIFF tiles of every sample type the port stitches, kept in the repo with
+the pixels the JAX package's reader gives for them.
 
-The card's host has no OpenCV, so ``chip_smoke.py`` takes these files
-from ``torch_tiff_samples.npz``, written by :func:`make` with the CPU
-test host's OpenCV 5.0 (libtiff): for uint8, int8, uint16, int16, int32,
-uint32, float32 and float64, one and three samples, LZW with Predictor 2
-(OpenCV's default for integers), deflate with Predictor 2, and for the
-floats LZW and deflate with Predictor 3 (the floating-point predictor),
-in strips of 5 rows. Each file comes with the SHA-256 of the pixels
-``cv2.imdecode(IMREAD_UNCHANGED)`` gives for it (BGR flipped to RGB), so
-the card holds its C decoders, and their plain versions, to OpenCV
-without OpenCV. Regenerate with::
+The card's host has no OpenCV and no imageio, so ``chip_smoke.py`` takes
+these files from ``torch_tiff_samples.npz``, written by :func:`make` on
+the CPU test host: with its OpenCV 5.0 (libtiff) for uint8, int8,
+uint16, int16, int32, uint32, float32 and float64, one and three samples,
+LZW with Predictor 2 (OpenCV's default for integers), deflate with
+Predictor 2, and for the floats LZW and deflate with Predictor 3 (the
+floating-point predictor), in strips of 5 rows; and for float16, which
+OpenCV neither writes nor reads (the JAX package reads it through
+imageio's tifffile), with ``torch_tile_files.tiff_bytes`` in every
+layout the JAX package reads: uncompressed, LZW, deflate and PackBits,
+Predictor 3 after the three codecs, in strips of 5 rows, and deflate in
+16 x 16 tiles, one and three samples. Each file comes with the SHA-256
+of the pixels ``cv2.imdecode(IMREAD_UNCHANGED)`` gives for it (BGR
+flipped to RGB), or for float16 ``imageio.v2.imread``, so the card holds
+its C decoders, and their plain versions, to those readers without
+them. Regenerate with::
 
     python tests/torch_tiff_samples.py
 
@@ -31,6 +37,11 @@ SAMPLE_TYPES = ('uint8', 'int8', 'uint16', 'int16', 'int32', 'uint32',
 #: (name, TIFF compression, Predictor)
 CODECS = (('lzw-p2', 5, 2), ('deflate-p2', 8, 2), ('lzw-p3', 5, 3),
           ('deflate-p3', 8, 3))
+#: float16's (name, TIFF compression, Predictor): the layouts the JAX
+#: package reads (imageio's tifffile); '-tiles' in 16 x 16 tiles
+HALF_LAYOUTS = (('raw', 1, 1), ('lzw', 5, 1), ('deflate', 8, 1),
+                ('packbits', 32773, 1), ('lzw-p3', 5, 3), ('deflate-p3', 8, 3),
+                ('packbits-p3', 32773, 3), ('deflate-tiles', 8, 1))
 
 
 def content(seed: int, dtype: str, spp: int) -> np.ndarray:
@@ -53,14 +64,37 @@ def cases():
                 if pred == 3 and not dtype.startswith('float'):
                     continue
                 yield f"{dtype}-x{spp}-{codec}", dtype, spp, comp, pred
+    for spp in (1, 3):
+        for layout, comp, pred in HALF_LAYOUTS:
+            yield f"float16-x{spp}-{layout}", 'float16', spp, comp, pred
+
+
+def _half_file(name: str, seed: int, spp: int, comp: int,
+               pred: int) -> bytes:
+    from torch_tile_files import tiff_bytes
+    kw = (dict(tile=(16, 16)) if name.endswith('-tiles')
+          else dict(rows_per_strip=5))
+    return tiff_bytes(content(seed, 'float16', spp), comp, pred, **kw)
 
 
 def make() -> dict:
-    """{name: file bytes, name + ':sha256': the OpenCV pixels' digest}
-    for every case (needs OpenCV)."""
+    """{name: file bytes, name + ':sha256': the pixels' digest} for every
+    case (needs OpenCV, and imageio for float16)."""
     import cv2
     out = {}
     for seed, (name, dtype, spp, comp, pred) in enumerate(cases()):
+        if dtype == 'float16':
+            import io
+            import warnings
+            import imageio.v2 as iio
+            data = _half_file(name, seed, spp, comp, pred)
+            with warnings.catch_warnings():   # its vendored tifffile
+                warnings.simplefilter('ignore')
+                pixels = np.asarray(iio.imread(io.BytesIO(data),
+                                               format='tiff'))
+            out[name] = np.frombuffer(data, np.uint8)
+            out[name + ':sha256'] = np.array(pixel_digest(pixels))
+            continue
         ok, buf = cv2.imencode('.tiff', content(seed, dtype, spp), [
             int(cv2.IMWRITE_TIFF_COMPRESSION), comp,
             int(cv2.IMWRITE_TIFF_PREDICTOR), pred,
