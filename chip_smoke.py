@@ -207,6 +207,19 @@ Phases, each fatal on failure:
      ``.ome.tiff`` in bands with the field, in RAM feathered and through
      the host band fuser, card files equal to CPU files (byte for byte;
      decoded pages on the host band path), the kernels' launches counted.
+ 18. (run right after phase 17) tile layouts, the rest of the JAX
+     package's tile input: (a) CCITT (Modified Huffman, T.4 1-D and 2-D
+     with fill bits, T.6), packed samples of 1-14 bits, the FillOrder 2
+     bit reversal and BMP RLE8/RLE4 decoded in C at 2048^2 to their
+     sources, old-style LZW on a 2048 x 128 strip, the plain versions to
+     the same bytes (on the first 64 rows where they run in Python), and
+     every file of ``tests/torch_tiff_layouts.npz`` (one of each layout,
+     with the SHA-256 of the JAX package's ``read_image`` array on the
+     CPU test host) read to that array; (b) 4x4 x 1-channel grids of
+     2048^2 G4 bilevel, 8-bit LZW palette (RGB) and 12-bit LZW tiles
+     stitched on the card (no field, no registration, overwrite, raw),
+     each tree equal to its uncompressed twin's, with whole-tile decode
+     MB/s on one thread and 8 and the launches.
 
 The line before the last is a JSON object with one entry per kernel, and
 one per kernel's float16 instantiation (``name[float16]``: phase 3's
@@ -860,8 +873,9 @@ def smoke_options(out: str, quality: bool = False, **extra):
     if quality:
         extra.update(registration_scope='global', subpixel_placement=True,
                      blend_method='feather')
-    return EngineOptions(fusion_batch=10, reader_threads=8,
-                         compressor_cname='auto', output_folder=out, **extra)
+    return EngineOptions(**{'fusion_batch': 10, 'reader_threads': 8,
+                            'compressor_cname': 'auto',
+                            'output_folder': out, **extra})
 
 
 def read_tree(root: str):
@@ -1980,9 +1994,12 @@ class DecodeCounter:
         self.module._decode = self.inner
 
 
-def stitch_input(acq: str, out: str, dev, card: str, label: str) -> dict:
-    """The main path's stitch of ``acq`` (phase 5's options), its kernel
-    launches checked against the plan, its stage and decode seconds."""
+def stitch_input(acq: str, out: str, dev, card: str, label: str,
+                 use_registration: bool = True, apply_flatfield: bool = True,
+                 **options) -> dict:
+    """The main path's stitch of ``acq`` (phase 5's options, and
+    ``options``), its kernel launches checked against the plan, its stage
+    and decode seconds."""
     from image_stitcher_tpu_torch import stitch
     from image_stitcher_tpu_torch.models.streaming import (
         band_rows_for, partition_jobs_by_band)
@@ -1990,8 +2007,9 @@ def stitch_input(acq: str, out: str, dev, card: str, label: str) -> dict:
     cuda_fuse.fuse_overwrite.launches = 0
     with DecodeCounter() as counter:
         t0 = time.perf_counter()
-        pipe = stitch(acq, use_registration=True, apply_flatfield=True,
-                      device=dev, options=smoke_options(out))
+        pipe = stitch(acq, use_registration=use_registration,
+                      apply_flatfield=apply_flatfield, device=dev,
+                      options=smoke_options(out, **options))
         e2e = time.perf_counter() - t0
     launches = cuda_fuse.fuse_overwrite.launches
     width, height = pipe._region_dimensions(0, 'A1')
@@ -4513,6 +4531,253 @@ def phase_sample_types(work: str, card: str, main_run: dict,
     return res
 
 
+# -------------------------------------------------------------------- 18
+
+#: 18b's grids: (label, channel, the tile's file bytes from its texture
+#: window, the pixels the JAX package reads from them, dtype)
+LAYOUT_CHANNEL = "Fluorescence 488 nm Ex"
+
+
+def bilevel_texture(rng, side: int) -> np.ndarray:
+    """0/1 blobs: the brightest 30 % of a :func:`compressible` texture of
+    an eighth of the side, each pixel an 8 x 8 block (~34 changes a 2048-
+    pixel row: the Python CCITT encoder writes a tile in ~0.2 s)."""
+    tex = compressible(rng, side // 8 + 1)
+    blobs = (tex > np.percentile(tex, 70)).astype(np.uint8)
+    return np.repeat(np.repeat(blobs, 8, 0), 8, 1)[:side, :side].copy()
+
+
+def index_texture(rng, side: int, bits: int) -> np.ndarray:
+    """Palette indices of ``bits`` bits with runs for BMP RLE: stripes of
+    61 px over :func:`bilevel_texture`'s blobs, every 16th row noise (the
+    encoder's absolute runs)."""
+    x = np.arange(side)
+    idx = ((x // 61)[None] + 5 * bilevel_texture(rng, side)) % (1 << bits)
+    idx[::16] = rng.integers(0, 1 << bits, (len(idx[::16]), side))
+    return idx.astype(np.uint8)
+
+
+def layout_grids(tf, cmap: np.ndarray):
+    """18b: (label, texture, encode, twin, channel) of the three grids:
+    G4 bilevel (MinIsWhite: a 1 bit reads 0, a 0 bit 255), an 8-bit LZW
+    palette (read as RGB through the 16-bit ColorMap's high bytes) and
+    12-bit LZW (read scaled to 16 bits). ``twin`` writes the pixels the
+    JAX package reads from ``encode``'s file as an uncompressed TIFF."""
+    rgb = (cmap >> 8).astype(np.uint8).T
+    literals = tf.lzw_encode_literals      # Python's LZW is too slow there
+    return (
+        ('g4-bilevel', bilevel_texture,
+         lambda b: tf.tiff_bytes(b, 4, bits=1, photometric=0,
+                                 rows_per_strip=256),
+         lambda b: tf.tiff_bytes(np.where(b == 1, 0, 255).astype(np.uint8)),
+         LAYOUT_CHANNEL),
+        ('lzw-palette', lambda r, side: (compressible(r, side) >> 8).astype(
+            np.uint8),
+         lambda b: tf.tiff_bytes(b, 5, photometric=3, colormap=cmap,
+                                 rows_per_strip=256, lzw=literals),
+         lambda b: tf.tiff_bytes(rgb[b]), "BF LED matrix full"),
+        ('lzw-12bit', lambda r, side: compressible(r, side) >> 4,
+         lambda b: tf.tiff_bytes(b, 5, bits=12, rows_per_strip=256,
+                                 lzw=literals),
+         lambda b: tf.tiff_bytes(b << 4), LAYOUT_CHANNEL))
+
+
+def layout_decoder_check(rng) -> dict:
+    """18a: each C routine the rest of item 6 added against its plain
+    version and the data it was made from, at 2048^2 (the plain CCITT and
+    RLE decoders, which run in Python, on the first 64 rows of the same
+    stream; old-style LZW, whose encoder runs in Python, on one 2048 x
+    128 strip): CCITT Modified Huffman, T.4 1-D, T.4 2-D with fill bits
+    and T.6; packed samples of 1, 2, 4, 10, 12 and 14 bits; the FillOrder
+    2 bit reversal; BMP RLE8 and RLE4. Returns each C routine's output
+    MB/s on one thread."""
+    from image_stitcher_tpu_torch.io import tile_decode as td
+    tf = tile_files()
+    t0 = time.perf_counter()
+    rates = {}
+
+    def timed(name, fn, nbytes):
+        t = time.perf_counter()
+        out = fn()
+        rates[name] = nbytes / 1e6 / (time.perf_counter() - t)
+        return out
+
+    window = 64
+    bw = bilevel_texture(rng, TILE) ^ (rng.random((TILE, TILE)) < 0.01)
+    for label, comp, opts in (('MH', 2, 0), ('T.4 1-D', 3, 0),
+                              ('T.4 2-D, fill bits', 3, 5), ('T.6', 4, 0)):
+        data = tf.ccitt_encode(bw, comp, opts)
+        got = timed(f'CCITT {label} (C)', lambda: td.ccitt_decode(
+            data, TILE, TILE, comp, opts), TILE * TILE // 8)
+        if not np.array_equal(got, np.packbits(bw, axis=1)):
+            raise SystemExit(f"tile layouts (18a): CCITT {label} (C) does "
+                             f"not give its source")
+        plain = td.ccitt_decode_plain(data, window, TILE, comp, opts)
+        if plain.tobytes() != got[:window].tobytes():
+            raise SystemExit(f"tile layouts (18a): CCITT {label}: plain "
+                             f"differs from C")
+    for bits in (1, 2, 4, 10, 12, 14):
+        values = rng.integers(0, 1 << bits, (TILE, TILE))
+        packed = tf.pack_samples(values, bits)
+        got = timed(f'unpack {bits}-bit (C)', lambda: td.unpack_samples(
+            packed, TILE, packed.shape[1], TILE, bits), values.size
+            * (1 if bits <= 8 else 2))
+        plain = td.unpack_samples_plain(packed, TILE, packed.shape[1], TILE,
+                                        bits)
+        if not np.array_equal(got, values) or \
+                plain.tobytes() != got.tobytes():
+            raise SystemExit(f"tile layouts (18a): {bits}-bit unpacking "
+                             f"differs (C, plain, source)")
+    raw = rng.integers(0, 256, 2 * TILE * TILE, dtype=np.uint8)
+    got = timed('FillOrder 2 reversal (C)', lambda: td.reverse_bits(raw),
+                raw.size)
+    if got.tobytes() != td.reverse_bits_plain(raw).tobytes() or \
+            td.reverse_bits(got).tobytes() != raw.tobytes():
+        raise SystemExit("tile layouts (18a): bit reversal differs")
+    strip = (compressible(rng, TILE)[:128] >> 8).astype(np.uint8).tobytes()
+    old = tf.lzw_encode_old(strip)
+    got = timed('old-style LZW (C)', lambda: td.lzw_decode(old, len(strip)),
+                len(strip))
+    cut = window * TILE
+    if got.tobytes() != strip or td.lzw_decode_plain(
+            old, cut).tobytes() != strip[:cut]:
+        raise SystemExit("tile layouts (18a): old-style LZW differs")
+    for bits in (8, 4):
+        idx = index_texture(rng, TILE, bits)
+        data = tf.rle_encode(idx, bits)
+        got = timed(f'BMP RLE{bits} (C)', lambda: td.bmp_rle_decode(
+            data, TILE, TILE, bits), idx.size)
+        plain = td.bmp_rle_decode_plain(data, TILE, window, bits)
+        if not np.array_equal(got[::-1], idx) or \
+                plain.tobytes() != got[:window].tobytes():
+            raise SystemExit(f"tile layouts (18a): RLE{bits} differs (C, "
+                             f"plain, source)")
+    log(f"tile layouts (18a): CCITT (MH, T.4 1-D, T.4 2-D with fill bits, "
+        f"T.6), 1/2/4/10/12/14-bit unpacking, the bit reversal and RLE8/4 "
+        f"at {TILE}^2 and old-style LZW on a {TILE}x128 strip give their "
+        f"sources in C, the plain versions the same bytes (CCITT, RLE and "
+        f"LZW on the first {window} rows), in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return rates
+
+
+def kept_layouts_check(work: str) -> int:
+    """18a: every file of ``tests/torch_tiff_layouts.npz`` (one of each
+    layout, with the SHA-256 of the JAX package's ``read_image`` array on
+    the CPU test host) read by the port's ``read_image`` to that array,
+    and decoded by the plain versions to the same bytes."""
+    from image_stitcher_tpu_torch.io.acquisition import read_image
+    from image_stitcher_tpu_torch.io.bmp import decode_bmp
+    from image_stitcher_tpu_torch.io.tiff import decode_tiff
+    tile_files()      # puts tests/ on the path
+    import torch_tiff_layouts as layouts
+    kept = layouts.load()
+    for name in layouts.names():
+        data = kept[name].tobytes()
+        path = os.path.join(work, 'A1_0_0_layout' + layouts.suffix(name))
+        with open(path, 'wb') as f:
+            f.write(data)
+        if layouts.digest(read_image(path)) != str(kept[name + ':sha256']):
+            raise SystemExit(f"tile layouts (18a): {name} does not read to "
+                             f"the JAX package's array")
+        decode = decode_bmp if name in layouts.BMP_LAYOUTS else decode_tiff
+        if decode(data, plain=True).tobytes() != decode(data).tobytes():
+            raise SystemExit(f"tile layouts (18a): {name}: the plain "
+                             f"decoders differ from the C ones")
+        os.unlink(path)
+    return len(layouts.names())
+
+
+def layout_rates(tf, rng, card: str, cmap: np.ndarray) -> dict:
+    """MB/s of pixels out of whole-tile reads (``decode_tiff``) of 18b's
+    three layouts at 2048^2, on one thread, then on the 8-thread reader
+    pool (16 tiles each)."""
+    from image_stitcher_tpu_torch.io.tiff import decode_tiff
+    rates = {}
+    for label, texture, encode, _, _ in layout_grids(tf, cmap):
+        data = encode(np.ascontiguousarray(texture(rng, TILE)))
+        out = decode_tiff(data)
+        n = 2 * READERS
+        out_mb = n * out.nbytes / 1e6
+        row = []
+        for threads in (1, READERS):
+            with ThreadPoolExecutor(threads) as pool:
+                t0 = time.perf_counter()
+                list(pool.map(lambda _: decode_tiff(data), range(n)))
+                row.append(out_mb / (time.perf_counter() - t0))
+        rates[label] = row
+        log(f"tile layouts MB/s on {card}: {label} {TILE}^2 tiles "
+            f"({len(data)} B a file, {out.dtype} {out.shape} out): "
+            f"{row[0]:.0f} on one thread, {row[1]:.0f} on {READERS}")
+    return rates
+
+
+def phase_tile_layouts(work: str, card: str, grid: int = 4,
+                       tile: int = TILE, device: str = 'cuda') -> dict:
+    """18: the rest of item 6's tile input. (a) :func:`layout_decoder_check`
+    and :func:`kept_layouts_check`; (b) three ``grid`` x ``grid`` x 1-
+    channel grids of ``tile``^2 tiles stitched on the card through the
+    main path (flatfield and registration off, overwrite, raw OME-Zarr):
+    G4 bilevel, an 8-bit LZW palette (RGB, so three planes) and 12-bit
+    LZW (uint16), each tree decoded equal to that of its uncompressed
+    twin, whose tiles hold the pixels the JAX package reads, with the
+    decode MB/s on one thread and eight and the launches."""
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    rng = np.random.default_rng(18)
+    tf = tile_files()
+    res = {'c_rates': layout_decoder_check(rng)}
+    t0 = time.perf_counter()
+    n = kept_layouts_check(work)
+    log(f"tile layouts (18a): {n} kept files (tests/torch_tiff_layouts.npz)"
+        f" read to the JAX package's arrays, the plain decoders to the same"
+        f" bytes, in {time.perf_counter() - t0:.1f}s; C routines' MB/s on "
+        f"one thread: " + ", ".join(f"{k} {v:.0f}"
+                                    for k, v in res['c_rates'].items()))
+    cmap = rng.integers(256, 65536, (3, 256))
+    res['rates'] = layout_rates(tf, rng, card, cmap)
+
+    overlap = 205 * tile // TILE
+    res['runs'] = {}
+    for label, texture, encode, twin, channel in layout_grids(tf, cmap):
+        trees = {}
+        for kind, write in (('twin', twin), ('file', encode)):
+            acq = os.path.join(work, f'layout_{label}_{kind}')
+            t0 = time.perf_counter()
+            write_acquisition(acq, grid, tile, overlap, seed=19,
+                              texture=texture, encode=write,
+                              channels=[channel])
+            written = time.perf_counter() - t0
+            out = os.path.join(work, f'layout_out_{label}_{kind}')
+            run = stitch_input(acq, out, dev, card, f'{label} {kind}',
+                               use_registration=False,
+                               apply_flatfield=False,
+                               compressor_cname=None)
+            run.pop('pipe')
+            run['write_s'] = written
+            trees[kind] = read_tree(out)
+            shutil.rmtree(out)
+            shutil.rmtree(acq)
+            if kind == 'file':
+                res['runs'][label] = run
+        arrays = compare_trees(trees['twin'], trees['file'],
+                               f'tile layouts ({label} vs its twin)')
+        run = res['runs'][label]
+        log(f"tile layouts (18b) on {card}: {grid}x{grid} {label} tree "
+            f"decodes equal to its uncompressed twin's ({arrays} level "
+            f"arrays); files written in {run['write_s']:.1f}s, e2e "
+            f"{run['e2e_s']:.3f}s, {run['decodes']} decodes at "
+            f"{run['decode_s'] / max(run['decodes'], 1) * 1e3:.1f} ms, "
+            f"fuse_overwrite launches {run['launches']}")
+        del trees
+    banned = [m for m in BANNED if m in sys.modules]
+    if banned:
+        raise SystemExit(f"tile layouts: loaded {banned}")
+    res['seconds'] = time.perf_counter() - t_phase
+    log(f"tile layouts: phase 18 in {res['seconds']:.1f}s")
+    return res
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
@@ -4548,6 +4813,9 @@ def main() -> int:
         os.makedirs(work)
         sample_types = phase_sample_types(work, card, main_run)
         shutil.rmtree(keep, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        phase_tile_layouts(work, card)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         ome_tiff = phase_ome_tiff(work, card, grid=6)

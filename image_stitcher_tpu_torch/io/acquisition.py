@@ -41,7 +41,7 @@ from .bmp import decode_bmp
 from .fast_tiff import read_tiff_fast
 from .jpeg import decode as decode_jpeg
 from .png import decode_png
-from .tiff import decode_tiff
+from .tiff import decode as decode_tiff
 from .tile_decode import DecodeError
 
 # the bare 'tif' entry makes any filename *ending* in "tif" match, with
@@ -193,9 +193,15 @@ def read_image(filepath: str, prefer_mmap: bool = False,
     (``io/fast_tiff.py``), whose ``prefer_mmap`` array is paged lazily
     (``prefetch`` starts the kernel's readahead). Every other file, and a
     TIFF the fast path declines, is read whole and decoded by its
-    signature, not its suffix: TIFF (``io/tiff.py``: LZW, deflate,
-    PackBits, predictor, strips or tiles), PNG (``io/png.py``), BMP
-    (``io/bmp.py``) or JPEG (``io/jpeg.py``: baseline and progressive,
+    signature, not its suffix: TIFF (``io/tiff.py``: LZW old and new,
+    deflate, PackBits, CCITT G3/G4, LZMA, predictors, FillOrder 2, strips
+    or tiles; the samples OpenCV reads directly, 10- to 14-bit scaled to
+    16; what libtiff's RGBA interface makes of MinIsWhite, bilevel,
+    palette, CMYK, YCbCr and grey + alpha; and imageio's raw samples for
+    the TIFFs OpenCV cannot read, whose fourth sample is kept, as the JAX
+    package keeps it), PNG (``io/png.py``), BMP (``io/bmp.py``: palettes
+    raw or RLE8/RLE4, 16, 24 and 32 bits) or JPEG (``io/jpeg.py``:
+    baseline and progressive,
     grey, YCbCr, RGB, CMYK or YCCK, the pixels of ``cv2.imread``,
     libjpeg-turbo's arithmetic, EXIF orientation ignored as
     ``IMREAD_UNCHANGED`` ignores it; arithmetic-coded, 12-bit, lossless
@@ -203,36 +209,40 @@ def read_image(filepath: str, prefer_mmap: bool = False,
     ROADMAP item 19 (remainder)); a
     compressed tile cannot be paged lazily, so
     ``prefer_mmap`` and ``prefetch`` do not apply to it. Colour comes
-    back in RGB order, and a 4-channel image drops its alpha, as the JAX
-    package's BGR(A) -> RGB conversion of ``cv2.imread`` gives it.
+    back in RGB order, and a 4-channel image from the readers OpenCV
+    stands for drops its alpha, as the JAX package's BGR(A) -> RGB
+    conversion of ``cv2.imread`` gives it.
 
-    A file no decoder recognises raises :class:`ValueError` naming it: the JAX
-    package hands such files to imageio, which the card's host lacks."""
-    img = None
+    A file no decoder recognises raises :class:`ValueError` naming it: the
+    JAX package hands such files to imageio, which the card's host lacks.
+    A layout whose array in the JAX package is not its pixels raises
+    :class:`NotImplementedError` naming its ROADMAP item."""
+    img, whole = None, False
     if filepath.endswith(('.tif', '.tiff')):
         img = read_tiff_fast(filepath, use_mmap=prefer_mmap,
                              prefetch=prefetch)
     if img is None:
         with open(filepath, 'rb') as f:
             data = f.read()
-        img = _decode(data, filepath)
-    if img.ndim == 3 and img.shape[2] == 4:
+        img, whole = _decode(data, filepath)
+    if img.ndim == 3 and img.shape[2] == 4 and not whole:
         img = img[:, :, :3]  # RGBA -> RGB (drop alpha)
     return img
 
 
-def _decode(data: bytes, filepath: str) -> np.ndarray:
-    """A whole image file's pixels, by its signature."""
+def _decode(data: bytes, filepath: str) -> Tuple[np.ndarray, bool]:
+    """A whole image file's pixels, by its signature, and whether the JAX
+    package reads them with imageio (which keeps a fourth sample)."""
     head = data[:8]
     try:
         if head.startswith(_JPEG_MAGIC):
-            return decode_jpeg(data)
+            return decode_jpeg(data), False
         if head[:4] in _TIFF_MAGIC:
             return decode_tiff(data)
         if head == _PNG_MAGIC:
-            return decode_png(data)
+            return decode_png(data), False
         if head.startswith(_BMP_MAGIC):
-            return decode_bmp(data)
+            return decode_bmp(data), False
     except DecodeError as e:
         raise DecodeError(f"{filepath}: {e}") from None
     raise ValueError(f"{filepath}: not a TIFF, PNG, BMP or JPEG image (the "

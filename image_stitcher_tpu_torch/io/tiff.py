@@ -1,41 +1,56 @@
 """General TIFF reader for the tiles the fast path declines.
 
 ``io/fast_tiff.py`` maps uncompressed strip TIFFs straight into memory;
-everything else it returns None for comes here, where the JAX package
-decodes it with OpenCV (libtiff). This reader takes the first IFD only
-(``cv2.imread`` reads page 0) of a classic or BigTIFF file in either
-byte order (``II``, ``MM``), in strips (any RowsPerStrip, a short last
-strip) or tiles (edge tiles cropped), with:
+everything else it returns None for comes here. The JAX package decodes
+such a file with OpenCV (libtiff), and where OpenCV returns None with
+imageio's tifffile; this reader gives the array the JAX package's
+``read_image`` gives, by the reader that file reaches there (``_route``).
+It takes the first IFD only (``cv2.imread`` reads page 0) of a classic or
+BigTIFF file in either byte order (``II``, ``MM``), in strips (any
+RowsPerStrip, a short last strip) or tiles (edge tiles cropped), with:
 
-- compression 1 (none), 5 (LZW), 8 and 32946 (deflate), 32773 (PackBits);
+- compression 1 (none), 5 (LZW, new- and old-style), 8 and 32946
+  (deflate), 32773 (PackBits), 2, 3 and 4 (CCITT Modified Huffman, T.4
+  with any T4Options, T.6) and 34925 (LZMA, through the standard
+  library's ``lzma``, as imageio reads it); FillOrder 2 (the stored bytes
+  bit-reversed before the codec, as libtiff and imageio do);
 - Predictor 1, 2 (horizontal, undone per sample after the bytes are
   swapped to native order, as libtiff does) or 3 (floating point,
   libtiff's fpAcc, whose output is in native order already); libtiff
-  applies them to LZW and deflate only, and so does this reader;
-- 8-, 16-, 32- or 64-bit samples, unsigned, signed (SampleFormat 2) or
-  floating point (SampleFormat 3: 16, 32 or 64 bits; Predictor 3 takes
-  no other); 1 sample (MinIsBlack) or 3 / 4 samples
-  (RGB, RGB + alpha); PlanarConfiguration 1 (contiguous), or 2 (one plane
-  per sample) for 8-bit samples (OpenCV 5.0 misreads 16-bit planes as
-  if they were contiguous, so those raise).
+  applies them to LZW and deflate only, imageio after any codec;
+- OpenCV's own path: 8- to 64-bit samples, unsigned, signed
+  (SampleFormat 2) or floating point (SampleFormat 3: 16, 32 or 64 bits;
+  Predictor 3 takes no other) for 1 sample (MinIsBlack, or MinIsWhite
+  above 8 bits, not inverted) or 3 / 4 samples (RGB, RGB + alpha), and
+  10-, 12- and 14-bit samples unpacked and shifted to the top of 16 bits;
+  PlanarConfiguration 1 (contiguous), or 2 (one plane per sample) for
+  8-bit samples;
+- OpenCV through libtiff's RGBA interface (``io/tiff_rgba.py``): 8-bit
+  MinIsWhite (inverted), 1-bit bilevel (0 / 255), 1-, 4- and 8-bit
+  palettes (RGB from the ColorMap, grey for 1 bit), 8-bit CMYK (InkSet
+  1), 8-bit YCbCr with YCbCrSubSampling 1x1 to 4x4, and grey + alpha (its
+  grey; 16-bit samples by their high byte);
+- imageio's raw samples where OpenCV returns None: 2- and 4-bit grey and
+  2-bit palettes (the indices), 16-bit palettes and CMYK, 3-sample CMYK,
+  CMYK of another InkSet, 5 samples or more, LZMA, and float16 (which
+  OpenCV does not read: Predictor 3 undone after every codec in strips;
+  Predictor 2, which imageio sums as floats, Predictor 3 in tiles and 4
+  samples raise).
 
-float16 files are what OpenCV does not read: the JAX package reads them
-through imageio's tifffile, which the port follows. It undoes Predictor 3
-after every codec in strips, and it gives no pixels for Predictor 2
-(it sums the differences as floats), for Predictor 3 in tiles, or for
-samples beyond 3 a pixel (it keeps the alpha): those raise.
-
-It returns (H, W) or (H, W, spp) in the file's sample order (R, G, B[,
-A]), in native byte order. An 8-bit RGBA image whose alpha is declared
-unassociated (ExtraSamples 2) comes back premultiplied,
+It returns (H, W) or (H, W, channels), samples in the file's order (R, G,
+B[, A]), in native byte order. An 8-bit RGBA image whose alpha is
+declared unassociated (ExtraSamples 2) comes back premultiplied,
 ``(v * alpha + 127) // 255``, as OpenCV reads it through libtiff's RGBA
-interface. Other layouts, sample types and codecs raise
-:class:`NotImplementedError` naming the ROADMAP item that will bring
-them (JPEG-in-TIFF: item 19, remainder); a file that does not hold what
-its tags declare raises
-:class:`~image_stitcher_tpu_torch.io.tile_decode.DecodeError`.
-LZW, PackBits and the predictor run in C (``io/tile_decode.py``),
-deflate through the stdlib's zlib.
+interface. A layout whose JAX array is not its pixels (16-bit and 10- to
+14-bit PlanarConfiguration 2 with several samples, which OpenCV reads as
+if interleaved; imageio's plane-first arrays; grey + alpha tiles
+overhanging the right edge, whose rows libtiff misplaces; FillOrder 2 in
+uncompressed tiles) or that this reader does not take raises
+:class:`NotImplementedError` naming the ROADMAP item (JPEG-in-TIFF: item
+19, remainder; the rest item 6); a file that does not hold what its tags
+declare raises :class:`~image_stitcher_tpu_torch.io.tile_decode.DecodeError`.
+LZW, PackBits, the predictors, the bit reversal, the unpacking and CCITT
+run in C (``io/tile_decode.py``), deflate through the stdlib's zlib.
 
 :func:`read_pages` reads back the port's own OME-TIFF output: every page
 of a tiled BigTIFF with its SubIFD pyramid levels, raw, deflate or JPEG
@@ -53,7 +68,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from . import jpeg, tile_decode
+from . import jpeg, tiff_rgba, tile_decode
 from .fast_tiff import _read_values
 from .tile_decode import DecodeError
 
@@ -63,17 +78,27 @@ _STRIP_OFFSETS, _SPP, _ROWS_PER_STRIP, _STRIP_COUNTS = 273, 277, 278, 279
 _PLANAR, _PREDICTOR = 284, 317
 _TILE_W, _TILE_H, _TILE_OFFSETS, _TILE_COUNTS = 322, 323, 324, 325
 _EXTRA_SAMPLES, _SAMPLE_FORMAT = 338, 339
-_YCBCR_SUBSAMPLING = 530
+_T4_OPTIONS, _COLORMAP, _INK_SET = 292, 320, 332
+_YCBCR_COEFFICIENTS, _YCBCR_SUBSAMPLING, _REFERENCE = 529, 530, 532
 _TAGS = (_WIDTH, _LENGTH, _BITS, _COMP, _PHOTO, _FILL, _STRIP_OFFSETS, _SPP,
          _ROWS_PER_STRIP, _STRIP_COUNTS, _PLANAR, _PREDICTOR, _TILE_W,
          _TILE_H, _TILE_OFFSETS, _TILE_COUNTS, _EXTRA_SAMPLES,
-         _SAMPLE_FORMAT)
+         _SAMPLE_FORMAT, _T4_OPTIONS, _COLORMAP, _INK_SET,
+         _YCBCR_COEFFICIENTS, _YCBCR_SUBSAMPLING, _REFERENCE)
+_RATIONAL = 5
 
 _DEFLATE = (8, 32946)
-_CODECS = (1, 5, 32773) + _DEFLATE
+_CCITT = (2, 3, 4)
+_LZMA = 34925
+_CODECS = (1, 5, 32773) + _DEFLATE + _CCITT + (_LZMA,)
 #: the codecs libtiff runs the Predictor tag with
 _PREDICTED = (5,) + _DEFLATE
 _UNASSOCIATED_ALPHA = 2
+#: PhotometricInterpretation
+_MIN_IS_WHITE, _MIN_IS_BLACK, _RGB, _PALETTE, _SEPARATED, _YCBCR = (0, 1, 2,
+                                                                    3, 5, 6)
+#: the YCbCrSubSampling libtiff's RGBA reader has a routine for
+_SUBSAMPLINGS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
 
 
 def _not_ported(what: str, item: str = "item 6, 'tile input without "
@@ -108,8 +133,12 @@ def read_ifd(data) -> Tuple[str, Dict[int, tuple]]:
             if tag not in _TAGS:
                 continue
             count = struct.unpack_from(bo + cfmt, mv, off + 4)[0]
-            vals = _read_values(mv, bo, ty, count,
-                                mv[off + size - inline:off + size], inline)
+            if ty == _RATIONAL:
+                vals = _rationals(mv, bo, count, off + size - inline, inline)
+            else:
+                vals = _read_values(mv, bo, ty, count,
+                                    mv[off + size - inline:off + size],
+                                    inline)
             if vals is None or len(vals) != count:
                 raise DecodeError(f"TIFF tag {tag}: type {ty}")
             tags[tag] = vals
@@ -118,15 +147,50 @@ def read_ifd(data) -> Tuple[str, Dict[int, tuple]]:
     return bo, tags
 
 
+def _rationals(mv, bo: str, count: int, field: int, inline: int) -> tuple:
+    """RATIONAL values as libtiff reads them into floats: the numerator
+    over the denominator in 32-bit floats (0 for a 0 denominator)."""
+    where = field if 8 * count <= inline else struct.unpack_from(
+        bo + ('Q' if inline == 8 else 'I'), mv, field)[0]
+    pairs = np.frombuffer(mv, bo + 'u4', 2 * count, where).astype(np.float32)
+    num, den = pairs[0::2], pairs[1::2]
+    return tuple(float(n / d) if d else 0.0 for n, d in zip(num, den))
+
+
+def _lzma_decompress(raw, off: int) -> bytes:
+    try:
+        import lzma
+    except ImportError:
+        raise ImportError("LZMA TIFF tiles (compression 34925) need the "
+                          "Python standard library's lzma module, which "
+                          "this Python lacks") from None
+    try:
+        return lzma.decompress(bytes(raw))
+    except lzma.LZMAError as e:
+        raise DecodeError(f"TIFF LZMA segment at {off}: {e}") from None
+
+
 def _segment(data, comp: int, off: int, count: int, size: int,
-             plain: bool = False):
+             plain: bool = False, rows: int = 0, cols: int = 0,
+             reverse: bool = False, options: int = 0):
     """One strip or tile decoded to exactly ``size`` bytes (``plain``:
-    by the plain versions of the C decoders)."""
+    by the plain versions of the C decoders); ``reverse``: its stored
+    bytes bit-reversed first (FillOrder 2); CCITT segments are ``rows``
+    rows of ``cols`` pixels, ``options`` their T4Options."""
     raw = data[off:off + count]
     if len(raw) != count:
         raise DecodeError(f"TIFF segment at {off} runs past the file's end")
+    if reverse:
+        raw = (tile_decode.reverse_bits_plain if plain
+               else tile_decode.reverse_bits)(raw)
     if comp == 1:
         out = raw
+    elif comp in _CCITT:
+        out = (tile_decode.ccitt_decode_plain if plain
+               else tile_decode.ccitt_decode)(raw, rows, cols, comp,
+                                              options).reshape(-1)
+    elif comp == _LZMA:
+        out = _lzma_decompress(raw, off)
     elif comp == 5:
         out = (tile_decode.lzw_decode_plain if plain
                else tile_decode.lzw_decode)(raw, size)
@@ -231,10 +295,124 @@ def read_pages(data):
     return pages
 
 
+def _route(tags, comp: int, bits: int, kind: str, photo: int, spp: int,
+           planar: int, predictor: int, fill: int) -> str:
+    """Which of the JAX package's readers gives this file's pixels, as
+    this reader reproduces it: 'direct' (OpenCV's own sample path),
+    'rgba' (OpenCV through libtiff's RGBA interface, ``io/tiff_rgba.py``)
+    or 'imageio' (OpenCV returns None; imageio's tifffile gives the raw
+    samples). A layout whose JAX array is not its pixels, or that this
+    reader does not take, raises :class:`NotImplementedError`."""
+    tiled = _TILE_OFFSETS in tags
+    where = f"{bits}-bit {kind} samples, {spp} a pixel, photometric {photo}"
+
+    def refuse(why=""):
+        return _not_ported(f"{where}{why}")
+
+    if planar not in (1, 2) or predictor not in (1, 2, 3):
+        raise _not_ported(f"PlanarConfiguration {planar}, Predictor "
+                          f"{predictor}")
+    if predictor == 3 and kind != 'f':
+        raise DecodeError("TIFF Predictor 3 (floating point) on integer "
+                          "samples")
+    if fill == 2 and comp == 1 and tiled:
+        # OpenCV reads some such files and imageio others (raw samples)
+        raise refuse(", FillOrder 2 in uncompressed tiles")
+    imageio = comp == _LZMA or spp >= 5
+    if bits < 8 or bits in (10, 12, 14):
+        if kind != 'u' or predictor != 1 or (planar == 2 and spp > 1):
+            raise refuse(f", Predictor {predictor}, PlanarConfiguration "
+                         f"{planar}")
+        if comp in _CCITT and (bits != 1 or spp != 1):
+            raise refuse(f" in CCITT compression {comp}")
+        if imageio:      # a bool array, or imageio raises
+            raise refuse(f" in compression {comp}")
+        if bits in (10, 12, 14):
+            if photo in (_MIN_IS_WHITE, _MIN_IS_BLACK, _RGB) and spp in (
+                    1, 3, 4):
+                return 'direct'
+            raise refuse()
+        if spp == 1 and (bits == 1 and photo in (_MIN_IS_WHITE,
+                                                 _MIN_IS_BLACK, _PALETTE)
+                         or bits == 4 and photo == _PALETTE):
+            return 'rgba'
+        if bits in (2, 4) and photo in (_MIN_IS_WHITE, _MIN_IS_BLACK,
+                                        _RGB, _PALETTE):
+            return 'imageio'      # OpenCV refuses the header
+        raise refuse()
+    if comp in _CCITT:
+        raise refuse(f" in CCITT compression {comp}")
+    if bits not in (8, 16, 32, 64) or (kind == 'f' and bits < 16):
+        raise refuse()
+    half = kind == 'f' and bits == 16
+    if half and (spp not in (1, 3) or predictor == 2
+                 or (predictor == 3 and tiled)):
+        # the JAX package reads float16 through imageio's tifffile, which
+        # sums Predictor 2's differences as floats, has no Predictor 3 for
+        # tiles and keeps an alpha sample: none of them gives the pixels
+        raise _not_ported(f"float16 samples, {spp} a pixel, Predictor "
+                          f"{predictor}, in "
+                          f"{'tiles' if tiled else 'strips'}")
+    if planar == 2 and bits > 8 and spp > 1:
+        # OpenCV 5.0 reads such planes as if they were interleaved;
+        # imageio gives the planes first: neither is the pixels
+        raise refuse(f", PlanarConfiguration {planar}")
+    if imageio or half:
+        if planar == 2 and spp > 1:
+            raise refuse(", PlanarConfiguration 2 (imageio gives the "
+                         "planes first)")
+        if predictor == 3 and tiled:
+            raise refuse(", Predictor 3 in tiles (imageio raises)")
+        if photo == _YCBCR and tags.get(_YCBCR_SUBSAMPLING) != (1, 1):
+            raise refuse(", subsampled")
+        return 'imageio'
+    sub = tags.get(_YCBCR_SUBSAMPLING, (2, 2))
+    if spp == 2 and tiled and tags[_WIDTH][0] % tags.get(_TILE_W, (1,))[0]:
+        # libtiff's grey + alpha routines misplace the rows of a tile that
+        # overhangs the right edge: the JAX array is not the pixels there
+        raise refuse(", in tiles overhanging the right edge")
+    if bits == 8 and kind in 'ui':
+        if photo in (_MIN_IS_WHITE, _MIN_IS_BLACK) and spp in (1, 2):
+            return 'rgba'
+        if photo == _RGB and spp in (3, 4):
+            return 'direct'
+        if kind == 'u' and photo == _PALETTE and spp == 1:
+            return 'rgba'
+        if kind == 'u' and photo == _SEPARATED and spp in (3, 4):
+            return ('rgba' if spp == 4 and tags.get(_INK_SET, (1,))[0] == 1
+                    else 'imageio')
+        if kind == 'u' and photo == _YCBCR and spp == 3 and planar == 1 \
+                and sub in _SUBSAMPLINGS \
+                and (predictor == 1 or sub == (1, 1)):
+            return 'rgba'
+        raise refuse()
+    if bits == 16 and kind in 'ui':
+        if photo in (_MIN_IS_WHITE, _MIN_IS_BLACK) and spp == 2 \
+                and kind == 'u':
+            return 'rgba'
+        if kind == 'u' and (photo == _PALETTE and spp == 1
+                            or photo == _SEPARATED and spp == 4
+                            or photo == _YCBCR and spp == 3 and tags.get(
+                                _YCBCR_SUBSAMPLING) == (1, 1)):
+            return 'imageio'
+    if (photo, spp) in ((_MIN_IS_WHITE, 1), (_MIN_IS_BLACK, 1), (_RGB, 3),
+                        (_RGB, 4)):
+        return 'direct'
+    raise refuse()
+
+
 def decode_tiff(data, plain: bool = False) -> np.ndarray:
     """Decode the first image of a TIFF file (bytes-like); ``plain`` runs
-    the plain versions of the C decoders (LZW, PackBits, the predictors),
-    which the tests and ``chip_smoke.py`` hold the C ones to."""
+    the plain versions of the C decoders (LZW, PackBits, the predictors,
+    bit reversal, unpacking, CCITT), which the tests and
+    ``chip_smoke.py`` hold the C ones to."""
+    return decode(data, plain)[0]
+
+
+def decode(data, plain: bool = False) -> Tuple[np.ndarray, bool]:
+    """:func:`decode_tiff`, and whether the JAX package's array for the
+    file comes from imageio, which keeps every sample (its ``read_image``
+    drops a fourth sample only from OpenCV's)."""
     mv = memoryview(data)
     bo, tags = read_ifd(mv)
 
@@ -244,48 +422,36 @@ def decode_tiff(data, plain: bool = False) -> np.ndarray:
     if _WIDTH not in tags or _LENGTH not in tags:
         raise DecodeError("TIFF without ImageWidth/ImageLength")
     w, h = tags[_WIDTH][0], tags[_LENGTH][0]
+    if w < 1 or h < 1:
+        raise DecodeError(f"TIFF of {w} x {h} pixels")
     spp = tag(_SPP, 1)
     comp = tag(_COMP, 1)
-    bits = set(tags.get(_BITS, (1,)))
+    bitset = set(tags.get(_BITS, (1,)))
     if comp in (6, 7):
         raise _not_ported("JPEG compression",
                           "item 19 (remainder), 'JPEG-in-TIFF tile input'")
     if comp not in _CODECS:
         raise _not_ported(f"compression {comp}")
-    if len(bits) != 1 or next(iter(bits)) not in (8, 16, 32, 64):
-        raise _not_ported(f"{sorted(bits)}-bit samples")
+    if len(bitset) != 1 or not 1 <= next(iter(bitset)) <= 64:
+        raise _not_ported(f"{sorted(bitset)}-bit samples")
+    bits = next(iter(bitset))
     formats = sorted(set(tags.get(_SAMPLE_FORMAT, (1,))))
     kind = ({1: 'u', 2: 'i', 3: 'f'}.get(formats[0]) if len(formats) == 1
             else None)
-    if kind is None or (kind == 'f' and next(iter(bits)) < 16):
-        raise _not_ported(f"SampleFormat {formats} with {sorted(bits)}-bit "
-                          "samples")
-    half = kind == 'f' and next(iter(bits)) == 16
-    photo = tag(_PHOTO, 1 if spp == 1 else 2)
-    if (photo, spp) not in ((1, 1), (2, 3), (2, 4)):
-        raise _not_ported(f"photometric {photo} with {spp} samples a pixel")
-    if tag(_FILL, 1) != 1:
-        raise _not_ported("FillOrder 2")
+    if kind is None:
+        raise _not_ported(f"SampleFormat {formats} with {bits}-bit samples")
+    photo = tag(_PHOTO, _MIN_IS_BLACK if spp == 1 else _RGB)
+    fill = tag(_FILL, 1)
     planar = tag(_PLANAR, 1)
     predictor = tag(_PREDICTOR, 1)
-    itemsize = next(iter(bits)) // 8
-    if (planar not in (1, 2) or predictor not in (1, 2, 3)
-            or (planar == 2 and itemsize > 1 and spp > 1)):
-        raise _not_ported(f"PlanarConfiguration {planar}, Predictor "
-                          f"{predictor}, {8 * itemsize}-bit samples")
-    if predictor == 3 and kind != 'f':
-        raise DecodeError("TIFF Predictor 3 (floating point) on integer "
-                          "samples")
-    if half and (spp not in (1, 3) or predictor == 2
-                 or (predictor == 3 and _TILE_OFFSETS in tags)):
-        # the JAX package reads float16 through imageio's tifffile, which
-        # sums Predictor 2's differences as floats, has no Predictor 3 for
-        # tiles and keeps an alpha sample: none of them gives the pixels
-        raise _not_ported(f"float16 samples, {spp} a pixel, Predictor "
-                          f"{predictor}, in "
-                          f"{'tiles' if _TILE_OFFSETS in tags else 'strips'}")
+    route = _route(tags, comp, bits, kind, photo, spp, planar, predictor,
+                   fill)
+    bytewise = bits in (8, 16, 32, 64)
+    itemsize = bits // 8 if bytewise else 1
     sspp = spp if planar == 1 else 1     # samples a pixel in a segment
     planes = 1 if planar == 1 else spp
+    sub = tags.get(_YCBCR_SUBSAMPLING, (2, 2))
+    units = route == 'rgba' and photo == _YCBCR and sub != (1, 1)
 
     if _TILE_OFFSETS in tags:
         tw, tl = tag(_TILE_W, 0), tag(_TILE_H, 0)
@@ -304,34 +470,55 @@ def decode_tiff(data, plain: bool = False) -> np.ndarray:
         seg_rows = [min(rps, h - s * rps) for s in range(strips)]
         seg_cols = w
     nseg = planes * len(seg_rows)
-    row_bytes = seg_cols * sspp * itemsize
+    row_bytes = (seg_cols * sspp * bits + 7) // 8
+    if units:
+        sh, sv = sub
+        sizes = [-(-r // sv) * -(-seg_cols // sh) * (sh * sv + 2)
+                 for r in seg_rows]
+    else:
+        sizes = [r * row_bytes for r in seg_rows] * planes
     if counts is None and comp == 1:
-        counts = [r * row_bytes for r in seg_rows] * planes
+        counts = sizes
     if counts is None or len(offsets) < nseg or len(counts) < nseg:
         raise DecodeError(f"TIFF lists {len(offsets)} segments, the image "
                           f"needs {nseg}")
-    sizes = [r * row_bytes for r in seg_rows] * planes
     buf = np.empty(sum(sizes), np.uint8)
     pos = 0
-    for off, count, size in zip(offsets, counts, sizes):
-        seg = _segment(mv, comp, off, count, size, plain)
+    for off, count, size, rows in zip(offsets, counts, sizes,
+                                      seg_rows * planes):
+        seg = _segment(mv, comp, off, count, size, plain, rows, seg_cols,
+                       fill == 2, tag(_T4_OPTIONS, 0))
         buf[pos:pos + size] = np.frombuffer(seg, np.uint8, count=size)
         pos += size
-    # imageio (float16) undoes the predictor after any codec, libtiff
-    # after LZW and deflate only
-    predicted = predictor if comp in _PREDICTED or half else 1
-    if predicted == 3:
-        (tile_decode.undo_fp_predictor_plain if plain
-         else tile_decode.undo_fp_predictor)(buf.reshape(-1, row_bytes),
-                                             sspp, itemsize)
-    samples = buf.view(np.dtype(f'=u{itemsize}'))
-    if bo == '>' and itemsize > 1 and predicted != 3:
-        samples.byteswap(inplace=True)
-    if predicted == 2:
-        (tile_decode.undo_predictor_plain if plain
-         else tile_decode.undo_predictor)(
-            samples.reshape(-1, seg_cols * sspp), sspp)
-    samples = samples.view(np.dtype(f'={kind}{itemsize}'))
+
+    if units:
+        # YCbCr data units: (Y, Cb, Cr) planes of each segment
+        samples = np.concatenate([
+            tiff_rgba.ycbcr_planes(buf[a:a + n], r, seg_cols, sub).reshape(
+                r, seg_cols * 3)
+            for a, n, r in zip(np.cumsum([0] + sizes[:-1]), sizes,
+                               seg_rows)])
+    elif not bytewise:
+        samples = (tile_decode.unpack_samples_plain if plain
+                   else tile_decode.unpack_samples)(
+            buf, len(buf) // row_bytes, row_bytes, seg_cols * sspp, bits)
+    else:
+        # imageio undoes the predictor after any codec, libtiff after LZW
+        # and deflate only
+        predicted = (predictor if comp in _PREDICTED or route == 'imageio'
+                     else 1)
+        if predicted == 3:
+            (tile_decode.undo_fp_predictor_plain if plain
+             else tile_decode.undo_fp_predictor)(buf.reshape(-1, row_bytes),
+                                                 sspp, itemsize)
+        samples = buf.view(np.dtype(f'=u{itemsize}'))
+        if bo == '>' and itemsize > 1 and predicted != 3:
+            samples.byteswap(inplace=True)
+        if predicted == 2:
+            (tile_decode.undo_predictor_plain if plain
+             else tile_decode.undo_predictor)(
+                samples.reshape(-1, seg_cols * sspp), sspp)
+        samples = samples.view(np.dtype(f'={kind}{itemsize}'))
 
     if _TILE_OFFSETS in tags:
         grid = samples.reshape(planes, down, across, tl, tw, sspp)
@@ -341,10 +528,37 @@ def decode_tiff(data, plain: bool = False) -> np.ndarray:
         img = samples.reshape(planes, h, w, sspp)
     img = img[0] if planes == 1 else np.moveaxis(img[..., 0], 0, -1)
     img = np.ascontiguousarray(img)
-    if spp == 1:
-        return img[:, :, 0]
-    if (spp == 4 and itemsize == 1
-            and tag(_EXTRA_SAMPLES, 0) == _UNASSOCIATED_ALPHA):
+    if route == 'rgba':
+        img = _rgba(img, tags, bits, photo)
+    elif route == 'direct' and bits in (10, 12, 14):
+        img <<= 16 - bits           # OpenCV scales them to 16 bits
+    elif (route == 'direct' and spp == 4 and itemsize == 1
+          and tag(_EXTRA_SAMPLES, 0) == _UNASSOCIATED_ALPHA):
         alpha = img[:, :, 3:].astype(np.uint32)
         img[:, :, :3] = (img[:, :, :3] * alpha + 127) // 255
-    return img
+    return (img[:, :, 0] if img.ndim == 3 and img.shape[2] == 1
+            else img), route == 'imageio'
+
+
+def _rgba(img: np.ndarray, tags, bits: int, photo: int) -> np.ndarray:
+    """What OpenCV keeps of libtiff's RGBA pixels: grey for MinIsBlack /
+    MinIsWhite (of a sample and its alpha) and for 1-bit palette indices,
+    RGB for palettes of 4 and 8 bits, CMYK and YCbCr."""
+    if photo in (_MIN_IS_WHITE, _MIN_IS_BLACK):
+        # int8 samples map as their bits, and stay int8
+        first = img[:, :, 0]
+        out = tiff_rgba.grey(first.view(f'=u{first.itemsize}'), bits,
+                             photo == _MIN_IS_WHITE)
+        return out.view(img.dtype) if bits == 8 else out
+    if photo == _PALETTE:
+        cmap = np.asarray(tags.get(_COLORMAP, ()), np.uint16)
+        if cmap.size != 3 << bits:
+            raise DecodeError(f"TIFF palette of {cmap.size} entries for "
+                              f"{bits}-bit indices")
+        rgb = tiff_rgba.palette(img[:, :, 0], cmap.reshape(3, -1))
+        return tiff_rgba.to_grey(rgb) if bits == 1 else rgb
+    if photo == _SEPARATED:
+        return tiff_rgba.cmyk(img)
+    return tiff_rgba.ycbcr(img, tiff_rgba.ycbcr_tables(
+        tags.get(_YCBCR_COEFFICIENTS, tiff_rgba.DEFAULT_COEFFICIENTS),
+        tags.get(_REFERENCE, tiff_rgba.DEFAULT_REFERENCE)))

@@ -15,7 +15,8 @@ then indented lines). It reports:
   fuses on the card;
 - Native: each host C library (the host fuser's ``hostops``, the chunk
   codecs ``blosc``, the ``tile_decode`` decoders, ``jpeg``) and the
-  symbols bound from it;
+  symbols bound from it, and whether the standard library's ``lzma``
+  (LZMA TIFF tiles) is there;
 - Disk: the write rate where outputs land and the O_DIRECT probe's
   verdict for raw chunk writes;
 - Caches: the built libraries under ``build/`` and the probe cache.
@@ -51,7 +52,9 @@ HOST_SYMBOLS = {
     'blosc': ('blosc_compress', 'blosc_decompress', 'blosc_shuffle_blocks',
               'blosc_unshuffle_blocks', 'all_zero'),
     'tile_decode': ('tiff_lzw_decode', 'packbits_decode',
-                    'tiff_predictor_undo', 'png_unfilter'),
+                    'tiff_predictor_undo', 'tiff_fp_predictor_undo',
+                    'png_unfilter', 'reverse_bits', 'unpack_samples',
+                    'ccitt_decode', 'bmp_rle_decode'),
     'jpeg': ('jpeg_info', 'jpeg_decode', 'jpeg_encode'),
 }
 #: the CUDA kernel libraries of csrc/
@@ -177,6 +180,13 @@ def _check_native() -> List[str]:
         missing = sorted(set(symbols) - set(bound))
         lines.append(f"{name}: OK ({', '.join(bound)})"
                      + (f"; MISSING {', '.join(missing)}" if missing else ""))
+    try:
+        import lzma  # noqa: F401
+        lines.append("lzma: OK (the standard library's module: LZMA TIFF "
+                     "tiles read)")
+    except ImportError:
+        lines.append("lzma: MISSING from this Python — LZMA TIFF tiles "
+                     "(compression 34925) raise")
     return lines
 
 

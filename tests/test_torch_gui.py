@@ -13,6 +13,7 @@ a dialog. PyQt5 and napari are absent here and on the card's host, so
 ``qt_compat`` gives the stand-ins.
 """
 
+import json
 import os
 import time
 
@@ -106,9 +107,34 @@ def test_gui_full_run(tmp_path, monkeypatch, qapp):
     assert gui.stitcher.exitcode == 0
 
 
-def test_gui_run_equals_the_jax_gui_run(tmp_path, qapp):
+def _shared_disk_probe(tmp_path, monkeypatch):
+    """One disk probe result for both GUIs' children. Each GUI runs with
+    ``compressor_cname='auto'``, whose choice between raw and blosc-lz4
+    chunks asks the output disk's write rate (``io/directio.py``), timed
+    once per package in the spawned child and cached under HOME: on a
+    loaded machine the two timings could fall on either side of the
+    300 MB/s-a-core gate, and the two runs then stored different chunks.
+    A HOME of the test's own, holding the same probe entry in both
+    packages' caches, gives both children one measurement; the 'auto'
+    choice itself still runs in each."""
+    from image_stitcher_tpu.io import directio as jax_directio
+    from image_stitcher_tpu_torch.io import directio
+    home = tmp_path / "home"
+    monkeypatch.setenv("HOME", str(home))
+    entry = {"ts": time.time(), "buffered_mbps": 200.0,
+             "direct_mbps": 200.0}
+    for pkg, mod in (('image_stitcher_tpu', jax_directio),
+                     ('image_stitcher_tpu_torch', directio)):
+        cache = home / ".cache" / pkg
+        cache.mkdir(parents=True)
+        with open(cache / "directio.json", 'w') as f:
+            json.dump({mod._cache_key(str(tmp_path)): entry}, f)
+
+
+def test_gui_run_equals_the_jax_gui_run(tmp_path, qapp, monkeypatch):
     """The same clicks on both GUIs (registration on, channel and z from
     the probe): equal trees."""
+    _shared_disk_probe(tmp_path, monkeypatch)
     paths = {}
     for name, mod, kw in (('jax', jax_gui, {}), ('port', gui_mod,
                                                 {'device': 'cpu'})):
@@ -121,6 +147,9 @@ def test_gui_run_equals_the_jax_gui_run(tmp_path, qapp):
         _pump(gui)
         assert "Complete" in gui.status_label.text(), gui.status_label.text()
         paths[name] = gui.output_path
+        with open(os.path.join(gui.output_path, '0', '.zarray')) as f:
+            # the shared probe's slow disk: both runs chose blosc-lz4
+            assert json.load(f)['compressor']['cname'] == 'lz4'
     assert_trees_equal(paths['jax'], paths['port'])
 
 

@@ -230,18 +230,18 @@ def test_cli_runs_the_slice_on_cpu(tmp_path):
 
 
 def _refused_tiles(acq):
-    """Make every tile of ``acq`` an RLE8 BMP, a tile format the port
-    does not read yet (ROADMAP item 6): the companion that still raises
-    now that every option runs."""
+    """Make every tile of ``acq`` a BMP with the OS/2 BITMAPCOREHEADER,
+    which OpenCV 5.0 misreads and the port refuses (ROADMAP item 6, and
+    section 3): the companion that still raises now that every option
+    runs and every other tile format of item 6 is read."""
     from torch_tile_files import bmp_bytes
     palette = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
-    data = bytearray(bmp_bytes(np.zeros((32, 32), np.uint8), 8, palette))
-    data[30] = 1     # BI_RLE8
+    data = bmp_bytes(np.zeros((32, 32), np.uint8), 8, palette, header=12)
     for d, _, names in os.walk(acq):
         for n in names:
             if n.endswith('.tiff'):
                 with open(os.path.join(d, n), 'wb') as f:
-                    f.write(bytes(data))
+                    f.write(data)
 
 
 @pytest.mark.parametrize("option", [

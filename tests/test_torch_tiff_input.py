@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 
 import torch_tiff_samples
-from torch_tile_files import tiff_bytes
+from torch_tile_files import lzw_encode_old, tiff_bytes
 from image_stitcher_tpu.io.acquisition import read_image as jax_read_image
 from image_stitcher_tpu_torch.io.acquisition import read_image
 from image_stitcher_tpu_torch.io.tiff import decode_tiff
@@ -171,7 +171,23 @@ def test_magic_bytes_not_suffix(tmp_path):
 @pytest.mark.parametrize("what", ['jpeg', 'float', 'old_lzw', 'palette',
                                   'bits12', 'half'])
 def test_out_of_scope_raises_naming_an_item(tmp_path, what):
+    """JPEG-in-TIFF (item 19, remainder), 8-bit float samples and float16
+    with Predictor 2 (which the JAX package's imageio sums as floats)
+    still raise naming their item. Old-style LZW, palettes and 12-bit
+    samples, which raised naming item 6 until its remainder was ported,
+    read as the JAX package reads them."""
     img = _image(6, np.uint8, 1, h=16, w=16)
+    if what in ('old_lzw', 'palette', 'bits12'):
+        rng = np.random.default_rng(6)
+        data = {'old_lzw': lambda: tiff_bytes(img, 5, lzw=lzw_encode_old),
+                'palette': lambda: tiff_bytes(img, 5, photometric=3,
+                                              colormap=rng.integers(
+                                                  0, 65536, (3, 256))),
+                'bits12': lambda: tiff_bytes(img.astype(np.uint16) * 16, 5,
+                                             bits=12)}[what]()
+        got = _assert_same(_write(tmp_path, data, "t.tif"))
+        assert got.shape[:2] == img.shape
+        return
     if what == 'jpeg':
         path = str(tmp_path / "t.tiff")
         assert cv2.imwrite(path, img, [int(cv2.IMWRITE_TIFF_COMPRESSION), 7])
@@ -179,21 +195,15 @@ def test_out_of_scope_raises_naming_an_item(tmp_path, what):
     else:
         # LZW: the fast path (which reads raw samples whatever the tags
         # say, as the JAX one does) declines the file
-        # half: float16 with Predictor 2, which the JAX package's
-        # imageio sums as floats
         data = bytearray(tiff_bytes(img.astype(np.float16), 5, 2)
                          if what == 'half' else tiff_bytes(img, 5, 1))
-        if what == 'old_lzw':
-            data[8:8 + 2] = b'\x00\x01'     # the strip: LSB-first ClearCode
-        elif what != 'half':
-            tag, value = {'float': (339, 3), 'palette': (262, 3),
-                          'bits12': (258, 12)}[what]
+        if what == 'float':
             ifd = int.from_bytes(data[4:8], 'little')
             n = int.from_bytes(data[ifd:ifd + 2], 'little')
             for i in range(n):
                 e = ifd + 2 + 12 * i
-                if int.from_bytes(data[e:e + 2], 'little') == tag:
-                    data[e + 8:e + 10] = value.to_bytes(2, 'little')
+                if int.from_bytes(data[e:e + 2], 'little') == 339:
+                    data[e + 8:e + 10] = (3).to_bytes(2, 'little')
         path = _write(tmp_path, bytes(data), "t.tif")
         item = "item 6"
     with pytest.raises(NotImplementedError, match=item):

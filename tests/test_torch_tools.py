@@ -307,6 +307,8 @@ def test_doctor_sections_on_this_host(tmp_path, capsys, monkeypatch):
     assert "'auto' fuses on the card" in out
     for lib in doctor.HOST_SYMBOLS:
         assert re.search(rf'^  {lib}: OK \(', out, re.M), lib
+    assert 'ccitt_decode' in out and 'bmp_rle_decode' in out
+    assert re.search(r'^  lzma: OK \(', out, re.M)
     assert 'MISSING' not in out
     assert re.search(r'disk write .*: \d+ MB/s \(8 MB', out)
     assert 'direct-IO probe:' in out
