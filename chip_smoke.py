@@ -66,12 +66,12 @@ Phases, each fatal on failure:
      their plain versions and their sources, BMP row layouts, and each
      routine's MB/s on 2048^2 u16 tiles on one thread and on the 8-thread
      reader pool; (b) the main path's grid and options (as phase 5) on the
-     bench's compressible content, stored as uncompressed TIFF, a 6x6
-     grid of it as uncompressed TIFF and as 16-bit PNG with the row
-     filters cycling (cut from 10x10 for the script's time), and
-     a 4x4 grid as uncompressed TIFF and as deflate + predictor TIFF in
-     2-row strips: the PNG and deflate trees decode equal to the
-     uncompressed one of their grid, with e2e, tiles/s, the loader's and the writer's
+     bench's compressible content, stored as uncompressed TIFF, and a
+     4x4 grid of it (cut from 10x10 for the script's time) as
+     uncompressed TIFF, as 16-bit PNG with the row filters cycling and
+     as deflate + predictor TIFF in 2-row strips: the PNG and deflate
+     trees decode equal to the uncompressed one, with e2e, tiles/s, the
+     loader's and the writer's
      seconds, decode seconds a tile and decodes a file; (c) 3x3 grids: a
      u8 mono BMP acquisition (gray palette, bottom-up rows) equal to its
      uncompressed-TIFF twin, and a u8 RGB PNG acquisition on the in-RAM
@@ -220,6 +220,16 @@ Phases, each fatal on failure:
      stitched on the card (no field, no registration, overwrite, raw),
      each tree equal to its uncompressed twin's, with whole-tile decode
      MB/s on one thread and 8 and the launches.
+ 19. (run right after phase 18) the rest of the JPEG tile input: (a)
+     every file of ``tests/torch_jpeg_formats.npz`` (lossless, arithmetic-
+     coded, block-smoothed and JPEG-in-TIFF, with the SHA-256 of the JAX
+     package's ``read_image`` array on the CPU test host) decoded by the
+     C codec to that array and by the plain version to the same bytes;
+     (b) whole-tile decode MB/s of 2048^2 lossless grey, arithmetic-coded
+     progressive RGB 4:2:0 and JPEG-in-TIFF YCbCr 2x2 (256^2 tiles,
+     JPEGTables) tiles on one thread and 8; (c) a 4x4 grid of each
+     stitched on the card with the field (no registration, overwrite,
+     raw), each tree equal to its uncompressed twin's, with the launches.
 
 The line before the last is a JSON object with one entry per kernel, and
 one per kernel's float16 instantiation (``name[float16]``: phase 3's
@@ -2062,8 +2072,8 @@ def stitch_input(acq: str, out: str, dev, card: str, label: str,
 def phase_tile_input(work: str, card: str, grid: int = 10,
                      tile: int = TILE, device: str = 'cuda') -> dict:
     """9: tile input without OpenCV. 9a the C decoders; 9b the main path's
-    grid stored as uncompressed TIFF, a 6x6 grid as 16-bit PNG (filters
-    cycling) and a 4x4 grid as deflate + predictor TIFF in 2-row strips,
+    grid stored as uncompressed TIFF, 4x4 grids as 16-bit PNG (filters
+    cycling) and as deflate + predictor TIFF in 2-row strips,
     each stitched on the card, the PNG and deflate trees to the tree of
     an uncompressed-TIFF twin of their grid; 9c 3x3 grids: u8 mono
     BMP against its
@@ -2083,18 +2093,16 @@ def phase_tile_input(work: str, card: str, grid: int = 10,
             cache[side] = compressible(r, side)
         return cache[side]
 
-    # the deflate run is cut to a 4x4 grid (the smallest that streams in
-    # bands), the PNG run to 6x6 (its tiles take 0.36 s each to write in
-    # Python), each held to an uncompressed twin of its own: their cost
-    # is the decodes, which a cut grid still measures per tile; cut for
-    # the script's time
-    small, mid = 4, 6
+    # the PNG and deflate runs are cut to a 4x4 grid (the smallest that
+    # streams in bands; PNG tiles take 0.36 s each to write in Python),
+    # both held to one uncompressed twin: their cost is the decodes,
+    # which a cut grid still measures per tile; cut for the script's time
+    small = 4
     formats = (
         ('tiff', None, 'tiff', grid),
-        (f'tiff-{mid}x{mid}', None, 'tiff', mid),
-        ('png', lambda b: tf.png_bytes(b, 0, 16, filters=range(5), level=1),
-         'png', mid),
         (f'tiff-{small}x{small}', None, 'tiff', small),
+        ('png', lambda b: tf.png_bytes(b, 0, 16, filters=range(5), level=1),
+         'png', small),
         ('deflate', lambda b: tf.tiff_bytes(b, 8, 2, rows_per_strip=2),
          'tiff', small))
     runs, twins = {}, {}
@@ -4778,51 +4786,252 @@ def phase_tile_layouts(work: str, card: str, grid: int = 4,
     return res
 
 
+# --------------------------------------------------------------------- 19
+
+def jpeg_formats():
+    """``tests/torch_jpeg_coders.py`` (the lossless encoder, JPEG-in-TIFF
+    files) and ``tests/torch_jpeg_formats.py`` (the kept files)."""
+    tile_files()      # puts tests/ on the path
+    import torch_jpeg_coders
+    import torch_jpeg_formats
+    return torch_jpeg_coders, torch_jpeg_formats
+
+
+def kept_formats_check() -> int:
+    """19a: every file of ``tests/torch_jpeg_formats.npz`` (lossless,
+    arithmetic-coded, smoothed and JPEG-in-TIFF, each with the SHA-256 of
+    the JAX package's ``read_image`` array on the CPU test host) decoded
+    by the C codec to that array, and by the plain version (but the
+    2048^2 tile) to the same bytes."""
+    _, formats = jpeg_formats()
+    from torch_jpeg_streams import pixel_digest
+    kept = formats.load()
+    for name, (data, digest) in kept.items():
+        got = formats.decode(name, data)
+        if pixel_digest(got) != digest:
+            raise SystemExit(f"JPEG formats (19a): {name} does not decode "
+                             f"to the JAX package's array")
+        if not name.startswith('tile') and formats.decode(
+                name, data, plain=True).tobytes() != got.tobytes():
+            raise SystemExit(f"JPEG formats (19a): {name}: the plain "
+                             f"version differs from the C codec")
+    return len(kept)
+
+
+def format_grids(coders, formats):
+    """19b, c: (label, texture, encode, twin, channel) of the three
+    grids: lossless 8-bit grey (predictor 1, a restart every 16 rows;
+    the texture repeats with the grid's step, so every tile is one
+    stream, encoded once: the NumPy encoder is slow on this host), the
+    kept arithmetic-coded progressive RGB 4:2:0 tile with a restart
+    interval at every position, and JPEG-in-TIFF YCbCr 2x2 in 256^2
+    tiles with JPEGTables (the port's C encoder, q85). ``twin`` writes
+    the pixels of ``encode``'s file as an uncompressed TIFF."""
+    from image_stitcher_tpu_torch.io import jpeg
+    from image_stitcher_tpu_torch.io.tiff import decode_tiff
+    tf = tile_files()
+    lock = threading.Lock()
+    cache = {}
+
+    def once(key, make):
+        with lock:
+            if key not in cache:
+                cache[key] = make()
+            return cache[key]
+
+    def periodic(step):
+        def texture(rng, side):
+            base = (compressible(rng, step) >> 8).astype(np.uint8)
+            reps = -(-side // step)
+            return np.tile(base, (reps, reps))[:side, :side]
+        return texture
+
+    arith, _ = formats.load()['tile-ar-prog-420-rst']
+    arith_px = jpeg.decode(arith)
+
+    def ycc_tiff(b):
+        return coders.jpeg_tiff(b, 6, 85, (2, 2), tile=(256, 256),
+                                encode=jpeg.encode)
+
+    def rgb(r, side):
+        return np.zeros((side, side), np.uint8)
+
+    def colour(r, side):
+        p = (compressible(r, side) >> 8).astype(np.uint8)
+        return np.stack([p, p[::-1], p[:, ::-1]], -1)
+
+    return (
+        ('lossless-grey', periodic,
+         lambda b: once(('ll', b.tobytes()), lambda: coders.lossless(
+             [b], 8, 1, restart=16 * b.shape[1])),
+         lambda b: tf.tiff_bytes(b), LAYOUT_CHANNEL, 'jpg'),
+        ('arith-prog-420-rst', lambda step: rgb,
+         lambda b: arith, lambda b: tf.tiff_bytes(arith_px),
+         "BF LED matrix full", 'jpg'),
+        ('jpeg-tiff-ycc22', lambda step: colour,
+         ycc_tiff, lambda b: tf.tiff_bytes(decode_tiff(ycc_tiff(b))),
+         "BF LED matrix full", 'tiff'))
+
+
+def format_rates(card: str, grids, grid: int, tile: int, overlap: int,
+                 seed: int) -> dict:
+    """MB/s of pixels out of whole-file decodes of each grid's first tile
+    (``io/acquisition.py::_decode``, the readers' path), on one thread and
+    on the 8-thread reader pool."""
+    from image_stitcher_tpu_torch.io import acquisition
+    rates = {}
+    step = tile - overlap
+    side = step * (grid - 1) + tile + 16
+    for label, texture, encode, _, _, suffix in grids:
+        gt = texture(step)(np.random.default_rng(seed), side)
+        data = encode(np.ascontiguousarray(gt[8:8 + tile, 8:8 + tile]))
+        path = f'A1_0_0_rate.{suffix}'
+        out = acquisition._decode(data, path)[0]
+        n = READERS
+        out_mb = n * out.nbytes / 1e6
+        row = []
+        for threads in (1, READERS):
+            with ThreadPoolExecutor(threads) as pool:
+                t0 = time.perf_counter()
+                list(pool.map(lambda _: acquisition._decode(data, path),
+                              range(n)))
+                row.append(out_mb / (time.perf_counter() - t0))
+        rates[label] = row
+        log(f"JPEG formats MB/s on {card}: {label} {tile}^2 tiles "
+            f"({len(data)} B a file, {out.dtype} {out.shape} out): "
+            f"{row[0]:.0f} on one thread, {row[1]:.0f} on {READERS}")
+    return rates
+
+
+def phase_jpeg_formats(work: str, card: str, grid: int = 4,
+                       tile: int = TILE, device: str = 'cuda') -> dict:
+    """19: the rest of JPEG tile input. (a) :func:`kept_formats_check`;
+    (b) decode MB/s of each grid's format (:func:`format_rates`); (c)
+    three ``grid`` x ``grid`` grids of ``tile``^2 tiles (lossless grey,
+    arithmetic-coded progressive RGB 4:2:0 with restarts, JPEG-in-TIFF
+    YCbCr 2x2 256^2 tiles with JPEGTables; :func:`format_grids`)
+    stitched on the card through the main path with the flatfield
+    (registration off, overwrite, raw OME-Zarr), each tree decoded equal
+    to that of its uncompressed twin, whose tiles hold the pixels the
+    port decodes (the kept files hold the JAX package's to 19a), with
+    e2e and the launches."""
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    coders, formats = jpeg_formats()
+    t0 = time.perf_counter()
+    n = kept_formats_check()
+    log(f"JPEG formats (19a): {n} kept files (tests/torch_jpeg_formats.npz)"
+        f" decoded by the C codec to the JAX package's arrays, by the plain "
+        f"version (but the {TILE}^2 tile) to the same bytes, in "
+        f"{time.perf_counter() - t0:.1f}s")
+    overlap = 205 * tile // TILE
+    grids = format_grids(coders, formats)
+    res = {'rates': format_rates(card, grids, grid, tile, overlap, 19),
+           'runs': {}}
+    for label, texture, encode, twin, channel, suffix in grids:
+        trees = {}
+        for kind, write, ext in (('twin', twin, 'tiff'),
+                                 ('file', encode, suffix)):
+            acq = os.path.join(work, f'format_{label}_{kind}')
+            t0 = time.perf_counter()
+            write_acquisition(acq, grid, tile, overlap, seed=19,
+                              texture=texture(tile - overlap), encode=write,
+                              suffix=ext, channels=[channel],
+                              dtype=np.uint8)
+            written = time.perf_counter() - t0
+            out = os.path.join(work, f'format_out_{label}_{kind}')
+            run = stitch_input(acq, out, dev, card, f'{label} {kind}',
+                               use_registration=False, apply_flatfield=True,
+                               compressor_cname=None)
+            run.pop('pipe')
+            run['write_s'] = written
+            trees[kind] = read_tree(out)
+            shutil.rmtree(out)
+            shutil.rmtree(acq)
+            if kind == 'file':
+                res['runs'][label] = run
+        arrays = compare_trees(trees['twin'], trees['file'],
+                               f'JPEG formats ({label} vs its twin)')
+        run = res['runs'][label]
+        log(f"JPEG formats (19c) on {card}: {grid}x{grid} {label} tree "
+            f"decodes equal to its uncompressed twin's ({arrays} level "
+            f"arrays); files written in {run['write_s']:.1f}s, e2e "
+            f"{run['e2e_s']:.3f}s, {run['decodes']} decodes at "
+            f"{run['decode_s'] / max(run['decodes'], 1) * 1e3:.1f} ms, "
+            f"fuse_overwrite launches {run['launches']}")
+        del trees
+    banned = [m for m in BANNED if m in sys.modules]
+    if banned:
+        raise SystemExit(f"JPEG formats: loaded {banned}")
+    res['seconds'] = time.perf_counter() - t_phase
+    log(f"JPEG formats: phase 19 in {res['seconds']:.1f}s")
+    return res
+
+
 def main() -> int:
-    card = phase_environment()
-    phase_build()
-    kern = phase_kernels()
+    spent = {}
+
+    def timed(name, phase, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return phase(*args, **kwargs)
+        finally:
+            spent[name] = round(time.perf_counter() - t0, 1)
+
+    card = timed('1 environment', phase_environment)
+    timed('2 build', phase_build)
+    kern = timed('3 kernels', phase_kernels)
     work = tempfile.mkdtemp(prefix='chip_smoke_')
     # phase 5's acquisition, kept for phase 15
     keep = tempfile.mkdtemp(prefix='chip_smoke_keep_')
     try:
-        phase_slice_parity(work)
-        phase_slice_parity(work, quality=True)
-        main_run = phase_main_path(work, card, keep=keep)
-        quality_run = phase_quality_path(work, card)
+        timed('4 slice parity', phase_slice_parity, work)
+        timed('4 slice parity, quality', phase_slice_parity, work,
+              quality=True)
+        main_run = timed('5 main path', phase_main_path, work, card,
+                         keep=keep)
+        quality_run = timed('6 quality path', phase_quality_path, work, card)
         shutil.rmtree(work, ignore_errors=True)   # the plate needs the room
         os.makedirs(work)
-        phase_plate(work, card)
+        timed('7 plate', phase_plate, work, card)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        output_layer = phase_output_layer(work, card)
-        phase_other_codecs(work, card, output_layer)
+        output_layer = timed('8 output layer', phase_output_layer, work, card)
+        timed('12 other codecs', phase_other_codecs, work, card,
+              output_layer)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        tile_input = phase_tile_input(work, card)
+        tile_input = timed('9 tile input', phase_tile_input, work, card)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         # 13c and 11b/11c on 6x6 cuts of the main grid: the script's time
-        phase_jpeg(work, card, tile_input['rates'], grid=6)
+        timed('13 jpeg', phase_jpeg, work, card, tile_input['rates'], grid=6)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        merges = phase_merges(work, card)
-        phase_mesh(work, card, main_run, merges)
-        phase_chunks(work, card, main_run)
+        merges = timed('10 merges', phase_merges, work, card)
+        timed('15 mesh', phase_mesh, work, card, main_run, merges)
+        timed('16 chunks', phase_chunks, work, card, main_run)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        sample_types = phase_sample_types(work, card, main_run)
+        sample_types = timed('17 sample types', phase_sample_types, work,
+                             card, main_run)
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        phase_tile_layouts(work, card)
+        timed('18 tile layouts', phase_tile_layouts, work, card)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        ome_tiff = phase_ome_tiff(work, card, grid=6)
-        phase_editions(work, card, ome_tiff['grid_3x3'])
+        timed('19 jpeg formats', phase_jpeg_formats, work, card)
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        ome_tiff = timed('11 ome-tiff', phase_ome_tiff, work, card, grid=6)
+        timed('14 editions', phase_editions, work, card,
+              ome_tiff['grid_3x3'])
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(keep, ignore_errors=True)
+    log(f"phase seconds: {json.dumps(spent)} "
+        f"(sum {sum(spent.values()):.1f})")
     launches = {'fuse_overwrite': main_run['launches'],
                 'fuse_feather': quality_run['launches'],
                 'finalize_feather': quality_run['finalize_launches']}

@@ -1,7 +1,8 @@
 /* JPEG written by hand: the decoder of .jpg tiles (baseline, extended
- * and progressive Huffman frames; 1, 3 or 4 components; any integral
- * sampling; YCbCr, RGB, CMYK and YCCK) and the baseline encoder of JPEG
- * OME-TIFF tiles.
+ * and progressive frames, Huffman or arithmetic-coded, with libjpeg-
+ * turbo's block smoothing; lossless frames of 2..8 bits; 1, 3 or 4
+ * components; any integral sampling; YCbCr, RGB, CMYK and YCCK) and the
+ * baseline encoder of JPEG OME-TIFF tiles.
  *
  * The port's host-side counterpart of the libjpeg-turbo that OpenCV links
  * for the JAX package's cv2.imread and cv2.imencode('.jpg'). Built at
@@ -32,18 +33,23 @@
 #define ERR_CORRUPT -2
 #define ERR_NOMEM -4
 #define ERR_SPACE -5
-/* streams outside the scope (io/jpeg.py names each) */
-#define ERR_SMOOTHING -10   /* progressive, libjpeg-turbo would smooth */
-#define ERR_ARITHMETIC -11
-#define ERR_LOSSLESS -12
-#define ERR_HIERARCHICAL -13
-#define ERR_PRECISION -14
-#define ERR_COMPONENTS -15
+/* streams OpenCV and Pillow give no pixels for (io/jpeg.py names each) */
+#define ERR_HIERARCHICAL -11
+#define ERR_LOSSLESS_ARITH -12
+#define ERR_PRECISION -13      /* DCT frames not of 8 bits, lossless over 8 */
+#define ERR_TWO_COMPONENTS -14
+#define ERR_LOSSLESS_YCC -15   /* lossless YCbCr or YCCK */
 #define ERR_COEF_RANGE -19
+
+/* output modes (jpeg_decode) */
+#define MODE_CV2 0      /* cv2.imread's: the colour space by the markers */
+#define MODE_RAW 1      /* the components as they are (JCS_UNKNOWN) */
+#define MODE_YCC 2      /* 3 components YCbCr -> RGB whatever the markers */
 
 #define MAX_COMPS 4
 #define MAX_BLOCKS_IN_MCU 10   /* jdhuff.c's limit for interleaved scans */
 #define SMOOTHING_COEFS 10     /* jdcoefct.c's SAVED_COEFS */
+#define FIXED_BIN 113          /* jdarith.c's fixed 0.5 estimate */
 
 static const uint8_t ZIGZAG[64] = {
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
@@ -114,6 +120,71 @@ static const uint8_t AC_VALS[2][162] = {
 #define F2053 16819
 #define F2562 20995
 #define F3072 25172
+
+/* libjpeg-turbo's block smoothing (jdcoefct.c::decompress_smooth_data):
+ * the weights of the 5x5 neighbours' DCs (rows r - 2..r + 2, columns
+ * c - 2..c + 2) in the estimate of zigzag coefficients 1..9 when no AC
+ * has been sent, of 1..5 otherwise, and of the DC when no AC has been
+ * sent */
+static const int16_t SMOOTH_CHANGE_DC[9][25] = {
+    {-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3, -3, 13, 0, -13, 3,
+     -1, -1, 0, 1, 1},
+    {-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0, 1, -13, -38, -13,
+     1, 1, 3, 3, 3, 1},
+    {0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0, 0, 2, 7, 2, 0, 0, 0, 1,
+     0, 0},
+    {-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0, 0, -9, 0, 9, 0, 1, 0, 0,
+     0, -1},
+    {0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1, 0, 2, -5, 2, 0, 0, 0, 0,
+     0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0, 0, 1, 0, -1, 0, 0, 0, 0,
+     0, 0},
+    {0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0, 0, -1, 3, -1, 0, 0, 0, 0,
+     0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0, 0, 1, 0, -1, 0, 0, 0, 0,
+     0, 0},
+    {0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -1, 0, 0, 0, 0,
+     0, 0},
+};
+static const int16_t SMOOTH_AC[5][25] = {
+    {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7, 0, 0, 0, 0, 0, 0, 0, 0,
+     0, 0},
+    {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0, 0, 0, -50, 0, 0, 0, 0, 7,
+     0, 0},
+    {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0, 0, 0, 13, 0, 0, 0, 0,
+     -1, 0, 0},
+    {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0, 1, -10, 0, 10, -1, 0,
+     1, 0, -1, 0},
+    {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1, 0, 0, 0, 0, 0, 0, 0,
+     0, 0, 0},
+};
+static const int16_t SMOOTH_DC[25] = {
+    -2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8, -6, 6, 42, 6,
+     -6, -2, -6, -8, -6, -2};
+/* T.81 Table D.2 as jaricom.c packs it: Qe << 16 | next index after an
+ * MPS << 8 | MPS switch << 7 | next index after an LPS; entry 113 is the
+ * fixed estimate */
+static const uint32_t ARITAB[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171,
+};
 
 #define DESCALE(x, n) (((x) + ((int64_t)1 << ((n) - 1))) >> (n))
 
@@ -405,9 +476,12 @@ static inline int32_t get_bits(const uint8_t *buf, int64_t *pos, int n)
 
 typedef struct {
     int id, h, v, tq;
-    int64_t bw, bh;        /* blocks of the MCU-padded grid */
-    int16_t *coef;         /* bh * bw * 64, natural order */
+    int64_t bw, bh;        /* blocks (lossless: samples) of the MCU grid */
+    int16_t *coef;         /* bh * bw * 64, natural order; lossless: the
+                            * bh * bw differences, then samples */
+    uint8_t *samples;      /* lossless: the undifferenced 8-bit samples */
     int32_t pred;
+    int ctx;               /* arithmetic DC conditioning context */
 } comp_t;
 
 typedef struct {
@@ -415,6 +489,10 @@ typedef struct {
     int qdef[4];
     htable dc[4], ac[4];
     int restart, jfif, ncomp, progressive;
+    int lossless, arith, precision;
+    int dc_max[4];         /* the largest symbol of each DC table */
+    /* arithmetic conditioning by table: DC L and U, AC Kx (DAC) */
+    uint8_t dac_l[16], dac_u[16], dac_k[16];
     int adobe;             /* the APP14 transform flag; -1: no APP14 */
     int64_t height, width;
     int hmax, vmax;
@@ -427,25 +505,30 @@ typedef struct {
 
 static int parse_sof(frame_t *f, int marker, const uint8_t *b, int64_t n)
 {
-    if (marker == 0xC9 || marker == 0xCA || marker == 0xCB || marker == 0xCD
+    if (marker == 0xC5 || marker == 0xC6 || marker == 0xC7 || marker == 0xCD
             || marker == 0xCE || marker == 0xCF)
-        return ERR_ARITHMETIC;
-    if (marker == 0xC5 || marker == 0xC6 || marker == 0xC7)
         return ERR_HIERARCHICAL;
-    if (marker == 0xC3)
-        return ERR_LOSSLESS;
+    if (marker == 0xCB)
+        return ERR_LOSSLESS_ARITH;
     if (f->ncomp)
         return ERR_CORRUPT;
     if (n < 6)
         return ERR_CORRUPT;
-    f->progressive = marker == 0xC2;
-    if (b[0] != 8)
+    f->lossless = marker == 0xC3;
+    f->arith = marker == 0xC9 || marker == 0xCA;
+    f->progressive = marker == 0xC2 || marker == 0xCA;
+    f->precision = b[0];
+    if (f->lossless && (b[0] < 2 || b[0] > 16))
+        return ERR_CORRUPT;
+    if (f->lossless ? b[0] > 8 : b[0] != 8)
         return ERR_PRECISION;
     f->height = b[1] << 8 | b[2];
     f->width = b[3] << 8 | b[4];
     int nc = b[5];
+    if (nc == 2)
+        return ERR_TWO_COMPONENTS;
     if (nc != 1 && nc != 3 && nc != 4)
-        return ERR_COMPONENTS;
+        return ERR_CORRUPT;
     if (f->height == 0 || f->width == 0 || n < 6 + 3 * nc)
         return ERR_CORRUPT;
     f->hmax = f->vmax = 1;
@@ -466,8 +549,9 @@ static int parse_sof(frame_t *f, int marker, const uint8_t *b, int64_t n)
         if (f->hmax % f->comp[k].h || f->vmax % f->comp[k].v)
             return ERR_CORRUPT;
     f->ncomp = nc;
-    f->mcux = (f->width + 8 * f->hmax - 1) / (8 * f->hmax);
-    f->mcuy = (f->height + 8 * f->vmax - 1) / (8 * f->vmax);
+    const int size = f->lossless ? 1 : 8;
+    f->mcux = (f->width + size * f->hmax - 1) / (size * f->hmax);
+    f->mcuy = (f->height + size * f->vmax - 1) / (size * f->vmax);
     for (int k = 0; k < nc; ++k) {
         f->comp[k].bw = f->mcux * f->comp[k].h;
         f->comp[k].bh = f->mcuy * f->comp[k].v;
@@ -481,7 +565,8 @@ static int alloc_coef(frame_t *f)
 {
     for (int k = 0; k < f->ncomp; ++k) {
         comp_t *c = &f->comp[k];
-        c->coef = (int16_t *)calloc((size_t)(c->bw * c->bh * 64),
+        c->coef = (int16_t *)calloc((size_t)(c->bw * c->bh
+                                             * (f->lossless ? 1 : 64)),
                                     sizeof(int16_t));
         if (c->coef == NULL)
             return ERR_NOMEM;
@@ -520,13 +605,43 @@ static int parse_dht(frame_t *f, const uint8_t *b, int64_t n)
         if (count > 256 || k + 17 + count > n)
             return ERR_CORRUPT;
         for (int i = 0; !tc && i < count; ++i)
-            if (b[k + 17 + i] > 15)
-                return ERR_CORRUPT;     /* a DC category over 15 */
+            if (b[k + 17 + i] > 16)
+                return ERR_CORRUPT;     /* a DC category over 16 */
+        if (!tc) {
+            /* 16 is a lossless difference of 32768 only: checked when a
+             * scan takes the table */
+            f->dc_max[th] = 0;
+            for (int i = 0; i < count; ++i)
+                if (b[k + 17 + i] > f->dc_max[th])
+                    f->dc_max[th] = b[k + 17 + i];
+        }
         int rc = build_htable(tc ? &f->ac[th] : &f->dc[th], b + k + 1,
                               b + k + 17, count);
         if (rc)
             return rc;
         k += 17 + count;
+    }
+    return 0;
+}
+
+/* DAC (jdmarker.c's get_dac): per table, DC conditioning L and U (U >=
+ * L) or the AC one Kx */
+static int parse_dac(frame_t *f, const uint8_t *b, int64_t n)
+{
+    if (n % 2)
+        return ERR_CORRUPT;
+    for (int64_t k = 0; k < n; k += 2) {
+        int index = b[k], val = b[k + 1];
+        if (index >= 32)
+            return ERR_CORRUPT;
+        if (index >= 16) {
+            f->dac_k[index - 16] = (uint8_t)val;
+        } else {
+            if ((val & 15) > val >> 4)
+                return ERR_CORRUPT;
+            f->dac_l[index] = (uint8_t)(val & 15);
+            f->dac_u[index] = (uint8_t)(val >> 4);
+        }
     }
     return 0;
 }
@@ -750,6 +865,297 @@ static int decode_ac_refine(const htable *act, const uint8_t *buf,
     return *pos > limit ? ERR_CORRUPT : 0;
 }
 
+/* Arithmetic-coded scans (jdarith.c): T.81 Annex D's QM decoder, with
+ * the statistical models of F.1.4 (sequential) and G.1.3 (progressive). */
+
+typedef struct {
+    const uint8_t *data;   /* the segment's bytes, destuffed */
+    int64_t n, pos;
+    int64_t c, a;
+    int ct;
+} arith_t;
+
+/* an arithmetic segment's data bytes as jdarith.c's get_byte reads them:
+ * 0xFF 0x00 is 0xFF, further 0xFF fill bytes are swallowed, and the data
+ * ends at a marker (zeros are fed from there on); their count */
+static int64_t arith_destuff(const uint8_t *s, int64_t n, uint8_t *buf)
+{
+    int64_t o = 0, i = 0;
+    while (i < n) {
+        uint8_t b = s[i++];
+        if (b == 0xFF) {
+            while (i < n && s[i] == 0xFF)
+                ++i;
+            if (i >= n || s[i] != 0)
+                break;
+            ++i;
+        }
+        buf[o++] = b;
+    }
+    return o;
+}
+
+static void arith_init(arith_t *e, const uint8_t *data, int64_t n)
+{
+    e->data = data;
+    e->n = n;
+    e->pos = 0;
+    e->c = e->a = 0;
+    e->ct = -16;        /* read 2 bytes before the first decision */
+}
+
+/* one binary decision with the statistics bin *st (jdarith.c's
+ * arith_decode: D.2.4-D.2.6) */
+static int arith_decode(arith_t *e, uint8_t *st)
+{
+    while (e->a < 0x8000) {
+        if (--e->ct < 0) {
+            int data = e->pos < e->n ? e->data[e->pos++] : 0;
+            e->c = (e->c << 8) | data;
+            if ((e->ct += 8) < 0 && ++e->ct == 0)
+                e->a = 0x8000;
+        }
+        e->a <<= 1;
+    }
+    int sv = *st;
+    uint32_t q = ARITAB[sv & 0x7F];
+    int nl = q & 0xFF, nm = (q >> 8) & 0xFF;
+    int64_t qe = q >> 16;
+    int64_t temp = e->a - qe;
+    e->a = temp;
+    temp <<= e->ct;
+    if (e->c >= temp) {
+        e->c -= temp;
+        if (e->a < qe) {
+            e->a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        } else {
+            e->a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        }
+    } else if (e->a < 0x8000) {
+        if (e->a < qe) {
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        } else {
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        }
+    }
+    return sv >> 7;
+}
+
+/* the bits below the top one of a magnitude category m (Figure F.24)
+ * from the M bins at st; |v| - 1 */
+static int32_t arith_bits(arith_t *e, uint8_t *st, int32_t m)
+{
+    int32_t v = m;
+    while (m >>= 1)
+        if (arith_decode(e, st))
+            v |= m;
+    return v;
+}
+
+/* a DC difference (Figure F.19) with the DC statistics st in the
+ * component's conditioning context, which it updates (F.1.4.4.1.2);
+ * ERR_CORRUPT on a magnitude overflow */
+static int arith_dc(arith_t *e, uint8_t *st, comp_t *c, int lo, int hi,
+                    int32_t *diff)
+{
+    uint8_t *s0 = st + c->ctx;
+    *diff = 0;
+    if (!arith_decode(e, s0)) {
+        c->ctx = 0;
+        return 0;
+    }
+    int sign = arith_decode(e, s0 + 1);
+    uint8_t *p = s0 + 2 + sign;
+    int32_t m = arith_decode(e, p);
+    if (m) {
+        p = st + 20;
+        while (arith_decode(e, p)) {
+            if ((m <<= 1) == 0x8000)
+                return ERR_CORRUPT;
+            ++p;
+        }
+    }
+    if (m < (1 << lo) >> 1)
+        c->ctx = 0;
+    else if (m > (1 << hi) >> 1)
+        c->ctx = 12 + sign * 4;
+    else
+        c->ctx = 4 + sign * 4;
+    int32_t v = arith_bits(e, p + 14, m) + 1;
+    *diff = sign ? -v : v;
+    return 0;
+}
+
+/* the ACs start..end of a block, each shifted left by al (Figure F.20;
+ * decode_mcu and decode_mcu_AC_first) */
+static int arith_ac(arith_t *e, uint8_t *st, uint8_t *fixed, int start,
+                    int end, int kx, int al, int16_t *out)
+{
+    int k = start - 1;
+    while (k < end) {
+        uint8_t *p = st + 3 * k;
+        if (arith_decode(e, p))
+            break;
+        for (;;) {
+            ++k;
+            if (arith_decode(e, p + 1))
+                break;
+            p += 3;
+            if (k >= end)
+                return ERR_CORRUPT;
+        }
+        int sign = arith_decode(e, fixed);
+        p += 2;
+        int32_t m = arith_decode(e, p);
+        if (m && arith_decode(e, p)) {
+            m <<= 1;
+            p = st + (k <= kx ? 189 : 217);
+            while (arith_decode(e, p)) {
+                if ((m <<= 1) == 0x8000)
+                    return ERR_CORRUPT;
+                ++p;
+            }
+        }
+        int32_t v = arith_bits(e, p + 14, m) + 1;
+        out[ZIGZAG[k]] = (int16_t)(int32_t)((uint32_t)(sign ? -v : v) << al);
+    }
+    return 0;
+}
+
+/* decode_mcu_AC_refine: correction bits of the band's nonzero
+ * coefficients, newly nonzero ones of +-1 << al */
+static int arith_ac_refine(arith_t *e, uint8_t *st, uint8_t *fixed, int ss,
+                           int se, int al, int16_t *out)
+{
+    const int p1 = 1 << al, m1 = -(1 << al);
+    int kex = se;
+    while (kex > 0 && out[ZIGZAG[kex]] == 0)
+        --kex;
+    for (int k = ss - 1; k < se;) {
+        uint8_t *p = st + 3 * k;
+        if (k >= kex && arith_decode(e, p))
+            break;
+        for (;;) {
+            int16_t *c = out + ZIGZAG[++k];
+            if (*c) {
+                if (arith_decode(e, p + 2))
+                    *c = (int16_t)(*c + (*c < 0 ? m1 : p1));
+                break;
+            }
+            if (arith_decode(e, p + 1)) {
+                *c = (int16_t)(arith_decode(e, fixed) ? m1 : p1);
+                break;
+            }
+            p += 3;
+            if (k >= se)
+                return ERR_CORRUPT;
+        }
+    }
+    return 0;
+}
+
+/* Lossless frames (jdlossls.c, jddiffct.c, jdpred.c). */
+
+/* a component's samples from its decoded differences: predictor psv on
+ * Ra (left), Rb (above), Rc (above-left), mod 2^16; first rows 1-D from
+ * 2^(P - Pt - 1), other rows' first sample from Rb; the first rows are
+ * the image's and that of each iMCU row (v rows) in which a restart
+ * interval starts (libjpeg-turbo undifferences an iMCU row once it is
+ * decoded whole); then shifted left by Pt into 8-bit samples */
+static int undifference(frame_t *f, comp_t *c, int psv, int pt, int one,
+                        int64_t nx)
+{
+    const int64_t hib = (f->height * c->v + f->vmax - 1) / f->vmax;
+    const int64_t wib = (f->width * c->h + f->hmax - 1) / f->hmax;
+    uint16_t *prev = (uint16_t *)malloc((size_t)wib * 2);
+    uint16_t *row = (uint16_t *)malloc((size_t)wib * 2);
+    free(c->samples);
+    c->samples = (uint8_t *)malloc((size_t)(hib * wib));
+    if (prev == NULL || row == NULL || c->samples == NULL) {
+        free(prev);
+        free(row);
+        return ERR_NOMEM;
+    }
+    uint8_t *first = (uint8_t *)calloc((size_t)hib, 1);
+    if (first == NULL) {
+        free(prev);
+        free(row);
+        return ERR_NOMEM;
+    }
+    const int64_t every = f->restart ? f->restart / nx : 0;
+    const int unit = one ? 1 : c->v;
+    first[0] = 1;
+    for (int64_t q = 0; every && q < hib; ++q)
+        if (q % unit == 0 && (q / unit) % every == 0)
+            first[q / c->v * c->v] = 1;
+    const uint32_t init = 1u << (f->precision - pt - 1);
+    for (int64_t r = 0; r < hib; ++r) {
+        const int16_t *d = c->coef + r * c->bw;
+        if (first[r]) {
+            uint32_t ra = init;
+            for (int64_t x = 0; x < wib; ++x)
+                row[x] = (uint16_t)(ra = (ra + (uint16_t)d[x]) & 0xFFFF);
+        } else {
+            int32_t ra = (prev[0] + (uint16_t)d[0]) & 0xFFFF;
+            row[0] = (uint16_t)ra;
+            for (int64_t x = 1; x < wib; ++x) {
+                int32_t rb = prev[x], rc = prev[x - 1], p;
+                switch (psv) {
+                case 1: p = ra; break;
+                case 2: p = rb; break;
+                case 3: p = rc; break;
+                case 4: p = ra + rb - rc; break;
+                case 5: p = ra + ((rb - rc) >> 1); break;
+                case 6: p = rb + ((ra - rc) >> 1); break;
+                default: p = (ra + rb) >> 1; break;
+                }
+                ra = (p + (uint16_t)d[x]) & 0xFFFF;
+                row[x] = (uint16_t)ra;
+            }
+        }
+        for (int64_t x = 0; x < wib; ++x)
+            c->samples[r * wib + x] = (uint8_t)(row[x] << pt);
+        uint16_t *t = prev;
+        prev = row;
+        row = t;
+    }
+    free(first);
+    free(prev);
+    free(row);
+    return 0;
+}
+
+/* one block of an arithmetic-coded scan */
+static int arith_block(frame_t *f, arith_t *e, comp_t *c, uint8_t *dcs,
+                       uint8_t *acs, uint8_t *fixed, int td, int ta, int ss,
+                       int se, int ah, int al, int16_t *out)
+{
+    int rc = 0;
+    if (!f->progressive || (ss == 0 && ah == 0)) {
+        int32_t diff;
+        rc = arith_dc(e, dcs, c, f->dac_l[td], f->dac_u[td], &diff);
+        if (rc)
+            return rc;
+        c->pred += diff;
+        out[0] = (int16_t)(int32_t)((uint32_t)c->pred
+                                    << (f->progressive ? al : 0));
+    } else if (ss == 0) {
+        if (arith_decode(e, fixed))
+            out[0] = (int16_t)(out[0] | (1 << al));
+    }
+    if (!f->progressive)
+        rc = arith_ac(e, acs, fixed, 1, 63, f->dac_k[ta], 0, out);
+    else if (ss && ah == 0)
+        rc = arith_ac(e, acs, fixed, ss, se, f->dac_k[ta], al, out);
+    else if (ss)
+        rc = arith_ac_refine(e, acs, fixed, ss, se, al, out);
+    return rc;
+}
+
 static int decode_scan(frame_t *f, const uint8_t *b, int64_t n,
                        const uint8_t *d, int64_t dn, int64_t *pos)
 {
@@ -760,7 +1166,10 @@ static int decode_scan(frame_t *f, const uint8_t *b, int64_t n,
         return ERR_CORRUPT;
     int ss = b[1 + 2 * ns], se = b[2 + 2 * ns];
     int ah = b[3 + 2 * ns] >> 4, al = b[3 + 2 * ns] & 15;
-    if (f->progressive) {
+    if (f->lossless) {
+        if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= f->precision)
+            return ERR_CORRUPT;     /* jdlossls.c: bad scan parameters */
+    } else if (f->progressive) {
         int dc = ss == 0;
         if ((dc && se != 0) || (!dc && (ss > se || se > 63 || ns != 1))
                 || (ah && al != ah - 1) || al > 13)
@@ -768,10 +1177,12 @@ static int decode_scan(frame_t *f, const uint8_t *b, int64_t n,
     } else if (ss != 0 || se != 63 || ah != 0 || al != 0) {
         return ERR_CORRUPT;
     }
-    int need_dc = !f->progressive || (ss == 0 && ah == 0);
-    int need_ac = !f->progressive || ss > 0;
-    int sc[MAX_COMPS];
+    int need_dc = !f->arith && (f->lossless || !f->progressive
+                                || (ss == 0 && ah == 0));
+    int need_ac = !f->arith && !f->lossless && (!f->progressive || ss > 0);
+    int sc[MAX_COMPS], td[MAX_COMPS], ta[MAX_COMPS];
     const htable *dct[MAX_COMPS], *act[MAX_COMPS];
+    const int size = f->lossless ? 1 : 8;
     for (int k = 0; k < ns; ++k) {
         int cid = b[1 + 2 * k], t = b[2 + 2 * k], ci = -1;
         for (int j = 0; j < f->ncomp; ++j)
@@ -779,17 +1190,20 @@ static int decode_scan(frame_t *f, const uint8_t *b, int64_t n,
                 ci = j;
         if (ci < 0 || (t >> 4) > 3 || (t & 15) > 3
                 || (need_dc && !f->dc[t >> 4].defined)
-                || (need_ac && !f->ac[t & 15].defined))
+                || (need_ac && !f->ac[t & 15].defined)
+                || (need_dc && f->dc_max[t >> 4] > (f->lossless ? 16 : 15)))
             return ERR_CORRUPT;
         sc[k] = ci;
+        td[k] = t >> 4;
+        ta[k] = t & 15;
         dct[k] = &f->dc[t >> 4];
         act[k] = &f->ac[t & 15];
     }
     int64_t nx, ny;
     if (ns == 1) {
         comp_t *c = &f->comp[sc[0]];
-        nx = (f->width * c->h + f->hmax * 8 - 1) / (f->hmax * 8);
-        ny = (f->height * c->v + f->vmax * 8 - 1) / (f->vmax * 8);
+        nx = (f->width * c->h + f->hmax * size - 1) / (f->hmax * size);
+        ny = (f->height * c->v + f->vmax * size - 1) / (f->vmax * size);
     } else {
         int blocks = 0;
         for (int k = 0; k < ns; ++k)
@@ -799,9 +1213,13 @@ static int decode_scan(frame_t *f, const uint8_t *b, int64_t n,
         nx = f->mcux;
         ny = f->mcuy;
     }
-    for (int k = 0; k < ns; ++k)
+    if (f->lossless && f->restart && f->restart % nx)
+        return ERR_CORRUPT;     /* jddiffct.c: whole MCU rows only */
+    for (int k = 0; k < ns && !f->lossless; ++k)
         for (int i = ss; i <= se; ++i)
             f->coef_bits[sc[k]][i] = al;
+    uint8_t dc_st[4][64], ac_st[4][256], fixed = FIXED_BIN;
+    arith_t ar;
     int64_t end = entropy_end(d, dn, *pos);
     if (end < 0)
         return ERR_CORRUPT;
@@ -822,15 +1240,29 @@ static int decode_scan(frame_t *f, const uint8_t *b, int64_t n,
                     break;
                 }
         }
-        int64_t len = destuff(d + start, stop - start, buf);
+        int64_t len = f->arith ? arith_destuff(d + start, stop - start, buf)
+                               : destuff(d + start, stop - start, buf);
         if (len < 0) {
             rc = (int)len;
             break;
         }
         int64_t bp = 0, limit = len * 8;
         int32_t eobrun = 0;
-        for (int k = 0; k < ns; ++k)
+        for (int k = 0; k < ns; ++k) {
             f->comp[sc[k]].pred = 0;
+            f->comp[sc[k]].ctx = 0;
+        }
+        if (f->arith) {
+            /* the statistics restart with every interval */
+            arith_init(&ar, buf, len);
+            fixed = FIXED_BIN;
+            for (int k = 0; k < ns; ++k) {
+                if (!f->progressive || (ss == 0 && ah == 0))
+                    memset(dc_st[td[k]], 0, 64);
+                if (!f->progressive || ss)
+                    memset(ac_st[ta[k]], 0, 256);
+            }
+        }
         for (int64_t i = 0; i < per && m < nmcu && rc == 0; ++i, ++m) {
             int64_t my = m / nx, mx = m % nx;
             for (int k = 0; k < ns && rc == 0; ++k) {
@@ -839,7 +1271,30 @@ static int decode_scan(frame_t *f, const uint8_t *b, int64_t n,
                 for (int y = 0; y < vv && rc == 0; ++y)
                     for (int x = 0; x < hh && rc == 0; ++x) {
                         int64_t by = my * vv + y, bx = mx * hh + x;
+                        if (f->lossless) {
+                            uint64_t w;
+                            int s = huff_decode(dct[k], buf, &bp, &w);
+                            if (s < 0) {
+                                rc = ERR_CORRUPT;
+                                break;
+                            }
+                            int32_t v = s == 16 ? 32768 : 0;
+                            if (s && s < 16) {
+                                v = extend(w, s);
+                                bp += s;
+                            }
+                            c->coef[by * c->bw + bx] = (int16_t)v;
+                            if (bp > limit)
+                                rc = ERR_CORRUPT;
+                            continue;
+                        }
                         int16_t *out = c->coef + (by * c->bw + bx) * 64;
+                        if (f->arith) {
+                            rc = arith_block(f, &ar, c, dc_st[td[k]],
+                                             ac_st[ta[k]], &fixed, td[k],
+                                             ta[k], ss, se, ah, al, out);
+                            continue;
+                        }
                         if (!f->progressive)
                             rc = decode_block(dct[k], act[k], buf, limit,
                                               &bp, &c->pred, out);
@@ -869,6 +1324,8 @@ static int decode_scan(frame_t *f, const uint8_t *b, int64_t n,
     }
     free(buf);
     *pos = end;
+    for (int k = 0; k < ns && rc == 0 && f->lossless; ++k)
+        rc = undifference(f, &f->comp[sc[k]], ss, al, ns == 1, nx);
     return rc;
 }
 
@@ -956,7 +1413,7 @@ static int smoothed(const frame_t *f)
 }
 
 /* the colour space jdapimin.c's default_decompress_parms guesses */
-enum { GREY, YCC, RGB, CMYK, YCCK };
+enum { GREY, YCC, RGB, CMYK, YCCK, RAW4 };
 
 static int colour_space(const frame_t *f)
 {
@@ -968,46 +1425,173 @@ static int colour_space(const frame_t *f)
         return YCC;
     if (f->adobe >= 0)
         return f->adobe == 0 ? RGB : YCC;
-    return f->comp[0].id == 82 && f->comp[1].id == 71 && f->comp[2].id == 66
-           ? RGB : YCC;
+    /* libjpeg-turbo 3 takes a lossless frame with no marker as RGB */
+    return (f->comp[0].id == 82 && f->comp[1].id == 71 && f->comp[2].id == 66)
+           || f->lossless ? RGB : YCC;
 }
 
-static int output(frame_t *f, uint8_t *dst)
+/* libjpeg-turbo's block smoothing of component k's (hib, wib) blocks
+ * into coefficients of their own (jdcoefct.c::decompress_smooth_data):
+ * each of the first zigzag ACs still zero and not known to the last bit
+ * gets an estimate from the 5x5 neighbours' DCs, clamped below 2^Al;
+ * with no AC sent at all, the DC too. The neighbour rows follow its
+ * numbering (io/jpeg_plain.py::smooth_rows), padding rows included;
+ * columns past an edge repeat the edge's. */
+static int16_t *smooth(const frame_t *f, int k, int64_t hib, int64_t wib)
+{
+    const comp_t *c = &f->comp[k];
+    const uint16_t *q = f->quant[c->tq];
+    const int *bits = f->coef_bits[k];
+    int16_t *out = (int16_t *)malloc((size_t)(hib * wib * 64) * 2);
+    int64_t (*rows)[5] = malloc((size_t)hib * sizeof(*rows));
+    if (out == NULL || rows == NULL) {
+        free(out);
+        free(rows);
+        return NULL;
+    }
+    const int64_t last = f->mcuy - 1;
+    for (int64_t r = 0; r < hib; ++r) {
+        int64_t i = r / c->v, b = r % c->v;
+        int64_t nrows = i < last ? c->v : (hib % c->v ? hib % c->v : c->v);
+        int64_t num = i * nrows + b, total = nrows * f->mcuy;
+        int64_t prev = num > 0 ? r - 1 : r, next = num < total - 1 ? r + 1 : r;
+        rows[r][0] = num > 1 ? r - 2 : prev;
+        rows[r][1] = prev;
+        rows[r][2] = r;
+        rows[r][3] = next;
+        rows[r][4] = num < total - 2 ? r + 2 : next;
+    }
+    int change_dc = 1;
+    for (int i = 1; i < 10; ++i)
+        change_dc &= bits[i] == -1;
+    static const int at[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    const int64_t q00 = q[0];
+    for (int64_t r = 0; r < hib; ++r)
+        for (int64_t x = 0; x < wib; ++x) {
+            int16_t *w = out + (r * wib + x) * 64;
+            memcpy(w, c->coef + (r * c->bw + x) * 64, 128);
+            int64_t dc[25];
+            for (int i = 0; i < 5; ++i)
+                for (int j = 0; j < 5; ++j) {
+                    int64_t col = x + j - 2;
+                    col = col < 0 ? 0 : col > wib - 1 ? wib - 1 : col;
+                    dc[i * 5 + j] = c->coef[(rows[r][i] * c->bw + col) * 64];
+                }
+            for (int i = 1; i < 10; ++i) {
+                const int16_t *wt = change_dc ? SMOOTH_CHANGE_DC[i - 1]
+                                    : i <= 5 ? SMOOTH_AC[i - 1] : NULL;
+                int al = bits[i];
+                if (wt == NULL || al == 0 || w[at[i]] != 0)
+                    continue;
+                int64_t num = 0, qk = q[at[i]];
+                for (int j = 0; j < 25; ++j)
+                    num += wt[j] * dc[j];
+                num *= q00;
+                int64_t pred = ((qk << 7) + (num < 0 ? -num : num))
+                               / (qk << 8);
+                if (al > 0 && pred >= (1 << al))
+                    pred = (1 << al) - 1;
+                w[at[i]] = (int16_t)(num < 0 ? -pred : pred);
+            }
+            if (change_dc) {
+                int64_t num = 0;
+                for (int j = 0; j < 25; ++j)
+                    num += SMOOTH_DC[j] * dc[j];
+                num *= q00;
+                int64_t pred = ((q00 << 7) + (num < 0 ? -num : num))
+                               / (q00 << 8);
+                w[0] = (int16_t)(num < 0 ? -pred : pred);
+            }
+        }
+    free(rows);
+    return out;
+}
+
+/* a lossless frame's pixels: its components box-upsampled (libjpeg-turbo
+ * upsamples fancy only from IDCT blocks wider than a sample); 3
+ * components RGB, 4 CMYK; YCbCr and YCCK, which libjpeg-turbo does not
+ * convert in a lossless frame, are refused */
+static int lossless_output(frame_t *f, int space, uint8_t *dst)
+{
+    int nc = f->ncomp;
+    int64_t H = f->height, W = f->width;
+    if (space == YCC || space == YCCK)
+        return ERR_LOSSLESS_YCC;
+    for (int k = 0; k < nc; ++k)
+        if (f->comp[k].samples == NULL)
+            return ERR_CORRUPT;
+    for (int64_t y = 0; y < H; ++y)
+        for (int64_t x = 0; x < W; ++x) {
+            uint8_t v[MAX_COMPS];
+            for (int k = 0; k < nc; ++k) {
+                const comp_t *c = &f->comp[k];
+                int64_t wib = (W * c->h + f->hmax - 1) / f->hmax;
+                v[k] = c->samples[(y / (f->vmax / c->v)) * wib
+                                  + x / (f->hmax / c->h)];
+            }
+            uint8_t *o = dst + (y * W + x) * (nc == 1 ? 1 : 3);
+            if (nc == 1)
+                o[0] = v[0];
+            else if (nc == 3)
+                memcpy(o, v, 3);
+            else
+                for (int k = 0; k < 3; ++k)
+                    o[k] = (uint8_t)(v[3] - (((255 - v[k]) * v[3]) >> 8));
+        }
+    return 0;
+}
+
+static int output(frame_t *f, int mode, uint8_t *dst)
 {
     int nc = f->ncomp;
     int64_t H = f->height, W = f->width;
     uint8_t *up[MAX_COMPS] = {NULL, NULL, NULL, NULL};
     int rc = 0;
-    if (smoothed(f))
-        return ERR_SMOOTHING;
+    int space = mode == MODE_YCC ? YCC : mode == MODE_CV2 ? colour_space(f)
+                : nc == 1 ? GREY : nc == 3 ? RGB : RAW4;
+    if (f->lossless)
+        return lossless_output(f, space, dst);
+    const int smoothing = smoothed(f);
     for (int k = 0; k < nc && rc == 0; ++k) {
         comp_t *c = &f->comp[k];
         if (c->tq > 3 || !f->qdef[c->tq]) {
             rc = ERR_CORRUPT;
             break;
         }
-        int64_t pw = c->bw * 8;
-        uint8_t *plane = (uint8_t *)malloc((size_t)(c->bh * 8 * pw));
+        int64_t dh = (H * c->v + f->vmax - 1) / f->vmax;
+        int64_t dw = (W * c->h + f->hmax - 1) / f->hmax;
+        int64_t hib = (dh + 7) / 8, wib = (dw + 7) / 8;
+        int16_t *coef = c->coef, *smoothed_coef = NULL;
+        int64_t stride = c->bw;
+        if (smoothing) {
+            coef = smoothed_coef = smooth(f, k, hib, wib);
+            stride = wib;
+        }
+        int64_t pw = wib * 8;
+        uint8_t *plane = (uint8_t *)malloc((size_t)(hib * 8 * pw));
         up[k] = nc == 1 ? dst : (uint8_t *)malloc((size_t)(H * W));
-        if (plane == NULL || up[k] == NULL) {
+        if (plane == NULL || up[k] == NULL || (smoothing && coef == NULL)) {
             free(plane);
+            free(smoothed_coef);
             rc = ERR_NOMEM;
             break;
         }
-        for (int64_t by = 0; by < c->bh; ++by)
-            for (int64_t bx = 0; bx < c->bw; ++bx)
-                idct_islow(c->coef + (by * c->bw + bx) * 64,
-                           f->quant[c->tq], plane + by * 8 * pw + bx * 8,
-                           pw);
-        int64_t dh = (H * c->v + f->vmax - 1) / f->vmax;
-        int64_t dw = (W * c->h + f->hmax - 1) / f->hmax;
+        for (int64_t by = 0; by < hib; ++by)
+            for (int64_t bx = 0; bx < wib; ++bx)
+                idct_islow(coef + (by * stride + bx) * 64, f->quant[c->tq],
+                           plane + by * 8 * pw + bx * 8, pw);
+        free(smoothed_coef);
         upsample(plane, pw, dh, dw, f->hmax / c->h, f->vmax / c->v, up[k],
                  H, W);
         free(plane);
     }
-    int space = colour_space(f);
     for (int64_t i = 0; rc == 0 && nc > 1 && i < H * W; ++i) {
         int64_t v[3];
+        if (space == RAW4) {
+            for (int k = 0; k < 4; ++k)
+                dst[4 * i + k] = up[k][i];
+            continue;
+        }
         if (space == RGB) {
             for (int k = 0; k < 3; ++k)
                 dst[3 * i + k] = up[k][i];
@@ -1043,19 +1627,25 @@ static int output(frame_t *f, uint8_t *dst)
 
 static void free_frame(frame_t *f)
 {
-    for (int k = 0; k < MAX_COMPS; ++k)
+    for (int k = 0; k < MAX_COMPS; ++k) {
         free(f->comp[k].coef);
+        free(f->comp[k].samples);
+    }
 }
 
 /* Parse (and, with dst, decode) a JPEG stream. info: height, width,
  * components. */
 static int64_t run(const uint8_t *d, int64_t n, int64_t *info, uint8_t *dst,
-                   int64_t dstsize)
+                   int64_t dstsize, int mode)
 {
     frame_t *f = (frame_t *)calloc(1, sizeof(frame_t));
     if (f == NULL)
         return ERR_NOMEM;
     f->adobe = -1;
+    for (int t = 0; t < 16; ++t) {
+        f->dac_u[t] = 1;        /* T.81 F.1.4.4: L 0, U 1, Kx 5 */
+        f->dac_k[t] = 5;
+    }
     int64_t rc = 0, pos = 2;
     int scanned = 0;
     if (n < 2 || d[0] != 0xFF || d[1] != 0xD8)
@@ -1095,7 +1685,7 @@ static int64_t run(const uint8_t *d, int64_t n, int64_t *info, uint8_t *dst,
             if (rc == 0)
                 rc = alloc_coef(f);
         } else if (marker == 0xCC) {
-            rc = ERR_ARITHMETIC;
+            rc = parse_dac(f, b, bn);
         } else if (marker == 0xDB) {
             rc = parse_dqt(f, b, bn);
         } else if (marker == 0xC4) {
@@ -1122,15 +1712,17 @@ static int64_t run(const uint8_t *d, int64_t n, int64_t *info, uint8_t *dst,
     if (rc == 0 && !scanned)
         rc = ERR_CORRUPT;
     if (rc == 0) {
-        int channels = f->ncomp == 1 ? 1 : 3;
+        int channels = f->ncomp == 1 ? 1
+                       : f->ncomp == 4 && mode == MODE_RAW ? 4 : 3;
         info[0] = f->height;
         info[1] = f->width;
-        info[2] = channels;
+        info[2] = f->ncomp == 1 ? 1 : 3;
+        info[3] = f->ncomp;
         if (dst != NULL) {
             if (dstsize < f->height * f->width * channels)
                 rc = ERR_SPACE;
             else
-                rc = output(f, dst);
+                rc = output(f, mode, dst);
         }
     }
     free_frame(f);
@@ -1139,26 +1731,28 @@ static int64_t run(const uint8_t *d, int64_t n, int64_t *info, uint8_t *dst,
 }
 
 /* The height, width and channels of a JPEG stream's decoded pixels from
- * its frame header (info[0..2]: 1 grey, 3 RGB); 0, or a negative
- * error. */
+ * its frame header (info[0..3]: 1 grey, 3 RGB; the components); 0, or a
+ * negative error. */
 int64_t jpeg_info(const uint8_t *src, int64_t n, int64_t *info)
 {
     if (src == NULL || n < 0 || info == NULL)
         return ERR_ARGS;
-    return run(src, n, info, NULL, 0);
+    return run(src, n, info, NULL, 0, MODE_CV2);
 }
 
-/* Decode a JPEG stream into dst: (H, W) grey or (H, W, 3) RGB uint8, the
- * pixels of cv2.imread (BGR flipped); the bytes written, or a negative
- * error. */
+/* Decode a JPEG stream into dst: (H, W) grey or (H, W, 3) RGB uint8; in
+ * MODE_CV2 the pixels of cv2.imread (BGR flipped), else as the mode says
+ * (JPEG-in-TIFF: libtiff sets the colour space); the bytes written, or a
+ * negative error. */
 int64_t jpeg_decode(const uint8_t *src, int64_t n, uint8_t *dst,
-                    int64_t dstsize)
+                    int64_t dstsize, int mode)
 {
-    int64_t info[3];
-    if (src == NULL || n < 0 || dst == NULL)
+    int64_t info[4];
+    if (src == NULL || n < 0 || dst == NULL || mode < 0 || mode > MODE_YCC)
         return ERR_ARGS;
-    int64_t rc = run(src, n, info, dst, dstsize);
-    return rc < 0 ? rc : info[0] * info[1] * info[2];
+    int64_t rc = run(src, n, info, dst, dstsize, mode);
+    return rc < 0 ? rc : info[0] * info[1]
+                         * (mode == MODE_RAW ? info[3] : info[2]);
 }
 
 /* ------------------------------------------------------------ encoder */

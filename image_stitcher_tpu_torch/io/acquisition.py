@@ -201,12 +201,12 @@ def read_image(filepath: str, prefer_mmap: bool = False,
     the TIFFs OpenCV cannot read, whose fourth sample is kept, as the JAX
     package keeps it), PNG (``io/png.py``), BMP (``io/bmp.py``: palettes
     raw or RLE8/RLE4, 16, 24 and 32 bits) or JPEG (``io/jpeg.py``:
-    baseline and progressive,
-    grey, YCbCr, RGB, CMYK or YCCK, the pixels of ``cv2.imread``,
-    libjpeg-turbo's arithmetic, EXIF orientation ignored as
-    ``IMREAD_UNCHANGED`` ignores it; arithmetic-coded, 12-bit, lossless
-    and hierarchical streams raise :class:`NotImplementedError` naming
-    ROADMAP item 19 (remainder)); a
+    baseline and progressive, Huffman or arithmetic-coded, lossless of
+    2..8 bits, grey, YCbCr, RGB, CMYK or YCCK, the pixels of
+    ``cv2.imread``, libjpeg-turbo's arithmetic and block smoothing, EXIF
+    orientation ignored as ``IMREAD_UNCHANGED`` ignores it; hierarchical,
+    12-bit and 2-component streams, which neither OpenCV nor imageio
+    reads, raise ``DecodeError``), JPEG-in-TIFF included; a
     compressed tile cannot be paged lazily, so
     ``prefer_mmap`` and ``prefetch`` do not apply to it. Colour comes
     back in RGB order, and a 4-channel image from the readers OpenCV

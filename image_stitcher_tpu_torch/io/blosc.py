@@ -13,9 +13,9 @@ interpreter lock, so the zarr writers encode one chunk per thread. zlib
 streams go through the stdlib's :mod:`zlib` (which releases it too),
 the C frame layer shuffling their blocks. This module holds the
 bindings and the plain version of the same frames in NumPy and Python
-(``*_plain``; the codecs' own in ``blosclz_plain``, ``snappy_plain`` and
-``zstd_plain``, LZ4 and LZ4HC here), which the tests hold the C codecs
-to, byte for byte; the writers never run a plain version, and a codec
+(``*_plain``; the codecs' own in ``blosclz_plain``, ``snappy_plain``,
+``lz4hc_plain`` and ``zstd_plain``, LZ4 here), which the tests hold the C
+codecs to, byte for byte; the writers never run a plain version, and a codec
 that cannot be built raises.
 
 The frame (c-blosc 1.x, as tensorstore writes it):
@@ -72,17 +72,10 @@ The LZ4 matchers (the same in C and here, byte for byte):
   up and entered, a hit there giving a sequence with no literals. The
   encoder gives up (the stream is stored) where liblz4's output bounds
   say so (:func:`lz4_compress_block_plain`);
-- 'lz4hc' (rules of its own: its streams decode equal to c-blosc's but
-  are not byte-equal): positions p <= n - 12 may start a match, which
-  extends up to n - 5; a candidate is taken when its 4 bytes equal p's
-  and p - candidate <= 65535; no backward extension; the 4 bytes at p,
-  read as a little-endian u32, hash to ``(seq * 2654435761 mod 2**32)
-  >> 17`` (32768 entries); each position also records its distance to
-  the previous position with its hash (0 when none within 65535 bytes);
-  before the search at p every position below p is entered; the search
-  walks at most ``2 ** (clevel - 1)`` candidates from the newest and
-  keeps the longest match (the nearest of equal length); p advances by
-  one after a miss.
+- 'lz4hc' is liblz4 1.10's ``LZ4_compress_HC`` with the output bounded
+  by the stream's length, the clevel passed through as c-blosc passes it
+  (levels 1-2 its mid matcher, 3-9 its hash chain), so its streams too
+  are byte-equal to c-blosc's; ``lz4hc_plain`` states its rules.
 Sequences are encoded as the LZ4 block format says (token nibbles,
 255-continued lengths, u16 LE offsets); the decoders read any valid LZ4
 block, including overlapping matches and the block-splitting choices of
@@ -103,7 +96,6 @@ _MIN_BUFFERSIZE = 128
 _FLAG_SHUFFLE, _FLAG_MEMCPYED, _FLAG_BITSHUFFLE = 0x01, 0x02, 0x04
 _FLAG_DONT_SPLIT = 0x10
 _HASH_LOG = 12
-_HC_HASH_LOG = 15
 
 #: the cnames tensorstore accepts, in the C library's codec-id order
 CNAMES = ('blosclz', 'lz4', 'lz4hc', 'snappy', 'zlib', 'zstd')
@@ -534,52 +526,6 @@ def lz4_compress_block_plain(src: bytes, clevel: int = 5,
     return bytes(out)
 
 
-def lz4hc_compress_block_plain(src: bytes, clevel: int = 5) -> bytes:
-    """One LZ4 block of ``src``: the hash-chain matcher of the module
-    docstring."""
-    n = len(src)
-    out = bytearray()
-    anchor = ip = 0
-    if n >= 13:
-        a = np.frombuffer(src, np.uint8)
-        seq, hashes = _hashes(src, _HC_HASH_LOG)
-        head = [-1] * (1 << _HC_HASH_LOG)
-        chain = [0] * 65536
-        depth = 1 << (min(max(int(clevel), 1), 9) - 1)
-        mflimit, matchlimit = n - 12, n - 5
-        nxt = 0
-        while ip <= mflimit:
-            while nxt < ip:
-                h = hashes[nxt]
-                prev = head[h]
-                chain[nxt & 0xFFFF] = (nxt - prev if prev >= 0
-                                       and nxt - prev <= 65535 else 0)
-                head[h] = nxt
-                nxt += 1
-            s = seq[ip]
-            cand = head[hashes[ip]]
-            best = best_ref = 0
-            for _ in range(depth):
-                if cand < 0 or ip - cand > 65535:
-                    break
-                if seq[cand] == s:
-                    length = 4 + _common(a, ip + 4, cand + 4, matchlimit)
-                    if length > best:
-                        best, best_ref = length, cand
-                delta = chain[cand & 0xFFFF]
-                if delta == 0:
-                    break
-                cand -= delta
-            if best >= 4:
-                _emit(out, src, anchor, ip - anchor, ip - best_ref, best)
-                ip += best
-                anchor = ip
-            else:
-                ip += 1
-    _emit(out, src, anchor, n - anchor, 0, 0)
-    return bytes(out)
-
-
 def lz4_decompress_block_plain(block: bytes, nbytes: int) -> bytes:
     """Decode one LZ4 block of exactly ``nbytes`` bytes."""
     out = bytearray()
@@ -636,7 +582,8 @@ def _stream_plain(cname: str) -> Callable[[bytes, int], bytes]:
     if cname == 'lz4':
         return lz4_compress_block_plain
     if cname == 'lz4hc':
-        return lz4hc_compress_block_plain
+        from .lz4hc_plain import compress
+        return compress
     if cname == 'zlib':
         return zlib.compress
     if cname == 'blosclz':
@@ -722,8 +669,8 @@ def _assemble(src: bytes, blocks: bytes, typesize: int, clevel: int,
                 ok = False
                 break
             stream = block[s * neblock:(s + 1) * neblock]
-            c = (lz4_compress_block_plain(stream, clevel, maxout)
-                 if cname == 'lz4' else encode(stream, clevel))
+            c = (encode(stream, clevel, maxout) if cname in ('lz4', 'lz4hc')
+                 else encode(stream, clevel))
             if not c or len(c) > maxout or len(c) == neblock:
                 if pos + neblock > maxbytes:
                     ok = False

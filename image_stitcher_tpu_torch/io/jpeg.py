@@ -1,6 +1,7 @@
 """JPEG through the hand-written C codec: ``.jpg`` tiles read
-(baseline, extended and progressive Huffman frames) and JPEG OME-TIFF
-tiles written.
+(baseline, extended and progressive frames, Huffman or arithmetic-coded,
+and lossless frames of 2..8 bits), JPEG-in-TIFF segments decoded, and
+JPEG OME-TIFF tiles written.
 
 The C library (``csrc/jpeg.c``, built at first use with the system C
 compiler by :func:`image_stitcher_tpu_torch.native.load`) is what the
@@ -10,9 +11,9 @@ encode pool work in parallel. Its plain version, the specification of
 both (scope, arithmetic, markers), is :mod:`.jpeg_plain`; the tests and
 ``chip_smoke.py`` hold the two equal, byte for byte. Nothing here falls
 back to the plain version: a codec that cannot be built raises, and so
-does a stream that does not decode (:class:`DecodeError`) or lies
-outside the scope (:class:`NotImplementedError` naming ROADMAP item 19
-(remainder)).
+does a stream that does not decode, OpenCV's libjpeg-turbo included
+(:class:`DecodeError`; for the streams neither OpenCV nor Pillow gives
+pixels for, it says so).
 """
 
 from __future__ import annotations
@@ -22,15 +23,18 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .jpeg_plain import not_ported
+from .jpeg_plain import no_pixels
 from .tile_decode import DecodeError
 
 _LIB: Optional[ctypes.CDLL] = None
 
-_NOT_PORTED = {-10: "progressive, with coefficients left unrefined "
-                    "(libjpeg-turbo's block smoothing),",
-               -11: "arithmetic-coded", -12: "lossless", -13: "hierarchical",
-               -14: "other than 8-bit", -15: "2-component"}
+_NO_PIXELS = {-11: "hierarchical", -12: "lossless arithmetic-coded",
+              -13: "DCT frames of other than 8-bit or lossless over 8-bit",
+              -14: "2-component", -15: "lossless YCbCr"}
+#: decode modes: cv2.imread's colour space (by the markers), or as a
+#: TIFF's Photometric sets it: the components as they are (4 kept), or
+#: 3 converted from YCbCr
+MODES = {'cv2': 0, 'raw': 1, 'ycc': 2}
 
 
 def lib() -> ctypes.CDLL:
@@ -43,7 +47,7 @@ def lib() -> ctypes.CDLL:
         i64, vp, ci = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
         so.jpeg_info.argtypes = [vp, i64, vp]
         so.jpeg_info.restype = i64
-        so.jpeg_decode.argtypes = [vp, i64, vp, i64]
+        so.jpeg_decode.argtypes = [vp, i64, vp, i64, ci]
         so.jpeg_decode.restype = i64
         so.jpeg_encode.argtypes = [vp, i64, i64, ci, ci, ci, ci, ci, vp, i64]
         so.jpeg_encode.restype = i64
@@ -54,8 +58,8 @@ def lib() -> ctypes.CDLL:
 def _check(rc: int, what: str) -> int:
     if rc >= 0:
         return rc
-    if rc in _NOT_PORTED:
-        raise not_ported(_NOT_PORTED[rc])
+    if rc in _NO_PIXELS:
+        raise no_pixels(_NO_PIXELS[rc])
     if rc == -4:
         raise MemoryError(f"JPEG {what}: out of memory")
     if rc == -19:
@@ -66,25 +70,27 @@ def _check(rc: int, what: str) -> int:
                           rc, "corrupt stream"))
 
 
-def info(data) -> Tuple[int, int, int]:
+def info(data, mode: str = 'cv2') -> Tuple[int, int, int]:
     """(height, width, channels) of a JPEG stream's decoded pixels, from
     its frame header: 1 for grey, 3 for colour (RGB, YCbCr, CMYK and
-    YCCK streams all decode to RGB)."""
+    YCCK streams all decode to RGB), 4 for 4 components in mode 'raw'."""
     src = np.frombuffer(data, np.uint8)
-    out = np.zeros(3, np.int64)
+    out = np.zeros(4, np.int64)
     _check(lib().jpeg_info(src.ctypes.data, src.size, out.ctypes.data),
            "header")
-    return int(out[0]), int(out[1]), int(out[2])
+    nc = int(out[3]) if mode == 'raw' else int(out[2])
+    return int(out[0]), int(out[1]), nc
 
 
-def decode(data) -> np.ndarray:
+def decode(data, mode: str = 'cv2') -> np.ndarray:
     """Pixels of a JPEG stream: (H, W) grey or (H, W, 3) RGB uint8, what
-    ``cv2.imread(IMREAD_UNCHANGED)`` gives (BGR flipped to RGB)."""
+    ``cv2.imread(IMREAD_UNCHANGED)`` gives (BGR flipped to RGB), or with
+    the colour handling ``mode`` names (:data:`MODES`)."""
     src = np.frombuffer(data, np.uint8)
-    h, w, nc = info(src)
+    h, w, nc = info(src, mode)
     out = np.empty((h, w, nc) if nc > 1 else (h, w), np.uint8)
     _check(lib().jpeg_decode(src.ctypes.data, src.size, out.ctypes.data,
-                             out.size), "decode")
+                             out.size, MODES[mode]), "decode")
     return out
 
 

@@ -8,17 +8,33 @@ codec reproduces libjpeg-turbo's integer arithmetic, so its pixels equal
 ``cv2.imread``'s and its streams ``cv2.imencode``'s, byte for byte:
 
 Decoding (``decode``): baseline (SOF0), extended-sequential (SOF1) and
-progressive (SOF2) 8-bit Huffman frames of 1, 3 or 4 components, any
-sampling factors 1..4 whose ratios to the largest are integral, any
-number of scans (interleaved, or one component each; Huffman tables
-defined or redefined between them), restart intervals. Progressive
-scans (``jdphuff.c``): DC first (the difference, shifted by Al) and
-refinement (one bit), AC first (a spectral band, with end-of-band runs)
-and refinement (correction bits, newly nonzero coefficients of +-1 <<
-Al). APPn and COM segments are skipped (an EXIF orientation is ignored,
-as ``IMREAD_UNCHANGED`` ignores it), but for JFIF (APP0 of 14 bytes or
-more) and Adobe (APP14 of 12 or more, its transform flag). Then, as
-libjpeg-turbo's defaults give it:
+progressive (SOF2) 8-bit Huffman frames, their arithmetic-coded twins
+(SOF9, SOF10) and lossless Huffman frames (SOF3) of 2..8 bits, of 1, 3
+or 4 components, any sampling factors 1..4 whose ratios to the largest
+are integral, any number of scans (interleaved, or one component each;
+Huffman tables defined or redefined between them), restart intervals.
+Progressive scans (``jdphuff.c``): DC first (the difference, shifted by
+Al) and refinement (one bit), AC first (a spectral band, with end-of-
+band runs) and refinement (correction bits, newly nonzero coefficients
+of +-1 << Al). Arithmetic-coded scans (``jdarith.c``): T.81 Annex D's QM
+decoder (Table D.2 as ``jaricom.c`` packs it; bytes destuffed, fill
+0xFF swallowed, zeros fed from a marker on; C and A registers with a
+floating cut) and the statistical models of F.1.4 and G.1.3 (DC
+conditioned on the last difference by the DAC bounds L and U, default
+0 and 1; AC magnitude bins split at Kx, default 5; sign and refinement
+bits at a fixed 0.5 estimate; AC refinement without Huffman's check of
+the bit already set), every statistic reset with each restart interval.
+Lossless scans (``jdlhuff.c``, ``jdpred.c``, ``jddiffct.c``): Huffman
+categories 0..16 (16 meaning 32768), predictors 1..7 mod 2^16, the first
+row of the image and of each iMCU row holding a restart 1-D from 2^(P -
+Pt - 1), other rows' first sample from above; the samples shifted left
+by Pt and kept as they are (not scaled to 8 bits), box-upsampled (no
+fancy upsampling from one-sample blocks), 3 components RGB with no
+marker or an Adobe transform 0 (libjpeg-turbo does not convert YCbCr in
+a lossless frame: OpenCV gives None). APPn and COM segments are skipped
+(an EXIF orientation is ignored, as ``IMREAD_UNCHANGED`` ignores it), but
+for JFIF (APP0 of 14 bytes or more) and Adobe (APP14 of 12 or more, its
+transform flag). Then, as libjpeg-turbo's defaults give it:
 - the ``islow`` inverse DCT (``jidctint.c``): two passes of the LL&M
   butterfly with 13-bit constants, pass 1 (columns, dequantised) descaled
   by 11 bits, pass 2 (rows) by 18, the result plus 128 taken through the
@@ -39,15 +55,21 @@ libjpeg-turbo's defaults give it:
   ``jdcolor.c``'s 16-bit fixed-point tables. 4 components are CMYK, or
   YCCK under a nonzero Adobe transform (``ycck_cmyk_convert``: C, M, Y =
   255 - the YCbCr's RGB), then OpenCV's CMYK -> BGR (each of C, M, Y as
-  k - ((255 - v) k >> 8)), given as RGB.
+  k - ((255 - v) k >> 8)), given as RGB;
+- libjpeg-turbo 3.1's block smoothing of a progressive frame whose scans
+  left one of the first 10 zigzag coefficients unrefined
+  (``jdcoefct.c::smoothing_ok`` and ``decompress_smooth_data``): each of
+  zigzag ACs 1..5 still zero and not known to the last bit estimated
+  from the 5x5 neighbours' DCs (Section K.8's estimates widened), and,
+  when no AC has been sent, ACs 1..9 and the DC too, each estimate
+  clamped below 2^Al (:func:`smooth_blocks`, :func:`smooth_rows`).
 A stream libjpeg-turbo does not read (sampling factors over 4,
 fractional ratios, interleaved MCUs of more than 10 blocks) or that does
-not decode raises :class:`DecodeError`. A stream outside this scope
-raises :class:`NotImplementedError` naming ROADMAP item 19 (remainder):
-arithmetic-coded, lossless or hierarchical frames, other than 8-bit
-samples, 2 components, or a progressive frame whose scans leave one of
-the first 10 zigzag coefficients unrefined, which libjpeg-turbo would
-smooth (``jdcoefct.c::decompress_smooth_data``).
+not decode raises :class:`DecodeError`; so do the streams that neither
+OpenCV nor the JAX package's imageio fallback (Pillow) gives pixels for,
+saying so (:func:`no_pixels`): hierarchical and lossless arithmetic-coded
+frames, DCT frames of other than 8 bits, lossless frames over 8 bits,
+2 components, lossless YCbCr and YCCK.
 
 Encoding (``encode``), as libjpeg-turbo writes with ``jpeg_set_defaults``
 and ``jpeg_set_quality(q, force_baseline=TRUE)``, OpenCV's settings:
@@ -124,13 +146,13 @@ F0298, F0390, F0541, F0765 = 2446, 3196, 4433, 6270
 F0899, F1175, F1501, F1847 = 7373, 9633, 12299, 15137
 F1961, F2053, F2562, F3072 = 16069, 16819, 20995, 25172
 
-_ITEM = "ROADMAP.md, item 19 (remainder), 'JPEG'"
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} JPEG streams are not ported to image_stitcher_tpu_torch "
-        f"yet ({_ITEM})")
+def no_pixels(what: str) -> DecodeError:
+    """The error of a stream OpenCV's libjpeg-turbo does not decode and
+    Pillow refuses too: the JAX package's ``read_image`` gives no pixels
+    for it either."""
+    return DecodeError(
+        f"JPEG: {what} frames are not decoded by OpenCV or Pillow, so the "
+        "JAX package's read_image gives no pixels for them either")
 
 
 def quant_tables(quality: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -548,8 +570,19 @@ class _Frame:
     def __init__(self):
         self.quant: Dict[int, np.ndarray] = {}
         self.dc: Dict[int, List[int]] = {}
+        self.dc_max: Dict[int, int] = {}
         self.ac: Dict[int, List[int]] = {}
         self.restart = 0
+        #: T.81 frame kinds: lossless (SOF3) samples, arithmetic coding
+        self.lossless = False
+        self.arith = False
+        self.precision = 8
+        #: arithmetic conditioning by table (DAC; T.81 F.1.4.4 defaults)
+        self.dac_l = [0] * 16
+        self.dac_u = [1] * 16
+        self.dac_k = [5] * 16
+        #: per component: a lossless frame's samples, undifferenced
+        self.samples: List[np.ndarray] = []
         self.jfif = False
         self.adobe = None        # the APP14 transform flag, when one was seen
         self.progressive = False
@@ -565,22 +598,29 @@ class _Frame:
 
 
 def _parse_sof(f: _Frame, marker: int, body: bytes) -> None:
-    if marker in (0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF):
-        raise not_ported("arithmetic-coded")
-    if marker in (0xC5, 0xC6, 0xC7):
-        raise not_ported("hierarchical")
-    if marker == 0xC3:
-        raise not_ported("lossless")
+    if marker in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF):
+        raise no_pixels("hierarchical")
+    if marker == 0xCB:
+        raise no_pixels("lossless arithmetic-coded")
     if f.comps:
         raise DecodeError("JPEG: a second frame header")
     if len(body) < 6:
         raise DecodeError("JPEG: short frame header")
-    f.progressive = marker == 0xC2
+    f.lossless = marker == 0xC3
+    f.arith = marker in (0xC9, 0xCA)
+    f.progressive = marker in (0xC2, 0xCA)
     prec, f.height, f.width, nc = struct.unpack_from('>BHHB', body)
-    if prec != 8:
-        raise not_ported(f"{prec}-bit")
+    f.precision = prec
+    if f.lossless and not 2 <= prec <= 16:
+        raise DecodeError(f"JPEG: bad lossless precision {prec}")
+    if f.lossless and prec > 8:
+        raise no_pixels(f"{prec}-bit lossless")
+    if not f.lossless and prec != 8:
+        raise no_pixels(f"{prec}-bit")
+    if nc == 2:
+        raise no_pixels("2-component")
     if nc not in (1, 3, 4):
-        raise not_ported(f"{nc}-component")
+        raise DecodeError(f"JPEG: {nc} components")
     if f.height == 0 or f.width == 0:
         raise DecodeError("JPEG: zero height or width (DNL is not read)")
     if len(body) < 6 + 3 * nc:
@@ -598,10 +638,13 @@ def _parse_sof(f: _Frame, marker: int, body: bytes) -> None:
 
 
 def _sampling(f: _Frame):
+    """(hmax, vmax, MCU columns, MCU rows): blocks of 8x8 samples, or of
+    one sample in a lossless frame."""
+    size = 1 if f.lossless else 8
     hmax = max(c['h'] for c in f.comps)
     vmax = max(c['v'] for c in f.comps)
-    mcux = -(-f.width // (8 * hmax))
-    mcuy = -(-f.height // (8 * vmax))
+    mcux = -(-f.width // (size * hmax))
+    mcuy = -(-f.height // (size * vmax))
     return hmax, vmax, mcux, mcuy
 
 
@@ -772,13 +815,231 @@ def _decode_ac_refine(bits: _Bits, act, out: List[int], base: int,
     bits.check()
 
 
-def _decode_scan(f: _Frame, body: bytes, data: bytes, pos: int) -> int:
+#: T.81 Table D.2, as libjpeg-turbo's ``jaricom.c`` packs it: Qe << 16 |
+#: next index after an MPS << 8 | MPS switch << 7 | next index after an
+#: LPS; entry 113 is the fixed 0.5 estimate of sign and refinement bits
+ARITAB = [(q << 16) | (m << 8) | (sw << 7) | lps for q, lps, m, sw in (
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+    (0x080b, 18, 4, 0), (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0),
+    (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0), (0x0036, 30, 9, 0),
+    (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1),
+    (0x3f25, 36, 16, 0), (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0),
+    (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0cef, 43, 21, 0),
+    (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+    (0x01b1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0),
+    (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0), (0x0068, 62, 33, 0),
+    (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0),
+    (0x2ef1, 67, 40, 0), (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0),
+    (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0),
+    (0x04de, 50, 52, 0), (0x040f, 50, 53, 0), (0x0363, 51, 54, 0),
+    (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0), (0x01f8, 54, 57, 0),
+    (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0),
+    (0x008f, 61, 32, 0), (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0),
+    (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0), (0x2fe8, 83, 69, 0),
+    (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119c, 74, 76, 0), (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0),
+    (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0), (0x5832, 80, 81, 1),
+    (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0),
+    (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0),
+    (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0), (0x3824, 99, 93, 0),
+    (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0),
+    (0x3c3d, 104, 100, 0), (0x375e, 99, 93, 0), (0x5231, 105, 102, 0),
+    (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0), (0x415e, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1),
+    (0x5522, 112, 109, 0), (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0))]
+#: the fixed estimate's state (``jdarith.c``: fixed_bin[0] = 113)
+FIXED_BIN = 113
+
+
+class _Arith:
+    """An arithmetic-coded segment through the QM decoder of T.81 Annex
+    D as ``jdarith.c`` runs it: its bytes destuffed (0xFF 0x00 is 0xFF,
+    further 0xFF fill bytes are swallowed), zero bytes fed from the first
+    marker on, and 16-bit C and A registers with the cut between the
+    interval's base and the bit buffer floating with CT."""
+
+    def __init__(self, seg: bytes):
+        out = bytearray()
+        k, n = 0, len(seg)
+        while k < n:
+            b = seg[k]
+            k += 1
+            if b == 0xFF:
+                while k < n and seg[k] == 0xFF:
+                    k += 1
+                if k >= n or seg[k] != 0:
+                    break
+                k += 1
+            out.append(b)
+        self.data = bytes(out)
+        self.pos = 0
+        self.c = self.a = 0
+        self.ct = -16
+
+    def decode(self, st: bytearray, i: int) -> int:
+        """One binary decision with the statistics bin st[i]."""
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                if self.pos < len(self.data):
+                    c = (c << 8) | self.data[self.pos]
+                    self.pos += 1
+                else:
+                    c <<= 8
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                a = qe
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                a = qe
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+def _arith_dc(ar: _Arith, st: bytearray, ctx: Dict[int, int], ci: int,
+              lo: int, hi: int) -> int:
+    """A DC difference (F.1.4.1, Figure F.19) in component ci's
+    conditioning context ``ctx[ci]``, which it updates with the DAC
+    bounds L, U."""
+    s0 = ctx[ci]
+    if not ar.decode(st, s0):
+        ctx[ci] = 0
+        return 0
+    sign = ar.decode(st, s0 + 1)
+    i = s0 + 2 + sign
+    m = ar.decode(st, i)
+    if m:
+        i = 20
+        while ar.decode(st, i):
+            m <<= 1
+            if m == 0x8000:
+                raise DecodeError("JPEG: bad arithmetic code")
+            i += 1
+    if m < (1 << lo) >> 1:
+        ctx[ci] = 0
+    elif m > (1 << hi) >> 1:
+        ctx[ci] = 12 + sign * 4
+    else:
+        ctx[ci] = 4 + sign * 4
+    v = m
+    i += 14
+    while m > 1:
+        m >>= 1
+        if ar.decode(st, i):
+            v |= m
+    v += 1
+    return -v if sign else v
+
+
+def _arith_ac(ar: _Arith, st: bytearray, fixed: bytearray, out: List[int],
+              base: int, start: int, end: int, kx: int, al: int) -> None:
+    """The ACs start..end of a block (Figure F.20; ``jdarith.c::
+    decode_mcu`` and ``decode_mcu_AC_first``), each shifted left by al."""
+    k = start - 1
+    while k < end:
+        i = 3 * k
+        if ar.decode(st, i):
+            break
+        while True:
+            k += 1
+            if ar.decode(st, i + 1):
+                break
+            i += 3
+            if k >= end:
+                raise DecodeError("JPEG: bad arithmetic code")
+        sign = ar.decode(fixed, 0)
+        i += 2
+        m = ar.decode(st, i)
+        if m and ar.decode(st, i):
+            m <<= 1
+            i = 189 if k <= kx else 217
+            while ar.decode(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    raise DecodeError("JPEG: bad arithmetic code")
+                i += 1
+        v = m
+        i += 14
+        while m > 1:
+            m >>= 1
+            if ar.decode(st, i):
+                v |= m
+        v += 1
+        out[base + ZIGZAG_LIST[k]] = (-v if sign else v) << al
+
+
+def _arith_ac_refine(ar: _Arith, st: bytearray, fixed: bytearray,
+                     out: List[int], base: int, ss: int, se: int,
+                     al: int) -> None:
+    """``jdarith.c::decode_mcu_AC_refine``: correction bits of the
+    coefficients already nonzero, newly nonzero ones of +-1 << al."""
+    p1, m1 = 1 << al, -1 << al
+    kex = se
+    while kex > 0 and out[base + ZIGZAG_LIST[kex]] == 0:
+        kex -= 1
+    k = ss - 1
+    while k < se:
+        i = 3 * k
+        if k >= kex and ar.decode(st, i):
+            break
+        while True:
+            k += 1
+            pos = base + ZIGZAG_LIST[k]
+            if out[pos]:
+                if ar.decode(st, i + 2):
+                    out[pos] += m1 if out[pos] < 0 else p1
+                break
+            if ar.decode(st, i + 1):
+                out[pos] = m1 if ar.decode(fixed, 0) else p1
+                break
+            i += 3
+            if k >= se:
+                raise DecodeError("JPEG: bad arithmetic code")
+
+
+def _scan_header(f: _Frame, body: bytes):
+    """(scan components as (index, DC table, AC table), Ss, Se, Ah, Al),
+    checked as libjpeg-turbo checks them."""
     ns = body[0] if body else 0
     if ns < 1 or ns > len(f.comps) or len(body) < 4 + 2 * ns:
         raise DecodeError("JPEG: bad scan header")
     ss, se, ahal = body[1 + 2 * ns:4 + 2 * ns]
     ah, al = ahal >> 4, ahal & 15
-    if f.progressive:
+    if f.lossless:
+        if not 1 <= ss <= 7 or se != 0 or ah != 0 or al >= f.precision:
+            raise DecodeError("JPEG: bad lossless scan parameters")
+    elif f.progressive:
         dc = ss == 0
         if ((dc and se != 0) or (not dc and (ss > se or se > 63 or ns != 1))
                 or (ah and al != ah - 1) or al > 13):
@@ -791,30 +1052,25 @@ def _decode_scan(f: _Frame, body: bytes, data: bytes, pos: int) -> int:
         cid, t = body[1 + 2 * k:3 + 2 * k]
         if cid not in ids:
             raise DecodeError(f"JPEG: scan names component {cid}")
-        need_dc = not f.progressive or (ss == 0 and ah == 0)
-        need_ac = not f.progressive or ss > 0
-        if ((need_dc and (t >> 4) not in f.dc)
-                or (need_ac and (t & 15) not in f.ac)):
-            raise DecodeError("JPEG: scan uses an undefined Huffman table")
-        scomps.append((ids.index(cid), f.dc.get(t >> 4), f.ac.get(t & 15)))
-    hmax, vmax, mcux, mcuy = _sampling(f)
-    if ns == 1:
-        c = f.comps[scomps[0][0]]
-        nx = -(-f.width * c['h'] // (hmax * 8))
-        ny = -(-f.height * c['v'] // (vmax * 8))
-        mcu = [(scomps[0], 0, 0)]
-        one = True
-    else:
-        mcu = [(sc, y, x) for sc in scomps
-               for y in range(f.comps[sc[0]]['v'])
-               for x in range(f.comps[sc[0]]['h'])]
-        if len(mcu) > MAX_BLOCKS_IN_MCU:
-            raise DecodeError("JPEG: an MCU of more than 10 blocks")
-        nx, ny = mcux, mcuy
-        one = False
-    for ci, _, _ in scomps:
-        for k in range(ss, se + 1):
-            f.coef_bits[ci][k] = al
+        if not f.arith:
+            need_dc = (f.lossless or not f.progressive
+                       or (ss == 0 and ah == 0))
+            need_ac = not f.lossless and (not f.progressive or ss > 0)
+            if ((need_dc and (t >> 4) not in f.dc)
+                    or (need_ac and (t & 15) not in f.ac)):
+                raise DecodeError("JPEG: scan uses an undefined Huffman "
+                                  "table")
+            if need_dc and f.dc_max[t >> 4] > (16 if f.lossless else 15):
+                raise DecodeError("JPEG: bad DHT")
+        elif (t >> 4) > 3 or (t & 15) > 3:
+            raise DecodeError("JPEG: bad arithmetic table number")
+        scomps.append((ids.index(cid), t >> 4, t & 15))
+    return scomps, ss, se, ah, al
+
+
+def _segments(f: _Frame, data: bytes, pos: int, nmcu: int):
+    """(end of the scan's data, its entropy-coded segments, MCUs a
+    segment)."""
     end = _entropy_end(data, pos)
     segments = [data[pos:end]]
     if f.restart:
@@ -827,38 +1083,173 @@ def _decode_scan(f: _Frame, body: bytes, data: bytes, pos: int) -> int:
                 break
             segments.append(data[start:nxt])
             start, k = nxt + 2, k + 1
-    nmcu = nx * ny
     per = f.restart or nmcu
     if len(segments) != -(-nmcu // per):
         raise DecodeError("JPEG: restart markers do not match the interval")
+    return end, segments, per
+
+
+def _decode_scan(f: _Frame, body: bytes, data: bytes, pos: int) -> int:
+    scomps, ss, se, ah, al = _scan_header(f, body)
+    hmax, vmax, mcux, mcuy = _sampling(f)
+    size = 1 if f.lossless else 8
+    if len(scomps) == 1:
+        c = f.comps[scomps[0][0]]
+        nx = -(-f.width * c['h'] // (hmax * size))
+        ny = -(-f.height * c['v'] // (vmax * size))
+        mcu = [(scomps[0], 0, 0)]
+        one = True
+    else:
+        mcu = [(sc, y, x) for sc in scomps
+               for y in range(f.comps[sc[0]]['v'])
+               for x in range(f.comps[sc[0]]['h'])]
+        if len(mcu) > MAX_BLOCKS_IN_MCU:
+            raise DecodeError("JPEG: an MCU of more than 10 blocks")
+        nx, ny = mcux, mcuy
+        one = False
+    if f.lossless:
+        if f.restart and f.restart % nx:
+            # jddiffct.c: the interval must be whole MCU rows
+            raise DecodeError("JPEG: a lossless restart interval that is "
+                              "not a multiple of the MCU row")
+    else:
+        for ci, _, _ in scomps:
+            for k in range(ss, se + 1):
+                f.coef_bits[ci][k] = al
+    nmcu = nx * ny
+    end, segments, per = _segments(f, data, pos, nmcu)
+    if f.arith:
+        dc_st = {t: bytearray(64) for _, t, _ in scomps}
+        ac_st = {t: bytearray(256) for _, _, t in scomps}
     m = 0
     for seg in segments:
-        bits = _Bits(seg)
+        if f.arith:
+            ar = _Arith(seg)
+            fixed = bytearray([FIXED_BIN])
+            if not f.progressive or (ss == 0 and ah == 0):
+                for st in dc_st.values():
+                    st[:] = bytes(64)
+            if not f.progressive or ss:
+                for st in ac_st.values():
+                    st[:] = bytes(256)
+        else:
+            bits = _Bits(seg)
         preds = {ci: [0] for ci, _, _ in scomps}
+        ctx = {ci: 0 for ci, _, _ in scomps}
         eobrun = [0]
         for _ in range(min(per, nmcu - m)):
             my, mx = divmod(m, nx)
-            for (ci, dct, act), y, x in mcu:
+            for (ci, td, ta), y, x in mcu:
                 c = f.comps[ci]
                 if one:
                     by, bx = my, mx
                 else:
                     by, bx = my * c['v'] + y, mx * c['h'] + x
                 out = f.coef[ci]
+                if f.lossless:
+                    s_ = bits.huff(f.dc[td])
+                    out[by * f.grid[ci][1] + bx] = (
+                        32768 if s_ == 16 else bits.extend(s_))
+                    bits.check()
+                    continue
                 base = (by * f.grid[ci][1] + bx) * 64
-                if not f.progressive:
-                    _decode_sequential(bits, dct, act, out, base, preds[ci])
+                if f.arith:
+                    if not f.progressive or (ss == 0 and ah == 0):
+                        pred = preds[ci]
+                        pred[0] += _arith_dc(ar, dc_st[td], ctx, ci,
+                                             f.dac_l[td], f.dac_u[td])
+                        out[base] = pred[0] << (al if f.progressive else 0)
+                    elif ss == 0:
+                        if ar.decode(fixed, 0):
+                            out[base] |= 1 << al
+                    if not f.progressive:
+                        _arith_ac(ar, ac_st[ta], fixed, out, base, 1, 63,
+                                  f.dac_k[ta], 0)
+                    elif ss and ah == 0:
+                        _arith_ac(ar, ac_st[ta], fixed, out, base, ss, se,
+                                  f.dac_k[ta], al)
+                    elif ss:
+                        _arith_ac_refine(ar, ac_st[ta], fixed, out, base,
+                                         ss, se, al)
+                elif not f.progressive:
+                    _decode_sequential(bits, f.dc[td], f.ac[ta], out, base,
+                                       preds[ci])
                 elif ss == 0 and ah == 0:
-                    _decode_dc_first(bits, dct, out, base, preds[ci], al)
+                    _decode_dc_first(bits, f.dc[td], out, base, preds[ci],
+                                     al)
                 elif ss == 0:
                     _decode_dc_refine(bits, out, base, al)
                 elif ah == 0:
-                    _decode_ac_first(bits, act, out, base, ss, se, al, eobrun)
+                    _decode_ac_first(bits, f.ac[ta], out, base, ss, se, al,
+                                     eobrun)
                 else:
-                    _decode_ac_refine(bits, act, out, base, ss, se, al,
+                    _decode_ac_refine(bits, f.ac[ta], out, base, ss, se, al,
                                       eobrun)
             m += 1
+    if f.lossless:
+        for ci, _, _ in scomps:
+            _undifference(f, ci, ss, al, one, nx)
     return end
+
+
+def _undifference(f: _Frame, ci: int, psv: int, pt: int, one: bool,
+                  nx: int) -> None:
+    """A lossless component's samples from its decoded differences
+    (``jdpred.c``): predictor psv (T.81 H.1.2.1) on the previous sample
+    Ra, the one above Rb and the one above-left Rc, mod 2^16; a first row
+    1-D from 2^(P - Pt - 1), other rows' first sample from Rb. The first
+    rows are the image's and, with restarts, that of each iMCU row (v
+    sample rows) in which an interval starts: libjpeg-turbo undifferences
+    an iMCU row after decoding it whole. Then shifted left by Pt to
+    8-bit samples (``jdlossls.c``)."""
+    c = f.comps[ci]
+    hmax, vmax, _, _ = _sampling(f)
+    hib = -(-f.height * c['v'] // vmax)
+    wib = -(-f.width * c['h'] // hmax)
+    v = c['v']
+    diff = np.array(f.coef[ci], np.int64).reshape(f.grid[ci])[:hib, :wib]
+    first = np.zeros(hib, bool)
+    first[0] = True
+    if f.restart:
+        every = f.restart // nx
+        rows = np.arange(hib) // (1 if one else v)
+        start = ((rows % every == 0)
+                 & (np.arange(hib) % (1 if one else v) == 0))
+        first[(np.arange(hib) // v)[start] * v] = True
+    x = np.zeros((hib, wib), np.int64)
+    init = 1 << (f.precision - pt - 1)
+    mask = 0xFFFF
+    for r in range(hib):
+        d = diff[r]
+        if first[r]:
+            x[r] = (init + np.cumsum(d)) & mask
+            continue
+        b = x[r - 1]
+        x0 = (b[0] + d[0]) & mask
+        if psv in (1, 4, 5):
+            # Ra plus a term of the row above: a running sum
+            t = d[1:].copy()
+            if psv == 4:
+                t += b[1:] - b[:-1]
+            elif psv == 5:
+                t += (b[1:] - b[:-1]) >> 1
+            x[r, 0] = x0
+            x[r, 1:] = (x0 + np.cumsum(t)) & mask
+        elif psv == 2:
+            x[r] = (b + d) & mask
+        elif psv == 3:
+            x[r, 0] = x0
+            x[r, 1:] = (b[:-1] + d[1:]) & mask
+        else:
+            row = x[r]
+            row[0] = ra = x0
+            bl, dl = b.tolist(), d.tolist()
+            for k in range(1, wib):
+                rb, rc = bl[k], bl[k - 1]
+                p = rb + ((ra - rc) >> 1) if psv == 6 else (ra + rb) >> 1
+                ra = (dl[k] + p) & mask
+                row[k] = ra
+    f.samples[ci] = (x << pt) & 0xFF
 
 
 def _smoothed(f: _Frame) -> bool:
@@ -918,9 +1309,19 @@ def _upsample(p: np.ndarray, fh: int, fv: int) -> np.ndarray:
     return out
 
 
-def decode(data) -> np.ndarray:
+def decode(data, mode: str = 'cv2') -> np.ndarray:
     """Pixels of a JPEG stream: (H, W) grey or (H, W, 3) RGB uint8, what
-    ``cv2.imread(IMREAD_UNCHANGED)`` gives (BGR flipped to RGB)."""
+    ``cv2.imread(IMREAD_UNCHANGED)`` gives (BGR flipped to RGB). Within a
+    TIFF libtiff sets the colour space (``io/tiff.py``): ``mode`` 'raw'
+    keeps the components as they are ((H, W, 4) for 4), 'ycc' converts 3
+    from YCbCr whatever the markers say."""
+    return _output(read(data), mode)
+
+
+def read(data) -> _Frame:
+    """A JPEG stream parsed and entropy-decoded: the frame with its
+    quantised coefficients (natural order, per component on the MCU
+    grid) or, lossless, its samples."""
     data = bytes(data)
     if not data.startswith(b'\xff\xd8'):
         raise DecodeError("not a JPEG stream (no SOI)")
@@ -949,10 +1350,12 @@ def decode(data) -> np.ndarray:
             _parse_sof(f, marker, body)
             _, _, mcux, mcuy = _sampling(f)
             f.grid = [(mcuy * c['v'], mcux * c['h']) for c in f.comps]
-            f.coef = [[0] * (r * c * 64) for r, c in f.grid]
+            per = 1 if f.lossless else 64
+            f.coef = [[0] * (r * c * per) for r, c in f.grid]
             f.coef_bits = [[-1] * 64 for _ in f.comps]
+            f.samples = [None] * len(f.comps)
         elif marker == 0xCC:
-            raise not_ported("arithmetic-coded")
+            _parse_dac(f, body)
         elif marker == 0xDB:
             _parse_dqt(f, body)
         elif marker == 0xC4:
@@ -976,7 +1379,24 @@ def decode(data) -> np.ndarray:
             raise DecodeError("JPEG: DNL is not read")
     if not scanned:
         raise DecodeError("JPEG: no scan")
-    return _output(f)
+    return f
+
+
+def _parse_dac(f: _Frame, body: bytes) -> None:
+    """DAC (``jdmarker.c::get_dac``): per table, DC conditioning L and U
+    (U >= L) or the AC one Kx."""
+    if len(body) % 2:
+        raise DecodeError("JPEG: bad DAC")
+    for k in range(0, len(body), 2):
+        index, val = body[k], body[k + 1]
+        if index >= 32:
+            raise DecodeError("JPEG: bad DAC")
+        if index >= 16:
+            f.dac_k[index - 16] = val
+        else:
+            f.dac_l[index], f.dac_u[index] = val & 15, val >> 4
+            if val & 15 > val >> 4:
+                raise DecodeError("JPEG: bad DAC")
 
 
 def _parse_dqt(f: _Frame, body: bytes) -> None:
@@ -1003,7 +1423,7 @@ def _parse_dht(f: _Frame, body: bytes) -> None:
         count = sum(bits)
         vals = body[k + 17:k + 17 + count]
         if count > 256 or len(vals) != count or (
-                not tc and any(v > 15 for v in vals)):
+                not tc and any(v > 16 for v in vals)):
             raise DecodeError("JPEG: bad DHT")
         code = 0
         for length in range(1, 17):
@@ -1012,6 +1432,9 @@ def _parse_dht(f: _Frame, body: bytes) -> None:
                 raise DecodeError("JPEG: bad DHT")
             code <<= 1
         (f.ac if tc else f.dc)[th] = _lookup(bits, vals)
+        if not tc:
+            # a DC category of 16 is a lossless difference of 32768 only
+            f.dc_max[th] = max(vals, default=0)
         k += 17 + count
 
 
@@ -1028,7 +1451,8 @@ def _colour_space(f: _Frame) -> str:
     if f.adobe is not None:
         return 'rgb' if f.adobe == 0 else 'ycc'
     ids = [c['id'] for c in f.comps]
-    return 'rgb' if ids == [82, 71, 66] else 'ycc'
+    # libjpeg-turbo 3 takes a lossless frame with no marker as RGB
+    return 'rgb' if ids == [82, 71, 66] or f.lossless else 'ycc'
 
 
 def cmyk_to_rgb(c, m, y, k) -> np.ndarray:
@@ -1039,30 +1463,177 @@ def cmyk_to_rgb(c, m, y, k) -> np.ndarray:
                      for v in (c, m, y)], axis=-1).astype(np.uint8)
 
 
-def _output(f: _Frame) -> np.ndarray:
+def _dc_weights(text: str) -> np.ndarray:
+    """A 5x5 weight grid from ``jdcoefct.c``'s terms ``w*DCnn`` (DC01..
+    DC25 row by row: rows r - 2..r + 2, columns c - 2..c + 2)."""
+    grid = np.zeros(25, np.int64)
+    for term in text.replace('- ', '+-').replace(' ', '').split('+'):
+        w, _, name = term.rpartition('DC')
+        grid[int(name) - 1] = int({'': 1, '-': -1}.get(w, w.rstrip('*')))
+    return grid.reshape(5, 5)
+
+
+#: ``decompress_smooth_data``'s estimates, by zigzag index 1..9: the
+#: weights of the neighbours' DCs when no AC coefficient has been sent
+#: (``change_dc``), and otherwise (None: not estimated then)
+_SMOOTH = [
+    (_dc_weights('-DC01 - DC02 + DC04 + DC05 - 3*DC06 + 13*DC07 - 13*DC09 '
+                 '+ 3*DC10 - 3*DC11 + 38*DC12 - 38*DC14 + 3*DC15 - 3*DC16 '
+                 '+ 13*DC17 - 13*DC19 + 3*DC20 - DC21 - DC22 + DC24 + DC25'),
+     _dc_weights('-7*DC11 + 50*DC12 - 50*DC14 + 7*DC15')),
+    (_dc_weights('-DC01 - 3*DC02 - 3*DC03 - 3*DC04 - DC05 - DC06 + 13*DC07 '
+                 '+ 38*DC08 + 13*DC09 - DC10 + DC16 - 13*DC17 - 38*DC18 '
+                 '- 13*DC19 + DC20 + DC21 + 3*DC22 + 3*DC23 + 3*DC24 + DC25'),
+     _dc_weights('-7*DC03 + 50*DC08 - 50*DC18 + 7*DC23')),
+    (_dc_weights('DC03 + 2*DC07 + 7*DC08 + 2*DC09 - 5*DC12 - 14*DC13 '
+                 '- 5*DC14 + 2*DC17 + 7*DC18 + 2*DC19 + DC23'),
+     _dc_weights('-DC03 + 13*DC08 - 24*DC13 + 13*DC18 - DC23')),
+    (_dc_weights('-DC01 + DC05 + 9*DC07 - 9*DC09 - 9*DC17 + 9*DC19 + DC21 '
+                 '- DC25'),
+     _dc_weights('DC10 + DC16 - 10*DC17 + 10*DC19 - DC02 - DC20 + DC22 '
+                 '- DC24 + DC04 - DC06 + 10*DC07 - 10*DC09')),
+    (_dc_weights('2*DC07 - 5*DC08 + 2*DC09 + DC11 + 7*DC12 - 14*DC13 '
+                 '+ 7*DC14 + DC15 + 2*DC17 - 5*DC18 + 2*DC19'),
+     _dc_weights('-DC11 + 13*DC12 - 24*DC13 + 13*DC14 - DC15')),
+    (_dc_weights('DC07 - DC09 + 2*DC12 - 2*DC14 + DC17 - DC19'), None),
+    (_dc_weights('DC07 - 3*DC08 + DC09 - DC17 + 3*DC18 - DC19'), None),
+    (_dc_weights('DC07 - DC09 - 3*DC12 + 3*DC14 + DC17 - DC19'), None),
+    (_dc_weights('DC07 + 2*DC08 + DC09 - DC17 - 2*DC18 - DC19'), None),
+]
+#: the DC's estimate when no AC coefficient has been sent (weights sum
+#: to 256: a weighted mean of the 5x5 DCs)
+_SMOOTH_DC = _dc_weights(
+    '-2*DC01 - 6*DC02 - 8*DC03 - 6*DC04 - 2*DC05 - 6*DC06 + 6*DC07 '
+    '+ 42*DC08 + 6*DC09 - 6*DC10 - 8*DC11 + 42*DC12 + 152*DC13 + 42*DC14 '
+    '- 8*DC15 - 6*DC16 + 6*DC17 + 42*DC18 + 6*DC19 - 6*DC20 - 2*DC21 '
+    '- 6*DC22 - 8*DC23 - 6*DC24 - 2*DC25')
+
+
+def smooth_rows(hib: int, v: int, imcu_rows: int) -> np.ndarray:
+    """The block rows ``decompress_smooth_data`` takes as rows r - 2..
+    r + 2 of each of a component's ``hib`` block rows (iMCU rows of v
+    block rows): (hib, 5), rows of the MCU grid. It numbers a block row
+    by (iMCU row) x (block rows of the iMCU row being output) + (row
+    within it), and calls the image (block rows of that iMCU row) x
+    (iMCU rows) rows tall: so the rows of the last iMCU row but one may
+    take the MCU padding's rows below the image, and, where the last iMCU
+    row is shorter than v, rows of the last one may repeat a row that
+    the image has a neighbour for."""
+    last = imcu_rows - 1
+    out = np.empty((hib, 5), np.int64)
+    for r in range(hib):
+        i, b = divmod(r, v)
+        rows = v if i < last else (hib % v or v)
+        num, total = i * rows + b, rows * imcu_rows
+        prev = r - 1 if num > 0 else r
+        nxt = r + 1 if num < total - 1 else r
+        out[r] = (r - 2 if num > 1 else prev, prev, r, nxt,
+                  r + 2 if num < total - 2 else nxt)
+    return out
+
+
+def smooth_blocks(coef: np.ndarray, dc: np.ndarray, quant: np.ndarray,
+                  bits: List[int], rows: np.ndarray) -> np.ndarray:
+    """libjpeg-turbo's block smoothing (``jdcoefct.c::decompress_smooth_
+    data``) of one component's (hib, wib, 64) coefficients (natural order,
+    as stored: DCs shifted by their Al), given the DCs of the whole MCU
+    grid ``dc``, the zigzag coefficients' last successive-approximation
+    bits ``bits`` (-1: never sent) and the neighbour rows of
+    :func:`smooth_rows`: each of the first zigzag ACs
+    still zero and not known to the last bit gets an estimate from the
+    5x5 neighbours' DCs, clamped below 2^Al; with no AC sent at all, the
+    DC too. Columns past an edge repeat the edge's."""
+    out = coef.copy()
+    wib = coef.shape[1]
+    cols = np.clip(np.arange(wib)[:, None] + np.arange(-2, 3), 0, wib - 1)
+    # nb[r, c, i, j]: the DC of row rows[r, i], column c + j - 2 (clamped)
+    nb = dc[rows[:, None, :, None], cols[None, :, None, :]]
+    change_dc = all(b == -1 for b in bits[1:10])
+    q00 = int(quant[0])
+    for k in range(1, 10):
+        weights = _SMOOTH[k - 1][0 if change_dc else 1]
+        al = bits[k]
+        if weights is None or al == 0:
+            continue
+        pos = ZIGZAG_LIST[k]
+        q = int(quant[pos])
+        num = q00 * np.einsum('rcij,ij->rc', nb, weights)
+        pred = ((q << 7) + np.abs(num)) // (q << 8)
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        pred = np.where(num >= 0, pred, -pred)
+        zero = out[:, :, pos] == 0
+        out[:, :, pos] = np.where(zero, pred, out[:, :, pos])
+    if change_dc:
+        num = q00 * np.einsum('rcij,ij->rc', nb, _SMOOTH_DC)
+        pred = ((q00 << 7) + np.abs(num)) // (q00 << 8)
+        out[:, :, 0] = np.where(num >= 0, pred, -pred)
+    return out.astype(np.int16).astype(np.int64)
+
+
+def _space(f: _Frame, mode: str) -> str:
+    if mode == 'cv2':
+        return _colour_space(f)
+    if mode == 'ycc':
+        return 'ycc'
+    return {1: 'grey', 3: 'rgb', 4: 'raw'}[len(f.comps)]
+
+
+def _lossless_output(f: _Frame, mode: str) -> np.ndarray:
+    """A lossless frame's pixels: its components box-upsampled (libjpeg-
+    turbo upsamples "fancy" only from IDCT blocks larger than one sample)
+    and, for 3 components, taken as RGB: under a JFIF marker or an Adobe
+    transform other than 0 they are YCbCr, which libjpeg-turbo does not
+    convert in a lossless frame (OpenCV gives None, Pillow raises); 4
+    are CMYK (YCCK under an Adobe transform other than 0: refused)."""
     hmax, vmax, _, _ = _sampling(f)
-    if _smoothed(f):
-        raise not_ported("progressive, with coefficients left unrefined "
-                         "(libjpeg-turbo's block smoothing),")
+    planes = []
+    for ci, c in enumerate(f.comps):
+        if f.samples[ci] is None:
+            raise DecodeError("JPEG: a component no scan decoded")
+        p = np.repeat(np.repeat(f.samples[ci], vmax // c['v'], axis=0),
+                      hmax // c['h'], axis=1)
+        planes.append(p[:f.height, :f.width])
+    space = _space(f, mode)
+    if space in ('ycc', 'ycck'):
+        raise no_pixels("lossless YCbCr")
+    if space == 'grey':
+        return planes[0].astype(np.uint8)
+    if space in ('rgb', 'raw'):
+        return np.stack(planes, axis=-1).astype(np.uint8)
+    return cmyk_to_rgb(*planes)
+
+
+def _output(f: _Frame, mode: str = 'cv2') -> np.ndarray:
+    if f.lossless:
+        return _lossless_output(f, mode)
+    hmax, vmax, _, mcuy = _sampling(f)
+    smooth = _smoothed(f)
     planes = []
     for ci, c in enumerate(f.comps):
         if c['tq'] not in f.quant:
             raise DecodeError("JPEG: component uses an undefined table")
         rows, cols = f.grid[ci]
         # JCOEF is 16-bit, as in libjpeg
-        coef = np.array(f.coef[ci], np.int64).astype(np.int16)
-        px = idct_islow(coef.astype(np.int64).reshape(-1, 64),
-                        f.quant[c['tq']])
-        plane = px.reshape(rows, cols, 8, 8).transpose(0, 2, 1, 3).reshape(
-            rows * 8, cols * 8)
+        grid = np.array(f.coef[ci], np.int64).astype(np.int16).astype(
+            np.int64).reshape(rows, cols, 64)
         dh = -(-f.height * c['v'] // vmax)
         dw = -(-f.width * c['h'] // hmax)
+        hib, wib = -(-dh // 8), -(-dw // 8)
+        coef = grid[:hib, :wib]
+        if smooth:
+            coef = smooth_blocks(coef, grid[:, :, 0], f.quant[c['tq']],
+                                 f.coef_bits[ci],
+                                 smooth_rows(hib, c['v'], mcuy))
+        px = idct_islow(coef.reshape(-1, 64), f.quant[c['tq']])
+        plane = px.reshape(hib, wib, 8, 8).transpose(0, 2, 1, 3).reshape(
+            hib * 8, wib * 8)
         up = _upsample(plane[:dh, :dw], hmax // c['h'], vmax // c['v'])
         planes.append(up[:f.height, :f.width])
-    space = _colour_space(f)
+    space = _space(f, mode)
     if space == 'grey':
         return planes[0].astype(np.uint8)
-    if space == 'rgb':
+    if space in ('rgb', 'raw'):
         return np.stack(planes, axis=-1).astype(np.uint8)
     if space == 'ycc':
         return ycc_to_rgb(*planes)

@@ -14,6 +14,14 @@ RowsPerStrip, a short last strip) or tiles (edge tiles cropped), with:
   with any T4Options, T.6) and 34925 (LZMA, through the standard
   library's ``lzma``, as imageio reads it); FillOrder 2 (the stored bytes
   bit-reversed before the codec, as libtiff and imageio do);
+- compression 7 (JPEG, 8-bit) in strips or tiles through the port's
+  JPEG codec, JPEGTables spliced into abbreviated segments, with the
+  colour handling libtiff gives each Photometric: YCbCr (every
+  YCbCrSubSampling libtiff's RGBA reader takes, the JPEG's sampling
+  agreeing) converted by libjpeg, grey, MinIsWhite (inverted), RGB and
+  CMYK (libtiff's conversion) as the components are; old-style JPEG
+  (6) and JPEG of other than 8 bits give no pixels in the JAX package
+  (imageio's tifffile cannot decompress them) and raise ``DecodeError``;
 - Predictor 1, 2 (horizontal, undone per sample after the bytes are
   swapped to native order, as libtiff does) or 3 (floating point,
   libtiff's fpAcc, whose output is in native order already); libtiff
@@ -46,16 +54,15 @@ interface. A layout whose JAX array is not its pixels (16-bit and 10- to
 if interleaved; imageio's plane-first arrays; grey + alpha tiles
 overhanging the right edge, whose rows libtiff misplaces; FillOrder 2 in
 uncompressed tiles) or that this reader does not take raises
-:class:`NotImplementedError` naming the ROADMAP item (JPEG-in-TIFF: item
-19, remainder; the rest item 6); a file that does not hold what its tags
+:class:`NotImplementedError` naming the ROADMAP item (item 6); a file
+that does not hold what its tags
 declare raises :class:`~image_stitcher_tpu_torch.io.tile_decode.DecodeError`.
 LZW, PackBits, the predictors, the bit reversal, the unpacking and CCITT
 run in C (``io/tile_decode.py``), deflate through the stdlib's zlib.
 
 :func:`read_pages` reads back the port's own OME-TIFF output: every page
 of a tiled BigTIFF with its SubIFD pyramid levels, raw, deflate or JPEG
-tiles (Compression 7, each tile a whole JFIF stream, decoded by the
-port's C codec, ``io/jpeg.py``).
+tiles (Compression 7, each tile a whole JFIF stream, decoded as above).
 """
 
 from __future__ import annotations
@@ -68,7 +75,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from . import jpeg, tiff_rgba, tile_decode
+from . import jpeg, jpeg_plain, tiff_rgba, tile_decode
 from .fast_tiff import _read_values
 from .tile_decode import DecodeError
 
@@ -80,12 +87,13 @@ _TILE_W, _TILE_H, _TILE_OFFSETS, _TILE_COUNTS = 322, 323, 324, 325
 _EXTRA_SAMPLES, _SAMPLE_FORMAT = 338, 339
 _T4_OPTIONS, _COLORMAP, _INK_SET = 292, 320, 332
 _YCBCR_COEFFICIENTS, _YCBCR_SUBSAMPLING, _REFERENCE = 529, 530, 532
+_JPEG_TABLES = 347
 _TAGS = (_WIDTH, _LENGTH, _BITS, _COMP, _PHOTO, _FILL, _STRIP_OFFSETS, _SPP,
          _ROWS_PER_STRIP, _STRIP_COUNTS, _PLANAR, _PREDICTOR, _TILE_W,
          _TILE_H, _TILE_OFFSETS, _TILE_COUNTS, _EXTRA_SAMPLES,
          _SAMPLE_FORMAT, _T4_OPTIONS, _COLORMAP, _INK_SET,
-         _YCBCR_COEFFICIENTS, _YCBCR_SUBSAMPLING, _REFERENCE)
-_RATIONAL = 5
+         _YCBCR_COEFFICIENTS, _YCBCR_SUBSAMPLING, _REFERENCE, _JPEG_TABLES)
+_RATIONAL, _UNDEFINED = 5, 7
 
 _DEFLATE = (8, 32946)
 _CCITT = (2, 3, 4)
@@ -135,6 +143,10 @@ def read_ifd(data) -> Tuple[str, Dict[int, tuple]]:
             count = struct.unpack_from(bo + cfmt, mv, off + 4)[0]
             if ty == _RATIONAL:
                 vals = _rationals(mv, bo, count, off + size - inline, inline)
+            elif ty == _UNDEFINED:
+                vals = _read_values(mv, bo, 1, count,
+                                    mv[off + size - inline:off + size],
+                                    inline)
             else:
                 vals = _read_values(mv, bo, ty, count,
                                     mv[off + size - inline:off + size],
@@ -231,6 +243,122 @@ def _bigtiff_ifd(mv, off: int) -> Tuple[Dict[int, tuple], int]:
     return tags, struct.unpack_from('<Q', mv, off + 8 + 20 * n)[0]
 
 
+def _no_pixels(what: str) -> DecodeError:
+    return DecodeError(
+        f"TIFF {what}: neither OpenCV's libtiff nor imageio's tifffile "
+        "decodes it, so the JAX package's read_image gives no pixels for "
+        "it either")
+
+
+def _jpeg_mode(photo: int, spp: int, sub) -> str:
+    """The colour handling libtiff gives a JPEG segment (``tif_jpeg.c``):
+    YCbCr (Photometric 6) converted to RGB by libjpeg (the RGBA reader
+    sets JPEGCOLORMODE_RGB); the components of grey (0, 1), RGB (2) and
+    CMYK (5) as they are (JCS_UNKNOWN), for the RGBA reader to convert.
+    Other layouts raise."""
+    if photo in (_MIN_IS_WHITE, _MIN_IS_BLACK) and spp == 1:
+        return 'raw'
+    if (photo, spp) in ((_RGB, 3), (_SEPARATED, 4)):
+        return 'raw'
+    if photo == _YCBCR and spp == 3 and tuple(sub) in _SUBSAMPLINGS:
+        return 'ycc'
+    raise DecodeError(f"TIFF JPEG compression with photometric {photo}, "
+                      f"{spp} samples a pixel")
+
+
+def _sof_sampling(raw: bytes) -> list:
+    """The (h, v) sampling factors of a JPEG stream's components, from
+    its frame header; [] without one."""
+    pos = 2
+    while pos + 4 <= len(raw) and raw[pos] == 0xFF:
+        marker = raw[pos + 1]
+        length = struct.unpack_from('>H', raw, pos + 2)[0]
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            body = raw[pos + 4:pos + 2 + length]
+            return [(b >> 4, b & 15) for b in body[7::3][:body[5]]] \
+                if len(body) >= 6 else []
+        pos += 2 + length
+    return []
+
+
+def _jpeg_segment(raw, tables: bytes, mode: str, spp: int, sub, rows: int,
+                  cols: int, plain: bool = False) -> np.ndarray:
+    """One JPEG-in-TIFF strip or tile: (rows, cols, spp) uint8. An
+    abbreviated stream takes the JPEGTables spliced in after its SOI. The
+    JPEG's sampling must be what libtiff expects (YCbCr: the luma's
+    YCbCrSubSampling and chroma 1x1; otherwise all 1x1, as libtiff's raw
+    path would hand over downsampled planes); a stream smaller than its
+    segment fails (libtiff errors), a larger one is cropped."""
+    raw = bytes(raw)
+    if tables and raw[:2] == b'\xff\xd8' and tables[:2] == b'\xff\xd8':
+        raw = raw[:2] + tables[2:-2] + raw[2:]
+    want = [tuple(sub)] + [(1, 1)] * (spp - 1) if mode == 'ycc' else \
+        [(1, 1)] * spp
+    got = _sof_sampling(raw)
+    if got != want:
+        raise DecodeError(f"JPEG-in-TIFF segment of sampling {got}, the "
+                          f"TIFF says {want}")
+    px = (jpeg_plain if plain else jpeg).decode(raw, mode)
+    if px.shape[0] < rows or px.shape[1] < cols:
+        raise DecodeError(f"JPEG-in-TIFF segment of {px.shape[:2]}, the "
+                          f"TIFF needs {rows}x{cols}")
+    return px[:rows, :cols].reshape(rows, cols, spp)
+
+
+def _jpeg_tiff(mv, tags, plain: bool) -> np.ndarray:
+    """A JPEG-in-TIFF image (Compression 7) in strips or tiles, as
+    OpenCV reads it: each segment through libjpeg in the colour handling
+    of :func:`_jpeg_mode`, then MinIsWhite inverted and CMYK converted by
+    libtiff's RGBA reader (``io/tiff_rgba.py``). Old-style JPEG (6) and
+    JPEG of other than 8 bits give no pixels in the JAX package: OpenCV's
+    libtiff lacks them and imageio's tifffile cannot decompress them."""
+    def tag(t, default):
+        return tags[t][0] if t in tags else default
+
+    w, h = tags[_WIDTH][0], tags[_LENGTH][0]
+    spp = tag(_SPP, 1)
+    photo = tag(_PHOTO, _MIN_IS_BLACK if spp == 1 else _RGB)
+    bits = set(tags.get(_BITS, (8,)))
+    sub = tags.get(_YCBCR_SUBSAMPLING, (2, 2))
+    if tag(_COMP, 7) == 6:
+        raise _no_pixels("old-style JPEG (Compression 6)")
+    if bits != {8}:
+        raise _no_pixels(f"{sorted(bits)}-bit JPEG")
+    if tag(_PLANAR, 1) != 1:
+        raise DecodeError("TIFF JPEG compression in PlanarConfiguration 2")
+    mode = _jpeg_mode(photo, spp, sub)
+    tables = bytes(tags.get(_JPEG_TABLES, ()))
+    out = np.empty((h, w, spp), np.uint8)
+    if _TILE_OFFSETS in tags:
+        tw, tl = tag(_TILE_W, 0), tag(_TILE_H, 0)
+        if tw < 1 or tl < 1:
+            raise DecodeError("TIFF tiles without TileWidth/TileLength")
+        places = [(y, x, tl, tw) for y in range(0, h, tl)
+                  for x in range(0, w, tw)]
+        offsets, counts = tags[_TILE_OFFSETS], tags.get(_TILE_COUNTS)
+    else:
+        rps = min(tag(_ROWS_PER_STRIP, h) or h, h)
+        places = [(y, 0, min(rps, h - y), w) for y in range(0, h, rps)]
+        offsets, counts = tags.get(_STRIP_OFFSETS), tags.get(_STRIP_COUNTS)
+    if (offsets is None or counts is None or len(offsets) < len(places)
+            or len(counts) < len(places)):
+        raise DecodeError(f"TIFF lists too few JPEG segments for "
+                          f"{len(places)}")
+    for (y, x, rows, cols), off, n in zip(places, offsets, counts):
+        raw = mv[off:off + n]
+        if len(raw) != n:
+            raise DecodeError(f"TIFF segment at {off} runs past the file's "
+                              "end")
+        seg = _jpeg_segment(raw, tables, mode, spp, sub, rows, cols, plain)
+        keep = seg[:min(rows, h - y), :min(cols, w - x)]
+        out[y:y + keep.shape[0], x:x + keep.shape[1]] = keep
+    if photo == _MIN_IS_WHITE:
+        return tiff_rgba.grey(out[..., 0], 8, True)
+    if photo == _SEPARATED:
+        return tiff_rgba.cmyk(out)
+    return out[..., 0] if spp == 1 else out
+
+
 def _tiled_image(mv, tags: Dict[int, tuple], pool) -> np.ndarray:
     w, h = tags[_WIDTH][0], tags[_LENGTH][0]
     spp = tags.get(_SPP, (1,))[0]
@@ -244,20 +372,17 @@ def _tiled_image(mv, tags: Dict[int, tuple], pool) -> np.ndarray:
     out = np.zeros((-(-h // tl) * tl, across * tw, spp), dtype)
     n = tl * tw * spp
     if comp == 7:
-        # the port's JPEG tiles: grey (Photometric 1) or 4:2:0 YCbCr
-        # (Photometric 6, YCbCrSubSampling 2 2), decoded to RGB
-        photo = tags.get(_PHOTO, (1,))[0]
-        if (dtype.itemsize, photo, spp) not in ((1, 1, 1), (1, 6, 3)) or (
-                spp == 3 and tags.get(_YCBCR_SUBSAMPLING) != (2, 2)):
-            raise _not_ported(f"JPEG tiles of photometric {photo}, {spp} "
-                              "samples", "item 19 (remainder), 'JPEG'")
+        # JPEG tiles (the port's own: grey, or 4:2:0 YCbCr whole JFIF
+        # streams), as libtiff decodes them
+        if dtype.itemsize != 1:
+            raise _no_pixels(f"{8 * dtype.itemsize}-bit JPEG")
+        sub = tags.get(_YCBCR_SUBSAMPLING, (2, 2))
+        mode = _jpeg_mode(tags.get(_PHOTO, (1,))[0], spp, sub)
+        tables = bytes(tags.get(_JPEG_TABLES, ()))
 
         def unpack(oc):
-            tile = jpeg.decode(mv[oc[0]:oc[0] + oc[1]])
-            if tile.shape[:2] != (tl, tw):
-                raise DecodeError(f"JPEG tile at {oc[0]} is {tile.shape}, "
-                                  f"not {tl}x{tw}")
-            return tile.tobytes()
+            return _jpeg_segment(mv[oc[0]:oc[0] + oc[1]], tables, mode, spp,
+                                 sub, tl, tw).tobytes()
     else:
         def unpack(oc):
             return _segment(mv, comp, oc[0], oc[1], n * dtype.itemsize)
@@ -428,8 +553,7 @@ def decode(data, plain: bool = False) -> Tuple[np.ndarray, bool]:
     comp = tag(_COMP, 1)
     bitset = set(tags.get(_BITS, (1,)))
     if comp in (6, 7):
-        raise _not_ported("JPEG compression",
-                          "item 19 (remainder), 'JPEG-in-TIFF tile input'")
+        return _jpeg_tiff(mv, tags, plain), False
     if comp not in _CODECS:
         raise _not_ported(f"compression {comp}")
     if len(bitset) != 1 or not 1 <= next(iter(bitset)) <= 64:

@@ -50,7 +50,10 @@ HOST_SYMBOLS = {
                 'downsample2x_u16', 'downsample2x2_mean_u16',
                 'write_rows_contig'),
     'blosc': ('blosc_compress', 'blosc_decompress', 'blosc_shuffle_blocks',
-              'blosc_unshuffle_blocks', 'all_zero'),
+              'blosc_unshuffle_blocks', 'all_zero', 'lz4_compress_block',
+              'lz4hc_compress_block', 'blosclz_compress', 'snappy_compress',
+              'zstd_compress', 'lz4_decompress_block', 'blosclz_decompress',
+              'snappy_decompress', 'zstd_decompress'),
     'tile_decode': ('tiff_lzw_decode', 'packbits_decode',
                     'tiff_predictor_undo', 'tiff_fp_predictor_undo',
                     'png_unfilter', 'reverse_bits', 'unpack_samples',

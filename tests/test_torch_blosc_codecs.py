@@ -34,13 +34,13 @@ import zstandard
 
 import chip_smoke
 from image_stitcher_tpu.io.zarr_store import create_zarr_array, open_zarr_array
-from image_stitcher_tpu_torch.io import (blosc, blosclz_plain, snappy_plain,
-                                         zstd_plain)
+from image_stitcher_tpu_torch.io import (blosc, blosclz_plain, lz4hc_plain,
+                                         snappy_plain, zstd_plain)
 from image_stitcher_tpu_torch.io.zarr_store import BloscZarrArray
 
 CNAMES = blosc.CNAMES
 PLAIN_STREAM = {'lz4': blosc.lz4_compress_block_plain,
-                'lz4hc': blosc.lz4hc_compress_block_plain,
+                'lz4hc': lz4hc_plain.compress,
                 'blosclz': blosclz_plain.compress,
                 'snappy': snappy_plain.compress,
                 'zstd': zstd_plain.compress}

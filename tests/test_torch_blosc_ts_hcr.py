@@ -14,3 +14,8 @@ from torch_blosc_matrix import CLEVELS, DTYPES, SHUFFLES, check
 @pytest.mark.parametrize("cname", ('lz4hc', 'zlib'))
 def test_matches_tensorstore(tmp_path, cname, clevel, shuffle, dtype):
     check(tmp_path, cname, clevel, shuffle, dtype)
+
+
+@pytest.mark.parametrize("clevel", (2, 3, 7))
+def test_lz4hc_levels_match_tensorstore(tmp_path, clevel):
+    check(tmp_path, 'lz4hc', clevel, 1, DTYPES[1])

@@ -14,10 +14,11 @@ orientation ignored as OpenCV ignores it there. Encoding: the bytes of
 ``cv2.imencode('.jpg')`` with the JAX TIFF writer's parameters (quality,
 4:2:0 for RGB), and with the other samplings and restart intervals. The
 C codec equals the plain version on every case. Streams OpenCV does not
-read (fractional sampling, MCUs of more than 10 blocks) raise
-``DecodeError``; arithmetic-coded, lossless, hierarchical and 12-bit
-frames, and progressive streams that libjpeg-turbo would smooth, raise
-naming ROADMAP item 19 (remainder).
+read (fractional sampling, MCUs of more than 10 blocks, hierarchical and
+12-bit frames) raise ``DecodeError``; progressive streams cut short
+decode with libjpeg-turbo's block smoothing, arithmetic-coded and
+lossless frames to OpenCV's pixels (``test_torch_jpeg_formats.py`` holds
+them in full).
 """
 
 import io
@@ -28,7 +29,9 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import torch_jpeg_coders
 import torch_jpeg_streams
+from image_stitcher_tpu.io.acquisition import read_image as jax_read_image
 from image_stitcher_tpu_torch.io import jpeg, jpeg_plain
 from image_stitcher_tpu_torch.io.tile_decode import DecodeError
 
@@ -245,21 +248,18 @@ def test_streams_opencv_does_not_read_raise_decode_error(what):
 
 
 @pytest.mark.parametrize("scans", [1, 6, 9])
-def test_progressive_streams_libjpeg_would_smooth_name_item_19(scans):
+def test_progressive_streams_libjpeg_smooths_decode_as_cv2(scans):
     """A progressive stream cut after ``scans`` of its 10 scans leaves
     low coefficients unrefined: libjpeg-turbo then smooths the blocks
-    (``jdcoefct.c::decompress_smooth_data``), which the port does not
-    reproduce, so it raises naming ROADMAP item 19 (remainder)."""
+    (``jdcoefct.c::decompress_smooth_data``), and so does the port."""
     data = cv2_encode(image(3, 40, 48, True), 85, '420', progressive=1)
     sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b'\xff\xda']
     assert len(sos) == 10
     cut = data[:sos[scans]] + b'\xff\xd9'
     assert cv2.imdecode(np.frombuffer(cut, np.uint8),
                         cv2.IMREAD_UNCHANGED).shape == (40, 48, 3)
-    for codec in (jpeg, jpeg_plain):
-        with pytest.raises(NotImplementedError,
-                           match=r"item 19 \(remainder\)"):
-            codec.decode(cut)
+    assert jpeg_plain._smoothed(jpeg_plain.read(cut))
+    assert_decodes_as_cv2(cut)
 
 
 def exif_orientation(data, orientation):
@@ -375,8 +375,8 @@ def _refused():
     return {
         'progressive': cv2_encode(image(3, 16, 16, True), 85, '420',
                                   progressive=1),
-        'arithmetic': _patched(grey, 0xC0, 0, 0xC9),
-        'lossless': _patched(grey, 0xC0, 0, 0xC3),
+        'arithmetic': torch_jpeg_coders.arithmetic(grey),
+        'lossless': torch_jpeg_coders.lossless([image(1, 16, 16, False)]),
         'hierarchical': _patched(grey, 0xC0, 0, 0xC5),
         '12-bit': _patched(grey, 0xC0, 3, 12),
         'sampling': cv2_encode(image(5, 16, 16, True), 85, '411'),
@@ -386,23 +386,29 @@ def _refused():
     }
 
 
-#: the cases of :func:`_refused` the port now reads
-NOW_READ = {'progressive', 'sampling', '4-component', 'Adobe',
-            "'R', 'G', 'B'"}
+#: the cases of :func:`_refused` that give no pixels in the JAX package
+NO_PIXELS = {'hierarchical', '12-bit'}
 
 
 @pytest.mark.parametrize("what", sorted(_refused()))
-def test_out_of_scope_streams_name_item_19(what):
-    """Arithmetic-coded, lossless, hierarchical and 12-bit frames raise
-    naming ROADMAP item 19 (remainder); the streams of the other cases,
-    refused until the port read them, decode to OpenCV's pixels."""
+def test_once_refused_streams_decode_as_the_jax_package_reads_them(
+        tmp_path, what):
+    """The streams the port once refused: arithmetic-coded (SOF9),
+    lossless (SOF3), progressive and every other case decode to OpenCV's
+    pixels; hierarchical and 12-bit frames, which neither OpenCV nor the
+    JAX package's imageio fallback reads, raise ``DecodeError`` beside
+    the JAX ``read_image`` failing on the same file."""
     data = _refused()[what]
-    if what in NOW_READ:
+    if what not in NO_PIXELS:
         assert_decodes_as_cv2(data)
         return
+    path = str(tmp_path / 'A1_0_0_ch.jpg')
+    with open(path, 'wb') as f:
+        f.write(data)
+    with pytest.raises(Exception):
+        jax_read_image(path)
     for codec in (jpeg, jpeg_plain):
-        with pytest.raises(NotImplementedError,
-                           match=r"item 19 \(remainder\)"):
+        with pytest.raises(DecodeError, match="no pixels"):
             codec.decode(data)
 
 

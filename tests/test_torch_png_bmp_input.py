@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import torch_jpeg_coders
 from torch_tile_files import bmp_bytes, png_bytes
 from image_stitcher_tpu.io.acquisition import read_image as jax_read_image
 from image_stitcher_tpu_torch.io.acquisition import read_image
@@ -227,12 +228,11 @@ def test_dispatch_by_signature_not_suffix(tmp_path):
     np.testing.assert_array_equal(_assert_same(bmp), gray)
 
 
-def test_jpeg_raises_naming_item_19(tmp_path):
+def test_jpeg_tiles_read_as_the_jax_package_reads_them(tmp_path):
     """JPEG tiles, which named item 19 before the port had a JPEG codec,
     read as the JAX package reads them, by signature (the ``.tiff`` file
-    holds a JPEG), progressive ones too (item 19 (remainder) until the
-    port read them); an arithmetic-coded one still names item 19
-    (remainder)."""
+    holds a JPEG), progressive ones too, and arithmetic-coded ones (item
+    19 (remainder) until the port read them)."""
     path = str(tmp_path / "A1_0_0_ch.jpg")
     assert cv2.imwrite(path, _samples(7, (16, 16), 8))
     _assert_same(path)
@@ -244,10 +244,9 @@ def test_jpeg_raises_naming_item_19(tmp_path):
     assert cv2.imwrite(prog, _samples(9, (16, 16), 8),
                        [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     _assert_same(prog)
-    arith = bytearray(cv2.imencode('.jpg', _samples(10, (16, 16), 8))[1])
-    arith[arith.index(b'\xff\xc0') + 1] = 0xC9
-    with pytest.raises(NotImplementedError, match=r"item 19 \(remainder\)"):
-        read_image(_write(tmp_path, bytes(arith), "A1_0_0_arith.jpg"))
+    arith = torch_jpeg_coders.arithmetic(
+        cv2.imencode('.jpg', _samples(10, (16, 16), 8))[1].tobytes())
+    _assert_same(_write(tmp_path, arith, "A1_0_0_arith.jpg"))
 
 
 def test_unknown_file_raises_value_error_naming_it(tmp_path):

@@ -171,11 +171,12 @@ def test_magic_bytes_not_suffix(tmp_path):
 @pytest.mark.parametrize("what", ['jpeg', 'float', 'old_lzw', 'palette',
                                   'bits12', 'half'])
 def test_out_of_scope_raises_naming_an_item(tmp_path, what):
-    """JPEG-in-TIFF (item 19, remainder), 8-bit float samples and float16
-    with Predictor 2 (which the JAX package's imageio sums as floats)
-    still raise naming their item. Old-style LZW, palettes and 12-bit
-    samples, which raised naming item 6 until its remainder was ported,
-    read as the JAX package reads them."""
+    """8-bit float samples and float16 with Predictor 2 (which the JAX
+    package's imageio sums as floats) still raise naming their item.
+    Old-style LZW, palettes and 12-bit samples, which raised naming item
+    6 until its remainder was ported, and OpenCV's JPEG-in-TIFF, which
+    raised naming item 19 (remainder) until then, read as the JAX
+    package reads them."""
     img = _image(6, np.uint8, 1, h=16, w=16)
     if what in ('old_lzw', 'palette', 'bits12'):
         rng = np.random.default_rng(6)
@@ -191,7 +192,8 @@ def test_out_of_scope_raises_naming_an_item(tmp_path, what):
     if what == 'jpeg':
         path = str(tmp_path / "t.tiff")
         assert cv2.imwrite(path, img, [int(cv2.IMWRITE_TIFF_COMPRESSION), 7])
-        item = "item 19"
+        assert _assert_same(path).shape == img.shape
+        return
     else:
         # LZW: the fast path (which reads raw samples whatever the tags
         # say, as the JAX one does) declines the file

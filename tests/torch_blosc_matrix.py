@@ -15,9 +15,11 @@ dtype of u8/u16:
   of elements not a multiple of 8 under bit shuffle): the same, and the
   plain decoder reads tensorstore's frames and the port's, and the C
   frames are byte-equal to the plain version's;
-- for lz4 (liblz4's ``LZ4_compress_fast`` rules), each whole frame is
-  byte-equal to tensorstore's, and the C frame of a 256-row cut of the
-  plane (streams of liblz4's larger hash) to the plain version's.
+- for lz4 and lz4hc (liblz4's ``LZ4_compress_fast`` and
+  ``LZ4_compress_HC`` rules), each whole frame is byte-equal to
+  tensorstore's, and the C frame of a 256-row cut of the plane (streams
+  of liblz4's larger hash, and past lz4hc's 64 KiB window) to the plain
+  version's.
 """
 
 import functools
@@ -121,7 +123,7 @@ def check(root, cname, clevel, shuffle, dtype):
             assert struct.unpack_from('<ii', frame, 4) == \
                 struct.unpack_from('<ii', ts_frame, 4), rel
             raw = _chunk(data, rel, chunks)
-            if cname == 'lz4':
+            if cname in ('lz4', 'lz4hc'):
                 # liblz4's own rules: whole frames byte-equal
                 assert frame == ts_frame, rel
                 if name == 'plane':
