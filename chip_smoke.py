@@ -76,11 +76,12 @@ Phases, each fatal on failure:
      u8 mono BMP acquisition (gray palette, bottom-up rows) equal to its
      uncompressed-TIFF twin, and a u8 RGB PNG acquisition on the in-RAM
      path, the card's tree equal to a CPU run's;
- 10. merges and resume: phase 7's 8-well plate at two timepoints (each
-     its own seed; cut from 96 wells), stitched with both merges on the
-     card, stopped after its 5th unit and resumed: the resumed run skips
-     those units, loads the fields from the sidecar (no fit) and writes
-     the complete plate, its tree byte-equal to an uninterrupted run's;
+ 10. merges and resume: 4 of phase 7's 8 wells at two timepoints (each
+     its own seed; cut from 96 wells for the script's time), stitched
+     with both merges on the card, stopped after its 5th unit and
+     resumed: the resumed run skips those units, loads the fields from
+     the sidecar (no fit) and writes the complete plate, its tree
+     byte-equal to an uninterrupted run's;
      each merge pass (complete plate, per-timepoint plates, time series)
      timed on the finished stores with its bytes, MB/s and the split into
      band reads, the fold on the card (CUDA events) and chunk writes; the
@@ -93,12 +94,12 @@ Phases, each fatal on failure:
      shifts carried) are byte-equal files: u16 mono and u8 RGB (PNG
      tiles), in RAM and in bands, deflate and raw, overwrite and feather
      (four cases covering each value twice); (b) phase 5's options on a
-     6x6 cut of its grid (cut for the script's time limit)
+     4x4 cut of its grid (cut for the script's time limit)
      written as deflate OME-TIFF: every page's level 0 and SubIFD
      levels, walked by ``io/tiff.py::read_pages``, decode equal to a zarr
      tree of the same acquisition, with e2e, tiles/s, the writer's
      seconds, the file's bytes and deflate ratio and the writer's
-     ``peak_buffer_bytes``; (c) the same 6x6 grid with
+     ``peak_buffer_bytes``; (c) the same 4x4 grid with
      ``fusion_device='host'`` (the host band fuser through
      ``csrc/hostops.c``, the fit gated per channel; raw level-0 chunks
      written as chunk-column blocks from the band threads, bands the
@@ -109,7 +110,10 @@ Phases, each fatal on failure:
      default blosc-lz4 chunks (rows, no blocks), decoded equal to the
      device path's tree;
  12. (run right after phase 8, on its acquisitions and raw trees) the
-     other blosc codecs (zstd, zlib, lz4hc, blosclz, snappy): (a) each
+     other blosc codecs (zstd, zlib, lz4hc, blosclz, snappy): (a) the C
+     zstd encoder at clevel 1 and 2 byte-equal to libzstd 1.5.7's level 1
+     and 3 frames of the seeded inputs of tests/torch_zstd_frames.py
+     (their SHA-256 kept in tests/torch_zstd_frames.npz), and each
      codec's C encoder and decoder against its plain version on phase 8's
      chunks (the C frames of the full chunks decode exactly; the Python
      versions run on 512^2 cuts, on a pool of processes); (b) each
@@ -136,7 +140,7 @@ Phases, each fatal on failure:
      one thread and on the 8-thread reader pool, and the decode MB/s of
      the kept 2048^2 progressive tiles (grey, RGB 4:2:0, q85, smooth
      content) beside the port's baseline streams of their pixels; (c)
-     phase 5's options on a 6x6 cut of its grid (cut for the
+     phase 5's options on a 4x4 cut of its grid (cut for the
      script's time limit) on grey u8 JPEG tiles (q95, OpenCV's imwrite
      default, Squid's tiles), written by the port's
      encoder, stitched on the card: its tree equal to an
@@ -1241,6 +1245,9 @@ def phase_quality_path(work: str, card: str, grid: int = 10,
 # --------------------------------------------------------------------- 7
 
 WELLS = [f"{row}1" for row in "ABCDEFGH"]
+#: phase 10's plate (and phase 15c's): 4 of phase 7's wells, cut for the
+#: script's time
+MERGE_WELLS = WELLS[:4]
 
 
 def read_png_gray8(path: str) -> np.ndarray:
@@ -2225,12 +2232,13 @@ def phase_merges(work: str, card: str, grid: int = 3,
                  tile: int = TILE) -> dict:
     """Merges and resume on the card: phase 7's plate at two timepoints
     (each its own seed), cut from the 96-well plate of the JAX package's
-    BASELINE.md to 8 wells for the script's time limit. (a) A run with
-    both merges stopped after its 5th unit and resumed: the resumed run
-    skips the 5 units, loads the fields from the sidecar (no fit), fuses
-    the rest and writes the complete plate; its tree is byte-equal to an
-    uninterrupted run's. (b) Each merge pass timed on the finished
-    stores, with its bytes and the read / fold / write split. (c) Merged
+    BASELINE.md to 4 wells (``MERGE_WELLS``) for the script's time
+    limit. (a) A run with both merges stopped after its 5th unit and
+    resumed: the resumed run skips the 5 units, loads the fields from the
+    sidecar (no fit), fuses the rest and writes the complete plate; its
+    tree is byte-equal to an uninterrupted run's. (b) Each merge pass
+    timed on the finished stores, with its bytes and the read / fold /
+    write split. (c) Merged
     level 0 at [t] is region t's level 0 zero-padded, each merged level
     the 2x2 mean (sum >> 2) of the one above (channel 0, two wells), the
     plate and well metadata as plate_attrs/well_attrs give them, and a
@@ -2246,11 +2254,11 @@ def phase_merges(work: str, card: str, grid: int = 3,
     acq = os.path.join(work, 'timelapse')
     t0 = time.perf_counter()
     write_acquisition(acq, grid, tile, overlap=205 * tile // TILE, seed=21,
-                      regions=WELLS, timepoints=2)
-    n_tiles = 2 * len(WELLS) * grid * grid * len(CHANNELS)
-    log(f"merges: wrote 2 timepoints x {len(WELLS)} wells x {grid}x{grid} x "
-        f"{len(CHANNELS)}ch {tile}^2 uint16 tiles ({n_tiles}) in "
-        f"{time.perf_counter() - t0:.1f}s; disk free "
+                      regions=MERGE_WELLS, timepoints=2)
+    n_tiles = 2 * len(MERGE_WELLS) * grid * grid * len(CHANNELS)
+    log(f"merges: wrote 2 timepoints x {len(MERGE_WELLS)} wells x "
+        f"{grid}x{grid} x {len(CHANNELS)}ch {tile}^2 uint16 tiles "
+        f"({n_tiles}) in {time.perf_counter() - t0:.1f}s; disk free "
         f"{shutil.disk_usage(work).free / 2 ** 30:.0f} GiB")
     cuda = torch.device('cuda')
     kw = dict(use_registration=True, apply_flatfield=True,
@@ -2297,7 +2305,7 @@ def phase_merges(work: str, card: str, grid: int = 3,
     log(f"merges (10a) on {card}: stopped after {len(completed)} units in "
         f"{t_stopped:.3f}s ({launches_stopped} fuse_overwrite launches); "
         f"resumed in {e2e:.3f}s: skipped {len(skipped)}, fused "
-        f"{2 * len(WELLS) - len(skipped)} ({launches} launches), stages "
+        f"{2 * len(MERGE_WELLS) - len(skipped)} ({launches} launches), stages "
         + " ".join(f"{k}={v:.3f}s" for k, v in sorted(timers.items())))
     if (not pipe.resumed or len(skipped) != 5 or 'flatfield_fit' in timers
             or 'registration' in timers or 'merge' not in timers
@@ -2322,10 +2330,11 @@ def phase_merges(work: str, card: str, grid: int = 3,
     result = {'acq': acq, 'digest': tree_digest(whole_out),
               'e2e_whole_s': t_whole, 'flatfields': pipe.flatfields,
               'shifts': pipe.shifts, 'kw': kw, 'extra': extra}
-    log(f"merges (10a): the resumed tree (16 region stores + the complete "
-        f"plate) is byte-equal to an uninterrupted run's ({t_whole:.3f}s, "
-        f"the resumed run's fields and shifts carried): {nbytes} bytes "
-        f"compared in {time.perf_counter() - t0:.1f}s")
+    log(f"merges (10a): the resumed tree ({2 * len(MERGE_WELLS)} region "
+        f"stores + the complete plate) is byte-equal to an uninterrupted "
+        f"run's ({t_whole:.3f}s, the resumed run's fields and shifts "
+        f"carried): {nbytes} bytes compared in "
+        f"{time.perf_counter() - t0:.1f}s")
     shutil.rmtree(whole_out)
 
     # 10b: each merge pass on the finished stores
@@ -2345,7 +2354,7 @@ def phase_merges(work: str, card: str, grid: int = 3,
         passes.append((name, time.perf_counter() - t0,
                        pipe.merge_stats.as_dict(),
                        sum(tree_bytes(os.path.join(out, r)) for r in rels)))
-    workers = merge._merge_worker_count(len(WELLS))
+    workers = merge._merge_worker_count(len(MERGE_WELLS))
     for name, secs, stats, written in passes:
         log(f"merges (10b, {name}) on {card}: {secs:.3f}s, {workers} "
             f"workers; read {stats['bytes_read']} B = "
@@ -2357,7 +2366,7 @@ def phase_merges(work: str, card: str, grid: int = 3,
     t0 = time.perf_counter()
     plate = os.path.join(out, rel)
     levels = open_stitched(os.path.join(plate, 'A', '1', '0')).num_levels
-    for well in WELLS:
+    for well in MERGE_WELLS:
         m0 = open_array(os.path.join(plate, well[0], well[1:], '0', '0'))
         for t in (0, 1):
             src = open_array(os.path.join(out, f'{t}_stitched',
@@ -2383,29 +2392,29 @@ def phase_merges(work: str, card: str, grid: int = 3,
                                  f"the 2x2 mean of level {k - 1}")
             prev = cur
     del prev, cur, a, want
-    want_attrs = {rel: plate_attrs(WELLS, "Complete HCS Dataset",
+    want_attrs = {rel: plate_attrs(MERGE_WELLS, "Complete HCS Dataset",
                                    "Stitched Acquisition")}
     for t in (0, 1):
         want_attrs[os.path.join('hcs_timepoints', f'{t}_hcs.ome.zarr')] = \
-            plate_attrs(WELLS, f"HCS Dataset - Timepoint {t}",
+            plate_attrs(MERGE_WELLS, f"HCS Dataset - Timepoint {t}",
                         f"Timepoint {t} Acquisition")
     for root, attrs in want_attrs.items():
         if read_attrs(os.path.join(out, root)) != attrs:
             raise SystemExit(f"merges: {root} plate metadata")
-        for well in WELLS:
+        for well in MERGE_WELLS:
             if read_attrs(os.path.join(out, root, well[0],
                                        well[1:])) != well_attrs():
                 raise SystemExit(f"merges: {root}/{well} well metadata")
     listing = list_outputs(out)
-    if (len(listing['regions']) != 2 * len(WELLS)
-            or len(listing['time_series']) != len(WELLS)
+    if (len(listing['regions']) != 2 * len(MERGE_WELLS)
+            or len(listing['time_series']) != len(MERGE_WELLS)
             or len(listing['hcs']) != 3):
         raise SystemExit(f"merges: list_outputs gives {listing}")
-    log(f"merges (10c): merged level 0 of {len(WELLS)} wells x 2 timepoints "
-        f"equals the regions' zero-padded; levels 1-{levels - 1} of channel "
-        f"0 (2 wells) equal the 2x2 mean (sum >> 2) of the level above; "
-        f"plate/well metadata and list_outputs as expected "
-        f"({time.perf_counter() - t0:.1f}s)")
+    log(f"merges (10c): merged level 0 of {len(MERGE_WELLS)} wells x 2 "
+        f"timepoints equals the regions' zero-padded; levels "
+        f"1-{levels - 1} of channel 0 (2 wells) equal the 2x2 mean (sum "
+        f">> 2) of the level above; plate/well metadata and list_outputs "
+        f"as expected ({time.perf_counter() - t0:.1f}s)")
     shutil.rmtree(out)
 
     # 10c: a 3x3, two-well, two-timepoint card merge against the CPU
@@ -2898,6 +2907,45 @@ def other_codec_check(rng) -> None:
         f"{time.perf_counter() - t0:.1f}s with the C checks")
 
 
+def zstd_libzstd_check() -> int:
+    """12a: the C zstd encoder at blosc clevel 1 and 2 against libzstd
+    1.5.7's frames at levels 1 and 3, whose SHA-256 the CPU test host keeps
+    in ``tests/torch_zstd_frames.npz`` (this host has no libzstd binding):
+    the seeded inputs of ``tests/torch_zstd_frames.py`` made here (their
+    digests checked first), each frame's length and digest equal to the
+    kept ones. Returns the number of frames checked."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests')
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_zstd_frames as kept_frames
+    from image_stitcher_tpu_torch.io import blosc
+    t0 = time.perf_counter()
+    kept = kept_frames.load()
+    cases = kept_frames.inputs()
+    if sorted(label for label, _ in cases) != sorted(kept):
+        raise SystemExit("codecs (libzstd frames): the inputs are not the "
+                         "kept file's")
+    frames = 0
+    for label, data in cases:
+        digest, levels = kept[label]
+        if kept_frames.sha(data) != digest:
+            raise SystemExit(f"codecs (libzstd frames): input {label} is "
+                             "not the one the kept digests were made from")
+        for clevel, (size, want) in levels.items():
+            frame = blosc.stream_compress('zstd', data, clevel)
+            if (len(frame), kept_frames.sha(frame)) != (size, want):
+                raise SystemExit(
+                    f"codecs (libzstd frames): {label} at clevel {clevel}: "
+                    f"a frame of {len(frame)} bytes is not libzstd's "
+                    f"({size} bytes)")
+            frames += 1
+    log(f"codecs (libzstd frames): {frames} C frames of {len(cases)} kept "
+        f"inputs at blosc clevel 1 and 2 byte-equal to libzstd 1.5.7's "
+        f"level 1 and 3 frames (tests/torch_zstd_frames.npz) in "
+        f"{time.perf_counter() - t0:.2f}s")
+    return frames
+
+
 def other_codec_rates(rng, card: str) -> dict:
     """12b: MB/s (input bytes) of every codec's C encoder and decoder on
     distinct 2048^2 compressible u16 chunks, on one thread and on a pool
@@ -3009,6 +3057,7 @@ def phase_other_codecs(work: str, card: str, output_layer: dict,
     dev = torch.device(device)
     t_phase = time.perf_counter()
     rng = np.random.default_rng(12)
+    libzstd_frames = zstd_libzstd_check()
     other_codec_check(rng)
     rates = other_codec_rates(rng, card)
     overlap = 205 * tile // TILE
@@ -3127,7 +3176,7 @@ def phase_other_codecs(work: str, card: str, output_layer: dict,
     seconds = time.perf_counter() - t_phase
     log(f"codecs: phase 12 in {seconds:.1f}s")
     return {'rates': rates, 'zstd_main': run, 'small': small,
-            'seconds': seconds}
+            'libzstd_frames': libzstd_frames, 'seconds': seconds}
 
 
 # -------------------------------------------------------------------- 13
@@ -3363,8 +3412,10 @@ def phase_jpeg(work: str, card: str, png_rates=None, grid: int = 10,
     runs, trees = {}, {}
     for name, folder in (('jpeg', acq), ('tiff twin', twin_acq)):
         out = os.path.join(work, f'jpeg_out_{name.split()[-1]}')
+        # in bands, as the main path: the 4x4 u8 canvas is under the
+        # 'auto' threshold
         run = runs[name] = stitch_input(folder, out, dev, card,
-                                        f'13c {name}')
+                                        f'13c {name}', streaming='on')
         if not run.pop('streamed'):
             raise SystemExit(f"jpeg (13c {name}): the canvas did not "
                              f"stream in bands")
@@ -3436,7 +3487,8 @@ def phase_jpeg(work: str, card: str, png_rates=None, grid: int = 10,
     pipe = stitch(acq, output_format='.ome.tiff', use_registration=True,
                   apply_flatfield=True, device=dev,
                   options=smoke_options(out, tiff_compression='jpeg',
-                                        tiff_jpeg_quality=TIFF_QUALITY))
+                                        tiff_jpeg_quality=TIFF_QUALITY,
+                                        streaming='on'))
     e2e = time.perf_counter() - t0
     launches = cuda_fuse.fuse_overwrite.launches
     stats = pipe.fuse_stats['A1_t0']
@@ -3903,7 +3955,7 @@ def sharded_plate(work: str, card: str, merges: dict, ranks: int = 2) -> dict:
             raise SystemExit(f"sharded plate (15c): rank {r['rank']} on "
                              f"{r['device']} over {r['backend']}, not a card "
                              f"over {backend}")
-    units = 2 * len(WELLS)
+    units = 2 * len(MERGE_WELLS)
     share = sorted(units // ranks + (k < units % ranks) for k in range(ranks))
     if sorted(r['units'] for r in results) != share \
             or results[0]['merge_s'] <= 0 \
@@ -5004,8 +5056,9 @@ def main() -> int:
         tile_input = timed('9 tile input', phase_tile_input, work, card)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        # 13c and 11b/11c on 6x6 cuts of the main grid: the script's time
-        timed('13 jpeg', phase_jpeg, work, card, tile_input['rates'], grid=6)
+        # 13c/13d and 11b/11c on 4x4 cuts of the main grid: the script's
+        # time
+        timed('13 jpeg', phase_jpeg, work, card, tile_input['rates'], grid=4)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         merges = timed('10 merges', phase_merges, work, card)
@@ -5024,7 +5077,7 @@ def main() -> int:
         timed('19 jpeg formats', phase_jpeg_formats, work, card)
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
-        ome_tiff = timed('11 ome-tiff', phase_ome_tiff, work, card, grid=6)
+        ome_tiff = timed('11 ome-tiff', phase_ome_tiff, work, card, grid=4)
         timed('14 editions', phase_editions, work, card,
               ome_tiff['grid_3x3'])
     finally:

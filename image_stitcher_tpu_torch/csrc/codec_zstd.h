@@ -8,14 +8,23 @@
  * carried across the blocks of a frame. A content checksum is skipped,
  * not verified; a frame that names a dictionary is refused.
  *
- * The encoder is the port's own (io/zstd_plain.py is its plain version, byte
- * for byte; the rules are spelled out there): one single-segment frame
- * with its content size and no checksum, blocks of 128 KiB, a greedy
- * hash-chain matcher over the whole frame whose search depth follows
- * clevel, repeat offsets, Huffman-coded literals (weights FSE-coded or
- * direct) or raw or RLE literals, sequences with the predefined
- * distributions, RLE or FSE tables of its own, and a raw block wherever
- * the compressed one is not smaller.
+ * The encoder (io/zstd_plain.py is its plain version, byte for byte):
+ * at clevel 1 and 2 and inputs of at most 128 KiB (every blosc block at
+ * those clevels) its frame is libzstd 1.5.7's ZSTD_compressCCtx at level
+ * 2 * clevel - 1, the level c-blosc asks for, within the same output
+ * capacity, byte for byte: the parameters of libzstd's table for the
+ * source size as ZSTD_adjustCParams cuts them, ZSTD_compressBlock_fast
+ * (level 1) or ZSTD_compressBlock_doubleFast (level 3) on the one block,
+ * libzstd's entropy stage (HUF_buildCTable's sort, tree and height limit,
+ * HUF_optimalTableLog, the weights' FSE or direct header, 1 or 4 streams;
+ * ZSTD_selectEncodingType below strategy lazy, FSE_optimalTableLog,
+ * FSE_normalizeCount), its block choice (ZSTD_minGain, a raw block
+ * otherwise, no RLE first block) and its room checks, whose failures
+ * give 0 (c-blosc then stores the block). Every other clevel, and longer
+ * inputs, keep the port's own matcher (a greedy hash chain over the
+ * whole frame, its search depth by clevel, blocks of 128 KiB with repeat
+ * offsets across them) with the same entropy stage and block choice, an
+ * RLE block for a later block of one byte value.
  */
 
 #define ZSTD_MAGIC 0xFD2FB528u
@@ -127,6 +136,7 @@ typedef struct {
     uint64_t acc;
     int n;
     int overflow;
+    int64_t bits;    /* bits added in all */
 } bitout;
 
 static void bitout_init(bitout *w, uint8_t *dst, int64_t cap)
@@ -136,6 +146,7 @@ static void bitout_init(bitout *w, uint8_t *dst, int64_t cap)
     w->acc = 0;
     w->n = 0;
     w->overflow = 0;
+    w->bits = 0;
 }
 
 /* nb <= 32 bits of v; whole 32-bit words go out as they fill (the
@@ -144,6 +155,7 @@ static void bitout_add(bitout *w, uint64_t v, int nb)
 {
     w->acc |= (v & ((1ULL << nb) - 1)) << w->n;
     w->n += nb;
+    w->bits += nb;
     if (w->n >= 32) {
         if (w->end - w->p >= 4) {
             uint32_t word = (uint32_t)w->acc;
@@ -814,90 +826,239 @@ done:
 
 /* ------------------------------------------------------------- encoder */
 
-/* FSE normalized counts of count[0..maxsym] (total > 0, at least two
- * symbols present) to 2^log: each present symbol gets
- * max(1, round(count * 2^log / total)), then the sum is brought to 2^log
- * one step at a time: up on the symbol with the largest count, down on
- * the symbol with the largest normalized count above 1 (the lowest
- * symbol among equals). */
-static void fse_normalize(const uint32_t *count, int maxsym, int log,
-                          int16_t *norm)
+/* libzstd's errors, told apart where it treats them apart: dstSize_tooSmall
+ * and any other */
+#define ZE_SMALL (-100)
+#define ZE_GENERIC (-101)
+#define ZSTD_LIB_MAXSRC ZSTD_BLOCK_MAX
+
+static uint64_t read64(const uint8_t *p)
 {
-    uint64_t total = 0;
-    for (int s = 0; s <= maxsym; ++s)
-        total += count[s];
-    int sum = 0, big = 0;
-    for (int s = 0; s <= maxsym; ++s) {
-        norm[s] = 0;
-        if (!count[s])
-            continue;
-        uint64_t v = (((uint64_t)count[s] << log) + total / 2) / total;
-        norm[s] = (int16_t)(v < 1 ? 1 : v);
-        sum += norm[s];
-        if (count[s] > count[big])
-            big = s;
-    }
-    const int size = 1 << log;
-    if (sum < size)
-        norm[big] = (int16_t)(norm[big] + size - sum);
-    while (sum > size) {
-        int top = -1;
-        for (int s = 0; s <= maxsym; ++s)
-            if (norm[s] > 1 && (top < 0 || norm[s] > norm[top]))
-                top = s;
-        norm[top]--;
-        sum--;
-    }
+    uint64_t v;
+    memcpy(&v, p, 8);
+    return v;
 }
 
-/* the table log of a field's own FSE table: about log2(nseq) - 2, at
- * least 5 and enough for its symbols, at most maxlog */
-static int fse_table_log(int64_t nsymbols_coded, int distinct, int maxlog)
+/* a backward stream of w->bits bits written into cap bytes fits as
+ * libzstd's bit writers see it (they keep 8 bytes of slack) */
+static int stream_fits(const bitout *w, int64_t cap)
 {
-    int log = highbit32((uint32_t)(nsymbols_coded - 1)) - 1;
-    int need = highbit32((uint32_t)distinct) + 2;
-    if (log < need)
-        log = need;
+    return cap > 8 && (w->bits >> 3) < cap - 8;
+}
+
+/* ---------------------------------------------------------------- FSE */
+
+/* FSE_optimalTableLog_internal (unsigned arithmetic, as libzstd's) */
+static int fse_optimal_log(int maxlog, int64_t n, int maxsym, int minus)
+{
+    uint32_t maxbits_src = (uint32_t)highbit32((uint32_t)(n - 1))
+                           - (uint32_t)minus;
+    uint32_t minsrc = (uint32_t)highbit32((uint32_t)n) + 1;
+    uint32_t minsym = (uint32_t)highbit32((uint32_t)(maxsym | 1)) + 2;
+    uint32_t minbits = minsrc < minsym ? minsrc : minsym;
+    uint32_t log = (uint32_t)maxlog;
+    if (maxbits_src < log)
+        log = maxbits_src;
+    if (minbits > log)
+        log = minbits;
     if (log < 5)
         log = 5;
-    if (log > maxlog)
-        log = maxlog;
-    return log;
+    if (log > 12)
+        log = 12;
+    return (int)log;
 }
 
-static void fse_write_ncount(bitout *w, const int16_t *norm, int maxsym,
-                             int log)
+/* FSE_normalizeM2: the second method, for skewed counts */
+static int fse_normalize_m2(int16_t *norm, int log, const uint32_t *count,
+                            uint64_t total, int maxsym, int16_t low_prob)
 {
-    bitout_add(w, (uint64_t)(log - 5), 4);
-    int remaining = (1 << log) + 1, threshold = 1 << log, nbits = log + 1;
-    int s = 0, prev0 = 0;
+    const int16_t unset = -2;
+    uint32_t distributed = 0;
+    const uint32_t low_threshold = (uint32_t)(total >> log);
+    uint32_t low_one = (uint32_t)((total * 3) >> (log + 1));
+    for (int s = 0; s <= maxsym; ++s) {
+        if (count[s] == 0) {
+            norm[s] = 0;
+        } else if (count[s] <= low_threshold) {
+            norm[s] = low_prob;
+            distributed++;
+            total -= count[s];
+        } else if (count[s] <= low_one) {
+            norm[s] = 1;
+            distributed++;
+            total -= count[s];
+        } else {
+            norm[s] = unset;
+        }
+    }
+    uint32_t todo = (1u << log) - distributed;
+    if (todo == 0)
+        return 0;
+    if (total / todo > low_one) {
+        low_one = (uint32_t)((total * 3) / (todo * 2));
+        for (int s = 0; s <= maxsym; ++s)
+            if (norm[s] == unset && count[s] <= low_one) {
+                norm[s] = 1;
+                distributed++;
+                total -= count[s];
+            }
+        todo = (1u << log) - distributed;
+    }
+    if (distributed == (uint32_t)maxsym + 1) {
+        uint32_t maxv = 0, maxc = 0;
+        for (int s = 0; s <= maxsym; ++s)
+            if (count[s] > maxc) {
+                maxv = (uint32_t)s;
+                maxc = count[s];
+            }
+        norm[maxv] = (int16_t)(norm[maxv] + (int16_t)todo);
+        return 0;
+    }
+    if (total == 0) {
+        for (int s = 0; todo > 0; s = (s + 1) % (maxsym + 1))
+            if (norm[s] > 0) {
+                todo--;
+                norm[s]++;
+            }
+        return 0;
+    }
+    const uint64_t vlog = 62 - (uint64_t)log;
+    const uint64_t mid = (1ULL << (vlog - 1)) - 1;
+    const uint64_t rstep = (((1ULL << vlog) * todo) + mid) / (uint32_t)total;
+    uint64_t tmp = mid;
+    for (int s = 0; s <= maxsym; ++s) {
+        if (norm[s] != unset)
+            continue;
+        uint64_t end = tmp + count[s] * rstep;
+        uint32_t weight = (uint32_t)(end >> vlog) - (uint32_t)(tmp >> vlog);
+        if (weight < 1)
+            return ZE_GENERIC;
+        norm[s] = (int16_t)weight;
+        tmp = end;
+    }
+    return 0;
+}
+
+/* FSE_normalizeCount of count[0..maxsym] (two or more symbols present)
+ * to 2^log; low_prob gives the symbols under 1/2^log the count -1 */
+static int fse_normalize(int16_t *norm, int log, const uint32_t *count,
+                         uint64_t total, int maxsym, int low_prob)
+{
+    static const uint32_t rtb[8] = {0, 473195, 504333, 520860, 550000,
+                                    700000, 750000, 830000};
+    const int16_t lowc = low_prob ? -1 : 1;
+    const uint64_t scale = 62 - (uint64_t)log;
+    const uint64_t step = (1ULL << 62) / (uint32_t)total;
+    const uint64_t vstep = 1ULL << (scale - 20);
+    int still = 1 << log, largest = 0;
+    int16_t largest_p = 0;
+    const uint32_t low_threshold = (uint32_t)(total >> log);
+    for (int s = 0; s <= maxsym; ++s) {
+        if (count[s] == total)
+            return 0;
+        if (count[s] == 0) {
+            norm[s] = 0;
+            continue;
+        }
+        if (count[s] <= low_threshold) {
+            norm[s] = lowc;
+            still--;
+        } else {
+            int16_t p = (int16_t)((count[s] * step) >> scale);
+            if (p < 8) {
+                uint64_t beat = vstep * rtb[p];
+                p = (int16_t)(p + ((count[s] * step) - ((uint64_t)p << scale)
+                                   > beat));
+            }
+            if (p > largest_p) {
+                largest_p = p;
+                largest = s;
+            }
+            norm[s] = p;
+            still -= p;
+        }
+    }
+    if (-still >= (norm[largest] >> 1))
+        return fse_normalize_m2(norm, log, count, total, maxsym, lowc);
+    norm[largest] = (int16_t)(norm[largest] + still);
+    return 0;
+}
+
+/* FSE_writeNCount into cap bytes: its size, or ZE_SMALL where libzstd's
+ * bounded writer runs out of room */
+static int64_t fse_write_ncount(uint8_t *dst, int64_t cap, const int16_t *norm,
+                                int maxsym, int log)
+{
+    const int64_t bound = ((int64_t)(maxsym + 1) * log + 6) / 8 + 3;
+    const int safe = cap >= bound;
+    int64_t out = 0;
+    int nbits = log + 1, remaining = (1 << log) + 1, threshold = 1 << log;
+    uint32_t bits = (uint32_t)(log - 5);
+    int nb = 4, s = 0, prev0 = 0;
+#define NCOUNT_FLUSH()                                 \
+    do {                                               \
+        if (!safe && out > cap - 2)                    \
+            return ZE_SMALL;                           \
+        dst[out] = (uint8_t)bits;                      \
+        dst[out + 1] = (uint8_t)(bits >> 8);           \
+        out += 2;                                      \
+        bits >>= 16;                                   \
+    } while (0)
     while (s <= maxsym && remaining > 1) {
         if (prev0) {
             int start = s;
             while (s <= maxsym && !norm[s])
-                ++s;
-            while (s >= start + 3) {
-                bitout_add(w, 3, 2);
-                start += 3;
+                s++;
+            if (s > maxsym)
+                break;
+            while (s >= start + 24) {
+                start += 24;
+                bits += 0xFFFFu << nb;
+                NCOUNT_FLUSH();
             }
-            bitout_add(w, (uint64_t)(s - start), 2);
+            while (s >= start + 3) {
+                start += 3;
+                bits += 3u << nb;
+                nb += 2;
+            }
+            bits += (uint32_t)(s - start) << nb;
+            nb += 2;
+            if (nb > 16) {
+                NCOUNT_FLUSH();
+                nb -= 16;
+            }
         }
         int count = norm[s++];
-        int max = (2 * threshold - 1) - remaining;
+        const int max = (2 * threshold - 1) - remaining;
         remaining -= count < 0 ? -count : count;
         count++;
         if (count >= threshold)
             count += max;
-        bitout_add(w, (uint64_t)count, nbits - (count < max));
+        bits += (uint32_t)count << nb;
+        nb += nbits - (count < max);
         prev0 = count == 1;
+        if (remaining < 1)
+            return ZE_GENERIC;
         while (remaining < threshold) {
             nbits--;
             threshold >>= 1;
         }
+        if (nb > 16) {
+            NCOUNT_FLUSH();
+            nb -= 16;
+        }
     }
-    bitout_flush(w);
+    if (remaining != 1)
+        return ZE_GENERIC;
+    if (!safe && out > cap - 2)
+        return ZE_SMALL;
+    dst[out] = (uint8_t)bits;
+    dst[out + 1] = (uint8_t)(bits >> 8);
+    return out + (nb + 7) / 8;
+#undef NCOUNT_FLUSH
 }
 
+/* an FSE encoding table (FSE_buildCTable_wksp) */
 typedef struct {
     int log;
     uint16_t state[1 << ZSTD_LL_LOG];
@@ -938,7 +1099,8 @@ static void fse_build_ctable(fse_ctable *t, const int16_t *norm, int maxsym,
     t->log = log;
 }
 
-/* the first state of symbol s (the one with the most bits) */
+/* FSE_initCState2: the first state of symbol s (the one with the most
+ * bits) */
 static uint32_t fse_init_state(const fse_ctable *t, int s)
 {
     uint32_t nb = (t->delta_nbits[s] + (1u << 15)) >> 16;
@@ -954,169 +1116,412 @@ static uint32_t fse_encode(bitout *w, const fse_ctable *t, uint32_t state,
     return t->state[(int32_t)(state >> nb) + t->delta_find[s]];
 }
 
-/* Huffman code lengths of count[0..255] (at least two symbols present),
- * none over HUF_MAX_BITS: a Huffman tree over the symbols sorted by
- * (count, symbol), merging the two smallest of the leaf queue and the
- * node queue (a leaf first among equals); while the deepest leaf is
- * deeper than HUF_MAX_BITS the counts become (count + 1) / 2 and the
- * tree is built again. Returns the longest length. */
-/* (count, symbol) keys, compared in that order */
-static int huf_key_cmp(const void *a, const void *b)
+/* ------------------------------------------------------------- Huffman */
+
+typedef struct {
+    uint32_t count;
+    uint16_t parent;
+    uint8_t byte, nbits;
+} huf_node;
+
+static uint32_t huf_rank_index(uint32_t c)
 {
-    uint64_t x = *(const uint64_t *)a, y = *(const uint64_t *)b;
-    return (x > y) - (x < y);
+    return c < 166 ? c : (uint32_t)highbit32(c) + 158;
 }
 
-static int huf_lengths(const uint32_t *count_in, uint8_t *len)
+static void huf_swap(huf_node *a, huf_node *b)
 {
-    uint32_t count[256];
-    uint64_t key[256];
-    int order[256], n = 0;
-    memcpy(count, count_in, sizeof(count));
-    for (;;) {
-        n = 0;
-        for (int s = 0; s < 256; ++s)
-            if (count[s])
-                key[n++] = (uint64_t)count[s] << 8 | (uint64_t)s;
-        qsort(key, (size_t)n, sizeof(uint64_t), huf_key_cmp);
-        for (int i = 0; i < n; ++i)
-            order[i] = (int)(key[i] & 255);
-        uint64_t weight[512];
-        int parent[512];
-        for (int i = 0; i < n; ++i)
-            weight[i] = count[order[i]];
-        int leaf = 0, node = n, made = n;
-        while (made < 2 * n - 1) {
-            int pick[2];
-            for (int k = 0; k < 2; ++k) {
-                if (leaf < n && (node >= made || weight[leaf] <= weight[node]))
-                    pick[k] = leaf++;
-                else
-                    pick[k] = node++;
-            }
-            weight[made] = weight[pick[0]] + weight[pick[1]];
-            parent[pick[0]] = parent[pick[1]] = made;
-            made++;
+    huf_node t = *a;
+    *a = *b;
+    *b = t;
+}
+
+/* HUF_insertionSort: descending counts, stable */
+static void huf_insertion_sort(huf_node *a, int low, int high)
+{
+    a += low;
+    for (int i = 1; i < high - low + 1; ++i) {
+        huf_node key = a[i];
+        int j = i - 1;
+        while (j >= 0 && a[j].count < key.count) {
+            a[j + 1] = a[j];
+            j--;
         }
-        int depth[512];
-        depth[2 * n - 2] = 0;
-        for (int i = 2 * n - 3; i >= 0; --i)
-            depth[i] = depth[parent[i]] + 1;
-        int maxlen = 0;
-        memset(len, 0, 256);
-        for (int i = 0; i < n; ++i) {
-            len[order[i]] = (uint8_t)depth[i];
-            if (depth[i] > maxlen)
-                maxlen = depth[i];
-        }
-        if (maxlen <= HUF_MAX_BITS)
-            return maxlen;
-        for (int s = 0; s < 256; ++s)
-            if (count[s])
-                count[s] = (count[s] + 1) / 2;
+        a[j + 1] = key;
     }
 }
 
-/* the canonical codes of lengths len (longest maxlen) as zstd assigns
- * them: by weight (maxlen + 1 - length), then symbol */
-static void huf_codes(const uint8_t *len, int maxlen, uint16_t *code)
+/* HUF_simpleQuickSort (the last element the pivot): its order among equal
+ * counts is libzstd's */
+static void huf_quick_sort(huf_node *a, int low, int high)
 {
-    uint32_t start[HUF_MAX_BITS + 2] = {0}, cnt[HUF_MAX_BITS + 2] = {0};
-    for (int s = 0; s < 256; ++s)
-        if (len[s])
-            cnt[maxlen + 1 - len[s]]++;
-    uint32_t next = 0;
-    for (int w = 1; w <= maxlen; ++w) {
-        start[w] = next;
-        next += cnt[w] << (w - 1);
+    if (high - low < 8) {
+        huf_insertion_sort(a, low, high);
+        return;
     }
-    for (int s = 0; s < 256; ++s) {
-        if (!len[s])
+    while (low < high) {
+        const uint32_t pivot = a[high].count;
+        int i = low - 1;
+        for (int j = low; j < high; ++j)
+            if (a[j].count > pivot)
+                huf_swap(&a[++i], &a[j]);
+        huf_swap(&a[i + 1], &a[high]);
+        const int idx = i + 1;
+        if (idx - low < high - idx) {
+            huf_quick_sort(a, low, idx - 1);
+            low = idx + 1;
+        } else {
+            huf_quick_sort(a, idx + 1, high);
+            high = idx - 1;
+        }
+    }
+}
+
+/* HUF_sort: symbols 0..maxsym by descending count into node[] (bucketed:
+ * counts under 166 in symbol order, larger ones by log2, each such bucket
+ * sorted) */
+static void huf_sort(huf_node *node, const uint32_t *count, int maxsym)
+{
+    uint16_t base[192] = {0}, curr[192] = {0};
+    for (int n = 0; n <= maxsym; ++n)
+        base[huf_rank_index(count[n])]++;
+    for (int n = 191; n > 0; --n) {
+        base[n - 1] = (uint16_t)(base[n - 1] + base[n]);
+        curr[n - 1] = base[n - 1];
+    }
+    for (int n = 0; n <= maxsym; ++n) {
+        const uint32_t r = huf_rank_index(count[n]) + 1;
+        const int pos = curr[r]++;
+        node[pos].count = count[n];
+        node[pos].byte = (uint8_t)n;
+    }
+    for (int n = 166; n < 191; ++n) {
+        const int size = curr[n] - base[n];
+        if (size > 1)
+            huf_quick_sort(node + base[n], 0, size - 1);
+    }
+}
+
+/* HUF_setMaxHeight: no code longer than target, libzstd's way; returns the
+ * longest length */
+static int huf_set_max_height(huf_node *node, int last, int target)
+{
+    const int largest = node[last].nbits;
+    if (largest <= target)
+        return largest;
+    int cost = 0;
+    const int base_cost = 1 << (largest - target);
+    int n = last;
+    while (node[n].nbits > target) {
+        cost += base_cost - (1 << (largest - node[n].nbits));
+        node[n].nbits = (uint8_t)target;
+        n--;
+    }
+    while (node[n].nbits == target)
+        --n;
+    cost >>= largest - target;
+    const uint32_t none = 0xF0F0F0F0u;
+    uint32_t rank_last[14];     /* HUF_TABLELOG_MAX (12) + 2 */
+    for (int k = 0; k < 14; ++k)
+        rank_last[k] = none;
+    {
+        int cur = target;
+        for (int pos = n; pos >= 0; pos--) {
+            if (node[pos].nbits >= cur)
+                continue;
+            cur = node[pos].nbits;
+            rank_last[target - cur] = (uint32_t)pos;
+        }
+    }
+    while (cost > 0) {
+        int dec = highbit32((uint32_t)cost) + 1;
+        for (; dec > 1; dec--) {
+            const uint32_t high = rank_last[dec], low = rank_last[dec - 1];
+            if (high == none)
+                continue;
+            if (low == none)
+                break;
+            if (node[high].count <= 2 * node[low].count)
+                break;
+        }
+        while (dec <= 12 && rank_last[dec] == none)
+            dec++;
+        cost -= 1 << (dec - 1);
+        node[rank_last[dec]].nbits++;
+        if (rank_last[dec - 1] == none)
+            rank_last[dec - 1] = rank_last[dec];
+        if (rank_last[dec] == 0) {
+            rank_last[dec] = none;
+        } else {
+            rank_last[dec]--;
+            if (node[rank_last[dec]].nbits != target - dec)
+                rank_last[dec] = none;
+        }
+    }
+    while (cost < 0) {
+        if (rank_last[1] == none) {
+            while (node[n].nbits == target)
+                n--;
+            node[n + 1].nbits--;
+            rank_last[1] = (uint32_t)(n + 1);
+            cost++;
             continue;
-        int w = maxlen + 1 - len[s];
-        code[s] = (uint16_t)(start[w] >> (w - 1));
-        start[w] += 1u << (w - 1);
+        }
+        node[rank_last[1] + 1].nbits--;
+        rank_last[1]++;
+        cost++;
     }
+    return target;
 }
 
-/* The Huffman tree description of lengths len (last present symbol
- * last): the weights FSE-coded (table log 6, two interleaved states)
- * when they hold two or more distinct values and that is shorter than
- * the direct form, else direct (at most 128 weights). Returns its size,
- * or 0 when neither form can describe them. */
-static int64_t huf_write_table(const uint8_t *len, int maxlen, int last,
-                               uint8_t *dst, int64_t cap)
+/* HUF_buildCTable_wksp: code lengths (nbits, 0 for absent symbols) and codes
+ * of count[0..maxsym] (two or more symbols present), none longer than
+ * maxbits; returns the longest */
+static int huf_build(const uint32_t *count, int maxsym, int maxbits,
+                     uint8_t *nbits, uint16_t *code)
+{
+    huf_node node0[2 * 256 + 1];
+    huf_node *node = node0 + 1;
+    memset(node0, 0, sizeof(node0));
+    huf_sort(node, count, maxsym);
+    /* HUF_buildTree: leaves from the smallest, a node first among equals */
+    int nonnull = maxsym;
+    while (node[nonnull].count == 0)
+        nonnull--;
+    int low_s = nonnull, nb = 256, low_n = 256;
+    const int root = nb + low_s - 1;
+    node[nb].count = node[low_s].count + node[low_s - 1].count;
+    node[low_s].parent = node[low_s - 1].parent = (uint16_t)nb;
+    nb++;
+    low_s -= 2;
+    for (int k = nb; k <= root; ++k)
+        node[k].count = 1u << 30;
+    node[-1].count = 1u << 31;
+    while (nb <= root) {
+        const int n1 = node[low_s].count < node[low_n].count ? low_s--
+                                                             : low_n++;
+        const int n2 = node[low_s].count < node[low_n].count ? low_s--
+                                                             : low_n++;
+        node[nb].count = node[n1].count + node[n2].count;
+        node[n1].parent = node[n2].parent = (uint16_t)nb;
+        nb++;
+    }
+    node[root].nbits = 0;
+    for (int k = root - 1; k >= 256; k--)
+        node[k].nbits = (uint8_t)(node[node[k].parent].nbits + 1);
+    for (int k = 0; k <= nonnull; k++)
+        node[k].nbits = (uint8_t)(node[node[k].parent].nbits + 1);
+    const int longest = huf_set_max_height(node, nonnull, maxbits);
+    /* HUF_buildCTableFromTree: values within a length in symbol order */
+    uint16_t per_rank[HUF_MAX_BITS + 2] = {0}, val[HUF_MAX_BITS + 2] = {0};
+    for (int k = 0; k <= nonnull; k++)
+        per_rank[node[k].nbits]++;
+    uint16_t min = 0;
+    for (int k = longest; k > 0; k--) {
+        val[k] = min;
+        min = (uint16_t)(min + per_rank[k]);
+        min >>= 1;
+    }
+    memset(nbits, 0, 256);
+    for (int k = 0; k <= maxsym; k++)
+        nbits[node[k].byte] = node[k].nbits;
+    for (int s = 0; s <= maxsym; s++)
+        code[s] = nbits[s] ? val[nbits[s]]++ : 0;
+    return longest;
+}
+
+/* FSE_compress_usingCTable of the weights w[0, n) into cap bytes: 0 where
+ * libzstd gives up (n <= 2, no room) */
+static int64_t fse_compress_weights(uint8_t *dst, int64_t cap,
+                                    const uint8_t *w, int n,
+                                    const fse_ctable *t)
+{
+    if (n <= 2 || cap <= 8)
+        return 0;
+    bitout bw;
+    bitout_init(&bw, dst, cap);
+    uint32_t st[2];
+    st[(n - 1) & 1] = fse_init_state(t, w[n - 1]);
+    st[(n - 2) & 1] = fse_init_state(t, w[n - 2]);
+    for (int i = n - 3; i >= 0; --i)
+        st[i & 1] = fse_encode(&bw, t, st[i & 1], w[i]);
+    bitout_add(&bw, st[1], t->log);
+    bitout_add(&bw, st[0], t->log);
+    bitout_add(&bw, 1, 1);
+    if (!stream_fits(&bw, cap))
+        return 0;
+    bitout_flush(&bw);
+    return bw.p - dst;
+}
+
+/* HUF_compressWeights: 0 for no FSE form, 1 for a single weight */
+static int64_t huf_compress_weights(uint8_t *dst, int64_t cap,
+                                    const uint8_t *w, int n)
+{
+    if (n <= 1)
+        return 0;
+    uint32_t count[HUF_MAX_BITS + 1] = {0}, most = 0;
+    int maxw = 0;
+    for (int i = 0; i < n; ++i)
+        count[w[i]]++;
+    for (int k = 0; k <= HUF_MAX_BITS; ++k)
+        if (count[k]) {
+            maxw = k;
+            if (count[k] > most)
+                most = count[k];
+        }
+    if (most == (uint32_t)n)
+        return 1;
+    if (most == 1)
+        return 0;
+    const int log = fse_optimal_log(HUF_WEIGHT_LOG, n, maxw, 2);
+    int16_t norm[HUF_MAX_BITS + 1];
+    int rc = fse_normalize(norm, log, count, (uint64_t)n, maxw, 0);
+    if (rc < 0)
+        return rc;
+    int64_t h = fse_write_ncount(dst, cap, norm, maxw, log);
+    if (h < 0)
+        return h;
+    fse_ctable *t = (fse_ctable *)malloc(sizeof(fse_ctable));
+    if (t == NULL)
+        return ERR_NOMEM;
+    fse_build_ctable(t, norm, maxw, log);
+    int64_t c = fse_compress_weights(dst + h, cap - h, w, n, t);
+    free(t);
+    return c == 0 ? 0 : h + c;
+}
+
+/* HUF_writeCTable_wksp: the tree description (maxsym + 1 symbols) */
+static int64_t huf_write_table(uint8_t *dst, int64_t cap, const uint8_t *nbits,
+                               int maxsym, int longest)
 {
     uint8_t w[256];
-    uint32_t hist[16] = {0};
-    int nw = last;     /* the last symbol's weight is implied */
-    for (int s = 0; s < nw; ++s) {
-        w[s] = (uint8_t)(len[s] ? maxlen + 1 - len[s] : 0);
-        hist[w[s]]++;
+    for (int s = 0; s < maxsym; ++s)
+        w[s] = (uint8_t)(nbits[s] ? longest + 1 - nbits[s] : 0);
+    if (cap < 1)
+        return ZE_SMALL;
+    int64_t h = huf_compress_weights(dst + 1, cap - 1, w, maxsym);
+    if (h < 0)
+        return h;
+    if (h > 1 && h < maxsym / 2) {
+        dst[0] = (uint8_t)h;
+        return h + 1;
     }
-    int64_t direct = nw <= 128 ? 1 + (nw + 1) / 2 : 0;
-    int distinct = 0, maxw = 0;
-    for (int k = 0; k < 16; ++k)
-        if (hist[k]) {
-            distinct++;
-            maxw = k;
-        }
-    uint8_t fse[160];
-    int64_t fsize = 0;
-    if (distinct >= 2) {
-        int16_t norm[16];
-        fse_ctable *t = (fse_ctable *)malloc(sizeof(fse_ctable));
-        if (t == NULL)
-            return ERR_NOMEM;
-        fse_normalize(hist, maxw, HUF_WEIGHT_LOG, norm);
-        bitout bw;
-        bitout_init(&bw, fse + 1, (int64_t)sizeof(fse) - 1);
-        fse_write_ncount(&bw, norm, maxw, HUF_WEIGHT_LOG);
-        fse_build_ctable(t, norm, maxw, HUF_WEIGHT_LOG);
-        uint32_t st[2];
-        st[(nw - 1) & 1] = fse_init_state(t, w[nw - 1]);
-        st[(nw - 2) & 1] = fse_init_state(t, w[nw - 2]);
-        for (int i = nw - 3; i >= 0; --i)
-            st[i & 1] = fse_encode(&bw, t, st[i & 1], w[i]);
-        bitout_add(&bw, st[1], HUF_WEIGHT_LOG);
-        bitout_add(&bw, st[0], HUF_WEIGHT_LOG);
-        bitout_add(&bw, 1, 1);
-        bitout_flush(&bw);
-        free(t);
-        fsize = bw.p - (fse + 1);
-        if (bw.overflow || fsize >= 128)
-            fsize = 0;
-    }
-    if (fsize && (!direct || fsize + 1 < direct)) {
-        if (fsize + 1 > cap)
-            return 0;
-        dst[0] = (uint8_t)fsize;
-        memcpy(dst + 1, fse + 1, (size_t)fsize);
-        return fsize + 1;
-    }
-    if (!direct || direct > cap)
-        return 0;
-    dst[0] = (uint8_t)(127 + nw);
-    memset(dst + 1, 0, (size_t)(direct - 1));
-    for (int i = 0; i < nw; ++i)
-        dst[1 + i / 2] |= (uint8_t)(i & 1 ? w[i] : w[i] << 4);
-    return direct;
+    if (maxsym > 128)
+        return ZE_GENERIC;
+    if ((maxsym + 1) / 2 + 1 > cap)
+        return ZE_SMALL;
+    dst[0] = (uint8_t)(128 + maxsym - 1);
+    w[maxsym] = 0;
+    for (int s = 0; s < maxsym; s += 2)
+        dst[s / 2 + 1] = (uint8_t)((w[s] << 4) + w[s + 1]);
+    return (maxsym + 1) / 2 + 1;
 }
 
-/* one Huffman stream of src[0, n), symbols written last first */
-static int64_t huf_write_stream(const uint8_t *src, int64_t n,
-                                const uint8_t *len, const uint16_t *code,
-                                uint8_t *dst, int64_t cap)
+/* one Huffman stream (HUF_compress1X_usingCTable): 0 where it does not fit
+ * cap as libzstd's writer sees it */
+static int64_t huf_stream(uint8_t *dst, int64_t cap, const uint8_t *src,
+                          int64_t n, const uint8_t *nbits,
+                          const uint16_t *code)
 {
+    if (cap <= 8)
+        return 0;
+    int64_t total = 1;
+    for (int64_t i = 0; i < n; ++i)
+        total += nbits[src[i]];
+    if ((total >> 3) >= cap - 8)
+        return 0;
     bitout bw;
     bitout_init(&bw, dst, cap);
     for (int64_t i = n - 1; i >= 0; --i)
-        bitout_add(&bw, code[src[i]], len[src[i]]);
+        bitout_add(&bw, code[src[i]], nbits[src[i]]);
     bitout_add(&bw, 1, 1);
     bitout_flush(&bw);
-    return bw.overflow ? -1 : bw.p - dst;
+    return bw.p - dst;
 }
 
+/* HUF_compress1X_repeat / HUF_compress4X_repeat with no earlier table:
+ * the table description and 1 or 4 streams of src[0, n) into cap bytes;
+ * 0 for not compressible, 1 for a single symbol (dst[0] that symbol) */
+static int64_t huf_compress(uint8_t *dst, int64_t cap, const uint8_t *src,
+                            int64_t n, int single, int suspect)
+{
+    if (n == 0 || cap == 0)
+        return 0;
+    uint32_t count[256];
+    if (suspect && n >= 4096 * 10) {
+        uint32_t largest_total = 0;
+        for (int k = 0; k < 2; ++k) {
+            const uint8_t *p = k ? src + n - 4096 : src;
+            uint32_t most = 0;
+            memset(count, 0, sizeof(count));
+            for (int i = 0; i < 4096; ++i)
+                count[p[i]]++;
+            for (int s = 0; s < 256; ++s)
+                if (count[s] > most)
+                    most = count[s];
+            largest_total += most;
+        }
+        if (largest_total <= (2 * 4096 >> 7) + 4)
+            return 0;
+    }
+    memset(count, 0, sizeof(count));
+    for (int64_t i = 0; i < n; ++i)
+        count[src[i]]++;
+    uint32_t largest = 0;
+    int maxsym = 0;
+    for (int s = 0; s < 256; ++s)
+        if (count[s]) {
+            maxsym = s;
+            if (count[s] > largest)
+                largest = count[s];
+        }
+    if (largest == (uint64_t)n) {
+        dst[0] = src[0];
+        return 1;
+    }
+    if (largest <= (uint64_t)((n >> 7) + 4))
+        return 0;
+    const int log = fse_optimal_log(HUF_MAX_BITS, n, maxsym, 1);
+    uint8_t nbits[256];
+    uint16_t code[256];
+    const int longest = huf_build(count, maxsym, log, nbits, code);
+    int64_t h = huf_write_table(dst, cap, nbits, maxsym, longest);
+    if (h < 0)
+        return h;
+    if (h + 12 >= n)
+        return 0;
+    int64_t op = h;
+    if (single) {
+        int64_t c = huf_stream(dst + op, cap - op, src, n, nbits, code);
+        if (c == 0)
+            return 0;
+        op += c;
+    } else {
+        const int64_t seg = (n + 3) / 4;
+        if (cap - op < 6 + 1 + 1 + 1 + 8 || n < 12)
+            return 0;
+        const int64_t jump = op;
+        op += 6;
+        for (int k = 0; k < 4; ++k) {
+            const int64_t cnt = k < 3 ? seg : n - 3 * seg;
+            int64_t c = huf_stream(dst + op, cap - op, src + k * seg, cnt,
+                                   nbits, code);
+            if (c == 0 || c > 65535)
+                return 0;
+            if (k < 3) {
+                dst[jump + 2 * k] = (uint8_t)c;
+                dst[jump + 2 * k + 1] = (uint8_t)(c >> 8);
+            }
+            op += c;
+        }
+    }
+    if (op >= n - 1)
+        return 0;
+    return op;
+}
+
+/* the header of a raw or RLE literals section */
 static int64_t literal_header(uint8_t *dst, int type, int64_t n)
 {
     if (n < 32) {
@@ -1134,84 +1539,57 @@ static int64_t literal_header(uint8_t *dst, int type, int64_t n)
     return 3;
 }
 
-/* The literals section of lit[0, n) into dst (cap >= n + 8): raw when n
- * is under 64 or Huffman is not smaller, RLE when every literal is the
- * same, else Huffman in 1 stream (n < 256) or 4. Its size, or an
- * error. */
-static int64_t zstd_write_literals(const uint8_t *lit, int64_t n,
-                                   uint8_t *dst, int64_t cap)
+static int64_t raw_literals(uint8_t *dst, int64_t cap, const uint8_t *lit,
+                            int64_t n)
 {
-    int64_t raw = literal_header(dst, 0, n) + n;
-    uint32_t count[256] = {0};
-    for (int64_t i = 0; i < n; ++i)
-        count[lit[i]]++;
-    int distinct = 0, last = 0;
-    for (int s = 0; s < 256; ++s)
-        if (count[s]) {
-            distinct++;
-            last = s;
-        }
-    if (n > 0 && distinct == 1) {
-        int64_t h = literal_header(dst, 1, n);
-        dst[h] = lit[0];
-        return h + 1;
-    }
-    if (n >= 64) {
-        uint8_t len[256];
-        uint16_t code[256];
-        int maxlen = huf_lengths(count, len);
-        huf_codes(len, maxlen, code);
-        uint8_t *tmp = (uint8_t *)malloc((size_t)(n + 512));
-        if (tmp == NULL)
-            return ERR_NOMEM;
-        int64_t pos = huf_write_table(len, maxlen, last, tmp, n + 512);
-        int four = n >= 256;
-        if (pos < 0) {
-            free(tmp);
-            return pos;
-        }
-        if (pos > 0) {
-            int64_t start = pos;
-            if (four)
-                pos += 6;
-            int64_t seg = (n + 3) / 4;
-            for (int k = 0; k < (four ? 4 : 1) && pos > 0; ++k) {
-                int64_t off = four ? k * seg : 0;
-                int64_t cnt = !four ? n : k < 3 ? seg : n - 3 * seg;
-                int64_t sz = huf_write_stream(lit + off, cnt, len, code,
-                                              tmp + pos, n + 512 - pos);
-                if (sz < 0 || (four && k < 3 && sz > 65535)) {
-                    pos = 0;
-                    break;
-                }
-                if (four && k < 3) {
-                    tmp[start + 2 * k] = (uint8_t)sz;
-                    tmp[start + 2 * k + 1] = (uint8_t)(sz >> 8);
-                }
-                pos += sz;
-            }
-        }
-        if (pos > 0) {
-            int64_t csize = pos, big = n > csize ? n : csize;
-            int sf = !four ? 0 : big < 1024 ? 1 : big < 16384 ? 2 : 3;
-            int hs = sf < 2 ? 3 : sf == 2 ? 4 : 5;
-            int bits = sf < 2 ? 10 : sf == 2 ? 14 : 18;
-            if (hs + csize < raw && hs + csize <= cap) {
-                uint64_t h = 2 | ((uint64_t)sf << 2) | ((uint64_t)n << 4)
-                             | ((uint64_t)csize << (4 + bits));
-                for (int k = 0; k < hs; ++k)
-                    dst[k] = (uint8_t)(h >> (8 * k));
-                memcpy(dst + hs, tmp, (size_t)csize);
-                free(tmp);
-                return hs + csize;
-            }
-        }
-        free(tmp);
-    }
-    int64_t h = literal_header(dst, 0, n);
-    memcpy(dst + h, lit, (size_t)n);
-    return raw;
+    const int64_t fl = 1 + (n > 31) + (n > 4095);
+    if (n + fl > cap)
+        return ZE_SMALL;
+    literal_header(dst, 0, n);
+    memcpy(dst + fl, lit, (size_t)n);
+    return n + fl;
 }
+
+/* ZSTD_minGain below strategy btultra */
+static int64_t zstd_min_gain(int64_t n)
+{
+    return (n >> 6) + 2;
+}
+
+/* ZSTD_compressLiterals with no earlier table, strategy fast or dfast */
+static int64_t zstd_write_literals(uint8_t *dst, int64_t cap,
+                                   const uint8_t *lit, int64_t n, int suspect)
+{
+    const int64_t lh = 3 + (n >= 1024) + (n >= 16384);
+    const int single = n < 256;
+    if (n < 64)     /* ZSTD_minLiteralsToCompress */
+        return raw_literals(dst, cap, lit, n);
+    if (cap < lh + 1)
+        return ZE_SMALL;
+    int64_t c = huf_compress(dst + lh, cap - lh, lit, n, single, suspect);
+    if (c == ERR_NOMEM)
+        return c;
+    if (c <= 0 || c >= n - zstd_min_gain(n))
+        return raw_literals(dst, cap, lit, n);
+    if (c == 1) {
+        const int64_t fl = literal_header(dst, 1, n);
+        dst[fl] = lit[0];
+        return fl + 1;
+    }
+    uint64_t h;
+    if (lh == 3)
+        h = 2 | ((uint64_t)!single << 2) | ((uint64_t)n << 4)
+            | ((uint64_t)c << 14);
+    else if (lh == 4)
+        h = 2 | (2 << 2) | ((uint64_t)n << 4) | ((uint64_t)c << 18);
+    else
+        h = 2 | (3 << 2) | ((uint64_t)n << 4) | ((uint64_t)c << 22);
+    for (int k = 0; k < lh; ++k)
+        dst[k] = (uint8_t)(h >> (8 * k));
+    return lh + c;
+}
+
+/* ----------------------------------------------------------- sequences */
 
 typedef struct {
     uint32_t ll, ml, ofv;    /* literal length, match length, offset value */
@@ -1228,65 +1606,88 @@ static int code_of(const uint32_t *base, int maxcode, uint32_t v)
     return c;
 }
 
-/* mode and table of one sequence field: RLE for one symbol, the
- * predefined distribution under 64 sequences, else FSE of its own */
-static int64_t seq_field_table(const uint8_t *codes, int64_t nseq,
-                               int maxsym, int maxlog, const int16_t *defnorm,
-                               int defmax, int deflog, fse_ctable *t,
-                               int *mode, uint8_t *dst, int64_t cap)
+/* one sequence field (literal length, offset or match length codes):
+ * ZSTD_selectEncodingType below strategy lazy and ZSTD_buildCTable; its
+ * mode, table and description (at dst, the size returned) */
+static int64_t seq_field(const uint8_t *codes, int64_t nseq, int maxcode,
+                         int fselog, const int16_t *defnorm, int defmax,
+                         int deflog, int strat, fse_ctable *t, int *mode,
+                         uint8_t *dst, int64_t cap)
 {
-    uint32_t count[ZSTD_MAX_ML + 1] = {0};
-    int distinct = 0, top = 0;
+    uint32_t count[ZSTD_MAX_ML + 1] = {0}, most = 0;
+    int max = 0;
     for (int64_t i = 0; i < nseq; ++i)
         count[codes[i]]++;
-    for (int s = 0; s <= maxsym; ++s)
+    for (int s = 0; s <= maxcode; ++s)
         if (count[s]) {
-            distinct++;
-            top = s;
+            max = s;
+            if (count[s] > most)
+                most = count[s];
         }
-    if (distinct == 1) {
-        *mode = 1;
-        t->log = 0;
-        if (cap < 1)
-            return -1;
-        dst[0] = (uint8_t)top;
-        return 1;
-    }
-    if (nseq < 64) {
+    const int def_ok = max <= defmax;
+    if (most == (uint64_t)nseq) {
+        if (def_ok && nseq <= 2) {
+            *mode = 0;
+        } else {
+            *mode = 1;
+            t->log = 0;
+            if (cap == 0)
+                return ZE_SMALL;
+            dst[0] = codes[0];
+            return 1;
+        }
+    } else if (def_ok && (nseq < (((int64_t)1 << deflog) * (10 - strat)) >> 3
+                          || most < (uint64_t)(nseq >> (deflog - 1)))) {
         *mode = 0;
+    } else {
+        *mode = 2;
+    }
+    if (*mode == 0) {
         fse_build_ctable(t, defnorm, defmax, deflog);
         return 0;
     }
-    *mode = 2;
+    const int log = fse_optimal_log(fselog, nseq, max, 2);
+    int64_t total = nseq;
+    if (count[codes[nseq - 1]] > 1) {
+        count[codes[nseq - 1]]--;
+        total--;
+    }
     int16_t norm[ZSTD_MAX_ML + 1];
-    int log = fse_table_log(nseq, distinct, maxlog);
-    fse_normalize(count, top, log, norm);
-    bitout bw;
-    bitout_init(&bw, dst, cap);
-    fse_write_ncount(&bw, norm, top, log);
-    fse_build_ctable(t, norm, top, log);
-    return bw.overflow ? -1 : bw.p - dst;
+    int rc = fse_normalize(norm, log, count, (uint64_t)total, max,
+                           total >= 2048);
+    if (rc < 0)
+        return rc;
+    int64_t h = fse_write_ncount(dst, cap, norm, max, log);
+    if (h < 0)
+        return h;
+    fse_build_ctable(t, norm, max, log);
+    return h;
 }
 
-/* the sequences section into dst; its size, or -1 when it does not fit */
-static int64_t zstd_write_sequences(const zseq *seq, int64_t nseq,
-                                    uint8_t *dst, int64_t cap)
+/* ZSTD_entropyCompressSeqStore_internal: the literals and sequences
+ * sections of a block into cap bytes */
+static int64_t zstd_write_block_body(const uint8_t *lit, int64_t nlit,
+                                     const zseq *seq, int64_t nseq, int strat,
+                                     uint8_t *dst, int64_t cap)
 {
-    uint8_t *op = dst, *oend = dst + cap;
-    if (oend - op < 4)
-        return -1;
+    const int suspect = nseq == 0 || nlit / nseq >= 20;
+    int64_t op = zstd_write_literals(dst, cap, lit, nlit, suspect);
+    if (op < 0)
+        return op;
+    if (cap - op < 4)
+        return ZE_SMALL;
     if (nseq < 128) {
-        *op++ = (uint8_t)nseq;
+        dst[op++] = (uint8_t)nseq;
     } else if (nseq < 0x7F00) {
-        *op++ = (uint8_t)((nseq >> 8) + 128);
-        *op++ = (uint8_t)nseq;
+        dst[op++] = (uint8_t)((nseq >> 8) + 128);
+        dst[op++] = (uint8_t)nseq;
     } else {
-        *op++ = 255;
-        *op++ = (uint8_t)(nseq - 0x7F00);
-        *op++ = (uint8_t)((nseq - 0x7F00) >> 8);
+        dst[op++] = 255;
+        dst[op++] = (uint8_t)(nseq - 0x7F00);
+        dst[op++] = (uint8_t)((nseq - 0x7F00) >> 8);
     }
     if (nseq == 0)
-        return op - dst;
+        return op;
     uint8_t *llc = (uint8_t *)malloc((size_t)nseq * 3);
     fse_ctable *t = (fse_ctable *)malloc(3 * sizeof(fse_ctable));
     if (llc == NULL || t == NULL) {
@@ -1300,28 +1701,37 @@ static int64_t zstd_write_sequences(const zseq *seq, int64_t nseq,
         mlc[i] = (uint8_t)code_of(ML_BASE, ZSTD_MAX_ML, seq[i].ml);
         ofc[i] = (uint8_t)highbit32(seq[i].ofv);
     }
-    uint8_t *modes = op++;
+    const int64_t head = op++;
     int m[3];
-    int64_t r = seq_field_table(llc, nseq, ZSTD_MAX_LL, ZSTD_LL_LOG,
-                                LL_DEFAULT, ZSTD_MAX_LL, LL_DEFAULT_LOG,
-                                &t[0], &m[0], op, oend - op);
-    if (r >= 0) {
-        op += r;
-        r = seq_field_table(ofc, nseq, ZSTD_MAX_OF, ZSTD_OF_LOG, OF_DEFAULT,
-                            28, OF_DEFAULT_LOG, &t[1], &m[1], op, oend - op);
+    int64_t last_count = 0, r = 0, out;
+    const uint8_t *codes[3] = {llc, ofc, mlc};
+    static const int maxc[3] = {ZSTD_MAX_LL, ZSTD_MAX_OF, ZSTD_MAX_ML};
+    static const int logs[3] = {ZSTD_LL_LOG, ZSTD_OF_LOG, ZSTD_ML_LOG};
+    static const int defmax[3] = {ZSTD_MAX_LL, 28, ZSTD_MAX_ML};
+    static const int deflog[3] = {LL_DEFAULT_LOG, OF_DEFAULT_LOG,
+                                  ML_DEFAULT_LOG};
+    const int16_t *defnorm[3] = {LL_DEFAULT, OF_DEFAULT, ML_DEFAULT};
+    for (int f = 0; f < 3 && r >= 0; ++f) {
+        r = seq_field(codes[f], nseq, maxc[f], logs[f], defnorm[f], defmax[f],
+                      deflog[f], strat, &t[f], &m[f], dst + op, cap - op);
+        if (r >= 0) {
+            if (m[f] == 2)
+                last_count = r;
+            op += r;
+        }
     }
-    if (r >= 0) {
-        op += r;
-        r = seq_field_table(mlc, nseq, ZSTD_MAX_ML, ZSTD_ML_LOG, ML_DEFAULT,
-                            ZSTD_MAX_ML, ML_DEFAULT_LOG, &t[2], &m[2], op,
-                            oend - op);
+    if (r < 0) {
+        out = r;
+        goto done;
     }
-    int64_t out = -1;
-    if (r >= 0) {
-        op += r;
-        *modes = (uint8_t)((m[0] << 6) | (m[1] << 4) | (m[2] << 2));
+    dst[head] = (uint8_t)((m[0] << 6) | (m[1] << 4) | (m[2] << 2));
+    if (cap - op <= 8) {
+        out = ZE_SMALL;
+        goto done;
+    }
+    {
         bitout bw;
-        bitout_init(&bw, op, oend - op);
+        bitout_init(&bw, dst + op, cap - op);
         int64_t k = nseq - 1;
         uint32_t sll = m[0] == 1 ? 0 : fse_init_state(&t[0], llc[k]);
         uint32_t sof = m[1] == 1 ? 0 : fse_init_state(&t[1], ofc[k]);
@@ -1339,17 +1749,371 @@ static int64_t zstd_write_sequences(const zseq *seq, int64_t nseq,
             if (m[0] != 1)
                 sll = fse_encode(&bw, &t[0], sll, llc[k]);
         }
-        bitout_add(&bw, sml, t[2].log);
-        bitout_add(&bw, sof, t[1].log);
-        bitout_add(&bw, sll, t[0].log);
+        bitout_add(&bw, sml, m[2] == 1 ? 0 : t[2].log);
+        bitout_add(&bw, sof, m[1] == 1 ? 0 : t[1].log);
+        bitout_add(&bw, sll, m[0] == 1 ? 0 : t[0].log);
         bitout_add(&bw, 1, 1);
+        if (!stream_fits(&bw, cap - op)) {
+            out = ZE_SMALL;
+            goto done;
+        }
         bitout_flush(&bw);
-        if (!bw.overflow)
-            out = bw.p - dst;
+        const int64_t bs = bw.p - (dst + op);
+        /* libzstd's guard for decoders up to 1.3.4 */
+        out = last_count && last_count + bs < 4 ? 0 : op + bs;
     }
+done:
     free(llc);
     free(t);
     return out;
+}
+
+/* ZSTD_entropyCompressSeqStore: the compressed block's body, or 0 for a
+ * block to store raw */
+static int64_t zstd_block_body(const uint8_t *lit, int64_t nlit,
+                               const zseq *seq, int64_t nseq, int strat,
+                               int64_t n, uint8_t *dst, int64_t cap)
+{
+    int64_t c = zstd_write_block_body(lit, nlit, seq, nseq, strat, dst, cap);
+    if (c == ZE_SMALL && n <= cap)
+        return 0;
+    if (c < 0)
+        return c;
+    return c >= n - zstd_min_gain(n) ? 0 : c;
+}
+
+/* ------------------------------------------------------------ matchers */
+
+typedef struct {
+    const uint8_t *src;
+    zseq *seq;
+    int64_t nseq;
+    uint8_t *lit;
+    int64_t nlit;
+} zsink;
+
+static void zsink_store(zsink *k, int64_t anchor, int64_t ll, uint32_t ofv,
+                        int64_t ml)
+{
+    memcpy(k->lit + k->nlit, k->src + anchor, (size_t)ll);
+    k->nlit += ll;
+    k->seq[k->nseq].ll = (uint32_t)ll;
+    k->seq[k->nseq].ml = (uint32_t)ml;
+    k->seq[k->nseq].ofv = ofv;
+    k->nseq++;
+}
+
+/* ZSTD_hashPtr of the mls bytes at p (libzstd's primes, no salt) */
+static uint32_t zl_hash(const uint8_t *p, int hlog, int mls)
+{
+    switch (mls) {
+    case 5:
+        return (uint32_t)(((read64(p) << 24) * 889523592379ULL)
+                          >> (64 - hlog));
+    case 6:
+        return (uint32_t)(((read64(p) << 16) * 227718039650203ULL)
+                          >> (64 - hlog));
+    case 7:
+        return (uint32_t)(((read64(p) << 8) * 58295818150454627ULL)
+                          >> (64 - hlog));
+    case 8:
+        return (uint32_t)((read64(p) * 0xCF1BBCDCB7A56463ULL)
+                          >> (64 - hlog));
+    default:
+        return (read32(p) * 2654435761u) >> (32 - hlog);
+    }
+}
+
+/* the tables hold position + 2 (libzstd's first index), 0 for none */
+#define ZL_IDX(pos) ((uint32_t)(pos) + 2)
+
+/* ZSTD_compressBlock_fast on a fresh frame's one block src[0, n): its
+ * sequences into k; returns where the last literals start */
+static int64_t zl_fast(zsink *k, int64_t n, int hlog, int mls, uint32_t *ht)
+{
+    const uint8_t *src = k->src;
+    const int64_t ilimit = n - 8;
+    /* the first position is skipped and rep[1] (4) lies before the block
+     * at the second: set aside */
+    int64_t anchor = 0, ip0 = 1;
+    uint32_t rep1 = 1, rep2 = 0;
+    for (;;) {
+        int64_t step = 2, next_step = ip0 + 128;
+        int64_t ip1 = ip0 + 1, ip2 = ip0 + step, ip3 = ip2 + 1;
+        int64_t cur0 = ip0, match0 = 0, mlen = 0;
+        uint32_t ofv = 0, midx, hash0, hash1;
+        int found = 0;
+        if (ip3 >= ilimit)
+            break;
+        hash0 = zl_hash(src + ip0, hlog, mls);
+        hash1 = zl_hash(src + ip1, hlog, mls);
+        midx = ht[hash0];
+        do {
+            const uint32_t rval = read32(src + ip2 - rep1);
+            cur0 = ip0;
+            ht[hash0] = ZL_IDX(ip0);
+            if (read32(src + ip2) == rval && rep1 > 0) {
+                ip0 = ip2;
+                match0 = ip0 - rep1;
+                mlen = src[ip0 - 1] == src[match0 - 1];
+                ip0 -= mlen;
+                match0 -= mlen;
+                ofv = 1;
+                mlen += 4;
+                ht[hash1] = ZL_IDX(ip1);
+                found = 1;
+                break;
+            }
+            if (midx >= 2 && read32(src + ip0) == read32(src + midx - 2)) {
+                ht[hash1] = ZL_IDX(ip1);
+                found = 2;
+                break;
+            }
+            midx = ht[hash1];
+            hash0 = hash1;
+            hash1 = zl_hash(src + ip2, hlog, mls);
+            ip0 = ip1;
+            ip1 = ip2;
+            ip2 = ip3;
+            cur0 = ip0;
+            ht[hash0] = ZL_IDX(ip0);
+            if (midx >= 2 && read32(src + ip0) == read32(src + midx - 2)) {
+                if (step <= 4)
+                    ht[hash1] = ZL_IDX(ip1);
+                found = 2;
+                break;
+            }
+            midx = ht[hash1];
+            hash0 = hash1;
+            hash1 = zl_hash(src + ip2, hlog, mls);
+            ip0 = ip1;
+            ip1 = ip2;
+            ip2 = ip0 + step;
+            ip3 = ip1 + step;
+            if (ip2 >= next_step) {
+                step++;
+                next_step += 128;
+            }
+        } while (ip3 < ilimit);
+        if (!found)
+            break;
+        if (found == 2) {
+            match0 = (int64_t)midx - 2;
+            rep2 = rep1;
+            rep1 = (uint32_t)(ip0 - match0);
+            ofv = rep1 + 3;
+            mlen = 4;
+            while (ip0 > anchor && match0 > 0
+                   && src[ip0 - 1] == src[match0 - 1]) {
+                ip0--;
+                match0--;
+                mlen++;
+            }
+        }
+        mlen += common_len(src + ip0 + mlen, src + match0 + mlen, src + n);
+        zsink_store(k, anchor, ip0 - anchor, ofv, mlen);
+        ip0 += mlen;
+        anchor = ip0;
+        if (ip0 <= ilimit) {
+            ht[zl_hash(src + cur0 + 2, hlog, mls)] = ZL_IDX(cur0 + 2);
+            ht[zl_hash(src + ip0 - 2, hlog, mls)] = ZL_IDX(ip0 - 2);
+            if (rep2 > 0) {
+                while (ip0 <= ilimit
+                       && read32(src + ip0) == read32(src + ip0 - rep2)) {
+                    const int64_t rl = common_len(src + ip0 + 4,
+                                                  src + ip0 + 4 - rep2,
+                                                  src + n) + 4;
+                    const uint32_t tmp = rep2;
+                    rep2 = rep1;
+                    rep1 = tmp;
+                    ht[zl_hash(src + ip0, hlog, mls)] = ZL_IDX(ip0);
+                    ip0 += rl;
+                    zsink_store(k, anchor, 0, 1, rl);
+                    anchor = ip0;
+                }
+            }
+        }
+    }
+    return anchor;
+}
+
+/* ZSTD_compressBlock_doubleFast on a fresh frame's one block src[0, n):
+ * a long table (8-byte hash, hlog bits) and a short one (mls bytes, slog
+ * bits); returns where the last literals start */
+static int64_t zl_dfast(zsink *k, int64_t n, int hlog, int slog, int mls,
+                        uint32_t *hl, uint32_t *hs)
+{
+    const uint8_t *src = k->src;
+    const int64_t ilimit = n - 8;
+    int64_t anchor = 0, ip = 1;
+    uint32_t rep1 = 1, rep2 = 0;
+    for (;;) {
+        int64_t step = 1, next_step = ip + 256, ip1 = ip + step;
+        int64_t cur = ip, mlen = 0, matchs0 = 0;
+        uint32_t offset = 0, hl0, hl1 = 0, idxl0, idxl1 = 0, idxs0 = 0;
+        int found = 0;
+        if (ip1 > ilimit)
+            break;
+        hl0 = zl_hash(src + ip, hlog, 8);
+        idxl0 = hl[hl0];
+        do {
+            const uint32_t hs0 = zl_hash(src + ip, slog, mls);
+            idxs0 = hs[hs0];
+            cur = ip;
+            hl[hl0] = hs[hs0] = ZL_IDX(ip);
+            if (rep1 > 0 && read32(src + ip + 1 - rep1) == read32(src + ip + 1)) {
+                mlen = common_len(src + ip + 5, src + ip + 5 - rep1, src + n)
+                       + 4;
+                ip++;
+                zsink_store(k, anchor, ip - anchor, 1, mlen);
+                found = 1;
+                break;
+            }
+            hl1 = zl_hash(src + ip1, hlog, 8);
+            if (idxl0 >= 2 && read64(src + idxl0 - 2) == read64(src + ip)) {
+                int64_t m0 = (int64_t)idxl0 - 2;
+                mlen = common_len(src + ip + 8, src + m0 + 8, src + n) + 8;
+                offset = (uint32_t)(ip - m0);
+                while (ip > anchor && m0 > 0 && src[ip - 1] == src[m0 - 1]) {
+                    ip--;
+                    m0--;
+                    mlen++;
+                }
+                found = 2;
+                break;
+            }
+            idxl1 = hl[hl1];
+            if (idxs0 >= 2 && read32(src + idxs0 - 2) == read32(src + ip)) {
+                found = 3;
+                break;
+            }
+            if (ip1 >= next_step) {
+                step++;
+                next_step += 256;
+            }
+            ip = ip1;
+            ip1 += step;
+            hl0 = hl1;
+            idxl0 = idxl1;
+        } while (ip1 <= ilimit);
+        if (!found)
+            break;
+        if (found == 3) {
+            /* a short match: a longer one at the next position? */
+            matchs0 = (int64_t)idxs0 - 2;
+            mlen = common_len(src + ip + 4, src + matchs0 + 4, src + n) + 4;
+            offset = (uint32_t)(ip - matchs0);
+            if (idxl1 > 2 && read64(src + idxl1 - 2) == read64(src + ip1)) {
+                const int64_t l1 = common_len(src + ip1 + 8,
+                                              src + idxl1 - 2 + 8, src + n)
+                                   + 8;
+                if (l1 > mlen) {
+                    ip = ip1;
+                    mlen = l1;
+                    matchs0 = (int64_t)idxl1 - 2;
+                    offset = (uint32_t)(ip - matchs0);
+                }
+            }
+            while (ip > anchor && matchs0 > 0
+                   && src[ip - 1] == src[matchs0 - 1]) {
+                ip--;
+                matchs0--;
+                mlen++;
+            }
+        }
+        if (found >= 2) {
+            rep2 = rep1;
+            rep1 = offset;
+            if (step < 4)
+                hl[hl1] = ZL_IDX(ip1);
+            zsink_store(k, anchor, ip - anchor, offset + 3, mlen);
+        }
+        ip += mlen;
+        anchor = ip;
+        if (ip <= ilimit) {
+            const int64_t ins = cur + 2;
+            hl[zl_hash(src + ins, hlog, 8)] = ZL_IDX(ins);
+            hl[zl_hash(src + ip - 2, hlog, 8)] = ZL_IDX(ip - 2);
+            hs[zl_hash(src + ins, slog, mls)] = ZL_IDX(ins);
+            hs[zl_hash(src + ip - 1, slog, mls)] = ZL_IDX(ip - 1);
+            while (ip <= ilimit && rep2 > 0
+                   && read32(src + ip) == read32(src + ip - rep2)) {
+                const int64_t rl = common_len(src + ip + 4,
+                                              src + ip + 4 - rep2, src + n)
+                                   + 4;
+                const uint32_t tmp = rep2;
+                rep2 = rep1;
+                rep1 = tmp;
+                hs[zl_hash(src + ip, slog, mls)] = ZL_IDX(ip);
+                hl[zl_hash(src + ip, hlog, 8)] = ZL_IDX(ip);
+                zsink_store(k, anchor, 0, 1, rl);
+                ip += rl;
+                anchor = ip;
+            }
+        }
+    }
+    return anchor;
+}
+
+/* libzstd 1.5.7's parameters at level 1 (fast) or 3 (dfast) for a known
+ * source of n <= 128 KiB bytes: the row of its table for the size, then
+ * ZSTD_adjustCParams_internal (window, hash and chain logs cut to the
+ * source) */
+typedef struct {
+    int hlog, clog, mls, strat;
+} zparams;
+
+static zparams zstd_lib_params(int level, int64_t n)
+{
+    const int small = n <= 16 * 1024;
+    zparams p;
+    int wlog = small ? 14 : 17;
+    if (level == 1) {
+        p.clog = small ? 14 : 12;
+        p.hlog = small ? 15 : 13;
+        p.mls = small ? 5 : 6;
+        p.strat = 1;
+    } else {
+        p.clog = small ? 14 : 15;
+        p.hlog = small ? 15 : 16;
+        p.mls = small ? 4 : 5;
+        p.strat = 2;
+    }
+    const int srclog = n < 64 ? 6 : highbit32((uint32_t)(n - 1)) + 1;
+    if (wlog > srclog)
+        wlog = srclog;
+    if (p.hlog > wlog + 1)
+        p.hlog = wlog + 1;
+    if (p.clog > wlog)
+        p.clog = wlog;
+    return p;
+}
+
+/* ---------------------------------------------- the port's own matcher */
+
+/* search depth of the matcher by clevel */
+static int zstd_depth(int clevel)
+{
+    static const int depth[10] = {1, 1, 2, 4, 8, 16, 32, 64, 128, 256};
+    return depth[clevel < 0 ? 0 : clevel > 9 ? 9 : clevel];
+}
+
+typedef struct {
+    const uint8_t *src;
+    int64_t n, next;     /* positions below next are in the tables */
+    int hlog, depth;
+    int32_t *head, *chain;
+} zmatcher;
+
+static void zm_insert_to(zmatcher *m, int64_t ip)
+{
+    for (; m->next < ip; ++m->next) {
+        uint32_t h = (read32(m->src + m->next) * 2654435761u)
+                     >> (32 - m->hlog);
+        if (m->chain)
+            m->chain[m->next] = m->head[h];
+        m->head[h] = (int32_t)m->next;
+    }
 }
 
 /* the offset value of a match at offset off after ll literals, and the
@@ -1377,185 +2141,184 @@ static uint32_t zstd_offset_value(uint32_t *rep, uint32_t off, uint32_t ll)
     return v;
 }
 
-/* search depth of the matcher by clevel */
-static int zstd_depth(int clevel)
+/* the own matcher's sequences of block [bstart, bend) into k (literal
+ * positions relative to the frame); returns where its last literals
+ * start */
+static int64_t zm_block(zmatcher *m, zsink *k, int64_t bstart, int64_t bend,
+                        uint32_t *rep)
 {
-    static const int depth[10] = {1, 1, 2, 4, 8, 16, 32, 64, 128, 256};
-    return depth[clevel < 0 ? 0 : clevel > 9 ? 9 : clevel];
-}
-
-typedef struct {
-    const uint8_t *src;
-    int64_t n, next;     /* positions below next are in the tables */
-    int hlog, depth;
-    int32_t *head, *chain;
-} zmatcher;
-
-static void zm_insert_to(zmatcher *m, int64_t ip)
-{
-    for (; m->next < ip; ++m->next) {
-        uint32_t h = (read32(m->src + m->next) * 2654435761u)
-                     >> (32 - m->hlog);
-        if (m->chain)
-            m->chain[m->next] = m->head[h];
-        m->head[h] = (int32_t)m->next;
+    const uint8_t *src = m->src;
+    int64_t ip = bstart, anchor = bstart;
+    while (ip + 4 <= bend) {
+        zm_insert_to(m, ip);
+        uint32_t seqv = read32(src + ip);
+        int64_t best = 0, best_off = 0;
+        if (ip > anchor && (int64_t)rep[0] <= ip
+                && read32(src + ip - rep[0]) == seqv) {
+            best = 4 + common_len(src + ip + 4, src + ip - rep[0] + 4,
+                                  src + bend);
+            best_off = rep[0];
+        } else {
+            int64_t cand = m->head[(seqv * 2654435761u) >> (32 - m->hlog)];
+            for (int d = 0; d < m->depth && cand >= 0; ++d) {
+                if (read32(src + cand) == seqv) {
+                    int64_t len = 4 + common_len(src + ip + 4, src + cand + 4,
+                                                 src + bend);
+                    if (len > best) {
+                        best = len;
+                        best_off = ip - cand;
+                    }
+                }
+                if (m->chain == NULL)
+                    break;
+                cand = m->chain[cand];
+            }
+        }
+        if (best >= 4) {
+            int64_t ll = ip - anchor;
+            zsink_store(k, anchor, ll, zstd_offset_value(rep,
+                        (uint32_t)best_off, (uint32_t)ll), best);
+            ip += best;
+            anchor = ip;
+        } else {
+            ip += 1 + ((ip - anchor) >> 8);
+        }
     }
+    return anchor;
 }
 
-/* The zstd frame of src[0, n) into dst; its size, 0 when it would exceed
- * cap bytes, or an error. */
+/* ---------------------------------------------------------------- frame */
+
+static int all_same(const uint8_t *p, int64_t n)
+{
+    for (int64_t i = 1; i < n; ++i)
+        if (p[i] != p[0])
+            return 0;
+    return 1;
+}
+
+/* The zstd frame of src[0, n) into dst; its size, 0 where libzstd would
+ * fail for want of cap bytes (c-blosc then stores the block), or an
+ * error. */
 int64_t zstd_compress(const uint8_t *src, int64_t n, uint8_t *dst,
                       int64_t cap, int clevel)
 {
     if (n < 0 || n > 0x7fffffff)
         return ERR_ARGS;
-    uint8_t hdr[14];
-    int hl = 0;
-    write32(hdr, ZSTD_MAGIC);
-    hl = 4;
-    if (n < 256) {
-        hdr[hl++] = 0x20;
-        hdr[hl++] = (uint8_t)n;
-    } else if (n < 65536 + 256) {
-        hdr[hl++] = 0x60;
-        hdr[hl++] = (uint8_t)(n - 256);
-        hdr[hl++] = (uint8_t)((n - 256) >> 8);
-    } else {
-        hdr[hl++] = 0xA0;
-        write32(hdr + hl, n);
-        hl += 4;
-    }
-    if (hl > cap)
+    /* ZSTD_writeFrameHeader wants room for the largest header */
+    if (cap < 18)
         return 0;
-    memcpy(dst, hdr, (size_t)hl);
-    int64_t pos = hl;
-    zmatcher m = {src, n, 0, 0, zstd_depth(clevel), NULL, NULL};
-    int hlog = n > 1 ? highbit32((uint32_t)(n - 1)) : 10;
-    m.hlog = hlog < 10 ? 10 : hlog > 17 ? 17 : hlog;
-    m.head = (int32_t *)malloc(sizeof(int32_t) << m.hlog);
-    if (m.depth > 1)
-        m.chain = (int32_t *)malloc(sizeof(int32_t) * (size_t)(n + 1));
-    /* scratch for one block: at most one sequence per 4 bytes */
+    const int lib = (clevel == 1 || clevel == 2) && n <= ZSTD_LIB_MAXSRC;
+    int64_t pos = 4;
+    write32(dst, ZSTD_MAGIC);
+    if (n < 256) {
+        dst[pos++] = 0x20;
+        dst[pos++] = (uint8_t)n;
+    } else if (n < 65536 + 256) {
+        dst[pos++] = 0x60;
+        dst[pos++] = (uint8_t)(n - 256);
+        dst[pos++] = (uint8_t)((n - 256) >> 8);
+    } else {
+        dst[pos++] = 0xA0;
+        write32(dst + pos, n);
+        pos += 4;
+    }
+    if (n == 0) {     /* the epilogue: an empty last raw block */
+        dst[pos] = 1;
+        dst[pos + 1] = dst[pos + 2] = 0;
+        return pos + 3;
+    }
     int64_t bmax = n < ZSTD_BLOCK_MAX ? n : ZSTD_BLOCK_MAX;
-    zseq *seq = (zseq *)malloc(sizeof(zseq) * (size_t)(bmax / 4 + 1));
-    uint8_t *lit = (uint8_t *)malloc((size_t)bmax + 1);
-    int64_t bcap = bmax + 1024;
-    uint8_t *blk = (uint8_t *)malloc((size_t)bcap);
+    zparams p = {0, 0, 0, 2};
+    zmatcher m = {src, n, 0, 0, zstd_depth(clevel), NULL, NULL};
+    uint32_t *ht = NULL;
+    zsink k = {src, NULL, 0, NULL, 0};
     int64_t rc = 0;
-    if (m.head == NULL || (m.depth > 1 && m.chain == NULL) || seq == NULL
-            || lit == NULL || blk == NULL) {
+    k.seq = (zseq *)malloc(sizeof(zseq) * (size_t)(bmax / 3 + 1));
+    k.lit = (uint8_t *)malloc((size_t)bmax + 1);
+    if (lib) {
+        p = zstd_lib_params(2 * clevel - 1, n);
+        size_t cells = ((size_t)1 << p.hlog)
+                       + (p.strat == 2 ? (size_t)1 << p.clog : 0);
+        ht = (uint32_t *)calloc(cells, sizeof(uint32_t));
+    } else {
+        int hlog = n > 1 ? highbit32((uint32_t)(n - 1)) : 10;
+        m.hlog = hlog < 10 ? 10 : hlog > 17 ? 17 : hlog;
+        m.head = (int32_t *)malloc(sizeof(int32_t) << m.hlog);
+        if (m.depth > 1)
+            m.chain = (int32_t *)malloc(sizeof(int32_t) * (size_t)(n + 1));
+    }
+    if (k.seq == NULL || k.lit == NULL || (lib && ht == NULL)
+            || (!lib && (m.head == NULL || (m.depth > 1 && m.chain == NULL)))) {
         rc = ERR_NOMEM;
         goto done;
     }
-    for (int i = 0; i < (1 << m.hlog); ++i)
-        m.head[i] = -1;
+    if (!lib)
+        for (int i = 0; i < (1 << m.hlog); ++i)
+            m.head[i] = -1;
     uint32_t rep[3] = {1, 4, 8};
     int64_t bstart = 0;
     do {
-        int64_t bend = n - bstart < ZSTD_BLOCK_MAX ? n : bstart
-                       + ZSTD_BLOCK_MAX;
-        int64_t bn = bend - bstart;
-        int last = bend == n;
+        const int64_t bend = n - bstart <= ZSTD_BLOCK_MAX ? n
+                             : bstart + ZSTD_BLOCK_MAX;
+        const int64_t bn = bend - bstart;
+        const int last = bend == n;
+        const int64_t room = cap - pos;
         uint32_t saved[3] = {rep[0], rep[1], rep[2]};
-        /* sequences of the block */
-        int64_t nseq = 0, nlit = 0, ip = bstart, anchor = bstart;
-        while (ip + 4 <= bend) {
-            zm_insert_to(&m, ip);
-            uint32_t seqv = read32(src + ip);
-            int64_t best = 0, best_off = 0;
-            if (ip > anchor && (int64_t)rep[0] <= ip
-                    && read32(src + ip - rep[0]) == seqv) {
-                best = 4 + common_len(src + ip + 4, src + ip - rep[0] + 4,
-                                      src + bend);
-                best_off = rep[0];
-            } else {
-                int64_t cand = m.head[(seqv * 2654435761u) >> (32 - m.hlog)];
-                for (int k = 0; k < m.depth && cand >= 0; ++k) {
-                    if (read32(src + cand) == seqv) {
-                        int64_t len = 4 + common_len(src + ip + 4,
-                                                     src + cand + 4,
-                                                     src + bend);
-                        if (len > best) {
-                            best = len;
-                            best_off = ip - cand;
-                        }
-                    }
-                    if (m.chain == NULL)
-                        break;
-                    cand = m.chain[cand];
-                }
-            }
-            if (best >= 4) {
-                int64_t ll = ip - anchor;
-                memcpy(lit + nlit, src + anchor, (size_t)ll);
-                nlit += ll;
-                seq[nseq].ll = (uint32_t)ll;
-                seq[nseq].ml = (uint32_t)best;
-                seq[nseq].ofv = zstd_offset_value(rep, (uint32_t)best_off,
-                                                  (uint32_t)ll);
-                nseq++;
-                ip += best;
-                anchor = ip;
-            } else {
-                ip += 1 + ((ip - anchor) >> 8);
+        int64_t c = 0;
+        /* ZSTD_buildSeqStore: no attempt under 7 bytes */
+        if (bn >= 7) {
+            int64_t tail;
+            k.nseq = k.nlit = 0;
+            if (!lib)
+                tail = zm_block(&m, &k, bstart, bend, rep);
+            else if (p.strat == 1)
+                tail = zl_fast(&k, n, p.hlog, p.mls, ht);
+            else
+                tail = zl_dfast(&k, n, p.hlog, p.clog, p.mls, ht,
+                                ht + ((size_t)1 << p.hlog));
+            memcpy(k.lit + k.nlit, src + tail, (size_t)(bend - tail));
+            k.nlit += bend - tail;
+            c = zstd_block_body(k.lit, k.nlit, k.seq, k.nseq, p.strat, bn,
+                                dst + pos + 3, room - 3);
+            if (c < 0) {
+                rc = c == ERR_NOMEM ? c : 0;
+                goto done;
             }
         }
-        memcpy(lit + nlit, src + anchor, (size_t)(bend - anchor));
-        nlit += bend - anchor;
-        /* the block: RLE, compressed, or raw */
-        int64_t body = -1, btype = 0;
-        int same = bn > 0;
-        for (int64_t i = 1; i < bn && same; ++i)
-            same = src[bstart + i] == src[bstart];
-        if (same && bn > 1) {
-            blk[0] = src[bstart];
-            body = 1;
-            btype = 1;
-        } else if (bn > 0) {
-            int64_t a = zstd_write_literals(lit, nlit, blk, bcap);
-            if (a < 0) {
-                rc = a;
+        int btype = 2;
+        int64_t size = c;
+        if (bstart > 0 && c < 25 && room >= 4 && all_same(src + bstart, bn)) {
+            btype = 1;    /* never the first block, as in libzstd */
+            size = bn;
+            dst[pos + 3] = src[bstart];
+            c = 1;
+        } else if (c == 0) {
+            if (bn + 3 > room) {
+                rc = 0;
                 goto done;
             }
-            int64_t b = zstd_write_sequences(seq, nseq, blk + a, bcap - a);
-            if (b == ERR_NOMEM) {
-                rc = b;
-                goto done;
-            }
-            if (b >= 0 && a + b < bn) {
-                body = a + b;
-                btype = 2;
-            }
+            btype = 0;
+            size = bn;
+            memcpy(dst + pos + 3, src + bstart, (size_t)bn);
+            c = bn;
         }
         if (btype != 2)
             memcpy(rep, saved, sizeof(rep));
-        if (body < 0)
-            body = bn;
-        int64_t need = 3 + (btype == 0 ? bn : body);
-        if (pos + need > cap) {
-            rc = 0;
-            goto done;
-        }
-        uint32_t bh = (uint32_t)last | (uint32_t)(btype << 1)
-                      | (uint32_t)((btype == 1 ? bn : btype == 0 ? bn : body)
-                                   << 3);
+        const uint32_t bh = (uint32_t)last | (uint32_t)(btype << 1)
+                            | (uint32_t)(size << 3);
         dst[pos] = (uint8_t)bh;
         dst[pos + 1] = (uint8_t)(bh >> 8);
         dst[pos + 2] = (uint8_t)(bh >> 16);
-        pos += 3;
-        if (btype == 0)
-            memcpy(dst + pos, src + bstart, (size_t)bn);
-        else
-            memcpy(dst + pos, blk, (size_t)body);
-        pos += btype == 0 ? bn : body;
+        pos += 3 + c;
         bstart = bend;
     } while (bstart < n);
     rc = pos;
 done:
+    free(ht);
     free(m.head);
     free(m.chain);
-    free(seq);
-    free(lit);
-    free(blk);
+    free(k.seq);
+    free(k.lit);
     return rc;
 }

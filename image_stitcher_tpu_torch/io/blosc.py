@@ -669,7 +669,8 @@ def _assemble(src: bytes, blocks: bytes, typesize: int, clevel: int,
                 ok = False
                 break
             stream = block[s * neblock:(s + 1) * neblock]
-            c = (encode(stream, clevel, maxout) if cname in ('lz4', 'lz4hc')
+            c = (encode(stream, clevel, maxout)
+                 if cname in ('lz4', 'lz4hc', 'zstd')
                  else encode(stream, clevel))
             if not c or len(c) > maxout or len(c) == neblock:
                 if pos + neblock > maxbytes:

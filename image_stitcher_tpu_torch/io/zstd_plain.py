@@ -9,43 +9,28 @@ weights FSE-coded or direct, sequences in predefined, RLE, FSE and
 repeat modes, and repeat offsets carried across the blocks of a frame;
 a content checksum is skipped, a dictionary refused.
 
-:func:`compress` writes byte for byte the C encoder's frames. Its rules
-(the format leaves them free):
-- one single-segment frame: the magic, a descriptor with the content
-  size in 1 (size < 256), 2 (size - 256, size < 65792) or 4 bytes, no
-  checksum; blocks of 128 KiB, the last one shorter;
-- a greedy matcher over the whole frame: the 4 bytes at p hash to
-  ``(seq * 2654435761 mod 2**32) >> (32 - hlog)``, hlog =
-  clamp(floor(log2(n - 1)), 10, 17); a table holds the last position with
-  each hash and, for a search depth over 1, a chain the previous
-  position with the same hash; before the search at p every position
-  below p is entered; depth = 1, 1, 2, 4, ... 256 for clevel 0..9;
-- at p (while p + 4 <= the block's end), after at least one literal, a
-  match at the first repeat offset of 4 bytes or more is taken as it is;
-  otherwise up to ``depth`` chain candidates are tried and the longest
-  match kept (the newest among equals); matches end at the block's end;
-- a match of 4 bytes or more becomes a sequence; after a miss p advances
-  by 1 + (p - anchor) // 256;
-- the offset value is a repeat code when the offset equals a repeat
-  offset (RFC 8878 3.1.2.5), else offset + 3;
-- a block whose bytes are all equal (2 or more) is an RLE block; else
-  compressed when that is smaller than the block, raw otherwise, the
-  repeat offsets of a block not stored compressed rolled back;
-- literals: raw when there are under 64, RLE when all are the same byte,
-  else Huffman (lengths as ``huf_lengths`` builds them, 1 stream under
-  256 literals, else 4) when that is smaller than raw; the tree
-  description FSE-coded (table log 6) when its weights take two values
-  or more and that is shorter than the direct form, else direct (at most
-  128 weights), else the literals are raw;
-- each sequence field (literal length, offset, match length codes): RLE
-  for one symbol, the predefined distribution under 64 sequences, else an
-  FSE table of its own (``fse_normalize`` to the log ``fse_table_log``
-  gives); every FSE state starts at its symbol's first state.
+:func:`compress` writes byte for byte the C encoder's frames, within an
+output capacity as c-blosc gives it:
+- at clevel 1 and 2 and inputs of at most 128 KiB (every blosc block at
+  those clevels), libzstd 1.5.7's ``ZSTD_compressCCtx`` frame at level
+  ``2 * clevel - 1`` (c-blosc's map; 1 is the fast matcher, 3 dfast):
+  its parameters for the source size (``lib_params``), its matchers
+  (:func:`_fast`, :func:`_dfast`), its entropy stage (Huffman literals
+  with ``HUF_buildCTable``'s sort, tree and height limit, raw or RLE
+  literals; ``ZSTD_selectEncodingType`` below strategy lazy and
+  ``FSE_normalizeCount`` for the sequences), its block choice
+  (``ZSTD_minGain``; a raw block otherwise) and its room checks, each
+  failure giving ``b''``, where c-blosc stores the block;
+- at every other clevel, and for longer inputs, the port's own matcher
+  (:func:`_own_block`: a greedy hash chain over the whole frame, search
+  depth 1, 1, 2, 4, ... 256 for clevel 0..9, repeat offsets, blocks of
+  128 KiB) with the same entropy stage and block choice, and an RLE
+  block for a later block of one byte value.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 
@@ -580,55 +565,179 @@ def decompress(data: bytes, nbytes: Optional[int] = None) -> bytes:
 
 
 # ----------------------------------------------------------------- encoder
+#
+# A literal port of the C encoder: functions write into a bytearray ``dst``
+# at offset ``o`` within ``cap`` bytes and return a size or an error code.
 
-def fse_normalize(count, log: int) -> List[int]:
-    """Normalized counts of ``count`` (two or more symbols present) to
-    2^log, as the C encoder's ``fse_normalize``."""
-    total = sum(count)
-    norm = [0] * len(count)
-    big = 0
-    s_sum = 0
-    for s, c in enumerate(count):
-        if not c:
+_SMALL, _GENERIC = -100, -101        # libzstd's dstSize_tooSmall, any other
+LIB_MAXSRC = BLOCK_MAX
+_DEF_NORM = (LL_DEFAULT, OF_DEFAULT, ML_DEFAULT)
+_DEF_LOG = (LL_DEFAULT_LOG, OF_DEFAULT_LOG, ML_DEFAULT_LOG)
+_DEF_MAX = (MAX_LL, 28, MAX_ML)
+_FIELD_MAX = (MAX_LL, MAX_OF, MAX_ML)
+_FIELD_LOG = (LL_LOG, OF_LOG, ML_LOG)
+_RTB = (0, 473195, 504333, 520860, 550000, 700000, 750000, 830000)
+_M64 = (1 << 64) - 1
+
+
+def _hb(v: int) -> int:
+    return v.bit_length() - 1
+
+
+def _stream_fits(bits: int, cap: int) -> bool:
+    """A stream of ``bits`` bits fits ``cap`` bytes as libzstd's bit
+    writers see it (8 bytes of slack)."""
+    return cap > 8 and (bits >> 3) < cap - 8
+
+
+def fse_optimal_log(maxlog: int, n: int, maxsym: int, minus: int) -> int:
+    """FSE_optimalTableLog_internal, in libzstd's unsigned arithmetic."""
+    maxbits_src = (_hb(n - 1) - minus) & 0xFFFFFFFF
+    minbits = min(_hb(n) + 1, _hb(maxsym | 1) + 2)
+    log = maxlog
+    if maxbits_src < log:
+        log = maxbits_src
+    if minbits > log:
+        log = minbits
+    return min(max(log, 5), 12)
+
+
+def _normalize_m2(norm, log, count, total, maxsym, low_prob):
+    unset = -2
+    distributed = 0
+    low_threshold = total >> log
+    low_one = (total * 3) >> (log + 1)
+    for s in range(maxsym + 1):
+        c = count[s]
+        if c == 0:
+            norm[s] = 0
+        elif c <= low_threshold:
+            norm[s] = low_prob
+            distributed += 1
+            total -= c
+        elif c <= low_one:
+            norm[s] = 1
+            distributed += 1
+            total -= c
+        else:
+            norm[s] = unset
+    todo = (1 << log) - distributed
+    if todo == 0:
+        return 0
+    if total // todo > low_one:
+        low_one = (total * 3) // (todo * 2)
+        for s in range(maxsym + 1):
+            if norm[s] == unset and count[s] <= low_one:
+                norm[s] = 1
+                distributed += 1
+                total -= count[s]
+        todo = (1 << log) - distributed
+    if distributed == maxsym + 1:
+        maxv = maxc = 0
+        for s in range(maxsym + 1):
+            if count[s] > maxc:
+                maxv, maxc = s, count[s]
+        norm[maxv] += todo
+        return 0
+    if total == 0:
+        s = 0
+        while todo > 0:
+            if norm[s] > 0:
+                todo -= 1
+                norm[s] += 1
+            s = (s + 1) % (maxsym + 1)
+        return 0
+    vlog = 62 - log
+    mid = (1 << (vlog - 1)) - 1
+    rstep = (((1 << vlog) * todo) + mid) // total
+    tmp = mid
+    for s in range(maxsym + 1):
+        if norm[s] != unset:
             continue
-        v = ((c << log) + total // 2) // total
-        norm[s] = max(v, 1)
-        s_sum += norm[s]
-        if c > count[big]:
-            big = s
-    size = 1 << log
-    if s_sum < size:
-        norm[big] += size - s_sum
-    while s_sum > size:
-        top = -1
-        for s, c in enumerate(norm):
-            if c > 1 and (top < 0 or c > norm[top]):
-                top = s
-        norm[top] -= 1
-        s_sum -= 1
+        end = tmp + count[s] * rstep
+        weight = (end >> vlog) - (tmp >> vlog)
+        if weight < 1:
+            return _GENERIC
+        norm[s] = weight
+        tmp = end
+    return 0
+
+
+def fse_normalize(count, log: int, total: int, maxsym: int,
+                  low_prob: bool):
+    """FSE_normalizeCount of ``count[:maxsym + 1]`` (two or more symbols
+    present) to 2^log: the counts, or ``_GENERIC``."""
+    lowc = -1 if low_prob else 1
+    scale = 62 - log
+    step = (1 << 62) // total
+    vstep = 1 << (scale - 20)
+    still = 1 << log
+    largest = largest_p = 0
+    low_threshold = total >> log
+    norm = [0] * (maxsym + 1)
+    for s in range(maxsym + 1):
+        c = count[s]
+        if c == 0:
+            continue
+        if c <= low_threshold:
+            norm[s] = lowc
+            still -= 1
+        else:
+            p = (c * step) >> scale
+            if p < 8:
+                p += (c * step) - (p << scale) > vstep * _RTB[p]
+            if p > largest_p:
+                largest_p, largest = p, s
+            norm[s] = p
+            still -= p
+    if -still >= (norm[largest] >> 1):
+        rc = _normalize_m2(norm, log, count, total, maxsym, lowc)
+        return rc if rc < 0 else norm
+    norm[largest] += still
     return norm
 
 
-def fse_table_log(nsymbols: int, distinct: int, maxlog: int) -> int:
-    log = (nsymbols - 1).bit_length() - 1 - 1
-    log = max(log, distinct.bit_length() - 1 + 2, 5)
-    return min(log, maxlog)
+def write_ncount(dst: bytearray, o: int, cap: int, norm, maxsym: int,
+                 log: int) -> int:
+    """FSE_writeNCount into ``cap`` bytes at ``dst[o:]``: its size, or
+    ``_SMALL`` where libzstd's bounded writer runs out of room."""
+    safe = cap >= ((maxsym + 1) * log + 6) // 8 + 3
+    out = 0
+    nbits, remaining, threshold = log + 1, (1 << log) + 1, 1 << log
+    bits, nb, s, prev0 = log - 5, 4, 0, False
 
+    def flush():
+        nonlocal bits, out
+        if not safe and out > cap - 2:
+            return False
+        dst[o + out] = bits & 255
+        dst[o + out + 1] = (bits >> 8) & 255
+        out += 2
+        bits >>= 16
+        return True
 
-def _write_ncount(w: _BitOut, norm, log: int) -> None:
-    maxsym = len(norm) - 1
-    w.add(log - 5, 4)
-    remaining, threshold, nbits = (1 << log) + 1, 1 << log, log + 1
-    s, prev0 = 0, False
     while s <= maxsym and remaining > 1:
         if prev0:
             start = s
             while s <= maxsym and not norm[s]:
                 s += 1
+            if s > maxsym:
+                break
+            while s >= start + 24:
+                start += 24
+                bits += 0xFFFF << nb
+                if not flush():
+                    return _SMALL
             while s >= start + 3:
-                w.add(3, 2)
                 start += 3
-            w.add(s - start, 2)
+                bits += 3 << nb
+                nb += 2
+            bits += (s - start) << nb
+            nb += 2
+            if nb > 16:
+                if not flush():
+                    return _SMALL
+                nb -= 16
         count = norm[s]
         s += 1
         mx = (2 * threshold - 1) - remaining
@@ -636,11 +745,25 @@ def _write_ncount(w: _BitOut, norm, log: int) -> None:
         count += 1
         if count >= threshold:
             count += mx
-        w.add(count, nbits - (count < mx))
+        bits += count << nb
+        nb += nbits - (count < mx)
         prev0 = count == 1
+        if remaining < 1:
+            return _GENERIC
         while remaining < threshold:
             nbits -= 1
             threshold >>= 1
+        if nb > 16:
+            if not flush():
+                return _SMALL
+            nb -= 16
+    if remaining != 1:
+        return _GENERIC
+    if not safe and out > cap - 2:
+        return _SMALL
+    dst[o + out] = bits & 255
+    dst[o + out + 1] = (bits >> 8) & 255
+    return out + (nb + 7) // 8
 
 
 class _CTable:
@@ -684,103 +807,330 @@ class _CTable:
         return self.state[(state >> nb) + self.delta_find[s]]
 
 
-def huf_lengths(count) -> Tuple[List[int], int]:
-    """(code length per symbol, the longest) as the C ``huf_lengths``
-    builds them."""
-    count = list(count)
-    while True:
-        order = sorted((s for s in range(256) if count[s]),
-                       key=lambda s: (count[s], s))
-        n = len(order)
-        weight = [count[s] for s in order] + [0] * (n - 1)
-        parent = [0] * (2 * n - 1)
-        leaf, node, made = 0, n, n
-        while made < 2 * n - 1:
-            pick = []
-            for _ in range(2):
-                if leaf < n and (node >= made or weight[leaf] <= weight[node]):
-                    pick.append(leaf)
-                    leaf += 1
-                else:
-                    pick.append(node)
-                    node += 1
-            weight[made] = weight[pick[0]] + weight[pick[1]]
-            parent[pick[0]] = parent[pick[1]] = made
-            made += 1
-        depth = [0] * (2 * n - 1)
-        for i in range(2 * n - 3, -1, -1):
-            depth[i] = depth[parent[i]] + 1
-        lengths = [0] * 256
-        for i, s in enumerate(order):
-            lengths[s] = depth[i]
-        maxlen = max(depth[:n])
-        if maxlen <= HUF_MAX_BITS:
-            return lengths, maxlen
-        count = [(c + 1) // 2 if c else 0 for c in count]
+class _Bits(_BitOut):
+    """A forward bit stream that counts its bits."""
+
+    def __init__(self):
+        super().__init__()
+        self.bits = 0
+
+    def add(self, v: int, nb: int) -> None:
+        self.bits += nb
+        super().add(v, nb)
 
 
-def _huf_codes(lengths, maxlen: int) -> List[int]:
-    cnt = [0] * (HUF_MAX_BITS + 2)
-    for x in lengths:
-        if x:
-            cnt[maxlen + 1 - x] += 1
-    start = [0] * (HUF_MAX_BITS + 2)
-    nxt = 0
-    for w in range(1, maxlen + 1):
-        start[w] = nxt
-        nxt += cnt[w] << (w - 1)
+# ------------------------------------------------------------- Huffman
+
+def _rank_index(c: int) -> int:
+    return c if c < 166 else _hb(c) + 158
+
+
+def _insertion_sort(a, low: int, high: int) -> None:
+    for i in range(low + 1, high + 1):
+        key = a[i]
+        j = i - 1
+        while j >= low and a[j][0] < key[0]:
+            a[j + 1] = a[j]
+            j -= 1
+        a[j + 1] = key
+
+
+def _quick_sort(a, low: int, high: int) -> None:
+    """HUF_simpleQuickSort on (count, symbol) pairs: libzstd's order among
+    equal counts."""
+    if high - low < 8:
+        _insertion_sort(a, low, high)
+        return
+    while low < high:
+        pivot = a[high][0]
+        i = low - 1
+        for j in range(low, high):
+            if a[j][0] > pivot:
+                i += 1
+                a[i], a[j] = a[j], a[i]
+        a[i + 1], a[high] = a[high], a[i + 1]
+        idx = i + 1
+        if idx - low < high - idx:
+            _quick_sort(a, low, idx - 1)
+            low = idx + 1
+        else:
+            _quick_sort(a, idx + 1, high)
+            high = idx - 1
+
+
+def _huf_sort(count, maxsym: int):
+    """HUF_sort: (count, symbol) of 0..maxsym by descending count."""
+    base = [0] * 192
+    for n in range(maxsym + 1):
+        base[_rank_index(count[n])] += 1
+    curr = [0] * 192
+    for n in range(191, 0, -1):
+        base[n - 1] += base[n]
+        curr[n - 1] = base[n - 1]
+    node = [None] * (maxsym + 1)
+    for n in range(maxsym + 1):
+        r = _rank_index(count[n]) + 1
+        node[curr[r]] = (count[n], n)
+        curr[r] += 1
+    for n in range(166, 191):
+        if curr[n] - base[n] > 1:
+            sub = node[base[n]:curr[n]]
+            _quick_sort(sub, 0, len(sub) - 1)
+            node[base[n]:curr[n]] = sub
+    return node
+
+
+def _set_max_height(cnt, nbits, last: int, target: int) -> int:
+    """HUF_setMaxHeight on the sorted leaves' counts and lengths."""
+    largest = nbits[last]
+    if largest <= target:
+        return largest
+    cost = 0
+    base_cost = 1 << (largest - target)
+    n = last
+    while nbits[n] > target:
+        cost += base_cost - (1 << (largest - nbits[n]))
+        nbits[n] = target
+        n -= 1
+    while nbits[n] == target:
+        n -= 1
+    cost >>= largest - target
+    none = -1
+    rank_last = [none] * 14
+    cur = target
+    for pos in range(n, -1, -1):
+        if nbits[pos] >= cur:
+            continue
+        cur = nbits[pos]
+        rank_last[target - cur] = pos
+    while cost > 0:
+        dec = _hb(cost) + 1
+        while dec > 1:
+            high, low = rank_last[dec], rank_last[dec - 1]
+            if high == none:
+                dec -= 1
+                continue
+            if low == none or cnt[high] <= 2 * cnt[low]:
+                break
+            dec -= 1
+        while dec <= 12 and rank_last[dec] == none:
+            dec += 1
+        cost -= 1 << (dec - 1)
+        nbits[rank_last[dec]] += 1
+        if rank_last[dec - 1] == none:
+            rank_last[dec - 1] = rank_last[dec]
+        if rank_last[dec] == 0:
+            rank_last[dec] = none
+        else:
+            rank_last[dec] -= 1
+            if nbits[rank_last[dec]] != target - dec:
+                rank_last[dec] = none
+    while cost < 0:
+        if rank_last[1] == none:
+            while nbits[n] == target:
+                n -= 1
+            nbits[n + 1] -= 1
+            rank_last[1] = n + 1
+            cost += 1
+            continue
+        nbits[rank_last[1] + 1] -= 1
+        rank_last[1] += 1
+        cost += 1
+    return target
+
+
+def huf_build(count, maxsym: int, maxbits: int):
+    """HUF_buildCTable_wksp: (lengths, codes, longest) of ``count``
+    (two or more symbols present), none longer than ``maxbits``."""
+    leaves = _huf_sort(count, maxsym)
+    nonnull = maxsym
+    while leaves[nonnull][0] == 0:
+        nonnull -= 1
+    # HUF_buildTree over cells -1 (a barrier), 0..255 (leaves), 256.. (nodes)
+    cnt = {-1: 1 << 31}
+    for i, (c, _) in enumerate(leaves):
+        cnt[i] = c
+    parent = {}
+    low_s, nb, low_n = nonnull, 256, 256
+    root = nb + low_s - 1
+    cnt[nb] = cnt[low_s] + cnt[low_s - 1]
+    parent[low_s] = parent[low_s - 1] = nb
+    nb += 1
+    low_s -= 2
+    for k in range(nb, root + 1):
+        cnt[k] = 1 << 30
+    while nb <= root:
+        pick = []
+        for _ in range(2):
+            if cnt[low_s] < cnt[low_n]:
+                pick.append(low_s)
+                low_s -= 1
+            else:
+                pick.append(low_n)
+                low_n += 1
+        cnt[nb] = cnt[pick[0]] + cnt[pick[1]]
+        parent[pick[0]] = parent[pick[1]] = nb
+        nb += 1
+    depth = {root: 0}
+    for k in range(root - 1, 255, -1):
+        depth[k] = depth[parent[k]] + 1
+    nbits = [depth[parent[k]] + 1 if k <= nonnull else 0
+             for k in range(maxsym + 1)]
+    longest = _set_max_height([c for c, _ in leaves], nbits, nonnull,
+                              maxbits)
+    per_rank = [0] * 16
+    for k in range(nonnull + 1):
+        per_rank[nbits[k]] += 1
+    val = [0] * 16
+    lo = 0
+    for k in range(longest, 0, -1):
+        val[k] = lo
+        lo = (lo + per_rank[k]) >> 1
+    lengths = [0] * 256
+    for k, (_, sym) in enumerate(leaves):
+        lengths[sym] = nbits[k]
     code = [0] * 256
-    for s, x in enumerate(lengths):
-        if x:
-            w = maxlen + 1 - x
-            code[s] = start[w] >> (w - 1)
-            start[w] += 1 << (w - 1)
-    return code
+    for sym in range(maxsym + 1):
+        if lengths[sym]:
+            code[sym] = val[lengths[sym]]
+            val[lengths[sym]] += 1
+    return lengths, code, longest
 
 
-def _huf_table(lengths, maxlen: int, last: int) -> bytes:
-    """The tree description, or b'' when neither form describes it."""
-    w = [maxlen + 1 - x if x else 0 for x in lengths[:last]]
-    nw = len(w)
-    direct = 1 + (nw + 1) // 2 if nw <= 128 else 0
-    hist = [0] * 16
+def _compress_weights(dst, o, cap, w) -> int:
+    """HUF_compressWeights: 0 for no FSE form, 1 for a single weight."""
+    n = len(w)
+    if n <= 1:
+        return 0
+    count = [0] * 12
     for x in w:
-        hist[x] += 1
-    present = [k for k in range(16) if hist[k]]
-    fse = b''
-    if len(present) >= 2:
-        norm = fse_normalize(hist[:present[-1] + 1], HUF_WEIGHT_LOG)
-        bw = _BitOut()
-        _write_ncount(bw, norm, HUF_WEIGHT_LOG)
-        bw.flush()
-        t = _CTable(norm, HUF_WEIGHT_LOG)
-        st = [0, 0]
-        st[(nw - 1) & 1] = t.init(w[nw - 1])
-        st[(nw - 2) & 1] = t.init(w[nw - 2])
-        for i in range(nw - 3, -1, -1):
-            st[i & 1] = t.encode(bw, st[i & 1], w[i])
-        bw.add(st[1], HUF_WEIGHT_LOG)
-        bw.add(st[0], HUF_WEIGHT_LOG)
-        bw.add(1, 1)
-        fse = bw.flush()
-        if len(fse) >= 128 or len(fse) > 159:
-            fse = b''
-    if fse and (not direct or len(fse) + 1 < direct):
-        return bytes([len(fse)]) + fse
-    if not direct:
-        return b''
-    packed = bytearray(direct - 1)
-    for i, x in enumerate(w):
-        packed[i // 2] |= x if i & 1 else x << 4
-    return bytes([127 + nw]) + bytes(packed)
-
-
-def _huf_stream_write(lit: bytes, lengths, code) -> bytes:
-    bw = _BitOut()
-    for s in reversed(lit):
-        bw.add(code[s], lengths[s])
+        count[x] += 1
+    maxw = max(k for k in range(12) if count[k])
+    most = max(count)
+    if most == n:
+        return 1
+    if most == 1:
+        return 0
+    log = fse_optimal_log(HUF_WEIGHT_LOG, n, maxw, 2)
+    norm = fse_normalize(count, log, n, maxw, False)
+    if isinstance(norm, int):
+        return norm
+    h = write_ncount(dst, o, cap, norm, maxw, log)
+    if h < 0:
+        return h
+    # FSE_compress_usingCTable: two interleaved states
+    if n <= 2 or cap - h <= 8:
+        return 0
+    t = _CTable(norm, log)
+    bw = _Bits()
+    st = [0, 0]
+    st[(n - 1) & 1] = t.init(w[n - 1])
+    st[(n - 2) & 1] = t.init(w[n - 2])
+    for i in range(n - 3, -1, -1):
+        st[i & 1] = t.encode(bw, st[i & 1], w[i])
+    bw.add(st[1], log)
+    bw.add(st[0], log)
     bw.add(1, 1)
-    return bw.flush()
+    if not _stream_fits(bw.bits, cap - h):
+        return 0
+    body = bw.flush()
+    dst[o + h:o + h + len(body)] = body
+    return h + len(body)
+
+
+def _write_table(dst, o, cap, lengths, maxsym: int, longest: int) -> int:
+    """HUF_writeCTable_wksp: the tree description."""
+    w = [longest + 1 - x if x else 0 for x in lengths[:maxsym]]
+    if cap < 1:
+        return _SMALL
+    h = _compress_weights(dst, o + 1, cap - 1, w)
+    if h < 0:
+        return h
+    if h > 1 and h < maxsym // 2:
+        dst[o] = h
+        return h + 1
+    if maxsym > 128:
+        return _GENERIC
+    if (maxsym + 1) // 2 + 1 > cap:
+        return _SMALL
+    dst[o] = 128 + maxsym - 1
+    w.append(0)
+    for s in range(0, maxsym, 2):
+        dst[o + s // 2 + 1] = (w[s] << 4) + w[s + 1]
+    return (maxsym + 1) // 2 + 1
+
+
+def _huf_stream_write(dst, o, cap, lit, lengths, code) -> int:
+    """One Huffman stream, or 0 where it does not fit ``cap``."""
+    if cap <= 8:
+        return 0
+    total = 1 + sum(lengths[s] for s in lit)
+    if (total >> 3) >= cap - 8:
+        return 0
+    acc = 0
+    pos = 0
+    for s in reversed(lit):
+        acc |= code[s] << pos
+        pos += lengths[s]
+    acc |= 1 << pos
+    body = acc.to_bytes((pos + 8) // 8, 'little')
+    dst[o:o + len(body)] = body
+    return len(body)
+
+
+def _huf_compress(dst, o, cap, lit: bytes, single: bool,
+                  suspect: bool) -> int:
+    """HUF_compress1X/4X_repeat with no earlier table: 0 for not
+    compressible, 1 for a single symbol (written at ``dst[o]``)."""
+    n = len(lit)
+    if n == 0 or cap == 0:
+        return 0
+    a = np.frombuffer(lit, np.uint8)
+    if suspect and n >= 4096 * 10:
+        largest_total = (int(np.bincount(a[:4096]).max())
+                         + int(np.bincount(a[n - 4096:]).max()))
+        if largest_total <= (2 * 4096 >> 7) + 4:
+            return 0
+    count = np.bincount(a, minlength=256).tolist()
+    maxsym = max(s for s in range(256) if count[s])
+    largest = max(count)
+    if largest == n:
+        dst[o] = lit[0]
+        return 1
+    if largest <= (n >> 7) + 4:
+        return 0
+    log = fse_optimal_log(HUF_MAX_BITS, n, maxsym, 1)
+    lengths, code, longest = huf_build(count, maxsym, log)
+    h = _write_table(dst, o, cap, lengths, maxsym, longest)
+    if h < 0:
+        return h
+    if h + 12 >= n:
+        return 0
+    op = h
+    if single:
+        c = _huf_stream_write(dst, o + op, cap - op, lit, lengths, code)
+        if c == 0:
+            return 0
+        op += c
+    else:
+        seg = (n + 3) // 4
+        if cap - op < 17 or n < 12:
+            return 0
+        jump = op
+        op += 6
+        for k in range(4):
+            c = _huf_stream_write(dst, o + op, cap - op,
+                            lit[k * seg:(k + 1) * seg if k < 3 else n],
+                            lengths, code)
+            if c == 0 or c > 65535:
+                return 0
+            if k < 3:
+                dst[o + jump + 2 * k:o + jump + 2 * k + 2] = \
+                    c.to_bytes(2, 'little')
+            op += c
+    if op >= n - 1:
+        return 0
+    return op
 
 
 def _literal_header(kind: int, n: int) -> bytes:
@@ -792,48 +1142,45 @@ def _literal_header(kind: int, n: int) -> bytes:
                   n >> 12])
 
 
-def _write_literals(lit: bytes) -> bytes:
-    n = len(lit)
-    raw = _literal_header(0, n) + lit
-    count = np.bincount(np.frombuffer(lit, np.uint8),
-                        minlength=256).tolist() if n else [0] * 256
-    present = [s for s in range(256) if count[s]]
-    if n and len(present) == 1:
-        return _literal_header(1, n) + lit[:1]
-    if n >= 64:
-        lengths, maxlen = huf_lengths(count)
-        code = _huf_codes(lengths, maxlen)
-        table = _huf_table(lengths, maxlen, present[-1])
-        if table:
-            four = n >= 256
-            body = bytearray(table)
-            if four:
-                seg = (n + 3) // 4
-                streams = [_huf_stream_write(lit[k * seg:(k + 1) * seg
-                                                 if k < 3 else n],
-                                             lengths, code)
-                           for k in range(4)]
-                if all(len(s) <= 65535 for s in streams[:3]):
-                    for s in streams[:3]:
-                        body += len(s).to_bytes(2, 'little')
-                    for s in streams:
-                        body += s
-                else:
-                    body = None
-            else:
-                body += _huf_stream_write(lit, lengths, code)
-            if body is not None:
-                csize = len(body)
-                big = max(n, csize)
-                sf = 0 if not four else 1 if big < 1024 else 2 \
-                    if big < 16384 else 3
-                hs = 3 if sf < 2 else 4 if sf == 2 else 5
-                bits = 10 if sf < 2 else 14 if sf == 2 else 18
-                if hs + csize < len(raw):
-                    h = 2 | (sf << 2) | (n << 4) | (csize << (4 + bits))
-                    return h.to_bytes(hs, 'little') + bytes(body)
-    return raw
+def _raw_literals(dst, o, cap, lit: bytes) -> int:
+    body = _literal_header(0, len(lit)) + lit
+    if len(body) > cap:
+        return _SMALL
+    dst[o:o + len(body)] = body
+    return len(body)
 
+
+def _min_gain(n: int) -> int:
+    return (n >> 6) + 2
+
+
+def _write_literals(dst, o, cap, lit: bytes, suspect: bool) -> int:
+    """ZSTD_compressLiterals with no earlier table (fast or dfast)."""
+    n = len(lit)
+    lh = 3 + (n >= 1024) + (n >= 16384)
+    single = n < 256
+    if n < 64:
+        return _raw_literals(dst, o, cap, lit)
+    if cap < lh + 1:
+        return _SMALL
+    c = _huf_compress(dst, o + lh, cap - lh, lit, single, suspect)
+    if c <= 0 or c >= n - _min_gain(n):
+        return _raw_literals(dst, o, cap, lit)
+    if c == 1:
+        body = _literal_header(1, n) + lit[:1]
+        dst[o:o + len(body)] = body
+        return len(body)
+    if lh == 3:
+        h = 2 | ((not single) << 2) | (n << 4) | (c << 14)
+    elif lh == 4:
+        h = 2 | (2 << 2) | (n << 4) | (c << 18)
+    else:
+        h = 2 | (3 << 2) | (n << 4) | (c << 22)
+    dst[o:o + lh] = h.to_bytes(lh, 'little')
+    return lh + c
+
+
+# ------------------------------------------------------------- sequences
 
 def _code_of(base, v: int) -> int:
     c = len(base) - 1
@@ -842,45 +1189,84 @@ def _code_of(base, v: int) -> int:
     return c
 
 
-def _field_table(codes, maxsym: int, maxlog: int, default, deflog: int):
-    """(mode, table bytes, ctable or None for RLE)."""
-    count = [0] * (maxsym + 1)
+def _seq_field(f: int, codes, strat: int, dst, o, cap):
+    """(mode, ctable, size of the description at dst[o:] or an error) of
+    sequence field f (literal lengths, offsets, match lengths)."""
+    nseq = len(codes)
+    count = [0] * (_FIELD_MAX[f] + 1)
     for c in codes:
         count[c] += 1
-    present = [s for s in range(maxsym + 1) if count[s]]
-    if len(present) == 1:
-        return 1, bytes([present[0]]), None
-    if len(codes) < 64:
-        return 0, b'', _CTable(default, deflog)
-    log = fse_table_log(len(codes), len(present), maxlog)
-    norm = fse_normalize(count[:present[-1] + 1], log)
-    bw = _BitOut()
-    _write_ncount(bw, norm, log)
-    return 2, bw.flush(), _CTable(norm, log)
-
-
-def _write_sequences(seqs) -> bytes:
-    nseq = len(seqs)
-    if nseq < 128:
-        out = bytearray([nseq])
-    elif nseq < 0x7F00:
-        out = bytearray([(nseq >> 8) + 128, nseq & 255])
+    mx = max(s for s in range(len(count)) if count[s])
+    most = max(count)
+    deflog = _DEF_LOG[f]
+    def_ok = mx <= _DEF_MAX[f]
+    if most == nseq:
+        if def_ok and nseq <= 2:
+            mode = 0
+        else:
+            if cap == 0:
+                return 1, None, _SMALL
+            dst[o] = codes[0]
+            return 1, None, 1
+    elif def_ok and (nseq < ((1 << deflog) * (10 - strat)) >> 3
+                     or most < nseq >> (deflog - 1)):
+        mode = 0
     else:
-        out = bytearray([255]) + (nseq - 0x7F00).to_bytes(2, 'little')
-    if not nseq:
-        return bytes(out)
-    llc = [_code_of(LL_BASE, ll) for ll, _, _ in seqs]
-    mlc = [_code_of(ML_BASE, ml) for _, ml, _ in seqs]
-    ofc = [ofv.bit_length() - 1 for _, _, ofv in seqs]
-    fields = [_field_table(llc, MAX_LL, LL_LOG, LL_DEFAULT, LL_DEFAULT_LOG),
-              _field_table(ofc, MAX_OF, OF_LOG, OF_DEFAULT, OF_DEFAULT_LOG),
-              _field_table(mlc, MAX_ML, ML_LOG, ML_DEFAULT, ML_DEFAULT_LOG)]
-    out.append((fields[0][0] << 6) | (fields[1][0] << 4)
-               | (fields[2][0] << 2))
-    for _, blob, _ in fields:
-        out += blob
-    tll, tof, tml = (f[2] for f in fields)
-    bw = _BitOut()
+        mode = 2
+    if mode == 0:
+        return 0, _CTable(_DEF_NORM[f], deflog), 0
+    log = fse_optimal_log(_FIELD_LOG[f], nseq, mx, 2)
+    total = nseq
+    if count[codes[-1]] > 1:
+        count[codes[-1]] -= 1
+        total -= 1
+    norm = fse_normalize(count, log, total, mx, total >= 2048)
+    if isinstance(norm, int):
+        return 2, None, norm
+    h = write_ncount(dst, o, cap, norm, mx, log)
+    return 2, (_CTable(norm, log) if h >= 0 else None), h
+
+
+def _write_block_body(dst, o, cap, lit: bytes, seqs, strat: int) -> int:
+    """ZSTD_entropyCompressSeqStore_internal into ``cap`` bytes."""
+    nseq = len(seqs)
+    suspect = nseq == 0 or len(lit) // nseq >= 20
+    op = _write_literals(dst, o, cap, lit, suspect)
+    if op < 0:
+        return op
+    if cap - op < 4:
+        return _SMALL
+    if nseq < 128:
+        head = bytes([nseq])
+    elif nseq < 0x7F00:
+        head = bytes([(nseq >> 8) + 128, nseq & 255])
+    else:
+        head = bytes([255]) + (nseq - 0x7F00).to_bytes(2, 'little')
+    dst[o + op:o + op + len(head)] = head
+    op += len(head)
+    if nseq == 0:
+        return op
+    codes = ([_code_of(LL_BASE, ll) for ll, _, _ in seqs],
+             [ofv.bit_length() - 1 for _, _, ofv in seqs],
+             [_code_of(ML_BASE, ml) for _, ml, _ in seqs])
+    mode_at = op
+    op += 1
+    modes, tables, last_count = [], [], 0
+    for f in range(3):
+        mode, t, r = _seq_field(f, codes[f], strat, dst, o + op, cap - op)
+        if r < 0:
+            return r
+        if mode == 2:
+            last_count = r
+        modes.append(mode)
+        tables.append(t)
+        op += r
+    dst[o + mode_at] = (modes[0] << 6) | (modes[1] << 4) | (modes[2] << 2)
+    if cap - op <= 8:
+        return _SMALL
+    llc, ofc, mlc = codes
+    tll, tof, tml = tables
+    bw = _Bits()
     k = nseq - 1
     sll = tll.init(llc[k]) if tll else 0
     sof = tof.init(ofc[k]) if tof else 0
@@ -903,7 +1289,302 @@ def _write_sequences(seqs) -> bytes:
     bw.add(sof, tof.log if tof else 0)
     bw.add(sll, tll.log if tll else 0)
     bw.add(1, 1)
-    return bytes(out) + bw.flush()
+    if not _stream_fits(bw.bits, cap - op):
+        return _SMALL
+    body = bw.flush()
+    dst[o + op:o + op + len(body)] = body
+    if last_count and last_count + len(body) < 4:
+        return 0       # libzstd's guard for decoders up to 1.3.4
+    return op + len(body)
+
+
+def _block_body(dst, o, cap, lit: bytes, seqs, strat: int, n: int) -> int:
+    """ZSTD_entropyCompressSeqStore: the compressed block's body, or 0 for
+    a block to store raw."""
+    c = _write_block_body(dst, o, cap, lit, seqs, strat)
+    if c == _SMALL and n <= cap:
+        return 0
+    if c < 0:
+        return c
+    return 0 if c >= n - _min_gain(n) else c
+
+
+# -------------------------------------------------------------- matchers
+
+_PRIMES = {5: (24, 889523592379), 6: (16, 227718039650203),
+           7: (8, 58295818150454627), 8: (0, 0xCF1BBCDCB7A56463)}
+
+
+def _words(src: bytes, width: int) -> np.ndarray:
+    """The little-endian ``width``-byte word at every position that has
+    one, as uint64."""
+    a = np.frombuffer(src, np.uint8)
+    m = len(src) - width + 1
+    w = np.zeros(max(m, 0), np.uint64)
+    for k in range(width):
+        w |= a[k:k + m].astype(np.uint64) << np.uint64(8 * k)
+    return w
+
+
+def _hash_list(src: bytes, hlog: int, mls: int) -> list:
+    """ZSTD_hashPtr at every position with 8 bytes from it."""
+    if mls not in _PRIMES:
+        w = _words(src, 4)[:max(len(src) - 7, 0)]
+        return (((w * np.uint64(2654435761)) & np.uint64(0xFFFFFFFF))
+                >> np.uint64(32 - hlog)).tolist()
+    shift, prime = _PRIMES[mls]
+    w = _words(src, 8)
+    return (((w << np.uint64(shift)) * np.uint64(prime))
+            >> np.uint64(64 - hlog)).tolist()
+
+
+def _fast(src: bytes, hlog: int, mls: int):
+    """ZSTD_compressBlock_fast on a fresh frame's one block: (sequences,
+    literals)."""
+    n = len(src)
+    a = np.frombuffer(src, np.uint8)
+    ilimit = n - 8
+    w4 = _words(src, 4).tolist()
+    hsh = _hash_list(src, hlog, mls)
+    ht = [0] * (1 << hlog)
+    seqs, lit = [], bytearray()
+    anchor, ip0 = 0, 1
+    rep1, rep2 = 1, 0
+    while True:
+        step, next_step = 2, ip0 + 128
+        ip1, ip2 = ip0 + 1, ip0 + 2
+        ip3 = ip2 + 1
+        if ip3 >= ilimit:
+            break
+        hash0, hash1 = hsh[ip0], hsh[ip1]
+        midx = ht[hash0]
+        found = 0
+        while True:
+            rval = w4[ip2 - rep1]
+            cur0 = ip0
+            ht[hash0] = ip0 + 2
+            if w4[ip2] == rval and rep1 > 0:
+                ip0 = ip2
+                match0 = ip0 - rep1
+                mlen = int(src[ip0 - 1] == src[match0 - 1])
+                ip0 -= mlen
+                match0 -= mlen
+                ofv = 1
+                mlen += 4
+                ht[hash1] = ip1 + 2
+                found = 1
+                break
+            if midx >= 2 and w4[ip0] == w4[midx - 2]:
+                ht[hash1] = ip1 + 2
+                found = 2
+                break
+            midx = ht[hash1]
+            hash0, hash1 = hash1, hsh[ip2]
+            ip0, ip1, ip2 = ip1, ip2, ip3
+            cur0 = ip0
+            ht[hash0] = ip0 + 2
+            if midx >= 2 and w4[ip0] == w4[midx - 2]:
+                if step <= 4:
+                    ht[hash1] = ip1 + 2
+                found = 2
+                break
+            midx = ht[hash1]
+            hash0, hash1 = hash1, hsh[ip2]
+            ip0, ip1 = ip1, ip2
+            ip2, ip3 = ip0 + step, ip1 + step
+            if ip2 >= next_step:
+                step += 1
+                next_step += 128
+            if ip3 >= ilimit:
+                break
+        if not found:
+            break
+        if found == 2:
+            match0 = midx - 2
+            rep2, rep1 = rep1, ip0 - match0
+            ofv = rep1 + 3
+            mlen = 4
+            while ip0 > anchor and match0 > 0 and \
+                    src[ip0 - 1] == src[match0 - 1]:
+                ip0 -= 1
+                match0 -= 1
+                mlen += 1
+        mlen += _common(a, ip0 + mlen, match0 + mlen, n)
+        seqs.append((ip0 - anchor, mlen, ofv))
+        lit += src[anchor:ip0]
+        ip0 += mlen
+        anchor = ip0
+        if ip0 <= ilimit:
+            ht[hsh[cur0 + 2]] = cur0 + 4
+            ht[hsh[ip0 - 2]] = ip0
+            if rep2 > 0:
+                while ip0 <= ilimit and w4[ip0] == w4[ip0 - rep2]:
+                    rl = _common(a, ip0 + 4, ip0 + 4 - rep2, n) + 4
+                    rep1, rep2 = rep2, rep1
+                    ht[hsh[ip0]] = ip0 + 2
+                    ip0 += rl
+                    seqs.append((0, rl, 1))
+                    anchor = ip0
+    lit += src[anchor:]
+    return seqs, bytes(lit)
+
+
+def _dfast(src: bytes, hlog: int, slog: int, mls: int):
+    """ZSTD_compressBlock_doubleFast on a fresh frame's one block:
+    (sequences, literals)."""
+    n = len(src)
+    a = np.frombuffer(src, np.uint8)
+    ilimit = n - 8
+    w4 = _words(src, 4).tolist()
+    w8 = _words(src, 8).tolist()
+    hl_of = _hash_list(src, hlog, 8)
+    hs_of = _hash_list(src, slog, mls)
+    hl = [0] * (1 << hlog)
+    hs = [0] * (1 << slog)
+    seqs, lit = [], bytearray()
+    anchor, ip = 0, 1
+    rep1, rep2 = 1, 0
+    while True:
+        step, next_step = 1, ip + 256
+        ip1 = ip + step
+        if ip1 > ilimit:
+            break
+        hl0 = hl_of[ip]
+        idxl0 = hl[hl0]
+        found = 0
+        while True:
+            hs0 = hs_of[ip]
+            idxs0 = hs[hs0]
+            cur = ip
+            hl[hl0] = hs[hs0] = ip + 2
+            if rep1 > 0 and w4[ip + 1 - rep1] == w4[ip + 1]:
+                mlen = _common(a, ip + 5, ip + 5 - rep1, n) + 4
+                ip += 1
+                seqs.append((ip - anchor, mlen, 1))
+                lit += src[anchor:ip]
+                found = 1
+                break
+            hl1 = hl_of[ip1]
+            if idxl0 >= 2 and w8[idxl0 - 2] == w8[ip]:
+                m0 = idxl0 - 2
+                mlen = _common(a, ip + 8, m0 + 8, n) + 8
+                offset = ip - m0
+                while ip > anchor and m0 > 0 and src[ip - 1] == src[m0 - 1]:
+                    ip -= 1
+                    m0 -= 1
+                    mlen += 1
+                found = 2
+                break
+            idxl1 = hl[hl1]
+            if idxs0 >= 2 and w4[idxs0 - 2] == w4[ip]:
+                found = 3
+                break
+            if ip1 >= next_step:
+                step += 1
+                next_step += 256
+            ip = ip1
+            ip1 += step
+            hl0, idxl0 = hl1, idxl1
+            if ip1 > ilimit:
+                break
+        if not found:
+            break
+        if found == 3:
+            matchs0 = idxs0 - 2
+            mlen = _common(a, ip + 4, matchs0 + 4, n) + 4
+            offset = ip - matchs0
+            if idxl1 > 2 and w8[idxl1 - 2] == w8[ip1]:
+                l1 = _common(a, ip1 + 8, idxl1 - 2 + 8, n) + 8
+                if l1 > mlen:
+                    ip, mlen, matchs0 = ip1, l1, idxl1 - 2
+                    offset = ip - matchs0
+            while ip > anchor and matchs0 > 0 and \
+                    src[ip - 1] == src[matchs0 - 1]:
+                ip -= 1
+                matchs0 -= 1
+                mlen += 1
+        if found >= 2:
+            rep2, rep1 = rep1, offset
+            if step < 4:
+                hl[hl1] = ip1 + 2
+            seqs.append((ip - anchor, mlen, offset + 3))
+            lit += src[anchor:ip]
+        ip += mlen
+        anchor = ip
+        if ip <= ilimit:
+            ins = cur + 2
+            hl[hl_of[ins]] = ins + 2
+            hl[hl_of[ip - 2]] = ip
+            hs[hs_of[ins]] = ins + 2
+            hs[hs_of[ip - 1]] = ip + 1
+            while ip <= ilimit and rep2 > 0 and w4[ip] == w4[ip - rep2]:
+                rl = _common(a, ip + 4, ip + 4 - rep2, n) + 4
+                rep1, rep2 = rep2, rep1
+                hs[hs_of[ip]] = ip + 2
+                hl[hl_of[ip]] = ip + 2
+                seqs.append((0, rl, 1))
+                ip += rl
+                anchor = ip
+    lit += src[anchor:]
+    return seqs, bytes(lit)
+
+
+def lib_params(level: int, n: int):
+    """libzstd 1.5.7's (hash log, chain log, min match, strategy) at level
+    1 or 3 for a known source of n <= 128 KiB bytes."""
+    small = n <= 16 * 1024
+    wlog = 14 if small else 17
+    if level == 1:
+        clog, hlog, mls, strat = (14, 15, 5, 1) if small else (12, 13, 6, 1)
+    else:
+        clog, hlog, mls, strat = (14, 15, 4, 2) if small else (15, 16, 5, 2)
+    srclog = 6 if n < 64 else _hb(n - 1) + 1
+    wlog = min(wlog, srclog)
+    return min(hlog, wlog + 1), min(clog, wlog), mls, strat
+
+
+def _own_block(src: bytes, a, seqv, hashes, head, chain, nxt, bstart: int,
+               bend: int, rep, depth: int):
+    """The port's own matcher on block [bstart, bend): (sequences,
+    literals, next position to enter)."""
+    seqs = []
+    lit = bytearray()
+    ip = anchor = bstart
+    while ip + 4 <= bend:
+        while nxt < ip:
+            h = hashes[nxt]
+            if chain is not None:
+                chain[nxt] = head[h]
+            head[h] = nxt
+            nxt += 1
+        s = seqv[ip]
+        best = best_off = 0
+        r0 = rep[0]
+        if ip > anchor and r0 <= ip and seqv[ip - r0] == s:
+            best = 4 + _common(a, ip + 4, ip - r0 + 4, bend)
+            best_off = r0
+        else:
+            cand = head[hashes[ip]]
+            for _ in range(depth):
+                if cand < 0:
+                    break
+                if seqv[cand] == s:
+                    length = 4 + _common(a, ip + 4, cand + 4, bend)
+                    if length > best:
+                        best, best_off = length, ip - cand
+                if chain is None:
+                    break
+                cand = chain[cand]
+        if best >= 4:
+            ll = ip - anchor
+            lit += src[anchor:ip]
+            seqs.append((ll, best, _offset_value(rep, best_off, ll)))
+            ip += best
+            anchor = ip
+        else:
+            ip += 1 + ((ip - anchor) >> 8)
+    lit += src[anchor:bend]
+    return seqs, bytes(lit), nxt
 
 
 def _offset_value(rep: List[int], off: int, ll: int) -> int:
@@ -925,10 +1606,18 @@ def _offset_value(rep: List[int], off: int, ll: int) -> int:
     return v
 
 
-def compress(src: bytes, clevel: int = 5) -> bytes:
-    """One zstd frame of ``src``: the C encoder's, byte for byte."""
+# ----------------------------------------------------------------- frame
+
+def compress(src: bytes, clevel: int = 5, cap: Optional[int] = None) -> bytes:
+    """One zstd frame of ``src`` within ``cap`` bytes (none by default):
+    the C encoder's, byte for byte; ``b''`` where libzstd would fail for
+    want of room."""
     src = bytes(src)
     n = len(src)
+    cap = 2 * n + 1024 if cap is None else cap
+    if cap < 18:
+        return b''
+    lib = clevel in (1, 2) and n <= LIB_MAXSRC
     out = bytearray(MAGIC.to_bytes(4, 'little'))
     if n < 256:
         out += bytes([0x20, n])
@@ -936,71 +1625,53 @@ def compress(src: bytes, clevel: int = 5) -> bytes:
         out += bytes([0x60]) + (n - 256).to_bytes(2, 'little')
     else:
         out += bytes([0xA0]) + n.to_bytes(4, 'little')
-    depth = _DEPTH[min(max(int(clevel), 0), 9)]
-    hlog = min(max((n - 1).bit_length() - 1 if n > 1 else 10, 10), 17)
-    a = np.frombuffer(src, np.uint8)
-    if n >= 4:
-        seqv, hashes = _hashes(src, hlog)
-    head = [-1] * (1 << hlog)
-    chain = [-1] * n if depth > 1 else None
-    nxt = 0
+    if n == 0:
+        return bytes(out) + b'\x01\x00\x00'
+    strat = 2
+    if lib:
+        hlog, clog, mls, strat = lib_params(2 * clevel - 1, n)
+    else:
+        depth = _DEPTH[min(max(int(clevel), 0), 9)]
+        olog = min(max((n - 1).bit_length() - 1 if n > 1 else 10, 10), 17)
+        a = np.frombuffer(src, np.uint8)
+        seqv, hashes = _hashes(src, olog) if n >= 4 else ([], [])
+        head = [-1] * (1 << olog)
+        chain = [-1] * n if depth > 1 else None
+        nxt = 0
     rep = [1, 4, 8]
     bstart = 0
     while True:
         bend = min(n, bstart + BLOCK_MAX)
         bn = bend - bstart
-        last = bend == n
-        saved = list(rep)
-        seqs = []
-        lit = bytearray()
-        ip = anchor = bstart
-        while ip + 4 <= bend:
-            while nxt < ip:
-                h = hashes[nxt]
-                if chain is not None:
-                    chain[nxt] = head[h]
-                head[h] = nxt
-                nxt += 1
-            s = seqv[ip]
-            best = best_off = 0
-            r0 = rep[0]
-            if ip > anchor and r0 <= ip and seqv[ip - r0] == s:
-                best = 4 + _common(a, ip + 4, ip - r0 + 4, bend)
-                best_off = r0
-            else:
-                cand = head[hashes[ip]]
-                for _ in range(depth):
-                    if cand < 0:
-                        break
-                    if seqv[cand] == s:
-                        length = 4 + _common(a, ip + 4, cand + 4, bend)
-                        if length > best:
-                            best, best_off = length, ip - cand
-                    if chain is None:
-                        break
-                    cand = chain[cand]
-            if best >= 4:
-                ll = ip - anchor
-                lit += src[anchor:ip]
-                seqs.append((ll, best, _offset_value(rep, best_off, ll)))
-                ip += best
-                anchor = ip
-            else:
-                ip += 1 + ((ip - anchor) >> 8)
-        lit += src[anchor:bend]
         block = src[bstart:bend]
-        btype, body = 0, block
-        if bn > 1 and block.count(block[:1]) == bn:
-            btype, body = 1, block[:1]
-        elif bn > 0:
-            comp = _write_literals(bytes(lit)) + _write_sequences(seqs)
-            if len(comp) < bn:
-                btype, body = 2, comp
+        room = cap - len(out)
+        saved = list(rep)
+        c = 0
+        body = bytearray(max(room - 3, 0))
+        if bn >= 7:
+            if not lib:
+                seqs, lit, nxt = _own_block(src, a, seqv, hashes, head, chain,
+                                            nxt, bstart, bend, rep, depth)
+            elif strat == 1:
+                seqs, lit = _fast(src, hlog, mls)
+            else:
+                seqs, lit = _dfast(src, hlog, clog, mls)
+            c = _block_body(body, 0, room - 3, lit, seqs, strat, bn)
+            if c < 0:
+                return b''
+        if bstart > 0 and c < 25 and room >= 4 and \
+                block.count(block[:1]) == bn:
+            btype, size, payload = 1, bn, block[:1]
+        elif c == 0:
+            if bn + 3 > room:
+                return b''
+            btype, size, payload = 0, bn, block
+        else:
+            btype, size, payload = 2, c, bytes(body[:c])
         if btype != 2:
             rep[:] = saved
-        size = len(body) if btype == 2 else bn
-        out += (last | (btype << 1) | (size << 3)).to_bytes(3, 'little')
-        out += body
+        out += ((bend == n) | (btype << 1) | (size << 3)).to_bytes(3, 'little')
+        out += payload
         bstart = bend
         if bstart >= n:
             break

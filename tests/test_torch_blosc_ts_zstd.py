@@ -1,7 +1,9 @@
 """The port's blosc zstd chunks against tensorstore's: every
 clevel of {0, 1, 5, 9}, shuffle of {0, 1, 2, -1} and u8/u16, as
 ``torch_blosc_matrix.check`` sets out (decoded equal both ways, the
-same headers and files, C frames byte-equal to the plain version's)."""
+same headers and files, C frames byte-equal to the plain version's);
+at clevel 1, and at clevel 2 beside them, whole frames byte-equal to
+tensorstore's (libzstd 1.5.7's levels 1 and 3)."""
 
 import pytest
 
@@ -14,3 +16,9 @@ from torch_blosc_matrix import CLEVELS, DTYPES, SHUFFLES, check
 @pytest.mark.parametrize("cname", ('zstd',))
 def test_matches_tensorstore(tmp_path, cname, clevel, shuffle, dtype):
     check(tmp_path, cname, clevel, shuffle, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=['u8', 'u16'])
+@pytest.mark.parametrize("shuffle", SHUFFLES)
+def test_zstd_clevel_2_matches_tensorstore(tmp_path, shuffle, dtype):
+    check(tmp_path, 'zstd', 2, shuffle, dtype)

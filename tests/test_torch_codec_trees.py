@@ -10,11 +10,13 @@ the same files, equal ``.zarray``/``zarr.json``/``.zattrs`` JSON and
 arrays that decode equal with tensorstore and the port's reader. The
 cases cover zstd-1 with byte shuffle (the reference's production
 setting), zstd with bit shuffle, shuffle -1 on u8 and u16, and each
-other cname. On v3 both packages byte-shuffle whatever
-``compressor_shuffle`` says (the JAX package's metadata always reads
-``'shuffle': 'shuffle'``). Then ``read_array`` and ``open_stitched`` on
-JAX trees written with zstd-1 and with bit shuffle, and the merges in
-zstd.
+other cname; the zstd-1 trees (v2 and v3, bands and in RAM) and the
+zstd-1 merge trees hold byte-identical chunk and shard files (the port's
+zstd at clevel 1 and 2 follows libzstd 1.5.7). On v3 both packages
+byte-shuffle whatever ``compressor_shuffle`` says (the JAX package's
+metadata always reads ``'shuffle': 'shuffle'``). Then ``read_array`` and
+``open_stitched`` on JAX trees written with zstd-1 and with bit shuffle,
+and the merges in zstd.
 """
 
 import json
@@ -25,8 +27,8 @@ import pytest
 import torch
 
 from fixtures import write_synthetic_acquisition
-from torch_helpers import (assert_outputs_equal, small_disk_probe,  # noqa: F401
-                           zarr_groups)
+from torch_helpers import (assert_chunk_files_equal, assert_outputs_equal,
+                           small_disk_probe, zarr_groups)  # noqa: F401
 from image_stitcher_tpu import EngineOptions as JaxOptions
 from image_stitcher_tpu import stitch as jax_stitch
 import image_stitcher_tpu_torch as port
@@ -89,6 +91,9 @@ def test_tree_equals_jax(tmp_path, case):
                 options=port.EngineOptions(**_options(
                     cname, clevel, shuffle, fmt, streaming, port_out)))
     assert_outputs_equal(jax_out, port_out)
+    if cname == 'zstd' and clevel in (1, 2):
+        # libzstd 1.5.7's rules: byte-identical chunk files
+        assert_chunk_files_equal(jax_out, port_out)
     level0 = os.path.join(port_out, zarr_groups(port_out)[0], '0')
     chunk = None
     for d, _, names in os.walk(level0):
@@ -161,7 +166,7 @@ def test_port_reads_jax_zstd_trees(tmp_path, shuffle):
 def test_merges_in_zstd_equal_jax(tmp_path):
     """A two-well, two-timepoint run with both merges in zstd-1: the
     port's whole output (regions, time series, plates) equals the JAX
-    package's."""
+    package's, every chunk file byte for byte."""
     acq = str(tmp_path / "acq")
     write_synthetic_acquisition(acq, grid_cols=2, grid_rows=2, tile_w=64,
                                 tile_h=64, overlap=16, regions=WELLS,
@@ -177,3 +182,4 @@ def test_merges_in_zstd_equal_jax(tmp_path):
                 options=port.EngineOptions(
                     output_folder=str(tmp_path / "port"), **opts), **kw)
     assert_outputs_equal(str(tmp_path / "jax"), str(tmp_path / "port"))
+    assert_chunk_files_equal(str(tmp_path / "jax"), str(tmp_path / "port"))

@@ -1,0 +1,231 @@
+"""The port's zstd encoder at blosc clevel 1 and 2 (``csrc/codec_zstd.h``,
+plain version ``io/zstd_plain.py``) against libzstd 1.5.7, whose level
+2 * clevel - 1 c-blosc calls: ``zstandard`` (present only on the CPU test
+host) at levels 1 (the fast matcher) and 3 (dfast), and tensorstore's
+c-blosc.
+
+- the parameters (hash, chain and minimum match lengths, strategy) for
+  every source size, as libzstd adjusts them;
+- a fixed corpus: lengths 1-300 and the block edges up to 131072 of
+  incompressible bytes, one repeated byte, zeros, text and a 4-symbol
+  alphabet, and blocks of ``chip_smoke.compressible`` byte-shuffled at
+  type sizes 1, 2, 4 and 8 (blosc's 32 and 64 KiB blocks, a short tail):
+  the C frames byte-equal to libzstd's, the plain version's to C's (on
+  the inputs of at most 16 KiB + 1);
+- a ``hypothesis`` property on random short inputs (C);
+- frames into a bounded buffer: single-block blosc chunks whose libzstd
+  frame lies within 24 bytes of c-blosc's budget, where libzstd's own
+  room checks decide between a frame and a stored block: whole blosc
+  frames byte-equal to tensorstore's, the memcpyed flag included;
+- the kept digests of libzstd's frames that ``chip_smoke.py`` phase 12
+  holds the C encoder to on the card (``tests/torch_zstd_frames.npz``):
+  what ``torch_zstd_frames.make`` writes here, and matched by the C
+  frames (and the plain ones on the inputs of at most 16 KiB + 1).
+"""
+
+import os
+
+import numpy as np
+import pytest
+from hypothesis import given, settings, strategies as st
+
+import chip_smoke
+import torch_zstd_frames
+from image_stitcher_tpu.io.zarr_store import create_zarr_array
+from image_stitcher_tpu_torch.io import blosc, zstd_plain
+
+zstandard = pytest.importorskip("zstandard")
+
+#: blosc clevel -> libzstd level (c-blosc's 2 * clevel - 1)
+LEVELS = {1: 1, 2: 3}
+EDGES = (511, 512, 513, 1023, 1024, 1025, 4095, 4096, 4097, 16383, 16384,
+         16385, 32767, 32768, 32769, 65535, 65536, 65537, 65791, 65792,
+         131071, 131072)
+LENGTHS = tuple(range(1, 301)) + EDGES
+PLAIN_MAX = 16385
+
+
+def libzstd(data: bytes, level: int) -> bytes:
+    return zstandard.ZstdCompressor(
+        level=level, write_content_size=True).compress(data)
+
+
+def _kind(kind: str, n: int) -> bytes:
+    rng = np.random.default_rng(n)
+    if kind == 'random':
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    if kind == 'repeated':
+        return b'\x5a' * n
+    if kind == 'zeros':
+        return bytes(n)
+    if kind == 'alphabet4':
+        return rng.integers(0, 4, n, dtype=np.uint8).tobytes()
+    words = (b"stitched tiles of a well plate, fused into one canvas and "
+             b"written as blosc chunks; ")
+    text = (words * (n // len(words) + 1)).decode()
+    # a few random words break the period, so matches vary in offset
+    pos = rng.integers(0, max(len(text) - 8, 1), n // 40 + 1)
+    out = bytearray(text.encode())
+    for p in pos:
+        out[p:p + 6] = rng.integers(97, 123, 6, dtype=np.uint8).tobytes()
+    return bytes(out[:n])
+
+
+def _check(data: bytes, plain: bool) -> None:
+    for clevel, level in LEVELS.items():
+        frame = blosc.stream_compress('zstd', data, clevel)
+        assert frame == libzstd(data, level), (len(data), clevel)
+        if plain:
+            assert zstd_plain.compress(data, clevel) == frame, \
+                (len(data), clevel)
+
+
+def test_parameters_equal_libzstd():
+    """libzstd's table row and ZSTD_adjustCParams for every size up to
+    128 KiB (each power of two and its neighbours)."""
+    sizes = sorted({max(1, (1 << k) + d) for k in range(18)
+                    for d in (-1, 0, 1)} | {63, 64, 65, 131072})
+    for level in LEVELS.values():
+        for n in sizes:
+            if n > 131072:
+                continue
+            p = zstandard.ZstdCompressionParameters.from_level(
+                level, source_size=n)
+            assert zstd_plain.lib_params(level, n) == (
+                p.hash_log, p.chain_log, p.min_match, p.strategy), (level, n)
+
+
+@pytest.mark.parametrize("kind", ['random', 'repeated', 'zeros', 'text',
+                                  'alphabet4'])
+def test_corpus_frames_equal_libzstd(kind):
+    for n in LENGTHS:
+        _check(_kind(kind, n), n <= PLAIN_MAX)
+
+
+@pytest.mark.parametrize("typesize", [1, 2, 4, 8])
+def test_shuffled_texture_frames_equal_libzstd(typesize):
+    """Blocks of the bench's compressible texture as c-blosc hands them to
+    zstd: byte-shuffled at the type size, 32 KiB (clevel 1) and 64 KiB
+    (clevel 2) blocks, and a short last one."""
+    tex = chip_smoke.compressible(np.random.default_rng(typesize), 512)
+    dtype = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}[typesize]
+    raw = (tex >> 8).astype(dtype).tobytes() if typesize == 1 else \
+        (tex.astype(dtype) * dtype(3)).tobytes()
+    for bs in (32768, 65536, 131072):
+        for off in (0, bs, 5 * bs):
+            block = raw[off:off + bs]
+            shuffled = blosc.shuffle_plain(block, typesize) \
+                if typesize > 1 else block
+            for clevel, level in LEVELS.items():
+                frame = blosc.stream_compress('zstd', shuffled, clevel)
+                assert frame == libzstd(shuffled, level), (bs, off, clevel)
+    tail = blosc.shuffle_plain(raw[:3000], typesize) if typesize > 1 \
+        else raw[:3000]
+    _check(tail, True)
+    _check(blosc.shuffle_plain(raw[:32768], typesize) if typesize > 1
+           else raw[:32768], typesize == 2)
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(data=st.one_of(
+    st.binary(max_size=4000),
+    st.lists(st.sampled_from([b'\x00' * 8, b'ab', b'abcabcab', b'xyz12',
+                              b'\xff\x00', b'q']), max_size=600)
+    .map(b''.join)))
+def test_random_short_inputs_equal_libzstd(data):
+    for clevel, level in LEVELS.items():
+        assert blosc.stream_compress('zstd', data, clevel) == \
+            libzstd(data, level)
+
+
+def _edge_cases(count: int, lo: int, hi: int):
+    """Seeded single-block chunks (under 32 KiB, so one block whose zstd
+    budget is its size less 8) whose unbounded libzstd frame of the
+    shuffled block is lo to hi bytes longer than that budget: (data,
+    clevel, shuffle)."""
+    rng = np.random.default_rng(2024 + lo)
+    out = []
+    while len(out) < count:
+        dtype = (np.uint8, np.uint16)[len(out) % 2]
+        clevel = 1 + (len(out) // 2) % 2
+        shuffle = (0, 1, 2, -1)[(len(out) // 4) % 4]
+        n = int(rng.integers(128, 3000)) & ~1
+        raw = rng.integers(0, 256, n, dtype=np.uint8)
+        raw[rng.random(n) > rng.uniform(0.6, 1.0)] = 0
+        data = raw.view(dtype)
+        ts = data.itemsize
+        flags, _, _ = blosc._frame_params('zstd', clevel, shuffle, ts, n)
+        block = blosc._prepare_plain(flags, ts, raw.tobytes())
+        if lo <= len(libzstd(block, LEVELS[clevel])) - (n - 8) <= hi:
+            out.append((data, clevel, shuffle))
+    return out
+
+
+@pytest.mark.parametrize("band", [(-24, 24), (-9, -7)],
+                         ids=['near', 'slack'])
+def test_bounded_frames_equal_tensorstore(tmp_path, band):
+    """libzstd's room checks in c-blosc's bounded buffer (frames near the
+    budget; and frames ending 7 to 9 bytes before it, where the bit
+    writers' 8 bytes of slack decide): the port's whole frames are
+    tensorstore's, the memcpyed flag included."""
+    stored = 0
+    cases = _edge_cases(48, *band)
+    for k, (data, clevel, shuffle) in enumerate(cases):
+        shape = (1, 1, 1, 1, data.size)
+        path = str(tmp_path / f"a{k}")
+        create_zarr_array(path, shape, shape, data.dtype, cname='zstd',
+                          clevel=clevel, shuffle=shuffle).write(
+                              data.reshape(shape)).result()
+        with open(os.path.join(path, *'00000'), 'rb') as f:
+            want = f.read()
+        frame = bytes(blosc.compress(data, data.itemsize, clevel, shuffle,
+                                     'zstd'))
+        assert frame == want, (k, clevel, shuffle, len(frame), len(want))
+        assert blosc.compress_plain(data, data.itemsize, clevel, shuffle,
+                                    'zstd') == frame, k
+        stored += bool(want[2] & 0x02)
+    assert 0 < stored < len(cases)      # both sides of the edge
+
+
+@pytest.mark.parametrize("clevel", [1, 2])
+def test_short_last_blocks_equal_tensorstore(tmp_path, clevel):
+    """A chunk of whole blocks and a last block of 2-40 bytes: under the
+    18 bytes libzstd wants for its frame header the last block is stored,
+    above them a frame of zeros fits; whole frames are tensorstore's."""
+    bs = 32768 * clevel
+    body = (chip_smoke.compressible(np.random.default_rng(5), 256) >> 8) \
+        .astype(np.uint8).ravel()[:bs]
+    for tail in (2, 12, 17, 18, 19, 25, 40):
+        data = np.concatenate([body, np.zeros(tail, np.uint8)])
+        shape = (1, 1, 1, 1, data.size)
+        path = str(tmp_path / f"t{tail}")
+        create_zarr_array(path, shape, shape, np.uint8, cname='zstd',
+                          clevel=clevel, shuffle=0).write(
+                              data.reshape(shape)).result()
+        with open(os.path.join(path, *'00000'), 'rb') as f:
+            want = f.read()
+        assert bytes(blosc.compress(data, 1, clevel, 0, 'zstd')) == want, \
+            tail
+
+
+def test_kept_frames_are_what_make_writes(tmp_path):
+    path = str(tmp_path / "frames.npz")
+    torch_zstd_frames.make(path)
+    assert torch_zstd_frames.load(path) == torch_zstd_frames.load()
+    with np.load(torch_zstd_frames.PATH) as f:
+        assert tuple(f['version'].tolist()) == zstandard.ZSTD_VERSION
+
+
+def test_c_frames_match_kept_frames():
+    kept = torch_zstd_frames.load()
+    cases = torch_zstd_frames.inputs()
+    assert sorted(label for label, _ in cases) == sorted(kept)
+    for label, data in cases:
+        digest, frames = kept[label]
+        assert torch_zstd_frames.sha(data) == digest, label
+        for clevel, (size, want) in frames.items():
+            frame = blosc.stream_compress('zstd', data, clevel)
+            assert (len(frame), torch_zstd_frames.sha(frame)) == \
+                (size, want), (label, clevel)
+            if len(data) <= PLAIN_MAX:
+                assert zstd_plain.compress(data, clevel) == frame, label

@@ -16,10 +16,11 @@ dtype of u8/u16:
   plain decoder reads tensorstore's frames and the port's, and the C
   frames are byte-equal to the plain version's;
 - for lz4 and lz4hc (liblz4's ``LZ4_compress_fast`` and
-  ``LZ4_compress_HC`` rules), each whole frame is byte-equal to
-  tensorstore's, and the C frame of a 256-row cut of the plane (streams
-  of liblz4's larger hash, and past lz4hc's 64 KiB window) to the plain
-  version's.
+  ``LZ4_compress_HC`` rules) and zstd at clevel 1 and 2 (libzstd 1.5.7's
+  levels 1 and 3), each whole frame is byte-equal to tensorstore's, the
+  memcpyed flag included; for lz4 and lz4hc the C frame of a 256-row cut
+  of the plane (streams of liblz4's larger hash, and past lz4hc's 64 KiB
+  window) is byte-equal to the plain version's.
 """
 
 import functools
@@ -35,6 +36,8 @@ from image_stitcher_tpu_torch.io.zarr_store import (BloscZarrArray,
                                                     EncodePool, read_array)
 
 CLEVELS = (0, 1, 5, 9)
+#: the clevels whose zstd frames follow libzstd 1.5.7 (levels 1 and 3)
+ZSTD_LIB_CLEVELS = (1, 2)
 SHUFFLES = (0, 1, 2, -1)
 DTYPES = (np.uint8, np.uint16)
 TILE, EDGE = 2048, 203
@@ -123,10 +126,11 @@ def check(root, cname, clevel, shuffle, dtype):
             assert struct.unpack_from('<ii', frame, 4) == \
                 struct.unpack_from('<ii', ts_frame, 4), rel
             raw = _chunk(data, rel, chunks)
-            if cname in ('lz4', 'lz4hc'):
-                # liblz4's own rules: whole frames byte-equal
+            if cname in ('lz4', 'lz4hc') or (cname == 'zstd'
+                                             and clevel in ZSTD_LIB_CLEVELS):
+                # liblz4's and libzstd's own rules: whole frames byte-equal
                 assert frame == ts_frame, rel
-                if name == 'plane':
+                if name == 'plane' and cname != 'zstd':
                     # streams of at least 64 KiB + 11 (liblz4's larger
                     # hash) through the plain version
                     cut = np.frombuffer(raw, dtype)[:256 * TILE]

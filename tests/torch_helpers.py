@@ -61,6 +61,22 @@ def assert_outputs_equal(want_out, got_out):
                            os.path.join(got_out, rel))
 
 
+def assert_chunk_files_equal(want_out, got_out):
+    """Two runs' outputs hold byte-equal chunk (and shard) files: every
+    file but the JSON metadata, which :func:`assert_outputs_equal`
+    compares parsed."""
+    def chunk_files(out):
+        return [rel for rel in tree_files(out) if '.ome.zarr' in rel
+                and os.path.basename(rel) not in JSON_FILES]
+
+    files = chunk_files(want_out)
+    assert files and chunk_files(got_out) == files
+    for rel in files:
+        with open(os.path.join(want_out, rel), 'rb') as f, \
+                open(os.path.join(got_out, rel), 'rb') as g:
+            assert g.read() == f.read(), rel
+
+
 def tiff_outputs(out):
     """Relative paths of the ``*.ome.tiff`` files of a run's output."""
     return sorted(rel for rel in tree_files(out) if rel.endswith('.ome.tiff'))
