@@ -34,8 +34,8 @@ Phases, each fatal on failure:
      v2) stitched end to end through ``image_stitcher_tpu_torch.stitch``,
      with stage times and tiles/s (the acquisition and tree are kept for
      phases 15 and 16);
-  6. maximum-quality path: the same grid with +-3 px integer stage
-     jitter, all-pairs registration on the card, the global position
+  6. maximum-quality path: an 8x8 cut of the same grid with +-3 px
+     integer stage jitter, all-pairs registration on the card, the global position
      solve, subpixel placement and feathered blending; a 4096-row window
      of channel 0 is held against a NumPy reference;
   7. HCS plate: 8 wells (A1-H1) x 3x3 FOVs x 3 channels x 2048^2 uint16,
@@ -111,14 +111,15 @@ Phases, each fatal on failure:
      device path's tree;
  12. (run right after phase 8, on its acquisitions and raw trees) the
      other blosc codecs (zstd, zlib, lz4hc, blosclz, snappy): (a) the C
-     zstd encoder at clevel 1 and 2 byte-equal to libzstd 1.5.7's level 1
-     and 3 frames of the seeded inputs of tests/torch_zstd_frames.py
+     zstd encoder at clevel 1 to 5 byte-equal to libzstd 1.5.7's level 1,
+     3, 5, 7 and 9 frames of the seeded inputs of tests/torch_zstd_frames.py
      (their SHA-256 kept in tests/torch_zstd_frames.npz), and each
      codec's C encoder and decoder against its plain version on phase 8's
      chunks (the C frames of the full chunks decode exactly; the Python
      versions run on 512^2 cuts, on a pool of processes); (b) each
      codec's MB/s on one thread and on the encode pool, its ratio beside
-     lz4's; (c) the reference production edition's setting, blosc zstd
+     lz4's, and the zstd encoder's MB/s on one thread at clevel 1, 3, 4
+     and 5 (libzstd's fast, greedy, lazy and lazy2 rules); (c) the reference production edition's setting, blosc zstd
      clevel 1 with byte shuffle, on phase 8's grid and content, decoded
      equal to a raw run, with e2e, tiles/s, the writer's seconds, the
      pool's drain, bytes and ratio against phase 8's lz4 run; (d) a 3x3
@@ -2908,8 +2909,9 @@ def other_codec_check(rng) -> None:
 
 
 def zstd_libzstd_check() -> int:
-    """12a: the C zstd encoder at blosc clevel 1 and 2 against libzstd
-    1.5.7's frames at levels 1 and 3, whose SHA-256 the CPU test host keeps
+    """12a: the C zstd encoder at blosc clevel 1 to 5 against libzstd
+    1.5.7's frames at levels 1, 3, 5, 7 and 9, whose SHA-256 the CPU test
+    host keeps
     in ``tests/torch_zstd_frames.npz`` (this host has no libzstd binding):
     the seeded inputs of ``tests/torch_zstd_frames.py`` made here (their
     digests checked first), each frame's length and digest equal to the
@@ -2940,10 +2942,31 @@ def zstd_libzstd_check() -> int:
                     f"({size} bytes)")
             frames += 1
     log(f"codecs (libzstd frames): {frames} C frames of {len(cases)} kept "
-        f"inputs at blosc clevel 1 and 2 byte-equal to libzstd 1.5.7's "
-        f"level 1 and 3 frames (tests/torch_zstd_frames.npz) in "
+        f"inputs at blosc clevel 1 to 5 byte-equal to libzstd 1.5.7's "
+        f"level 1, 3, 5, 7 and 9 frames (tests/torch_zstd_frames.npz) in "
         f"{time.perf_counter() - t0:.2f}s")
     return frames
+
+
+def zstd_level_rates(rng, card: str) -> dict:
+    """12b: the C zstd encoder's MB/s (input bytes) on one thread, byte
+    shuffle, on one compressible 2048^2 u16 chunk (phase 8's content) at
+    clevel 1, 3, 4 and 5 (libzstd's fast, and its greedy, lazy and lazy2
+    parsers in 128 and 256 KiB blosc blocks), with the ratio."""
+    from image_stitcher_tpu_torch.io import blosc
+    chunk = compressible(rng, TILE)
+    blosc.compress(chunk[:256], 2, 5, 1, 'zstd')           # warm
+    rates = {}
+    for clevel in (1, 3, 4, 5):
+        t0 = time.perf_counter()
+        frame = blosc.compress(chunk, 2, clevel, 1, 'zstd')
+        dt = time.perf_counter() - t0
+        rates[clevel] = (chunk.nbytes / dt / 1e6, len(frame) / chunk.nbytes)
+    log(f"zstd encode MB/s on {card}, one thread, a compressible 2048^2 u16 "
+        f"chunk, byte shuffle: " + "; ".join(
+            f"clevel {c} {r:.1f} (ratio {q:.4f})"
+            for c, (r, q) in rates.items()))
+    return rates
 
 
 def other_codec_rates(rng, card: str) -> dict:
@@ -3060,6 +3083,7 @@ def phase_other_codecs(work: str, card: str, output_layer: dict,
     libzstd_frames = zstd_libzstd_check()
     other_codec_check(rng)
     rates = other_codec_rates(rng, card)
+    zstd_rates = zstd_level_rates(rng, card)
     overlap = 205 * tile // TILE
 
     # 12c: the main path's grid in zstd-1, against phase 8's raw twin
@@ -3176,7 +3200,8 @@ def phase_other_codecs(work: str, card: str, output_layer: dict,
     seconds = time.perf_counter() - t_phase
     log(f"codecs: phase 12 in {seconds:.1f}s")
     return {'rates': rates, 'zstd_main': run, 'small': small,
-            'libzstd_frames': libzstd_frames, 'seconds': seconds}
+            'libzstd_frames': libzstd_frames, 'zstd_rates': zstd_rates,
+            'seconds': seconds}
 
 
 # -------------------------------------------------------------------- 13
@@ -5042,7 +5067,8 @@ def main() -> int:
               quality=True)
         main_run = timed('5 main path', phase_main_path, work, card,
                          keep=keep)
-        quality_run = timed('6 quality path', phase_quality_path, work, card)
+        quality_run = timed('6 quality path', phase_quality_path, work, card,
+                            grid=8)
         shutil.rmtree(work, ignore_errors=True)   # the plate needs the room
         os.makedirs(work)
         timed('7 plate', phase_plate, work, card)

@@ -9,22 +9,31 @@
  * not verified; a frame that names a dictionary is refused.
  *
  * The encoder (io/zstd_plain.py is its plain version, byte for byte):
- * at clevel 1 and 2 and inputs of at most 128 KiB (every blosc block at
- * those clevels) its frame is libzstd 1.5.7's ZSTD_compressCCtx at level
- * 2 * clevel - 1, the level c-blosc asks for, within the same output
- * capacity, byte for byte: the parameters of libzstd's table for the
- * source size as ZSTD_adjustCParams cuts them, ZSTD_compressBlock_fast
- * (level 1) or ZSTD_compressBlock_doubleFast (level 3) on the one block,
+ * at clevel 1 to 5, the frame of libzstd 1.5.7's ZSTD_compressCCtx at
+ * level 2 * clevel - 1 (1, 3, 5, 7, 9), the level c-blosc asks for, within
+ * the same output capacity, byte for byte, for inputs of at most 128 KiB
+ * at clevel 1 and 2 and 256 KiB at clevel 3 to 5 (every blosc block at
+ * those clevels): the parameters of libzstd's table for the source size
+ * (up to 16 KiB, 128 KiB, 256 KiB) as ZSTD_adjustCParams cuts them;
+ * ZSTD_compressBlock_fast (level 1), _doubleFast (3), or
+ * ZSTD_compressBlock_lazy_generic, greedy, lazy or lazy2, over libzstd's
+ * row hash (a window over 16 KiB), hash chain (up to 16 KiB) or binary
+ * tree (btlazy2: level 9 up to 16 KiB), with its lazy skipping; blocks of
+ * 128 KiB, the second's matches reaching into the first, a full second
+ * block cut where ZSTD_splitBlock_byChunks sees its statistics change;
  * libzstd's entropy stage (HUF_buildCTable's sort, tree and height limit,
- * HUF_optimalTableLog, the weights' FSE or direct header, 1 or 4 streams;
- * ZSTD_selectEncodingType below strategy lazy, FSE_optimalTableLog,
- * FSE_normalizeCount), its block choice (ZSTD_minGain, a raw block
- * otherwise, no RLE first block) and its room checks, whose failures
- * give 0 (c-blosc then stores the block). Every other clevel, and longer
- * inputs, keep the port's own matcher (a greedy hash chain over the
- * whole frame, its search depth by clevel, blocks of 128 KiB with repeat
- * offsets across them) with the same entropy stage and block choice, an
- * RLE block for a later block of one byte value.
+ * HUF_optimalTableLog, the weights' FSE or direct header, 1 or 4 streams,
+ * an earlier block's Huffman table repeated where it serves;
+ * ZSTD_selectEncodingType's shortcuts below strategy lazy and its cost
+ * comparisons of the predefined, repeated and a new table from lazy up,
+ * FSE_optimalTableLog, FSE_normalizeCount), its block choice
+ * (ZSTD_minGain, a raw block otherwise, an RLE block for a later block of
+ * one byte value), the repeat offsets and tables confirmed only after a
+ * compressed block, and its room checks, whose failures give 0 (c-blosc
+ * then stores the block). Every other clevel, and longer inputs, keep the
+ * port's own matcher (a greedy hash chain over the whole frame, its search
+ * depth by clevel, blocks of 128 KiB with repeat offsets across them) with
+ * the same entropy stage and block choice.
  */
 
 #define ZSTD_MAGIC 0xFD2FB528u
@@ -830,7 +839,7 @@ done:
  * and any other */
 #define ZE_SMALL (-100)
 #define ZE_GENERIC (-101)
-#define ZSTD_LIB_MAXSRC ZSTD_BLOCK_MAX
+#define ZSTD_LIB_MAXSRC (2 * ZSTD_BLOCK_MAX)
 
 static uint64_t read64(const uint8_t *p)
 {
@@ -1058,9 +1067,9 @@ static int64_t fse_write_ncount(uint8_t *dst, int64_t cap, const int16_t *norm,
 #undef NCOUNT_FLUSH
 }
 
-/* an FSE encoding table (FSE_buildCTable_wksp) */
+/* an FSE encoding table (FSE_buildCTable_wksp) of symbols 0..maxsym */
 typedef struct {
-    int log;
+    int log, maxsym;
     uint16_t state[1 << ZSTD_LL_LOG];
     int32_t delta_find[256];
     uint32_t delta_nbits[256];
@@ -1097,6 +1106,7 @@ static void fse_build_ctable(fse_ctable *t, const int16_t *norm, int maxsym,
         }
     }
     t->log = log;
+    t->maxsym = maxsym;
 }
 
 /* FSE_initCState2: the first state of symbol s (the one with the most
@@ -1126,7 +1136,7 @@ typedef struct {
 
 static uint32_t huf_rank_index(uint32_t c)
 {
-    return c < 166 ? c : (uint32_t)highbit32(c) + 158;
+    return c < 165 ? c : (uint32_t)highbit32(c) + 158;
 }
 
 static void huf_swap(huf_node *a, huf_node *b)
@@ -1178,8 +1188,9 @@ static void huf_quick_sort(huf_node *a, int low, int high)
 }
 
 /* HUF_sort: symbols 0..maxsym by descending count into node[] (bucketed:
- * counts under 166 in symbol order, larger ones by log2, each such bucket
- * sorted) */
+ * counts under 165 in symbol order, larger ones by log2; rank r's symbols
+ * sit at base[r + 1], so libzstd's sort from rank 165 up also reorders
+ * the symbols of count 164) */
 static void huf_sort(huf_node *node, const uint32_t *count, int maxsym)
 {
     uint16_t base[192] = {0}, curr[192] = {0};
@@ -1195,7 +1206,7 @@ static void huf_sort(huf_node *node, const uint32_t *count, int maxsym)
         node[pos].count = count[n];
         node[pos].byte = (uint8_t)n;
     }
-    for (int n = 166; n < 191; ++n) {
+    for (int n = 165; n < 191; ++n) {
         const int size = curr[n] - base[n];
         if (size > 1)
             huf_quick_sort(node + base[n], 0, size - 1);
@@ -1440,11 +1451,81 @@ static int64_t huf_stream(uint8_t *dst, int64_t cap, const uint8_t *src,
     return bw.p - dst;
 }
 
-/* HUF_compress1X_repeat / HUF_compress4X_repeat with no earlier table:
- * the table description and 1 or 4 streams of src[0, n) into cap bytes;
+/* a Huffman encoding table: code lengths (0 for a symbol absent from it)
+ * and codes of symbols 0..maxsym, none longer than log */
+typedef struct {
+    int maxsym, log;
+    uint8_t nbits[256];
+    uint16_t code[256];
+} huf_ctable;
+
+/* the repeat mode of an earlier block's table (libzstd's HUF_repeat and
+ * FSE_repeat): not usable, or usable after a check of the counts (its
+ * "valid", usable unchecked, comes only from a dictionary, which c-blosc
+ * never gives) */
+#define ZR_NONE 0
+#define ZR_CHECK 1
+
+/* what a block leaves to the next (ZSTD_entropyCTables_t): the literals'
+ * Huffman table and the literal length, offset and match length tables,
+ * each with its repeat mode */
+typedef struct {
+    int huf_mode;
+    huf_ctable huf;
+    int fse_mode[3];
+    fse_ctable fse[3];
+} zentropy;
+
+static void zentropy_reset(zentropy *e)
+{
+    e->huf_mode = ZR_NONE;
+    for (int f = 0; f < 3; ++f)
+        e->fse_mode[f] = ZR_NONE;
+}
+
+/* HUF_compressCTable_internal: 1 or 4 streams of src[0, n) with table t
+ * at dst + op (a table description before it); the size from dst, 0 for
+ * not compressible */
+static int64_t huf_streams(uint8_t *dst, int64_t op, int64_t cap,
+                           const uint8_t *src, int64_t n, int single,
+                           const huf_ctable *t)
+{
+    if (single) {
+        int64_t c = huf_stream(dst + op, cap - op, src, n, t->nbits, t->code);
+        if (c == 0)
+            return 0;
+        op += c;
+    } else {
+        const int64_t seg = (n + 3) / 4;
+        if (cap - op < 6 + 1 + 1 + 1 + 8 || n < 12)
+            return 0;
+        const int64_t jump = op;
+        op += 6;
+        for (int k = 0; k < 4; ++k) {
+            const int64_t cnt = k < 3 ? seg : n - 3 * seg;
+            int64_t c = huf_stream(dst + op, cap - op, src + k * seg, cnt,
+                                   t->nbits, t->code);
+            if (c == 0 || c > 65535)
+                return 0;
+            if (k < 3) {
+                dst[jump + 2 * k] = (uint8_t)c;
+                dst[jump + 2 * k + 1] = (uint8_t)(c >> 8);
+            }
+            op += c;
+        }
+    }
+    if (op >= n - 1)
+        return 0;
+    return op;
+}
+
+/* HUF_compress1X_repeat / HUF_compress4X_repeat (HUF_compress_internal):
+ * src[0, n) into cap bytes with the earlier table *old (of mode *repeat)
+ * or a new one (its description first, and then *old, *repeat ZR_NONE);
  * 0 for not compressible, 1 for a single symbol (dst[0] that symbol) */
 static int64_t huf_compress(uint8_t *dst, int64_t cap, const uint8_t *src,
-                            int64_t n, int single, int suspect)
+                            int64_t n, int single, int suspect, int prefer,
+                            int *repeat, huf_ctable *old)
 {
     if (n == 0 || cap == 0)
         return 0;
@@ -1482,43 +1563,37 @@ static int64_t huf_compress(uint8_t *dst, int64_t cap, const uint8_t *src,
     }
     if (largest <= (uint64_t)((n >> 7) + 4))
         return 0;
-    const int log = fse_optimal_log(HUF_MAX_BITS, n, maxsym, 1);
-    uint8_t nbits[256];
-    uint16_t code[256];
-    const int longest = huf_build(count, maxsym, log, nbits, code);
-    int64_t h = huf_write_table(dst, cap, nbits, maxsym, longest);
+    if (*repeat == ZR_CHECK) {    /* HUF_validateCTable */
+        int bad = old->maxsym < maxsym;
+        for (int s = 0; !bad && s <= maxsym; ++s)
+            bad = count[s] != 0 && old->nbits[s] == 0;
+        if (bad)
+            *repeat = ZR_NONE;
+    }
+    if (prefer && *repeat != ZR_NONE)
+        return huf_streams(dst, 0, cap, src, n, single, old);
+    huf_ctable t;
+    t.maxsym = maxsym;
+    t.log = huf_build(count, maxsym, fse_optimal_log(HUF_MAX_BITS, n, maxsym, 1),
+                      t.nbits, t.code);
+    const int64_t h = huf_write_table(dst, cap, t.nbits, maxsym, t.log);
     if (h < 0)
         return h;
+    if (*repeat != ZR_NONE) {     /* HUF_estimateCompressedSize of both */
+        uint64_t old_bits = 0, new_bits = 0;
+        for (int s = 0; s <= maxsym; ++s) {
+            old_bits += (uint64_t)old->nbits[s] * count[s];
+            new_bits += (uint64_t)t.nbits[s] * count[s];
+        }
+        if ((int64_t)(old_bits >> 3) <= h + (int64_t)(new_bits >> 3)
+                || h + 12 >= n)
+            return huf_streams(dst, 0, cap, src, n, single, old);
+    }
     if (h + 12 >= n)
         return 0;
-    int64_t op = h;
-    if (single) {
-        int64_t c = huf_stream(dst + op, cap - op, src, n, nbits, code);
-        if (c == 0)
-            return 0;
-        op += c;
-    } else {
-        const int64_t seg = (n + 3) / 4;
-        if (cap - op < 6 + 1 + 1 + 1 + 8 || n < 12)
-            return 0;
-        const int64_t jump = op;
-        op += 6;
-        for (int k = 0; k < 4; ++k) {
-            const int64_t cnt = k < 3 ? seg : n - 3 * seg;
-            int64_t c = huf_stream(dst + op, cap - op, src + k * seg, cnt,
-                                   nbits, code);
-            if (c == 0 || c > 65535)
-                return 0;
-            if (k < 3) {
-                dst[jump + 2 * k] = (uint8_t)c;
-                dst[jump + 2 * k + 1] = (uint8_t)(c >> 8);
-            }
-            op += c;
-        }
-    }
-    if (op >= n - 1)
-        return 0;
-    return op;
+    *repeat = ZR_NONE;
+    *old = t;
+    return huf_streams(dst, h, cap, src, n, single, &t);
 }
 
 /* the header of a raw or RLE literals section */
@@ -1556,34 +1631,52 @@ static int64_t zstd_min_gain(int64_t n)
     return (n >> 6) + 2;
 }
 
-/* ZSTD_compressLiterals with no earlier table, strategy fast or dfast */
+/* ZSTD_compressLiterals: the literals section, with the earlier block's
+ * Huffman table (prev) where it serves (a treeless section); next gets
+ * the table a later block may repeat */
 static int64_t zstd_write_literals(uint8_t *dst, int64_t cap,
-                                   const uint8_t *lit, int64_t n, int suspect)
+                                   const uint8_t *lit, int64_t n, int strat,
+                                   int suspect, const zentropy *prev,
+                                   zentropy *next)
 {
     const int64_t lh = 3 + (n >= 1024) + (n >= 16384);
+    const int shift = 9 - strat < 3 ? 9 - strat : 3;
     const int single = n < 256;
-    if (n < 64)     /* ZSTD_minLiteralsToCompress */
+    int repeat = prev->huf_mode;
+    next->huf_mode = prev->huf_mode;
+    next->huf = prev->huf;
+    /* ZSTD_minLiteralsToCompress */
+    if (n < (int64_t)8 << shift)
         return raw_literals(dst, cap, lit, n);
     if (cap < lh + 1)
         return ZE_SMALL;
-    int64_t c = huf_compress(dst + lh, cap - lh, lit, n, single, suspect);
+    int64_t c = huf_compress(dst + lh, cap - lh, lit, n, single, suspect,
+                             strat < 4 && n <= 1024, &repeat, &next->huf);
     if (c == ERR_NOMEM)
         return c;
-    if (c <= 0 || c >= n - zstd_min_gain(n))
+    const int type = repeat != ZR_NONE ? 3 : 2;
+    if (c <= 0 || c >= n - zstd_min_gain(n)) {
+        next->huf = prev->huf;
         return raw_literals(dst, cap, lit, n);
+    }
     if (c == 1) {
+        next->huf = prev->huf;
         const int64_t fl = literal_header(dst, 1, n);
         dst[fl] = lit[0];
         return fl + 1;
     }
+    if (type == 2)
+        next->huf_mode = ZR_CHECK;
     uint64_t h;
     if (lh == 3)
-        h = 2 | ((uint64_t)!single << 2) | ((uint64_t)n << 4)
+        h = (uint64_t)type | ((uint64_t)!single << 2) | ((uint64_t)n << 4)
             | ((uint64_t)c << 14);
     else if (lh == 4)
-        h = 2 | (2 << 2) | ((uint64_t)n << 4) | ((uint64_t)c << 18);
+        h = (uint64_t)type | (2 << 2) | ((uint64_t)n << 4)
+            | ((uint64_t)c << 18);
     else
-        h = 2 | (3 << 2) | ((uint64_t)n << 4) | ((uint64_t)c << 22);
+        h = (uint64_t)type | (3 << 2) | ((uint64_t)n << 4)
+            | ((uint64_t)c << 22);
     for (int k = 0; k < lh; ++k)
         dst[k] = (uint8_t)(h >> (8 * k));
     return lh + c;
@@ -1606,13 +1699,101 @@ static int code_of(const uint32_t *base, int maxcode, uint32_t v)
     return c;
 }
 
+/* kInverseProbabilityLog256: -log2(i / 256) in 1/256 bits, rounded down */
+static const uint16_t INV_PROB_LOG256[256] = {
+    0, 2048, 1792, 1642, 1536, 1453, 1386, 1329, 1280, 1236, 1197, 1162,
+    1130, 1100, 1073, 1047, 1024, 1001, 980, 960, 941, 923, 906, 889, 874,
+    859, 844, 830, 817, 804, 791, 779, 768, 756, 745, 734, 724, 714, 704,
+    694, 685, 676, 667, 658, 650, 642, 633, 626, 618, 610, 603, 595, 588,
+    581, 574, 567, 561, 554, 548, 542, 535, 529, 523, 517, 512, 506, 500,
+    495, 489, 484, 478, 473, 468, 463, 458, 453, 448, 443, 438, 434, 429,
+    424, 420, 415, 411, 407, 402, 398, 394, 390, 386, 382, 377, 373, 370,
+    366, 362, 358, 354, 350, 347, 343, 339, 336, 332, 329, 325, 322, 318,
+    315, 311, 308, 305, 302, 298, 295, 292, 289, 286, 282, 279, 276, 273,
+    270, 267, 264, 261, 258, 256, 253, 250, 247, 244, 241, 239, 236, 233,
+    230, 228, 225, 222, 220, 217, 215, 212, 209, 207, 204, 202, 199, 197,
+    194, 192, 190, 187, 185, 182, 180, 178, 175, 173, 171, 168, 166, 164,
+    162, 159, 157, 155, 153, 151, 149, 146, 144, 142, 140, 138, 136, 134,
+    132, 130, 128, 126, 123, 121, 119, 117, 115, 114, 112, 110, 108, 106,
+    104, 102, 100, 98, 96, 94, 93, 91, 89, 87, 85, 83, 82, 80, 78, 76, 74,
+    73, 71, 69, 67, 66, 64, 62, 61, 59, 57, 55, 54, 52, 50, 49, 47, 46, 44,
+    42, 41, 39, 37, 36, 34, 33, 31, 30, 28, 26, 25, 23, 22, 20, 19, 17, 16,
+    14, 13, 11, 10, 8, 7, 5, 4, 2, 1};
+
+#define ZCOST_NONE UINT64_MAX    /* libzstd's ERROR(GENERIC) as a cost */
+
+/* ZSTD_crossEntropyCost: the bits of count[0..max] in a default table */
+static uint64_t cross_entropy_cost(const int16_t *norm, int log,
+                                   const uint32_t *count, int max)
+{
+    uint64_t cost = 0;
+    for (int s = 0; s <= max; ++s) {
+        const uint32_t p = norm[s] != -1 ? (uint32_t)norm[s] : 1;
+        cost += (uint64_t)count[s] * INV_PROB_LOG256[p << (8 - log)];
+    }
+    return cost >> 8;
+}
+
+/* ZSTD_fseBitCost: the bits of count[0..max] in an earlier table, or
+ * ZCOST_NONE where it cannot code them */
+static uint64_t fse_bit_cost(const fse_ctable *t, const uint32_t *count,
+                             int max)
+{
+    if (t->maxsym < max)
+        return ZCOST_NONE;
+    const uint32_t log = (uint32_t)t->log, size = 1u << log;
+    uint64_t cost = 0;
+    for (int s = 0; s <= max; ++s) {
+        /* FSE_bitCost at 8 bits of accuracy */
+        const uint32_t min_nb = t->delta_nbits[s] >> 16;
+        const uint32_t delta = ((min_nb + 1) << 16)
+                               - (t->delta_nbits[s] + size);
+        const uint32_t bits = (min_nb + 1) * 256 - ((delta << 8) >> log);
+        if (count[s] == 0)
+            continue;
+        if (bits >= (log + 1) << 8)
+            return ZCOST_NONE;
+        cost += (uint64_t)count[s] * bits;
+    }
+    return cost >> 8;
+}
+
+/* ZSTD_NCountCost: the bytes of a new table's description */
+static uint64_t ncount_cost(const uint32_t *count, int max, int64_t nseq,
+                            int fselog)
+{
+    int16_t norm[ZSTD_MAX_ML + 1];
+    uint8_t buf[512];
+    const int log = fse_optimal_log(fselog, nseq, max, 2);
+    if (fse_normalize(norm, log, count, (uint64_t)nseq, max, nseq >= 2048) < 0)
+        return ZCOST_NONE;
+    const int64_t h = fse_write_ncount(buf, sizeof(buf), norm, max, log);
+    return h < 0 ? ZCOST_NONE : (uint64_t)h;
+}
+
+/* ZSTD_entropyCost: the bits of count[0..max] in a table of their own */
+static uint64_t entropy_cost(const uint32_t *count, int max, int64_t total)
+{
+    uint32_t cost = 0;
+    for (int s = 0; s <= max; ++s) {
+        uint32_t p = (uint32_t)(((uint64_t)256 * count[s]) / (uint64_t)total);
+        if (count[s] != 0 && p == 0)
+            p = 1;
+        cost += count[s] * INV_PROB_LOG256[p];
+    }
+    return cost >> 8;
+}
+
 /* one sequence field (literal length, offset or match length codes):
- * ZSTD_selectEncodingType below strategy lazy and ZSTD_buildCTable; its
- * mode, table and description (at dst, the size returned) */
+ * ZSTD_selectEncodingType and ZSTD_buildCTable, from the earlier block's
+ * table prevt (of mode prevmode); its type (0 predefined, 1 RLE, 2 a new
+ * table, 3 repeat), table t and mode for the next block, and description
+ * (at dst, the size returned) */
 static int64_t seq_field(const uint8_t *codes, int64_t nseq, int maxcode,
                          int fselog, const int16_t *defnorm, int defmax,
-                         int deflog, int strat, fse_ctable *t, int *mode,
-                         uint8_t *dst, int64_t cap)
+                         int deflog, int strat, const fse_ctable *prevt,
+                         int prevmode, fse_ctable *t, int *nextmode,
+                         int *type, uint8_t *dst, int64_t cap)
 {
     uint32_t count[ZSTD_MAX_ML + 1] = {0}, most = 0;
     int max = 0;
@@ -1625,25 +1806,51 @@ static int64_t seq_field(const uint8_t *codes, int64_t nseq, int maxcode,
                 most = count[s];
         }
     const int def_ok = max <= defmax;
+    int mode = prevmode;
     if (most == (uint64_t)nseq) {
-        if (def_ok && nseq <= 2) {
-            *mode = 0;
+        mode = ZR_NONE;
+        *type = def_ok && nseq <= 2 ? 0 : 1;
+    } else if (strat < 4) {
+        if (def_ok && (nseq < (((int64_t)1 << deflog) * (10 - strat)) >> 3
+                       || most < (uint64_t)(nseq >> (deflog - 1)))) {
+            mode = ZR_NONE;
+            *type = 0;
         } else {
-            *mode = 1;
-            t->log = 0;
-            if (cap == 0)
-                return ZE_SMALL;
-            dst[0] = codes[0];
-            return 1;
+            *type = 2;
         }
-    } else if (def_ok && (nseq < (((int64_t)1 << deflog) * (10 - strat)) >> 3
-                          || most < (uint64_t)(nseq >> (deflog - 1)))) {
-        *mode = 0;
     } else {
-        *mode = 2;
+        const uint64_t basic = def_ok ? cross_entropy_cost(defnorm, deflog,
+                                                           count, max)
+                                      : ZCOST_NONE;
+        const uint64_t rep = mode != ZR_NONE ? fse_bit_cost(prevt, count, max)
+                                             : ZCOST_NONE;
+        const uint64_t nc = ncount_cost(count, max, nseq, fselog);
+        const uint64_t comp = nc == ZCOST_NONE ? ZCOST_NONE
+                              : (nc << 3) + entropy_cost(count, max, nseq);
+        if (basic <= rep && basic <= comp) {
+            mode = ZR_NONE;
+            *type = 0;
+        } else {
+            *type = rep <= comp ? 3 : 2;
+        }
     }
-    if (*mode == 0) {
+    if (*type == 2)
+        mode = ZR_CHECK;
+    *nextmode = mode;
+    if (*type == 0) {
         fse_build_ctable(t, defnorm, defmax, deflog);
+        return 0;
+    }
+    if (*type == 1) {
+        t->log = 0;
+        t->maxsym = max;
+        if (cap == 0)
+            return ZE_SMALL;
+        dst[0] = codes[0];
+        return 1;
+    }
+    if (*type == 3) {
+        *t = *prevt;
         return 0;
     }
     const int log = fse_optimal_log(fselog, nseq, max, 2);
@@ -1665,13 +1872,16 @@ static int64_t seq_field(const uint8_t *codes, int64_t nseq, int maxcode,
 }
 
 /* ZSTD_entropyCompressSeqStore_internal: the literals and sequences
- * sections of a block into cap bytes */
+ * sections of a block into cap bytes, from the tables prev left; next
+ * gets what this block leaves */
 static int64_t zstd_write_block_body(const uint8_t *lit, int64_t nlit,
                                      const zseq *seq, int64_t nseq, int strat,
+                                     const zentropy *prev, zentropy *next,
                                      uint8_t *dst, int64_t cap)
 {
     const int suspect = nseq == 0 || nlit / nseq >= 20;
-    int64_t op = zstd_write_literals(dst, cap, lit, nlit, suspect);
+    int64_t op = zstd_write_literals(dst, cap, lit, nlit, strat, suspect,
+                                     prev, next);
     if (op < 0)
         return op;
     if (cap - op < 4)
@@ -1686,15 +1896,16 @@ static int64_t zstd_write_block_body(const uint8_t *lit, int64_t nlit,
         dst[op++] = (uint8_t)(nseq - 0x7F00);
         dst[op++] = (uint8_t)((nseq - 0x7F00) >> 8);
     }
-    if (nseq == 0)
+    if (nseq == 0) {     /* the tables carry over as if repeated */
+        for (int f = 0; f < 3; ++f) {
+            next->fse_mode[f] = prev->fse_mode[f];
+            next->fse[f] = prev->fse[f];
+        }
         return op;
-    uint8_t *llc = (uint8_t *)malloc((size_t)nseq * 3);
-    fse_ctable *t = (fse_ctable *)malloc(3 * sizeof(fse_ctable));
-    if (llc == NULL || t == NULL) {
-        free(llc);
-        free(t);
-        return ERR_NOMEM;
     }
+    uint8_t *llc = (uint8_t *)malloc((size_t)nseq * 3);
+    if (llc == NULL)
+        return ERR_NOMEM;
     uint8_t *mlc = llc + nseq, *ofc = mlc + nseq;
     for (int64_t i = 0; i < nseq; ++i) {
         llc[i] = (uint8_t)code_of(LL_BASE, ZSTD_MAX_LL, seq[i].ll);
@@ -1704,6 +1915,7 @@ static int64_t zstd_write_block_body(const uint8_t *lit, int64_t nlit,
     const int64_t head = op++;
     int m[3];
     int64_t last_count = 0, r = 0, out;
+    fse_ctable *t = next->fse;
     const uint8_t *codes[3] = {llc, ofc, mlc};
     static const int maxc[3] = {ZSTD_MAX_LL, ZSTD_MAX_OF, ZSTD_MAX_ML};
     static const int logs[3] = {ZSTD_LL_LOG, ZSTD_OF_LOG, ZSTD_ML_LOG};
@@ -1713,7 +1925,8 @@ static int64_t zstd_write_block_body(const uint8_t *lit, int64_t nlit,
     const int16_t *defnorm[3] = {LL_DEFAULT, OF_DEFAULT, ML_DEFAULT};
     for (int f = 0; f < 3 && r >= 0; ++f) {
         r = seq_field(codes[f], nseq, maxc[f], logs[f], defnorm[f], defmax[f],
-                      deflog[f], strat, &t[f], &m[f], dst + op, cap - op);
+                      deflog[f], strat, &prev->fse[f], prev->fse_mode[f],
+                      &t[f], &next->fse_mode[f], &m[f], dst + op, cap - op);
         if (r >= 0) {
             if (m[f] == 2)
                 last_count = r;
@@ -1764,7 +1977,6 @@ static int64_t zstd_write_block_body(const uint8_t *lit, int64_t nlit,
     }
 done:
     free(llc);
-    free(t);
     return out;
 }
 
@@ -1772,9 +1984,11 @@ done:
  * block to store raw */
 static int64_t zstd_block_body(const uint8_t *lit, int64_t nlit,
                                const zseq *seq, int64_t nseq, int strat,
+                               const zentropy *prev, zentropy *next,
                                int64_t n, uint8_t *dst, int64_t cap)
 {
-    int64_t c = zstd_write_block_body(lit, nlit, seq, nseq, strat, dst, cap);
+    int64_t c = zstd_write_block_body(lit, nlit, seq, nseq, strat, prev, next,
+                                      dst, cap);
     if (c == ZE_SMALL && n <= cap)
         return 0;
     if (c < 0)
@@ -2055,38 +2269,555 @@ static int64_t zl_dfast(zsink *k, int64_t n, int hlog, int slog, int mls,
     return anchor;
 }
 
-/* libzstd 1.5.7's parameters at level 1 (fast) or 3 (dfast) for a known
- * source of n <= 128 KiB bytes: the row of its table for the size, then
- * ZSTD_adjustCParams_internal (window, hash and chain logs cut to the
- * source) */
+/* libzstd 1.5.7's parameters at level 1, 3, 5, 7 or 9 for a known source
+ * of n <= 256 KiB bytes: the row of its table for the size (up to 16 KiB,
+ * 128 KiB, 256 KiB), then ZSTD_adjustCParams_internal (window, hash and
+ * chain logs cut to the source) */
 typedef struct {
-    int hlog, clog, mls, strat;
+    int wlog, clog, hlog, slog, mls, strat;
 } zparams;
+
+/* strategies: fast, dfast, greedy, lazy, lazy2, btlazy2 */
+#define ZST_FAST 1
+#define ZST_DFAST 2
+#define ZST_GREEDY 3
+#define ZST_LAZY 4
+#define ZST_BTLAZY2 6
 
 static zparams zstd_lib_params(int level, int64_t n)
 {
-    const int small = n <= 16 * 1024;
-    zparams p;
-    int wlog = small ? 14 : 17;
-    if (level == 1) {
-        p.clog = small ? 14 : 12;
-        p.hlog = small ? 15 : 13;
-        p.mls = small ? 5 : 6;
-        p.strat = 1;
-    } else {
-        p.clog = small ? 14 : 15;
-        p.hlog = small ? 15 : 16;
-        p.mls = small ? 4 : 5;
-        p.strat = 2;
-    }
+    /* W, C, H, S, L, strategy of levels 1, 3, 5, 7, 9 */
+    static const int8_t rows[3][5][6] = {
+        {{14, 14, 15, 1, 5, 1}, {14, 14, 15, 2, 4, 2}, {14, 14, 14, 3, 4, 4},
+         {14, 14, 14, 6, 4, 5}, {14, 15, 14, 5, 4, 6}},
+        {{17, 12, 13, 1, 6, 1}, {17, 15, 16, 2, 5, 2}, {17, 16, 17, 3, 4, 3},
+         {17, 16, 17, 3, 4, 5}, {17, 16, 17, 5, 4, 5}},
+        {{18, 13, 14, 1, 6, 1}, {18, 16, 16, 1, 4, 2}, {18, 17, 18, 5, 5, 3},
+         {18, 18, 19, 4, 4, 4}, {18, 18, 19, 5, 4, 5}}};
+    const int8_t *r = rows[n <= 16 * 1024 ? 0 : n <= 128 * 1024 ? 1 : 2]
+                          [(level - 1) / 2];
+    zparams p = {r[0], r[1], r[2], r[3], r[4], r[5]};
     const int srclog = n < 64 ? 6 : highbit32((uint32_t)(n - 1)) + 1;
-    if (wlog > srclog)
-        wlog = srclog;
-    if (p.hlog > wlog + 1)
-        p.hlog = wlog + 1;
-    if (p.clog > wlog)
-        p.clog = wlog;
+    if (p.wlog > srclog)
+        p.wlog = srclog;
+    if (p.hlog > p.wlog + 1)
+        p.hlog = p.wlog + 1;
+    const int cycle = p.clog - (p.strat >= ZST_BTLAZY2);
+    if (cycle > p.wlog)
+        p.clog -= cycle - p.wlog;
+    if (p.wlog < 10)
+        p.wlog = 10;
     return p;
+}
+
+/* ------------------------------------------ libzstd's lazy matchers */
+
+/* search methods: hash chain, row hash, binary tree */
+#define ZS_HC 0
+#define ZS_ROW 1
+#define ZS_BT 2
+
+/* ZSTD_MatchState_t for the lazy parsers on one frame: positions are
+ * libzstd's indices, the frame's byte p at index p + 2 */
+typedef struct {
+    const uint8_t *src;
+    int search, depth, hlog, clog, slog, mls, wlog, rowlog;
+    uint32_t *ht;       /* hash table; the row matcher's rows */
+    uint32_t *chain;    /* hash chain, or the binary tree's pairs */
+    uint8_t *tags;      /* the row matcher's tags, each row's head first */
+    uint32_t next;      /* nextToUpdate */
+    int skipping;       /* lazySkipping */
+} zlazy;
+
+#define ZB(z, idx) ((z)->src + (idx) - 2)
+
+/* ZSTD_getLowestMatchIndex (no dictionary) */
+static uint32_t zl_low(const zlazy *z, uint32_t curr)
+{
+    const uint32_t maxd = 1u << z->wlog;
+    return curr - 2 > maxd ? curr - maxd : 2;
+}
+
+/* ZSTD_HcFindBestMatch: the longest of 2^slog candidates in the chain of
+ * ip's hash (ZSTD_insertAndFindFirstIndex enters the positions before ip;
+ * in lazy skipping only the first of them) */
+static int64_t zhc_find(zlazy *z, int64_t ip, int64_t iend, uint32_t *ofb)
+{
+    const uint8_t *src = z->src;
+    const uint32_t curr = (uint32_t)ip + 2, csize = 1u << z->clog;
+    const uint32_t mask = csize - 1, low = zl_low(z, curr);
+    const uint32_t minchain = curr > csize ? curr - csize : 0;
+    uint32_t attempts = 1u << z->slog;
+    for (uint32_t idx = z->next; idx < curr;) {
+        const uint32_t h = zl_hash(ZB(z, idx), z->hlog, z->mls);
+        z->chain[idx & mask] = z->ht[h];
+        z->ht[h] = idx++;
+        if (z->skipping)
+            break;
+    }
+    z->next = curr;
+    uint32_t m = z->ht[zl_hash(src + ip, z->hlog, z->mls)];
+    int64_t ml = 3;
+    for (; m >= low && attempts > 0; attempts--) {
+        const int64_t mp = (int64_t)m - 2;
+        int64_t len = 0;
+        if (read32(src + mp + ml - 3) == read32(src + ip + ml - 3))
+            len = common_len(src + ip, src + mp, src + iend);
+        if (len > ml) {
+            ml = len;
+            *ofb = curr - m + 3;
+            if (ip + len == iend)
+                break;
+        }
+        if (m <= minchain)
+            break;
+        m = z->chain[m & mask];
+    }
+    return ml;
+}
+
+/* the row matcher's hash of index idx: its row above 8 bits of tag */
+static uint32_t zrow_hash(const zlazy *z, uint32_t idx)
+{
+    return zl_hash(ZB(z, idx), z->hlog - z->rowlog + 8, z->mls);
+}
+
+/* ZSTD_row_nextIndex: the row's next slot, cycling down through
+ * [1, entries) (slot 0 holds the head) */
+static uint32_t zrow_slot(uint8_t *tagrow, uint32_t mask)
+{
+    uint32_t next = (uint32_t)(tagrow[0] - 1) & mask;
+    next += next == 0 ? mask : 0;
+    tagrow[0] = (uint8_t)next;
+    return next;
+}
+
+static void zrow_insert(zlazy *z, uint32_t idx)
+{
+    /* the row 8 positions on, fetched ahead as libzstd's hash cache does
+     * (its bytes lie within the block) */
+    const uint32_t ahead = (zrow_hash(z, idx + 8) >> 8) << z->rowlog;
+    __builtin_prefetch(z->tags + ahead);
+    __builtin_prefetch(z->ht + ahead);
+    const uint32_t h = zrow_hash(z, idx);
+    const uint32_t rel = (h >> 8) << z->rowlog;
+    const uint32_t slot = zrow_slot(z->tags + rel, (1u << z->rowlog) - 1);
+    z->tags[rel + slot] = (uint8_t)h;
+    z->ht[rel + slot] = idx;
+}
+
+/* ZSTD_RowFindBestMatch: the rows' candidates of ip's tag from the
+ * newest, at most 2^min(slog, rowlog), then ip entered. The positions
+ * before ip are entered first (ZSTD_row_update_internal: past a long
+ * match only its first 96 and last 32), none in lazy skipping. libzstd's
+ * hash cache holds these same hashes and its salt permutes the rows and
+ * tags alike, so neither changes a candidate. */
+static int64_t zrow_find(zlazy *z, int64_t ip, int64_t iend, uint32_t *ofb)
+{
+    const uint8_t *src = z->src;
+    const uint32_t curr = (uint32_t)ip + 2, low = zl_low(z, curr);
+    const uint32_t entries = 1u << z->rowlog, mask = entries - 1;
+    uint32_t attempts = 1u << (z->slog < z->rowlog ? z->slog : z->rowlog);
+    if (!z->skipping) {
+        uint32_t idx = z->next;
+        if (curr - idx > 384) {
+            for (const uint32_t bound = idx + 96; idx < bound; ++idx)
+                zrow_insert(z, idx);
+            idx = curr - 32;
+        }
+        for (; idx < curr; ++idx)
+            zrow_insert(z, idx);
+    }
+    z->next = curr;
+    const uint32_t h = zrow_hash(z, curr);
+    const uint32_t rel = (h >> 8) << z->rowlog;
+    uint8_t *tagrow = z->tags + rel;
+    uint32_t *row = z->ht + rel;
+    const uint32_t head = tagrow[0] & mask;
+    uint32_t cand[64];
+    int nc = 0;
+    /* the slots holding the tag (8 at a time), rotated to start at the
+     * head: the newest first (ZSTD_row_getMatchMask) */
+    uint64_t hits = 0;
+    for (uint32_t w = 0; w < entries; w += 8) {
+        uint64_t x;
+        memcpy(&x, tagrow + w, 8);
+        x ^= 0x0101010101010101ULL * (uint8_t)h;
+        const uint64_t low7 = 0x7F7F7F7F7F7F7F7FULL;
+        const uint64_t zero = ~(((x & low7) + low7) | x | low7);
+        hits |= ((zero >> 7) * 0x0102040810204080ULL) >> 56 << w;
+    }
+    if (head)
+        hits = (hits >> head) | (hits << (entries - head));
+    if (entries < 64)
+        hits &= (1ULL << entries) - 1;
+    for (; hits && attempts > 0; hits &= hits - 1) {
+        const uint32_t slot = (head + (uint32_t)__builtin_ctzll(hits)) & mask;
+        if (slot == 0)
+            continue;
+        if (row[slot] < low)
+            break;
+        __builtin_prefetch(ZB(z, row[slot]));
+        cand[nc++] = row[slot];
+        attempts--;
+    }
+    const uint32_t slot = zrow_slot(tagrow, mask);
+    tagrow[slot] = (uint8_t)h;
+    row[slot] = z->next++;
+    int64_t ml = 3;
+    for (int c = 0; c < nc; ++c) {
+        const int64_t mp = (int64_t)cand[c] - 2;
+        int64_t len = 0;
+        if (read32(src + mp + ml - 3) == read32(src + ip + ml - 3))
+            len = common_len(src + ip, src + mp, src + iend);
+        if (len > ml) {
+            ml = len;
+            *ofb = curr - cand[c] + 3;
+            if (ip + len == iend)
+                break;
+        }
+    }
+    return ml;
+}
+
+#define DUBT_UNSORTED 1
+
+/* ZSTD_insertDUBT1: sort index curr into the tree, at most nbcmp
+ * comparisons, none at or below btlow */
+static void zbt_insert1(zlazy *z, uint32_t curr, int64_t iend, uint32_t nbcmp,
+                        uint32_t btlow)
+{
+    uint32_t *bt = z->chain;
+    const uint32_t btmask = (1u << (z->clog - 1)) - 1;
+    const uint8_t *ip = ZB(z, curr), *end = z->src + iend;
+    uint32_t *smaller = bt + 2 * (curr & btmask), *larger = smaller + 1;
+    uint32_t m = *smaller, dummy;
+    const uint32_t wlow = zl_low(z, curr);
+    int64_t cs = 0, cl = 0;
+    for (; nbcmp && m > wlow; --nbcmp) {
+        uint32_t *nextp = bt + 2 * (m & btmask);
+        const uint8_t *match = ZB(z, m);
+        int64_t ml = cs < cl ? cs : cl;
+        ml += common_len(ip + ml, match + ml, end);
+        if (ip + ml == end)
+            break;
+        if (match[ml] < ip[ml]) {
+            *smaller = m;
+            cs = ml;
+            if (m <= btlow) {
+                smaller = &dummy;
+                break;
+            }
+            smaller = nextp + 1;
+            m = nextp[1];
+        } else {
+            *larger = m;
+            cl = ml;
+            if (m <= btlow) {
+                larger = &dummy;
+                break;
+            }
+            larger = nextp;
+            m = nextp[0];
+        }
+    }
+    *smaller = *larger = 0;
+}
+
+/* ZSTD_BtFindBestMatch: ZSTD_updateDUBT enters the positions before ip
+ * unsorted, ZSTD_DUBT_findBestMatch sorts the newest of ip's hash and
+ * searches the tree for the match of the best gain; nothing inside the
+ * area a long match skipped */
+static int64_t zbt_find(zlazy *z, int64_t ip, int64_t iend, uint32_t *ofb)
+{
+    uint32_t *bt = z->chain, *ht = z->ht;
+    const uint32_t btmask = (1u << (z->clog - 1)) - 1;
+    const uint32_t curr = (uint32_t)ip + 2;
+    if (curr < z->next)
+        return 0;
+    for (uint32_t idx = z->next; idx < curr; ++idx) {
+        const uint32_t h = zl_hash(ZB(z, idx), z->hlog, z->mls);
+        bt[2 * (idx & btmask)] = ht[h];
+        bt[2 * (idx & btmask) + 1] = DUBT_UNSORTED;
+        ht[h] = idx;
+    }
+    z->next = curr;
+    const uint32_t h = zl_hash(z->src + ip, z->hlog, z->mls);
+    const uint32_t wlow = zl_low(z, curr);
+    const uint32_t btlow = btmask >= curr ? 0 : curr - btmask;
+    const uint32_t unsort_limit = btlow > wlow ? btlow : wlow;
+    uint32_t nbcmp = 1u << z->slog, nbcand = nbcmp, prev = 0;
+    uint32_t m = ht[h];
+    uint32_t *next_cand = bt + 2 * (m & btmask), *mark = next_cand + 1;
+    while (m > unsort_limit && *mark == DUBT_UNSORTED && nbcand > 1) {
+        *mark = prev;     /* a chain back up to the newest */
+        prev = m;
+        m = *next_cand;
+        next_cand = bt + 2 * (m & btmask);
+        mark = next_cand + 1;
+        nbcand--;
+    }
+    if (m > unsort_limit && *mark == DUBT_UNSORTED)
+        *next_cand = *mark = 0;
+    for (m = prev; m;) {
+        const uint32_t up = bt[2 * (m & btmask) + 1];
+        zbt_insert1(z, m, iend, nbcand, unsort_limit);
+        m = up;
+        nbcand++;
+    }
+    const uint8_t *in = z->src + ip, *end = z->src + iend;
+    uint32_t *smaller = bt + 2 * (curr & btmask), *larger = smaller + 1;
+    uint32_t match_end = curr + 8 + 1, dummy;
+    int64_t cs = 0, cl = 0, best = 0;
+    m = ht[h];
+    ht[h] = curr;
+    for (; nbcmp && m > wlow; --nbcmp) {
+        uint32_t *nextp = bt + 2 * (m & btmask);
+        const uint8_t *match = ZB(z, m);
+        int64_t ml = cs < cl ? cs : cl;
+        ml += common_len(in + ml, match + ml, end);
+        if (ml > best) {
+            if (ml > (int64_t)(match_end - m))
+                match_end = m + (uint32_t)ml;
+            if (4 * (int)(ml - best) > (int)((uint32_t)highbit32(curr - m + 1)
+                                             - (uint32_t)highbit32(*ofb))) {
+                best = ml;
+                *ofb = curr - m + 3;
+            }
+            if (in + ml == end)
+                break;
+        }
+        if (match[ml] < in[ml]) {
+            *smaller = m;
+            cs = ml;
+            if (m <= btlow) {
+                smaller = &dummy;
+                break;
+            }
+            smaller = nextp + 1;
+            m = nextp[1];
+        } else {
+            *larger = m;
+            cl = ml;
+            if (m <= btlow) {
+                larger = &dummy;
+                break;
+            }
+            larger = nextp;
+            m = nextp[0];
+        }
+    }
+    *smaller = *larger = 0;
+    z->next = match_end - 8;     /* skip repetitive patterns */
+    return best;
+}
+
+static int64_t zlazy_find(zlazy *z, int64_t ip, int64_t iend, uint32_t *ofb)
+{
+    *ofb = 999999999;    /* libzstd's start, whose high bit the gains read */
+    if (z->search == ZS_ROW)
+        return zrow_find(z, ip, iend, ofb);
+    if (z->search == ZS_BT)
+        return zbt_find(z, ip, iend, ofb);
+    return zhc_find(z, ip, iend, ofb);
+}
+
+/* ZSTD_compressBlock_lazy_generic (no dictionary) at depth 0 (greedy), 1
+ * (lazy) or 2 (lazy2, btlazy2) on block [istart, iend) of the frame: its
+ * sequences into k, rep[0] and rep[1] carried; returns where its last
+ * literals start */
+static int64_t zlazy_block(zlazy *z, zsink *k, int64_t istart, int64_t iend,
+                           uint32_t *rep)
+{
+    const uint8_t *src = z->src;
+    const int depth = z->depth;
+    const int64_t ilimit = iend - 8 - (z->search == ZS_ROW ? 8 : 0);
+    int64_t ip = istart + (istart == 0), anchor = istart;
+    uint32_t off1 = rep[0], off2 = rep[1], saved1 = 0, saved2 = 0;
+    {
+        const uint32_t curr = (uint32_t)ip + 2;
+        const uint32_t maxrep = curr - zl_low(z, curr);
+        if (off2 > maxrep) {
+            saved2 = off2;
+            off2 = 0;
+        }
+        if (off1 > maxrep) {
+            saved1 = off1;
+            off1 = 0;
+        }
+    }
+    z->skipping = 0;
+    while (ip < ilimit) {
+        int64_t ml = 0, start = ip + 1;
+        uint32_t ofb = 1, found;
+        if (off1 > 0 && read32(src + ip + 1 - off1) == read32(src + ip + 1)) {
+            ml = common_len(src + ip + 5, src + ip + 5 - off1, src + iend) + 4;
+            if (depth == 0)
+                goto store;
+        }
+        {
+            const int64_t ml2 = zlazy_find(z, ip, iend, &found);
+            if (ml2 > ml) {
+                ml = ml2;
+                start = ip;
+                ofb = found;
+            }
+        }
+        if (ml < 4) {
+            const int64_t step = ((ip - anchor) >> 8) + 1;
+            ip += step;
+            z->skipping = step > 8;
+            continue;
+        }
+        /* a better match one or two positions on? */
+        while (depth >= 1 && ip < ilimit) {
+            ip++;
+            if (off1 > 0 && read32(src + ip) == read32(src + ip - off1)) {
+                const int64_t mlrep = common_len(src + ip + 4,
+                                                 src + ip + 4 - off1,
+                                                 src + iend) + 4;
+                const int gain2 = (int)(mlrep * 3);
+                const int gain1 = (int)(ml * 3 - highbit32(ofb) + 1);
+                if (mlrep >= 4 && gain2 > gain1) {
+                    ml = mlrep;
+                    ofb = 1;
+                    start = ip;
+                }
+            }
+            {
+                const int64_t ml2 = zlazy_find(z, ip, iend, &found);
+                const int gain2 = (int)(ml2 * 4 - highbit32(found));
+                const int gain1 = (int)(ml * 4 - highbit32(ofb) + 4);
+                if (ml2 >= 4 && gain2 > gain1) {
+                    ml = ml2;
+                    ofb = found;
+                    start = ip;
+                    continue;
+                }
+            }
+            if (depth == 2 && ip < ilimit) {
+                ip++;
+                if (off1 > 0 && read32(src + ip) == read32(src + ip - off1)) {
+                    const int64_t mlrep = common_len(src + ip + 4,
+                                                     src + ip + 4 - off1,
+                                                     src + iend) + 4;
+                    const int gain2 = (int)(mlrep * 4);
+                    const int gain1 = (int)(ml * 4 - highbit32(ofb) + 1);
+                    if (mlrep >= 4 && gain2 > gain1) {
+                        ml = mlrep;
+                        ofb = 1;
+                        start = ip;
+                    }
+                }
+                const int64_t ml2 = zlazy_find(z, ip, iend, &found);
+                const int gain2 = (int)(ml2 * 4 - highbit32(found));
+                const int gain1 = (int)(ml * 4 - highbit32(ofb) + 7);
+                if (ml2 >= 4 && gain2 > gain1) {
+                    ml = ml2;
+                    ofb = found;
+                    start = ip;
+                    continue;
+                }
+            }
+            break;
+        }
+        if (ofb > 3) {      /* a new offset: catch up backwards */
+            const uint32_t off = ofb - 3;
+            while (start > anchor && start - off > 0
+                   && src[start - 1] == src[start - off - 1]) {
+                start--;
+                ml++;
+            }
+            off2 = off1;
+            off1 = off;
+        }
+store:
+        zsink_store(k, anchor, start - anchor, ofb, ml);
+        anchor = ip = start + ml;
+        z->skipping = 0;
+        /* the second repeat offset, at once */
+        while (ip <= ilimit && off2 > 0
+               && read32(src + ip) == read32(src + ip - off2)) {
+            ml = common_len(src + ip + 4, src + ip + 4 - off2, src + iend) + 4;
+            const uint32_t t = off2;
+            off2 = off1;
+            off1 = t;
+            zsink_store(k, anchor, 0, 1, ml);
+            ip += ml;
+            anchor = ip;
+        }
+    }
+    if (saved1 != 0 && off1 != 0)
+        saved2 = saved1;
+    rep[0] = off1 ? off1 : saved1;
+    rep[1] = off2 ? off2 : saved2;
+    return anchor;
+}
+
+/* ------------------------------------------------- the block splitter */
+
+/* a fingerprint of byte pairs (lib/compress/zstd_preSplit.c) */
+typedef struct {
+    uint32_t events[1024];
+    uint64_t nb;
+} zfprint;
+
+static void zfp_record(zfprint *f, const uint8_t *p, int rate, int hlog)
+{
+    const int64_t limit = 8192 - 2 + 1;
+    memset(f->events, 0, sizeof(uint32_t) << hlog);
+    for (int64_t i = 0; i < limit; i += rate) {
+        const uint32_t pair = (uint32_t)p[i] | (uint32_t)p[i + 1] << 8;
+        f->events[hlog == 8 ? p[i] : (pair * 0x9E3779B9u) >> (32 - hlog)]++;
+    }
+    f->nb = (uint64_t)(limit / rate);
+}
+
+/* ZSTD_splitBlock_byChunks at level 1-4 (sampling rates 43, 11, 5, 1):
+ * the first 8 KiB step of a full block whose fingerprint differs from the
+ * steps before it, or the whole block */
+static int64_t zstd_split_block(const uint8_t *p, int level)
+{
+    static const int rates[4] = {43, 11, 5, 1}, hlogs[4] = {8, 9, 10, 10};
+    const int rate = rates[level - 1], hlog = hlogs[level - 1];
+    zfprint *f = (zfprint *)calloc(2, sizeof(zfprint));
+    if (f == NULL)
+        return ERR_NOMEM;
+    int penalty = 3;
+    int64_t pos;
+    zfp_record(&f[0], p, rate, hlog);
+    for (pos = 8192; pos <= ZSTD_BLOCK_MAX - 8192; pos += 8192) {
+        zfp_record(&f[1], p + pos, rate, hlog);
+        uint64_t dist = 0;
+        for (int e = 0; e < (1 << hlog); ++e) {
+            const int64_t d = (int64_t)f[0].events[e] * (int64_t)f[1].nb
+                              - (int64_t)f[1].events[e] * (int64_t)f[0].nb;
+            dist += (uint64_t)(d < 0 ? -d : d);
+        }
+        if (dist >= f[0].nb * f[1].nb * (uint64_t)(14 + penalty) / 16)
+            break;
+        for (int e = 0; e < 1024; ++e)
+            f[0].events[e] += f[1].events[e];
+        f[0].nb += f[1].nb;
+        if (penalty > 0)
+            penalty--;
+    }
+    free(f);
+    return pos <= ZSTD_BLOCK_MAX - 8192 ? pos : ZSTD_BLOCK_MAX;
+}
+
+/* ZSTD_optimalBlockSize: a full block is split only after the frame has
+ * saved 3 bytes or more (so never the first block); fast (level 0, split
+ * from the borders) never reaches it, its frames here holding one block */
+static int64_t zstd_block_size(const uint8_t *p, int64_t remaining,
+                               int strat, int64_t savings)
+{
+    static const int levels[7] = {0, 0, 1, 2, 2, 3, 3};
+    if (remaining < ZSTD_BLOCK_MAX)
+        return remaining;
+    if (savings < 3 || levels[strat] == 0)
+        return ZSTD_BLOCK_MAX;
+    return zstd_split_block(p, levels[strat]);
 }
 
 /* ---------------------------------------------- the port's own matcher */
@@ -2208,7 +2939,8 @@ int64_t zstd_compress(const uint8_t *src, int64_t n, uint8_t *dst,
     /* ZSTD_writeFrameHeader wants room for the largest header */
     if (cap < 18)
         return 0;
-    const int lib = (clevel == 1 || clevel == 2) && n <= ZSTD_LIB_MAXSRC;
+    const int lib = ((clevel == 1 || clevel == 2) && n <= ZSTD_BLOCK_MAX)
+                    || (clevel >= 3 && clevel <= 5 && n <= ZSTD_LIB_MAXSRC);
     int64_t pos = 4;
     write32(dst, ZSTD_MAGIC);
     if (n < 256) {
@@ -2229,67 +2961,124 @@ int64_t zstd_compress(const uint8_t *src, int64_t n, uint8_t *dst,
         return pos + 3;
     }
     int64_t bmax = n < ZSTD_BLOCK_MAX ? n : ZSTD_BLOCK_MAX;
-    zparams p = {0, 0, 0, 2};
+    zparams p = {0, 0, 0, 0, 0, ZST_DFAST};
     zmatcher m = {src, n, 0, 0, zstd_depth(clevel), NULL, NULL};
+    zlazy z;
+    memset(&z, 0, sizeof(z));
     uint32_t *ht = NULL;
     zsink k = {src, NULL, 0, NULL, 0};
+    zentropy *ent = (zentropy *)malloc(2 * sizeof(zentropy));
     int64_t rc = 0;
     k.seq = (zseq *)malloc(sizeof(zseq) * (size_t)(bmax / 3 + 1));
     k.lit = (uint8_t *)malloc((size_t)bmax + 1);
+    int ok = k.seq != NULL && k.lit != NULL && ent != NULL;
     if (lib) {
         p = zstd_lib_params(2 * clevel - 1, n);
-        size_t cells = ((size_t)1 << p.hlog)
-                       + (p.strat == 2 ? (size_t)1 << p.clog : 0);
+        size_t cells = (size_t)1 << p.hlog;
+        if (p.strat == ZST_DFAST)
+            cells += (size_t)1 << p.clog;
+        if (p.strat >= ZST_GREEDY) {
+            z.src = src;
+            z.depth = p.strat == ZST_GREEDY ? 0 : p.strat == ZST_LAZY ? 1 : 2;
+            z.search = p.strat == ZST_BTLAZY2 ? ZS_BT
+                       : p.wlog > 14 ? ZS_ROW : ZS_HC;
+            z.hlog = p.hlog;
+            z.clog = p.clog;
+            z.slog = p.slog;
+            z.wlog = p.wlog;
+            z.mls = p.mls < 4 ? 4 : p.mls > 6 ? 6 : p.mls;
+            z.rowlog = p.slog < 4 ? 4 : p.slog > 6 ? 6 : p.slog;
+            z.next = 2;
+            if (z.search == ZS_ROW)
+                z.tags = (uint8_t *)calloc(cells, 1);
+            else
+                z.chain = (uint32_t *)calloc((size_t)1 << p.clog,
+                                             sizeof(uint32_t));
+            ok = ok && (z.tags != NULL || z.chain != NULL);
+        }
         ht = (uint32_t *)calloc(cells, sizeof(uint32_t));
+        z.ht = ht;
+        ok = ok && ht != NULL;
     } else {
         int hlog = n > 1 ? highbit32((uint32_t)(n - 1)) : 10;
         m.hlog = hlog < 10 ? 10 : hlog > 17 ? 17 : hlog;
         m.head = (int32_t *)malloc(sizeof(int32_t) << m.hlog);
         if (m.depth > 1)
             m.chain = (int32_t *)malloc(sizeof(int32_t) * (size_t)(n + 1));
+        ok = ok && m.head != NULL && (m.depth == 1 || m.chain != NULL);
     }
-    if (k.seq == NULL || k.lit == NULL || (lib && ht == NULL)
-            || (!lib && (m.head == NULL || (m.depth > 1 && m.chain == NULL)))) {
+    if (!ok) {
         rc = ERR_NOMEM;
         goto done;
     }
     if (!lib)
         for (int i = 0; i < (1 << m.hlog); ++i)
             m.head[i] = -1;
+    /* the tables of the last compressed block, and a block's own */
+    zentropy *prev = &ent[0], *next = &ent[1];
+    zentropy_reset(prev);
     uint32_t rep[3] = {1, 4, 8};
-    int64_t bstart = 0;
+    int64_t bstart = 0, savings = 0;
     do {
-        const int64_t bend = n - bstart <= ZSTD_BLOCK_MAX ? n
-                             : bstart + ZSTD_BLOCK_MAX;
-        const int64_t bn = bend - bstart;
+        const int64_t bn = lib ? zstd_block_size(src + bstart, n - bstart,
+                                                 p.strat, savings)
+                               : n - bstart < ZSTD_BLOCK_MAX ? n - bstart
+                                                            : ZSTD_BLOCK_MAX;
+        if (bn < 0) {
+            rc = bn;
+            goto done;
+        }
+        const int64_t bend = bstart + bn;
         const int last = bend == n;
         const int64_t room = cap - pos;
         uint32_t saved[3] = {rep[0], rep[1], rep[2]};
         int64_t c = 0;
+        int rle = 0;
+        if (room < 3 + 2 + 1) {
+            rc = 0;
+            goto done;
+        }
         /* ZSTD_buildSeqStore: no attempt under 7 bytes */
         if (bn >= 7) {
             int64_t tail;
             k.nseq = k.nlit = 0;
-            if (!lib)
+            if (!lib) {
                 tail = zm_block(&m, &k, bstart, bend, rep);
-            else if (p.strat == 1)
+            } else if (p.strat == ZST_FAST) {
                 tail = zl_fast(&k, n, p.hlog, p.mls, ht);
-            else
+            } else if (p.strat == ZST_DFAST) {
                 tail = zl_dfast(&k, n, p.hlog, p.clog, p.mls, ht,
                                 ht + ((size_t)1 << p.hlog));
+            } else {
+                /* a limited update after a very long match */
+                const uint32_t curr = (uint32_t)bstart + 2;
+                if (curr > z.next + 384)
+                    z.next = curr - (curr - z.next - 384 < 192
+                                     ? curr - z.next - 384 : 192);
+                tail = zlazy_block(&z, &k, bstart, bend, rep);
+            }
             memcpy(k.lit + k.nlit, src + tail, (size_t)(bend - tail));
             k.nlit += bend - tail;
-            c = zstd_block_body(k.lit, k.nlit, k.seq, k.nseq, p.strat, bn,
-                                dst + pos + 3, room - 3);
-            if (c < 0) {
-                rc = c == ERR_NOMEM ? c : 0;
-                goto done;
+            /* a later block of one byte value is an RLE block (libzstd's
+             * first block never is): at once where its sequences are few,
+             * else where it codes to under 25 bytes */
+            if (bstart > 0 && k.nseq < 4 && k.nlit < 10
+                    && all_same(src + bstart, bn)) {
+                rle = 1;
+            } else {
+                c = zstd_block_body(k.lit, k.nlit, k.seq, k.nseq, p.strat,
+                                    prev, next, bn, dst + pos + 3, room - 3);
+                if (c < 0) {
+                    rc = c == ERR_NOMEM ? c : 0;
+                    goto done;
+                }
+                rle = bstart > 0 && c < 25 && all_same(src + bstart, bn);
             }
         }
         int btype = 2;
         int64_t size = c;
-        if (bstart > 0 && c < 25 && room >= 4 && all_same(src + bstart, bn)) {
-            btype = 1;    /* never the first block, as in libzstd */
+        if (rle) {
+            btype = 1;
             size = bn;
             dst[pos + 3] = src[bstart];
             c = 1;
@@ -2303,22 +3092,32 @@ int64_t zstd_compress(const uint8_t *src, int64_t n, uint8_t *dst,
             memcpy(dst + pos + 3, src + bstart, (size_t)bn);
             c = bn;
         }
-        if (btype != 2)
+        if (btype == 2) {
+            /* ZSTD_blockState_confirmRepcodesAndEntropyTables */
+            zentropy *t = prev;
+            prev = next;
+            next = t;
+        } else {
             memcpy(rep, saved, sizeof(rep));
+        }
         const uint32_t bh = (uint32_t)last | (uint32_t)(btype << 1)
                             | (uint32_t)(size << 3);
         dst[pos] = (uint8_t)bh;
         dst[pos + 1] = (uint8_t)(bh >> 8);
         dst[pos + 2] = (uint8_t)(bh >> 16);
         pos += 3 + c;
+        savings += bn - (3 + c);
         bstart = bend;
     } while (bstart < n);
     rc = pos;
 done:
     free(ht);
+    free(z.chain);
+    free(z.tags);
     free(m.head);
     free(m.chain);
     free(k.seq);
     free(k.lit);
+    free(ent);
     return rc;
 }

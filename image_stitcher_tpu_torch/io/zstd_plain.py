@@ -11,21 +11,26 @@ a content checksum is skipped, a dictionary refused.
 
 :func:`compress` writes byte for byte the C encoder's frames, within an
 output capacity as c-blosc gives it:
-- at clevel 1 and 2 and inputs of at most 128 KiB (every blosc block at
-  those clevels), libzstd 1.5.7's ``ZSTD_compressCCtx`` frame at level
-  ``2 * clevel - 1`` (c-blosc's map; 1 is the fast matcher, 3 dfast):
-  its parameters for the source size (``lib_params``), its matchers
-  (:func:`_fast`, :func:`_dfast`), its entropy stage (Huffman literals
-  with ``HUF_buildCTable``'s sort, tree and height limit, raw or RLE
-  literals; ``ZSTD_selectEncodingType`` below strategy lazy and
-  ``FSE_normalizeCount`` for the sequences), its block choice
-  (``ZSTD_minGain``; a raw block otherwise) and its room checks, each
-  failure giving ``b''``, where c-blosc stores the block;
+- at clevel 1 to 5 and inputs of at most 128 KiB (clevel 1 and 2) or 256
+  KiB (clevel 3 to 5; every blosc block at those clevels), libzstd
+  1.5.7's ``ZSTD_compressCCtx`` frame at level ``2 * clevel - 1`` (c-blosc's
+  map: 1, 3, 5, 7, 9): its parameters for the source size
+  (``lib_params``), its matchers (:func:`_fast`, :func:`_dfast`, and
+  :class:`_Lazy`: the greedy, lazy and lazy2 parsers over the row hash,
+  the hash chain of windows up to 16 KiB, and btlazy2's binary tree at
+  level 9 up to 16 KiB), its blocks (128 KiB, a full second block cut by
+  its pre-splitter, :func:`_split_block`), its entropy stage (Huffman
+  literals with ``HUF_buildCTable``'s sort, tree and height limit, an
+  earlier block's table repeated where it serves, raw or RLE literals;
+  ``ZSTD_selectEncodingType``'s shortcuts below strategy lazy and its
+  cost comparisons from lazy up, and ``FSE_normalizeCount`` for the
+  sequences), its block choice (``ZSTD_minGain``; a raw block otherwise,
+  an RLE block for a later block of one byte value), and its room checks,
+  each failure giving ``b''``, where c-blosc stores the block;
 - at every other clevel, and for longer inputs, the port's own matcher
   (:func:`_own_block`: a greedy hash chain over the whole frame, search
   depth 1, 1, 2, 4, ... 256 for clevel 0..9, repeat offsets, blocks of
-  128 KiB) with the same entropy stage and block choice, and an RLE
-  block for a later block of one byte value.
+  128 KiB) with the same entropy stage and block choice.
 """
 
 from __future__ import annotations
@@ -570,7 +575,7 @@ def decompress(data: bytes, nbytes: Optional[int] = None) -> bytes:
 # at offset ``o`` within ``cap`` bytes and return a size or an error code.
 
 _SMALL, _GENERIC = -100, -101        # libzstd's dstSize_tooSmall, any other
-LIB_MAXSRC = BLOCK_MAX
+LIB_MAXSRC = 2 * BLOCK_MAX
 _DEF_NORM = (LL_DEFAULT, OF_DEFAULT, ML_DEFAULT)
 _DEF_LOG = (LL_DEFAULT_LOG, OF_DEFAULT_LOG, ML_DEFAULT_LOG)
 _DEF_MAX = (MAX_LL, 28, MAX_ML)
@@ -767,9 +772,11 @@ def write_ncount(dst: bytearray, o: int, cap: int, norm, maxsym: int,
 
 
 class _CTable:
-    """An FSE encoding table (``fse_build_ctable``)."""
+    """An FSE encoding table (``fse_build_ctable``) of symbols
+    0..maxsym."""
 
     def __init__(self, norm, log: int):
+        self.maxsym = len(norm) - 1
         size = 1 << log
         at = _spread(norm, log)
         cumul = [0]
@@ -822,7 +829,7 @@ class _Bits(_BitOut):
 # ------------------------------------------------------------- Huffman
 
 def _rank_index(c: int) -> int:
-    return c if c < 166 else _hb(c) + 158
+    return c if c < 165 else _hb(c) + 158
 
 
 def _insertion_sort(a, low: int, high: int) -> None:
@@ -872,7 +879,7 @@ def _huf_sort(count, maxsym: int):
         r = _rank_index(count[n]) + 1
         node[curr[r]] = (count[n], n)
         curr[r] += 1
-    for n in range(166, 191):
+    for n in range(165, 191):    # also the symbols of count 164
         if curr[n] - base[n] > 1:
             sub = node[base[n]:curr[n]]
             _quick_sort(sub, 0, len(sub) - 1)
@@ -1078,37 +1085,39 @@ def _huf_stream_write(dst, o, cap, lit, lengths, code) -> int:
     return len(body)
 
 
-def _huf_compress(dst, o, cap, lit: bytes, single: bool,
-                  suspect: bool) -> int:
-    """HUF_compress1X/4X_repeat with no earlier table: 0 for not
-    compressible, 1 for a single symbol (written at ``dst[o]``)."""
+class _HufTable:
+    """A Huffman encoding table of symbols 0..maxsym: code lengths (0 for
+    a symbol absent from it), codes, the longest length."""
+
+    def __init__(self, lengths, code, maxsym: int, log: int):
+        self.lengths, self.code, self.maxsym, self.log = \
+            lengths, code, maxsym, log
+
+
+# the repeat mode of an earlier block's table (libzstd's HUF_repeat and
+# FSE_repeat): not usable, or usable after a check of the counts (its
+# "valid", usable unchecked, comes only from a dictionary, which c-blosc
+# never gives)
+_R_NONE, _R_CHECK = 0, 1
+
+
+class _Entropy:
+    """What a block leaves to the next (``ZSTD_entropyCTables_t``): the
+    literals' Huffman table and the three sequence fields' tables, each
+    with its repeat mode."""
+
+    def __init__(self):
+        self.huf_mode, self.huf = _R_NONE, None
+        self.fse_mode, self.fse = [_R_NONE] * 3, [None] * 3
+
+
+def _huf_streams(dst, o, op, cap, lit: bytes, single: bool,
+                 t: _HufTable) -> int:
+    """HUF_compressCTable_internal: 1 or 4 streams with table ``t`` at
+    ``dst[o + op:]``; the size from ``o``, 0 for not compressible."""
     n = len(lit)
-    if n == 0 or cap == 0:
-        return 0
-    a = np.frombuffer(lit, np.uint8)
-    if suspect and n >= 4096 * 10:
-        largest_total = (int(np.bincount(a[:4096]).max())
-                         + int(np.bincount(a[n - 4096:]).max()))
-        if largest_total <= (2 * 4096 >> 7) + 4:
-            return 0
-    count = np.bincount(a, minlength=256).tolist()
-    maxsym = max(s for s in range(256) if count[s])
-    largest = max(count)
-    if largest == n:
-        dst[o] = lit[0]
-        return 1
-    if largest <= (n >> 7) + 4:
-        return 0
-    log = fse_optimal_log(HUF_MAX_BITS, n, maxsym, 1)
-    lengths, code, longest = huf_build(count, maxsym, log)
-    h = _write_table(dst, o, cap, lengths, maxsym, longest)
-    if h < 0:
-        return h
-    if h + 12 >= n:
-        return 0
-    op = h
     if single:
-        c = _huf_stream_write(dst, o + op, cap - op, lit, lengths, code)
+        c = _huf_stream_write(dst, o + op, cap - op, lit, t.lengths, t.code)
         if c == 0:
             return 0
         op += c
@@ -1120,8 +1129,8 @@ def _huf_compress(dst, o, cap, lit: bytes, single: bool,
         op += 6
         for k in range(4):
             c = _huf_stream_write(dst, o + op, cap - op,
-                            lit[k * seg:(k + 1) * seg if k < 3 else n],
-                            lengths, code)
+                                  lit[k * seg:(k + 1) * seg if k < 3 else n],
+                                  t.lengths, t.code)
             if c == 0 or c > 65535:
                 return 0
             if k < 3:
@@ -1131,6 +1140,51 @@ def _huf_compress(dst, o, cap, lit: bytes, single: bool,
     if op >= n - 1:
         return 0
     return op
+
+
+def _huf_compress(dst, o, cap, lit: bytes, single: bool, suspect: bool,
+                  prefer: bool, repeat: int, old):
+    """HUF_compress1X/4X_repeat: (size, repeat mode, table) with the
+    earlier table ``old`` of mode ``repeat``, or a new table (described
+    first; then the mode is ``_R_NONE`` and the table the new one); size 0
+    for not compressible, 1 for a single symbol (at ``dst[o]``)."""
+    n = len(lit)
+    if n == 0 or cap == 0:
+        return 0, repeat, old
+    a = np.frombuffer(lit, np.uint8)
+    if suspect and n >= 4096 * 10:
+        largest_total = (int(np.bincount(a[:4096]).max())
+                         + int(np.bincount(a[n - 4096:]).max()))
+        if largest_total <= (2 * 4096 >> 7) + 4:
+            return 0, repeat, old
+    count = np.bincount(a, minlength=256).tolist()
+    maxsym = max(s for s in range(256) if count[s])
+    largest = max(count)
+    if largest == n:
+        dst[o] = lit[0]
+        return 1, repeat, old
+    if largest <= (n >> 7) + 4:
+        return 0, repeat, old
+    if repeat == _R_CHECK and (old.maxsym < maxsym or any(
+            count[s] and not old.lengths[s] for s in range(maxsym + 1))):
+        repeat = _R_NONE       # HUF_validateCTable
+    if prefer and repeat != _R_NONE:
+        return _huf_streams(dst, o, 0, cap, lit, single, old), repeat, old
+    log = fse_optimal_log(HUF_MAX_BITS, n, maxsym, 1)
+    lengths, code, longest = huf_build(count, maxsym, log)
+    t = _HufTable(lengths, code, maxsym, longest)
+    h = _write_table(dst, o, cap, lengths, maxsym, longest)
+    if h < 0:
+        return h, repeat, old
+    if repeat != _R_NONE:      # HUF_estimateCompressedSize of both
+        old_bits = sum(old.lengths[s] * count[s] for s in range(maxsym + 1))
+        new_bits = sum(lengths[s] * count[s] for s in range(maxsym + 1))
+        if (old_bits >> 3) <= h + (new_bits >> 3) or h + 12 >= n:
+            return (_huf_streams(dst, o, 0, cap, lit, single, old), repeat,
+                    old)
+    if h + 12 >= n:
+        return 0, repeat, old
+    return _huf_streams(dst, o, h, cap, lit, single, t), _R_NONE, t
 
 
 def _literal_header(kind: int, n: int) -> bytes:
@@ -1154,28 +1208,38 @@ def _min_gain(n: int) -> int:
     return (n >> 6) + 2
 
 
-def _write_literals(dst, o, cap, lit: bytes, suspect: bool) -> int:
-    """ZSTD_compressLiterals with no earlier table (fast or dfast)."""
+def _write_literals(dst, o, cap, lit: bytes, strat: int, suspect: bool,
+                    prev: _Entropy, nxt: _Entropy) -> int:
+    """ZSTD_compressLiterals: with the earlier block's Huffman table where
+    it serves (a treeless section); ``nxt`` gets the table a later block
+    may repeat."""
     n = len(lit)
     lh = 3 + (n >= 1024) + (n >= 16384)
     single = n < 256
-    if n < 64:
+    repeat = prev.huf_mode
+    nxt.huf_mode, nxt.huf = prev.huf_mode, prev.huf
+    if n < 8 << min(9 - strat, 3):      # ZSTD_minLiteralsToCompress
         return _raw_literals(dst, o, cap, lit)
     if cap < lh + 1:
         return _SMALL
-    c = _huf_compress(dst, o + lh, cap - lh, lit, single, suspect)
+    c, repeat, table = _huf_compress(dst, o + lh, cap - lh, lit, single,
+                                     suspect, strat < 4 and n <= 1024,
+                                     repeat, prev.huf)
+    kind = 3 if repeat != _R_NONE else 2
     if c <= 0 or c >= n - _min_gain(n):
         return _raw_literals(dst, o, cap, lit)
     if c == 1:
         body = _literal_header(1, n) + lit[:1]
         dst[o:o + len(body)] = body
         return len(body)
+    if kind == 2:
+        nxt.huf_mode, nxt.huf = _R_CHECK, table
     if lh == 3:
-        h = 2 | ((not single) << 2) | (n << 4) | (c << 14)
+        h = kind | ((not single) << 2) | (n << 4) | (c << 14)
     elif lh == 4:
-        h = 2 | (2 << 2) | (n << 4) | (c << 18)
+        h = kind | (2 << 2) | (n << 4) | (c << 18)
     else:
-        h = 2 | (3 << 2) | (n << 4) | (c << 22)
+        h = kind | (3 << 2) | (n << 4) | (c << 22)
     dst[o:o + lh] = h.to_bytes(lh, 'little')
     return lh + c
 
@@ -1189,9 +1253,67 @@ def _code_of(base, v: int) -> int:
     return c
 
 
-def _seq_field(f: int, codes, strat: int, dst, o, cap):
-    """(mode, ctable, size of the description at dst[o:] or an error) of
-    sequence field f (literal lengths, offsets, match lengths)."""
+#: kInverseProbabilityLog256: -log2(i / 256) in 1/256 bits, rounded down
+_INV_PROB_LOG256 = (0,) + tuple(
+    int(-np.log2(i / 256) * 256 + 1e-9) for i in range(1, 256))
+_NO_COST = 1 << 64          # libzstd's ERROR(GENERIC) as a cost
+
+
+def _cross_entropy_cost(norm, log: int, count, mx: int) -> int:
+    """ZSTD_crossEntropyCost: the bits of the counts in a default table."""
+    return sum(count[s] * _INV_PROB_LOG256[(1 if norm[s] == -1 else norm[s])
+                                           << (8 - log)]
+               for s in range(mx + 1)) >> 8
+
+
+def _fse_bit_cost(t: _CTable, count, mx: int) -> int:
+    """ZSTD_fseBitCost: the bits of the counts in an earlier table, or
+    ``_NO_COST`` where it cannot code them."""
+    if t.maxsym < mx:
+        return _NO_COST
+    log, size = t.log, 1 << t.log
+    cost = 0
+    for s in range(mx + 1):
+        dn = t.delta_nbits[s] & 0xFFFFFFFF
+        min_nb = dn >> 16
+        delta = (((min_nb + 1) << 16) - (dn + size)) & 0xFFFFFFFF
+        bits = (min_nb + 1) * 256 - (((delta << 8) & 0xFFFFFFFF) >> log)
+        if count[s] == 0:
+            continue
+        if bits >= (log + 1) << 8:
+            return _NO_COST
+        cost += count[s] * bits
+    return cost >> 8
+
+
+def _ncount_cost(count, mx: int, nseq: int, fselog: int) -> int:
+    """ZSTD_NCountCost: the bytes of a new table's description."""
+    log = fse_optimal_log(fselog, nseq, mx, 2)
+    norm = fse_normalize(count, log, nseq, mx, nseq >= 2048)
+    if isinstance(norm, int):
+        return _NO_COST
+    h = write_ncount(bytearray(512), 0, 512, norm, mx, log)
+    return _NO_COST if h < 0 else h
+
+
+def _entropy_cost(count, mx: int, total: int) -> int:
+    """ZSTD_entropyCost: the bits of the counts in a table of their own."""
+    cost = 0
+    for s in range(mx + 1):
+        p = 256 * count[s] // total
+        if count[s] and not p:
+            p = 1
+        cost += count[s] * _INV_PROB_LOG256[p]
+    return (cost & 0xFFFFFFFF) >> 8
+
+
+def _seq_field(f: int, codes, strat: int, prevt, prevmode: int, dst, o,
+               cap):
+    """(type, table, mode for the next block, size of the description at
+    dst[o:] or an error) of sequence field f (literal lengths, offsets,
+    match lengths): ZSTD_selectEncodingType and ZSTD_buildCTable from the
+    earlier block's table ``prevt`` of mode ``prevmode``; types 0
+    predefined, 1 RLE, 2 a new table, 3 repeat."""
     nseq = len(codes)
     count = [0] * (_FIELD_MAX[f] + 1)
     for c in codes:
@@ -1200,21 +1322,39 @@ def _seq_field(f: int, codes, strat: int, dst, o, cap):
     most = max(count)
     deflog = _DEF_LOG[f]
     def_ok = mx <= _DEF_MAX[f]
+    mode = prevmode
     if most == nseq:
-        if def_ok and nseq <= 2:
-            mode = 0
+        mode = _R_NONE
+        kind = 0 if def_ok and nseq <= 2 else 1
+    elif strat < 4:
+        if def_ok and (nseq < ((1 << deflog) * (10 - strat)) >> 3
+                       or most < nseq >> (deflog - 1)):
+            mode, kind = _R_NONE, 0
         else:
-            if cap == 0:
-                return 1, None, _SMALL
-            dst[o] = codes[0]
-            return 1, None, 1
-    elif def_ok and (nseq < ((1 << deflog) * (10 - strat)) >> 3
-                     or most < nseq >> (deflog - 1)):
-        mode = 0
+            kind = 2
     else:
-        mode = 2
-    if mode == 0:
-        return 0, _CTable(_DEF_NORM[f], deflog), 0
+        basic = _cross_entropy_cost(_DEF_NORM[f], deflog, count, mx) \
+            if def_ok else _NO_COST
+        rep = _fse_bit_cost(prevt, count, mx) if mode != _R_NONE \
+            else _NO_COST
+        nc = _ncount_cost(count, mx, nseq, _FIELD_LOG[f])
+        comp = _NO_COST if nc == _NO_COST else \
+            (nc << 3) + _entropy_cost(count, mx, nseq)
+        if basic <= rep and basic <= comp:
+            mode, kind = _R_NONE, 0
+        else:
+            kind = 3 if rep <= comp else 2
+    if kind == 2:
+        mode = _R_CHECK
+    if kind == 0:
+        return 0, _CTable(_DEF_NORM[f], deflog), mode, 0
+    if kind == 1:
+        if cap == 0:
+            return 1, None, mode, _SMALL
+        dst[o] = codes[0]
+        return 1, None, mode, 1
+    if kind == 3:
+        return 3, prevt, mode, 0
     log = fse_optimal_log(_FIELD_LOG[f], nseq, mx, 2)
     total = nseq
     if count[codes[-1]] > 1:
@@ -1222,16 +1362,18 @@ def _seq_field(f: int, codes, strat: int, dst, o, cap):
         total -= 1
     norm = fse_normalize(count, log, total, mx, total >= 2048)
     if isinstance(norm, int):
-        return 2, None, norm
+        return 2, None, mode, norm
     h = write_ncount(dst, o, cap, norm, mx, log)
-    return 2, (_CTable(norm, log) if h >= 0 else None), h
+    return 2, (_CTable(norm, log) if h >= 0 else None), mode, h
 
 
-def _write_block_body(dst, o, cap, lit: bytes, seqs, strat: int) -> int:
-    """ZSTD_entropyCompressSeqStore_internal into ``cap`` bytes."""
+def _write_block_body(dst, o, cap, lit: bytes, seqs, strat: int,
+                      prev: _Entropy, nxt: _Entropy) -> int:
+    """ZSTD_entropyCompressSeqStore_internal into ``cap`` bytes, from the
+    tables ``prev`` left; ``nxt`` gets what this block leaves."""
     nseq = len(seqs)
     suspect = nseq == 0 or len(lit) // nseq >= 20
-    op = _write_literals(dst, o, cap, lit, suspect)
+    op = _write_literals(dst, o, cap, lit, strat, suspect, prev, nxt)
     if op < 0:
         return op
     if cap - op < 4:
@@ -1244,24 +1386,27 @@ def _write_block_body(dst, o, cap, lit: bytes, seqs, strat: int) -> int:
         head = bytes([255]) + (nseq - 0x7F00).to_bytes(2, 'little')
     dst[o + op:o + op + len(head)] = head
     op += len(head)
-    if nseq == 0:
+    if nseq == 0:         # the tables carry over as if repeated
+        nxt.fse_mode, nxt.fse = list(prev.fse_mode), list(prev.fse)
         return op
     codes = ([_code_of(LL_BASE, ll) for ll, _, _ in seqs],
              [ofv.bit_length() - 1 for _, _, ofv in seqs],
              [_code_of(ML_BASE, ml) for _, ml, _ in seqs])
     mode_at = op
     op += 1
-    modes, tables, last_count = [], [], 0
+    kinds, tables, last_count = [], [], 0
     for f in range(3):
-        mode, t, r = _seq_field(f, codes[f], strat, dst, o + op, cap - op)
+        kind, t, mode, r = _seq_field(f, codes[f], strat, prev.fse[f],
+                                      prev.fse_mode[f], dst, o + op, cap - op)
         if r < 0:
             return r
-        if mode == 2:
+        if kind == 2:
             last_count = r
-        modes.append(mode)
+        kinds.append(kind)
         tables.append(t)
+        nxt.fse_mode[f], nxt.fse[f] = mode, t
         op += r
-    dst[o + mode_at] = (modes[0] << 6) | (modes[1] << 4) | (modes[2] << 2)
+    dst[o + mode_at] = (kinds[0] << 6) | (kinds[1] << 4) | (kinds[2] << 2)
     if cap - op <= 8:
         return _SMALL
     llc, ofc, mlc = codes
@@ -1298,10 +1443,11 @@ def _write_block_body(dst, o, cap, lit: bytes, seqs, strat: int) -> int:
     return op + len(body)
 
 
-def _block_body(dst, o, cap, lit: bytes, seqs, strat: int, n: int) -> int:
+def _block_body(dst, o, cap, lit: bytes, seqs, strat: int, prev: _Entropy,
+                nxt: _Entropy, n: int) -> int:
     """ZSTD_entropyCompressSeqStore: the compressed block's body, or 0 for
     a block to store raw."""
-    c = _write_block_body(dst, o, cap, lit, seqs, strat)
+    c = _write_block_body(dst, o, cap, lit, seqs, strat, prev, nxt)
     if c == _SMALL and n <= cap:
         return 0
     if c < 0:
@@ -1529,18 +1675,418 @@ def _dfast(src: bytes, hlog: int, slog: int, mls: int):
     return seqs, bytes(lit)
 
 
+#: libzstd 1.5.7's table rows (window, chain, hash and search logs, min
+#: match, strategy) of levels 1, 3, 5, 7 and 9 for sources of up to 16
+#: KiB, 128 KiB and 256 KiB
+_ROWS = (((14, 14, 15, 1, 5, 1), (14, 14, 15, 2, 4, 2), (14, 14, 14, 3, 4, 4),
+          (14, 14, 14, 6, 4, 5), (14, 15, 14, 5, 4, 6)),
+         ((17, 12, 13, 1, 6, 1), (17, 15, 16, 2, 5, 2), (17, 16, 17, 3, 4, 3),
+          (17, 16, 17, 3, 4, 5), (17, 16, 17, 5, 4, 5)),
+         ((18, 13, 14, 1, 6, 1), (18, 16, 16, 1, 4, 2), (18, 17, 18, 5, 5, 3),
+          (18, 18, 19, 4, 4, 4), (18, 18, 19, 5, 4, 5)))
+#: strategies: fast, dfast, greedy, lazy, lazy2, btlazy2
+_FAST, _DFAST, _GREEDY, _LAZY, _LAZY2, _BTLAZY2 = 1, 2, 3, 4, 5, 6
+
+
 def lib_params(level: int, n: int):
-    """libzstd 1.5.7's (hash log, chain log, min match, strategy) at level
-    1 or 3 for a known source of n <= 128 KiB bytes."""
-    small = n <= 16 * 1024
-    wlog = 14 if small else 17
-    if level == 1:
-        clog, hlog, mls, strat = (14, 15, 5, 1) if small else (12, 13, 6, 1)
-    else:
-        clog, hlog, mls, strat = (14, 15, 4, 2) if small else (15, 16, 5, 2)
+    """libzstd 1.5.7's (window log, chain log, hash log, search log, min
+    match, strategy) at level 1, 3, 5, 7 or 9 for a known source of n <=
+    256 KiB bytes: the row of its table for the size, then
+    ``ZSTD_adjustCParams_internal`` (window, hash and chain logs cut to
+    the source)."""
+    wlog, clog, hlog, slog, mls, strat = \
+        _ROWS[0 if n <= 16384 else 1 if n <= 131072 else 2][(level - 1) // 2]
     srclog = 6 if n < 64 else _hb(n - 1) + 1
     wlog = min(wlog, srclog)
-    return min(hlog, wlog + 1), min(clog, wlog), mls, strat
+    hlog = min(hlog, wlog + 1)
+    cycle = clog - (strat >= _BTLAZY2)
+    if cycle > wlog:
+        clog -= cycle - wlog
+    return max(wlog, 10), clog, hlog, slog, mls, strat
+
+
+def _cnt(src: bytes, a, i: int, j: int, limit: int) -> int:
+    """ZSTD_count: how many bytes src[i:] and src[j:] agree on, i bounded
+    by limit."""
+    m = min(limit - i, 16)
+    k = 0
+    while k < m and src[i + k] == src[j + k]:
+        k += 1
+    if k < m or i + k >= limit:
+        return k
+    return k + _common(a, i + k, j + k, limit)
+
+
+class _Lazy:
+    """libzstd's match state for the lazy parsers on one frame (its
+    indices: the frame's byte p at index p + 2), with the hash chain
+    (``ZSTD_HcFindBestMatch``), the row hash (``ZSTD_RowFindBestMatch``)
+    or the binary tree (``ZSTD_BtFindBestMatch``)."""
+
+    HC, ROW, BT = 0, 1, 2
+
+    def __init__(self, src: bytes, wlog, clog, hlog, slog, mls, strat):
+        self.src, self.a = src, np.frombuffer(src, np.uint8)
+        self.w4 = _words(src, 4).tolist()
+        self.depth = {_GREEDY: 0, _LAZY: 1}.get(strat, 2)
+        self.search = self.BT if strat == _BTLAZY2 else \
+            self.ROW if wlog > 14 else self.HC
+        self.wlog, self.clog, self.hlog, self.slog = wlog, clog, hlog, slog
+        self.mls = min(max(mls, 4), 6)
+        self.rowlog = min(max(slog, 4), 6)
+        self.ht = [0] * (1 << hlog)
+        if self.search == self.ROW:
+            self.tags = [0] * (1 << hlog)
+            hbits = hlog - self.rowlog + 8
+        else:
+            self.chain = [0] * (1 << clog)
+            hbits = hlog
+        self.hashes = _hash_list(src, hbits, self.mls)
+        self.next = 2
+        self.skipping = False
+
+    def low(self, curr: int) -> int:
+        """ZSTD_getLowestMatchIndex (no dictionary)."""
+        maxd = 1 << self.wlog
+        return curr - maxd if curr - 2 > maxd else 2
+
+    def find(self, ip: int, iend: int):
+        """(length, offset value) of the best match at ip; the value 999999999
+        (libzstd's start, whose high bit the gains read) where none."""
+        if self.search == self.ROW:
+            return self._row_find(ip, iend)
+        if self.search == self.BT:
+            return self._bt_find(ip, iend)
+        return self._hc_find(ip, iend)
+
+    def _best(self, ip: int, iend: int, curr: int, cands, ml: int, ofb: int):
+        src, w4 = self.src, self.w4
+        for m in cands:
+            mp = m - 2
+            if w4[mp + ml - 3] == w4[ip + ml - 3]:
+                n = _cnt(src, self.a, ip, mp, iend)
+                if n > ml:
+                    ml, ofb = n, curr - m + 3
+                    if ip + n == iend:
+                        break
+        return ml, ofb
+
+    def _hc_find(self, ip: int, iend: int):
+        curr = ip + 2
+        csize = 1 << self.clog
+        mask, low = csize - 1, self.low(curr)
+        minchain = curr - csize if curr > csize else 0
+        ht, chain, hashes = self.ht, self.chain, self.hashes
+        idx = self.next
+        while idx < curr:
+            h = hashes[idx - 2]
+            chain[idx & mask] = ht[h]
+            ht[h] = idx
+            idx += 1
+            if self.skipping:
+                break
+        self.next = curr
+        m = ht[hashes[ip]]
+        src, w4, ml, ofb = self.src, self.w4, 3, 999999999
+        attempts = 1 << self.slog
+        while m >= low and attempts > 0:
+            mp = m - 2
+            if w4[mp + ml - 3] == w4[ip + ml - 3]:
+                n = _cnt(src, self.a, ip, mp, iend)
+                if n > ml:
+                    ml, ofb = n, curr - m + 3
+                    if ip + n == iend:
+                        break
+            if m <= minchain:
+                break
+            m = chain[m & mask]
+            attempts -= 1
+        return ml, ofb
+
+    def _row_insert(self, idx: int) -> None:
+        h = self.hashes[idx - 2]
+        rel = (h >> 8) << self.rowlog
+        mask = (1 << self.rowlog) - 1
+        slot = (self.tags[rel] - 1) & mask or mask      # ZSTD_row_nextIndex
+        self.tags[rel] = slot
+        self.tags[rel + slot] = h & 255
+        self.ht[rel + slot] = idx
+
+    def _row_find(self, ip: int, iend: int):
+        curr = ip + 2
+        low = self.low(curr)
+        entries = 1 << self.rowlog
+        mask = entries - 1
+        attempts = 1 << min(self.slog, self.rowlog)
+        if not self.skipping:
+            # ZSTD_row_update_internal: past a long match only its first
+            # 96 and last 32 positions
+            idx = self.next
+            if curr - idx > 384:
+                for i in range(idx, idx + 96):
+                    self._row_insert(i)
+                idx = curr - 32
+            for i in range(idx, curr):
+                self._row_insert(i)
+        self.next = curr
+        h = self.hashes[ip]
+        rel = (h >> 8) << self.rowlog
+        tag = h & 255
+        tags, ht = self.tags, self.ht
+        head = tags[rel] & mask
+        cands = []
+        for j in range(entries):
+            if attempts == 0:
+                break
+            slot = (head + j) & mask
+            if tags[rel + slot] != tag or slot == 0:
+                continue
+            if ht[rel + slot] < low:
+                break
+            cands.append(ht[rel + slot])
+            attempts -= 1
+        slot = (tags[rel] - 1) & mask or mask
+        tags[rel] = slot
+        tags[rel + slot] = tag
+        ht[rel + slot] = self.next
+        self.next += 1
+        return self._best(ip, iend, curr, cands, 3, 999999999)
+
+    def _bt_insert1(self, curr: int, iend: int, nbcmp: int,
+                    btlow: int) -> None:
+        """ZSTD_insertDUBT1: sort index curr into the tree."""
+        bt, src = self.chain, self.src
+        btmask = (1 << (self.clog - 1)) - 1
+        ip = curr - 2
+        smaller, larger = 2 * (curr & btmask), 2 * (curr & btmask) + 1
+        m = bt[smaller]
+        wlow = self.low(curr)
+        cs = cl = 0
+        while nbcmp and m > wlow:
+            nxt = 2 * (m & btmask)
+            mp = m - 2
+            ml = min(cs, cl)
+            ml += _cnt(src, self.a, ip + ml, mp + ml, iend)
+            if ip + ml == iend:
+                break
+            if src[mp + ml] < src[ip + ml]:
+                bt[smaller] = m
+                cs = ml
+                if m <= btlow:
+                    smaller = -1
+                    break
+                smaller, m = nxt + 1, bt[nxt + 1]
+            else:
+                bt[larger] = m
+                cl = ml
+                if m <= btlow:
+                    larger = -1
+                    break
+                larger, m = nxt, bt[nxt]
+            nbcmp -= 1
+        if smaller >= 0:
+            bt[smaller] = 0
+        if larger >= 0:
+            bt[larger] = 0
+
+    def _bt_find(self, ip: int, iend: int):
+        bt, ht, hashes, src = self.chain, self.ht, self.hashes, self.src
+        btmask = (1 << (self.clog - 1)) - 1
+        curr = ip + 2
+        if curr < self.next:
+            return 0, 999999999
+        for idx in range(self.next, curr):       # ZSTD_updateDUBT
+            h = hashes[idx - 2]
+            bt[2 * (idx & btmask)] = ht[h]
+            bt[2 * (idx & btmask) + 1] = 1       # unsorted
+            ht[h] = idx
+        self.next = curr
+        h = hashes[ip]
+        wlow = self.low(curr)
+        btlow = 0 if btmask >= curr else curr - btmask
+        unsort_limit = max(btlow, wlow)
+        nbcmp = nbcand = 1 << self.slog
+        prev = 0
+        m = ht[h]
+        while m > unsort_limit and bt[2 * (m & btmask) + 1] == 1 \
+                and nbcand > 1:
+            bt[2 * (m & btmask) + 1] = prev      # a chain back up
+            prev = m
+            m = bt[2 * (m & btmask)]
+            nbcand -= 1
+        if m > unsort_limit and bt[2 * (m & btmask) + 1] == 1:
+            bt[2 * (m & btmask)] = bt[2 * (m & btmask) + 1] = 0
+        m = prev
+        while m:
+            up = bt[2 * (m & btmask) + 1]
+            self._bt_insert1(m, iend, nbcand, unsort_limit)
+            m = up
+            nbcand += 1
+        smaller, larger = 2 * (curr & btmask), 2 * (curr & btmask) + 1
+        match_end = curr + 9
+        cs = cl = best = 0
+        ofb = 999999999
+        m = ht[h]
+        ht[h] = curr
+        while nbcmp and m > wlow:
+            nxt = 2 * (m & btmask)
+            mp = m - 2
+            ml = min(cs, cl)
+            ml += _cnt(src, self.a, ip + ml, mp + ml, iend)
+            if ml > best:
+                if ml > match_end - m:
+                    match_end = m + ml
+                if 4 * (ml - best) > _hb(curr - m + 1) - _hb(ofb):
+                    best, ofb = ml, curr - m + 3
+                if ip + ml == iend:
+                    break
+            if src[mp + ml] < src[ip + ml]:
+                bt[smaller] = m
+                cs = ml
+                if m <= btlow:
+                    smaller = -1
+                    break
+                smaller, m = nxt + 1, bt[nxt + 1]
+            else:
+                bt[larger] = m
+                cl = ml
+                if m <= btlow:
+                    larger = -1
+                    break
+                larger, m = nxt, bt[nxt]
+            nbcmp -= 1
+        if smaller >= 0:
+            bt[smaller] = 0
+        if larger >= 0:
+            bt[larger] = 0
+        self.next = match_end - 8        # skip repetitive patterns
+        return best, ofb
+
+    def block(self, istart: int, iend: int, rep):
+        """ZSTD_compressBlock_lazy_generic (no dictionary) at depth 0, 1 or
+        2 on block [istart, iend) of the frame: (sequences, literals),
+        rep[0] and rep[1] carried."""
+        src, a, w4, depth = self.src, self.a, self.w4, self.depth
+        ilimit = iend - 8 - (8 if self.search == self.ROW else 0)
+        ip = istart + (istart == 0)
+        anchor = istart
+        off1, off2 = rep[0], rep[1]
+        saved1 = saved2 = 0
+        maxrep = ip + 2 - self.low(ip + 2)
+        if off2 > maxrep:
+            saved2, off2 = off2, 0
+        if off1 > maxrep:
+            saved1, off1 = off1, 0
+        self.skipping = False
+        seqs, lit = [], bytearray()
+        while ip < ilimit:
+            ml, start, ofb = 0, ip + 1, 1
+            if off1 > 0 and w4[ip + 1 - off1] == w4[ip + 1]:
+                ml = _cnt(src, a, ip + 5, ip + 5 - off1, iend) + 4
+            if not (ml and depth == 0):
+                ml2, found = self.find(ip, iend)
+                if ml2 > ml:
+                    ml, start, ofb = ml2, ip, found
+                if ml < 4:
+                    step = ((ip - anchor) >> 8) + 1
+                    ip += step
+                    self.skipping = step > 8
+                    continue
+                # a better match one or two positions on?
+                while depth >= 1 and ip < ilimit:
+                    ip += 1
+                    if off1 > 0 and w4[ip] == w4[ip - off1]:
+                        mlrep = _cnt(src, a, ip + 4, ip + 4 - off1, iend) + 4
+                        if mlrep * 3 > ml * 3 - _hb(ofb) + 1:
+                            ml, ofb, start = mlrep, 1, ip
+                    ml2, found = self.find(ip, iend)
+                    if ml2 >= 4 and ml2 * 4 - _hb(found) > \
+                            ml * 4 - _hb(ofb) + 4:
+                        ml, ofb, start = ml2, found, ip
+                        continue
+                    if depth == 2 and ip < ilimit:
+                        ip += 1
+                        if off1 > 0 and w4[ip] == w4[ip - off1]:
+                            mlrep = _cnt(src, a, ip + 4, ip + 4 - off1,
+                                         iend) + 4
+                            if mlrep * 4 > ml * 4 - _hb(ofb) + 1:
+                                ml, ofb, start = mlrep, 1, ip
+                        ml2, found = self.find(ip, iend)
+                        if ml2 >= 4 and ml2 * 4 - _hb(found) > \
+                                ml * 4 - _hb(ofb) + 7:
+                            ml, ofb, start = ml2, found, ip
+                            continue
+                    break
+                if ofb > 3:      # a new offset: catch up backwards
+                    off = ofb - 3
+                    while start > anchor and start - off > 0 and \
+                            src[start - 1] == src[start - off - 1]:
+                        start -= 1
+                        ml += 1
+                    off1, off2 = off, off1
+            seqs.append((start - anchor, ml, ofb))
+            lit += src[anchor:start]
+            anchor = ip = start + ml
+            self.skipping = False
+            # the second repeat offset, at once
+            while ip <= ilimit and off2 > 0 and w4[ip] == w4[ip - off2]:
+                ml = _cnt(src, a, ip + 4, ip + 4 - off2, iend) + 4
+                off1, off2 = off2, off1
+                seqs.append((0, ml, 1))
+                ip += ml
+                anchor = ip
+        if saved1 and off1:
+            saved2 = saved1
+        rep[0] = off1 or saved1
+        rep[1] = off2 or saved2
+        lit += src[anchor:iend]
+        return seqs, bytes(lit)
+
+
+# ------------------------------------------------------ the block splitter
+
+def _fingerprint(p: bytes, rate: int, hlog: int):
+    """(events, count): byte pairs of an 8 KiB step
+    (lib/compress/zstd_preSplit.c)."""
+    a = np.frombuffer(p, np.uint8)[:8192].astype(np.uint32)
+    limit = 8192 - 2 + 1
+    sel = np.arange(0, limit, rate)
+    if hlog == 8:
+        h = a[sel]
+    else:
+        pair = a[sel] | (a[sel + 1] << np.uint32(8))
+        h = (pair * np.uint32(0x9E3779B9)) >> np.uint32(32 - hlog)
+    return np.bincount(h, minlength=1024).astype(np.int64), limit // rate
+
+
+def _split_block(p: bytes, level: int) -> int:
+    """ZSTD_splitBlock_byChunks at level 1-4: the first 8 KiB step of a
+    full block whose fingerprint differs from the steps before it, or the
+    whole block."""
+    rate, hlog = ((43, 8), (11, 9), (5, 10), (1, 10))[level - 1]
+    past, past_n = _fingerprint(p, rate, hlog)
+    penalty = 3
+    for pos in range(8192, BLOCK_MAX - 8192 + 1, 8192):
+        new, new_n = _fingerprint(p[pos:], rate, hlog)
+        dist = int(np.abs(past * new_n - new * past_n).sum())
+        if dist >= past_n * new_n * (14 + penalty) // 16:
+            return pos
+        past, past_n = past + new, past_n + new_n
+        penalty = max(penalty - 1, 0)
+    return BLOCK_MAX
+
+
+def _block_size(src: bytes, start: int, strat: int, savings: int) -> int:
+    """ZSTD_optimalBlockSize: a full block is split only after the frame
+    has saved 3 bytes or more (so never the first block); fast (split from
+    the borders) never reaches it, its frames here holding one block."""
+    remaining = len(src) - start
+    if remaining < BLOCK_MAX:
+        return remaining
+    level = (0, 0, 1, 2, 2, 3, 3)[strat]
+    if savings < 3 or level == 0:
+        return BLOCK_MAX
+    return _split_block(src[start:start + BLOCK_MAX], level)
 
 
 def _own_block(src: bytes, a, seqv, hashes, head, chain, nxt, bstart: int,
@@ -1617,7 +2163,8 @@ def compress(src: bytes, clevel: int = 5, cap: Optional[int] = None) -> bytes:
     cap = 2 * n + 1024 if cap is None else cap
     if cap < 18:
         return b''
-    lib = clevel in (1, 2) and n <= LIB_MAXSRC
+    lib = (clevel in (1, 2) and n <= BLOCK_MAX) or \
+        (clevel in (3, 4, 5) and n <= LIB_MAXSRC)
     out = bytearray(MAGIC.to_bytes(4, 'little'))
     if n < 256:
         out += bytes([0x20, n])
@@ -1627,9 +2174,11 @@ def compress(src: bytes, clevel: int = 5, cap: Optional[int] = None) -> bytes:
         out += bytes([0xA0]) + n.to_bytes(4, 'little')
     if n == 0:
         return bytes(out) + b'\x01\x00\x00'
-    strat = 2
+    strat = _DFAST
     if lib:
-        hlog, clog, mls, strat = lib_params(2 * clevel - 1, n)
+        wlog, clog, hlog, slog, mls, strat = lib_params(2 * clevel - 1, n)
+        if strat >= _GREEDY:
+            lazy = _Lazy(src, wlog, clog, hlog, slog, mls, strat)
     else:
         depth = _DEPTH[min(max(int(clevel), 0), 9)]
         olog = min(max((n - 1).bit_length() - 1 if n > 1 else 10, 10), 17)
@@ -1638,29 +2187,49 @@ def compress(src: bytes, clevel: int = 5, cap: Optional[int] = None) -> bytes:
         head = [-1] * (1 << olog)
         chain = [-1] * n if depth > 1 else None
         nxt = 0
+    # the tables of the last compressed block
+    prev = _Entropy()
     rep = [1, 4, 8]
-    bstart = 0
+    bstart = savings = 0
     while True:
-        bend = min(n, bstart + BLOCK_MAX)
-        bn = bend - bstart
+        bn = _block_size(src, bstart, strat, savings) if lib else \
+            min(n - bstart, BLOCK_MAX)
+        bend = bstart + bn
         block = src[bstart:bend]
         room = cap - len(out)
+        if room < 3 + 2 + 1:
+            return b''
         saved = list(rep)
-        c = 0
+        c, rle = 0, False
         body = bytearray(max(room - 3, 0))
-        if bn >= 7:
+        if bn >= 7:         # ZSTD_buildSeqStore: no attempt under 7 bytes
             if not lib:
                 seqs, lit, nxt = _own_block(src, a, seqv, hashes, head, chain,
                                             nxt, bstart, bend, rep, depth)
-            elif strat == 1:
+            elif strat == _FAST:
                 seqs, lit = _fast(src, hlog, mls)
-            else:
+            elif strat == _DFAST:
                 seqs, lit = _dfast(src, hlog, clog, mls)
-            c = _block_body(body, 0, room - 3, lit, seqs, strat, bn)
-            if c < 0:
-                return b''
-        if bstart > 0 and c < 25 and room >= 4 and \
-                block.count(block[:1]) == bn:
+            else:
+                # a limited update after a very long match
+                curr = bstart + 2
+                if curr > lazy.next + 384:
+                    lazy.next = curr - min(192, curr - lazy.next - 384)
+                seqs, lit = lazy.block(bstart, bend, rep)
+            # a later block of one byte value is an RLE block (libzstd's
+            # first block never is): at once where its sequences are few,
+            # else where it codes to under 25 bytes
+            same = bstart > 0 and block.count(block[:1]) == bn
+            if same and len(seqs) < 4 and len(lit) < 10:
+                rle = True
+            else:
+                nxt_ent = _Entropy()
+                c = _block_body(body, 0, room - 3, lit, seqs, strat, prev,
+                                nxt_ent, bn)
+                if c < 0:
+                    return b''
+                rle = same and c < 25
+        if rle:
             btype, size, payload = 1, bn, block[:1]
         elif c == 0:
             if bn + 3 > room:
@@ -1668,10 +2237,12 @@ def compress(src: bytes, clevel: int = 5, cap: Optional[int] = None) -> bytes:
             btype, size, payload = 0, bn, block
         else:
             btype, size, payload = 2, c, bytes(body[:c])
+            prev = nxt_ent      # ZSTD_blockState_confirmRepcodesAnd...
         if btype != 2:
             rep[:] = saved
         out += ((bend == n) | (btype << 1) | (size << 3)).to_bytes(3, 'little')
         out += payload
+        savings += bn - 3 - len(payload)
         bstart = bend
         if bstart >= n:
             break

@@ -2,8 +2,9 @@
 clevel of {0, 1, 5, 9}, shuffle of {0, 1, 2, -1} and u8/u16, as
 ``torch_blosc_matrix.check`` sets out (decoded equal both ways, the
 same headers and files, C frames byte-equal to the plain version's);
-at clevel 1, and at clevel 2 beside them, whole frames byte-equal to
-tensorstore's (libzstd 1.5.7's levels 1 and 3)."""
+at clevel 1 and 5, and at clevel 2, 3 and 4 beside them, whole frames
+byte-equal to tensorstore's (libzstd 1.5.7's levels 1, 3, 5, 7 and 9:
+two zstd blocks a 256 KiB blosc block at clevel 4 and 5)."""
 
 import pytest
 
@@ -22,3 +23,11 @@ def test_matches_tensorstore(tmp_path, cname, clevel, shuffle, dtype):
 @pytest.mark.parametrize("shuffle", SHUFFLES)
 def test_zstd_clevel_2_matches_tensorstore(tmp_path, shuffle, dtype):
     check(tmp_path, 'zstd', 2, shuffle, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=['u8', 'u16'])
+@pytest.mark.parametrize("shuffle", SHUFFLES)
+@pytest.mark.parametrize("clevel", (3, 4))
+def test_zstd_lazy_levels_match_tensorstore(tmp_path, clevel, shuffle,
+                                            dtype):
+    check(tmp_path, 'zstd', clevel, shuffle, dtype)

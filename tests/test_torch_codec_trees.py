@@ -10,9 +10,10 @@ the same files, equal ``.zarray``/``zarr.json``/``.zattrs`` JSON and
 arrays that decode equal with tensorstore and the port's reader. The
 cases cover zstd-1 with byte shuffle (the reference's production
 setting), zstd with bit shuffle, shuffle -1 on u8 and u16, and each
-other cname; the zstd-1 trees (v2 and v3, bands and in RAM) and the
-zstd-1 merge trees hold byte-identical chunk and shard files (the port's
-zstd at clevel 1 and 2 follows libzstd 1.5.7). On v3 both packages
+other cname; the zstd-1 trees (v2 and v3, bands and in RAM), the zstd-5
+trees (the JAX package's default clevel: bit shuffle in bands, byte
+shuffle in RAM) and the zstd-1 merge trees hold byte-identical chunk and
+shard files (the port's zstd at clevel 1 to 5 follows libzstd 1.5.7). On v3 both packages
 byte-shuffle whatever ``compressor_shuffle`` says (the JAX package's
 metadata always reads ``'shuffle': 'shuffle'``). Then ``read_array`` and
 ``open_stitched`` on JAX trees written with zstd-1 and with bit shuffle,
@@ -44,6 +45,7 @@ CASES = [
     ('zstd', 1, 1, 3, 'on', np.uint16),
     ('zstd', 1, 1, 3, 'off', np.uint16),
     ('zstd', 5, 2, 2, 'on', np.uint16),
+    ('zstd', 5, 1, 2, 'off', np.uint16),
     ('zstd', 9, 2, 3, 'off', np.uint16),
     ('lz4hc', 9, 1, 2, 'off', np.uint16),
     ('blosclz', 5, 0, 3, 'on', np.uint16),
@@ -91,7 +93,7 @@ def test_tree_equals_jax(tmp_path, case):
                 options=port.EngineOptions(**_options(
                     cname, clevel, shuffle, fmt, streaming, port_out)))
     assert_outputs_equal(jax_out, port_out)
-    if cname == 'zstd' and clevel in (1, 2):
+    if cname == 'zstd' and clevel in (1, 2, 3, 4, 5):
         # libzstd 1.5.7's rules: byte-identical chunk files
         assert_chunk_files_equal(jax_out, port_out)
     level0 = os.path.join(port_out, zarr_groups(port_out)[0], '0')

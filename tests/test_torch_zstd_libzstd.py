@@ -1,22 +1,33 @@
-"""The port's zstd encoder at blosc clevel 1 and 2 (``csrc/codec_zstd.h``,
+"""The port's zstd encoder at blosc clevel 1 to 5 (``csrc/codec_zstd.h``,
 plain version ``io/zstd_plain.py``) against libzstd 1.5.7, whose level
 2 * clevel - 1 c-blosc calls: ``zstandard`` (present only on the CPU test
-host) at levels 1 (the fast matcher) and 3 (dfast), and tensorstore's
-c-blosc.
+host) at levels 1 (fast), 3 (dfast), 5 (lazy up to 16 KiB, greedy
+above), 7 (lazy2, lazy over 128 KiB) and 9 (btlazy2 up to 16 KiB, lazy2
+above), and tensorstore's c-blosc.
 
-- the parameters (hash, chain and minimum match lengths, strategy) for
-  every source size, as libzstd adjusts them;
-- a fixed corpus: lengths 1-300 and the block edges up to 131072 of
+- the parameters (window, chain, hash and search logs, minimum match,
+  strategy) for every source size up to 256 KiB, as libzstd adjusts
+  them;
+- a fixed corpus: lengths 1-300 and the block edges up to 262144 of
   incompressible bytes, one repeated byte, zeros, text and a 4-symbol
-  alphabet, and blocks of ``chip_smoke.compressible`` byte-shuffled at
-  type sizes 1, 2, 4 and 8 (blosc's 32 and 64 KiB blocks, a short tail):
-  the C frames byte-equal to libzstd's, the plain version's to C's (on
-  the inputs of at most 16 KiB + 1);
-- a ``hypothesis`` property on random short inputs (C);
+  alphabet (16384/16385 where the strategy and matcher change,
+  131072/131073 and over where a frame takes two blocks), and blocks of
+  ``chip_smoke.compressible`` byte-shuffled at type sizes 1, 2, 4 and 8
+  (blosc's 32, 64, 128 and 256 KiB blocks, a short tail), and 256 KiB
+  whose second half libzstd's pre-splitter cuts: the C frames byte-equal
+  to libzstd's, the plain version's to C's on the inputs of at most 16
+  KiB + 1 (hash chain, binary tree) and on one row-matcher input and one
+  of two blocks;
+- a ``hypothesis`` property on random short inputs (C), seeded inputs
+  of mixed runs up to 256 KiB at clevel 3-5 (lazy skipping over long
+  literal runs, raw and compressed blocks in one frame), and literals
+  whose symbols tie at count 164, the last count ``HUF_sort`` buckets
+  exactly (C and plain);
 - frames into a bounded buffer: single-block blosc chunks whose libzstd
   frame lies within 24 bytes of c-blosc's budget, where libzstd's own
-  room checks decide between a frame and a stored block: whole blosc
-  frames byte-equal to tensorstore's, the memcpyed flag included;
+  room checks decide between a frame and a stored block, and chunks with
+  a short last block or one of up to 16 KiB or of two zstd blocks: whole
+  blosc frames byte-equal to tensorstore's, the memcpyed flag included;
 - the kept digests of libzstd's frames that ``chip_smoke.py`` phase 12
   holds the C encoder to on the card (``tests/torch_zstd_frames.npz``):
   what ``torch_zstd_frames.make`` writes here, and matched by the C
@@ -37,10 +48,12 @@ from image_stitcher_tpu_torch.io import blosc, zstd_plain
 zstandard = pytest.importorskip("zstandard")
 
 #: blosc clevel -> libzstd level (c-blosc's 2 * clevel - 1)
-LEVELS = {1: 1, 2: 3}
+LEVELS = torch_zstd_frames.LEVELS
+#: the longest input each clevel follows libzstd on (a blosc block)
+MAXSRC = torch_zstd_frames.MAXSRC
 EDGES = (511, 512, 513, 1023, 1024, 1025, 4095, 4096, 4097, 16383, 16384,
          16385, 32767, 32768, 32769, 65535, 65536, 65537, 65791, 65792,
-         131071, 131072)
+         131071, 131072, 131073, 196608, 262144)
 LENGTHS = tuple(range(1, 301)) + EDGES
 PLAIN_MAX = 16385
 
@@ -73,6 +86,8 @@ def _kind(kind: str, n: int) -> bytes:
 
 def _check(data: bytes, plain: bool) -> None:
     for clevel, level in LEVELS.items():
+        if len(data) > MAXSRC[clevel]:
+            continue
         frame = blosc.stream_compress('zstd', data, clevel)
         assert frame == libzstd(data, level), (len(data), clevel)
         if plain:
@@ -82,17 +97,18 @@ def _check(data: bytes, plain: bool) -> None:
 
 def test_parameters_equal_libzstd():
     """libzstd's table row and ZSTD_adjustCParams for every size up to
-    128 KiB (each power of two and its neighbours)."""
-    sizes = sorted({max(1, (1 << k) + d) for k in range(18)
-                    for d in (-1, 0, 1)} | {63, 64, 65, 131072})
+    256 KiB (each power of two and its neighbours, and the table edges)."""
+    sizes = sorted({max(1, (1 << k) + d) for k in range(19)
+                    for d in (-1, 0, 1)} | {63, 64, 65, 196608})
     for level in LEVELS.values():
         for n in sizes:
-            if n > 131072:
+            if n > 262144:
                 continue
             p = zstandard.ZstdCompressionParameters.from_level(
                 level, source_size=n)
             assert zstd_plain.lib_params(level, n) == (
-                p.hash_log, p.chain_log, p.min_match, p.strategy), (level, n)
+                p.window_log, p.chain_log, p.hash_log, p.search_log,
+                p.min_match, p.strategy), (level, n)
 
 
 @pytest.mark.parametrize("kind", ['random', 'repeated', 'zeros', 'text',
@@ -105,18 +121,21 @@ def test_corpus_frames_equal_libzstd(kind):
 @pytest.mark.parametrize("typesize", [1, 2, 4, 8])
 def test_shuffled_texture_frames_equal_libzstd(typesize):
     """Blocks of the bench's compressible texture as c-blosc hands them to
-    zstd: byte-shuffled at the type size, 32 KiB (clevel 1) and 64 KiB
-    (clevel 2) blocks, and a short last one."""
+    zstd: byte-shuffled at the type size, 32 KiB (clevel 1), 64 KiB
+    (clevel 2), 128 KiB (clevel 3) and 256 KiB (clevel 4 and 5) blocks,
+    and a short last one."""
     tex = chip_smoke.compressible(np.random.default_rng(typesize), 512)
     dtype = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}[typesize]
     raw = (tex >> 8).astype(dtype).tobytes() if typesize == 1 else \
         (tex.astype(dtype) * dtype(3)).tobytes()
-    for bs in (32768, 65536, 131072):
+    for bs in (32768, 65536, 131072, 262144):
         for off in (0, bs, 5 * bs):
             block = raw[off:off + bs]
             shuffled = blosc.shuffle_plain(block, typesize) \
                 if typesize > 1 else block
             for clevel, level in LEVELS.items():
+                if len(block) > MAXSRC[clevel]:
+                    continue
                 frame = blosc.stream_compress('zstd', shuffled, clevel)
                 assert frame == libzstd(shuffled, level), (bs, off, clevel)
     tail = blosc.shuffle_plain(raw[:3000], typesize) if typesize > 1 \
@@ -138,6 +157,97 @@ def test_random_short_inputs_equal_libzstd(data):
             libzstd(data, level)
 
 
+def _pieces(seed: int, n: int) -> bytes:
+    """n bytes of runs: incompressible stretches (long enough for
+    libzstd's lazy skipping), one repeated byte, a few-symbol alphabet and
+    copies of earlier bytes with a few changed."""
+    rng = np.random.default_rng(seed)
+    out = bytearray()
+    while len(out) < n:
+        kind = int(rng.integers(0, 4))
+        size = int(rng.integers(1, (6000, 300, 3000, 8000)[kind]))
+        if kind == 0:
+            out += rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+        elif kind == 1:
+            out += bytes([int(rng.integers(0, 256))]) * size
+        elif kind == 2:
+            out += rng.integers(0, int(rng.integers(2, 16)), size,
+                                dtype=np.uint8).tobytes()
+        elif out:
+            start = int(rng.integers(0, len(out)))
+            copy = bytearray(out[start:start + size])
+            for k in rng.integers(0, max(len(copy), 1), 3):
+                if copy:
+                    copy[k] = int(rng.integers(0, 256))
+            out += copy
+    return bytes(out[:n])
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_pieced_inputs_equal_libzstd(seed):
+    """Inputs of mixed runs up to 256 KiB at clevel 3-5: the lazy parsers'
+    skipping over long literal runs, repeat offsets across two blocks,
+    raw and compressed blocks in one frame."""
+    rng = np.random.default_rng(100 + seed)
+    for k in range(40):
+        n = int(rng.integers(1, (16385, 131073, 262145)[k % 3]))
+        _check(_pieces(1000 * seed + k, n), False)
+
+
+@pytest.mark.parametrize("clevel,n", [(3, 40000), (5, 100000), (4, 262144),
+                                      (5, 196608)],
+                         ids=['greedy-row', 'lazy2-row', 'lazy-2-blocks',
+                              'lazy2-2-blocks'])
+def test_plain_row_matcher_equals_c(clevel, n):
+    """The plain version's row matcher and two-block frames (texture and
+    mixed runs) byte-equal to C, and C to libzstd."""
+    tex = chip_smoke.compressible(np.random.default_rng(n), 512)
+    for data in (blosc.shuffle_plain(tex.tobytes()[:n], 2),
+                 _pieces(n, n)):
+        frame = blosc.stream_compress('zstd', data, clevel)
+        assert frame == libzstd(data, LEVELS[clevel])
+        assert zstd_plain.compress(data, clevel) == frame
+
+
+@pytest.mark.parametrize("seed", [145, 280])
+def test_huffman_count_ties_equal_libzstd(seed):
+    """Incompressible literals where 10 symbols share the count 164, the
+    last count HUF_sort buckets exactly, across the boundary of two code
+    lengths: libzstd quicksorts that bucket, which orders them, and so
+    their code lengths (every clevel; C and plain). The seeds are ones
+    where the order matters."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(130, 200, 256)
+    counts[rng.choice(256, 13, replace=False)] = rng.integers(800, 3000, 13)
+    counts[rng.choice(np.flatnonzero(counts < 800), 10, replace=False)] = 164
+    _check(rng.permutation(np.repeat(np.arange(256, dtype=np.uint8),
+                                     counts)).tobytes(), True)
+
+
+def test_split_second_block_equals_libzstd():
+    """256 KiB whose second half changes its byte statistics: libzstd's
+    pre-splitter cuts the second block (three blocks); C and plain."""
+    words = torch_zstd_frames._text(3, 196608)
+    data = words + np.random.default_rng(4).integers(
+        0, 4, 65536, dtype=np.uint8).tobytes()
+    for clevel in (3, 4, 5):
+        frame = blosc.stream_compress('zstd', data, clevel)
+        assert frame == libzstd(data, LEVELS[clevel])
+        assert zstd_plain.compress(data, clevel) == frame
+    assert _block_count(frame) == 3
+
+
+def _block_count(frame: bytes) -> int:
+    """The blocks of a single-segment frame with a 4-byte content size."""
+    pos, count = 4 + 1 + 4, 0
+    while True:
+        head = int.from_bytes(frame[pos:pos + 3], 'little')
+        count += 1
+        pos += 3 + (1 if (head >> 1) & 3 == 1 else head >> 3)
+        if head & 1:
+            return count
+
+
 def _edge_cases(count: int, lo: int, hi: int):
     """Seeded single-block chunks (under 32 KiB, so one block whose zstd
     budget is its size less 8) whose unbounded libzstd frame of the
@@ -147,8 +257,8 @@ def _edge_cases(count: int, lo: int, hi: int):
     out = []
     while len(out) < count:
         dtype = (np.uint8, np.uint16)[len(out) % 2]
-        clevel = 1 + (len(out) // 2) % 2
-        shuffle = (0, 1, 2, -1)[(len(out) // 4) % 4]
+        clevel = 1 + (len(out) // 2) % 5
+        shuffle = (0, 1, 2, -1)[(len(out) // 10) % 4]
         n = int(rng.integers(128, 3000)) & ~1
         raw = rng.integers(0, 256, n, dtype=np.uint8)
         raw[rng.random(n) > rng.uniform(0.6, 1.0)] = 0
@@ -187,25 +297,34 @@ def test_bounded_frames_equal_tensorstore(tmp_path, band):
     assert 0 < stored < len(cases)      # both sides of the edge
 
 
-@pytest.mark.parametrize("clevel", [1, 2])
+@pytest.mark.parametrize("clevel", [1, 2, 3, 4, 5])
 def test_short_last_blocks_equal_tensorstore(tmp_path, clevel):
     """A chunk of whole blocks and a last block of 2-40 bytes: under the
     18 bytes libzstd wants for its frame header the last block is stored,
-    above them a frame of zeros fits; whole frames are tensorstore's."""
-    bs = 32768 * clevel
-    body = (chip_smoke.compressible(np.random.default_rng(5), 256) >> 8) \
-        .astype(np.uint8).ravel()[:bs]
-    for tail in (2, 12, 17, 18, 19, 25, 40):
-        data = np.concatenate([body, np.zeros(tail, np.uint8)])
+    above them a frame of zeros fits; at clevel 3-5 also last blocks of
+    texture of up to 16 KiB (hash chain, binary tree) and, in 256 KiB
+    blocks, of 150000 bytes (two zstd blocks); whole frames are
+    tensorstore's."""
+    bs = {1: 32768, 2: 65536, 3: 131072, 4: 262144, 5: 262144}[clevel]
+    tex = (chip_smoke.compressible(np.random.default_rng(5), 512) >> 8) \
+        .astype(np.uint8).ravel()
+    body = tex[:bs]
+    tails = [np.zeros(n, np.uint8) for n in (2, 12, 17, 18, 19, 25, 40)]
+    if clevel >= 3:
+        tails += [tex[-n:] for n in (5000, 16384, 16385)]
+    if clevel >= 4:
+        tails.append(tex[-150000:])
+    for k, tail in enumerate(tails):
+        data = np.concatenate([body, tail])
         shape = (1, 1, 1, 1, data.size)
-        path = str(tmp_path / f"t{tail}")
+        path = str(tmp_path / f"t{k}")
         create_zarr_array(path, shape, shape, np.uint8, cname='zstd',
                           clevel=clevel, shuffle=0).write(
                               data.reshape(shape)).result()
         with open(os.path.join(path, *'00000'), 'rb') as f:
             want = f.read()
         assert bytes(blosc.compress(data, 1, clevel, 0, 'zstd')) == want, \
-            tail
+            tail.size
 
 
 def test_kept_frames_are_what_make_writes(tmp_path):

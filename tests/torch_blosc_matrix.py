@@ -16,9 +16,9 @@ dtype of u8/u16:
   plain decoder reads tensorstore's frames and the port's, and the C
   frames are byte-equal to the plain version's;
 - for lz4 and lz4hc (liblz4's ``LZ4_compress_fast`` and
-  ``LZ4_compress_HC`` rules) and zstd at clevel 1 and 2 (libzstd 1.5.7's
-  levels 1 and 3), each whole frame is byte-equal to tensorstore's, the
-  memcpyed flag included; for lz4 and lz4hc the C frame of a 256-row cut
+  ``LZ4_compress_HC`` rules) and zstd at clevel 1 to 5 (libzstd 1.5.7's
+  levels 1, 3, 5, 7 and 9), each whole frame is byte-equal to
+  tensorstore's, the memcpyed flag included; for lz4 and lz4hc the C frame of a 256-row cut
   of the plane (streams of liblz4's larger hash, and past lz4hc's 64 KiB
   window) is byte-equal to the plain version's.
 """
@@ -36,8 +36,9 @@ from image_stitcher_tpu_torch.io.zarr_store import (BloscZarrArray,
                                                     EncodePool, read_array)
 
 CLEVELS = (0, 1, 5, 9)
-#: the clevels whose zstd frames follow libzstd 1.5.7 (levels 1 and 3)
-ZSTD_LIB_CLEVELS = (1, 2)
+#: the clevels whose zstd frames follow libzstd 1.5.7 (levels 1, 3, 5, 7
+#: and 9)
+ZSTD_LIB_CLEVELS = (1, 2, 3, 4, 5)
 SHUFFLES = (0, 1, 2, -1)
 DTYPES = (np.uint8, np.uint16)
 TILE, EDGE = 2048, 203

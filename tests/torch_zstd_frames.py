@@ -1,6 +1,6 @@
 """Seeded inputs and the digests of libzstd 1.5.7's frames of them at
-levels 1 and 3 (the levels c-blosc calls at blosc clevel 1 and 2), kept
-in the repo.
+levels 1, 3, 5, 7 and 9 (the levels c-blosc calls at blosc clevel 1 to
+5), kept in the repo.
 
 The card's host has no ``zstandard``. So ``chip_smoke.py`` (phase 12)
 makes the inputs with :func:`inputs` (NumPy integer arithmetic on
@@ -9,9 +9,12 @@ encoder to the SHA-256 of libzstd's frames kept in
 ``torch_zstd_frames.npz``, written by :func:`make` on the CPU test host
 (``zstandard`` 0.25.0, which bundles libzstd 1.5.7). The inputs are
 blosc blocks as c-blosc hands them to zstd (byte-shuffled textures at
-type sizes 1, 2, 4 and 8 in 32 and 64 KiB blocks, unshuffled ones), text,
-incompressible bytes, zeros, one repeated byte, and the frame header's
-size edges. Regenerate with::
+type sizes 1, 2, 4 and 8 in 32, 64, 128 and 256 KiB blocks, one of 16
+KiB, unshuffled ones), text, incompressible bytes, zeros, one repeated
+byte, 256 KiB of text then a 4-symbol alphabet (where libzstd splits the
+second block), and the frame header's size edges. A frame is kept only at
+the levels whose rules the C encoder follows for its size (levels 1 and 3
+up to 128 KiB). Regenerate with::
 
     python tests/torch_zstd_frames.py
 
@@ -28,7 +31,9 @@ import numpy as np
 PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     'torch_zstd_frames.npz')
 #: blosc clevel -> libzstd level
-LEVELS = {1: 1, 2: 3}
+LEVELS = {1: 1, 2: 3, 3: 5, 4: 7, 5: 9}
+#: the longest input each clevel follows libzstd on
+MAXSRC = {1: 131072, 2: 131072, 3: 262144, 4: 262144, 5: 262144}
 
 
 def _words(seed: int, n: int) -> np.ndarray:
@@ -74,8 +79,9 @@ def inputs():
                              (4, np.uint32, 3), (8, np.uint64, 5)):
         arr = (tex >> np.uint64(8)) if ts == 1 else tex * np.uint64(scale)
         raw = arr.astype(dtype).tobytes()
-        for bs in (32768, 65536):
-            for k in (0, 3):
+        for bs, ks in ((32768, (0, 3)), (65536, (0, 3)), (131072, (0, 1)),
+                       (262144, (0,))):
+            for k in ks:
                 block = raw[k * bs:(k + 1) * bs]
                 cases.append((f'tex{ts}_shuffled_{bs}_{k}',
                               _shuffle(block, ts) if ts > 1 else block))
@@ -83,11 +89,16 @@ def inputs():
     cases.append(('tex2_raw_32768', tex.astype(np.uint16).tobytes()[:32768]))
     cases.append(('tex2_raw_131072',
                   tex.astype(np.uint16).tobytes()[-131072:]))
+    cases.append(('tex2_shuffled_16384_2', _shuffle(
+        tex.astype(np.uint16).tobytes()[2 * 16384:3 * 16384], 2)))
     rnd = _words(7, 8192).tobytes()
     for n in (1, 6, 7, 100, 255, 256, 1000, 50000):
         cases.append((f'random_{n}', rnd[:n]))
-    for n in (70, 4096, 65791, 65792, 131072):
+    for n in (70, 4096, 16385, 65791, 65792, 131072, 200000):
         cases.append((f'text_{n}', _text(n, n)))
+    cases.append(('random_262144', _words(8, 32768).tobytes()))
+    cases.append(('mixed_262144', _text(3, 196608) + (
+        _words(5, 65536) % np.uint64(4)).astype(np.uint8).tobytes()))
     cases += [('zeros_5000', bytes(5000)), ('repeated_300', b'\x5a' * 300),
               ('alphabet4_20000', (_words(11, 20000) % np.uint64(4))
                .astype(np.uint8).tobytes())]
@@ -100,12 +111,16 @@ def sha(data: bytes) -> str:
 
 def make(path: str = PATH) -> None:
     """Write the kept file: each input's label and digest, and the
-    length and digest of libzstd's frame at each level."""
+    length and digest of libzstd's frame at each level (none, '-', where
+    the input is longer than the clevel's MAXSRC)."""
     import zstandard
     rows = []
     for label, data in inputs():
         row = [label, sha(data)]
-        for level in LEVELS.values():
+        for clevel, level in LEVELS.items():
+            if len(data) > MAXSRC[clevel]:
+                row += ['-', '-']
+                continue
             frame = zstandard.ZstdCompressor(
                 level=level, write_content_size=True).compress(data)
             row += [str(len(frame)), sha(frame)]
@@ -118,7 +133,9 @@ def load(path: str = PATH):
     """{label: (input digest, {clevel: (frame length, frame digest)})}."""
     with np.load(path) as f:
         rows = f['rows'].tolist()
-    return {r[0]: (r[1], {1: (int(r[2]), r[3]), 2: (int(r[4]), r[5])})
+    return {r[0]: (r[1], {clevel: (int(r[2 + 2 * k]), r[3 + 2 * k])
+                          for k, clevel in enumerate(LEVELS)
+                          if r[2 + 2 * k] != '-'})
             for r in rows}
 
 

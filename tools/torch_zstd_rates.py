@@ -1,12 +1,13 @@
 """The port's zstd encoder against libzstd (``zstandard``) on the same
 blocks: one ``chip_smoke.compressible`` 2048^2 uint16 chunk, byte-shuffled
-into c-blosc's blocks (32 KiB at clevel 1, 64 KiB at clevel 2), each
-block one frame at blosc clevel 1 and 2 (libzstd levels 1 and 3). Prints
-encode MB/s on one thread (best of five passes) and the bytes of both,
-which are equal since the port follows libzstd 1.5.7 at these clevels.
-Needs ``zstandard`` (the CPU test host), not a card:
+into c-blosc's blocks (32 KiB at clevel 1, 64 KiB at clevel 2, 128 KiB at
+clevel 3, 256 KiB at clevel 4 and 5), each block one frame at blosc
+clevel 1 to 5 (libzstd levels 1, 3, 5, 7 and 9). Prints encode MB/s on
+one thread (best of five passes) and the bytes of both, which are equal
+where the port follows libzstd 1.5.7. Needs ``zstandard`` (the CPU test
+host), not a card:
 
-    python tools/torch_zstd_rates.py [seed]
+    python tools/torch_zstd_rates.py [seed] [clevel ...]
 """
 
 import os
@@ -30,12 +31,14 @@ def _best(fn, blocks) -> float:
 
 def main():
     seed = int(sys.argv[1]) if len(sys.argv) > 1 else 0
+    clevels = [int(c) for c in sys.argv[2:]] or [1, 2, 3, 4, 5]
     import zstandard
     import chip_smoke
     from image_stitcher_tpu_torch.io import blosc
     raw = chip_smoke.compressible(np.random.default_rng(seed), 2048).tobytes()
-    for clevel, level in ((1, 1), (2, 3)):
-        bs = 32768 * clevel
+    for clevel in clevels:
+        level = 2 * clevel - 1
+        bs = {1: 32768, 2: 65536, 3: 131072}.get(clevel, 262144)
         blocks = [blosc.shuffle_plain(raw[i:i + bs], 2)
                   for i in range(0, len(raw), bs)]
         lib = zstandard.ZstdCompressor(level=level, write_content_size=True)
