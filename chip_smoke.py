@@ -113,19 +113,26 @@ Phases, each fatal on failure:
      other blosc codecs (zstd, zlib, lz4hc, blosclz, snappy): (a) the C
      zstd encoder at clevel 1 to 5 byte-equal to libzstd 1.5.7's level 1,
      3, 5, 7 and 9 frames of the seeded inputs of tests/torch_zstd_frames.py
-     (their SHA-256 kept in tests/torch_zstd_frames.npz), and each
+     (their SHA-256 kept in tests/torch_zstd_frames.npz); the C snappy
+     and zlib encoders byte-equal to tensorstore's blosc frames of the
+     seeded inputs of tests/torch_blosc_frames.py, snappy at clevel 9 and
+     zlib at clevel 1-9, and to the snappy and zlib streams those frames
+     hold (their SHA-256 kept in tests/torch_blosc_frames.npz); and each
      codec's C encoder and decoder against its plain version on phase 8's
      chunks (the C frames of the full chunks decode exactly; the Python
-     versions run on 512^2 cuts, on a pool of processes); (b) each
-     codec's MB/s on one thread and on the encode pool, its ratio beside
-     lz4's, and the zstd encoder's MB/s on one thread at clevel 1, 3, 4
-     and 5 (libzstd's fast, greedy, lazy and lazy2 rules); (c) the reference production edition's setting, blosc zstd
-     clevel 1 with byte shuffle, on phase 8's grid and content, decoded
-     equal to a raw run, with e2e, tiles/s, the writer's seconds, the
-     pool's drain, bytes and ratio against phase 8's lz4 run; (d) a 3x3
-     grid for every other cname (snappy bit-shuffled) as zarr v2 and v3,
-     each decoded equal to phase 8's raw 3x3 twin; (e) a 2-well plate with the
-     complete-plate merge in zstd, equal to the same merge in lz4;
+     versions run on 512^2 cuts, zlib's on 256^2, on a pool of
+     processes); (b) each codec's MB/s on one thread and on the encode
+     pool, its ratio beside lz4's, and the zstd encoder's MB/s on one
+     thread at clevel 1, 3, 4 and 5 (libzstd's fast, greedy, lazy and
+     lazy2 rules); (c) phase 8's grid and content in the reference
+     production edition's setting, blosc zstd clevel 1 with byte shuffle,
+     and in blosc zlib at the JAX default clevel 5 with byte shuffle,
+     each decoded equal to a raw run, with e2e, tiles/s, the writer's
+     seconds, the pool's drain, bytes and ratio against phase 8's lz4
+     run; (d) a 3x3 grid for every other cname (snappy bit-shuffled) as
+     zarr v2 and v3, each decoded equal to phase 8's raw 3x3 twin; (e) a
+     2-well plate with the complete-plate merge in zstd, equal to the
+     same merge in lz4;
  13. (run right after phase 9, beside its PNG rates) JPEG through the
      port's C codec (csrc/jpeg.c): (a) its encoder and decoder against
      the plain versions (io/jpeg_plain.py, on a pool of processes) on
@@ -2841,6 +2848,9 @@ OTHER_CODECS = {'zstd': (1, 1), 'zlib': (5, 1), 'lz4hc': (5, 1),
                 'blosclz': (5, 1), 'snappy': (5, 2)}
 #: side of the cuts of ``codec_chunks`` the plain (Python) versions run on
 PLAIN_CUT = 512
+#: a smaller side for the codecs whose Python version is slower than
+#: lz4hc's at PLAIN_CUT, so they do not set 12a's time
+PLAIN_CUT_OF = {'zlib': 256}
 
 
 def _plain_case(args):
@@ -2880,8 +2890,9 @@ def other_codec_check(rng) -> None:
     for cname, (clevel, shuffle) in OTHER_CODECS.items():
         for label, (chunk, ts) in chunks.items():
             full.append((cname, clevel, shuffle, label, chunk, ts))
+            side = PLAIN_CUT_OF.get(cname, PLAIN_CUT)
             cuts.append((cname, clevel, shuffle, label, np.ascontiguousarray(
-                chunk[:PLAIN_CUT, :PLAIN_CUT]), ts))
+                chunk[:side, :side]), ts))
     ctx = multiprocessing.get_context('spawn')
     with ctx.Pool(os.cpu_count() or 1) as pool:
         plain = pool.map_async(_plain_case, cuts, chunksize=1)
@@ -2898,11 +2909,14 @@ def other_codec_check(rng) -> None:
         results = plain.get(timeout=600)
     for cname, label, equal, exact, size in results:
         if not equal or not exact:
-            raise SystemExit(f"codecs: {cname} on the {PLAIN_CUT}^2 cut of "
+            raise SystemExit(f"codecs: {cname} on the "
+                             f"{PLAIN_CUT_OF.get(cname, PLAIN_CUT)}^2 cut of "
                              f"{label}: plain frame equal {equal}, round "
                              f"trips exact {exact}")
+    smaller = ', '.join(f"{c}'s {n}^2" for c, n in PLAIN_CUT_OF.items())
     log(f"codecs: the plain versions of {sorted(OTHER_CODECS)} on the "
-        f"{PLAIN_CUT}^2 cuts of {len(chunks)} chunks ({len(results)} cases, "
+        f"{PLAIN_CUT}^2 cuts ({smaller}) of {len(chunks)} chunks "
+        f"({len(results)} cases, "
         f"cut because the Python versions take seconds per chunk): frames "
         f"byte-equal to C, round trips exact through both decoders; "
         f"{time.perf_counter() - t0:.1f}s with the C checks")
@@ -2946,6 +2960,66 @@ def zstd_libzstd_check() -> int:
         f"level 1, 3, 5, 7 and 9 frames (tests/torch_zstd_frames.npz) in "
         f"{time.perf_counter() - t0:.2f}s")
     return frames
+
+
+def blosc_frames_check() -> int:
+    """12a: the C snappy and zlib encoders against tensorstore's blosc
+    frames (snappy 1.2, Chromium's zlib 1.3.1), whose SHA-256 the CPU test
+    host keeps in ``tests/torch_blosc_frames.npz`` (this host has no
+    tensorstore): the seeded inputs of ``tests/torch_blosc_frames.py``
+    made here (their digests checked first), the port's frame of each
+    (two blocks of zeros, then the input) at each kept setting, snappy at
+    clevel 9 and zlib at clevel 1-9, and the codec's stream of the input
+    where the frame holds one, each length and digest equal to the kept
+    ones (on a pool of threads: the C encoders release the interpreter
+    lock). Returns the number of frames and streams checked."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests')
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_blosc_frames as kept_frames
+    from image_stitcher_tpu_torch.io import blosc
+    t0 = time.perf_counter()
+    kept = kept_frames.load()
+    cases = kept_frames.inputs()
+    if sorted(label for label, _ in cases) != sorted(kept):
+        raise SystemExit("codecs (tensorstore frames): the inputs are not "
+                         "the kept file's")
+    tasks = []
+    for label, data in cases:
+        digest, settings = kept[label]
+        if kept_frames.sha(data) != digest:
+            raise SystemExit(f"codecs (tensorstore frames): input {label} is "
+                             "not the one the kept digests were made from")
+        for setting, want in settings.items():
+            tasks.append((label, data, setting, want))
+
+    def check(task):
+        label, data, (cname, clevel), (flen, fsha, slen, ssha) = task
+        frame = bytes(blosc.compress(kept_frames.framed(data, cname, clevel),
+                                     1, clevel, 0, cname))
+        if (len(frame), kept_frames.sha(frame)) != (flen, fsha):
+            return (f"{label}: the {cname}-{clevel} frame of {len(frame)} "
+                    f"bytes is not tensorstore's ({flen} bytes)"), 0
+        if slen is None:
+            return None, 1
+        stream = blosc.stream_compress(cname, data, clevel)
+        if (len(stream), kept_frames.sha(stream)) != (slen, ssha):
+            return (f"{label}: the {cname}-{clevel} stream of {len(stream)} "
+                    f"bytes is not tensorstore's ({slen} bytes)"), 1
+        return None, 2
+
+    checked = 0
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        for err, n in pool.map(check, tasks):
+            if err:
+                raise SystemExit(f"codecs (tensorstore frames): {err}")
+            checked += n
+    log(f"codecs (tensorstore frames): {len(tasks)} C frames and "
+        f"{checked - len(tasks)} snappy and zlib streams of {len(cases)} "
+        f"kept inputs (snappy at clevel 9, zlib at clevel 1-9) byte-equal "
+        f"to tensorstore's (tests/torch_blosc_frames.npz) in "
+        f"{time.perf_counter() - t0:.2f}s")
+    return checked
 
 
 def zstd_level_rates(rng, card: str) -> dict:
@@ -3062,50 +3136,36 @@ def compare_trees_banded(a_root: str, b_root: str, what: str,
     return len(arrays)
 
 
-def phase_other_codecs(work: str, card: str, output_layer: dict,
-                       grid: int = 10, tile: int = TILE,
-                       device: str = 'cuda') -> dict:
-    """12: the other blosc codecs. (a) C against plain; (b) MB/s; (c) the
-    reference production setting (zstd, clevel 1, byte shuffle) on phase
-    8's grid and content, decoded equal to a raw run, with e2e, tiles/s,
-    the writer's seconds, the encode pool's drain, bytes and ratio against
-    phase 8's lz4 run; (d) a 3x3 grid for every other cname, v2 and v3,
-    each decoded equal to its raw twin; (e) a 2-well plate with the
-    complete-plate merge in zstd, equal to the same merge in lz4.
-    ``output_layer`` is phase 8's result: its lz4 run, and the
-    acquisitions and raw trees (c) and (d) reuse, which this phase
-    removes."""
-    from image_stitcher_tpu_torch import CarriedState, list_outputs, stitch
+def main_path_codec_run(work: str, card: str, output_layer: dict, dev,
+                        cname: str, clevel: int, grid: int) -> dict:
+    """12c: phase 8's main-path grid and content in blosc ``cname`` at
+    ``clevel`` with byte shuffle, streamed in bands as phase 8's runs:
+    e2e, tiles/s, the writer's seconds, the encode pool's drain (the
+    close), bytes and ratio, the tree decoded equal to phase 8's raw
+    tree, beside phase 8's lz4 run. The tree is removed."""
+    from image_stitcher_tpu_torch import stitch
     from image_stitcher_tpu_torch.ops import cuda_fuse
-    dev = torch.device(device)
-    t_phase = time.perf_counter()
-    rng = np.random.default_rng(12)
-    libzstd_frames = zstd_libzstd_check()
-    other_codec_check(rng)
-    rates = other_codec_rates(rng, card)
-    zstd_rates = zstd_level_rates(rng, card)
-    overlap = 205 * tile // TILE
-
-    # 12c: the main path's grid in zstd-1, against phase 8's raw twin
+    what = f"{cname}-{clevel}"
     lz4_run = output_layer['runs']['lz4']
-    out = os.path.join(work, 'zstd_out')
+    out = os.path.join(work, f'{cname}_out')
     cuda_fuse.fuse_overwrite.launches = 0
     t0 = time.perf_counter()
     # streamed in bands as phase 8's runs ('auto' streams this canvas)
     pipe = stitch(output_layer['main_acq'], use_registration=True,
                   apply_flatfield=True, device=dev, options=output_options(
-                      out, streaming='on', compressor_cname='zstd',
-                      compressor_clevel=1))
+                      out, streaming='on', compressor_cname=cname,
+                      compressor_clevel=clevel, compressor_shuffle=1))
     e2e = time.perf_counter() - t0
     launches = cuda_fuse.fuse_overwrite.launches
     if dev.type == 'cuda' and launches == 0:
-        raise SystemExit("codecs (zstd-1): no kernel launch")
+        raise SystemExit(f"codecs ({what}): no kernel launch")
     stats = pipe.fuse_stats['A1_t0']
     with open(os.path.join(out, '0_stitched', 'A1_stitched.ome.zarr', '0',
                            '.zarray')) as f:
         comp = json.load(f)['compressor']
-    if comp['cname'] != 'zstd' or comp['clevel'] != 1:
-        raise SystemExit(f"codecs (zstd-1): chunks written as {comp}")
+    if (comp['cname'], comp['clevel'], comp['shuffle']) != (cname, clevel,
+                                                             1):
+        raise SystemExit(f"codecs ({what}): chunks written as {comp}")
     written = tree_bytes(out)
     level_bytes = 0
     for d, _, names in os.walk(out):
@@ -3117,21 +3177,57 @@ def phase_other_codecs(work: str, card: str, output_layer: dict,
            'writer_s': stats['write'] + stats['close'],
            'close_s': stats['close'], 'bytes': written,
            'ratio': written / level_bytes, 'launches': launches}
-    log(f"codecs (zstd-1) main path on {card}: e2e {e2e:.3f}s = "
+    log(f"codecs ({what}) main path on {card}: e2e {e2e:.3f}s = "
         f"{n_tiles / e2e:.2f} tiles/s; band fuser: fuse={stats['fuse']:.3f}s "
-        f"write={stats['write']:.3f}s close={stats['close']:.3f}s (writer "
-        f"{run['writer_s']:.3f}s); {written} bytes for {level_bytes} bytes "
-        f"of levels (ratio {written / level_bytes:.4f}); fuse_overwrite "
-        f"launches {launches}")
+        f"write={stats['write']:.3f}s close (the pool's drain)="
+        f"{stats['close']:.3f}s (writer {run['writer_s']:.3f}s); {written} "
+        f"bytes for {level_bytes} bytes of levels (ratio "
+        f"{written / level_bytes:.4f}); fuse_overwrite launches {launches}")
     t0 = time.perf_counter()
     arrays = compare_trees_banded(output_layer['main_raw'], out,
-                                  'codecs (zstd-1 vs raw)')
-    log(f"codecs: the zstd-1 tree decodes equal to phase 8's raw tree "
+                                  f'codecs ({what} vs raw)')
+    log(f"codecs: the {what} tree decodes equal to phase 8's raw tree "
         f"({arrays} level arrays, compared in {time.perf_counter() - t0:.1f}"
-        f"s); zstd-1 e2e {e2e:.3f}s, ratio {run['ratio']:.4f} against "
+        f"s); {what} e2e {e2e:.3f}s, ratio {run['ratio']:.4f} against "
         f"phase 8's lz4 e2e {lz4_run['e2e_s']:.3f}s, ratio "
         f"{lz4_run['ratio']:.4f} (same acquisition, this call)")
-    for path in (out, output_layer['main_raw'], output_layer['main_acq']):
+    shutil.rmtree(out)
+    return run
+
+
+def phase_other_codecs(work: str, card: str, output_layer: dict,
+                       grid: int = 10, tile: int = TILE,
+                       device: str = 'cuda') -> dict:
+    """12: the other blosc codecs. (a) C against the kept digests and
+    against plain; (b) MB/s; (c) the reference production setting (zstd,
+    clevel 1, byte shuffle) and zlib at the JAX default clevel 5 with byte
+    shuffle on phase 8's grid and content, each decoded equal to a raw
+    run, with e2e, tiles/s, the writer's seconds, the encode pool's
+    drain, bytes and ratio against phase 8's lz4 run; (d) a 3x3 grid for
+    every other cname, v2 and v3, each decoded equal to its raw twin; (e)
+    a 2-well plate with the complete-plate merge in zstd, equal to the
+    same merge in lz4.
+    ``output_layer`` is phase 8's result: its lz4 run, and the
+    acquisitions and raw trees (c) and (d) reuse, which this phase
+    removes."""
+    from image_stitcher_tpu_torch import CarriedState, list_outputs, stitch
+    from image_stitcher_tpu_torch.ops import cuda_fuse
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12)
+    libzstd_frames = zstd_libzstd_check()
+    blosc_frames = blosc_frames_check()
+    other_codec_check(rng)
+    rates = other_codec_rates(rng, card)
+    zstd_rates = zstd_level_rates(rng, card)
+    overlap = 205 * tile // TILE
+
+    # 12c: the main path's grid in zstd-1 and in zlib-5, against phase 8's
+    # raw twin
+    runs = {cname: main_path_codec_run(work, card, output_layer, dev, cname,
+                                       clevel, grid)
+            for cname, clevel in (('zstd', 1), ('zlib', 5))}
+    for path in (output_layer['main_raw'], output_layer['main_acq']):
         shutil.rmtree(path)
 
     # 12d: 3x3 grids, every other cname, v2 and v3, against a raw twin
@@ -3199,8 +3295,10 @@ def phase_other_codecs(work: str, card: str, output_layer: dict,
         raise SystemExit(f"codecs: loaded {banned}")
     seconds = time.perf_counter() - t_phase
     log(f"codecs: phase 12 in {seconds:.1f}s")
-    return {'rates': rates, 'zstd_main': run, 'small': small,
-            'libzstd_frames': libzstd_frames, 'zstd_rates': zstd_rates,
+    return {'rates': rates, 'zstd_main': runs['zstd'],
+            'zlib_main': runs['zlib'], 'small': small,
+            'libzstd_frames': libzstd_frames, 'blosc_frames': blosc_frames,
+            'zstd_rates': zstd_rates,
             'seconds': seconds}
 
 

@@ -1,6 +1,6 @@
 /* Blosc1 frames, written by hand: byte and bit shuffle, and the codecs
- * blosclz (code 0), LZ4 and LZ4HC (code 1), snappy (code 2) and zstd
- * (code 4).
+ * blosclz (code 0), LZ4 and LZ4HC (code 1), snappy (code 2), zlib (code
+ * 3; the encoder only) and zstd (code 4).
  *
  * The host-side codec of the port's compressed zarr chunks, the
  * counterpart of the c-blosc 1.x that tensorstore links (zarr v2
@@ -9,10 +9,11 @@
  * files it includes (codec_*.h), and bound with ctypes
  * (image_stitcher_tpu_torch/native, io/blosc.py); every function is
  * reentrant and touches no Python object, so ctypes calls run with the
- * interpreter lock released, one chunk per thread. zlib (code 3) is not
- * here: the frame layer below shuffles its blocks
- * (blosc_shuffle_blocks, blosc_unshuffle_blocks) and the stdlib's zlib
- * compresses the streams, so nothing links a compression library.
+ * interpreter lock released, one chunk per thread. Every frame, zlib's
+ * included, is written here; nothing links a compression library. zlib
+ * frames are decoded by io/blosc.py: the frame layer below unshuffles
+ * their blocks (blosc_unshuffle_blocks) and the stdlib's zlib inflates
+ * the streams.
  *
  * io/blosc.py documents the frame and holds the plain version of every
  * function here; the two produce byte-equal frames.
@@ -103,6 +104,7 @@ static void copy_match(uint8_t *op, int64_t off, int64_t len)
 #include "codec_blosclz.h"
 #include "codec_snappy.h"
 #include "codec_zstd.h"
+#include "codec_zlib.h"
 
 /* ------------------------------------------------------------ shuffles */
 
@@ -330,6 +332,8 @@ static int64_t stream_compress(int cid, const uint8_t *src, int64_t n,
         return lz4hc_compress_block(src, n, dst, cap, clevel);
     case CID_SNAPPY:
         return snappy_compress(src, n, dst, cap, clevel);
+    case CID_ZLIB:
+        return zlib_compress(src, n, dst, cap, clevel);
     case CID_ZSTD:
         return zstd_compress(src, n, dst, cap, clevel);
     }
@@ -352,7 +356,7 @@ static int64_t stream_decompress(int code, const uint8_t *src, int64_t n,
     return ERR_UNSUPPORTED;
 }
 
-/* A blosc1 frame of src[0, nbytes) with codec cid (not zlib) into dest
+/* A blosc1 frame of src[0, nbytes) with codec cid into dest
  * (destsize >= nbytes + 16); returns its size or a negative error. A
  * frame that would exceed nbytes + 16 bytes, an input under 128 bytes or
  * clevel 0 gives a memcpyed frame. */
@@ -360,9 +364,9 @@ int64_t blosc_compress(int cid, int clevel, int shuffle, int64_t ts,
                        const uint8_t *src, int64_t nbytes, uint8_t *dest,
                        int64_t destsize)
 {
-    if (cid < 0 || cid >= CID_COUNT || cid == CID_ZLIB || clevel < 0
-            || clevel > 9 || shuffle < -1 || shuffle > 2 || ts < 1
-            || ts > 255 || nbytes < 0 || nbytes > 0x7fffffff - 16
+    if (cid < 0 || cid >= CID_COUNT || clevel < 0 || clevel > 9
+            || shuffle < -1 || shuffle > 2 || ts < 1 || ts > 255
+            || nbytes < 0 || nbytes > 0x7fffffff - 16
             || destsize < nbytes + BLOSC_MAX_OVERHEAD)
         return ERR_ARGS;
     int64_t bs;
@@ -392,8 +396,9 @@ int64_t blosc_compress(int cid, int clevel, int shuffle, int64_t ts,
         int64_t neblock = bsize / nsplits;
         for (int64_t s = 0; ok && s < nsplits; ++s) {
             pos += 4;
-            /* snappy may write past the stream's size (c-blosc gives it
-             * its worst case); the others must fit in it */
+            /* c-blosc gives snappy its worst case (which snappy refuses
+             * once clipped to the frame's room); the others must fit in
+             * the stream's size */
             int64_t maxout = cid == CID_SNAPPY
                              ? 32 + neblock + neblock / 6 : neblock;
             if (pos + maxout > maxbytes)
@@ -531,35 +536,9 @@ int64_t blosc_decompress(const uint8_t *src, int64_t srcsize, uint8_t *dest,
     return rc;
 }
 
-/* The zlib frame's blocks as the codec sees them: the frame's flags and
- * block size into params[0], params[1], its split rule into params[2],
- * and every block of src[0, nbytes) shuffled as the flags say into dest
- * (nbytes bytes; block j at j * blocksize). */
-int64_t blosc_shuffle_blocks(int cid, int clevel, int shuffle, int64_t ts,
-                             const uint8_t *src, int64_t nbytes,
-                             uint8_t *dest, int64_t *params)
-{
-    if (cid < 0 || cid >= CID_COUNT || clevel < 0 || clevel > 9
-            || shuffle < -1 || shuffle > 2 || ts < 1 || ts > 255
-            || nbytes < 0)
-        return ERR_ARGS;
-    int64_t bs;
-    int split;
-    int flags = frame_flags(cid, clevel, shuffle, ts, nbytes, &bs, &split);
-    params[0] = flags;
-    params[1] = bs;
-    params[2] = split;
-    for (int64_t off = 0; off < nbytes; off += bs) {
-        int64_t bsize = nbytes - off < bs ? nbytes - off : bs;
-        if (prepare_block(flags, ts, bsize, src + off, dest + off)
-                == src + off)
-            memcpy(dest + off, src + off, (size_t)bsize);
-    }
-    return 0;
-}
-
-/* The inverse: blocks of src (as a frame with these flags, type size and
- * block size holds them) unshuffled into dest. */
+/* Blocks of src (as a frame with these flags, type size and block size
+ * holds them) unshuffled into dest: the zlib frame's decode, after the
+ * stdlib has inflated its streams. */
 int64_t blosc_unshuffle_blocks(int flags, int64_t ts, int64_t bs,
                                const uint8_t *src, int64_t nbytes,
                                uint8_t *dest)

@@ -7,38 +7,51 @@
  * & 7) + 4 with an 11-bit offset (tag >> 5 high bits, then a byte), 10 a
  * copy of (tag >> 2) + 1 bytes with a u16 LE offset, 11 the same with a
  * u32 LE offset. The decoder reads all of them.
- * The encoder (the port's own; io/snappy.py is its plain version, byte
- * for byte):
- *   - the hash of the 4 bytes at ip is (seq * 0x1e35a7bd mod 2^32) >> 18,
- *     a 16384-entry table of the last position with that hash;
- *   - positions ip <= n - 4 may start a match, which extends to the end
- *     of the input; a candidate is taken when its 4 bytes equal ip's and
- *     it is at most 65535 bytes back;
- *   - after a miss ip advances by (search >> 5), search += 1, search
- *     starting at 32 and reset after each match;
- *   - after a match ending at e (e <= n - 4), e - 1 is entered in the
- *     table;
- *   - a match is emitted as copies of 64 bytes while 68 or more are
- *     left, then one of 60 if more than 64 are left; a copy of 4..11
- *     bytes at an offset under 2048 takes the 2-byte form (01), every
- *     other the 3-byte form (10).
+ * The encoder is Google snappy 1.2's Compress at level 1 (c-blosc calls
+ * its C API, snappy_compress), so its streams are c-blosc's byte for
+ * byte; io/snappy_plain.py is its plain version, byte for byte:
+ *   - the varint length, then the input in fragments of at most 65536
+ *     bytes, each compressed on its own (no copy reaches back into an
+ *     earlier fragment) with a zeroed table of u16 offsets from the
+ *     fragment's start, so position 0 is a live candidate;
+ *   - the table has the next power of two >= the fragment's length
+ *     entries, clamped to [256, 2^15]; the 4 bytes at p index it by the
+ *     top 15 bits of (load32_le(p) * 0x1e35a7bd mod 2^32), masked to its
+ *     size;
+ *   - a fragment under 15 bytes is one literal; otherwise ip_limit is its
+ *     end - 15. Each literal run starts at next_emit = ip++ (its first
+ *     byte is not looked up). The search at ip takes the candidate of
+ *     ip's hash and enters ip; it steps skip >> 5 bytes, skip += that,
+ *     skip starting at 32, and leaves for the remainder literal (from
+ *     next_emit) once ip + step passes ip_limit. When 16 or more
+ *     positions are left before ip_limit, snappy first probes the 16
+ *     positions ip..ip+15 unrolled (skip ends at 48), which is the same
+ *     walk;
+ *   - a candidate whose 4 bytes equal ip's gives a match, extended to the
+ *     fragment's end. After each copy: stop (remainder literal from ip)
+ *     when ip >= ip_limit; otherwise enter ip - 1 and ip, and copy again
+ *     while the candidate at ip (its entry before ip was entered) matches
+ *     4 bytes;
+ *   - a copy goes out as copies of 64 bytes while 68 or more are left,
+ *     then one of 60 if more than 64 are left, then the rest; a copy of
+ *     4..11 bytes at an offset under 2048 takes the 2-byte form (01),
+ *     every other the 3-byte form (10);
+ *   - snappy's C API refuses an output buffer under its worst case,
+ *     32 + n + n / 6 bytes: the stream is then not written (0), which
+ *     c-blosc stores as it is.
  */
 
-#define SNAPPY_HASH_LOG 14
+#define SNAPPY_BLOCK 65536
+#define SNAPPY_MAX_TABLE (1 << 15)
+#define SNAPPY_MARGIN 15
 
-static uint8_t *snappy_literal(uint8_t *op, const uint8_t *oend,
-                               const uint8_t *src, int64_t n)
+static uint8_t *snappy_literal(uint8_t *op, const uint8_t *src, int64_t n)
 {
-    if (n == 0)
-        return op;
     int64_t m = n - 1;
-    int extra = m < 60 ? 0 : m < 256 ? 1 : m < 65536 ? 2 : m < 16777216
-                ? 3 : 4;
-    if (oend - op < 1 + extra + n)
-        return NULL;
-    if (extra == 0) {
+    if (m < 60) {
         *op++ = (uint8_t)(m << 2);
     } else {
+        int extra = m < 256 ? 1 : m < 65536 ? 2 : m < 16777216 ? 3 : 4;
         *op++ = (uint8_t)((59 + extra) << 2);
         for (int k = 0; k < extra; ++k)
             *op++ = (uint8_t)(m >> (8 * k));
@@ -47,19 +60,14 @@ static uint8_t *snappy_literal(uint8_t *op, const uint8_t *oend,
     return op + n;
 }
 
-static uint8_t *snappy_copy(uint8_t *op, const uint8_t *oend, int64_t len,
-                            int64_t offset)
+static uint8_t *snappy_copy(uint8_t *op, int64_t len, int64_t offset)
 {
     while (len > 0) {
         int64_t part = len >= 68 ? 64 : len > 64 ? 60 : len;
         if (part <= 11 && offset < 2048) {
-            if (oend - op < 2)
-                return NULL;
             *op++ = (uint8_t)(1 | ((part - 4) << 2) | ((offset >> 8) << 5));
             *op++ = (uint8_t)(offset & 255);
         } else {
-            if (oend - op < 3)
-                return NULL;
             *op++ = (uint8_t)(2 | ((part - 1) << 2));
             *op++ = (uint8_t)(offset & 255);
             *op++ = (uint8_t)(offset >> 8);
@@ -69,55 +77,105 @@ static uint8_t *snappy_copy(uint8_t *op, const uint8_t *oend, int64_t len,
     return op;
 }
 
-/* A snappy stream of src[0, n) into dst; its size, or 0 when it would
- * exceed cap bytes. */
-int64_t snappy_compress(const uint8_t *src, int64_t n, uint8_t *dst,
-                        int64_t cap, int clevel)
+static uint32_t snappy_slot(uint32_t v, uint32_t mask)
 {
-    (void)clevel;    /* snappy has no levels */
-    uint8_t *op = dst;
-    const uint8_t *oend = dst + cap;
-    uint64_t v = (uint64_t)n;
-    do {
-        if (op >= oend)
-            return 0;
-        *op++ = (uint8_t)((v & 127) | (v >= 128 ? 128 : 0));
-        v >>= 7;
-    } while (v);
-    int64_t anchor = 0, ip = 0;
-    if (n >= 4) {
-        int32_t table[1 << SNAPPY_HASH_LOG];
-        uint32_t search = 32;
-        for (int i = 0; i < (1 << SNAPPY_HASH_LOG); ++i)
-            table[i] = -1;
-        while (ip <= n - 4) {
-            uint32_t seq = read32(src + ip);
-            uint32_t h = (seq * 0x1e35a7bdu) >> (32 - SNAPPY_HASH_LOG);
-            int64_t ref = table[h];
-            table[h] = (int32_t)ip;
-            if (ref >= 0 && ip - ref <= 65535 && read32(src + ref) == seq) {
-                int64_t len = 4 + common_len(src + ip + 4, src + ref + 4,
-                                             src + n);
-                op = snappy_literal(op, oend, src + anchor, ip - anchor);
-                if (op == NULL)
-                    return 0;
-                op = snappy_copy(op, oend, len, ip - ref);
-                if (op == NULL)
-                    return 0;
+    return ((v * 0x1e35a7bdu) >> 17) & mask;
+}
+
+/* One fragment (n <= 65536 bytes) after the stream's length: snappy's
+ * CompressFragment. */
+static uint8_t *snappy_fragment(const uint8_t *in, int64_t n, uint8_t *op,
+                                uint16_t *table)
+{
+    int64_t size = 256;
+    while (size < n && size < SNAPPY_MAX_TABLE)
+        size <<= 1;
+    const uint32_t mask = (uint32_t)size - 1;
+    memset(table, 0, (size_t)size * sizeof *table);
+    int64_t ip = 0, next_emit = 0;
+    if (n >= SNAPPY_MARGIN) {
+        const int64_t ip_limit = n - SNAPPY_MARGIN;
+        for (;;) {
+            next_emit = ip++;
+            uint32_t skip = 32;
+            int64_t cand = -1;
+            if (ip_limit - ip >= 16) {
+                for (int i = 0; i < 16; ++i) {
+                    uint32_t v = read32(in + ip + i);
+                    uint32_t h = snappy_slot(v, mask);
+                    int64_t c = table[h];
+                    table[h] = (uint16_t)(ip + i);
+                    if (read32(in + c) == v) {
+                        ip += i;
+                        cand = c;
+                        break;
+                    }
+                }
+                if (cand < 0) {
+                    ip += 16;
+                    skip += 16;
+                }
+            }
+            while (cand < 0) {
+                uint32_t v = read32(in + ip);
+                uint32_t h = snappy_slot(v, mask);
+                uint32_t step = skip >> 5;
+                skip += step;
+                if (ip + step > ip_limit) {
+                    ip = next_emit;
+                    goto remainder;
+                }
+                int64_t c = table[h];
+                table[h] = (uint16_t)ip;
+                if (read32(in + c) == v)
+                    cand = c;
+                else
+                    ip += step;
+            }
+            op = snappy_literal(op, in + next_emit, ip - next_emit);
+            for (;;) {
+                int64_t len = 4 + common_len(in + ip + 4, in + cand + 4,
+                                             in + n);
+                op = snappy_copy(op, len, ip - cand);
                 ip += len;
-                anchor = ip;
-                if (ip <= n - 4)
-                    table[(read32(src + ip - 1) * 0x1e35a7bdu)
-                          >> (32 - SNAPPY_HASH_LOG)] = (int32_t)(ip - 1);
-                search = 32;
-            } else {
-                ip += search++ >> 5;
+                if (ip >= ip_limit)
+                    goto remainder;
+                table[snappy_slot(read32(in + ip - 1), mask)] =
+                    (uint16_t)(ip - 1);
+                uint32_t v = read32(in + ip);
+                uint32_t h = snappy_slot(v, mask);
+                cand = table[h];
+                table[h] = (uint16_t)ip;
+                if (read32(in + cand) != v)
+                    break;
             }
         }
     }
-    op = snappy_literal(op, oend, src + anchor, n - anchor);
-    if (op == NULL)
+remainder:
+    if (ip < n)
+        op = snappy_literal(op, in + ip, n - ip);
+    return op;
+}
+
+/* A snappy stream of src[0, n) into dst; its size, or 0 when cap is
+ * under snappy's worst case for n bytes. */
+int64_t snappy_compress(const uint8_t *src, int64_t n, uint8_t *dst,
+                        int64_t cap, int clevel)
+{
+    (void)clevel;    /* c-blosc runs snappy at its level 1 */
+    if (cap < 32 + n + n / 6)    /* snappy's worst case */
         return 0;
+    uint8_t *op = dst;
+    uint64_t v = (uint64_t)n;
+    do {
+        *op++ = (uint8_t)((v & 127) | (v >= 128 ? 128 : 0));
+        v >>= 7;
+    } while (v);
+    uint16_t table[SNAPPY_MAX_TABLE];
+    for (int64_t pos = 0; pos < n; pos += SNAPPY_BLOCK) {
+        int64_t len = n - pos < SNAPPY_BLOCK ? n - pos : SNAPPY_BLOCK;
+        op = snappy_fragment(src + pos, len, op, table);
+    }
     return op - dst;
 }
 

@@ -5,18 +5,20 @@ The counterpart of the c-blosc 1.x that tensorstore links for the JAX
 package's compressed chunks (zarr v2 ``{"id": "blosc", "cname": ...}``
 and the zarr v3 ``blosc`` codec), for the cnames ``blosclz``, ``lz4``,
 ``lz4hc``, ``snappy``, ``zlib`` and ``zstd``, byte shuffle, bit shuffle
-or none. The frame layer and every codec but zlib are C, written by hand
+or none. The frame layer and every codec are C, written by hand
 (``csrc/blosc.c`` and the ``csrc/codec_*.h`` it includes), built at
 first use with the system C compiler (:func:`image_stitcher_tpu_torch.
 native.load`) and called through :mod:`ctypes`, which releases the
-interpreter lock, so the zarr writers encode one chunk per thread. zlib
-streams go through the stdlib's :mod:`zlib` (which releases it too),
-the C frame layer shuffling their blocks. This module holds the
-bindings and the plain version of the same frames in NumPy and Python
-(``*_plain``; the codecs' own in ``blosclz_plain``, ``snappy_plain``,
-``lz4hc_plain`` and ``zstd_plain``, LZ4 here), which the tests hold the C
-codecs to, byte for byte; the writers never run a plain version, and a codec
-that cannot be built raises.
+interpreter lock, so the zarr writers encode one chunk per thread. Only
+zlib's streams are decoded elsewhere: through the stdlib's :mod:`zlib`
+(which releases the lock too), the C frame layer unshuffling their
+blocks; no blosc frame is written through the stdlib. This module holds
+the bindings and the plain version of the same frames in NumPy and
+Python (``*_plain``; the codecs' own in ``blosclz_plain``,
+``snappy_plain``, ``zlib_plain``, ``lz4hc_plain`` and ``zstd_plain``,
+LZ4 here), which the tests hold the C codecs to, byte for byte; the
+writers never run a plain version, and a codec that cannot be built
+raises.
 
 The frame (c-blosc 1.x, as tensorstore writes it):
 - a 16-byte header: format version 2, the codec's format version 1,
@@ -42,14 +44,16 @@ The frame (c-blosc 1.x, as tensorstore writes it):
   stream is an i32 size and the codec's stream, or the stream's bytes as
   they are when the codec does not make it shorter (size equal to the
   stream's length); a codec's stream may take at most the stream's
-  length, snappy's at most 32 + n + n / 6;
+  length, snappy's at most 32 + n + n / 6 (snappy writes nothing when
+  the frame's room clips that);
 - a frame that would be longer than the input plus its header, an input
   under 128 bytes, or clevel 0 is ``memcpyed``: flag 0x02 and the input
   after the header.
 
 The codecs' streams: LZ4 blocks for code 1 (the two matchers below),
-blosclz (``blosclz_plain``), raw snappy (``snappy_plain``), zlib
-(``zlib.compress(stream, clevel)``) and one zstd frame
+blosclz (``blosclz_plain``), raw snappy (Google snappy 1.2's compressor,
+``snappy_plain``), zlib (the deflate of Chromium's zlib 1.3.1 as
+``compress2`` runs it at the clevel, ``zlib_plain``) and one zstd frame
 (``zstd_plain``). The decoders read any valid frame of these settings,
 whoever wrote it; a compressor code 5-7 raises :class:`CodecError`
 naming it.
@@ -119,12 +123,11 @@ def lib() -> ctypes.CDLL:
         i64, vp, ci = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
         so.blosc_compress.argtypes = [ci, ci, ci, i64, vp, i64, vp, i64]
         so.blosc_decompress.argtypes = [vp, i64, vp, i64]
-        so.blosc_shuffle_blocks.argtypes = [ci, ci, ci, i64, vp, i64, vp, vp]
         so.blosc_unshuffle_blocks.argtypes = [ci, i64, i64, vp, i64, vp]
         so.all_zero.argtypes = [vp, i64]
         so.all_zero.restype = ci
         funcs = [so.blosc_compress, so.blosc_decompress,
-                 so.blosc_shuffle_blocks, so.blosc_unshuffle_blocks]
+                 so.blosc_unshuffle_blocks]
         for name in _STREAM_ENC.values():
             getattr(so, name).argtypes = [vp, i64, vp, i64, ci]
             funcs.append(getattr(so, name))
@@ -147,7 +150,7 @@ _ERRORS = {-1: "bad arguments", -2: "corrupt frame", -3:
 
 _STREAM_ENC = {'blosclz': 'blosclz_compress', 'lz4': 'lz4_compress_block',
                'lz4hc': 'lz4hc_compress_block', 'snappy': 'snappy_compress',
-               'zstd': 'zstd_compress'}
+               'zlib': 'zlib_compress', 'zstd': 'zstd_compress'}
 _STREAM_DEC = {'blosclz': 'blosclz_decompress',
                'lz4': 'lz4_decompress_block', 'snappy': 'snappy_decompress',
                'zstd': 'zstd_decompress'}
@@ -172,14 +175,10 @@ def _as_bytes(data) -> np.ndarray:
 
 def compress(data, typesize: int, clevel: int = 5, shuffle: int = 1,
              cname: str = 'lz4') -> memoryview:
-    """One blosc frame of ``data`` (its bytes, C order): in C, zlib's
-    streams through the stdlib. The result is a view of a fresh
-    buffer."""
+    """One blosc frame of ``data`` (its bytes, C order), in C. The result
+    is a view of a fresh buffer."""
     check_settings(cname, clevel, shuffle)
     src = _as_bytes(data)
-    if cname == 'zlib':
-        return memoryview(_zlib_compress(src, int(typesize), int(clevel),
-                                         int(shuffle)))
     dest = np.empty(src.size + OVERHEAD, np.uint8)
     n = lib().blosc_compress(CNAMES.index(cname), int(clevel), int(shuffle),
                              int(typesize), src.ctypes.data, src.size,
@@ -235,8 +234,8 @@ def all_zero(data: np.ndarray) -> bool:
 
 def stream_compress(cname: str, data, clevel: int = 5) -> bytes:
     """One stream of ``data`` as the cname's codec writes it inside a
-    frame (an LZ4 block, a blosclz or snappy stream, a zstd frame), in
-    C; raises when it does not fit in its worst case."""
+    frame (an LZ4 block, a blosclz or snappy stream, a zlib stream, a
+    zstd frame), in C; raises when it does not fit in its worst case."""
     src = _as_bytes(data)
     cap = 2 * src.size + 1024
     dest = np.empty(cap, np.uint8)
@@ -273,24 +272,6 @@ def lz4_decompress_block(block, nbytes: int) -> bytes:
 
 
 # ------------------------------------------------------------------- zlib
-
-def _zlib_compress(src: np.ndarray, typesize: int, clevel: int,
-                   shuffle: int) -> bytes:
-    """A zlib frame: blocks shuffled by the C frame layer, streams
-    through :func:`zlib.compress`."""
-    if typesize < 1 or typesize > 255:
-        raise CodecError("blosc-zlib compress: bad arguments")
-    blocks = np.empty(src.size, np.uint8)
-    params = np.zeros(3, np.int64)
-    rc = lib().blosc_shuffle_blocks(CNAMES.index('zlib'), clevel, shuffle,
-                                    typesize, src.ctypes.data, src.size,
-                                    blocks.ctypes.data, params.ctypes.data)
-    if rc < 0:
-        raise CodecError(f"blosc-zlib compress: {_ERRORS.get(rc, rc)}")
-    flags, bs, split = (int(v) for v in params)
-    return _assemble(src.tobytes(), blocks.tobytes(), typesize, clevel,
-                     'zlib', flags, bs, bool(split))
-
 
 def _zlib_decompress(src: np.ndarray, out: np.ndarray) -> None:
     """Decode a zlib frame into the uint8 array ``out``: streams through
@@ -584,12 +565,12 @@ def _stream_plain(cname: str) -> Callable[[bytes, int], bytes]:
     if cname == 'lz4hc':
         from .lz4hc_plain import compress
         return compress
-    if cname == 'zlib':
-        return zlib.compress
     if cname == 'blosclz':
         from .blosclz_plain import compress
     elif cname == 'snappy':
         from .snappy_plain import compress
+    elif cname == 'zlib':
+        from .zlib_plain import compress
     else:
         from .zstd_plain import compress
     return compress
@@ -669,9 +650,8 @@ def _assemble(src: bytes, blocks: bytes, typesize: int, clevel: int,
                 ok = False
                 break
             stream = block[s * neblock:(s + 1) * neblock]
-            c = (encode(stream, clevel, maxout)
-                 if cname in ('lz4', 'lz4hc', 'zstd')
-                 else encode(stream, clevel))
+            c = (encode(stream, clevel) if cname == 'blosclz'
+                 else encode(stream, clevel, maxout))
             if not c or len(c) > maxout or len(c) == neblock:
                 if pos + neblock > maxbytes:
                     ok = False

@@ -1,21 +1,24 @@
 """The plain version of ``csrc/codec_snappy.h``: raw snappy streams
-(blosc compressor code 2) in Python, byte for byte the C encoder's, and
-a decoder that reads any valid stream. The format and the encoder's
-rules are in the C file's header."""
+(blosc compressor code 2) in Python, byte for byte the C encoder's
+(Google snappy 1.2's compressor, as c-blosc calls it), and a decoder
+that reads any valid stream. The format and the encoder's rules are in
+the C file's header."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
 from .blosc import CodecError, _common, _hashes, copy_match_plain
 
-_HASH_LOG = 14
+_BLOCK = 65536
+_MAX_TABLE = 1 << 15
+_MARGIN = 15
 _MULT = 0x1e35a7bd
 
 
 def _literal(out: bytearray, lit: bytes) -> None:
-    if not lit:
-        return
     m = len(lit) - 1
     if m < 60:
         out.append(m << 2)
@@ -37,9 +40,77 @@ def _copy(out: bytearray, length: int, offset: int) -> None:
         length -= part
 
 
-def compress(src: bytes, clevel: int = 5) -> bytes:
-    """One snappy stream of ``src`` (snappy has no levels)."""
+def _fragment(out: bytearray, frag: bytes) -> None:
+    """snappy's CompressFragment of one fragment of at most 64 KiB."""
+    n = len(frag)
+    size = 256
+    while size < n and size < _MAX_TABLE:
+        size <<= 1
+    ip = 0
+    if n >= _MARGIN:
+        a = np.frombuffer(frag, np.uint8)
+        seq, hashes = _hashes(frag, 15, _MULT)
+        hashes = [h & (size - 1) for h in hashes]
+        table = [0] * size
+        limit = n - _MARGIN
+        while True:
+            next_emit = ip
+            ip += 1
+            skip = 32
+            cand = -1
+            if limit - ip >= 16:
+                for i in range(16):
+                    h = hashes[ip + i]
+                    c = table[h]
+                    table[h] = ip + i
+                    if seq[c] == seq[ip + i]:
+                        ip += i
+                        cand = c
+                        break
+                else:
+                    ip += 16
+                    skip += 16
+            while cand < 0:
+                h = hashes[ip]
+                step = skip >> 5
+                skip += step
+                if ip + step > limit:
+                    ip = next_emit
+                    break
+                c = table[h]
+                table[h] = ip
+                if seq[c] == seq[ip]:
+                    cand = c
+                else:
+                    ip += step
+            if cand < 0:
+                break
+            _literal(out, frag[next_emit:ip])
+            while True:
+                length = 4 + _common(a, ip + 4, cand + 4, n)
+                _copy(out, length, ip - cand)
+                ip += length
+                if ip >= limit:
+                    break
+                table[hashes[ip - 1]] = ip - 1
+                h = hashes[ip]
+                cand = table[h]
+                table[h] = ip
+                if seq[cand] != seq[ip]:
+                    cand = -1
+                    break
+            if cand >= 0:
+                break
+    if ip < n:
+        _literal(out, frag[ip:])
+
+
+def compress(src: bytes, clevel: int = 5, cap: Optional[int] = None) -> bytes:
+    """One snappy stream of ``src`` (c-blosc runs snappy at its level 1),
+    or ``b''`` when ``cap`` is under snappy's worst case."""
     n = len(src)
+    if cap is not None and cap < 32 + n + n // 6:     # snappy's worst case
+        return b''
     out = bytearray()
     v = n
     while True:
@@ -47,29 +118,8 @@ def compress(src: bytes, clevel: int = 5) -> bytes:
         v >>= 7
         if not v:
             break
-    anchor = ip = 0
-    if n >= 4:
-        a = np.frombuffer(src, np.uint8)
-        seq, hashes = _hashes(src, _HASH_LOG, _MULT)
-        table = [-1] * (1 << _HASH_LOG)
-        search = 32
-        while ip <= n - 4:
-            h = hashes[ip]
-            ref = table[h]
-            table[h] = ip
-            if ref >= 0 and ip - ref <= 65535 and seq[ref] == seq[ip]:
-                length = 4 + _common(a, ip + 4, ref + 4, n)
-                _literal(out, src[anchor:ip])
-                _copy(out, length, ip - ref)
-                ip += length
-                anchor = ip
-                if ip <= n - 4:
-                    table[hashes[ip - 1]] = ip - 1
-                search = 32
-            else:
-                ip += search >> 5
-                search += 1
-    _literal(out, src[anchor:])
+    for pos in range(0, n, _BLOCK):
+        _fragment(out, src[pos:pos + _BLOCK])
     return bytes(out)
 
 

@@ -49,9 +49,9 @@ HOST_SYMBOLS = {
                 'finalize_feather_u16', 'finalize_feather_u8',
                 'downsample2x_u16', 'downsample2x2_mean_u16',
                 'write_rows_contig'),
-    'blosc': ('blosc_compress', 'blosc_decompress', 'blosc_shuffle_blocks',
-              'blosc_unshuffle_blocks', 'all_zero', 'lz4_compress_block',
-              'lz4hc_compress_block', 'blosclz_compress', 'snappy_compress',
+    'blosc': ('blosc_compress', 'blosc_decompress', 'blosc_unshuffle_blocks',
+              'all_zero', 'lz4_compress_block', 'lz4hc_compress_block',
+              'blosclz_compress', 'snappy_compress', 'zlib_compress',
               'zstd_compress', 'lz4_decompress_block', 'blosclz_decompress',
               'snappy_decompress', 'zstd_decompress'),
     'tile_decode': ('tiff_lzw_decode', 'packbits_decode',

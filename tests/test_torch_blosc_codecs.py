@@ -33,6 +33,7 @@ import pytest
 import zstandard
 
 import chip_smoke
+from torch_blosc_frames import tensorstore_frame
 from image_stitcher_tpu.io.zarr_store import create_zarr_array, open_zarr_array
 from image_stitcher_tpu_torch.io import (blosc, blosclz_plain, lz4hc_plain,
                                          snappy_plain, zstd_plain)
@@ -96,7 +97,14 @@ def test_c_and_plain_frames_byte_equal(cname, name, shuffle):
     if name in ('full_entropy', 'under_128_bytes'):
         assert flags & 0x02
     if name in ('zeros', 'u16', 'u16_blocks'):
-        assert not flags & 0x02 and len(frame) < len(raw)
+        if cname == 'snappy':
+            # c-blosc clips snappy's room to the frame's and snappy refuses
+            # a buffer under its worst case, so a frame whose first stream
+            # leaves too little room is stored: tensorstore's frame
+            assert frame == tensorstore_frame(data, typesize, clevel,
+                                              shuffle, cname)
+        else:
+            assert not flags & 0x02 and len(frame) < len(raw)
 
 
 @pytest.mark.parametrize("cname", CNAMES)
@@ -358,8 +366,6 @@ def test_sizes_within_115_percent_of_tensorstore(tmp_path, clevel):
     tex = chip_smoke.compressible(np.random.default_rng(0), 2048)
     shape = (1, 1, 1) + tex.shape
     for cname, shuffle in [(c, 1) for c in CNAMES] + [('zstd', 2)]:
-        if cname == 'zlib' and clevel == 9:
-            continue     # stdlib zlib at 9: as tensorstore's, too slow here
         path = str(tmp_path / f"{cname}{shuffle}")
         create_zarr_array(path, shape, shape, np.uint16, cname=cname,
                           clevel=clevel, shuffle=shuffle).write(

@@ -12,8 +12,10 @@ cases cover zstd-1 with byte shuffle (the reference's production
 setting), zstd with bit shuffle, shuffle -1 on u8 and u16, and each
 other cname; the zstd-1 trees (v2 and v3, bands and in RAM), the zstd-5
 trees (the JAX package's default clevel: bit shuffle in bands, byte
-shuffle in RAM) and the zstd-1 merge trees hold byte-identical chunk and
-shard files (the port's zstd at clevel 1 to 5 follows libzstd 1.5.7). On v3 both packages
+shuffle in RAM), the zstd-1 merge trees and every snappy and zlib tree
+hold byte-identical chunk and shard files (the port's zstd at clevel 1
+to 5 follows libzstd 1.5.7, its snappy snappy 1.2 and its zlib
+Chromium's zlib 1.3.1). On v3 both packages
 byte-shuffle whatever ``compressor_shuffle`` says (the JAX package's
 metadata always reads ``'shuffle': 'shuffle'``). Then ``read_array`` and
 ``open_stitched`` on JAX trees written with zstd-1 and with bit shuffle,
@@ -93,8 +95,10 @@ def test_tree_equals_jax(tmp_path, case):
                 options=port.EngineOptions(**_options(
                     cname, clevel, shuffle, fmt, streaming, port_out)))
     assert_outputs_equal(jax_out, port_out)
-    if cname == 'zstd' and clevel in (1, 2, 3, 4, 5):
-        # libzstd 1.5.7's rules: byte-identical chunk files
+    if cname in ('snappy', 'zlib') or (cname == 'zstd'
+                                       and clevel in (1, 2, 3, 4, 5)):
+        # snappy 1.2's, Chromium zlib 1.3.1's and libzstd 1.5.7's rules:
+        # byte-identical chunk files
         assert_chunk_files_equal(jax_out, port_out)
     level0 = os.path.join(port_out, zarr_groups(port_out)[0], '0')
     chunk = None

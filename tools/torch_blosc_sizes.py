@@ -2,8 +2,9 @@
 ``chip_smoke.compressible`` (the JAX package's compressible bench
 content, one 2048^2 uint16 chunk), for every cname at clevel 1, 2, 3, 4,
 5 and 9 with byte shuffle, and zstd with bit shuffle. Prints port bytes /
-tensorstore bytes and both ratios. Needs tensorstore (the CPU test host),
-not a card:
+tensorstore bytes and both ratios, and '=' where the two frames are
+byte-equal (lz4, lz4hc, snappy and zlib at every clevel, zstd at 1-5).
+Needs tensorstore (the CPU test host), not a card:
 
     python tools/torch_blosc_sizes.py [seed]
 """
@@ -32,9 +33,12 @@ def main():
                 create_zarr_array(path, shape, shape, np.uint16, cname=cname,
                                   clevel=clevel, shuffle=shuffle).write(
                                       tex.reshape(shape)).result()
-                ts_bytes = os.path.getsize(os.path.join(path, *'00000'))
-                port = len(blosc.compress(tex, 2, clevel, shuffle, cname))
-                row.append(f"clevel {clevel}: {port / ts_bytes:.3f} "
+                with open(os.path.join(path, *'00000'), 'rb') as f:
+                    want = f.read()
+                frame = bytes(blosc.compress(tex, 2, clevel, shuffle, cname))
+                port, ts_bytes = len(frame), len(want)
+                row.append(f"clevel {clevel}: {port / ts_bytes:.3f}"
+                           f"{'=' if frame == want else ''} "
                            f"({port / tex.nbytes:.4f} vs "
                            f"{ts_bytes / tex.nbytes:.4f})")
             print(f"{cname:8s} shuffle {shuffle}  " + "; ".join(row),
