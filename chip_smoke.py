@@ -111,9 +111,11 @@ Phases, each fatal on failure:
      device path's tree;
  12. (run right after phase 8, on its acquisitions and raw trees) the
      other blosc codecs (zstd, zlib, lz4hc, blosclz, snappy): (a) the C
-     zstd encoder at clevel 1 to 5 byte-equal to libzstd 1.5.7's level 1,
-     3, 5, 7 and 9 frames of the seeded inputs of tests/torch_zstd_frames.py
-     (their SHA-256 kept in tests/torch_zstd_frames.npz); the C snappy
+     zstd encoder at clevel 1 to 9 byte-equal to libzstd 1.5.7's level 1,
+     3, 5, ..., 15 and 22 frames of the seeded inputs of
+     tests/torch_zstd_frames.py (their SHA-256 kept in
+     tests/torch_zstd_frames.npz; C only: the Python version of the
+     optimal parser is too slow for the card's host); the C snappy
      and zlib encoders byte-equal to tensorstore's blosc frames of the
      seeded inputs of tests/torch_blosc_frames.py, snappy at clevel 9 and
      zlib at clevel 1-9, and to the snappy and zlib streams those frames
@@ -124,7 +126,9 @@ Phases, each fatal on failure:
      processes); (b) each codec's MB/s on one thread and on the encode
      pool, its ratio beside lz4's, and the zstd encoder's MB/s on one
      thread at clevel 1, 3, 4 and 5 (libzstd's fast, greedy, lazy and
-     lazy2 rules); (c) phase 8's grid and content in the reference
+     lazy2 rules) and 6 to 9 (lazy2, btlazy2 and btultra2 in 512 KiB and
+     1 MiB blocks; clevel 9 on 2 MiB); (c) phase 8's grid and content in
+     the reference
      production edition's setting, blosc zstd clevel 1 with byte shuffle,
      and in blosc zlib at the JAX default clevel 5 with byte shuffle,
      each decoded equal to a raw run, with e2e, tiles/s, the writer's
@@ -2923,13 +2927,14 @@ def other_codec_check(rng) -> None:
 
 
 def zstd_libzstd_check() -> int:
-    """12a: the C zstd encoder at blosc clevel 1 to 5 against libzstd
-    1.5.7's frames at levels 1, 3, 5, 7 and 9, whose SHA-256 the CPU test
-    host keeps
-    in ``tests/torch_zstd_frames.npz`` (this host has no libzstd binding):
-    the seeded inputs of ``tests/torch_zstd_frames.py`` made here (their
-    digests checked first), each frame's length and digest equal to the
-    kept ones. Returns the number of frames checked."""
+    """12a: the C zstd encoder at blosc clevel 1 to 9 against libzstd
+    1.5.7's frames at levels 1, 3, 5, ..., 15 and 22, whose SHA-256 the
+    CPU test host keeps in ``tests/torch_zstd_frames.npz`` (this host has
+    no libzstd binding): the seeded inputs of
+    ``tests/torch_zstd_frames.py`` made here (their digests checked
+    first), each frame's length and digest equal to the kept ones (on a
+    pool of threads: the C encoder releases the interpreter lock).
+    Returns the number of frames checked."""
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests')
     if tests not in sys.path:
         sys.path.insert(0, tests)
@@ -2941,25 +2946,34 @@ def zstd_libzstd_check() -> int:
     if sorted(label for label, _ in cases) != sorted(kept):
         raise SystemExit("codecs (libzstd frames): the inputs are not the "
                          "kept file's")
-    frames = 0
+    tasks = []
     for label, data in cases:
         digest, levels = kept[label]
         if kept_frames.sha(data) != digest:
             raise SystemExit(f"codecs (libzstd frames): input {label} is "
                              "not the one the kept digests were made from")
-        for clevel, (size, want) in levels.items():
-            frame = blosc.stream_compress('zstd', data, clevel)
-            if (len(frame), kept_frames.sha(frame)) != (size, want):
-                raise SystemExit(
-                    f"codecs (libzstd frames): {label} at clevel {clevel}: "
-                    f"a frame of {len(frame)} bytes is not libzstd's "
-                    f"({size} bytes)")
-            frames += 1
-    log(f"codecs (libzstd frames): {frames} C frames of {len(cases)} kept "
-        f"inputs at blosc clevel 1 to 5 byte-equal to libzstd 1.5.7's "
-        f"level 1, 3, 5, 7 and 9 frames (tests/torch_zstd_frames.npz) in "
-        f"{time.perf_counter() - t0:.2f}s")
-    return frames
+        tasks += [(label, data, clevel, want)
+                  for clevel, want in levels.items()]
+    # the slowest (1 MiB at level 22) first
+    tasks.sort(key=lambda t: -len(t[1]) * (10 if t[2] == 9 else 1))
+
+    def check(task):
+        label, data, clevel, (size, want) = task
+        frame = blosc.stream_compress('zstd', data, clevel)
+        if (len(frame), kept_frames.sha(frame)) != (size, want):
+            return (f"{label} at clevel {clevel}: a frame of {len(frame)} "
+                    f"bytes is not libzstd's ({size} bytes)")
+        return None
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        for err in pool.map(check, tasks):
+            if err:
+                raise SystemExit(f"codecs (libzstd frames): {err}")
+    log(f"codecs (libzstd frames): {len(tasks)} C frames of {len(cases)} "
+        f"kept inputs at blosc clevel 1 to 9 byte-equal to libzstd 1.5.7's "
+        f"level 1, 3, 5, ..., 15 and 22 frames (tests/torch_zstd_frames.npz)"
+        f" in {time.perf_counter() - t0:.2f}s")
+    return len(tasks)
 
 
 def blosc_frames_check() -> int:
@@ -3022,23 +3036,32 @@ def blosc_frames_check() -> int:
     return checked
 
 
+#: 12b's zstd clevels, and the rows of the 2048^2 chunk each encodes
+#: (clevel 9, libzstd's level 22, on 2 MiB: its search runs at a few MB/s)
+ZSTD_RATE_ROWS = {1: TILE, 3: TILE, 4: TILE, 5: TILE, 6: TILE, 7: TILE,
+                  8: TILE, 9: 512}
+
+
 def zstd_level_rates(rng, card: str) -> dict:
     """12b: the C zstd encoder's MB/s (input bytes) on one thread, byte
     shuffle, on one compressible 2048^2 u16 chunk (phase 8's content) at
     clevel 1, 3, 4 and 5 (libzstd's fast, and its greedy, lazy and lazy2
-    parsers in 128 and 256 KiB blosc blocks), with the ratio."""
+    parsers in 128 and 256 KiB blosc blocks) and 6 to 9 (lazy2 and
+    btlazy2 in 512 KiB blocks, btultra2 in 1 MiB ones on the chunk's
+    first 2 MiB), with the ratio."""
     from image_stitcher_tpu_torch.io import blosc
     chunk = compressible(rng, TILE)
     blosc.compress(chunk[:256], 2, 5, 1, 'zstd')           # warm
     rates = {}
-    for clevel in (1, 3, 4, 5):
+    for clevel, rows in ZSTD_RATE_ROWS.items():
+        cut = np.ascontiguousarray(chunk[:rows])
         t0 = time.perf_counter()
-        frame = blosc.compress(chunk, 2, clevel, 1, 'zstd')
+        frame = blosc.compress(cut, 2, clevel, 1, 'zstd')
         dt = time.perf_counter() - t0
-        rates[clevel] = (chunk.nbytes / dt / 1e6, len(frame) / chunk.nbytes)
+        rates[clevel] = (cut.nbytes / dt / 1e6, len(frame) / cut.nbytes)
     log(f"zstd encode MB/s on {card}, one thread, a compressible 2048^2 u16 "
-        f"chunk, byte shuffle: " + "; ".join(
-            f"clevel {c} {r:.1f} (ratio {q:.4f})"
+        f"chunk (clevel 9: its first 2 MiB), byte shuffle: " + "; ".join(
+            f"clevel {c} {r:.2f} (ratio {q:.4f})"
             for c, (r, q) in rates.items()))
     return rates
 

@@ -9,31 +9,37 @@
  * not verified; a frame that names a dictionary is refused.
  *
  * The encoder (io/zstd_plain.py is its plain version, byte for byte):
- * at clevel 1 to 5, the frame of libzstd 1.5.7's ZSTD_compressCCtx at
- * level 2 * clevel - 1 (1, 3, 5, 7, 9), the level c-blosc asks for, within
- * the same output capacity, byte for byte, for inputs of at most 128 KiB
- * at clevel 1 and 2 and 256 KiB at clevel 3 to 5 (every blosc block at
- * those clevels): the parameters of libzstd's table for the source size
- * (up to 16 KiB, 128 KiB, 256 KiB) as ZSTD_adjustCParams cuts them;
- * ZSTD_compressBlock_fast (level 1), _doubleFast (3), or
- * ZSTD_compressBlock_lazy_generic, greedy, lazy or lazy2, over libzstd's
- * row hash (a window over 16 KiB), hash chain (up to 16 KiB) or binary
- * tree (btlazy2: level 9 up to 16 KiB), with its lazy skipping; blocks of
- * 128 KiB, the second's matches reaching into the first, a full second
- * block cut where ZSTD_splitBlock_byChunks sees its statistics change;
- * libzstd's entropy stage (HUF_buildCTable's sort, tree and height limit,
- * HUF_optimalTableLog, the weights' FSE or direct header, 1 or 4 streams,
- * an earlier block's Huffman table repeated where it serves;
+ * at clevel 1 to 9, the frame of libzstd 1.5.7's ZSTD_compressCCtx at the
+ * level c-blosc asks for, 2 * clevel - 1 (1, 3, ..., 15) and 22 at clevel
+ * 9, within the same output capacity, byte for byte, for every input up
+ * to the clevel's blosc block (128 KiB at clevel 1 and 2, 256 KiB at 3 to
+ * 5, 512 KiB at 6 to 8, 1 MiB at 9): the parameters of libzstd's table
+ * for the source size (up to 16 KiB, 128 KiB, 256 KiB, larger) as
+ * ZSTD_adjustCParams cuts them; ZSTD_compressBlock_fast (level 1),
+ * _doubleFast (3), ZSTD_compressBlock_lazy_generic, greedy, lazy or lazy2,
+ * over libzstd's row hash (a window over 16 KiB), hash chain (up to 16
+ * KiB) or the DUBT binary tree (btlazy2), with its lazy skipping; or
+ * ZSTD_compressBlock_opt_generic (btopt, btultra, btultra2, whose first
+ * block is parsed once to seed the prices) over the binary tree and the
+ * hash3 table; blocks of 128 KiB, later ones reaching into earlier ones,
+ * a full block after the first cut where ZSTD_splitBlock_byChunks sees its
+ * statistics change, and from btopt up over windows of 128 KiB or more a
+ * block's sequences split into partitions where ZSTD_deriveBlockSplits
+ * estimates a gain; libzstd's entropy stage (HUF_buildCTable's sort, tree
+ * and height limit, HUF_optimalTableLog with its depth search from
+ * btultra up, the weights' FSE or direct header, 1 or 4 streams, an
+ * earlier block's Huffman table repeated where it serves;
  * ZSTD_selectEncodingType's shortcuts below strategy lazy and its cost
  * comparisons of the predefined, repeated and a new table from lazy up,
  * FSE_optimalTableLog, FSE_normalizeCount), its block choice
- * (ZSTD_minGain, a raw block otherwise, an RLE block for a later block of
- * one byte value), the repeat offsets and tables confirmed only after a
- * compressed block, and its room checks, whose failures give 0 (c-blosc
- * then stores the block). Every other clevel, and longer inputs, keep the
- * port's own matcher (a greedy hash chain over the whole frame, its search
- * depth by clevel, blocks of 128 KiB with repeat offsets across them) with
- * the same entropy stage and block choice.
+ * (ZSTD_minGain by strategy, a raw block otherwise, an RLE block for a
+ * later block of one byte value), the repeat offsets and tables confirmed
+ * only after a compressed block, and its room checks, whose failures give
+ * 0 (c-blosc then stores the block). Inputs longer than any blosc block
+ * hands a clevel (stream_compress callers) keep the port's own matcher (a
+ * greedy hash chain over the whole frame, its search depth by clevel,
+ * blocks of 128 KiB with repeat offsets across them) with the same entropy
+ * stage and block choice.
  */
 
 #define ZSTD_MAGIC 0xFD2FB528u
@@ -839,7 +845,17 @@ done:
  * and any other */
 #define ZE_SMALL (-100)
 #define ZE_GENERIC (-101)
-#define ZSTD_LIB_MAXSRC (2 * ZSTD_BLOCK_MAX)
+
+/* strategies: fast, dfast, greedy, lazy, lazy2, btlazy2, btopt, btultra,
+ * btultra2 */
+#define ZST_FAST 1
+#define ZST_DFAST 2
+#define ZST_GREEDY 3
+#define ZST_LAZY 4
+#define ZST_BTLAZY2 6
+#define ZST_BTOPT 7
+#define ZST_BTULTRA 8
+#define ZST_BTULTRA2 9
 
 static uint64_t read64(const uint8_t *p)
 {
@@ -1519,13 +1535,63 @@ static int64_t huf_streams(uint8_t *dst, int64_t op, int64_t cap,
     return op;
 }
 
+/* HUF_estimateCompressedSize: the bytes of count[0..maxsym] in a table */
+static uint64_t huf_estimate(const uint8_t *nbits, const uint32_t *count,
+                             int maxsym)
+{
+    uint64_t bits = 0;
+    for (int s = 0; s <= maxsym; ++s)
+        bits += (uint64_t)nbits[s] * count[s];
+    return bits >> 3;
+}
+
+/* HUF_optimalTableLog: FSE_optimalTableLog's guess, or from strategy
+ * btultra up (HUF_flags_optimalDepth) the depth whose table and codes
+ * are the smallest, searched up from the least depth the symbols need
+ * until the size grows */
+static int huf_optimal_log(const uint32_t *count, int maxsym, int64_t n,
+                           int depth)
+{
+    if (!depth)
+        return fse_optimal_log(HUF_MAX_BITS, n, maxsym, 1);
+    int card = 0;
+    for (int s = 0; s <= maxsym; ++s)
+        card += count[s] != 0;
+    const int minlog = highbit32((uint32_t)card) + 1;
+    uint64_t best = UINT64_MAX - 1;
+    int log = HUF_MAX_BITS;
+    huf_ctable t;
+    uint8_t buf[1024];
+    for (int guess = minlog; guess <= HUF_MAX_BITS; ++guess) {
+        const int maxbits = huf_build(count, maxsym, guess, t.nbits, t.code);
+        if (maxbits < guess && guess > minlog)
+            break;
+        const int64_t h = huf_write_table(buf, sizeof(buf), t.nbits, maxsym,
+                                          maxbits);
+        if (h == ERR_NOMEM)
+            return ERR_NOMEM;
+        if (h < 0)
+            continue;
+        const uint64_t size = huf_estimate(t.nbits, count, maxsym)
+                              + (uint64_t)h;
+        if (size > best + 1)
+            break;
+        if (size < best) {
+            best = size;
+            log = guess;
+        }
+    }
+    return log;
+}
+
 /* HUF_compress1X_repeat / HUF_compress4X_repeat (HUF_compress_internal):
  * src[0, n) into cap bytes with the earlier table *old (of mode *repeat)
- * or a new one (its description first, and then *old, *repeat ZR_NONE);
- * 0 for not compressible, 1 for a single symbol (dst[0] that symbol) */
+ * or a new one (its description first, and then *old, *repeat ZR_NONE),
+ * its depth searched where depth is set; 0 for not compressible, 1 for a
+ * single symbol (dst[0] that symbol) */
 static int64_t huf_compress(uint8_t *dst, int64_t cap, const uint8_t *src,
                             int64_t n, int single, int suspect, int prefer,
-                            int *repeat, huf_ctable *old)
+                            int depth, int *repeat, huf_ctable *old)
 {
     if (n == 0 || cap == 0)
         return 0;
@@ -1574,18 +1640,16 @@ static int64_t huf_compress(uint8_t *dst, int64_t cap, const uint8_t *src,
         return huf_streams(dst, 0, cap, src, n, single, old);
     huf_ctable t;
     t.maxsym = maxsym;
-    t.log = huf_build(count, maxsym, fse_optimal_log(HUF_MAX_BITS, n, maxsym, 1),
-                      t.nbits, t.code);
+    const int log = huf_optimal_log(count, maxsym, n, depth);
+    if (log < 0)
+        return log;
+    t.log = huf_build(count, maxsym, log, t.nbits, t.code);
     const int64_t h = huf_write_table(dst, cap, t.nbits, maxsym, t.log);
     if (h < 0)
         return h;
     if (*repeat != ZR_NONE) {     /* HUF_estimateCompressedSize of both */
-        uint64_t old_bits = 0, new_bits = 0;
-        for (int s = 0; s <= maxsym; ++s) {
-            old_bits += (uint64_t)old->nbits[s] * count[s];
-            new_bits += (uint64_t)t.nbits[s] * count[s];
-        }
-        if ((int64_t)(old_bits >> 3) <= h + (int64_t)(new_bits >> 3)
+        if ((int64_t)huf_estimate(old->nbits, count, maxsym)
+                <= h + (int64_t)huf_estimate(t.nbits, count, maxsym)
                 || h + 12 >= n)
             return huf_streams(dst, 0, cap, src, n, single, old);
     }
@@ -1625,10 +1689,11 @@ static int64_t raw_literals(uint8_t *dst, int64_t cap, const uint8_t *lit,
     return n + fl;
 }
 
-/* ZSTD_minGain below strategy btultra */
-static int64_t zstd_min_gain(int64_t n)
+/* ZSTD_minGain: n / 64 + 2 below strategy btultra, n >> (strategy - 1)
+ * + 2 from it up */
+static int64_t zstd_min_gain(int64_t n, int strat)
 {
-    return (n >> 6) + 2;
+    return (n >> (strat >= ZST_BTULTRA ? strat - 1 : 6)) + 2;
 }
 
 /* ZSTD_compressLiterals: the literals section, with the earlier block's
@@ -1651,11 +1716,12 @@ static int64_t zstd_write_literals(uint8_t *dst, int64_t cap,
     if (cap < lh + 1)
         return ZE_SMALL;
     int64_t c = huf_compress(dst + lh, cap - lh, lit, n, single, suspect,
-                             strat < 4 && n <= 1024, &repeat, &next->huf);
+                             strat < ZST_LAZY && n <= 1024,
+                             strat >= ZST_BTULTRA, &repeat, &next->huf);
     if (c == ERR_NOMEM)
         return c;
     const int type = repeat != ZR_NONE ? 3 : 2;
-    if (c <= 0 || c >= n - zstd_min_gain(n)) {
+    if (c <= 0 || c >= n - zstd_min_gain(n, strat)) {
         next->huf = prev->huf;
         return raw_literals(dst, cap, lit, n);
     }
@@ -1993,7 +2059,7 @@ static int64_t zstd_block_body(const uint8_t *lit, int64_t nlit,
         return 0;
     if (c < 0)
         return c;
-    return c >= n - zstd_min_gain(n) ? 0 : c;
+    return c >= n - zstd_min_gain(n, strat) ? 0 : c;
 }
 
 /* ------------------------------------------------------------ matchers */
@@ -2269,34 +2335,50 @@ static int64_t zl_dfast(zsink *k, int64_t n, int hlog, int slog, int mls,
     return anchor;
 }
 
-/* libzstd 1.5.7's parameters at level 1, 3, 5, 7 or 9 for a known source
- * of n <= 256 KiB bytes: the row of its table for the size (up to 16 KiB,
- * 128 KiB, 256 KiB), then ZSTD_adjustCParams_internal (window, hash and
- * chain logs cut to the source) */
+/* libzstd 1.5.7's parameters at level 1, 3, 5, 7, 9, 11, 13, 15 or 22 (the
+ * levels of blosc clevel 1 to 9) for a known source of n bytes: the row
+ * of its table for the size (up to 16 KiB, 128 KiB, 256 KiB, larger),
+ * then ZSTD_adjustCParams_internal (window, hash and chain logs cut to
+ * the source) */
 typedef struct {
-    int wlog, clog, hlog, slog, mls, strat;
+    int wlog, clog, hlog, slog, mls, tlen, strat;
 } zparams;
 
-/* strategies: fast, dfast, greedy, lazy, lazy2, btlazy2 */
-#define ZST_FAST 1
-#define ZST_DFAST 2
-#define ZST_GREEDY 3
-#define ZST_LAZY 4
-#define ZST_BTLAZY2 6
+/* blosc clevel 1-9 -> libzstd level: 2 * clevel - 1, and its maximum, 22,
+ * at clevel 9 */
+static int zstd_lib_level(int clevel)
+{
+    return clevel == 9 ? 22 : 2 * clevel - 1;
+}
 
 static zparams zstd_lib_params(int level, int64_t n)
 {
-    /* W, C, H, S, L, strategy of levels 1, 3, 5, 7, 9 */
-    static const int8_t rows[3][5][6] = {
-        {{14, 14, 15, 1, 5, 1}, {14, 14, 15, 2, 4, 2}, {14, 14, 14, 3, 4, 4},
-         {14, 14, 14, 6, 4, 5}, {14, 15, 14, 5, 4, 6}},
-        {{17, 12, 13, 1, 6, 1}, {17, 15, 16, 2, 5, 2}, {17, 16, 17, 3, 4, 3},
-         {17, 16, 17, 3, 4, 5}, {17, 16, 17, 5, 4, 5}},
-        {{18, 13, 14, 1, 6, 1}, {18, 16, 16, 1, 4, 2}, {18, 17, 18, 5, 5, 3},
-         {18, 18, 19, 4, 4, 4}, {18, 18, 19, 5, 4, 5}}};
-    const int8_t *r = rows[n <= 16 * 1024 ? 0 : n <= 128 * 1024 ? 1 : 2]
-                          [(level - 1) / 2];
-    zparams p = {r[0], r[1], r[2], r[3], r[4], r[5]};
+    /* W, C, H, S, L, TL, strategy of levels 1, 3, ..., 15, 22 */
+    static const int16_t rows[4][9][7] = {
+        {{14, 14, 15, 1, 5, 0, 1}, {14, 14, 15, 2, 4, 0, 2},
+         {14, 14, 14, 3, 4, 4, 4}, {14, 14, 14, 6, 4, 8, 5},
+         {14, 15, 14, 5, 4, 8, 6}, {14, 15, 14, 3, 4, 12, 7},
+         {14, 15, 14, 5, 3, 32, 8}, {14, 15, 15, 7, 3, 256, 8},
+         {14, 15, 15, 10, 3, 999, 9}},
+        {{17, 12, 13, 1, 6, 0, 1}, {17, 15, 16, 2, 5, 0, 2},
+         {17, 16, 17, 3, 4, 2, 3}, {17, 16, 17, 3, 4, 8, 5},
+         {17, 16, 17, 5, 4, 8, 5}, {17, 17, 17, 5, 4, 8, 6},
+         {17, 18, 17, 3, 4, 12, 7}, {17, 18, 17, 6, 3, 256, 7},
+         {17, 18, 17, 11, 3, 999, 9}},
+        {{18, 13, 14, 1, 6, 0, 1}, {18, 16, 16, 1, 4, 0, 2},
+         {18, 17, 18, 5, 5, 2, 3}, {18, 18, 19, 4, 4, 4, 4},
+         {18, 18, 19, 5, 4, 8, 5}, {18, 18, 19, 5, 4, 12, 6},
+         {18, 18, 19, 4, 4, 16, 7}, {18, 18, 19, 6, 3, 128, 7},
+         {18, 19, 19, 13, 3, 999, 9}},
+        {{19, 13, 14, 1, 7, 0, 1}, {21, 16, 17, 1, 5, 0, 2},
+         {21, 18, 19, 3, 5, 2, 3}, {21, 19, 20, 4, 5, 8, 4},
+         {22, 20, 21, 4, 5, 16, 5}, {22, 21, 22, 6, 5, 16, 5},
+         {22, 22, 22, 4, 5, 32, 6}, {22, 23, 23, 6, 5, 32, 6},
+         {27, 27, 25, 9, 3, 999, 9}}};
+    const int16_t *r = rows[n <= 16 * 1024 ? 0 : n <= 128 * 1024 ? 1
+                            : n <= 256 * 1024 ? 2 : 3]
+                           [level == 22 ? 8 : (level - 1) / 2];
+    zparams p = {r[0], r[1], r[2], r[3], r[4], r[5], r[6]};
     const int srclog = n < 64 ? 6 : highbit32((uint32_t)(n - 1)) + 1;
     if (p.wlog > srclog)
         p.wlog = srclog;
@@ -2754,6 +2836,593 @@ store:
     return anchor;
 }
 
+/* ------------------------------------------- libzstd's optimal parser */
+
+#define ZOPT_NUM (1 << 12)              /* ZSTD_OPT_NUM */
+#define ZOPT_SIZE (ZOPT_NUM + 3)
+#define ZOPT_MAX_PRICE (1 << 30)
+#define ZOPT_BIT 256                    /* BITCOST_MULTIPLIER */
+#define ZOPT_PREDEF 8                   /* ZSTD_PREDEF_THRESHOLD */
+
+/* a stretch of the forward pass (ZSTD_optimal_t): a match (mlen, off)
+ * then litlen literals, its price, and the repeat offsets after it */
+typedef struct {
+    int price;
+    uint32_t off, mlen, litlen;
+    uint32_t rep[3];
+} zopt_cell;
+
+typedef struct {
+    uint32_t off, len;
+} zopt_match;
+
+/* ZSTD_MatchState_t and optState_t of the optimal parser on one frame:
+ * the frame's byte p at index p + base, base 2 (btultra2's first pass
+ * moves it on by the first block) */
+typedef struct {
+    const uint8_t *src;
+    uint32_t base, low;     /* window.base's index of src[0]; lowLimit */
+    int hlog, clog, slog, wlog, mls, mm, tlen, h3log, optlevel;
+    uint32_t *ht, *bt, *ht3;
+    uint32_t next;          /* nextToUpdate */
+    uint32_t lit_freq[256], ll_freq[ZSTD_MAX_LL + 1];
+    uint32_t ml_freq[ZSTD_MAX_ML + 1], of_freq[ZSTD_MAX_OF + 1];
+    uint32_t lit_sum, ll_sum, ml_sum, of_sum;
+    uint32_t lit_price, ll_price, ml_price, of_price;   /* *SumBasePrice */
+    int predef;
+    zopt_cell *opt;
+    zopt_match *matches;
+} zopt;
+
+#define ZO(o, idx) ((o)->src + (idx) - (o)->base)
+
+static uint32_t zll_code(uint32_t ll)
+{
+    static const uint8_t code[64] = {
+        0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
+        16, 16, 17, 17, 18, 18, 19, 19, 20, 20, 20, 20, 21, 21, 21, 21,
+        22, 22, 22, 22, 22, 22, 22, 22, 23, 23, 23, 23, 23, 23, 23, 23,
+        24, 24, 24, 24, 24, 24, 24, 24, 24, 24, 24, 24, 24, 24, 24, 24};
+    return ll > 63 ? (uint32_t)highbit32(ll) + 19 : code[ll];
+}
+
+/* the code of a match length less 3 */
+static uint32_t zml_code(uint32_t mlb)
+{
+    static const uint8_t code[128] = {
+        0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
+        16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31,
+        32, 32, 33, 33, 34, 34, 35, 35, 36, 36, 36, 36, 37, 37, 37, 37,
+        38, 38, 38, 38, 38, 38, 38, 38, 39, 39, 39, 39, 39, 39, 39, 39,
+        40, 40, 40, 40, 40, 40, 40, 40, 40, 40, 40, 40, 40, 40, 40, 40,
+        41, 41, 41, 41, 41, 41, 41, 41, 41, 41, 41, 41, 41, 41, 41, 41,
+        42, 42, 42, 42, 42, 42, 42, 42, 42, 42, 42, 42, 42, 42, 42, 42,
+        42, 42, 42, 42, 42, 42, 42, 42, 42, 42, 42, 42, 42, 42, 42, 42};
+    return mlb > 127 ? (uint32_t)highbit32(mlb) + 36 : code[mlb];
+}
+
+/* WEIGHT: ZSTD_bitWeight (btopt, whole bits) or ZSTD_fracWeight (btultra
+ * up), in 1/256 bits */
+static uint32_t zo_weight(const zopt *o, uint32_t stat)
+{
+    const uint32_t s = stat + 1, hb = (uint32_t)highbit32(s);
+    return hb * ZOPT_BIT + (o->optlevel ? (s << 8) >> hb : 0);
+}
+
+static void zo_set_prices(zopt *o)
+{
+    o->lit_price = zo_weight(o, o->lit_sum);
+    o->ll_price = zo_weight(o, o->ll_sum);
+    o->ml_price = zo_weight(o, o->ml_sum);
+    o->of_price = zo_weight(o, o->of_sum);
+}
+
+/* ZSTD_downscaleStats */
+static uint32_t zo_downscale(uint32_t *t, int last, int shift, int base1)
+{
+    uint32_t sum = 0;
+    for (int s = 0; s <= last; ++s) {
+        t[s] = (base1 ? 1 : t[s] > 0) + (t[s] >> shift);
+        sum += t[s];
+    }
+    return sum;
+}
+
+/* ZSTD_scaleStats: the counts cut down to about 2^logt in all */
+static uint32_t zo_scale(uint32_t *t, int last, int logt)
+{
+    uint32_t sum = 0;
+    for (int s = 0; s <= last; ++s)
+        sum += t[s];
+    const uint32_t factor = sum >> logt;
+    return factor <= 1 ? sum : zo_downscale(t, last, highbit32(factor), 1);
+}
+
+/* ZSTD_rescaleFreqs: a frame's first block starts from its own bytes'
+ * counts and fixed length and offset counts (below 9 bytes, fixed
+ * prices); a later one from the counts carried, scaled down */
+static void zo_rescale(zopt *o, const uint8_t *src, int64_t n)
+{
+    static const uint8_t ll0[ZSTD_MAX_LL + 1] = {
+        4, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+        1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1};
+    static const uint8_t of0[ZSTD_MAX_OF + 1] = {
+        6, 2, 1, 1, 2, 3, 4, 4, 4, 3, 2, 1, 1, 1, 1, 1,
+        1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1};
+    o->predef = 0;
+    if (o->ll_sum == 0) {
+        o->predef = n <= ZOPT_PREDEF;
+        memset(o->lit_freq, 0, sizeof(o->lit_freq));
+        for (int64_t i = 0; i < n; ++i)
+            o->lit_freq[src[i]]++;
+        o->lit_sum = zo_downscale(o->lit_freq, 255, 8, 0);
+        o->ll_sum = 0;
+        for (int s = 0; s <= ZSTD_MAX_LL; ++s)
+            o->ll_sum += o->ll_freq[s] = ll0[s];
+        for (int s = 0; s <= ZSTD_MAX_ML; ++s)
+            o->ml_freq[s] = 1;
+        o->ml_sum = ZSTD_MAX_ML + 1;
+        o->of_sum = 0;
+        for (int s = 0; s <= ZSTD_MAX_OF; ++s)
+            o->of_sum += o->of_freq[s] = of0[s];
+    } else {
+        o->lit_sum = zo_scale(o->lit_freq, 255, 12);
+        o->ll_sum = zo_scale(o->ll_freq, ZSTD_MAX_LL, 11);
+        o->ml_sum = zo_scale(o->ml_freq, ZSTD_MAX_ML, 11);
+        o->of_sum = zo_scale(o->of_freq, ZSTD_MAX_OF, 11);
+    }
+    zo_set_prices(o);
+}
+
+/* ZSTD_rawLiteralsCost of one literal */
+static int zo_lit_price(const zopt *o, uint8_t c)
+{
+    if (o->predef)
+        return 6 * ZOPT_BIT;
+    uint32_t p = zo_weight(o, o->lit_freq[c]);
+    if (p > o->lit_price - ZOPT_BIT)
+        p = o->lit_price - ZOPT_BIT;
+    return (int)(o->lit_price - p);
+}
+
+/* ZSTD_litLengthPrice */
+static int zo_ll_price(const zopt *o, uint32_t ll)
+{
+    if (o->predef)
+        return (int)zo_weight(o, ll);
+    if (ll == ZSTD_BLOCK_MAX)
+        return ZOPT_BIT + zo_ll_price(o, ZSTD_BLOCK_MAX - 1);
+    const uint32_t c = zll_code(ll);
+    return (int)(LL_BITS[c] * ZOPT_BIT + o->ll_price
+                 - zo_weight(o, o->ll_freq[c]));
+}
+
+/* ZSTD_getMatchPrice of offset value offb and length ml */
+static int zo_match_price(const zopt *o, uint32_t offb, uint32_t ml)
+{
+    const uint32_t ofc = (uint32_t)highbit32(offb), mlb = ml - 3;
+    if (o->predef)
+        return (int)(zo_weight(o, mlb) + (16 + ofc) * ZOPT_BIT);
+    uint32_t price = ofc * ZOPT_BIT + o->of_price
+                     - zo_weight(o, o->of_freq[ofc]);
+    if (o->optlevel < 2 && ofc >= 20)    /* far offsets cost more */
+        price += (ofc - 19) * 2 * ZOPT_BIT;
+    const uint32_t mlc = zml_code(mlb);
+    price += ML_BITS[mlc] * ZOPT_BIT + o->ml_price
+             - zo_weight(o, o->ml_freq[mlc]);
+    return (int)(price + ZOPT_BIT / 5);
+}
+
+/* ZSTD_updateStats after a sequence */
+static void zo_update_stats(zopt *o, uint32_t ll, const uint8_t *lit,
+                            uint32_t offb, uint32_t ml)
+{
+    for (uint32_t u = 0; u < ll; ++u)
+        o->lit_freq[lit[u]] += 2;
+    o->lit_sum += ll * 2;
+    o->ll_freq[zll_code(ll)]++;
+    o->ll_sum++;
+    o->of_freq[highbit32(offb)]++;
+    o->of_sum++;
+    o->ml_freq[zml_code(ml - 3)]++;
+    o->ml_sum++;
+}
+
+/* ZSTD_updateRep: the repeat offsets after a match of offset value offb
+ * (ll0: after no literals) */
+static void zo_update_rep(uint32_t *rep, uint32_t offb, uint32_t ll0)
+{
+    if (offb > 3) {
+        rep[2] = rep[1];
+        rep[1] = rep[0];
+        rep[0] = offb - 3;
+        return;
+    }
+    const uint32_t r = offb - 1 + ll0;
+    if (r > 0) {
+        const uint32_t cur = r == 3 ? rep[0] - 1 : rep[r];
+        rep[2] = r >= 2 ? rep[1] : rep[2];
+        rep[1] = rep[0];
+        rep[0] = cur;
+    }
+}
+
+/* ZSTD_getLowestMatchIndex (no dictionary) */
+static uint32_t zo_low(const zopt *o, uint32_t curr)
+{
+    const uint32_t maxd = 1u << o->wlog;
+    return curr - o->low > maxd ? curr - maxd : o->low;
+}
+
+/* ZSTD_insertBt1: sort index curr into the binary tree; how far on the
+ * next insertion may start */
+static uint32_t zo_insert_bt1(zopt *o, uint32_t curr, int64_t iend,
+                              uint32_t target)
+{
+    const uint32_t btmask = (1u << (o->clog - 1)) - 1;
+    const uint8_t *ip = ZO(o, curr), *end = o->src + iend;
+    const uint32_t h = zl_hash(ip, o->hlog, o->mls);
+    uint32_t m = o->ht[h], dummy;
+    uint32_t *smaller = o->bt + 2 * (curr & btmask), *larger = smaller + 1;
+    const uint32_t btlow = btmask >= curr ? 0 : curr - btmask;
+    const uint32_t wlow = zo_low(o, target);
+    uint32_t match_end = curr + 8 + 1, nbcmp = 1u << o->slog;
+    int64_t cs = 0, cl = 0, best = 8;
+    o->ht[h] = curr;
+    for (; nbcmp && m >= wlow; --nbcmp) {
+        uint32_t *nextp = o->bt + 2 * (m & btmask);
+        const uint8_t *match = ZO(o, m);
+        int64_t ml = cs < cl ? cs : cl;
+        ml += common_len(ip + ml, match + ml, end);
+        if (ml > best) {
+            best = ml;
+            if (ml > (int64_t)(match_end - m))
+                match_end = m + (uint32_t)ml;
+        }
+        if (ip + ml == end)
+            break;
+        if (match[ml] < ip[ml]) {
+            *smaller = m;
+            cs = ml;
+            if (m <= btlow) {
+                smaller = &dummy;
+                break;
+            }
+            smaller = nextp + 1;
+            m = nextp[1];
+        } else {
+            *larger = m;
+            cl = ml;
+            if (m <= btlow) {
+                larger = &dummy;
+                break;
+            }
+            larger = nextp;
+            m = nextp[0];
+        }
+    }
+    *smaller = *larger = 0;
+    const uint32_t skip = best > 384 ? (best - 384 < 192
+                                        ? (uint32_t)(best - 384) : 192) : 0;
+    return skip > match_end - (curr + 8) ? skip : match_end - (curr + 8);
+}
+
+/* the first minMatch (3 or 4) bytes at p (ZSTD_readMINMATCH) */
+static uint32_t zo_head(const uint8_t *p, uint32_t mm)
+{
+    return mm == 3 ? read32(p) << 8 : read32(p);
+}
+
+/* ZSTD_btGetAllMatches: ZSTD_updateTree enters the positions before ip
+ * (ZSTD_insertBt1), then ZSTD_insertBtAndGetAllMatches: the repeat
+ * offsets, the hash3 table's candidate where minMatch is 3, and the tree,
+ * each match longer than the last; their count in o->matches */
+static int zo_get_matches(zopt *o, uint32_t *next3, int64_t ip, int64_t iend,
+                          const uint32_t *rep, uint32_t ll0)
+{
+    const uint32_t curr = (uint32_t)ip + o->base, mm = o->mm;
+    if (curr < o->next)
+        return 0;                       /* a skipped area */
+    for (uint32_t idx = o->next; idx < curr;)
+        idx += zo_insert_bt1(o, idx, iend, curr);
+    o->next = curr;
+    const uint32_t sufficient = o->tlen < ZOPT_NUM - 1 ? (uint32_t)o->tlen
+                                                        : ZOPT_NUM - 1;
+    const uint32_t btmask = (1u << (o->clog - 1)) - 1;
+    const uint8_t *in = o->src + ip, *end = o->src + iend;
+    const uint32_t h = zl_hash(in, o->hlog, o->mls);
+    const uint32_t btlow = btmask >= curr ? 0 : curr - btmask;
+    const uint32_t wlow = zo_low(o, curr), mlow = wlow ? wlow : 1;
+    uint32_t *smaller = o->bt + 2 * (curr & btmask), *larger = smaller + 1;
+    uint32_t m = o->ht[h], match_end = curr + 8 + 1, dummy;
+    uint32_t nbcmp = 1u << o->slog;
+    int64_t cs = 0, cl = 0, best = mm - 1;
+    zopt_match *out = o->matches;
+    int nm = 0;
+    for (uint32_t r = ll0; r < 3 + ll0; ++r) {
+        const uint32_t roff = r == 3 ? rep[0] - 1 : rep[r];
+        int64_t len = 0;
+        if (roff - 1 < curr - o->low && curr - roff >= wlow
+                && zo_head(in, mm) == zo_head(in - roff, mm))
+            len = common_len(in + mm, in + mm - roff, end) + mm;
+        if (len > best) {
+            best = len;
+            out[nm].off = r - ll0 + 1;
+            out[nm].len = (uint32_t)len;
+            nm++;
+            if (len > sufficient || in + len == end)
+                return nm;
+        }
+    }
+    if (o->mls == 3 && best < 3) {
+        /* ZSTD_insertAndFindFirstIndexHash3 */
+        uint32_t idx = *next3;
+        for (; idx < curr; ++idx)
+            o->ht3[((read32(ZO(o, idx)) << 8) * 506832829u)
+                   >> (32 - o->h3log)] = idx;
+        *next3 = curr;
+        const uint32_t m3 = o->ht3[((read32(in) << 8) * 506832829u)
+                                   >> (32 - o->h3log)];
+        if (m3 >= mlow && curr - m3 < (1u << 18)) {
+            const int64_t len = common_len(in, ZO(o, m3), end);
+            if (len >= 3) {
+                best = len;
+                out[0].off = curr - m3 + 3;
+                out[0].len = (uint32_t)len;
+                nm = 1;
+                if (len > sufficient || in + len == end) {
+                    o->next = curr + 1;     /* not entered in the tree */
+                    return 1;
+                }
+            }
+        }
+    }
+    o->ht[h] = curr;
+    for (; nbcmp && m >= mlow; --nbcmp) {
+        uint32_t *nextp = o->bt + 2 * (m & btmask);
+        const uint8_t *match = ZO(o, m);
+        int64_t ml = cs < cl ? cs : cl;
+        ml += common_len(in + ml, match + ml, end);
+        if (ml > best) {
+            if (ml > (int64_t)(match_end - m))
+                match_end = m + (uint32_t)ml;
+            best = ml;
+            out[nm].off = curr - m + 3;
+            out[nm].len = (uint32_t)ml;
+            nm++;
+            if (ml > ZOPT_NUM || in + ml == end)
+                break;
+        }
+        if (match[ml] < in[ml]) {
+            *smaller = m;
+            cs = ml;
+            if (m <= btlow) {
+                smaller = &dummy;
+                break;
+            }
+            smaller = nextp + 1;
+            m = nextp[1];
+        } else {
+            *larger = m;
+            cl = ml;
+            if (m <= btlow) {
+                larger = &dummy;
+                break;
+            }
+            larger = nextp;
+            m = nextp[0];
+        }
+    }
+    *smaller = *larger = 0;
+    o->next = match_end - 8;            /* skip repetitive patterns */
+    return nm;
+}
+
+/* ZSTD_compressBlock_opt_generic (no dictionary) at optLevel 0 (btopt) or
+ * 2 (btultra, btultra2) on block [istart, iend) of the frame: a forward
+ * pass prices every position up to ZSTD_OPT_NUM on (a match of more than
+ * targetLength bytes taken at once), a backward walk emits the cheapest
+ * path; its sequences into k, rep carried; returns where its last
+ * literals start */
+static int64_t zopt_block(zopt *o, zsink *k, int64_t istart, int64_t iend,
+                          uint32_t *rep)
+{
+    const uint8_t *src = o->src;
+    const int64_t ilimit = iend - 8;
+    const uint32_t sufficient = o->tlen < ZOPT_NUM - 1 ? (uint32_t)o->tlen
+                                                        : ZOPT_NUM - 1;
+    const uint32_t mm = o->mm;
+    uint32_t next3 = o->next;
+    zopt_cell *opt = o->opt, last;
+    const zopt_match *matches = o->matches;
+    int64_t ip = istart, anchor = istart;
+    memset(&last, 0, sizeof(last));
+    zo_rescale(o, src + istart, iend - istart);
+    ip += (uint32_t)ip + o->base == o->low;
+#define LL_INC(l) (zo_ll_price(o, l) - zo_ll_price(o, (l) - 1))
+    while (ip < ilimit) {
+        uint32_t cur, last_pos = 0;
+        {
+            const uint32_t litlen = (uint32_t)(ip - anchor);
+            const int nb = zo_get_matches(o, &next3, ip, iend, rep, !litlen);
+            if (!nb) {
+                ip++;
+                continue;
+            }
+            opt[0].mlen = 0;
+            opt[0].litlen = litlen;
+            opt[0].price = zo_ll_price(o, litlen);
+            memcpy(opt[0].rep, rep, sizeof(opt[0].rep));
+            if (matches[nb - 1].len > sufficient) {   /* at once */
+                last.litlen = 0;
+                last.mlen = matches[nb - 1].len;
+                last.off = matches[nb - 1].off;
+                cur = 0;
+                last_pos = last.mlen;
+                goto shortest;
+            }
+            uint32_t pos;
+            for (pos = 1; pos < mm; pos++) {
+                opt[pos].price = ZOPT_MAX_PRICE;
+                opt[pos].mlen = 0;
+                opt[pos].litlen = litlen + pos;
+            }
+            for (int mi = 0; mi < nb; mi++) {
+                const uint32_t offb = matches[mi].off;
+                for (; pos <= matches[mi].len; pos++) {
+                    opt[pos].mlen = pos;
+                    opt[pos].off = offb;
+                    opt[pos].litlen = 0;
+                    opt[pos].price = opt[0].price
+                                     + zo_match_price(o, offb, pos)
+                                     + zo_ll_price(o, 0);
+                }
+            }
+            last_pos = pos - 1;
+            opt[pos].price = ZOPT_MAX_PRICE;
+        }
+        for (cur = 1; cur <= last_pos; cur++) {
+            const int64_t inr = ip + cur;
+            /* one literal on from the stretch before, if cheaper */
+            const uint32_t litlen = opt[cur - 1].litlen + 1;
+            const int price = opt[cur - 1].price + zo_lit_price(o, src[inr - 1])
+                              + LL_INC(litlen);
+            if (price <= opt[cur].price) {
+                const zopt_cell prevm = opt[cur];
+                opt[cur] = opt[cur - 1];
+                opt[cur].litlen = litlen;
+                opt[cur].price = price;
+                if (o->optlevel >= 1 && prevm.litlen == 0 && LL_INC(1) < 0
+                        && inr < iend) {
+                    /* the replaced match and one literal at the next
+                     * position, if cheaper there */
+                    const int with1 = prevm.price + zo_lit_price(o, src[inr])
+                                      + LL_INC(1);
+                    const int withmore = price + zo_lit_price(o, src[inr])
+                                         + LL_INC(litlen + 1);
+                    if (with1 < withmore && with1 < opt[cur + 1].price) {
+                        const uint32_t prev = cur - prevm.mlen;
+                        opt[cur + 1] = prevm;
+                        memcpy(opt[cur + 1].rep, opt[prev].rep,
+                               sizeof(opt[0].rep));
+                        zo_update_rep(opt[cur + 1].rep, prevm.off,
+                                      opt[prev].litlen == 0);
+                        opt[cur + 1].litlen = 1;
+                        opt[cur + 1].price = with1;
+                        if (last_pos < cur + 1)
+                            last_pos = cur + 1;
+                    }
+                }
+            }
+            if (opt[cur].litlen == 0) {    /* a match ends here */
+                const uint32_t prev = cur - opt[cur].mlen;
+                memcpy(opt[cur].rep, opt[prev].rep, sizeof(opt[0].rep));
+                zo_update_rep(opt[cur].rep, opt[cur].off,
+                              opt[prev].litlen == 0);
+            }
+            if (inr > ilimit)
+                continue;
+            if (cur == last_pos)
+                break;
+            if (o->optlevel == 0
+                    && opt[cur + 1].price <= opt[cur].price + ZOPT_BIT / 2)
+                continue;
+            const int base_price = opt[cur].price + zo_ll_price(o, 0);
+            const int nb = zo_get_matches(o, &next3, inr, iend, opt[cur].rep,
+                                          opt[cur].litlen == 0);
+            if (!nb)
+                continue;
+            const uint32_t longest = matches[nb - 1].len;
+            if (longest > sufficient || cur + longest >= ZOPT_NUM
+                    || inr + longest >= iend) {
+                last.mlen = longest;
+                last.off = matches[nb - 1].off;
+                last.litlen = 0;
+                last_pos = cur + longest;
+                goto shortest;
+            }
+            for (int mi = 0; mi < nb; mi++) {
+                const uint32_t offb = matches[mi].off;
+                const uint32_t start = mi > 0 ? matches[mi - 1].len + 1 : mm;
+                for (uint32_t ml = matches[mi].len; ml >= start; ml--) {
+                    const uint32_t pos = cur + ml;
+                    const int p = base_price + zo_match_price(o, offb, ml);
+                    if (pos > last_pos || p < opt[pos].price) {
+                        while (last_pos < pos) {
+                            last_pos++;
+                            opt[last_pos].price = ZOPT_MAX_PRICE;
+                            opt[last_pos].litlen = 1;
+                        }
+                        opt[pos].mlen = ml;
+                        opt[pos].off = offb;
+                        opt[pos].litlen = 0;
+                        opt[pos].price = p;
+                    } else if (o->optlevel == 0) {
+                        break;
+                    }
+                }
+            }
+            opt[last_pos + 1].price = ZOPT_MAX_PRICE;
+        }
+        last = opt[last_pos];
+        cur = last_pos - last.mlen;
+shortest:
+        if (last.mlen == 0) {       /* literals only */
+            ip += last_pos;
+            continue;
+        }
+        if (last.litlen == 0) {
+            uint32_t r[3];
+            memcpy(r, opt[cur].rep, sizeof(r));
+            zo_update_rep(r, last.off, opt[cur].litlen == 0);
+            memcpy(rep, r, sizeof(r));
+        } else {
+            memcpy(rep, last.rep, sizeof(last.rep));
+            cur -= last.litlen;
+        }
+        /* the backward walk: stretches (a match, then literals) become
+         * sequences (literals, then a match), stored from cur + 2 down.
+         * libzstd 1.5.7 writes a last stretch's literals and then, not
+         * instead, the stretch itself: its literals are not taken, and the
+         * next pass starts where its match ends */
+        {
+            const uint32_t store_end = cur + 2;
+            uint32_t store_start, pos = cur;
+            if (last.litlen > 0) {
+                opt[store_end].litlen = last.litlen;
+                opt[store_end].mlen = 0;
+                store_start = store_end - 1;
+                opt[store_start] = last;
+            }
+            opt[store_end] = last;
+            store_start = store_end;
+            for (;;) {
+                const zopt_cell s = opt[pos];
+                opt[store_start].litlen = s.litlen;
+                if (s.mlen == 0)
+                    break;
+                store_start--;
+                opt[store_start] = s;
+                pos -= s.litlen + s.mlen;
+            }
+            for (uint32_t sp = store_start; sp <= store_end; sp++) {
+                const uint32_t llen = opt[sp].litlen, mlen = opt[sp].mlen;
+                if (mlen == 0) {
+                    ip = anchor + llen;
+                    continue;
+                }
+                zo_update_stats(o, llen, src + anchor, opt[sp].off, mlen);
+                zsink_store(k, anchor, llen, opt[sp].off, mlen);
+                anchor += llen + mlen;
+                ip = anchor;
+            }
+            zo_set_prices(o);
+        }
+    }
+#undef LL_INC
+    return anchor;
+}
+
 /* ------------------------------------------------- the block splitter */
 
 /* a fingerprint of byte pairs (lib/compress/zstd_preSplit.c) */
@@ -2812,7 +3481,7 @@ static int64_t zstd_split_block(const uint8_t *p, int level)
 static int64_t zstd_block_size(const uint8_t *p, int64_t remaining,
                                int strat, int64_t savings)
 {
-    static const int levels[7] = {0, 0, 1, 2, 2, 3, 3};
+    static const int levels[10] = {0, 0, 1, 2, 2, 3, 3, 4, 4, 4};
     if (remaining < ZSTD_BLOCK_MAX)
         return remaining;
     if (savings < 3 || levels[strat] == 0)
@@ -2918,6 +3587,7 @@ static int64_t zm_block(zmatcher *m, zsink *k, int64_t bstart, int64_t bend,
     return anchor;
 }
 
+
 /* ---------------------------------------------------------------- frame */
 
 static int all_same(const uint8_t *p, int64_t n)
@@ -2926,6 +3596,336 @@ static int all_same(const uint8_t *p, int64_t n)
         if (p[i] != p[0])
             return 0;
     return 1;
+}
+
+/* ------------------------------------------------ the post-block splitter */
+
+/* a block's sequences as ZSTD_deriveBlockSplits sees them: their codes,
+ * where each one's literals start (litpos[nseq]: all the literals), and
+ * the tables the last compressed block left */
+typedef struct {
+    const zsink *k;
+    const uint8_t *codes[3];        /* literal length, offset, match length */
+    const int64_t *litpos;
+    int strat, nomem;
+    const zentropy *prev;
+    zentropy *scratch;
+} zsplit;
+
+/* ZSTD_estimateBlockSize_symbolType: a sequence field's bytes in a table
+ * of type 0 (predefined), 1 (RLE), 2 or 3 (new, repeated), its extra bits
+ * included (an offset code is its own count of extra bits) */
+static int64_t zsplit_field_bytes(int type, const uint8_t *codes, int64_t nseq,
+                                  int maxcode, const fse_ctable *t,
+                                  const uint8_t *extra, const int16_t *defnorm,
+                                  int deflog)
+{
+    uint32_t count[ZSTD_MAX_ML + 1] = {0};
+    int max = 0;
+    for (int64_t i = 0; i < nseq; ++i)
+        count[codes[i]]++;
+    for (int s = 0; s <= maxcode; ++s)
+        if (count[s])
+            max = s;
+    uint64_t bits = 0;
+    if (type == 0) {
+        bits = cross_entropy_cost(defnorm, deflog, count, max);
+    } else if (type >= 2) {
+        bits = fse_bit_cost(t, count, max);
+        if (bits == ZCOST_NONE)
+            return nseq * 10;
+    }
+    for (int64_t i = 0; i < nseq; ++i)
+        bits += extra ? extra[codes[i]] : codes[i];
+    return (int64_t)(bits >> 3);
+}
+
+/* ZSTD_estimateSubBlockSize_seqStore of sequences [s0, s1) (the last
+ * ones with the block's last literals): ZSTD_buildBlockEntropyStats from
+ * the last compressed block's tables, then ZSTD_estimateBlockSize; an
+ * error where libzstd's is */
+static int64_t zsplit_estimate(zsplit *sp, int64_t s0, int64_t s1)
+{
+    const zentropy *prev = sp->prev;
+    const int64_t nseq = s1 - s0, l0 = sp->litpos[s0];
+    const int64_t nlit = sp->litpos[s1] - l0;
+    const uint8_t *lit = sp->k->lit + l0;
+    int64_t lit_bytes = nlit;       /* raw */
+    if (nlit > 63) {
+        uint32_t count[256] = {0}, largest = 0;
+        int maxsym = 255;
+        for (int64_t i = 0; i < nlit; ++i)
+            count[lit[i]]++;
+        while (!count[maxsym])
+            maxsym--;
+        for (int s = 0; s <= maxsym; ++s)
+            if (count[s] > largest)
+                largest = count[s];
+        if (largest == (uint64_t)nlit) {
+            lit_bytes = 1;
+        } else if (largest > (uint64_t)((nlit >> 7) + 4)) {
+            int repeat = prev->huf_mode;
+            if (repeat == ZR_CHECK) {       /* HUF_validateCTable */
+                int bad = prev->huf.maxsym < maxsym;
+                for (int s = 0; !bad && s <= maxsym; ++s)
+                    bad = count[s] != 0 && prev->huf.nbits[s] == 0;
+                if (bad)
+                    repeat = ZR_NONE;
+            }
+            const int log = huf_optimal_log(count, maxsym, nlit,
+                                            sp->strat >= ZST_BTULTRA);
+            if (log < 0)
+                return log;
+            huf_ctable t;
+            uint8_t desc[128];
+            t.log = huf_build(count, maxsym, log, t.nbits, t.code);
+            const uint64_t newc = huf_estimate(t.nbits, count, maxsym);
+            const int64_t h = huf_write_table(desc, sizeof(desc), t.nbits,
+                                              maxsym, t.log);
+            if (h == ERR_NOMEM)
+                return h;
+            /* libzstd compares an error's size_t as it is */
+            const uint64_t hs = h >= 0 ? (uint64_t)h
+                                : h == ZE_SMALL ? (uint64_t)-70 : (uint64_t)-1;
+            const uint8_t *nbits = NULL;
+            uint64_t desc_size = 0;
+            if (repeat != ZR_NONE) {
+                const uint64_t oldc = huf_estimate(prev->huf.nbits, count,
+                                                   maxsym);
+                if (oldc < (uint64_t)nlit
+                        && (oldc <= hs + newc || hs + 12 >= (uint64_t)nlit))
+                    nbits = prev->huf.nbits;
+            }
+            if (nbits == NULL && newc + hs < (uint64_t)nlit) {
+                if (h < 0)
+                    return ZE_GENERIC;
+                nbits = t.nbits;
+                desc_size = hs;
+            }
+            if (nbits != NULL)
+                lit_bytes = (int64_t)(huf_estimate(nbits, count, maxsym)
+                                      + desc_size) + (nlit >= 256 ? 6 : 0)
+                            + 3 + (nlit >= 1024) + (nlit >= 16384);
+        }
+    }
+    /* ZSTD_buildSequencesStatistics into ZSTD_MAX_FSE_HEADERS_SIZE bytes */
+    static const int maxc[3] = {ZSTD_MAX_LL, ZSTD_MAX_OF, ZSTD_MAX_ML};
+    static const int logs[3] = {ZSTD_LL_LOG, ZSTD_OF_LOG, ZSTD_ML_LOG};
+    static const int defmax[3] = {ZSTD_MAX_LL, 28, ZSTD_MAX_ML};
+    static const int deflog[3] = {LL_DEFAULT_LOG, OF_DEFAULT_LOG,
+                                  ML_DEFAULT_LOG};
+    const int16_t *defnorm[3] = {LL_DEFAULT, OF_DEFAULT, ML_DEFAULT};
+    const uint8_t *extra[3] = {LL_BITS, NULL, ML_BITS};
+    uint8_t buf[133];
+    int64_t op = 0, seq_bytes = 0;
+    for (int f = 0; f < 3; ++f) {
+        int type, mode;
+        const int64_t r = seq_field(sp->codes[f] + s0, nseq, maxc[f], logs[f],
+                                    defnorm[f], defmax[f], deflog[f],
+                                    sp->strat, &prev->fse[f],
+                                    prev->fse_mode[f], &sp->scratch->fse[f],
+                                    &mode, &type, buf + op,
+                                    (int64_t)sizeof(buf) - op);
+        if (r < 0)
+            return r;
+        op += r;
+        seq_bytes += zsplit_field_bytes(type, sp->codes[f] + s0, nseq, maxc[f],
+                                        &sp->scratch->fse[f], extra[f],
+                                        defnorm[f], deflog[f]);
+    }
+    seq_bytes += op + 2 + (nseq >= 128) + (nseq >= 0x7F00);
+    return seq_bytes + lit_bytes + 3;
+}
+
+/* ZSTD_deriveBlockSplitsHelper: split [s0, s1) in half where both halves'
+ * estimates undercut the whole's, and each half again (no part under 300
+ * sequences, at most 196 splits) */
+static void zsplit_derive(zsplit *sp, int64_t s0, int64_t s1, int64_t *parts,
+                          int *nparts)
+{
+    const int64_t mid = (s0 + s1) / 2;
+    if (s1 - s0 < 300 || *nparts >= 196 || sp->nomem)
+        return;
+    const int64_t whole = zsplit_estimate(sp, s0, s1);
+    const int64_t first = zsplit_estimate(sp, s0, mid);
+    const int64_t second = zsplit_estimate(sp, mid, s1);
+    if (whole == ERR_NOMEM || first == ERR_NOMEM || second == ERR_NOMEM) {
+        sp->nomem = 1;
+        return;
+    }
+    if (whole < 0 || first < 0 || second < 0)
+        return;
+    if (first + second < whole) {
+        zsplit_derive(sp, s0, mid, parts, nparts);
+        parts[(*nparts)++] = mid;
+        zsplit_derive(sp, mid, s1, parts, nparts);
+    }
+}
+
+/* ZSTD_seqStore_resolveOffCodes: a repeat offset that means another
+ * offset to the decoder (drep: its history, which raw and RLE blocks
+ * reset; crep: the matcher's) becomes the offset it meant */
+static void zsplit_resolve(uint32_t *drep, uint32_t *crep, zseq *seq,
+                           int64_t nseq)
+{
+    for (int64_t i = 0; i < nseq; ++i) {
+        const uint32_t ll0 = seq[i].ll == 0, offb = seq[i].ofv;
+        if (offb <= 3) {
+            const uint32_t r = offb - 1 + ll0;
+            const uint32_t d = r == 3 ? drep[0] - 1 : drep[r];
+            const uint32_t c = r == 3 ? crep[0] - 1 : crep[r];
+            if (d != c)
+                seq[i].ofv = c + 3;
+        }
+        zo_update_rep(drep, seq[i].ofv, ll0);
+        zo_update_rep(crep, offb, ll0);
+    }
+}
+
+/* the frame's tables and repeat offsets between blocks */
+typedef struct {
+    zentropy *prev, *next;      /* the last compressed block's; scratch */
+    int strat, first;
+} zblocks;
+
+/* ZSTD_compressSeqStore_singleBlock: src[0, n) from sequences seq[0,
+ * nseq) and literals lit[0, nlit) as one block at dst (its header first;
+ * raw where it does not compress, RLE for a later block of one byte
+ * value): its size, or an error; *btype its type, and a partition's repeat
+ * offsets resolved first */
+static int64_t zstd_seq_block(zblocks *b, const uint8_t *src, int64_t n,
+                              const uint8_t *lit, int64_t nlit, zseq *seq,
+                              int64_t nseq, uint32_t *drep, uint32_t *crep,
+                              int last, uint8_t *dst, int64_t cap, int *btype)
+{
+    uint32_t dorig[3];
+    memcpy(dorig, drep, sizeof(dorig));
+    if (crep != NULL)
+        zsplit_resolve(drep, crep, seq, nseq);
+    if (cap < 3)
+        return ZE_SMALL;
+    int64_t c = zstd_block_body(lit, nlit, seq, nseq, b->strat, b->prev,
+                                b->next, n, dst + 3, cap - 3);
+    if (c < 0)
+        return c;
+    if (!b->first && c < 25 && all_same(src, n))
+        c = 1;
+    uint32_t size = (uint32_t)c;
+    if (c == 0) {
+        if (n + 3 > cap)
+            return ZE_SMALL;
+        *btype = 0;
+        size = (uint32_t)n;
+        memcpy(dst + 3, src, (size_t)n);
+        c = n;
+    } else if (c == 1) {
+        if (cap < 4)
+            return ZE_SMALL;
+        *btype = 1;
+        size = (uint32_t)n;
+        dst[3] = src[0];
+    } else {
+        /* ZSTD_blockState_confirmRepcodesAndEntropyTables */
+        zentropy *t = b->prev;
+        b->prev = b->next;
+        b->next = t;
+        *btype = 2;
+    }
+    if (*btype != 2)
+        memcpy(drep, dorig, sizeof(dorig));
+    const uint32_t bh = (uint32_t)last | (uint32_t)(*btype << 1) | (size << 3);
+    dst[0] = (uint8_t)bh;
+    dst[1] = (uint8_t)(bh >> 8);
+    dst[2] = (uint8_t)(bh >> 16);
+    return 3 + c;
+}
+
+/* ZSTD_compressBlock_internal (one block) or, with split,
+ * ZSTD_compressBlock_splitBlock_internal (in partitions where
+ * ZSTD_deriveBlockSplits finds them): block src[0, n) of sequences k
+ * (rep: the matcher's repeat offsets after it, as the next block sees
+ * them after the call; saved: those before it) at dst; their size, or an
+ * error */
+static int64_t zstd_split_blocks(zblocks *b, const uint8_t *src, int64_t n,
+                                 zsink *k, uint32_t *rep,
+                                 const uint32_t *saved, int split, int last,
+                                 uint8_t *dst, int64_t cap)
+{
+    const int64_t nseq = k->nseq;
+    int64_t *parts = NULL, *litpos = NULL, out = 0;
+    uint8_t *codes = NULL;
+    int nparts = 0, btype;
+    uint32_t drep[3], crep[3];
+    memcpy(drep, saved, sizeof(drep));
+    memcpy(crep, saved, sizeof(crep));
+    if (split && nseq > 4) {
+        parts = (int64_t *)malloc(sizeof(int64_t) * 197);
+        litpos = (int64_t *)malloc(sizeof(int64_t) * (size_t)(nseq + 1));
+        codes = (uint8_t *)malloc((size_t)nseq * 3);
+        if (parts == NULL || litpos == NULL || codes == NULL) {
+            out = ERR_NOMEM;
+            goto done;
+        }
+        zsplit sp = {k, {codes, codes + nseq, codes + 2 * nseq}, litpos,
+                     b->strat, 0, b->prev, b->next};
+        litpos[0] = 0;
+        for (int64_t i = 0; i < nseq; ++i) {
+            codes[i] = (uint8_t)zll_code(k->seq[i].ll);
+            codes[nseq + i] = (uint8_t)highbit32(k->seq[i].ofv);
+            codes[2 * nseq + i] = (uint8_t)zml_code(k->seq[i].ml - 3);
+            litpos[i + 1] = litpos[i] + k->seq[i].ll;
+        }
+        litpos[nseq] = k->nlit;
+        zsplit_derive(&sp, 0, nseq, parts, &nparts);
+        if (sp.nomem) {
+            out = ERR_NOMEM;
+            goto done;
+        }
+    }
+    if (nparts == 0) {
+        out = zstd_seq_block(b, src, n, k->lit, k->nlit, k->seq, nseq, drep,
+                             NULL, last, dst, cap, &btype);
+        if (out >= 0 && btype != 2)
+            memcpy(rep, saved, 3 * sizeof(uint32_t));
+        goto done;
+    }
+    parts[nparts] = nseq;
+    {
+        int64_t s0 = 0, done_bytes = 0;
+        for (int i = 0; i <= nparts; ++i) {
+            const int64_t s1 = parts[i], l0 = litpos[s0], l1 = litpos[s1];
+            int64_t bytes = 0;
+            for (int64_t j = s0; j < s1; ++j)
+                bytes += k->seq[j].ll + k->seq[j].ml;
+            if (i == nparts)
+                bytes = n - done_bytes;
+            const int64_t c = zstd_seq_block(b, src + done_bytes, bytes,
+                                              k->lit + l0, l1 - l0, k->seq + s0,
+                                              s1 - s0, drep, crep,
+                                              last && i == nparts, dst + out,
+                                              cap - out, &btype);
+            if (c < 0) {
+                out = c;
+                goto done;
+            }
+            out += c;
+            done_bytes += bytes;
+            s0 = s1;
+        }
+    }
+    memcpy(rep, drep, sizeof(drep));
+done:
+    free(parts);
+    free(litpos);
+    free(codes);
+    return out;
+}
+
+/* the longest input clevel follows libzstd on: its blosc block */
+static int64_t zstd_lib_maxsrc(int clevel)
+{
+    return (int64_t)ZSTD_BLOCK_MAX << (clevel <= 2 ? 0 : clevel <= 5 ? 1
+                                       : clevel <= 8 ? 2 : 3);
 }
 
 /* The zstd frame of src[0, n) into dst; its size, 0 where libzstd would
@@ -2939,8 +3939,7 @@ int64_t zstd_compress(const uint8_t *src, int64_t n, uint8_t *dst,
     /* ZSTD_writeFrameHeader wants room for the largest header */
     if (cap < 18)
         return 0;
-    const int lib = ((clevel == 1 || clevel == 2) && n <= ZSTD_BLOCK_MAX)
-                    || (clevel >= 3 && clevel <= 5 && n <= ZSTD_LIB_MAXSRC);
+    const int lib = clevel >= 1 && clevel <= 9 && n <= zstd_lib_maxsrc(clevel);
     int64_t pos = 4;
     write32(dst, ZSTD_MAGIC);
     if (n < 256) {
@@ -2961,10 +3960,12 @@ int64_t zstd_compress(const uint8_t *src, int64_t n, uint8_t *dst,
         return pos + 3;
     }
     int64_t bmax = n < ZSTD_BLOCK_MAX ? n : ZSTD_BLOCK_MAX;
-    zparams p = {0, 0, 0, 0, 0, ZST_DFAST};
+    zparams p = {0, 0, 0, 0, 0, 0, ZST_DFAST};
     zmatcher m = {src, n, 0, 0, zstd_depth(clevel), NULL, NULL};
     zlazy z;
+    zopt o;
     memset(&z, 0, sizeof(z));
+    memset(&o, 0, sizeof(o));
     uint32_t *ht = NULL;
     zsink k = {src, NULL, 0, NULL, 0};
     zentropy *ent = (zentropy *)malloc(2 * sizeof(zentropy));
@@ -2973,11 +3974,31 @@ int64_t zstd_compress(const uint8_t *src, int64_t n, uint8_t *dst,
     k.lit = (uint8_t *)malloc((size_t)bmax + 1);
     int ok = k.seq != NULL && k.lit != NULL && ent != NULL;
     if (lib) {
-        p = zstd_lib_params(2 * clevel - 1, n);
+        p = zstd_lib_params(zstd_lib_level(clevel), n);
         size_t cells = (size_t)1 << p.hlog;
         if (p.strat == ZST_DFAST)
             cells += (size_t)1 << p.clog;
-        if (p.strat >= ZST_GREEDY) {
+        if (p.strat >= ZST_BTOPT) {
+            o.src = src;
+            o.base = o.low = o.next = 2;
+            o.hlog = p.hlog;
+            o.clog = p.clog;
+            o.slog = p.slog;
+            o.wlog = p.wlog;
+            o.mls = p.mls < 3 ? 3 : p.mls > 6 ? 6 : p.mls;
+            o.mm = p.mls == 3 ? 3 : 4;
+            o.tlen = p.tlen;
+            o.optlevel = p.strat == ZST_BTOPT ? 0 : 2;
+            o.h3log = p.mls == 3 ? (p.wlog < 17 ? p.wlog : 17) : 0;
+            o.bt = (uint32_t *)calloc((size_t)1 << p.clog, sizeof(uint32_t));
+            if (o.h3log)
+                o.ht3 = (uint32_t *)calloc((size_t)1 << o.h3log,
+                                           sizeof(uint32_t));
+            o.opt = (zopt_cell *)calloc(ZOPT_SIZE, sizeof(zopt_cell));
+            o.matches = (zopt_match *)calloc(ZOPT_SIZE, sizeof(zopt_match));
+            ok = ok && o.bt != NULL && (!o.h3log || o.ht3 != NULL)
+                 && o.opt != NULL && o.matches != NULL;
+        } else if (p.strat >= ZST_GREEDY) {
             z.src = src;
             z.depth = p.strat == ZST_GREEDY ? 0 : p.strat == ZST_LAZY ? 1 : 2;
             z.search = p.strat == ZST_BTLAZY2 ? ZS_BT
@@ -2997,7 +4018,7 @@ int64_t zstd_compress(const uint8_t *src, int64_t n, uint8_t *dst,
             ok = ok && (z.tags != NULL || z.chain != NULL);
         }
         ht = (uint32_t *)calloc(cells, sizeof(uint32_t));
-        z.ht = ht;
+        z.ht = o.ht = ht;
         ok = ok && ht != NULL;
     } else {
         int hlog = n > 1 ? highbit32((uint32_t)(n - 1)) : 10;
@@ -3014,9 +4035,11 @@ int64_t zstd_compress(const uint8_t *src, int64_t n, uint8_t *dst,
     if (!lib)
         for (int i = 0; i < (1 << m.hlog); ++i)
             m.head[i] = -1;
-    /* the tables of the last compressed block, and a block's own */
-    zentropy *prev = &ent[0], *next = &ent[1];
-    zentropy_reset(prev);
+    /* the tables of the last compressed block, and a block's own; the
+     * post-block splitter from btopt up over windows of 128 KiB or more */
+    zblocks b = {&ent[0], &ent[1], p.strat, 1};
+    const int split = lib && p.strat >= ZST_BTOPT && p.wlog >= 17;
+    zentropy_reset(b.prev);
     uint32_t rep[3] = {1, 4, 8};
     int64_t bstart = 0, savings = 0;
     do {
@@ -3031,17 +4054,36 @@ int64_t zstd_compress(const uint8_t *src, int64_t n, uint8_t *dst,
         const int64_t bend = bstart + bn;
         const int last = bend == n;
         const int64_t room = cap - pos;
-        uint32_t saved[3] = {rep[0], rep[1], rep[2]};
-        int64_t c = 0;
-        int rle = 0;
+        const uint32_t saved[3] = {rep[0], rep[1], rep[2]};
+        int64_t c;
         if (room < 3 + 2 + 1) {
             rc = 0;
             goto done;
         }
         /* ZSTD_buildSeqStore: no attempt under 7 bytes */
-        if (bn >= 7) {
+        if (bn < 7) {
+            if (bn + 3 > room) {
+                rc = 0;
+                goto done;
+            }
+            const uint32_t bh = (uint32_t)last | (uint32_t)(bn << 3);
+            dst[pos] = (uint8_t)bh;
+            dst[pos + 1] = (uint8_t)(bh >> 8);
+            dst[pos + 2] = (uint8_t)(bh >> 16);
+            memcpy(dst + pos + 3, src + bstart, (size_t)bn);
+            c = bn + 3;
+        } else {
             int64_t tail;
             k.nseq = k.nlit = 0;
+            if (lib && p.strat >= ZST_GREEDY) {
+                /* a limited update after a very long match */
+                uint32_t *upd = p.strat >= ZST_BTOPT ? &o.next : &z.next;
+                const uint32_t curr = (uint32_t)bstart
+                                      + (p.strat >= ZST_BTOPT ? o.base : 2);
+                if (curr > *upd + 384)
+                    *upd = curr - (curr - *upd - 384 < 192 ? curr - *upd - 384
+                                                            : 192);
+            }
             if (!lib) {
                 tail = zm_block(&m, &k, bstart, bend, rep);
             } else if (p.strat == ZST_FAST) {
@@ -3049,71 +4091,43 @@ int64_t zstd_compress(const uint8_t *src, int64_t n, uint8_t *dst,
             } else if (p.strat == ZST_DFAST) {
                 tail = zl_dfast(&k, n, p.hlog, p.clog, p.mls, ht,
                                 ht + ((size_t)1 << p.hlog));
+            } else if (p.strat >= ZST_BTOPT) {
+                if (p.strat == ZST_BTULTRA2 && bstart == 0 && bn > ZOPT_PREDEF) {
+                    /* ZSTD_initStats_ultra: a first pass seeds the prices;
+                     * its sequences go, and the window moves past it */
+                    uint32_t tmp[3] = {rep[0], rep[1], rep[2]};
+                    zopt_block(&o, &k, 0, bend, tmp);
+                    k.nseq = k.nlit = 0;
+                    o.base += (uint32_t)bn;
+                    o.low = o.next = o.base;
+                }
+                tail = zopt_block(&o, &k, bstart, bend, rep);
             } else {
-                /* a limited update after a very long match */
-                const uint32_t curr = (uint32_t)bstart + 2;
-                if (curr > z.next + 384)
-                    z.next = curr - (curr - z.next - 384 < 192
-                                     ? curr - z.next - 384 : 192);
                 tail = zlazy_block(&z, &k, bstart, bend, rep);
             }
             memcpy(k.lit + k.nlit, src + tail, (size_t)(bend - tail));
             k.nlit += bend - tail;
-            /* a later block of one byte value is an RLE block (libzstd's
-             * first block never is): at once where its sequences are few,
-             * else where it codes to under 25 bytes */
-            if (bstart > 0 && k.nseq < 4 && k.nlit < 10
-                    && all_same(src + bstart, bn)) {
-                rle = 1;
-            } else {
-                c = zstd_block_body(k.lit, k.nlit, k.seq, k.nseq, p.strat,
-                                    prev, next, bn, dst + pos + 3, room - 3);
-                if (c < 0) {
-                    rc = c == ERR_NOMEM ? c : 0;
-                    goto done;
-                }
-                rle = bstart > 0 && c < 25 && all_same(src + bstart, bn);
-            }
-        }
-        int btype = 2;
-        int64_t size = c;
-        if (rle) {
-            btype = 1;
-            size = bn;
-            dst[pos + 3] = src[bstart];
-            c = 1;
-        } else if (c == 0) {
-            if (bn + 3 > room) {
-                rc = 0;
+            c = zstd_split_blocks(&b, src + bstart, bn, &k, rep, saved, split,
+                                  last, dst + pos, room);
+            if (c < 0) {
+                rc = c == ERR_NOMEM ? c : 0;
                 goto done;
             }
-            btype = 0;
-            size = bn;
-            memcpy(dst + pos + 3, src + bstart, (size_t)bn);
-            c = bn;
         }
-        if (btype == 2) {
-            /* ZSTD_blockState_confirmRepcodesAndEntropyTables */
-            zentropy *t = prev;
-            prev = next;
-            next = t;
-        } else {
-            memcpy(rep, saved, sizeof(rep));
-        }
-        const uint32_t bh = (uint32_t)last | (uint32_t)(btype << 1)
-                            | (uint32_t)(size << 3);
-        dst[pos] = (uint8_t)bh;
-        dst[pos + 1] = (uint8_t)(bh >> 8);
-        dst[pos + 2] = (uint8_t)(bh >> 16);
-        pos += 3 + c;
-        savings += bn - (3 + c);
+        pos += c;
+        savings += bn - c;
         bstart = bend;
+        b.first = 0;
     } while (bstart < n);
     rc = pos;
 done:
     free(ht);
     free(z.chain);
     free(z.tags);
+    free(o.bt);
+    free(o.ht3);
+    free(o.opt);
+    free(o.matches);
     free(m.head);
     free(m.chain);
     free(k.seq);

@@ -11,26 +11,33 @@ a content checksum is skipped, a dictionary refused.
 
 :func:`compress` writes byte for byte the C encoder's frames, within an
 output capacity as c-blosc gives it:
-- at clevel 1 to 5 and inputs of at most 128 KiB (clevel 1 and 2) or 256
-  KiB (clevel 3 to 5; every blosc block at those clevels), libzstd
-  1.5.7's ``ZSTD_compressCCtx`` frame at level ``2 * clevel - 1`` (c-blosc's
-  map: 1, 3, 5, 7, 9): its parameters for the source size
-  (``lib_params``), its matchers (:func:`_fast`, :func:`_dfast`, and
-  :class:`_Lazy`: the greedy, lazy and lazy2 parsers over the row hash,
-  the hash chain of windows up to 16 KiB, and btlazy2's binary tree at
-  level 9 up to 16 KiB), its blocks (128 KiB, a full second block cut by
-  its pre-splitter, :func:`_split_block`), its entropy stage (Huffman
-  literals with ``HUF_buildCTable``'s sort, tree and height limit, an
-  earlier block's table repeated where it serves, raw or RLE literals;
-  ``ZSTD_selectEncodingType``'s shortcuts below strategy lazy and its
-  cost comparisons from lazy up, and ``FSE_normalizeCount`` for the
-  sequences), its block choice (``ZSTD_minGain``; a raw block otherwise,
-  an RLE block for a later block of one byte value), and its room checks,
-  each failure giving ``b''``, where c-blosc stores the block;
-- at every other clevel, and for longer inputs, the port's own matcher
-  (:func:`_own_block`: a greedy hash chain over the whole frame, search
-  depth 1, 1, 2, 4, ... 256 for clevel 0..9, repeat offsets, blocks of
-  128 KiB) with the same entropy stage and block choice.
+- at clevel 1 to 9 and inputs up to the clevel's blosc block (128 KiB at
+  clevel 1 and 2, 256 KiB at 3 to 5, 512 KiB at 6 to 8, 1 MiB at 9),
+  libzstd 1.5.7's ``ZSTD_compressCCtx`` frame at the level c-blosc asks
+  for (:func:`lib_level`: ``2 * clevel - 1``, and 22 at clevel 9): its
+  parameters for the source size (``lib_params``), its matchers
+  (:func:`_fast`, :func:`_dfast`, :class:`_Lazy`: the greedy, lazy and
+  lazy2 parsers over the row hash, the hash chain of windows up to 16 KiB
+  and btlazy2's binary tree; and :class:`_Opt`: the optimal parser of
+  btopt, btultra and btultra2 over the binary tree and the hash3 table,
+  btultra2 parsing its first block once to seed the prices), its blocks
+  (128 KiB, a full block after the first cut by its pre-splitter,
+  :func:`_split_block`, and from btopt up over windows of 128 KiB or
+  more a block's sequences split where ``ZSTD_deriveBlockSplits``
+  estimates a gain, :func:`_split_blocks`), its entropy stage (Huffman
+  literals with ``HUF_buildCTable``'s sort, tree and height limit, the
+  depth search from btultra up, an earlier block's table repeated where
+  it serves, raw or RLE literals; ``ZSTD_selectEncodingType``'s
+  shortcuts below strategy lazy and its cost comparisons from lazy up,
+  and ``FSE_normalizeCount`` for the sequences), its block choice
+  (``ZSTD_minGain`` by strategy; a raw block otherwise, an RLE block for
+  a later block of one byte value), and its room checks, each failure
+  giving ``b''``, where c-blosc stores the block;
+- for inputs longer than any blosc block hands a clevel, and clevel 0,
+  the port's own matcher (:func:`_own_block`: a greedy hash chain over
+  the whole frame, search depth 1, 1, 2, 4, ... 256 for clevel 0..9,
+  repeat offsets, blocks of 128 KiB) with the same entropy stage and
+  block choice.
 """
 
 from __future__ import annotations
@@ -575,7 +582,10 @@ def decompress(data: bytes, nbytes: Optional[int] = None) -> bytes:
 # at offset ``o`` within ``cap`` bytes and return a size or an error code.
 
 _SMALL, _GENERIC = -100, -101        # libzstd's dstSize_tooSmall, any other
-LIB_MAXSRC = 2 * BLOCK_MAX
+#: strategies: fast, dfast, greedy, lazy, lazy2, btlazy2, btopt, btultra,
+#: btultra2
+(_FAST, _DFAST, _GREEDY, _LAZY, _LAZY2, _BTLAZY2, _BTOPT, _BTULTRA,
+ _BTULTRA2) = range(1, 10)
 _DEF_NORM = (LL_DEFAULT, OF_DEFAULT, ML_DEFAULT)
 _DEF_LOG = (LL_DEFAULT_LOG, OF_DEFAULT_LOG, ML_DEFAULT_LOG)
 _DEF_MAX = (MAX_LL, 28, MAX_ML)
@@ -1142,12 +1152,43 @@ def _huf_streams(dst, o, op, cap, lit: bytes, single: bool,
     return op
 
 
+def _huf_estimate(lengths, count, maxsym: int) -> int:
+    """HUF_estimateCompressedSize: the bytes of the counts in a table."""
+    return sum(lengths[s] * count[s] for s in range(maxsym + 1)) >> 3
+
+
+def _huf_optimal_log(count, maxsym: int, n: int, depth: bool) -> int:
+    """HUF_optimalTableLog: FSE_optimalTableLog's guess, or with ``depth``
+    (strategy btultra up) the depth whose table and codes are the
+    smallest, searched up from the least the symbols need until the size
+    grows."""
+    if not depth:
+        return fse_optimal_log(HUF_MAX_BITS, n, maxsym, 1)
+    minlog = _hb(sum(1 for s in range(maxsym + 1) if count[s])) + 1
+    best, log = _M64 - 1, HUF_MAX_BITS
+    buf = bytearray(1024)
+    for guess in range(minlog, HUF_MAX_BITS + 1):
+        lengths, _, maxbits = huf_build(count, maxsym, guess)
+        if maxbits < guess and guess > minlog:
+            break
+        h = _write_table(buf, 0, len(buf), lengths, maxsym, maxbits)
+        if h < 0:
+            continue
+        size = _huf_estimate(lengths, count, maxsym) + h
+        if size > best + 1:
+            break
+        if size < best:
+            best, log = size, guess
+    return log
+
+
 def _huf_compress(dst, o, cap, lit: bytes, single: bool, suspect: bool,
-                  prefer: bool, repeat: int, old):
+                  prefer: bool, depth: bool, repeat: int, old):
     """HUF_compress1X/4X_repeat: (size, repeat mode, table) with the
     earlier table ``old`` of mode ``repeat``, or a new table (described
-    first; then the mode is ``_R_NONE`` and the table the new one); size 0
-    for not compressible, 1 for a single symbol (at ``dst[o]``)."""
+    first, its depth searched where ``depth`` is set; then the mode is
+    ``_R_NONE`` and the table the new one); size 0 for not compressible,
+    1 for a single symbol (at ``dst[o]``)."""
     n = len(lit)
     if n == 0 or cap == 0:
         return 0, repeat, old
@@ -1170,16 +1211,15 @@ def _huf_compress(dst, o, cap, lit: bytes, single: bool, suspect: bool,
         repeat = _R_NONE       # HUF_validateCTable
     if prefer and repeat != _R_NONE:
         return _huf_streams(dst, o, 0, cap, lit, single, old), repeat, old
-    log = fse_optimal_log(HUF_MAX_BITS, n, maxsym, 1)
+    log = _huf_optimal_log(count, maxsym, n, depth)
     lengths, code, longest = huf_build(count, maxsym, log)
     t = _HufTable(lengths, code, maxsym, longest)
     h = _write_table(dst, o, cap, lengths, maxsym, longest)
     if h < 0:
         return h, repeat, old
     if repeat != _R_NONE:      # HUF_estimateCompressedSize of both
-        old_bits = sum(old.lengths[s] * count[s] for s in range(maxsym + 1))
-        new_bits = sum(lengths[s] * count[s] for s in range(maxsym + 1))
-        if (old_bits >> 3) <= h + (new_bits >> 3) or h + 12 >= n:
+        if _huf_estimate(old.lengths, count, maxsym) <= \
+                h + _huf_estimate(lengths, count, maxsym) or h + 12 >= n:
             return (_huf_streams(dst, o, 0, cap, lit, single, old), repeat,
                     old)
     if h + 12 >= n:
@@ -1204,8 +1244,10 @@ def _raw_literals(dst, o, cap, lit: bytes) -> int:
     return len(body)
 
 
-def _min_gain(n: int) -> int:
-    return (n >> 6) + 2
+def _min_gain(n: int, strat: int) -> int:
+    """ZSTD_minGain: n / 64 + 2 below strategy btultra, n >> (strategy -
+    1) + 2 from it up."""
+    return (n >> (strat - 1 if strat >= _BTULTRA else 6)) + 2
 
 
 def _write_literals(dst, o, cap, lit: bytes, strat: int, suspect: bool,
@@ -1223,10 +1265,10 @@ def _write_literals(dst, o, cap, lit: bytes, strat: int, suspect: bool,
     if cap < lh + 1:
         return _SMALL
     c, repeat, table = _huf_compress(dst, o + lh, cap - lh, lit, single,
-                                     suspect, strat < 4 and n <= 1024,
-                                     repeat, prev.huf)
+                                     suspect, strat < _LAZY and n <= 1024,
+                                     strat >= _BTULTRA, repeat, prev.huf)
     kind = 3 if repeat != _R_NONE else 2
-    if c <= 0 or c >= n - _min_gain(n):
+    if c <= 0 or c >= n - _min_gain(n, strat):
         return _raw_literals(dst, o, cap, lit)
     if c == 1:
         body = _literal_header(1, n) + lit[:1]
@@ -1452,7 +1494,7 @@ def _block_body(dst, o, cap, lit: bytes, seqs, strat: int, prev: _Entropy,
         return 0
     if c < 0:
         return c
-    return 0 if c >= n - _min_gain(n) else c
+    return 0 if c >= n - _min_gain(n, strat) else c
 
 
 # -------------------------------------------------------------- matchers
@@ -1676,33 +1718,59 @@ def _dfast(src: bytes, hlog: int, slog: int, mls: int):
 
 
 #: libzstd 1.5.7's table rows (window, chain, hash and search logs, min
-#: match, strategy) of levels 1, 3, 5, 7 and 9 for sources of up to 16
-#: KiB, 128 KiB and 256 KiB
-_ROWS = (((14, 14, 15, 1, 5, 1), (14, 14, 15, 2, 4, 2), (14, 14, 14, 3, 4, 4),
-          (14, 14, 14, 6, 4, 5), (14, 15, 14, 5, 4, 6)),
-         ((17, 12, 13, 1, 6, 1), (17, 15, 16, 2, 5, 2), (17, 16, 17, 3, 4, 3),
-          (17, 16, 17, 3, 4, 5), (17, 16, 17, 5, 4, 5)),
-         ((18, 13, 14, 1, 6, 1), (18, 16, 16, 1, 4, 2), (18, 17, 18, 5, 5, 3),
-          (18, 18, 19, 4, 4, 4), (18, 18, 19, 5, 4, 5)))
-#: strategies: fast, dfast, greedy, lazy, lazy2, btlazy2
-_FAST, _DFAST, _GREEDY, _LAZY, _LAZY2, _BTLAZY2 = 1, 2, 3, 4, 5, 6
+#: match, target length, strategy) of levels 1, 3, 5, 7, 9, 11, 13, 15 and
+#: 22 (blosc clevel 1 to 9) for sources of up to 16 KiB, 128 KiB, 256 KiB
+#: and longer
+_ROWS = (((14, 14, 15, 1, 5, 0, 1), (14, 14, 15, 2, 4, 0, 2),
+          (14, 14, 14, 3, 4, 4, 4), (14, 14, 14, 6, 4, 8, 5),
+          (14, 15, 14, 5, 4, 8, 6), (14, 15, 14, 3, 4, 12, 7),
+          (14, 15, 14, 5, 3, 32, 8), (14, 15, 15, 7, 3, 256, 8),
+          (14, 15, 15, 10, 3, 999, 9)),
+         ((17, 12, 13, 1, 6, 0, 1), (17, 15, 16, 2, 5, 0, 2),
+          (17, 16, 17, 3, 4, 2, 3), (17, 16, 17, 3, 4, 8, 5),
+          (17, 16, 17, 5, 4, 8, 5), (17, 17, 17, 5, 4, 8, 6),
+          (17, 18, 17, 3, 4, 12, 7), (17, 18, 17, 6, 3, 256, 7),
+          (17, 18, 17, 11, 3, 999, 9)),
+         ((18, 13, 14, 1, 6, 0, 1), (18, 16, 16, 1, 4, 0, 2),
+          (18, 17, 18, 5, 5, 2, 3), (18, 18, 19, 4, 4, 4, 4),
+          (18, 18, 19, 5, 4, 8, 5), (18, 18, 19, 5, 4, 12, 6),
+          (18, 18, 19, 4, 4, 16, 7), (18, 18, 19, 6, 3, 128, 7),
+          (18, 19, 19, 13, 3, 999, 9)),
+         ((19, 13, 14, 1, 7, 0, 1), (21, 16, 17, 1, 5, 0, 2),
+          (21, 18, 19, 3, 5, 2, 3), (21, 19, 20, 4, 5, 8, 4),
+          (22, 20, 21, 4, 5, 16, 5), (22, 21, 22, 6, 5, 16, 5),
+          (22, 22, 22, 4, 5, 32, 6), (22, 23, 23, 6, 5, 32, 6),
+          (27, 27, 25, 9, 3, 999, 9)))
+
+
+def lib_level(clevel: int) -> int:
+    """The libzstd level c-blosc asks for: 2 * clevel - 1, and its
+    maximum, 22, at clevel 9."""
+    return 22 if clevel == 9 else 2 * clevel - 1
+
+
+def lib_maxsrc(clevel: int) -> int:
+    """The longest input a clevel follows libzstd on: its blosc block."""
+    return BLOCK_MAX << (0 if clevel <= 2 else 1 if clevel <= 5 else
+                         2 if clevel <= 8 else 3)
 
 
 def lib_params(level: int, n: int):
     """libzstd 1.5.7's (window log, chain log, hash log, search log, min
-    match, strategy) at level 1, 3, 5, 7 or 9 for a known source of n <=
-    256 KiB bytes: the row of its table for the size, then
+    match, target length, strategy) at level 1, 3, 5, ..., 15 or 22 for a
+    known source of n bytes: the row of its table for the size, then
     ``ZSTD_adjustCParams_internal`` (window, hash and chain logs cut to
     the source)."""
-    wlog, clog, hlog, slog, mls, strat = \
-        _ROWS[0 if n <= 16384 else 1 if n <= 131072 else 2][(level - 1) // 2]
+    wlog, clog, hlog, slog, mls, tlen, strat = \
+        _ROWS[0 if n <= 16384 else 1 if n <= 131072 else 2 if n <= 262144
+              else 3][8 if level == 22 else (level - 1) // 2]
     srclog = 6 if n < 64 else _hb(n - 1) + 1
     wlog = min(wlog, srclog)
     hlog = min(hlog, wlog + 1)
     cycle = clog - (strat >= _BTLAZY2)
     if cycle > wlog:
         clog -= cycle - wlog
-    return max(wlog, 10), clog, hlog, slog, mls, strat
+    return max(wlog, 10), clog, hlog, slog, mls, tlen, strat
 
 
 def _cnt(src: bytes, a, i: int, j: int, limit: int) -> int:
@@ -2043,6 +2111,558 @@ class _Lazy:
         return seqs, bytes(lit)
 
 
+# ------------------------------------------------ libzstd's optimal parser
+
+_OPT_NUM = 1 << 12                  # ZSTD_OPT_NUM
+_MAX_PRICE = 1 << 30
+_BIT = 256                          # BITCOST_MULTIPLIER
+_PREDEF = 8                         # ZSTD_PREDEF_THRESHOLD
+_LL_CODE = ((0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 16, 17,
+             17, 18, 18, 19, 19, 20, 20, 20, 20, 21, 21, 21, 21)
+            + (22,) * 8 + (23,) * 8 + (24,) * 16)
+_ML_CODE = (tuple(range(32)) + (32, 32, 33, 33, 34, 34, 35, 35) + (36,) * 4
+            + (37,) * 4 + (38,) * 8 + (39,) * 8 + (40,) * 16 + (41,) * 16
+            + (42,) * 32)
+
+
+def _ll_code(ll: int) -> int:
+    return ll.bit_length() + 18 if ll > 63 else _LL_CODE[ll]
+
+
+def _ml_code(mlb: int) -> int:
+    """The code of a match length less 3."""
+    return mlb.bit_length() + 35 if mlb > 127 else _ML_CODE[mlb]
+
+
+def _count(src: bytes, i: int, j: int, limit: int) -> int:
+    """ZSTD_count: how many bytes src[i:] and src[j:] agree on, i bounded
+    by limit (slices compared in doubling steps, then halved)."""
+    m = limit - i
+    e = 8 if m > 8 else m
+    k = 0
+    while k < e and src[i + k] == src[j + k]:
+        k += 1
+    if k < e or k == m:
+        return k
+    step = 16
+    while True:
+        e = step if step < m - k else m - k
+        if src[i + k:i + k + e] == src[j + k:j + k + e]:
+            k += e
+            if k == m:
+                return k
+            step <<= 1
+            continue
+        while e > 8:
+            h = e >> 1
+            if src[i + k:i + k + h] == src[j + k:j + k + h]:
+                k += h
+                e -= h
+            else:
+                e = h
+        while src[i + k] == src[j + k]:
+            k += 1
+        return k
+
+
+def _update_rep(rep, offb: int, ll0: int) -> None:
+    """ZSTD_updateRep: the repeat offsets after a match of offset value
+    ``offb`` (``ll0``: after no literals), in place."""
+    if offb > 3:
+        rep[2], rep[1], rep[0] = rep[1], rep[0], offb - 3
+        return
+    r = offb - 1 + ll0
+    if r:
+        cur = (rep[0] - 1) & 0xFFFFFFFF if r == 3 else rep[r]
+        if r >= 2:
+            rep[2] = rep[1]
+        rep[1] = rep[0]
+        rep[0] = cur
+
+
+class _Opt:
+    """libzstd's match state and ``optState_t`` for the optimal parser on
+    one frame (btopt, btultra, btultra2): the binary tree
+    (``ZSTD_insertBt1``, ``ZSTD_insertBtAndGetAllMatches``), the hash3
+    table where minMatch is 3, the statistics and prices carried from
+    block to block. The frame's byte p is at index p + base: base 2, or
+    past btultra2's first pass. A cell of the forward pass is a list
+    [price, offset value, match length, literal length, repeat offsets],
+    copied where libzstd copies its struct."""
+
+    def __init__(self, src: bytes, wlog, clog, hlog, slog, mls, tlen,
+                 strat):
+        self.src = src
+        pad = src + bytes(8)        # a word at every position
+        self.w4, self.w8 = _words(pad, 4).tolist(), _words(pad, 8).tolist()
+        self.base = self.low = self.next = 2
+        self.wlog, self.clog, self.hlog, self.slog = wlog, clog, hlog, slog
+        self.mls = min(max(mls, 3), 6)
+        self.mm = 3 if mls == 3 else 4
+        self.tlen = tlen
+        self.optlevel = 0 if strat == _BTOPT else 2
+        self.ht = [0] * (1 << hlog)
+        self.bt = [0] * (1 << clog)
+        self.hashes = _hash_list(src, hlog, self.mls)
+        self.h3log = min(wlog, 17) if mls == 3 else 0
+        if self.h3log:
+            w = _words(src, 4)
+            m32 = np.uint64(0xFFFFFFFF)
+            self.hashes3 = (((((w << np.uint64(8)) & m32)
+                              * np.uint64(506832829)) & m32)
+                            >> np.uint64(32 - self.h3log)).tolist()
+            self.ht3 = [0] * (1 << self.h3log)
+        self.lit_freq = [0] * 256
+        self.ll_freq, self.ml_freq, self.of_freq = [0] * 36, [0] * 53, \
+            [0] * 32
+        self.ll_sum = 0
+        self.predef = False
+        # the cells a pass can reach: ZSTD_OPT_NUM + 3, or n + 3 for less
+        self.opt = [[0, 0, 0, 0, [0, 0, 0]]
+                    for _ in range(min(_OPT_NUM, len(src)) + 3)]
+
+    # ------------------------------------------------------------ prices
+
+    def _weight(self, stat: int) -> int:
+        """ZSTD_bitWeight (btopt) or ZSTD_fracWeight, in 1/256 bits."""
+        s = stat + 1
+        hb = s.bit_length() - 1
+        return hb * _BIT + ((s << 8) >> hb if self.optlevel else 0)
+
+    def _set_prices(self) -> None:
+        """ZSTD_setBasePrices; and each match length code's price less
+        the base, each offset code's with it (the weights of the counts
+        are kept as the counts change)."""
+        w = self._weight
+        self.lit_base = w(self.lit_sum)
+        self.ll_base = w(self.ll_sum)
+        self.ml_base = w(self.ml_sum)
+        self.of_base = w(self.of_sum)
+        self.ll_small = [w(ll) if self.predef else
+                         LL_BITS[c] * _BIT + self.ll_base - self.wll[c]
+                         for ll, c in enumerate(_LL_CODE)]
+        wml, wof = self.wml, self.wof
+        self.ml_part = [ML_BITS[c] * _BIT - wml[c] for c in range(53)]
+        handicap = self.optlevel < 2
+        self.of_part = [ofc * _BIT + self.of_base - wof[ofc]
+                        + ((ofc - 19) * 2 * _BIT if handicap and ofc >= 20
+                           else 0) + self.ml_base + _BIT // 5
+                        for ofc in range(32)]
+
+    def _rescale(self, block: bytes) -> None:
+        """ZSTD_rescaleFreqs: a frame's first block from its own bytes'
+        counts and fixed length and offset counts (fixed prices under 9
+        bytes), a later one from the counts carried, scaled down."""
+        self.predef = False
+        if self.ll_sum == 0:
+            self.predef = len(block) <= _PREDEF
+            cnt = np.bincount(np.frombuffer(block, np.uint8), minlength=256)
+            self.lit_freq = [int(c > 0) + (int(c) >> 8) for c in cnt]
+            self.ll_freq = [4, 2] + [1] * 34
+            self.ml_freq = [1] * 53
+            self.of_freq = [6, 2, 1, 1, 2, 3, 4, 4, 4, 3, 2, 1] + [1] * 20
+        else:                               # ZSTD_scaleStats
+            for t, logt in ((self.lit_freq, 12), (self.ll_freq, 11),
+                            (self.ml_freq, 11), (self.of_freq, 11)):
+                factor = sum(t) >> logt
+                if factor > 1:
+                    sh = factor.bit_length() - 1
+                    t[:] = [1 + (x >> sh) for x in t]
+        w = self._weight
+        self.lit_sum, self.ll_sum = sum(self.lit_freq), sum(self.ll_freq)
+        self.ml_sum, self.of_sum = sum(self.ml_freq), sum(self.of_freq)
+        self.wlit = [w(x) for x in self.lit_freq]
+        self.wll = [w(x) for x in self.ll_freq]
+        self.wml = [w(x) for x in self.ml_freq]
+        self.wof = [w(x) for x in self.of_freq]
+        self._set_prices()
+
+    def _lit_price(self, c: int) -> int:
+        """ZSTD_rawLiteralsCost of one literal."""
+        if self.predef:
+            return 6 * _BIT
+        p = self.wlit[c]
+        mx = self.lit_base - _BIT
+        return self.lit_base - (mx if p > mx else p)
+
+    def _ll_price(self, ll: int) -> int:
+        """ZSTD_litLengthPrice."""
+        if ll < 64:
+            return self.ll_small[ll]
+        if self.predef:
+            return self._weight(ll)
+        if ll == BLOCK_MAX:
+            return _BIT + self._ll_price(BLOCK_MAX - 1)
+        c = _ll_code(ll)
+        return LL_BITS[c] * _BIT + self.ll_base - self.wll[c]
+
+    def _match_price(self, offb: int, ml: int) -> int:
+        """ZSTD_getMatchPrice."""
+        ofc = offb.bit_length() - 1
+        mlb = ml - 3
+        if self.predef:
+            return self._weight(mlb) + (16 + ofc) * _BIT
+        # far offsets cost more at btopt (in of_part)
+        return self.of_part[ofc] + self.ml_part[
+            _ML_CODE[mlb] if mlb < 128 else mlb.bit_length() + 35]
+
+    def _update_stats(self, ll: int, start: int, offb: int, ml: int) -> None:
+        """ZSTD_updateStats after a sequence."""
+        lf, wlit, w = self.lit_freq, self.wlit, self._weight
+        for b in set(self.src[start:start + ll]):
+            lf[b] += 2 * self.src.count(b, start, start + ll)
+            wlit[b] = w(lf[b])
+        self.lit_sum += 2 * ll
+        for freq, wt, c in ((self.ll_freq, self.wll, _ll_code(ll)),
+                            (self.of_freq, self.wof, offb.bit_length() - 1),
+                            (self.ml_freq, self.wml, _ml_code(ml - 3))):
+            freq[c] += 1
+            wt[c] = w(freq[c])
+        self.ll_sum += 1
+        self.of_sum += 1
+        self.ml_sum += 1
+
+    # ------------------------------------------------------- the tree
+
+    def _low(self, curr: int) -> int:
+        """ZSTD_getLowestMatchIndex (no dictionary)."""
+        maxd = 1 << self.wlog
+        return curr - maxd if curr - self.low > maxd else self.low
+
+    def _insert_bt1(self, curr: int, iend: int, target: int) -> int:
+        """ZSTD_insertBt1: sort index curr into the tree; how far on the
+        next insertion may start."""
+        src, bt, base, w8 = self.src, self.bt, self.base, self.w8
+        btmask = (1 << (self.clog - 1)) - 1
+        ip = curr - base
+        h = self.hashes[ip]
+        m = self.ht[h]
+        self.ht[h] = curr
+        smaller, larger = 2 * (curr & btmask), 2 * (curr & btmask) + 1
+        btlow = 0 if btmask >= curr else curr - btmask
+        wlow = self._low(target)
+        match_end, best = curr + 9, 8
+        cs = cl = 0
+        nbcmp = 1 << self.slog
+        while nbcmp and m >= wlow:
+            nxt = 2 * (m & btmask)
+            ml = cs if cs < cl else cl
+            mp = m - base
+            if ip + ml + 8 <= iend:     # the first 8 bytes as words
+                x = w8[ip + ml] ^ w8[mp + ml]
+                ml += (((x & -x).bit_length() - 1) >> 3 if x else
+                       8 + _count(src, ip + ml + 8, mp + ml + 8, iend))
+            else:
+                ml += _count(src, ip + ml, mp + ml, iend)
+            if ml > best:
+                best = ml
+                if ml > match_end - m:
+                    match_end = m + ml
+            if ip + ml == iend:
+                break
+            if src[mp + ml] < src[ip + ml]:
+                bt[smaller] = m
+                cs = ml
+                if m <= btlow:
+                    smaller = -1
+                    break
+                smaller, m = nxt + 1, bt[nxt + 1]
+            else:
+                bt[larger] = m
+                cl = ml
+                if m <= btlow:
+                    larger = -1
+                    break
+                larger, m = nxt, bt[nxt]
+            nbcmp -= 1
+        if smaller >= 0:
+            bt[smaller] = 0
+        if larger >= 0:
+            bt[larger] = 0
+        skip = min(192, best - 384) if best > 384 else 0
+        return max(skip, match_end - (curr + 8))
+
+    def _matches(self, ip: int, iend: int, rep, ll0: int, next3: int):
+        """ZSTD_btGetAllMatches: ([(offset value, length)], each longer
+        than the last: the repeat offsets, the hash3 table's candidate
+        where minMatch is 3, the tree), and the hash3 table's next index
+        (ZSTD_updateTree enters the positions before ip first)."""
+        base = self.base
+        curr = ip + base
+        if curr < self.next:
+            return [], next3                # a skipped area
+        idx = self.next
+        while idx < curr:
+            idx += self._insert_bt1(idx, iend, curr)
+        self.next = curr
+        src, bt, mm, w4, w8 = self.src, self.bt, self.mm, self.w4, self.w8
+        sufficient = min(self.tlen, _OPT_NUM - 1)
+        btmask = (1 << (self.clog - 1)) - 1
+        btlow = 0 if btmask >= curr else curr - btmask
+        wlow = self._low(curr)
+        mlow = wlow or 1
+        head = 0xFFFFFF if mm == 3 else 0xFFFFFFFF
+        out = []
+        best = mm - 1
+        for r in range(ll0, 3 + ll0):
+            roff = (rep[0] - 1) & 0xFFFFFFFF if r == 3 else rep[r]
+            length = 0
+            if ((roff - 1) & 0xFFFFFFFF) < curr - self.low \
+                    and curr - roff >= wlow \
+                    and not (w4[ip] ^ w4[ip - roff]) & head:
+                length = _count(src, ip + mm, ip + mm - roff, iend) + mm
+            if length > best:
+                best = length
+                out.append((r - ll0 + 1, length))
+                if length > sufficient or ip + length == iend:
+                    return out, next3
+        if self.mls == 3 and best < 3:
+            ht3, h3 = self.ht3, self.hashes3
+            for i in range(next3, curr):    # ZSTD_insertAndFindFirstIndexHash3
+                ht3[h3[i - base]] = i
+            next3 = curr
+            m3 = ht3[h3[ip]]
+            if m3 >= mlow and curr - m3 < (1 << 18):
+                length = _count(src, ip, m3 - base, iend)
+                if length >= 3:
+                    best = length
+                    out = [(curr - m3 + 3, length)]
+                    if length > sufficient or ip + length == iend:
+                        self.next = curr + 1    # not entered in the tree
+                        return out, next3
+        h = self.hashes[ip]
+        m = self.ht[h]
+        self.ht[h] = curr
+        smaller, larger = 2 * (curr & btmask), 2 * (curr & btmask) + 1
+        match_end = curr + 9
+        cs = cl = 0
+        nbcmp = 1 << self.slog
+        while nbcmp and m >= mlow:
+            nxt = 2 * (m & btmask)
+            ml = cs if cs < cl else cl
+            mp = m - base
+            if ip + ml + 8 <= iend:     # the first 8 bytes as words
+                x = w8[ip + ml] ^ w8[mp + ml]
+                ml += (((x & -x).bit_length() - 1) >> 3 if x else
+                       8 + _count(src, ip + ml + 8, mp + ml + 8, iend))
+            else:
+                ml += _count(src, ip + ml, mp + ml, iend)
+            if ml > best:
+                if ml > match_end - m:
+                    match_end = m + ml
+                best = ml
+                out.append((curr - m + 3, ml))
+                if ml > _OPT_NUM or ip + ml == iend:
+                    break
+            if src[mp + ml] < src[ip + ml]:
+                bt[smaller] = m
+                cs = ml
+                if m <= btlow:
+                    smaller = -1
+                    break
+                smaller, m = nxt + 1, bt[nxt + 1]
+            else:
+                bt[larger] = m
+                cl = ml
+                if m <= btlow:
+                    larger = -1
+                    break
+                larger, m = nxt, bt[nxt]
+            nbcmp -= 1
+        if smaller >= 0:
+            bt[smaller] = 0
+        if larger >= 0:
+            bt[larger] = 0
+        self.next = match_end - 8           # skip repetitive patterns
+        return out, next3
+
+    # ----------------------------------------------------------- parser
+
+    def block(self, istart: int, iend: int, rep):
+        """ZSTD_compressBlock_opt_generic (no dictionary) on block
+        [istart, iend) of the frame: (sequences, literals), rep carried.
+        A forward pass prices every position up to ZSTD_OPT_NUM on (a
+        match longer than the target length taken at once), a backward
+        walk emits the cheapest path."""
+        src = self.src
+        ilimit = iend - 8
+        sufficient = min(self.tlen, _OPT_NUM - 1)
+        mm, optlevel = self.mm, self.optlevel
+        next3 = self.next
+        self._rescale(src[istart:iend])
+        litp, llp, mp = self._lit_price, self._ll_price, self._match_price
+        opt = self.opt
+        last = [0, 0, 0, 0, [0, 0, 0]]
+        seqs, lit = [], bytearray()
+        ip = anchor = istart
+        if ip + self.base == self.low:
+            ip += 1
+        while ip < ilimit:
+            litlen = ip - anchor
+            matches, next3 = self._matches(ip, iend, rep, int(not litlen),
+                                           next3)
+            if not matches:
+                ip += 1
+                continue
+            o0 = opt[0]
+            o0[2], o0[3], o0[0], o0[4] = 0, litlen, llp(litlen), list(rep)
+            if matches[-1][1] > sufficient:     # at once
+                last[3], last[2], last[1] = 0, matches[-1][1], matches[-1][0]
+                cur, last_pos = 0, last[2]
+            else:
+                for pos in range(1, mm):
+                    c = opt[pos]
+                    c[0], c[2], c[3] = _MAX_PRICE, 0, litlen + pos
+                pos = mm
+                for offb, end in matches:
+                    while pos <= end:
+                        c = opt[pos]
+                        c[2], c[1], c[3] = pos, offb, 0
+                        c[0] = o0[0] + mp(offb, pos) + llp(0)
+                        pos += 1
+                last_pos = pos - 1
+                opt[pos][0] = _MAX_PRICE
+                cur = 1
+                at_once = False
+                # the prices of this pass (the counts change only where a
+                # pass stores its sequences)
+                ll_small, wlit = self.ll_small, self.wlit
+                lit_base, lit_max = self.lit_base, self.lit_base - _BIT
+                predef = self.predef
+                while cur <= last_pos:
+                    inr = ip + cur
+                    prev = opt[cur - 1]
+                    ll = prev[3] + 1
+                    if predef or ll > 63:
+                        price = prev[0] + litp(src[inr - 1]) + llp(ll) \
+                            - llp(ll - 1)
+                    else:
+                        w = wlit[src[inr - 1]]
+                        price = prev[0] + lit_base - (lit_max if w > lit_max
+                                                      else w) \
+                            + ll_small[ll] - ll_small[ll - 1]
+                    if price <= opt[cur][0]:    # one literal on, cheaper
+                        prevm = opt[cur]
+                        opt[cur] = [price, prev[1], prev[2], ll, prev[4]]
+                        if optlevel >= 1 and prevm[3] == 0 and \
+                                llp(1) - llp(0) < 0 and inr < iend:
+                            # the replaced match and one literal at the
+                            # next position, if cheaper there
+                            lp = litp(src[inr])
+                            with1 = prevm[0] + lp + llp(1) - llp(0)
+                            withmore = price + lp + llp(ll + 1) - llp(ll)
+                            if with1 < withmore and with1 < opt[cur + 1][0]:
+                                p = opt[cur - prevm[2]]
+                                r = list(p[4])
+                                _update_rep(r, prevm[1], int(p[3] == 0))
+                                opt[cur + 1] = [with1, prevm[1], prevm[2], 1,
+                                                r]
+                                if last_pos < cur + 1:
+                                    last_pos = cur + 1
+                    c = opt[cur]
+                    if c[3] == 0:               # a match ends here
+                        p = opt[cur - c[2]]
+                        r = list(p[4])
+                        _update_rep(r, c[1], int(p[3] == 0))
+                        c[4] = r
+                    if inr > ilimit:
+                        cur += 1
+                        continue
+                    if cur == last_pos:
+                        break
+                    if optlevel == 0 and opt[cur + 1][0] <= c[0] + _BIT // 2:
+                        cur += 1
+                        continue
+                    base_price = c[0] + llp(0)
+                    matches, next3 = self._matches(inr, iend, c[4],
+                                                   int(c[3] == 0), next3)
+                    if not matches:
+                        cur += 1
+                        continue
+                    longest = matches[-1][1]
+                    if longest > sufficient or cur + longest >= _OPT_NUM \
+                            or inr + longest >= iend:
+                        last[2], last[1], last[3] = longest, matches[-1][0], 0
+                        last_pos = cur + longest
+                        at_once = True
+                        break
+                    start = mm
+                    ml_part = self.ml_part
+                    for offb, mlen in matches:
+                        ofp = base_price + self.of_part[offb.bit_length() - 1]
+                        for ml in range(mlen, start - 1, -1):
+                            pos = cur + ml
+                            mlb = ml - 3
+                            p = base_price + mp(offb, ml) if self.predef \
+                                else ofp + ml_part[_ML_CODE[mlb] if mlb < 128
+                                                   else mlb.bit_length() + 35]
+                            if pos > last_pos or p < opt[pos][0]:
+                                while last_pos < pos:
+                                    last_pos += 1
+                                    f = opt[last_pos]
+                                    f[0], f[3] = _MAX_PRICE, 1
+                                f = opt[pos]
+                                f[2], f[1], f[3], f[0] = ml, offb, 0, p
+                            elif optlevel == 0:
+                                break
+                        start = mlen + 1
+                    opt[last_pos + 1][0] = _MAX_PRICE
+                    cur += 1
+                if not at_once:
+                    last = list(opt[last_pos])
+                    cur = last_pos - last[2]
+            if last[2] == 0:                    # literals only
+                ip += last_pos
+                continue
+            if last[3] == 0:
+                r = list(opt[cur][4])
+                _update_rep(r, last[1], int(opt[cur][3] == 0))
+                rep[:] = r
+            else:
+                rep[:] = last[4]
+                cur -= last[3]
+            # the backward walk, stored from cur + 2 down; libzstd 1.5.7
+            # writes a last stretch's literals and then, not instead, the
+            # stretch itself: its literals are not taken, and the next
+            # pass starts where its match ends
+            store_end = cur + 2
+            if last[3] > 0:
+                e = opt[store_end]
+                e[3], e[2] = last[3], 0
+                opt[store_end - 1] = list(last)
+            opt[store_end] = list(last)
+            store_start, pos = store_end, cur
+            while True:
+                s = list(opt[pos])
+                opt[store_start][3] = s[3]
+                if s[2] == 0:
+                    break
+                store_start -= 1
+                opt[store_start] = s
+                pos -= s[3] + s[2]
+            for sp in range(store_start, store_end + 1):
+                ll, offb, ml = opt[sp][3], opt[sp][1], opt[sp][2]
+                if ml == 0:
+                    ip = anchor + ll
+                    continue
+                self._update_stats(ll, anchor, offb, ml)
+                seqs.append((ll, ml, offb))
+                lit += src[anchor:anchor + ll]
+                anchor += ll + ml
+                ip = anchor
+            self._set_prices()
+        lit += src[anchor:iend]
+        return seqs, bytes(lit)
+
+    def first_pass(self, n: int, rep) -> None:
+        """ZSTD_initStats_ultra (btultra2): the first block parsed once to
+        seed the statistics; its sequences go, and the window moves past
+        it."""
+        self.block(0, n, list(rep))
+        self.base += n
+        self.low = self.next = self.base
+
+
 # ------------------------------------------------------ the block splitter
 
 def _fingerprint(p: bytes, rate: int, hlog: int):
@@ -2083,10 +2703,210 @@ def _block_size(src: bytes, start: int, strat: int, savings: int) -> int:
     remaining = len(src) - start
     if remaining < BLOCK_MAX:
         return remaining
-    level = (0, 0, 1, 2, 2, 3, 3)[strat]
+    level = (0, 0, 1, 2, 2, 3, 3, 4, 4, 4)[strat]
     if savings < 3 or level == 0:
         return BLOCK_MAX
     return _split_block(src[start:start + BLOCK_MAX], level)
+
+
+# -------------------------------------------------- the post-block splitter
+
+def _field_bytes(f: int, kind: int, codes, table) -> int:
+    """ZSTD_estimateBlockSize_symbolType: a sequence field's bytes in a
+    table of type 0 (predefined), 1 (RLE), 2 or 3 (new, repeated), its
+    extra bits included (an offset code is its own count of them)."""
+    count = [0] * (_FIELD_MAX[f] + 1)
+    for c in codes:
+        count[c] += 1
+    mx = max(s for s in range(len(count)) if count[s])
+    if kind == 0:
+        bits = _cross_entropy_cost(_DEF_NORM[f], _DEF_LOG[f], count, mx)
+    elif kind == 1:
+        bits = 0
+    else:
+        bits = _fse_bit_cost(table, count, mx)
+        if bits == _NO_COST:
+            return len(codes) * 10
+    extra = (LL_BITS, None, ML_BITS)[f]
+    bits += sum(codes) if extra is None else sum(extra[c] for c in codes)
+    return bits >> 3
+
+
+def _estimate(lit: bytes, codes, strat: int, prev: _Entropy) -> int:
+    """ZSTD_estimateSubBlockSize_seqStore of one run of sequences (their
+    codes) and literals: ZSTD_buildBlockEntropyStats from the last
+    compressed block's tables, then ZSTD_estimateBlockSize; an error
+    where libzstd's is."""
+    nlit, nseq = len(lit), len(codes[0])
+    lit_bytes = nlit                                # raw
+    if nlit > 63:
+        count = np.bincount(np.frombuffer(lit, np.uint8),
+                            minlength=256).tolist()
+        maxsym = max(s for s in range(256) if count[s])
+        largest = max(count)
+        if largest == nlit:
+            lit_bytes = 1
+        elif largest > (nlit >> 7) + 4:
+            repeat = prev.huf_mode
+            if repeat == _R_CHECK and (prev.huf.maxsym < maxsym or any(
+                    count[s] and not prev.huf.lengths[s]
+                    for s in range(maxsym + 1))):
+                repeat = _R_NONE            # HUF_validateCTable
+            log = _huf_optimal_log(count, maxsym, nlit, strat >= _BTULTRA)
+            lengths, _, longest = huf_build(count, maxsym, log)
+            newc = _huf_estimate(lengths, count, maxsym)
+            h = _write_table(bytearray(128), 0, 128, lengths, maxsym, longest)
+            # libzstd compares an error's size_t as it is
+            hs = h if h >= 0 else (_M64 + 1 - (70 if h == _SMALL else 1))
+            table, desc = None, 0
+            if repeat != _R_NONE:
+                oldc = _huf_estimate(prev.huf.lengths, count, maxsym)
+                if oldc < nlit and (oldc <= (hs + newc) & _M64
+                                    or (hs + 12) & _M64 >= nlit):
+                    table = prev.huf.lengths
+            if table is None and (newc + hs) & _M64 < nlit:
+                if h < 0:
+                    return _GENERIC
+                table, desc = lengths, h
+            if table is not None:
+                lit_bytes = _huf_estimate(table, count, maxsym) + desc \
+                    + (6 if nlit >= 256 else 0) + 3 + (nlit >= 1024) \
+                    + (nlit >= 16384)
+    buf = bytearray(133)        # ZSTD_MAX_FSE_HEADERS_SIZE
+    op = seq_bytes = 0
+    for f in range(3):
+        kind, table, _, r = _seq_field(f, codes[f], strat, prev.fse[f],
+                                       prev.fse_mode[f], buf, op, 133 - op)
+        if r < 0:
+            return r
+        op += r
+        seq_bytes += _field_bytes(f, kind, codes[f], table)
+    return seq_bytes + op + 2 + (nseq >= 128) + (nseq >= 0x7F00) \
+        + lit_bytes + 3
+
+
+def _derive_splits(est, s0: int, s1: int, parts) -> None:
+    """ZSTD_deriveBlockSplitsHelper: split [s0, s1) in half where both
+    halves' estimates undercut the whole's, and each half again (no part
+    under 300 sequences, at most 196 splits)."""
+    if s1 - s0 < 300 or len(parts) >= 196:
+        return
+    mid = (s0 + s1) // 2
+    whole, first, second = est(s0, s1), est(s0, mid), est(mid, s1)
+    if whole < 0 or first < 0 or second < 0:
+        return
+    if first + second < whole:
+        _derive_splits(est, s0, mid, parts)
+        parts.append(mid)
+        _derive_splits(est, mid, s1, parts)
+
+
+def _resolve(drep, crep, seqs) -> list:
+    """ZSTD_seqStore_resolveOffCodes: a repeat offset that means another
+    offset to the decoder (drep: its history, which raw and RLE blocks
+    reset; crep: the matcher's) becomes the offset it meant."""
+    out = []
+    for ll, ml, offb in seqs:
+        ll0 = int(ll == 0)
+        ofv = offb
+        if offb <= 3:
+            r = offb - 1 + ll0
+            d = (drep[0] - 1) & 0xFFFFFFFF if r == 3 else drep[r]
+            c = (crep[0] - 1) & 0xFFFFFFFF if r == 3 else crep[r]
+            if d != c:
+                ofv = c + 3
+        _update_rep(drep, ofv, ll0)
+        _update_rep(crep, offb, ll0)
+        out.append((ll, ml, ofv))
+    return out
+
+
+def _seq_block(block: bytes, lit: bytes, seqs, strat: int, prev: _Entropy,
+               drep, crep, first: bool, last: bool, cap: int):
+    """ZSTD_compressSeqStore_singleBlock: (the block with its header, or
+    an error; its type; the tables the next block starts from) of
+    ``block`` from sequences and literals (raw where it does not
+    compress, RLE for a later block of one byte value); a partition's
+    repeat offsets resolved first (``crep`` given)."""
+    saved = list(drep)
+    if crep is not None:
+        seqs = _resolve(drep, crep, seqs)
+    if cap < 3:
+        return _SMALL, 0, prev
+    n = len(block)
+    body = bytearray(cap - 3)
+    nxt = _Entropy()
+    c = _block_body(body, 0, cap - 3, lit, seqs, strat, prev, nxt, n)
+    if c < 0:
+        return c, 0, prev
+    if not first and c < 25 and block.count(block[:1]) == n:
+        c = 1
+    if c == 0:
+        if n + 3 > cap:
+            return _SMALL, 0, prev
+        btype, size, payload = 0, n, block
+    elif c == 1:
+        if cap < 4:
+            return _SMALL, 0, prev
+        btype, size, payload = 1, n, block[:1]
+    else:
+        btype, size, payload = 2, c, bytes(body[:c])
+        prev = nxt       # ZSTD_blockState_confirmRepcodesAndEntropyTables
+    if btype != 2:
+        drep[:] = saved
+    head = (int(last) | (btype << 1) | (size << 3)).to_bytes(3, 'little')
+    return head + payload, btype, prev
+
+
+def _split_blocks(block: bytes, seqs, lit: bytes, strat: int,
+                  prev: _Entropy, rep, saved, split: bool, first: bool,
+                  last: bool, cap: int):
+    """ZSTD_compressBlock_internal (one block) or, with ``split``,
+    ZSTD_compressBlock_splitBlock_internal (in the partitions
+    ZSTD_deriveBlockSplits finds): (bytes or an error, the tables after)
+    of a block from its sequences (rep: the matcher's repeat offsets
+    after it, as the next block sees them after the call; saved: those
+    before)."""
+    nseq = len(seqs)
+    drep, crep = list(saved), list(saved)
+    parts = []
+    if split and nseq > 4:
+        codes = ([_ll_code(ll) for ll, _, _ in seqs],
+                 [offb.bit_length() - 1 for _, _, offb in seqs],
+                 [_ml_code(ml - 3) for _, ml, _ in seqs])
+        litpos = [0]
+        for ll, _, _ in seqs:
+            litpos.append(litpos[-1] + ll)
+        litpos[-1] = len(lit)
+
+        def est(s0, s1):
+            return _estimate(lit[litpos[s0]:litpos[s1]],
+                             tuple(c[s0:s1] for c in codes), strat, prev)
+        _derive_splits(est, 0, nseq, parts)
+    if not parts:
+        out, btype, prev = _seq_block(block, lit, seqs, strat, prev, drep,
+                                      None, first, last, cap)
+        if not isinstance(out, int) and btype != 2:
+            rep[:] = saved
+        return out, prev
+    out = bytearray()
+    bounds = [0] + parts + [nseq]
+    done = 0
+    for i in range(len(bounds) - 1):
+        s0, s1 = bounds[i], bounds[i + 1]
+        part = seqs[s0:s1]
+        nbytes = len(block) - done if s1 == nseq else \
+            sum(ll + ml for ll, ml, _ in part)
+        chunk, _, prev = _seq_block(
+            block[done:done + nbytes], lit[litpos[s0]:litpos[s1]], part,
+            strat, prev, drep, crep, first, last and s1 == nseq,
+            cap - len(out))
+        if isinstance(chunk, int):
+            return chunk, prev
+        out += chunk
+        done += nbytes
+    rep[:] = drep
+    return bytes(out), prev
 
 
 def _own_block(src: bytes, a, seqv, hashes, head, chain, nxt, bstart: int,
@@ -2163,8 +2983,7 @@ def compress(src: bytes, clevel: int = 5, cap: Optional[int] = None) -> bytes:
     cap = 2 * n + 1024 if cap is None else cap
     if cap < 18:
         return b''
-    lib = (clevel in (1, 2) and n <= BLOCK_MAX) or \
-        (clevel in (3, 4, 5) and n <= LIB_MAXSRC)
+    lib = 1 <= clevel <= 9 and n <= lib_maxsrc(clevel)
     out = bytearray(MAGIC.to_bytes(4, 'little'))
     if n < 256:
         out += bytes([0x20, n])
@@ -2176,8 +2995,11 @@ def compress(src: bytes, clevel: int = 5, cap: Optional[int] = None) -> bytes:
         return bytes(out) + b'\x01\x00\x00'
     strat = _DFAST
     if lib:
-        wlog, clog, hlog, slog, mls, strat = lib_params(2 * clevel - 1, n)
-        if strat >= _GREEDY:
+        wlog, clog, hlog, slog, mls, tlen, strat = \
+            lib_params(lib_level(clevel), n)
+        if strat >= _BTOPT:
+            opt = _Opt(src, wlog, clog, hlog, slog, mls, tlen, strat)
+        elif strat >= _GREEDY:
             lazy = _Lazy(src, wlog, clog, hlog, slog, mls, strat)
     else:
         depth = _DEPTH[min(max(int(clevel), 0), 9)]
@@ -2187,6 +3009,8 @@ def compress(src: bytes, clevel: int = 5, cap: Optional[int] = None) -> bytes:
         head = [-1] * (1 << olog)
         chain = [-1] * n if depth > 1 else None
         nxt = 0
+    # the post-block splitter from btopt up over windows of 128 KiB or more
+    split = lib and strat >= _BTOPT and wlog >= 17
     # the tables of the last compressed block
     prev = _Entropy()
     rep = [1, 4, 8]
@@ -2200,9 +3024,18 @@ def compress(src: bytes, clevel: int = 5, cap: Optional[int] = None) -> bytes:
         if room < 3 + 2 + 1:
             return b''
         saved = list(rep)
-        c, rle = 0, False
-        body = bytearray(max(room - 3, 0))
-        if bn >= 7:         # ZSTD_buildSeqStore: no attempt under 7 bytes
+        if bn < 7:          # ZSTD_buildSeqStore: no attempt under 7 bytes
+            if bn + 3 > room:
+                return b''
+            blocks = (int(bend == n) | (bn << 3)).to_bytes(3, 'little') \
+                + block
+        else:
+            if lib and strat >= _GREEDY:
+                # a limited update after a very long match
+                m = opt if strat >= _BTOPT else lazy
+                curr = bstart + (m.base if strat >= _BTOPT else 2)
+                if curr > m.next + 384:
+                    m.next = curr - min(192, curr - m.next - 384)
             if not lib:
                 seqs, lit, nxt = _own_block(src, a, seqv, hashes, head, chain,
                                             nxt, bstart, bend, rep, depth)
@@ -2210,39 +3043,19 @@ def compress(src: bytes, clevel: int = 5, cap: Optional[int] = None) -> bytes:
                 seqs, lit = _fast(src, hlog, mls)
             elif strat == _DFAST:
                 seqs, lit = _dfast(src, hlog, clog, mls)
+            elif strat >= _BTOPT:
+                if strat == _BTULTRA2 and bstart == 0 and bn > _PREDEF:
+                    opt.first_pass(bn, rep)
+                seqs, lit = opt.block(bstart, bend, rep)
             else:
-                # a limited update after a very long match
-                curr = bstart + 2
-                if curr > lazy.next + 384:
-                    lazy.next = curr - min(192, curr - lazy.next - 384)
                 seqs, lit = lazy.block(bstart, bend, rep)
-            # a later block of one byte value is an RLE block (libzstd's
-            # first block never is): at once where its sequences are few,
-            # else where it codes to under 25 bytes
-            same = bstart > 0 and block.count(block[:1]) == bn
-            if same and len(seqs) < 4 and len(lit) < 10:
-                rle = True
-            else:
-                nxt_ent = _Entropy()
-                c = _block_body(body, 0, room - 3, lit, seqs, strat, prev,
-                                nxt_ent, bn)
-                if c < 0:
-                    return b''
-                rle = same and c < 25
-        if rle:
-            btype, size, payload = 1, bn, block[:1]
-        elif c == 0:
-            if bn + 3 > room:
+            blocks, prev = _split_blocks(block, seqs, lit, strat, prev, rep,
+                                         saved, split, bstart == 0, bend == n,
+                                         room)
+            if isinstance(blocks, int):
                 return b''
-            btype, size, payload = 0, bn, block
-        else:
-            btype, size, payload = 2, c, bytes(body[:c])
-            prev = nxt_ent      # ZSTD_blockState_confirmRepcodesAnd...
-        if btype != 2:
-            rep[:] = saved
-        out += ((bend == n) | (btype << 1) | (size << 3)).to_bytes(3, 'little')
-        out += payload
-        savings += bn - 3 - len(payload)
+        out += blocks
+        savings += bn - len(blocks)
         bstart = bend
         if bstart >= n:
             break

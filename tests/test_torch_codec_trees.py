@@ -10,11 +10,11 @@ the same files, equal ``.zarray``/``zarr.json``/``.zattrs`` JSON and
 arrays that decode equal with tensorstore and the port's reader. The
 cases cover zstd-1 with byte shuffle (the reference's production
 setting), zstd with bit shuffle, shuffle -1 on u8 and u16, and each
-other cname; the zstd-1 trees (v2 and v3, bands and in RAM), the zstd-5
-trees (the JAX package's default clevel: bit shuffle in bands, byte
-shuffle in RAM), the zstd-1 merge trees and every snappy and zlib tree
-hold byte-identical chunk and shard files (the port's zstd at clevel 1
-to 5 follows libzstd 1.5.7, its snappy snappy 1.2 and its zlib
+other cname; every zstd tree (clevel 1 in v2 and v3, bands and in RAM;
+clevel 5, the JAX package's default: bit shuffle in bands, byte shuffle
+in RAM; clevel 6 to 9), the zstd-1 merge trees and every snappy and zlib
+tree hold byte-identical chunk and shard files (the port's zstd at
+every clevel follows libzstd 1.5.7, its snappy snappy 1.2 and its zlib
 Chromium's zlib 1.3.1). On v3 both packages
 byte-shuffle whatever ``compressor_shuffle`` says (the JAX package's
 metadata always reads ``'shuffle': 'shuffle'``). Then ``read_array`` and
@@ -48,6 +48,9 @@ CASES = [
     ('zstd', 1, 1, 3, 'off', np.uint16),
     ('zstd', 5, 2, 2, 'on', np.uint16),
     ('zstd', 5, 1, 2, 'off', np.uint16),
+    ('zstd', 6, 2, 2, 'on', np.uint8),
+    ('zstd', 7, 1, 3, 'on', np.uint16),
+    ('zstd', 8, -1, 2, 'off', np.uint16),
     ('zstd', 9, 2, 3, 'off', np.uint16),
     ('lz4hc', 9, 1, 2, 'off', np.uint16),
     ('blosclz', 5, 0, 3, 'on', np.uint16),
@@ -95,8 +98,7 @@ def test_tree_equals_jax(tmp_path, case):
                 options=port.EngineOptions(**_options(
                     cname, clevel, shuffle, fmt, streaming, port_out)))
     assert_outputs_equal(jax_out, port_out)
-    if cname in ('snappy', 'zlib') or (cname == 'zstd'
-                                       and clevel in (1, 2, 3, 4, 5)):
+    if cname in ('snappy', 'zlib') or (cname == 'zstd' and clevel >= 1):
         # snappy 1.2's, Chromium zlib 1.3.1's and libzstd 1.5.7's rules:
         # byte-identical chunk files
         assert_chunk_files_equal(jax_out, port_out)

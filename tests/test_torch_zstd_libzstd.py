@@ -1,23 +1,27 @@
-"""The port's zstd encoder at blosc clevel 1 to 5 (``csrc/codec_zstd.h``,
+"""The port's zstd encoder at blosc clevel 1 to 9 (``csrc/codec_zstd.h``,
 plain version ``io/zstd_plain.py``) against libzstd 1.5.7, whose level
-2 * clevel - 1 c-blosc calls: ``zstandard`` (present only on the CPU test
-host) at levels 1 (fast), 3 (dfast), 5 (lazy up to 16 KiB, greedy
-above), 7 (lazy2, lazy over 128 KiB) and 9 (btlazy2 up to 16 KiB, lazy2
-above), and tensorstore's c-blosc.
+2 * clevel - 1 (22 at clevel 9) c-blosc calls: ``zstandard`` (present
+only on the CPU test host) at levels 1 (fast), 3 (dfast), 5 (lazy up to
+16 KiB, greedy above), 7 (lazy2, lazy over 128 KiB), 9 (btlazy2 up to 16
+KiB, lazy2 above), 11 (btopt up to 16 KiB, btlazy2 to 256 KiB, lazy2
+above), 13 and 15 (btultra up to 16 KiB, btopt to 256 KiB, btlazy2
+above) and 22 (btultra2), and tensorstore's c-blosc.
 
 - the parameters (window, chain, hash and search logs, minimum match,
-  strategy) for every source size up to 256 KiB, as libzstd adjusts
-  them;
-- a fixed corpus: lengths 1-300 and the block edges up to 262144 of
+  target length, strategy) for every source size up to 1 MiB, as
+  libzstd adjusts them;
+- a fixed corpus: lengths 1-300 and the block edges up to 1 MiB of
   incompressible bytes, one repeated byte, zeros, text and a 4-symbol
-  alphabet (16384/16385 where the strategy and matcher change,
-  131072/131073 and over where a frame takes two blocks), and blocks of
-  ``chip_smoke.compressible`` byte-shuffled at type sizes 1, 2, 4 and 8
-  (blosc's 32, 64, 128 and 256 KiB blocks, a short tail), and 256 KiB
-  whose second half libzstd's pre-splitter cuts: the C frames byte-equal
-  to libzstd's, the plain version's to C's on the inputs of at most 16
-  KiB + 1 (hash chain, binary tree) and on one row-matcher input and one
-  of two blocks;
+  alphabet (the table's rows change at 16384/16385, 131072/131073 and
+  262144/262145; 131073 and over take two blocks, 512 KiB four, 1 MiB
+  eight), and blocks of ``chip_smoke.compressible`` byte-shuffled at
+  type sizes 1, 2, 4 and 8 (blosc's 32, 64, 128, 256 and 512 KiB and
+  1 MiB blocks, a short tail), and 256 and 512 KiB whose later blocks
+  libzstd's pre-splitter cuts, and 128 KiB + 1 whose block its post-block
+  splitter divides from btopt up: the C frames byte-equal to libzstd's,
+  the plain version's to C's on the inputs of at most 16 KiB + 1 (hash
+  chain, binary tree, the optimal parser) and on one row-matcher input,
+  one of two blocks and the post-splitter's;
 - a ``hypothesis`` property on random short inputs (C), seeded inputs
   of mixed runs up to 256 KiB at clevel 3-5 (lazy skipping over long
   literal runs, raw and compressed blocks in one frame), and literals
@@ -53,7 +57,7 @@ LEVELS = torch_zstd_frames.LEVELS
 MAXSRC = torch_zstd_frames.MAXSRC
 EDGES = (511, 512, 513, 1023, 1024, 1025, 4095, 4096, 4097, 16383, 16384,
          16385, 32767, 32768, 32769, 65535, 65536, 65537, 65791, 65792,
-         131071, 131072, 131073, 196608, 262144)
+         131071, 131072, 131073, 196608, 262144, 262145, 524288, 1048576)
 LENGTHS = tuple(range(1, 301)) + EDGES
 PLAIN_MAX = 16385
 
@@ -84,53 +88,61 @@ def _kind(kind: str, n: int) -> bytes:
     return bytes(out[:n])
 
 
-def _check(data: bytes, plain: bool) -> None:
+def _check(data: bytes, plain: bool, plain_opt: bool = True) -> None:
+    """C frames equal libzstd's at every clevel; the plain version's
+    equal C's where ``plain`` says (from clevel 6, whose optimal parser
+    runs slowly in Python, where ``plain_opt`` says too and on inputs of
+    at most PLAIN_MAX bytes)."""
     for clevel, level in LEVELS.items():
         if len(data) > MAXSRC[clevel]:
             continue
         frame = blosc.stream_compress('zstd', data, clevel)
         assert frame == libzstd(data, level), (len(data), clevel)
-        if plain:
+        if plain and (clevel <= 5 or plain_opt and len(data) <= PLAIN_MAX):
             assert zstd_plain.compress(data, clevel) == frame, \
                 (len(data), clevel)
 
 
 def test_parameters_equal_libzstd():
     """libzstd's table row and ZSTD_adjustCParams for every size up to
-    256 KiB (each power of two and its neighbours, and the table edges)."""
-    sizes = sorted({max(1, (1 << k) + d) for k in range(19)
+    1 MiB (each power of two and its neighbours, and the table edges)."""
+    sizes = sorted({max(1, (1 << k) + d) for k in range(21)
                     for d in (-1, 0, 1)} | {63, 64, 65, 196608})
     for level in LEVELS.values():
         for n in sizes:
-            if n > 262144:
+            if n > 1048576:
                 continue
             p = zstandard.ZstdCompressionParameters.from_level(
                 level, source_size=n)
             assert zstd_plain.lib_params(level, n) == (
                 p.window_log, p.chain_log, p.hash_log, p.search_log,
-                p.min_match, p.strategy), (level, n)
+                p.min_match, p.target_length, p.strategy), (level, n)
 
 
 @pytest.mark.parametrize("kind", ['random', 'repeated', 'zeros', 'text',
                                   'alphabet4'])
 def test_corpus_frames_equal_libzstd(kind):
+    """The corpus at every clevel; the plain version at clevel 1 to 5 here,
+    at 6 to 9 in ``test_torch_zstd_plain_opt.py`` (in parallel)."""
     for n in LENGTHS:
-        _check(_kind(kind, n), n <= PLAIN_MAX)
+        _check(_kind(kind, n), n <= PLAIN_MAX, plain_opt=False)
 
 
 @pytest.mark.parametrize("typesize", [1, 2, 4, 8])
 def test_shuffled_texture_frames_equal_libzstd(typesize):
     """Blocks of the bench's compressible texture as c-blosc hands them to
     zstd: byte-shuffled at the type size, 32 KiB (clevel 1), 64 KiB
-    (clevel 2), 128 KiB (clevel 3) and 256 KiB (clevel 4 and 5) blocks,
-    and a short last one."""
+    (clevel 2), 128 KiB (clevel 3), 256 KiB (clevel 4 and 5), 512 KiB
+    (clevel 6 to 8) and 1 MiB (clevel 9) blocks, and a short last one."""
     tex = chip_smoke.compressible(np.random.default_rng(typesize), 512)
     dtype = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}[typesize]
     raw = (tex >> 8).astype(dtype).tobytes() if typesize == 1 else \
         (tex.astype(dtype) * dtype(3)).tobytes()
-    for bs in (32768, 65536, 131072, 262144):
+    for bs in (32768, 65536, 131072, 262144, 524288, 1048576):
         for off in (0, bs, 5 * bs):
             block = raw[off:off + bs]
+            if not block or (bs > 262144 and len(block) < bs):
+                continue
             shuffled = blosc.shuffle_plain(block, typesize) \
                 if typesize > 1 else block
             for clevel, level in LEVELS.items():
@@ -237,6 +249,30 @@ def test_split_second_block_equals_libzstd():
     assert _block_count(frame) == 3
 
 
+def test_optimal_levels_split_blocks_equal_libzstd():
+    """From btopt up libzstd's post-block splitter divides a block of at
+    least 300 sequences where its estimates gain (128 KiB + 1 of text,
+    then a 4-symbol alphabet: a frame of two blocks written as more); at
+    clevel 6 to 8 over 512 KiB (lazy2, btlazy2) its pre-splitter cuts a
+    later block where its statistics change. C frames equal libzstd's,
+    the plain version's equal C's at clevel 7 (btopt, 128 KiB + 1)."""
+    inputs = dict(torch_zstd_frames.inputs())
+    data = inputs['split_131073']
+    for clevel in (6, 7, 8, 9):
+        frame = blosc.stream_compress('zstd', data, clevel)
+        assert frame == libzstd(data, LEVELS[clevel]), clevel
+        assert _block_count(frame) == (2 if clevel == 6 else
+                                       (7, 8, 10)[clevel - 7]), clevel
+        if clevel == 7:
+            assert zstd_plain.compress(data, clevel) == frame
+    data = inputs['mixed_524288']
+    for clevel in (6, 7, 8, 9):
+        frame = blosc.stream_compress('zstd', data, clevel)
+        assert frame == libzstd(data, LEVELS[clevel]), clevel
+        if clevel < 9:
+            assert _block_count(frame) == 5, clevel
+
+
 def _block_count(frame: bytes) -> int:
     """The blocks of a single-segment frame with a 4-byte content size."""
     pos, count = 4 + 1 + 4, 0
@@ -257,7 +293,7 @@ def _edge_cases(count: int, lo: int, hi: int):
     out = []
     while len(out) < count:
         dtype = (np.uint8, np.uint16)[len(out) % 2]
-        clevel = 1 + (len(out) // 2) % 5
+        clevel = 1 + (len(out) // 2) % 9
         shuffle = (0, 1, 2, -1)[(len(out) // 10) % 4]
         n = int(rng.integers(128, 3000)) & ~1
         raw = rng.integers(0, 256, n, dtype=np.uint8)
@@ -297,21 +333,28 @@ def test_bounded_frames_equal_tensorstore(tmp_path, band):
     assert 0 < stored < len(cases)      # both sides of the edge
 
 
-@pytest.mark.parametrize("clevel", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("clevel", range(1, 10))
 def test_short_last_blocks_equal_tensorstore(tmp_path, clevel):
     """A chunk of whole blocks and a last block of 2-40 bytes: under the
     18 bytes libzstd wants for its frame header the last block is stored,
-    above them a frame of zeros fits; at clevel 3-5 also last blocks of
-    texture of up to 16 KiB (hash chain, binary tree) and, in 256 KiB
-    blocks, of 150000 bytes (two zstd blocks); whole frames are
-    tensorstore's."""
-    bs = {1: 32768, 2: 65536, 3: 131072, 4: 262144, 5: 262144}[clevel]
-    tex = (chip_smoke.compressible(np.random.default_rng(5), 512) >> 8) \
+    above them a frame of zeros fits; from clevel 3 also last blocks of
+    texture of up to 16 KiB (hash chain, binary tree, the optimal parser)
+    and, in blocks of 256 KiB and more, of 150000 bytes (two zstd blocks);
+    from clevel 6 (512 KiB and 1 MiB blocks, libzstd's slower levels) the
+    edges alone: 2, 18 and 19 bytes, 16 KiB + 1 and 150000; whole frames
+    are tensorstore's."""
+    bs = {1: 32768, 2: 65536, 3: 131072, 4: 262144, 5: 262144, 6: 524288,
+          7: 524288, 8: 524288, 9: 1048576}[clevel]
+    tex = (chip_smoke.compressible(np.random.default_rng(5),
+                                   512 if bs <= 262144 else 1024) >> 8) \
         .astype(np.uint8).ravel()
     body = tex[:bs]
-    tails = [np.zeros(n, np.uint8) for n in (2, 12, 17, 18, 19, 25, 40)]
+    # (from clevel 6, whose libzstd levels run slowly, the edges alone)
+    tails = [np.zeros(n, np.uint8) for n in ((2, 12, 17, 18, 19, 25, 40)
+                                             if clevel <= 5 else (2, 18, 19))]
     if clevel >= 3:
-        tails += [tex[-n:] for n in (5000, 16384, 16385)]
+        tails += [tex[-n:] for n in ((5000, 16384, 16385) if clevel <= 5
+                                     else (16385,))]
     if clevel >= 4:
         tails.append(tex[-150000:])
     for k, tail in enumerate(tails):
@@ -336,15 +379,28 @@ def test_kept_frames_are_what_make_writes(tmp_path):
 
 
 def test_c_frames_match_kept_frames():
+    """The C frames of the kept inputs (on a pool of threads: the C
+    encoder releases the interpreter lock) match the kept digests, and
+    the plain version's the C frames on the inputs of at most
+    PLAIN_MAX bytes."""
+    from concurrent.futures import ThreadPoolExecutor
     kept = torch_zstd_frames.load()
     cases = torch_zstd_frames.inputs()
     assert sorted(label for label, _ in cases) == sorted(kept)
+    tasks = []
     for label, data in cases:
         digest, frames = kept[label]
         assert torch_zstd_frames.sha(data) == digest, label
-        for clevel, (size, want) in frames.items():
-            frame = blosc.stream_compress('zstd', data, clevel)
-            assert (len(frame), torch_zstd_frames.sha(frame)) == \
-                (size, want), (label, clevel)
+        tasks += [(label, data, clevel, want)
+                  for clevel, want in frames.items()]
+
+    def c_frame(task):
+        return blosc.stream_compress('zstd', task[1], task[2])
+
+    with ThreadPoolExecutor(4) as pool:
+        for (label, data, clevel, want), frame in zip(
+                tasks, pool.map(c_frame, tasks)):
+            assert (len(frame), torch_zstd_frames.sha(frame)) == want, \
+                (label, clevel)
             if len(data) <= PLAIN_MAX:
                 assert zstd_plain.compress(data, clevel) == frame, label

@@ -17,9 +17,9 @@ dtype of u8/u16:
   frames are byte-equal to the plain version's;
 - for lz4 and lz4hc (liblz4's ``LZ4_compress_fast`` and
   ``LZ4_compress_HC`` rules), snappy (snappy 1.2's compressor), zlib
-  (Chromium's zlib 1.3.1 deflate) and zstd at clevel 1 to 5 (libzstd
-  1.5.7's levels 1, 3, 5, 7 and 9), each whole frame is byte-equal to
-  tensorstore's, the memcpyed flag included; for lz4 and lz4hc the C
+  (Chromium's zlib 1.3.1 deflate) and zstd at clevel 1 to 9 (libzstd
+  1.5.7's levels 1, 3, 5, ..., 15 and 22), each whole frame is
+  byte-equal to tensorstore's, the memcpyed flag included; for lz4 and lz4hc the C
   frame of a 256-row cut of the plane (streams of liblz4's larger hash,
   and past lz4hc's 64 KiB window) is byte-equal to the plain version's.
 """
@@ -37,9 +37,9 @@ from image_stitcher_tpu_torch.io.zarr_store import (BloscZarrArray,
                                                     EncodePool, read_array)
 
 CLEVELS = (0, 1, 5, 9)
-#: the clevels whose zstd frames follow libzstd 1.5.7 (levels 1, 3, 5, 7
-#: and 9)
-ZSTD_LIB_CLEVELS = (1, 2, 3, 4, 5)
+#: the clevels whose zstd frames follow libzstd 1.5.7 (levels 1, 3, 5,
+#: ..., 15 and 22): all of them
+ZSTD_LIB_CLEVELS = (1, 2, 3, 4, 5, 6, 7, 8, 9)
 SHUFFLES = (0, 1, 2, -1)
 DTYPES = (np.uint8, np.uint16)
 TILE, EDGE = 2048, 203

@@ -1,6 +1,6 @@
 """Seeded inputs and the digests of libzstd 1.5.7's frames of them at
-levels 1, 3, 5, 7 and 9 (the levels c-blosc calls at blosc clevel 1 to
-5), kept in the repo.
+levels 1, 3, 5, 7, 9, 11, 13, 15 and 22 (the levels c-blosc calls at
+blosc clevel 1 to 9), kept in the repo.
 
 The card's host has no ``zstandard``. So ``chip_smoke.py`` (phase 12)
 makes the inputs with :func:`inputs` (NumPy integer arithmetic on
@@ -9,12 +9,15 @@ encoder to the SHA-256 of libzstd's frames kept in
 ``torch_zstd_frames.npz``, written by :func:`make` on the CPU test host
 (``zstandard`` 0.25.0, which bundles libzstd 1.5.7). The inputs are
 blosc blocks as c-blosc hands them to zstd (byte-shuffled textures at
-type sizes 1, 2, 4 and 8 in 32, 64, 128 and 256 KiB blocks, one of 16
-KiB, unshuffled ones), text, incompressible bytes, zeros, one repeated
-byte, 256 KiB of text then a 4-symbol alphabet (where libzstd splits the
-second block), and the frame header's size edges. A frame is kept only at
-the levels whose rules the C encoder follows for its size (levels 1 and 3
-up to 128 KiB). Regenerate with::
+type sizes 1, 2, 4 and 8 in 32, 64, 128, 256 and 512 KiB and 1 MiB
+blocks, one of 16 KiB, unshuffled ones), text, incompressible bytes,
+zeros, one repeated byte, text then a 4-symbol alphabet (256 and 512 KiB,
+where libzstd's pre-splitter cuts later blocks, and 128 KiB + 1, whose
+block its post-block splitter divides from btopt up), and the frame
+header's and the parameter table's size edges. A frame is kept only at
+the levels whose rules the C encoder follows for its size (a blosc block
+of the clevel: 128 KiB at clevel 1 and 2, 256 KiB at 3 to 5, 512 KiB at
+6 to 8, 1 MiB at 9). Regenerate with::
 
     python tests/torch_zstd_frames.py
 
@@ -31,9 +34,10 @@ import numpy as np
 PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     'torch_zstd_frames.npz')
 #: blosc clevel -> libzstd level
-LEVELS = {1: 1, 2: 3, 3: 5, 4: 7, 5: 9}
+LEVELS = {1: 1, 2: 3, 3: 5, 4: 7, 5: 9, 6: 11, 7: 13, 8: 15, 9: 22}
 #: the longest input each clevel follows libzstd on
-MAXSRC = {1: 131072, 2: 131072, 3: 262144, 4: 262144, 5: 262144}
+MAXSRC = {1: 131072, 2: 131072, 3: 262144, 4: 262144, 5: 262144,
+          6: 524288, 7: 524288, 8: 524288, 9: 1048576}
 
 
 def _words(seed: int, n: int) -> np.ndarray:
@@ -102,6 +106,24 @@ def inputs():
     cases += [('zeros_5000', bytes(5000)), ('repeated_300', b'\x5a' * 300),
               ('alphabet4_20000', (_words(11, 20000) % np.uint64(4))
                .astype(np.uint8).tobytes())]
+    # the blosc blocks of clevel 6 to 9 (512 KiB, 1 MiB) and the edges of
+    # libzstd's table rows for levels 11, 13, 15 and 22
+    for ts, dtype, scale, sizes in ((2, np.uint16, 1, (524288,)),
+                                    (4, np.uint32, 3, (524288, 1048576)),
+                                    (8, np.uint64, 5, (524288, 1048576))):
+        raw = (tex * np.uint64(scale)).astype(dtype).tobytes()
+        for bs in sizes:
+            cases.append((f'tex{ts}_shuffled_{bs}_0', _shuffle(raw[:bs], ts)))
+    for n in (16384, 65536, 65537, 131073, 262145):
+        cases.append((f'text_edge_{n}', _text(n + 1, n)))
+    cases += [('random_524288', _words(9, 65536).tobytes()),
+              ('text_1048576', _text(12, 1048576)),
+              ('mixed_524288', _text(4, 327680) + (
+                  _words(6, 196608) % np.uint64(4)).astype(np.uint8)
+               .tobytes()),
+              ('split_131073', _text(13, 65536) + (
+                  _words(14, 65537) % np.uint64(4)).astype(np.uint8)
+               .tobytes())]
     return cases
 
 
@@ -114,16 +136,28 @@ def make(path: str = PATH) -> None:
     length and digest of libzstd's frame at each level (none, '-', where
     the input is longer than the clevel's MAXSRC)."""
     import zstandard
+    from concurrent.futures import ThreadPoolExecutor
+
+    def frame(task):
+        data, level = task
+        return zstandard.ZstdCompressor(
+            level=level, write_content_size=True).compress(data)
+
+    cases = inputs()
+    tasks = [(data, level) for _, data in cases
+             for clevel, level in LEVELS.items()
+             if len(data) <= MAXSRC[clevel]]
+    with ThreadPoolExecutor(4) as pool:     # zstandard releases the GIL
+        frames = iter(pool.map(frame, tasks))
     rows = []
-    for label, data in inputs():
+    for label, data in cases:
         row = [label, sha(data)]
-        for clevel, level in LEVELS.items():
+        for clevel in LEVELS:
             if len(data) > MAXSRC[clevel]:
                 row += ['-', '-']
                 continue
-            frame = zstandard.ZstdCompressor(
-                level=level, write_content_size=True).compress(data)
-            row += [str(len(frame)), sha(frame)]
+            f = next(frames)
+            row += [str(len(f)), sha(f)]
         rows.append(row)
     np.savez_compressed(path, rows=np.array(rows),
                         version=np.array(zstandard.ZSTD_VERSION))
