@@ -115,25 +115,26 @@ Phases, each fatal on failure:
      3, 5, ..., 15 and 22 frames of the seeded inputs of
      tests/torch_zstd_frames.py (their SHA-256 kept in
      tests/torch_zstd_frames.npz; C only: the Python version of the
-     optimal parser is too slow for the card's host); the C snappy
-     and zlib encoders byte-equal to tensorstore's blosc frames of the
-     seeded inputs of tests/torch_blosc_frames.py, snappy at clevel 9 and
-     zlib at clevel 1-9, and to the snappy and zlib streams those frames
-     hold (their SHA-256 kept in tests/torch_blosc_frames.npz); and each
-     codec's C encoder and decoder against its plain version on phase 8's
-     chunks (the C frames of the full chunks decode exactly; the Python
-     versions run on 512^2 cuts, zlib's on 256^2, on a pool of
-     processes); (b) each codec's MB/s on one thread and on the encode
+     optimal parser is too slow for the card's host); the C snappy,
+     zlib and blosclz encoders byte-equal to tensorstore's blosc frames
+     of the seeded inputs of tests/torch_blosc_frames.py, snappy at
+     clevel 9, zlib and blosclz at clevel 1-9, and to the streams those
+     frames hold (their SHA-256 kept in tests/torch_blosc_frames.npz);
+     and each codec's C encoder and decoder against its plain version on
+     phase 8's chunks (the C frames of the full chunks decode exactly;
+     the Python versions run on 512^2 cuts, zlib's on 256^2, on a pool
+     of processes); (b) each codec's MB/s on one thread and on the encode
      pool, its ratio beside lz4's, and the zstd encoder's MB/s on one
      thread at clevel 1, 3, 4 and 5 (libzstd's fast, greedy, lazy and
      lazy2 rules) and 6 to 9 (lazy2, btlazy2 and btultra2 in 512 KiB and
      1 MiB blocks; clevel 9 on 2 MiB); (c) phase 8's grid and content in
      the reference
      production edition's setting, blosc zstd clevel 1 with byte shuffle,
-     and in blosc zlib at the JAX default clevel 5 with byte shuffle,
-     each decoded equal to a raw run, with e2e, tiles/s, the writer's
-     seconds, the pool's drain, bytes and ratio against phase 8's lz4
-     run; (d) a 3x3 grid for every other cname (snappy bit-shuffled) as
+     in blosc zlib at the JAX default clevel 5 and in blosclz-5, byte
+     shuffle, each decoded equal to a raw run, with e2e, tiles/s, the
+     writer's seconds, the pool's drain, bytes and ratio against phase
+     8's lz4 run (blosclz's beside (b)'s one-thread blosclz and lz4
+     MB/s); (d) a 3x3 grid for every other cname (snappy bit-shuffled) as
      zarr v2 and v3, each decoded equal to phase 8's raw 3x3 twin; (e) a
      2-well plate with the complete-plate merge in zstd, equal to the
      same merge in lz4;
@@ -2977,13 +2978,14 @@ def zstd_libzstd_check() -> int:
 
 
 def blosc_frames_check() -> int:
-    """12a: the C snappy and zlib encoders against tensorstore's blosc
-    frames (snappy 1.2, Chromium's zlib 1.3.1), whose SHA-256 the CPU test
-    host keeps in ``tests/torch_blosc_frames.npz`` (this host has no
-    tensorstore): the seeded inputs of ``tests/torch_blosc_frames.py``
-    made here (their digests checked first), the port's frame of each
-    (two blocks of zeros, then the input) at each kept setting, snappy at
-    clevel 9 and zlib at clevel 1-9, and the codec's stream of the input
+    """12a: the C snappy, zlib and blosclz encoders against tensorstore's
+    blosc frames (snappy 1.2, Chromium's zlib 1.3.1, c-blosc 1.x's
+    blosclz), whose SHA-256 the CPU test host keeps in
+    ``tests/torch_blosc_frames.npz`` (this host has no tensorstore): the
+    seeded inputs of ``tests/torch_blosc_frames.py`` made here (their
+    digests checked first), the port's frame of each (two blocks of
+    zeros, then the input) at each kept setting, snappy at clevel 9,
+    zlib and blosclz at clevel 1-9, and the codec's stream of the input
     where the frame holds one, each length and digest equal to the kept
     ones (on a pool of threads: the C encoders release the interpreter
     lock). Returns the number of frames and streams checked."""
@@ -3029,9 +3031,10 @@ def blosc_frames_check() -> int:
                 raise SystemExit(f"codecs (tensorstore frames): {err}")
             checked += n
     log(f"codecs (tensorstore frames): {len(tasks)} C frames and "
-        f"{checked - len(tasks)} snappy and zlib streams of {len(cases)} "
-        f"kept inputs (snappy at clevel 9, zlib at clevel 1-9) byte-equal "
-        f"to tensorstore's (tests/torch_blosc_frames.npz) in "
+        f"{checked - len(tasks)} snappy, zlib and blosclz streams of "
+        f"{len(cases)} kept inputs (snappy at clevel 9, zlib and blosclz "
+        f"at clevel 1-9) byte-equal to tensorstore's "
+        f"(tests/torch_blosc_frames.npz) in "
         f"{time.perf_counter() - t0:.2f}s")
     return checked
 
@@ -3223,13 +3226,13 @@ def phase_other_codecs(work: str, card: str, output_layer: dict,
                        device: str = 'cuda') -> dict:
     """12: the other blosc codecs. (a) C against the kept digests and
     against plain; (b) MB/s; (c) the reference production setting (zstd,
-    clevel 1, byte shuffle) and zlib at the JAX default clevel 5 with byte
-    shuffle on phase 8's grid and content, each decoded equal to a raw
-    run, with e2e, tiles/s, the writer's seconds, the encode pool's
-    drain, bytes and ratio against phase 8's lz4 run; (d) a 3x3 grid for
-    every other cname, v2 and v3, each decoded equal to its raw twin; (e)
-    a 2-well plate with the complete-plate merge in zstd, equal to the
-    same merge in lz4.
+    clevel 1, byte shuffle), zlib at the JAX default clevel 5 and
+    blosclz-5, byte shuffle, on phase 8's grid and content, each decoded
+    equal to a raw run, with e2e, tiles/s, the writer's seconds, the
+    encode pool's drain, bytes and ratio against phase 8's lz4 run; (d)
+    a 3x3 grid for every other cname, v2 and v3, each decoded equal to
+    its raw twin; (e) a 2-well plate with the complete-plate merge in
+    zstd, equal to the same merge in lz4.
     ``output_layer`` is phase 8's result: its lz4 run, and the
     acquisitions and raw trees (c) and (d) reuse, which this phase
     removes."""
@@ -3245,11 +3248,17 @@ def phase_other_codecs(work: str, card: str, output_layer: dict,
     zstd_rates = zstd_level_rates(rng, card)
     overlap = 205 * tile // TILE
 
-    # 12c: the main path's grid in zstd-1 and in zlib-5, against phase 8's
-    # raw twin
+    # 12c: the main path's grid in zstd-1, zlib-5 and blosclz-5, against
+    # phase 8's raw twin
     runs = {cname: main_path_codec_run(work, card, output_layer, dev, cname,
                                        clevel, grid)
-            for cname, clevel in (('zstd', 1), ('zlib', 5))}
+            for cname, clevel in (('zstd', 1), ('zlib', 5), ('blosclz', 5))}
+    blz, lz4_run = runs['blosclz'], output_layer['runs']['lz4']
+    log(f"codecs: blosclz-5 main path e2e {blz['e2e_s']:.3f}s, tree ratio "
+        f"{blz['ratio']:.4f}, one-thread encode "
+        f"{rates['blosclz'][1][0]:.1f} MB/s (12b); lz4-5 e2e "
+        f"{lz4_run['e2e_s']:.3f}s, tree ratio {lz4_run['ratio']:.4f}, "
+        f"one-thread encode {rates['lz4'][1][0]:.1f} MB/s (same call)")
     for path in (output_layer['main_raw'], output_layer['main_acq']):
         shutil.rmtree(path)
 
@@ -3319,7 +3328,8 @@ def phase_other_codecs(work: str, card: str, output_layer: dict,
     seconds = time.perf_counter() - t_phase
     log(f"codecs: phase 12 in {seconds:.1f}s")
     return {'rates': rates, 'zstd_main': runs['zstd'],
-            'zlib_main': runs['zlib'], 'small': small,
+            'zlib_main': runs['zlib'], 'blosclz_main': runs['blosclz'],
+            'small': small,
             'libzstd_frames': libzstd_frames, 'blosc_frames': blosc_frames,
             'zstd_rates': zstd_rates,
             'seconds': seconds}

@@ -321,11 +321,12 @@ static void finish_block(int flags, int64_t ts, int64_t bsize,
 }
 
 static int64_t stream_compress(int cid, const uint8_t *src, int64_t n,
-                               uint8_t *dst, int64_t cap, int clevel)
+                               uint8_t *dst, int64_t cap, int clevel,
+                               int split)
 {
     switch (cid) {
     case CID_BLOSCLZ:
-        return blosclz_compress(src, n, dst, cap, clevel);
+        return blosclz_compress(src, n, dst, cap, clevel, split);
     case CID_LZ4:
         return lz4_compress_block(src, n, dst, cap, clevel);
     case CID_LZ4HC:
@@ -408,7 +409,7 @@ int64_t blosc_compress(int cid, int clevel, int shuffle, int64_t ts,
                 break;
             }
             int64_t c = stream_compress(cid, blk + s * neblock, neblock,
-                                        dest + pos, maxout, clevel);
+                                        dest + pos, maxout, clevel, split);
             if (c < 0) {
                 rc = c;
                 ok = 0;

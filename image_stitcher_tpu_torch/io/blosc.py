@@ -45,13 +45,16 @@ The frame (c-blosc 1.x, as tensorstore writes it):
   they are when the codec does not make it shorter (size equal to the
   stream's length); a codec's stream may take at most the stream's
   length, snappy's at most 32 + n + n / 6 (snappy writes nothing when
-  the frame's room clips that);
+  the frame's room clips that), each clipped to the frame's room left;
 - a frame that would be longer than the input plus its header, an input
   under 128 bytes, or clevel 0 is ``memcpyed``: flag 0x02 and the input
   after the header.
 
 The codecs' streams: LZ4 blocks for code 1 (the two matchers below),
-blosclz (``blosclz_plain``), raw snappy (Google snappy 1.2's compressor,
+blosclz (c-blosc 1.x's own encoder, whose entropy probe declines
+streams it expects to compress little and whose shift depends on
+whether the frame's blocks are split; ``blosclz_plain``, rules in
+``csrc/codec_blosclz.h``), raw snappy (Google snappy 1.2's compressor,
 ``snappy_plain``), zlib (the deflate of Chromium's zlib 1.3.1 as
 ``compress2`` runs it at the clevel, ``zlib_plain``) and one zstd frame
 (``zstd_plain``). The decoders read any valid frame of these settings,
@@ -80,10 +83,11 @@ The LZ4 matchers (the same in C and here, byte for byte):
   by the stream's length, the clevel passed through as c-blosc passes it
   (levels 1-2 its mid matcher, 3-9 its hash chain), so its streams too
   are byte-equal to c-blosc's; ``lz4hc_plain`` states its rules.
-Sequences are encoded as the LZ4 block format says (token nibbles,
-255-continued lengths, u16 LE offsets); the decoders read any valid LZ4
-block, including overlapping matches and the block-splitting choices of
-other encoders.
+Every cname's frames are thus byte-equal to tensorstore's at every
+clevel and shuffle. Sequences are encoded as the LZ4 block format says
+(token nibbles, 255-continued lengths, u16 LE offsets); the decoders
+read any valid LZ4 block, including overlapping matches and the
+block-splitting choices of other encoders.
 """
 
 from __future__ import annotations
@@ -128,8 +132,10 @@ def lib() -> ctypes.CDLL:
         so.all_zero.restype = ci
         funcs = [so.blosc_compress, so.blosc_decompress,
                  so.blosc_unshuffle_blocks]
-        for name in _STREAM_ENC.values():
-            getattr(so, name).argtypes = [vp, i64, vp, i64, ci]
+        for cname, name in _STREAM_ENC.items():
+            # blosclz also takes whether the frame's blocks are split
+            getattr(so, name).argtypes = [vp, i64, vp, i64, ci] + (
+                [ci] if cname == 'blosclz' else [])
             funcs.append(getattr(so, name))
         for name in _STREAM_DEC.values():
             getattr(so, name).argtypes = [vp, i64, vp, i64]
@@ -235,13 +241,18 @@ def all_zero(data: np.ndarray) -> bool:
 def stream_compress(cname: str, data, clevel: int = 5) -> bytes:
     """One stream of ``data`` as the cname's codec writes it inside a
     frame (an LZ4 block, a blosclz or snappy stream, a zlib stream, a
-    zstd frame), in C; raises when it does not fit in its worst case."""
+    zstd frame; blosclz's as in a frame whose blocks are split), in C;
+    raises when it does not fit in its worst case. blosclz's stream is
+    b'' where c-blosc's encoder declines (the frame stores the stream as
+    it is)."""
     src = _as_bytes(data)
     cap = 2 * src.size + 1024
     dest = np.empty(cap, np.uint8)
+    split = (1,) if cname == 'blosclz' else ()
     n = getattr(lib(), _STREAM_ENC[cname])(src.ctypes.data, src.size,
-                                          dest.ctypes.data, cap, int(clevel))
-    if n <= 0 and src.size:
+                                          dest.ctypes.data, cap, int(clevel),
+                                          *split)
+    if n < 0 or (n == 0 and src.size and cname != 'blosclz'):
         raise CodecError(f"{cname} compress: {_ERRORS.get(n, n)}")
     return dest[:max(n, 0)].tobytes()
 
@@ -650,7 +661,7 @@ def _assemble(src: bytes, blocks: bytes, typesize: int, clevel: int,
                 ok = False
                 break
             stream = block[s * neblock:(s + 1) * neblock]
-            c = (encode(stream, clevel) if cname == 'blosclz'
+            c = (encode(stream, clevel, maxout, split) if cname == 'blosclz'
                  else encode(stream, clevel, maxout))
             if not c or len(c) > maxout or len(c) == neblock:
                 if pos + neblock > maxbytes:

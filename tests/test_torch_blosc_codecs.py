@@ -127,6 +127,7 @@ def test_streams_at_every_small_length(cname):
     decoders give the input back."""
     rng = np.random.default_rng(len(cname))
     lengths = list(range(0, 81)) + [255, 256, 1000, 4097]
+    encoded = 0
     for n in lengths:
         for data in (bytes(n), rng.integers(0, 3, n, dtype=np.uint8)
                      .tobytes(), rng.integers(0, 256, n, dtype=np.uint8)
@@ -137,8 +138,17 @@ def test_streams_at_every_small_length(cname):
                     continue
                 stream = blosc.stream_compress(cname, data, clevel)
                 assert stream == PLAIN_STREAM[cname](data, clevel), n
+                if cname == 'blosclz' and not stream:
+                    # c-blosc's encoder declines under 16 bytes and where
+                    # its entropy probe says so: the frame stores the
+                    # stream as it is
+                    assert n < 16 or blosclz_plain.entropy_probe(data) < \
+                        blosclz_plain.RATIO_FLOOR[clevel - 1], n
+                    continue
+                encoded += 1
                 assert blosc.stream_decompress(cname, stream, n) == data
                 assert PLAIN_DECODE[cname](stream, n) == data
+    assert encoded >= 30
 
 
 @pytest.mark.parametrize("cname", [c for c in CNAMES if c != 'zlib'])
@@ -283,17 +293,18 @@ def _ts_decodes(tmp_path, frame, data):
 
 
 def test_tensorstore_reads_blosclz_far_matches_and_long_lengths(tmp_path):
-    """Matches 70000 and 18000 bytes back (the far form) and a 300-byte
-    run (the continued length), which c-blosc's own encoder may never
-    write, decode in tensorstore."""
+    """Matches 70000 and 18000 bytes back (the far form) and a 40000-byte
+    run (the continued length) decode in tensorstore. The run also holds
+    the window c-blosc's entropy probe reads (from 3/4 of the stream), so
+    the encoder does not decline the stream."""
     rng = np.random.default_rng(8)
     head = rng.integers(0, 256, 70000, dtype=np.uint8).tobytes()
-    data = head + head[:9000] + head[61000:] + bytes(300) + head[:20]
+    data = head + head[:9000] + head[61000:] + bytes(40000) + head[:20]
     frame = bytes(blosc.compress(np.frombuffer(data, np.uint8), 1, 9, 0,
                                  'blosclz'))
-    # the 18300 repeated bytes went as matches (the rest is random,
-    # its literal runs cost 1 byte in 33): both far matches were taken
-    assert not frame[2] & 0x02 and len(frame) < len(data) - 15000
+    # the 58000 repeated bytes went as matches (the random head's literal
+    # runs cost 1 byte in 33): both far matches were taken
+    assert not frame[2] & 0x02 and len(frame) < 70000 * 33 // 32 + 1000
     assert blosc.decompress_plain(frame) == data
     _ts_decodes(tmp_path, frame, data)
 

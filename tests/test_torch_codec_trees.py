@@ -12,10 +12,12 @@ cases cover zstd-1 with byte shuffle (the reference's production
 setting), zstd with bit shuffle, shuffle -1 on u8 and u16, and each
 other cname; every zstd tree (clevel 1 in v2 and v3, bands and in RAM;
 clevel 5, the JAX package's default: bit shuffle in bands, byte shuffle
-in RAM; clevel 6 to 9), the zstd-1 merge trees and every snappy and zlib
+in RAM; clevel 6 to 9), the zstd-1 merge trees and every blosclz (clevel
+5 in v3 bands, clevel 9 bit-shuffled u8 in v2 in RAM), snappy and zlib
 tree hold byte-identical chunk and shard files (the port's zstd at
-every clevel follows libzstd 1.5.7, its snappy snappy 1.2 and its zlib
-Chromium's zlib 1.3.1). On v3 both packages
+every clevel follows libzstd 1.5.7, its blosclz c-blosc 1.x's encoder,
+its snappy snappy 1.2 and its zlib Chromium's zlib 1.3.1). On v3 both
+packages
 byte-shuffle whatever ``compressor_shuffle`` says (the JAX package's
 metadata always reads ``'shuffle': 'shuffle'``). Then ``read_array`` and
 ``open_stitched`` on JAX trees written with zstd-1 and with bit shuffle,
@@ -54,6 +56,7 @@ CASES = [
     ('zstd', 9, 2, 3, 'off', np.uint16),
     ('lz4hc', 9, 1, 2, 'off', np.uint16),
     ('blosclz', 5, 0, 3, 'on', np.uint16),
+    ('blosclz', 9, 2, 2, 'off', np.uint8),
     ('snappy', 5, -1, 2, 'on', np.uint8),
     ('snappy', 1, -1, 2, 'off', np.uint16),
     ('zlib', 1, 2, 2, 'off', np.uint8),
@@ -98,9 +101,10 @@ def test_tree_equals_jax(tmp_path, case):
                 options=port.EngineOptions(**_options(
                     cname, clevel, shuffle, fmt, streaming, port_out)))
     assert_outputs_equal(jax_out, port_out)
-    if cname in ('snappy', 'zlib') or (cname == 'zstd' and clevel >= 1):
-        # snappy 1.2's, Chromium zlib 1.3.1's and libzstd 1.5.7's rules:
-        # byte-identical chunk files
+    if cname in ('blosclz', 'snappy', 'zlib') or (cname == 'zstd'
+                                                  and clevel >= 1):
+        # c-blosc 1.x's blosclz, snappy 1.2's, Chromium zlib 1.3.1's and
+        # libzstd 1.5.7's rules: byte-identical chunk files
         assert_chunk_files_equal(jax_out, port_out)
     level0 = os.path.join(port_out, zarr_groups(port_out)[0], '0')
     chunk = None

@@ -1,14 +1,14 @@
-"""Seeded inputs and the digests of tensorstore's blosc snappy and zlib
-frames of them (and of the codec stream each frame holds), kept in the
-repo.
+"""Seeded inputs and the digests of tensorstore's blosc snappy, zlib and
+blosclz frames of them (and of the codec stream each frame holds), kept
+in the repo.
 
 The card's host has no tensorstore. So ``chip_smoke.py`` (phase 12)
 makes the inputs with :func:`inputs` (NumPy integer arithmetic on
 PCG64's raw words, as ``torch_zstd_frames``) and holds the port's C
 encoders to the SHA-256 kept in ``torch_blosc_frames.npz``, written by
 :func:`make` on the CPU test host from the JAX package's
-``create_zarr_array`` (tensorstore's c-blosc: Google snappy 1.2 and
-Chromium's zlib 1.3.1).
+``create_zarr_array`` (tensorstore's c-blosc: Google snappy 1.2,
+Chromium's zlib 1.3.1 and c-blosc's own blosclz).
 
 Each input goes into one u8 chunk, shuffle 0, as the last of three
 blosc blocks: two blocks of zeros, then the input (``framed``). The
@@ -18,8 +18,11 @@ buffer under its worst case, and c-blosc clips the room of a frame's
 first stream to the frame's), and the input is the whole last block, so
 the frame's last stream is the codec's stream of exactly the input.
 Snappy is kept at clevel 9 (256 KiB blocks), zlib at each clevel 1-9
-(64 KiB blocks at clevel 1-2, 128 KiB at 3, 256 KiB at 4-9); an input
-longer than the clevel's block is not kept there ('-'). The inputs are
+(64 KiB blocks at clevel 1-2, 128 KiB at 3, 256 KiB at 4-9), blosclz at
+each clevel 1-9 (64 KiB blocks at clevel 1-3, 128 KiB at 4-5, 256 KiB at
+6-9; where blosclz declines, the frame stores the input and the stream
+is '-'); an input longer than the clevel's block is not kept there
+('-'). The inputs are
 the edges 14-17, 255-257, 4095-4097, 16383-16385,
 32767-32769, 65535-65537, 131072 and 262144 of text, incompressible
 bytes and a 4-symbol alphabet, zeros and one repeated byte, blosc blocks
@@ -30,8 +33,9 @@ inputs deflate sends with the fixed code. Regenerate with::
     python tests/torch_blosc_frames.py
 
 ``tests/test_torch_zlib_frames.py`` checks that the file is what
-:func:`make` writes; it and ``tests/test_torch_snappy_frames.py`` check
-that the port's frames and streams match it.
+:func:`make` writes; it, ``tests/test_torch_snappy_frames.py`` and
+``tests/test_torch_blosclz_frames.py`` check that the port's frames and
+streams match it.
 """
 
 import hashlib
@@ -42,16 +46,21 @@ import tempfile
 
 import numpy as np
 
-from torch_zstd_frames import _shuffle, _text, _words, texture
+if __name__ == '__main__':
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+from torch_zstd_frames import _shuffle, _text, _words, texture  # noqa: E402
+from image_stitcher_tpu_torch.io.blosc import blosc_blocksize  # noqa: E402
 
 PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     'torch_blosc_frames.npz')
 #: the (cname, clevel) settings kept, in the file's column order
-SETTINGS = (('snappy', 9),) + tuple(('zlib', c) for c in range(1, 10))
+SETTINGS = ((('snappy', 9),) + tuple(('zlib', c) for c in range(1, 10))
+            + tuple(('blosclz', c) for c in range(1, 10)))
 #: u8 blosc block size of each setting (c-blosc's rule for inputs of at
 #: least one block)
-BLOCK = {('snappy', 9): 262144, ('zlib', 1): 65536, ('zlib', 2): 65536,
-         ('zlib', 3): 131072, **{('zlib', c): 262144 for c in range(4, 10)}}
+BLOCK = {s: blosc_blocksize(s[1], 1, 1 << 20, s[0]) for s in SETTINGS}
 EDGES = (14, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 16383, 16384,
          16385, 32767, 32768, 32769, 65535, 65536, 65537, 131072, 262144)
 #: the kinds of input of the CPU tests' corpus (``kind_bytes``)
@@ -194,6 +203,4 @@ def load(path: str = PATH):
 
 
 if __name__ == '__main__':
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
     sys.exit(make())

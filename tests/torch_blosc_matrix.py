@@ -15,8 +15,9 @@ dtype of u8/u16:
   of elements not a multiple of 8 under bit shuffle): the same, and the
   plain decoder reads tensorstore's frames and the port's, and the C
   frames are byte-equal to the plain version's;
-- for lz4 and lz4hc (liblz4's ``LZ4_compress_fast`` and
-  ``LZ4_compress_HC`` rules), snappy (snappy 1.2's compressor), zlib
+- for blosclz (c-blosc 1.x's entropy-probed encoder), lz4 and lz4hc
+  (liblz4's ``LZ4_compress_fast`` and ``LZ4_compress_HC`` rules),
+  snappy (snappy 1.2's compressor), zlib
   (Chromium's zlib 1.3.1 deflate) and zstd at clevel 1 to 9 (libzstd
   1.5.7's levels 1, 3, 5, ..., 15 and 22), each whole frame is
   byte-equal to tensorstore's, the memcpyed flag included; for lz4 and lz4hc the C
@@ -128,10 +129,10 @@ def check(root, cname, clevel, shuffle, dtype):
             assert struct.unpack_from('<ii', frame, 4) == \
                 struct.unpack_from('<ii', ts_frame, 4), rel
             raw = _chunk(data, rel, chunks)
-            if cname in ('lz4', 'lz4hc', 'snappy', 'zlib') or (
+            if cname in ('blosclz', 'lz4', 'lz4hc', 'snappy', 'zlib') or (
                     cname == 'zstd' and clevel in ZSTD_LIB_CLEVELS):
-                # liblz4's, snappy's, zlib's and libzstd's own rules: whole
-                # frames byte-equal
+                # c-blosc's blosclz, liblz4's, snappy's, zlib's and
+                # libzstd's own rules: whole frames byte-equal
                 assert frame == ts_frame, rel
                 if name == 'plane' and cname in ('lz4', 'lz4hc'):
                     # streams of at least 64 KiB + 11 (liblz4's larger

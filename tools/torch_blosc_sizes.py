@@ -3,7 +3,7 @@
 content, one 2048^2 uint16 chunk), for every cname at clevel 1 to 9
 with byte shuffle, and zstd with bit shuffle. Prints port bytes /
 tensorstore bytes and both ratios, and '=' where the two frames are
-byte-equal (lz4, lz4hc, snappy, zlib and zstd at every clevel).
+byte-equal (every cname at every clevel).
 Needs tensorstore (the CPU test host), not a card:
 
     python tools/torch_blosc_sizes.py [seed]
