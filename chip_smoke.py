@@ -4000,8 +4000,7 @@ def mesh_main_path(work: str, card: str, devices, main_run: dict) -> dict:
                                 stats['write']):
         log(f"mesh (15b) band {b['band']} on {b['device']}: rows "
             f"{b['start']}-{b['start'] + b['rows']}, {b['launches']} "
-            f"launches, fuse {b['fuse_ms']:.3f} ms on the card (CUDA "
-            f"events), read-back wait {waited:.3f}s, write {wrote:.3f}s")
+            f"launches, read-back wait {waited:.3f}s, write {wrote:.3f}s")
     log(f"mesh (15b): loads + uploads + launches {stats['fuse']:.3f}s, "
         f"writer close {stats['close']:.3f}s; peak device memory "
         + ", ".join(f"{d} {v / 2 ** 30:.3f} GiB" for d, v in peaks.items())

@@ -17,6 +17,7 @@ from typing import Iterator, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import carry, span
 from .acquisition import read_image
 
 
@@ -34,7 +35,8 @@ def load_tile_plane(job: "TileJob") -> np.ndarray:
     elif img.ndim == 3 and img.shape[0] == 1:
         img = img[0]
     if job.fy or job.fx:
-        img = subpixel_shift(img, job.fy, job.fx)
+        with span('tile.warp', img.nbytes):
+            img = subpixel_shift(img, job.fy, job.fx)
     return img
 
 
@@ -167,37 +169,40 @@ class TileBatchLoader:
 
     def _load_plane(self, args) -> Tuple[int, int]:
         job, dst = args
-        img = load_tile_plane(job)
-        h = min(img.shape[0], self.tile_h)
-        w = min(img.shape[1], self.tile_w)
-        dst[:h, :w] = img[:h, :w]
-        if h < self.tile_h or w < self.tile_w:
-            dst[h:, :] = 0
-            dst[:h, w:] = 0
+        with span('tile.load', dst.nbytes):
+            img = load_tile_plane(job)
+            h = min(img.shape[0], self.tile_h)
+            w = min(img.shape[1], self.tile_w)
+            dst[:h, :w] = img[:h, :w]
+            if h < self.tile_h or w < self.tile_w:
+                dst[h:, :] = 0
+                dst[:h, w:] = 0
         return h, w
 
     def _build_batch(self, chunk: List[TileJob],
                      pool: ThreadPoolExecutor) -> TileBatch:
-        n = self.batch_size
-        tiles = torch.empty((n, self.tile_h, self.tile_w),
-                            dtype=device_dtype(self.dtype),
-                            pin_memory=self.pin_memory)
-        view = tiles.numpy()
-        info = np.zeros((n, 4), np.int32)
-        crops = np.zeros((n, 4), np.int32)
-        valid = np.zeros((n,), bool)
-        view[len(chunk):] = 0
-        sizes = list(pool.map(self._load_plane,
-                              [(job, view[i]) for i, job in enumerate(chunk)]))
-        for i, (job, (h, w)) in enumerate(zip(chunk, sizes)):
-            info[i] = (job.channel_idx, job.z_level, job.y, job.x)
-            # undersized tiles fold the zero-pad deficit into the
-            # bottom/right crops so padding never overwrites canvas
-            # content
-            top, bottom, left, right = job.crops
-            crops[i] = (top, bottom + (self.tile_h - h),
-                        left, right + (self.tile_w - w))
-            valid[i] = True
+        with span('batch.build'):
+            n = self.batch_size
+            tiles = torch.empty((n, self.tile_h, self.tile_w),
+                                dtype=device_dtype(self.dtype),
+                                pin_memory=self.pin_memory)
+            view = tiles.numpy()
+            info = np.zeros((n, 4), np.int32)
+            crops = np.zeros((n, 4), np.int32)
+            valid = np.zeros((n,), bool)
+            view[len(chunk):] = 0
+            sizes = list(pool.map(carry(self._load_plane),
+                                  [(job, view[i])
+                                   for i, job in enumerate(chunk)]))
+            for i, (job, (h, w)) in enumerate(zip(chunk, sizes)):
+                info[i] = (job.channel_idx, job.z_level, job.y, job.x)
+                # undersized tiles fold the zero-pad deficit into the
+                # bottom/right crops so padding never overwrites canvas
+                # content
+                top, bottom, left, right = job.crops
+                crops[i] = (top, bottom + (self.tile_h - h),
+                            left, right + (self.tile_w - w))
+                valid[i] = True
         return TileBatch(tiles, info, crops, valid, len(chunk))
 
     def __iter__(self) -> Iterator[TileBatch]:
@@ -220,7 +225,8 @@ class TileBatchLoader:
             return False
 
         def producer():
-            with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
+            with ThreadPoolExecutor(max_workers=self.num_threads,
+                                    thread_name_prefix='tile-load') as pool:
                 try:
                     for chunk in chunks:
                         if not put(self._build_batch(chunk, pool)):
@@ -234,7 +240,8 @@ class TileBatchLoader:
         t.start()
         try:
             while True:
-                item = out_q.get()
+                with span('batch.wait'):
+                    item = out_q.get()
                 if item is sentinel:
                     break
                 if isinstance(item, Exception):

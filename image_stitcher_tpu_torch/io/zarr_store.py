@@ -44,6 +44,7 @@ from typing import Callable, Dict, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from ..utils.profiling import carry, span
 from . import blosc
 
 _DTYPE_TO_ZARR = {
@@ -140,7 +141,7 @@ def _fresh_array_dir(path: str) -> None:
 
 
 def _write_file(path: str, data) -> None:
-    with open(path, 'wb') as f:
+    with span('chunk.write', len(data)), open(path, 'wb') as f:
         f.write(data)
 
 
@@ -166,7 +167,7 @@ class EncodePool:
         self._lock = threading.Lock()
 
     def submit(self, nbytes: int, fn: Callable, *args) -> None:
-        fut = self._pool.submit(fn, *args)
+        fut = self._pool.submit(carry(fn), *args)
         drain = []
         with self._lock:
             self._pending.append((fut, nbytes))
@@ -175,8 +176,10 @@ class EncodePool:
                 old, n = self._pending.popleft()
                 self._pending_bytes -= n
                 drain.append(old)
-        for old in drain:
-            old.result()
+        if drain:
+            with span('encode.wait'):
+                for old in drain:
+                    old.result()
 
     def close(self) -> None:
         with self._lock:
@@ -263,16 +266,18 @@ class _RawWriter:
             # a gather straight from strided rows 15-20 % slower on
             # O_DIRECT (the kernel pins and splits every 4 KiB segment)
             from .directio import pwrite_direct
-            with self._staging_lock:
+            with self._staging_lock, span('chunk.write',
+                                          nrows * pitch_elems * item):
                 pwrite_direct(fd, self._staging, plane, self.dtype, row0,
                               col0, nrows, cols * item, pitch_elems * item,
                               off)
             return
         pad = (pitch_elems - cols) * item
-        rc = self._lib.write_rows_contig(
-            fd, plane.ctypes.data + row0 * plane.strides[0] + col0 * item,
-            plane.strides[0], nrows, cols * item,
-            self._pad.ctypes.data if pad else None, pad, off)
+        with span('chunk.write', nrows * pitch_elems * item):
+            rc = self._lib.write_rows_contig(
+                fd, plane.ctypes.data + row0 * plane.strides[0] + col0 * item,
+                plane.strides[0], nrows, cols * item,
+                self._pad.ctypes.data if pad else None, pad, off)
         if rc < 0:
             raise OSError(int(-rc), os.strerror(int(-rc)), fpath)
 
@@ -310,8 +315,9 @@ class _RawWriter:
 
 def _pwrite_all(fd: int, data, off: int) -> None:
     done = 0
-    while done < len(data):
-        done += os.pwrite(fd, data[done:], off + done)
+    with span('chunk.write', len(data)):
+        while done < len(data):
+            done += os.pwrite(fd, data[done:], off + done)
 
 
 class RawZarrArray(_RawWriter):
@@ -582,9 +588,12 @@ class BloscZarrArray:
     def _store_chunk(self, fpath: str, chunk: np.ndarray) -> None:
         if blosc.all_zero(chunk):
             return   # equal to the fill value: not stored
-        frame = (chunk.reshape(-1).view(np.uint8).data if self.cname is None
-                 else blosc.compress(chunk, self.dtype.itemsize, self.clevel,
-                                     self.shuffle, self.cname))
+        if self.cname is None:
+            frame = chunk.reshape(-1).view(np.uint8).data
+        else:
+            with span('chunk.encode', chunk.nbytes):
+                frame = blosc.compress(chunk, self.dtype.itemsize,
+                                       self.clevel, self.shuffle, self.cname)
         os.makedirs(os.path.dirname(fpath), exist_ok=True)
         _write_file(fpath, frame)
 

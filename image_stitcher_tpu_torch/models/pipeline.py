@@ -77,7 +77,7 @@ from ..ops.phasecorr import (horizontal_shift_from_pcc,
 from ..params import EngineOptions, StitchingParameters
 from ..state import CarriedState
 from ..utils.manifest import RunManifest, find_resumable
-from ..utils.profiling import StageTimers
+from ..utils.profiling import StageTimers, carry, span, timed
 from ..utils.progress import ProgressReporter, StitchCancelled
 from .merge import MergeStats, run_merges
 
@@ -274,7 +274,8 @@ class StitchPipeline:
         opts = self.options
         target = opts.flatfield_max_tiles + opts.flatfield_tiles_per_timepoint
         rnd = random.Random(0)
-        with ThreadPoolExecutor(opts.resolved_reader_threads()) as pool:
+        with ThreadPoolExecutor(opts.resolved_reader_threads(),
+                                thread_name_prefix='fit-load') as pool:
             for channel in acq.channel_names:
                 self._check_stop()
                 paths = []
@@ -291,8 +292,9 @@ class StitchPipeline:
                         break
                 if not paths:
                     continue
-                small = np.stack(list(pool.map(load_sample_small,
-                                               paths[:target])))
+                with span('fit.load'):
+                    small = np.stack(list(pool.map(carry(load_sample_small),
+                                                   paths[:target])))
                 if opts.flatfield_device == 'device':
                     small = pad_stack_cycled(small, target)
                 if small.ndim == 4 and small.shape[-1] == 3:
@@ -319,12 +321,13 @@ class StitchPipeline:
         out_hw = (acq.input_height, acq.input_width)
         for idx, stack in self.flatfield_stacks():
             self._check_stop()
-            if on_device:
-                field = fit_flatfield_stack(
-                    torch.from_numpy(stack).to(self.device)).cpu().numpy()
-            else:
-                field = fit_flatfield_stack_np(stack)
-            self.flatfields[idx] = finalize_flatfield(field, out_hw)
+            with span('fit.solve', stack.nbytes):
+                if on_device:
+                    field = fit_flatfield_stack(
+                        torch.from_numpy(stack).to(self.device)).cpu().numpy()
+                else:
+                    field = fit_flatfield_stack_np(stack)
+                self.flatfields[idx] = finalize_flatfield(field, out_hw)
             if self._ff_gate is not None:
                 self._ff_gate.publish(idx, self.flatfields[idx])
             self.reporter.update_progress(len(self.flatfields), acq.num_c)
@@ -705,7 +708,9 @@ class StitchPipeline:
                         if fill((a if side == 'a' else b)[i], src):
                             partial[i] = True
 
-                with ThreadPoolExecutor(opts.resolved_reader_threads()) as pool:
+                with ThreadPoolExecutor(opts.resolved_reader_threads(),
+                                        thread_name_prefix='pair-load'
+                                        ) as pool:
                     list(pool.map(load, list(needs)))
                 if partial.any():
                     dropped += int(partial.sum())
@@ -1211,16 +1216,16 @@ class StitchPipeline:
         stats = {'fuse': 0.0, 'readback_wait': [0.0] * len(canvas.bands),
                  'write': [0.0] * len(canvas.bands), 'close': 0.0,
                  'peak_host_bytes': 0}
-        t0 = time.perf_counter()
         processed = batches = 0
-        for batch in loader:
-            self._check_stop()
-            canvas.fuse_batch(batch.tiles, batch.info, batch.crops,
-                              batch.valid)
-            batches += 1
-            processed += batch.count
-            self.reporter.update_progress(processed, total)
-        stats['fuse'] = time.perf_counter() - t0
+        with timed('band.fuse') as fused:
+            for batch in loader:
+                self._check_stop()
+                canvas.fuse_batch(batch.tiles, batch.info, batch.crops,
+                                  batch.valid)
+                batches += 1
+                processed += batch.count
+                self.reporter.update_progress(processed, total)
+        stats['fuse'] = fused.seconds
         output_path = self.per_timepoint_region_output_template.format(
             timepoint=t, region=region)
         os.makedirs(os.path.dirname(output_path), exist_ok=True)
@@ -1248,21 +1253,21 @@ class StitchPipeline:
 
         def write(item):
             c, z, r0, host, event = item
-            t1 = time.perf_counter()
-            if event is not None:
-                event.synchronize()
-            t2 = time.perf_counter()
-            write_band_levels(writer, c, z, r0, band_levels(
-                host.numpy(), levels, opts.pyramid_downsample))
-            stats['readback_wait'][r0 // band] += t2 - t1
-            stats['write'][r0 // band] += time.perf_counter() - t2
+            with timed('band.readback_wait', host.nbytes) as waited:
+                if event is not None:
+                    event.synchronize()
+            with timed('band.write') as wrote:
+                write_band_levels(writer, c, z, r0, band_levels(
+                    host.numpy(), levels, opts.pyramid_downsample))
+            stats['readback_wait'][r0 // band] += waited.seconds
+            stats['write'][r0 // band] += wrote.seconds
             with lock:
                 live[0] -= host.nbytes
 
         write_behind(pieces(), write, writer)
-        t0 = time.perf_counter()
-        writer.close()
-        stats['close'] = time.perf_counter() - t0
+        with timed('band.close') as closed:
+            writer.close()
+        stats['close'] = closed.seconds
         if hasattr(writer, 'peak_buffer_bytes'):
             stats['peak_buffer_bytes'] = writer.peak_buffer_bytes
         self.fuse_stats[f"{region}_t{t}"] = dict(
@@ -1417,7 +1422,7 @@ class StitchPipeline:
                 manifest.save_flatfields(self.flatfields)
 
             pool = ThreadPoolExecutor(1, thread_name_prefix='flatfield-fit')
-            self._ff_future = pool.submit(gated_fit)
+            self._ff_future = pool.submit(carry(gated_fit))
             pool.shutdown(wait=False)
             if measure:
                 try:
@@ -1426,8 +1431,9 @@ class StitchPipeline:
                     self._reap_fit()
                     raise
         elif fit and measure and self.options.overlap_prep:
-            with ThreadPoolExecutor(1) as pool:
-                ff_future = pool.submit(fit_flatfields)
+            with ThreadPoolExecutor(1, thread_name_prefix='flatfield-fit'
+                                    ) as pool:
+                ff_future = pool.submit(carry(fit_flatfields))
                 try:
                     measure_shifts()
                 finally:

@@ -28,13 +28,15 @@ back.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import mmap
 import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -45,6 +47,7 @@ from ..ops import cuda_fuse
 from ..ops.host_fuse import (downsample2x_native, finalize_feather_host,
                              place_window)
 from ..ops.pyramid import host_downsample
+from ..utils.profiling import span, timed
 
 
 def band_rows_for(chunk_rows: int, num_levels: int) -> int:
@@ -60,7 +63,8 @@ def band_levels(buf: np.ndarray, num_levels: int, mode: str):
     level = buf
     for lv in range(num_levels):
         if lv > 0:
-            level = host_downsample(level, mode)
+            with span('band.fold', level.nbytes):
+                level = host_downsample(level, mode)
         if level.shape[0] == 0 or level.shape[1] == 0:
             return
         yield level
@@ -320,18 +324,18 @@ class StreamingFuser:
         self.blend = blend_method
         self.blend_px = blend_px
         self.chunk_c, self.chunk_z = chunk_planes
-        #: wall seconds summed over the band threads: 'gate' (waiting for
-        #: a channel's field), 'fill' (the band buffer zeroed), 'decode',
-        #: 'place', 'finalize', 'pyramid' (the folds), 'write' (the
-        #: writer, the hand-off's waits included), and 'close' (the
-        #: writer's close)
+        #: wall seconds summed over the band threads, each stage the sum
+        #: of its spans ``band.<stage>``: 'gate' (waiting for a channel's
+        #: field), 'fill' (the band buffer zeroed), 'decode', 'place',
+        #: 'finalize', 'pyramid' (the folds), 'write' (the writer, the
+        #: hand-off's waits included), and 'close' (the writer's close)
         self.stats = {'gate': 0.0, 'fill': 0.0, 'decode': 0.0, 'place': 0.0,
                       'finalize': 0.0, 'pyramid': 0.0, 'write': 0.0,
                       'close': 0.0}
-        #: the same stages in on-core seconds (``time.thread_time``): on a
+        #: the same stages in on-core seconds (the spans' ``cpu_s``): on a
         #: busy host the wall sums bill waits to whatever stage held the
         #: thread; these bound a run with every core to itself
-        self.cpu: Dict[str, float] = {}
+        self.cpu: Dict[str, float] = dict.fromkeys(self.stats, 0.0)
         #: band tasks run; time.perf_counter() when the first one passed
         #: its gate; level-0 chunk-column blocks the raw writer took
         #: whole, and those it refused (written as rows instead); bands
@@ -367,23 +371,15 @@ class StreamingFuser:
         self._parked: Dict[Tuple[int, int, int], Tuple[List, int]] = {}
         self._left: Dict[int, int] = {}   # bands of a z group not written
 
-    def _tick(self, key: str, t0: float) -> float:
-        """Add the wall time since ``t0`` and this thread's on-core time
-        since its last tick (or :meth:`_cpu_mark`) to stage ``key``."""
-        t1 = time.perf_counter()
-        c1 = time.thread_time()
-        c0 = getattr(self._tl, 'cpu0', c1)
+    @contextlib.contextmanager
+    def _stage(self, key: str) -> Iterator[None]:
+        """A span ``band.<key>`` whose wall and on-core seconds add to
+        stage ``key``."""
+        with timed('band.' + key) as s:
+            yield
         with self._lock:
-            self.stats[key] += t1 - t0
-            self.cpu[key] = self.cpu.get(key, 0.0) + (c1 - c0)
-        self._tl.cpu0 = c1
-        return t1
-
-    def _cpu_mark(self) -> None:
-        """Start an on-core segment on this thread, so the first tick
-        after a gap that no stage owns (the pool's scheduling) does not
-        absorb it."""
-        self._tl.cpu0 = time.thread_time()
+            self.stats[key] += s.seconds
+            self.cpu[key] += s.cpu_s
 
     @staticmethod
     def _pool(shape: Tuple[int, ...], dtype: np.dtype) -> np.ndarray:
@@ -512,20 +508,19 @@ class StreamingFuser:
     def _process_band(self, c: int, z: int, band0: int, jobs: Sequence,
                       load_fn: Callable, progress_cb=None,
                       stop_check=None) -> None:
-        t0 = time.perf_counter()
-        self._cpu_mark()
-        if self.ff_gate is not None:
-            # parks until channel c's field lands; the fit publishes the
-            # channels in order, so only later channels' first bands wait
-            self.ff_recip = self.ff_gate.wait(c)
-        t0 = self._tick('gate', t0)
+        with self._stage('gate'):
+            if self.ff_gate is not None:
+                # parks until channel c's field lands; the fit publishes
+                # the channels in order, so only later channels' first
+                # bands wait
+                self.ff_recip = self.ff_gate.wait(c)
         with self._lock:
             self.bands += 1
             if self.first_band_at is None:
-                self.first_band_at = t0
+                self.first_band_at = time.perf_counter()
         rows = min(self.band, self.height - band0)
-        buf, filled = self._band_buffer(jobs, band0, rows)
-        self._tick('fill', t0)
+        with self._stage('fill'):
+            buf, filled = self._band_buffer(jobs, band0, rows)
         nominal = (self.tile_h, self.tile_w)
         reported = -1   # the last job whose progress fired
         i = 0
@@ -533,9 +528,8 @@ class StreamingFuser:
             job, is_primary = jobs[i]
             if stop_check is not None:
                 stop_check()
-            t0 = time.perf_counter()
-            tile = load_fn(job)
-            t0 = self._tick('decode', t0)
+            with self._stage('decode'):
+                tile = load_fn(job)
             if not filled and tile.shape[-2:] != nominal:
                 # a tile unlike its nominal rect breaks the coverage proof
                 # the skipped fill rested on: zero the band and replay its
@@ -546,8 +540,8 @@ class StreamingFuser:
                 filled = True
                 i = 0
                 continue
-            self._place_in_band(buf, band0, rows, job, tile)
-            self._tick('place', t0)
+            with self._stage('place'):
+                self._place_in_band(buf, band0, rows, job, tile)
             if progress_cb is not None and is_primary and i > reported:
                 reported = i
                 progress_cb()
@@ -555,19 +549,17 @@ class StreamingFuser:
         if not filled:
             with self._lock:
                 self.fill_skips += 1
-        t0 = time.perf_counter()
         if self._block_cx:
-            self._tick('finalize', t0)
             self._write_blocks(c, z, band0, buf)
             return
         if self.blend == 'feather':
-            buf = finalize_feather_host(buf[0], buf[1], self.dtype)
-        t0 = self._tick('finalize', t0)
+            with self._stage('finalize'):
+                buf = finalize_feather_host(buf[0], buf[1], self.dtype)
         # the folds run on this thread, outside the write lock
-        levels = list(band_levels(buf, self.num_levels, self.mode))
-        t0 = self._tick('pyramid', t0)
-        released = self._write_in_order(c, z, band0, levels)
-        self._tick('write', t0)
+        with self._stage('pyramid'):
+            levels = list(band_levels(buf, self.num_levels, self.mode))
+        with self._stage('write'):
+            released = self._write_in_order(c, z, band0, levels)
         if not released and self.blend != 'feather':
             # the band is parked, or the writer keeps views of it: the
             # thread's next band gets a fresh buffer
@@ -584,27 +576,26 @@ class StreamingFuser:
         -order hand-off. The writer releases every block (raw writes are
         synchronous), so the pool is reused."""
         ncx, rows, cx = blocks.shape
-        t0 = time.perf_counter()
-        taken = sum(self.writer.write_level_block(0, c, z, band0, cxi,
-                                                  blocks[cxi])
-                    for cxi in range(ncx))
+        with self._stage('write'):
+            taken = sum(self.writer.write_level_block(0, c, z, band0, cxi,
+                                                      blocks[cxi])
+                        for cxi in range(ncx))
         with self._lock:
             self.blocks += taken
             self.block_refusals += ncx - taken
-        t0 = self._tick('write', t0)
         w1, h1, cw1 = self.width // 2, rows // 2, cx // 2
         levels: List[np.ndarray] = []
-        if self.num_levels > 1 and h1 and w1:
-            level1 = np.empty((h1, ncx * cw1), self.dtype)
-            for i in range(ncx):
-                downsample2x_native(blocks[i], self.mode,
-                                    level1[:, i * cw1:(i + 1) * cw1])
-            levels = list(band_levels(level1[:, :w1], self.num_levels - 1,
-                                      self.mode))
-        t0 = self._tick('pyramid', t0)
+        with self._stage('pyramid'):
+            if self.num_levels > 1 and h1 and w1:
+                level1 = np.empty((h1, ncx * cw1), self.dtype)
+                for i in range(ncx):
+                    downsample2x_native(blocks[i], self.mode,
+                                        level1[:, i * cw1:(i + 1) * cw1])
+                levels = list(band_levels(level1[:, :w1],
+                                          self.num_levels - 1, self.mode))
         # every band of a plane takes its turn, with or without levels
-        self._write_in_order(c, z, band0, levels, 1)
-        self._tick('write', t0)
+        with self._stage('write'):
+            self._write_in_order(c, z, band0, levels, 1)
 
     def _write_in_order(self, c: int, z: int, band0: int,
                         levels: List[np.ndarray],
@@ -692,10 +683,8 @@ class StreamingFuser:
             raise
         finally:
             pool.shutdown(wait=True)
-        t0 = time.perf_counter()
-        self._cpu_mark()
-        self.writer.close()
-        self._tick('close', t0)
+        with self._stage('close'):
+            self.writer.close()
 
 
 class DeviceStreamingFuser:
@@ -735,9 +724,12 @@ class DeviceStreamingFuser:
                       if self.device.type == 'cuda' else None)
         #: batches placed (one placement kernel launch each on CUDA)
         self.batches = 0
-        #: wall seconds: 'fuse' (main thread, loads + uploads + launches),
-        #: 'readback_wait' and 'write' (writer thread), 'close' (the
-        #: writer's last chunks encoded and written after the last band)
+        #: wall seconds, each the sum of its spans: 'fuse' (main thread,
+        #: loads + uploads + launches: ``band.fuse``), 'readback_wait'
+        #: and 'write' (writer thread: ``band.readback_wait``, then
+        #: ``band.write``, the folds' ``band.fold`` inside it), 'close'
+        #: (the writer's last chunks encoded and written after the last
+        #: band: ``band.close``)
         self.stats = {'fuse': 0.0, 'readback_wait': 0.0, 'write': 0.0,
                       'close': 0.0}
 
@@ -838,10 +830,11 @@ class DeviceStreamingFuser:
                 if stop_check is not None:
                     stop_check()
                 c, z, band0 = key
-                t0 = time.perf_counter()
-                host, event = self._fuse_band(c, band0, tasks[key], progress,
-                                              stop_check=stop_check)
-                self.stats['fuse'] += time.perf_counter() - t0
+                with timed('band.fuse') as s:
+                    host, event = self._fuse_band(c, band0, tasks[key],
+                                                  progress,
+                                                  stop_check=stop_check)
+                self.stats['fuse'] += s.seconds
                 # the z group's last band: its chunk rows can be encoded
                 last = (i + 1 == len(order) or order[i + 1][1] // self.chunk_z
                         != z // self.chunk_z)
@@ -850,19 +843,19 @@ class DeviceStreamingFuser:
 
         def write(item):
             c, z, band0, host, event, last = item
-            t0 = time.perf_counter()
-            if event is not None:
-                event.synchronize()
-            t1 = time.perf_counter()
-            write_band_levels(self.writer, c, z, band0,
-                              band_levels(host.numpy(), self.num_levels,
-                                          self.mode))
-            if last and finish is not None:
-                finish(0, z)
-            self.stats['readback_wait'] += t1 - t0
-            self.stats['write'] += time.perf_counter() - t1
+            with timed('band.readback_wait', host.nbytes) as waited:
+                if event is not None:
+                    event.synchronize()
+            with timed('band.write') as wrote:
+                write_band_levels(self.writer, c, z, band0,
+                                  band_levels(host.numpy(), self.num_levels,
+                                              self.mode))
+                if last and finish is not None:
+                    finish(0, z)
+            self.stats['readback_wait'] += waited.seconds
+            self.stats['write'] += wrote.seconds
 
         write_behind(fused(), write, self.writer)
-        t0 = time.perf_counter()
-        self.writer.close()
-        self.stats['close'] = time.perf_counter() - t0
+        with timed('band.close') as closed:
+            self.writer.close()
+        self.stats['close'] = closed.seconds

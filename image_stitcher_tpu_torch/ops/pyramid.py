@@ -26,6 +26,7 @@ from typing import Iterator, List, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .fuse import to_storage
 
 
@@ -92,7 +93,8 @@ def iter_host_levels(canvas, num_levels: int, mode: str) -> Iterator:
         if isinstance(level, torch.Tensor):
             host = torch.empty(tuple(level.shape), dtype=level.dtype,
                                pin_memory=level.device.type == 'cuda')
-            host.copy_(level)   # waits for the copy: host is read next
+            with span('save.d2h', host.nbytes):
+                host.copy_(level)   # waits for the copy: host is read next
             level = host.numpy()
         yield level
 

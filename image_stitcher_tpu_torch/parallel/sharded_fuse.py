@@ -68,11 +68,8 @@ class _Band:
         self.canvas: Optional[torch.Tensor] = None
         self.acc: Optional[torch.Tensor] = None
         self.wsum: Optional[torch.Tensor] = None
-        #: kernel launches on this band, and the CUDA events around each
-        #: batch's launches (device time, read by :meth:`ShardedCanvas.
-        #: band_stats`)
+        #: kernel launches on this band
         self.launches = 0
-        self.events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
 
 
 class ShardedCanvas:
@@ -169,11 +166,6 @@ class ShardedCanvas:
             dinfo = info.copy()
             dinfo[:, 2] = y_local
             meta = (torch.from_numpy(dinfo), crops_t, torch.from_numpy(mask))
-            timed = dev.type == 'cuda'
-            if timed:
-                ev = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-                ev[0].record(torch.cuda.current_stream(dev))
             if self.blend == 'feather':
                 cuda_fuse.fuse_feather(band.acc, band.wsum, uploads[dev],
                                        *meta, ff_recip=self._field(dev),
@@ -181,9 +173,6 @@ class ShardedCanvas:
             else:
                 cuda_fuse.fuse_overwrite(band.canvas, uploads[dev], *meta,
                                          ff_recip=self._field(dev))
-            if timed:
-                ev[1].record(torch.cuda.current_stream(dev))
-                band.events.append(ev)
             band.launches += 1
 
     def _core(self, band: _Band) -> torch.Tensor:
@@ -261,15 +250,7 @@ class ShardedCanvas:
             del core
 
     def band_stats(self) -> List[Dict]:
-        """Per band: its device, rows, launches and, on CUDA, the device
-        milliseconds of its launches (CUDA events; waits for them)."""
-        out = []
-        for band in self.bands:
-            ms = None
-            if band.events:
-                band.events[-1][1].synchronize()
-                ms = sum(a.elapsed_time(b) for a, b in band.events)
-            out.append({'band': band.index, 'device': str(band.device),
-                        'start': band.start, 'rows': band.rows,
-                        'launches': band.launches, 'fuse_ms': ms})
-        return out
+        """Per band: its device, rows and launches."""
+        return [{'band': band.index, 'device': str(band.device),
+                 'start': band.start, 'rows': band.rows,
+                 'launches': band.launches} for band in self.bands]
